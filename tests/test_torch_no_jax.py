@@ -1,0 +1,64 @@
+"""The port stands alone: it imports no JAX and nothing of the JAX
+package, and on CPU tensors no kernel is launched."""
+
+import subprocess
+import sys
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+import tpu_superresolution_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "tpu_superresolution_tpu"))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_port_imports_no_jax():
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    n_modules = int(proc.stdout.split()[0])
+    assert n_modules >= 20
+
+
+def test_cpu_forward_launches_no_kernel():
+    from tpu_superresolution_torch.core.config import SwinIRConfig, build_model
+    from tpu_superresolution_torch.kernels import read_counters, reset_counters
+
+    model = build_model(SwinIRConfig(embed_dim=24, depths=(2,), num_heads=(2,)))
+    reset_counters()
+    with torch.no_grad():
+        y = model(torch.rand(1, 16, 16, 3))
+    assert y.shape == (1, 64, 64, 3)
+    assert read_counters() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+
+
+def test_wrappers_refuse_devices_without_a_kernel():
+    """A tensor on neither the CPU nor CUDA gets neither version."""
+    from tpu_superresolution_torch.kernels.cab_conv import conv3x3
+    from tpu_superresolution_torch.kernels.layernorm import layernorm
+
+    x = torch.empty(1, 8, 8, 16, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        layernorm(x, torch.ones(16, device="meta"), torch.zeros(16, device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        conv3x3(x, torch.empty(3, 3, 16, 16, device="meta"), torch.empty(16, device="meta"))
+
+
+def test_kernel_build_is_lazy():
+    """Importing the kernels builds nothing; the library is keyed by a
+    hash of the sources."""
+    from tpu_superresolution_torch.kernels import _lib
+
+    assert _lib.library.cache_info().currsize == 0
+    name = _lib.library_path().name
+    assert name.startswith("libsr_kernels_") and _lib.source_hash() in name

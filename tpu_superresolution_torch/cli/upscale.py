@@ -1,0 +1,205 @@
+"""Single-image super-resolution with a reference torch ``.pt/.pth``
+SwinIR checkpoint (port of ``tpu_superresolution_tpu/cli/upscale.py``):
+
+    python -m tpu_superresolution_torch.cli.upscale \\
+        --ckpt model.pth --model swinir --scale X4 --image photo.png
+
+decode -> (auto-)tiled SwinIR forward -> PNG.  On a CUDA device the
+model computes in bf16 through the port's kernels; on the CPU in fp32
+through their plain versions.  Orbax checkpoints, the other model
+families and multi-GPU sharding are still to port (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+# Auto-tiling threshold on the LONG edge: whole-image forward at or
+# below it, tiled above it.
+AUTO_TILE_MIN_EDGE = 256
+AUTO_TILE = 192
+AUTO_OVERLAP = 16
+AUTO_TILE_BATCH = 8
+
+PORTED_MODELS = ("swinir",)
+MODEL_CHOICES = ("ms_resunet", "unet2d", "swinir", "hat", "dat")
+
+
+def auto_tile(h: int, w: int) -> int:
+    """0 (whole image) up to the long-edge threshold, else the tile."""
+    return AUTO_TILE if max(h, w) > AUTO_TILE_MIN_EDGE else 0
+
+
+def default_device() -> torch.device:
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+def load_any_checkpoint(ckpt: str, model_name: str, scale_int: int, exact=None,
+                        device: Optional[torch.device] = None,
+                        dtype: Optional[torch.dtype] = None):
+    """Load a reference torch .pt/.pth SwinIR checkpoint (architecture
+    inferred from tensor shapes) into the port.  Returns
+    (model_config, model).  `exact=None` means exact for torch
+    checkpoints: no fused reconstruction, erf GELU."""
+    from tpu_superresolution_torch.core.config import build_model
+    from tpu_superresolution_torch.core.dtypes import serving_dtype
+    from tpu_superresolution_torch.interop import (
+        infer_swinir_config,
+        load_torch_checkpoint,
+        strip_reference_buffers,
+    )
+
+    if model_name not in PORTED_MODELS:
+        raise SystemExit(
+            f"--model {model_name}: only {', '.join(PORTED_MODELS)} is ported to PyTorch "
+            "so far; the other families are queued in ROADMAP.md"
+        )
+    if not ckpt.endswith((".pt", ".pth")):
+        raise SystemExit(
+            f"{ckpt}: the PyTorch port loads reference .pt/.pth checkpoints only; "
+            "Orbax checkpoints are still to port (ROADMAP.md)"
+        )
+    device = default_device() if device is None else device
+    sd = strip_reference_buffers(load_torch_checkpoint(ckpt))
+    mcfg = infer_swinir_config(sd, scale_int)
+    if exact is None or exact:
+        mcfg = dataclasses.replace(mcfg, fused_reconstruct=False, gelu_approximate=False)
+    model = build_model(mcfg, dtype=dtype or serving_dtype(device))
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, strict=True)
+    return mcfg, model.to(device).eval()
+
+
+def load_for_inference(ckpt: str, model_name: str, scale_arg, exact,
+                       device: Optional[torch.device] = None,
+                       dtype: Optional[torch.dtype] = None):
+    """Shared upscale/serve loading: returns (mcfg, model, scale,
+    convention, channels).  `scale_arg` is the CLI's 'X2'/'X4'/None."""
+    if scale_arg is None:
+        raise SystemExit("--scale is required for torch .pt/.pth checkpoints")
+    scale_int = int(scale_arg[1:])
+    mcfg, model = load_any_checkpoint(ckpt, model_name, scale_int, exact, device, dtype)
+    convention = "native_lr" if mcfg.upsamples_internally else "pre_upscale"
+    return mcfg, model, mcfg.scale, convention, mcfg.in_channels
+
+
+class ForwardCache:
+    """Per-(tile, overlap) whole-image forwards sharing one loaded model
+    (used by this CLI and cli/serve.py), FIFO-bounded so client-chosen
+    tiling configs cannot grow it without bound."""
+
+    def __init__(self, model, scale, convention, tile_batch, max_entries=8):
+        self.model, self.scale, self.convention = model, scale, convention
+        self.tile_batch, self.max_entries = tile_batch, max_entries
+        self._cache = {}
+
+    def get(self, tile, overlap):
+        from tpu_superresolution_torch.core.config import EvalConfig
+        from tpu_superresolution_torch.evaluate.runner import Evaluator
+
+        key = (tile, overlap)
+        if key not in self._cache:
+            if len(self._cache) >= self.max_entries:
+                self._cache.pop(next(iter(self._cache)))
+            ecfg = EvalConfig(
+                batch_size=1,
+                tile_size=tile or None,
+                tile_overlap=overlap,
+                max_tile_batch=self.tile_batch or None,
+            )
+            self._cache[key] = Evaluator(self.model, self.scale, self.convention,
+                                         ecfg).forward_fn()
+        return self._cache[key]
+
+
+def report_device(device: torch.device) -> None:
+    if device.type == "cuda":
+        print(f"[device] {torch.cuda.get_device_name(device)} x{torch.cuda.device_count()} "
+              "(bf16, port kernels)", flush=True)
+    else:
+        print("[device] cpu (fp32, plain versions of the kernels)", flush=True)
+
+
+def build_argparser():
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--image", type=str, nargs="+", required=True, help="input image file(s)")
+    ap.add_argument("--ckpt", type=str, required=True, help="reference torch .pt/.pth")
+    ap.add_argument("--model", type=str, default="swinir", choices=MODEL_CHOICES,
+                    help="architecture of the checkpoint (only swinir is ported)")
+    ap.add_argument("--scale", type=str, choices=["X2", "X4"], required=True)
+    ap.add_argument("--out", type=str, default=None,
+                    help="output file (single input) or directory (default: next to "
+                         "each input as <stem>_srNx.png)")
+    ap.add_argument("--tile", type=int, default=-1,
+                    help=f"-1 = auto (whole image if the long edge is <= "
+                         f"{AUTO_TILE_MIN_EDGE}px, else tile {AUTO_TILE}); 0 = whole "
+                         "image; N = tile size")
+    ap.add_argument("--tile_overlap", type=int, default=AUTO_OVERLAP)
+    ap.add_argument("--tile_batch", type=int, default=AUTO_TILE_BATCH,
+                    help="max tiles per model call (0 = all in one batch)")
+    ap.add_argument("--exact", action=argparse.BooleanOptionalAction, default=None,
+                    help="reference-exact semantics (chain reconstruction, erf GELU); "
+                         "default ON for torch checkpoints; --no-exact gives the "
+                         "serving path (fused reconstruction, tanh GELU)")
+    ap.add_argument("--rescale_png", action="store_true",
+                    help="min-max rescale the output instead of clamping")
+    return ap
+
+
+def main(argv=None):
+    args = build_argparser().parse_args(argv)
+
+    from tpu_superresolution_torch.data.decode import decode_image
+    from tpu_superresolution_torch.evaluate.runner import save_tensor_as_png
+
+    device = default_device()
+    report_device(device)
+    mcfg, model, scale, convention, channels = load_for_inference(
+        args.ckpt, args.model, args.scale, args.exact, device
+    )
+    print(f"[ckpt] {args.ckpt}: model={mcfg.name} scale=X{scale}")
+
+    multi = len(args.image) > 1
+    out_dir = None
+    if args.out is not None and (multi or Path(args.out).is_dir()):
+        out_dir = Path(args.out)
+        out_dir.mkdir(parents=True, exist_ok=True)
+    fwd_cache = ForwardCache(model, scale, convention, args.tile_batch)
+
+    outs, used_names = [], set()
+    for path in args.image:
+        p = Path(path)
+        img = decode_image(p, grayscale=channels == 1, channels=channels)
+        h, w = img.shape[:2]
+        tile = args.tile if args.tile >= 0 else auto_tile(h, w)
+        fwd = fwd_cache.get(tile, args.tile_overlap)
+        t0 = time.time()
+        sr = fwd(torch.from_numpy(img)[None].to(device))[0].cpu().numpy()
+        dt = time.time() - t0
+        if out_dir is not None:
+            out_path = out_dir / f"{p.stem}_sr{scale}x.png"
+            k = 1
+            while str(out_path) in used_names:  # same stem, different dir
+                out_path = out_dir / f"{p.stem}_sr{scale}x_{k}.png"
+                k += 1
+            used_names.add(str(out_path))
+        elif args.out is not None:
+            out_path = Path(args.out)
+        else:
+            out_path = p.with_name(f"{p.stem}_sr{scale}x.png")
+        save_tensor_as_png(sr, out_path, per_image_rescale=args.rescale_png)
+        mode = f"tile {tile}/{args.tile_overlap}" if tile else "whole image"
+        print(f"[sr] {p} [{h}x{w}] -> {out_path} [{h * scale}x{w * scale}] "
+              f"({mode}, {dt:.1f}s incl. kernel build)")
+        outs.append(str(out_path))
+    return outs
+
+
+if __name__ == "__main__":
+    main()

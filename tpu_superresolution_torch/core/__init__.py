@@ -1,0 +1,24 @@
+from .config import (
+    EvalConfig,
+    ModelConfig,
+    SwinIRConfig,
+    build_model,
+    config_from_dict,
+    model_registry,
+    register_model,
+)
+from .dtypes import COMPUTE_DTYPE, OUTPUT_DTYPE, PARAM_DTYPE, serving_dtype
+
+__all__ = [
+    "EvalConfig",
+    "ModelConfig",
+    "SwinIRConfig",
+    "build_model",
+    "config_from_dict",
+    "model_registry",
+    "register_model",
+    "COMPUTE_DTYPE",
+    "OUTPUT_DTYPE",
+    "PARAM_DTYPE",
+    "serving_dtype",
+]

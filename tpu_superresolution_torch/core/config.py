@@ -1,0 +1,137 @@
+"""Config dataclasses + model registry (port of
+``tpu_superresolution_tpu/core/config.py``).
+
+The dataclasses keep the JAX package's field names and defaults, so a
+``to_dict()`` from either package rebuilds through the other's
+``config_from_dict``.  Only ``swinir`` is registered in the port so
+far; the other families are listed in ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Base class for model configs; `name` keys the registry."""
+
+    name: str = "base"
+    in_channels: int = 1
+    out_channels: int = 1
+    scale: int = 2
+
+    def to_dict(self) -> Dict[str, Any]:
+        d = dataclasses.asdict(self)
+        d["__model__"] = self.name
+        return d
+
+    @property
+    def upsamples_internally(self) -> bool:
+        """True if forward maps [B,H,W,C] -> [B,H*s,W*s,C]."""
+        return False
+
+
+@dataclass(frozen=True)
+class SwinIRConfig(ModelConfig):
+    """SwinIR window-attention transformer (reference
+    network_swinir.py:618-851).  Defaults = SwinIR-M x4."""
+
+    name: str = "swinir"
+    in_channels: int = 3
+    out_channels: int = 3
+    scale: int = 4
+    img_size: int = 64
+    window_size: int = 8
+    embed_dim: int = 180
+    depths: Tuple[int, ...] = (6, 6, 6, 6, 6, 6)
+    num_heads: Tuple[int, ...] = (6, 6, 6, 6, 6, 6)
+    mlp_ratio: float = 2.0
+    qkv_bias: bool = True
+    upsampler: str = "pixelshuffle"  # pixelshuffle|pixelshuffledirect|nearest+conv|""
+    resi_connection: str = "1conv"  # "1conv" | "3conv"
+    ape: bool = False
+    patch_norm: bool = True
+    num_feat: int = 64
+    img_range: float = 1.0
+    use_remat: bool = False
+    # Kept for dict round-trips with the JAX package; the port picks its
+    # implementation from the tensors' device (see build_model's `impl`).
+    attention_impl: str = "auto"
+    # tanh-GELU is the serving default; torch checkpoints and --exact use
+    # the reference's exact erf.
+    gelu_approximate: bool = True
+    drop_path_rate: float = 0.1
+    # One composed conv + one pixel_shuffle for the linear reconstruction
+    # tail (ops/fused_upsample.py); exact in the interior, a border ring
+    # of up to 3*scale output pixels differs.
+    fused_reconstruct: bool = True
+
+    @property
+    def upsamples_internally(self) -> bool:
+        return True
+
+
+@dataclass(frozen=True)
+class EvalConfig:
+    batch_size: int = 4
+    tile_size: Optional[int] = None  # None = whole image
+    tile_overlap: int = 16
+    # Cap on tiles per model call (None = all tiles in one batch).
+    max_tile_batch: Optional[int] = None
+    save_n: int = 0
+    save_every: Optional[int] = None
+    save_start: int = 0
+    save_indices: Tuple[int, ...] = ()
+    rescale_png: bool = False
+    # x8 geometric self-ensemble: average over 4 rotations x 2 flips.
+    self_ensemble: bool = False
+
+
+model_registry: Dict[str, Tuple[type, Callable]] = {}
+
+
+def register_model(name: str, config_cls: type, build_fn: Callable) -> None:
+    model_registry[name] = (config_cls, build_fn)
+
+
+def _ensure_registered() -> None:
+    from tpu_superresolution_torch import models as _models  # noqa: F401
+
+
+def build_model(config: ModelConfig, dtype=None, impl: str = "auto", device=None):
+    """Build an ``nn.Module`` from a config via the registry.
+
+    `dtype` is the compute dtype (parameters stay fp32; default fp32).
+    `impl`: "auto" runs the kernels on CUDA tensors and their plain
+    versions on CPU tensors; "plain" runs the plain versions on any
+    device (the reference path the kernels are held against).
+    """
+    _ensure_registered()
+    if config.name not in model_registry:
+        raise KeyError(
+            f"Unknown model '{config.name}'. Registered: {sorted(model_registry)} "
+            "(the other families are still to port, see ROADMAP.md)"
+        )
+    _, build_fn = model_registry[config.name]
+    model = build_fn(config, dtype=dtype, impl=impl)
+    return model if device is None else model.to(device)
+
+
+def config_from_dict(d: Dict[str, Any]) -> ModelConfig:
+    """Rebuild a config from its serialized dict (checkpoint round-trip)."""
+    _ensure_registered()
+    d = dict(d)
+    name = d.pop("__model__", d.get("name"))
+    if name not in model_registry:
+        raise KeyError(f"Unknown model '{name}' in checkpoint config")
+    config_cls, _ = model_registry[name]
+    fields = {f.name for f in dataclasses.fields(config_cls)}
+    kwargs = {k: v for k, v in d.items() if k in fields}
+    # JSON round-trips tuples as lists; restore tuple-typed fields.
+    for f in dataclasses.fields(config_cls):
+        if f.name in kwargs and isinstance(kwargs[f.name], list):
+            kwargs[f.name] = tuple(kwargs[f.name])
+    return config_cls(**kwargs)

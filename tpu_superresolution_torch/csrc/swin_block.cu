@@ -1,0 +1,421 @@
+// K1 — one whole Swin transformer block (inference) per 8x8 window.
+//
+// Replaces: tpu_superresolution_tpu/ops/pallas/fused_block.py
+//           fused_swin_block -> _mega_forward -> _kernel (strip mode, no
+//           `extra`, no branch scales, no sample fold).
+// Math (per window of N = 64 tokens, C <= 192 channels, nh heads of
+//       hd <= 32, MLP hidden <= 384):
+//         x1  = x + proj(softmax(q k^T * scale + rpb[h] + mask[win]) v)
+//               with q, k, v = LN1(x) Wqkv + bqkv
+//         out = x1 + fc2(gelu(fc1(LN2(x1))))
+//       LayerNorm uses fp32 fast-variance statistics (E[x^2] - E[x]^2,
+//       clamped at 0, eps 1e-5); softmax is fp32; GELU is tanh or erf;
+//       matmul operands are bf16 with fp32 accumulation; the residual
+//       stream stays fp32 inside the block.
+// Cyclic shift: the window's token (i, j) reads and writes pixel
+//       ((wy*8 + i + s) mod H, (wx*8 + j + s) mod W), so the block computes
+//       cyclic_unshift(block(cyclic_shift(x, s)), s) with no roll pass.
+// Bound on the H100: at the main path's shapes each window does ~41
+//       MFLOP of bf16 GEMMs against ~46 KB of activations in and out, so
+//       the block is compute-bound in principle; this first version runs
+//       at ~6% of the bf16 peak instead.  One 384-thread block per window
+//       holds ~209 KB of shared memory, so an SM runs one window at a
+//       time through ~20 barrier-separated phases (clock64 timing of one
+//       block: GEMMs ~55%, attention ~25%, loads + LayerNorms ~20%), and
+//       each 16x16 accumulator tile passes through a shared-memory
+//       staging tile because the WMMA fragment layout is opaque.  Reading
+//       the weight fragments from shared memory instead of L2 did not
+//       change the GEMM time.
+// Design: everything between the x read and the out write stays in
+//       shared memory: x/x1 fp32 [64][192], LN output bf16 [64][200],
+//       qkv bf16 [64][584] (reused for the MLP hidden [64][392]), one
+//       head's scores fp32 [64][68] and probabilities bf16 [64][72], the
+//       attention output bf16 [64][200], and a 1 KB epilogue tile per
+//       warp.  Head dims are zero-padded 30 -> 32 and channels 180 -> 192
+//       by the host-side weight packing (pack_block_weights), so every
+//       GEMM is whole 16x16x16 WMMA tiles.  Each warp owns 64x16 output
+//       strips.  wgmma, TMA weight staging and several windows per block
+//       are later work.
+#include <mma.h>
+
+#include "common.cuh"
+
+using namespace nvcuda;
+
+namespace {
+
+constexpr int WS = 8;
+constexpr int NT = WS * WS;  // tokens per window
+constexpr int CP = 192;      // padded channels
+constexpr int HDP = 32;      // padded head dim
+constexpr int QKVP = 3 * CP;  // 576
+constexpr int HIDP = 384;     // padded MLP hidden
+constexpr int NWARPS = 12;
+constexpr int NTHREADS = NWARPS * 32;
+
+constexpr int LDX = CP;         // fp32
+constexpr int LDY = CP + 8;     // bf16
+constexpr int LDQKV = QKVP + 8;  // bf16
+constexpr int LDH = HIDP + 8;   // bf16
+constexpr int LDS = NT + 4;     // fp32
+constexpr int LDP = NT + 8;     // bf16
+constexpr int LDO = CP + 8;     // bf16
+
+constexpr int OFF_X = 0;
+constexpr int OFF_Y = OFF_X + NT * LDX * 4;
+constexpr int OFF_QKV = OFF_Y + NT * LDY * 2;
+constexpr int QKV_BYTES = NT * LDQKV * 2 > NT * LDH * 2 ? NT * LDQKV * 2 : NT * LDH * 2;
+constexpr int OFF_S = OFF_QKV + QKV_BYTES;
+constexpr int OFF_P = OFF_S + NT * LDS * 4;
+constexpr int OFF_O = OFF_P + NT * LDP * 2;
+constexpr int OFF_STG = OFF_O + NT * LDO * 2;
+constexpr int SMEM_BYTES = OFF_STG + NWARPS * 256 * 4;
+static_assert(SMEM_BYTES <= 232448, "over the 227 KB shared-memory limit");
+static_assert(OFF_Y % 128 == 0 && OFF_QKV % 128 == 0 && OFF_S % 128 == 0 &&
+                  OFF_P % 128 == 0 && OFF_O % 128 == 0 && OFF_STG % 128 == 0,
+              "shared buffers must stay 128-byte aligned");
+
+struct BlockArgs {
+  const bf16* x;
+  bf16* y;
+  const float* g1;
+  const float* b1;
+  const float* g2;
+  const float* b2;
+  // GEMM weights are [out, in] (the nn.Linear layout, zero-padded), so
+  // a 16x16 B fragment is read as column-major: each thread's k-pairs
+  // are contiguous 4-byte words.
+  const bf16* wqkv;   // [QKVP, CP], q rows pre-scaled
+  const float* bqkv;  // [QKVP]
+  const bf16* wproj;  // [CP, CP]  (columns = head-padded attention channels)
+  const float* bproj;  // [CP]
+  const bf16* wfc1;   // [HIDP, CP]
+  const float* bfc1;  // [HIDP]
+  const bf16* wfc2;   // [CP, HIDP]
+  const float* bfc2;  // [CP]
+  const float* rpb;   // [nh, NT, NT]
+  const float* mask;  // [nW, NT, NT] or null
+  int batch, h, w, c, nh, shift, gelu_tanh;
+  float eps;
+};
+
+typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
+typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
+typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
+typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBt;
+
+// acc[mt] = A[64 x K_DIM] (shared, row-major) @ W[n0:n0+16, 0:K_DIM]^T
+// (W global, [out, in] row-major with leading dimension K_DIM), for the
+// window's four 16-row tiles.  Read as a column-major B fragment, each
+// thread's k-pairs of W are contiguous 4-byte words.
+template <int K_DIM>
+__device__ __forceinline__ void gemm_strip(Acc (&acc)[4], const bf16* a, int lda,
+                                           const bf16* w, int n0) {
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) wmma::fill_fragment(acc[mt], 0.f);
+  const bf16* wrow = w + static_cast<long long>(n0) * K_DIM;
+  for (int k = 0; k < K_DIM; k += 16) {
+    FragBt fb;
+    wmma::load_matrix_sync(fb, wrow + k, K_DIM);
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      FragA fa;
+      wmma::load_matrix_sync(fa, a + mt * 16 * lda + k, lda);
+      wmma::mma_sync(acc[mt], fa, fb, acc[mt]);
+    }
+  }
+}
+
+__device__ __forceinline__ void load8(float (&v)[8], const float* src) {
+  const float4 a = reinterpret_cast<const float4*>(src)[0];
+  const float4 b = reinterpret_cast<const float4*>(src)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+// dst[0:8] = bf16(v[0:8]) as one 16-byte store.
+__device__ __forceinline__ void store8_bf16(bf16* dst, const float (&v)[8]) {
+  __align__(16) __nv_bfloat162 h[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(h);
+}
+
+// Hand the accumulators to `fn(row, col, v[8])`, eight consecutive
+// columns of one row per lane, through the warp's 16x16 fp32 staging
+// tile (the WMMA fragment layout is opaque).
+template <typename Fn>
+__device__ __forceinline__ void strip_epilogue(Acc (&acc)[4], float* stg, int lane, int n0,
+                                               Fn fn) {
+  const int rr = lane >> 1, cc = (lane & 1) * 8;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+    wmma::store_matrix_sync(stg, acc[mt], 16, wmma::mem_row_major);
+    __syncwarp();
+    float v[8];
+    load8(v, stg + rr * 16 + cc);
+    fn(mt * 16 + rr, n0 + cc, v);
+    __syncwarp();
+  }
+}
+
+__device__ __forceinline__ float gelu(float u, int tanh_form) {
+  if (tanh_form) {
+    const float k = 0.7978845608028654f;  // sqrt(2 / pi)
+    return 0.5f * u * (1.f + tanhf(k * (u + 0.044715f * u * u * u)));
+  }
+  return 0.5f * u * (1.f + erff(u * 0.7071067811865476f));
+}
+
+// LayerNorm of the fp32 rows xs[t][0:c] into bf16 ys[t][0:CP] (zero pad).
+__device__ __forceinline__ void layernorm_rows(const float* xs, bf16* ys, const float* g,
+                                               const float* b, int c, float eps, int warp,
+                                               int lane) {
+  const float inv_c = 1.f / static_cast<float>(c);
+  for (int t = warp; t < NT; t += NWARPS) {
+    float s = 0.f, sq = 0.f;
+    for (int i = lane; i < c; i += 32) {
+      const float v = xs[t * LDX + i];
+      s += v;
+      sq += v * v;
+    }
+    s = warp_sum(s);
+    sq = warp_sum(sq);
+    const float mu = s * inv_c;
+    const float rstd = rsqrtf(fmaxf(sq * inv_c - mu * mu, 0.f) + eps);
+    for (int i = lane; i < CP; i += 32)
+      ys[t * LDY + i] = i < c ? __float2bfloat16((xs[t * LDX + i] - mu) * rstd * g[i] + b[i])
+                              : __float2bfloat16(0.f);
+  }
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1) swin_block_kernel(const BlockArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* xs = reinterpret_cast<float*>(smem + OFF_X);
+  bf16* ys = reinterpret_cast<bf16*>(smem + OFF_Y);
+  bf16* qkv = reinterpret_cast<bf16*>(smem + OFF_QKV);
+  bf16* hs = qkv;  // MLP hidden reuses the qkv buffer
+  float* ss = reinterpret_cast<float*>(smem + OFF_S);
+  bf16* ps = reinterpret_cast<bf16*>(smem + OFF_P);
+  bf16* os = reinterpret_cast<bf16*>(smem + OFF_O);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  float* stg = reinterpret_cast<float*>(smem + OFF_STG) + warp * 256;
+
+  const int nww = a.w / WS, nwh = a.h / WS;
+  const int win = blockIdx.x % (nwh * nww);  // window index inside the image
+  const int bidx = blockIdx.x / (nwh * nww);
+  const int wy = win / nww, wx = win % nww;
+  const int c = a.c;
+
+  auto token_offset = [&](int t) -> long long {
+    const int r = (wy * WS + (t >> 3) + a.shift) % a.h;
+    const int q = (wx * WS + (t & 7) + a.shift) % a.w;
+    return ((static_cast<long long>(bidx) * a.h + r) * a.w + q) * c;
+  };
+
+  // ---- x -> fp32 shared; zero the attention output (pad heads) ----
+  for (int t = warp; t < NT; t += NWARPS) {
+    const bf16* xr = a.x + token_offset(t);
+    for (int i = lane; i < c; i += 32) xs[t * LDX + i] = __bfloat162float(xr[i]);
+  }
+  for (int i = tid; i < NT * LDO; i += NTHREADS) os[i] = __float2bfloat16(0.f);
+  __syncwarp();
+  layernorm_rows(xs, ys, a.g1, a.b1, c, a.eps, warp, lane);
+  __syncthreads();
+
+  Acc acc[4];
+
+  // ---- qkv = LN1(x) @ Wqkv + bqkv  -> bf16 [64][576] ----
+  for (int strip = warp; strip < QKVP / 16; strip += NWARPS) {
+    const int n0 = strip * 16;
+    gemm_strip<CP>(acc, ys, LDY, a.wqkv, n0);
+    strip_epilogue(acc, stg, lane, n0, [&](int r, int n, float (&v)[8]) {
+      float b[8];
+      load8(b, a.bqkv + n);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] += b[i];
+      store8_bf16(qkv + r * LDQKV + n, v);
+    });
+  }
+  __syncthreads();
+
+  // ---- attention, one head at a time ----
+  const float* mwin = a.mask ? a.mask + static_cast<long long>(win) * NT * NT : nullptr;
+  for (int hh = 0; hh < a.nh; ++hh) {
+    // S = Q_h K_h^T (q already carries the softmax scale)
+    for (int tile = warp; tile < 16; tile += NWARPS) {
+      const int mt = tile >> 2, nt = tile & 3;
+      Acc s;
+      wmma::fill_fragment(s, 0.f);
+#pragma unroll
+      for (int k = 0; k < HDP; k += 16) {
+        FragA fa;
+        FragBt fb;
+        wmma::load_matrix_sync(fa, qkv + mt * 16 * LDQKV + hh * HDP + k, LDQKV);
+        wmma::load_matrix_sync(fb, qkv + nt * 16 * LDQKV + CP + hh * HDP + k, LDQKV);
+        wmma::mma_sync(s, fa, fb, s);
+      }
+      wmma::store_matrix_sync(ss + mt * 16 * LDS + nt * 16, s, LDS, wmma::mem_row_major);
+    }
+    __syncthreads();
+    // softmax(S + rpb + mask) in fp32 -> bf16 probabilities; a warp
+    // takes four rows per pass, eight lanes per row, eight columns per
+    // lane, so a row's reductions are three shuffles
+    const float* rp = a.rpb + static_cast<long long>(hh) * NT * NT;
+    for (int r = warp * 4 + (lane >> 3); r < NT; r += NWARPS * 4) {
+      const int c0 = (lane & 7) * 8;
+      float v[8], t[8];
+      load8(v, ss + r * LDS + c0);
+      load8(t, rp + r * NT + c0);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] += t[i];
+      if (mwin) {
+        load8(t, mwin + r * NT + c0);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v[i] += t[i];
+      }
+      float m = v[0];
+#pragma unroll
+      for (int i = 1; i < 8; ++i) m = fmaxf(m, v[i]);
+#pragma unroll
+      for (int o = 4; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        v[i] = expf(v[i] - m);
+        sum += v[i];
+      }
+#pragma unroll
+      for (int o = 4; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      const float inv = 1.f / sum;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] *= inv;
+      store8_bf16(ps + r * LDP + c0, v);
+    }
+    __syncthreads();
+    // O_h = P V_h -> attention output columns [hh*32, hh*32+32)
+    for (int tile = warp; tile < 8; tile += NWARPS) {
+      const int mt = tile >> 1, nt = tile & 1;
+      Acc o;
+      wmma::fill_fragment(o, 0.f);
+#pragma unroll
+      for (int k = 0; k < NT; k += 16) {
+        FragA fa;
+        FragB fb;
+        wmma::load_matrix_sync(fa, ps + mt * 16 * LDP + k, LDP);
+        wmma::load_matrix_sync(fb, qkv + k * LDQKV + 2 * CP + hh * HDP + nt * 16, LDQKV);
+        wmma::mma_sync(o, fa, fb, o);
+      }
+      wmma::store_matrix_sync(stg, o, 16, wmma::mem_row_major);
+      __syncwarp();
+      float v[8];
+      load8(v, stg + (lane >> 1) * 16 + (lane & 1) * 8);
+      store8_bf16(os + (mt * 16 + (lane >> 1)) * LDO + hh * HDP + nt * 16 + (lane & 1) * 8, v);
+      __syncwarp();
+    }
+    // The next head's S step writes only ss; its barrier orders this
+    // head's reads of ps before the next softmax writes it.
+  }
+  __syncthreads();
+
+  // ---- x1 = x + O @ Wproj + bproj (fp32, in place) ----
+  for (int strip = warp; strip < CP / 16; strip += NWARPS) {
+    const int n0 = strip * 16;
+    gemm_strip<CP>(acc, os, LDO, a.wproj, n0);
+    // columns >= C of the padded weights and bias are zero, so the pad
+    // columns of xs (never read) only receive + 0
+    strip_epilogue(acc, stg, lane, n0, [&](int r, int n, float (&v)[8]) {
+      float b[8], x[8];
+      load8(b, a.bproj + n);
+      load8(x, xs + r * LDX + n);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) x[i] += v[i] + b[i];
+      reinterpret_cast<float4*>(xs + r * LDX + n)[0] = make_float4(x[0], x[1], x[2], x[3]);
+      reinterpret_cast<float4*>(xs + r * LDX + n)[1] = make_float4(x[4], x[5], x[6], x[7]);
+    });
+  }
+  __syncthreads();
+
+  // ---- MLP: fc1 -> GELU -> fc2, residual ----
+  layernorm_rows(xs, ys, a.g2, a.b2, c, a.eps, warp, lane);
+  __syncthreads();
+  for (int strip = warp; strip < HIDP / 16; strip += NWARPS) {
+    const int n0 = strip * 16;
+    gemm_strip<CP>(acc, ys, LDY, a.wfc1, n0);
+    strip_epilogue(acc, stg, lane, n0, [&](int r, int n, float (&v)[8]) {
+      float b[8];
+      load8(b, a.bfc1 + n);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = gelu(v[i] + b[i], a.gelu_tanh);
+      store8_bf16(hs + r * LDH + n, v);
+    });
+  }
+  __syncthreads();
+  for (int strip = warp; strip < CP / 16; strip += NWARPS) {
+    const int n0 = strip * 16;
+    gemm_strip<HIDP>(acc, hs, LDH, a.wfc2, n0);
+    strip_epilogue(acc, stg, lane, n0, [&](int r, int n, float (&v)[8]) {
+      float b[8], x[8];
+      load8(b, a.bfc2 + n);
+      load8(x, xs + r * LDX + n);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) x[i] += v[i] + b[i];
+      reinterpret_cast<float4*>(xs + r * LDX + n)[0] = make_float4(x[0], x[1], x[2], x[3]);
+      reinterpret_cast<float4*>(xs + r * LDX + n)[1] = make_float4(x[4], x[5], x[6], x[7]);
+    });
+  }
+  __syncthreads();
+
+  // ---- out -> the same (shifted) pixels ----
+  for (int t = warp; t < NT; t += NWARPS) {
+    bf16* yr = a.y + token_offset(t);
+    for (int i = lane; i < c; i += 32) yr[i] = __float2bfloat16(xs[t * LDX + i]);
+  }
+}
+
+}  // namespace
+
+extern "C" int sr_swin_block_bf16(const void* x, void* y, const void* g1, const void* b1,
+                                  const void* g2, const void* b2, const void* wqkv,
+                                  const void* bqkv, const void* wproj, const void* bproj,
+                                  const void* wfc1, const void* bfc1, const void* wfc2,
+                                  const void* bfc2, const void* rpb, const void* mask,
+                                  int batch, int h, int w, int c, int nh, int shift,
+                                  int gelu_tanh, float eps, void* stream) {
+  // The shared-memory opt-in is a per-device attribute: set it on the
+  // current device at every launch (a few microseconds).
+  const cudaError_t err = cudaFuncSetAttribute(
+      swin_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long windows = static_cast<long long>(batch) * (h / WS) * (w / WS);
+  if (windows == 0) return 0;
+  BlockArgs a;
+  a.x = static_cast<const bf16*>(x);
+  a.y = static_cast<bf16*>(y);
+  a.g1 = static_cast<const float*>(g1);
+  a.b1 = static_cast<const float*>(b1);
+  a.g2 = static_cast<const float*>(g2);
+  a.b2 = static_cast<const float*>(b2);
+  a.wqkv = static_cast<const bf16*>(wqkv);
+  a.bqkv = static_cast<const float*>(bqkv);
+  a.wproj = static_cast<const bf16*>(wproj);
+  a.bproj = static_cast<const float*>(bproj);
+  a.wfc1 = static_cast<const bf16*>(wfc1);
+  a.bfc1 = static_cast<const float*>(bfc1);
+  a.wfc2 = static_cast<const bf16*>(wfc2);
+  a.bfc2 = static_cast<const float*>(bfc2);
+  a.rpb = static_cast<const float*>(rpb);
+  a.mask = static_cast<const float*>(mask);
+  a.batch = batch;
+  a.h = h;
+  a.w = w;
+  a.c = c;
+  a.nh = nh;
+  a.shift = shift;
+  a.gelu_tanh = gelu_tanh;
+  a.eps = eps;
+  swin_block_kernel<<<static_cast<unsigned int>(windows), NTHREADS, SMEM_BYTES,
+                      static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,20 @@
+"""Checkpoint interop of the port: reference torch checkpoints and the
+JAX package's parameter trees -> the port's state dict."""
+
+from tpu_superresolution_torch.interop.jax_bridge import swinir_state_dict_from_jax
+from tpu_superresolution_torch.interop.torch_convert import (
+    REFERENCE_BUFFER_SUFFIXES,
+    extract_state_dict,
+    infer_swinir_config,
+    load_torch_checkpoint,
+    strip_reference_buffers,
+)
+
+__all__ = [
+    "REFERENCE_BUFFER_SUFFIXES",
+    "extract_state_dict",
+    "infer_swinir_config",
+    "load_torch_checkpoint",
+    "strip_reference_buffers",
+    "swinir_state_dict_from_jax",
+]

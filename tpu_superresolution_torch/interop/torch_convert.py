@@ -1,0 +1,130 @@
+"""Reference torch checkpoints -> the port (port of the
+``extract_state_dict`` / ``infer_swinir_config`` parts of
+``tpu_superresolution_tpu/interop/torch_convert.py``).
+
+The port's modules use the reference key names, so loading needs no key
+conversion: unwrap the checkpoint, drop the two buffers the reference
+stores but the port computes from shapes (``relative_position_index``,
+``attn_mask``), and ``load_state_dict(strict=True)``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from tpu_superresolution_torch.core.config import SwinIRConfig
+
+_WRAPPER_KEYS = ("params_ema", "params", "state_dict", "model_state_dict", "model", "net", "generator")
+
+# Buffers of reference checkpoints that the port derives from shapes.
+REFERENCE_BUFFER_SUFFIXES = (".relative_position_index", ".attn_mask")
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, np.ndarray]:
+    """torch.load (tensors only) + unwrap + numpy-ify."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    return extract_state_dict(ckpt)
+
+
+def extract_state_dict(ckpt: Any) -> Dict[str, np.ndarray]:
+    """Unwrap common checkpoint formats (wrapper keys
+    params_ema/params/state_dict/model_state_dict/model/net/generator,
+    DataParallel 'module.' prefix) to a flat {name: ndarray}."""
+    sd = ckpt
+    if isinstance(ckpt, Mapping) and not all(torch.is_tensor(v) for v in ckpt.values()):
+        for k in _WRAPPER_KEYS:
+            v = ckpt.get(k)
+            if isinstance(v, Mapping):
+                sd = v
+                break
+    out = {}
+    for k, v in sd.items():
+        if torch.is_tensor(v):
+            k = k[len("module."):] if k.startswith("module.") else k
+            out[k] = v.detach().cpu().numpy()
+    return out
+
+
+def strip_reference_buffers(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """Drop the reference's shape-derived buffers before a strict load."""
+    return {k: v for k, v in sd.items() if not k.endswith(REFERENCE_BUFFER_SUFFIXES)}
+
+
+def _depths_heads_swin(sd, prefix="layers.{i}.residual_group.blocks.{j}"):
+    """Blocks per layer, and heads from each layer's first bias table."""
+    depths, heads = [], []
+    i = 0
+    while prefix.format(i=i, j=0) + ".norm1.weight" in sd:
+        j = 0
+        while prefix.format(i=i, j=j) + ".norm1.weight" in sd:
+            j += 1
+        depths.append(j)
+        heads.append(int(sd[prefix.format(i=i, j=0) + ".attn.relative_position_bias_table"].shape[1]))
+        i += 1
+    return tuple(depths), tuple(heads)
+
+
+def _ws_from_rpb(rows: int, what: str) -> int:
+    """Window size from a [(2ws-1)^2, nH] bias table row count."""
+    side = int(round(rows ** 0.5))
+    if side * side != rows or side % 2 != 1:
+        raise ValueError(
+            f"{what}: relative_position_bias_table has {rows} rows, which is not an "
+            "odd perfect square (2*ws-1)^2 — unrecognized window geometry"
+        )
+    return (side + 1) // 2
+
+
+def infer_swinir_config(sd: Mapping[str, np.ndarray], scale: int) -> SwinIRConfig:
+    """A SwinIRConfig matching a reference network_swinir.py state dict
+    (width / depth / heads / window / upsampler from tensor shapes)."""
+    if "conv_first.weight" not in sd:
+        raise ValueError(
+            "not a SwinIR checkpoint: missing 'conv_first.weight' "
+            f"(keys start: {sorted(sd)[:5]})"
+        )
+    embed_dim = int(sd["conv_first.weight"].shape[0])
+    in_channels = int(sd["conv_first.weight"].shape[1])
+    depths, heads = _depths_heads_swin(sd)
+    if not depths:
+        raise ValueError(
+            "SwinIR checkpoint has no 'layers.*.residual_group.blocks.*' keys — wrong --model?"
+        )
+    b0 = "layers.0.residual_group.blocks.0"
+    ws = _ws_from_rpb(sd[f"{b0}.attn.relative_position_bias_table"].shape[0], "SwinIR")
+    mlp_ratio = sd[f"{b0}.mlp.fc1.weight"].shape[0] / embed_dim
+    if "conv_up1.weight" in sd:
+        upsampler = "nearest+conv"
+        num_feat = int(sd["conv_up1.weight"].shape[0])
+        out_channels = int(sd["conv_last.weight"].shape[0])
+    elif "conv_before_upsample.0.weight" in sd:
+        upsampler = "pixelshuffle"
+        num_feat = int(sd["conv_before_upsample.0.weight"].shape[0])
+        out_channels = int(sd["conv_last.weight"].shape[0])
+    elif "upsample.0.weight" in sd:
+        upsampler = "pixelshuffledirect"
+        num_feat = 64
+        out_channels = int(sd["upsample.0.weight"].shape[0]) // (scale * scale)
+    else:
+        upsampler = ""
+        num_feat = 64
+        out_channels = int(sd["conv_last.weight"].shape[0])
+    return SwinIRConfig(
+        scale=scale,
+        in_channels=in_channels,
+        out_channels=out_channels,
+        window_size=ws,
+        embed_dim=embed_dim,
+        depths=depths,
+        num_heads=heads,
+        mlp_ratio=float(mlp_ratio),
+        qkv_bias=f"{b0}.attn.qkv.bias" in sd,
+        upsampler=upsampler,
+        resi_connection="1conv" if "layers.0.conv.weight" in sd else "3conv",
+        ape="absolute_pos_embed" in sd,
+        patch_norm="patch_embed.norm.weight" in sd,
+        num_feat=num_feat,
+    )

@@ -1,0 +1,55 @@
+"""Hand-written Hopper (sm_90a) kernels of the port, with their plain
+PyTorch versions and launch counters.
+
+Each wrapper takes a CPU tensor through its plain version and a CUDA
+tensor through its kernel (or raises); there is no fallback from one to
+the other.  The CUDA sources live in ``../csrc`` and are built at first
+use (``_lib.build``).
+
+Every ``pl.pallas_call`` of the JAX package
+(``tpu_superresolution_tpu/ops/pallas/``), and where it stands in the
+port.  "On path" is SwinIR-M x4 serving.
+
+==== ========================================================== ======= ==================================================
+ #   JAX file:line of pallas_call . entry function                on path port
+==== ========================================================== ======= ==================================================
+K1   fused_block.py:958 . fused_swin_block (_mega_forward)         yes     CUDA csrc/swin_block.cu, fused_block.fused_swin_block
+K2   layernorm.py:54 . pallas_layernorm (layernorm_spatial)        yes     CUDA csrc/layernorm.cu, layernorm.layernorm
+K3   cab_conv.py:307 . conv3x3_halo                                yes     CUDA csrc/conv.cu, cab_conv.conv3x3
+K4   cab_conv.py:418 . conv_halo                                   yes     CUDA csrc/conv.cu, cab_conv.conv_k
+K5   fused_block.py:1080 . _mega_backward                          no      to port (SwinIR training)
+K6   fused_block.py:1427,1604 . fused_packed_windows_block         no      to port (HAT)
+K7   fused_attention.py:229 . fused_window_block_attention         no      to port (HAT block-kernel fallback)
+K8   fused_ocab.py:311,354 . fused_ocab_core                       no      to port (HAT training)
+K12  cab_conv.py:209 . fused_ln_cab_convs                          no      to port (HAT CAB)
+K13  fused_block.py:1532 . fused_spatial_windows_block             no      to port (HAT)
+K9   fused_rect_attn.py:433 . fused_rect_attention                 no      to port (DAT)
+K10  fused_datb_tail.py:374 . fused_datb_tail                      no      to port (DAT)
+K11  cab_conv.py:506 . dwconv3x3_halo                              no      to port (DAT)
+K14  fused_channel_attn.py:209 . fused_channel_attention           no      to port (DAT)
+K15  window_attention.py:193 . fused_window_attention              no      to port (attention_impl="pallas")
+K16  window_attention.py:352 . batched_window_attention            no      to port (attention_impl="pallas")
+==== ========================================================== ======= ==================================================
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+from tpu_superresolution_torch.kernels import cab_conv, fused_block, layernorm
+
+COUNTERS = {
+    "K1": fused_block.launches,
+    "K2": layernorm.launches,
+    "K3": cab_conv.launches_conv3x3,
+    "K4": cab_conv.launches_conv_k,
+}
+
+
+def reset_counters() -> None:
+    for c in COUNTERS.values():
+        c.reset()
+
+
+def read_counters() -> Dict[str, int]:
+    return {k: c.count for k, c in COUNTERS.items()}

@@ -1,0 +1,177 @@
+"""Build, load and call the port's CUDA kernels.
+
+The sources under ``tpu_superresolution_torch/csrc/`` are compiled by
+``nvcc`` into ONE shared library with a plain C interface the first time
+a kernel is launched (or when ``build()`` is called), into
+``tpu_superresolution_torch/build/``, named by a hash of the sources and
+flags so an edited source rebuilds.  The library is loaded with
+``ctypes``: every pointer and the stream are passed as ``c_void_p``, and
+every entry point returns ``cudaGetLastError()``, which ``check_status``
+turns into an exception.
+
+Nothing here runs at import time: importing a kernel module on a machine
+with no ``nvcc`` (the CPU test machine) is fine, and only a launch on a
+CUDA tensor builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # name: argtypes (pointers and the stream last as c_void_p)
+    "sr_layernorm_bf16": [_P, _P, _P, _P, ctypes.c_longlong, _I, ctypes.c_float, _P],
+    "sr_conv3x3_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "sr_conv_bf16": [_P, _P, _P, _P] + [_I] * 9 + [_P],
+    "sr_swin_block_bf16": [_P] * 16 + [_I] * 7 + [ctypes.c_float, _P],
+}
+
+
+class LaunchCounter:
+    """Counts the launches of one kernel: its wrapper adds one right
+    after a successful launch, and nowhere else."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.count = 0
+
+    def reset(self) -> None:
+        self.count = 0
+
+
+def _sources() -> Tuple[Path, ...]:
+    return tuple(sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh")))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def find_nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found: the port's CUDA kernels are compiled at first use "
+        "and need the CUDA toolkit (PATH or CUDA_HOME)"
+    )
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libsr_kernels_{source_hash()}.so"
+
+
+def build(verbose: bool = False) -> Tuple[Path, float, str]:
+    """Compile the kernels unless the library for these sources exists.
+    Returns (path, seconds spent, compiler output).  `verbose` adds
+    ``-Xptxas -v`` (registers, shared memory and spills per kernel)."""
+    out = library_path()
+    if out.exists():
+        return out, 0.0, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if out.exists():  # built by another process while we waited
+                return out, time.perf_counter() - t0, ""
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR)]
+            if verbose:
+                cmd += ["-Xptxas", "-v"]
+            cmd += ["-o", str(tmp)] + [str(p) for p in _sources() if p.suffix == ".cu"]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                    f"{proc.stdout}\n{proc.stderr}"
+                )
+            os.replace(tmp, out)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return out, time.perf_counter() - t0, proc.stdout + proc.stderr
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built first if needed)."""
+    path, _, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check_status(status: int, name: str) -> None:
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA error {status} at launch")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_tensor(
+    t: Optional[torch.Tensor],
+    name: str,
+    dtype: torch.dtype,
+    device: torch.device,
+    shape: Optional[Sequence[int]] = None,
+    ndim: Optional[int] = None,
+    align: int = 16,
+) -> None:
+    """Raise unless `t` is a contiguous tensor of `dtype` on `device`
+    (with the given shape / rank) whose data pointer is `align`-aligned."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if ndim is not None and t.dim() != ndim:
+        raise ValueError(f"{name}: rank {t.dim()}, expected {ndim}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: data pointer not {align}-byte aligned")
+
+
+def require_cuda(x: torch.Tensor, name: str) -> None:
+    """Kernel wrappers take CPU tensors (plain version) or CUDA tensors
+    (the kernel); anything else is an error."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel or plain version for device {x.device}")

@@ -1,0 +1,53 @@
+"""K2 — LayerNorm over the last axis (CUDA, ``csrc/layernorm.cu``).
+
+Port of ``tpu_superresolution_tpu/ops/pallas/layernorm.py``
+(``pallas_layernorm`` / ``layernorm_spatial``): fp32 statistics with the
+fast-variance formula E[x^2] - E[x]^2 clamped at 0, eps 1e-5, output in
+the input dtype.  Unlike ``layernorm_spatial``'s 4096-row threshold,
+every CUDA tensor goes to the kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpu_superresolution_torch.kernels import _lib
+
+EPS = 1e-5
+
+launches = _lib.LaunchCounter("K2 layernorm")
+
+
+def layernorm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                    eps: float = EPS) -> torch.Tensor:
+    """The plain PyTorch version (flax ``nn.LayerNorm`` fast variance,
+    ``fused_block._ln``), not torch's two-pass ``layer_norm``."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    mu2 = (xf * xf).mean(-1, keepdim=True)
+    var = (mu2 - mu * mu).clamp_min(0.0)
+    y = (xf - mu) * torch.rsqrt(var + eps) * weight.float() + bias.float()
+    return y.to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+              eps: float = EPS) -> torch.Tensor:
+    """LayerNorm of x [..., C]: the plain version for a CPU tensor, the
+    kernel for a CUDA tensor (bf16 x, fp32 weight and bias)."""
+    if x.device.type == "cpu":
+        return layernorm_plain(x, weight, bias, eps)
+    _lib.require_cuda(x, "layernorm")
+    c = x.shape[-1]
+    _lib.check_tensor(x, "x", torch.bfloat16, x.device, align=2)
+    _lib.check_tensor(weight, "weight", torch.float32, x.device, shape=(c,), align=4)
+    _lib.check_tensor(bias, "bias", torch.float32, x.device, shape=(c,), align=4)
+    y = torch.empty_like(x)
+    rows = x.numel() // c if c else 0
+    with torch.cuda.device(x.device):
+        status = _lib.library().sr_layernorm_bf16(
+            x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            rows, c, float(eps), _lib.stream_of(x),
+        )
+    _lib.check_status(status, "sr_layernorm_bf16")
+    launches.count += 1
+    return y

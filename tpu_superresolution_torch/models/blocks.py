@@ -1,0 +1,204 @@
+"""Shared NHWC building blocks (port of
+``tpu_superresolution_tpu/models/blocks.py``).
+
+Parameters use the reference torch modules and key names
+(``nn.Conv2d`` / ``nn.Linear`` / LayerNorm ``weight`` and ``bias``), so
+reference state dicts load with ``strict=True``.  Activations are NHWC.
+Modules that the JAX package runs through a Pallas kernel take a `plain`
+flag: False calls the kernel wrapper (kernel on CUDA, plain version on
+CPU), True calls the plain version on any device.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, List, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from tpu_superresolution_torch.kernels.cab_conv import conv3x3, conv_plain
+from tpu_superresolution_torch.kernels.layernorm import layernorm, layernorm_plain
+from tpu_superresolution_torch.ops.fused_upsample import (
+    chain_pixelshuffle_reconstruct,
+    compose_upsample,
+    fused_pixelshuffle_reconstruct,
+)
+from tpu_superresolution_torch.ops.pixelshuffle import pixel_shuffle
+
+
+class DerivedCache:
+    """One tensor bundle derived from a module's parameters (a kernel
+    weight layout, a composed conv), rebuilt only when the parameters
+    change: the key holds each parameter's storage pointer and version
+    counter (``load_state_dict`` and ``.to()`` change one of them)."""
+
+    def __init__(self):
+        self._key = None
+        self._value = None
+
+    def get(self, params: Sequence[torch.Tensor], tag, build: Callable):
+        key = (tag,) + tuple((p.data_ptr(), p._version) for p in params)
+        if key != self._key:
+            with torch.no_grad():
+                self._value = build()
+            self._key = key
+        return self._value
+
+
+def hwio(weight: torch.Tensor) -> torch.Tensor:
+    """torch conv weight [O, I, kh, kw] -> the kernels' [kh, kw, I, O]."""
+    return weight.permute(2, 3, 1, 0)
+
+
+def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """A plain ``nn.Conv2d`` on an NHWC tensor, computed in x's dtype (the
+    convs the JAX package leaves to XLA: conv_first, 1x1 convs, the
+    exact-mode reconstruction chain)."""
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype), bias,
+                 padding=conv.padding)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+class Conv3x3(nn.Conv2d):
+    """``nn.Conv2d(cin, cout, 3, padding=1)`` on NHWC through kernel K3
+    (the JAX package's ``Conv3x3`` with impl "halo")."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(in_channels, out_channels, 3, padding=1)
+        self._derived = DerivedCache()
+
+    def kernel_weights(self, dtype: torch.dtype, device: torch.device):
+        return self._derived.get(
+            (self.weight, self.bias), (dtype, device),
+            lambda: (hwio(self.weight).to(dtype).contiguous(), self.bias.float().contiguous()),
+        )
+
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        k, b = self.kernel_weights(x.dtype, x.device)
+        if plain:
+            return conv_plain(x, k, b, ((1, 1), (1, 1)))
+        return conv3x3(x, k, b)
+
+
+class ConvLeaky(nn.Sequential):
+    """Sequential(Conv3x3, LeakyReLU) — the reference's
+    ``conv_before_upsample`` (keys ``.0.weight`` / ``.0.bias``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, slope: float):
+        super().__init__(Conv3x3(in_channels, out_channels), nn.LeakyReLU(slope))
+        self.slope = slope
+
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        return F.leaky_relu(self[0](x, plain), self.slope)
+
+
+class ThreeConv(nn.Sequential):
+    """The "3conv" residual connection: conv3x3 C->C/4, LeakyReLU 0.2,
+    conv1x1, LeakyReLU 0.2, conv3x3 C/4->C (network_swinir.py:466-471;
+    keys .0 / .2 / .4).  The 1x1 conv is plain, as in the JAX package."""
+
+    def __init__(self, dim: int):
+        super().__init__(
+            Conv3x3(dim, dim // 4), nn.LeakyReLU(0.2),
+            nn.Conv2d(dim // 4, dim // 4, 1), nn.LeakyReLU(0.2),
+            Conv3x3(dim // 4, dim),
+        )
+
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        x = F.leaky_relu(self[0](x, plain), 0.2)
+        x = F.leaky_relu(conv_nhwc(self[2], x), 0.2)
+        return self[4](x, plain)
+
+
+class PLayerNorm(nn.Module):
+    """LayerNorm over the channel axis with the fast-variance formula,
+    eps 1e-5, through kernel K2 (reference ``nn.LayerNorm`` key names)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        if plain:
+            return layernorm_plain(x, self.weight, self.bias)
+        return layernorm(x.contiguous(), self.weight, self.bias)
+
+
+class Mlp(nn.Module):
+    """fc1 -> GELU -> fc2 parameters (network_swinir.py:14-30); the Swin
+    block's K1 kernel and its plain version consume them directly."""
+
+    def __init__(self, in_features: int, hidden_features: int):
+        super().__init__()
+        self.fc1 = nn.Linear(in_features, hidden_features)
+        self.fc2 = nn.Linear(hidden_features, in_features)
+
+
+def _ps_factors(scale: int) -> List[int]:
+    if scale & (scale - 1) == 0:
+        return [2] * int(math.log2(scale))
+    if scale == 3:
+        return [3]
+    raise ValueError(f"scale {scale} not supported (2^n or 3)")
+
+
+class PixelShuffleUpsample(nn.Sequential):
+    """log2-chained (conv nf -> 4nf, PixelShuffle(2)) upsampler, or the
+    x3 variant (reference ``Upsample``, network_swinir.py:572-591; conv
+    keys .0, .2, ...).  Plain convs, as the JAX package's ``nn.Conv``."""
+
+    def __init__(self, scale: int, num_feat: int):
+        mods: List[nn.Module] = []
+        for r in _ps_factors(scale):
+            mods += [nn.Conv2d(num_feat, r * r * num_feat, 3, 1, 1), nn.PixelShuffle(r)]
+        super().__init__(*mods)
+
+    def stages(self) -> List[Tuple[torch.Tensor, torch.Tensor, int]]:
+        """[(kernel [3,3,cin,cout], bias, ps_factor)] of the chain."""
+        return [
+            (hwio(self[i].weight), self[i].bias, self[i + 1].upscale_factor)
+            for i in range(0, len(self), 2)
+        ]
+
+
+class PixelShuffleDirect(nn.Sequential):
+    """One conv to s^2 * out channels, one PixelShuffle (reference
+    ``UpsampleOneStep``, network_swinir.py:594-615; key .0)."""
+
+    def __init__(self, scale: int, in_features: int, out_features: int):
+        super().__init__(nn.Conv2d(in_features, scale * scale * out_features, 3, 1, 1),
+                         nn.PixelShuffle(scale))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return pixel_shuffle(conv_nhwc(self[0], x), self[1].upscale_factor)
+
+
+def upsample_and_last(x: torch.Tensor, upsample: PixelShuffleUpsample,
+                      conv_last: nn.Conv2d, fused: bool, cache: DerivedCache,
+                      plain: bool = False) -> torch.Tensor:
+    """The 'pixelshuffle' reconstruction tail: the reference chain
+    (plain convs), or with `fused` one composed conv (kernel K4) + one
+    pixel_shuffle, the composition built once per loaded weights."""
+    last = (hwio(conv_last.weight), conv_last.bias)
+    if not fused or len(upsample) == 0:
+        return chain_pixelshuffle_reconstruct(x, upsample.stages(), last, x.dtype)
+    params = list(upsample.parameters()) + [conv_last.weight, conv_last.bias]
+    comp = cache.get(params, (x.dtype, x.device),
+                     lambda: compose_upsample(upsample.stages(), last, x.dtype, x.device))
+    return fused_pixelshuffle_reconstruct(x, comp, plain)
+
+
+def check_image_size(x: torch.Tensor, multiple: int) -> torch.Tensor:
+    """Reflect-pad H, W of NHWC x up to the next multiple (reference
+    network_swinir.py:783-788; reflect excludes the edge pixel)."""
+    h, w = x.shape[1], x.shape[2]
+    ph = (multiple - h % multiple) % multiple
+    pw = (multiple - w % multiple) % multiple
+    if not (ph or pw):
+        return x
+    xn = F.pad(x.permute(0, 3, 1, 2), (0, pw, 0, ph), mode="reflect")
+    return xn.permute(0, 2, 3, 1).contiguous()

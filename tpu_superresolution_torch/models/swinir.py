@@ -1,0 +1,282 @@
+"""SwinIR inference on NHWC tensors (port of
+``tpu_superresolution_tpu/models/swinir.py``; reference
+network_swinir.py:618-851).
+
+- Parameters carry the reference state-dict key names, so a reference
+  checkpoint (after ``interop.strip_reference_buffers``) and the JAX
+  package's ``export_swinir`` output load with ``strict=True``.  The
+  reference's ``relative_position_index`` / ``attn_mask`` buffers are
+  not parameters here: both are computed from the shapes.
+- The trunk stays [B, H, W, C].  Each Swin block is one K1 launch on
+  CUDA (the cyclic shift in the kernel's addressing), the LayerNorms
+  outside blocks are K2, the trunk 3x3 convs K3 and the composed
+  reconstruction conv K4.  ``conv_first``, the mean shift, the reflect
+  pad, pixel shuffles and the exact-mode chain are plain torch, as the
+  JAX package leaves them to XLA.
+- ``impl="plain"`` runs every kernel's plain version on any device.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from tpu_superresolution_torch.core.config import SwinIRConfig, register_model
+from tpu_superresolution_torch.kernels.fused_block import (
+    WS,
+    SwinBlockWeights,
+    fused_swin_block,
+    pack_block_weights,
+    swin_block_plain,
+    window_attention_plain,
+)
+from tpu_superresolution_torch.models.blocks import (
+    Conv3x3,
+    ConvLeaky,
+    DerivedCache,
+    Mlp,
+    PixelShuffleDirect,
+    PixelShuffleUpsample,
+    PLayerNorm,
+    ThreeConv,
+    check_image_size,
+    conv_nhwc,
+    upsample_and_last,
+)
+from tpu_superresolution_torch.ops.window import relative_position_bias, shift_mask_tensor
+
+_RGB_MEAN = (0.4488, 0.4371, 0.4040)
+
+
+class WindowAttention(nn.Module):
+    """W-MSA with learned relative position bias (network_swinir.py:65-145).
+    Its forward is the plain path on [B*nW, N, C] windows; inside a
+    block, K1 consumes its weights directly."""
+
+    def __init__(self, dim: int, window_size: int, num_heads: int, qkv_bias: bool = True):
+        super().__init__()
+        self.dim, self.window_size, self.num_heads = dim, window_size, num_heads
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+        self.relative_position_bias_table = nn.Parameter(
+            torch.zeros((2 * window_size - 1) ** 2, num_heads)
+        )
+
+    def forward(self, xw: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        ws = math.isqrt(xw.shape[1])
+        return window_attention_plain(
+            xw, self.qkv.weight, self.qkv.bias, self.proj.weight, self.proj.bias,
+            relative_position_bias(self.relative_position_bias_table, ws), mask,
+            (self.dim // self.num_heads) ** -0.5,
+        )
+
+
+class SwinBlock(nn.Module):
+    """(Shifted) W-MSA + MLP (network_swinir.py:164-279) as one fused
+    block: K1 on CUDA, ``swin_block_plain`` on the CPU or with plain."""
+
+    def __init__(self, dim: int, num_heads: int, window_size: int, shift_size: int,
+                 mlp_ratio: float = 2.0, qkv_bias: bool = True,
+                 gelu_approximate: bool = False):
+        super().__init__()
+        self.window_size, self.shift_size = window_size, shift_size
+        self.gelu_approximate = gelu_approximate
+        self.norm1 = PLayerNorm(dim)
+        self.attn = WindowAttention(dim, window_size, num_heads, qkv_bias)
+        self.norm2 = PLayerNorm(dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self._packed = DerivedCache()
+
+    def block_weights(self) -> SwinBlockWeights:
+        a, m = self.attn, self.mlp
+        return SwinBlockWeights(
+            g1=self.norm1.weight, b1=self.norm1.bias,
+            wqkv=a.qkv.weight, bqkv=a.qkv.bias, wproj=a.proj.weight, bproj=a.proj.bias,
+            g2=self.norm2.weight, b2=self.norm2.bias,
+            wfc1=m.fc1.weight, bfc1=m.fc1.bias, wfc2=m.fc2.weight, bfc2=m.fc2.bias,
+            table=a.relative_position_bias_table, num_heads=a.num_heads,
+        )
+
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        _, h, w, _ = x.shape
+        ws, shift = self.window_size, self.shift_size
+        # Reference rule (network_swinir.py:193-196): no partition/shift
+        # when the (padded) map is not larger than a window.
+        if min(h, w) <= ws:
+            ws, shift = min(h, w), 0
+        wts = self.block_weights()
+        mask = shift_mask_tensor(h, w, ws, shift, x.device) if shift else None
+        if plain:
+            return swin_block_plain(x, wts, ws, shift, mask, self.gelu_approximate)
+        packed = None
+        if x.is_cuda and ws == WS:
+            packed = self._packed.get(list(self.parameters()), x.device,
+                                      lambda: pack_block_weights(wts))
+        return fused_swin_block(x, wts, ws, shift, mask, self.gelu_approximate, packed=packed)
+
+
+class BasicLayer(nn.Module):
+    def __init__(self, blocks):
+        super().__init__()
+        self.blocks = nn.ModuleList(blocks)
+
+
+class RSTB(nn.Module):
+    """depth x SwinBlock -> conv -> + input (network_swinir.py:419-482)."""
+
+    def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
+                 mlp_ratio: float, qkv_bias: bool, resi_connection: str,
+                 gelu_approximate: bool):
+        super().__init__()
+        self.residual_group = BasicLayer(
+            SwinBlock(dim, num_heads, window_size, 0 if j % 2 == 0 else window_size // 2,
+                      mlp_ratio, qkv_bias, gelu_approximate)
+            for j in range(depth)
+        )
+        self.conv = Conv3x3(dim, dim) if resi_connection == "1conv" else ThreeConv(dim)
+
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        res = x
+        for blk in self.residual_group.blocks:
+            x = blk(x, plain)
+        return self.conv(x, plain) + res
+
+
+class PatchEmbed(nn.Module):
+    """Holds the patch-embedding LayerNorm (key ``patch_embed.norm``)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.norm = PLayerNorm(dim)
+
+
+class SwinIR(nn.Module):
+    """Full SwinIR at inference: x [B, H, W, in] -> [B, H*s, W*s, out]."""
+
+    def __init__(self, config: SwinIRConfig, dtype: Optional[torch.dtype] = None,
+                 impl: str = "auto"):
+        super().__init__()
+        if impl not in ("auto", "plain"):
+            raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
+        cfg = config
+        self.config, self.impl = cfg, impl
+        self.dtype = torch.float32 if dtype is None else dtype
+        c, nf = cfg.embed_dim, cfg.num_feat
+        mean = _RGB_MEAN if cfg.in_channels == 3 else (0.0,) * cfg.in_channels
+        self.register_buffer("mean", torch.tensor(mean, dtype=torch.float32), persistent=False)
+
+        self.conv_first = nn.Conv2d(cfg.in_channels, c, 3, 1, 1)
+        if cfg.patch_norm:
+            self.patch_embed = PatchEmbed(c)
+        if cfg.ape:
+            self.absolute_pos_embed = nn.Parameter(torch.zeros(1, cfg.img_size ** 2, c))
+        self.layers = nn.ModuleList(
+            RSTB(c, d, cfg.num_heads[i], cfg.window_size, cfg.mlp_ratio, cfg.qkv_bias,
+                 cfg.resi_connection, cfg.gelu_approximate)
+            for i, d in enumerate(cfg.depths)
+        )
+        self.norm = PLayerNorm(c)
+        self.conv_after_body = Conv3x3(c, c) if cfg.resi_connection == "1conv" else ThreeConv(c)
+
+        if cfg.upsampler == "pixelshuffle":
+            self.conv_before_upsample = ConvLeaky(c, nf, 0.01)
+            self.upsample = PixelShuffleUpsample(cfg.scale, nf)
+            self.conv_last = nn.Conv2d(nf, cfg.out_channels, 3, 1, 1)
+        elif cfg.upsampler == "pixelshuffledirect":
+            self.upsample = PixelShuffleDirect(cfg.scale, c, cfg.out_channels)
+        elif cfg.upsampler == "nearest+conv":
+            self.conv_before_upsample = ConvLeaky(c, nf, 0.01)
+            self.conv_up1 = Conv3x3(nf, nf)
+            if cfg.scale == 4:
+                self.conv_up2 = Conv3x3(nf, nf)
+            self.conv_hr = Conv3x3(nf, nf)
+            self.conv_last = nn.Conv2d(nf, cfg.out_channels, 3, 1, 1)
+        elif cfg.upsampler == "":
+            self.conv_last = nn.Conv2d(c, cfg.out_channels, 3, 1, 1)
+        else:
+            raise ValueError(f"unknown upsampler {cfg.upsampler!r}")
+        self._composed = DerivedCache()
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """The reference initialisation (network_swinir.py:_init_weights):
+        Linear weights and bias tables trunc-normal(0.02), Linear biases
+        0, LayerNorm 1/0, convs torch's default; drawn from `generator`."""
+        g = generator
+        with torch.no_grad():
+            for m in self.modules():
+                if isinstance(m, nn.Linear):
+                    nn.init.trunc_normal_(m.weight, std=0.02, generator=g)
+                    if m.bias is not None:
+                        nn.init.zeros_(m.bias)
+                elif isinstance(m, nn.Conv2d):
+                    nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5), generator=g)
+                    bound = 1.0 / math.sqrt(m.weight[0].numel())
+                    nn.init.uniform_(m.bias, -bound, bound, generator=g)
+                elif isinstance(m, PLayerNorm):
+                    nn.init.ones_(m.weight)
+                    nn.init.zeros_(m.bias)
+                elif isinstance(m, WindowAttention):
+                    nn.init.trunc_normal_(m.relative_position_bias_table, std=0.02, generator=g)
+            if self.config.ape:
+                nn.init.trunc_normal_(self.absolute_pos_embed, std=0.02, generator=g)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        dt = self.dtype
+        plain = self.impl == "plain"
+        h_in, w_in = x.shape[1], x.shape[2]
+        x = check_image_size(x.to(dt), cfg.window_size)
+        mean = self.mean.to(dt)
+        x = (x - mean) * cfg.img_range
+        x_norm_in = x
+
+        # 1. shallow features
+        x = conv_nhwc(self.conv_first, x)
+        # 2. deep features
+        feats = x
+        if cfg.patch_norm:
+            feats = self.patch_embed.norm(feats, plain)
+        if cfg.ape:
+            feats = feats + self.absolute_pos_embed.reshape(
+                cfg.img_size, cfg.img_size, -1)[None].to(dt)
+        for layer in self.layers:
+            feats = layer(feats, plain)
+        feats = self.norm(feats, plain)
+        x = self.conv_after_body(feats, plain) + x
+
+        # 3. reconstruction
+        if cfg.upsampler == "pixelshuffle":
+            x = self.conv_before_upsample(x, plain)
+            x = upsample_and_last(x, self.upsample, self.conv_last, cfg.fused_reconstruct,
+                                  self._composed, plain)
+        elif cfg.upsampler == "pixelshuffledirect":
+            x = self.upsample(x)
+        elif cfg.upsampler == "nearest+conv":
+            x = self.conv_before_upsample(x, plain)
+            x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+            x = F.leaky_relu(self.conv_up1(x, plain), 0.2)
+            if cfg.scale == 4:
+                x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+                x = F.leaky_relu(self.conv_up2(x, plain), 0.2)
+            x = F.leaky_relu(self.conv_hr(x, plain), 0.2)
+            x = conv_nhwc(self.conv_last, x)
+        else:  # denoise / artifact reduction (network_swinir.py:832-836)
+            x = x_norm_in + conv_nhwc(self.conv_last, x)
+
+        x = x / cfg.img_range + mean
+        s = cfg.scale if cfg.upsampler else 1
+        return x[:, : h_in * s, : w_in * s, :]
+
+
+def build_swinir(config: SwinIRConfig, dtype=None, impl: str = "auto") -> SwinIR:
+    return SwinIR(config, dtype=dtype, impl=impl)
+
+
+register_model("swinir", SwinIRConfig, build_swinir)
+
+__all__ = ["SwinIR", "SwinBlock", "RSTB", "WindowAttention", "build_swinir"]

@@ -1,0 +1,87 @@
+"""Window partition / reverse / cyclic shift on NHWC tensors, and the
+numpy shift-mask and relative-position tables (port of
+``tpu_superresolution_tpu/ops/window.py``; the tables are the same numpy
+code, so both packages build identical constants)."""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+
+def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
+    """[B, H, W, C] -> [B*nH*nW, ws*ws, C]; H, W must divide by ws."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // ws, ws, w // ws, ws, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(-1, ws * ws, c)
+
+
+def window_reverse(windows: torch.Tensor, ws: int, h: int, w: int) -> torch.Tensor:
+    """[B*nH*nW, ws*ws, C] -> [B, H, W, C]."""
+    c = windows.shape[-1]
+    b = windows.shape[0] // ((h // ws) * (w // ws))
+    x = windows.reshape(b, h // ws, w // ws, ws, ws, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h, w, c)
+
+
+def cyclic_shift(x: torch.Tensor, shift: int) -> torch.Tensor:
+    """torch.roll(x, (-s, -s), dims=(1, 2)) on NHWC."""
+    if shift == 0:
+        return x
+    return torch.roll(x, shifts=(-shift, -shift), dims=(1, 2))
+
+
+def cyclic_unshift(x: torch.Tensor, shift: int) -> torch.Tensor:
+    if shift == 0:
+        return x
+    return torch.roll(x, shifts=(shift, shift), dims=(1, 2))
+
+
+def shift_attn_mask(h: int, w: int, ws: int, shift: int) -> np.ndarray:
+    """Shifted-window attention mask [nW, ws*ws, ws*ws] of 0 / -100
+    (SwinIR's calculate_mask, network_swinir.py:216-237), for the padded
+    map size (h, w)."""
+    if shift == 0:
+        n_windows = (h // ws) * (w // ws)
+        return np.zeros((n_windows, ws * ws, ws * ws), dtype=np.float32)
+    img_mask = np.zeros((h, w), dtype=np.int32)
+    cnt = 0
+    for hs in (slice(0, -ws), slice(-ws, -shift), slice(-shift, None)):
+        for wsl in (slice(0, -ws), slice(-ws, -shift), slice(-shift, None)):
+            img_mask[hs, wsl] = cnt
+            cnt += 1
+    m = img_mask.reshape(h // ws, ws, w // ws, ws).transpose(0, 2, 1, 3)
+    m = m.reshape(-1, ws * ws)
+    diff = m[:, None, :] - m[:, :, None]
+    return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def shift_mask_tensor(h: int, w: int, ws: int, shift: int,
+                      device: torch.device) -> torch.Tensor:
+    """`shift_attn_mask` as an fp32 tensor on `device`, built once per
+    (size, window, shift, device)."""
+    return torch.from_numpy(shift_attn_mask(h, w, ws, shift)).to(device)
+
+
+@functools.lru_cache(maxsize=8)
+def relative_position_index(ws: int) -> np.ndarray:
+    """Swin relative-position index table [ws*ws, ws*ws] (the buffer the
+    reference builds at init, network_swinir.py:89-103)."""
+    coords = np.stack(np.meshgrid(np.arange(ws), np.arange(ws), indexing="ij"))
+    flat = coords.reshape(2, -1)
+    rel = (flat[:, :, None] - flat[:, None, :]).transpose(1, 2, 0).astype(np.int64)
+    rel[:, :, 0] += ws - 1
+    rel[:, :, 1] += ws - 1
+    rel[:, :, 0] *= 2 * ws - 1
+    return rel.sum(-1).astype(np.int32)
+
+
+def relative_position_bias(table: torch.Tensor, ws: int) -> torch.Tensor:
+    """Gather the [(2ws-1)^2, nH] bias table into [nH, N, N] fp32."""
+    n = ws * ws
+    idx = torch.from_numpy(relative_position_index(ws).reshape(-1).astype(np.int64))
+    bias = table.float()[idx.to(table.device)].reshape(n, n, -1)
+    return bias.permute(2, 0, 1).contiguous()
