@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SwinIR-M x4 serving path once on one NVIDIA
-H100 and check it.  Run from the repository root:
+"""Drive the PyTorch port's SwinIR-M x4 serving and fine-tuning paths
+once on one NVIDIA H100 and check them.  Run from the repository root:
 
     python3 chip_smoke.py
 
 Phases (a failure in any raises, and the script exits non-zero):
 1. device   the card's name, compute capability 9.0, power limit;
 2. build    nvcc-compile the port's kernels from csrc/ (seconds, ptxas);
-3. kernels  each kernel (K1-K4) against its plain PyTorch version at the
-            main path's shapes: max abs error vs the plain version in
-            bf16 and in fp32 (TF32 off), each against its stated bound,
-            and the median time of kernel and plain version;
+3. kernels  each kernel (K1-K5) against its plain PyTorch version at the
+            main paths' shapes (K1 also with stochastic-depth branch
+            scales; K5, the block backward, on dx and its 13 parameter
+            gradients): the error vs the plain version in bf16 and in
+            fp32 (TF32 off), each against its stated bound; the median
+            time of kernel, plain version and, where one PyTorch call
+            computes the same function, that call; the bound (bytes or
+            operations at the H100's published peaks);
 4. serve    SwinIR-M x4 (seeded random weights, exported to a .pth) behind
             SRService + make_server on 127.0.0.1, three PNG requests;
             status, size, finite output, launch counts per model call,
@@ -18,11 +22,20 @@ Phases (a failure in any raises, and the script exits non-zero):
             plain fp32 path;
 5. bench    the bench.py workload (256^2 LR, tile 64, overlap 8, x4, bf16,
             25 tiles in one batch, 10 timed iterations) in MPix/s, for the
-            kernels and for the plain path.
+            kernels and for the plain path;
+6. train    SwinIR-M x4 fine-tuning (drop path 0.1, batch 8, lr_patch 64)
+            through ``cli.finetune.main(--device cuda)`` for one epoch of
+            8 steps + validation on a synthetic DeepRockSR-layout set;
+            launches per step, median ms per step and images/s for the
+            kernels and the plain bf16 path, a profiled step, the cost
+            of K1's per-step weight packing, and the first step's loss,
+            grad norm and per-parameter gradient cosine against the
+            plain fp32 path.
 
-The second-to-last stdout line is a JSON object describing each kernel;
-the last is {"ok": true, "device": {...}}.  There is no CPU path: with
-no CUDA device the script exits non-zero and prints no result.
+The second-to-last stdout line is a JSON object describing each kernel
+(launches summed over the serve and train phases); the last is
+{"ok": true, "device": {...}}.  There is no CPU path: with no CUDA
+device the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -46,6 +59,17 @@ PSNR_MIN_DB = 50.0
 # 1 ulp of the fp32 result; the bounds leave room for bf16 operands and
 # the plain version's own roundings.
 ULP_BOUND = {"K1": 8, "K2": 4, "K3": 4, "K4": 4}
+# K5: dx within this many bf16 ulps at max |dx|, and every parameter
+# gradient within this relative Frobenius error of the plain K5 (in
+# fp32 and in bf16): the kernel rounds its GEMM operands to bf16 at the
+# plain bf16 version's points, so both sit as far from fp32 as the plain
+# bf16 version does; the bound leaves room for that and for sums taken
+# in another order.
+K5_DX_ULPS = 16
+K5_REL_BOUND = 0.02
+# Published H100 SXM peaks: dense bf16 tensor cores, HBM3.
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
 
 KERNELS = {
     "K1": dict(name="swin_block", route="cuda",
@@ -60,9 +84,27 @@ KERNELS = {
     "K4": dict(name="conv_k", route="cuda",
                source="tpu_superresolution_torch/csrc/conv.cu",
                replaces="tpu_superresolution_tpu/ops/pallas/cab_conv.py:418"),
+    "K5": dict(name="swin_block_bwd", route="cuda",
+               source="tpu_superresolution_torch/csrc/swin_block_bwd.cu",
+               replaces="tpu_superresolution_tpu/ops/pallas/fused_block.py:1080"),
 }
 # Launches per SwinIR-M x4 model call on the serving path (--no-exact).
 PER_CALL = {"K1": 36, "K2": 2, "K3": 8, "K4": 1}
+# Fine-tuning: batch 8 of 64^2 LR crops; per train step, with the
+# composed reconstruction (fused_reconstruct, the config's default): K1
+# per block forward, K5 per block backward, K2-K4 forwards (their
+# backwards are autograd of the plain versions).
+TRAIN_BATCH = 8
+TRAIN_LR_PATCH = 64
+TRAIN_TIMED_STEPS = 10
+TRAIN_PER_STEP = {"K1": 36, "K2": 2, "K3": 8, "K4": 1, "K5": 36}
+# First step, kernels (bf16) vs the plain fp32 path from the same weights,
+# batch and stochastic-depth masks: bf16 activations keep ~3 significant
+# digits, so loss and grad norm agree to about a percent and every
+# parameter's gradient points the same way.
+TRAIN_LOSS_RTOL = 1e-2
+TRAIN_GNORM_RTOL = 5e-2
+TRAIN_COS_MIN = 0.98
 
 
 def log(msg: str) -> None:
@@ -152,7 +194,26 @@ def _random_block(gen, device, c=180, nh=6, hidden=360):
     )
 
 
-def _compare(results, key, label, out, ref_bf16, ref_fp32, t_kernel, t_plain):
+def bound_ms(flops: float, nbytes: float):
+    """The least time the card could take: the larger of operations over
+    the bf16 tensor-core peak and bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _record(results, key, label, err, t_kernel, t_plain, work, t_library=None):
+    flops, nbytes = work
+    b_ms, b_by = bound_ms(flops, nbytes)
+    log(f"[kernels] {key} {label}: kernel {t_kernel:.4f} ms, plain bf16 {t_plain:.4f} ms, "
+        f"library {'none' if t_library is None else f'{t_library:.4f} ms'}, bound "
+        f"{b_ms:.4f} ms by {b_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    results.setdefault(key, []).append(dict(
+        label=label, err=err, ms=t_kernel, plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=t_library))
+
+
+def _compare(results, key, label, out, ref_bf16, ref_fp32, t_kernel, t_plain, work,
+             t_library=None):
     mag = float(ref_fp32.abs().max())
     bound = ULP_BOUND[key] * bf16_ulp(mag)
     e16 = float((out.float() - ref_bf16.float()).abs().max())
@@ -160,19 +221,72 @@ def _compare(results, key, label, out, ref_bf16, ref_fp32, t_kernel, t_plain):
     ok = e16 <= bound and e32 <= bound and math.isfinite(e16) and math.isfinite(e32)
     log(f"[kernels] {key} {label}: max_abs_err vs plain bf16 {e16:.3e}, vs plain fp32 "
         f"{e32:.3e} (bound {bound:.3e} = {ULP_BOUND[key]} bf16 ulp at max|ref| {mag:.3f}) "
-        f"{'ok' if ok else 'FAIL'}; kernel {t_kernel:.4f} ms, plain bf16 {t_plain:.4f} ms")
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise RuntimeError(f"{key} {label}: kernel disagrees with its plain version")
-    results.setdefault(key, []).append(dict(label=label, err=e32, ms=t_kernel, plain_ms=t_plain))
+    _record(results, key, label, e32, t_kernel, t_plain, work, t_library)
+
+
+def _swin_work(shape, c=180, hidden=360, backward=False):
+    """(FLOPs, bytes) of one Swin block forward (K1) or backward (K5) at
+    the unpadded widths: per token the qkv, proj, fc1 and fc2 products
+    and the 64-key attention (QK^T, AV); the backward recomputes all but
+    fc2 and does two products per forward one.  Bytes: x (and ct) read,
+    the output (dx) written in bf16, weights and fp32 gradients once."""
+    tokens = math.prod(shape[:3])
+    fwd = {"qkv": 2 * c * 3 * c, "attn": 2 * 2 * 64 * c, "proj": 2 * c * c,
+           "fc1": 2 * c * hidden, "fc2": 2 * c * hidden}
+    per_token = sum(fwd.values())
+    weights = 3 * c * c + c * c + 2 * c * hidden
+    if not backward:
+        return tokens * per_token, tokens * c * 2 * 2 + weights * 2
+    per_token = per_token - fwd["fc2"] + 2 * per_token
+    return tokens * per_token, tokens * c * 2 * 3 + weights * (2 + 4)
+
+
+def _compare_k5(results, label, got, ref16, ref32, t_kernel, t_plain, work):
+    """K5's 14 outputs: dx in bf16 ulps at max |ref|, each parameter
+    gradient in relative Frobenius error, against the plain K5 in fp32
+    (and bf16), beside the plain bf16 version's own error."""
+    from tpu_superresolution_torch.kernels.fused_block import GRAD_FIELDS
+
+    mag = float(ref32.dx.abs().max())
+    bound = K5_DX_ULPS * bf16_ulp(mag)
+    e32 = float((got.dx.float() - ref32.dx).abs().max())
+    e16 = float((got.dx.float() - ref16.dx.float()).abs().max())
+    p16 = float((ref16.dx.float() - ref32.dx).abs().max())
+    ok = math.isfinite(e32) and e32 <= bound and e16 <= bound
+    log(f"[kernels] K5 {label} dx: max_abs_err vs plain fp32 {e32:.3e}, vs plain bf16 "
+        f"{e16:.3e} (bound {bound:.3e} = {K5_DX_ULPS} bf16 ulp at max|ref| {mag:.3f}; "
+        f"plain bf16 vs fp32 {p16:.3e}) {'ok' if ok else 'FAIL'}")
+    bad = [] if ok else ["dx"]
+    for k in GRAD_FIELDS:
+        a, r16, r32 = getattr(got, k).float(), getattr(ref16, k).float(), getattr(ref32, k)
+        norm = float(r32.norm()) or 1.0
+        rel32 = float((a - r32).norm()) / norm
+        rel16 = float((a - r16).norm()) / norm
+        own = float((r16 - r32).norm()) / norm
+        good = math.isfinite(rel32) and rel32 <= K5_REL_BOUND and rel16 <= K5_REL_BOUND
+        log(f"[kernels] K5 {label} d{k}: rel err vs plain fp32 {rel32:.3e}, vs plain bf16 "
+            f"{rel16:.3e} (bound {K5_REL_BOUND}; plain bf16 vs fp32 {own:.3e}) "
+            f"{'ok' if good else 'FAIL'}")
+        if not good:
+            bad.append(k)
+    if bad:
+        raise RuntimeError(f"K5 {label}: kernel disagrees with its plain version on {bad}")
+    _record(results, "K5", label, e32, t_kernel, t_plain, work)
 
 
 def phase_kernels():
     import torch
+    import torch.nn.functional as F
 
     from tpu_superresolution_torch.kernels.cab_conv import conv3x3, conv_k, conv_plain
     from tpu_superresolution_torch.kernels.fused_block import (
         fused_swin_block,
+        fused_swin_block_backward,
         pack_block_weights,
+        swin_block_bwd_plain,
         swin_block_plain,
     )
     from tpu_superresolution_torch.kernels.layernorm import layernorm, layernorm_plain
@@ -183,37 +297,67 @@ def phase_kernels():
     bf = torch.bfloat16
     res = {}
 
-    # K1: swin block, shift 0 and 4 on the serve tile batch, and a whole image
+    # K1: swin block, shift 0 and 4 on the serve tile batch / train batch
+    # (with and without stochastic-depth branch scales), and a whole image
     w = _random_block(gen, dev)
     packed = pack_block_weights(w)
-    for shape, shift in (((8, 64, 64, 180), 0), ((8, 64, 64, 180), 4),
-                         ((1, 256, 256, 180), 4)):
+    scales = torch.tensor([[1.0 / 0.9, 0.0], [1.0 / 0.9, 1.0 / 0.9]] * 4, device=dev)
+    for shape, shift, sc in (((8, 64, 64, 180), 0, None), ((8, 64, 64, 180), 4, None),
+                             ((1, 256, 256, 180), 4, None), ((8, 64, 64, 180), 0, scales),
+                             ((8, 64, 64, 180), 4, scales)):
         x = torch.randn(*shape, generator=gen).to(dev, bf)
         mask = shift_mask_tensor(shape[1], shape[2], 8, shift, dev) if shift else None
-        out = fused_swin_block(x, w, 8, shift, mask, True, packed=packed)
-        ref16 = swin_block_plain(x, w, 8, shift, mask, True)
-        ref32 = swin_block_plain(x.float(), w, 8, shift, mask, True)
+        run = lambda: fused_swin_block(x, w, 8, shift, mask, True, packed=packed,
+                                       branch_scales=sc)
+        out = run()
+        ref16 = swin_block_plain(x, w, 8, shift, mask, True, sc)
+        ref32 = swin_block_plain(x.float(), w, 8, shift, mask, True, sc)
         torch.cuda.synchronize()
-        _compare(res, "K1", f"{list(shape)} shift {shift}", out, ref16, ref32,
-                 cuda_ms(lambda: fused_swin_block(x, w, 8, shift, mask, True, packed=packed)),
-                 cuda_ms(lambda: swin_block_plain(x, w, 8, shift, mask, True)))
+        label = f"{list(shape)} shift {shift}" + ("" if sc is None else " branch scales")
+        _compare(res, "K1", label, out, ref16, ref32, cuda_ms(run),
+                 cuda_ms(lambda: swin_block_plain(x, w, 8, shift, mask, True, sc)),
+                 _swin_work(shape))
 
-    # K2: layernorm on the bench trunk (25 tiles of 64^2)
-    x = torch.randn(25 * 64 * 64, 180, generator=gen).to(dev, bf)
-    g = (1 + 0.1 * torch.randn(180, generator=gen)).to(dev)
-    b = (0.1 * torch.randn(180, generator=gen)).to(dev)
-    out = layernorm(x, g, b)
-    _compare(res, "K2", "[102400, 180]", out, layernorm_plain(x, g, b),
-             layernorm_plain(x.float(), g, b),
-             cuda_ms(lambda: layernorm(x, g, b)), cuda_ms(lambda: layernorm_plain(x, g, b)))
+    # K5: the block backward at the train shape, shift 0 and 4, scales on
+    shape = (8, 64, 64, 180)
+    for shift in (0, 4):
+        x = torch.randn(*shape, generator=gen).to(dev, bf)
+        ct = (0.1 * torch.randn(*shape, generator=gen)).to(dev, bf)
+        mask = shift_mask_tensor(shape[1], shape[2], 8, shift, dev) if shift else None
+        run = lambda: fused_swin_block_backward(ct, x, w, 8, shift, mask, True, scales,
+                                                packed=packed)
+        got = run()
+        ref16 = swin_block_bwd_plain(ct, x, w, 8, shift, mask, True, scales)
+        ref32 = swin_block_bwd_plain(ct.float(), x.float(), w, 8, shift, mask, True, scales)
+        torch.cuda.synchronize()
+        _compare_k5(res, f"{list(shape)} shift {shift} branch scales", got, ref16, ref32,
+                    cuda_ms(run),
+                    cuda_ms(lambda: swin_block_bwd_plain(ct, x, w, 8, shift, mask, True, scales)),
+                    _swin_work(shape, backward=True))
+        del got, ref16, ref32
 
-    # K3: 3x3 convs 180->180 and 180->64 on bench tiles and a whole image;
-    # K4: the composed 5x5 64->48 reconstruction conv.
+    # K2: layernorm on the bench trunk (25 tiles of 64^2) and the train batch
+    for rows in (25 * 64 * 64, 8 * 64 * 64):
+        x = torch.randn(rows, 180, generator=gen).to(dev, bf)
+        g = (1 + 0.1 * torch.randn(180, generator=gen)).to(dev)
+        b = (0.1 * torch.randn(180, generator=gen)).to(dev)
+        g16, b16 = g.to(bf), b.to(bf)
+        out = layernorm(x, g, b)
+        _compare(res, "K2", f"[{rows}, 180]", out, layernorm_plain(x, g, b),
+                 layernorm_plain(x.float(), g, b),
+                 cuda_ms(lambda: layernorm(x, g, b)), cuda_ms(lambda: layernorm_plain(x, g, b)),
+                 (8 * x.numel(), 2 * x.numel() * 2 + 2 * 180 * 4),
+                 cuda_ms(lambda: F.layer_norm(x, (180,), g16, b16, 1e-5)))
+
+    # K3: 3x3 convs 180->180 and 180->64 on bench tiles, a whole image and
+    # the train batch; K4: the composed 5x5 64->48 reconstruction conv.
     cases = [("K3", (25, 64, 64, 180), 180, 3, ((1, 1), (1, 1))),
              ("K3", (25, 64, 64, 180), 64, 3, ((1, 1), (1, 1))),
              ("K3", (1, 256, 256, 180), 180, 3, ((1, 1), (1, 1))),
              ("K3", (1, 256, 256, 180), 64, 3, ((1, 1), (1, 1))),
-             ("K4", (25, 64, 64, 64), 48, 5, ((2, 2), (2, 2)))]
+             ("K3", (8, 64, 64, 180), 180, 3, ((1, 1), (1, 1))),
+             ("K4", (25, 64, 64, 64), 48, 5, ((2, 2), (2, 2))),
+             ("K4", (8, 64, 64, 64), 48, 5, ((2, 2), (2, 2)))]
     for key, shape, cout, k, pad in cases:
         cin = shape[-1]
         x = torch.randn(*shape, generator=gen).to(dev, bf)
@@ -221,9 +365,15 @@ def phase_kernels():
         bias = (0.1 * torch.randn(cout, generator=gen)).to(dev)
         fn = (lambda: conv3x3(x, kern, bias)) if key == "K3" else (lambda: conv_k(x, kern, bias, pad))
         out = fn()
+        # the one-call library yardstick: cuDNN on the same NHWC tensor
+        xn, wn, b16 = x.permute(0, 3, 1, 2), kern.permute(3, 2, 0, 1).contiguous(), bias.to(bf)
+        pixels = math.prod(shape[:3])
         _compare(res, key, f"{list(shape)} -> {cout}, {k}x{k}", out,
                  conv_plain(x, kern, bias, pad), conv_plain(x.float(), kern.float(), bias, pad),
-                 cuda_ms(fn), cuda_ms(lambda: conv_plain(x, kern, bias, pad)))
+                 cuda_ms(fn), cuda_ms(lambda: conv_plain(x, kern, bias, pad)),
+                 (2 * pixels * cin * cout * k * k,
+                  pixels * (cin + cout) * 2 + kern.numel() * 2 + cout * 4),
+                 cuda_ms(lambda: F.conv2d(xn, wn, b16, padding=k // 2)))
     return res
 
 
@@ -371,6 +521,242 @@ def phase_bench(service, smi):
             f"{label}: {dt * 1e3:.2f} ms/image, {1024 * 1024 / 1e6 / dt:.3f} MPix/s ({smi})")
 
 
+def _write_deeprock(root, n_train, n_valid, hr_size, scale, seed):
+    """A synthetic DeepRockSR-2D-layout set: smooth grayscale HR images
+    (bicubic-upsampled noise) and their bicubic LR, named <stem>x<s>."""
+    from pathlib import Path
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for split, n in (("train", n_train), ("valid", n_valid)):
+        hr_dir = Path(root) / "shuffled2D" / f"shuffled2D_{split}_HR"
+        lr_dir = Path(root) / "shuffled2D" / f"shuffled2D_{split}_LR_default_X{scale}"
+        hr_dir.mkdir(parents=True)
+        lr_dir.mkdir(parents=True)
+        for i in range(n):
+            small = (rng.random((hr_size // 8, hr_size // 8)) * 255).astype(np.uint8)
+            img = Image.fromarray(small, mode="L").resize((hr_size, hr_size), Image.BICUBIC)
+            img.save(hr_dir / f"{split}_{i:04d}.png")
+            img.resize((hr_size // scale,) * 2, Image.BICUBIC).save(
+                lr_dir / f"{split}_{i:04d}x{scale}.png")
+
+
+def _train_state(model, steps_per_epoch):
+    from tpu_superresolution_torch.core.config import TrainConfig
+    from tpu_superresolution_torch.train.engine import build_optimizer, create_train_state
+
+    tcfg = TrainConfig(epochs=10, loss="l1", lr=2e-5, scheduler="cosine", min_lr=2e-6,
+                       finetune=True)
+    opt, sched = build_optimizer(tcfg, steps_per_epoch, model)
+    return create_train_state(model, opt, sched, tcfg.grad_clip_norm)
+
+
+def _first_step_grads(model, lr, hr):
+    """Loss and {name: grad} of one train-mode forward / backward, the
+    stochastic-depth masks drawn from a generator of seed SEED."""
+    import torch
+
+    model.train()
+    model.zero_grad(set_to_none=True)
+    out = model(lr, generator=torch.Generator().manual_seed(SEED)).float()
+    loss = (out - hr).abs().mean()
+    loss.backward()
+    grads = {n: p.grad.detach().float().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def phase_train(workdir, smi):
+    """SwinIR-M x4 fine-tuning: the finetune CLI for one epoch on the
+    card, then per-step launch counts and times (kernels vs plain bf16)
+    and the first step's gradients against the plain fp32 path."""
+    import numpy as np
+    import torch
+
+    from tpu_superresolution_torch.cli.finetune import main as finetune_main
+    from tpu_superresolution_torch.core.config import SwinIRConfig, build_model
+    from tpu_superresolution_torch.kernels import read_counters, reset_counters
+    from tpu_superresolution_torch.train.engine import global_norm, make_train_step
+
+    batch, patch, scale = TRAIN_BATCH, TRAIN_LR_PATCH, 4
+    n_train, n_valid = 8 * batch, 2
+    data = f"{workdir}/deeprock"
+    _write_deeprock(data, n_train, n_valid, hr_size=320, scale=scale, seed=SEED)
+    cfg = SwinIRConfig(scale=scale)  # SwinIR-M x4, drop_path_rate 0.1
+    src = build_model(cfg)
+    src.reset_parameters(torch.Generator().manual_seed(SEED))
+    weights = f"{workdir}/swinir_m_x4_random.pth"
+    torch.save({"params": src.state_dict()}, weights)
+
+    # 1. the entry point: one epoch of 8 steps + validation of 2 images
+    reset_counters()
+    t0 = time.perf_counter()
+    trainer, state = finetune_main([
+        "--data_root", data, "--scale", "X4", "--weights", weights, "--epochs", "1",
+        "--batch_size", str(batch), "--lr_patch", str(patch), "--workdir", f"{workdir}/run",
+        "--seed", str(SEED), "--device", "cuda"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_counters()
+    steps, val_calls = n_train // batch, 1
+    expect = {k: steps * TRAIN_PER_STEP[k] + val_calls * PER_CALL.get(k, 0)
+              for k in TRAIN_PER_STEP}
+    log(f"[train] finetune CLI, SwinIR-M x4 (fused_reconstruct="
+        f"{trainer.model_config.fused_reconstruct}, drop_path_rate "
+        f"{trainer.model_config.drop_path_rate}), batch {batch}, lr_patch {patch}: {steps} "
+        f"steps + validation in {cli_s:.1f} s (incl. weight load and the first steps' "
+        f"set-up); train loss {trainer.history['train'][0]:.6f}, val PSNR "
+        f"{trainer.best_val_psnr:.2f} dB; launches {launches} (expected {expect}) ({smi})")
+    if state.step != steps or not math.isfinite(trainer.history["train"][0]):
+        raise RuntimeError(f"finetune: {state.step} steps, loss {trainer.history['train']}")
+    if launches != expect:
+        raise RuntimeError(f"finetune launches {launches}, expected {expect}")
+
+    # 2. one step's launches, and step times: kernels vs the plain bf16 path
+    rng = np.random.default_rng(SEED)
+    lr = torch.from_numpy(rng.random((batch, patch, patch, 3), dtype=np.float32)).cuda()
+    hr = torch.from_numpy(
+        rng.random((batch, patch * scale, patch * scale, 3), dtype=np.float32)).cuda()
+    step = make_train_step("l1", "native_lr", scale, patch, False)
+    times = {}
+    for label, impl in (("kernels", "auto"), ("plain", "plain")):
+        model = build_model(cfg, dtype=torch.bfloat16, impl=impl, device="cuda")
+        model.load_state_dict(src.state_dict())
+        st = _train_state(model, steps)
+        gen = torch.Generator().manual_seed(SEED)
+        for _ in range(3):
+            step(st, lr, hr, gen)
+        torch.cuda.synchronize()
+        reset_counters()
+        step(st, lr, hr, gen)
+        torch.cuda.synchronize()
+        per_step = read_counters()
+        dts = []
+        for _ in range(TRAIN_TIMED_STEPS):
+            t0 = time.perf_counter()
+            m = step(st, lr, hr, gen)
+            torch.cuda.synchronize()
+            dts.append(time.perf_counter() - t0)
+        ms = statistics.median(dts) * 1e3
+        times[label] = ms
+        log(f"[train] {label} bf16 path: launches per step {per_step}; median "
+            f"{ms:.2f} ms/step over {TRAIN_TIMED_STEPS} steps after 4 warm-up "
+            f"(min {min(dts) * 1e3:.2f}, max {max(dts) * 1e3:.2f}), "
+            f"{batch / ms * 1e3:.1f} images/s; loss {float(m['loss']):.6f} ({smi})")
+        if label == "kernels":
+            if per_step != TRAIN_PER_STEP:
+                raise RuntimeError(f"launches per train step {per_step}, expected "
+                                   f"{TRAIN_PER_STEP}")
+            _profile_step(step, st, lr, hr, gen)
+            _packing_cost(model)
+        elif any(per_step.values()):
+            raise RuntimeError(f"the plain path launched kernels: {per_step}")
+        del model, st
+
+    # 3. the first step's gradients: kernels (bf16) vs the plain fp32 path
+    ref = build_model(cfg, dtype=torch.float32, impl="plain", device="cuda")
+    ref.load_state_dict(src.state_dict())
+    kern = build_model(cfg, dtype=torch.bfloat16, device="cuda")
+    kern.load_state_dict(src.state_dict())
+    loss_k, g_k = _first_step_grads(kern, lr, hr)
+    loss_r, g_r = _first_step_grads(ref, lr, hr)
+    gn_k, gn_r = float(global_norm(list(g_k.values()))), float(global_norm(list(g_r.values())))
+    cos = {}
+    for name, gr in g_r.items():
+        gk = g_k[name]
+        nk, nr = float(gk.norm()), float(gr.norm())
+        if not (math.isfinite(nk) and math.isfinite(nr)):
+            raise RuntimeError(f"non-finite gradient of {name}")
+        if nr == 0.0 and nk == 0.0:
+            continue  # a branch dropped for every sample in both paths
+        cos[name] = float((gk * gr).sum()) / max(nk * nr, 1e-30)
+    worst = sorted(cos.items(), key=lambda kv: kv[1])[:3]
+    rel_loss = abs(loss_k - loss_r) / abs(loss_r)
+    rel_gn = abs(gn_k - gn_r) / gn_r
+    ok = (rel_loss <= TRAIN_LOSS_RTOL and rel_gn <= TRAIN_GNORM_RTOL
+          and min(cos.values()) >= TRAIN_COS_MIN)
+    log(f"[train] first step vs plain fp32 path: loss {loss_k:.6f} vs {loss_r:.6f} (rel "
+        f"{rel_loss:.2e}, bound {TRAIN_LOSS_RTOL}); grad norm {gn_k:.5f} vs {gn_r:.5f} (rel "
+        f"{rel_gn:.2e}, bound {TRAIN_GNORM_RTOL}); gradient cosine over {len(cos)} of "
+        f"{len(g_r)} parameters, lowest {worst} (bound >= {TRAIN_COS_MIN}) "
+        f"{'ok' if ok else 'FAIL'} ({smi})")
+    if not ok:
+        raise RuntimeError("train step gradients disagree with the plain fp32 path")
+    return launches, times
+
+
+def _device_kernels(prof):
+    """The profile's kernels on the card (not the user-annotation ranges
+    that the profiler also places on the device timeline)."""
+    import torch
+
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def _packing_cost(model):
+    """What K1's weight packing costs each train step: device kernels
+    and synchronised milliseconds for all blocks."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_superresolution_torch.kernels.fused_block import pack_block_weights
+
+    weights = [b.block_weights() for layer in model.layers
+               for b in layer.residual_group.blocks]
+    run = lambda: [pack_block_weights(w) for w in weights]
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    n = len(_device_kernels(prof))
+    t0 = time.perf_counter()
+    for _ in range(5):
+        run()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 5 * 1e3
+    log(f"[train] K1 weight packing per step: {len(weights)} blocks, {n} device kernels "
+        f"({n / len(weights):.0f} per block), {ms:.2f} ms (host and device, synchronised)")
+
+
+def _profile_step(step, state, lr, hr, gen):
+    """torch.profiler over one train step: device time by kernel name
+    and the step's CUDA kernel count (the weight packing's small ops
+    included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(state, lr, hr, gen)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        kernels = _device_kernels(prof)
+    except Exception as e:  # the profile is a reading aid, not a check
+        log(f"[train] profiler failed: {type(e).__name__}: {e}")
+        return
+    if not kernels:
+        log("[train] profiler: no device events recorded")
+        return
+    us = lambda e: getattr(e, "device_time", 0.0) or getattr(e, "cuda_time", 0.0)
+    busy = sum(us(e) for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + us(e) / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    small = sum(n for n, t in by_name.values() if t / max(n, 1) < 0.01)
+    log(f"[train] profiled step: {wall:.2f} ms wall (profiler on), {len(kernels)} device "
+        f"kernels, device busy {busy:.2f} ms ({busy / wall:.1%}); kernels under 10 us "
+        f"each: {small}")
+    for name, (n, t) in top:
+        log(f"[train]   {t:8.3f} ms  x{n:<4d} {name[:90]}")
+
+
 def main() -> int:
     import torch
 
@@ -382,16 +768,19 @@ def main() -> int:
     _lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_lib.BUILD_DIR) as workdir:
         service, launches = phase_serve(workdir)
-    phase_bench(service, smi)
+        phase_bench(service, smi)
+        del service
+        train_launches, _ = phase_train(workdir, smi)
 
     kernels = []
     for key, meta in KERNELS.items():
         first = kres[key][0]
         kernels.append(dict(
             name=meta["name"], route=meta["route"], source=meta["source"],
-            replaces=meta["replaces"], launches=launches[key],
+            replaces=meta["replaces"], launches=launches.get(key, 0) + train_launches[key],
             max_abs_err=max(r["err"] for r in kres[key]),
-            ms=first["ms"], plain_ms=first["plain_ms"],
+            ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+            bound_by=first["bound_by"], library_ms=first["library_ms"],
         ))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

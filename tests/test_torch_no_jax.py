@@ -31,15 +31,30 @@ def test_port_imports_no_jax():
 
 
 def test_cpu_forward_launches_no_kernel():
-    from tpu_superresolution_torch.core.config import SwinIRConfig, build_model
+    """Neither a CPU forward nor a CPU train step (backward included)
+    launches a kernel: the wrappers take the plain versions there."""
+    from tpu_superresolution_torch.core.config import SwinIRConfig, TrainConfig, build_model
     from tpu_superresolution_torch.kernels import read_counters, reset_counters
+    from tpu_superresolution_torch.train.engine import (
+        build_optimizer,
+        create_train_state,
+        make_train_step,
+    )
 
     model = build_model(SwinIRConfig(embed_dim=24, depths=(2,), num_heads=(2,)))
     reset_counters()
     with torch.no_grad():
         y = model(torch.rand(1, 16, 16, 3))
     assert y.shape == (1, 64, 64, 3)
-    assert read_counters() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    none = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+    assert read_counters() == none
+    opt, sched = build_optimizer(TrainConfig(loss="l1"), 1, model)
+    state = create_train_state(model, opt, sched)
+    step = make_train_step("l1", "native_lr", 4, 8, True)
+    m = step(state, torch.rand(2, 16, 16, 3), torch.rand(2, 64, 64, 3),
+             torch.Generator().manual_seed(0))
+    assert bool(m["finite"]) and state.step == 1
+    assert read_counters() == none
 
 
 def test_wrappers_refuse_devices_without_a_kernel():

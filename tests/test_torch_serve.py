@@ -182,6 +182,7 @@ def test_upscale_cli_writes_png(ckpt, tmp_path):
     Image.fromarray((np.random.default_rng(2).random((18, 22, 3)) * 255).astype(np.uint8)).save(src)
     out = tmp_path / "out.png"
     assert main(["--image", str(src), "--ckpt", ckpt, "--scale", "X2",
-                 "--out", str(out), "--no-exact", "--tile", "16", "--tile_overlap", "4"]) == [str(out)]
+                 "--out", str(out), "--no-exact", "--tile", "16", "--tile_overlap", "4",
+                 "--device", "cpu"]) == [str(out)]
     with Image.open(out) as im:
         assert im.size == (44, 36)

@@ -15,6 +15,8 @@ Endpoints:
 - ``GET /healthz`` — JSON: model name, scale, channels, requests served.
 
 One process owns the GPU, so requests are serialized through a lock.
+It runs on the GPU and raises when there is none; ``--device cpu``
+serves from the CPU.
 """
 
 from __future__ import annotations
@@ -28,14 +30,13 @@ import time
 import numpy as np
 import torch
 
+from tpu_superresolution_torch.cli.common import add_device_flag, report_device, resolve_device
 from tpu_superresolution_torch.cli.upscale import (
     AUTO_OVERLAP,
     MODEL_CHOICES,
     ForwardCache,
     auto_tile,
-    default_device,
     load_for_inference,
-    report_device,
 )
 
 # Bounds on client-supplied ?tile=N&overlap=M.
@@ -58,7 +59,7 @@ class SRService:
 
     def __init__(self, ckpt, model_name, scale_arg, exact, tile, overlap, tile_batch,
                  device=None):
-        self.device = default_device() if device is None else torch.device(device)
+        self.device = resolve_device(device)
         (self.mcfg, self.model, self.scale, self.convention,
          self.channels) = load_for_inference(ckpt, model_name, scale_arg, exact, self.device)
         self.tile, self.overlap = tile, overlap
@@ -163,12 +164,13 @@ def build_argparser():
     ap.add_argument("--exact", action=argparse.BooleanOptionalAction, default=None,
                     help="reference-exact semantics (default ON for torch checkpoints); "
                          "--no-exact serves with fused reconstruction and tanh GELU")
+    add_device_flag(ap)
     return ap
 
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    device = default_device()
+    device = resolve_device(args.device)
     report_device(device)
     service = SRService(args.ckpt, args.model, args.scale, args.exact,
                         args.tile, args.tile_overlap, args.tile_batch, device)

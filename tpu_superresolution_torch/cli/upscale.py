@@ -4,10 +4,12 @@ SwinIR checkpoint (port of ``tpu_superresolution_tpu/cli/upscale.py``):
     python -m tpu_superresolution_torch.cli.upscale \\
         --ckpt model.pth --model swinir --scale X4 --image photo.png
 
-decode -> (auto-)tiled SwinIR forward -> PNG.  On a CUDA device the
-model computes in bf16 through the port's kernels; on the CPU in fp32
-through their plain versions.  Orbax checkpoints, the other model
-families and multi-GPU sharding are still to port (ROADMAP.md).
+decode -> (auto-)tiled SwinIR forward -> PNG.  It runs on the GPU, in
+bf16 through the port's kernels, and raises when there is none; with
+``--device cpu`` it runs on the CPU in fp32 through their plain
+versions.  The checkpoint is a reference ``.pth`` or one written by
+``cli/finetune.py``.  Orbax checkpoints, the other model families and
+multi-GPU sharding are still to port (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+
+from tpu_superresolution_torch.cli.common import add_device_flag, report_device, resolve_device
 
 # Auto-tiling threshold on the LONG edge: whole-image forward at or
 # below it, tiled above it.
@@ -34,10 +38,6 @@ MODEL_CHOICES = ("ms_resunet", "unet2d", "swinir", "hat", "dat")
 def auto_tile(h: int, w: int) -> int:
     """0 (whole image) up to the long-edge threshold, else the tile."""
     return AUTO_TILE if max(h, w) > AUTO_TILE_MIN_EDGE else 0
-
-
-def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
 def load_any_checkpoint(ckpt: str, model_name: str, scale_int: int, exact=None,
@@ -65,7 +65,7 @@ def load_any_checkpoint(ckpt: str, model_name: str, scale_int: int, exact=None,
             f"{ckpt}: the PyTorch port loads reference .pt/.pth checkpoints only; "
             "Orbax checkpoints are still to port (ROADMAP.md)"
         )
-    device = default_device() if device is None else device
+    device = resolve_device(device)
     sd = strip_reference_buffers(load_torch_checkpoint(ckpt))
     mcfg = infer_swinir_config(sd, scale_int)
     if exact is None or exact:
@@ -117,14 +117,6 @@ class ForwardCache:
         return self._cache[key]
 
 
-def report_device(device: torch.device) -> None:
-    if device.type == "cuda":
-        print(f"[device] {torch.cuda.get_device_name(device)} x{torch.cuda.device_count()} "
-              "(bf16, port kernels)", flush=True)
-    else:
-        print("[device] cpu (fp32, plain versions of the kernels)", flush=True)
-
-
 def build_argparser():
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -149,6 +141,7 @@ def build_argparser():
                          "serving path (fused reconstruction, tanh GELU)")
     ap.add_argument("--rescale_png", action="store_true",
                     help="min-max rescale the output instead of clamping")
+    add_device_flag(ap)
     return ap
 
 
@@ -158,7 +151,7 @@ def main(argv=None):
     from tpu_superresolution_torch.data.decode import decode_image
     from tpu_superresolution_torch.evaluate.runner import save_tensor_as_png
 
-    device = default_device()
+    device = resolve_device(args.device)
     report_device(device)
     mcfg, model, scale, convention, channels = load_for_inference(
         args.ckpt, args.model, args.scale, args.exact, device

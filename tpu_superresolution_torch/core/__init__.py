@@ -1,7 +1,9 @@
 from .config import (
+    DataConfig,
     EvalConfig,
     ModelConfig,
     SwinIRConfig,
+    TrainConfig,
     build_model,
     config_from_dict,
     model_registry,
@@ -10,9 +12,11 @@ from .config import (
 from .dtypes import COMPUTE_DTYPE, OUTPUT_DTYPE, PARAM_DTYPE, serving_dtype
 
 __all__ = [
+    "DataConfig",
     "EvalConfig",
     "ModelConfig",
     "SwinIRConfig",
+    "TrainConfig",
     "build_model",
     "config_from_dict",
     "model_registry",

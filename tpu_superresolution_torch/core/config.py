@@ -75,6 +75,64 @@ class SwinIRConfig(ModelConfig):
 
 
 @dataclass(frozen=True)
+class DataConfig:
+    """Paired LR/HR dataset config (the JAX package's DataConfig;
+    reference modules/sr_datasets.py:31-73).  The port trains the
+    native-LR convention only so far (the SwinIR fine-tune path);
+    pre-upscale, blur and normalization are still to port."""
+
+    data_root: str = ""
+    dataset: str = "shuffled2D"
+    scale: str = "X2"  # "X2" | "X4"
+    convention: str = "pre_upscale"  # "pre_upscale" | "native_lr"
+    patch_size: Optional[int] = 100  # HR-space patch for pre_upscale
+    lr_patch: Optional[int] = 64  # LR-space patch for native_lr
+    do_flips: bool = True
+    do_blur: bool = False
+    norm_mean: Optional[float] = None
+    norm_std: Optional[float] = None
+    grayscale: bool = True
+    channels: int = 1
+
+    @property
+    def normalizes(self) -> bool:
+        return self.norm_mean is not None and self.norm_std is not None
+
+    @property
+    def scale_int(self) -> int:
+        return int(self.scale[1:])
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training config (the JAX package's TrainConfig without its
+    TPU-only `remat`).  `bf16_compute`: on CUDA the model computes in
+    bf16 with fp32 parameters and no loss scaling; on the CPU it always
+    computes in fp32."""
+
+    epochs: int = 5
+    batch_size: int = 8
+    loss: str = "mse"  # "mse" | "l1" | "l1_ssim"
+    lr: float = 1e-4
+    weight_decay: float = 0.0
+    scheduler: str = "none"  # "onecycle" | "exponential" | "cosine" | "none"
+    min_lr: float = 1e-7  # cosine floor (reference finetune_swinir.py:309)
+    grad_clip_norm: float = 1.0
+    seed: int = 42
+    freeze_regex: Optional[str] = None  # matches state-dict names
+    finetune: bool = False
+    ft_lr: Optional[float] = None
+    early_stop_patience: Optional[int] = None
+    time_log_every: int = 0
+    val_every: int = 1
+    ema_decay: Optional[float] = None
+    bf16_compute: bool = True
+    # data-parallel shards: 0/1 = one device; more waits for the
+    # multi-GPU slice
+    dp_shards: int = 0
+
+
+@dataclass(frozen=True)
 class EvalConfig:
     batch_size: int = 4
     tile_size: Optional[int] = None  # None = whole image
@@ -107,7 +165,9 @@ def build_model(config: ModelConfig, dtype=None, impl: str = "auto", device=None
     `dtype` is the compute dtype (parameters stay fp32; default fp32).
     `impl`: "auto" runs the kernels on CUDA tensors and their plain
     versions on CPU tensors; "plain" runs the plain versions on any
-    device (the reference path the kernels are held against).
+    device (the reference path the kernels are held against).  The model
+    comes in eval mode; ``model.train()`` turns on its training-only
+    behaviour (stochastic depth).
     """
     _ensure_registered()
     if config.name not in model_registry:

@@ -1,13 +1,15 @@
-// K1 — one whole Swin transformer block (inference) per 8x8 window.
+// K1 — one whole Swin transformer block forward per 8x8 window.
 //
 // Replaces: tpu_superresolution_tpu/ops/pallas/fused_block.py
 //           fused_swin_block -> _mega_forward -> _kernel (strip mode, no
-//           `extra`, no branch scales, no sample fold).
+//           `extra`, no sample fold).
 // Math (per window of N = 64 tokens, C <= 192 channels, nh heads of
 //       hd <= 32, MLP hidden <= 384):
-//         x1  = x + proj(softmax(q k^T * scale + rpb[h] + mask[win]) v)
+//         x1  = x + m1 * proj(softmax(q k^T * scale + rpb[h] + mask[win]) v)
 //               with q, k, v = LN1(x) Wqkv + bqkv
-//         out = x1 + fc2(gelu(fc1(LN2(x1))))
+//         out = x1 + m2 * fc2(gelu(fc1(LN2(x1))))
+//       where (m1, m2) = scales[b] are the sample's stochastic-depth
+//       branch scales (1 when scales is null: the multiply is then exact).
 //       LayerNorm uses fp32 fast-variance statistics (E[x^2] - E[x]^2,
 //       clamped at 0, eps 1e-5); softmax is fp32; GELU is tanh or erf;
 //       matmul operands are bf16 with fp32 accumulation; the residual
@@ -39,6 +41,7 @@
 #include <mma.h>
 
 #include "common.cuh"
+#include "swin_common.cuh"
 
 using namespace nvcuda;
 
@@ -95,77 +98,10 @@ struct BlockArgs {
   const float* bfc2;  // [CP]
   const float* rpb;   // [nh, NT, NT]
   const float* mask;  // [nW, NT, NT] or null
+  const float* scales;  // [batch, 2] or null
   int batch, h, w, c, nh, shift, gelu_tanh;
   float eps;
 };
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBt;
-
-// acc[mt] = A[64 x K_DIM] (shared, row-major) @ W[n0:n0+16, 0:K_DIM]^T
-// (W global, [out, in] row-major with leading dimension K_DIM), for the
-// window's four 16-row tiles.  Read as a column-major B fragment, each
-// thread's k-pairs of W are contiguous 4-byte words.
-template <int K_DIM>
-__device__ __forceinline__ void gemm_strip(Acc (&acc)[4], const bf16* a, int lda,
-                                           const bf16* w, int n0) {
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) wmma::fill_fragment(acc[mt], 0.f);
-  const bf16* wrow = w + static_cast<long long>(n0) * K_DIM;
-  for (int k = 0; k < K_DIM; k += 16) {
-    FragBt fb;
-    wmma::load_matrix_sync(fb, wrow + k, K_DIM);
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-      FragA fa;
-      wmma::load_matrix_sync(fa, a + mt * 16 * lda + k, lda);
-      wmma::mma_sync(acc[mt], fa, fb, acc[mt]);
-    }
-  }
-}
-
-__device__ __forceinline__ void load8(float (&v)[8], const float* src) {
-  const float4 a = reinterpret_cast<const float4*>(src)[0];
-  const float4 b = reinterpret_cast<const float4*>(src)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-// dst[0:8] = bf16(v[0:8]) as one 16-byte store.
-__device__ __forceinline__ void store8_bf16(bf16* dst, const float (&v)[8]) {
-  __align__(16) __nv_bfloat162 h[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(h);
-}
-
-// Hand the accumulators to `fn(row, col, v[8])`, eight consecutive
-// columns of one row per lane, through the warp's 16x16 fp32 staging
-// tile (the WMMA fragment layout is opaque).
-template <typename Fn>
-__device__ __forceinline__ void strip_epilogue(Acc (&acc)[4], float* stg, int lane, int n0,
-                                               Fn fn) {
-  const int rr = lane >> 1, cc = (lane & 1) * 8;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-    wmma::store_matrix_sync(stg, acc[mt], 16, wmma::mem_row_major);
-    __syncwarp();
-    float v[8];
-    load8(v, stg + rr * 16 + cc);
-    fn(mt * 16 + rr, n0 + cc, v);
-    __syncwarp();
-  }
-}
-
-__device__ __forceinline__ float gelu(float u, int tanh_form) {
-  if (tanh_form) {
-    const float k = 0.7978845608028654f;  // sqrt(2 / pi)
-    return 0.5f * u * (1.f + tanhf(k * (u + 0.044715f * u * u * u)));
-  }
-  return 0.5f * u * (1.f + erff(u * 0.7071067811865476f));
-}
 
 // LayerNorm of the fp32 rows xs[t][0:c] into bf16 ys[t][0:CP] (zero pad).
 __device__ __forceinline__ void layernorm_rows(const float* xs, bf16* ys, const float* g,
@@ -207,6 +143,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_kernel(const BlockArgs
   const int bidx = blockIdx.x / (nwh * nww);
   const int wy = win / nww, wx = win % nww;
   const int c = a.c;
+  const float m1 = a.scales ? a.scales[2 * bidx] : 1.f;
+  const float m2 = a.scales ? a.scales[2 * bidx + 1] : 1.f;
 
   auto token_offset = [&](int t) -> long long {
     const int r = (wy * WS + (t >> 3) + a.shift) % a.h;
@@ -319,7 +257,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_kernel(const BlockArgs
   }
   __syncthreads();
 
-  // ---- x1 = x + O @ Wproj + bproj (fp32, in place) ----
+  // ---- x1 = x + m1 * (O @ Wproj + bproj) (fp32, in place) ----
   for (int strip = warp; strip < CP / 16; strip += NWARPS) {
     const int n0 = strip * 16;
     gemm_strip<CP>(acc, os, LDO, a.wproj, n0);
@@ -330,7 +268,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_kernel(const BlockArgs
       load8(b, a.bproj + n);
       load8(x, xs + r * LDX + n);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) x[i] += v[i] + b[i];
+      for (int i = 0; i < 8; ++i) x[i] += m1 * (v[i] + b[i]);
       reinterpret_cast<float4*>(xs + r * LDX + n)[0] = make_float4(x[0], x[1], x[2], x[3]);
       reinterpret_cast<float4*>(xs + r * LDX + n)[1] = make_float4(x[4], x[5], x[6], x[7]);
     });
@@ -360,7 +298,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_kernel(const BlockArgs
       load8(b, a.bfc2 + n);
       load8(x, xs + r * LDX + n);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) x[i] += v[i] + b[i];
+      for (int i = 0; i < 8; ++i) x[i] += m2 * (v[i] + b[i]);
       reinterpret_cast<float4*>(xs + r * LDX + n)[0] = make_float4(x[0], x[1], x[2], x[3]);
       reinterpret_cast<float4*>(xs + r * LDX + n)[1] = make_float4(x[4], x[5], x[6], x[7]);
     });
@@ -381,7 +319,7 @@ extern "C" int sr_swin_block_bf16(const void* x, void* y, const void* g1, const 
                                   const void* bqkv, const void* wproj, const void* bproj,
                                   const void* wfc1, const void* bfc1, const void* wfc2,
                                   const void* bfc2, const void* rpb, const void* mask,
-                                  int batch, int h, int w, int c, int nh, int shift,
+                                  const void* scales, int batch, int h, int w, int c, int nh, int shift,
                                   int gelu_tanh, float eps, void* stream) {
   // The shared-memory opt-in is a per-device attribute: set it on the
   // current device at every launch (a few microseconds).
@@ -407,6 +345,7 @@ extern "C" int sr_swin_block_bf16(const void* x, void* y, const void* g1, const 
   a.bfc2 = static_cast<const float*>(bfc2);
   a.rpb = static_cast<const float*>(rpb);
   a.mask = static_cast<const float*>(mask);
+  a.scales = static_cast<const float*>(scales);
   a.batch = batch;
   a.h = h;
   a.w = w;

@@ -32,3 +32,11 @@ def decode_image(path, grayscale: bool = True, channels: int = 1) -> np.ndarray:
     elif channels == 1 and x.shape[2] == 3 and not grayscale:
         x = (x @ _LUMA)[:, :, None]
     return x
+
+
+def load_pair_batch(pairs, grayscale: bool = True, channels: int = 1):
+    """Decode [(lr_path, hr_path), ...] into stacked [B, h, w, C] /
+    [B, H, W, C] float32 arrays (sizes must be uniform in a batch)."""
+    lrs = [decode_image(lp, grayscale, channels) for lp, _ in pairs]
+    hrs = [decode_image(hp, grayscale, channels) for _, hp in pairs]
+    return np.stack(lrs), np.stack(hrs)

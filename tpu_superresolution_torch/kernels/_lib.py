@@ -45,7 +45,8 @@ _SIGNATURES = {
     "sr_layernorm_bf16": [_P, _P, _P, _P, ctypes.c_longlong, _I, ctypes.c_float, _P],
     "sr_conv3x3_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "sr_conv_bf16": [_P, _P, _P, _P] + [_I] * 9 + [_P],
-    "sr_swin_block_bf16": [_P] * 16 + [_I] * 7 + [ctypes.c_float, _P],
+    "sr_swin_block_bf16": [_P] * 17 + [_I] * 7 + [ctypes.c_float, _P],
+    "sr_swin_block_bwd_bf16": [_P] * 24 + [_I] * 7 + [ctypes.c_float, _I, _I, _P],
 }
 
 
@@ -175,3 +176,16 @@ def require_cuda(x: torch.Tensor, name: str) -> None:
     (the kernel); anything else is an error."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel or plain version for device {x.device}")
+
+
+def plain_vjp(fn, inputs, needs, grad_out):
+    """Gradients of `fn(*inputs)` for `grad_out` by torch autograd of a
+    plain version, for the inputs flagged in `needs` (None for the
+    others): the backward of the kernels whose TPU counterparts leave
+    theirs to XLA."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(n) if torch.is_tensor(t) else t
+                  for t, n in zip(inputs, needs)]
+        wanted = [t for t, n in zip(leaves, needs) if n]
+        grads = iter(torch.autograd.grad(fn(*leaves), wanted, grad_out) if wanted else ())
+    return tuple(next(grads) if n else None for n in needs)

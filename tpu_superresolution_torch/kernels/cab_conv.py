@@ -6,7 +6,10 @@ kh x kw with an asymmetric zero pad whose output keeps the input's
 H x W).  Weights keep the JAX package's ``[kh, kw, Cin, Cout]`` layout.
 One implicit-GEMM kernel serves both entry points; unlike the JAX
 package it has no shape gate and takes every shape (any Cin/Cout, any
-image size).
+image size).  Training differentiates through ``ConvFunction``: forward
+K3 or K4, backward torch autograd of the plain version (cuDNN's conv
+backward), as the JAX package's K3/K4 backwards are XLA vjps
+(``cab_conv.py:324-327``, ``:435-437``).
 """
 
 from __future__ import annotations
@@ -61,19 +64,41 @@ def _launch(x, kernel, bias, pad: Pad, name: str) -> torch.Tensor:
                 b, h, w, cin, cout, kh, kw, pt, pl, _lib.stream_of(x),
             )
     _lib.check_status(status, name)
+    (launches_conv3x3 if name == "conv3x3" else launches_conv_k).count += 1
     return y
+
+
+class ConvFunction(torch.autograd.Function):
+    """Forward K3 / K4, backward autograd of ``conv_plain``."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, bias, pad, name):
+        ctx.save_for_backward(x, kernel, bias)
+        ctx.pad = pad
+        return _launch(x, kernel, bias, pad, name)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, kernel, bias = ctx.saved_tensors
+        return _lib.plain_vjp(lambda x, k, b, pad, _name: conv_plain(x, k, b, pad),
+                         (x, kernel, bias, ctx.pad, None), ctx.needs_input_grad, grad_out)
+
+
+def _conv(x, kernel, bias, pad, name):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, kernel, bias)):
+        return ConvFunction.apply(x, kernel, bias, pad, name)
+    return _launch(x, kernel, bias, pad, name)
 
 
 def conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """K3: SAME 3x3 conv.  CPU tensor -> plain version; CUDA tensor ->
-    the kernel (bf16 x and kernel [3, 3, Cin, Cout], fp32 bias)."""
+    the kernel (bf16 x and kernel [3, 3, Cin, Cout], fp32 bias), through
+    ``ConvFunction`` when a gradient is wanted."""
     if x.device.type == "cpu":
         return conv_plain(x, kernel, bias, ((1, 1), (1, 1)))
     if tuple(kernel.shape[:2]) != (3, 3):
         raise ValueError(f"conv3x3: kernel {tuple(kernel.shape)} is not 3x3")
-    y = _launch(x, kernel, bias, ((1, 1), (1, 1)), "conv3x3")
-    launches_conv3x3.count += 1
-    return y
+    return _conv(x, kernel, bias, ((1, 1), (1, 1)), "conv3x3")
 
 
 def conv_k(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
@@ -83,6 +108,4 @@ def conv_k(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     -> plain version; CUDA tensor -> the kernel."""
     if x.device.type == "cpu":
         return conv_plain(x, kernel, bias, pad)
-    y = _launch(x, kernel, bias, pad, "conv_k")
-    launches_conv_k.count += 1
-    return y
+    return _conv(x, kernel, bias, pad, "conv_k")

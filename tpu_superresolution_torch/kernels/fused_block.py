@@ -1,26 +1,38 @@
-"""K1 — the whole Swin transformer block at inference (CUDA,
-``csrc/swin_block.cu``).
+"""K1 — the whole Swin transformer block forward (CUDA,
+``csrc/swin_block.cu``) — and K5, its backward (CUDA,
+``csrc/swin_block_bwd.cu``).
 
-Port of ``tpu_superresolution_tpu/ops/pallas/fused_block.py``
+K1 ports ``tpu_superresolution_tpu/ops/pallas/fused_block.py``
 (``fused_swin_block`` -> ``_mega_forward`` -> ``_kernel``), without the
-training-only or TPU-only parts (``extra``, branch scales, sample fold,
-roll-absorbing neighbour reads, the MXU row-sum column):
+TPU-only parts (``extra``, sample fold, roll-absorbing neighbour reads,
+the MXU row-sum column):
 
-    x1  = x + proj(window_attention(LN1(x)))     (shifted windows)
-    out = x1 + fc2(gelu(fc1(LN2(x1))))
+    x1  = x + m1 * proj(window_attention(LN1(x)))     (shifted windows)
+    out = x1 + m2 * fc2(gelu(fc1(LN2(x1))))
 
-The kernel runs one CTA per 8x8 window and applies the cyclic shift in
-its address arithmetic, so ``fused_swin_block(x, ..., shift=s)`` equals
-``cyclic_unshift(block(cyclic_shift(x, s)), s)``; the plain version
-computes exactly that composition.  The kernel takes ws = 8 (N = 64),
-C <= 192, heads of hd <= 32 (at most 6) and an MLP hidden <= 384, and
-raises otherwise.
+where (m1, m2) are the per-sample stochastic-depth branch scales
+(``branch_scales`` [B, 2] fp32; None means 1, and the kernel then does
+exactly its inference arithmetic).  K5 ports ``_mega_backward`` ->
+``_bwd_kernel``: recompute the forward, chain the cotangent, and return
+dx and the 13 parameter gradients.
+
+The kernels run one CTA per 8x8 window and apply the cyclic shift in
+their address arithmetic, so ``fused_swin_block(x, ..., shift=s)``
+equals ``cyclic_unshift(block(cyclic_shift(x, s)), s)``; the plain
+versions compute exactly that composition.  The kernels take ws = 8
+(N = 64), C <= 192, heads of hd <= 32 (at most 6) and an MLP hidden
+<= 384, and raise otherwise.
+
+Training on CUDA goes through ``SwinBlockFunction``: its forward is K1
+and its backward is K5, with the gradients mapped from the kernels'
+packed layout back to the raw ``[out, in]`` parameters here (the
+counterpart of ``fused_block.py:1098-1105``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -35,15 +47,17 @@ from tpu_superresolution_torch.ops.window import (
     window_reverse,
 )
 
-# Compile-time sizes of csrc/swin_block.cu.
+# Compile-time sizes of csrc/swin_block.cu and csrc/swin_block_bwd.cu.
 WS = 8
 CP = 192     # padded channels
 HDP = 32     # padded head dim
 HIDP = 384   # padded MLP hidden
 MAX_HEADS = CP // HDP
 LN_EPS = 1e-5
+N_TOK = WS * WS
 
 launches = _lib.LaunchCounter("K1 swin_block")
+launches_bwd = _lib.LaunchCounter("K5 swin_block_bwd")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,9 +90,37 @@ class SwinBlockWeights:
         return (self.dim // self.num_heads) ** -0.5
 
 
+# The differentiable tensors of a block, in the order SwinBlockFunction
+# takes them and SwinBlockGrads returns their gradients.
+GRAD_FIELDS = ("g1", "b1", "wqkv", "bqkv", "wproj", "bproj", "g2", "b2",
+               "wfc1", "bfc1", "wfc2", "bfc2", "rpb")
+
+
+@dataclasses.dataclass(frozen=True)
+class SwinBlockGrads:
+    """dx and the 13 parameter gradients of one block in raw weight
+    space (fp32), with `rpb` the gradient of the gathered [nH, N, N]
+    bias (the scatter back to the table is the gather's autograd)."""
+
+    dx: torch.Tensor
+    g1: torch.Tensor
+    b1: torch.Tensor
+    wqkv: torch.Tensor
+    bqkv: torch.Tensor
+    wproj: torch.Tensor
+    bproj: torch.Tensor
+    g2: torch.Tensor
+    b2: torch.Tensor
+    wfc1: torch.Tensor
+    bfc1: torch.Tensor
+    wfc2: torch.Tensor
+    bfc2: torch.Tensor
+    rpb: torch.Tensor
+
+
 @dataclasses.dataclass(frozen=True)
 class PackedSwinBlock:
-    """The kernel's operands: bf16 GEMM weights in the [out, in] layout,
+    """The kernels' operands: bf16 GEMM weights in the [out, in] layout,
     zero-padded to the kernel's tile sizes (q rows pre-scaled by
     hd^-0.5, head dims padded hd -> 32, channels C -> 192), fp32 biases
     and LayerNorm params, and the gathered [nH, 64, 64] relative-position
@@ -99,6 +141,7 @@ class PackedSwinBlock:
     rpb: torch.Tensor    # [nH, 64, 64] fp32
     dim: int
     num_heads: int
+    hidden: int
 
 
 def check_kernel_limits(w: SwinBlockWeights) -> None:
@@ -110,62 +153,66 @@ def check_kernel_limits(w: SwinBlockWeights) -> None:
         )
     if w.table.shape[0] != (2 * WS - 1) ** 2:
         raise ValueError(f"swin_block kernel takes window size {WS} only")
+    if w.bqkv is None:
+        raise ValueError("swin_block kernel takes qkv_bias=True only")
 
 
-def pack_block_weights(w: SwinBlockWeights) -> PackedSwinBlock:
-    """Lay one block's weights out for the kernel (the counterpart of
-    the JAX package's ``_prep_weights``).  Built once per loaded
-    weights by the caller, not per forward."""
+@torch.no_grad()
+def pack_block_weights(w: SwinBlockWeights, rpb: Optional[torch.Tensor] = None) -> PackedSwinBlock:
+    """Lay one block's weights out for the kernels (the counterpart of
+    the JAX package's ``_prep_weights``).  At inference the caller
+    builds it once per loaded weights; in training once per step.
+    `rpb`: the gathered bias, when the caller already has it."""
     check_kernel_limits(w)
     c, nh = w.dim, w.num_heads
     hd, hidden = c // nh, int(w.wfc1.shape[0])
-    dev = w.wqkv.device
-    z = dict(dtype=torch.float32, device=dev)
     bf = torch.bfloat16
-    with torch.no_grad():
-        # [out, in] layouts (nn.Linear's), zero-padded; heads padded hd -> 32
-        wq = w.wqkv.float().reshape(3, nh, hd, c).clone()
-        wq[0] *= w.scale
-        wqkv = torch.zeros(3, MAX_HEADS, HDP, CP, **z)
-        wqkv[:, :nh, :hd, :c] = wq
-        bqkv = torch.zeros(3, MAX_HEADS, HDP, **z)
-        if w.bqkv is not None:
-            bq = w.bqkv.float().reshape(3, nh, hd).clone()
-            bq[0] *= w.scale
-            bqkv[:, :nh, :hd] = bq
-        wproj = torch.zeros(CP, MAX_HEADS, HDP, **z)
-        wproj[:c, :nh, :hd] = w.wproj.float().reshape(c, nh, hd)
-        bproj = torch.zeros(CP, **z)
-        bproj[:c] = w.bproj.float()
-        wfc1 = torch.zeros(HIDP, CP, **z)
-        wfc1[:hidden, :c] = w.wfc1.float()
-        bfc1 = torch.zeros(HIDP, **z)
-        bfc1[:hidden] = w.bfc1.float()
-        wfc2 = torch.zeros(CP, HIDP, **z)
-        wfc2[:c, :hidden] = w.wfc2.float()
-        bfc2 = torch.zeros(CP, **z)
-        bfc2[:c] = w.bfc2.float()
-        return PackedSwinBlock(
-            wqkv=wqkv.reshape(3 * CP, CP).to(bf).contiguous(),
-            bqkv=bqkv.reshape(-1).contiguous(),
-            wproj=wproj.reshape(CP, CP).to(bf).contiguous(),
-            bproj=bproj,
-            wfc1=wfc1.to(bf).contiguous(),
-            bfc1=bfc1,
-            wfc2=wfc2.to(bf).contiguous(),
-            bfc2=bfc2,
-            g1=w.g1.float().contiguous(),
-            b1=w.b1.float().contiguous(),
-            g2=w.g2.float().contiguous(),
-            b2=w.b2.float().contiguous(),
-            rpb=relative_position_bias(w.table, WS),
-            dim=c,
-            num_heads=nh,
-        )
+    ph, pd, pc = MAX_HEADS - nh, HDP - hd, CP - c
+
+    def scale_q(t):  # [3, ...] with the q rows pre-scaled
+        t = t.float()
+        return torch.cat([t[:1] * w.scale, t[1:]])
+
+    # [out, in] layouts (nn.Linear's), zero-padded with one F.pad each
+    # (training packs all 36 blocks on every step: few ops per tensor)
+    wqkv = F.pad(scale_q(w.wqkv.reshape(3, nh, hd, c)), (0, pc, 0, pd, 0, ph))
+    bqkv = F.pad(scale_q(w.bqkv.reshape(3, nh, hd)), (0, pd, 0, ph))
+    wproj = F.pad(w.wproj.reshape(c, nh, hd), (0, pd, 0, ph, 0, pc))
+    if rpb is None:
+        rpb = relative_position_bias(w.table, WS)
+    return PackedSwinBlock(
+        wqkv=wqkv.reshape(3 * CP, CP).to(bf),
+        bqkv=bqkv.reshape(-1),
+        wproj=wproj.reshape(CP, CP).to(bf),
+        bproj=F.pad(w.bproj.float(), (0, pc)),
+        wfc1=F.pad(w.wfc1, (0, pc, 0, HIDP - hidden)).to(bf),
+        bfc1=F.pad(w.bfc1.float(), (0, HIDP - hidden)),
+        wfc2=F.pad(w.wfc2, (0, HIDP - hidden, 0, pc)).to(bf),
+        bfc2=F.pad(w.bfc2.float(), (0, pc)),
+        g1=w.g1.float().contiguous(),
+        b1=w.b1.float().contiguous(),
+        g2=w.g2.float().contiguous(),
+        b2=w.b2.float().contiguous(),
+        rpb=rpb.float().contiguous(),
+        dim=c,
+        num_heads=nh,
+        hidden=hidden,
+    )
 
 
 def gelu(x: torch.Tensor, approximate: bool) -> torch.Tensor:
     return F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def gelu_grad(x: torch.Tensor, approximate: bool) -> torch.Tensor:
+    """d gelu(x) / dx of either variant (``fused_block._gelu_grad``, with
+    torch's exact erf where the JAX kernel uses the A&S polynomial)."""
+    if approximate:
+        k = 0.7978845608028654  # sqrt(2 / pi)
+        th = torch.tanh(k * (x + 0.044715 * x * x * x))
+        return 0.5 * (1.0 + th) + 0.5 * x * (1.0 - th * th) * k * (1.0 + 3.0 * 0.044715 * x * x)
+    phi = 0.5 * (1.0 + torch.erf(x * 0.7071067811865476))
+    return phi + x * torch.exp(-0.5 * x * x) * 0.3989422804014327
 
 
 def window_attention_plain(xw, wqkv, bqkv, wproj, bproj, rpb, mask, scale):
@@ -191,58 +238,166 @@ def window_attention_plain(xw, wqkv, bqkv, wproj, bproj, rpb, mask, scale):
     return F.linear(out, wproj.to(dt), bproj.to(dt))
 
 
+def _window_scales(scales: Optional[torch.Tensor], b: int, n_windows: int, dev):
+    """Per-window (m1, m2) columns [B*nW, 1, 1] of the [B, 2] scales."""
+    if scales is None:
+        one = torch.ones(b * n_windows, 1, 1, device=dev)
+        return one, one
+    s = scales.float().to(dev).repeat_interleave(n_windows, dim=0)
+    return s[:, 0, None, None], s[:, 1, None, None]
+
+
 def swin_block_plain(x: torch.Tensor, w: SwinBlockWeights, ws: int, shift: int,
-                     mask: Optional[torch.Tensor], gelu_approx: bool) -> torch.Tensor:
-    """The plain PyTorch version (port of ``fused_block._reference_block``
-    with the cyclic shift around it): residual stream in fp32, LayerNorm
-    and GEMM operands in x's dtype."""
+                     mask: Optional[torch.Tensor], gelu_approx: bool,
+                     branch_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain PyTorch version of K1 (port of
+    ``fused_block._reference_block`` with the cyclic shift around it):
+    residual stream in fp32, LayerNorm and GEMM operands in x's dtype,
+    branch scales [B, 2] on the attention and MLP residuals."""
     dt = x.dtype
     xs = cyclic_shift(x, shift)
     b, h, wd, c = xs.shape
     xf = xs.float()
+    m1 = m2 = 1.0
+    if branch_scales is not None:
+        s = branch_scales.float().to(x.device)
+        m1, m2 = s[:, 0, None, None, None], s[:, 1, None, None, None]
     y = layernorm_plain(xf, w.g1, w.b1, LN_EPS).to(dt)
     attn = window_attention_plain(
         window_partition(y, ws), w.wqkv, w.bqkv, w.wproj, w.bproj,
         relative_position_bias(w.table, ws), mask, w.scale,
     )
-    x1 = xf + window_reverse(attn, ws, h, wd).float()
+    x1 = xf + window_reverse(attn, ws, h, wd).float() * m1
     y2 = layernorm_plain(x1, w.g2, w.b2, LN_EPS).to(dt)
     h1 = F.linear(y2, w.wfc1.to(dt), w.bfc1.to(dt))
     h1 = gelu(h1.float(), gelu_approx).to(dt)
     mlp = F.linear(h1, w.wfc2.to(dt), w.bfc2.to(dt))
-    out = (x1 + mlp.float()).to(dt)
+    out = (x1 + mlp.float() * m2).to(dt)
     return cyclic_unshift(out, shift)
 
 
-def fused_swin_block(x: torch.Tensor, w: SwinBlockWeights, ws: int, shift: int,
-                     mask: Optional[torch.Tensor], gelu_approx: bool,
-                     packed: Optional[PackedSwinBlock] = None) -> torch.Tensor:
-    """One Swin block on x [B, H, W, C] with cyclic shift `shift` and the
-    shift mask [nW, N, N] built on (H, W).  CPU tensor -> plain version;
-    CUDA tensor -> the kernel (bf16 x; `packed` from
-    ``pack_block_weights``, packed here when not given)."""
-    if x.device.type == "cpu":
-        return swin_block_plain(x, w, ws, shift, mask, gelu_approx)
-    _lib.require_cuda(x, "fused_swin_block")
+def _ln_stats(x32: torch.Tensor):
+    mu = x32.mean(-1, keepdim=True)
+    var = ((x32 * x32).mean(-1, keepdim=True) - mu * mu).clamp_min(0.0)
+    r = torch.rsqrt(var + LN_EPS)
+    return (x32 - mu) * r, r
+
+
+def _ln_backward(dy, n, r, g):
+    """LayerNorm backward in the fast-variance form
+    (``fused_block.py:643-650``): (dx, dgamma, dbeta)."""
+    dyg = dy * g
+    dx = r * (dyg - dyg.mean(-1, keepdim=True) - n * (dyg * n).mean(-1, keepdim=True))
+    return dx, (dy * n).sum(0), dy.sum(0)
+
+
+def swin_block_bwd_plain(ct: torch.Tensor, x: torch.Tensor, w: SwinBlockWeights, ws: int,
+                         shift: int, mask: Optional[torch.Tensor], gelu_approx: bool,
+                         branch_scales: Optional[torch.Tensor] = None) -> SwinBlockGrads:
+    """The plain PyTorch version of K5 (``fused_block._bwd_kernel``'s
+    math, written out): recompute the forward, then chain the cotangent
+    `ct` through MLP, LN2, proj, attention, qkv and LN1.  GEMM operands
+    are cast to x's dtype at the kernel's points (yc, qkv, A, o, y2c,
+    gelu output, dmlp, dh1, dattn, do, dS, dqkv) and multiplied in fp32,
+    as the kernel's bf16 tensor-core products with fp32 accumulation do.
+    The q weights are pre-scaled by hd^-0.5 before the cast, as the
+    kernel's packing does."""
+    cdt = x.dtype
+    c, nh = w.dim, w.num_heads
+    hd, scale = c // nh, w.scale
+    f = lambda t: t.to(cdt).float()  # round to the compute dtype
+    xs = window_partition(cyclic_shift(x, shift).float(), ws)   # [BW, N, C]
+    cts = window_partition(cyclic_shift(ct, shift).float(), ws)
+    bw, n, _ = xs.shape
+    b = x.shape[0]
+    m1, m2 = _window_scales(branch_scales, b, bw // b, x.device)
+    wq = w.wqkv.float().reshape(3, c, c).clone()
+    wq[0] *= scale
+    wq = f(wq.reshape(3 * c, c))
+    bq = w.bqkv.float().reshape(3, c).clone()
+    bq[0] *= scale
+    bq = bq.reshape(3 * c)
+    wp, wf1, wf2 = f(w.wproj), f(w.wfc1), f(w.wfc2)
+    rpb = relative_position_bias(w.table, ws)
+
+    # ---- forward recompute ----
+    n1, r1 = _ln_stats(xs)
+    yc = f(n1 * w.g1.float() + w.b1.float())
+    qkv = f(yc @ wq.t() + bq).reshape(bw, n, 3, nh, hd)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]           # [BW, N, nh, hd]
+    s = torch.einsum("wqhd,wkhd->whqk", q, k) + rpb.float()[None]
+    if mask is not None:
+        nwm = mask.shape[0]
+        s = (s.reshape(bw // nwm, nwm, nh, n, n) + mask.float()[None, :, None]).reshape(s.shape)
+    a = torch.softmax(s, dim=-1)                                 # fp32 [BW, nh, N, N]
+    ac = f(a)
+    o = f(torch.einsum("whqk,wkhd->wqhd", ac, v)).reshape(bw, n, c)
+    x1 = xs + (o @ wp.t() + w.bproj.float()) * m1
+    n2, r2 = _ln_stats(x1)
+    y2c = f(n2 * w.g2.float() + w.b2.float())
+    h1 = y2c @ wf1.t() + w.bfc1.float()
+    act = f(gelu(h1, gelu_approx))
+
+    # ---- backward ----
+    tok = lambda t: t.reshape(bw * n, -1)
+    dmlp = f(cts * m2)
+    dwfc2 = tok(dmlp).t() @ tok(act)
+    dbfc2 = tok(dmlp).sum(0)
+    dh1 = f((dmlp @ wf2) * gelu_grad(h1, gelu_approx))
+    dwfc1 = tok(dh1).t() @ tok(y2c)
+    dbfc1 = tok(dh1).sum(0)
+    dy2 = dh1 @ wf1
+    dx1, dg2, db2 = _ln_backward(tok(dy2), tok(n2), tok(r2), w.g2.float())
+    dx1 = tok(cts) + dx1
+    dattn = f(dx1.reshape(bw, n, c) * m1)
+    dwproj = tok(dattn).t() @ tok(o)
+    dbproj = tok(dattn).sum(0)
+    do = f(dattn @ wp).reshape(bw, n, nh, hd)
+    dv = f(torch.einsum("whqk,wqhd->wkhd", ac, do))
+    da = torch.einsum("wqhd,wkhd->whqk", do, v)
+    ds = a * (da - (da * a).sum(-1, keepdim=True))
+    drpb = ds.sum(0)
+    dsc = f(ds)
+    dq = f(torch.einsum("whqk,wkhd->wqhd", dsc, k))
+    dk = f(torch.einsum("whqk,wqhd->wkhd", dsc, q))
+    dqkv = torch.stack([dq, dk, dv], dim=2).reshape(bw, n, 3 * c)
+    dwqkv = (tok(dqkv).t() @ tok(yc)).reshape(3, c, c)
+    dbqkv = tok(dqkv).sum(0).reshape(3, c)
+    dwqkv[0] *= scale
+    dbqkv[0] *= scale
+    dy = dqkv @ wq
+    dxf, dg1, db1 = _ln_backward(tok(dy), tok(n1), tok(r1), w.g1.float())
+    dx = (dx1 + dxf).reshape(bw, n, c)
+    h, wd = x.shape[1], x.shape[2]
+    dx = cyclic_unshift(window_reverse(dx, ws, h, wd), shift).to(cdt)
+    return SwinBlockGrads(
+        dx=dx, g1=dg1, b1=db1, wqkv=dwqkv.reshape(3 * c, c), bqkv=dbqkv.reshape(3 * c),
+        wproj=dwproj, bproj=dbproj, g2=dg2, b2=db2, wfc1=dwfc1, bfc1=dbfc1,
+        wfc2=dwfc2, bfc2=dbfc2, rpb=drpb,
+    )
+
+
+def _check_block_input(x: torch.Tensor, ws: int, shift: int, name: str) -> None:
+    _lib.require_cuda(x, name)
     if ws != WS:
-        raise ValueError(f"fused_swin_block: the kernel takes ws={WS}, got {ws}")
+        raise ValueError(f"{name}: the kernel takes ws={WS}, got {ws}")
     _lib.check_tensor(x, "x", torch.bfloat16, x.device, ndim=4, align=2)
-    b, h, wd, c = x.shape
-    if h % WS or wd % WS:
-        raise ValueError(f"fused_swin_block: H, W = {h}, {wd} are not multiples of {WS}")
+    if x.shape[1] % WS or x.shape[2] % WS:
+        raise ValueError(f"{name}: H, W = {x.shape[1]}, {x.shape[2]} are not multiples of {WS}")
     if not 0 <= shift < WS:
-        raise ValueError(f"fused_swin_block: shift {shift} outside [0, {WS})")
-    if packed is None:
-        packed = pack_block_weights(w)
+        raise ValueError(f"{name}: shift {shift} outside [0, {WS})")
+
+
+def _check_packed(packed: PackedSwinBlock, x: torch.Tensor, mask, scales, name: str) -> None:
+    b, h, wd, c = x.shape
     if packed.dim != c:
-        raise ValueError(f"fused_swin_block: weights for C={packed.dim}, x has C={c}")
-    nh = packed.num_heads
+        raise ValueError(f"{name}: weights for C={packed.dim}, x has C={c}")
     dev = x.device
     # WMMA reads the bf16 weight tiles straight from global memory (32-byte
     # aligned rows); biases and rpb are read as float4, LayerNorm params
     # as scalars.
     bf, f32 = torch.bfloat16, torch.float32
-    for name, t, shape, dtype, align in (
+    for tname, t, shape, dtype, align in (
         ("wqkv", packed.wqkv, (3 * CP, CP), bf, 32),
         ("bqkv", packed.bqkv, (3 * CP,), f32, 16),
         ("wproj", packed.wproj, (CP, CP), bf, 32),
@@ -255,13 +410,23 @@ def fused_swin_block(x: torch.Tensor, w: SwinBlockWeights, ws: int, shift: int,
         ("b1", packed.b1, (c,), f32, 4),
         ("g2", packed.g2, (c,), f32, 4),
         ("b2", packed.b2, (c,), f32, 4),
-        ("rpb", packed.rpb, (nh, WS * WS, WS * WS), f32, 16),
+        ("rpb", packed.rpb, (packed.num_heads, N_TOK, N_TOK), f32, 16),
     ):
-        _lib.check_tensor(t, name, dtype, dev, shape=shape, align=align)
-    n_windows = (h // WS) * (wd // WS)
+        _lib.check_tensor(t, tname, dtype, dev, shape=shape, align=align)
     if mask is not None:
-        _lib.check_tensor(mask, "mask", torch.float32, dev,
-                          shape=(n_windows, WS * WS, WS * WS), align=16)
+        n_windows = (h // WS) * (wd // WS)
+        _lib.check_tensor(mask, "mask", f32, dev, shape=(n_windows, N_TOK, N_TOK), align=16)
+    if scales is not None:
+        _lib.check_tensor(scales, "branch_scales", f32, dev, shape=(b, 2), align=4)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_k1(x, packed: PackedSwinBlock, shift, mask, gelu_approx, scales) -> torch.Tensor:
+    _check_packed(packed, x, mask, scales, "fused_swin_block")
+    b, h, wd, c = x.shape
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         status = _lib.library().sr_swin_block_bf16(
@@ -272,10 +437,177 @@ def fused_swin_block(x: torch.Tensor, w: SwinBlockWeights, ws: int, shift: int,
             packed.wproj.data_ptr(), packed.bproj.data_ptr(),
             packed.wfc1.data_ptr(), packed.bfc1.data_ptr(),
             packed.wfc2.data_ptr(), packed.bfc2.data_ptr(),
-            packed.rpb.data_ptr(), None if mask is None else mask.data_ptr(),
-            b, h, wd, c, nh, shift, int(bool(gelu_approx)), LN_EPS,
+            packed.rpb.data_ptr(), _ptr(mask), _ptr(scales),
+            b, h, wd, c, packed.num_heads, shift, int(bool(gelu_approx)), LN_EPS,
             _lib.stream_of(x),
         )
     _lib.check_status(status, "sr_swin_block_bf16")
     launches.count += 1
     return y
+
+
+# K5's split-K reduction: at most this many row chunks per weight GEMM.
+K5_MAX_SPLITS = 16
+K5_MIN_ROWS_PER_SPLIT = 512
+# Per-window partial sums written by K5a: LN g1, b1, g2, b2 (CP each),
+# then the bias sums bqkv (3CP), bproj (CP), bfc1 (HIDP), bfc2 (CP);
+# the per-head dS [nh, 64, 64] follows.
+_VEC_OFFSETS = {"g1": 0, "b1": CP, "g2": 2 * CP, "b2": 3 * CP, "bqkv": 4 * CP,
+                "bproj": 7 * CP, "bfc1": 8 * CP, "bfc2": 8 * CP + HIDP}
+K5_VEC = 9 * CP + HIDP
+# Weight-gradient GEMMs of K5b, [out, in] each, concatenated in this order.
+_WGRAD_SHAPES = (("wqkv", 3 * CP, CP), ("wproj", CP, CP), ("wfc1", HIDP, CP), ("wfc2", CP, HIDP))
+K5_WGRAD = sum(m * n for _, m, n in _WGRAD_SHAPES)
+# bf16 operand columns per token in K5's workspace: yc, qkv, o, y2c,
+# act, dmlp, dh1, dattn, dqkv; then fp32 x1 (CP) and h1 (HIDP).
+K5_BF16_COLS = CP + 3 * CP + CP + CP + HIDP + CP + HIDP + CP + 3 * CP
+K5_F32_COLS = CP + HIDP
+
+
+def k5_splits(tokens: int) -> Tuple[int, int]:
+    """(number of row chunks, rows per chunk) of K5b's split-K
+    reduction over `tokens` rows (a multiple of 64)."""
+    splits = max(1, min(K5_MAX_SPLITS, tokens // K5_MIN_ROWS_PER_SPLIT))
+    rows = -(-tokens // splits)
+    rows = -(-rows // 64) * 64
+    return -(-tokens // rows), rows
+
+
+def _launch_k5(ct, x, packed: PackedSwinBlock, shift, mask, gelu_approx, scales):
+    """Run K5 (K5a per window, K5b weight-gradient GEMMs, K5c ordered
+    reductions) and return (dx, packed-space fp32 gradients)."""
+    _check_packed(packed, x, mask, scales, "fused_swin_block_backward")
+    _lib.check_tensor(ct, "ct", torch.bfloat16, x.device, shape=tuple(x.shape), align=2)
+    b, h, wd, c = x.shape
+    nh = packed.num_heads
+    tokens = b * h * wd
+    windows = tokens // N_TOK
+    splits, rows = k5_splits(tokens)
+    dev = x.device
+    dx = torch.empty_like(x)
+    ws16 = torch.empty(tokens * K5_BF16_COLS, dtype=torch.bfloat16, device=dev)
+    ws32 = torch.empty(tokens * K5_F32_COLS, dtype=torch.float32, device=dev)
+    vec_len = K5_VEC + nh * N_TOK * N_TOK
+    part_win = torch.empty(windows * vec_len, dtype=torch.float32, device=dev)
+    part_w = torch.empty(splits * K5_WGRAD, dtype=torch.float32, device=dev)
+    vec = torch.empty(vec_len, dtype=torch.float32, device=dev)
+    wgrad = torch.empty(K5_WGRAD, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        status = _lib.library().sr_swin_block_bwd_bf16(
+            ct.data_ptr(), x.data_ptr(), dx.data_ptr(),
+            packed.g1.data_ptr(), packed.b1.data_ptr(),
+            packed.g2.data_ptr(), packed.b2.data_ptr(),
+            packed.wqkv.data_ptr(), packed.bqkv.data_ptr(),
+            packed.wproj.data_ptr(), packed.bproj.data_ptr(),
+            packed.wfc1.data_ptr(), packed.bfc1.data_ptr(),
+            packed.wfc2.data_ptr(), packed.bfc2.data_ptr(),
+            packed.rpb.data_ptr(), _ptr(mask), _ptr(scales),
+            ws16.data_ptr(), ws32.data_ptr(), part_win.data_ptr(), part_w.data_ptr(),
+            vec.data_ptr(), wgrad.data_ptr(),
+            b, h, wd, c, nh, shift, int(bool(gelu_approx)), LN_EPS, splits, rows,
+            _lib.stream_of(x),
+        )
+    _lib.check_status(status, "sr_swin_block_bwd_bf16")
+    launches_bwd.count += 1
+    out, off = {}, 0
+    for name, m, n in _WGRAD_SHAPES:
+        out["w" + name[1:]] = wgrad[off:off + m * n].reshape(m, n)
+        off += m * n
+    for name, o in _VEC_OFFSETS.items():
+        size = {"bqkv": 3 * CP, "bfc1": HIDP}.get(name, CP)
+        out[name] = vec[o:o + size]
+    out["rpb"] = vec[K5_VEC:].reshape(nh, N_TOK, N_TOK)
+    return dx, out
+
+
+def unpack_block_grads(g: dict, packed: PackedSwinBlock, scale: float) -> dict:
+    """Packed-layout gradients -> raw [out, in] parameter gradients:
+    drop the head-dim and channel padding and carry the q pre-scale
+    (``fused_block.py:1098-1105``)."""
+    c, nh, hidden = packed.dim, packed.num_heads, packed.hidden
+    hd = c // nh
+    # (g is this launch's fresh output: scaling it in place is safe)
+    dwqkv = g["wqkv"].reshape(3, MAX_HEADS, HDP, CP)[:, :nh, :hd, :c].reshape(3, c, c)
+    dbqkv = g["bqkv"].reshape(3, MAX_HEADS, HDP)[:, :nh, :hd].reshape(3, c)
+    dwqkv[0] *= scale
+    dbqkv[0] *= scale
+    return dict(
+        g1=g["g1"][:c], b1=g["b1"][:c], g2=g["g2"][:c], b2=g["b2"][:c],
+        wqkv=dwqkv.reshape(3 * c, c), bqkv=dbqkv.reshape(3 * c),
+        wproj=g["wproj"].reshape(CP, MAX_HEADS, HDP)[:c, :nh, :hd].reshape(c, c),
+        bproj=g["bproj"][:c],
+        wfc1=g["wfc1"][:hidden, :c], bfc1=g["bfc1"][:hidden],
+        wfc2=g["wfc2"][:c, :hidden], bfc2=g["bfc2"][:c],
+        rpb=g["rpb"],
+    )
+
+
+def fused_swin_block_backward(ct: torch.Tensor, x: torch.Tensor, w: SwinBlockWeights, ws: int,
+                              shift: int, mask: Optional[torch.Tensor], gelu_approx: bool,
+                              branch_scales: Optional[torch.Tensor] = None,
+                              packed: Optional[PackedSwinBlock] = None) -> SwinBlockGrads:
+    """K5: the backward of one Swin block for the cotangent `ct`.  CPU
+    tensors -> plain version; CUDA tensors -> the kernel (bf16 ct and x,
+    fp32 branch scales), gradients in raw weight space."""
+    if x.device.type == "cpu":
+        return swin_block_bwd_plain(ct, x, w, ws, shift, mask, gelu_approx, branch_scales)
+    _check_block_input(x, ws, shift, "fused_swin_block_backward")
+    if branch_scales is not None:
+        branch_scales = branch_scales.float().contiguous()
+    if packed is None:
+        packed = pack_block_weights(w)
+    dx, g = _launch_k5(ct.contiguous(), x, packed, shift, mask, gelu_approx, branch_scales)
+    return SwinBlockGrads(dx=dx, **unpack_block_grads(g, packed, w.scale))
+
+
+class SwinBlockFunction(torch.autograd.Function):
+    """One Swin block on CUDA whose forward is K1 and whose backward is
+    K5.  Inputs: x, the branch scales (or None), then the 13 tensors of
+    GRAD_FIELDS (raw weights and the gathered bias); the weights are
+    packed for the kernels on every call."""
+
+    @staticmethod
+    def forward(ctx, x, scales, meta, *params):
+        ws, shift, mask, gelu_approx, num_heads, table = meta
+        raw = dict(zip(GRAD_FIELDS, params))
+        rpb = raw.pop("rpb")
+        w = SwinBlockWeights(table=table, num_heads=num_heads, **raw)
+        packed = pack_block_weights(w, rpb=rpb)
+        ctx.save_for_backward(x, scales)
+        ctx.block = (w.scale, packed, shift, mask, gelu_approx)
+        return _launch_k1(x, packed, shift, mask, gelu_approx, scales)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, scales = ctx.saved_tensors
+        scale, packed, shift, mask, gelu_approx = ctx.block
+        dx, g = _launch_k5(ct.to(x.dtype).contiguous(), x, packed, shift, mask, gelu_approx,
+                           scales)
+        raw = unpack_block_grads(g, packed, scale)
+        return (dx, None, None) + tuple(raw[k] for k in GRAD_FIELDS)
+
+
+def fused_swin_block(x: torch.Tensor, w: SwinBlockWeights, ws: int, shift: int,
+                     mask: Optional[torch.Tensor], gelu_approx: bool,
+                     packed: Optional[PackedSwinBlock] = None,
+                     branch_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One Swin block on x [B, H, W, C] with cyclic shift `shift`, the
+    shift mask [nW, N, N] built on (H, W) and optional branch scales
+    [B, 2].  CPU tensor -> plain version (differentiable by autograd);
+    CUDA tensor -> K1 (bf16 x), through ``SwinBlockFunction`` (backward
+    K5) when a gradient is wanted.  `packed` (from
+    ``pack_block_weights``) is used for inference only."""
+    if x.device.type == "cpu":
+        return swin_block_plain(x, w, ws, shift, mask, gelu_approx, branch_scales)
+    _check_block_input(x, ws, shift, "fused_swin_block")
+    if branch_scales is not None:
+        branch_scales = branch_scales.float().contiguous()
+    params = [getattr(w, k) for k in GRAD_FIELDS[:-1]]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in [x] + params + [w.table]):
+        check_kernel_limits(w)
+        rpb = relative_position_bias(w.table, WS)
+        meta = (ws, shift, mask, gelu_approx, w.num_heads, w.table)
+        return SwinBlockFunction.apply(x, branch_scales, meta, *params, rpb)
+    if packed is None:
+        packed = pack_block_weights(w)
+    return _launch_k1(x, packed, shift, mask, gelu_approx, branch_scales)

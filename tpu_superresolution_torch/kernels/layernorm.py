@@ -4,7 +4,10 @@ Port of ``tpu_superresolution_tpu/ops/pallas/layernorm.py``
 (``pallas_layernorm`` / ``layernorm_spatial``): fp32 statistics with the
 fast-variance formula E[x^2] - E[x]^2 clamped at 0, eps 1e-5, output in
 the input dtype.  Unlike ``layernorm_spatial``'s 4096-row threshold,
-every CUDA tensor goes to the kernel.
+every CUDA tensor goes to the kernel.  Training differentiates through
+``LayerNormFunction``: forward K2, backward torch autograd of the plain
+version, as the JAX package's K2 backward is an XLA vjp
+(``layernorm.py:99-105``).
 """
 
 from __future__ import annotations
@@ -30,13 +33,35 @@ def layernorm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y.to(x.dtype)
 
 
+class LayerNormFunction(torch.autograd.Function):
+    """Forward K2, backward autograd of ``layernorm_plain``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.eps = eps
+        return _launch(x, weight, bias, eps)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, weight, bias = ctx.saved_tensors
+        return _lib.plain_vjp(layernorm_plain, (x, weight, bias, ctx.eps), ctx.needs_input_grad, grad_out)
+
+
 def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
               eps: float = EPS) -> torch.Tensor:
     """LayerNorm of x [..., C]: the plain version for a CPU tensor, the
-    kernel for a CUDA tensor (bf16 x, fp32 weight and bias)."""
+    kernel for a CUDA tensor (bf16 x, fp32 weight and bias), through
+    ``LayerNormFunction`` when a gradient is wanted."""
     if x.device.type == "cpu":
         return layernorm_plain(x, weight, bias, eps)
     _lib.require_cuda(x, "layernorm")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, weight, bias)):
+        return LayerNormFunction.apply(x, weight, bias, eps)
+    return _launch(x, weight, bias, eps)
+
+
+def _launch(x, weight, bias, eps):
     c = x.shape[-1]
     _lib.check_tensor(x, "x", torch.bfloat16, x.device, align=2)
     _lib.check_tensor(weight, "weight", torch.float32, x.device, shape=(c,), align=4)

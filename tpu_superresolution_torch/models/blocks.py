@@ -12,7 +12,7 @@ CPU), True calls the plain version on any device.
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -23,6 +23,7 @@ from tpu_superresolution_torch.kernels.layernorm import layernorm, layernorm_pla
 from tpu_superresolution_torch.ops.fused_upsample import (
     chain_pixelshuffle_reconstruct,
     compose_upsample,
+    compose_upsample_torch,
     fused_pixelshuffle_reconstruct,
 )
 from tpu_superresolution_torch.ops.pixelshuffle import pixel_shuffle
@@ -30,21 +31,40 @@ from tpu_superresolution_torch.ops.pixelshuffle import pixel_shuffle
 
 class DerivedCache:
     """One tensor bundle derived from a module's parameters (a kernel
-    weight layout, a composed conv), rebuilt only when the parameters
-    change: the key holds each parameter's storage pointer and version
-    counter (``load_state_dict`` and ``.to()`` change one of them)."""
+    weight layout, a composed conv).  Outside autograd it is built once
+    and rebuilt only when the parameters change: the key holds each
+    parameter's storage pointer and version counter (``load_state_dict``,
+    ``.to()`` and an optimizer step change one of them).  When a gradient
+    is wanted it is rebuilt on every call, inside the graph, by
+    `build_grad` (default `build`), and never cached."""
 
     def __init__(self):
         self._key = None
         self._value = None
 
-    def get(self, params: Sequence[torch.Tensor], tag, build: Callable):
+    def get(self, params: Sequence[torch.Tensor], tag, build: Callable,
+            build_grad: Optional[Callable] = None):
+        if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+            return (build_grad or build)()
         key = (tag,) + tuple((p.data_ptr(), p._version) for p in params)
         if key != self._key:
-            with torch.no_grad():
-                self._value = build()
+            self._value = build()
             self._key = key
         return self._value
+
+
+def drop_path_scales(rates: Sequence[float], batch: int,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Stochastic depth as per-block, per-sample branch multipliers
+    [len(rates), batch, 2] (attention, MLP): Bernoulli(1 - rate) / (1 -
+    rate), and exactly 1 where the rate is 0 (the JAX package samples
+    them per block, ``models/swinir.py:259-267``, and hands them to the
+    fused block as ``branch_scales``).  Drawn on the host from
+    `generator`, so one seed gives one draw on any device."""
+    rates_t = torch.tensor(rates, dtype=torch.float32).reshape(-1, 1, 1)
+    keep = 1.0 - rates_t
+    u = torch.rand(len(rates), batch, 2, generator=generator)
+    return torch.where(rates_t > 0, (u < keep).float() / keep, torch.ones(()))
 
 
 def hwio(weight: torch.Tensor) -> torch.Tensor:
@@ -182,13 +202,18 @@ def upsample_and_last(x: torch.Tensor, upsample: PixelShuffleUpsample,
                       plain: bool = False) -> torch.Tensor:
     """The 'pixelshuffle' reconstruction tail: the reference chain
     (plain convs), or with `fused` one composed conv (kernel K4) + one
-    pixel_shuffle, the composition built once per loaded weights."""
+    pixel_shuffle.  The composition is built in numpy once per loaded
+    weights at inference, and with torch ops on every call in training
+    (so gradients reach ``upsample.*`` and ``conv_last``)."""
     last = (hwio(conv_last.weight), conv_last.bias)
     if not fused or len(upsample) == 0:
         return chain_pixelshuffle_reconstruct(x, upsample.stages(), last, x.dtype)
     params = list(upsample.parameters()) + [conv_last.weight, conv_last.bias]
-    comp = cache.get(params, (x.dtype, x.device),
-                     lambda: compose_upsample(upsample.stages(), last, x.dtype, x.device))
+    comp = cache.get(
+        params, (x.dtype, x.device),
+        lambda: compose_upsample(upsample.stages(), last, x.dtype, x.device),
+        lambda: compose_upsample_torch(upsample.stages(), last, x.dtype),
+    )
     return fused_pixelshuffle_reconstruct(x, comp, plain)
 
 

@@ -14,12 +14,17 @@ network_swinir.py:618-851).
   pad, pixel shuffles and the exact-mode chain are plain torch, as the
   JAX package leaves them to XLA.
 - ``impl="plain"`` runs every kernel's plain version on any device.
+- Training: ``model.train()`` draws per-sample stochastic-depth branch
+  scales for every block (linear decay to ``drop_path_rate``) from the
+  generator given to ``forward``; on CUDA each block's backward is K5
+  and the derived weights (K1 packing, conv layouts, the composed
+  reconstruction) are rebuilt inside the graph on every step.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional
 
 import torch
 import torch.nn as nn
@@ -45,6 +50,7 @@ from tpu_superresolution_torch.models.blocks import (
     ThreeConv,
     check_image_size,
     conv_nhwc,
+    drop_path_scales,
     upsample_and_last,
 )
 from tpu_superresolution_torch.ops.window import relative_position_bias, shift_mask_tensor
@@ -101,7 +107,10 @@ class SwinBlock(nn.Module):
             table=a.relative_position_bias_table, num_heads=a.num_heads,
         )
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, plain: bool = False,
+                branch_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`branch_scales` [B, 2]: the sample's stochastic-depth
+        multipliers of the attention and MLP branches (None = 1)."""
         _, h, w, _ = x.shape
         ws, shift = self.window_size, self.shift_size
         # Reference rule (network_swinir.py:193-196): no partition/shift
@@ -111,12 +120,14 @@ class SwinBlock(nn.Module):
         wts = self.block_weights()
         mask = shift_mask_tensor(h, w, ws, shift, x.device) if shift else None
         if plain:
-            return swin_block_plain(x, wts, ws, shift, mask, self.gelu_approximate)
+            return swin_block_plain(x, wts, ws, shift, mask, self.gelu_approximate, branch_scales)
         packed = None
         if x.is_cuda and ws == WS:
+            # in training the kernels' autograd function packs on every call
             packed = self._packed.get(list(self.parameters()), x.device,
-                                      lambda: pack_block_weights(wts))
-        return fused_swin_block(x, wts, ws, shift, mask, self.gelu_approximate, packed=packed)
+                                      lambda: pack_block_weights(wts), lambda: None)
+        return fused_swin_block(x, wts, ws, shift, mask, self.gelu_approximate, packed=packed,
+                                branch_scales=branch_scales)
 
 
 class BasicLayer(nn.Module):
@@ -139,10 +150,12 @@ class RSTB(nn.Module):
         )
         self.conv = Conv3x3(dim, dim) if resi_connection == "1conv" else ThreeConv(dim)
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, plain: bool = False,
+                branch_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`branch_scales` [depth, B, 2] or None (no stochastic depth)."""
         res = x
-        for blk in self.residual_group.blocks:
-            x = blk(x, plain)
+        for j, blk in enumerate(self.residual_group.blocks):
+            x = blk(x, plain, None if branch_scales is None else branch_scales[j])
         return self.conv(x, plain) + res
 
 
@@ -225,7 +238,36 @@ class SwinIR(nn.Module):
             if self.config.ape:
                 nn.init.trunc_normal_(self.absolute_pos_embed, std=0.02, generator=g)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def drop_path_rates(self):
+        """Per-block stochastic-depth rates: linear 0 -> drop_path_rate
+        over all blocks (network_swinir.py:701; the JAX package's
+        ``models/swinir.py:431-436``)."""
+        depth = sum(self.config.depths)
+        rate = self.config.drop_path_rate
+        return [rate * i / (depth - 1) if depth > 1 else 0.0 for i in range(depth)]
+
+    def sample_branch_scales(self, batch: int, generator: Optional[torch.Generator],
+                             device) -> Optional[List[Optional[torch.Tensor]]]:
+        """Per-layer [depth, B, 2] stochastic-depth multipliers for one
+        training forward, or None (eval mode, or no drop path): drawn on
+        the host from `generator`, moved to the device in one copy.
+        Blocks of rate 0 get exactly 1."""
+        rates = self.drop_path_rates()
+        if not self.training or not any(r > 0 for r in rates):
+            return None
+        scales = drop_path_scales(rates, batch, generator)
+        if torch.device(device).type == "cuda":  # no host wait for the copy
+            scales = scales.pin_memory()
+        scales = scales.to(device, non_blocking=True)
+        out, start = [], 0
+        for d in self.config.depths:
+            out.append(scales[start : start + d])
+            start += d
+        return out
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """`generator` draws the stochastic-depth masks in train() mode
+        (the torch default generator when None); eval() runs none."""
         cfg = self.config
         dt = self.dtype
         plain = self.impl == "plain"
@@ -244,8 +286,9 @@ class SwinIR(nn.Module):
         if cfg.ape:
             feats = feats + self.absolute_pos_embed.reshape(
                 cfg.img_size, cfg.img_size, -1)[None].to(dt)
-        for layer in self.layers:
-            feats = layer(feats, plain)
+        scales = self.sample_branch_scales(x.shape[0], generator, x.device)
+        for i, layer in enumerate(self.layers):
+            feats = layer(feats, plain, None if scales is None else scales[i])
         feats = self.norm(feats, plain)
         x = self.conv_after_body(feats, plain) + x
 
@@ -274,7 +317,9 @@ class SwinIR(nn.Module):
 
 
 def build_swinir(config: SwinIRConfig, dtype=None, impl: str = "auto") -> SwinIR:
-    return SwinIR(config, dtype=dtype, impl=impl)
+    """A SwinIR in eval mode, as the JAX package's ``train=False``
+    default: ``model.train()`` turns stochastic depth on."""
+    return SwinIR(config, dtype=dtype, impl=impl).eval()
 
 
 register_model("swinir", SwinIRConfig, build_swinir)

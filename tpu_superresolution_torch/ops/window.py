@@ -79,9 +79,15 @@ def relative_position_index(ws: int) -> np.ndarray:
     return rel.sum(-1).astype(np.int32)
 
 
+@functools.lru_cache(maxsize=32)
+def _index_tensor(ws: int, device: torch.device) -> torch.Tensor:
+    """`relative_position_index` flattened, on `device`, copied there
+    once (a copy per call would make the host wait for the device)."""
+    return torch.from_numpy(relative_position_index(ws).reshape(-1).astype(np.int64)).to(device)
+
+
 def relative_position_bias(table: torch.Tensor, ws: int) -> torch.Tensor:
     """Gather the [(2ws-1)^2, nH] bias table into [nH, N, N] fp32."""
     n = ws * ws
-    idx = torch.from_numpy(relative_position_index(ws).reshape(-1).astype(np.int64))
-    bias = table.float()[idx.to(table.device)].reshape(n, n, -1)
+    bias = table.float()[_index_tensor(ws, table.device)].reshape(n, n, -1)
     return bias.permute(2, 0, 1).contiguous()

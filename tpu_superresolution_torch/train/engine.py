@@ -1,0 +1,358 @@
+"""The training engine (port of ``tpu_superresolution_tpu/train/engine.py``
+for one device): optimizer, train and eval steps, and ``Trainer.fit``.
+
+- The train step: paired augmentation on the device -> forward (bf16
+  compute on CUDA with fp32 parameters and no loss scaling; fp32 on the
+  CPU) -> fp32 loss -> backward -> clip by global norm -> AdamW with the
+  schedule -> EMA -> metrics.  On CUDA the forward runs the kernels
+  K1-K4 and every Swin block's backward is K5 (``kernels/``); the K2-K4
+  backwards are torch autograd of their plain versions, as the JAX
+  package leaves its K2-K4 backwards to XLA.
+- The host reads one scalar per epoch (the mean train loss), not one per
+  step: each step's metrics stay on the device until the epoch ends.
+- Clipping is ``optax.clip_by_global_norm``'s: g * max / norm when norm
+  >= max, with no epsilon in the denominator.  ``torch.optim.AdamW``
+  applies the decoupled weight decay as ``optax.adamw`` does.
+- Frozen parameters (``train/freeze.py``) have no gradient, so the
+  reported grad norm covers the trainable ones (the JAX package reports
+  the norm over all of them; the updates are the same).
+
+The JAX package runs `dp_shards > 1` through shard_map; here that waits
+for the multi-GPU slice and raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from tpu_superresolution_torch.core.config import DataConfig, ModelConfig, TrainConfig
+from tpu_superresolution_torch.data.transforms import make_train_batch_native
+from tpu_superresolution_torch.ops.metrics import batch_psnr, ssim
+from tpu_superresolution_torch.train.freeze import apply_freeze
+from tpu_superresolution_torch.train.losses import get_loss
+from tpu_superresolution_torch.train.schedules import build_schedule
+
+
+@dataclass
+class TrainState:
+    """The model and its optimizer state; `step` counts applied updates.
+    `ema` ({name: tensor}, None = off) is the exponential moving average
+    of the parameters that validation and the best checkpoints use."""
+
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    schedule: Callable[[int], float]
+    grad_clip_norm: float = 1.0
+    step: int = 0
+    ema: Optional[Dict[str, torch.Tensor]] = None
+    ema_decay: float = 0.0
+
+    @property
+    def params(self) -> List[torch.Tensor]:
+        return [p for group in self.optimizer.param_groups for p in group["params"]]
+
+
+def build_optimizer(tcfg: TrainConfig, steps_per_epoch: int, model: nn.Module):
+    """(AdamW over the trainable parameters, schedule).  With
+    finetune + freeze_regex the matching parameters are frozen first."""
+    lr = tcfg.ft_lr if (tcfg.finetune and tcfg.ft_lr is not None) else tcfg.lr
+    schedule = build_schedule(tcfg.scheduler, lr, tcfg.epochs, steps_per_epoch, tcfg.min_lr)
+    if tcfg.finetune and tcfg.freeze_regex:
+        apply_freeze(model, tcfg.freeze_regex)
+    params = [p for p in model.parameters() if p.requires_grad]
+    # on CUDA the fused implementation: one launch per step, not one per
+    # tensor and operation (the step is host-bound, PERF.md)
+    fused = bool(params) and all(p.is_cuda for p in params)
+    opt = torch.optim.AdamW(params, lr=schedule(0), betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=tcfg.weight_decay, fused=fused or None)
+    return opt, schedule
+
+
+def create_train_state(model: nn.Module, optimizer, schedule, grad_clip_norm: float = 1.0,
+                       ema_decay: Optional[float] = None) -> TrainState:
+    ema = None
+    if ema_decay:
+        ema = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    return TrainState(model=model, optimizer=optimizer, schedule=schedule,
+                      grad_clip_norm=grad_clip_norm, ema=ema, ema_decay=float(ema_decay or 0.0))
+
+
+def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares over all elements, on the device (one
+    multi-tensor norm launch, not one per tensor)."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)).float())
+
+
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """Scale `grads` in place to global norm <= max_norm
+    (``optax.clip_by_global_norm``); returns the norm before clipping."""
+    norm = global_norm(grads)
+    if max_norm:
+        scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+        torch._foreach_mul_(grads, scale)
+    return norm
+
+
+def apply_gradients(state: TrainState) -> torch.Tensor:
+    """Clip, step AdamW at the schedule's rate, update the EMA; returns
+    the grad norm before clipping."""
+    params = [p for p in state.params if p.grad is not None]
+    gnorm = clip_by_global_norm_([p.grad for p in params], state.grad_clip_norm)
+    lr = state.schedule(state.step)
+    for group in state.optimizer.param_groups:
+        group["lr"] = lr
+    state.optimizer.step()
+    state.step += 1
+    if state.ema is not None:
+        live = state.model.state_dict()
+        keys = list(state.ema)
+        torch._foreach_lerp_([state.ema[k] for k in keys], [live[k] for k in keys],
+                             1.0 - state.ema_decay)
+    return gnorm
+
+
+def _to_device(a, device) -> torch.Tensor:
+    """Host batch -> device; to CUDA through pinned memory, so the host
+    does not wait for the device's queue to drain."""
+    t = a if torch.is_tensor(a) else torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda" and t.device.type == "cpu":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
+def make_train_step(loss_name: str, convention: str, scale: int, patch: Optional[int],
+                    do_flips: bool):
+    """step(state, lr_raw, hr_raw, generator) -> metrics (device tensors).
+
+    `generator` draws the crop offsets, flips and stochastic-depth masks.
+    `patch` None trains on the batch as given (already cropped)."""
+    if convention != "native_lr":
+        raise NotImplementedError(
+            f"convention {convention!r}: the port trains native_lr (SwinIR) only so far; "
+            "pre_upscale waits for the CNN families (ROADMAP.md)")
+    loss_fn = get_loss(loss_name)
+
+    def step(state: TrainState, lr_raw, hr_raw, generator: Optional[torch.Generator] = None):
+        model = state.model
+        device = next(model.parameters()).device
+        lr, hr = _to_device(lr_raw, device), _to_device(hr_raw, device)
+        if patch is not None:
+            lr, hr = make_train_batch_native(lr, hr, scale, patch, do_flips, generator)
+        model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        out = model(lr, generator=generator).float()
+        hr = hr.float()
+        loss = loss_fn(out, hr)
+        loss.backward()
+        gnorm = apply_gradients(state)
+        loss = loss.detach()
+        return {
+            "loss": loss,
+            "grad_norm": gnorm,
+            "psnr": batch_psnr(out.detach(), hr).mean(),
+            "finite": torch.isfinite(loss) & torch.isfinite(gnorm),
+        }
+
+    return step
+
+
+def make_eval_step(loss_name: str, convention: str):
+    """step(model, lr_raw, hr_raw) -> loss, psnr_sum, ssim_sum, n
+    (device tensors): the whole image, inputs scrubbed of NaN / Inf
+    (reference train.py:157-158), eval mode, no gradient."""
+    if convention != "native_lr":
+        raise NotImplementedError(f"convention {convention!r}: native_lr only so far")
+    loss_fn = get_loss(loss_name)
+
+    @torch.no_grad()
+    def step(model: nn.Module, lr_raw, hr_raw):
+        device = next(model.parameters()).device
+        scrub = lambda t: torch.nan_to_num(_to_device(t, device).float(), nan=0.0, posinf=0.0,
+                                           neginf=0.0)
+        lr, hr = scrub(lr_raw), scrub(hr_raw)
+        model.eval()
+        out = model(lr).float()
+        n = lr.shape[0]
+        return {
+            "loss": loss_fn(out, hr),
+            "psnr_sum": batch_psnr(out, hr).sum(),
+            "ssim_sum": ssim(out.clamp(0.0, 1.0), hr.clamp(0.0, 1.0)) * n,
+            "n": torch.tensor(float(n), device=device),
+        }
+
+    return step
+
+
+@dataclass
+class Trainer:
+    """Epochs, validation every `val_every` epochs (always the last), the
+    dual bests by val loss and by val PSNR (finetune_swinir.py:344-371),
+    early stopping, the run report and the loss curve (train.py:403-419)."""
+
+    model_config: ModelConfig
+    data_config: DataConfig
+    train_config: TrainConfig
+    workdir: str = "."
+    log: Callable[[str], None] = print
+
+    history: Dict[str, list] = field(default_factory=lambda: {"train": [], "val": []})
+    best_val_loss: float = math.inf
+    best_val_psnr: float = -math.inf
+    _no_improve: int = 0
+
+    def fit(self, state: TrainState, train_loader, valid_loader,
+            generator: Optional[torch.Generator] = None) -> TrainState:
+        from tpu_superresolution_torch.train.checkpoint import save_checkpoint
+
+        tcfg, dcfg = self.train_config, self.data_config
+        os.makedirs(self.workdir, exist_ok=True)
+        if tcfg.dp_shards not in (0, 1):
+            raise NotImplementedError(
+                f"dp_shards={tcfg.dp_shards}: data parallelism waits for the multi-GPU slice "
+                "(ROADMAP.md)")
+        if dcfg.do_blur or dcfg.normalizes:
+            raise NotImplementedError("blur / normalization augmentation is still to port")
+        if generator is None:
+            generator = torch.Generator().manual_seed(tcfg.seed)
+        patch = dcfg.patch_size if dcfg.convention == "pre_upscale" else dcfg.lr_patch
+        train_step = make_train_step(tcfg.loss, dcfg.convention, dcfg.scale_int, patch,
+                                     dcfg.do_flips)
+        eval_step = make_eval_step(tcfg.loss, dcfg.convention)
+        eval_model = state.model
+        if state.ema is not None:
+            eval_model = _model_copy(state.model)
+
+        t_start = time.time()
+        for epoch in range(1, tcfg.epochs + 1):
+            t_ep = time.time()
+            losses = []
+            data_t = step_t = 0.0
+            end = time.time()
+            for lr_np, hr_np in train_loader:
+                data_t += time.time() - end
+                t0 = time.time()
+                losses.append(train_step(state, lr_np, hr_np, generator)["loss"])
+                step_t += time.time() - t0
+                if tcfg.time_log_every and len(losses) % tcfg.time_log_every == 0:
+                    k = len(losses)
+                    self.log(f"[{dcfg.scale}][time] batch {k}: data {data_t / k:.3f}s/b "
+                             f"step {step_t / k:.3f}s/b")
+                end = time.time()
+            n_steps = max(1, len(losses))
+            tr_loss = float(torch.stack(losses).mean()) if losses else 0.0
+            if not math.isfinite(tr_loss):
+                raise RuntimeError("Model produced NaN/Inf loss — lower max_lr / check init")
+            t_tr = time.time() - t_ep
+            self.history["train"].append(tr_loss)
+
+            if not (tcfg.val_every <= 1 or epoch % tcfg.val_every == 0 or epoch == tcfg.epochs):
+                self.history["val"].append(None)
+                self.log(f"[{dcfg.scale}] epoch {epoch}: train_loss {tr_loss:.7f} | "
+                         f"(data {data_t / n_steps:.3f}/batch {step_t / n_steps:.3f}) | "
+                         f"time: train {t_tr:.1f}s (val skipped)")
+                continue
+            t_val0 = time.time()
+            if state.ema is not None:
+                eval_model.load_state_dict(state.ema)
+            agg, n_batches = None, 0
+            for lr_np, hr_np in valid_loader:
+                m = eval_step(eval_model, lr_np, hr_np)
+                agg = m if agg is None else {k: agg[k] + m[k] for k in agg}
+                n_batches += 1
+            agg = {k: float(v) for k, v in agg.items()} if agg else {
+                "loss": 0.0, "psnr_sum": 0.0, "ssim_sum": 0.0, "n": 0.0}
+            val_loss = agg["loss"] / max(1, n_batches)
+            val_psnr = agg["psnr_sum"] / max(1.0, agg["n"])
+            val_ssim = agg["ssim_sum"] / max(1.0, agg["n"])
+            t_val = time.time() - t_val0
+            self.history["val"].append(val_loss)
+            self.log(f"[{dcfg.scale}] epoch {epoch}: train_loss {tr_loss:.7f}, "
+                     f"val_loss {val_loss:.7f} | val_PSNR {val_psnr:.2f} dB, "
+                     f"val_SSIM {val_ssim:.4f} | (data {data_t / n_steps:.3f}/batch "
+                     f"{step_t / n_steps:.3f}) | time: train {t_tr:.1f}s, val {t_val:.1f}s")
+            elapsed = time.time() - t_start
+            self.log(f"[{dcfg.scale}][time] elapsed={elapsed:.0f}s "
+                     f"ETA~{elapsed / epoch * (tcfg.epochs - epoch):.0f}s")
+
+            improved = val_loss < self.best_val_loss
+            if improved:
+                self.best_val_loss = val_loss
+                save_checkpoint(f"{self.workdir}/best_{dcfg.scale}.pth", state, self.model_config,
+                                extra={"epoch": epoch, "best_val_loss": val_loss,
+                                       "val_psnr": val_psnr})
+                self.log(f"[ckpt] saved best_{dcfg.scale} (val_loss {val_loss:.7f})")
+            if val_psnr > self.best_val_psnr:
+                self.best_val_psnr = val_psnr
+                save_checkpoint(f"{self.workdir}/bestpsnr_{dcfg.scale}.pth", state,
+                                self.model_config,
+                                extra={"epoch": epoch, "best_val_psnr": val_psnr,
+                                       "val_loss": val_loss})
+            self._no_improve = 0 if improved else self._no_improve + 1
+            if tcfg.early_stop_patience and self._no_improve >= tcfg.early_stop_patience:
+                self.log(f"[early_stop] no val-loss improvement for {self._no_improve} epochs "
+                         f"(patience {tcfg.early_stop_patience}) — stopping at epoch {epoch}")
+                break
+
+        self.save_loss_curve(f"{self.workdir}/loss_curve_{dcfg.scale}.png")
+        self.save_run_report(f"{self.workdir}/run_{dcfg.scale}.json")
+        return state
+
+    def save_run_report(self, path: str) -> None:
+        """Configs, per-epoch history and bests as JSON."""
+        report = {
+            "model_config": self.model_config.to_dict(),
+            "data_config": dataclasses.asdict(self.data_config),
+            "train_config": dataclasses.asdict(self.train_config),
+            "history": self.history,
+            "best_val_loss": self.best_val_loss,
+            "best_val_psnr": self.best_val_psnr,
+        }
+        with open(path, "w") as f:
+            json.dump(report, f, indent=1, default=str)
+        self.log(f"[report] saved run report to {path}")
+
+    def save_loss_curve(self, path: str) -> None:
+        """Loss-curve PNG, when matplotlib is installed."""
+        try:
+            import matplotlib
+
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+        except ImportError:
+            return
+        epochs = list(range(1, len(self.history["train"]) + 1))
+        plt.figure(figsize=(8, 5))
+        plt.plot(epochs, self.history["train"], label="train loss")
+        vpts = [(e, v) for e, v in zip(epochs, self.history["val"]) if v is not None]
+        if vpts:
+            plt.plot(*zip(*vpts), label="val loss")
+        plt.xlabel("Epoch")
+        plt.ylabel("Loss")
+        plt.title(f"Train vs Val loss ({self.data_config.scale})")
+        plt.grid(True)
+        plt.legend()
+        plt.tight_layout()
+        plt.savefig(path, dpi=150)
+        plt.close()
+        self.log(f"[plot] saved loss curves to {path}")
+
+
+def _model_copy(model: nn.Module) -> nn.Module:
+    """A second instance of `model` (same config, dtype, impl, device)
+    to run the EMA weights in."""
+    from tpu_superresolution_torch.core.config import build_model
+
+    copy = build_model(model.config, dtype=model.dtype, impl=model.impl,
+                       device=next(model.parameters()).device)
+    copy.load_state_dict(model.state_dict())
+    return copy.eval()
