@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SwinIR-M x4 serving and fine-tuning paths
-once on one NVIDIA H100 and check them.  Run from the repository root:
+and its HAT x4 serving path once on one NVIDIA H100 and check them.  Run
+from the repository root:
 
     python3 chip_smoke.py
 
 Phases (a failure in any raises, and the script exits non-zero):
 1. device   the card's name, compute capability 9.0, power limit;
 2. build    nvcc-compile the port's kernels from csrc/ (seconds, ptxas);
-3. kernels  each kernel (K1-K5) against its plain PyTorch version at the
+3. kernels  each kernel (K1-K6) against its plain PyTorch version at the
             main paths' shapes (K1 also with stochastic-depth branch
-            scales; K5, the block backward, on dx and its 13 parameter
-            gradients): the error vs the plain version in bf16 and in
-            fp32 (TF32 off), each against its stated bound; the median
-            time of kernel, plain version and, where one PyTorch call
-            computes the same function, that call; the bound (bytes or
-            operations at the H100's published peaks);
+            scales and with HAT's `extra` at hat_fast's widths; K6, the
+            ws-7 block, at HAT's tile batch with `extra` and at SwinIR's
+            widths without; K5, the block backward, on dx and its 13
+            parameter gradients): the error vs the plain version in bf16
+            and in fp32 (TF32 off), each against its stated bound; the
+            median time of kernel, plain version and, where one PyTorch
+            call computes the same function, that call; the bound (bytes
+            or operations at the H100's published peaks);
 4. serve    SwinIR-M x4 (seeded random weights, exported to a .pth) behind
             SRService + make_server on 127.0.0.1, three PNG requests;
             status, size, finite output, launch counts per model call,
@@ -22,8 +25,15 @@ Phases (a failure in any raises, and the script exits non-zero):
             plain fp32 path;
 5. bench    the bench.py workload (256^2 LR, tile 64, overlap 8, x4, bf16,
             25 tiles in one batch, 10 timed iterations) in MPix/s, for the
-            kernels and for the plain path;
-6. train    SwinIR-M x4 fine-tuning (drop path 0.1, batch 8, lr_patch 64)
+            kernels and for the plain path; then SwinIR-M x4 at window 7
+            (its blocks run K6): launches and PSNR vs the plain fp32 path;
+6. hat      HAT x4 (HATConfig(): embed 96, depths 6x4, ws 7; seeded
+            random weights, exported to a .pth) behind SRService with
+            --model hat: the three requests and checks of the serve phase;
+            then the bench workload for HAT in MPix/s, kernels vs plain,
+            with a torch.profiler split of one forward, and one hat_fast
+            (ws 8) forward, whose blocks are K1 with `extra`;
+7. train    SwinIR-M x4 fine-tuning (drop path 0.1, batch 8, lr_patch 64)
             through ``cli.finetune.main(--device cuda)`` for one epoch of
             8 steps + validation on a synthetic DeepRockSR-layout set;
             launches per step, median ms per step and images/s for the
@@ -33,7 +43,8 @@ Phases (a failure in any raises, and the script exits non-zero):
             plain fp32 path.
 
 The second-to-last stdout line is a JSON object describing each kernel
-(launches summed over the serve and train phases); the last is
+(launches summed over the serve, SwinIR ws-7, hat and train phases); the
+last is
 {"ok": true, "device": {...}}.  There is no CPU path: with no CUDA
 device the script exits non-zero and prints no result.
 """
@@ -58,7 +69,7 @@ PSNR_MIN_DB = 50.0
 # [2^e, 2^(e+1))).  A kernel that rounds its bf16 output once is within
 # 1 ulp of the fp32 result; the bounds leave room for bf16 operands and
 # the plain version's own roundings.
-ULP_BOUND = {"K1": 8, "K2": 4, "K3": 4, "K4": 4}
+ULP_BOUND = {"K1": 8, "K2": 4, "K3": 4, "K4": 4, "K6": 8}
 # K5: dx within this many bf16 ulps at max |dx|, and every parameter
 # gradient within this relative Frobenius error of the plain K5 (in
 # fp32 and in bf16): the kernel rounds its GEMM operands to bf16 at the
@@ -87,9 +98,20 @@ KERNELS = {
     "K5": dict(name="swin_block_bwd", route="cuda",
                source="tpu_superresolution_torch/csrc/swin_block_bwd.cu",
                replaces="tpu_superresolution_tpu/ops/pallas/fused_block.py:1080"),
+    "K6": dict(name="swin_block_ws7", route="cuda",
+               source="tpu_superresolution_torch/csrc/swin_block.cu",
+               replaces="tpu_superresolution_tpu/ops/pallas/fused_block.py:1427"),
 }
 # Launches per SwinIR-M x4 model call on the serving path (--no-exact).
-PER_CALL = {"K1": 36, "K2": 2, "K3": 8, "K4": 1}
+PER_CALL = {"K1": 36, "K2": 2, "K3": 8, "K4": 1, "K5": 0, "K6": 0}
+# Per HAT x4 model call (--no-exact): K6 per HAB (24); K2 for patch_norm,
+# norm, each HAB's CAB input (24) and each OCAB's two norms (8); K3 for
+# the 4 RHAG convs, conv_after_body and conv_before_upsample; K4 for the
+# composed reconstruction.  hat_fast runs K1 where hat runs K6.
+HAT_PER_CALL = {"K1": 0, "K2": 34, "K3": 6, "K4": 1, "K5": 0, "K6": 24}
+HAT_FAST_PER_CALL = dict(HAT_PER_CALL, K1=24, K6=0)
+# SwinIR-M x4 from a checkpoint of window 7: its 36 blocks run K6.
+SWINIR_WS7_PER_CALL = dict(PER_CALL, K1=0, K6=36)
 # Fine-tuning: batch 8 of 64^2 LR crops; per train step, with the
 # composed reconstruction (fused_reconstruct, the config's default): K1
 # per block forward, K5 per block backward, K2-K4 forwards (their
@@ -97,7 +119,7 @@ PER_CALL = {"K1": 36, "K2": 2, "K3": 8, "K4": 1}
 TRAIN_BATCH = 8
 TRAIN_LR_PATCH = 64
 TRAIN_TIMED_STEPS = 10
-TRAIN_PER_STEP = {"K1": 36, "K2": 2, "K3": 8, "K4": 1, "K5": 36}
+TRAIN_PER_STEP = {"K1": 36, "K2": 2, "K3": 8, "K4": 1, "K5": 36, "K6": 0}
 # First step, kernels (bf16) vs the plain fp32 path from the same weights,
 # batch and stochastic-depth masks: bf16 activations keep ~3 significant
 # digits, so loss and grad norm agree to about a percent and every
@@ -171,7 +193,7 @@ def phase_build():
             log(f"[build] {line.strip()}")
 
 
-def _random_block(gen, device, c=180, nh=6, hidden=360):
+def _random_block(gen, device, c=180, nh=6, hidden=360, ws=8):
     """Block weights with O(1) activations (bf16-representable GEMM
     weights, so the fp32 reference uses the kernel's exact values)."""
     import torch
@@ -190,7 +212,7 @@ def _random_block(gen, device, c=180, nh=6, hidden=360):
         g2=1 + r(c, scale=0.1), b2=r(c, scale=0.1),
         wfc1=r(hidden, c, scale=c ** -0.5, bf=True), bfc1=r(hidden, scale=0.1),
         wfc2=r(c, hidden, scale=hidden ** -0.5, bf=True), bfc2=r(c, scale=0.1),
-        table=r(225, nh), num_heads=nh,
+        table=r((2 * ws - 1) ** 2, nh), num_heads=nh,
     )
 
 
@@ -227,19 +249,20 @@ def _compare(results, key, label, out, ref_bf16, ref_fp32, t_kernel, t_plain, wo
     _record(results, key, label, e32, t_kernel, t_plain, work, t_library)
 
 
-def _swin_work(shape, c=180, hidden=360, backward=False):
-    """(FLOPs, bytes) of one Swin block forward (K1) or backward (K5) at
-    the unpadded widths: per token the qkv, proj, fc1 and fc2 products
-    and the 64-key attention (QK^T, AV); the backward recomputes all but
-    fc2 and does two products per forward one.  Bytes: x (and ct) read,
-    the output (dx) written in bf16, weights and fp32 gradients once."""
+def _swin_work(shape, c=180, hidden=360, backward=False, ws=8, extra=False):
+    """(FLOPs, bytes) of one Swin block forward (K1, K6) or backward (K5)
+    at the unpadded widths: per token the qkv, proj, fc1 and fc2 products
+    and the ws^2-key attention (QK^T, AV); the backward recomputes all but
+    fc2 and does two products per forward one.  Bytes: x (and extra, or
+    ct) read, the output (dx) written in bf16, weights and fp32 gradients
+    once."""
     tokens = math.prod(shape[:3])
-    fwd = {"qkv": 2 * c * 3 * c, "attn": 2 * 2 * 64 * c, "proj": 2 * c * c,
+    fwd = {"qkv": 2 * c * 3 * c, "attn": 2 * 2 * ws * ws * c, "proj": 2 * c * c,
            "fc1": 2 * c * hidden, "fc2": 2 * c * hidden}
     per_token = sum(fwd.values())
     weights = 3 * c * c + c * c + 2 * c * hidden
     if not backward:
-        return tokens * per_token, tokens * c * 2 * 2 + weights * 2
+        return tokens * per_token, tokens * c * 2 * (3 if extra else 2) + weights * 2
     per_token = per_token - fwd["fc2"] + 2 * per_token
     return tokens * per_token, tokens * c * 2 * 3 + weights * (2 + 4)
 
@@ -283,8 +306,8 @@ def phase_kernels():
 
     from tpu_superresolution_torch.kernels.cab_conv import conv3x3, conv_k, conv_plain
     from tpu_superresolution_torch.kernels.fused_block import (
-        fused_swin_block,
         fused_swin_block_backward,
+        fused_windows_block,
         pack_block_weights,
         swin_block_bwd_plain,
         swin_block_plain,
@@ -307,8 +330,8 @@ def phase_kernels():
                              ((8, 64, 64, 180), 4, scales)):
         x = torch.randn(*shape, generator=gen).to(dev, bf)
         mask = shift_mask_tensor(shape[1], shape[2], 8, shift, dev) if shift else None
-        run = lambda: fused_swin_block(x, w, 8, shift, mask, True, packed=packed,
-                                       branch_scales=sc)
+        run = lambda: fused_windows_block(x, w, 8, shift, mask, True, packed=packed,
+                                          branch_scales=sc)
         out = run()
         ref16 = swin_block_plain(x, w, 8, shift, mask, True, sc)
         ref32 = swin_block_plain(x.float(), w, 8, shift, mask, True, sc)
@@ -317,6 +340,33 @@ def phase_kernels():
         _compare(res, "K1", label, out, ref16, ref32, cuda_ms(run),
                  cuda_ms(lambda: swin_block_plain(x, w, 8, shift, mask, True, sc)),
                  _swin_work(shape))
+
+    # The HAT block (C 96, 6 heads, hidden 384) with its CAB term `extra`:
+    # K6 (ws 7) on the HAT bench's 25 tiles of 64^2 reflect-padded to 70^2,
+    # K1 (ws 8) on hat_fast's 25 tiles of 64^2; and K6 at SwinIR's widths
+    # without extra (a SwinIR checkpoint of window 7).
+    for key, ws, shape, shift, (c, nh, hidden), with_extra in (
+            ("K6", 7, (25, 70, 70, 96), 0, (96, 6, 384), True),
+            ("K6", 7, (25, 70, 70, 96), 3, (96, 6, 384), True),
+            ("K6", 7, (8, 56, 56, 180), 3, (180, 6, 360), False),
+            ("K1", 8, (25, 64, 64, 96), 0, (96, 6, 384), True),
+            ("K1", 8, (25, 64, 64, 96), 4, (96, 6, 384), True)):
+        wb = _random_block(gen, dev, c, nh, hidden, ws)
+        pk = pack_block_weights(wb)
+        x = torch.randn(*shape, generator=gen).to(dev, bf)
+        ex = (0.05 * torch.randn(*shape, generator=gen)).to(dev, bf) if with_extra else None
+        mask = shift_mask_tensor(shape[1], shape[2], ws, shift, dev) if shift else None
+        run = lambda: fused_windows_block(x, wb, ws, shift, mask, True, extra=ex, packed=pk)
+        plain = lambda: swin_block_plain(x, wb, ws, shift, mask, True, extra=ex)
+        out = run()
+        ref16 = plain()
+        ref32 = swin_block_plain(x.float(), wb, ws, shift, mask, True,
+                                 extra=None if ex is None else ex.float())
+        torch.cuda.synchronize()
+        label = f"{list(shape)} ws {ws} shift {shift}" + (" extra" if with_extra else "")
+        _compare(res, key, label, out, ref16, ref32, cuda_ms(run), cuda_ms(plain),
+                 _swin_work(shape, c, hidden, ws=ws, extra=with_extra))
+        del out, ref16, ref32
 
     # K5: the block backward at the train shape, shift 0 and 4, scales on
     shape = (8, 64, 64, 180)
@@ -336,26 +386,29 @@ def phase_kernels():
                     _swin_work(shape, backward=True))
         del got, ref16, ref32
 
-    # K2: layernorm on the bench trunk (25 tiles of 64^2) and the train batch
-    for rows in (25 * 64 * 64, 8 * 64 * 64):
-        x = torch.randn(rows, 180, generator=gen).to(dev, bf)
-        g = (1 + 0.1 * torch.randn(180, generator=gen)).to(dev)
-        b = (0.1 * torch.randn(180, generator=gen)).to(dev)
+    # K2: layernorm on the bench trunk (25 tiles of 64^2), the train batch
+    # and HAT's trunk (25 tiles of 70^2, C 96)
+    for rows, c in ((25 * 64 * 64, 180), (8 * 64 * 64, 180), (25 * 70 * 70, 96)):
+        x = torch.randn(rows, c, generator=gen).to(dev, bf)
+        g = (1 + 0.1 * torch.randn(c, generator=gen)).to(dev)
+        b = (0.1 * torch.randn(c, generator=gen)).to(dev)
         g16, b16 = g.to(bf), b.to(bf)
         out = layernorm(x, g, b)
-        _compare(res, "K2", f"[{rows}, 180]", out, layernorm_plain(x, g, b),
+        _compare(res, "K2", f"[{rows}, {c}]", out, layernorm_plain(x, g, b),
                  layernorm_plain(x.float(), g, b),
                  cuda_ms(lambda: layernorm(x, g, b)), cuda_ms(lambda: layernorm_plain(x, g, b)),
-                 (8 * x.numel(), 2 * x.numel() * 2 + 2 * 180 * 4),
-                 cuda_ms(lambda: F.layer_norm(x, (180,), g16, b16, 1e-5)))
+                 (8 * x.numel(), 2 * x.numel() * 2 + 2 * c * 4),
+                 cuda_ms(lambda: F.layer_norm(x, (c,), g16, b16, 1e-5)))
 
     # K3: 3x3 convs 180->180 and 180->64 on bench tiles, a whole image and
-    # the train batch; K4: the composed 5x5 64->48 reconstruction conv.
+    # the train batch, and HAT's 96->96 on its tiles; K4: the composed 5x5
+    # 64->48 reconstruction conv.
     cases = [("K3", (25, 64, 64, 180), 180, 3, ((1, 1), (1, 1))),
              ("K3", (25, 64, 64, 180), 64, 3, ((1, 1), (1, 1))),
              ("K3", (1, 256, 256, 180), 180, 3, ((1, 1), (1, 1))),
              ("K3", (1, 256, 256, 180), 64, 3, ((1, 1), (1, 1))),
              ("K3", (8, 64, 64, 180), 180, 3, ((1, 1), (1, 1))),
+             ("K3", (25, 70, 70, 96), 96, 3, ((1, 1), (1, 1))),
              ("K4", (25, 64, 64, 64), 48, 5, ((2, 2), (2, 2))),
              ("K4", (8, 64, 64, 64), 48, 5, ((2, 2), (2, 2)))]
     for key, shape, cout, k, pad in cases:
@@ -395,26 +448,28 @@ def _post(url, body):
     return status, data, meta, time.perf_counter() - t0
 
 
-def phase_serve(workdir):
+def phase_serve(workdir, cfg, model_name, per_call, tag="serve"):
+    """`cfg` with seeded random weights, exported as a reference .pth,
+    behind SRService + make_server (--model `model_name`, --no-exact):
+    three PNG requests, exactly `per_call` launches per model call, and
+    the served tiled output against the plain fp32 path."""
     import numpy as np
     import torch
     from PIL import Image
 
     from tpu_superresolution_torch.cli.serve import SRService, make_server
-    from tpu_superresolution_torch.core.config import EvalConfig, SwinIRConfig, build_model
+    from tpu_superresolution_torch.core.config import EvalConfig, build_model
     from tpu_superresolution_torch.evaluate.runner import Evaluator
     from tpu_superresolution_torch.evaluate.tiling import tile_grid
     from tpu_superresolution_torch.kernels import read_counters, reset_counters
 
-    # SwinIR-M x4 with seeded random weights, exported as a reference .pth
-    cfg = SwinIRConfig(scale=4)
     src = build_model(cfg)
     src.reset_parameters(torch.Generator().manual_seed(SEED))
-    ckpt = f"{workdir}/swinir_m_x4_random.pth"
+    ckpt = f"{workdir}/{model_name}_x4_random.pth"
     torch.save({"params": src.state_dict()}, ckpt)
 
     tile_batch = 8
-    service = SRService(ckpt, "swinir", "X4", False, -1, 16, tile_batch, device="cuda")
+    service = SRService(ckpt, model_name, "X4", False, -1, 16, tile_batch, device="cuda")
     srv = make_server(service, "127.0.0.1", 0)
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
@@ -433,7 +488,7 @@ def phase_serve(workdir):
         ("320x240 auto-tiled 192/16/8", image(240, 320), "", 192, 16),
         ("256x256 tile 64 / overlap 8", image(256, 256), "?tile=64&overlap=8", 64, 8),
     ]
-    launches_total = {k: 0 for k in PER_CALL}
+    launches_total = {k: 0 for k in per_call}
     served_tiled = None
     try:
         for label, arr, query, tile, overlap in requests:
@@ -449,15 +504,15 @@ def phase_serve(workdir):
             counts = read_counters()
             with Image.open(io.BytesIO(data)) as im:
                 out = np.asarray(im.convert("RGB"))
-            log(f"[serve] {label}: HTTP {status} {out.shape[1]}x{out.shape[0]} "
+            log(f"[{tag}] {label}: HTTP {status} {out.shape[1]}x{out.shape[0]} "
                 f"{secs * 1e3:.1f} ms round trip ({meta.get('seconds')} s forward, "
                 f"tile {meta.get('tile')}); model calls {calls}; launches {counts}")
             if status != 200 or out.shape != (4 * h, 4 * w, 3):
                 raise RuntimeError(f"{label}: status {status}, output {out.shape}")
-            for k, per in PER_CALL.items():
-                if counts[k] < per * calls:
-                    raise RuntimeError(
-                        f"{label}: {k} launched {counts[k]} times, expected >= {per * calls}")
+            expect = {k: per * calls for k, per in per_call.items()}
+            if counts != expect:
+                raise RuntimeError(f"{label}: launches {counts}, expected {expect}")
+            for k in per_call:
                 launches_total[k] += counts[k]
             # the same forward, returning floats: finite and of the right shape
             fwd = service._fwd_cache.get(tile, overlap)
@@ -468,7 +523,7 @@ def phase_serve(workdir):
             if query:
                 served_tiled = (xin, out, tile, overlap)
         health = json.loads(urllib.request.urlopen(f"{base}/healthz", timeout=60).read())
-        log(f"[serve] /healthz {health}")
+        log(f"[{tag}] /healthz {health}")
     finally:
         srv.shutdown()
         srv.server_close()
@@ -484,14 +539,16 @@ def phase_serve(workdir):
     ref = ref[0].clamp(0, 1).cpu().numpy().astype(np.float64)
     mse = float(np.mean((out.astype(np.float64) / 255.0 - ref) ** 2))
     psnr = 10 * math.log10(1.0 / max(mse, 1e-20))
-    log(f"[serve] tiled 64/8 served PNG vs plain fp32 path: PSNR {psnr:.2f} dB "
+    log(f"[{tag}] tiled 64/8 served PNG vs plain fp32 path: PSNR {psnr:.2f} dB "
         f"(bound >= {PSNR_MIN_DB} dB)")
     if psnr < PSNR_MIN_DB:
         raise RuntimeError(f"served output PSNR {psnr:.2f} dB < {PSNR_MIN_DB} dB")
     return service, launches_total
 
 
-def phase_bench(service, smi):
+def phase_bench(service, smi, name="SwinIR-M x4", tag="bench"):
+    """The bench workload: MPix/s of the kernels and of the plain bf16
+    path; returns the kernels' tiled forward (a callable)."""
     import numpy as np
     import torch
 
@@ -517,8 +574,161 @@ def phase_bench(service, smi):
                 out = run()
             torch.cuda.synchronize()
             dt = (time.perf_counter() - t0) / n_iter
-        log(f"[bench] SwinIR-M x4, 256^2 LR, tile 64/8, 25 tiles in one batch, bf16, "
+        log(f"[{tag}] {name}, 256^2 LR, tile 64/8, 25 tiles in one batch, bf16, "
             f"{label}: {dt * 1e3:.2f} ms/image, {1024 * 1024 / 1e6 / dt:.3f} MPix/s ({smi})")
+    return lambda: tiled_forward(service.model, x, 4, 64, 8)
+
+
+def _psnr_db(a, b) -> float:
+    mse = float(((a.float().clamp(0, 1) - b.float().clamp(0, 1)) ** 2).mean())
+    return 10 * math.log10(1.0 / max(mse, 1e-20))
+
+
+def phase_hat(workdir, smi):
+    """HAT x4 serving (the serve phase's requests and checks with --model
+    hat), the bench workload for HAT with a split of one forward, and a
+    hat_fast forward (K1 with `extra`) against its plain fp32 path.
+    Returns the launches of the served requests and the hat_fast call."""
+    import numpy as np
+    import torch
+
+    from tpu_superresolution_torch.core.config import HATConfig, HATFastConfig, build_model
+    from tpu_superresolution_torch.kernels import read_counters, reset_counters
+
+    service, launches = phase_serve(workdir, HATConfig(), "hat", HAT_PER_CALL, tag="hat")
+    fwd = phase_bench(service, smi, name="HAT x4", tag="hat")
+    _hat_split(service.model, fwd, smi)
+    del service
+
+    # hat_fast (ws 8): one forward of the bench's 25 tiles, K1 with extra
+    src = build_model(HATFastConfig())
+    src.reset_parameters(torch.Generator().manual_seed(SEED))
+    fast = build_model(HATFastConfig(), dtype=torch.bfloat16, device="cuda")
+    fast.load_state_dict(src.state_dict())
+    ref = build_model(HATFastConfig(), dtype=torch.float32, impl="plain", device="cuda")
+    ref.load_state_dict(src.state_dict())
+    x = torch.from_numpy(np.random.default_rng(SEED).random((25, 64, 64, 3), np.float32)).cuda()
+    with torch.no_grad():
+        fast(x)  # warm-up: weight packing, composition
+        torch.cuda.synchronize()
+        reset_counters()
+        y = fast(x)
+        torch.cuda.synchronize()
+        counts = read_counters()
+        ms = cuda_ms(lambda: fast(x), iters=5, warmup=1)
+        psnr = _psnr_db(y, ref(x))
+    log(f"[hat] hat_fast (ws 8) forward on [25,64,64,3]: launches {counts} (expected "
+        f"{HAT_FAST_PER_CALL}); {ms:.2f} ms, {25 * 256 * 256 / 1e6 / ms * 1e3:.3f} MPix/s "
+        f"of output; PSNR vs plain fp32 {psnr:.2f} dB (bound >= {PSNR_MIN_DB} dB) ({smi})")
+    if counts != HAT_FAST_PER_CALL:
+        raise RuntimeError(f"hat_fast launches {counts}, expected {HAT_FAST_PER_CALL}")
+    if psnr < PSNR_MIN_DB or not bool(torch.isfinite(y).all()):
+        raise RuntimeError(f"hat_fast output PSNR {psnr:.2f} dB < {PSNR_MIN_DB} dB")
+    return {k: launches[k] + counts[k] for k in launches}
+
+
+def phase_swinir_ws7(smi):
+    """SwinIR-M x4 at window_size 7 (a checkpoint the JAX package serves
+    and the port used to refuse on CUDA): one bf16 forward of 25 tiles of
+    64^2 (reflect-padded to 70^2), its launches, and its output against
+    the plain fp32 path."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tpu_superresolution_torch.core.config import SwinIRConfig, build_model
+    from tpu_superresolution_torch.kernels import read_counters, reset_counters
+
+    cfg = dataclasses.replace(SwinIRConfig(scale=4), window_size=7)
+    src = build_model(cfg)
+    src.reset_parameters(torch.Generator().manual_seed(SEED))
+    model = build_model(cfg, dtype=torch.bfloat16, device="cuda")
+    model.load_state_dict(src.state_dict())
+    ref = build_model(cfg, dtype=torch.float32, impl="plain", device="cuda")
+    ref.load_state_dict(src.state_dict())
+    x = torch.from_numpy(np.random.default_rng(SEED).random((25, 64, 64, 3), np.float32)).cuda()
+    with torch.no_grad():
+        reset_counters()
+        y = model(x)
+        torch.cuda.synchronize()
+        counts = read_counters()
+        psnr = _psnr_db(y, ref(x))
+    log(f"[swinir-ws7] SwinIR-M x4 at window 7, [25,64,64,3] bf16: launches {counts} "
+        f"(expected {SWINIR_WS7_PER_CALL}); PSNR vs plain fp32 {psnr:.2f} dB "
+        f"(bound >= {PSNR_MIN_DB} dB) ({smi})")
+    if counts != SWINIR_WS7_PER_CALL:
+        raise RuntimeError(f"SwinIR ws 7 launches {counts}, expected {SWINIR_WS7_PER_CALL}")
+    if psnr < PSNR_MIN_DB or not bool(torch.isfinite(y).all()):
+        raise RuntimeError(f"SwinIR ws 7 output PSNR {psnr:.2f} dB < {PSNR_MIN_DB} dB")
+    return counts
+
+
+def _hat_split(model, fwd, smi):
+    """Where one HAT bench forward spends its device time, under
+    torch.profiler: the block kernels (K6), K2, K3/K4 by kernel name, the
+    other kernels by the module whose profiler range launched them (the
+    CAB branches' cuDNN convs and SE, the OCABs' plain ops, the rest),
+    and the device's idle share of the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from tpu_superresolution_torch.models.hat import CAB, OCAB
+
+    parts = {CAB: "hat::cab", OCAB: "hat::ocab"}
+    stack, handles = [], []
+    for m in model.modules():
+        if type(m) in parts:
+            def enter(mod, args, name=parts[type(m)]):
+                stack.append(record_function(name))
+                stack[-1].__enter__()
+
+            handles.append(m.register_forward_pre_hook(enter))
+            handles.append(m.register_forward_hook(
+                lambda mod, args, out: stack.pop().__exit__(None, None, None)))
+    try:
+        with torch.no_grad(), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fwd()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = prof.events()
+    except Exception as e:  # the profile is a reading aid, not a check
+        log(f"[hat] profiler failed: {type(e).__name__}: {e}")
+        return
+    finally:
+        for h in handles:
+            h.remove()
+    kernels = _device_kernels(prof)
+    if not kernels:
+        log("[hat] profiler: no device events recorded")
+        return
+    # the device-side spans of the module ranges
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in events
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and getattr(e, "is_user_annotation", False) and e.name in parts.values()]
+    us = lambda e: getattr(e, "device_time", 0.0) or getattr(e, "cuda_time", 0.0)
+    groups = dict.fromkeys(("K6 swin_block_kernel<7>", "K2 layernorm", "K3/K4 conv_nhwc",
+                            "CAB convs + SE (cuDNN, elementwise)", "OCAB plain ops",
+                            "other (conv_first, mean shift, tiling, casts)"), 0.0)
+    for e in kernels:
+        n, t = e.name, e.time_range.start
+        span = next((name for a, b, name in spans if a <= t <= b), None)
+        g = ("K6 swin_block_kernel<7>" if "swin_block_kernel" in n else
+             "K2 layernorm" if "layernorm_rows" in n else
+             "K3/K4 conv_nhwc" if "conv_nhwc" in n else
+             "CAB convs + SE (cuDNN, elementwise)" if span == "hat::cab" else
+             "OCAB plain ops" if span == "hat::ocab" else
+             "other (conv_first, mean shift, tiling, casts)")
+        groups[g] += us(e) / 1e3
+    busy = sum(groups.values())
+    idle = max(wall - busy, 0.0)
+    log(f"[hat] profiled forward: {wall:.2f} ms wall (profiler on), {len(kernels)} device "
+        f"kernels, busy {busy:.2f} ms, idle {idle:.2f} ms ({idle / wall:.1%}); "
+        f"{len(spans)} module ranges seen on the device ({smi})")
+    for g, t in groups.items():
+        log(f"[hat]   {t:8.3f} ms  {t / wall:6.1%}  {g}")
 
 
 def _write_deeprock(root, n_train, n_valid, hr_size, scale, seed):
@@ -763,13 +973,17 @@ def main() -> int:
     name, smi = phase_device()
     from tpu_superresolution_torch.kernels import _lib
 
+    from tpu_superresolution_torch.core.config import SwinIRConfig
+
     phase_build()
     kres = phase_kernels()
     _lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_lib.BUILD_DIR) as workdir:
-        service, launches = phase_serve(workdir)
+        service, launches = phase_serve(workdir, SwinIRConfig(scale=4), "swinir", PER_CALL)
         phase_bench(service, smi)
         del service
+        ws7_launches = phase_swinir_ws7(smi)
+        hat_launches = phase_hat(workdir, smi)
         train_launches, _ = phase_train(workdir, smi)
 
     kernels = []
@@ -777,7 +991,9 @@ def main() -> int:
         first = kres[key][0]
         kernels.append(dict(
             name=meta["name"], route=meta["route"], source=meta["source"],
-            replaces=meta["replaces"], launches=launches.get(key, 0) + train_launches[key],
+            replaces=meta["replaces"],
+            launches=sum(d.get(key, 0) for d in (launches, ws7_launches, hat_launches,
+                                                 train_launches)),
             max_abs_err=max(r["err"] for r in kres[key]),
             ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
             bound_by=first["bound_by"], library_ms=first["library_ms"],

@@ -81,8 +81,8 @@ def test_swin_block_plain_matches_jax(shift, gelu_approx, oracle):
 
     reset_counters()
     tmask = shift_mask_tensor(h, w, ws, shift, torch.device("cpu")) if shift else None
-    got = fused_block.fused_swin_block(_t(x), _port_weights(p), ws, shift, tmask,
-                                       gelu_approx).numpy()
+    got = fused_block.fused_windows_block(_t(x), _port_weights(p), ws, shift, tmask,
+                                          gelu_approx).numpy()
     assert np.abs(got - want).max() <= TOL
     assert read_counters()["K1"] == 0  # CPU tensor: the plain version ran
 

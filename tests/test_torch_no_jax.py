@@ -46,7 +46,7 @@ def test_cpu_forward_launches_no_kernel():
     with torch.no_grad():
         y = model(torch.rand(1, 16, 16, 3))
     assert y.shape == (1, 64, 64, 3)
-    none = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+    none = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0}
     assert read_counters() == none
     opt, sched = build_optimizer(TrainConfig(loss="l1"), 1, model)
     state = create_train_state(model, opt, sched)

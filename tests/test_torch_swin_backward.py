@@ -86,12 +86,12 @@ def test_k5_plain_matches_jax_mega_backward(shift, gelu_approx, scales):
     w = _port_weights(p)
     tmask = shift_mask_tensor(H, W, WS, shift, torch.device("cpu")) if shift else None
     tsc = None if scales is None else _t(scales)
-    fwd = fused_block.fused_swin_block(_t(x), w, WS, shift, tmask, gelu_approx,
-                                       branch_scales=tsc)
+    fwd = fused_block.fused_windows_block(_t(x), w, WS, shift, tmask, gelu_approx,
+                                          branch_scales=tsc)
     assert np.abs(fwd.numpy() - np.asarray(out)).max() <= TOL
     got = fused_block.fused_swin_block_backward(_t(ct), _t(x), w, WS, shift, tmask,
                                                 gelu_approx, branch_scales=tsc)
-    assert read_counters() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+    assert not any(read_counters().values())  # CPU tensors: the plain versions ran
 
     _assert_close(got.dx.numpy(), np.asarray(jgrads[0]), "dx")
     for name, g in zip(_JAX_ORDER, jgrads[1:13]):

@@ -53,13 +53,17 @@ def perturbed_jax_swinir(cfg, hw=(16, 16), seed=0):
 
 
 def port_from_jax(cfg, variables, dtype=torch.float32):
-    """The port's model for the JAX `cfg`, loaded (strict) with the JAX
-    weights through the port's weight bridge."""
+    """The port's model for the JAX `cfg` (SwinIR or HAT), loaded
+    (strict) with the JAX weights through the port's weight bridge."""
     from tpu_superresolution_torch.core.config import build_model, config_from_dict
-    from tpu_superresolution_torch.interop import swinir_state_dict_from_jax
+    from tpu_superresolution_torch.interop import (
+        hat_state_dict_from_jax,
+        swinir_state_dict_from_jax,
+    )
 
     model = build_model(config_from_dict(cfg.to_dict()), dtype=dtype)
-    sd = swinir_state_dict_from_jax(variables)
+    bridge = hat_state_dict_from_jax if cfg.name.startswith("hat") else swinir_state_dict_from_jax
+    sd = bridge(variables)
     model.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()},
                           strict=True)
     return model.eval()

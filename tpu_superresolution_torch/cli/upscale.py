@@ -1,10 +1,11 @@
 """Single-image super-resolution with a reference torch ``.pt/.pth``
-SwinIR checkpoint (port of ``tpu_superresolution_tpu/cli/upscale.py``):
+SwinIR or HAT checkpoint (port of
+``tpu_superresolution_tpu/cli/upscale.py``):
 
     python -m tpu_superresolution_torch.cli.upscale \\
         --ckpt model.pth --model swinir --scale X4 --image photo.png
 
-decode -> (auto-)tiled SwinIR forward -> PNG.  It runs on the GPU, in
+decode -> (auto-)tiled forward -> PNG.  It runs on the GPU, in
 bf16 through the port's kernels, and raises when there is none; with
 ``--device cpu`` it runs on the CPU in fp32 through their plain
 versions.  The checkpoint is a reference ``.pth`` or one written by
@@ -31,7 +32,7 @@ AUTO_TILE = 192
 AUTO_OVERLAP = 16
 AUTO_TILE_BATCH = 8
 
-PORTED_MODELS = ("swinir",)
+PORTED_MODELS = ("swinir", "hat")
 MODEL_CHOICES = ("ms_resunet", "unet2d", "swinir", "hat", "dat")
 
 
@@ -43,21 +44,21 @@ def auto_tile(h: int, w: int) -> int:
 def load_any_checkpoint(ckpt: str, model_name: str, scale_int: int, exact=None,
                         device: Optional[torch.device] = None,
                         dtype: Optional[torch.dtype] = None):
-    """Load a reference torch .pt/.pth SwinIR checkpoint (architecture
-    inferred from tensor shapes) into the port.  Returns
+    """Load a reference torch .pt/.pth SwinIR or HAT checkpoint
+    (architecture inferred from tensor shapes) into the port.  Returns
     (model_config, model).  `exact=None` means exact for torch
     checkpoints: no fused reconstruction, erf GELU."""
     from tpu_superresolution_torch.core.config import build_model
     from tpu_superresolution_torch.core.dtypes import serving_dtype
     from tpu_superresolution_torch.interop import (
-        infer_swinir_config,
+        CONFIG_INFERENCE,
         load_torch_checkpoint,
         strip_reference_buffers,
     )
 
     if model_name not in PORTED_MODELS:
         raise SystemExit(
-            f"--model {model_name}: only {', '.join(PORTED_MODELS)} is ported to PyTorch "
+            f"--model {model_name}: only {', '.join(PORTED_MODELS)} are ported to PyTorch "
             "so far; the other families are queued in ROADMAP.md"
         )
     if not ckpt.endswith((".pt", ".pth")):
@@ -67,7 +68,7 @@ def load_any_checkpoint(ckpt: str, model_name: str, scale_int: int, exact=None,
         )
     device = resolve_device(device)
     sd = strip_reference_buffers(load_torch_checkpoint(ckpt))
-    mcfg = infer_swinir_config(sd, scale_int)
+    mcfg = CONFIG_INFERENCE[model_name](sd, scale_int)
     if exact is None or exact:
         mcfg = dataclasses.replace(mcfg, fused_reconstruct=False, gelu_approximate=False)
     model = build_model(mcfg, dtype=dtype or serving_dtype(device))
@@ -123,7 +124,7 @@ def build_argparser():
     ap.add_argument("--image", type=str, nargs="+", required=True, help="input image file(s)")
     ap.add_argument("--ckpt", type=str, required=True, help="reference torch .pt/.pth")
     ap.add_argument("--model", type=str, default="swinir", choices=MODEL_CHOICES,
-                    help="architecture of the checkpoint (only swinir is ported)")
+                    help="architecture of the checkpoint (swinir and hat are ported)")
     ap.add_argument("--scale", type=str, choices=["X2", "X4"], required=True)
     ap.add_argument("--out", type=str, default=None,
                     help="output file (single input) or directory (default: next to "

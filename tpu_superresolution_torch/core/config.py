@@ -3,8 +3,9 @@
 
 The dataclasses keep the JAX package's field names and defaults, so a
 ``to_dict()`` from either package rebuilds through the other's
-``config_from_dict``.  Only ``swinir`` is registered in the port so
-far; the other families are listed in ROADMAP.md.
+``config_from_dict``.  ``swinir``, ``hat`` and ``hat_fast`` are
+registered in the port so far; the other families are listed in
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -72,6 +73,54 @@ class SwinIRConfig(ModelConfig):
     @property
     def upsamples_internally(self) -> bool:
         return True
+
+
+@dataclass(frozen=True)
+class HATConfig(ModelConfig):
+    """HAT hybrid attention transformer (reference
+    modules/hat_arch.py:710-994).  Defaults = HAT x4 as the reference's
+    constructor builds it: embed 96, depths 6x4, ws 7."""
+
+    name: str = "hat"
+    in_channels: int = 3
+    out_channels: int = 3
+    scale: int = 4
+    img_size: int = 64
+    window_size: int = 7
+    embed_dim: int = 96
+    depths: Tuple[int, ...] = (6, 6, 6, 6)
+    num_heads: Tuple[int, ...] = (6, 6, 6, 6)
+    mlp_ratio: float = 4.0
+    qkv_bias: bool = True
+    compress_ratio: int = 3
+    squeeze_factor: int = 30
+    conv_scale: float = 0.01
+    overlap_ratio: float = 0.5
+    upsampler: str = "pixelshuffle"
+    resi_connection: str = "1conv"  # "1conv" | "identity"
+    num_feat: int = 64
+    img_range: float = 1.0
+    use_remat: bool = False
+    attention_impl: str = "auto"  # kept for dict round-trips, as SwinIRConfig's
+    patch_norm: bool = True
+    drop_path_rate: float = 0.1
+    fused_reconstruct: bool = True  # see SwinIRConfig.fused_reconstruct
+    # tanh-GELU in the HAB and OCAB MLPs (serving default); the CAB's
+    # GELU is always the exact erf, as in the JAX package.
+    gelu_approximate: bool = True
+
+    @property
+    def upsamples_internally(self) -> bool:
+        return True
+
+
+@dataclass(frozen=True)
+class HATFastConfig(HATConfig):
+    """The JAX package's fast-HAT preset: HAT at window_size=8 (its
+    blocks run K1 instead of K6).  Official checkpoints use ``hat``."""
+
+    name: str = "hat_fast"
+    window_size: int = 8
 
 
 @dataclass(frozen=True)

@@ -1,4 +1,4 @@
-// WMMA helpers shared by the Swin block kernels (K1 csrc/swin_block.cu,
+// WMMA helpers shared by the Swin block kernels (K1/K6 csrc/swin_block.cu,
 // K5 csrc/swin_block_bwd.cu): 16x16x16 bf16 fragments with fp32
 // accumulation, 64-row strip GEMMs against weights read straight from
 // global memory, and the staged epilogue that hands each lane eight

@@ -1,18 +1,26 @@
 """Checkpoint interop of the port: reference torch checkpoints and the
 JAX package's parameter trees -> the port's state dict."""
 
-from tpu_superresolution_torch.interop.jax_bridge import swinir_state_dict_from_jax
+from tpu_superresolution_torch.interop.jax_bridge import (
+    hat_state_dict_from_jax,
+    swinir_state_dict_from_jax,
+)
 from tpu_superresolution_torch.interop.torch_convert import (
+    CONFIG_INFERENCE,
     REFERENCE_BUFFER_SUFFIXES,
     extract_state_dict,
+    infer_hat_config,
     infer_swinir_config,
     load_torch_checkpoint,
     strip_reference_buffers,
 )
 
 __all__ = [
+    "CONFIG_INFERENCE",
     "REFERENCE_BUFFER_SUFFIXES",
     "extract_state_dict",
+    "hat_state_dict_from_jax",
+    "infer_hat_config",
     "infer_swinir_config",
     "load_torch_checkpoint",
     "strip_reference_buffers",

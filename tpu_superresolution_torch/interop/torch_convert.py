@@ -1,11 +1,13 @@
 """Reference torch checkpoints -> the port (port of the
-``extract_state_dict`` / ``infer_swinir_config`` parts of
-``tpu_superresolution_tpu/interop/torch_convert.py``).
+``extract_state_dict`` / ``infer_swinir_config`` / ``infer_hat_config``
+parts of ``tpu_superresolution_tpu/interop/torch_convert.py``).
 
 The port's modules use the reference key names, so loading needs no key
-conversion: unwrap the checkpoint, drop the two buffers the reference
-stores but the port computes from shapes (``relative_position_index``,
-``attn_mask``), and ``load_state_dict(strict=True)``.
+conversion: unwrap the checkpoint, drop the buffers the reference
+stores but the port computes from shapes (SwinIR's
+``relative_position_index`` and ``attn_mask``, HAT's
+``relative_position_index_SA`` / ``_OCA``), and
+``load_state_dict(strict=True)``.
 """
 
 from __future__ import annotations
@@ -15,12 +17,13 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from tpu_superresolution_torch.core.config import SwinIRConfig
+from tpu_superresolution_torch.core.config import HATConfig, SwinIRConfig
 
 _WRAPPER_KEYS = ("params_ema", "params", "state_dict", "model_state_dict", "model", "net", "generator")
 
 # Buffers of reference checkpoints that the port derives from shapes.
-REFERENCE_BUFFER_SUFFIXES = (".relative_position_index", ".attn_mask")
+REFERENCE_BUFFER_SUFFIXES = (".relative_position_index", ".attn_mask",
+                             "relative_position_index_SA", "relative_position_index_OCA")
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, np.ndarray]:
@@ -128,3 +131,48 @@ def infer_swinir_config(sd: Mapping[str, np.ndarray], scale: int) -> SwinIRConfi
         patch_norm="patch_embed.norm.weight" in sd,
         num_feat=num_feat,
     )
+
+
+def infer_hat_config(sd: Mapping[str, np.ndarray], scale: int) -> HATConfig:
+    """A HATConfig matching a reference hat_arch.py state dict (see
+    infer_swinir_config).  conv_scale is not a weight: the default 0.01."""
+    if "layers.0.residual_group.overlap_attn.qkv.weight" not in sd:
+        raise ValueError(
+            "not a HAT checkpoint: missing "
+            "'layers.0.residual_group.overlap_attn.qkv.weight' — wrong --model?"
+        )
+    embed_dim = int(sd["conv_first.weight"].shape[0])
+    in_channels = int(sd["conv_first.weight"].shape[1])
+    depths, heads = _depths_heads_swin(sd)
+    b0 = "layers.0.residual_group.blocks.0"
+    ws = _ws_from_rpb(sd[f"{b0}.attn.relative_position_bias_table"].shape[0], "HAT")
+    # OCAB table rows = (ws + ows - 1)^2, ows = ws * (1 + overlap_ratio)
+    # (hat_arch.py:381-382)
+    orows = sd["layers.0.residual_group.overlap_attn.relative_position_bias_table"].shape[0]
+    oside = int(round(orows ** 0.5))
+    if oside * oside != orows:
+        raise ValueError(f"HAT: OCAB bias table rows {orows} not a square")
+    ows = oside + 1 - ws
+    cab_mid = int(sd[f"{b0}.conv_block.cab.0.weight"].shape[0])
+    sq_mid = int(sd[f"{b0}.conv_block.cab.3.attention.1.weight"].shape[0])
+    return HATConfig(
+        scale=scale,
+        in_channels=in_channels,
+        out_channels=int(sd["conv_last.weight"].shape[0]),
+        window_size=ws,
+        embed_dim=embed_dim,
+        depths=depths,
+        num_heads=heads,
+        mlp_ratio=float(sd[f"{b0}.mlp.fc1.weight"].shape[0] / embed_dim),
+        qkv_bias=f"{b0}.attn.qkv.bias" in sd,
+        compress_ratio=max(1, round(embed_dim / cab_mid)),
+        squeeze_factor=max(1, round(embed_dim / sq_mid)),
+        overlap_ratio=ows / ws - 1.0,
+        num_feat=int(sd["conv_before_upsample.0.weight"].shape[0]),
+        resi_connection="1conv" if "layers.0.conv.weight" in sd else "identity",
+        patch_norm="patch_embed.norm.weight" in sd,
+    )
+
+
+# --model name -> config inference of the ported families
+CONFIG_INFERENCE = {"swinir": infer_swinir_config, "hat": infer_hat_config}

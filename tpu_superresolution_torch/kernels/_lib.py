@@ -45,7 +45,7 @@ _SIGNATURES = {
     "sr_layernorm_bf16": [_P, _P, _P, _P, ctypes.c_longlong, _I, ctypes.c_float, _P],
     "sr_conv3x3_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "sr_conv_bf16": [_P, _P, _P, _P] + [_I] * 9 + [_P],
-    "sr_swin_block_bf16": [_P] * 17 + [_I] * 7 + [ctypes.c_float, _P],
+    "sr_swin_block_bf16": [_P] * 18 + [_I] * 8 + [ctypes.c_float, _P],
     "sr_swin_block_bwd_bf16": [_P] * 24 + [_I] * 7 + [ctypes.c_float, _I, _I, _P],
 }
 

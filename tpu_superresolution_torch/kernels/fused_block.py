@@ -1,38 +1,45 @@
-"""K1 — the whole Swin transformer block forward (CUDA,
-``csrc/swin_block.cu``) — and K5, its backward (CUDA,
-``csrc/swin_block_bwd.cu``).
+"""The whole Swin transformer block forward (CUDA,
+``csrc/swin_block.cu``) for window size 8 (K1) and 7 (K6), and K5, the
+ws = 8 block backward (CUDA, ``csrc/swin_block_bwd.cu``).
 
-K1 ports ``tpu_superresolution_tpu/ops/pallas/fused_block.py``
-(``fused_swin_block`` -> ``_mega_forward`` -> ``_kernel``), without the
-TPU-only parts (``extra``, sample fold, roll-absorbing neighbour reads,
-the MXU row-sum column):
+The forward kernel computes, per window, with the cyclic shift in its
+address arithmetic:
 
-    x1  = x + m1 * proj(window_attention(LN1(x)))     (shifted windows)
+    x1  = x + m1 * proj(window_attention(LN1(x))) + extra
     out = x1 + m2 * fc2(gelu(fc1(LN2(x1))))
 
 where (m1, m2) are the per-sample stochastic-depth branch scales
 (``branch_scales`` [B, 2] fp32; None means 1, and the kernel then does
-exactly its inference arithmetic).  K5 ports ``_mega_backward`` ->
-``_bwd_kernel``: recompute the forward, chain the cotangent, and return
-dx and the 13 parameter gradients.
+exactly its inference arithmetic) and `extra` (None, or [B, H, W, C] in
+x's frame) is HAT's ``conv_scale * CAB`` branch, unscaled.  It ports
+three Pallas kernels of ``tpu_superresolution_tpu/ops/pallas/
+fused_block.py`` that compute this function: ``fused_swin_block``
+(strip mode, K1), ``fused_packed_windows_block`` (K6: windows
+partitioned and token-padded by the caller) and
+``fused_spatial_windows_block`` (K13: window rows read from the spatial
+map).  The CUDA kernel reads windows from the spatial map, so one
+instantiation per window size serves all three; the TPU-only parts
+(sample fold, roll-absorbing neighbour reads, the MXU row-sum column)
+have no counterpart.  ``fused_windows_block(x, ..., shift=s)`` equals
+``cyclic_unshift(block(cyclic_shift(x, s)), s)``; the plain version
+computes exactly that composition.  The kernels take ws 7 or 8, C <=
+192, heads of hd <= 32 (at most 6), an MLP hidden <= 384 and
+qkv_bias=True, and raise otherwise.
 
-The kernels run one CTA per 8x8 window and apply the cyclic shift in
-their address arithmetic, so ``fused_swin_block(x, ..., shift=s)``
-equals ``cyclic_unshift(block(cyclic_shift(x, s)), s)``; the plain
-versions compute exactly that composition.  The kernels take ws = 8
-(N = 64), C <= 192, heads of hd <= 32 (at most 6) and an MLP hidden
-<= 384, and raise otherwise.
-
+K5 ports ``_mega_backward`` -> ``_bwd_kernel``: recompute the forward,
+chain the cotangent, and return dx and the 13 parameter gradients.
 Training on CUDA goes through ``SwinBlockFunction``: its forward is K1
 and its backward is K5, with the gradients mapped from the kernels'
 packed layout back to the raw ``[out, in]`` parameters here (the
-counterpart of ``fused_block.py:1098-1105``).
+counterpart of ``fused_block.py:1098-1105``).  A gradient through
+ws = 7 or through `extra` (K6's backward, HAT training) is not ported
+yet and raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -48,7 +55,8 @@ from tpu_superresolution_torch.ops.window import (
 )
 
 # Compile-time sizes of csrc/swin_block.cu and csrc/swin_block_bwd.cu.
-WS = 8
+KERNEL_WINDOWS = (7, 8)  # window sizes of the forward kernel
+WS = 8       # the window size of K5, the backward
 CP = 192     # padded channels
 HDP = 32     # padded head dim
 HIDP = 384   # padded MLP hidden
@@ -56,8 +64,11 @@ MAX_HEADS = CP // HDP
 LN_EPS = 1e-5
 N_TOK = WS * WS
 
-launches = _lib.LaunchCounter("K1 swin_block")
+launches = _lib.LaunchCounter("K1 swin_block ws8")
+launches_ws7 = _lib.LaunchCounter("K6 swin_block ws7")
 launches_bwd = _lib.LaunchCounter("K5 swin_block_bwd")
+# the counter of the forward kernel for each window size
+FORWARD_COUNTERS = {8: launches, 7: launches_ws7}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +99,12 @@ class SwinBlockWeights:
     @property
     def scale(self) -> float:
         return (self.dim // self.num_heads) ** -0.5
+
+    @property
+    def window_size(self) -> int:
+        """ws of the [(2ws-1)^2, nH] bias table."""
+        side = round(int(self.table.shape[0]) ** 0.5)
+        return (side + 1) // 2
 
 
 # The differentiable tensors of a block, in the order SwinBlockFunction
@@ -123,8 +140,8 @@ class PackedSwinBlock:
     """The kernels' operands: bf16 GEMM weights in the [out, in] layout,
     zero-padded to the kernel's tile sizes (q rows pre-scaled by
     hd^-0.5, head dims padded hd -> 32, channels C -> 192), fp32 biases
-    and LayerNorm params, and the gathered [nH, 64, 64] relative-position
-    bias."""
+    and LayerNorm params, and the gathered [nH, N, N] relative-position
+    bias of the window size (N = ws^2)."""
 
     wqkv: torch.Tensor   # [3*CP, CP] bf16
     bqkv: torch.Tensor   # [3*CP] fp32
@@ -138,23 +155,61 @@ class PackedSwinBlock:
     b1: torch.Tensor
     g2: torch.Tensor
     b2: torch.Tensor
-    rpb: torch.Tensor    # [nH, 64, 64] fp32
+    rpb: torch.Tensor    # [nH, ws^2, ws^2] fp32
     dim: int
     num_heads: int
     hidden: int
+    window_size: int
 
 
 def check_kernel_limits(w: SwinBlockWeights) -> None:
+    """Raise unless the block's widths and window fit the kernels."""
     c, nh, hidden = w.dim, w.num_heads, int(w.wfc1.shape[0])
     if c > CP or c % nh or c // nh > HDP or nh > MAX_HEADS or hidden > HIDP:
         raise ValueError(
             f"swin_block kernel takes C <= {CP}, hd <= {HDP}, heads <= "
             f"{MAX_HEADS}, hidden <= {HIDP}; got C={c}, heads={nh}, hidden={hidden}"
         )
-    if w.table.shape[0] != (2 * WS - 1) ** 2:
-        raise ValueError(f"swin_block kernel takes window size {WS} only")
+    ws = w.window_size
+    if ws not in KERNEL_WINDOWS or w.table.shape[0] != (2 * ws - 1) ** 2:
+        raise ValueError(
+            f"swin_block kernel takes window sizes {KERNEL_WINDOWS}; the bias table "
+            f"{tuple(w.table.shape)} is for ws={ws}"
+        )
     if w.bqkv is None:
         raise ValueError("swin_block kernel takes qkv_bias=True only")
+
+
+def check_block_args(shape: Sequence[int], w: SwinBlockWeights, ws: int, shift: int,
+                     name: str = "fused_windows_block") -> None:
+    """Raise unless an x of `shape` [B, H, W, C] with window `ws` and
+    `shift` and the weights `w` fit the forward kernel (shapes only, so
+    it runs on any device)."""
+    if ws not in KERNEL_WINDOWS:
+        raise ValueError(f"{name}: the kernel takes ws in {KERNEL_WINDOWS}, got ws={ws} "
+                         f"(x {tuple(shape)})")
+    if len(shape) != 4:
+        raise ValueError(f"{name}: x must be [B, H, W, C], got {tuple(shape)}")
+    if shape[1] % ws or shape[2] % ws:
+        raise ValueError(f"{name}: H, W = {shape[1]}, {shape[2]} are not multiples of {ws}")
+    if not 0 <= shift < ws:
+        raise ValueError(f"{name}: shift {shift} outside [0, {ws})")
+    if w.window_size != ws:
+        raise ValueError(f"{name}: bias table for ws={w.window_size}, block run at ws={ws}")
+    if shape[3] != w.dim:
+        raise ValueError(f"{name}: weights for C={w.dim}, x has C={shape[3]}")
+    check_kernel_limits(w)
+
+
+def check_differentiable(ws: int, extra: Optional[torch.Tensor], name: str) -> None:
+    """Only the ws = 8 block without `extra` has a backward kernel (K5);
+    K6's backward with extra's gradient is the HAT-training slice."""
+    if ws != WS or extra is not None:
+        raise NotImplementedError(
+            f"{name}: no backward kernel for ws={ws}{' with extra' if extra is not None else ''}"
+            " on CUDA: K6's backward (and HAT training) is the next slice of ROADMAP.md "
+            "Queue 2; run under torch.no_grad(), or on the CPU"
+        )
 
 
 @torch.no_grad()
@@ -179,7 +234,7 @@ def pack_block_weights(w: SwinBlockWeights, rpb: Optional[torch.Tensor] = None) 
     bqkv = F.pad(scale_q(w.bqkv.reshape(3, nh, hd)), (0, pd, 0, ph))
     wproj = F.pad(w.wproj.reshape(c, nh, hd), (0, pd, 0, ph, 0, pc))
     if rpb is None:
-        rpb = relative_position_bias(w.table, WS)
+        rpb = relative_position_bias(w.table, w.window_size)
     return PackedSwinBlock(
         wqkv=wqkv.reshape(3 * CP, CP).to(bf),
         bqkv=bqkv.reshape(-1),
@@ -197,6 +252,7 @@ def pack_block_weights(w: SwinBlockWeights, rpb: Optional[torch.Tensor] = None) 
         dim=c,
         num_heads=nh,
         hidden=hidden,
+        window_size=w.window_size,
     )
 
 
@@ -249,11 +305,14 @@ def _window_scales(scales: Optional[torch.Tensor], b: int, n_windows: int, dev):
 
 def swin_block_plain(x: torch.Tensor, w: SwinBlockWeights, ws: int, shift: int,
                      mask: Optional[torch.Tensor], gelu_approx: bool,
-                     branch_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The plain PyTorch version of K1 (port of
-    ``fused_block._reference_block`` with the cyclic shift around it):
-    residual stream in fp32, LayerNorm and GEMM operands in x's dtype,
-    branch scales [B, 2] on the attention and MLP residuals."""
+                     branch_scales: Optional[torch.Tensor] = None,
+                     extra: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain PyTorch version of K1 and K6, any ws (port of
+    ``fused_block._reference_block`` / ``_reference_packed`` with the
+    cyclic shift around it): residual stream in fp32, LayerNorm and GEMM
+    operands in x's dtype, branch scales [B, 2] on the attention and MLP
+    residuals, `extra` (x's frame) added unscaled to the attention
+    residual."""
     dt = x.dtype
     xs = cyclic_shift(x, shift)
     b, h, wd, c = xs.shape
@@ -268,6 +327,8 @@ def swin_block_plain(x: torch.Tensor, w: SwinBlockWeights, ws: int, shift: int,
         relative_position_bias(w.table, ws), mask, w.scale,
     )
     x1 = xf + window_reverse(attn, ws, h, wd).float() * m1
+    if extra is not None:
+        x1 = x1 + cyclic_shift(extra, shift).float()
     y2 = layernorm_plain(x1, w.g2, w.b2, LN_EPS).to(dt)
     h1 = F.linear(y2, w.wfc1.to(dt), w.bfc1.to(dt))
     h1 = gelu(h1.float(), gelu_approx).to(dt)
@@ -377,26 +438,26 @@ def swin_block_bwd_plain(ct: torch.Tensor, x: torch.Tensor, w: SwinBlockWeights,
     )
 
 
-def _check_block_input(x: torch.Tensor, ws: int, shift: int, name: str) -> None:
+def _check_block_input(x: torch.Tensor, w: SwinBlockWeights, ws: int, shift: int,
+                       name: str) -> None:
     _lib.require_cuda(x, name)
-    if ws != WS:
-        raise ValueError(f"{name}: the kernel takes ws={WS}, got {ws}")
+    check_block_args(tuple(x.shape), w, ws, shift, name)
     _lib.check_tensor(x, "x", torch.bfloat16, x.device, ndim=4, align=2)
-    if x.shape[1] % WS or x.shape[2] % WS:
-        raise ValueError(f"{name}: H, W = {x.shape[1]}, {x.shape[2]} are not multiples of {WS}")
-    if not 0 <= shift < WS:
-        raise ValueError(f"{name}: shift {shift} outside [0, {WS})")
 
 
-def _check_packed(packed: PackedSwinBlock, x: torch.Tensor, mask, scales, name: str) -> None:
+def _check_packed(packed: PackedSwinBlock, x: torch.Tensor, mask, scales, name: str,
+                  extra: Optional[torch.Tensor] = None) -> None:
     b, h, wd, c = x.shape
     if packed.dim != c:
         raise ValueError(f"{name}: weights for C={packed.dim}, x has C={c}")
     dev = x.device
+    ws = packed.window_size
+    n = ws * ws
     # WMMA reads the bf16 weight tiles straight from global memory (32-byte
-    # aligned rows); biases and rpb are read as float4, LayerNorm params
-    # as scalars.
+    # aligned rows); biases are read as float4, LayerNorm params as
+    # scalars, rpb and mask as float4 rows at ws = 8 and as scalars at 7.
     bf, f32 = torch.bfloat16, torch.float32
+    table_align = 16 if n % 8 == 0 else 4
     for tname, t, shape, dtype, align in (
         ("wqkv", packed.wqkv, (3 * CP, CP), bf, 32),
         ("bqkv", packed.bqkv, (3 * CP,), f32, 16),
@@ -410,27 +471,32 @@ def _check_packed(packed: PackedSwinBlock, x: torch.Tensor, mask, scales, name: 
         ("b1", packed.b1, (c,), f32, 4),
         ("g2", packed.g2, (c,), f32, 4),
         ("b2", packed.b2, (c,), f32, 4),
-        ("rpb", packed.rpb, (packed.num_heads, N_TOK, N_TOK), f32, 16),
+        ("rpb", packed.rpb, (packed.num_heads, n, n), f32, table_align),
     ):
         _lib.check_tensor(t, tname, dtype, dev, shape=shape, align=align)
     if mask is not None:
-        n_windows = (h // WS) * (wd // WS)
-        _lib.check_tensor(mask, "mask", f32, dev, shape=(n_windows, N_TOK, N_TOK), align=16)
+        n_windows = (h // ws) * (wd // ws)
+        _lib.check_tensor(mask, "mask", f32, dev, shape=(n_windows, n, n), align=table_align)
     if scales is not None:
         _lib.check_tensor(scales, "branch_scales", f32, dev, shape=(b, 2), align=4)
+    if extra is not None:
+        _lib.check_tensor(extra, "extra", bf, dev, shape=tuple(x.shape), align=2)
 
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _launch_k1(x, packed: PackedSwinBlock, shift, mask, gelu_approx, scales) -> torch.Tensor:
-    _check_packed(packed, x, mask, scales, "fused_swin_block")
+def _launch_block(x, packed: PackedSwinBlock, shift, mask, gelu_approx, scales,
+                  extra=None) -> torch.Tensor:
+    """Launch the forward kernel's instantiation for packed.window_size
+    (ws 8: K1, ws 7: K6) and count the launch on that kernel."""
+    _check_packed(packed, x, mask, scales, "fused_windows_block", extra)
     b, h, wd, c = x.shape
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         status = _lib.library().sr_swin_block_bf16(
-            x.data_ptr(), y.data_ptr(),
+            x.data_ptr(), _ptr(extra), y.data_ptr(),
             packed.g1.data_ptr(), packed.b1.data_ptr(),
             packed.g2.data_ptr(), packed.b2.data_ptr(),
             packed.wqkv.data_ptr(), packed.bqkv.data_ptr(),
@@ -438,11 +504,11 @@ def _launch_k1(x, packed: PackedSwinBlock, shift, mask, gelu_approx, scales) -> 
             packed.wfc1.data_ptr(), packed.bfc1.data_ptr(),
             packed.wfc2.data_ptr(), packed.bfc2.data_ptr(),
             packed.rpb.data_ptr(), _ptr(mask), _ptr(scales),
-            b, h, wd, c, packed.num_heads, shift, int(bool(gelu_approx)), LN_EPS,
-            _lib.stream_of(x),
+            b, h, wd, c, packed.num_heads, packed.window_size, shift,
+            int(bool(gelu_approx)), LN_EPS, _lib.stream_of(x),
         )
     _lib.check_status(status, "sr_swin_block_bf16")
-    launches.count += 1
+    FORWARD_COUNTERS[packed.window_size].count += 1
     return y
 
 
@@ -551,7 +617,8 @@ def fused_swin_block_backward(ct: torch.Tensor, x: torch.Tensor, w: SwinBlockWei
     fp32 branch scales), gradients in raw weight space."""
     if x.device.type == "cpu":
         return swin_block_bwd_plain(ct, x, w, ws, shift, mask, gelu_approx, branch_scales)
-    _check_block_input(x, ws, shift, "fused_swin_block_backward")
+    _check_block_input(x, w, ws, shift, "fused_swin_block_backward")
+    check_differentiable(ws, None, "fused_swin_block_backward")
     if branch_scales is not None:
         branch_scales = branch_scales.float().contiguous()
     if packed is None:
@@ -575,7 +642,7 @@ class SwinBlockFunction(torch.autograd.Function):
         packed = pack_block_weights(w, rpb=rpb)
         ctx.save_for_backward(x, scales)
         ctx.block = (w.scale, packed, shift, mask, gelu_approx)
-        return _launch_k1(x, packed, shift, mask, gelu_approx, scales)
+        return _launch_block(x, packed, shift, mask, gelu_approx, scales)
 
     @staticmethod
     def backward(ctx, ct):
@@ -587,27 +654,34 @@ class SwinBlockFunction(torch.autograd.Function):
         return (dx, None, None) + tuple(raw[k] for k in GRAD_FIELDS)
 
 
-def fused_swin_block(x: torch.Tensor, w: SwinBlockWeights, ws: int, shift: int,
-                     mask: Optional[torch.Tensor], gelu_approx: bool,
-                     packed: Optional[PackedSwinBlock] = None,
-                     branch_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One Swin block on x [B, H, W, C] with cyclic shift `shift`, the
-    shift mask [nW, N, N] built on (H, W) and optional branch scales
-    [B, 2].  CPU tensor -> plain version (differentiable by autograd);
-    CUDA tensor -> K1 (bf16 x), through ``SwinBlockFunction`` (backward
-    K5) when a gradient is wanted.  `packed` (from
-    ``pack_block_weights``) is used for inference only."""
+def fused_windows_block(x: torch.Tensor, w: SwinBlockWeights, ws: int, shift: int,
+                        mask: Optional[torch.Tensor], gelu_approx: bool,
+                        extra: Optional[torch.Tensor] = None,
+                        packed: Optional[PackedSwinBlock] = None,
+                        branch_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One Swin block on x [B, H, W, C] with window `ws`, cyclic shift
+    `shift`, the shift mask [nW, ws^2, ws^2] built on (H, W), the
+    optional additive term `extra` [B, H, W, C] (x's frame) and branch
+    scales [B, 2].  CPU tensor -> plain version (differentiable by
+    autograd); CUDA tensor -> the kernel (bf16 x and extra): K1 at ws 8,
+    K6 at ws 7, through ``SwinBlockFunction`` (backward K5) when a
+    gradient is wanted at ws 8 without extra, and NotImplementedError
+    for any other gradient.  `packed` (from ``pack_block_weights``) is
+    used for inference only."""
     if x.device.type == "cpu":
-        return swin_block_plain(x, w, ws, shift, mask, gelu_approx, branch_scales)
-    _check_block_input(x, ws, shift, "fused_swin_block")
+        return swin_block_plain(x, w, ws, shift, mask, gelu_approx, branch_scales, extra)
+    _check_block_input(x, w, ws, shift, "fused_windows_block")
     if branch_scales is not None:
         branch_scales = branch_scales.float().contiguous()
     params = [getattr(w, k) for k in GRAD_FIELDS[:-1]]
-    if torch.is_grad_enabled() and any(t.requires_grad for t in [x] + params + [w.table]):
-        check_kernel_limits(w)
-        rpb = relative_position_bias(w.table, WS)
+    inputs = [x, w.table] + params + ([] if extra is None else [extra])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        check_differentiable(ws, extra, "fused_windows_block")
+        rpb = relative_position_bias(w.table, ws)
         meta = (ws, shift, mask, gelu_approx, w.num_heads, w.table)
         return SwinBlockFunction.apply(x, branch_scales, meta, *params, rpb)
     if packed is None:
         packed = pack_block_weights(w)
-    return _launch_k1(x, packed, shift, mask, gelu_approx, branch_scales)
+    if extra is not None:
+        extra = extra.contiguous()
+    return _launch_block(x, packed, shift, mask, gelu_approx, branch_scales, extra)

@@ -29,6 +29,11 @@ from tpu_superresolution_torch.ops.fused_upsample import (
 from tpu_superresolution_torch.ops.pixelshuffle import pixel_shuffle
 
 
+# The DIV2K RGB mean that the reference SwinIR and HAT subtract before
+# and add after their forwards (3-channel models only).
+RGB_MEAN = (0.4488, 0.4371, 0.4040)
+
+
 class DerivedCache:
     """One tensor bundle derived from a module's parameters (a kernel
     weight layout, a composed conv).  Outside autograd it is built once
@@ -149,13 +154,44 @@ class PLayerNorm(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 -> GELU -> fc2 parameters (network_swinir.py:14-30); the Swin
-    block's K1 kernel and its plain version consume them directly."""
+    """fc1 -> GELU -> fc2 (network_swinir.py:14-30).  The Swin block
+    kernels and their plain version consume the parameters directly;
+    ``forward`` is the plain MLP of HAT's OCAB, in x's dtype with the
+    GELU in fp32."""
 
     def __init__(self, in_features: int, hidden_features: int):
         super().__init__()
         self.fc1 = nn.Linear(in_features, hidden_features)
         self.fc2 = nn.Linear(hidden_features, in_features)
+
+    def forward(self, x: torch.Tensor, gelu_approximate: bool) -> torch.Tensor:
+        dt = x.dtype
+        h = F.linear(x, self.fc1.weight.to(dt), self.fc1.bias.to(dt))
+        h = F.gelu(h.float(), approximate="tanh" if gelu_approximate else "none").to(dt)
+        return F.linear(h, self.fc2.weight.to(dt), self.fc2.bias.to(dt))
+
+
+def reference_init(model: nn.Module, generator: Optional[torch.Generator] = None) -> None:
+    """The reference initialisation of the Swin-family models
+    (network_swinir.py / hat_arch.py ``_init_weights``): Linear weights
+    and relative-position bias tables trunc-normal(0.02), Linear biases
+    0, LayerNorm 1/0, convs torch's default; drawn from `generator`."""
+    g = generator
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.Linear):
+                nn.init.trunc_normal_(m.weight, std=0.02, generator=g)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
+            elif isinstance(m, nn.Conv2d):
+                nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5), generator=g)
+                bound = 1.0 / math.sqrt(m.weight[0].numel())
+                nn.init.uniform_(m.bias, -bound, bound, generator=g)
+            elif isinstance(m, PLayerNorm):
+                nn.init.ones_(m.weight)
+                nn.init.zeros_(m.bias)
+            elif isinstance(getattr(m, "relative_position_bias_table", None), nn.Parameter):
+                nn.init.trunc_normal_(m.relative_position_bias_table, std=0.02, generator=g)
 
 
 def _ps_factors(scale: int) -> List[int]:

@@ -1,0 +1,266 @@
+"""HAT inference on NHWC tensors (port of
+``tpu_superresolution_tpu/models/hat.py``; reference
+modules/hat_arch.py:710-994).
+
+- Parameters carry the reference state-dict key names, so a reference
+  checkpoint (after ``interop.strip_reference_buffers``) and the output
+  of the JAX package's ``export_hat`` load with ``strict=True``.  The
+  reference's ``relative_position_index_SA`` / ``_OCA`` buffers and the
+  shift masks are computed from the shapes here.
+- HAB (hat_arch.py:200-310): the CAB conv branch runs outside the block
+  kernel — LN1 through K2, two plain 3x3 convs (the JAX package leaves
+  them to XLA), exact-erf GELU, the RCAN SE gate — and enters it as
+  ``extra = conv_scale * CAB``; the rest of the block is one launch of
+  the block kernel on CUDA (K6 at ws 7, K1 at ws 8).
+- OCAB (hat_arch.py:353-439) is plain torch ops around K2 LayerNorms, as
+  the JAX package's inference path (its fused OCAB, K8, is training-only).
+- RHAG convs, ``conv_after_body`` and ``conv_before_upsample`` are K3,
+  the composed reconstruction K4; ``conv_first``, the mean shift, the
+  reflect pad and the exact-mode chain are plain torch.
+- ``impl="plain"`` runs every kernel's plain version on any device.
+  Training (stochastic depth, K6's backward) is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from tpu_superresolution_torch.core.config import (
+    HATConfig,
+    HATFastConfig,
+    register_model,
+)
+from tpu_superresolution_torch.models.blocks import (
+    Conv3x3,
+    ConvLeaky,
+    DerivedCache,
+    Mlp,
+    PixelShuffleUpsample,
+    PLayerNorm,
+    RGB_MEAN,
+    check_image_size,
+    conv_nhwc,
+    reference_init,
+    upsample_and_last,
+)
+from tpu_superresolution_torch.models.swinir import PatchEmbed, SwinBlock
+from tpu_superresolution_torch.ops.window import (
+    overlap_windows,
+    relative_position_bias_oca,
+    window_partition,
+    window_reverse,
+)
+
+
+class ChannelAttention(nn.Module):
+    """RCAN SE gate (hat_arch.py:41-59): global mean -> 1x1 squeeze ->
+    ReLU -> 1x1 excite -> sigmoid, multiplied into the features (keys
+    ``attention.1`` / ``attention.3``)."""
+
+    def __init__(self, num_feat: int, squeeze_factor: int):
+        super().__init__()
+        self.attention = nn.Sequential(
+            nn.AdaptiveAvgPool2d(1),
+            nn.Conv2d(num_feat, num_feat // squeeze_factor, 1),
+            nn.ReLU(inplace=True),
+            nn.Conv2d(num_feat // squeeze_factor, num_feat, 1),
+            nn.Sigmoid(),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x.mean(dim=(1, 2), keepdim=True)
+        y = F.relu(conv_nhwc(self.attention[1], y))
+        return x * torch.sigmoid(conv_nhwc(self.attention[3], y))
+
+
+class CAB(nn.Module):
+    """Channel attention block (hat_arch.py:62-75): conv C -> C/compress,
+    exact GELU, conv back to C, SE gate (keys ``cab.0``, ``cab.2``,
+    ``cab.3``).  Plain convs: the JAX package runs them as XLA GEMMs."""
+
+    def __init__(self, num_feat: int, compress_ratio: int, squeeze_factor: int):
+        super().__init__()
+        mid = num_feat // compress_ratio
+        self.cab = nn.Sequential(
+            nn.Conv2d(num_feat, mid, 3, 1, 1),
+            nn.GELU(),
+            nn.Conv2d(mid, num_feat, 3, 1, 1),
+            ChannelAttention(num_feat, squeeze_factor),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.gelu(conv_nhwc(self.cab[0], x))
+        return self.cab[3](conv_nhwc(self.cab[2], y))
+
+
+class HAB(SwinBlock):
+    """Hybrid attention block (hat_arch.py:200-310): a Swin block whose
+    attention residual also receives ``conv_scale * CAB(LN1(x))``."""
+
+    def __init__(self, dim: int, num_heads: int, window_size: int, shift_size: int,
+                 compress_ratio: int, squeeze_factor: int, conv_scale: float,
+                 mlp_ratio: float, qkv_bias: bool, gelu_approximate: bool):
+        super().__init__(dim, num_heads, window_size, shift_size, mlp_ratio, qkv_bias,
+                         gelu_approximate)
+        self.conv_block = CAB(dim, compress_ratio, squeeze_factor)
+        self.conv_scale = conv_scale
+
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        extra = self.conv_block(self.norm1(x, plain)) * self.conv_scale
+        return super().forward(x, plain, extra=extra)
+
+
+class OCAB(nn.Module):
+    """Overlapping cross-attention block (hat_arch.py:353-439): q from
+    the ws windows, k and v from the enclosing ows windows, then proj,
+    residual, LN and MLP — plain torch around two K2 LayerNorms."""
+
+    def __init__(self, dim: int, window_size: int, overlap_ratio: float, num_heads: int,
+                 qkv_bias: bool, mlp_ratio: float, gelu_approximate: bool):
+        super().__init__()
+        self.window_size, self.num_heads = window_size, num_heads
+        self.overlap_win_size = int(window_size * overlap_ratio) + window_size
+        self.gelu_approximate = gelu_approximate
+        self.norm1 = PLayerNorm(dim)
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
+        self.relative_position_bias_table = nn.Parameter(
+            torch.zeros((window_size + self.overlap_win_size - 1) ** 2, num_heads))
+        self.proj = nn.Linear(dim, dim)
+        self.norm2 = PLayerNorm(dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        b, h, w, c = x.shape
+        ws, ows, nh = self.window_size, self.overlap_win_size, self.num_heads
+        hd, dt = c // nh, x.dtype
+        bq = None if self.qkv.bias is None else self.qkv.bias.to(dt)
+        qkv = F.linear(self.norm1(x, plain), self.qkv.weight.to(dt), bq)
+        q, k, v = qkv.chunk(3, dim=-1)
+        qw = window_partition(q, ws).reshape(-1, ws * ws, nh, hd)
+        kw = overlap_windows(k, ws, ows).reshape(-1, ows * ows, nh, hd)
+        vw = overlap_windows(v, ws, ows).reshape(-1, ows * ows, nh, hd)
+        attn = torch.einsum("wqhd,wkhd->whqk", qw.float() * hd ** -0.5, kw.float())
+        attn = attn + relative_position_bias_oca(self.relative_position_bias_table, ws, ows)[None]
+        attn = torch.softmax(attn, dim=-1).to(dt)
+        out = torch.einsum("whqk,wkhd->wqhd", attn, vw).reshape(-1, ws * ws, c)
+        out = window_reverse(out, ws, h, w)
+        x = F.linear(out, self.proj.weight.to(dt), self.proj.bias.to(dt)) + x
+        return x + self.mlp(self.norm2(x, plain), self.gelu_approximate)
+
+
+class AttenBlocks(nn.Module):
+    """The reference's residual_group: the HABs and the OCAB."""
+
+    def __init__(self, blocks, overlap_attn: OCAB):
+        super().__init__()
+        self.blocks = nn.ModuleList(blocks)
+        self.overlap_attn = overlap_attn
+
+
+class RHAG(nn.Module):
+    """Residual hybrid attention group (hat_arch.py:538-620): depth x HAB
+    (shift 0, ws//2 alternating) -> OCAB -> conv (K3) -> + input."""
+
+    def __init__(self, cfg: HATConfig, depth: int, num_heads: int):
+        super().__init__()
+        c, ws = cfg.embed_dim, cfg.window_size
+        self.residual_group = AttenBlocks(
+            [HAB(c, num_heads, ws, 0 if j % 2 == 0 else ws // 2, cfg.compress_ratio,
+                 cfg.squeeze_factor, cfg.conv_scale, cfg.mlp_ratio, cfg.qkv_bias,
+                 cfg.gelu_approximate) for j in range(depth)],
+            OCAB(c, ws, cfg.overlap_ratio, num_heads, cfg.qkv_bias, cfg.mlp_ratio,
+                 cfg.gelu_approximate),
+        )
+        self.conv = Conv3x3(c, c) if cfg.resi_connection == "1conv" else None
+
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        res = x
+        for blk in self.residual_group.blocks:
+            x = blk(x, plain)
+        x = self.residual_group.overlap_attn(x, plain)
+        if self.conv is not None:
+            x = self.conv(x, plain)
+        return x + res
+
+
+class HAT(nn.Module):
+    """Full HAT at inference: x [B, H, W, in] -> [B, H*s, W*s, out]."""
+
+    def __init__(self, config: HATConfig, dtype: Optional[torch.dtype] = None,
+                 impl: str = "auto"):
+        super().__init__()
+        if impl not in ("auto", "plain"):
+            raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
+        if config.upsampler != "pixelshuffle":
+            raise ValueError(f"HAT has the 'pixelshuffle' reconstruction only, got "
+                             f"{config.upsampler!r} (hat_arch.py:864-869)")
+        if config.resi_connection not in ("1conv", "identity"):
+            raise ValueError(f"unknown resi_connection {config.resi_connection!r}")
+        cfg = config
+        self.config, self.impl = cfg, impl
+        self.dtype = torch.float32 if dtype is None else dtype
+        c, nf = cfg.embed_dim, cfg.num_feat
+        mean = RGB_MEAN if cfg.in_channels == 3 else (0.0,) * cfg.in_channels
+        self.register_buffer("mean", torch.tensor(mean, dtype=torch.float32), persistent=False)
+
+        self.conv_first = nn.Conv2d(cfg.in_channels, c, 3, 1, 1)
+        if cfg.patch_norm:
+            self.patch_embed = PatchEmbed(c)
+        self.layers = nn.ModuleList(RHAG(cfg, d, cfg.num_heads[i])
+                                    for i, d in enumerate(cfg.depths))
+        self.norm = PLayerNorm(c)
+        if cfg.resi_connection == "1conv":
+            self.conv_after_body = Conv3x3(c, c)
+        self.conv_before_upsample = ConvLeaky(c, nf, 0.01)
+        self.upsample = PixelShuffleUpsample(cfg.scale, nf)
+        self.conv_last = nn.Conv2d(nf, cfg.out_channels, 3, 1, 1)
+        self._composed = DerivedCache()
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """The reference initialisation (hat_arch.py:_init_weights, the
+        same rule as SwinIR's), drawn from `generator`."""
+        reference_init(self, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(
+                "HAT runs at inference only in this port: stochastic depth and K6's "
+                "backward are the HAT-training slice of ROADMAP.md Queue 2; call .eval()")
+        cfg = self.config
+        dt = self.dtype
+        plain = self.impl == "plain"
+        h_in, w_in = x.shape[1], x.shape[2]
+        x = check_image_size(x.to(dt), cfg.window_size)
+        mean = self.mean.to(dt)
+        x = (x - mean) * cfg.img_range
+
+        x = conv_nhwc(self.conv_first, x)
+        feats = self.patch_embed.norm(x, plain) if cfg.patch_norm else x
+        for layer in self.layers:
+            feats = layer(feats, plain)
+        feats = self.norm(feats, plain)
+        if cfg.resi_connection == "1conv":
+            feats = self.conv_after_body(feats, plain)
+        x = feats + x
+
+        x = self.conv_before_upsample(x, plain)
+        x = upsample_and_last(x, self.upsample, self.conv_last, cfg.fused_reconstruct,
+                              self._composed, plain)
+        x = x / cfg.img_range + mean
+        return x[:, : h_in * cfg.scale, : w_in * cfg.scale, :]
+
+
+def build_hat(config: HATConfig, dtype=None, impl: str = "auto") -> HAT:
+    """A HAT in eval mode (the only mode this port runs it in)."""
+    return HAT(config, dtype=dtype, impl=impl).eval()
+
+
+register_model("hat", HATConfig, build_hat)
+register_model("hat_fast", HATFastConfig, build_hat)
+
+__all__ = ["HAT", "HAB", "OCAB", "CAB", "RHAG", "build_hat"]

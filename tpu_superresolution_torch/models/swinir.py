@@ -7,8 +7,9 @@ network_swinir.py:618-851).
   package's ``export_swinir`` output load with ``strict=True``.  The
   reference's ``relative_position_index`` / ``attn_mask`` buffers are
   not parameters here: both are computed from the shapes.
-- The trunk stays [B, H, W, C].  Each Swin block is one K1 launch on
-  CUDA (the cyclic shift in the kernel's addressing), the LayerNorms
+- The trunk stays [B, H, W, C].  Each Swin block is one launch of the
+  block kernel on CUDA (K1 at ws 8, K6 at ws 7; the cyclic shift in the
+  kernel's addressing), the LayerNorms
   outside blocks are K2, the trunk 3x3 convs K3 and the composed
   reconstruction conv K4.  ``conv_first``, the mean shift, the reflect
   pad, pixel shuffles and the exact-mode chain are plain torch, as the
@@ -32,9 +33,8 @@ import torch.nn.functional as F
 
 from tpu_superresolution_torch.core.config import SwinIRConfig, register_model
 from tpu_superresolution_torch.kernels.fused_block import (
-    WS,
     SwinBlockWeights,
-    fused_swin_block,
+    fused_windows_block,
     pack_block_weights,
     swin_block_plain,
     window_attention_plain,
@@ -47,16 +47,15 @@ from tpu_superresolution_torch.models.blocks import (
     PixelShuffleDirect,
     PixelShuffleUpsample,
     PLayerNorm,
+    RGB_MEAN,
     ThreeConv,
     check_image_size,
     conv_nhwc,
     drop_path_scales,
+    reference_init,
     upsample_and_last,
 )
 from tpu_superresolution_torch.ops.window import relative_position_bias, shift_mask_tensor
-
-_RGB_MEAN = (0.4488, 0.4371, 0.4040)
-
 
 class WindowAttention(nn.Module):
     """W-MSA with learned relative position bias (network_swinir.py:65-145).
@@ -83,7 +82,9 @@ class WindowAttention(nn.Module):
 
 class SwinBlock(nn.Module):
     """(Shifted) W-MSA + MLP (network_swinir.py:164-279) as one fused
-    block: K1 on CUDA, ``swin_block_plain`` on the CPU or with plain."""
+    block: the block kernel on CUDA (K1 at ws 8, K6 at ws 7; other
+    windows raise there), ``swin_block_plain`` on the CPU or with
+    plain."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int, shift_size: int,
                  mlp_ratio: float = 2.0, qkv_bias: bool = True,
@@ -108,9 +109,12 @@ class SwinBlock(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, plain: bool = False,
-                branch_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+                branch_scales: Optional[torch.Tensor] = None,
+                extra: Optional[torch.Tensor] = None) -> torch.Tensor:
         """`branch_scales` [B, 2]: the sample's stochastic-depth
-        multipliers of the attention and MLP branches (None = 1)."""
+        multipliers of the attention and MLP branches (None = 1);
+        `extra` [B, H, W, C]: a term added unscaled to the attention
+        residual (HAT's CAB branch)."""
         _, h, w, _ = x.shape
         ws, shift = self.window_size, self.shift_size
         # Reference rule (network_swinir.py:193-196): no partition/shift
@@ -120,14 +124,15 @@ class SwinBlock(nn.Module):
         wts = self.block_weights()
         mask = shift_mask_tensor(h, w, ws, shift, x.device) if shift else None
         if plain:
-            return swin_block_plain(x, wts, ws, shift, mask, self.gelu_approximate, branch_scales)
+            return swin_block_plain(x, wts, ws, shift, mask, self.gelu_approximate, branch_scales,
+                                    extra)
         packed = None
-        if x.is_cuda and ws == WS:
+        if x.is_cuda:
             # in training the kernels' autograd function packs on every call
             packed = self._packed.get(list(self.parameters()), x.device,
                                       lambda: pack_block_weights(wts), lambda: None)
-        return fused_swin_block(x, wts, ws, shift, mask, self.gelu_approximate, packed=packed,
-                                branch_scales=branch_scales)
+        return fused_windows_block(x, wts, ws, shift, mask, self.gelu_approximate, extra=extra,
+                                   packed=packed, branch_scales=branch_scales)
 
 
 class BasicLayer(nn.Module):
@@ -179,7 +184,7 @@ class SwinIR(nn.Module):
         self.config, self.impl = cfg, impl
         self.dtype = torch.float32 if dtype is None else dtype
         c, nf = cfg.embed_dim, cfg.num_feat
-        mean = _RGB_MEAN if cfg.in_channels == 3 else (0.0,) * cfg.in_channels
+        mean = RGB_MEAN if cfg.in_channels == 3 else (0.0,) * cfg.in_channels
         self.register_buffer("mean", torch.tensor(mean, dtype=torch.float32), persistent=False)
 
         self.conv_first = nn.Conv2d(cfg.in_channels, c, 3, 1, 1)
@@ -216,27 +221,13 @@ class SwinIR(nn.Module):
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
-        """The reference initialisation (network_swinir.py:_init_weights):
-        Linear weights and bias tables trunc-normal(0.02), Linear biases
-        0, LayerNorm 1/0, convs torch's default; drawn from `generator`."""
-        g = generator
-        with torch.no_grad():
-            for m in self.modules():
-                if isinstance(m, nn.Linear):
-                    nn.init.trunc_normal_(m.weight, std=0.02, generator=g)
-                    if m.bias is not None:
-                        nn.init.zeros_(m.bias)
-                elif isinstance(m, nn.Conv2d):
-                    nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5), generator=g)
-                    bound = 1.0 / math.sqrt(m.weight[0].numel())
-                    nn.init.uniform_(m.bias, -bound, bound, generator=g)
-                elif isinstance(m, PLayerNorm):
-                    nn.init.ones_(m.weight)
-                    nn.init.zeros_(m.bias)
-                elif isinstance(m, WindowAttention):
-                    nn.init.trunc_normal_(m.relative_position_bias_table, std=0.02, generator=g)
-            if self.config.ape:
-                nn.init.trunc_normal_(self.absolute_pos_embed, std=0.02, generator=g)
+        """The reference initialisation (network_swinir.py:_init_weights,
+        ``blocks.reference_init``) and the absolute position embedding's
+        trunc-normal(0.02); drawn from `generator`."""
+        reference_init(self, generator)
+        if self.config.ape:
+            with torch.no_grad():
+                nn.init.trunc_normal_(self.absolute_pos_embed, std=0.02, generator=generator)
 
     def drop_path_rates(self):
         """Per-block stochastic-depth rates: linear 0 -> drop_path_rate

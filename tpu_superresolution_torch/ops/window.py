@@ -91,3 +91,48 @@ def relative_position_bias(table: torch.Tensor, ws: int) -> torch.Tensor:
     n = ws * ws
     bias = table.float()[_index_tensor(ws, table.device)].reshape(n, n, -1)
     return bias.permute(2, 0, 1).contiguous()
+
+
+@functools.lru_cache(maxsize=8)
+def relative_position_index_oca(ws: int, ows: int) -> np.ndarray:
+    """Relative-position index [ws*ws, ows*ows] of HAT's overlapping
+    cross-attention: q from a ws x ws window, k/v from the enclosing
+    ows x ows window (reference calculate_rpi_oca, hat_arch.py:896-919).
+    Its "+ ws - ows + 1" shift leaves some entries negative, which the
+    reference's flat indexing into the [(ws+ows-1)^2] table wraps; the
+    modulo is baked in here, as in the JAX package."""
+    coords_q = np.stack(np.meshgrid(np.arange(ws), np.arange(ws), indexing="ij")).reshape(2, -1)
+    coords_k = np.stack(np.meshgrid(np.arange(ows), np.arange(ows), indexing="ij")).reshape(2, -1)
+    rel = (coords_k[:, None, :] - coords_q[:, :, None]).transpose(1, 2, 0).astype(np.int64)
+    rel[:, :, 0] += ws - ows + 1
+    rel[:, :, 1] += ws - ows + 1
+    rel[:, :, 0] *= ws + ows - 1
+    return np.mod(rel.sum(-1), (ws + ows - 1) ** 2).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=32)
+def _oca_index_tensor(ws: int, ows: int, device: torch.device) -> torch.Tensor:
+    idx = relative_position_index_oca(ws, ows).reshape(-1).astype(np.int64)
+    return torch.from_numpy(idx).to(device)
+
+
+def relative_position_bias_oca(table: torch.Tensor, ws: int, ows: int) -> torch.Tensor:
+    """Gather OCAB's [(ws+ows-1)^2, nH] table into [nH, ws^2, ows^2] fp32."""
+    bias = table.float()[_oca_index_tensor(ws, ows, table.device)]
+    return bias.reshape(ws * ws, ows * ows, -1).permute(2, 0, 1).contiguous()
+
+
+def overlap_windows(x: torch.Tensor, ws: int, ows: int) -> torch.Tensor:
+    """[B, H, W, C] -> [B*nW, ows*ows, C]: the ows x ows windows at stride
+    ws around each ws window, zero-padded outside the map (the
+    reference's nn.Unfold, hat_arch.py:378).  The pad is p_lo = (ows -
+    ws) // 2 before and the rest after, as in the JAX package
+    (models/hat.py:_overlap_windows), so an odd ows - ws still gives
+    H/ws x W/ws windows, one per q window."""
+    b, h, w, c = x.shape
+    diff = ows - ws
+    p_lo = diff // 2
+    p_hi = diff - p_lo
+    xp = torch.nn.functional.pad(x, (0, 0, p_lo, p_hi, p_lo, p_hi))
+    win = xp.unfold(1, ows, ws).unfold(2, ows, ws)  # [B, nWh, nWw, C, ows, ows]
+    return win.permute(0, 1, 2, 4, 5, 3).reshape(-1, ows * ows, c)
