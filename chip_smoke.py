@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SwinIR-M x4 serving and fine-tuning paths
-and its HAT x4 serving path once on one NVIDIA H100 and check them.  Run
-from the repository root:
+and its HAT x4 serving and training paths once on one NVIDIA H100 and
+check them.  Run from the repository root:
 
     python3 chip_smoke.py
 
@@ -17,7 +17,11 @@ Phases (a failure in any raises, and the script exits non-zero):
             and in fp32 (TF32 off), each against its stated bound; the
             median time of kernel, plain version and, where one PyTorch
             call computes the same function, that call; the bound (bytes
-            or operations at the H100's published peaks);
+            or operations at the H100's published peaks); then the
+            training kernels at the HAT train step's shapes: K6b (the
+            ws-7 block backward) and K5 with d`extra`, on dx, d extra
+            and the 13 parameter gradients, K8 (the OCAB core) and K8b
+            (its backward, on dq, dk, dv, d sw and 9 gradients);
 4. serve    SwinIR-M x4 (seeded random weights, exported to a .pth) behind
             SRService + make_server on 127.0.0.1, three PNG requests;
             status, size, finite output, launch counts per model call,
@@ -40,11 +44,21 @@ Phases (a failure in any raises, and the script exits non-zero):
             kernels and the plain bf16 path, a profiled step, the cost
             of K1's per-step weight packing, and the first step's loss,
             grad norm and per-parameter gradient cosine against the
-            plain fp32 path.
+            plain fp32 path;
+8. hat-train HAT x4 training (HATConfig() at full width and depth, drop
+            path 0.1, batch 8, --patch_size 64, L1, AdamW, clip 1.0)
+            through ``cli.train.main(--model hat --device cuda)`` for one
+            epoch of 2 steps + validation on a synthetic DeepRockSR-layout
+            set; launches per step, ms per step for the kernels and the
+            plain bf16 path, a profiled step split by part (K6, K6b, K8,
+            K8b, CAB, the rest, idle), the first step's gradients
+            against the plain fp32 path (with the plain bf16 path beside
+            it); then a hat_fast step (K1 / K5 with `extra`): launches
+            and first-step gradients.
 
 The second-to-last stdout line is a JSON object describing each kernel
-(launches summed over the serve, SwinIR ws-7, hat and train phases); the
-last is
+(launches summed over the serve, SwinIR ws-7, hat, train and hat-train
+phases); the last is
 {"ok": true, "device": {...}}.  There is no CPU path: with no CUDA
 device the script exits non-zero and prints no result.
 """
@@ -69,13 +83,14 @@ PSNR_MIN_DB = 50.0
 # [2^e, 2^(e+1))).  A kernel that rounds its bf16 output once is within
 # 1 ulp of the fp32 result; the bounds leave room for bf16 operands and
 # the plain version's own roundings.
-ULP_BOUND = {"K1": 8, "K2": 4, "K3": 4, "K4": 4, "K6": 8}
-# K5: dx within this many bf16 ulps at max |dx|, and every parameter
-# gradient within this relative Frobenius error of the plain K5 (in
-# fp32 and in bf16): the kernel rounds its GEMM operands to bf16 at the
-# plain bf16 version's points, so both sit as far from fp32 as the plain
-# bf16 version does; the bound leaves room for that and for sums taken
-# in another order.
+ULP_BOUND = {"K1": 8, "K2": 4, "K3": 4, "K4": 4, "K6": 8, "K8": 8}
+# The backward kernels (K5, K6b, K8b): each activation gradient (dx,
+# d extra; dq, dk, dv, d sw) within this many bf16 ulps at its max |ref|,
+# and every parameter gradient within this relative Frobenius error of
+# the plain version (in fp32 and in bf16): the kernels round their GEMM
+# operands to bf16 at the plain bf16 version's points, so both sit as
+# far from fp32 as the plain bf16 version does; the bound leaves room
+# for that and for sums taken in another order.
 K5_DX_ULPS = 16
 K5_REL_BOUND = 0.02
 # Published H100 SXM peaks: dense bf16 tensor cores, HBM3.
@@ -101,14 +116,24 @@ KERNELS = {
     "K6": dict(name="swin_block_ws7", route="cuda",
                source="tpu_superresolution_torch/csrc/swin_block.cu",
                replaces="tpu_superresolution_tpu/ops/pallas/fused_block.py:1427"),
+    "K6b": dict(name="swin_block_bwd_ws7", route="cuda",
+                source="tpu_superresolution_torch/csrc/swin_block_bwd.cu",
+                replaces="tpu_superresolution_tpu/ops/pallas/fused_block.py:1604"),
+    "K8": dict(name="ocab", route="cuda",
+               source="tpu_superresolution_torch/csrc/ocab.cu",
+               replaces="tpu_superresolution_tpu/ops/pallas/fused_ocab.py:311"),
+    "K8b": dict(name="ocab_bwd", route="cuda",
+                source="tpu_superresolution_torch/csrc/ocab.cu",
+                replaces="tpu_superresolution_tpu/ops/pallas/fused_ocab.py:354"),
 }
 # Launches per SwinIR-M x4 model call on the serving path (--no-exact).
-PER_CALL = {"K1": 36, "K2": 2, "K3": 8, "K4": 1, "K5": 0, "K6": 0}
+PER_CALL = {"K1": 36, "K2": 2, "K3": 8, "K4": 1, "K5": 0, "K6": 0, "K6b": 0, "K8": 0,
+            "K8b": 0}
 # Per HAT x4 model call (--no-exact): K6 per HAB (24); K2 for patch_norm,
 # norm, each HAB's CAB input (24) and each OCAB's two norms (8); K3 for
 # the 4 RHAG convs, conv_after_body and conv_before_upsample; K4 for the
 # composed reconstruction.  hat_fast runs K1 where hat runs K6.
-HAT_PER_CALL = {"K1": 0, "K2": 34, "K3": 6, "K4": 1, "K5": 0, "K6": 24}
+HAT_PER_CALL = dict(PER_CALL, K1=0, K2=34, K3=6, K4=1, K6=24)
 HAT_FAST_PER_CALL = dict(HAT_PER_CALL, K1=24, K6=0)
 # SwinIR-M x4 from a checkpoint of window 7: its 36 blocks run K6.
 SWINIR_WS7_PER_CALL = dict(PER_CALL, K1=0, K6=36)
@@ -119,7 +144,16 @@ SWINIR_WS7_PER_CALL = dict(PER_CALL, K1=0, K6=36)
 TRAIN_BATCH = 8
 TRAIN_LR_PATCH = 64
 TRAIN_TIMED_STEPS = 10
-TRAIN_PER_STEP = {"K1": 36, "K2": 2, "K3": 8, "K4": 1, "K5": 36, "K6": 0}
+TRAIN_PER_STEP = dict(PER_CALL, K5=36)
+# HAT x4 training (HATConfig(), batch 8 of 64^2 LR crops, reflect-padded
+# to 70^2), per train step: K6 forward and K6b backward per HAB (24); K8
+# and K8b per OCAB core (4); K2 for patch_norm, norm, each HAB's CAB input
+# (24) and each OCAB's LN1 (4; its LN2 is inside K8); K3 for the 4 RHAG
+# convs, conv_after_body and conv_before_upsample; K4 for the composed
+# reconstruction.  hat_fast runs K1 / K5 where hat runs K6 / K6b.
+HAT_TRAIN_PER_STEP = {"K1": 0, "K2": 30, "K3": 6, "K4": 1, "K5": 0, "K6": 24, "K6b": 24,
+                      "K8": 4, "K8b": 4}
+HAT_FAST_TRAIN_PER_STEP = dict(HAT_TRAIN_PER_STEP, K1=24, K5=24, K6=0, K6b=0)
 # First step, kernels (bf16) vs the plain fp32 path from the same weights,
 # batch and stochastic-depth masks: bf16 activations keep ~3 significant
 # digits, so loss and grad norm agree to about a percent and every
@@ -127,6 +161,13 @@ TRAIN_PER_STEP = {"K1": 36, "K2": 2, "K3": 8, "K4": 1, "K5": 36, "K6": 0}
 TRAIN_LOSS_RTOL = 1e-2
 TRAIN_GNORM_RTOL = 5e-2
 TRAIN_COS_MIN = 0.98
+# A parameter whose plain bf16 gradient (no kernels) is itself below
+# TRAIN_COS_MIN against fp32 is limited by bf16, not by a kernel (a sum
+# that cancels to near zero, whose sign the rounding decides).  It is
+# left out of the cosine gate only if every element of its fp32 and
+# kernel gradients is below AdamW's eps: an AdamW step then moves it by
+# under |g| / eps of the learning rate, whichever path computed it.
+ADAMW_EPS = 1e-8
 
 
 def log(msg: str) -> None:
@@ -264,40 +305,44 @@ def _swin_work(shape, c=180, hidden=360, backward=False, ws=8, extra=False):
     if not backward:
         return tokens * per_token, tokens * c * 2 * (3 if extra else 2) + weights * 2
     per_token = per_token - fwd["fc2"] + 2 * per_token
-    return tokens * per_token, tokens * c * 2 * 3 + weights * (2 + 4)
+    return tokens * per_token, tokens * c * 2 * (5 if extra else 3) + weights * (2 + 4)
 
 
-def _compare_k5(results, label, got, ref16, ref32, t_kernel, t_plain, work):
-    """K5's 14 outputs: dx in bf16 ulps at max |ref|, each parameter
-    gradient in relative Frobenius error, against the plain K5 in fp32
-    (and bf16), beside the plain bf16 version's own error."""
-    from tpu_superresolution_torch.kernels.fused_block import GRAD_FIELDS
-
-    mag = float(ref32.dx.abs().max())
-    bound = K5_DX_ULPS * bf16_ulp(mag)
-    e32 = float((got.dx.float() - ref32.dx).abs().max())
-    e16 = float((got.dx.float() - ref16.dx.float()).abs().max())
-    p16 = float((ref16.dx.float() - ref32.dx).abs().max())
-    ok = math.isfinite(e32) and e32 <= bound and e16 <= bound
-    log(f"[kernels] K5 {label} dx: max_abs_err vs plain fp32 {e32:.3e}, vs plain bf16 "
-        f"{e16:.3e} (bound {bound:.3e} = {K5_DX_ULPS} bf16 ulp at max|ref| {mag:.3f}; "
-        f"plain bf16 vs fp32 {p16:.3e}) {'ok' if ok else 'FAIL'}")
-    bad = [] if ok else ["dx"]
-    for k in GRAD_FIELDS:
-        a, r16, r32 = getattr(got, k).float(), getattr(ref16, k).float(), getattr(ref32, k)
+def _compare_grads(results, key, label, got, ref16, ref32, act_fields, param_fields,
+                   t_kernel, t_plain, work):
+    """A backward kernel's outputs: each activation gradient in bf16 ulps
+    at its max |ref|, each parameter gradient in relative Frobenius
+    error, against the plain version in fp32 (and bf16), beside the
+    plain bf16 version's own error."""
+    bad, errs = [], []
+    for k in act_fields:
+        a, r16, r32 = getattr(got, k).float(), getattr(ref16, k).float(), getattr(ref32, k).float()
+        mag = float(r32.abs().max())
+        bound = K5_DX_ULPS * bf16_ulp(mag)
+        e32, e16 = float((a - r32).abs().max()), float((a - r16).abs().max())
+        own = float((r16 - r32).abs().max())
+        ok = math.isfinite(e32) and e32 <= bound and e16 <= bound
+        errs.append(e32)
+        log(f"[kernels] {key} {label} {k if k.startswith('d') else 'd' + k}: max_abs_err vs plain fp32 {e32:.3e}, vs plain bf16 "
+            f"{e16:.3e} (bound {bound:.3e} = {K5_DX_ULPS} bf16 ulp at max|ref| {mag:.3f}; "
+            f"plain bf16 vs fp32 {own:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(k)
+    for k in param_fields:
+        a, r16, r32 = getattr(got, k).float(), getattr(ref16, k).float(), getattr(ref32, k).float()
         norm = float(r32.norm()) or 1.0
         rel32 = float((a - r32).norm()) / norm
         rel16 = float((a - r16).norm()) / norm
         own = float((r16 - r32).norm()) / norm
         good = math.isfinite(rel32) and rel32 <= K5_REL_BOUND and rel16 <= K5_REL_BOUND
-        log(f"[kernels] K5 {label} d{k}: rel err vs plain fp32 {rel32:.3e}, vs plain bf16 "
+        log(f"[kernels] {key} {label} d{k}: rel err vs plain fp32 {rel32:.3e}, vs plain bf16 "
             f"{rel16:.3e} (bound {K5_REL_BOUND}; plain bf16 vs fp32 {own:.3e}) "
             f"{'ok' if good else 'FAIL'}")
         if not good:
             bad.append(k)
     if bad:
-        raise RuntimeError(f"K5 {label}: kernel disagrees with its plain version on {bad}")
-    _record(results, "K5", label, e32, t_kernel, t_plain, work)
+        raise RuntimeError(f"{key} {label}: kernel disagrees with its plain version on {bad}")
+    _record(results, key, label, max(errs), t_kernel, t_plain, work)
 
 
 def phase_kernels():
@@ -306,6 +351,7 @@ def phase_kernels():
 
     from tpu_superresolution_torch.kernels.cab_conv import conv3x3, conv_k, conv_plain
     from tpu_superresolution_torch.kernels.fused_block import (
+        GRAD_FIELDS,
         fused_swin_block_backward,
         fused_windows_block,
         pack_block_weights,
@@ -380,10 +426,11 @@ def phase_kernels():
         ref16 = swin_block_bwd_plain(ct, x, w, 8, shift, mask, True, scales)
         ref32 = swin_block_bwd_plain(ct.float(), x.float(), w, 8, shift, mask, True, scales)
         torch.cuda.synchronize()
-        _compare_k5(res, f"{list(shape)} shift {shift} branch scales", got, ref16, ref32,
-                    cuda_ms(run),
-                    cuda_ms(lambda: swin_block_bwd_plain(ct, x, w, 8, shift, mask, True, scales)),
-                    _swin_work(shape, backward=True))
+        _compare_grads(res, "K5", f"{list(shape)} shift {shift} branch scales", got, ref16,
+                       ref32, ("dx",), GRAD_FIELDS, cuda_ms(run),
+                       cuda_ms(lambda: swin_block_bwd_plain(ct, x, w, 8, shift, mask, True,
+                                                            scales)),
+                       _swin_work(shape, backward=True))
         del got, ref16, ref32
 
     # K2: layernorm on the bench trunk (25 tiles of 64^2), the train batch
@@ -427,6 +474,118 @@ def phase_kernels():
                  (2 * pixels * cin * cout * k * k,
                   pixels * (cin + cout) * 2 + kern.numel() * 2 + cout * 4),
                  cuda_ms(lambda: F.conv2d(xn, wn, b16, padding=k // 2)))
+    return res
+
+
+def _random_ocab(gen, device, c=96, nh=6, hidden=384):
+    """OCAB weights with O(1) activations (bf16-representable GEMM
+    weights), as _random_block's."""
+    import torch
+
+    from tpu_superresolution_torch.kernels.fused_ocab import OcabWeights
+
+    def r(*shape, scale=1.0, bf=False):
+        t = torch.randn(*shape, generator=gen) * scale
+        return (t.bfloat16().float() if bf else t).to(device)
+
+    return OcabWeights(
+        wproj=r(c, c, scale=c ** -0.5, bf=True), bproj=r(c, scale=0.1),
+        g2=1 + r(c, scale=0.1), b2=r(c, scale=0.1),
+        wfc1=r(hidden, c, scale=c ** -0.5, bf=True), bfc1=r(hidden, scale=0.1),
+        wfc2=r(c, hidden, scale=hidden ** -0.5, bf=True), bfc2=r(c, scale=0.1), num_heads=nh)
+
+
+def _ocab_work(windows, nq, nk, c, nh, hidden, backward=False):
+    """(FLOPs, bytes) of K8 (or its backward) at the unpadded widths: per
+    window QK^T and AV over nq x nk, proj, fc1 and fc2; the backward
+    recomputes all but fc2 and does two products per forward one.
+    Bytes: q, sw, k, v read once, the output written (the backward: ct
+    read, dq, dk, dv, dsw written), in bf16; weights in bf16, bias in
+    fp32 (and their fp32 gradients)."""
+    fwd = {"qk": 2 * nq * nk * c, "av": 2 * nq * nk * c, "proj": 2 * nq * c * c,
+           "fc1": 2 * nq * c * hidden, "fc2": 2 * nq * c * hidden}
+    per = sum(fwd.values())
+    weights, bias = c * c + 2 * c * hidden, nh * nq * nk
+    acts = (2 * nq + 2 * nk) * c * 2
+    if not backward:
+        return windows * per, windows * (acts + nq * c * 2) + weights * 2 + bias * 4
+    per = per - fwd["fc2"] + 2 * per
+    return (windows * per, windows * (2 * acts + nq * c * 2) + weights * (2 + 4)
+            + bias * (4 + 4))
+
+
+def phase_train_kernels(res):
+    """The training kernels at the HAT train step's shapes (batch 8 of
+    64^2 LR crops; ws 7 pads them to 70^2): K6b, the ws-7 block backward,
+    at [8,70,70,96] shift 0 and 3 with `extra` and branch scales; K5 with
+    d`extra` at hat_fast's [8,64,64,96]; K8 and K8b, the OCAB core and
+    its backward, on HAT's 800 windows (49 queries x 100 keys) and
+    hat_fast's 512 (64 x 144).  Each against its plain version in bf16
+    and fp32, with times and bounds, into `res`."""
+    import torch
+
+    from tpu_superresolution_torch.kernels import fused_ocab
+    from tpu_superresolution_torch.kernels.fused_block import (
+        GRAD_FIELDS,
+        fused_swin_block_backward,
+        pack_block_weights,
+        swin_block_bwd_plain,
+    )
+    from tpu_superresolution_torch.ops.window import shift_mask_tensor
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 1)
+    bf = torch.bfloat16
+    scales = torch.tensor([[1.0 / 0.9, 0.0], [1.0 / 0.9, 1.0 / 0.9]] * 4, device=dev)
+    c, nh, hidden = 96, 6, 384
+    for key, ws, shape, shift in (("K6b", 7, (8, 70, 70, c), 0), ("K6b", 7, (8, 70, 70, c), 3),
+                                  ("K5", 8, (8, 64, 64, c), 0), ("K5", 8, (8, 64, 64, c), 4)):
+        wb = _random_block(gen, dev, c, nh, hidden, ws)
+        pk = pack_block_weights(wb)
+        x = torch.randn(*shape, generator=gen).to(dev, bf)
+        ct = (0.1 * torch.randn(*shape, generator=gen)).to(dev, bf)
+        ex = (0.05 * torch.randn(*shape, generator=gen)).to(dev, bf)
+        mask = shift_mask_tensor(shape[1], shape[2], ws, shift, dev) if shift else None
+        run = lambda: fused_swin_block_backward(ct, x, wb, ws, shift, mask, True, scales,
+                                                packed=pk, extra=ex)
+        plain = lambda: swin_block_bwd_plain(ct, x, wb, ws, shift, mask, True, scales, ex)
+        got = run()
+        ref16 = plain()
+        ref32 = swin_block_bwd_plain(ct.float(), x.float(), wb, ws, shift, mask, True, scales,
+                                     ex.float())
+        torch.cuda.synchronize()
+        _compare_grads(res, key, f"{list(shape)} ws {ws} shift {shift} extra, branch scales",
+                       got, ref16, ref32, ("dx", "extra"), GRAD_FIELDS, cuda_ms(run),
+                       cuda_ms(plain), _swin_work(shape, c, hidden, backward=True, ws=ws,
+                                                 extra=True))
+        del got, ref16, ref32
+
+    for ws, ows, windows in ((7, 10, 800), (8, 12, 512)):
+        w = _random_ocab(gen, dev, c, nh, hidden)
+        nq, nk = ws * ws, ows * ows
+        rnd = lambda *shape, sc=1.0: (sc * torch.randn(*shape, generator=gen)).to(dev, bf)
+        # q carries the hd^-0.5 pre-scale: O(1) scores
+        q, k, v, sw = rnd(windows, nq, c, sc=0.25), rnd(windows, nk, c), rnd(windows, nk, c), \
+            rnd(windows, nq, c)
+        bias = (0.5 * torch.randn(nh, nq, nk, generator=gen)).to(dev)
+        ct = rnd(windows, nq, c, sc=0.1)
+        f32 = [t.float() for t in (q, k, v, sw)]
+        label = f"{windows} windows, {nq} queries x {nk} keys, C {c}"
+        run = lambda: fused_ocab.fused_ocab_core(q, k, v, sw, w, bias, True)
+        plain = lambda: fused_ocab.ocab_core_plain(q, k, v, sw, w, bias, True)
+        out = run()
+        _compare(res, "K8", label, out, plain(), fused_ocab.ocab_core_plain(*f32, w, bias, True),
+                 cuda_ms(run), cuda_ms(plain), _ocab_work(windows, nq, nk, c, nh, hidden))
+        runb = lambda: fused_ocab.fused_ocab_core_backward(ct, q, k, v, sw, w, bias, True)
+        plainb = lambda: fused_ocab.ocab_core_bwd_plain(ct, q, k, v, sw, w, bias, True)
+        got = runb()
+        ref16 = plainb()
+        ref32 = fused_ocab.ocab_core_bwd_plain(ct.float(), *f32, w, bias, True)
+        torch.cuda.synchronize()
+        _compare_grads(res, "K8b", label, got, ref16, ref32, ("dq", "dk", "dv", "dsw"),
+                       fused_ocab.GRAD_FIELDS + ("bias",), cuda_ms(runb), cuda_ms(plainb),
+                       _ocab_work(windows, nq, nk, c, nh, hidden, backward=True))
+        del out, got, ref16, ref32
     return res
 
 
@@ -778,6 +937,21 @@ def _first_step_grads(model, lr, hr):
     return float(loss.detach()), grads
 
 
+def _cosines(g_a, g_b):
+    """{name: cosine} of two gradient dicts (pairs that are both exactly
+    zero, such as a branch dropped for every sample, are left out)."""
+    cos = {}
+    for name, gb in g_b.items():
+        ga = g_a[name]
+        na, nb = float(ga.norm()), float(gb.norm())
+        if not (math.isfinite(na) and math.isfinite(nb)):
+            raise RuntimeError(f"non-finite gradient of {name}")
+        if na == 0.0 and nb == 0.0:
+            continue
+        cos[name] = float((ga * gb).sum()) / max(na * nb, 1e-30)
+    return cos
+
+
 def phase_train(workdir, smi):
     """SwinIR-M x4 fine-tuning: the finetune CLI for one epoch on the
     card, then per-step launch counts and times (kernels vs plain bf16)
@@ -788,7 +962,7 @@ def phase_train(workdir, smi):
     from tpu_superresolution_torch.cli.finetune import main as finetune_main
     from tpu_superresolution_torch.core.config import SwinIRConfig, build_model
     from tpu_superresolution_torch.kernels import read_counters, reset_counters
-    from tpu_superresolution_torch.train.engine import global_norm, make_train_step
+    from tpu_superresolution_torch.train.engine import make_train_step
 
     batch, patch, scale = TRAIN_BATCH, TRAIN_LR_PATCH, 4
     n_train, n_valid = 8 * batch, 2
@@ -866,35 +1040,290 @@ def phase_train(workdir, smi):
         del model, st
 
     # 3. the first step's gradients: kernels (bf16) vs the plain fp32 path
-    ref = build_model(cfg, dtype=torch.float32, impl="plain", device="cuda")
-    ref.load_state_dict(src.state_dict())
-    kern = build_model(cfg, dtype=torch.bfloat16, device="cuda")
-    kern.load_state_dict(src.state_dict())
-    loss_k, g_k = _first_step_grads(kern, lr, hr)
-    loss_r, g_r = _first_step_grads(ref, lr, hr)
+    _first_step_gate(cfg, src, lr, hr, "train", smi)
+    return launches, times
+
+
+def _first_step_gate(cfg, src, lr, hr, tag, smi):
+    """The first train step's gradients, kernels (bf16) against the plain
+    fp32 path from the same weights, batch and stochastic-depth masks:
+    loss, grad norm and every parameter's gradient cosine within the
+    gates.  The plain bf16 path (the same roundings, no kernels) runs
+    beside: a parameter whose plain bf16 gradient is itself below the
+    cosine bound is bf16-limited, and passes only if its fp32 and kernel
+    gradients are below ADAMW_EPS element by element (see there); each
+    is logged by name.  Returns {name: cosine}."""
+    import torch
+
+    from tpu_superresolution_torch.core.config import build_model
+    from tpu_superresolution_torch.train.engine import global_norm
+
+    runs = {}
+    for label, dtype, impl in (("kernels", torch.bfloat16, "auto"),
+                               ("plain fp32", torch.float32, "plain"),
+                               ("plain bf16", torch.bfloat16, "plain")):
+        model = build_model(cfg, dtype=dtype, impl=impl, device="cuda")
+        model.load_state_dict(src.state_dict())
+        runs[label] = _first_step_grads(model, lr, hr)
+        del model
+    (loss_k, g_k), (loss_r, g_r), (_, g_p) = runs.values()
     gn_k, gn_r = float(global_norm(list(g_k.values()))), float(global_norm(list(g_r.values())))
-    cos = {}
-    for name, gr in g_r.items():
-        gk = g_k[name]
-        nk, nr = float(gk.norm()), float(gr.norm())
-        if not (math.isfinite(nk) and math.isfinite(nr)):
-            raise RuntimeError(f"non-finite gradient of {name}")
-        if nr == 0.0 and nk == 0.0:
-            continue  # a branch dropped for every sample in both paths
-        cos[name] = float((gk * gr).sum()) / max(nk * nr, 1e-30)
-    worst = sorted(cos.items(), key=lambda kv: kv[1])[:3]
+    cos, cos_plain = _cosines(g_k, g_r), _cosines(g_p, g_r)
+    amax = lambda g, k: float(g[k].abs().max())
+    limited = {k: (cos[k], cos_plain[k], amax(g_k, k), amax(g_r, k))
+               for k in cos if cos[k] < TRAIN_COS_MIN and cos_plain.get(k, 1.0) < TRAIN_COS_MIN}
+    gated = {k: v for k, v in cos.items() if k not in limited}
+    worst = sorted(gated.items(), key=lambda kv: kv[1])[:3]
     rel_loss = abs(loss_k - loss_r) / abs(loss_r)
     rel_gn = abs(gn_k - gn_r) / gn_r
     ok = (rel_loss <= TRAIN_LOSS_RTOL and rel_gn <= TRAIN_GNORM_RTOL
-          and min(cos.values()) >= TRAIN_COS_MIN)
-    log(f"[train] first step vs plain fp32 path: loss {loss_k:.6f} vs {loss_r:.6f} (rel "
+          and min(gated.values()) >= TRAIN_COS_MIN
+          and all(max(mk, mr) < ADAMW_EPS for _, _, mk, mr in limited.values()))
+    log(f"[{tag}] first step vs plain fp32 path: loss {loss_k:.6f} vs {loss_r:.6f} (rel "
         f"{rel_loss:.2e}, bound {TRAIN_LOSS_RTOL}); grad norm {gn_k:.5f} vs {gn_r:.5f} (rel "
-        f"{rel_gn:.2e}, bound {TRAIN_GNORM_RTOL}); gradient cosine over {len(cos)} of "
-        f"{len(g_r)} parameters, lowest {worst} (bound >= {TRAIN_COS_MIN}) "
+        f"{rel_gn:.2e}, bound {TRAIN_GNORM_RTOL}); gradient cosine over {len(gated)} of "
+        f"{len(g_r)} parameters, lowest {worst} (bound >= {TRAIN_COS_MIN}); plain bf16 vs "
+        f"fp32 lowest {sorted(cos_plain.items(), key=lambda kv: kv[1])[:3]} "
         f"{'ok' if ok else 'FAIL'} ({smi})")
+    zero = sorted(set(g_r) - set(cos))
+    if zero:
+        log(f"[{tag}] {len(zero)} parameters with an exactly zero gradient in both paths, left "
+            f"out of the cosine gate: {zero}")
+    for k, (ck, cp, mk, mr) in sorted(limited.items()):
+        log(f"[{tag}] bf16-limited (plain bf16 below the bound too): {k}: cosine kernels "
+            f"{ck:.4f}, plain bf16 {cp:.4f}; max |g| kernels {mk:.3e}, fp32 {mr:.3e} (bound < "
+            f"AdamW eps {ADAMW_EPS}; global grad norm {gn_r:.3e})")
     if not ok:
-        raise RuntimeError("train step gradients disagree with the plain fp32 path")
-    return launches, times
+        raise RuntimeError(f"{tag}: train step gradients disagree with the plain fp32 path")
+    return cos
+
+
+def phase_hat_train(workdir, smi):
+    """HAT x4 training: the train CLI (``--model hat``, HATConfig() at
+    full width and depth, batch 8, --patch_size 64, L1, AdamW, clip 1.0)
+    for one epoch on a synthetic DeepRock tree; then per-step launches
+    and times (kernels vs plain bf16), a profiled step split by part, and
+    the first step's gradients against the plain fp32 path; then a
+    hat_fast step (K1 with `extra`, K5 with d`extra`).  Returns the
+    launches of the CLI run and of the counted steps."""
+    import numpy as np
+    import torch
+
+    from tpu_superresolution_torch.cli.train import main as train_main
+    from tpu_superresolution_torch.core.config import HATConfig, HATFastConfig, build_model
+    from tpu_superresolution_torch.kernels import read_counters, reset_counters
+    from tpu_superresolution_torch.train.engine import make_train_step
+
+    batch, patch, scale = TRAIN_BATCH, TRAIN_LR_PATCH, 4
+    n_train, n_valid = 2 * batch, 2
+    data = f"{workdir}/deeprock_hat"
+    _write_deeprock(data, n_train, n_valid, hr_size=320, scale=scale, seed=SEED + 2)
+
+    # 1. the entry point: one epoch of 2 steps + validation of 2 images
+    reset_counters()
+    t0 = time.perf_counter()
+    trainer, state = train_main([
+        "--data_root", data, "--scale", "X4", "--model", "hat", "--epochs", "1",
+        "--batch_size", str(batch), "--patch_size", str(patch), "--loss", "l1",
+        "--workdir", f"{workdir}/hat_run", "--seed", str(SEED), "--device", "cuda"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_counters()
+    steps, val_calls = n_train // batch, 1
+    expect = {k: steps * HAT_TRAIN_PER_STEP[k] + val_calls * HAT_PER_CALL[k]
+              for k in HAT_TRAIN_PER_STEP}
+    log(f"[hat-train] train CLI, HAT x4 (HATConfig(): embed 96, depths 6x4, ws 7, drop_path_rate "
+        f"{trainer.model_config.drop_path_rate}), batch {batch}, patch {patch}: {steps} steps + "
+        f"validation in {cli_s:.1f} s (incl. the first steps' set-up); train loss "
+        f"{trainer.history['train'][0]:.6f}, val PSNR {trainer.best_val_psnr:.2f} dB; launches "
+        f"{launches} (expected {expect}) ({smi})")
+    if state.step != steps or not math.isfinite(trainer.history["train"][0]):
+        raise RuntimeError(f"train CLI: {state.step} steps, loss {trainer.history['train']}")
+    if launches != expect:
+        raise RuntimeError(f"train CLI launches {launches}, expected {expect}")
+    del trainer, state
+
+    # 2. one step's launches, step times (kernels vs plain bf16), a split
+    rng = np.random.default_rng(SEED + 3)
+    lr = torch.from_numpy(rng.random((batch, patch, patch, 3), dtype=np.float32)).cuda()
+    hr = torch.from_numpy(
+        rng.random((batch, patch * scale, patch * scale, 3), dtype=np.float32)).cuda()
+    step = make_train_step("l1", "native_lr", scale, patch, False)
+    cfg = HATConfig()
+    src = build_model(cfg)
+    src.reset_parameters(torch.Generator().manual_seed(SEED))
+    per_step_all = {}
+    for label, impl in (("kernels", "auto"), ("plain", "plain")):
+        model = build_model(cfg, dtype=torch.bfloat16, impl=impl, device="cuda")
+        model.load_state_dict(src.state_dict())
+        st = _train_state(model, steps)
+        gen = torch.Generator().manual_seed(SEED)
+        for _ in range(3):
+            step(st, lr, hr, gen)
+        torch.cuda.synchronize()
+        reset_counters()
+        step(st, lr, hr, gen)
+        torch.cuda.synchronize()
+        per_step = read_counters()
+        dts = []
+        for _ in range(TRAIN_TIMED_STEPS):
+            t0 = time.perf_counter()
+            m = step(st, lr, hr, gen)
+            torch.cuda.synchronize()
+            dts.append(time.perf_counter() - t0)
+        ms = statistics.median(dts) * 1e3
+        log(f"[hat-train] {label} bf16 path: launches per step {per_step}; median {ms:.2f} "
+            f"ms/step over {TRAIN_TIMED_STEPS} steps after 4 warm-up (min "
+            f"{min(dts) * 1e3:.2f}, max {max(dts) * 1e3:.2f}), {batch / ms * 1e3:.1f} images/s; "
+            f"loss {float(m['loss']):.6f} ({smi})")
+        if label == "kernels":
+            if per_step != HAT_TRAIN_PER_STEP:
+                raise RuntimeError(f"HAT launches per train step {per_step}, expected "
+                                   f"{HAT_TRAIN_PER_STEP}")
+            per_step_all = per_step
+            _hat_train_split(st, lr, hr, ms, smi)
+        elif any(per_step.values()):
+            raise RuntimeError(f"the plain path launched kernels: {per_step}")
+        del model, st
+
+    # 3. the first step's gradients; the HABs' norm1 gets two gradients
+    # (the block kernel's LN1 and K2's LN1 feeding the CAB) whose sum
+    # must match
+    cos = _first_step_gate(cfg, src, lr, hr, "hat-train", smi)
+    norm1 = sorted((v, k) for k, v in cos.items() if ".blocks." in k and ".norm1." in k)
+    log(f"[hat-train] HAB norm1 gradients (block kernel LN1 + the CAB's K2 LN1), lowest "
+        f"cosine {norm1[:2]}")
+    del src
+
+    # 4. hat_fast: one counted step (K1 with extra, K5 with d extra) and
+    # its first-step gradients
+    fcfg = HATFastConfig()
+    fsrc = build_model(fcfg)
+    fsrc.reset_parameters(torch.Generator().manual_seed(SEED))
+    model = build_model(fcfg, dtype=torch.bfloat16, device="cuda")
+    model.load_state_dict(fsrc.state_dict())
+    st = _train_state(model, steps)
+    gen = torch.Generator().manual_seed(SEED)
+    step(st, lr, hr, gen)
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    step(st, lr, hr, gen)
+    torch.cuda.synchronize()
+    fms = (time.perf_counter() - t0) * 1e3
+    fast = read_counters()
+    log(f"[hat-train] hat_fast (ws 8) step: launches {fast} (expected "
+        f"{HAT_FAST_TRAIN_PER_STEP}); {fms:.2f} ms (one step, synchronised) ({smi})")
+    if fast != HAT_FAST_TRAIN_PER_STEP:
+        raise RuntimeError(f"hat_fast launches per step {fast}, expected "
+                           f"{HAT_FAST_TRAIN_PER_STEP}")
+    del model, st
+    _first_step_gate(fcfg, fsrc, lr, hr, "hat-train hat_fast", smi)
+    return [launches, per_step_all, fast]
+
+
+def _hat_train_split(state, lr, hr, step_ms, smi):
+    """Where one HAT train step spends its device time, under
+    torch.profiler: the forward, backward and optimizer as ranges, the
+    kernels by name (K6, K6b, K8, K8b, each backward's weight-gradient
+    products and reductions attributed to the per-window kernel before
+    them; K2-K4), the CAB branches' forward by module range, the rest by
+    the range it ran in, and the device's idle share of the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from tpu_superresolution_torch.models.hat import CAB
+    from tpu_superresolution_torch.train.engine import apply_gradients
+
+    model = state.model
+    stack, handles = [], []
+    for m in model.modules():
+        if isinstance(m, CAB):
+            def enter(mod, args):
+                stack.append(record_function("hat::cab"))
+                stack[-1].__enter__()
+
+            handles.append(m.register_forward_pre_hook(enter))
+            handles.append(m.register_forward_hook(
+                lambda mod, args, out: stack.pop().__exit__(None, None, None)))
+    model.train()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state.optimizer.zero_grad(set_to_none=True)
+            # each phase ends in a synchronise, so a device kernel starts
+            # inside the host-side span of the phase that launched it
+            # (the backward launches from autograd's own thread)
+            with record_function("step::forward"):
+                loss = (model(lr, generator=torch.Generator().manual_seed(SEED)).float()
+                        - hr).abs().mean()
+                torch.cuda.synchronize()
+            with record_function("step::backward"):
+                loss.backward()
+                torch.cuda.synchronize()
+            with record_function("step::optimizer"):
+                apply_gradients(state)
+                torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = prof.events()
+    except Exception as e:  # the profile is a reading aid, not a check
+        log(f"[hat-train] profiler failed: {type(e).__name__}: {e}")
+        return
+    finally:
+        for h in handles:
+            h.remove()
+    kernels = sorted(_device_kernels(prof), key=lambda e: e.time_range.start)
+    if not kernels:
+        log("[hat-train] profiler: no device events recorded")
+        return
+    steps = ("step::forward", "step::backward", "step::optimizer")
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in events
+             if (e.device_type == torch.autograd.DeviceType.CUDA
+                 and getattr(e, "is_user_annotation", False) and e.name == "hat::cab")
+             or (e.device_type == torch.autograd.DeviceType.CPU and e.name in steps)]
+    us = lambda e: getattr(e, "device_time", 0.0) or getattr(e, "cuda_time", 0.0)
+    groups = dict.fromkeys((
+        "K6 forward (swin_block_kernel<7>)", "K6b (per-window, weight grads, reductions)",
+        "K8 forward (ocab_fwd_kernel)", "K8b (per-window, weight grads, reductions)",
+        "K2-K4 forwards", "CAB forward (cuDNN convs, SE)", "other forward ops",
+        "plain-op backwards (CAB, K2-K4, gathers, casts)", "optimizer (norm, clip, AdamW)",
+        "other"), 0.0)
+    last_bwd = "K6b (per-window, weight grads, reductions)"
+    for e in kernels:
+        n, t = e.name, e.time_range.start
+        inside = {name for a, b, name in spans if a <= t <= b}
+        if "swin_block_bwd_window" in n:
+            g = last_bwd = "K6b (per-window, weight grads, reductions)"
+        elif "ocab_bwd_kernel" in n:
+            g = last_bwd = "K8b (per-window, weight grads, reductions)"
+        elif "wgrad_kernel" in n or "reduce_rows_kernel" in n:
+            g = last_bwd
+        elif "swin_block_kernel" in n:
+            g = "K6 forward (swin_block_kernel<7>)"
+        elif "ocab_fwd_kernel" in n:
+            g = "K8 forward (ocab_fwd_kernel)"
+        elif "layernorm_rows" in n or "conv_nhwc" in n:
+            g = "K2-K4 forwards"
+        elif "hat::cab" in inside:
+            g = "CAB forward (cuDNN convs, SE)"
+        elif "step::forward" in inside:
+            g = "other forward ops"
+        elif "step::backward" in inside:
+            g = "plain-op backwards (CAB, K2-K4, gathers, casts)"
+        elif "step::optimizer" in inside:
+            g = "optimizer (norm, clip, AdamW)"
+        else:
+            g = "other"
+        groups[g] += us(e) / 1e3
+    busy = sum(groups.values())
+    idle = max(wall - busy, 0.0)
+    log(f"[hat-train] profiled step: {wall:.2f} ms wall (profiler on, a synchronise after "
+        f"each phase), {len(kernels)} device kernels, busy {busy:.2f} ms ({busy / wall:.1%}), "
+        f"idle {idle:.2f} ms ({idle / wall:.1%}); against the unprofiled median step "
+        f"{step_ms:.2f} ms: busy {busy / step_ms:.1%}, idle {max(step_ms - busy, 0.0):.2f} ms; "
+        f"{len(spans)} ranges ({smi})")
+    for g, t in groups.items():
+        log(f"[hat-train]   {t:8.3f} ms  {t / wall:6.1%}  {g}")
 
 
 def _device_kernels(prof):
@@ -976,7 +1405,7 @@ def main() -> int:
     from tpu_superresolution_torch.core.config import SwinIRConfig
 
     phase_build()
-    kres = phase_kernels()
+    kres = phase_train_kernels(phase_kernels())
     _lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_lib.BUILD_DIR) as workdir:
         service, launches = phase_serve(workdir, SwinIRConfig(scale=4), "swinir", PER_CALL)
@@ -985,6 +1414,7 @@ def main() -> int:
         ws7_launches = phase_swinir_ws7(smi)
         hat_launches = phase_hat(workdir, smi)
         train_launches, _ = phase_train(workdir, smi)
+        hat_train_launches = phase_hat_train(workdir, smi)
 
     kernels = []
     for key, meta in KERNELS.items():
@@ -992,8 +1422,8 @@ def main() -> int:
         kernels.append(dict(
             name=meta["name"], route=meta["route"], source=meta["source"],
             replaces=meta["replaces"],
-            launches=sum(d.get(key, 0) for d in (launches, ws7_launches, hat_launches,
-                                                 train_launches)),
+            launches=sum(d.get(key, 0) for d in [launches, ws7_launches, hat_launches,
+                                                 train_launches] + hat_train_launches),
             max_abs_err=max(r["err"] for r in kres[key]),
             ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
             bound_by=first["bound_by"], library_ms=first["library_ms"],

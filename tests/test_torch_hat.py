@@ -176,9 +176,32 @@ def test_hat_state_dict_keys_and_seeded_init():
 
 
 def test_hat_refuses_training_mode():
+    """Training mode runs (stochastic depth, the OCAB's fused route
+    through K8's wrapper) and gives every parameter a gradient, and
+    eval() goes back to serving's path: no K8, the same output as before
+    training mode, no kernel on the CPU.  (The name predates HAT
+    training.)"""
     from tpu_superresolution_torch.core.config import HATConfig, build_model
+    from tpu_superresolution_torch.kernels import fused_ocab, read_counters, reset_counters
 
     model = build_model(HATConfig(embed_dim=24, depths=(2,), num_heads=(2,), squeeze_factor=6))
-    model.train()
-    with pytest.raises(NotImplementedError, match="HAT-training"):
-        model(torch.rand(1, 7, 7, 3))
+    x = torch.rand(1, 7, 7, 3)
+    with torch.no_grad():
+        served = model(x)
+    calls = []
+    real = fused_ocab.ocab_core_plain
+    reset_counters()
+    try:
+        fused_ocab.ocab_core_plain = lambda *a: calls.append(1) or real(*a)
+        model.train()
+        model(x, generator=torch.Generator().manual_seed(0)).mean().backward()
+        assert calls == [1]  # one OCAB, through K8's wrapper
+        assert all(p.grad is not None for p in model.parameters())
+        model.eval()
+        with torch.no_grad():
+            again = model(x)
+        assert calls == [1]  # serving keeps the module path
+    finally:
+        fused_ocab.ocab_core_plain = real
+    assert torch.equal(again, served)
+    assert not any(read_counters().values())

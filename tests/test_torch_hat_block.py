@@ -82,18 +82,21 @@ def test_block_args_reject_widths_and_shapes_outside_the_kernel():
         check_block_args((2, 16, 24, 32), w, 8, 0)
 
 
-@pytest.mark.parametrize("ws,with_extra,ok", [(8, False, True), (8, True, False),
-                                              (7, False, False), (7, True, False)])
+@pytest.mark.parametrize("ws,with_extra,ok", [(8, False, True), (8, True, True),
+                                              (7, False, True), (7, True, True),
+                                              (6, False, False)])
 def test_gradient_check_names_the_training_slice(ws, with_extra, ok):
-    """A gradient through the block kernel exists only at ws 8 without
-    extra (K5); anything else raises instead of running plain autograd."""
+    """A gradient through the block kernel exists at its windows, ws 8
+    (K5) and ws 7 (K6's backward), with or without `extra` (HAT
+    training); a window the kernel cannot take raises instead of running
+    plain autograd."""
     from tpu_superresolution_torch.kernels.fused_block import check_differentiable
 
     extra = torch.zeros(1) if with_extra else None
     if ok:
         check_differentiable(ws, extra, "block")
     else:
-        with pytest.raises(NotImplementedError, match="HAT training"):
+        with pytest.raises(NotImplementedError, match="ws=6"):
             check_differentiable(ws, extra, "block")
 
 

@@ -19,6 +19,8 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "tpu_superresolution_tpu"))
 print(len(names), bad)
 assert not bad, bad
+for name in ("cli.train", "kernels.fused_ocab", "models.hat", "train.engine"):
+    assert "tpu_superresolution_torch." + name in names, name
 """
 
 
@@ -46,7 +48,7 @@ def test_cpu_forward_launches_no_kernel():
     with torch.no_grad():
         y = model(torch.rand(1, 16, 16, 3))
     assert y.shape == (1, 64, 64, 3)
-    none = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0}
+    none = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K6b": 0, "K8": 0, "K8b": 0}
     assert read_counters() == none
     opt, sched = build_optimizer(TrainConfig(loss="l1"), 1, model)
     state = create_train_state(model, opt, sched)
@@ -55,6 +57,28 @@ def test_cpu_forward_launches_no_kernel():
              torch.Generator().manual_seed(0))
     assert bool(m["finite"]) and state.step == 1
     assert read_counters() == none
+
+
+def test_cpu_hat_train_step_launches_no_kernel():
+    """A CPU HAT train step (stochastic depth, the OCAB's training route,
+    the blocks' backward) runs the plain versions only."""
+    from tpu_superresolution_torch.core.config import HATConfig, TrainConfig, build_model
+    from tpu_superresolution_torch.kernels import read_counters, reset_counters
+    from tpu_superresolution_torch.train.engine import (
+        build_optimizer,
+        create_train_state,
+        make_train_step,
+    )
+
+    model = build_model(HATConfig(embed_dim=24, depths=(2,), num_heads=(2,), squeeze_factor=6,
+                                  drop_path_rate=0.5))
+    opt, sched = build_optimizer(TrainConfig(loss="l1"), 1, model)
+    state = create_train_state(model, opt, sched)
+    reset_counters()
+    m = make_train_step("l1", "native_lr", 4, 7, True)(
+        state, torch.rand(2, 14, 14, 3), torch.rand(2, 56, 56, 3), torch.Generator().manual_seed(0))
+    assert bool(m["finite"]) and state.step == 1
+    assert not any(read_counters().values())
 
 
 def test_wrappers_refuse_devices_without_a_kernel():

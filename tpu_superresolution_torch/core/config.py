@@ -127,8 +127,8 @@ class HATFastConfig(HATConfig):
 class DataConfig:
     """Paired LR/HR dataset config (the JAX package's DataConfig;
     reference modules/sr_datasets.py:31-73).  The port trains the
-    native-LR convention only so far (the SwinIR fine-tune path);
-    pre-upscale, blur and normalization are still to port."""
+    native-LR convention only so far (the transformer families, SwinIR
+    and HAT); pre-upscale, blur and normalization are still to port."""
 
     data_root: str = ""
     dataset: str = "shuffled2D"

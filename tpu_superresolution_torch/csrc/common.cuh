@@ -1,8 +1,9 @@
 // Helpers shared by the hand-written Hopper kernels of the port.
 //
-// Every kernel here is built with
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
-// into one shared library with a plain C interface (kernels/_build.py).
+// Every kernel here is compiled with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -c
+// one source per nvcc process, and the objects are linked into one shared
+// library with a plain C interface (kernels/_lib.py).
 // Each extern "C" entry point launches on the stream it is given and
 // returns cudaGetLastError() as an int; the Python wrapper raises when it
 // is not 0.
@@ -17,6 +18,12 @@ typedef __nv_bfloat16 bf16;
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 

@@ -120,30 +120,6 @@ struct BlockArgs {
   float eps;
 };
 
-// LayerNorm of the fp32 rows xs[t][0:c] into bf16 ys[t][0:CP] (zero pad),
-// all NTP rows; row t belongs to warp t % NWARPS and column i to lane
-// i % 32, the mapping every per-token pass of the kernel uses.
-__device__ __forceinline__ void layernorm_rows(const float* xs, bf16* ys, const float* g,
-                                               const float* b, int c, float eps, int warp,
-                                               int lane) {
-  const float inv_c = 1.f / static_cast<float>(c);
-  for (int t = warp; t < NTP; t += NWARPS) {
-    float s = 0.f, sq = 0.f;
-    for (int i = lane; i < c; i += 32) {
-      const float v = xs[t * LDX + i];
-      s += v;
-      sq += v * v;
-    }
-    s = warp_sum(s);
-    sq = warp_sum(sq);
-    const float mu = s * inv_c;
-    const float rstd = rsqrtf(fmaxf(sq * inv_c - mu * mu, 0.f) + eps);
-    for (int i = lane; i < CP; i += 32)
-      ys[t * LDY + i] = i < c ? __float2bfloat16((xs[t * LDX + i] - mu) * rstd * g[i] + b[i])
-                              : __float2bfloat16(0.f);
-  }
-}
-
 template <int WS>
 __global__ void __launch_bounds__(NTHREADS, 1) swin_block_kernel(const BlockArgs a) {
   constexpr int NT = WS * WS;  // tokens per window
@@ -186,7 +162,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_kernel(const BlockArgs
   }
   for (int i = tid; i < NTP * LDO; i += NTHREADS) os[i] = __float2bfloat16(0.f);
   __syncwarp();
-  layernorm_rows(xs, ys, a.g1, a.b1, c, a.eps, warp, lane);
+  layernorm_rows<NTP, NWARPS>(xs, LDX, ys, LDY, CP, a.g1, a.b1, c, a.eps, warp, lane);
   __syncthreads();
 
   Acc acc[4];
@@ -325,7 +301,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_kernel(const BlockArgs
       for (int i = lane; i < c; i += 32) xs[t * LDX + i] += __bfloat162float(er[i]);
     }
   }
-  layernorm_rows(xs, ys, a.g2, a.b2, c, a.eps, warp, lane);
+  layernorm_rows<NTP, NWARPS>(xs, LDX, ys, LDY, CP, a.g2, a.b2, c, a.eps, warp, lane);
   __syncthreads();
 
   // ---- MLP: fc1 -> GELU -> fc2, residual ----

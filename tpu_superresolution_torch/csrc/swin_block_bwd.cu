@@ -1,13 +1,21 @@
-// K5 — the backward of one Swin transformer block (the gradient of K1).
+// K5 and K6's backward — the backward of one Swin transformer block (the
+// gradient of csrc/swin_block.cu), for window size 8 (K5) or 7 (K6's
+// backward), with the gradient of HAT's additive term `extra`.
 //
 // Replaces: tpu_superresolution_tpu/ops/pallas/fused_block.py
-//           _mega_backward -> _bwd_kernel (pallas_call at :1080).
-// Math: recompute the forward of K1 for each 8x8 window (LN1 -> qkv ->
-//       per-head softmax(q k^T + rpb + mask) -> AV -> proj -> x1 =
-//       x + m1 attn -> LN2 -> fc1 -> GELU), then chain the cotangent ct:
+//           K5  _mega_backward -> _bwd_kernel (pallas_call at :1080),
+//               with and without `extra` (has_extra);
+//           K6  _packed_backward -> _bwd_kernel (pallas_call at :1604),
+//               the same arithmetic on windows the caller partitioned and
+//               token-padded in HBM.  This kernel reads the windows from
+//               the spatial map, so one source serves both.
+// Math: recompute the forward for each window (LN1 -> qkv -> per-head
+//       softmax(q k^T + rpb + mask) -> AV -> proj -> x1 = x + m1 attn
+//       + extra -> LN2 -> fc1 -> GELU), then chain the cotangent ct:
 //         dmlp = bf16(ct m2)        dWfc2 = dmlp^T a,   dbfc2 = sum dmlp
 //         dh1  = bf16(dmlp Wfc2 * gelu'(h1))   dWfc1, dbfc1
 //         dx1  = ct + LN2^T(dh1 Wfc1)  (fast-variance form; dg2, db2)
+//         dextra = dx1  (when the forward had `extra`)
 //         dattn = bf16(dx1 m1)      dWproj, dbproj
 //         do   = bf16(dattn Wproj); per head: dV = A^T do,
 //                dS = A (dA - rowsum(dA A)) with dA = do V^T,
@@ -16,44 +24,51 @@
 //       with bf16 GEMM operands and fp32 accumulation, casting to bf16
 //       at the JAX kernel's points, so the kernel and the plain bf16
 //       version (kernels/fused_block.py::swin_block_bwd_plain) round
-//       alike.  Gradients come out in the packed layout of K1's weights
-//       ([out, in], q pre-scaled, heads and channels zero-padded); the
-//       wrapper maps them to raw weight space.
-// Bound on the H100: at the train shape [8,64,64,180] the block's
+//       alike.  Gradients come out in the packed layout of the forward's
+//       weights ([out, in], q pre-scaled, heads and channels
+//       zero-padded); the wrapper maps them to raw weight space.
+// Bound on the H100: at SwinIR's train shape [8,64,64,180] the block's
 //       backward does ~51 GFLOP of bf16 products at the unpadded widths
 //       (14 recompute without fc2, 17 activation gradients, 3 attention
 //       backward, 17 the four weight-gradient products) against ~37 MB
 //       in and out, so it is compute-bound: ~52 us at the 989 TFLOP/s
-//       bf16 peak.  The WMMA kernels below take ~1.34 ms (NVIDIA H100
-//       80GB HBM3, 700 W; chip_smoke.py's kernels phase), ~4% of it.
+//       bf16 peak; HAT's at [8,70,70,96] ~25 GFLOP, ~26 us.  The WMMA
+//       kernels below run at a few % of the peak (PERF.md).
 // Design: the TPU kernel sums the weight gradients in VMEM across a
 //       sequential grid; a Hopper grid has no order.  So the work is
 //       three deterministic launches:
-//       K5a  one 384-thread CTA per window (K1's shift-by-addressing:
-//            it reads x and ct at the shifted pixels and writes dx
-//            there, with the same mask).  It writes each window's GEMM
-//            operand pairs (yc, dqkv), (o, dattn), (y2c, dh1), (a, dmlp)
-//            to a bf16 workspace, the per-window LayerNorm and bias
-//            partial sums and dS to an fp32 workspace, and dx.  It holds
-//            one head's A and dS at a time and keeps 210 KB of shared
-//            memory: the fp32 residual / cotangent [64][192], a 73 KB
-//            bf16 buffer that holds qkv, then the MLP gradient, then qkv
-//            again (reloaded from the workspace) and finally dqkv, two
-//            bf16 [64][200] buffers that alias an fp32 [64][192] one,
-//            the score / probability tiles and the per-warp staging.
-//            x1 and h1 (fp32) go through the workspace too.
-//       K5b  the four weight-gradient products sum_t G[t]^T Act[t] as
-//            64x64 output tiles over row chunks (split-K), WMMA from
-//            shared-memory stages, partials written per chunk.
-//       K5c  an ordered sum over the chunks and over the windows: the
-//            result does not depend on scheduling.
+//       K5a  one 384-thread CTA per window (the forward's shift-by-
+//            addressing: it reads x, extra and ct at the shifted pixels
+//            and writes dx and dextra there, with the same mask).  It
+//            writes each window's GEMM operand pairs (yc, dqkv), (o,
+//            dattn), (y2c, dh1), (a, dmlp) to a bf16 workspace, the
+//            per-window LayerNorm and bias partial sums and dS to an
+//            fp32 workspace, and dx.  It holds one head's A and dS at a
+//            time and keeps 210 KB of shared memory: the fp32 residual /
+//            cotangent [64][192], a 73 KB bf16 buffer that holds qkv,
+//            then the MLP gradient, then qkv again (reloaded from the
+//            workspace) and finally dqkv, two bf16 [64][200] buffers
+//            that alias an fp32 [64][192] one, the score / probability
+//            tiles and the per-warp staging.  x1 and h1 (fp32) go
+//            through the workspace too.
+//       K5b, K5c  csrc/wgrad.cuh: split-K WMMA weight-gradient products
+//            and ordered reductions.
+// Token padding (ws 7): every buffer keeps NTP = 64 token rows, as in
+//       the forward.  Rows 49..63 have zero x and zero cotangent, so
+//       every gradient operand (dmlp, dh1, dattn, dqkv) is exactly zero
+//       there and they add nothing to a weight-gradient product, bias sum
+//       or LayerNorm sum; their activations (LN of a zero row = b) stay
+//       finite.  Key columns 49..63 get -inf scores, so A and dS are
+//       exactly 0 there.  The ws-7 rpb and mask rows are not 16-byte
+//       aligned and are read as scalars; the rpb gradient is written as
+//       [nh][49][49] per window.
 #include "common.cuh"
 #include "swin_common.cuh"
+#include "wgrad.cuh"
 
 namespace {
 
-constexpr int WS = 8;
-constexpr int NT = WS * WS;
+constexpr int NTP = 64;  // token rows of every buffer: a window's WS*WS, padded
 constexpr int CP = 192;
 constexpr int HDP = 32;
 constexpr int QKVP = 3 * CP;
@@ -65,38 +80,38 @@ constexpr int LDX = CP;          // fp32
 constexpr int LDY = CP + 8;      // bf16
 constexpr int LDQKV = QKVP + 8;  // bf16
 constexpr int LDH = HIDP + 8;    // bf16
-constexpr int LDS = NT + 4;      // fp32
-constexpr int LDP = NT + 8;      // bf16
+constexpr int LDS = NTP + 4;     // fp32
+constexpr int LDP = NTP + 8;     // bf16
 constexpr int LDO = CP + 8;      // bf16
 
 constexpr int OFF_R = 0;
-constexpr int OFF_BIG = OFF_R + NT * LDX * 4;
-constexpr int OFF_Y = OFF_BIG + NT * LDQKV * 2;
-constexpr int OFF_O = OFF_Y + NT * LDY * 2;
-constexpr int OFF_S = OFF_O + NT * LDO * 2;
-constexpr int OFF_P = OFF_S + NT * LDS * 4;
-constexpr int OFF_STG = OFF_P + NT * LDP * 2;
+constexpr int OFF_BIG = OFF_R + NTP * LDX * 4;
+constexpr int OFF_Y = OFF_BIG + NTP * LDQKV * 2;
+constexpr int OFF_O = OFF_Y + NTP * LDY * 2;
+constexpr int OFF_S = OFF_O + NTP * LDO * 2;
+constexpr int OFF_P = OFF_S + NTP * LDS * 4;
+constexpr int OFF_STG = OFF_P + NTP * LDP * 2;
 constexpr int OFF_STAT = OFF_STG + NWARPS * 256 * 4;
-constexpr int SMEM_BYTES = OFF_STAT + 4 * NT * 4;
+constexpr int SMEM_BYTES = OFF_STAT + 4 * NTP * 4;
 static_assert(SMEM_BYTES <= 232448, "over the 227 KB shared-memory limit");
-static_assert(NT * LDH <= NT * LDQKV, "the MLP gradient must fit the qkv buffer");
-static_assert(NT * LDX * 4 <= OFF_S - OFF_Y, "fp32 dy must fit the two bf16 buffers");
-static_assert(NT * LDS * 4 <= OFF_O - OFF_Y, "fp32 dA must fit the first bf16 buffer");
+static_assert(NTP * LDH <= NTP * LDQKV, "the MLP gradient must fit the qkv buffer");
+static_assert(NTP * LDX * 4 <= OFF_S - OFF_Y, "fp32 dy must fit the two bf16 buffers");
+static_assert(NTP * LDS * 4 <= OFF_O - OFF_Y, "fp32 dA must fit the first bf16 buffer");
 static_assert(OFF_BIG % 128 == 0 && OFF_Y % 128 == 0 && OFF_O % 128 == 0 && OFF_S % 128 == 0 &&
                   OFF_P % 128 == 0 && OFF_STG % 128 == 0 && OFF_STAT % 128 == 0,
               "shared buffers must stay 128-byte aligned");
 
 // Offsets in a window's fp32 partial-sum vector (kernels/fused_block.py
-// _VEC_OFFSETS); the per-head dS [nh][64][64] follows at VEC_LEN.
+// _VEC_OFFSETS); the per-head dS [nh][N][N] (N = ws^2) follows at VEC_LEN.
 constexpr int V_G1 = 0, V_B1 = CP, V_G2 = 2 * CP, V_B2 = 3 * CP, V_BQKV = 4 * CP,
               V_BPROJ = 7 * CP, V_BFC1 = 8 * CP, V_BFC2 = 8 * CP + HIDP, VEC_LEN = 9 * CP + HIDP;
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragAt;
 
 struct BwdArgs {
   const bf16* ct;
   const bf16* x;
+  const bf16* extra;  // [batch, h, w, c] or null
   bf16* dx;
+  bf16* dextra;       // written when extra is not null
   const float* g1;
   const float* b1;
   const float* g2;
@@ -109,10 +124,10 @@ struct BwdArgs {
   const float* bfc1;
   const bf16* wfc2;   // [CP, HIDP]
   const float* bfc2;
-  const float* rpb;
-  const float* mask;
+  const float* rpb;   // [nh, N, N]
+  const float* mask;  // [nW, N, N] or null
   const float* scales;
-  // workspace, [tokens][cols] with tokens in window-major order
+  // workspace, [tokens][cols] with tokens (NTP per window) in window-major order
   bf16* g_yc;    // CP
   bf16* g_qkv;   // QKVP
   bf16* g_o;     // CP
@@ -130,54 +145,10 @@ struct BwdArgs {
   float eps;
 };
 
-// Copy `cols` (a multiple of 8) bf16 columns of the window's 64 rows.
-__device__ __forceinline__ void copy_rows(const bf16* src, int lds, bf16* dst, int ldd, int cols,
-                                          int tid) {
-  const int vpr = cols / 8;
-  for (int i = tid; i < NT * vpr; i += NTHREADS) {
-    const int r = i / vpr, cv = (i % vpr) * 8;
-    *reinterpret_cast<uint4*>(dst + static_cast<long long>(r) * ldd + cv) =
-        *reinterpret_cast<const uint4*>(src + static_cast<long long>(r) * lds + cv);
-  }
-}
-
-// out[j] = sum over the 64 rows of bf16 column j (fp32 sum).
-__device__ __forceinline__ void column_sums(const bf16* src, int lds, int cols, float* out,
-                                            int tid) {
-  for (int j = tid; j < cols; j += NTHREADS) {
-    float s = 0.f;
-    for (int t = 0; t < NT; ++t) s += __bfloat162float(src[t * lds + j]);
-    out[j] = s;
-  }
-}
-
-// LayerNorm rows of xs into bf16 ys (zero pad), recording mean and rstd.
-__device__ __forceinline__ void layernorm_rows_stats(const float* xs, bf16* ys, const float* g,
-                                                     const float* b, int c, float eps, int warp,
-                                                     int lane, float* mu_out, float* r_out) {
-  const float inv_c = 1.f / static_cast<float>(c);
-  for (int t = warp; t < NT; t += NWARPS) {
-    float s = 0.f, sq = 0.f;
-    for (int i = lane; i < c; i += 32) {
-      const float v = xs[t * LDX + i];
-      s += v;
-      sq += v * v;
-    }
-    s = warp_sum(s);
-    sq = warp_sum(sq);
-    const float mu = s * inv_c;
-    const float rstd = rsqrtf(fmaxf(sq * inv_c - mu * mu, 0.f) + eps);
-    if (lane == 0) {
-      mu_out[t] = mu;
-      r_out[t] = rstd;
-    }
-    for (int i = lane; i < CP; i += 32)
-      ys[t * LDY + i] = i < c ? __float2bfloat16((xs[t * LDX + i] - mu) * rstd * g[i] + b[i])
-                              : __float2bfloat16(0.f);
-  }
-}
-
+template <int WS>
 __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_window(const BwdArgs a) {
+  constexpr int NT = WS * WS;  // real tokens per window
+  static_assert(NT <= NTP && NTP - NT < 16, "the token pad must stay under one WMMA tile");
   extern __shared__ __align__(128) unsigned char smem[];
   float* rs = reinterpret_cast<float*>(smem + OFF_R);     // x, x1, then ct, dx1
   bf16* big = reinterpret_cast<bf16*>(smem + OFF_BIG);    // qkv / dh1 / qkv / dqkv
@@ -188,9 +159,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_window(const BwdAr
   float* ss = reinterpret_cast<float*>(smem + OFF_S);     // scores, then A (fp32)
   bf16* ps = reinterpret_cast<bf16*>(smem + OFF_P);       // A, then dS (bf16)
   float* mu1 = reinterpret_cast<float*>(smem + OFF_STAT);
-  float* r1 = mu1 + NT;
-  float* mu2 = r1 + NT;
-  float* r2 = mu2 + NT;
+  float* r1 = mu1 + NTP;
+  float* mu2 = r1 + NTP;
+  float* r2 = mu2 + NTP;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   float* stg = reinterpret_cast<float*>(smem + OFF_STG) + warp * 256;
@@ -202,12 +173,13 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_window(const BwdAr
   const int c = a.c;
   const float m1 = a.scales ? a.scales[2 * bidx] : 1.f;
   const float m2 = a.scales ? a.scales[2 * bidx + 1] : 1.f;
-  const long long row0 = static_cast<long long>(blockIdx.x) * NT;
+  const long long row0 = static_cast<long long>(blockIdx.x) * NTP;
   float* part = a.part + static_cast<long long>(blockIdx.x) * a.vec_len;
 
+  // element offset of the window's token t (< NT) in x, extra, ct, dx, dextra
   auto token_offset = [&](int t) -> long long {
-    const int r = (wy * WS + (t >> 3) + a.shift) % a.h;
-    const int q = (wx * WS + (t & 7) + a.shift) % a.w;
+    const int r = (wy * WS + t / WS + a.shift) % a.h;
+    const int q = (wx * WS + t % WS + a.shift) % a.w;
     return ((static_cast<long long>(bidx) * a.h + r) * a.w + q) * c;
   };
   auto grow = [&](bf16* base, int ld, int r) { return base + (row0 + r) * ld; };
@@ -215,15 +187,17 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_window(const BwdAr
   Acc acc[4];
 
   // ================= forward recompute =================
-  for (int t = warp; t < NT; t += NWARPS) {
-    const bf16* xr = a.x + token_offset(t);
-    for (int i = lane; i < CP; i += 32) rs[t * LDX + i] = i < c ? __bfloat162float(xr[i]) : 0.f;
+  for (int t = warp; t < NTP; t += NWARPS) {
+    const bf16* xr = t < NT ? a.x + token_offset(t) : nullptr;
+    for (int i = lane; i < CP; i += 32)
+      rs[t * LDX + i] = (xr && i < c) ? __bfloat162float(xr[i]) : 0.f;
   }
-  for (int i = tid; i < NT * LDO; i += NTHREADS) os[i] = __float2bfloat16(0.f);
+  for (int i = tid; i < NTP * LDO; i += NTHREADS) os[i] = __float2bfloat16(0.f);
   __syncwarp();
-  layernorm_rows_stats(rs, ys, a.g1, a.b1, c, a.eps, warp, lane, mu1, r1);
+  layernorm_rows<NTP, NWARPS>(rs, LDX, ys, LDY, CP, a.g1, a.b1, c, a.eps, warp, lane, mu1,
+                              r1);
   __syncthreads();
-  copy_rows(ys, LDY, a.g_yc + row0 * CP, CP, CP, tid);
+  copy_rows<NTP, NTHREADS>(ys, LDY, a.g_yc + row0 * CP, CP, CP, tid);
 
   // qkv = yc @ Wqkv^T + bqkv -> bf16 (shared and workspace)
   for (int strip = warp; strip < QKVP / 16; strip += NWARPS) {
@@ -258,20 +232,36 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_window(const BwdAr
       wmma::store_matrix_sync(ss + mt * 16 * LDS + nt * 16, s, LDS, wmma::mem_row_major);
     }
   };
-  // softmax(S + rpb + mask) in fp32: A kept in ss (fp32) and ps (bf16)
+  // softmax(S + rpb + mask) in fp32: A kept in ss (fp32) and ps (bf16).
+  // Pad key columns get -inf (probability 0); pad query rows get no bias
+  // (finite; their cotangent is zero).  Column 0 is always a real key.
   auto softmax = [&](int hh) {
     const float* rp = a.rpb + static_cast<long long>(hh) * NT * NT;
-    for (int r = warp * 4 + (lane >> 3); r < NT; r += NWARPS * 4) {
+    for (int r = warp * 4 + (lane >> 3); r < NTP; r += NWARPS * 4) {
       const int c0 = (lane & 7) * 8;
-      float v[8], t[8];
+      float v[8];
       load8(v, ss + r * LDS + c0);
-      load8(t, rp + r * NT + c0);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] += t[i];
-      if (mwin) {
-        load8(t, mwin + r * NT + c0);
+      if constexpr (NT == NTP) {
+        float t[8];
+        load8(t, rp + r * NT + c0);
 #pragma unroll
         for (int i = 0; i < 8; ++i) v[i] += t[i];
+        if (mwin) {
+          load8(t, mwin + r * NT + c0);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) v[i] += t[i];
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int col = c0 + i;
+          if (col >= NT) {
+            v[i] = -__int_as_float(0x7f800000);  // -inf
+          } else if (r < NT) {
+            v[i] += rp[r * NT + col];
+            if (mwin) v[i] += mwin[r * NT + col];
+          }
+        }
       }
       float m = v[0];
 #pragma unroll
@@ -303,7 +293,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_window(const BwdAr
       Acc o;
       wmma::fill_fragment(o, 0.f);
 #pragma unroll
-      for (int k = 0; k < NT; k += 16) {
+      for (int k = 0; k < NTP; k += 16) {
         FragA fa;
         FragB fb;
         wmma::load_matrix_sync(fa, ps + mt * 16 * LDP + k, LDP);
@@ -319,7 +309,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_window(const BwdAr
     }
   }
   __syncthreads();
-  copy_rows(os, LDO, a.g_o + row0 * CP, CP, CP, tid);
+  copy_rows<NTP, NTHREADS>(os, LDO, a.g_o + row0 * CP, CP, CP, tid);
 
   // x1 = x + m1 * (o @ Wproj^T + bproj), fp32 in place
   for (int strip = warp; strip < CP / 16; strip += NWARPS) {
@@ -335,14 +325,22 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_window(const BwdAr
     });
   }
   __syncthreads();
-  layernorm_rows_stats(rs, ys, a.g2, a.b2, c, a.eps, warp, lane, mu2, r2);
-  for (int i = tid; i < NT * CP / 4; i += NTHREADS) {
+  // x1 += extra (unscaled), in LN2's (row, lane) mapping
+  if (a.extra) {
+    for (int t = warp; t < NT; t += NWARPS) {
+      const bf16* er = a.extra + token_offset(t);
+      for (int i = lane; i < c; i += 32) rs[t * LDX + i] += __bfloat162float(er[i]);
+    }
+  }
+  layernorm_rows<NTP, NWARPS>(rs, LDX, ys, LDY, CP, a.g2, a.b2, c, a.eps, warp, lane, mu2,
+                              r2);
+  __syncthreads();
+  for (int i = tid; i < NTP * CP / 4; i += NTHREADS) {
     const int r = i / (CP / 4), cv = (i % (CP / 4)) * 4;
     *reinterpret_cast<float4*>(a.g_x1 + (row0 + r) * CP + cv) =
         *reinterpret_cast<const float4*>(rs + r * LDX + cv);
   }
-  __syncthreads();
-  copy_rows(ys, LDY, a.g_y2c + row0 * CP, CP, CP, tid);
+  copy_rows<NTP, NTHREADS>(ys, LDY, a.g_y2c + row0 * CP, CP, CP, tid);
 
   // h1 = y2c @ Wfc1^T + bfc1 (fp32 to the workspace), a = bf16(gelu(h1))
   for (int strip = warp; strip < HIDP / 16; strip += NWARPS) {
@@ -362,18 +360,18 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_window(const BwdAr
   __syncthreads();
 
   // ================= backward =================
-  // ct -> rs (fp32), dmlp = bf16(ct m2) -> ys
-  for (int t = warp; t < NT; t += NWARPS) {
-    const bf16* cr = a.ct + token_offset(t);
+  // ct -> rs (fp32, pad rows zero), dmlp = bf16(ct m2) -> ys
+  for (int t = warp; t < NTP; t += NWARPS) {
+    const bf16* cr = t < NT ? a.ct + token_offset(t) : nullptr;
     for (int i = lane; i < CP; i += 32) {
-      const float v = i < c ? __bfloat162float(cr[i]) : 0.f;
+      const float v = (cr && i < c) ? __bfloat162float(cr[i]) : 0.f;
       rs[t * LDX + i] = v;
       ys[t * LDY + i] = __float2bfloat16(v * m2);
     }
   }
   __syncthreads();
-  copy_rows(ys, LDY, a.g_dmlp + row0 * CP, CP, CP, tid);
-  column_sums(ys, LDY, CP, part + V_BFC2, tid);
+  copy_rows<NTP, NTHREADS>(ys, LDY, a.g_dmlp + row0 * CP, CP, CP, tid);
+  column_sums<NTP, NTHREADS>(ys, LDY, CP, part + V_BFC2, tid);
 
   // dh1 = bf16((dmlp @ Wfc2) * gelu'(h1)) -> big
   for (int strip = warp; strip < HIDP / 16; strip += NWARPS) {
@@ -389,7 +387,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_window(const BwdAr
     });
   }
   __syncthreads();
-  column_sums(big, LDH, HIDP, part + V_BFC1, tid);
+  column_sums<NTP, NTHREADS>(big, LDH, HIDP, part + V_BFC1, tid);
 
   // dy2 = dh1 @ Wfc1 -> dys (fp32)
   for (int strip = warp; strip < CP / 16; strip += NWARPS) {
@@ -400,40 +398,22 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_window(const BwdAr
   }
   __syncthreads();
 
-  // LN2 backward: dg2, db2 partials; dx1 = ct + r2 (dyg - mean(dyg) - n2 mean(dyg n2))
-  for (int j = tid; j < c; j += NTHREADS) {
-    float sdn = 0.f, sd = 0.f;
-    for (int t = 0; t < NT; ++t) {
-      const float dy = dys[t * LDX + j];
-      sdn += dy * (a.g_x1[(row0 + t) * CP + j] - mu2[t]) * r2[t];
-      sd += dy;
-    }
-    part[V_G2 + j] = sdn;
-    part[V_B2 + j] = sd;
-  }
-  const float inv_c = 1.f / static_cast<float>(c);
-  auto ln_backward_rows = [&](const float* g, const float* mu, const float* rr, auto x_at) {
+  // LN2 backward over the real rows (dy2 is zero on the pad rows): dg2,
+  // db2 partials; dx1 = ct + LN2^T(dy2) in rs
+  layernorm_backward_rows<NWARPS, NTHREADS>(
+      dys, rs, LDX, a.g2, mu2, r2, [&](int t, int i) { return a.g_x1[(row0 + t) * CP + i]; },
+      NT, c, part + V_G2, part + V_B2, tid, warp, lane);
+  // dextra = dx1 at the same pixels (each lane reads back what it wrote)
+  if (a.extra) {
     for (int t = warp; t < NT; t += NWARPS) {
-      float s1 = 0.f, s2 = 0.f;
-      for (int i = lane; i < c; i += 32) {
-        const float dyg = dys[t * LDX + i] * g[i];
-        s1 += dyg;
-        s2 += dyg * (x_at(t, i) - mu[t]) * rr[t];
-      }
-      s1 = warp_sum(s1) * inv_c;
-      s2 = warp_sum(s2) * inv_c;
-      for (int i = lane; i < c; i += 32) {
-        const float n = (x_at(t, i) - mu[t]) * rr[t];
-        rs[t * LDX + i] += rr[t] * (dys[t * LDX + i] * g[i] - s1 - n * s2);
-      }
+      bf16* dr = a.dextra + token_offset(t);
+      for (int i = lane; i < c; i += 32) dr[i] = __float2bfloat16(rs[t * LDX + i]);
     }
-  };
-  ln_backward_rows(a.g2, mu2, r2,
-                   [&](int t, int i) { return a.g_x1[(row0 + t) * CP + i]; });
+  }
   __syncthreads();
 
   // dattn = bf16(dx1 m1) -> ys
-  for (int i = tid; i < NT * CP / 8; i += NTHREADS) {
+  for (int i = tid; i < NTP * CP / 8; i += NTHREADS) {
     const int r = i / (CP / 8), cv = (i % (CP / 8)) * 8;
     float v[8];
     load8(v, rs + r * LDX + cv);
@@ -442,10 +422,10 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_window(const BwdAr
     store8_bf16(ys + r * LDY + cv, v);
   }
   __syncthreads();
-  copy_rows(ys, LDY, a.g_dattn + row0 * CP, CP, CP, tid);
-  column_sums(ys, LDY, CP, part + V_BPROJ, tid);
+  copy_rows<NTP, NTHREADS>(ys, LDY, a.g_dattn + row0 * CP, CP, CP, tid);
+  column_sums<NTP, NTHREADS>(ys, LDY, CP, part + V_BPROJ, tid);
   // qkv back from the workspace into big (dh1 is no longer needed)
-  copy_rows(a.g_qkv + row0 * QKVP, QKVP, big, LDQKV, QKVP, tid);
+  copy_rows<NTP, NTHREADS>(a.g_qkv + row0 * QKVP, QKVP, big, LDQKV, QKVP, tid);
   // do = bf16(dattn @ Wproj) -> os
   for (int strip = warp; strip < CP / 16; strip += NWARPS) {
     const int n0 = strip * 16;
@@ -475,7 +455,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_window(const BwdAr
       if (tile < 8) {  // dV = A^T do  (rows: keys)
         const int mt = tile >> 1, nt = tile & 1;
 #pragma unroll
-        for (int k = 0; k < NT; k += 16) {
+        for (int k = 0; k < NTP; k += 16) {
           FragAt fa;
           FragB fb;
           wmma::load_matrix_sync(fa, ps + k * LDP + mt * 16, LDP);
@@ -499,7 +479,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_window(const BwdAr
     __syncthreads();
     // dS = A (dA - rowsum(dA A)): fp32 partial for d rpb, bf16 into ps
     float* dsp = part + VEC_LEN + static_cast<long long>(hh) * NT * NT;
-    for (int r = warp * 4 + (lane >> 3); r < NT; r += NWARPS * 4) {
+    for (int r = warp * 4 + (lane >> 3); r < NTP; r += NWARPS * 4) {
       const int c0 = (lane & 7) * 8;
       float p[8], d[8];
       load8(p, ss + r * LDS + c0);
@@ -511,7 +491,13 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_window(const BwdAr
       for (int o = 4; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
 #pragma unroll
       for (int i = 0; i < 8; ++i) d[i] = p[i] * (d[i] - dot);
-      store8_f32(dsp + r * NT + c0, d);
+      if constexpr (NT == NTP) {
+        store8_f32(dsp + r * NT + c0, d);
+      } else if (r < NT) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (c0 + i < NT) dsp[r * NT + c0 + i] = d[i];
+      }
       store8_bf16(ps + r * LDP + c0, d);
     }
     __syncthreads();
@@ -521,7 +507,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_window(const BwdAr
       wmma::fill_fragment(t, 0.f);
       if (tile < 8) {  // dQ = dS K
 #pragma unroll
-        for (int k = 0; k < NT; k += 16) {
+        for (int k = 0; k < NTP; k += 16) {
           FragA fa;
           FragB fb;
           wmma::load_matrix_sync(fa, ps + mt * 16 * LDP + k, LDP);
@@ -531,7 +517,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_window(const BwdAr
         tile_to_dqkv(t, mt * 16, hh * HDP + nt * 16);
       } else {  // dK = dS^T Q
 #pragma unroll
-        for (int k = 0; k < NT; k += 16) {
+        for (int k = 0; k < NTP; k += 16) {
           FragAt fa;
           FragB fb;
           wmma::load_matrix_sync(fa, ps + k * LDP + mt * 16, LDP);
@@ -545,7 +531,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_window(const BwdAr
   }
 
   // dqkv from the workspace into big; heads >= nh are zero (also written)
-  for (int i = tid; i < NT * QKVP / 8; i += NTHREADS) {
+  for (int i = tid; i < NTP * QKVP / 8; i += NTHREADS) {
     const int r = i / (QKVP / 8), cv = (i % (QKVP / 8)) * 8;
     bf16* g = grow(a.g_dqkv, QKVP, r) + cv;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
@@ -557,7 +543,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_window(const BwdAr
     *reinterpret_cast<uint4*>(big + r * LDQKV + cv) = v;
   }
   __syncthreads();
-  column_sums(big, LDQKV, QKVP, part + V_BQKV, tid);
+  column_sums<NTP, NTHREADS>(big, LDQKV, QKVP, part + V_BQKV, tid);
 
   // dy = dqkv @ Wqkv -> dys (fp32)
   for (int strip = warp; strip < CP / 16; strip += NWARPS) {
@@ -568,19 +554,12 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_window(const BwdAr
   }
   __syncthreads();
 
-  // LN1 backward (x re-read at its shifted pixels); dx -> the same pixels
-  auto x_at = [&](int t, int i) { return __bfloat162float(a.x[token_offset(t) + i]); };
-  for (int j = tid; j < c; j += NTHREADS) {
-    float sdn = 0.f, sd = 0.f;
-    for (int t = 0; t < NT; ++t) {
-      const float dy = dys[t * LDX + j];
-      sdn += dy * (x_at(t, j) - mu1[t]) * r1[t];
-      sd += dy;
-    }
-    part[V_G1 + j] = sdn;
-    part[V_B1 + j] = sd;
-  }
-  ln_backward_rows(a.g1, mu1, r1, x_at);
+  // LN1 backward over the real rows (x re-read at its shifted pixels);
+  // dx -> the same pixels
+  layernorm_backward_rows<NWARPS, NTHREADS>(
+      dys, rs, LDX, a.g1, mu1, r1,
+      [&](int t, int i) { return __bfloat162float(a.x[token_offset(t) + i]); }, NT, c,
+      part + V_G1, part + V_B1, tid, warp, lane);
   __syncwarp();
   for (int t = warp; t < NT; t += NWARPS) {
     bf16* dr = a.dx + token_offset(t);
@@ -588,120 +567,39 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_window(const BwdAr
   }
 }
 
-// ---- K5b: dW[m][n] = sum_t G[t][m] Act[t][n] over one row chunk ----
-constexpr int WG_TILE = 64;
-constexpr int WG_STEP = 64;
-constexpr int WG_LD = WG_TILE + 8;
-constexpr int WG_THREADS = 128;
-
-struct WGemm {
-  const bf16* g;    // [tokens][m]
-  const bf16* act;  // [tokens][n]
-  int m, n;
-  long long out_off;  // offset of this product in a chunk's partial
-  int tile0;          // first tile index of this product
-};
-
-struct WGradArgs {
-  WGemm gemm[4];
-  long long tokens;
-  int rows;  // rows per chunk (a multiple of WG_STEP)
-  float* part;  // [chunks][total outputs]
-  long long part_stride;
-};
-
-__global__ void __launch_bounds__(WG_THREADS) wgrad_kernel(const WGradArgs a) {
-  __shared__ __align__(128) bf16 sg[WG_STEP * WG_LD];
-  __shared__ __align__(128) bf16 sa[WG_STEP * WG_LD];
-  int gi = 0;
-  while (gi < 3 && static_cast<int>(blockIdx.x) >= a.gemm[gi + 1].tile0) ++gi;
-  const WGemm gm = a.gemm[gi];
-  const int local = blockIdx.x - gm.tile0;
-  const int tiles_n = gm.n / WG_TILE;
-  const int m0 = (local / tiles_n) * WG_TILE, n0 = (local % tiles_n) * WG_TILE;
-  const long long t_begin = static_cast<long long>(blockIdx.y) * a.rows;
-  const long long t_end = t_begin + a.rows < a.tokens ? t_begin + a.rows : a.tokens;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-
-  Acc acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (long long t0 = t_begin; t0 < t_end; t0 += WG_STEP) {
-    for (int i = tid; i < WG_STEP * WG_TILE / 8; i += WG_THREADS) {
-      const int r = i / (WG_TILE / 8), cv = (i % (WG_TILE / 8)) * 8;
-      *reinterpret_cast<uint4*>(sg + r * WG_LD + cv) =
-          *reinterpret_cast<const uint4*>(gm.g + (t0 + r) * gm.m + m0 + cv);
-      *reinterpret_cast<uint4*>(sa + r * WG_LD + cv) =
-          *reinterpret_cast<const uint4*>(gm.act + (t0 + r) * gm.n + n0 + cv);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < WG_STEP; k += 16) {
-      FragAt fa[2];
-      FragB fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(fa[i], sg + k * WG_LD + wm + i * 16, WG_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(fb[j], sa + k * WG_LD + wn + j * 16, WG_LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  float* out = a.part + blockIdx.y * a.part_stride + gm.out_off;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(out + static_cast<long long>(m0 + wm + i * 16) * gm.n + n0 + wn +
-                                  j * 16,
-                              acc[i][j], gm.n, wmma::mem_row_major);
-}
-
-// ---- K5c: out[j] = sum_r part[r][j], rows summed in order ----
-__global__ void reduce_rows_kernel(const float* part, long long nrows, long long ncols,
-                                   float* out) {
-  const long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (j >= ncols) return;
-  float s = 0.f;
-  for (long long r = 0; r < nrows; ++r) s += part[r * ncols + j];
-  out[j] = s;
-}
-
-int reduce_rows(const float* part, long long nrows, long long ncols, float* out,
-                cudaStream_t stream) {
-  const unsigned int blocks = static_cast<unsigned int>((ncols + 255) / 256);
-  reduce_rows_kernel<<<blocks, 256, 0, stream>>>(part, nrows, ncols, out);
+template <int WS>
+int launch_bwd_window(const BwdArgs& a, long long windows, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      swin_block_bwd_window<WS>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  swin_block_bwd_window<WS>
+      <<<static_cast<unsigned int>(windows), NTHREADS, SMEM_BYTES, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int sr_swin_block_bwd_bf16(
-    const void* ct, const void* x, void* dx, const void* g1, const void* b1, const void* g2,
-    const void* b2, const void* wqkv, const void* bqkv, const void* wproj, const void* bproj,
-    const void* wfc1, const void* bfc1, const void* wfc2, const void* bfc2, const void* rpb,
-    const void* mask, const void* scales, void* ws16, void* ws32, void* part_win, void* part_w,
-    void* vec, void* wgrad, int batch, int h, int w, int c, int nh, int shift, int gelu_tanh,
-    float eps, int splits, int rows, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(swin_block_bwd_window,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long windows = static_cast<long long>(batch) * (h / WS) * (w / WS);
+    const void* ct, const void* x, const void* extra, void* dx, void* dextra, const void* g1,
+    const void* b1, const void* g2, const void* b2, const void* wqkv, const void* bqkv,
+    const void* wproj, const void* bproj, const void* wfc1, const void* bfc1, const void* wfc2,
+    const void* bfc2, const void* rpb, const void* mask, const void* scales, void* ws16,
+    void* ws32, void* part_win, void* part_w, void* vec, void* wgrad, int batch, int h, int w,
+    int c, int nh, int ws, int shift, int gelu_tanh, float eps, int splits, int rows,
+    void* stream) {
+  if (ws != 7 && ws != 8) return static_cast<int>(cudaErrorInvalidValue);
+  const long long windows = static_cast<long long>(batch) * (h / ws) * (w / ws);
   if (windows == 0) return 0;
-  const long long tokens = windows * NT;
+  const long long tokens = windows * NTP;  // workspace rows
+  const int nt = ws * ws;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 
   BwdArgs a;
   a.ct = static_cast<const bf16*>(ct);
   a.x = static_cast<const bf16*>(x);
+  a.extra = static_cast<const bf16*>(extra);
   a.dx = static_cast<bf16*>(dx);
+  a.dextra = static_cast<bf16*>(dextra);
   a.g1 = static_cast<const float*>(g1);
   a.b1 = static_cast<const float*>(b1);
   a.g2 = static_cast<const float*>(g2);
@@ -730,7 +628,7 @@ extern "C" int sr_swin_block_bwd_bf16(
   a.g_x1 = static_cast<float*>(ws32);
   a.g_h1 = a.g_x1 + tokens * CP;
   a.part = static_cast<float*>(part_win);
-  a.vec_len = VEC_LEN + nh * NT * NT;
+  a.vec_len = VEC_LEN + nh * nt * nt;
   a.batch = batch;
   a.h = h;
   a.w = w;
@@ -739,38 +637,17 @@ extern "C" int sr_swin_block_bwd_bf16(
   a.shift = shift;
   a.gelu_tanh = gelu_tanh;
   a.eps = eps;
-  swin_block_bwd_window<<<static_cast<unsigned int>(windows), NTHREADS, SMEM_BYTES, st>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int status = ws == 8 ? launch_bwd_window<8>(a, windows, st)
+                             : launch_bwd_window<7>(a, windows, st);
+  if (status != 0) return status;
 
-  WGradArgs g;
   const bf16* gs[] = {a.g_dqkv, a.g_dattn, a.g_dh1, a.g_dmlp};
   const bf16* acts[] = {a.g_yc, a.g_o, a.g_y2c, a.g_act};
   const int ms[] = {QKVP, CP, HIDP, CP};
   const int ns[] = {CP, CP, CP, HIDP};
-  long long off = 0;
-  int tiles = 0;
-  for (int i = 0; i < 4; ++i) {
-    g.gemm[i].g = gs[i];
-    g.gemm[i].act = acts[i];
-    g.gemm[i].m = ms[i];
-    g.gemm[i].n = ns[i];
-    g.gemm[i].out_off = off;
-    g.gemm[i].tile0 = tiles;
-    off += static_cast<long long>(ms[i]) * ns[i];
-    tiles += (ms[i] / WG_TILE) * (ns[i] / WG_TILE);
-  }
-  g.tokens = tokens;
-  g.rows = rows;
-  g.part = static_cast<float*>(part_w);
-  g.part_stride = off;
-  wgrad_kernel<<<dim3(tiles, splits), WG_THREADS, 0, st>>>(g);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const int status = reduce_rows(static_cast<const float*>(part_w), splits, off,
-                                 static_cast<float*>(wgrad), st);
-  if (status != 0) return status;
+  const int wstatus = weight_grads(gs, acts, ms, ns, 4, tokens, splits, rows,
+                                   static_cast<float*>(part_w), static_cast<float*>(wgrad), st);
+  if (wstatus != 0) return wstatus;
   return reduce_rows(static_cast<const float*>(part_win), windows, a.vec_len,
                      static_cast<float*>(vec), st);
 }

@@ -1,5 +1,6 @@
 // WMMA helpers shared by the Swin block kernels (K1/K6 csrc/swin_block.cu,
-// K5 csrc/swin_block_bwd.cu): 16x16x16 bf16 fragments with fp32
+// K5/K6b csrc/swin_block_bwd.cu) and the OCAB kernels (K8/K8b
+// csrc/ocab.cu): 16x16x16 bf16 fragments with fp32
 // accumulation, 64-row strip GEMMs against weights read straight from
 // global memory, and the staged epilogue that hands each lane eight
 // consecutive accumulator columns.
@@ -17,6 +18,7 @@ typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBt;
+typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragAt;
 
 // acc[mt] = A[64 x K_DIM] (shared, row-major) @ W[n0:n0+16, 0:K_DIM]^T
 // (W global, [out, in] row-major with leading dimension K_DIM), for the
@@ -115,6 +117,101 @@ __device__ __forceinline__ void gemm_strip_kn(Acc (&acc)[4], const bf16* a, int 
 __device__ __forceinline__ void store8_f32(float* dst, const float (&v)[8]) {
   reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
   reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// LayerNorm of the fp32 rows xs[t][0:c] into bf16 ys[t][0:cpad] (zero
+// past c), for ROWS rows: fp32 fast-variance statistics (E[x^2] - E[x]^2
+// clamped at 0).  Row t belongs to warp t % NWARPS and column i to lane
+// i % 32, the mapping every per-token pass of the kernels uses.  Each
+// row's mean and rstd go to mu_out / r_out when those are not null.
+template <int ROWS, int NWARPS>
+__device__ __forceinline__ void layernorm_rows(const float* xs, int ldx, bf16* ys, int ldy,
+                                               int cpad, const float* g, const float* b, int c,
+                                               float eps, int warp, int lane,
+                                               float* mu_out = nullptr, float* r_out = nullptr) {
+  const float inv_c = 1.f / static_cast<float>(c);
+  for (int t = warp; t < ROWS; t += NWARPS) {
+    float s = 0.f, sq = 0.f;
+    for (int i = lane; i < c; i += 32) {
+      const float v = xs[t * ldx + i];
+      s += v;
+      sq += v * v;
+    }
+    s = warp_sum(s);
+    sq = warp_sum(sq);
+    const float mu = s * inv_c;
+    const float rstd = rsqrtf(fmaxf(sq * inv_c - mu * mu, 0.f) + eps);
+    if (mu_out && lane == 0) {
+      mu_out[t] = mu;
+      r_out[t] = rstd;
+    }
+    for (int i = lane; i < cpad; i += 32)
+      ys[t * ldy + i] = i < c ? __float2bfloat16((xs[t * ldx + i] - mu) * rstd * g[i] + b[i])
+                              : __float2bfloat16(0.f);
+  }
+}
+
+// The backward of layernorm_rows over its first `rows` rows, for the
+// fp32 cotangent dy of its output (row stride ld, as dx): dg[j] and
+// db[j] get the window's partial sums over those rows of dy n and dy
+// (thread j), and dx[t] += rstd (dy g - mean(dy g) - n mean(dy g n)) in
+// layernorm_rows' (row, lane) mapping, with n = (x - mu) rstd and
+// x_at(t, i) the forward's input.
+template <int NWARPS, int THREADS, typename XAt>
+__device__ __forceinline__ void layernorm_backward_rows(const float* dy, float* dx, int ld,
+                                                        const float* g, const float* mu,
+                                                        const float* rstd, XAt x_at, int rows,
+                                                        int c, float* dg, float* db, int tid,
+                                                        int warp, int lane) {
+  for (int j = tid; j < c; j += THREADS) {
+    float sdn = 0.f, sd = 0.f;
+    for (int t = 0; t < rows; ++t) {
+      const float d = dy[t * ld + j];
+      sdn += d * (x_at(t, j) - mu[t]) * rstd[t];
+      sd += d;
+    }
+    dg[j] = sdn;
+    db[j] = sd;
+  }
+  const float inv_c = 1.f / static_cast<float>(c);
+  for (int t = warp; t < rows; t += NWARPS) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int i = lane; i < c; i += 32) {
+      const float dyg = dy[t * ld + i] * g[i];
+      s1 += dyg;
+      s2 += dyg * (x_at(t, i) - mu[t]) * rstd[t];
+    }
+    s1 = warp_sum(s1) * inv_c;
+    s2 = warp_sum(s2) * inv_c;
+    for (int i = lane; i < c; i += 32) {
+      const float n = (x_at(t, i) - mu[t]) * rstd[t];
+      dx[t * ld + i] += rstd[t] * (dy[t * ld + i] * g[i] - s1 - n * s2);
+    }
+  }
+}
+
+// Copy `cols` (a multiple of 8) bf16 columns of ROWS rows, 16 bytes per
+// thread and step.
+template <int ROWS, int THREADS>
+__device__ __forceinline__ void copy_rows(const bf16* src, int lds, bf16* dst, int ldd, int cols,
+                                          int tid) {
+  const int vpr = cols / 8;
+  for (int i = tid; i < ROWS * vpr; i += THREADS) {
+    const int r = i / vpr, cv = (i % vpr) * 8;
+    *reinterpret_cast<uint4*>(dst + static_cast<long long>(r) * ldd + cv) =
+        *reinterpret_cast<const uint4*>(src + static_cast<long long>(r) * lds + cv);
+  }
+}
+
+// out[j] = the fp32 sum over ROWS rows of bf16 column j, j < cols.
+template <int ROWS, int THREADS>
+__device__ __forceinline__ void column_sums(const bf16* src, int lds, int cols, float* out,
+                                            int tid) {
+  for (int j = tid; j < cols; j += THREADS) {
+    float s = 0.f;
+    for (int t = 0; t < ROWS; ++t) s += __bfloat162float(src[t * lds + j]);
+    out[j] = s;
+  }
 }
 
 }  // namespace

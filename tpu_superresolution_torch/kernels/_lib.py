@@ -4,7 +4,8 @@ The sources under ``tpu_superresolution_torch/csrc/`` are compiled by
 ``nvcc`` into ONE shared library with a plain C interface the first time
 a kernel is launched (or when ``build()`` is called), into
 ``tpu_superresolution_torch/build/``, named by a hash of the sources and
-flags so an edited source rebuilds.  The library is loaded with
+flags so an edited source rebuilds.  Each ``.cu`` is compiled by its own
+``nvcc`` process, all started together, and the objects are linked.  The library is loaded with
 ``ctypes``: every pointer and the stream are passed as ``c_void_p``, and
 every entry point returns ``cudaGetLastError()``, which ``check_status``
 turns into an exception.
@@ -35,7 +36,7 @@ BUILD_DIR = PACKAGE_DIR / "build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -46,7 +47,9 @@ _SIGNATURES = {
     "sr_conv3x3_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "sr_conv_bf16": [_P, _P, _P, _P] + [_I] * 9 + [_P],
     "sr_swin_block_bf16": [_P] * 18 + [_I] * 8 + [ctypes.c_float, _P],
-    "sr_swin_block_bwd_bf16": [_P] * 24 + [_I] * 7 + [ctypes.c_float, _I, _I, _P],
+    "sr_swin_block_bwd_bf16": [_P] * 26 + [_I] * 8 + [ctypes.c_float, _I, _I, _P],
+    "sr_ocab_fwd_bf16": [_P] * 14 + [_I] * 6 + [ctypes.c_float, _P],
+    "sr_ocab_bwd_bf16": [_P] * 24 + [_I] * 6 + [ctypes.c_float, _I, _I, _P],
 }
 
 
@@ -93,7 +96,8 @@ def library_path() -> Path:
 
 
 def build(verbose: bool = False) -> Tuple[Path, float, str]:
-    """Compile the kernels unless the library for these sources exists.
+    """Compile the kernels unless the library for these sources exists:
+    one ``nvcc -c`` per source, all running at once, then one link.
     Returns (path, seconds spent, compiler output).  `verbose` adds
     ``-Xptxas -v`` (registers, shared memory and spills per kernel)."""
     out = library_path()
@@ -106,21 +110,37 @@ def build(verbose: bool = False) -> Tuple[Path, float, str]:
         try:
             if out.exists():  # built by another process while we waited
                 return out, time.perf_counter() - t0, ""
+            nvcc = find_nvcc()
+            objdir = BUILD_DIR / f"obj_{out.stem}_{os.getpid()}"
+            objdir.mkdir(exist_ok=True)
+            extra = ["-Xptxas", "-v"] if verbose else []
+            jobs = []
+            for src in (p for p in _sources() if p.suffix == ".cu"):
+                obj = objdir / (src.stem + ".o")
+                cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), *extra, "-c", str(src),
+                       "-o", str(obj)]
+                jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                        stderr=subprocess.STDOUT, text=True)))
+            log = []
+            failed = []
+            for cmd, _, proc in jobs:
+                text, _ = proc.communicate()
+                log.append(text)
+                if proc.returncode != 0:
+                    failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{text}")
+            if failed:
+                raise RuntimeError("\n".join(failed))
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR)]
-            if verbose:
-                cmd += ["-Xptxas", "-v"]
-            cmd += ["-o", str(tmp)] + [str(p) for p in _sources() if p.suffix == ".cu"]
+            cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp)] + [str(o) for _, o, _ in jobs]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                    f"{proc.stdout}\n{proc.stderr}"
-                )
+                raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                                   f"{proc.stdout}\n{proc.stderr}")
             os.replace(tmp, out)
+            shutil.rmtree(objdir, ignore_errors=True)
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
-    return out, time.perf_counter() - t0, proc.stdout + proc.stderr
+    return out, time.perf_counter() - t0, "".join(log) + proc.stdout + proc.stderr
 
 
 @functools.lru_cache(maxsize=1)

@@ -1,6 +1,7 @@
 """The whole Swin transformer block forward (CUDA,
-``csrc/swin_block.cu``) for window size 8 (K1) and 7 (K6), and K5, the
-ws = 8 block backward (CUDA, ``csrc/swin_block_bwd.cu``).
+``csrc/swin_block.cu``) for window size 8 (K1) and 7 (K6), and its
+backward (CUDA, ``csrc/swin_block_bwd.cu``) for window size 8 (K5) and
+7 (K6's backward), both with HAT's additive term `extra`.
 
 The forward kernel computes, per window, with the cyclic shift in its
 address arithmetic:
@@ -26,14 +27,16 @@ computes exactly that composition.  The kernels take ws 7 or 8, C <=
 192, heads of hd <= 32 (at most 6), an MLP hidden <= 384 and
 qkv_bias=True, and raise otherwise.
 
-K5 ports ``_mega_backward`` -> ``_bwd_kernel``: recompute the forward,
-chain the cotangent, and return dx and the 13 parameter gradients.
-Training on CUDA goes through ``SwinBlockFunction``: its forward is K1
-and its backward is K5, with the gradients mapped from the kernels'
-packed layout back to the raw ``[out, in]`` parameters here (the
-counterpart of ``fused_block.py:1098-1105``).  A gradient through
-ws = 7 or through `extra` (K6's backward, HAT training) is not ported
-yet and raises.
+The backward ports ``_bwd_kernel`` as ``_mega_backward`` (K5) and
+``_packed_backward`` (K6) call it: recompute the forward, chain the
+cotangent, and return dx, the 13 parameter gradients and, when the
+forward had `extra`, its gradient (dx1, the cotangent of the attention
+residual).  Training on CUDA goes through ``SwinBlockFunction``: its
+forward is K1 / K6 and its backward K5 / K6's backward, with the
+gradients mapped from the kernels' packed layout back to the raw
+``[out, in]`` parameters here (the counterpart of
+``fused_block.py:1098-1105``).  Its ws-7 backward launches count as
+K6b.
 """
 
 from __future__ import annotations
@@ -55,20 +58,21 @@ from tpu_superresolution_torch.ops.window import (
 )
 
 # Compile-time sizes of csrc/swin_block.cu and csrc/swin_block_bwd.cu.
-KERNEL_WINDOWS = (7, 8)  # window sizes of the forward kernel
-WS = 8       # the window size of K5, the backward
+KERNEL_WINDOWS = (7, 8)  # window sizes of the forward and backward kernels
 CP = 192     # padded channels
 HDP = 32     # padded head dim
 HIDP = 384   # padded MLP hidden
 MAX_HEADS = CP // HDP
 LN_EPS = 1e-5
-N_TOK = WS * WS
+N_TOK = 64   # token rows per window in the kernels (ws^2, padded)
 
 launches = _lib.LaunchCounter("K1 swin_block ws8")
 launches_ws7 = _lib.LaunchCounter("K6 swin_block ws7")
 launches_bwd = _lib.LaunchCounter("K5 swin_block_bwd")
-# the counter of the forward kernel for each window size
+launches_bwd_ws7 = _lib.LaunchCounter("K6b swin_block_bwd ws7")
+# the counters of the forward and backward kernels for each window size
 FORWARD_COUNTERS = {8: launches, 7: launches_ws7}
+BACKWARD_COUNTERS = {8: launches_bwd, 7: launches_bwd_ws7}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,7 +121,8 @@ GRAD_FIELDS = ("g1", "b1", "wqkv", "bqkv", "wproj", "bproj", "g2", "b2",
 class SwinBlockGrads:
     """dx and the 13 parameter gradients of one block in raw weight
     space (fp32), with `rpb` the gradient of the gathered [nH, N, N]
-    bias (the scatter back to the table is the gather's autograd)."""
+    bias (the scatter back to the table is the gather's autograd), and
+    `extra` the gradient of the forward's `extra` (None without one)."""
 
     dx: torch.Tensor
     g1: torch.Tensor
@@ -133,6 +138,7 @@ class SwinBlockGrads:
     wfc2: torch.Tensor
     bfc2: torch.Tensor
     rpb: torch.Tensor
+    extra: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,13 +208,13 @@ def check_block_args(shape: Sequence[int], w: SwinBlockWeights, ws: int, shift: 
 
 
 def check_differentiable(ws: int, extra: Optional[torch.Tensor], name: str) -> None:
-    """Only the ws = 8 block without `extra` has a backward kernel (K5);
-    K6's backward with extra's gradient is the HAT-training slice."""
-    if ws != WS or extra is not None:
+    """The backward kernel takes the forward's windows (K5 at ws 8, K6's
+    backward at ws 7), with or without `extra`; raise for any other."""
+    if ws not in KERNEL_WINDOWS:
         raise NotImplementedError(
-            f"{name}: no backward kernel for ws={ws}{' with extra' if extra is not None else ''}"
-            " on CUDA: K6's backward (and HAT training) is the next slice of ROADMAP.md "
-            "Queue 2; run under torch.no_grad(), or on the CPU"
+            f"{name}: no backward kernel for ws={ws}"
+            f"{' with extra' if extra is not None else ''} on CUDA: the backward takes ws in "
+            f"{KERNEL_WINDOWS}; run under torch.no_grad(), or on the CPU"
         )
 
 
@@ -354,10 +360,13 @@ def _ln_backward(dy, n, r, g):
 
 def swin_block_bwd_plain(ct: torch.Tensor, x: torch.Tensor, w: SwinBlockWeights, ws: int,
                          shift: int, mask: Optional[torch.Tensor], gelu_approx: bool,
-                         branch_scales: Optional[torch.Tensor] = None) -> SwinBlockGrads:
-    """The plain PyTorch version of K5 (``fused_block._bwd_kernel``'s
-    math, written out): recompute the forward, then chain the cotangent
-    `ct` through MLP, LN2, proj, attention, qkv and LN1.  GEMM operands
+                         branch_scales: Optional[torch.Tensor] = None,
+                         extra: Optional[torch.Tensor] = None) -> SwinBlockGrads:
+    """The plain PyTorch version of K5 and K6's backward, any ws
+    (``fused_block._bwd_kernel``'s math, written out): recompute the
+    forward (`extra`, in x's frame, added unscaled to the attention
+    residual), then chain the cotangent `ct` through MLP, LN2, proj,
+    attention, qkv and LN1; d`extra` is dx1.  GEMM operands
     are cast to x's dtype at the kernel's points (yc, qkv, A, o, y2c,
     gelu output, dmlp, dh1, dattn, do, dS, dqkv) and multiplied in fp32,
     as the kernel's bf16 tensor-core products with fp32 accumulation do.
@@ -394,6 +403,8 @@ def swin_block_bwd_plain(ct: torch.Tensor, x: torch.Tensor, w: SwinBlockWeights,
     ac = f(a)
     o = f(torch.einsum("whqk,wkhd->wqhd", ac, v)).reshape(bw, n, c)
     x1 = xs + (o @ wp.t() + w.bproj.float()) * m1
+    if extra is not None:
+        x1 = x1 + window_partition(cyclic_shift(extra, shift).float(), ws)
     n2, r2 = _ln_stats(x1)
     y2c = f(n2 * w.g2.float() + w.b2.float())
     h1 = y2c @ wf1.t() + w.bfc1.float()
@@ -428,13 +439,13 @@ def swin_block_bwd_plain(ct: torch.Tensor, x: torch.Tensor, w: SwinBlockWeights,
     dbqkv[0] *= scale
     dy = dqkv @ wq
     dxf, dg1, db1 = _ln_backward(tok(dy), tok(n1), tok(r1), w.g1.float())
-    dx = (dx1 + dxf).reshape(bw, n, c)
     h, wd = x.shape[1], x.shape[2]
-    dx = cyclic_unshift(window_reverse(dx, ws, h, wd), shift).to(cdt)
+    to_map = lambda t: cyclic_unshift(window_reverse(t.reshape(bw, n, c), ws, h, wd), shift).to(cdt)
     return SwinBlockGrads(
-        dx=dx, g1=dg1, b1=db1, wqkv=dwqkv.reshape(3 * c, c), bqkv=dbqkv.reshape(3 * c),
-        wproj=dwproj, bproj=dbproj, g2=dg2, b2=db2, wfc1=dwfc1, bfc1=dbfc1,
-        wfc2=dwfc2, bfc2=dbfc2, rpb=drpb,
+        dx=to_map(dx1 + dxf), g1=dg1, b1=db1, wqkv=dwqkv.reshape(3 * c, c),
+        bqkv=dbqkv.reshape(3 * c), wproj=dwproj, bproj=dbproj, g2=dg2, b2=db2, wfc1=dwfc1,
+        bfc1=dbfc1, wfc2=dwfc2, bfc2=dbfc2, rpb=drpb,
+        extra=None if extra is None else to_map(dx1),
     )
 
 
@@ -517,50 +528,70 @@ K5_MAX_SPLITS = 16
 K5_MIN_ROWS_PER_SPLIT = 512
 # Per-window partial sums written by K5a: LN g1, b1, g2, b2 (CP each),
 # then the bias sums bqkv (3CP), bproj (CP), bfc1 (HIDP), bfc2 (CP);
-# the per-head dS [nh, 64, 64] follows.
+# the per-head dS [nh, ws^2, ws^2] follows.
 _VEC_OFFSETS = {"g1": 0, "b1": CP, "g2": 2 * CP, "b2": 3 * CP, "bqkv": 4 * CP,
                 "bproj": 7 * CP, "bfc1": 8 * CP, "bfc2": 8 * CP + HIDP}
+_VEC_SIZES = {"bqkv": 3 * CP, "bfc1": HIDP}
 K5_VEC = 9 * CP + HIDP
 # Weight-gradient GEMMs of K5b, [out, in] each, concatenated in this order.
 _WGRAD_SHAPES = (("wqkv", 3 * CP, CP), ("wproj", CP, CP), ("wfc1", HIDP, CP), ("wfc2", CP, HIDP))
 K5_WGRAD = sum(m * n for _, m, n in _WGRAD_SHAPES)
-# bf16 operand columns per token in K5's workspace: yc, qkv, o, y2c,
+# bf16 operand columns per token row in K5's workspace: yc, qkv, o, y2c,
 # act, dmlp, dh1, dattn, dqkv; then fp32 x1 (CP) and h1 (HIDP).
 K5_BF16_COLS = CP + 3 * CP + CP + CP + HIDP + CP + HIDP + CP + 3 * CP
 K5_F32_COLS = CP + HIDP
 
 
 def k5_splits(tokens: int) -> Tuple[int, int]:
-    """(number of row chunks, rows per chunk) of K5b's split-K
-    reduction over `tokens` rows (a multiple of 64)."""
+    """(number of row chunks, rows per chunk) of the split-K weight
+    gradient reduction over `tokens` workspace rows (a multiple of 64)."""
     splits = max(1, min(K5_MAX_SPLITS, tokens // K5_MIN_ROWS_PER_SPLIT))
     rows = -(-tokens // splits)
     rows = -(-rows // 64) * 64
     return -(-tokens // rows), rows
 
 
-def _launch_k5(ct, x, packed: PackedSwinBlock, shift, mask, gelu_approx, scales):
-    """Run K5 (K5a per window, K5b weight-gradient GEMMs, K5c ordered
-    reductions) and return (dx, packed-space fp32 gradients)."""
-    _check_packed(packed, x, mask, scales, "fused_swin_block_backward")
+def split_vec(vec: torch.Tensor, offsets: dict, sizes: dict) -> dict:
+    """The named slices of a reduced per-window partial-sum vector (the
+    LayerNorm and bias gradients; CP long unless `sizes` says)."""
+    return {name: vec[o:o + sizes.get(name, CP)] for name, o in offsets.items()}
+
+
+def split_wgrad(wgrad: torch.Tensor, shapes) -> dict:
+    """The [out, in] weight gradients concatenated in `shapes` order."""
+    out, off = {}, 0
+    for name, m, n in shapes:
+        out[name] = wgrad[off:off + m * n].reshape(m, n)
+        off += m * n
+    return out
+
+
+def _launch_bwd(ct, x, packed: PackedSwinBlock, shift, mask, gelu_approx, scales, extra=None):
+    """Run the block backward for packed.window_size (ws 8: K5, ws 7:
+    K6's backward): the per-window kernel, the weight-gradient GEMMs and
+    the ordered reductions.  Returns (dx, packed-space fp32 gradients,
+    d extra or None) and counts the launch on that window's counter."""
+    _check_packed(packed, x, mask, scales, "fused_swin_block_backward", extra)
     _lib.check_tensor(ct, "ct", torch.bfloat16, x.device, shape=tuple(x.shape), align=2)
     b, h, wd, c = x.shape
-    nh = packed.num_heads
-    tokens = b * h * wd
-    windows = tokens // N_TOK
+    nh, ws = packed.num_heads, packed.window_size
+    n = ws * ws
+    windows = b * (h // ws) * (wd // ws)
+    tokens = windows * N_TOK  # workspace rows
     splits, rows = k5_splits(tokens)
     dev = x.device
     dx = torch.empty_like(x)
+    dextra = None if extra is None else torch.empty_like(x)
     ws16 = torch.empty(tokens * K5_BF16_COLS, dtype=torch.bfloat16, device=dev)
     ws32 = torch.empty(tokens * K5_F32_COLS, dtype=torch.float32, device=dev)
-    vec_len = K5_VEC + nh * N_TOK * N_TOK
+    vec_len = K5_VEC + nh * n * n
     part_win = torch.empty(windows * vec_len, dtype=torch.float32, device=dev)
     part_w = torch.empty(splits * K5_WGRAD, dtype=torch.float32, device=dev)
     vec = torch.empty(vec_len, dtype=torch.float32, device=dev)
     wgrad = torch.empty(K5_WGRAD, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         status = _lib.library().sr_swin_block_bwd_bf16(
-            ct.data_ptr(), x.data_ptr(), dx.data_ptr(),
+            ct.data_ptr(), x.data_ptr(), _ptr(extra), dx.data_ptr(), _ptr(dextra),
             packed.g1.data_ptr(), packed.b1.data_ptr(),
             packed.g2.data_ptr(), packed.b2.data_ptr(),
             packed.wqkv.data_ptr(), packed.bqkv.data_ptr(),
@@ -570,20 +601,15 @@ def _launch_k5(ct, x, packed: PackedSwinBlock, shift, mask, gelu_approx, scales)
             packed.rpb.data_ptr(), _ptr(mask), _ptr(scales),
             ws16.data_ptr(), ws32.data_ptr(), part_win.data_ptr(), part_w.data_ptr(),
             vec.data_ptr(), wgrad.data_ptr(),
-            b, h, wd, c, nh, shift, int(bool(gelu_approx)), LN_EPS, splits, rows,
+            b, h, wd, c, nh, ws, shift, int(bool(gelu_approx)), LN_EPS, splits, rows,
             _lib.stream_of(x),
         )
     _lib.check_status(status, "sr_swin_block_bwd_bf16")
-    launches_bwd.count += 1
-    out, off = {}, 0
-    for name, m, n in _WGRAD_SHAPES:
-        out["w" + name[1:]] = wgrad[off:off + m * n].reshape(m, n)
-        off += m * n
-    for name, o in _VEC_OFFSETS.items():
-        size = {"bqkv": 3 * CP, "bfc1": HIDP}.get(name, CP)
-        out[name] = vec[o:o + size]
-    out["rpb"] = vec[K5_VEC:].reshape(nh, N_TOK, N_TOK)
-    return dx, out
+    BACKWARD_COUNTERS[ws].count += 1
+    g = split_wgrad(wgrad, _WGRAD_SHAPES)
+    g.update(split_vec(vec, _VEC_OFFSETS, _VEC_SIZES))
+    g["rpb"] = vec[K5_VEC:].reshape(nh, n, n)
+    return dx, g, dextra
 
 
 def unpack_block_grads(g: dict, packed: PackedSwinBlock, scale: float) -> dict:
@@ -600,7 +626,7 @@ def unpack_block_grads(g: dict, packed: PackedSwinBlock, scale: float) -> dict:
     return dict(
         g1=g["g1"][:c], b1=g["b1"][:c], g2=g["g2"][:c], b2=g["b2"][:c],
         wqkv=dwqkv.reshape(3 * c, c), bqkv=dbqkv.reshape(3 * c),
-        wproj=g["wproj"].reshape(CP, MAX_HEADS, HDP)[:c, :nh, :hd].reshape(c, c),
+        wproj=unpack_proj_grad(g["wproj"], c, nh),
         bproj=g["bproj"][:c],
         wfc1=g["wfc1"][:hidden, :c], bfc1=g["bfc1"][:hidden],
         wfc2=g["wfc2"][:c, :hidden], bfc2=g["bfc2"][:c],
@@ -608,50 +634,61 @@ def unpack_block_grads(g: dict, packed: PackedSwinBlock, scale: float) -> dict:
     )
 
 
+def unpack_proj_grad(g: torch.Tensor, c: int, nh: int) -> torch.Tensor:
+    """[CP, CP] packed proj gradient (input columns head-padded) -> the
+    raw [c, c] one."""
+    return g.reshape(CP, MAX_HEADS, HDP)[:c, :nh, :c // nh].reshape(c, c)
+
+
 def fused_swin_block_backward(ct: torch.Tensor, x: torch.Tensor, w: SwinBlockWeights, ws: int,
                               shift: int, mask: Optional[torch.Tensor], gelu_approx: bool,
                               branch_scales: Optional[torch.Tensor] = None,
-                              packed: Optional[PackedSwinBlock] = None) -> SwinBlockGrads:
-    """K5: the backward of one Swin block for the cotangent `ct`.  CPU
-    tensors -> plain version; CUDA tensors -> the kernel (bf16 ct and x,
-    fp32 branch scales), gradients in raw weight space."""
+                              packed: Optional[PackedSwinBlock] = None,
+                              extra: Optional[torch.Tensor] = None) -> SwinBlockGrads:
+    """The backward of one Swin block for the cotangent `ct` (K5 at ws 8,
+    K6's backward at ws 7; d`extra` when the forward had `extra`).  CPU
+    tensors -> plain version; CUDA tensors -> the kernel (bf16 ct, x and
+    extra, fp32 branch scales), gradients in raw weight space."""
     if x.device.type == "cpu":
-        return swin_block_bwd_plain(ct, x, w, ws, shift, mask, gelu_approx, branch_scales)
+        return swin_block_bwd_plain(ct, x, w, ws, shift, mask, gelu_approx, branch_scales, extra)
     _check_block_input(x, w, ws, shift, "fused_swin_block_backward")
-    check_differentiable(ws, None, "fused_swin_block_backward")
     if branch_scales is not None:
         branch_scales = branch_scales.float().contiguous()
     if packed is None:
         packed = pack_block_weights(w)
-    dx, g = _launch_k5(ct.contiguous(), x, packed, shift, mask, gelu_approx, branch_scales)
-    return SwinBlockGrads(dx=dx, **unpack_block_grads(g, packed, w.scale))
+    if extra is not None:
+        extra = extra.contiguous()
+    dx, g, dextra = _launch_bwd(ct.contiguous(), x, packed, shift, mask, gelu_approx,
+                                branch_scales, extra)
+    return SwinBlockGrads(dx=dx, extra=dextra, **unpack_block_grads(g, packed, w.scale))
 
 
 class SwinBlockFunction(torch.autograd.Function):
-    """One Swin block on CUDA whose forward is K1 and whose backward is
-    K5.  Inputs: x, the branch scales (or None), then the 13 tensors of
-    GRAD_FIELDS (raw weights and the gathered bias); the weights are
-    packed for the kernels on every call."""
+    """One Swin block on CUDA whose forward is K1 / K6 and whose backward
+    is K5 / K6's backward.  Inputs: x, the branch scales (or None),
+    `extra` (or None), then the 13 tensors of GRAD_FIELDS (raw weights
+    and the gathered bias); the weights are packed for the kernels on
+    every call."""
 
     @staticmethod
-    def forward(ctx, x, scales, meta, *params):
-        ws, shift, mask, gelu_approx, num_heads, table = meta
+    def forward(ctx, x, scales, extra, meta, *params):
+        shift, mask, gelu_approx, num_heads, table = meta
         raw = dict(zip(GRAD_FIELDS, params))
         rpb = raw.pop("rpb")
         w = SwinBlockWeights(table=table, num_heads=num_heads, **raw)
         packed = pack_block_weights(w, rpb=rpb)
-        ctx.save_for_backward(x, scales)
+        ctx.save_for_backward(x, scales, extra)
         ctx.block = (w.scale, packed, shift, mask, gelu_approx)
-        return _launch_block(x, packed, shift, mask, gelu_approx, scales)
+        return _launch_block(x, packed, shift, mask, gelu_approx, scales, extra)
 
     @staticmethod
     def backward(ctx, ct):
-        x, scales = ctx.saved_tensors
+        x, scales, extra = ctx.saved_tensors
         scale, packed, shift, mask, gelu_approx = ctx.block
-        dx, g = _launch_k5(ct.to(x.dtype).contiguous(), x, packed, shift, mask, gelu_approx,
-                           scales)
+        dx, g, dextra = _launch_bwd(ct.to(x.dtype).contiguous(), x, packed, shift, mask,
+                                    gelu_approx, scales, extra)
         raw = unpack_block_grads(g, packed, scale)
-        return (dx, None, None) + tuple(raw[k] for k in GRAD_FIELDS)
+        return (dx, None, dextra, None) + tuple(raw[k] for k in GRAD_FIELDS)
 
 
 def fused_windows_block(x: torch.Tensor, w: SwinBlockWeights, ws: int, shift: int,
@@ -664,24 +701,23 @@ def fused_windows_block(x: torch.Tensor, w: SwinBlockWeights, ws: int, shift: in
     optional additive term `extra` [B, H, W, C] (x's frame) and branch
     scales [B, 2].  CPU tensor -> plain version (differentiable by
     autograd); CUDA tensor -> the kernel (bf16 x and extra): K1 at ws 8,
-    K6 at ws 7, through ``SwinBlockFunction`` (backward K5) when a
-    gradient is wanted at ws 8 without extra, and NotImplementedError
-    for any other gradient.  `packed` (from ``pack_block_weights``) is
+    K6 at ws 7, through ``SwinBlockFunction`` (backward K5 / K6's
+    backward, with d`extra`) when a gradient is wanted.  `packed` is
     used for inference only."""
     if x.device.type == "cpu":
         return swin_block_plain(x, w, ws, shift, mask, gelu_approx, branch_scales, extra)
     _check_block_input(x, w, ws, shift, "fused_windows_block")
     if branch_scales is not None:
         branch_scales = branch_scales.float().contiguous()
+    if extra is not None:
+        extra = extra.contiguous()
     params = [getattr(w, k) for k in GRAD_FIELDS[:-1]]
     inputs = [x, w.table] + params + ([] if extra is None else [extra])
     if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
         check_differentiable(ws, extra, "fused_windows_block")
         rpb = relative_position_bias(w.table, ws)
-        meta = (ws, shift, mask, gelu_approx, w.num_heads, w.table)
-        return SwinBlockFunction.apply(x, branch_scales, meta, *params, rpb)
+        meta = (shift, mask, gelu_approx, w.num_heads, w.table)
+        return SwinBlockFunction.apply(x, branch_scales, extra, meta, *params, rpb)
     if packed is None:
         packed = pack_block_weights(w)
-    if extra is not None:
-        extra = extra.contiguous()
     return _launch_block(x, packed, shift, mask, gelu_approx, branch_scales, extra)

@@ -72,6 +72,38 @@ def drop_path_scales(rates: Sequence[float], batch: int,
     return torch.where(rates_t > 0, (u < keep).float() / keep, torch.ones(()))
 
 
+class StochasticDepth:
+    """Per-block stochastic depth of the Swin-family models (SwinIR and
+    HAT): the rates decay linearly from 0 to ``config.drop_path_rate``
+    over all blocks (network_swinir.py:701, hat_arch.py:827; the JAX
+    package's ``np.linspace(0, rate, sum(depths))``), and in train() mode
+    each forward draws per-sample branch scales for every block."""
+
+    def drop_path_rates(self) -> List[float]:
+        depth = sum(self.config.depths)
+        rate = self.config.drop_path_rate
+        return [rate * i / (depth - 1) if depth > 1 else 0.0 for i in range(depth)]
+
+    def sample_branch_scales(self, batch: int, generator: Optional[torch.Generator],
+                             device) -> Optional[List[torch.Tensor]]:
+        """Per-layer [depth, B, 2] stochastic-depth multipliers (attention,
+        MLP) for one training forward, or None (eval mode, or no drop
+        path): drawn on the host from `generator`, moved to the device in
+        one copy.  Blocks of rate 0 get exactly 1."""
+        rates = self.drop_path_rates()
+        if not self.training or not any(r > 0 for r in rates):
+            return None
+        scales = drop_path_scales(rates, batch, generator)
+        if torch.device(device).type == "cuda":  # no host wait for the copy
+            scales = scales.pin_memory()
+        scales = scales.to(device, non_blocking=True)
+        out, start = [], 0
+        for d in self.config.depths:
+            out.append(scales[start : start + d])
+            start += d
+        return out
+
+
 def hwio(weight: torch.Tensor) -> torch.Tensor:
     """torch conv weight [O, I, kh, kw] -> the kernels' [kh, kw, I, O]."""
     return weight.permute(2, 3, 1, 0)

@@ -1,4 +1,4 @@
-"""HAT inference on NHWC tensors (port of
+"""HAT on NHWC tensors, serving and training (port of
 ``tpu_superresolution_tpu/models/hat.py``; reference
 modules/hat_arch.py:710-994).
 
@@ -12,13 +12,21 @@ modules/hat_arch.py:710-994).
   them to XLA), exact-erf GELU, the RCAN SE gate — and enters it as
   ``extra = conv_scale * CAB``; the rest of the block is one launch of
   the block kernel on CUDA (K6 at ws 7, K1 at ws 8).
-- OCAB (hat_arch.py:353-439) is plain torch ops around K2 LayerNorms, as
-  the JAX package's inference path (its fused OCAB, K8, is training-only).
+- OCAB (hat_arch.py:353-439): at inference plain torch ops around K2
+  LayerNorms, as the JAX package's inference path; in training the JAX
+  package's fused route (``OCAB._fused``): K2 LN1, the qkv product with
+  q pre-scaled, the overlap gather as plain ops, then K8, the fused
+  attention -> proj -> LN2 -> MLP core.
 - RHAG convs, ``conv_after_body`` and ``conv_before_upsample`` are K3,
   the composed reconstruction K4; ``conv_first``, the mean shift, the
   reflect pad and the exact-mode chain are plain torch.
 - ``impl="plain"`` runs every kernel's plain version on any device.
-  Training (stochastic depth, K6's backward) is not ported yet.
+- Training: ``model.train()`` draws per-sample stochastic-depth branch
+  scales for every HAB (linear decay to ``drop_path_rate``) from the
+  generator given to ``forward``; they scale the attention and MLP
+  residuals, never the CAB branch (hat_arch.py:307-308), and the OCAB
+  has none.  On CUDA each HAB's backward is K6b (ws 7) or K5 (ws 8),
+  with the gradient of `extra`, and each OCAB core's K8b.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from tpu_superresolution_torch.core.config import (
     HATFastConfig,
     register_model,
 )
+from tpu_superresolution_torch.kernels.fused_ocab import OcabWeights, fused_ocab_core
 from tpu_superresolution_torch.models.blocks import (
     Conv3x3,
     ConvLeaky,
@@ -42,6 +51,7 @@ from tpu_superresolution_torch.models.blocks import (
     PixelShuffleUpsample,
     PLayerNorm,
     RGB_MEAN,
+    StochasticDepth,
     check_image_size,
     conv_nhwc,
     reference_init,
@@ -109,15 +119,19 @@ class HAB(SwinBlock):
         self.conv_block = CAB(dim, compress_ratio, squeeze_factor)
         self.conv_scale = conv_scale
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, plain: bool = False,
+                branch_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`branch_scales` [B, 2]: stochastic depth on the attention and
+        MLP residuals; the CAB term is never dropped."""
         extra = self.conv_block(self.norm1(x, plain)) * self.conv_scale
-        return super().forward(x, plain, extra=extra)
+        return super().forward(x, plain, branch_scales, extra=extra)
 
 
 class OCAB(nn.Module):
     """Overlapping cross-attention block (hat_arch.py:353-439): q from
     the ws windows, k and v from the enclosing ows windows, then proj,
-    residual, LN and MLP — plain torch around two K2 LayerNorms."""
+    residual, LN and MLP — plain torch around two K2 LayerNorms at
+    inference, the fused route through K8 in training."""
 
     def __init__(self, dim: int, window_size: int, overlap_ratio: float, num_heads: int,
                  qkv_bias: bool, mlp_ratio: float, gelu_approximate: bool):
@@ -134,6 +148,8 @@ class OCAB(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        if self.training:
+            return self._fused(x, plain)
         b, h, w, c = x.shape
         ws, ows, nh = self.window_size, self.overlap_win_size, self.num_heads
         hd, dt = c // nh, x.dtype
@@ -150,6 +166,32 @@ class OCAB(nn.Module):
         out = window_reverse(out, ws, h, w)
         x = F.linear(out, self.proj.weight.to(dt), self.proj.bias.to(dt)) + x
         return x + self.mlp(self.norm2(x, plain), self.gelu_approximate)
+
+    def _fused(self, x: torch.Tensor, plain: bool) -> torch.Tensor:
+        """The JAX package's training route (``OCAB._fused``): K2 LN1, the
+        qkv product with the q rows pre-scaled by hd^-0.5 (its
+        ``_prep_weights``), the window partition and overlap gather as
+        plain ops (their autograd scatters dq, dk, dv back), then the
+        attention -> proj -> LN2 -> MLP core as K8 (``fused_ocab_core``;
+        its plain version with `plain` or on the CPU)."""
+        b, h, w, c = x.shape
+        ws, ows, nh = self.window_size, self.overlap_win_size, self.num_heads
+        dt = x.dtype
+        qscale = torch.ones(3 * c, device=x.device)
+        qscale[:c] = (c // nh) ** -0.5
+        wq = self.qkv.weight * qscale[:, None]
+        bq = None if self.qkv.bias is None else (self.qkv.bias * qscale).to(dt)
+        q, k, v = F.linear(self.norm1(x, plain), wq.to(dt), bq).chunk(3, dim=-1)
+        weights = OcabWeights(
+            wproj=self.proj.weight, bproj=self.proj.bias, g2=self.norm2.weight,
+            b2=self.norm2.bias, wfc1=self.mlp.fc1.weight, bfc1=self.mlp.fc1.bias,
+            wfc2=self.mlp.fc2.weight, bfc2=self.mlp.fc2.bias, num_heads=nh)
+        out = fused_ocab_core(
+            window_partition(q, ws), overlap_windows(k, ws, ows), overlap_windows(v, ws, ows),
+            window_partition(x, ws), weights,
+            relative_position_bias_oca(self.relative_position_bias_table, ws, ows),
+            self.gelu_approximate, plain)
+        return window_reverse(out, ws, h, w)
 
 
 class AttenBlocks(nn.Module):
@@ -177,18 +219,20 @@ class RHAG(nn.Module):
         )
         self.conv = Conv3x3(c, c) if cfg.resi_connection == "1conv" else None
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, plain: bool = False,
+                branch_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`branch_scales` [depth, B, 2] or None (no stochastic depth)."""
         res = x
-        for blk in self.residual_group.blocks:
-            x = blk(x, plain)
+        for j, blk in enumerate(self.residual_group.blocks):
+            x = blk(x, plain, None if branch_scales is None else branch_scales[j])
         x = self.residual_group.overlap_attn(x, plain)
         if self.conv is not None:
             x = self.conv(x, plain)
         return x + res
 
 
-class HAT(nn.Module):
-    """Full HAT at inference: x [B, H, W, in] -> [B, H*s, W*s, out]."""
+class HAT(StochasticDepth, nn.Module):
+    """Full HAT: x [B, H, W, in] -> [B, H*s, W*s, out]."""
 
     def __init__(self, config: HATConfig, dtype: Optional[torch.dtype] = None,
                  impl: str = "auto"):
@@ -226,11 +270,9 @@ class HAT(nn.Module):
         same rule as SwinIR's), drawn from `generator`."""
         reference_init(self, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "HAT runs at inference only in this port: stochastic depth and K6's "
-                "backward are the HAT-training slice of ROADMAP.md Queue 2; call .eval()")
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """`generator` draws the stochastic-depth masks in train() mode
+        (the torch default generator when None); eval() runs none."""
         cfg = self.config
         dt = self.dtype
         plain = self.impl == "plain"
@@ -241,8 +283,9 @@ class HAT(nn.Module):
 
         x = conv_nhwc(self.conv_first, x)
         feats = self.patch_embed.norm(x, plain) if cfg.patch_norm else x
-        for layer in self.layers:
-            feats = layer(feats, plain)
+        scales = self.sample_branch_scales(x.shape[0], generator, x.device)
+        for i, layer in enumerate(self.layers):
+            feats = layer(feats, plain, None if scales is None else scales[i])
         feats = self.norm(feats, plain)
         if cfg.resi_connection == "1conv":
             feats = self.conv_after_body(feats, plain)
@@ -256,7 +299,9 @@ class HAT(nn.Module):
 
 
 def build_hat(config: HATConfig, dtype=None, impl: str = "auto") -> HAT:
-    """A HAT in eval mode (the only mode this port runs it in)."""
+    """A HAT in eval mode, as the JAX package's ``train=False`` default:
+    ``model.train()`` turns on stochastic depth and the OCAB's training
+    route."""
     return HAT(config, dtype=dtype, impl=impl).eval()
 
 

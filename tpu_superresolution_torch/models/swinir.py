@@ -25,7 +25,7 @@ network_swinir.py:618-851).
 from __future__ import annotations
 
 import math
-from typing import List, Optional
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -48,10 +48,10 @@ from tpu_superresolution_torch.models.blocks import (
     PixelShuffleUpsample,
     PLayerNorm,
     RGB_MEAN,
+    StochasticDepth,
     ThreeConv,
     check_image_size,
     conv_nhwc,
-    drop_path_scales,
     reference_init,
     upsample_and_last,
 )
@@ -172,7 +172,7 @@ class PatchEmbed(nn.Module):
         self.norm = PLayerNorm(dim)
 
 
-class SwinIR(nn.Module):
+class SwinIR(StochasticDepth, nn.Module):
     """Full SwinIR at inference: x [B, H, W, in] -> [B, H*s, W*s, out]."""
 
     def __init__(self, config: SwinIRConfig, dtype: Optional[torch.dtype] = None,
@@ -228,33 +228,6 @@ class SwinIR(nn.Module):
         if self.config.ape:
             with torch.no_grad():
                 nn.init.trunc_normal_(self.absolute_pos_embed, std=0.02, generator=generator)
-
-    def drop_path_rates(self):
-        """Per-block stochastic-depth rates: linear 0 -> drop_path_rate
-        over all blocks (network_swinir.py:701; the JAX package's
-        ``models/swinir.py:431-436``)."""
-        depth = sum(self.config.depths)
-        rate = self.config.drop_path_rate
-        return [rate * i / (depth - 1) if depth > 1 else 0.0 for i in range(depth)]
-
-    def sample_branch_scales(self, batch: int, generator: Optional[torch.Generator],
-                             device) -> Optional[List[Optional[torch.Tensor]]]:
-        """Per-layer [depth, B, 2] stochastic-depth multipliers for one
-        training forward, or None (eval mode, or no drop path): drawn on
-        the host from `generator`, moved to the device in one copy.
-        Blocks of rate 0 get exactly 1."""
-        rates = self.drop_path_rates()
-        if not self.training or not any(r > 0 for r in rates):
-            return None
-        scales = drop_path_scales(rates, batch, generator)
-        if torch.device(device).type == "cuda":  # no host wait for the copy
-            scales = scales.pin_memory()
-        scales = scales.to(device, non_blocking=True)
-        out, start = [], 0
-        for d in self.config.depths:
-            out.append(scales[start : start + d])
-            start += d
-        return out
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """`generator` draws the stochastic-depth masks in train() mode

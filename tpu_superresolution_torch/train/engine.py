@@ -1,12 +1,14 @@
 """The training engine (port of ``tpu_superresolution_tpu/train/engine.py``
 for one device): optimizer, train and eval steps, and ``Trainer.fit``.
 
-- The train step: paired augmentation on the device -> forward (bf16
-  compute on CUDA with fp32 parameters and no loss scaling; fp32 on the
-  CPU) -> fp32 loss -> backward -> clip by global norm -> AdamW with the
+- The train step of the native-LR transformer families (SwinIR, HAT,
+  hat_fast): paired augmentation on the device -> forward (bf16 compute
+  on CUDA with fp32 parameters and no loss scaling; fp32 on the CPU) ->
+  fp32 loss -> backward -> clip by global norm -> AdamW with the
   schedule -> EMA -> metrics.  On CUDA the forward runs the kernels
-  K1-K4 and every Swin block's backward is K5 (``kernels/``); the K2-K4
-  backwards are torch autograd of their plain versions, as the JAX
+  (``kernels/``): each Swin block or HAB is K1 (ws 8) or K6 (ws 7) with
+  its backward K5 or K6b, each HAT OCAB core K8 with backward K8b; the
+  K2-K4 backwards are torch autograd of their plain versions, as the JAX
   package leaves its K2-K4 backwards to XLA.
 - The host reads one scalar per epoch (the mean train loss), not one per
   step: each step's metrics stay on the device until the epoch ends.
@@ -138,8 +140,9 @@ def make_train_step(loss_name: str, convention: str, scale: int, patch: Optional
     `patch` None trains on the batch as given (already cropped)."""
     if convention != "native_lr":
         raise NotImplementedError(
-            f"convention {convention!r}: the port trains native_lr (SwinIR) only so far; "
-            "pre_upscale waits for the CNN families (ROADMAP.md)")
+            f"convention {convention!r}: the port trains the native-LR transformer families "
+            "(SwinIR, HAT) only so far; pre_upscale waits for the CNN families (ROADMAP.md "
+            "Queue 1 item 2)")
     loss_fn = get_loss(loss_name)
 
     def step(state: TrainState, lr_raw, hr_raw, generator: Optional[torch.Generator] = None):
