@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SwinIR-M x4 serving and fine-tuning paths
-and its HAT x4 serving and training paths once on one NVIDIA H100 and
-check them.  Run from the repository root:
+"""Drive the PyTorch port's SwinIR-M x4 serving and fine-tuning paths,
+its HAT x4 serving and training paths and its DAT x4 serving path once
+on one NVIDIA H100 and check them.  Run from the repository root:
 
     python3 chip_smoke.py
 
 Phases (a failure in any raises, and the script exits non-zero):
 1. device   the card's name, compute capability 9.0, power limit;
 2. build    nvcc-compile the port's kernels from csrc/ (seconds, ptxas);
-3. kernels  each kernel (K1-K6) against its plain PyTorch version at the
+3. kernels  each kernel (K1-K6, K9, K10, K14) against its plain PyTorch version at the
             main paths' shapes (K1 also with stochastic-depth branch
             scales and with HAT's `extra` at hat_fast's widths; K6, the
             ws-7 block, at HAT's tile batch with `extra` and at SwinIR's
@@ -21,7 +21,11 @@ Phases (a failure in any raises, and the script exits non-zero):
             training kernels at the HAT train step's shapes: K6b (the
             ws-7 block backward) and K5 with d`extra`, on dx, d extra
             and the 13 parameter gradients, K8 (the OCAB core) and K8b
-            (its backward, on dq, dk, dv, d sw and 9 gradients);
+            (its backward, on dq, dk, dv, d sw and 9 gradients); then
+            DAT's kernels at DATConfig()'s widths on the bench tile
+            batch and on a [2,52,76,180] image (sides not multiples of
+            16): K9 unshifted and shifted, K14 and K10, each output in
+            bf16 ulps against the plain bf16 and fp32 versions;
 4. serve    SwinIR-M x4 (seeded random weights, exported to a .pth) behind
             SRService + make_server on 127.0.0.1, three PNG requests;
             status, size, finite output, launch counts per model call,
@@ -37,7 +41,14 @@ Phases (a failure in any raises, and the script exits non-zero):
             then the bench workload for HAT in MPix/s, kernels vs plain,
             with a torch.profiler split of one forward, and one hat_fast
             (ws 8) forward, whose blocks are K1 with `extra`;
-7. train    SwinIR-M x4 fine-tuning (drop path 0.1, batch 8, lr_patch 64)
+7. dat      DAT x4 (DATConfig(): embed 180, depths 6x6, heads 6, split
+            (8, 16); seeded random weights with perturbed BatchNorm
+            statistics, exported to a .pth) behind SRService with --model
+            dat: the serve phase's requests and checks (launches per call
+            K9 18, K14 18, K10 36, K3 8, K4 1, K2 2); the bench workload
+            for DAT in MPix/s, kernels vs plain, with a torch.profiler
+            split of one forward by kernel and plain op;
+8. train    SwinIR-M x4 fine-tuning (drop path 0.1, batch 8, lr_patch 64)
             through ``cli.finetune.main(--device cuda)`` for one epoch of
             8 steps + validation on a synthetic DeepRockSR-layout set;
             launches per step, median ms per step and images/s for the
@@ -45,7 +56,7 @@ Phases (a failure in any raises, and the script exits non-zero):
             of K1's per-step weight packing, and the first step's loss,
             grad norm and per-parameter gradient cosine against the
             plain fp32 path;
-8. hat-train HAT x4 training (HATConfig() at full width and depth, drop
+9. hat-train HAT x4 training (HATConfig() at full width and depth, drop
             path 0.1, batch 8, --patch_size 64, L1, AdamW, clip 1.0)
             through ``cli.train.main(--model hat --device cuda)`` for one
             epoch of 2 steps + validation on a synthetic DeepRockSR-layout
@@ -57,8 +68,8 @@ Phases (a failure in any raises, and the script exits non-zero):
             and first-step gradients.
 
 The second-to-last stdout line is a JSON object describing each kernel
-(launches summed over the serve, SwinIR ws-7, hat, train and hat-train
-phases); the last is
+(launches summed over the serve, SwinIR ws-7, hat, dat, train and
+hat-train phases); the last is
 {"ok": true, "device": {...}}.  There is no CPU path: with no CUDA
 device the script exits non-zero and prints no result.
 """
@@ -83,7 +94,8 @@ PSNR_MIN_DB = 50.0
 # [2^e, 2^(e+1))).  A kernel that rounds its bf16 output once is within
 # 1 ulp of the fp32 result; the bounds leave room for bf16 operands and
 # the plain version's own roundings.
-ULP_BOUND = {"K1": 8, "K2": 4, "K3": 4, "K4": 4, "K6": 8, "K8": 8}
+ULP_BOUND = {"K1": 8, "K2": 4, "K3": 4, "K4": 4, "K6": 8, "K8": 8, "K9": 8, "K10": 8,
+             "K14": 8}
 # The backward kernels (K5, K6b, K8b): each activation gradient (dx,
 # d extra; dq, dk, dv, d sw) within this many bf16 ulps at its max |ref|,
 # and every parameter gradient within this relative Frobenius error of
@@ -125,10 +137,19 @@ KERNELS = {
     "K8b": dict(name="ocab_bwd", route="cuda",
                 source="tpu_superresolution_torch/csrc/ocab.cu",
                 replaces="tpu_superresolution_tpu/ops/pallas/fused_ocab.py:354"),
+    "K9": dict(name="dat_rect_attention", route="cuda",
+               source="tpu_superresolution_torch/csrc/dat_rect.cu",
+               replaces="tpu_superresolution_tpu/ops/pallas/fused_rect_attn.py:433"),
+    "K10": dict(name="dat_block_tail", route="cuda",
+                source="tpu_superresolution_torch/csrc/dat_tail.cu",
+                replaces="tpu_superresolution_tpu/ops/pallas/fused_datb_tail.py:374"),
+    "K14": dict(name="dat_channel_attention", route="cuda",
+                source="tpu_superresolution_torch/csrc/dat_channel.cu",
+                replaces="tpu_superresolution_tpu/ops/pallas/fused_channel_attn.py:209"),
 }
 # Launches per SwinIR-M x4 model call on the serving path (--no-exact).
 PER_CALL = {"K1": 36, "K2": 2, "K3": 8, "K4": 1, "K5": 0, "K6": 0, "K6b": 0, "K8": 0,
-            "K8b": 0}
+            "K8b": 0, "K9": 0, "K10": 0, "K14": 0}
 # Per HAT x4 model call (--no-exact): K6 per HAB (24); K2 for patch_norm,
 # norm, each HAB's CAB input (24) and each OCAB's two norms (8); K3 for
 # the 4 RHAG convs, conv_after_body and conv_before_upsample; K4 for the
@@ -137,6 +158,12 @@ HAT_PER_CALL = dict(PER_CALL, K1=0, K2=34, K3=6, K4=1, K6=24)
 HAT_FAST_PER_CALL = dict(HAT_PER_CALL, K1=24, K6=0)
 # SwinIR-M x4 from a checkpoint of window 7: its 36 blocks run K6.
 SWINIR_WS7_PER_CALL = dict(PER_CALL, K1=0, K6=36)
+# Per DAT x4 model call (DATConfig(): depths 6x6, split (8, 16); --no-exact):
+# K9 per spatial block (18, 9 of them shifted), K14 per channel block
+# (18), K10 per block (36); K2 for before_RG and norm; K3 for the 6 group
+# convs, conv_after_body and conv_before_upsample; K4 for the composed
+# reconstruction.  One K9 call is 2 CUDA launches, one K14 call 3.
+DAT_PER_CALL = dict(PER_CALL, K1=0, K2=2, K3=8, K4=1, K9=18, K10=36, K14=18)
 # Fine-tuning: batch 8 of 64^2 LR crops; per train step, with the
 # composed reconstruction (fused_reconstruct, the config's default): K1
 # per block forward, K5 per block backward, K2-K4 forwards (their
@@ -152,7 +179,7 @@ TRAIN_PER_STEP = dict(PER_CALL, K5=36)
 # convs, conv_after_body and conv_before_upsample; K4 for the composed
 # reconstruction.  hat_fast runs K1 / K5 where hat runs K6 / K6b.
 HAT_TRAIN_PER_STEP = {"K1": 0, "K2": 30, "K3": 6, "K4": 1, "K5": 0, "K6": 24, "K6b": 24,
-                      "K8": 4, "K8b": 4}
+                      "K8": 4, "K8b": 4, "K9": 0, "K10": 0, "K14": 0}
 HAT_FAST_TRAIN_PER_STEP = dict(HAT_TRAIN_PER_STEP, K1=24, K5=24, K6=0, K6b=0)
 # First step, kernels (bf16) vs the plain fp32 path from the same weights,
 # batch and stochastic-depth masks: bf16 activations keep ~3 significant
@@ -277,17 +304,9 @@ def _record(results, key, label, err, t_kernel, t_plain, work, t_library=None):
 
 def _compare(results, key, label, out, ref_bf16, ref_fp32, t_kernel, t_plain, work,
              t_library=None):
-    mag = float(ref_fp32.abs().max())
-    bound = ULP_BOUND[key] * bf16_ulp(mag)
-    e16 = float((out.float() - ref_bf16.float()).abs().max())
-    e32 = float((out.float() - ref_fp32.float()).abs().max())
-    ok = e16 <= bound and e32 <= bound and math.isfinite(e16) and math.isfinite(e32)
-    log(f"[kernels] {key} {label}: max_abs_err vs plain bf16 {e16:.3e}, vs plain fp32 "
-        f"{e32:.3e} (bound {bound:.3e} = {ULP_BOUND[key]} bf16 ulp at max|ref| {mag:.3f}) "
-        f"{'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise RuntimeError(f"{key} {label}: kernel disagrees with its plain version")
-    _record(results, key, label, e32, t_kernel, t_plain, work, t_library)
+    """A one-output kernel: see _compare_outputs."""
+    _compare_outputs(results, key, label, (out,), (ref_bf16,), (ref_fp32,), t_kernel, t_plain,
+                     work, t_library)
 
 
 def _swin_work(shape, c=180, hidden=360, backward=False, ws=8, extra=False):
@@ -589,6 +608,139 @@ def phase_train_kernels(res):
     return res
 
 
+def _random_dat_block(gen, device, c=180, nh=6, split=(8, 16), hidden=360):
+    """One DAT block's weights at DATConfig()'s widths with O(1)
+    activations (bf16-representable GEMM weights): the spatial and
+    channel fronts (K9, K14) and the tail (K10)."""
+    import torch
+
+    from tpu_superresolution_torch.kernels.fused_channel_attn import ChanAttnWeights
+    from tpu_superresolution_torch.kernels.fused_datb_tail import TailWeights
+    from tpu_superresolution_torch.kernels.fused_rect_attn import RectAttnWeights
+
+    def r(*shape, scale=1.0, bf=False):
+        t = torch.randn(*shape, generator=gen) * scale
+        return (t.bfloat16().float() if bf else t).to(device)
+
+    n, half, m = split[0] * split[1], hidden // 2, c // 16
+    front = dict(g1=1 + r(c, scale=0.1), b1=r(c, scale=0.1),
+                 wqkv=r(3 * c, c, scale=c ** -0.5, bf=True), bqkv=r(3 * c, scale=0.1),
+                 wdw=r(3, 3, c, scale=1 / 3), bdw=r(c, scale=0.1), num_heads=nh)
+    rect = RectAttnWeights(bias0=r(nh // 2, n, n, scale=0.5), bias1=r(nh // 2, n, n, scale=0.5),
+                           split=split, **front)
+    chan = ChanAttnWeights(temperature=1 + r(nh, 1, 1, scale=0.3), **front)
+    tail = TailWeights(
+        sp_w1=r(m, c, scale=c ** -0.5, bf=True), sp_b1=r(m, scale=0.1),
+        sp_w2=r(1, m, scale=m ** -0.5, bf=True), sp_b2=r(1, scale=0.1),
+        wproj=r(c, c, scale=c ** -0.5, bf=True), bproj=r(c, scale=0.1),
+        g2=1 + r(c, scale=0.1), b2=r(c, scale=0.1),
+        wfc1=r(hidden, c, scale=c ** -0.5, bf=True), bfc1=r(hidden, scale=0.1),
+        gsg=1 + r(half, scale=0.1), bsg=r(half, scale=0.1),
+        wdw=r(3, 3, half, scale=1 / 3), bdw=r(half, scale=0.1),
+        wfc2=r(c, half, scale=half ** -0.5, bf=True), bfc2=r(c, scale=0.1))
+    return rect, chan, tail
+
+
+def _compare_outputs(results, key, label, outs, refs16, refs32, t_kernel, t_plain, work,
+                     t_library=None):
+    """A kernel's outputs, each within ULP_BOUND[key] bf16 ulps at its own
+    max |ref| of the plain bf16 and fp32 versions; then its times and
+    bound into `results`."""
+    bad, errs = [], []
+    for i, (out, r16, r32) in enumerate(zip(outs, refs16, refs32)):
+        mag = float(r32.abs().max())
+        bound = ULP_BOUND[key] * bf16_ulp(mag)
+        e16 = float((out.float() - r16.float()).abs().max())
+        e32 = float((out.float() - r32.float()).abs().max())
+        ok = math.isfinite(e16) and math.isfinite(e32) and e16 <= bound and e32 <= bound
+        which = f" output {i}" if len(outs) > 1 else ""
+        log(f"[kernels] {key} {label}{which}: max_abs_err vs plain bf16 {e16:.3e}, vs plain "
+            f"fp32 {e32:.3e} (bound {bound:.3e} = {ULP_BOUND[key]} bf16 ulp at max|ref| "
+            f"{mag:.3f}) {'ok' if ok else 'FAIL'}")
+        errs.append(e32)
+        if not ok:
+            bad.append(i)
+    if bad:
+        raise RuntimeError(f"{key} {label}: kernel disagrees with its plain version on {bad}")
+    _record(results, key, label, max(errs), t_kernel, t_plain, work, t_library)
+
+
+def _dat_work(key, shape, split=(8, 16), c=180, nh=6, hidden=360):
+    """(FLOPs, bytes) of one K9, K14 or K10 call on x of `shape` at the
+    unpadded widths.  K9 per token: the qkv product 6C^2, both branches'
+    QK^T and AV over N = s0*s1 keys on C/2 channels (2 x 4 N C/2), the
+    depthwise 3x3 (18 C); its attention runs on the Hp x Wp padded map,
+    whose pad tokens are real keys.  K14: qkv, the gram and v A^T (2 x 2 C
+    hd), the depthwise conv.  K10: the spatial map 2 C (C/16), proj 2C^2,
+    fc1 2 C hidden, the depthwise conv 18 hidden/2, fc2 C hidden.  Bytes:
+    each input read once, each output written once (bf16): K9 and K14
+    read x, write attened_x and conv_x; K10 reads x, u, w_px, writes out."""
+    b, h, w, _ = shape
+    tokens = b * h * w
+    act = tokens * c * 2
+    if key == "K9":
+        ms = max(split)
+        padded = b * (-(-h // ms) * ms) * (-(-w // ms) * ms)
+        n = split[0] * split[1]
+        return tokens * (6 * c * c + 18 * c) + padded * 2 * 4 * n * (c // 2), 3 * act
+    if key == "K14":
+        return tokens * (6 * c * c + 4 * c * (c // nh) + 18 * c), 3 * act
+    return (tokens * (2 * c * (c // 16) + 2 * c * c + 2 * c * hidden + 9 * hidden + c * hidden),
+            4 * act + b * c * 4)
+
+
+def phase_dat_kernels(res):
+    """DAT's kernels at DATConfig()'s widths (C 180, 6 heads, split
+    (8, 16), hidden 360) on the bench tile batch [25,64,64,180] and on a
+    whole image whose sides are not multiples of 16 ([2,52,76,180]): K9
+    unshifted and shifted, K14, K10; each output against the plain
+    version in bf16 and fp32, with times and bounds, into `res`."""
+    import torch
+
+    from tpu_superresolution_torch.kernels import fused_channel_attn as fc
+    from tpu_superresolution_torch.kernels import fused_datb_tail as ft
+    from tpu_superresolution_torch.kernels import fused_rect_attn as fr
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 4)
+    bf = torch.bfloat16
+    rect, chan, tail = _random_dat_block(gen, dev)
+    prect, pchan, ptail = (fr.pack_rect_weights(rect), fc.pack_chan_weights(chan),
+                           ft.pack_tail_weights(tail))
+    for shape in ((25, 64, 64, 180), (2, 52, 76, 180)):
+        x = torch.randn(*shape, generator=gen).to(dev, bf)
+        for shifted in (False, True):
+            run = lambda: fr.rect_attention(x, rect, shifted, prect)
+            plain = lambda: fr.rect_attention_plain(x, rect, shifted)
+            outs = run()
+            refs16, refs32 = plain(), fr.rect_attention_plain(x.float(), rect, shifted)
+            torch.cuda.synchronize()
+            _compare_outputs(res, "K9", f"{list(shape)} {'shifted' if shifted else 'unshifted'}",
+                             outs, refs16, refs32, cuda_ms(run), cuda_ms(plain),
+                             _dat_work("K9", shape))
+            del outs, refs16, refs32
+        run = lambda: fc.channel_attention(x, chan, pchan)
+        plain = lambda: fc.channel_attention_plain(x, chan)
+        outs = run()
+        refs16, refs32 = plain(), fc.channel_attention_plain(x.float(), chan)
+        torch.cuda.synchronize()
+        _compare_outputs(res, "K14", f"{list(shape)}", outs, refs16, refs32, cuda_ms(run),
+                         cuda_ms(plain), _dat_work("K14", shape))
+        del outs, refs16, refs32
+        u = torch.randn(*shape, generator=gen).to(dev, bf)
+        w_px = torch.randn(*shape, generator=gen).to(dev, bf)
+        gate = torch.sigmoid(torch.randn(shape[0], shape[3], generator=gen)).to(dev)
+        run = lambda: ft.datb_tail(x, u, w_px, gate, tail, ptail)
+        plain = lambda: ft.datb_tail_plain(x, u, w_px, gate, tail)
+        out = run()
+        ref16, ref32 = plain(), ft.datb_tail_plain(x.float(), u.float(), w_px.float(), gate, tail)
+        torch.cuda.synchronize()
+        _compare_outputs(res, "K10", f"{list(shape)}", (out,), (ref16,), (ref32,), cuda_ms(run),
+                         cuda_ms(plain), _dat_work("K10", shape))
+        del out, ref16, ref32
+    return res
+
+
 def _png_bytes(arr):
     from PIL import Image
 
@@ -607,11 +759,12 @@ def _post(url, body):
     return status, data, meta, time.perf_counter() - t0
 
 
-def phase_serve(workdir, cfg, model_name, per_call, tag="serve"):
-    """`cfg` with seeded random weights, exported as a reference .pth,
-    behind SRService + make_server (--model `model_name`, --no-exact):
-    three PNG requests, exactly `per_call` launches per model call, and
-    the served tiled output against the plain fp32 path."""
+def phase_serve(workdir, cfg, model_name, per_call, tag="serve", prepare=None):
+    """`cfg` with seeded random weights (then `prepare(model, generator)`
+    when given), exported as a reference .pth, behind SRService +
+    make_server (--model `model_name`, --no-exact): three PNG requests,
+    exactly `per_call` launches per model call, and the served tiled
+    output against the plain fp32 path."""
     import numpy as np
     import torch
     from PIL import Image
@@ -624,6 +777,8 @@ def phase_serve(workdir, cfg, model_name, per_call, tag="serve"):
 
     src = build_model(cfg)
     src.reset_parameters(torch.Generator().manual_seed(SEED))
+    if prepare is not None:
+        prepare(src, torch.Generator().manual_seed(SEED + 5))
     ckpt = f"{workdir}/{model_name}_x4_random.pth"
     torch.save({"params": src.state_dict()}, ckpt)
 
@@ -784,6 +939,87 @@ def phase_hat(workdir, smi):
     if psnr < PSNR_MIN_DB or not bool(torch.isfinite(y).all()):
         raise RuntimeError(f"hat_fast output PSNR {psnr:.2f} dB < {PSNR_MIN_DB} dB")
     return {k: launches[k] + counts[k] for k in launches}
+
+
+def _perturb_dat(model, gen):
+    """Non-trivial BatchNorm statistics and affines and channel-attention
+    temperatures, so that the folding into the kernels' weights and the
+    temperature are exercised (reference_init leaves them 0 / 1)."""
+    import torch
+
+    rnd = lambda t, scale: scale * torch.randn(t.shape, generator=gen)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.copy_(rnd(m.running_mean, 0.3))
+                m.running_var.copy_(0.5 + torch.rand(m.running_var.shape, generator=gen))
+                m.weight.copy_(1 + rnd(m.weight, 0.2))
+                m.bias.copy_(rnd(m.bias, 0.2))
+            elif isinstance(getattr(m, "temperature", None), torch.nn.Parameter):
+                m.temperature.copy_(1 + rnd(m.temperature, 0.3))
+
+
+def phase_dat(workdir, smi):
+    """DAT x4 serving (DATConfig(): embed 180, depths 6x6, heads 6, split
+    (8, 16); seeded random weights with perturbed BatchNorm statistics,
+    exported to a .pth) behind SRService with --model dat: the serve
+    phase's three requests and checks (launches per call exactly
+    DAT_PER_CALL, the tiled output >= 50 dB against the plain fp32 path),
+    the bench workload in MPix/s for the kernels and the plain path, and
+    a profiled forward split by kernel and plain op.  Returns the
+    launches of the served requests."""
+    from tpu_superresolution_torch.core.config import DATConfig
+
+    service, launches = phase_serve(workdir, DATConfig(), "dat", DAT_PER_CALL, tag="dat",
+                                    prepare=_perturb_dat)
+    fwd = phase_bench(service, smi, name="DAT x4", tag="dat")
+    _dat_split(fwd, smi)
+    return launches
+
+
+def _dat_split(fwd, smi):
+    """Where one DAT bench forward spends its device time, under
+    torch.profiler: K9 (rect_attn_kernel + dwconv_gelu_kernel), K14
+    (chan_qkv / chan_softmax / chan_apply), K10, K2, K3/K4 by kernel
+    name, the rest (channel gates, conv_first, pixel shuffle, tiling,
+    casts) as plain ops, and the device's idle share of the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with torch.no_grad(), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fwd()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    except Exception as e:  # the profile is a reading aid, not a check
+        log(f"[dat] profiler failed: {type(e).__name__}: {e}")
+        return
+    kernels = _device_kernels(prof)
+    if not kernels:
+        log("[dat] profiler: no device events recorded")
+        return
+    us = lambda e: getattr(e, "device_time", 0.0) or getattr(e, "cuda_time", 0.0)
+    names = (("K9 rect_attn_kernel", ("rect_attn_kernel",)),
+             ("K9 dwconv_gelu_kernel", ("dwconv_gelu_kernel",)),
+             ("K14 chan_qkv_kernel", ("chan_qkv_kernel",)),
+             ("K14 chan_softmax + chan_apply", ("chan_softmax_kernel", "chan_apply_kernel")),
+             ("K10 datb_tail_kernel", ("datb_tail_kernel",)),
+             ("K2 layernorm", ("layernorm_rows",)),
+             ("K3/K4 conv_nhwc", ("conv_nhwc",)))
+    groups = dict.fromkeys([g for g, _ in names] + [
+        "plain ops (channel gates, conv_first, pixel shuffle, tiling, casts)"], 0.0)
+    for e in kernels:
+        g = next((g for g, keys in names if any(k in e.name for k in keys)),
+                 "plain ops (channel gates, conv_first, pixel shuffle, tiling, casts)")
+        groups[g] += us(e) / 1e3
+    busy = sum(groups.values())
+    idle = max(wall - busy, 0.0)
+    log(f"[dat] profiled forward: {wall:.2f} ms wall (profiler on), {len(kernels)} device "
+        f"kernels, busy {busy:.2f} ms, idle {idle:.2f} ms ({idle / wall:.1%}) ({smi})")
+    for g, t in groups.items():
+        log(f"[dat]   {t:8.3f} ms  {t / wall:6.1%}  {g}")
 
 
 def phase_swinir_ws7(smi):
@@ -1405,7 +1641,7 @@ def main() -> int:
     from tpu_superresolution_torch.core.config import SwinIRConfig
 
     phase_build()
-    kres = phase_train_kernels(phase_kernels())
+    kres = phase_dat_kernels(phase_train_kernels(phase_kernels()))
     _lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_lib.BUILD_DIR) as workdir:
         service, launches = phase_serve(workdir, SwinIRConfig(scale=4), "swinir", PER_CALL)
@@ -1413,6 +1649,7 @@ def main() -> int:
         del service
         ws7_launches = phase_swinir_ws7(smi)
         hat_launches = phase_hat(workdir, smi)
+        dat_launches = phase_dat(workdir, smi)
         train_launches, _ = phase_train(workdir, smi)
         hat_train_launches = phase_hat_train(workdir, smi)
 
@@ -1423,7 +1660,8 @@ def main() -> int:
             name=meta["name"], route=meta["route"], source=meta["source"],
             replaces=meta["replaces"],
             launches=sum(d.get(key, 0) for d in [launches, ws7_launches, hat_launches,
-                                                 train_launches] + hat_train_launches),
+                                                 dat_launches, train_launches]
+                         + hat_train_launches),
             max_abs_err=max(r["err"] for r in kres[key]),
             ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
             bound_by=first["bound_by"], library_ms=first["library_ms"],

@@ -19,7 +19,8 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "tpu_superresolution_tpu"))
 print(len(names), bad)
 assert not bad, bad
-for name in ("cli.train", "kernels.fused_ocab", "models.hat", "train.engine"):
+for name in ("cli.train", "kernels.fused_ocab", "models.hat", "train.engine", "models.dat",
+             "kernels.fused_rect_attn", "kernels.fused_channel_attn", "kernels.fused_datb_tail"):
     assert "tpu_superresolution_torch." + name in names, name
 """
 
@@ -48,7 +49,8 @@ def test_cpu_forward_launches_no_kernel():
     with torch.no_grad():
         y = model(torch.rand(1, 16, 16, 3))
     assert y.shape == (1, 64, 64, 3)
-    none = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K6b": 0, "K8": 0, "K8b": 0}
+    none = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K6b": 0, "K8": 0, "K8b": 0,
+            "K9": 0, "K10": 0, "K14": 0}
     assert read_counters() == none
     opt, sched = build_optimizer(TrainConfig(loss="l1"), 1, model)
     state = create_train_state(model, opt, sched)

@@ -169,9 +169,11 @@ def test_other_models_and_formats_are_refused(ckpt, tmp_path):
     from tpu_superresolution_torch.cli.upscale import load_for_inference
 
     with pytest.raises(SystemExit, match="ROADMAP.md"):
-        load_for_inference(ckpt, "dat", "X2", None, torch.device("cpu"))
+        load_for_inference(ckpt, "ms_resunet", "X2", None, torch.device("cpu"))
     with pytest.raises(ValueError, match="not a HAT checkpoint"):  # HAT is ported
         load_for_inference(ckpt, "hat", "X2", None, torch.device("cpu"))
+    with pytest.raises(ValueError, match="not a DAT checkpoint"):  # DAT is ported
+        load_for_inference(ckpt, "dat", "X2", None, torch.device("cpu"))
     with pytest.raises(SystemExit, match="ROADMAP.md"):
         load_for_inference(str(tmp_path / "orbax_dir"), "swinir", "X2", None,
                            torch.device("cpu"))

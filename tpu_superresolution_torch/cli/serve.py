@@ -4,7 +4,7 @@ serve super-resolution over HTTP (stdlib only):
 
     python -m tpu_superresolution_torch.cli.serve \\
         --ckpt model.pth --model swinir --scale X4 --no-exact --port 8008
-    (``--model hat`` for a HAT checkpoint)
+    (``--model hat`` / ``--model dat`` for a HAT / DAT checkpoint)
 
     curl -X POST --data-binary @photo.png \\
         http://localhost:8008/upscale > photo_sr.png
@@ -154,7 +154,7 @@ def build_argparser():
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--ckpt", type=str, required=True, help="reference torch .pt/.pth")
     ap.add_argument("--model", type=str, default="swinir", choices=MODEL_CHOICES,
-                    help="architecture of the checkpoint (swinir and hat are ported)")
+                    help="architecture of the checkpoint (swinir, hat and dat are ported)")
     ap.add_argument("--scale", type=str, choices=["X2", "X4"], required=True)
     ap.add_argument("--host", type=str, default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8008)

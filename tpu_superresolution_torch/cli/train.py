@@ -9,7 +9,9 @@ reference train.py:183-423):
 ``hat_fast`` (the transformers, trained on native-LR crops of
 ``--patch_size`` LR pixels); the CNN families ``ms_resunet`` (the JAX
 package's default) and ``unet2d`` are still to port (ROADMAP.md Queue 1
-item 2) and exit with that message.  The transformer overrides
+item 2) and exit with that message, as does ``dat``, which the port
+serves but does not train yet (ROADMAP.md Queue 1, "DAT training").  The
+transformer overrides
 ``--embed_dim``, ``--t_depths``, ``--t_heads`` and ``--window_size``
 resize the family's default config.  Weights start from the reference
 initialisation drawn from ``--seed``; ``--resume`` restores a ``.pt`` /
@@ -53,6 +55,7 @@ from tpu_superresolution_torch.data.loader import Loader
 from tpu_superresolution_torch.train.engine import Trainer, build_optimizer, create_train_state
 
 CNN_FAMILIES = ("ms_resunet", "unet2d")
+SERVING_ONLY = ("dat",)
 # flags of the JAX CLI whose features are not ported yet
 _REFUSED = {"do_blur": "--do_blur (blur augmentation)",
             "normalize": "--normalize (dataset normalization)",
@@ -123,6 +126,10 @@ def model_config_from_args(args):
         raise SystemExit(f"--model {args.model}: the CNN families (ms_resunet, unet2d) are "
                          "still to port (ROADMAP.md Queue 1 item 2); train swinir, hat or "
                          "hat_fast")
+    if args.model in SERVING_ONLY:
+        raise SystemExit(f"--model {args.model}: DAT training is not ported yet (ROADMAP.md "
+                         "Queue 1, 'DAT training'); the port serves DAT through upscale and "
+                         "serve")
     from tpu_superresolution_torch import models as _models  # noqa: F401  (the registry)
 
     if args.model not in model_registry:

@@ -1,5 +1,5 @@
 """Single-image super-resolution with a reference torch ``.pt/.pth``
-SwinIR or HAT checkpoint (port of
+SwinIR, HAT or DAT checkpoint (port of
 ``tpu_superresolution_tpu/cli/upscale.py``):
 
     python -m tpu_superresolution_torch.cli.upscale \\
@@ -32,7 +32,7 @@ AUTO_TILE = 192
 AUTO_OVERLAP = 16
 AUTO_TILE_BATCH = 8
 
-PORTED_MODELS = ("swinir", "hat")
+PORTED_MODELS = ("swinir", "hat", "dat")
 MODEL_CHOICES = ("ms_resunet", "unet2d", "swinir", "hat", "dat")
 
 
@@ -44,10 +44,11 @@ def auto_tile(h: int, w: int) -> int:
 def load_any_checkpoint(ckpt: str, model_name: str, scale_int: int, exact=None,
                         device: Optional[torch.device] = None,
                         dtype: Optional[torch.dtype] = None):
-    """Load a reference torch .pt/.pth SwinIR or HAT checkpoint
+    """Load a reference torch .pt/.pth SwinIR, HAT or DAT checkpoint
     (architecture inferred from tensor shapes) into the port.  Returns
     (model_config, model).  `exact=None` means exact for torch
-    checkpoints: no fused reconstruction, erf GELU."""
+    checkpoints: no fused reconstruction, erf GELU (DAT's GELUs are
+    always erf)."""
     from tpu_superresolution_torch.core.config import build_model
     from tpu_superresolution_torch.core.dtypes import serving_dtype
     from tpu_superresolution_torch.interop import (
@@ -70,7 +71,10 @@ def load_any_checkpoint(ckpt: str, model_name: str, scale_int: int, exact=None,
     sd = strip_reference_buffers(load_torch_checkpoint(ckpt))
     mcfg = CONFIG_INFERENCE[model_name](sd, scale_int)
     if exact is None or exact:
-        mcfg = dataclasses.replace(mcfg, fused_reconstruct=False, gelu_approximate=False)
+        fields = {f.name for f in dataclasses.fields(mcfg)}
+        mcfg = dataclasses.replace(mcfg, **{k: False for k in ("fused_reconstruct",
+                                                               "gelu_approximate")
+                                            if k in fields})
     model = build_model(mcfg, dtype=dtype or serving_dtype(device))
     model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, strict=True)
     return mcfg, model.to(device).eval()
@@ -124,7 +128,7 @@ def build_argparser():
     ap.add_argument("--image", type=str, nargs="+", required=True, help="input image file(s)")
     ap.add_argument("--ckpt", type=str, required=True, help="reference torch .pt/.pth")
     ap.add_argument("--model", type=str, default="swinir", choices=MODEL_CHOICES,
-                    help="architecture of the checkpoint (swinir and hat are ported)")
+                    help="architecture of the checkpoint (swinir, hat and dat are ported)")
     ap.add_argument("--scale", type=str, choices=["X2", "X4"], required=True)
     ap.add_argument("--out", type=str, default=None,
                     help="output file (single input) or directory (default: next to "

@@ -1,4 +1,5 @@
 from .config import (
+    DATConfig,
     DataConfig,
     EvalConfig,
     ModelConfig,
@@ -12,6 +13,7 @@ from .config import (
 from .dtypes import COMPUTE_DTYPE, OUTPUT_DTYPE, PARAM_DTYPE, serving_dtype
 
 __all__ = [
+    "DATConfig",
     "DataConfig",
     "EvalConfig",
     "ModelConfig",

@@ -3,8 +3,8 @@
 
 The dataclasses keep the JAX package's field names and defaults, so a
 ``to_dict()`` from either package rebuilds through the other's
-``config_from_dict``.  ``swinir``, ``hat`` and ``hat_fast`` are
-registered in the port so far; the other families are listed in
+``config_from_dict``.  ``swinir``, ``hat``, ``hat_fast`` and ``dat``
+are registered in the port so far; the other families are listed in
 ROADMAP.md.
 """
 
@@ -121,6 +121,38 @@ class HATFastConfig(HATConfig):
 
     name: str = "hat_fast"
     window_size: int = 8
+
+
+@dataclass(frozen=True)
+class DATConfig(ModelConfig):
+    """DAT dual aggregation transformer (reference
+    modules/dat_arch.py:699-859).  Defaults = DAT x4 as published
+    (Chen et al., ICCV 2023): embed 180, depths 6x6, heads 6, split
+    (8, 16), expansion 2.  Its GELUs are always the exact erf."""
+
+    name: str = "dat"
+    in_channels: int = 3
+    out_channels: int = 3
+    scale: int = 4
+    img_size: int = 64
+    embed_dim: int = 180
+    split_size: Tuple[int, int] = (8, 16)
+    depths: Tuple[int, ...] = (6, 6, 6, 6, 6, 6)
+    num_heads: Tuple[int, ...] = (6, 6, 6, 6, 6, 6)
+    expansion_factor: float = 2.0
+    qkv_bias: bool = True
+    upsampler: str = "pixelshuffle"  # pixelshuffle | pixelshuffledirect
+    resi_connection: str = "1conv"  # "1conv" | "3conv"
+    num_feat: int = 64
+    img_range: float = 1.0
+    use_remat: bool = False
+    attention_impl: str = "auto"  # kept for dict round-trips, as SwinIRConfig's
+    drop_path_rate: float = 0.1  # training only (not ported yet)
+    fused_reconstruct: bool = True  # see SwinIRConfig.fused_reconstruct
+
+    @property
+    def upsamples_internally(self) -> bool:
+        return True
 
 
 @dataclass(frozen=True)

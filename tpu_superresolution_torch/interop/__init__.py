@@ -1,7 +1,8 @@
 """Checkpoint interop of the port: reference torch checkpoints and the
-JAX package's parameter trees -> the port's state dict."""
+JAX package's variables -> the port's state dict."""
 
 from tpu_superresolution_torch.interop.jax_bridge import (
+    dat_state_dict_from_jax,
     hat_state_dict_from_jax,
     swinir_state_dict_from_jax,
 )
@@ -9,6 +10,7 @@ from tpu_superresolution_torch.interop.torch_convert import (
     CONFIG_INFERENCE,
     REFERENCE_BUFFER_SUFFIXES,
     extract_state_dict,
+    infer_dat_config,
     infer_hat_config,
     infer_swinir_config,
     load_torch_checkpoint,
@@ -18,8 +20,10 @@ from tpu_superresolution_torch.interop.torch_convert import (
 __all__ = [
     "CONFIG_INFERENCE",
     "REFERENCE_BUFFER_SUFFIXES",
+    "dat_state_dict_from_jax",
     "extract_state_dict",
     "hat_state_dict_from_jax",
+    "infer_dat_config",
     "infer_hat_config",
     "infer_swinir_config",
     "load_torch_checkpoint",

@@ -1,14 +1,17 @@
-"""The weight bridge: the JAX package's SwinIR and HAT parameter trees (a
-nested dict of numpy arrays, ``variables["params"]``) -> the port's
-state dicts.
+"""The weight bridge: the JAX package's SwinIR, HAT and DAT variables (a
+nested dict of numpy arrays: ``variables["params"]``, and for DAT also
+``variables["batch_stats"]``) -> the port's state dicts.
 
 The same mappings as the JAX package's
-``interop/torch_export.py::export_swinir`` / ``export_hat``, written
-here so the port needs nothing of the JAX package:
+``interop/torch_export.py::export_swinir`` / ``export_hat`` /
+``export_dat``, written here so the port needs nothing of the JAX
+package:
 
 - conv kernel [kh, kw, I, O] -> ``nn.Conv2d`` weight [O, I, kh, kw]
 - dense kernel [I, O]        -> ``nn.Linear`` weight [O, I]
 - LayerNorm scale / bias     -> weight / bias
+- BatchNorm scale / bias and batch_stats mean / var -> weight / bias,
+  running_mean / running_var (num_batches_tracked 0)
 - module names '_' -> '.' per the reference layout (layers_i ->
   layers.i.residual_group.blocks.j, patch_norm -> patch_embed.norm,
   the upsample chain's conv_k -> upsample.{0,2,4}).
@@ -45,6 +48,7 @@ class _Bridge:
 
     def __init__(self, variables: Mapping):
         self.p = _Tree(variables.get("params", variables))
+        self.s = _Tree(variables.get("batch_stats", {}))
         self.out: Dict[str, np.ndarray] = {}
 
     def ln(self, tname, *path):
@@ -60,6 +64,13 @@ class _Bridge:
         self.out[tname + ".weight"] = self.p.get(*path, "kernel").T
         if self.p.has(*path, "bias"):
             self.out[tname + ".bias"] = self.p.get(*path, "bias")
+
+    def bn(self, tname, *path):
+        self.out[tname + ".weight"] = self.p.get(*path, "scale")
+        self.out[tname + ".bias"] = self.p.get(*path, "bias")
+        self.out[tname + ".running_mean"] = self.s.get(*path, "mean")
+        self.out[tname + ".running_var"] = self.s.get(*path, "var")
+        self.out[tname + ".num_batches_tracked"] = np.asarray(0, np.int64)
 
     def swin_block(self, tb, *bp):
         """A Swin block's norms, attention and MLP (SwinIR's and HAT's)."""
@@ -154,6 +165,63 @@ def hat_state_dict_from_jax(variables: Mapping) -> Dict[str, np.ndarray]:
         e.dense(f"{to}.mlp.fc2", *op, "mlp", "fc2")
         if p.has(lp, "conv"):
             e.conv(f"{t}.conv", lp, "conv")
+        i += 1
+    e.tail()
+    return e.out
+
+
+def dat_state_dict_from_jax(variables: Mapping) -> Dict[str, np.ndarray]:
+    """JAX DAT variables ({"params", "batch_stats"}) -> reference-format
+    state dict (the inverse of the JAX package's ``convert_dat``; the
+    mapping of its ``export_dat``): the reference's Sequential indices
+    dwconv.{0 conv, 1 BN}, channel_interaction.{1 conv, 2 BN, 4 conv},
+    spatial_interaction.{0 conv, 1 BN, 3 conv}, DynamicPosBias
+    pos{1,2,3}.{0 LN, 2 Linear}, before_RG.1, ffn.sg.{norm, conv}."""
+    if not isinstance(variables, Mapping) or "batch_stats" not in variables:
+        raise ValueError("dat_state_dict_from_jax needs the variables' 'batch_stats' "
+                         "(BatchNorm running statistics) beside 'params'")
+    e = _Bridge(variables)
+    p = e.p
+    e.conv("conv_first", "conv_first")
+    e.ln("before_RG.1", "before_RG_norm")
+    i = 0
+    while p.has(f"layers_{i}"):
+        lp, t = f"layers_{i}", f"layers.{i}"
+        j = 0
+        while p.has(lp, f"blocks_{j}"):
+            bp = (lp, f"blocks_{j}")
+            tb, ap = f"{t}.blocks.{j}", bp + ("attn",)
+            e.ln(f"{tb}.norm1", *bp, "norm1")
+            e.ln(f"{tb}.norm2", *bp, "norm2")
+            e.dense(f"{tb}.attn.qkv", *ap, "qkv")
+            e.dense(f"{tb}.attn.proj", *ap, "proj")
+            e.conv(f"{tb}.attn.dwconv.0", *ap, "dwconv", "conv")
+            e.bn(f"{tb}.attn.dwconv.1", *ap, "dwconv", "bn")
+            e.conv(f"{tb}.attn.channel_interaction.1", *ap, "channel_interaction", "fc1")
+            e.bn(f"{tb}.attn.channel_interaction.2", *ap, "channel_interaction", "bn")
+            e.conv(f"{tb}.attn.channel_interaction.4", *ap, "channel_interaction", "fc2")
+            e.conv(f"{tb}.attn.spatial_interaction.0", *ap, "spatial_interaction", "fc1")
+            e.bn(f"{tb}.attn.spatial_interaction.1", *ap, "spatial_interaction", "bn")
+            e.conv(f"{tb}.attn.spatial_interaction.3", *ap, "spatial_interaction", "fc2")
+            if p.has(*ap, "temperature"):  # channel block
+                e.out[f"{tb}.attn.temperature"] = p.get(*ap, "temperature")
+            else:  # spatial block: the two branches' DynamicPosBias
+                for idx in (0, 1):
+                    pp, tpos = ap + (f"attns_{idx}", "pos"), f"{tb}.attn.attns.{idx}.pos"
+                    e.dense(f"{tpos}.pos_proj", *pp, "pos_proj")
+                    for n in (1, 2, 3):
+                        e.ln(f"{tpos}.pos{n}.0", *pp, f"pos{n}_norm")
+                        e.dense(f"{tpos}.pos{n}.2", *pp, f"pos{n}_fc")
+            e.dense(f"{tb}.ffn.fc1", *bp, "ffn", "fc1")
+            e.dense(f"{tb}.ffn.fc2", *bp, "ffn", "fc2")
+            e.ln(f"{tb}.ffn.sg.norm", *bp, "ffn", "sg_norm")
+            e.conv(f"{tb}.ffn.sg.conv", *bp, "ffn", "sg_conv")
+            j += 1
+        if p.has(lp, "conv"):
+            e.conv(f"{t}.conv", lp, "conv")
+        else:
+            for k in (0, 2, 4):
+                e.conv(f"{t}.conv.{k}", lp, f"conv_{k}")
         i += 1
     e.tail()
     return e.out

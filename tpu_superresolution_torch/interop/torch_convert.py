@@ -1,12 +1,14 @@
 """Reference torch checkpoints -> the port (port of the
 ``extract_state_dict`` / ``infer_swinir_config`` / ``infer_hat_config``
-parts of ``tpu_superresolution_tpu/interop/torch_convert.py``).
+/ ``infer_dat_config`` parts of
+``tpu_superresolution_tpu/interop/torch_convert.py``).
 
 The port's modules use the reference key names, so loading needs no key
 conversion: unwrap the checkpoint, drop the buffers the reference
 stores but the port computes from shapes (SwinIR's
 ``relative_position_index`` and ``attn_mask``, HAT's
-``relative_position_index_SA`` / ``_OCA``), and
+``relative_position_index_SA`` / ``_OCA``, DAT's ``rpe_biases``,
+``relative_position_index`` and ``attn_mask_0`` / ``_1``), and
 ``load_state_dict(strict=True)``.
 """
 
@@ -17,13 +19,14 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from tpu_superresolution_torch.core.config import HATConfig, SwinIRConfig
+from tpu_superresolution_torch.core.config import DATConfig, HATConfig, SwinIRConfig
 
 _WRAPPER_KEYS = ("params_ema", "params", "state_dict", "model_state_dict", "model", "net", "generator")
 
 # Buffers of reference checkpoints that the port derives from shapes.
 REFERENCE_BUFFER_SUFFIXES = (".relative_position_index", ".attn_mask",
-                             "relative_position_index_SA", "relative_position_index_OCA")
+                             "relative_position_index_SA", "relative_position_index_OCA",
+                             ".rpe_biases", ".attn_mask_0", ".attn_mask_1")
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, np.ndarray]:
@@ -174,5 +177,51 @@ def infer_hat_config(sd: Mapping[str, np.ndarray], scale: int) -> HATConfig:
     )
 
 
+def infer_dat_config(sd: Mapping[str, np.ndarray], scale: int) -> DATConfig:
+    """A DATConfig matching a reference dat_arch.py state dict (see
+    infer_swinir_config).  The split size is not in the weights (the
+    DynamicPosBias input is always 2-wide): the published (8, 16) is
+    kept."""
+    if "before_RG.1.weight" not in sd:
+        raise ValueError("not a DAT checkpoint: missing 'before_RG.1.weight' — wrong --model?")
+    embed_dim = int(sd["conv_first.weight"].shape[0])
+    depths, heads = [], []
+    i = 0
+    while f"layers.{i}.blocks.0.norm1.weight" in sd:
+        j = 0
+        while f"layers.{i}.blocks.{j}.norm1.weight" in sd:
+            j += 1
+        depths.append(j)
+        temp = f"layers.{i}.blocks.1.attn.temperature"  # channel blocks: [nH, 1, 1]
+        if temp in sd:
+            heads.append(int(sd[temp].shape[0]))
+        else:  # a one-block group: twice a branch's DynamicPosBias heads
+            heads.append(2 * int(sd[f"layers.{i}.blocks.0.attn.attns.0.pos.pos3.2.weight"].shape[0]))
+        i += 1
+    if not depths:
+        raise ValueError("DAT checkpoint has no 'layers.*.blocks.*' keys")
+    b0 = "layers.0.blocks.0"
+    if "conv_before_upsample.0.weight" in sd:
+        upsampler, num_feat = "pixelshuffle", int(sd["conv_before_upsample.0.weight"].shape[0])
+        out_channels = int(sd["conv_last.weight"].shape[0])
+    else:
+        upsampler, num_feat = "pixelshuffledirect", 64
+        out_channels = int(sd["upsample.0.weight"].shape[0]) // (scale * scale)
+    return DATConfig(
+        scale=scale,
+        in_channels=int(sd["conv_first.weight"].shape[1]),
+        out_channels=out_channels,
+        embed_dim=embed_dim,
+        depths=tuple(depths),
+        num_heads=tuple(heads),
+        expansion_factor=float(sd[f"{b0}.ffn.fc1.weight"].shape[0] / embed_dim),
+        qkv_bias=f"{b0}.attn.qkv.bias" in sd,
+        upsampler=upsampler,
+        resi_connection="1conv" if "layers.0.conv.weight" in sd else "3conv",
+        num_feat=num_feat,
+    )
+
+
 # --model name -> config inference of the ported families
-CONFIG_INFERENCE = {"swinir": infer_swinir_config, "hat": infer_hat_config}
+CONFIG_INFERENCE = {"swinir": infer_swinir_config, "hat": infer_hat_config,
+                    "dat": infer_dat_config}

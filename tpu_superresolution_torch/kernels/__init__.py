@@ -9,27 +9,28 @@ use (``_lib.build``).
 Every ``pl.pallas_call`` of the JAX package
 (``tpu_superresolution_tpu/ops/pallas/``), and where it stands in the
 port.  "On path": SwinIR-M x4 serving (S) and fine-tuning (T), HAT x4
-serving (H) and training (HT) (``hat``, ws 7; ``hat_fast``, ws 8).
+serving (H) and training (HT) (``hat``, ws 7; ``hat_fast``, ws 8), DAT
+x4 serving (D).
 
 ==== ========================================================== ======= ==================================================
  #   JAX file:line of pallas_call . entry function                on path port
 ==== ========================================================== ======= ==================================================
 K1   fused_block.py:958 . fused_swin_block (_mega_forward)         S,T,H   CUDA csrc/swin_block.cu (ws 8, extra), fused_block.fused_windows_block
 K5   fused_block.py:1080 . _mega_backward                          T,HT    CUDA csrc/swin_block_bwd.cu (ws 8, extra), fused_block.SwinBlockFunction
-K2   layernorm.py:54 . pallas_layernorm (layernorm_spatial)        S,T,H   CUDA csrc/layernorm.cu, layernorm.layernorm
-K3   cab_conv.py:307 . conv3x3_halo                                S,T,H   CUDA csrc/conv.cu, cab_conv.conv3x3
-K4   cab_conv.py:418 . conv_halo                                   S,T,H   CUDA csrc/conv.cu, cab_conv.conv_k
+K2   layernorm.py:54 . pallas_layernorm (layernorm_spatial)        S,T,H,D CUDA csrc/layernorm.cu, layernorm.layernorm
+K3   cab_conv.py:307 . conv3x3_halo                                S,T,H,D CUDA csrc/conv.cu, cab_conv.conv3x3
+K4   cab_conv.py:418 . conv_halo                                   S,T,H,D CUDA csrc/conv.cu, cab_conv.conv_k
 K6   fused_block.py:1427 . fused_packed_windows_block (forward)    H,HT    CUDA csrc/swin_block.cu (ws 7, extra), fused_block.fused_windows_block
 K6b  fused_block.py:1604 . _packed_backward                        HT      CUDA csrc/swin_block_bwd.cu (ws 7, extra), fused_block.SwinBlockFunction
 K13  fused_block.py:1532 . fused_spatial_windows_block             H       the K6 instantiation (it reads windows from the spatial map)
 K8   fused_ocab.py:311 . fused_ocab_core (_fwd_kernel)             HT      CUDA csrc/ocab.cu, fused_ocab.fused_ocab_core
 K8b  fused_ocab.py:354 . fused_ocab_core (_bwd_kernel)             HT      CUDA csrc/ocab.cu, fused_ocab.OcabCoreFunction
+K9   fused_rect_attn.py:433 . fused_rect_attention                 D       CUDA csrc/dat_rect.cu, fused_rect_attn.rect_attention
+K14  fused_channel_attn.py:209 . fused_channel_attention           D       CUDA csrc/dat_channel.cu, fused_channel_attn.channel_attention
+K10  fused_datb_tail.py:374 . fused_datb_tail                      D       CUDA csrc/dat_tail.cu, fused_datb_tail.datb_tail
 K7   fused_attention.py:229 . fused_window_block_attention         no      to port (block-kernel fallback)
 K12  cab_conv.py:209 . fused_ln_cab_convs                          no      to port (HAT CAB)
-K9   fused_rect_attn.py:433 . fused_rect_attention                 no      to port (DAT)
-K10  fused_datb_tail.py:374 . fused_datb_tail                      no      to port (DAT)
-K11  cab_conv.py:506 . dwconv3x3_halo                              no      to port (DAT)
-K14  fused_channel_attn.py:209 . fused_channel_attention           no      to port (DAT)
+K11  cab_conv.py:506 . dwconv3x3_halo                              no      to port (DAT training)
 K15  window_attention.py:193 . fused_window_attention              no      to port (attention_impl="pallas")
 K16  window_attention.py:352 . batched_window_attention            no      to port (attention_impl="pallas")
 ==== ========================================================== ======= ==================================================
@@ -40,14 +41,24 @@ backward kernel likewise serves K5 (ws 8) and K6's backward (ws 7, K6b).
 In training, K1-K4, K6 and K8 run through ``torch.autograd.Function``s:
 K1's backward is K5, K6's is K6b, K8's is K8b; K2-K4's backwards are
 torch autograd of their plain versions, as the JAX package leaves those
-backwards to XLA.
+backwards to XLA.  A DAT block is K9 (spatial) or K14 (channel), then
+K10; a K9 call is two CUDA launches, a K14 call three, a K10 call one,
+each counted once per wrapper call.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
-from tpu_superresolution_torch.kernels import cab_conv, fused_block, fused_ocab, layernorm
+from tpu_superresolution_torch.kernels import (
+    cab_conv,
+    fused_block,
+    fused_channel_attn,
+    fused_datb_tail,
+    fused_ocab,
+    fused_rect_attn,
+    layernorm,
+)
 
 COUNTERS = {
     "K1": fused_block.launches,
@@ -59,6 +70,9 @@ COUNTERS = {
     "K6b": fused_block.launches_bwd_ws7,
     "K8": fused_ocab.launches,
     "K8b": fused_ocab.launches_bwd,
+    "K9": fused_rect_attn.launches,
+    "K10": fused_datb_tail.launches,
+    "K14": fused_channel_attn.launches,
 }
 
 

@@ -50,6 +50,9 @@ _SIGNATURES = {
     "sr_swin_block_bwd_bf16": [_P] * 26 + [_I] * 8 + [ctypes.c_float, _I, _I, _P],
     "sr_ocab_fwd_bf16": [_P] * 14 + [_I] * 6 + [ctypes.c_float, _P],
     "sr_ocab_bwd_bf16": [_P] * 24 + [_I] * 6 + [ctypes.c_float, _I, _I, _P],
+    "sr_dat_rect_bf16": [_P] * 11 + [_I] * 9 + [ctypes.c_float, _P],
+    "sr_dat_channel_bf16": [_P] * 14 + [_I] * 6 + [ctypes.c_float, _P],
+    "sr_dat_tail_bf16": [_P] * 21 + [_I] * 5 + [ctypes.c_float, _P],
 }
 
 

@@ -1,11 +1,13 @@
 """Window partition / reverse / cyclic shift on NHWC tensors, and the
 numpy shift-mask and relative-position tables (port of
 ``tpu_superresolution_tpu/ops/window.py``; the tables are the same numpy
-code, so both packages build identical constants)."""
+code, so both packages build identical constants), square windows and
+DAT's rectangular ones."""
 
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -67,16 +69,78 @@ def shift_mask_tensor(h: int, w: int, ws: int, shift: int,
 
 
 @functools.lru_cache(maxsize=8)
-def relative_position_index(ws: int) -> np.ndarray:
-    """Swin relative-position index table [ws*ws, ws*ws] (the buffer the
-    reference builds at init, network_swinir.py:89-103)."""
-    coords = np.stack(np.meshgrid(np.arange(ws), np.arange(ws), indexing="ij"))
+def relative_position_index(ws: int, ws_w: Optional[int] = None) -> np.ndarray:
+    """Swin relative-position index table [N, N] of a ws x ws window, or
+    of a rectangular ws x ws_w one (N = ws * ws_w; the buffer the
+    reference builds at init, network_swinir.py:89-103, dat_arch.py:
+    178-190): pairwise (dh, dw) offsets as one index into the
+    [(2ws-1) * (2ws_w-1)] bias table."""
+    ws_h, ws_w = ws, ws if ws_w is None else ws_w
+    coords = np.stack(np.meshgrid(np.arange(ws_h), np.arange(ws_w), indexing="ij"))
     flat = coords.reshape(2, -1)
     rel = (flat[:, :, None] - flat[:, None, :]).transpose(1, 2, 0).astype(np.int64)
-    rel[:, :, 0] += ws - 1
-    rel[:, :, 1] += ws - 1
-    rel[:, :, 0] *= 2 * ws - 1
+    rel[:, :, 0] += ws_h - 1
+    rel[:, :, 1] += ws_w - 1
+    rel[:, :, 0] *= 2 * ws_w - 1
     return rel.sum(-1).astype(np.int32)
+
+
+def rect_window_partition(x: torch.Tensor, hsp: int, wsp: int) -> torch.Tensor:
+    """[B, H, W, C] -> [B*nW, hsp*wsp, C] rectangular windows (DAT's
+    img2windows, dat_arch.py:15-23); H, W must divide by hsp, wsp."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // hsp, hsp, w // wsp, wsp, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(-1, hsp * wsp, c)
+
+
+def rect_window_reverse(windows: torch.Tensor, hsp: int, wsp: int, h: int, w: int) -> torch.Tensor:
+    """Inverse of rect_window_partition -> [B, H, W, C]."""
+    c = windows.shape[-1]
+    b = windows.shape[0] // ((h // hsp) * (w // wsp))
+    x = windows.reshape(b, h // hsp, w // wsp, hsp, wsp, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h, w, c)
+
+
+def rect_shift_region_ids(h: int, w: int, hsp: int, wsp: int, sh: int, sw: int) -> np.ndarray:
+    """Per-token region labels [nW, hsp*wsp] of the shifted rect-window
+    mask on an (h, w) map (DAT's calculate_mask img_mask, dat_arch.py:
+    318-344): tokens of one window attend iff their labels match."""
+    img = np.zeros((h, w), dtype=np.int32)
+    cnt = 0
+    for hs in (slice(0, -hsp), slice(-hsp, -sh if sh else None),
+               slice(-sh, None) if sh else slice(0, 0)):
+        for wsl in (slice(0, -wsp), slice(-wsp, -sw if sw else None),
+                    slice(-sw, None) if sw else slice(0, 0)):
+            img[hs, wsl] = cnt
+            cnt += 1
+    m = img.reshape(h // hsp, hsp, w // wsp, wsp).transpose(0, 2, 1, 3)
+    return np.ascontiguousarray(m.reshape(-1, hsp * wsp))
+
+
+def rect_shift_attn_mask(h: int, w: int, hsp: int, wsp: int, sh: int, sw: int) -> np.ndarray:
+    """The shifted rect-window mask [nW, N, N] of 0 / -100 (not -inf) for
+    hsp x wsp windows rolled by (sh, sw) on the (padded) map (h, w)
+    (DAT's calculate_mask, dat_arch.py:318-361)."""
+    m = rect_shift_region_ids(h, w, hsp, wsp, sh, sw)
+    return np.where(m[:, None, :] != m[:, :, None], -100.0, 0.0).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def rect_mask_tensor(h: int, w: int, hsp: int, wsp: int, sh: int, sw: int,
+                     device: torch.device) -> torch.Tensor:
+    """`rect_shift_attn_mask` as an fp32 tensor on `device`, built once."""
+    return torch.from_numpy(rect_shift_attn_mask(h, w, hsp, wsp, sh, sw)).to(device)
+
+
+@functools.lru_cache(maxsize=8)
+def rpe_biases(hsp: int, wsp: int) -> np.ndarray:
+    """DAT's dynamic-position-bias input: the (dh, dw) offsets of a
+    hsp x wsp window, [(2hsp-1) * (2wsp-1), 2] fp32 (dat_arch.py:
+    172-176), in the row order of `relative_position_index(hsp, wsp)`."""
+    bh = np.arange(1 - hsp, hsp)
+    bw = np.arange(1 - wsp, wsp)
+    b = np.stack(np.meshgrid(bh, bw, indexing="ij"))
+    return b.reshape(2, -1).T.astype(np.float32)
 
 
 @functools.lru_cache(maxsize=32)
