@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SwinIR-M x4 serving and fine-tuning paths,
-its HAT x4 serving and training paths and its DAT x4 serving path once
-on one NVIDIA H100 and check them.  Run from the repository root:
+its HAT x4 serving and training paths, its DAT x4 serving path and its
+HAT-SRx4 (upstream HAT, window 16) serving path once on one NVIDIA H100
+and check them.  Run from the repository root:
 
     python3 chip_smoke.py
 
@@ -25,7 +26,18 @@ Phases (a failure in any raises, and the script exits non-zero):
             DAT's kernels at DATConfig()'s widths on the bench tile
             batch and on a [2,52,76,180] image (sides not multiples of
             16): K9 unshifted and shifted, K14 and K10, each output in
-            bf16 ulps against the plain bf16 and fp32 versions;
+            bf16 ulps against the plain bf16 and fp32 versions; then K7
+            (window attention for any window) at HAT-SRx4's
+            [25,64,64,180] ws 16 unshifted and shift 8, at SwinIR-L's
+            widths (C 240, 8 heads, ws 8, shifted), at ws 6 (N 36) and
+            at ws 32 (N 1024); K1's tail on the K7 route (K1t: the
+            attention residual through the window reverse and unshift,
+            `extra`, LN2, the MLP and its residual) at HAT-SRx4's
+            widths (ws 16, shift 8, extra) and SwinIR-L's (ws 8, shift
+            4, branch scales); and K12 (LN + the CAB's two convs) at
+            the HAT-SRx4, HAT, hat_fast and HAT-S shapes, also timed
+            against the K2 + cuDNN convs + GELU it replaced; each in
+            bf16 ulps likewise;
 4. serve    SwinIR-M x4 (seeded random weights, exported to a .pth) behind
             SRService + make_server on 127.0.0.1, three PNG requests;
             status, size, finite output, launch counts per model call,
@@ -35,12 +47,17 @@ Phases (a failure in any raises, and the script exits non-zero):
             25 tiles in one batch, 10 timed iterations) in MPix/s, for the
             kernels and for the plain path; then SwinIR-M x4 at window 7
             (its blocks run K6): launches and PSNR vs the plain fp32 path;
+            and one SwinIR-L-width forward (embed 240, 8 heads, ws 8,
+            depths 9x6, 3conv, nearest+conv; 4 tiles of 64^2), whose
+            blocks take the K7 route (K2, K7, K1t): launches and PSNR
+            likewise;
 6. hat      HAT x4 (HATConfig(): embed 96, depths 6x4, ws 7; seeded
             random weights, exported to a .pth) behind SRService with
-            --model hat: the three requests and checks of the serve phase;
-            then the bench workload for HAT in MPix/s, kernels vs plain,
-            with a torch.profiler split of one forward, and one hat_fast
-            (ws 8) forward, whose blocks are K1 with `extra`;
+            --model hat: the three requests and checks of the serve phase
+            (every CAB is K12); then the bench workload for HAT in
+            MPix/s, kernels vs plain, with a torch.profiler split of one
+            forward, and one hat_fast (ws 8) forward, whose blocks are K1
+            with `extra`;
 7. dat      DAT x4 (DATConfig(): embed 180, depths 6x6, heads 6, split
             (8, 16); seeded random weights with perturbed BatchNorm
             statistics, exported to a .pth) behind SRService with --model
@@ -65,11 +82,19 @@ Phases (a failure in any raises, and the script exits non-zero):
             K8b, CAB, the rest, idle), the first step's gradients
             against the plain fp32 path (with the plain bf16 path beside
             it); then a hat_fast step (K1 / K5 with `extra`): launches
-            and first-step gradients.
+            and first-step gradients;
+10. hat_srx4 HAT-SRx4 (upstream HAT_SRx4_ImageNet-pretrain.yml: window
+            16, embed 180, depths 6x6, heads 6, mlp 2, compress 3,
+            squeeze 30, overlap 0.5; seeded random weights, exported to a
+            .pth) behind SRService with --model hat: the serve phase's
+            requests and checks (launches per call K7 36, K1t 36, K12
+            36, K2 50, K3 8, K4 1, K1 = K6 = 0; the tiled output >= 50 dB against
+            the plain fp32 path), the bench workload in MPix/s, kernels
+            vs plain, and a torch.profiler split of one forward.
 
 The second-to-last stdout line is a JSON object describing each kernel
-(launches summed over the serve, SwinIR ws-7, hat, dat, train and
-hat-train phases); the last is
+(launches summed over the serve, SwinIR ws-7, SwinIR-L, hat, dat,
+train, hat-train and hat_srx4 phases); the last is
 {"ok": true, "device": {...}}.  There is no CPU path: with no CUDA
 device the script exits non-zero and prints no result.
 """
@@ -94,8 +119,8 @@ PSNR_MIN_DB = 50.0
 # [2^e, 2^(e+1))).  A kernel that rounds its bf16 output once is within
 # 1 ulp of the fp32 result; the bounds leave room for bf16 operands and
 # the plain version's own roundings.
-ULP_BOUND = {"K1": 8, "K2": 4, "K3": 4, "K4": 4, "K6": 8, "K8": 8, "K9": 8, "K10": 8,
-             "K14": 8}
+ULP_BOUND = {"K1": 8, "K1t": 8, "K2": 4, "K3": 4, "K4": 4, "K6": 8, "K7": 8, "K8": 8,
+             "K9": 8, "K10": 8, "K12": 8, "K14": 8}
 # The backward kernels (K5, K6b, K8b): each activation gradient (dx,
 # d extra; dq, dk, dv, d sw) within this many bf16 ulps at its max |ref|,
 # and every parameter gradient within this relative Frobenius error of
@@ -146,18 +171,41 @@ KERNELS = {
     "K14": dict(name="dat_channel_attention", route="cuda",
                 source="tpu_superresolution_torch/csrc/dat_channel.cu",
                 replaces="tpu_superresolution_tpu/ops/pallas/fused_channel_attn.py:209"),
+    "K7": dict(name="window_attention", route="cuda",
+               source="tpu_superresolution_torch/csrc/window_attn.cu",
+               replaces="tpu_superresolution_tpu/ops/pallas/fused_attention.py:229"),
+    "K12": dict(name="ln_cab_convs", route="cuda",
+                source="tpu_superresolution_torch/csrc/cab_fused.cu",
+                replaces="tpu_superresolution_tpu/ops/pallas/cab_conv.py:209"),
+    # K1's function at the windows and widths the block kernel does not
+    # take is K2 (LN1) + K7 + this tail kernel
+    "K1t": dict(name="swin_block_tail", route="cuda",
+                source="tpu_superresolution_torch/csrc/swin_tail.cu",
+                replaces="tpu_superresolution_tpu/ops/pallas/fused_block.py:958"),
 }
 # Launches per SwinIR-M x4 model call on the serving path (--no-exact).
-PER_CALL = {"K1": 36, "K2": 2, "K3": 8, "K4": 1, "K5": 0, "K6": 0, "K6b": 0, "K8": 0,
-            "K8b": 0, "K9": 0, "K10": 0, "K14": 0}
-# Per HAT x4 model call (--no-exact): K6 per HAB (24); K2 for patch_norm,
-# norm, each HAB's CAB input (24) and each OCAB's two norms (8); K3 for
-# the 4 RHAG convs, conv_after_body and conv_before_upsample; K4 for the
-# composed reconstruction.  hat_fast runs K1 where hat runs K6.
-HAT_PER_CALL = dict(PER_CALL, K1=0, K2=34, K3=6, K4=1, K6=24)
+PER_CALL = {"K1": 36, "K1t": 0, "K2": 2, "K3": 8, "K4": 1, "K5": 0, "K6": 0, "K6b": 0,
+            "K7": 0, "K8": 0, "K8b": 0, "K9": 0, "K10": 0, "K12": 0, "K14": 0}
+# Per HAT x4 model call (--no-exact): K6 per HAB (24); K12 per HAB's CAB
+# (24: its LN1 inside); K2 for patch_norm, norm and each OCAB's two norms
+# (8); K3 for the 4 RHAG convs, conv_after_body and conv_before_upsample;
+# K4 for the composed reconstruction.  hat_fast runs K1 where hat runs K6.
+HAT_PER_CALL = dict(PER_CALL, K1=0, K2=10, K3=6, K4=1, K6=24, K12=24)
 HAT_FAST_PER_CALL = dict(HAT_PER_CALL, K1=24, K6=0)
 # SwinIR-M x4 from a checkpoint of window 7: its 36 blocks run K6.
 SWINIR_WS7_PER_CALL = dict(PER_CALL, K1=0, K6=36)
+# SwinIR-L's widths (embed 240, 8 heads, ws 8, depths 9x6, 3conv,
+# nearest+conv): every block takes the K7 route (C 240 > 192): K7 and
+# K1t 54 each, K2 for patch_norm, norm and each block's LN1 (56); K3 for
+# the two 3x3 convs of each 3conv (9 RSTBs and conv_after_body: 20),
+# conv_before_upsample, conv_up1, conv_up2 and conv_hr; no K4.
+SWINIR_L_PER_CALL = dict(PER_CALL, K1=0, K1t=54, K2=56, K3=24, K4=0, K7=54)
+# Per HAT-SRx4 model call (window 16, depths 6x6; --no-exact): every HAB
+# takes the K7 route (K7 and K1t 36 each) and its CAB K12 (36); K2 for
+# patch_norm, norm, each HAB's LN1 (36) and each OCAB's two norms (12);
+# K3 for the 6 RHAG convs, conv_after_body and conv_before_upsample; K4
+# for the composed reconstruction; no block kernel.
+HAT_SRX4_PER_CALL = dict(PER_CALL, K1=0, K1t=36, K2=50, K3=8, K4=1, K7=36, K12=36)
 # Per DAT x4 model call (DATConfig(): depths 6x6, split (8, 16); --no-exact):
 # K9 per spatial block (18, 9 of them shifted), K14 per channel block
 # (18), K10 per block (36); K2 for before_RG and norm; K3 for the 6 group
@@ -174,12 +222,14 @@ TRAIN_TIMED_STEPS = 10
 TRAIN_PER_STEP = dict(PER_CALL, K5=36)
 # HAT x4 training (HATConfig(), batch 8 of 64^2 LR crops, reflect-padded
 # to 70^2), per train step: K6 forward and K6b backward per HAB (24); K8
-# and K8b per OCAB core (4); K2 for patch_norm, norm, each HAB's CAB input
-# (24) and each OCAB's LN1 (4; its LN2 is inside K8); K3 for the 4 RHAG
-# convs, conv_after_body and conv_before_upsample; K4 for the composed
-# reconstruction.  hat_fast runs K1 / K5 where hat runs K6 / K6b.
-HAT_TRAIN_PER_STEP = {"K1": 0, "K2": 30, "K3": 6, "K4": 1, "K5": 0, "K6": 24, "K6b": 24,
-                      "K8": 4, "K8b": 4, "K9": 0, "K10": 0, "K14": 0}
+# and K8b per OCAB core (4); K2 for patch_norm, norm and each OCAB's LN1
+# (4; its LN2 is inside K8); K12 per HAB's CAB (24, its backward autograd
+# of the plain version); K3 for the 4 RHAG convs, conv_after_body and
+# conv_before_upsample; K4 for the composed reconstruction.  hat_fast
+# runs K1 / K5 where hat runs K6 / K6b.
+HAT_TRAIN_PER_STEP = {"K1": 0, "K1t": 0, "K2": 6, "K3": 6, "K4": 1, "K5": 0, "K6": 24,
+                      "K6b": 24, "K7": 0, "K8": 4, "K8b": 4, "K9": 0, "K10": 0, "K12": 24,
+                      "K14": 0}
 HAT_FAST_TRAIN_PER_STEP = dict(HAT_TRAIN_PER_STEP, K1=24, K5=24, K6=0, K6b=0)
 # First step, kernels (bf16) vs the plain fp32 path from the same weights,
 # batch and stochastic-depth masks: bf16 activations keep ~3 significant
@@ -741,6 +791,158 @@ def phase_dat_kernels(res):
     return res
 
 
+def _random_k7(gen, device, c, nh, ws):
+    """K7's raw weights at width C, `nh` heads and window `ws` with O(1)
+    activations (bf16-representable GEMM weights) and its gathered
+    [nh, ws^2, ws^2] bias."""
+    import torch
+
+    from tpu_superresolution_torch.ops.window import relative_position_bias
+
+    def r(*shape, scale=1.0, bf=False):
+        t = torch.randn(*shape, generator=gen) * scale
+        return (t.bfloat16().float() if bf else t).to(device)
+
+    table = r((2 * ws - 1) ** 2, nh, scale=0.5)
+    return (r(3 * c, c, scale=c ** -0.5, bf=True), r(3 * c, scale=0.1),
+            r(c, c, scale=c ** -0.5, bf=True), r(c, scale=0.1),
+            relative_position_bias(table, ws))
+
+
+def _k7_work(windows, n, c, nh):
+    """(FLOPs, bytes) of one K7 call: per token qkv 6C^2, QK^T and AV over
+    N keys 4NC, proj 2C^2; xw read and out written in bf16, the weights
+    (bf16) and the bias [nh, N, N] (fp32) read once."""
+    tokens = windows * n
+    return (tokens * (6 * c * c + 4 * n * c + 2 * c * c),
+            tokens * c * 2 * 2 + 4 * c * c * 2 + nh * n * n * 4)
+
+
+def _tail_work(tokens, c, hidden, extra):
+    """(FLOPs, bytes) of one K1t call: fc1 and fc2, 4 C hidden per
+    token; x, attn (and extra) read and out written in bf16, the MLP
+    weights once."""
+    return tokens * 4 * c * hidden, tokens * c * 2 * (4 if extra else 3) + 2 * c * hidden * 2
+
+
+def _k12_work(pixels, c, cm):
+    """(FLOPs, bytes) of one K12 call: two 3x3 convs C -> Cmid -> C per
+    pixel; x read and y written in bf16, the weights once."""
+    return pixels * 2 * 2 * 9 * c * cm, pixels * c * 2 * 2 + 2 * 9 * c * cm * 2
+
+
+def phase_window_kernels(res):
+    """K7 (the window-attention kernel for any window) and K12 (HAT's
+    fused LN + CAB convs) at the main paths' shapes, each output within
+    ULP_BOUND bf16 ulps of its plain bf16 and fp32 versions, with times
+    and bounds, into `res`.  K7: HAT-SRx4's bench batch [25,64,64,180]
+    at ws 16 (N 256), unshifted and shift 8 with the mask; SwinIR-L's
+    widths (C 240, 8 heads) at ws 8 shifted; ws 6 (N 36); ws 32 (N
+    1024) shifted.  K1t (K1's tail on the K7 route): HAT-SRx4's widths
+    at ws 16, shift 8, with `extra`; SwinIR-L's (C 240, hidden 480) at
+    ws 8, shift 4, with branch scales.  K12: the HAT-SRx4, HAT (ws 7,
+    reflect-padded tiles), hat_fast and HAT-S shapes, each also timed
+    against the composition it replaced in the CAB (K2, then cuDNN
+    conv, GELU, cuDNN conv).  Each kernel's first case is the one the
+    kernels line reports."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_superresolution_torch.kernels import cab_conv as cc
+    from tpu_superresolution_torch.kernels import fused_attention as fa
+    from tpu_superresolution_torch.kernels import fused_block as fb
+    from tpu_superresolution_torch.kernels.layernorm import layernorm
+    from tpu_superresolution_torch.ops.window import shift_mask_tensor, window_partition
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 6)
+    bf = torch.bfloat16
+    for shape, nh, ws, shift in (((25, 64, 64, 180), 6, 16, 0), ((25, 64, 64, 180), 6, 16, 8),
+                                 ((25, 64, 64, 240), 8, 8, 4), ((8, 48, 48, 180), 6, 6, 3),
+                                 ((2, 64, 64, 180), 6, 32, 16)):
+        c = shape[-1]
+        wqkv, bqkv, wproj, bproj, rpb = _random_k7(gen, dev, c, nh, ws)
+        packed = fa.pack_window_attention(wqkv, bqkv, wproj, bproj, rpb)
+        x = torch.randn(*shape, generator=gen).to(dev, bf)
+        xw = window_partition(x, ws).contiguous()
+        mask = shift_mask_tensor(shape[1], shape[2], ws, shift, dev) if shift else None
+        run = lambda: fa.fused_window_attention(xw, wqkv, bqkv, wproj, bproj, rpb, mask,
+                                                packed=packed)
+        scale = (c // nh) ** -0.5
+        plain = lambda: fa.window_attention_plain(xw, wqkv, bqkv, wproj, bproj, rpb, mask, scale)
+        out = run()
+        ref16 = plain()
+        ref32 = fa.window_attention_plain(xw.float(), wqkv, bqkv, wproj, bproj, rpb, mask, scale)
+        torch.cuda.synchronize()
+        _compare(res, "K7", f"{list(shape)} C {c} {nh} heads ws {ws} (N {ws * ws}) shift {shift}",
+                 out, ref16, ref32, cuda_ms(run), cuda_ms(plain),
+                 _k7_work(xw.shape[0], ws * ws, c, nh))
+        del out, ref16, ref32
+
+    for shape, nh, hidden, ws, shift, with_extra, with_scales in (
+            ((25, 64, 64, 180), 6, 360, 16, 8, True, False),
+            ((25, 64, 64, 240), 8, 480, 8, 4, False, True)):
+        b, c = shape[0], shape[-1]
+        w = _random_block(gen, dev, c=c, nh=nh, hidden=hidden, ws=ws)
+        packed = fb.pack_block_tail(w.g2, w.b2, w.wfc1, w.bfc1, w.wfc2, w.bfc2)
+        x = torch.randn(*shape, generator=gen).to(dev, bf)
+        windows = b * (shape[1] // ws) * (shape[2] // ws)
+        attn = torch.randn(windows, ws * ws, c, generator=gen).to(dev, bf)
+        extra = (0.1 * torch.randn(*shape, generator=gen)).to(dev, bf) if with_extra else None
+        scales = (torch.tensor([[1.0, 0.0], [1.25, 1.25]]).repeat(b // 2 + 1, 1)[:b].to(dev)
+                  if with_scales else None)
+        run = lambda: fb.fused_block_tail(x, attn, w, ws, shift, False, scales, extra,
+                                          packed=packed)
+        plain = lambda: fb.swin_block_tail_plain(x, attn, w, ws, shift, False, scales, extra)
+        out = run()
+        ref16 = plain()
+        ref32 = fb.swin_block_tail_plain(x.float(), attn.float(), w, ws, shift, False, scales,
+                                         None if extra is None else extra.float())
+        torch.cuda.synchronize()
+        _compare(res, "K1t", f"{list(shape)} hidden {hidden} ws {ws} shift {shift}"
+                 f"{', extra' if with_extra else ''}{', branch scales' if with_scales else ''}",
+                 out, ref16, ref32, cuda_ms(run), cuda_ms(plain),
+                 _tail_work(math.prod(shape[:3]), c, hidden, with_extra))
+        del out, ref16, ref32
+
+    for label, shape, cm in (("HAT-SRx4", (25, 64, 64, 180), 60),
+                             ("HAT (ws 7, padded tiles)", (25, 70, 70, 96), 32),
+                             ("hat_fast", (25, 64, 64, 96), 32),
+                             ("HAT-S (compress 24)", (25, 64, 64, 144), 6)):
+        c = shape[-1]
+        def rnd(*s, sc=1.0, b16=False):
+            t = torch.randn(*s, generator=gen) * sc
+            return (t.bfloat16().float() if b16 else t).to(dev)
+
+        g, b = 1 + rnd(c, sc=0.1), rnd(c, sc=0.1)
+        k1, c1 = rnd(3, 3, c, cm, sc=(9 * c) ** -0.5, b16=True), rnd(cm, sc=0.1)
+        k2, c2 = rnd(3, 3, cm, c, sc=(9 * cm) ** -0.5, b16=True), rnd(c, sc=0.1)
+        k1b, k2b = k1.to(bf), k2.to(bf)
+        packed = cc.pack_cab(g, b, k1b, c1, k2b, c2)
+        x = torch.randn(*shape, generator=gen).to(dev, bf)
+        run = lambda: cc.fused_ln_cab_convs(x, g, b, k1b, c1, k2b, c2, packed=packed)
+        plain = lambda: cc.fused_ln_cab_convs_plain(x, g, b, k1b, c1, k2b, c2)
+        # what the CAB ran before K12: K2, then NCHW-view cuDNN convs in
+        # bf16 (each made contiguous NHWC) with the GELU between
+        w1, w2 = k1b.permute(3, 2, 0, 1), k2b.permute(3, 2, 0, 1)
+        c1b, c2b = c1.to(bf), c2.to(bf)
+        nhwc = lambda t: t.permute(0, 2, 3, 1).contiguous()
+        composed = lambda: nhwc(F.conv2d(
+            F.gelu(nhwc(F.conv2d(layernorm(x, g, b).permute(0, 3, 1, 2), w1, c1b, padding=1))
+                   ).permute(0, 3, 1, 2), w2, c2b, padding=1))
+        out = run()
+        ref16 = plain()
+        ref32 = cc.fused_ln_cab_convs_plain(x.float(), g, b, k1, c1, k2, c2)
+        torch.cuda.synchronize()
+        t_kernel, t_composed = cuda_ms(run), cuda_ms(composed)
+        _compare(res, "K12", f"{label} {list(shape)} {c} -> {cm} -> {c}", out, ref16, ref32,
+                 t_kernel, cuda_ms(plain), _k12_work(math.prod(shape[:3]), c, cm))
+        log(f"[kernels] K12 {label}: kernel {t_kernel:.4f} ms, the K2 + cuDNN convs + GELU it "
+            f"replaced {t_composed:.4f} ms ({t_kernel / t_composed:.2f}x)")
+        del out, ref16, ref32
+    return res
+
+
 def _png_bytes(arr):
     from PIL import Image
 
@@ -1059,18 +1261,89 @@ def phase_swinir_ws7(smi):
     return counts
 
 
-def _hat_split(model, fwd, smi):
+def phase_swinir_l(smi):
+    """One forward at SwinIR-L's widths (the real-world x4 model: embed
+    240, 8 heads, ws 8, depths 9x6, 3conv, nearest+conv; seeded random
+    weights) on 4 tiles of 64^2 in bf16: every block takes the K7 route
+    (C 240 is past the block kernel's 192); its launches, and its output
+    against the plain fp32 path."""
+    import numpy as np
+    import torch
+
+    from tpu_superresolution_torch.core.config import SwinIRConfig, build_model
+    from tpu_superresolution_torch.kernels import read_counters, reset_counters
+
+    cfg = SwinIRConfig(scale=4, embed_dim=240, depths=(6,) * 9, num_heads=(8,) * 9,
+                       window_size=8, mlp_ratio=2.0, resi_connection="3conv",
+                       upsampler="nearest+conv", num_feat=64)
+    src = build_model(cfg)
+    src.reset_parameters(torch.Generator().manual_seed(SEED))
+    model = build_model(cfg, dtype=torch.bfloat16, device="cuda")
+    model.load_state_dict(src.state_dict())
+    ref = build_model(cfg, dtype=torch.float32, impl="plain", device="cuda")
+    ref.load_state_dict(src.state_dict())
+    x = torch.from_numpy(np.random.default_rng(SEED).random((4, 64, 64, 3), np.float32)).cuda()
+    with torch.no_grad():
+        model(x)  # warm-up: K7 weight packing
+        torch.cuda.synchronize()
+        reset_counters()
+        y = model(x)
+        torch.cuda.synchronize()
+        counts = read_counters()
+        ms = cuda_ms(lambda: model(x), iters=5, warmup=1)
+        psnr = _psnr_db(y, ref(x))
+    log(f"[swinir-l] SwinIR-L widths (embed 240, 8 heads, ws 8, depths 9x6, 3conv, "
+        f"nearest+conv), [4,64,64,3] bf16: launches {counts} (expected {SWINIR_L_PER_CALL}); "
+        f"{ms:.2f} ms; PSNR vs plain fp32 {psnr:.2f} dB (bound >= {PSNR_MIN_DB} dB) ({smi})")
+    if counts != SWINIR_L_PER_CALL:
+        raise RuntimeError(f"SwinIR-L launches {counts}, expected {SWINIR_L_PER_CALL}")
+    if psnr < PSNR_MIN_DB or not bool(torch.isfinite(y).all()):
+        raise RuntimeError(f"SwinIR-L output PSNR {psnr:.2f} dB < {PSNR_MIN_DB} dB")
+    return counts
+
+
+def hat_srx4_config():
+    """HAT-SRx4 as upstream publishes it (XPixelGroup/HAT,
+    options/test/HAT_SRx4_ImageNet-pretrain.yml): window 16, embed 180,
+    depths 6x6, heads 6x6, mlp_ratio 2, compress 3, squeeze 30,
+    conv_scale 0.01, overlap 0.5, pixelshuffle with num_feat 64, 1conv,
+    img_range 1."""
+    from tpu_superresolution_torch.core.config import HATConfig
+
+    return HATConfig(scale=4, window_size=16, embed_dim=180, depths=(6,) * 6,
+                     num_heads=(6,) * 6, mlp_ratio=2.0, compress_ratio=3, squeeze_factor=30,
+                     conv_scale=0.01, overlap_ratio=0.5, num_feat=64, img_range=1.0,
+                     resi_connection="1conv", upsampler="pixelshuffle")
+
+
+def phase_hat_srx4(workdir, smi):
+    """HAT-SRx4 serving (``hat_srx4_config()``, seeded random weights,
+    exported to a .pth) behind SRService with --model hat: the serve
+    phase's three requests and checks (launches per call exactly
+    HAT_SRX4_PER_CALL, the tiled output >= 50 dB against the plain fp32
+    path), the bench workload in MPix/s for the kernels and the plain
+    path, and a profiled forward split by part.  Returns the launches of
+    the served requests."""
+    service, launches = phase_serve(workdir, hat_srx4_config(), "hat", HAT_SRX4_PER_CALL,
+                                    tag="hat_srx4")
+    fwd = phase_bench(service, smi, name="HAT-SRx4", tag="hat_srx4")
+    _hat_split(service.model, fwd, smi, tag="hat_srx4")
+    return launches
+
+
+def _hat_split(model, fwd, smi, tag="hat"):
     """Where one HAT bench forward spends its device time, under
-    torch.profiler: the block kernels (K6), K2, K3/K4 by kernel name, the
-    other kernels by the module whose profiler range launched them (the
-    CAB branches' cuDNN convs and SE, the OCABs' plain ops, the rest),
-    and the device's idle share of the wall time."""
+    torch.profiler: the block kernel (K6 or K1), K7, K1t, K12, K2, K3/K4
+    by kernel name, the other kernels by the module whose profiler range
+    launched them (the CAB's SE gate, the OCABs' plain ops, the HABs'
+    plain ops on the K7 route: the shift and partition gathers; the
+    rest), and the device's idle share of the wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from tpu_superresolution_torch.models.hat import CAB, OCAB
+    from tpu_superresolution_torch.models.hat import CAB, HAB, OCAB
 
-    parts = {CAB: "hat::cab", OCAB: "hat::ocab"}
+    parts = {HAB: "hat::hab", CAB: "hat::cab", OCAB: "hat::ocab"}
     stack, handles = [], []
     for m in model.modules():
         if type(m) in parts:
@@ -1090,40 +1363,43 @@ def _hat_split(model, fwd, smi):
             wall = (time.perf_counter() - t0) * 1e3
         events = prof.events()
     except Exception as e:  # the profile is a reading aid, not a check
-        log(f"[hat] profiler failed: {type(e).__name__}: {e}")
+        log(f"[{tag}] profiler failed: {type(e).__name__}: {e}")
         return
     finally:
         for h in handles:
             h.remove()
     kernels = _device_kernels(prof)
     if not kernels:
-        log("[hat] profiler: no device events recorded")
+        log(f"[{tag}] profiler: no device events recorded")
         return
     # the device-side spans of the module ranges
     spans = [(e.time_range.start, e.time_range.end, e.name) for e in events
              if e.device_type == torch.autograd.DeviceType.CUDA
              and getattr(e, "is_user_annotation", False) and e.name in parts.values()]
     us = lambda e: getattr(e, "device_time", 0.0) or getattr(e, "cuda_time", 0.0)
-    groups = dict.fromkeys(("K6 swin_block_kernel<7>", "K2 layernorm", "K3/K4 conv_nhwc",
-                            "CAB convs + SE (cuDNN, elementwise)", "OCAB plain ops",
-                            "other (conv_first, mean shift, tiling, casts)"), 0.0)
+    names = (("block kernel (swin_block_kernel)", ("swin_block_kernel",)),
+             ("K7 qkv_gemm_kernel", ("qkv_gemm_kernel",)),
+             ("K7 window_attn_kernel", ("window_attn_kernel",)),
+             ("K1t swin_tail_kernel", ("swin_tail_kernel",)),
+             ("K12 ln_cab_convs_kernel", ("ln_cab_convs_kernel",)),
+             ("K2 layernorm", ("layernorm_rows",)), ("K3/K4 conv_nhwc", ("conv_nhwc",)))
+    by_span = (("hat::cab", "CAB SE gate (plain ops)"), ("hat::ocab", "OCAB plain ops"),
+               ("hat::hab", "HAB plain ops (K7 route: the shift and partition gathers)"))
+    other = "other (conv_first, mean shift, tiling, casts)"
+    groups = dict.fromkeys([g for g, _ in names] + [g for _, g in by_span] + [other], 0.0)
     for e in kernels:
         n, t = e.name, e.time_range.start
-        span = next((name for a, b, name in spans if a <= t <= b), None)
-        g = ("K6 swin_block_kernel<7>" if "swin_block_kernel" in n else
-             "K2 layernorm" if "layernorm_rows" in n else
-             "K3/K4 conv_nhwc" if "conv_nhwc" in n else
-             "CAB convs + SE (cuDNN, elementwise)" if span == "hat::cab" else
-             "OCAB plain ops" if span == "hat::ocab" else
-             "other (conv_first, mean shift, tiling, casts)")
+        inside = {name for a, b, name in spans if a <= t <= b}
+        g = next((g for g, keys in names if any(k in n for k in keys)), None)
+        g = g or next((g for span, g in by_span if span in inside), other)
         groups[g] += us(e) / 1e3
     busy = sum(groups.values())
     idle = max(wall - busy, 0.0)
-    log(f"[hat] profiled forward: {wall:.2f} ms wall (profiler on), {len(kernels)} device "
+    log(f"[{tag}] profiled forward: {wall:.2f} ms wall (profiler on), {len(kernels)} device "
         f"kernels, busy {busy:.2f} ms, idle {idle:.2f} ms ({idle / wall:.1%}); "
         f"{len(spans)} module ranges seen on the device ({smi})")
     for g, t in groups.items():
-        log(f"[hat]   {t:8.3f} ms  {t / wall:6.1%}  {g}")
+        log(f"[{tag}]   {t:8.3f} ms  {t / wall:6.1%}  {g}")
 
 
 def _write_deeprock(root, n_train, n_valid, hr_size, scale, seed):
@@ -1423,11 +1699,11 @@ def phase_hat_train(workdir, smi):
         del model, st
 
     # 3. the first step's gradients; the HABs' norm1 gets two gradients
-    # (the block kernel's LN1 and K2's LN1 feeding the CAB) whose sum
-    # must match
+    # (the block kernel's LN1 and K12's LN1 in the CAB) whose sum must
+    # match
     cos = _first_step_gate(cfg, src, lr, hr, "hat-train", smi)
     norm1 = sorted((v, k) for k, v in cos.items() if ".blocks." in k and ".norm1." in k)
-    log(f"[hat-train] HAB norm1 gradients (block kernel LN1 + the CAB's K2 LN1), lowest "
+    log(f"[hat-train] HAB norm1 gradients (block kernel LN1 + the CAB's K12 LN1), lowest "
         f"cosine {norm1[:2]}")
     del src
 
@@ -1463,7 +1739,7 @@ def _hat_train_split(state, lr, hr, step_ms, smi):
     torch.profiler: the forward, backward and optimizer as ranges, the
     kernels by name (K6, K6b, K8, K8b, each backward's weight-gradient
     products and reductions attributed to the per-window kernel before
-    them; K2-K4), the CAB branches' forward by module range, the rest by
+    them; K12; K2-K4), the CAB's SE gate by module range, the rest by
     the range it ran in, and the device's idle share of the wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -1521,7 +1797,8 @@ def _hat_train_split(state, lr, hr, step_ms, smi):
     groups = dict.fromkeys((
         "K6 forward (swin_block_kernel<7>)", "K6b (per-window, weight grads, reductions)",
         "K8 forward (ocab_fwd_kernel)", "K8b (per-window, weight grads, reductions)",
-        "K2-K4 forwards", "CAB forward (cuDNN convs, SE)", "other forward ops",
+        "K12 forward (ln_cab_convs_kernel)", "K2-K4 forwards", "CAB SE gate forward",
+        "other forward ops",
         "plain-op backwards (CAB, K2-K4, gathers, casts)", "optimizer (norm, clip, AdamW)",
         "other"), 0.0)
     last_bwd = "K6b (per-window, weight grads, reductions)"
@@ -1538,10 +1815,12 @@ def _hat_train_split(state, lr, hr, step_ms, smi):
             g = "K6 forward (swin_block_kernel<7>)"
         elif "ocab_fwd_kernel" in n:
             g = "K8 forward (ocab_fwd_kernel)"
+        elif "ln_cab_convs_kernel" in n:
+            g = "K12 forward (ln_cab_convs_kernel)"
         elif "layernorm_rows" in n or "conv_nhwc" in n:
             g = "K2-K4 forwards"
         elif "hat::cab" in inside:
-            g = "CAB forward (cuDNN convs, SE)"
+            g = "CAB SE gate forward"
         elif "step::forward" in inside:
             g = "other forward ops"
         elif "step::backward" in inside:
@@ -1641,17 +1920,19 @@ def main() -> int:
     from tpu_superresolution_torch.core.config import SwinIRConfig
 
     phase_build()
-    kres = phase_dat_kernels(phase_train_kernels(phase_kernels()))
+    kres = phase_window_kernels(phase_dat_kernels(phase_train_kernels(phase_kernels())))
     _lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_lib.BUILD_DIR) as workdir:
         service, launches = phase_serve(workdir, SwinIRConfig(scale=4), "swinir", PER_CALL)
         phase_bench(service, smi)
         del service
         ws7_launches = phase_swinir_ws7(smi)
+        swinir_l_launches = phase_swinir_l(smi)
         hat_launches = phase_hat(workdir, smi)
         dat_launches = phase_dat(workdir, smi)
         train_launches, _ = phase_train(workdir, smi)
         hat_train_launches = phase_hat_train(workdir, smi)
+        srx4_launches = phase_hat_srx4(workdir, smi)
 
     kernels = []
     for key, meta in KERNELS.items():
@@ -1659,9 +1940,9 @@ def main() -> int:
         kernels.append(dict(
             name=meta["name"], route=meta["route"], source=meta["source"],
             replaces=meta["replaces"],
-            launches=sum(d.get(key, 0) for d in [launches, ws7_launches, hat_launches,
-                                                 dat_launches, train_launches]
-                         + hat_train_launches),
+            launches=sum(d.get(key, 0) for d in [launches, ws7_launches, swinir_l_launches,
+                                                 hat_launches, dat_launches, train_launches,
+                                                 srx4_launches] + hat_train_launches),
             max_abs_err=max(r["err"] for r in kres[key]),
             ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
             bound_by=first["bound_by"], library_ms=first["library_ms"],

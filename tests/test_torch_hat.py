@@ -205,3 +205,99 @@ def test_hat_refuses_training_mode():
         fused_ocab.ocab_core_plain = real
     assert torch.equal(again, served)
     assert not any(read_counters().values())
+
+
+@pytest.mark.parametrize("impl", ["jnp", "fused"])
+def test_hat_ws16_matches_jax(impl):
+    """HAT at upstream HAT-SRx4's window 16 (embed 24, depths (2, 2)):
+    every HAB takes the K7 route and every CAB K12's function, against
+    the JAX module path (jnp) and its fused path (K1 at ws 16 in
+    interpret mode), on an input whose sides are not multiples of 16."""
+    from tpu_superresolution_torch.kernels import read_counters, reset_counters
+    from tpu_superresolution_torch.kernels.fused_block import block_route
+
+    cfg = small_hat_config(window_size=16, attention_impl=impl, gelu_approximate=impl == "fused")
+    model, variables = perturbed_jax_swinir(cfg, (16, 16))
+    x = np.random.default_rng(8).random((1, 20, 37, 3), dtype=np.float32)
+    want = jax_forward(model, variables, x)
+    port = port_from_jax(cfg, variables)
+    assert block_route(16, 24, 2, 96) == "window_attention"
+    assert port.layers[0].residual_group.overlap_attn.overlap_win_size == 24
+    reset_counters()
+    got = port_forward(port, x)
+    assert not any(read_counters().values())
+    assert got.shape == want.shape == (1, 80, 148, 3)
+    assert np.abs(got - want).max() <= TOL
+
+
+def _ws16_reference_pth(tmp_path):
+    """A reference-format HAT .pth at window 16 (with hat_arch.py's index
+    buffers), from the port's seeded random weights."""
+    from tpu_superresolution_torch.core.config import HATConfig, build_model
+
+    cfg = HATConfig(embed_dim=24, depths=(2,), num_heads=(2,), window_size=16, squeeze_factor=6,
+                    num_feat=16, mlp_ratio=2.0)
+    model = build_model(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(9))
+    sd = dict(model.state_dict())
+    sd["relative_position_index_SA"] = torch.zeros(256, 256, dtype=torch.int64)
+    sd["relative_position_index_OCA"] = torch.zeros(256, 576, dtype=torch.int64)
+    path = str(tmp_path / "hat_ws16_x4.pth")
+    torch.save({"params_ema": sd}, path)
+    return cfg, model, path
+
+
+def test_hat_ws16_checkpoint_infers_the_config_and_upscales_on_cpu(tmp_path):
+    """infer_hat_config reads window 16, ows 24 and mlp_ratio 2 from a
+    ws-16 reference .pth; the upscale CLI serves it with --device cpu,
+    whole image and tiled, and matches the model it came from."""
+    from PIL import Image
+
+    from tpu_superresolution_torch.cli.upscale import load_any_checkpoint
+    from tpu_superresolution_torch.cli.upscale import main as upscale_main
+
+    cfg, model, path = _ws16_reference_pth(tmp_path)
+    mcfg, loaded = load_any_checkpoint(path, "hat", 4, exact=True, device=torch.device("cpu"))
+    assert (mcfg.window_size, mcfg.embed_dim, mcfg.mlp_ratio) == (16, 24, 2.0)
+    assert int(mcfg.overlap_ratio * 16) + 16 == 24
+    x = torch.rand(1, 18, 22, 3, generator=torch.Generator().manual_seed(10))
+    ref = build_exact(cfg)
+    ref.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        assert (loaded(x) - ref(x)).abs().max() <= TOL
+    img = (np.random.default_rng(11).random((18, 22, 3)) * 255).astype(np.uint8)
+    Image.fromarray(img).save(tmp_path / "a.png")
+    for extra in ([], ["--tile", "16", "--tile_overlap", "4"]):
+        outs = upscale_main(["--image", str(tmp_path / "a.png"), "--ckpt", path, "--model",
+                             "hat", "--scale", "X4", "--device", "cpu"] + extra)
+        with Image.open(outs[0]) as im:
+            assert im.size == (88, 72)
+
+
+def build_exact(cfg):
+    from tpu_superresolution_torch.core.config import build_model
+
+    return build_model(dataclasses.replace(cfg, gelu_approximate=False, fused_reconstruct=False,
+                                           conv_scale=0.01))
+
+
+def test_hat_ws16_training_runs_on_cpu_and_names_the_k8_item():
+    """At window 16 HAT trains on the CPU (the K7 route and K12 are
+    differentiable), and K8's window envelope, which the OCAB's training
+    route meets on CUDA, refuses ws 16 naming the ROADMAP item."""
+    from tpu_superresolution_torch.core.config import HATConfig, build_model
+    from tpu_superresolution_torch.kernels.fused_ocab import OcabWeights, check_ocab_args
+
+    model = build_model(HATConfig(embed_dim=24, depths=(2,), num_heads=(2,), window_size=16,
+                                  squeeze_factor=6))
+    model.train()
+    model(torch.rand(1, 16, 16, 3), generator=torch.Generator().manual_seed(0)).mean().backward()
+    assert all(p.grad is not None for p in model.parameters())
+    ocab = model.layers[0].residual_group.overlap_attn
+    weights = OcabWeights(
+        wproj=ocab.proj.weight, bproj=ocab.proj.bias, g2=ocab.norm2.weight, b2=ocab.norm2.bias,
+        wfc1=ocab.mlp.fc1.weight, bfc1=ocab.mlp.fc1.bias, wfc2=ocab.mlp.fc2.weight,
+        bfc2=ocab.mlp.fc2.bias, num_heads=2)
+    with pytest.raises(ValueError, match="K8 and the block backward at ws 16, for HAT-SRx4 "
+                                         "training"):
+        check_ocab_args((4, 256, 24), (4, 576, 24), (4, 256, 24), weights, (2, 256, 576))

@@ -82,6 +82,38 @@ def test_block_args_reject_widths_and_shapes_outside_the_kernel():
         check_block_args((2, 16, 24, 32), w, 8, 0)
 
 
+@pytest.mark.parametrize("ws,c,nh", [(16, 32, 2), (6, 32, 2), (7, 224, 7)])
+def test_blocks_the_kernel_refuses_take_the_k7_route(ws, c, nh, monkeypatch):
+    """The windows and widths the block kernel's checks above refuse
+    are a block route's business, not an error: block_route sends them
+    to the K7 route, and a HAB of that shape (on the CPU: each wrapper's
+    plain version) runs K7's wrapper once and equals swin_block_plain
+    with its CAB term."""
+    from tpu_superresolution_torch.kernels.fused_block import block_route, swin_block_plain
+    from tpu_superresolution_torch.models import swinir
+    from tpu_superresolution_torch.models.hat import HAB
+    from tpu_superresolution_torch.ops.window import shift_mask_tensor
+
+    assert block_route(ws, c, nh, 2 * c) == "window_attention"
+    gen = torch.Generator().manual_seed(ws + c)
+    hab = HAB(c, nh, ws, ws // 2, 3, 4, 0.3, 2.0, True, False)
+    with torch.no_grad():
+        for p in hab.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    calls = []
+    real = swinir.fused_window_attention
+    monkeypatch.setattr(swinir, "fused_window_attention",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    x = torch.randn(2, 2 * ws, 3 * ws, c, generator=gen)
+    with torch.no_grad():
+        got = hab(x)
+        extra = hab.conv_block(x, hab.norm1) * hab.conv_scale
+        mask = shift_mask_tensor(2 * ws, 3 * ws, ws, ws // 2, x.device)
+        want = swin_block_plain(x, hab.block_weights(), ws, ws // 2, mask, False, extra=extra)
+    assert calls == [1]
+    assert (got - want).abs().max() <= 1e-5
+
+
 @pytest.mark.parametrize("ws,with_extra,ok", [(8, False, True), (8, True, True),
                                               (7, False, True), (7, True, True),
                                               (6, False, False)])

@@ -275,7 +275,7 @@ def test_stochastic_depth_scales_attention_and_mlp_not_the_cab_term(m1, m2):
     scales = torch.tensor([[m1, m2], [m1, m2]])
     with torch.no_grad():
         got = hab(x, branch_scales=scales)
-        extra = hab.conv_block(hab.norm1(x)) * hab.conv_scale
+        extra = hab.conv_block(x, hab.norm1) * hab.conv_scale  # CAB on LN1(x), K12's function
         want = swin_block_plain(x, hab.block_weights(), 7, 3, hab_mask(hab, x), False, scales,
                                 extra)
         assert torch.allclose(got, want, atol=1e-6)

@@ -20,7 +20,8 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert not bad, bad
 for name in ("cli.train", "kernels.fused_ocab", "models.hat", "train.engine", "models.dat",
-             "kernels.fused_rect_attn", "kernels.fused_channel_attn", "kernels.fused_datb_tail"):
+             "kernels.fused_rect_attn", "kernels.fused_channel_attn", "kernels.fused_datb_tail",
+             "kernels.fused_attention", "kernels.cab_conv"):
     assert "tpu_superresolution_torch." + name in names, name
 """
 
@@ -49,8 +50,8 @@ def test_cpu_forward_launches_no_kernel():
     with torch.no_grad():
         y = model(torch.rand(1, 16, 16, 3))
     assert y.shape == (1, 64, 64, 3)
-    none = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K6b": 0, "K8": 0, "K8b": 0,
-            "K9": 0, "K10": 0, "K14": 0}
+    none = {"K1": 0, "K1t": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K6b": 0, "K7": 0,
+            "K8": 0, "K8b": 0, "K9": 0, "K10": 0, "K12": 0, "K14": 0}
     assert read_counters() == none
     opt, sched = build_optimizer(TrainConfig(loss="l1"), 1, model)
     state = create_train_state(model, opt, sched)
@@ -93,6 +94,21 @@ def test_wrappers_refuse_devices_without_a_kernel():
         layernorm(x, torch.ones(16, device="meta"), torch.zeros(16, device="meta"))
     with pytest.raises(ValueError, match="no kernel"):
         conv3x3(x, torch.empty(3, 3, 16, 16, device="meta"), torch.empty(16, device="meta"))
+
+
+def test_window_attention_and_cab_wrappers_refuse_devices_without_a_kernel():
+    """K7's and K12's wrappers likewise: a meta tensor gets neither the
+    kernel nor the plain version."""
+    from tpu_superresolution_torch.kernels.cab_conv import fused_ln_cab_convs
+    from tpu_superresolution_torch.kernels.fused_attention import fused_window_attention
+
+    m = lambda *s: torch.empty(*s, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_window_attention(m(4, 36, 16), m(48, 16), m(48), m(16, 16), m(16), m(2, 36, 36),
+                               None)
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_ln_cab_convs(m(1, 8, 8, 16), m(16), m(16), m(3, 3, 16, 5), m(5), m(3, 3, 5, 16),
+                           m(16))
 
 
 def test_kernel_build_is_lazy():

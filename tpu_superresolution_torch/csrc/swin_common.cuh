@@ -1,5 +1,6 @@
 // WMMA helpers shared by the Swin block kernels (K1/K6 csrc/swin_block.cu,
-// K5/K6b csrc/swin_block_bwd.cu) and the OCAB kernels (K8/K8b
+// K5/K6b csrc/swin_block_bwd.cu, K1's tail csrc/swin_tail.cu), K7
+// (csrc/window_attn.cu) and the OCAB kernels (K8/K8b
 // csrc/ocab.cu): 16x16x16 bf16 fragments with fp32
 // accumulation, 64-row strip GEMMs against weights read straight from
 // global memory, and the staged epilogue that hands each lane eight
@@ -33,6 +34,24 @@ __device__ __forceinline__ void gemm_strip(Acc (&acc)[4], const bf16* a, int lda
   for (int k = 0; k < K_DIM; k += 16) {
     FragBt fb;
     wmma::load_matrix_sync(fb, wrow + k, K_DIM);
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      FragA fa;
+      wmma::load_matrix_sync(fa, a + mt * 16 * lda + k, lda);
+      wmma::mma_sync(acc[mt], fa, fb, acc[mt]);
+    }
+  }
+}
+
+// gemm_strip with a run-time depth k_dim and W's leading dimension ldw.
+__device__ __forceinline__ void gemm_strip_rt(Acc (&acc)[4], const bf16* a, int lda,
+                                              const bf16* w, int ldw, int n0, int k_dim) {
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) wmma::fill_fragment(acc[mt], 0.f);
+  const bf16* wrow = w + static_cast<long long>(n0) * ldw;
+  for (int k = 0; k < k_dim; k += 16) {
+    FragBt fb;
+    wmma::load_matrix_sync(fb, wrow + k, ldw);
 #pragma unroll
     for (int mt = 0; mt < 4; ++mt) {
       FragA fa;

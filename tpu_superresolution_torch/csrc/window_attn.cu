@@ -1,0 +1,314 @@
+// K7 — fused window attention: qkv product, biased and masked window
+// softmax attention, output projection, for any window of N tokens.
+//
+// Replaces: tpu_superresolution_tpu/ops/pallas/fused_attention.py
+//           fused_window_block_attention -> _fused_forward (pallas_call
+//           at :229); oracle _reference_impl (:177).
+// Math (per window w of N tokens, C <= 256 channels, nh <= 8 heads of
+//       hd <= 32):
+//         qkv = xw Wqkv^T + bqkv             (q rows pre-scaled by hd^-0.5)
+//         S_h = q_h k_h^T + rpb[h] + mask[w % nW]          (fp32)
+//         out = concat_h(softmax(S_h) v_h) Wproj^T + bproj
+//       GEMM operands bf16 with fp32 accumulation; the softmax in fp32.
+// Design: two launches.  (1) qkv_gemm_kernel: one 256-thread block per
+//       64 token rows computes the rows' q|k|v into a bf16 workspace
+//       [BW*N, 3*nh*32] (heads padded to 32 dims by the host packing).
+//       (2) window_attn_kernel: one 256-thread block per (window, 64-query
+//       tile) streams the window's keys in 64-row tiles per head with an
+//       online softmax (running max and sum, the fp32 output rescaled per
+//       key tile), then multiplies the tile's head-concatenated output by
+//       Wproj.  At N = 256 one head's fp32 score matrix is 256 KB and
+//       does not fit in shared memory; the tile holds 64 x 64 scores.
+//       Pad keys (>= N) get -inf, pad query rows are computed on zeros
+//       and not stored.  Weights are read from L2 by the WMMA fragments.
+//       Splitting the qkv product into its own launch keeps each key
+//       tile's k and v computed once, not once per query tile; the
+//       workspace costs one bf16 write and one read of 3*nh*32 columns a
+//       token.
+// Bound on the H100: HAT-SRx4's bench batch ([25,64,64,180] at ws 16,
+//       N = 256) needs 443,520 FLOP a token (qkv 194,400, QK^T and AV
+//       184,320, proj 64,800): 45.4 GFLOP, 0.046 ms at the bf16 peak,
+//       against 73.7 MB of x in and out (0.022 ms): compute-bound.  This
+//       first version pays the head padding (hd 30 -> 32), three
+//       barriers a key tile and staging of every accumulator through
+//       shared memory (the WMMA fragment layout is opaque).  Two heads in
+//       flight with each warp's rows, softmax state and output held in
+//       registers and cp.async double-buffered key tiles measured no
+//       faster on the H100 (PERF.md); wgmma and TMA are later work.
+#include <mma.h>
+
+#include "common.cuh"
+#include "swin_common.cuh"
+
+using namespace nvcuda;
+
+namespace {
+
+constexpr int MAX_C = 256;
+constexpr int MAX_HEADS = 8;
+constexpr int HDP = 32;
+constexpr int T = 64;  // query / key / token rows per tile
+constexpr int NWARPS = 8;
+constexpr int NTHREADS = NWARPS * 32;
+
+// ---- launch 1: the qkv product ----
+constexpr int LDX = MAX_C + 8;  // bf16
+constexpr int QKV_SMEM = T * LDX * 2 + NWARPS * 256 * 4;
+
+__global__ void __launch_bounds__(NTHREADS)
+    qkv_gemm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
+                    const float* __restrict__ bqkv, bf16* __restrict__ qkv, long long rows,
+                    int c, int ck, int n3) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* xs = reinterpret_cast<bf16*>(smem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  float* stg = reinterpret_cast<float*>(smem + T * LDX * 2) + warp * 256;
+  const long long r0 = static_cast<long long>(blockIdx.x) * T;
+
+  for (int i = tid; i < T * ck; i += NTHREADS) {
+    const int r = i / ck, k = i % ck;
+    const long long row = r0 + r;
+    xs[r * LDX + k] = (row < rows && k < c) ? x[row * c + k] : __float2bfloat16(0.f);
+  }
+  __syncthreads();
+  Acc acc[4];
+  for (int strip = warp; strip < n3 / 16; strip += NWARPS) {
+    const int n0 = strip * 16;
+    gemm_strip_rt(acc, xs, LDX, wqkv, ck, n0, ck);
+    strip_epilogue(acc, stg, lane, n0, [&](int r, int n, float (&v)[8]) {
+      if (r0 + r >= rows) return;
+      float b[8];
+      load8(b, bqkv + n);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] += b[i];
+      store8_bf16(qkv + (r0 + r) * n3 + n, v);
+    });
+  }
+}
+
+// ---- launch 2: attention and proj per (window, 64-query tile) ----
+constexpr int LDH = HDP + 8;          // bf16 q, k, v tiles
+constexpr int LDS = T + 4;            // fp32 scores
+constexpr int LDP = T + 8;            // bf16 probabilities
+constexpr int LDO = MAX_HEADS * HDP + 8;  // bf16 head-concatenated output
+constexpr int OFF_Q = 0;
+constexpr int OFF_K = OFF_Q + T * LDH * 2;
+constexpr int OFF_V = OFF_K + T * LDH * 2;
+constexpr int OFF_S = OFF_V + T * LDH * 2;
+constexpr int OFF_P = OFF_S + T * LDS * 4;
+constexpr int OFF_ACC = OFF_P + T * LDP * 2;      // fp32 [64][32] running output
+constexpr int OFF_STAT = OFF_ACC + T * HDP * 4;   // fp32 m, l, alpha [64] each
+constexpr int OFF_O = OFF_STAT + 3 * T * 4 + 256;  // (rounded up to 128 bytes)
+constexpr int OFF_STG = OFF_O + T * LDO * 2;
+constexpr int ATTN_SMEM = OFF_STG + NWARPS * 256 * 4;
+static_assert(ATTN_SMEM <= 232448, "over the 227 KB shared-memory limit");
+static_assert(OFF_K % 128 == 0 && OFF_V % 128 == 0 && OFF_S % 128 == 0 && OFF_P % 128 == 0 &&
+                  OFF_ACC % 128 == 0 && OFF_STAT % 128 == 0 && OFF_O % 128 == 0 &&
+                  OFF_STG % 128 == 0,
+              "shared buffers must stay 128-byte aligned");
+
+struct AttnArgs {
+  const bf16* qkv;     // [BW*N, 3A]
+  const bf16* wproj;   // [CO, A]
+  const float* bproj;  // [CO]
+  const float* rpb;    // [nh, N, N]
+  const float* mask;   // [n_mask, N, N] or null
+  bf16* out;           // [BW, N, C]
+  int n, c, co, nh, n_mask, tiles;
+};
+
+// rows [t0, t0 + 64) of columns [col, col + 32) of the window's workspace
+// rows into a [64][LDH] tile; rows >= N are zero.  One 16-byte vector a
+// thread.
+__device__ __forceinline__ void load_head_tile(bf16* dst, const bf16* base, int t0, int n,
+                                               int n3, int col, int tid) {
+  const int r = tid >> 2, cv = (tid & 3) * 8;
+  uint4 v = make_uint4(0, 0, 0, 0);
+  if (t0 + r < n)
+    v = *reinterpret_cast<const uint4*>(base + static_cast<long long>(t0 + r) * n3 + col + cv);
+  *reinterpret_cast<uint4*>(dst + r * LDH + cv) = v;
+}
+
+__global__ void __launch_bounds__(NTHREADS) window_attn_kernel(const AttnArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem + OFF_Q);
+  bf16* ks = reinterpret_cast<bf16*>(smem + OFF_K);
+  bf16* vs = reinterpret_cast<bf16*>(smem + OFF_V);
+  float* ss = reinterpret_cast<float*>(smem + OFF_S);
+  bf16* ps = reinterpret_cast<bf16*>(smem + OFF_P);
+  float* oacc = reinterpret_cast<float*>(smem + OFF_ACC);
+  float* row_m = reinterpret_cast<float*>(smem + OFF_STAT);
+  float* row_l = row_m + T;
+  float* row_a = row_l + T;
+  bf16* os = reinterpret_cast<bf16*>(smem + OFF_O);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  float* stg = reinterpret_cast<float*>(smem + OFF_STG) + warp * 256;
+
+  const int n = a.n, nh = a.nh;
+  const int att = nh * HDP, n3 = 3 * att;
+  const long long win = blockIdx.x / a.tiles;
+  const int q0 = static_cast<int>(blockIdx.x % a.tiles) * T;
+  const bf16* base = a.qkv + win * n * static_cast<long long>(n3);
+  const float* mwin =
+      a.mask ? a.mask + (win % a.n_mask) * static_cast<long long>(n) * n : nullptr;
+  const float neg_inf = -__int_as_float(0x7f800000);
+
+  for (int hh = 0; hh < nh; ++hh) {
+    load_head_tile(qs, base, q0, n, n3, hh * HDP, tid);
+    for (int i = tid; i < T * HDP; i += NTHREADS) oacc[i] = 0.f;
+    if (tid < T) {
+      row_m[tid] = neg_inf;
+      row_l[tid] = 0.f;
+    }
+    const float* rp = a.rpb + static_cast<long long>(hh) * n * n;
+    for (int kt = 0; kt < a.tiles; ++kt) {
+      const int k0 = kt * T;
+      load_head_tile(ks, base, k0, n, n3, att + hh * HDP, tid);
+      load_head_tile(vs, base, k0, n, n3, 2 * att + hh * HDP, tid);
+      __syncthreads();
+      // S = Q_h K_h^T (q carries the softmax scale): 16 tiles, 2 a warp
+      for (int tile = warp; tile < 16; tile += NWARPS) {
+        const int mt = tile >> 2, nt = tile & 3;
+        Acc s;
+        wmma::fill_fragment(s, 0.f);
+#pragma unroll
+        for (int k = 0; k < HDP; k += 16) {
+          FragA fa;
+          FragBt fb;
+          wmma::load_matrix_sync(fa, qs + mt * 16 * LDH + k, LDH);
+          wmma::load_matrix_sync(fb, ks + nt * 16 * LDH + k, LDH);
+          wmma::mma_sync(s, fa, fb, s);
+        }
+        wmma::store_matrix_sync(ss + mt * 16 * LDS + nt * 16, s, LDS, wmma::mem_row_major);
+      }
+      __syncthreads();
+      // online softmax over this key tile: eight lanes a row, eight
+      // columns a lane; pad keys -inf, pad query rows without bias
+      for (int r = warp * 4 + (lane >> 3); r < T; r += NWARPS * 4) {
+        const int c0 = (lane & 7) * 8;
+        const int qr = q0 + r;
+        float v[8];
+        load8(v, ss + r * LDS + c0);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int col = k0 + c0 + i;
+          if (col >= n) {
+            v[i] = neg_inf;
+          } else if (qr < n) {
+            v[i] += rp[static_cast<long long>(qr) * n + col];
+            if (mwin) v[i] += mwin[static_cast<long long>(qr) * n + col];
+          }
+        }
+        float mt = v[0];
+#pragma unroll
+        for (int i = 1; i < 8; ++i) mt = fmaxf(mt, v[i]);
+#pragma unroll
+        for (int o = 4; o > 0; o >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o));
+        const float m_old = row_m[r];
+        const float m_new = fmaxf(m_old, mt);  // finite: key 0 is real, the mask finite
+        float sum = 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          v[i] = expf(v[i] - m_new);
+          sum += v[i];
+        }
+#pragma unroll
+        for (int o = 4; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        store8_bf16(ps + r * LDP + c0, v);
+        __syncwarp();
+        if ((lane & 7) == 0) {
+          const float alpha = expf(m_old - m_new);  // 0 on the first tile
+          row_a[r] = alpha;
+          row_l[r] = row_l[r] * alpha + sum;
+          row_m[r] = m_new;
+        }
+      }
+      __syncthreads();
+      // O = alpha O + P V_h: 8 tiles of 16 x 16, one a warp
+      {
+        const int mt = warp >> 1, nt = warp & 1;
+        Acc o;
+        wmma::fill_fragment(o, 0.f);
+#pragma unroll
+        for (int k = 0; k < T; k += 16) {
+          FragA fa;
+          FragB fb;
+          wmma::load_matrix_sync(fa, ps + mt * 16 * LDP + k, LDP);
+          wmma::load_matrix_sync(fb, vs + k * LDH + nt * 16, LDH);
+          wmma::mma_sync(o, fa, fb, o);
+        }
+        wmma::store_matrix_sync(stg, o, 16, wmma::mem_row_major);
+        __syncwarp();
+        const int rr = mt * 16 + (lane >> 1), cc = nt * 16 + (lane & 1) * 8;
+        float pv[8];
+        load8(pv, stg + (lane >> 1) * 16 + (lane & 1) * 8);
+        const float alpha = row_a[rr];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) oacc[rr * HDP + cc + i] = oacc[rr * HDP + cc + i] * alpha + pv[i];
+        __syncwarp();
+      }
+      __syncthreads();
+    }
+    // O_h / l -> the head's 32 columns of the concatenated output
+    for (int i = tid; i < T * HDP; i += NTHREADS) {
+      const int r = i / HDP, d = i % HDP;
+      os[r * LDO + hh * HDP + d] = __float2bfloat16(oacc[i] / row_l[r]);
+    }
+    __syncthreads();
+  }
+
+  // ---- out = O Wproj^T + bproj, rows < N and columns < C stored ----
+  Acc acc[4];
+  for (int strip = warp; strip < a.co / 16; strip += NWARPS) {
+    const int n0 = strip * 16;
+    gemm_strip_rt(acc, os, LDO, a.wproj, att, n0, att);
+    strip_epilogue(acc, stg, lane, n0, [&](int r, int col, float (&v)[8]) {
+      if (q0 + r >= n) return;
+      bf16* orow = a.out + (win * n + q0 + r) * static_cast<long long>(a.c);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (col + i < a.c) orow[col + i] = __float2bfloat16(v[i] + a.bproj[col + i]);
+    });
+  }
+}
+
+}  // namespace
+
+extern "C" int sr_window_attention_bf16(const void* xw, const void* wqkv, const void* bqkv,
+                                        const void* wproj, const void* bproj, const void* rpb,
+                                        const void* mask, void* qkv_ws, void* out, int bw, int n,
+                                        int c, int nh, int n_mask, void* stream) {
+  if (c < 1 || c > MAX_C || nh < 1 || nh > MAX_HEADS || c % nh || c / nh > HDP || n < 1 ||
+      (mask && (n_mask < 1 || bw % n_mask)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bw == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int ck = (c + 15) / 16 * 16;
+  const int n3 = 3 * nh * HDP;
+  const long long rows = static_cast<long long>(bw) * n;
+  qkv_gemm_kernel<<<static_cast<unsigned int>((rows + T - 1) / T), NTHREADS, QKV_SMEM, s>>>(
+      static_cast<const bf16*>(xw), static_cast<const bf16*>(wqkv),
+      static_cast<const float*>(bqkv), static_cast<bf16*>(qkv_ws), rows, c, ck, n3);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  err = cudaFuncSetAttribute(window_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             ATTN_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  AttnArgs a;
+  a.qkv = static_cast<const bf16*>(qkv_ws);
+  a.wproj = static_cast<const bf16*>(wproj);
+  a.bproj = static_cast<const float*>(bproj);
+  a.rpb = static_cast<const float*>(rpb);
+  a.mask = static_cast<const float*>(mask);
+  a.out = static_cast<bf16*>(out);
+  a.n = n;
+  a.c = c;
+  a.co = ck;
+  a.nh = nh;
+  a.n_mask = n_mask;
+  a.tiles = (n + T - 1) / T;
+  window_attn_kernel<<<static_cast<unsigned int>(static_cast<long long>(bw) * a.tiles), NTHREADS,
+                       ATTN_SMEM, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -53,6 +53,9 @@ _SIGNATURES = {
     "sr_dat_rect_bf16": [_P] * 11 + [_I] * 9 + [ctypes.c_float, _P],
     "sr_dat_channel_bf16": [_P] * 14 + [_I] * 6 + [ctypes.c_float, _P],
     "sr_dat_tail_bf16": [_P] * 21 + [_I] * 5 + [ctypes.c_float, _P],
+    "sr_window_attention_bf16": [_P] * 9 + [_I] * 5 + [_P],
+    "sr_swin_tail_bf16": [_P] * 11 + [_I] * 8 + [ctypes.c_float, _P],
+    "sr_ln_cab_convs_bf16": [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P],
 }
 
 

@@ -27,6 +27,24 @@ computes exactly that composition.  The kernels take ws 7 or 8, C <=
 192, heads of hd <= 32 (at most 6), an MLP hidden <= 384 and
 qkv_bias=True, and raise otherwise.
 
+Which blocks take the kernel is decided by ``block_route`` from static
+shapes alone, the same on every call and device: ws 7 or 8 within those
+widths -> "block"; any other window (6, 12, 16, ...), C up to 256, up to
+8 heads of hd <= 32, or no qkv bias -> "window_attention"; wider blocks
+raise.  The "window_attention" route computes K1's function in three
+hand-written kernels: K2 for LN1, then (after the cyclic shift and the
+window partition as plain gathers) K7 for the qkv product, attention
+and proj, then K1's tail (``csrc/swin_tail.cu``: the attention residual
+read back through the window reverse and unshift in its addressing,
+`extra`, LN2, the MLP and its residual, in K1's arithmetic).  Both
+routes and the plain version are one composition, ``swin_block_plain``,
+whose steps the route swaps for the kernels' wrappers.  One
+divergence: the JAX package runs ws 16 (upstream HAT-SRx4) through K1
+as one kernel; here a 256-token window does not fit the whole-block
+kernel's single-CTA, 64-row design, which already holds ~209 KB of
+shared memory at ws 8 (``csrc/swin_block.cu``), so it takes three.  A
+single fused ws-16 block is queued in ROADMAP.
+
 The backward ports ``_bwd_kernel`` as ``_mega_backward`` (K5) and
 ``_packed_backward`` (K6) call it: recompute the forward, chain the
 cotangent, and return dx, the 13 parameter gradients and, when the
@@ -42,12 +60,16 @@ K6b.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from tpu_superresolution_torch.kernels import _lib
+from tpu_superresolution_torch.kernels.fused_attention import (
+    check_attention_limits,
+    window_attention_plain,
+)
 from tpu_superresolution_torch.kernels.layernorm import layernorm_plain
 from tpu_superresolution_torch.ops.window import (
     cyclic_shift,
@@ -65,11 +87,13 @@ HIDP = 384   # padded MLP hidden
 MAX_HEADS = CP // HDP
 LN_EPS = 1e-5
 N_TOK = 64   # token rows per window in the kernels (ws^2, padded)
+TAIL_MAX_C = 256  # channels of csrc/swin_tail.cu (any MLP hidden)
 
 launches = _lib.LaunchCounter("K1 swin_block ws8")
 launches_ws7 = _lib.LaunchCounter("K6 swin_block ws7")
 launches_bwd = _lib.LaunchCounter("K5 swin_block_bwd")
 launches_bwd_ws7 = _lib.LaunchCounter("K6b swin_block_bwd ws7")
+launches_tail = _lib.LaunchCounter("K1t swin_block_tail")
 # the counters of the forward and backward kernels for each window size
 FORWARD_COUNTERS = {8: launches, 7: launches_ws7}
 BACKWARD_COUNTERS = {8: launches_bwd, 7: launches_bwd_ws7}
@@ -186,6 +210,20 @@ def check_kernel_limits(w: SwinBlockWeights) -> None:
         raise ValueError("swin_block kernel takes qkv_bias=True only")
 
 
+def block_route(ws: int, c: int, heads: int, hidden: int, qkv_bias: bool = True) -> str:
+    """The route of a Swin block of window `ws`, C channels, `heads`
+    heads and MLP hidden width `hidden`: "block" (the block kernel, K1 /
+    K6 forward, K5 / K6b backward) or "window_attention" (K2 for LN1, K7,
+    K1's tail kernel; any hidden width).  Shapes only: it runs on any
+    device and gives the same answer on every call.  Raises ValueError
+    when neither route takes the block."""
+    if (ws in KERNEL_WINDOWS and qkv_bias and c <= CP and c % heads == 0 and c // heads <= HDP
+            and heads <= MAX_HEADS and hidden <= HIDP):
+        return "block"
+    check_attention_limits(c, heads, "swin block")
+    return "window_attention"
+
+
 def check_block_args(shape: Sequence[int], w: SwinBlockWeights, ws: int, shift: int,
                      name: str = "fused_windows_block") -> None:
     """Raise unless an x of `shape` [B, H, W, C] with window `ws` and
@@ -277,29 +315,6 @@ def gelu_grad(x: torch.Tensor, approximate: bool) -> torch.Tensor:
     return phi + x * torch.exp(-0.5 * x * x) * 0.3989422804014327
 
 
-def window_attention_plain(xw, wqkv, bqkv, wproj, bproj, rpb, mask, scale):
-    """Plain windowed attention on [B*nW, N, C] windows (port of the
-    JAX package's ``fused_attention._reference_impl``): qkv and proj
-    in x's dtype, scores and softmax in fp32.  rpb: [nH, N, N];
-    mask: [nW, N, N] or None (window w uses mask[w % nW])."""
-    bw, n, c = xw.shape
-    nh = rpb.shape[0]
-    hd = c // nh
-    dt = xw.dtype
-    qkv = F.linear(xw, wqkv.to(dt), None if bqkv is None else bqkv.to(dt))
-    qkv = qkv.reshape(bw, n, 3, nh, hd)
-    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    attn = torch.einsum("wqhd,wkhd->whqk", q.float() * scale, k.float())
-    attn = attn + rpb.float()[None]
-    if mask is not None:
-        nwm = mask.shape[0]
-        attn = attn.reshape(bw // nwm, nwm, nh, n, n) + mask.float()[None, :, None]
-        attn = attn.reshape(bw, nh, n, n)
-    attn = torch.softmax(attn, dim=-1).to(dt)
-    out = torch.einsum("whqk,wkhd->wqhd", attn, v.to(dt)).reshape(bw, n, c)
-    return F.linear(out, wproj.to(dt), bproj.to(dt))
-
-
 def _window_scales(scales: Optional[torch.Tensor], b: int, n_windows: int, dev):
     """Per-window (m1, m2) columns [B*nW, 1, 1] of the [B, 2] scales."""
     if scales is None:
@@ -309,38 +324,190 @@ def _window_scales(scales: Optional[torch.Tensor], b: int, n_windows: int, dev):
     return s[:, 0, None, None], s[:, 1, None, None]
 
 
+def _tail_plain(x, attn, extra, scales, g2, b2, wfc1, bfc1, wfc2, bfc2, ws, shift,
+                gelu_approx):
+    """``swin_block_tail_plain`` on its tensors one by one (what the tail
+    kernel's autograd function differentiates)."""
+    dt = x.dtype
+    _, h, wd, _ = x.shape
+    m1 = m2 = 1.0
+    if scales is not None:
+        s = scales.float().to(x.device)
+        m1, m2 = s[:, 0, None, None, None], s[:, 1, None, None, None]
+    x1 = x.float() + cyclic_unshift(window_reverse(attn, ws, h, wd), shift).float() * m1
+    if extra is not None:
+        x1 = x1 + extra.float()
+    y2 = layernorm_plain(x1, g2, b2, LN_EPS).to(dt)
+    h1 = F.linear(y2, wfc1.to(dt), bfc1.to(dt))
+    h1 = gelu(h1.float(), gelu_approx).to(dt)
+    mlp = F.linear(h1, wfc2.to(dt), bfc2.to(dt))
+    return (x1 + mlp.float() * m2).to(dt)
+
+
+def swin_block_tail_plain(x: torch.Tensor, attn: torch.Tensor, w: SwinBlockWeights, ws: int,
+                          shift: int, gelu_approx: bool,
+                          branch_scales: Optional[torch.Tensor] = None,
+                          extra: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain PyTorch version of K1's tail (``csrc/swin_tail.cu``): a
+    Swin block after its window attention, in x's frame.  `attn` [B*nW,
+    N, C] is the attention output on the windows of x cyclically shifted
+    by `shift`; the residual stream is fp32, LN2 and the GEMM operands in
+    x's dtype, branch scales [B, 2] multiply the attention and MLP
+    residuals, `extra` [B, H, W, C] is added unscaled to the first."""
+    return _tail_plain(x, attn, extra, branch_scales, w.g2, w.b2, w.wfc1, w.bfc1, w.wfc2,
+                       w.bfc2, ws, shift, gelu_approx)
+
+
+def _window_attention_of(xw: torch.Tensor, w: SwinBlockWeights, ws: int,
+                         mask: Optional[torch.Tensor]) -> torch.Tensor:
+    return window_attention_plain(xw, w.wqkv, w.bqkv, w.wproj, w.bproj,
+                                  relative_position_bias(w.table, ws), mask, w.scale)
+
+
 def swin_block_plain(x: torch.Tensor, w: SwinBlockWeights, ws: int, shift: int,
                      mask: Optional[torch.Tensor], gelu_approx: bool,
                      branch_scales: Optional[torch.Tensor] = None,
-                     extra: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The plain PyTorch version of K1 and K6, any ws (port of
+                     extra: Optional[torch.Tensor] = None, *,
+                     ln1: Callable = layernorm_plain,
+                     attention: Callable = _window_attention_of,
+                     tail: Callable = swin_block_tail_plain) -> torch.Tensor:
+    """A Swin block at any window, as one composition: ``ln1(x, g1,
+    b1)``, the cyclic shift and window partition, ``attention(xw, w, ws,
+    mask)`` on [B*nW, N, C], then ``tail(x, attn, w, ws, shift,
+    gelu_approx, branch_scales, extra)``.  With its default steps it is
+    the plain PyTorch version of K1 and K6 (port of
     ``fused_block._reference_block`` / ``_reference_packed`` with the
     cyclic shift around it): residual stream in fp32, LayerNorm and GEMM
     operands in x's dtype, branch scales [B, 2] on the attention and MLP
     residuals, `extra` (x's frame) added unscaled to the attention
-    residual."""
-    dt = x.dtype
-    xs = cyclic_shift(x, shift)
-    b, h, wd, c = xs.shape
-    xf = xs.float()
-    m1 = m2 = 1.0
-    if branch_scales is not None:
-        s = branch_scales.float().to(x.device)
-        m1, m2 = s[:, 0, None, None, None], s[:, 1, None, None, None]
-    y = layernorm_plain(xf, w.g1, w.b1, LN_EPS).to(dt)
-    attn = window_attention_plain(
-        window_partition(y, ws), w.wqkv, w.bqkv, w.wproj, w.bproj,
-        relative_position_bias(w.table, ws), mask, w.scale,
-    )
-    x1 = xf + window_reverse(attn, ws, h, wd).float() * m1
+    residual.  The K7 route (``models/swinir.py``) passes the wrappers of
+    K2, K7 and K1's tail kernel."""
+    y = ln1(x, w.g1, w.b1)
+    attn = attention(window_partition(cyclic_shift(y, shift), ws), w, ws, mask)
+    return tail(x, attn, w, ws, shift, gelu_approx, branch_scales, extra)
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedBlockTail:
+    """The tail kernel's operands: bf16 [out, in] MLP weights zero-padded
+    to multiples of 16 (CK = C, HK = hidden rounded up), fp32 biases
+    padded alike, fp32 LN2 params."""
+
+    wfc1: torch.Tensor  # [HK, CK] bf16
+    bfc1: torch.Tensor  # [HK] fp32
+    wfc2: torch.Tensor  # [CK, HK] bf16
+    bfc2: torch.Tensor  # [CK] fp32
+    g2: torch.Tensor
+    b2: torch.Tensor
+    dim: int
+    hidden: int
+
+
+def _round16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+@torch.no_grad()
+def pack_block_tail(g2, b2, wfc1, bfc1, wfc2, bfc2) -> PackedBlockTail:
+    """Lay the raw LN2 and MLP weights out for the tail kernel: once per
+    loaded weights at inference, on every call in training."""
+    hidden, c = int(wfc1.shape[0]), int(wfc1.shape[1])
+    if c > TAIL_MAX_C:
+        raise ValueError(f"fused_block_tail: the kernel takes C <= {TAIL_MAX_C}, got C={c} "
+                         f"(ROADMAP Queue 3)")
+    ck, hk = _round16(c), _round16(hidden)
+    bf = torch.bfloat16
+    return PackedBlockTail(
+        wfc1=F.pad(wfc1.float(), (0, ck - c, 0, hk - hidden)).to(bf).contiguous(),
+        bfc1=F.pad(bfc1.float(), (0, hk - hidden)).contiguous(),
+        wfc2=F.pad(wfc2.float(), (0, hk - hidden, 0, ck - c)).to(bf).contiguous(),
+        bfc2=F.pad(bfc2.float(), (0, ck - c)).contiguous(),
+        g2=g2.float().contiguous(), b2=b2.float().contiguous(), dim=c, hidden=hidden)
+
+
+def _launch_tail(x, attn, packed: PackedBlockTail, ws, shift, gelu_approx, scales,
+                 extra) -> torch.Tensor:
+    """One launch of the tail kernel, counted as K1t."""
+    name = "fused_block_tail"
+    dev = x.device
+    bf, f32 = torch.bfloat16, torch.float32
+    _lib.check_tensor(x, "x", bf, dev, ndim=4, align=2)
+    b, h, wd, c = x.shape
+    if c != packed.dim:
+        raise ValueError(f"{name}: weights for C={packed.dim}, x has C={c}")
+    if ws < 1 or h % ws or wd % ws or not 0 <= shift < ws:
+        raise ValueError(f"{name}: x {tuple(x.shape)} is not whole windows of {ws} with a "
+                         f"shift in [0, {ws}) (shift {shift})")
+    ck, hk = _round16(c), _round16(packed.hidden)
+    windows = b * (h // ws) * (wd // ws)
+    for tname, t, shape, dtype, align in (
+            ("attn", attn, (windows, ws * ws, c), bf, 2),
+            ("wfc1", packed.wfc1, (hk, ck), bf, 32), ("bfc1", packed.bfc1, (hk,), f32, 16),
+            ("wfc2", packed.wfc2, (ck, hk), bf, 32), ("bfc2", packed.bfc2, (ck,), f32, 16),
+            ("g2", packed.g2, (c,), f32, 4), ("b2", packed.b2, (c,), f32, 4)):
+        _lib.check_tensor(t, tname, dtype, dev, shape=shape, align=align)
     if extra is not None:
-        x1 = x1 + cyclic_shift(extra, shift).float()
-    y2 = layernorm_plain(x1, w.g2, w.b2, LN_EPS).to(dt)
-    h1 = F.linear(y2, w.wfc1.to(dt), w.bfc1.to(dt))
-    h1 = gelu(h1.float(), gelu_approx).to(dt)
-    mlp = F.linear(h1, w.wfc2.to(dt), w.bfc2.to(dt))
-    out = (x1 + mlp.float() * m2).to(dt)
-    return cyclic_unshift(out, shift)
+        _lib.check_tensor(extra, "extra", bf, dev, shape=tuple(x.shape), align=2)
+    if scales is not None:
+        _lib.check_tensor(scales, "branch_scales", f32, dev, shape=(b, 2), align=4)
+    y = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        status = _lib.library().sr_swin_tail_bf16(
+            x.data_ptr(), attn.data_ptr(), _ptr(extra), y.data_ptr(),
+            packed.g2.data_ptr(), packed.b2.data_ptr(), packed.wfc1.data_ptr(),
+            packed.bfc1.data_ptr(), packed.wfc2.data_ptr(), packed.bfc2.data_ptr(),
+            _ptr(scales), b, h, wd, c, packed.hidden, ws, shift, int(bool(gelu_approx)), LN_EPS,
+            _lib.stream_of(x))
+    _lib.check_status(status, "sr_swin_tail_bf16")
+    launches_tail.count += 1
+    return y
+
+
+class BlockTailFunction(torch.autograd.Function):
+    """Forward K1's tail kernel (weights packed on every call), backward
+    autograd of its plain version."""
+
+    @staticmethod
+    def forward(ctx, x, attn, extra, scales, g2, b2, wfc1, bfc1, wfc2, bfc2, ws, shift,
+                gelu_approx):
+        ctx.save_for_backward(x, attn, extra, scales, g2, b2, wfc1, bfc1, wfc2, bfc2)
+        ctx.meta = (ws, shift, gelu_approx)
+        return _launch_tail(x, attn, pack_block_tail(g2, b2, wfc1, bfc1, wfc2, bfc2), ws, shift,
+                            gelu_approx, scales, extra)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return _lib.plain_vjp(_tail_plain, tuple(ctx.saved_tensors) + ctx.meta,
+                              ctx.needs_input_grad, grad_out)
+
+
+def fused_block_tail(x: torch.Tensor, attn: torch.Tensor, w: SwinBlockWeights, ws: int,
+                     shift: int, gelu_approx: bool,
+                     branch_scales: Optional[torch.Tensor] = None,
+                     extra: Optional[torch.Tensor] = None,
+                     packed: Optional[PackedBlockTail] = None) -> torch.Tensor:
+    """K1's tail on the K7 route (see ``swin_block_tail_plain``).  CPU
+    tensor -> plain version; CUDA tensor -> the kernel (bf16 x, attn and
+    extra, fp32 branch scales), through ``BlockTailFunction`` when a
+    gradient is wanted.  `packed` (inference only) skips the per-call
+    packing."""
+    params = (w.g2, w.b2, w.wfc1, w.bfc1, w.wfc2, w.bfc2)
+    if x.device.type == "cpu":
+        return _tail_plain(x, attn, extra, branch_scales, *params, ws, shift, gelu_approx)
+    _lib.require_cuda(x, "fused_block_tail")
+    x, attn = x.contiguous(), attn.contiguous()
+    if extra is not None:
+        extra = extra.contiguous()
+    if branch_scales is not None:
+        branch_scales = branch_scales.float().contiguous()
+    inputs = (x, attn) + params + (() if extra is None else (extra,))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return BlockTailFunction.apply(x, attn, extra, branch_scales, *params, ws, shift,
+                                       gelu_approx)
+    if packed is None:
+        packed = pack_block_tail(*params)
+    return _launch_tail(x, attn, packed, ws, shift, gelu_approx, branch_scales, extra)
+
 
 
 def _ln_stats(x32: torch.Tensor):

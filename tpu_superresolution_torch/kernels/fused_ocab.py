@@ -219,7 +219,9 @@ def check_ocab_args(q_shape, k_shape, sw_shape, w: OcabWeights, bias_shape,
     ws, ows = math.isqrt(q_shape[1]), math.isqrt(k_shape[1])
     if (ws, ows) not in KERNEL_WINDOWS or ws * ws != q_shape[1] or ows * ows != k_shape[1]:
         raise ValueError(f"{name}: the kernel takes (ws, ows) in {KERNEL_WINDOWS}; got "
-                         f"{q_shape[1]} queries and {k_shape[1]} keys per window")
+                         f"{q_shape[1]} queries and {k_shape[1]} keys per window (ROADMAP "
+                         f"Queue 3: K8 and the block backward at ws 16, for HAT-SRx4 "
+                         f"training)")
     if k_shape[0] != q_shape[0] or k_shape[2] != c or q_shape[2] != c:
         raise ValueError(f"{name}: weights for C={c}; q {tuple(q_shape)}, k {tuple(k_shape)}")
     if c > CP or c % nh or c // nh > HDP or nh > MAX_HEADS or hidden > HIDP:

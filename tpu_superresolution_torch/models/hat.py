@@ -8,10 +8,14 @@ modules/hat_arch.py:710-994).
   reference's ``relative_position_index_SA`` / ``_OCA`` buffers and the
   shift masks are computed from the shapes here.
 - HAB (hat_arch.py:200-310): the CAB conv branch runs outside the block
-  kernel — LN1 through K2, two plain 3x3 convs (the JAX package leaves
-  them to XLA), exact-erf GELU, the RCAN SE gate — and enters it as
-  ``extra = conv_scale * CAB``; the rest of the block is one launch of
-  the block kernel on CUDA (K6 at ws 7, K1 at ws 8).
+  — LN1 -> conv3x3 -> exact-erf GELU -> conv3x3 as one K12 launch on
+  the pre-norm x (the JAX package's ``cab_conv.fused_ln_cab_convs``,
+  off there by default), then the RCAN SE gate in plain ops — and
+  enters it as ``extra = conv_scale * CAB``; the rest of the block is
+  one launch of the block kernel on CUDA (K6 at ws 7, K1 at ws 8) or,
+  at any other window (upstream HAT-SRx4's ws 16) or width, the K7
+  route (``SwinBlock._window_attention_route``: K2, K7 and K1's tail
+  kernel, which adds `extra`).
 - OCAB (hat_arch.py:353-439): at inference plain torch ops around K2
   LayerNorms, as the JAX package's inference path; in training the JAX
   package's fused route (``OCAB._fused``): K2 LN1, the qkv product with
@@ -26,7 +30,10 @@ modules/hat_arch.py:710-994).
   generator given to ``forward``; they scale the attention and MLP
   residuals, never the CAB branch (hat_arch.py:307-308), and the OCAB
   has none.  On CUDA each HAB's backward is K6b (ws 7) or K5 (ws 8),
-  with the gradient of `extra`, and each OCAB core's K8b.
+  with the gradient of `extra`, and each OCAB core's K8b; K12's
+  backward is autograd of its plain version.  Training at ws 16 stops
+  at K8's window envelope (ROADMAP: K8 and the block backward at ws
+  16, for HAT-SRx4 training).
 """
 
 from __future__ import annotations
@@ -42,6 +49,11 @@ from tpu_superresolution_torch.core.config import (
     HATFastConfig,
     register_model,
 )
+from tpu_superresolution_torch.kernels.cab_conv import (
+    fused_ln_cab_convs,
+    fused_ln_cab_convs_plain,
+    pack_cab,
+)
 from tpu_superresolution_torch.kernels.fused_ocab import OcabWeights, fused_ocab_core
 from tpu_superresolution_torch.models.blocks import (
     Conv3x3,
@@ -54,6 +66,7 @@ from tpu_superresolution_torch.models.blocks import (
     StochasticDepth,
     check_image_size,
     conv_nhwc,
+    hwio,
     reference_init,
     upsample_and_last,
 )
@@ -88,9 +101,10 @@ class ChannelAttention(nn.Module):
 
 
 class CAB(nn.Module):
-    """Channel attention block (hat_arch.py:62-75): conv C -> C/compress,
-    exact GELU, conv back to C, SE gate (keys ``cab.0``, ``cab.2``,
-    ``cab.3``).  Plain convs: the JAX package runs them as XLA GEMMs."""
+    """Channel attention block (hat_arch.py:62-75) on HAB's pre-norm x:
+    LN1 (HAB's norm1), conv C -> C/compress, exact GELU, conv back to C
+    as one K12 call (its plain version on the CPU or with plain), then
+    the SE gate (keys ``cab.0``, ``cab.2``, ``cab.3``)."""
 
     def __init__(self, num_feat: int, compress_ratio: int, squeeze_factor: int):
         super().__init__()
@@ -101,10 +115,33 @@ class CAB(nn.Module):
             nn.Conv2d(mid, num_feat, 3, 1, 1),
             ChannelAttention(num_feat, squeeze_factor),
         )
+        self._packed = DerivedCache()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.gelu(conv_nhwc(self.cab[0], x))
-        return self.cab[3](conv_nhwc(self.cab[2], y))
+    def forward(self, x: torch.Tensor, norm: PLayerNorm, plain: bool = False) -> torch.Tensor:
+        """x: the pre-norm HAB input; `norm`: HAB's norm1."""
+        conv1, conv2 = self.cab[0], self.cab[2]
+        dt = x.dtype
+
+        def weights():  # the kernels' [kh, kw, Cin, Cout] layout in x's dtype
+            return (norm.weight, norm.bias, hwio(conv1.weight).to(dt), conv1.bias,
+                    hwio(conv2.weight).to(dt), conv2.bias)
+
+        def packed_weights():
+            w = weights()
+            return w, pack_cab(*w)
+
+        if plain:
+            y = fused_ln_cab_convs_plain(x, *weights())
+        elif not x.is_cuda:
+            y = fused_ln_cab_convs(x, *weights())
+        else:
+            # at inference the layouts and the kernel's packing are built
+            # once per loaded weights; in training on every call
+            params = [norm.weight, norm.bias, conv1.weight, conv1.bias, conv2.weight, conv2.bias]
+            w, packed = self._packed.get(params, (x.device, dt), packed_weights,
+                                         lambda: (weights(), None))
+            y = fused_ln_cab_convs(x, *w, packed=packed)
+        return self.cab[3](y)
 
 
 class HAB(SwinBlock):
@@ -123,7 +160,7 @@ class HAB(SwinBlock):
                 branch_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
         """`branch_scales` [B, 2]: stochastic depth on the attention and
         MLP residuals; the CAB term is never dropped."""
-        extra = self.conv_block(self.norm1(x, plain)) * self.conv_scale
+        extra = self.conv_block(x, self.norm1, plain) * self.conv_scale
         return super().forward(x, plain, branch_scales, extra=extra)
 
 

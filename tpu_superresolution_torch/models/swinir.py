@@ -7,11 +7,16 @@ network_swinir.py:618-851).
   package's ``export_swinir`` output load with ``strict=True``.  The
   reference's ``relative_position_index`` / ``attn_mask`` buffers are
   not parameters here: both are computed from the shapes.
-- The trunk stays [B, H, W, C].  Each Swin block is one launch of the
-  block kernel on CUDA (K1 at ws 8, K6 at ws 7; the cyclic shift in the
-  kernel's addressing), the LayerNorms
-  outside blocks are K2, the trunk 3x3 convs K3 and the composed
-  reconstruction conv K4.  ``conv_first``, the mean shift, the reflect
+- The trunk stays [B, H, W, C].  Each Swin block takes one of two
+  routes, chosen from its static shapes by ``fused_block.block_route``:
+  one launch of the block kernel on CUDA (K1 at ws 8, K6 at ws 7; the
+  cyclic shift in the kernel's addressing), or, for any other window or
+  for widths outside the block kernel (C up to 256, up to 8 heads), K1's
+  function in three kernels: K2 for LN1, K7 for the window attention
+  and K1's tail kernel for the residuals, LN2 and the MLP (the cyclic
+  shift and window partition between them as plain gathers).  The
+  LayerNorms outside blocks are K2, the trunk 3x3 convs K3 and the
+  composed reconstruction conv K4.  ``conv_first``, the mean shift, the reflect
   pad, pixel shuffles and the exact-mode chain are plain torch, as the
   JAX package leaves them to XLA.
 - ``impl="plain"`` runs every kernel's plain version on any device.
@@ -24,6 +29,7 @@ network_swinir.py:618-851).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -32,13 +38,21 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tpu_superresolution_torch.core.config import SwinIRConfig, register_model
-from tpu_superresolution_torch.kernels.fused_block import (
-    SwinBlockWeights,
-    fused_windows_block,
-    pack_block_weights,
-    swin_block_plain,
+from tpu_superresolution_torch.kernels.fused_attention import (
+    fused_window_attention,
+    pack_window_attention,
     window_attention_plain,
 )
+from tpu_superresolution_torch.kernels.fused_block import (
+    SwinBlockWeights,
+    block_route,
+    fused_block_tail,
+    fused_windows_block,
+    pack_block_tail,
+    pack_block_weights,
+    swin_block_plain,
+)
+from tpu_superresolution_torch.kernels.layernorm import layernorm
 from tpu_superresolution_torch.models.blocks import (
     Conv3x3,
     ConvLeaky,
@@ -81,10 +95,10 @@ class WindowAttention(nn.Module):
 
 
 class SwinBlock(nn.Module):
-    """(Shifted) W-MSA + MLP (network_swinir.py:164-279) as one fused
-    block: the block kernel on CUDA (K1 at ws 8, K6 at ws 7; other
-    windows raise there), ``swin_block_plain`` on the CPU or with
-    plain."""
+    """(Shifted) W-MSA + MLP (network_swinir.py:164-279): the block
+    kernel (K1 at ws 8, K6 at ws 7) or the K7 route, by
+    ``block_route``; each kernel wrapper runs its plain version on the
+    CPU, and ``swin_block_plain`` runs the whole block with plain."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int, shift_size: int,
                  mlp_ratio: float = 2.0, qkv_bias: bool = True,
@@ -126,6 +140,9 @@ class SwinBlock(nn.Module):
         if plain:
             return swin_block_plain(x, wts, ws, shift, mask, self.gelu_approximate, branch_scales,
                                     extra)
+        if block_route(ws, wts.dim, wts.num_heads, int(wts.wfc1.shape[0]),
+                       wts.bqkv is not None) == "window_attention":
+            return self._window_attention_route(x, wts, ws, shift, mask, branch_scales, extra)
         packed = None
         if x.is_cuda:
             # in training the kernels' autograd function packs on every call
@@ -133,6 +150,36 @@ class SwinBlock(nn.Module):
                                       lambda: pack_block_weights(wts), lambda: None)
         return fused_windows_block(x, wts, ws, shift, mask, self.gelu_approximate, extra=extra,
                                    packed=packed, branch_scales=branch_scales)
+
+    def _window_attention_route(self, x, wts: SwinBlockWeights, ws: int, shift: int, mask,
+                                branch_scales, extra) -> torch.Tensor:
+        """K1's function for blocks outside the block kernel:
+        ``swin_block_plain``'s composition with K2 for LN1, the cyclic
+        shift and window partition as plain gathers, K7 on [B*nW, N, C]
+        and K1's tail kernel (attention residual through the window
+        reverse and unshift, `extra`, LN2, MLP, residual); each
+        wrapper's plain version on the CPU.  At inference on CUDA both
+        kernels' weights (the gathered bias among them) are packed once
+        per loaded weights."""
+        pa = pt = None
+        if x.is_cuda:
+            def pack():
+                rpb = relative_position_bias(wts.table, ws)
+                return (pack_window_attention(wts.wqkv, wts.bqkv, wts.wproj, wts.bproj, rpb),
+                        pack_block_tail(wts.g2, wts.b2, wts.wfc1, wts.bfc1, wts.wfc2, wts.bfc2))
+
+            pa, pt = self._packed.get(list(self.parameters()), ("k7", ws, x.device), pack,
+                                      lambda: (None, None))
+
+        def attention(xw, w, ws, mask):
+            rpb = None if pa is not None else relative_position_bias(w.table, ws)
+            return fused_window_attention(xw, w.wqkv, w.bqkv, w.wproj, w.bproj, rpb, mask,
+                                          packed=pa)
+
+        return swin_block_plain(
+            x, wts, ws, shift, mask, self.gelu_approximate, branch_scales, extra,
+            ln1=lambda x, g, b: layernorm(x.contiguous(), g, b), attention=attention,
+            tail=functools.partial(fused_block_tail, packed=pt))
 
 
 class BasicLayer(nn.Module):
