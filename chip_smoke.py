@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SwinIR-M x4 serving and fine-tuning paths,
-its HAT x4 serving and training paths, its DAT x4 serving path and its
-HAT-SRx4 (upstream HAT, window 16) serving path once on one NVIDIA H100
-and check them.  Run from the repository root:
+its HAT x4 serving and training paths, its DAT x4 serving and training
+paths (the published DAT x4's widths among them) and its HAT-SRx4
+(upstream HAT, window 16) serving path once on one NVIDIA H100 and check
+them.  Run from the repository root:
 
     python3 chip_smoke.py
 
@@ -37,7 +38,12 @@ Phases (a failure in any raises, and the script exits non-zero):
             4, branch scales); and K12 (LN + the CAB's two convs) at
             the HAT-SRx4, HAT, hat_fast and HAT-S shapes, also timed
             against the K2 + cuDNN convs + GELU it replaced; each in
-            bf16 ulps likewise;
+            bf16 ulps likewise; then DAT's module-chain kernels: K16
+            (batched window attention) at the DAT train step's
+            [256,3,128,30], the bench batch's [800,3,128,30] and the
+            published DAT x4's N 256, with and without the shift mask,
+            timed beside SDPA, and K11 (depthwise 3x3) at [8,64,64,180]
+            and [25,64,64,360], timed beside cuDNN's grouped conv;
 4. serve    SwinIR-M x4 (seeded random weights, exported to a .pth) behind
             SRService + make_server on 127.0.0.1, three PNG requests;
             status, size, finite output, launch counts per model call,
@@ -90,11 +96,29 @@ Phases (a failure in any raises, and the script exits non-zero):
             requests and checks (launches per call K7 36, K1t 36, K12
             36, K2 50, K3 8, K4 1, K1 = K6 = 0; the tiled output >= 50 dB against
             the plain fp32 path), the bench workload in MPix/s, kernels
-            vs plain, and a torch.profiler split of one forward.
+            vs plain, and a torch.profiler split of one forward;
+11. dat_x4  the published DAT x4 (split (8, 32), expansion 4; seeded
+            random weights, perturbed BatchNorm statistics): its .pth
+            behind SRService (which loads it at split (8, 16): K9 and K14
+            fronts, module-chain tails), the serve phase's checks; then
+            the model at (8, 32) on the bench workload, whose spatial
+            blocks and tails take the module chain: launches per call
+            (K14 18, K16 36, K11 54, K9 = K10 = 0), >= 50 dB against the
+            plain fp32 path, MPix/s kernels vs plain, a profiled split;
+12. dat-train DAT x4 training (DATConfig() at full width and depth, drop
+            path 0.1, batch 8, --patch_size 64, L1, AdamW, clip 1.0,
+            --ema_decay 0.999) through ``cli.train.main(--model dat
+            --device cuda)`` for one epoch of 2 steps + validation;
+            launches per step (K16 36, K11 72, K9 = K14 = K10 = 0), ms
+            per step and images/s for the kernels and the plain bf16
+            path, a profiled step split by part, and the first step's
+            loss, gradients and BatchNorm statistics against the plain
+            fp32 path (with DAT's exception for gradients below bf16's
+            resolution, BF16_FLOOR).
 
 The second-to-last stdout line is a JSON object describing each kernel
 (launches summed over the serve, SwinIR ws-7, SwinIR-L, hat, dat,
-train, hat-train and hat_srx4 phases); the last is
+train, hat-train, hat_srx4, dat_x4 and dat-train phases); the last is
 {"ok": true, "device": {...}}.  There is no CPU path: with no CUDA
 device the script exits non-zero and prints no result.
 """
@@ -120,7 +144,7 @@ PSNR_MIN_DB = 50.0
 # 1 ulp of the fp32 result; the bounds leave room for bf16 operands and
 # the plain version's own roundings.
 ULP_BOUND = {"K1": 8, "K1t": 8, "K2": 4, "K3": 4, "K4": 4, "K6": 8, "K7": 8, "K8": 8,
-             "K9": 8, "K10": 8, "K12": 8, "K14": 8}
+             "K9": 8, "K10": 8, "K11": 4, "K12": 8, "K14": 8, "K16": 8}
 # The backward kernels (K5, K6b, K8b): each activation gradient (dx,
 # d extra; dq, dk, dv, d sw) within this many bf16 ulps at its max |ref|,
 # and every parameter gradient within this relative Frobenius error of
@@ -182,10 +206,17 @@ KERNELS = {
     "K1t": dict(name="swin_block_tail", route="cuda",
                 source="tpu_superresolution_torch/csrc/swin_tail.cu",
                 replaces="tpu_superresolution_tpu/ops/pallas/fused_block.py:958"),
+    "K11": dict(name="dwconv3x3", route="cuda",
+                source="tpu_superresolution_torch/csrc/dwconv.cu",
+                replaces="tpu_superresolution_tpu/ops/pallas/cab_conv.py:506"),
+    "K16": dict(name="batched_window_attention", route="cuda",
+                source="tpu_superresolution_torch/csrc/batched_attn.cu",
+                replaces="tpu_superresolution_tpu/ops/pallas/window_attention.py:352"),
 }
 # Launches per SwinIR-M x4 model call on the serving path (--no-exact).
 PER_CALL = {"K1": 36, "K1t": 0, "K2": 2, "K3": 8, "K4": 1, "K5": 0, "K6": 0, "K6b": 0,
-            "K7": 0, "K8": 0, "K8b": 0, "K9": 0, "K10": 0, "K12": 0, "K14": 0}
+            "K7": 0, "K8": 0, "K8b": 0, "K9": 0, "K10": 0, "K11": 0, "K12": 0, "K14": 0,
+            "K16": 0}
 # Per HAT x4 model call (--no-exact): K6 per HAB (24); K12 per HAB's CAB
 # (24: its LN1 inside); K2 for patch_norm, norm and each OCAB's two norms
 # (8); K3 for the 4 RHAG convs, conv_after_body and conv_before_upsample;
@@ -212,6 +243,18 @@ HAT_SRX4_PER_CALL = dict(PER_CALL, K1=0, K1t=36, K2=50, K3=8, K4=1, K7=36, K12=3
 # convs, conv_after_body and conv_before_upsample; K4 for the composed
 # reconstruction.  One K9 call is 2 CUDA launches, one K14 call 3.
 DAT_PER_CALL = dict(PER_CALL, K1=0, K2=2, K3=8, K4=1, K9=18, K10=36, K14=18)
+# The published DAT x4 (DAT's test_DAT_x4.yml: split (8, 32), expansion 4;
+# SGFN half 360), per bench call: K9 refuses s0 * s1 = 256 and K10 the half
+# 360, so the spatial fronts (18) and every tail (36) take the module chain:
+# K16 per rect branch (36), K11 per spatial conv branch and per sg_conv
+# (18 + 36), K2 for before_RG, norm, the 18 chain fronts' LN1 and every
+# block's LN2 and sg_norm (2 + 18 + 72); K14 per channel front (18).
+DAT_X4_PER_CALL = dict(PER_CALL, K1=0, K2=92, K3=8, K4=1, K11=54, K14=18, K16=36)
+# A published DAT x4 .pth served: the split is not in the weights, so the
+# checkpoint loads at (8, 16) with expansion 4 (infer_dat_config, as the
+# JAX package): K9 and K14 fronts, module-chain tails (K11 per sg_conv,
+# K2 per LN2 and sg_norm).
+DAT_X4_SERVE_PER_CALL = dict(PER_CALL, K1=0, K2=74, K3=8, K4=1, K9=18, K11=36, K14=18)
 # Fine-tuning: batch 8 of 64^2 LR crops; per train step, with the
 # composed reconstruction (fused_reconstruct, the config's default): K1
 # per block forward, K5 per block backward, K2-K4 forwards (their
@@ -219,6 +262,9 @@ DAT_PER_CALL = dict(PER_CALL, K1=0, K2=2, K3=8, K4=1, K9=18, K10=36, K14=18)
 TRAIN_BATCH = 8
 TRAIN_LR_PATCH = 64
 TRAIN_TIMED_STEPS = 10
+# A DAT step takes ~1 s (host-bound): fewer timed steps keep the script
+# near its former length.
+DAT_TIMED_STEPS = 5
 TRAIN_PER_STEP = dict(PER_CALL, K5=36)
 # HAT x4 training (HATConfig(), batch 8 of 64^2 LR crops, reflect-padded
 # to 70^2), per train step: K6 forward and K6b backward per HAB (24); K8
@@ -228,9 +274,17 @@ TRAIN_PER_STEP = dict(PER_CALL, K5=36)
 # conv_before_upsample; K4 for the composed reconstruction.  hat_fast
 # runs K1 / K5 where hat runs K6 / K6b.
 HAT_TRAIN_PER_STEP = {"K1": 0, "K1t": 0, "K2": 6, "K3": 6, "K4": 1, "K5": 0, "K6": 24,
-                      "K6b": 24, "K7": 0, "K8": 4, "K8b": 4, "K9": 0, "K10": 0, "K12": 24,
-                      "K14": 0}
+                      "K6b": 24, "K7": 0, "K8": 4, "K8b": 4, "K9": 0, "K10": 0, "K11": 0,
+                      "K12": 24, "K14": 0, "K16": 0}
 HAT_FAST_TRAIN_PER_STEP = dict(HAT_TRAIN_PER_STEP, K1=24, K5=24, K6=0, K6b=0)
+# DAT x4 training (DATConfig(), batch 8 of 64^2 LR crops), per train step:
+# every block on the module chain (BatchNorm on batch statistics): K16 per
+# rect branch of the 18 spatial blocks (36), K11 per conv branch and per
+# sg_conv (72), K2 for before_RG, norm and each block's LN1, LN2 and
+# sg_norm (110), K3 for the 6 group convs, conv_after_body and
+# conv_before_upsample, K4 for the composed reconstruction; no K9, K14,
+# K10.  K11's and K16's backwards are autograd of their plain versions.
+DAT_TRAIN_PER_STEP = dict(PER_CALL, K1=0, K2=110, K3=8, K4=1, K11=72, K16=36)
 # First step, kernels (bf16) vs the plain fp32 path from the same weights,
 # batch and stochastic-depth masks: bf16 activations keep ~3 significant
 # digits, so loss and grad norm agree to about a percent and every
@@ -245,6 +299,16 @@ TRAIN_COS_MIN = 0.98
 # kernel gradients is below AdamW's eps: an AdamW step then moves it by
 # under |g| / eps of the learning rate, whichever path computed it.
 ADAMW_EPS = 1e-8
+# BF16_FLOOR: DAT's DynamicPosBias parameters (the MLP that makes each
+# rect branch's position bias) get gradients of ~1e-8 to 1e-6 of the
+# global norm: each bias-table entry sums ~10^4 score gradients that
+# cancel (every row of dS sums to 0), below what bf16 activations
+# resolve.  The plain bf16 path, with no kernel, reaches only cosine
+# 0.93-0.99 against fp32 on them (NVIDIA H100 80GB HBM3, 700 W, see
+# PERF.md), and at that noise floor two bf16 paths that differ in a few
+# roundings disagree as much.
+# DAT's gate therefore also passes a parameter whose kernel gradient is
+# no farther from fp32 than twice the plain bf16 path's.
 
 
 def log(msg: str) -> None:
@@ -791,6 +855,78 @@ def phase_dat_kernels(res):
     return res
 
 
+def _k16_work(bw, nh, n, hd, n_mask):
+    """(FLOPs, bytes) of one K16 call: QK^T and AV (4 N hd a query row);
+    q, k, v and the output in bf16, the bias and the mask in fp32, each
+    once."""
+    return bw * nh * 4 * n * n * hd, 4 * bw * nh * n * hd * 2 + (nh + n_mask) * n * n * 4
+
+
+def phase_dat_train_kernels(res):
+    """The DAT module chain's kernels: K16 (batched window attention) at
+    the DAT train step's [256, 3, 128, 30] and the bench tile batch's
+    [800, 3, 128, 30] (DATConfig(): windows 8 x 16 of a 64^2 map, 3 heads
+    a branch of hd 30), each with and without the shift mask, and at the
+    published DAT x4's N 256 ([400, 3, 256, 30], windows 8 x 32); K11
+    (depthwise 3x3) at the train step's conv branch [8, 64, 64, 180] and
+    the published x4's sg_conv [25, 64, 64, 360].  Each output in bf16
+    ulps against the plain bf16 and fp32 versions; kernel, plain and
+    library times (SDPA with bias + mask as attn_mask; cuDNN's grouped
+    conv2d) and the bound, into `res`."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_superresolution_torch.kernels import dwconv as kd
+    from tpu_superresolution_torch.kernels import window_attention as kw
+    from tpu_superresolution_torch.ops.window import rect_mask_tensor
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 6)
+    bf = torch.bfloat16
+    nh, hd = 3, 30
+    for bw, (hsp, wsp) in ((256, (8, 16)), (800, (8, 16)), (400, (8, 32))):
+        n = hsp * wsp
+        q = (torch.randn(bw, nh, n, hd, generator=gen) * hd ** -0.5).to(dev, bf)
+        k, v = (torch.randn(bw, nh, n, hd, generator=gen).to(dev, bf) for _ in range(2))
+        bias = (0.5 * torch.randn(nh, n, n, generator=gen)).to(dev)
+        for masked in (False, True):
+            mask = rect_mask_tensor(64, 64, hsp, wsp, hsp // 2, wsp // 2, dev) if masked else None
+            n_mask = 0 if mask is None else mask.shape[0]
+            run = lambda: kw.batched_window_attention(q, k, v, bias, mask)
+            plain = lambda: kw.batched_window_attention_plain(q, k, v, bias, mask)
+            out = run()
+            ref16, ref32 = plain(), kw.batched_window_attention_plain(q.float(), k.float(),
+                                                                      v.float(), bias, mask)
+            am = bias[None].expand(bw, nh, n, n)
+            if mask is not None:
+                am = am + mask[torch.arange(bw, device=dev) % n_mask][:, None]
+            am = am.to(bf).contiguous()
+            lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am, scale=1.0)
+            torch.cuda.synchronize()
+            _compare(res, "K16", f"[{bw},{nh},{n},{hd}] {'masked' if masked else 'unmasked'}",
+                     out, ref16, ref32, cuda_ms(run), cuda_ms(plain),
+                     _k16_work(bw, nh, n, hd, n_mask), cuda_ms(lib))
+            del out, ref16, ref32, am
+    for shape in ((8, 64, 64, 180), (25, 64, 64, 360)):
+        c = shape[-1]
+        x = torch.randn(*shape, generator=gen).to(dev, bf)
+        taps = (torch.randn(3, 3, c, generator=gen) / 3).to(dev)
+        b = (0.1 * torch.randn(c, generator=gen)).to(dev)
+        run = lambda: kd.dwconv3x3(x, taps, b)
+        plain = lambda: kd.dwconv3x3_plain(x, taps, b)
+        out = run()
+        ref16, ref32 = plain(), kd.dwconv3x3_plain(x.float(), taps, b)
+        wt = taps.permute(2, 0, 1)[:, None].to(bf).contiguous()
+        xn, bb = x.permute(0, 3, 1, 2), b.to(bf)
+        lib = lambda: F.conv2d(xn, wt, bb, padding=1, groups=c)
+        torch.cuda.synchronize()
+        pixels = math.prod(shape[:3])
+        _compare(res, "K11", f"{list(shape)}", out, ref16, ref32, cuda_ms(run), cuda_ms(plain),
+                 (18 * pixels * c, 2 * pixels * c * 2 + 10 * c * 4), cuda_ms(lib))
+        del out, ref16, ref32
+    return res
+
+
 def _random_k7(gen, device, c, nh, ws):
     """K7's raw weights at width C, `nh` heads and window `ws` with O(1)
     activations (bf16-representable GEMM weights) and its gathered
@@ -1179,12 +1315,88 @@ def phase_dat(workdir, smi):
     return launches
 
 
-def _dat_split(fwd, smi):
+def phase_dat_x4(workdir, smi):
+    """The published DAT x4 (DAT's options/Test/test_DAT_x4.yml: split
+    (8, 32), expansion 4; seeded random weights with perturbed BatchNorm
+    statistics): K9 and K10 refuse its blocks, so they take the module
+    chain (K16, K11) where they used to raise.  (1) Its .pth behind
+    SRService with --model dat: the weights carry no split, so it loads
+    at (8, 16) with expansion 4 (K9 and K14 fronts, module-chain tails;
+    launches per call DAT_X4_SERVE_PER_CALL), the serve phase's requests
+    and checks.  (2) The model at split (8, 32) on the bench workload
+    (256^2 LR, tile 64 / overlap 8, 25 tiles, bf16): launches per call
+    exactly DAT_X4_PER_CALL, the output >= 50 dB against the plain fp32
+    path, MPix/s for the kernels and the plain bf16 path, a profiled
+    split.  Returns the launches of both."""
+    import numpy as np
+    import torch
+
+    from tpu_superresolution_torch.core.config import DATConfig, build_model
+    from tpu_superresolution_torch.evaluate.tiling import tiled_forward
+    from tpu_superresolution_torch.kernels import read_counters, reset_counters
+
+    service, served = phase_serve(workdir, DATConfig(expansion_factor=4.0), "dat",
+                                  DAT_X4_SERVE_PER_CALL, tag="dat_x4", prepare=_perturb_dat)
+    routes = service.model.routes()[0][:2]
+    log(f"[dat_x4] served .pth config: split {service.mcfg.split_size}, expansion "
+        f"{service.mcfg.expansion_factor}; block routes {routes}")
+    del service
+
+    cfg = DATConfig(split_size=(8, 32), expansion_factor=4.0)
+    src = build_model(cfg)
+    src.reset_parameters(torch.Generator().manual_seed(SEED))
+    _perturb_dat(src, torch.Generator().manual_seed(SEED + 5))
+    models = {}
+    for label, dtype, impl in (("kernels", torch.bfloat16, "auto"),
+                               ("plain", torch.bfloat16, "plain"),
+                               ("plain fp32", torch.float32, "plain")):
+        models[label] = build_model(cfg, dtype=dtype, impl=impl, device="cuda")
+        models[label].load_state_dict(src.state_dict())
+    routes = models["kernels"].routes()[0][:2]
+    if routes != [("chain", "chain"), ("K14", "chain")]:
+        raise RuntimeError(f"dat_x4 routes {routes}")
+    x = torch.from_numpy(np.random.default_rng(SEED).random((1, 256, 256, 3), np.float32)).cuda()
+    fwd = lambda label: tiled_forward(models[label], x, 4, 64, 8)
+    with torch.no_grad():
+        fwd("kernels")  # warm-up: weight packing, composition, masks
+        torch.cuda.synchronize()
+        reset_counters()
+        y = fwd("kernels")
+        torch.cuda.synchronize()
+        counts = read_counters()
+        psnr = _psnr_db(y, fwd("plain fp32"))
+        ok = bool(torch.isfinite(y).all()) and tuple(y.shape) == (1, 1024, 1024, 3)
+        log(f"[dat_x4] split (8, 32), expansion 4, bench workload: launches per call {counts} "
+            f"(expected {DAT_X4_PER_CALL}); block routes {routes}; PSNR vs plain fp32 "
+            f"{psnr:.2f} dB (bound >= {PSNR_MIN_DB} dB) ({smi})")
+        if counts != DAT_X4_PER_CALL:
+            raise RuntimeError(f"dat_x4 launches {counts}, expected {DAT_X4_PER_CALL}")
+        if psnr < PSNR_MIN_DB or not ok:
+            raise RuntimeError(f"dat_x4 output PSNR {psnr:.2f} dB < {PSNR_MIN_DB} dB")
+        del models["plain fp32"]
+        for label in ("kernels", "plain"):
+            fwd(label)
+            torch.cuda.synchronize()
+            n_iter = 5
+            t0 = time.perf_counter()
+            for _ in range(n_iter):
+                fwd(label)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / n_iter
+            log(f"[dat_x4] published DAT x4, 256^2 LR, tile 64/8, 25 tiles in one batch, bf16, "
+                f"{label}: {dt * 1e3:.2f} ms/image, {1024 * 1024 / 1e6 / dt:.3f} MPix/s ({smi})")
+    _dat_split(lambda: fwd("kernels"), smi, tag="dat_x4")
+    return {k: served[k] + counts[k] for k in counts}
+
+
+def _dat_split(fwd, smi, tag="dat"):
     """Where one DAT bench forward spends its device time, under
     torch.profiler: K9 (rect_attn_kernel + dwconv_gelu_kernel), K14
-    (chan_qkv / chan_softmax / chan_apply), K10, K2, K3/K4 by kernel
-    name, the rest (channel gates, conv_first, pixel shuffle, tiling,
-    casts) as plain ops, and the device's idle share of the wall time."""
+    (chan_qkv / chan_softmax / chan_apply), K10, K16, K11, K2, K3/K4 by
+    kernel name, the rest (the module chain's GEMMs, BatchNorm, GELU,
+    partitions and pads, channel gates, conv_first, pixel shuffle,
+    tiling, casts) as plain ops, and the device's idle share of the wall
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1196,11 +1408,11 @@ def _dat_split(fwd, smi):
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
     except Exception as e:  # the profile is a reading aid, not a check
-        log(f"[dat] profiler failed: {type(e).__name__}: {e}")
+        log(f"[{tag}] profiler failed: {type(e).__name__}: {e}")
         return
     kernels = _device_kernels(prof)
     if not kernels:
-        log("[dat] profiler: no device events recorded")
+        log(f"[{tag}] profiler: no device events recorded")
         return
     us = lambda e: getattr(e, "device_time", 0.0) or getattr(e, "cuda_time", 0.0)
     names = (("K9 rect_attn_kernel", ("rect_attn_kernel",)),
@@ -1208,20 +1420,22 @@ def _dat_split(fwd, smi):
              ("K14 chan_qkv_kernel", ("chan_qkv_kernel",)),
              ("K14 chan_softmax + chan_apply", ("chan_softmax_kernel", "chan_apply_kernel")),
              ("K10 datb_tail_kernel", ("datb_tail_kernel",)),
+             ("K16 batched_attn_kernel", ("batched_attn_kernel",)),
+             ("K11 dwconv3x3_kernel", ("dwconv3x3_kernel",)),
              ("K2 layernorm", ("layernorm_rows",)),
              ("K3/K4 conv_nhwc", ("conv_nhwc",)))
-    groups = dict.fromkeys([g for g, _ in names] + [
-        "plain ops (channel gates, conv_first, pixel shuffle, tiling, casts)"], 0.0)
+    other = ("plain ops (module-chain GEMMs, BatchNorm, GELU, partitions, channel gates, "
+             "conv_first, pixel shuffle, tiling, casts)")
+    groups = dict.fromkeys([g for g, _ in names] + [other], 0.0)
     for e in kernels:
-        g = next((g for g, keys in names if any(k in e.name for k in keys)),
-                 "plain ops (channel gates, conv_first, pixel shuffle, tiling, casts)")
+        g = next((g for g, keys in names if any(k in e.name for k in keys)), other)
         groups[g] += us(e) / 1e3
     busy = sum(groups.values())
     idle = max(wall - busy, 0.0)
-    log(f"[dat] profiled forward: {wall:.2f} ms wall (profiler on), {len(kernels)} device "
+    log(f"[{tag}] profiled forward: {wall:.2f} ms wall (profiler on), {len(kernels)} device "
         f"kernels, busy {busy:.2f} ms, idle {idle:.2f} ms ({idle / wall:.1%}) ({smi})")
     for g, t in groups.items():
-        log(f"[dat]   {t:8.3f} ms  {t / wall:6.1%}  {g}")
+        log(f"[{tag}]   {t:8.3f} ms  {t / wall:6.1%}  {g}")
 
 
 def phase_swinir_ws7(smi):
@@ -1435,18 +1649,24 @@ def _train_state(model, steps_per_epoch):
 
 
 def _first_step_grads(model, lr, hr):
-    """Loss and {name: grad} of one train-mode forward / backward, the
+    """Loss, {name: grad} and {name: batch statistic} (DAT's BatchNorm
+    batch means and variances) of one train-mode forward / backward, the
     stochastic-depth masks drawn from a generator of seed SEED."""
     import torch
 
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.momentum = 1.0  # the running buffers then hold the batch statistics
     model.train()
     model.zero_grad(set_to_none=True)
     out = model(lr, generator=torch.Generator().manual_seed(SEED)).float()
     loss = (out - hr).abs().mean()
     loss.backward()
     grads = {n: p.grad.detach().float().clone() for n, p in model.named_parameters()}
+    stats = {n: b.detach().float().clone() for n, b in model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))}
     model.zero_grad(set_to_none=True)
-    return float(loss.detach()), grads
+    return float(loss.detach()), grads, stats
 
 
 def _cosines(g_a, g_b):
@@ -1556,15 +1776,20 @@ def phase_train(workdir, smi):
     return launches, times
 
 
-def _first_step_gate(cfg, src, lr, hr, tag, smi):
+def _first_step_gate(cfg, src, lr, hr, tag, smi, bf16_floor=False):
     """The first train step's gradients, kernels (bf16) against the plain
     fp32 path from the same weights, batch and stochastic-depth masks:
     loss, grad norm and every parameter's gradient cosine within the
     gates.  The plain bf16 path (the same roundings, no kernels) runs
     beside: a parameter whose plain bf16 gradient is itself below the
     cosine bound is bf16-limited, and passes only if its fp32 and kernel
-    gradients are below ADAMW_EPS element by element (see there); each
-    is logged by name.  Returns {name: cosine}."""
+    gradients are below ADAMW_EPS element by element (see there).  With
+    `bf16_floor` (DAT, see BF16_FLOOR) a parameter below the cosine bound
+    passes if those gradients are below ADAMW_EPS, or if the kernels'
+    gradient is no farther from fp32 than twice the plain bf16 path's
+    (relative L2): the kernels add no more error than bf16 rounding
+    already does.  Each exception is logged by name.  Returns {name:
+    cosine}."""
     import torch
 
     from tpu_superresolution_torch.core.config import build_model
@@ -1578,36 +1803,86 @@ def _first_step_gate(cfg, src, lr, hr, tag, smi):
         model.load_state_dict(src.state_dict())
         runs[label] = _first_step_grads(model, lr, hr)
         del model
-    (loss_k, g_k), (loss_r, g_r), (_, g_p) = runs.values()
+    (loss_k, g_k, s_k), (loss_r, g_r, s_r), _ = runs.values()
+    g_p = runs["plain bf16"][1]
     gn_k, gn_r = float(global_norm(list(g_k.values()))), float(global_norm(list(g_r.values())))
     cos, cos_plain = _cosines(g_k, g_r), _cosines(g_p, g_r)
     amax = lambda g, k: float(g[k].abs().max())
-    limited = {k: (cos[k], cos_plain[k], amax(g_k, k), amax(g_r, k))
-               for k in cos if cos[k] < TRAIN_COS_MIN and cos_plain.get(k, 1.0) < TRAIN_COS_MIN}
+    err = lambda g, k: float((g[k] - g_r[k]).norm()) / max(float(g_r[k].norm()), 1e-30)
+    tiny = lambda k: max(amax(g_k, k), amax(g_r, k)) < ADAMW_EPS
+    below = [k for k in cos if cos[k] < TRAIN_COS_MIN]
+    if bf16_floor:
+        limited = {k: (cos[k], cos_plain.get(k, math.nan), amax(g_k, k), amax(g_r, k))
+                   for k in below if tiny(k) or err(g_k, k) <= 2 * err(g_p, k)}
+    else:
+        limited = {k: (cos[k], cos_plain[k], amax(g_k, k), amax(g_r, k))
+                   for k in below if cos_plain.get(k, 1.0) < TRAIN_COS_MIN}
     gated = {k: v for k, v in cos.items() if k not in limited}
     worst = sorted(gated.items(), key=lambda kv: kv[1])[:3]
     rel_loss = abs(loss_k - loss_r) / abs(loss_r)
     rel_gn = abs(gn_k - gn_r) / gn_r
     ok = (rel_loss <= TRAIN_LOSS_RTOL and rel_gn <= TRAIN_GNORM_RTOL
           and min(gated.values()) >= TRAIN_COS_MIN
-          and all(max(mk, mr) < ADAMW_EPS for _, _, mk, mr in limited.values()))
+          and (bf16_floor or all(tiny(k) for k in limited)))
     log(f"[{tag}] first step vs plain fp32 path: loss {loss_k:.6f} vs {loss_r:.6f} (rel "
         f"{rel_loss:.2e}, bound {TRAIN_LOSS_RTOL}); grad norm {gn_k:.5f} vs {gn_r:.5f} (rel "
         f"{rel_gn:.2e}, bound {TRAIN_GNORM_RTOL}); gradient cosine over {len(gated)} of "
         f"{len(g_r)} parameters, lowest {worst} (bound >= {TRAIN_COS_MIN}); plain bf16 vs "
         f"fp32 lowest {sorted(cos_plain.items(), key=lambda kv: kv[1])[:3]} "
         f"{'ok' if ok else 'FAIL'} ({smi})")
+    below = sorted((k for k, v in gated.items() if v < TRAIN_COS_MIN), key=gated.get)
+    if below:
+        cos_kp = _cosines(g_k, g_p)
+        log(f"[{tag}] {len(below)} parameters below the cosine bound")
+        for k in below[:12]:
+            log(f"[{tag}]   {k}: cosine kernels {cos[k]:.4f}, plain bf16 "
+                f"{cos_plain.get(k, math.nan):.4f}, kernels vs plain bf16 "
+                f"{cos_kp.get(k, math.nan):.4f}; fp32 max |g| {amax(g_r, k):.3e}, norm "
+                f"{float(g_r[k].norm()):.3e}")
     zero = sorted(set(g_r) - set(cos))
     if zero:
         log(f"[{tag}] {len(zero)} parameters with an exactly zero gradient in both paths, left "
             f"out of the cosine gate: {zero}")
     for k, (ck, cp, mk, mr) in sorted(limited.items()):
-        log(f"[{tag}] bf16-limited (plain bf16 below the bound too): {k}: cosine kernels "
-            f"{ck:.4f}, plain bf16 {cp:.4f}; max |g| kernels {mk:.3e}, fp32 {mr:.3e} (bound < "
-            f"AdamW eps {ADAMW_EPS}; global grad norm {gn_r:.3e})")
+        why = (f"relative L2 error kernels {err(g_k, k):.3e}, plain bf16 {err(g_p, k):.3e} "
+               f"(bound: twice plain bf16's, or max |g| < AdamW eps {ADAMW_EPS})" if bf16_floor
+               else f"bound max |g| < AdamW eps {ADAMW_EPS}")
+        log(f"[{tag}] bf16-limited: {k}: cosine kernels {ck:.4f}, plain bf16 {cp:.4f}; max |g| "
+            f"kernels {mk:.3e}, fp32 {mr:.3e}; {why}; fp32 norm {float(g_r[k].norm()):.3e} "
+            f"of global {gn_r:.3e}")
     if not ok:
         raise RuntimeError(f"{tag}: train step gradients disagree with the plain fp32 path")
+    if s_r:
+        _compare_batch_stats(s_k, s_r, tag, smi)
     return cos
+
+
+def _compare_batch_stats(got, ref, tag, smi):
+    """DAT's BatchNorm batch statistics of the first step (what the
+    running statistics take in), kernels (bf16) against the plain fp32
+    path, per BatchNorm in relative L2 error at the scale both are
+    computed at, the second moment E[y^2] = var + mean^2 (mean against
+    its square root): the fast variance E[y^2] - E[y]^2 is a difference at
+    that scale, and the channel gate's, over 8 samples whose pooled
+    features nearly agree, is far below it.  Bound TRAIN_GNORM_RTOL (bf16
+    activations, as for the grad norm)."""
+    rel = {}
+    for name in ref:
+        if not name.endswith("running_mean"):
+            continue
+        bn = name[:-len("running_mean")]
+        m_k, m_r = got[name], ref[name]
+        v_k, v_r = got[bn + "running_var"], ref[bn + "running_var"]
+        second = v_r + m_r.square()
+        rel[bn + "mean"] = float((m_k - m_r).norm()) / max(float(second.sqrt().norm()), 1e-30)
+        rel[bn + "var"] = float((v_k - v_r).norm()) / max(float(second.norm()), 1e-30)
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+    ok = all(math.isfinite(v) and v <= TRAIN_GNORM_RTOL for v in rel.values())
+    log(f"[{tag}] BatchNorm batch statistics of the first step vs plain fp32 path: "
+        f"{len(rel)} means and variances, relative L2 error at the second moment's scale, "
+        f"worst {worst} (bound {TRAIN_GNORM_RTOL}) {'ok' if ok else 'FAIL'} ({smi})")
+    if not ok:
+        raise RuntimeError(f"{tag}: BatchNorm statistics disagree with the plain fp32 path")
 
 
 def phase_hat_train(workdir, smi):
@@ -1732,6 +2007,175 @@ def phase_hat_train(workdir, smi):
     del model, st
     _first_step_gate(fcfg, fsrc, lr, hr, "hat-train hat_fast", smi)
     return [launches, per_step_all, fast]
+
+
+def phase_dat_train(workdir, smi):
+    """DAT x4 training: the train CLI (``--model dat``, DATConfig() at
+    full width and depth, drop path 0.1, batch 8, --patch_size 64, L1,
+    AdamW, clip 1.0, --ema_decay 0.999) for one epoch of 2 steps plus
+    validation (the EMA copy, on the kernels) on a synthetic DeepRock
+    tree; then per-step launches and times (kernels vs plain bf16), a
+    profiled step split by part, and the first step's loss, gradients
+    and BatchNorm statistics against the plain fp32 path.  Returns the
+    launches of the CLI run and of the counted step."""
+    import numpy as np
+    import torch
+
+    from tpu_superresolution_torch.cli.train import main as train_main
+    from tpu_superresolution_torch.core.config import DATConfig, build_model
+    from tpu_superresolution_torch.kernels import read_counters, reset_counters
+    from tpu_superresolution_torch.train.engine import make_train_step
+
+    batch, patch, scale = TRAIN_BATCH, TRAIN_LR_PATCH, 4
+    n_train, n_valid = 2 * batch, 2
+    data = f"{workdir}/deeprock_dat"
+    _write_deeprock(data, n_train, n_valid, hr_size=320, scale=scale, seed=SEED + 4)
+
+    # 1. the entry point: one epoch of 2 steps + validation of 2 images
+    reset_counters()
+    t0 = time.perf_counter()
+    trainer, state = train_main([
+        "--data_root", data, "--scale", "X4", "--model", "dat", "--epochs", "1",
+        "--batch_size", str(batch), "--patch_size", str(patch), "--loss", "l1",
+        "--ema_decay", "0.999", "--workdir", f"{workdir}/dat_run", "--seed", str(SEED),
+        "--device", "cuda"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_counters()
+    steps, val_calls = n_train // batch, 1
+    expect = {k: steps * DAT_TRAIN_PER_STEP[k] + val_calls * DAT_PER_CALL[k]
+              for k in DAT_TRAIN_PER_STEP}
+    log(f"[dat-train] train CLI, DAT x4 (DATConfig(): embed 180, depths 6x6, split (8, 16), "
+        f"drop_path_rate {trainer.model_config.drop_path_rate}), batch {batch}, patch {patch}, "
+        f"EMA 0.999: {steps} steps + validation in {cli_s:.1f} s (incl. the first steps' "
+        f"set-up); train loss {trainer.history['train'][0]:.6f}, val PSNR "
+        f"{trainer.best_val_psnr:.2f} dB; launches {launches} (expected {expect}) ({smi})")
+    if state.step != steps or not math.isfinite(trainer.history["train"][0]):
+        raise RuntimeError(f"train CLI: {state.step} steps, loss {trainer.history['train']}")
+    if launches != expect:
+        raise RuntimeError(f"dat train CLI launches {launches}, expected {expect}")
+    if sorted(state.ema) != sorted(n for n, _ in state.model.named_parameters()):
+        raise RuntimeError("the EMA does not cover exactly the parameters")
+    del trainer, state
+
+    # 2. one step's launches, step times (kernels vs plain bf16), a split
+    rng = np.random.default_rng(SEED + 5)
+    lr = torch.from_numpy(rng.random((batch, patch, patch, 3), dtype=np.float32)).cuda()
+    hr = torch.from_numpy(
+        rng.random((batch, patch * scale, patch * scale, 3), dtype=np.float32)).cuda()
+    step = make_train_step("l1", "native_lr", scale, patch, False)
+    cfg = DATConfig()
+    src = build_model(cfg)
+    src.reset_parameters(torch.Generator().manual_seed(SEED))
+    per_step_all = {}
+    for label, impl in (("kernels", "auto"), ("plain", "plain")):
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(cfg, dtype=torch.bfloat16, impl=impl, device="cuda")
+        model.load_state_dict(src.state_dict())
+        st = _train_state(model, steps)
+        gen = torch.Generator().manual_seed(SEED)
+        step(st, lr, hr, gen)
+        torch.cuda.synchronize()
+        reset_counters()
+        step(st, lr, hr, gen)
+        torch.cuda.synchronize()
+        per_step = read_counters()
+        dts = []
+        for _ in range(DAT_TIMED_STEPS):
+            t0 = time.perf_counter()
+            m = step(st, lr, hr, gen)
+            torch.cuda.synchronize()
+            dts.append(time.perf_counter() - t0)
+        ms = statistics.median(dts) * 1e3
+        log(f"[dat-train] {label} bf16 path: launches per step {per_step}; median {ms:.2f} "
+            f"ms/step over {DAT_TIMED_STEPS} steps after 2 warm-up (min "
+            f"{min(dts) * 1e3:.2f}, max {max(dts) * 1e3:.2f}), {batch / ms * 1e3:.1f} images/s; "
+            f"loss {float(m['loss']):.6f}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB ({smi})")
+        if label == "kernels":
+            if per_step != DAT_TRAIN_PER_STEP:
+                raise RuntimeError(f"DAT launches per train step {per_step}, expected "
+                                   f"{DAT_TRAIN_PER_STEP}")
+            per_step_all = per_step
+            _dat_train_split(st, lr, hr, ms, smi)
+        elif any(per_step.values()):
+            raise RuntimeError(f"the plain path launched kernels: {per_step}")
+        del model, st
+
+    # 3. the first step's loss, gradients and BatchNorm statistics
+    _first_step_gate(cfg, src, lr, hr, "dat-train", smi, bf16_floor=True)
+    return [launches, per_step_all]
+
+
+def _dat_train_split(state, lr, hr, step_ms, smi):
+    """Where one DAT train step spends its device time, under
+    torch.profiler: the forward, backward and optimizer as ranges, K16,
+    K11, K2 and K3/K4 forwards by kernel name, the rest by the range it
+    ran in (the forward's plain ops: the GEMMs, BatchNorm, GELU, the
+    partitions and pads; the backward: autograd of everything, K16's
+    and K11's plain versions included), and the device's idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from tpu_superresolution_torch.train.engine import apply_gradients
+
+    model = state.model
+    model.train()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state.optimizer.zero_grad(set_to_none=True)
+            with record_function("step::forward"):
+                loss = (model(lr, generator=torch.Generator().manual_seed(SEED)).float()
+                        - hr).abs().mean()
+                torch.cuda.synchronize()
+            with record_function("step::backward"):
+                loss.backward()
+                torch.cuda.synchronize()
+            with record_function("step::optimizer"):
+                apply_gradients(state)
+                torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = prof.events()
+    except Exception as e:  # the profile is a reading aid, not a check
+        log(f"[dat-train] profiler failed: {type(e).__name__}: {e}")
+        return
+    kernels = sorted(_device_kernels(prof), key=lambda e: e.time_range.start)
+    if not kernels:
+        log("[dat-train] profiler: no device events recorded")
+        return
+    steps = ("step::forward", "step::backward", "step::optimizer")
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in events
+             if e.device_type == torch.autograd.DeviceType.CPU and e.name in steps]
+    us = lambda e: getattr(e, "device_time", 0.0) or getattr(e, "cuda_time", 0.0)
+    names = (("K16 forward (batched_attn_kernel)", ("batched_attn_kernel",)),
+             ("K11 forward (dwconv3x3_kernel)", ("dwconv3x3_kernel",)),
+             ("K2-K4 forwards", ("layernorm_rows", "conv_nhwc")))
+    by_span = (("step::forward", "other forward ops (GEMMs, BatchNorm, GELU, partitions, pads)"),
+               ("step::backward", "backward (autograd; K16's, K11's, K2-K4's plain versions)"),
+               ("step::optimizer", "optimizer (norm, clip, AdamW, EMA)"))
+    groups = dict.fromkeys([g for g, _ in names] + [g for _, g in by_span] + ["other"], 0.0)
+    for e in kernels:
+        n, t = e.name, e.time_range.start
+        inside = {name for a, b, name in spans if a <= t <= b}
+        g = next((g for g, keys in names if any(k in n for k in keys)), None)
+        g = g or next((g for span, g in by_span if span in inside), "other")
+        groups[g] += us(e) / 1e3
+    busy = sum(groups.values())
+    idle = max(wall - busy, 0.0)
+    log(f"[dat-train] profiled step: {wall:.2f} ms wall (profiler on, a synchronise after "
+        f"each phase), {len(kernels)} device kernels, busy {busy:.2f} ms ({busy / wall:.1%}), "
+        f"idle {idle:.2f} ms ({idle / wall:.1%}); against the unprofiled median step "
+        f"{step_ms:.2f} ms: busy {busy / step_ms:.1%}, idle {max(step_ms - busy, 0.0):.2f} ms "
+        f"({smi})")
+    for g, t in groups.items():
+        log(f"[dat-train]   {t:8.3f} ms  {t / wall:6.1%}  {g}")
+    counts = {}
+    for e in kernels:
+        counts[e.name] = counts.get(e.name, 0) + 1
+    top = sorted(counts.items(), key=lambda kv: -kv[1])[:10]
+    log(f"[dat-train] most launched device kernels: "
+        f"{[(n[:60], c) for n, c in top]}")
 
 
 def _hat_train_split(state, lr, hr, step_ms, smi):
@@ -1919,20 +2363,33 @@ def main() -> int:
 
     from tpu_superresolution_torch.core.config import SwinIRConfig
 
-    phase_build()
-    kres = phase_window_kernels(phase_dat_kernels(phase_train_kernels(phase_kernels())))
+    t_start = time.perf_counter()
+
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"[time] {label}: {time.perf_counter() - t0:.1f} s "
+            f"({time.perf_counter() - t_start:.1f} s in all)")
+        return out
+
+    timed("build", phase_build)
+    kres = timed("kernels", lambda: phase_dat_train_kernels(phase_window_kernels(
+        phase_dat_kernels(phase_train_kernels(phase_kernels())))))
     _lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_lib.BUILD_DIR) as workdir:
-        service, launches = phase_serve(workdir, SwinIRConfig(scale=4), "swinir", PER_CALL)
-        phase_bench(service, smi)
+        service, launches = timed("serve", phase_serve, workdir, SwinIRConfig(scale=4),
+                                  "swinir", PER_CALL)
+        timed("bench", phase_bench, service, smi)
         del service
-        ws7_launches = phase_swinir_ws7(smi)
-        swinir_l_launches = phase_swinir_l(smi)
-        hat_launches = phase_hat(workdir, smi)
-        dat_launches = phase_dat(workdir, smi)
-        train_launches, _ = phase_train(workdir, smi)
-        hat_train_launches = phase_hat_train(workdir, smi)
-        srx4_launches = phase_hat_srx4(workdir, smi)
+        ws7_launches = timed("swinir-ws7", phase_swinir_ws7, smi)
+        swinir_l_launches = timed("swinir-l", phase_swinir_l, smi)
+        hat_launches = timed("hat", phase_hat, workdir, smi)
+        dat_launches = timed("dat", phase_dat, workdir, smi)
+        train_launches, _ = timed("train", phase_train, workdir, smi)
+        hat_train_launches = timed("hat-train", phase_hat_train, workdir, smi)
+        srx4_launches = timed("hat_srx4", phase_hat_srx4, workdir, smi)
+        dat_x4_launches = timed("dat_x4", phase_dat_x4, workdir, smi)
+        dat_train_launches = timed("dat-train", phase_dat_train, workdir, smi)
 
     kernels = []
     for key, meta in KERNELS.items():
@@ -1942,7 +2399,8 @@ def main() -> int:
             replaces=meta["replaces"],
             launches=sum(d.get(key, 0) for d in [launches, ws7_launches, swinir_l_launches,
                                                  hat_launches, dat_launches, train_launches,
-                                                 srx4_launches] + hat_train_launches),
+                                                 srx4_launches, dat_x4_launches]
+                         + hat_train_launches + dat_train_launches),
             max_abs_err=max(r["err"] for r in kres[key]),
             ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
             bound_by=first["bound_by"], library_ms=first["library_ms"],

@@ -6,8 +6,8 @@ abs.  The oracles are the JAX module chain (its fused switches "off")
 and the JAX fully fused forward (rect, shifted rect, channel and tail
 kernels "on", interpret mode).  Embed 32, depths (2, 2), heads (2, 2),
 split (4, 8): group 1's j = 0 block is shifted.  Also the config
-inference, a reference-format .pth through the CLIs, and the train()
-refusal."""
+inference and a reference-format .pth through the CLIs (DAT training is
+``tests/test_torch_dat_train.py``)."""
 
 import dataclasses
 
@@ -232,18 +232,3 @@ def test_dat_serve_and_upscale_cli_on_cpu(tmp_path):
                           "--scale", "X4"])
         with pytest.raises(RuntimeError, match="no CUDA device"):
             SRService(ckpt, "dat", "X4", None, -1, 16, 8)
-
-
-def test_dat_refuses_training(tmp_path):
-    """Serving only: train() and the train CLI name the ROADMAP item;
-    eval() stays."""
-    from tpu_superresolution_torch.cli.train import main as train_main
-    from tpu_superresolution_torch.core.config import DATConfig, build_model
-
-    model = build_model(DATConfig(embed_dim=32, depths=(2,), num_heads=(2,), split_size=(4, 8)))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, 'DAT training'"):
-        model.train()
-    assert not model.eval().training
-    with pytest.raises(SystemExit, match="Queue 1, 'DAT training'"):
-        train_main(["--data_root", str(tmp_path), "--scale", "X4", "--model", "dat",
-                    "--workdir", str(tmp_path), "--device", "cpu"])

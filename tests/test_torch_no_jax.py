@@ -21,7 +21,8 @@ print(len(names), bad)
 assert not bad, bad
 for name in ("cli.train", "kernels.fused_ocab", "models.hat", "train.engine", "models.dat",
              "kernels.fused_rect_attn", "kernels.fused_channel_attn", "kernels.fused_datb_tail",
-             "kernels.fused_attention", "kernels.cab_conv"):
+             "kernels.fused_attention", "kernels.cab_conv", "kernels.dwconv",
+             "kernels.window_attention"):
     assert "tpu_superresolution_torch." + name in names, name
 """
 
@@ -51,7 +52,7 @@ def test_cpu_forward_launches_no_kernel():
         y = model(torch.rand(1, 16, 16, 3))
     assert y.shape == (1, 64, 64, 3)
     none = {"K1": 0, "K1t": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K6b": 0, "K7": 0,
-            "K8": 0, "K8b": 0, "K9": 0, "K10": 0, "K12": 0, "K14": 0}
+            "K8": 0, "K8b": 0, "K9": 0, "K10": 0, "K11": 0, "K12": 0, "K14": 0, "K16": 0}
     assert read_counters() == none
     opt, sched = build_optimizer(TrainConfig(loss="l1"), 1, model)
     state = create_train_state(model, opt, sched)

@@ -5,15 +5,14 @@ reference train.py:183-423):
         --data_root /path/DeepRockSR-2D --scale X4 --model hat \\
         --loss l1 --patch_size 64 --epochs 100
 
-``--model`` picks a registered family: ``swinir``, ``hat`` or
-``hat_fast`` (the transformers, trained on native-LR crops of
+``--model`` picks a registered family: ``swinir``, ``hat``,
+``hat_fast`` or ``dat`` (the transformers, trained on native-LR crops of
 ``--patch_size`` LR pixels); the CNN families ``ms_resunet`` (the JAX
 package's default) and ``unet2d`` are still to port (ROADMAP.md Queue 1
-item 2) and exit with that message, as does ``dat``, which the port
-serves but does not train yet (ROADMAP.md Queue 1, "DAT training").  The
-transformer overrides
+item 2) and exit with that message.  The transformer overrides
 ``--embed_dim``, ``--t_depths``, ``--t_heads`` and ``--window_size``
-resize the family's default config.  Weights start from the reference
+resize the family's default config; one its config lacks (DAT has no
+``--window_size``) exits, as in the JAX CLI.  Weights start from the reference
 initialisation drawn from ``--seed``; ``--resume`` restores a ``.pt`` /
 ``.pth`` checkpoint this CLI or ``finetune`` wrote (weights, and the
 optimizer state, step and EMA unless ``--finetune``).  Each validated
@@ -55,7 +54,6 @@ from tpu_superresolution_torch.data.loader import Loader
 from tpu_superresolution_torch.train.engine import Trainer, build_optimizer, create_train_state
 
 CNN_FAMILIES = ("ms_resunet", "unet2d")
-SERVING_ONLY = ("dat",)
 # flags of the JAX CLI whose features are not ported yet
 _REFUSED = {"do_blur": "--do_blur (blur augmentation)",
             "normalize": "--normalize (dataset normalization)",
@@ -69,7 +67,8 @@ def build_argparser():
     ap.add_argument("--data_root", type=str, required=True)
     ap.add_argument("--scale", type=str, choices=["X2", "X4"], required=True)
     ap.add_argument("--model", type=str, default="ms_resunet",
-                    help="swinir, hat or hat_fast (ms_resunet and unet2d are still to port)")
+                    help="swinir, hat, hat_fast or dat (ms_resunet and unet2d are still to "
+                         "port)")
     ap.add_argument("--epochs", type=int, default=5)
     ap.add_argument("--scheduler", type=str,
                     choices=["OneCycle", "Exponential", "Cosine", "None"], default="None")
@@ -124,12 +123,8 @@ def model_config_from_args(args):
     transformer overrides (the JAX CLI's rule)."""
     if args.model in CNN_FAMILIES:
         raise SystemExit(f"--model {args.model}: the CNN families (ms_resunet, unet2d) are "
-                         "still to port (ROADMAP.md Queue 1 item 2); train swinir, hat or "
-                         "hat_fast")
-    if args.model in SERVING_ONLY:
-        raise SystemExit(f"--model {args.model}: DAT training is not ported yet (ROADMAP.md "
-                         "Queue 1, 'DAT training'); the port serves DAT through upscale and "
-                         "serve")
+                         "still to port (ROADMAP.md Queue 1 item 2); train swinir, hat, "
+                         "hat_fast or dat")
     from tpu_superresolution_torch import models as _models  # noqa: F401  (the registry)
 
     if args.model not in model_registry:
@@ -146,6 +141,10 @@ def model_config_from_args(args):
         over["num_heads"] = tuple(int(h) for h in args.t_heads.split(","))
     if args.window_size is not None:
         over["window_size"] = args.window_size
+    bad = [k for k in over if not hasattr(mcfg, k)]
+    if bad:
+        raise SystemExit(f"flag(s) {bad} not valid for model '{args.model}' (its config has no "
+                         "such field)")
     return dataclasses.replace(mcfg, **over) if over else mcfg
 
 

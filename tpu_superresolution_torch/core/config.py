@@ -147,7 +147,7 @@ class DATConfig(ModelConfig):
     img_range: float = 1.0
     use_remat: bool = False
     attention_impl: str = "auto"  # kept for dict round-trips, as SwinIRConfig's
-    drop_path_rate: float = 0.1  # training only (not ported yet)
+    drop_path_rate: float = 0.1  # training only
     fused_reconstruct: bool = True  # see SwinIRConfig.fused_reconstruct
 
     @property

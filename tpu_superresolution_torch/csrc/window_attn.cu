@@ -19,6 +19,7 @@
 //       key tile), then multiplies the tile's head-concatenated output by
 //       Wproj.  At N = 256 one head's fp32 score matrix is 256 KB and
 //       does not fit in shared memory; the tile holds 64 x 64 scores.
+//       That attention core is window_attn_core.cuh, shared with K16.
 //       Pad keys (>= N) get -inf, pad query rows are computed on zeros
 //       and not stored.  Weights are read from L2 by the WMMA fragments.
 //       Splitting the qkv product into its own launch keeps each key
@@ -39,6 +40,7 @@
 
 #include "common.cuh"
 #include "swin_common.cuh"
+#include "window_attn_core.cuh"
 
 using namespace nvcuda;
 
@@ -86,26 +88,15 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-// ---- launch 2: attention and proj per (window, 64-query tile) ----
-constexpr int LDH = HDP + 8;          // bf16 q, k, v tiles
-constexpr int LDS = T + 4;            // fp32 scores
-constexpr int LDP = T + 8;            // bf16 probabilities
+// ---- launch 2: attention (window_attn_core.cuh) and proj per (window,
+// 64-query tile) ----
+using wattn::LDH;
 constexpr int LDO = MAX_HEADS * HDP + 8;  // bf16 head-concatenated output
-constexpr int OFF_Q = 0;
-constexpr int OFF_K = OFF_Q + T * LDH * 2;
-constexpr int OFF_V = OFF_K + T * LDH * 2;
-constexpr int OFF_S = OFF_V + T * LDH * 2;
-constexpr int OFF_P = OFF_S + T * LDS * 4;
-constexpr int OFF_ACC = OFF_P + T * LDP * 2;      // fp32 [64][32] running output
-constexpr int OFF_STAT = OFF_ACC + T * HDP * 4;   // fp32 m, l, alpha [64] each
-constexpr int OFF_O = OFF_STAT + 3 * T * 4 + 256;  // (rounded up to 128 bytes)
-constexpr int OFF_STG = OFF_O + T * LDO * 2;
-constexpr int ATTN_SMEM = OFF_STG + NWARPS * 256 * 4;
+constexpr int OFF_O = wattn::CORE_SMEM;
+constexpr int ATTN_SMEM = OFF_O + T * LDO * 2;
 static_assert(ATTN_SMEM <= 232448, "over the 227 KB shared-memory limit");
-static_assert(OFF_K % 128 == 0 && OFF_V % 128 == 0 && OFF_S % 128 == 0 && OFF_P % 128 == 0 &&
-                  OFF_ACC % 128 == 0 && OFF_STAT % 128 == 0 && OFF_O % 128 == 0 &&
-                  OFF_STG % 128 == 0,
-              "shared buffers must stay 128-byte aligned");
+static_assert(wattn::HDP == HDP && wattn::T == T && wattn::NTHREADS == NTHREADS,
+              "the attention core's tiles are this kernel's");
 
 struct AttnArgs {
   const bf16* qkv;     // [BW*N, 3A]
@@ -131,18 +122,9 @@ __device__ __forceinline__ void load_head_tile(bf16* dst, const bf16* base, int 
 
 __global__ void __launch_bounds__(NTHREADS) window_attn_kernel(const AttnArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem + OFF_Q);
-  bf16* ks = reinterpret_cast<bf16*>(smem + OFF_K);
-  bf16* vs = reinterpret_cast<bf16*>(smem + OFF_V);
-  float* ss = reinterpret_cast<float*>(smem + OFF_S);
-  bf16* ps = reinterpret_cast<bf16*>(smem + OFF_P);
-  float* oacc = reinterpret_cast<float*>(smem + OFF_ACC);
-  float* row_m = reinterpret_cast<float*>(smem + OFF_STAT);
-  float* row_l = row_m + T;
-  float* row_a = row_l + T;
   bf16* os = reinterpret_cast<bf16*>(smem + OFF_O);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float* stg = reinterpret_cast<float*>(smem + OFF_STG) + warp * 256;
+  float* stg = wattn::staging(smem, warp);
 
   const int n = a.n, nh = a.nh;
   const int att = nh * HDP, n3 = 3 * att;
@@ -151,110 +133,16 @@ __global__ void __launch_bounds__(NTHREADS) window_attn_kernel(const AttnArgs a)
   const bf16* base = a.qkv + win * n * static_cast<long long>(n3);
   const float* mwin =
       a.mask ? a.mask + (win % a.n_mask) * static_cast<long long>(n) * n : nullptr;
-  const float neg_inf = -__int_as_float(0x7f800000);
 
   for (int hh = 0; hh < nh; ++hh) {
-    load_head_tile(qs, base, q0, n, n3, hh * HDP, tid);
-    for (int i = tid; i < T * HDP; i += NTHREADS) oacc[i] = 0.f;
-    if (tid < T) {
-      row_m[tid] = neg_inf;
-      row_l[tid] = 0.f;
-    }
-    const float* rp = a.rpb + static_cast<long long>(hh) * n * n;
-    for (int kt = 0; kt < a.tiles; ++kt) {
-      const int k0 = kt * T;
-      load_head_tile(ks, base, k0, n, n3, att + hh * HDP, tid);
-      load_head_tile(vs, base, k0, n, n3, 2 * att + hh * HDP, tid);
-      __syncthreads();
-      // S = Q_h K_h^T (q carries the softmax scale): 16 tiles, 2 a warp
-      for (int tile = warp; tile < 16; tile += NWARPS) {
-        const int mt = tile >> 2, nt = tile & 3;
-        Acc s;
-        wmma::fill_fragment(s, 0.f);
-#pragma unroll
-        for (int k = 0; k < HDP; k += 16) {
-          FragA fa;
-          FragBt fb;
-          wmma::load_matrix_sync(fa, qs + mt * 16 * LDH + k, LDH);
-          wmma::load_matrix_sync(fb, ks + nt * 16 * LDH + k, LDH);
-          wmma::mma_sync(s, fa, fb, s);
-        }
-        wmma::store_matrix_sync(ss + mt * 16 * LDS + nt * 16, s, LDS, wmma::mem_row_major);
-      }
-      __syncthreads();
-      // online softmax over this key tile: eight lanes a row, eight
-      // columns a lane; pad keys -inf, pad query rows without bias
-      for (int r = warp * 4 + (lane >> 3); r < T; r += NWARPS * 4) {
-        const int c0 = (lane & 7) * 8;
-        const int qr = q0 + r;
-        float v[8];
-        load8(v, ss + r * LDS + c0);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int col = k0 + c0 + i;
-          if (col >= n) {
-            v[i] = neg_inf;
-          } else if (qr < n) {
-            v[i] += rp[static_cast<long long>(qr) * n + col];
-            if (mwin) v[i] += mwin[static_cast<long long>(qr) * n + col];
-          }
-        }
-        float mt = v[0];
-#pragma unroll
-        for (int i = 1; i < 8; ++i) mt = fmaxf(mt, v[i]);
-#pragma unroll
-        for (int o = 4; o > 0; o >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o));
-        const float m_old = row_m[r];
-        const float m_new = fmaxf(m_old, mt);  // finite: key 0 is real, the mask finite
-        float sum = 0.f;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          v[i] = expf(v[i] - m_new);
-          sum += v[i];
-        }
-#pragma unroll
-        for (int o = 4; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-        store8_bf16(ps + r * LDP + c0, v);
-        __syncwarp();
-        if ((lane & 7) == 0) {
-          const float alpha = expf(m_old - m_new);  // 0 on the first tile
-          row_a[r] = alpha;
-          row_l[r] = row_l[r] * alpha + sum;
-          row_m[r] = m_new;
-        }
-      }
-      __syncthreads();
-      // O = alpha O + P V_h: 8 tiles of 16 x 16, one a warp
-      {
-        const int mt = warp >> 1, nt = warp & 1;
-        Acc o;
-        wmma::fill_fragment(o, 0.f);
-#pragma unroll
-        for (int k = 0; k < T; k += 16) {
-          FragA fa;
-          FragB fb;
-          wmma::load_matrix_sync(fa, ps + mt * 16 * LDP + k, LDP);
-          wmma::load_matrix_sync(fb, vs + k * LDH + nt * 16, LDH);
-          wmma::mma_sync(o, fa, fb, o);
-        }
-        wmma::store_matrix_sync(stg, o, 16, wmma::mem_row_major);
-        __syncwarp();
-        const int rr = mt * 16 + (lane >> 1), cc = nt * 16 + (lane & 1) * 8;
-        float pv[8];
-        load8(pv, stg + (lane >> 1) * 16 + (lane & 1) * 8);
-        const float alpha = row_a[rr];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) oacc[rr * HDP + cc + i] = oacc[rr * HDP + cc + i] * alpha + pv[i];
-        __syncwarp();
-      }
-      __syncthreads();
-    }
-    // O_h / l -> the head's 32 columns of the concatenated output
-    for (int i = tid; i < T * HDP; i += NTHREADS) {
-      const int r = i / HDP, d = i % HDP;
-      os[r * LDO + hh * HDP + d] = __float2bfloat16(oacc[i] / row_l[r]);
-    }
-    __syncthreads();
+    // the head's q, k, v columns of the workspace; O_h / l -> the head's
+    // 32 columns of the concatenated output (q carries the softmax scale)
+    wattn::attend_head<false>(
+        smem, n, a.tiles, q0, a.rpb + static_cast<long long>(hh) * n * n, mwin, 1.f,
+        [&](bf16* dst, int part, int t0) {
+          load_head_tile(dst, base, t0, n, n3, part * att + hh * HDP, tid);
+        },
+        [&](int r, int d, float v) { os[r * LDO + hh * HDP + d] = __float2bfloat16(v); });
   }
 
   // ---- out = O Wproj^T + bproj, rows < N and columns < C stored ----

@@ -2,6 +2,7 @@
 JAX package's variables -> the port's state dict."""
 
 from tpu_superresolution_torch.interop.jax_bridge import (
+    dat_batch_stats_from_state_dict,
     dat_state_dict_from_jax,
     hat_state_dict_from_jax,
     swinir_state_dict_from_jax,
@@ -20,6 +21,7 @@ from tpu_superresolution_torch.interop.torch_convert import (
 __all__ = [
     "CONFIG_INFERENCE",
     "REFERENCE_BUFFER_SUFFIXES",
+    "dat_batch_stats_from_state_dict",
     "dat_state_dict_from_jax",
     "extract_state_dict",
     "hat_state_dict_from_jax",

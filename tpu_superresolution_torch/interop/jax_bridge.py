@@ -19,7 +19,7 @@ package:
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 
@@ -50,6 +50,7 @@ class _Bridge:
         self.p = _Tree(variables.get("params", variables))
         self.s = _Tree(variables.get("batch_stats", {}))
         self.out: Dict[str, np.ndarray] = {}
+        self.bn_paths: Dict[str, Tuple[str, ...]] = {}
 
     def ln(self, tname, *path):
         self.out[tname + ".weight"] = self.p.get(*path, "scale")
@@ -71,6 +72,7 @@ class _Bridge:
         self.out[tname + ".running_mean"] = self.s.get(*path, "mean")
         self.out[tname + ".running_var"] = self.s.get(*path, "var")
         self.out[tname + ".num_batches_tracked"] = np.asarray(0, np.int64)
+        self.bn_paths[tname] = tuple(path)
 
     def swin_block(self, tb, *bp):
         """A Swin block's norms, attention and MLP (SwinIR's and HAT's)."""
@@ -170,13 +172,9 @@ def hat_state_dict_from_jax(variables: Mapping) -> Dict[str, np.ndarray]:
     return e.out
 
 
-def dat_state_dict_from_jax(variables: Mapping) -> Dict[str, np.ndarray]:
-    """JAX DAT variables ({"params", "batch_stats"}) -> reference-format
-    state dict (the inverse of the JAX package's ``convert_dat``; the
-    mapping of its ``export_dat``): the reference's Sequential indices
-    dwconv.{0 conv, 1 BN}, channel_interaction.{1 conv, 2 BN, 4 conv},
-    spatial_interaction.{0 conv, 1 BN, 3 conv}, DynamicPosBias
-    pos{1,2,3}.{0 LN, 2 Linear}, before_RG.1, ffn.sg.{norm, conv}."""
+def _dat_bridge(variables: Mapping) -> _Bridge:
+    """The DAT mapping run over `variables`: its state dict in ``.out``,
+    each BatchNorm's JAX path in ``.bn_paths``."""
     if not isinstance(variables, Mapping) or "batch_stats" not in variables:
         raise ValueError("dat_state_dict_from_jax needs the variables' 'batch_stats' "
                          "(BatchNorm running statistics) beside 'params'")
@@ -224,4 +222,32 @@ def dat_state_dict_from_jax(variables: Mapping) -> Dict[str, np.ndarray]:
                 e.conv(f"{t}.conv.{k}", lp, f"conv_{k}")
         i += 1
     e.tail()
-    return e.out
+    return e
+
+
+def dat_state_dict_from_jax(variables: Mapping) -> Dict[str, np.ndarray]:
+    """JAX DAT variables ({"params", "batch_stats"}) -> reference-format
+    state dict (the inverse of the JAX package's ``convert_dat``; the
+    mapping of its ``export_dat``): the reference's Sequential indices
+    dwconv.{0 conv, 1 BN}, channel_interaction.{1 conv, 2 BN, 4 conv},
+    spatial_interaction.{0 conv, 1 BN, 3 conv}, DynamicPosBias
+    pos{1,2,3}.{0 LN, 2 Linear}, before_RG.1, ffn.sg.{norm, conv}."""
+    return _dat_bridge(variables).out
+
+
+def dat_batch_stats_from_state_dict(state_dict: Mapping, variables: Mapping) -> Dict:
+    """The port's BatchNorm running statistics (``<name>.running_mean`` /
+    ``.running_var`` of a DAT state dict) as a JAX ``batch_stats`` tree
+    (nested dicts of numpy arrays, leaves ``mean`` / ``var``) of the
+    shape `variables` has: the inverse of the statistics part of
+    ``dat_state_dict_from_jax``, for comparing the two after a train
+    step."""
+    tree: Dict = {}
+    for tname, path in _dat_bridge(variables).bn_paths.items():
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        for leaf, suffix in (("mean", "running_mean"), ("var", "running_var")):
+            t = state_dict[f"{tname}.{suffix}"]
+            node[leaf] = np.asarray(t.detach().cpu() if hasattr(t, "detach") else t)
+    return tree

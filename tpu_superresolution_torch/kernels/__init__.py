@@ -10,9 +10,11 @@ Every ``pl.pallas_call`` of the JAX package
 (``tpu_superresolution_tpu/ops/pallas/``), and where it stands in the
 port.  "On path": SwinIR-M x4 serving (S) and fine-tuning (T), HAT x4
 serving (H) and training (HT) (``hat``, ws 7; ``hat_fast``, ws 8), DAT
-x4 serving (D), HAT-SRx4 serving (H16: upstream's HAT, window 16, C 180)
-and every other Swin block outside the block kernel's envelope (W: other
-windows, C up to 256, up to 8 heads).
+x4 serving (D), HAT-SRx4 serving (H16: upstream's HAT, window 16, C 180),
+every other Swin block outside the block kernel's envelope (W: other
+windows, C up to 256, up to 8 heads), DAT training (DT) and DAT's module
+chain at serving where K9, K14 or K10 refuse a block's shapes (DC: the
+published DAT x4's split (8, 32) and expansion 4, among others).
 
 ==== ========================================================== ======== ==================================================
  #   JAX file:line of pallas_call . entry function                on path  port
@@ -33,9 +35,9 @@ K14  fused_channel_attn.py:209 . fused_channel_attention           D        CUDA
 K10  fused_datb_tail.py:374 . fused_datb_tail                      D        CUDA csrc/dat_tail.cu, fused_datb_tail.datb_tail
 K7   fused_attention.py:229 . fused_window_block_attention         H16,W    CUDA csrc/window_attn.cu (any N), fused_attention.fused_window_attention
 K12  cab_conv.py:209 . fused_ln_cab_convs                          H,HT,H16 CUDA csrc/cab_fused.cu, cab_conv.fused_ln_cab_convs
-K11  cab_conv.py:506 . dwconv3x3_halo                              no       to port (DAT training)
-K15  window_attention.py:193 . fused_window_attention              no       to port (attention_impl="pallas")
-K16  window_attention.py:352 . batched_window_attention            no       to port (attention_impl="pallas")
+K11  cab_conv.py:506 . dwconv3x3_halo                              DT,DC    CUDA csrc/dwconv.cu, dwconv.dwconv3x3
+K15  window_attention.py:193 . fused_window_attention              no       to port (HAT's OCAB at serving)
+K16  window_attention.py:352 . batched_window_attention            DT,DC    CUDA csrc/batched_attn.cu (K7's core), window_attention.batched_window_attention
 ==== ========================================================== ======== ==================================================
 
 One CUDA kernel, templated on the window size, serves K1, K6 and K13:
@@ -49,9 +51,14 @@ is K1t's (the block backward at other windows is still to port).  A Swin
 block takes the block kernel or the K7 route by its static shapes
 (``fused_block.block_route``); a K7 call is two CUDA launches (the qkv
 product, then attention + proj), counted once; on the K7 route K1's
-tail kernel (counted as K1t) completes the block.  A DAT block is K9 (spatial) or K14 (channel), then
-K10; a K9 call is two CUDA launches, a K14 call three, a K10 call one,
-each counted once per wrapper call.
+tail kernel (counted as K1t) completes the block.  A DAT block at
+serving is K9 (spatial) or K14 (channel), then K10, where their limits
+take its shapes (``models.dat.dat_route``); a K9 call is two CUDA
+launches, a K14 call three, a K10 call one, each counted once per
+wrapper call.  Otherwise, and in training, the block runs the module
+chain: K2 for its LayerNorms, K11 for its depthwise convs and K16 for its
+rect-window attention; K11's and K16's backwards are torch autograd of
+their plain versions.
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ from typing import Dict
 
 from tpu_superresolution_torch.kernels import (
     cab_conv,
+    dwconv,
     fused_attention,
     fused_block,
     fused_channel_attn,
@@ -67,6 +75,7 @@ from tpu_superresolution_torch.kernels import (
     fused_ocab,
     fused_rect_attn,
     layernorm,
+    window_attention,
 )
 
 COUNTERS = {
@@ -83,8 +92,10 @@ COUNTERS = {
     "K8b": fused_ocab.launches_bwd,
     "K9": fused_rect_attn.launches,
     "K10": fused_datb_tail.launches,
+    "K11": dwconv.launches,
     "K12": cab_conv.launches_ln_cab,
     "K14": fused_channel_attn.launches,
+    "K16": window_attention.launches,
 }
 
 

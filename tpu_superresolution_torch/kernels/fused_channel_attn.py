@@ -28,7 +28,7 @@ and raises otherwise.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -67,28 +67,51 @@ class ChanAttnWeights:
         return int(self.wqkv.shape[1])
 
 
-def channel_attention_plain(x: torch.Tensor,
-                            w: ChanAttnWeights) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain PyTorch version of K14: (attened_x, conv_x) in x's
-    dtype.  LN1 and qkv in x's dtype; the gram, norms and softmax in
-    fp32 on q's and k's values; A cast to x's dtype before out = v A^T
-    (the JAX kernel's casts)."""
-    b, h, wd, c = x.shape
-    dt = x.dtype
-    nh = w.num_heads
-    hd = c // nh
-    y = layernorm_plain(x, w.g1, w.b1, LN_EPS)
-    qkv = F.linear(y, w.wqkv.to(dt), None if w.bqkv is None else w.bqkv.to(dt))
-    q, k, v = qkv.reshape(b, h * wd, 3, nh, hd).unbind(2)
+def _gram_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    temperature: torch.Tensor) -> torch.Tensor:
+    """XCiT channel attention on q, k, v [B, T, nh, hd] as K14 computes
+    it: the gram, norms and softmax in fp32 on q's and k's values, A cast
+    to v's dtype before out = v A^T.  Returns [B, T, nh, hd]."""
     qf, kf = q.float(), k.float()
     gram = torch.einsum("bthd,bthe->bhde", qf, kf)
     qn = qf.square().sum(1).sqrt().clamp_min(1e-12)   # [B, nh, hd]
     kn = kf.square().sum(1).sqrt().clamp_min(1e-12)
-    sc = gram / (qn[..., :, None] * kn[..., None, :]) * w.temperature.float().reshape(nh, 1, 1)
-    a = torch.softmax(sc, dim=-1).to(dt)
-    out = torch.einsum("bhde,bthe->bthd", a, v).reshape(b, h, wd, c)
-    conv_x = dwconv_gelu_plain(v.reshape(b, h, wd, c), w.wdw, w.bdw)
+    nh = q.shape[2]
+    sc = gram / (qn[..., :, None] * kn[..., None, :]) * temperature.float().reshape(nh, 1, 1)
+    a = torch.softmax(sc, dim=-1).to(v.dtype)
+    return torch.einsum("bhde,bthe->bthd", a, v)
+
+
+def channel_front(x: torch.Tensor, w: ChanAttnWeights, *, ln1: Optional[Callable] = None,
+                  conv_branch: Optional[Callable] = None,
+                  attention: Callable = _gram_attention) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The front of a DAT channel block as one composition: (attened_x,
+    conv_x) in x's dtype.  ``y = ln1(x, g1, b1)``, the qkv product in
+    x's dtype, ``attention(q, k, v, temperature)`` on [B, T, nh, hd] and
+    ``conv_branch(v)`` on v [B, H, W, C].  With its default steps it is
+    K14's plain version; DAT's module chain (``models/dat.py``) passes K2,
+    XCiT in the JAX package's "heads" form and its conv branch (K11,
+    BatchNorm, GELU)."""
+    b, h, wd, c = x.shape
+    dt = x.dtype
+    nh = w.num_heads
+    hd = c // nh
+    y = (ln1 or (lambda t, g, bb: layernorm_plain(t, g, bb, LN_EPS)))(x, w.g1, w.b1)
+    qkv = F.linear(y, w.wqkv.to(dt), None if w.bqkv is None else w.bqkv.to(dt))
+    q, k, v = qkv.reshape(b, h * wd, 3, nh, hd).unbind(2)
+    out = attention(q, k, v, w.temperature).reshape(b, h, wd, c)
+    v = v.reshape(b, h, wd, c)
+    conv_x = conv_branch(v) if conv_branch else dwconv_gelu_plain(v, w.wdw, w.bdw)
     return out.contiguous(), conv_x
+
+
+def channel_attention_plain(x: torch.Tensor,
+                            w: ChanAttnWeights) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of K14 (``channel_front`` with its
+    default steps): (attened_x, conv_x) in x's dtype.  LN1 and qkv in x's
+    dtype; the gram, norms and softmax in fp32 on q's and k's values; A
+    cast to x's dtype before out = v A^T (the JAX kernel's casts)."""
+    return channel_front(x, w)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,11 +131,19 @@ class PackedChan:
     num_heads: int
 
 
+def chan_ok(c: int, num_heads: int) -> bool:
+    """Whether K14 takes a channel block of C channels and `num_heads`
+    heads (shapes only; every image size runs): even C <= 192 and <= 6
+    heads of hd <= 32."""
+    return not (c > CP or c % 2 or num_heads < 1 or c % num_heads or c // num_heads > HDP
+                or num_heads > MAX_HEADS)
+
+
 def check_chan_args(shape, w: ChanAttnWeights, name: str = "channel_attention") -> None:
     if len(shape) != 4 or shape[3] != w.dim:
         raise ValueError(f"{name}: x {tuple(shape)} is not [B, H, W, {w.dim}]")
     c, nh = w.dim, w.num_heads
-    if c > CP or c % 2 or c % nh or c // nh > HDP or nh > MAX_HEADS:
+    if not chan_ok(c, nh):
         raise ValueError(f"{name}: the kernel takes even C <= {CP} and <= {MAX_HEADS} heads of "
                          f"hd <= {HDP}; got C={c}, heads={nh}")
 

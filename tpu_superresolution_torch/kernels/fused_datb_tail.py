@@ -30,13 +30,13 @@ C // 16 <= 16, any image size, and raises otherwise.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 
 from tpu_superresolution_torch.kernels import _lib
-from tpu_superresolution_torch.kernels.fused_rect_attn import depthwise3x3
+from tpu_superresolution_torch.kernels.dwconv import depthwise3x3
 from tpu_superresolution_torch.kernels.layernorm import layernorm_plain
 
 LN_EPS = 1e-5
@@ -92,22 +92,43 @@ class TailWeights:
 
 
 def datb_tail_plain(x: torch.Tensor, u: torch.Tensor, w_px: torch.Tensor, gate: torch.Tensor,
-                    w: TailWeights) -> torch.Tensor:
-    """The plain PyTorch version of K10, in x's dtype: products in fp32
-    on operands rounded to x's dtype where the kernel rounds them (the
-    JAX kernel's casts), the residual stream, h1 and the statistics in
-    fp32."""
+                    w: TailWeights, *, spatial_map: Optional[Callable] = None,
+                    ln: Optional[Callable] = None, dwconv: Callable = depthwise3x3,
+                    linear: Optional[Callable] = None,
+                    branch_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The tail of a DAT block as one composition, in x's dtype: the
+    per-pixel map ``spatial_map(u)`` [B, H, W, 1], the AIM gating, proj
+    (``linear(a, weight, bias)``) and the residual, ``ln`` (LN2), fc1 and
+    GELU, ``ln`` (sg_norm) and ``dwconv`` on the gate half, fc2 and the
+    residual; the residual stream in fp32, `branch_scales` [B, 2] (drop
+    path) on the two residual branches.  With its default steps it is
+    K10's plain version: products in fp32 on operands rounded to x's
+    dtype where the kernel rounds them (the JAX kernel's casts), h1 and
+    the statistics in fp32, the spatial map from the folded weights.
+    DAT's module chain (``models/dat.py``) passes its spatial interaction
+    (BatchNorm on batch or running statistics), K2, K11 and products in
+    x's dtype."""
     dt = x.dtype
     r = lambda t: t.to(dt).float()
-    lin = lambda a, wt, b: F.linear(r(a), r(wt), b.float())
-    pm = F.linear(r(F.gelu(lin(u, w.sp_w1, w.sp_b1))), r(w.sp_w2), w.sp_b2.float())
+    lin = linear or (lambda a, wt, b: F.linear(r(a), r(wt), b.float()))
+    ln = ln or (lambda t, g, b: layernorm_plain(t, g, b, LN_EPS))
+    if spatial_map is None:
+        pm = F.linear(r(F.gelu(lin(u, w.sp_w1, w.sp_b1))), r(w.sp_w2), w.sp_b2.float())
+    else:
+        pm = spatial_map(u).float()
     sg = u.float() * gate.float()[:, None, None, :] + w_px.float() * torch.sigmoid(pm)
-    x2 = x.float() + lin(sg, w.wproj, w.bproj)
-    hdn = F.gelu(lin(layernorm_plain(x2, w.g2, w.b2, LN_EPS), w.wfc1, w.bfc1))
+    y = lin(sg, w.wproj, w.bproj).float()
+    if branch_scales is not None:
+        y = y * branch_scales[:, 0, None, None, None]
+    x2 = x.float() + y
+    hdn = F.gelu(lin(ln(x2, w.g2, w.b2), w.wfc1, w.bfc1))
     half = w.half
-    h2 = r(layernorm_plain(hdn[..., half:], w.gsg, w.bsg, LN_EPS))
-    g = hdn[..., :half] * depthwise3x3(h2, w.wdw, w.bdw)
-    return (x2 + lin(g, w.wfc2, w.bfc2)).to(dt)
+    h2 = r(ln(hdn[..., half:], w.gsg, w.bsg))
+    g = hdn[..., :half] * dwconv(h2, w.wdw, w.bdw)
+    y = lin(g, w.wfc2, w.bfc2).float()
+    if branch_scales is not None:
+        y = y * branch_scales[:, 1, None, None, None]
+    return (x2 + y).to(dt)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,11 +158,18 @@ class PackedTail:
     half: int
 
 
+def tail_ok(c: int, half: int, width: int) -> bool:
+    """Whether K10 takes a block tail of C channels, SGFN half `half` and
+    spatial-map width `width` (C // 16) (shapes only; every image size
+    runs): C <= 192, half <= 192, width <= 16."""
+    return c <= CP and half <= CP and width <= SPP
+
+
 def check_tail_args(shape, w: TailWeights, name: str = "datb_tail") -> None:
     if len(shape) != 4 or shape[3] != w.dim:
         raise ValueError(f"{name}: x {tuple(shape)} is not [B, H, W, {w.dim}]")
     c, half, m = w.dim, w.half, int(w.sp_w1.shape[0])
-    if c > CP or half > CP or m > SPP or w.wfc1.shape[0] != 2 * half:
+    if not tail_ok(c, half, m) or w.wfc1.shape[0] != 2 * half:
         raise ValueError(f"{name}: the kernel takes C <= {CP}, an SGFN half <= {CP} and a "
                          f"spatial map width <= {SPP}; got C={c}, half={half}, width={m}")
 

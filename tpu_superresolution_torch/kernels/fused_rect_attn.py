@@ -33,12 +33,13 @@ raises otherwise.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from tpu_superresolution_torch.kernels import _lib
+from tpu_superresolution_torch.kernels.dwconv import depthwise3x3
 from tpu_superresolution_torch.kernels.layernorm import layernorm_plain
 from tpu_superresolution_torch.ops.window import (
     rect_mask_tensor,
@@ -91,14 +92,6 @@ def scaled_qkv(wqkv: torch.Tensor, bqkv: Optional[torch.Tensor], scale: float):
     return wqkv.float() * qs[:, None], b
 
 
-def depthwise3x3(t: torch.Tensor, wdw: torch.Tensor, bdw: torch.Tensor) -> torch.Tensor:
-    """Depthwise 3x3 of t [B, H, W, C] (wdw [3, 3, C], bias [C]) with
-    SAME zero padding, in fp32 on t's values."""
-    y = F.conv2d(t.float().permute(0, 3, 1, 2), wdw.float().permute(2, 0, 1)[:, None],
-                 bdw.float(), padding=1, groups=t.shape[-1])
-    return y.permute(0, 2, 3, 1)
-
-
 def dwconv_gelu_plain(v: torch.Tensor, wdw: torch.Tensor, bdw: torch.Tensor) -> torch.Tensor:
     """erf-GELU(depthwise3x3(v)) in v's dtype (BatchNorm folded into
     wdw, bdw): DAT's conv branch as the kernels compute it."""
@@ -122,22 +115,29 @@ def _rect_branch(q, k, v, bias, mask, hsp, wsp, nhb):
     return rect_window_reverse(o, hsp, wsp, hp, wp)
 
 
-def rect_attention_plain(x: torch.Tensor, w: RectAttnWeights,
-                         shifted: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain PyTorch version of K9: (attened_x, conv_x), both
-    [B, H, W, C] in x's dtype.  LayerNorm, qkv and the attention output
-    in x's dtype, scores and softmax in fp32, the conv branch in fp32 on
-    v's values (the module chain of the JAX package, with the kernel's
-    pre-scaled q and folded BatchNorm)."""
+def rect_front(x: torch.Tensor, w: RectAttnWeights, shifted: bool, *,
+               ln1: Optional[Callable] = None, conv_branch: Optional[Callable] = None,
+               attention: Callable = _rect_branch) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The front of a DAT spatial block as one composition: (attened_x,
+    conv_x), both [B, H, W, C] in x's dtype.  ``y = ln1(x, g1, b1)``, the
+    qkv product in x's dtype (q pre-scaled), ``conv_x =
+    conv_branch(v)`` on the unpadded v, q, k and v zero-padded to a
+    multiple of max(s0, s1), and per branch the cyclic shift and shift
+    mask, ``attention(q, k, v, bias, mask, hsp, wsp, heads)`` on the
+    branch's [B, Hp, Wp, C/2] maps, the shift back and the crop.  With its
+    default steps it is K9's plain version (LayerNorm in fp32, the conv
+    branch with BatchNorm folded, scores and softmax in fp32); DAT's
+    module chain (``models/dat.py``) passes K2, its conv branch (K11,
+    BatchNorm, GELU) and K16."""
     b, h, wd, c = x.shape
     dt = x.dtype
     s0, s1 = w.split
     nhb, half = w.num_heads // 2, c // 2
     wq, bq = scaled_qkv(w.wqkv, w.bqkv, (half // nhb) ** -0.5)
-    y = layernorm_plain(x, w.g1, w.b1, LN_EPS)
+    y = (ln1 or (lambda t, g, bb: layernorm_plain(t, g, bb, LN_EPS)))(x, w.g1, w.b1)
     qkv = F.linear(y, wq.to(dt), None if bq is None else bq.to(dt))
     q, k, v = qkv.split(c, dim=-1)
-    conv_x = dwconv_gelu_plain(v, w.wdw, w.bdw)
+    conv_x = conv_branch(v) if conv_branch else dwconv_gelu_plain(v, w.wdw, w.bdw)
     ms = max(s0, s1)
     hp, wp = -(-h // ms) * ms, -(-wd // ms) * ms
     if (hp, wp) != (h, wd):  # zeros after the projection (dat_arch.py:376-385)
@@ -152,11 +152,22 @@ def rect_attention_plain(x: torch.Tensor, w: RectAttnWeights,
         if roll:
             qi, ki, vi = (torch.roll(t, (-sh, -sw), (1, 2)) for t in (qi, ki, vi))
             mask = rect_mask_tensor(hp, wp, hsp, wsp, sh, sw, x.device)
-        o = _rect_branch(qi, ki, vi, bias, mask, hsp, wsp, nhb)
+        o = attention(qi, ki, vi, bias, mask, hsp, wsp, nhb)
         if roll:
             o = torch.roll(o, (sh, sw), (1, 2))
         outs.append(o[:, :h, :wd])
     return torch.cat(outs, dim=-1).contiguous(), conv_x
+
+
+def rect_attention_plain(x: torch.Tensor, w: RectAttnWeights,
+                         shifted: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of K9: (attened_x, conv_x), both
+    [B, H, W, C] in x's dtype (``rect_front`` with its default steps).
+    LayerNorm, qkv and the attention output in x's dtype, scores and
+    softmax in fp32, the conv branch in fp32 on v's values (the module
+    chain of the JAX package, with the kernel's pre-scaled q and folded
+    BatchNorm)."""
+    return rect_front(x, w, shifted)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,15 +189,23 @@ class PackedRect:
     split: Tuple[int, int]
 
 
+def rect_ok(c: int, num_heads: int, split: Sequence[int]) -> bool:
+    """Whether K9 takes a spatial block of C channels, `num_heads` heads
+    and `split` (shapes only; every image size runs): even C <= 192, an
+    even head count with <= 3 heads per branch of hd <= 32, and s0 * s1 =
+    128 tokens a window."""
+    s0, s1 = split
+    nhb = num_heads // 2
+    return not (c > CP or c % 2 or num_heads % 2 or not 0 < nhb <= NHB_MAX or (c // 2) % nhb
+                or (c // 2) // nhb > HDP or s0 * s1 != N_TOK)
+
+
 def check_rect_args(shape, w: RectAttnWeights, name: str = "rect_attention") -> None:
     """Raise unless an x of `shape` and the weights fit the kernel."""
     if len(shape) != 4 or shape[3] != w.dim:
         raise ValueError(f"{name}: x {tuple(shape)} is not [B, H, W, {w.dim}]")
     c, nh = w.dim, w.num_heads
-    s0, s1 = w.split
-    nhb = nh // 2
-    if (c > CP or c % 2 or nh % 2 or nhb > NHB_MAX or (c // 2) % nhb
-            or (c // 2) // nhb > HDP or s0 * s1 != N_TOK):
+    if not rect_ok(c, nh, w.split):
         raise ValueError(
             f"{name}: the kernel takes even C <= {CP}, an even head count with <= {NHB_MAX} "
             f"heads per branch of hd <= {HDP} and s0 * s1 = {N_TOK}; got C={c}, heads={nh}, "

@@ -19,6 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tpu_superresolution_torch.kernels.cab_conv import conv3x3, conv_plain
+from tpu_superresolution_torch.kernels.dwconv import dwconv3x3, dwconv3x3_plain
 from tpu_superresolution_torch.kernels.layernorm import layernorm, layernorm_plain
 from tpu_superresolution_torch.ops.fused_upsample import (
     chain_pixelshuffle_reconstruct,
@@ -138,6 +139,59 @@ class Conv3x3(nn.Conv2d):
         if plain:
             return conv_plain(x, k, b, ((1, 1), (1, 1)))
         return conv3x3(x, k, b)
+
+
+class DWConv3x3(nn.Conv2d):
+    """``nn.Conv2d(C, C, 3, padding=1, groups=C)`` on NHWC through kernel
+    K11 (the JAX package's ``DWConv3x3`` with impl "halo"; reference keys
+    ``weight`` [C, 1, 3, 3] and ``bias``), in x's dtype with fp32
+    accumulation."""
+
+    def __init__(self, dim: int):
+        super().__init__(dim, dim, 3, padding=1, groups=dim)
+
+    def taps(self) -> torch.Tensor:
+        """The kernel as [3, 3, C] (the JAX layout without its unit axis)."""
+        return self.weight[:, 0].permute(1, 2, 0)
+
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        if plain:
+            return dwconv3x3_plain(x, self.taps(), self.bias)
+        return dwconv3x3(x, self.taps(), self.bias)
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm over the last axis of an NHWC (or [B, C]) tensor, to
+    flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` rules, which the
+    JAX package trains with (reference keys ``weight``, ``bias``,
+    ``running_mean``, ``running_var``, ``num_batches_tracked``):
+
+    - in train() mode the batch mean and the biased ("fast") variance
+      E[x^2] - E[x]^2, clipped at 0, in fp32 over every axis but the
+      last; any batch, one sample included (the variance is then 0);
+    - the running statistics are updated in place with that biased
+      variance: running = 0.9 running + 0.1 batch (``momentum`` 0.1 in
+      torch's sense; torch's own update uses the unbiased variance and
+      refuses one value per channel);
+    - in eval() mode the running statistics;
+    - y = (x - mean) * rsqrt(var + eps) * weight + bias in fp32, returned
+      in x's dtype.  ``num_batches_tracked`` is kept for the reference
+      layout and not read."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        if self.training:
+            axes = tuple(range(xf.dim() - 1))
+            mean = xf.mean(axes)
+            var = (xf.square().mean(axes) - mean.square()).clamp_min(0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
+        else:
+            mean, var = self.running_mean.float(), self.running_var.float()
+        scale = torch.rsqrt(var + self.eps) * self.weight.float()
+        return ((xf - mean) * scale + self.bias.float()).to(x.dtype)
 
 
 class ConvLeaky(nn.Sequential):

@@ -1,4 +1,4 @@
-"""DAT on NHWC tensors, serving (port of
+"""DAT on NHWC tensors, serving and training (port of
 ``tpu_superresolution_tpu/models/dat.py``; reference
 modules/dat_arch.py:699-859, Chen et al., "Dual Aggregation Transformer
 for Image Super-Resolution", ICCV 2023).
@@ -7,35 +7,49 @@ for Image Super-Resolution", ICCV 2023).
   reference checkpoint (after ``interop.strip_reference_buffers``, which
   drops its ``rpe_biases``, ``relative_position_index`` and
   ``attn_mask_*``) and the output of the port's
-  ``dat_state_dict_from_jax`` load with ``strict=True``.  BatchNorm runs
-  on its running statistics.
+  ``dat_state_dict_from_jax`` load with ``strict=True``.
 - A block alternates (dat_arch.py:538-549): even blocks are spatial
   (two rectangular-window branches, s0 x s1 and s1 x s0, on half the
   channels each), odd blocks channel attention (XCiT).  Shifted spatial
   blocks follow the reference rule (dat_arch.py:290, 389; the JAX
   package's ``DATB``): group i even at j = 2, 6, ...; i odd at j = 0, 4.
-- On CUDA every block is three launches: its front (K9 for a spatial
-  block, K14 for a channel block), the AIM channel gate in plain torch
-  ops (GAP -> 1x1 -> BatchNorm -> erf GELU -> 1x1 -> sigmoid, a [B, C]
-  vector, as the JAX package leaves it to XLA), and the tail K10 with
-  u = attened_x, w_px = conv_x (spatial) or u = conv_x, w_px =
-  attened_x (channel).  BatchNorm is folded into the depthwise and 1x1
-  weights, and the dynamic position bias (a small MLP of the parameters
-  only) is built once per loaded weights with the kernels' packing
-  (``DerivedCache``).  Every image size runs; nothing falls back.
+- Each block takes its route from static shapes only (``dat_route``),
+  the same on every call, as the JAX package gates its kernels
+  (``models/dat.py:733-797``).  At inference its front is K9 (spatial)
+  or K14 (channel) where the kernel's limits take the block, with the
+  conv branch's BatchNorm folded into the depthwise weights, and its tail
+  K10 where that kernel's limits do; the AIM channel gate (GAP -> 1x1 ->
+  BatchNorm -> erf GELU -> 1x1 -> sigmoid, a [B, C] vector) is plain
+  torch, as the JAX package leaves it to XLA.  Every other front or tail,
+  and every block in training, is the module chain (JAX
+  ``models/dat.py:160-797``): K2 for LN1, LN2 and sg_norm, the qkv and
+  1x1 products in plain torch, the conv branch K11 -> BatchNorm -> erf
+  GELU on the unpadded v, q, k and v zero-padded after the projection to
+  a multiple of max(s0, s1), K16 for each rect-window branch (cyclic
+  shift and -100 mask per branch), XCiT in the JAX package's "heads" form,
+  the AIM with both interaction maps, proj, and SGFN with K11 on its gate
+  half.  The chain and the kernels' plain versions are one composition
+  each (``fused_rect_attn.rect_front``, ``fused_channel_attn.
+  channel_front``, ``fused_datb_tail.datb_tail_plain``) with different
+  steps passed in.
+- BatchNorm (``blocks.BatchNorm``) follows flax's rules: batch mean and
+  biased variance in train() mode, updated into the running statistics
+  in place with momentum 0.9; the running statistics in eval() mode.  The
+  kernels' folded weights are rebuilt after such an update
+  (``DerivedCache`` keys on the buffers' version counters).
+- Stochastic depth on both residuals of every block, at rates
+  ``linspace(0, drop_path_rate, sum(depths))`` (JAX ``models/dat.py:860``).
 - ``before_RG`` and ``norm`` go through K2, the 3x3 convs of the groups,
   ``conv_after_body`` and ``conv_before_upsample`` through K3, the
   composed reconstruction through K4; ``conv_first``, the mean shift and
   the exact-mode chain are plain torch.  ``impl="plain"`` runs every
   kernel's plain version on any device.
-- Serving only: training DAT (BatchNorm batch statistics, drop path,
-  the depthwise conv K11) is ROADMAP Queue 1's "DAT training";
-  ``model.train()`` raises.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -44,8 +58,10 @@ import torch.nn.functional as F
 from tpu_superresolution_torch.core.config import DATConfig, register_model
 from tpu_superresolution_torch.kernels.fused_channel_attn import (
     ChanAttnWeights,
+    chan_ok,
     channel_attention,
     channel_attention_plain,
+    channel_front,
     pack_chan_weights,
 )
 from tpu_superresolution_torch.kernels.fused_datb_tail import (
@@ -54,32 +70,44 @@ from tpu_superresolution_torch.kernels.fused_datb_tail import (
     datb_tail_plain,
     fold_bn_into_dense,
     pack_tail_weights,
+    tail_ok,
 )
+from tpu_superresolution_torch.kernels.dwconv import dwconv3x3, dwconv3x3_plain
 from tpu_superresolution_torch.kernels.fused_rect_attn import (
     RectAttnWeights,
     pack_rect_weights,
     rect_attention,
     rect_attention_plain,
+    rect_front,
+    rect_ok,
 )
-from tpu_superresolution_torch.kernels.layernorm import layernorm_plain
+from tpu_superresolution_torch.kernels.layernorm import layernorm, layernorm_plain
+from tpu_superresolution_torch.kernels.window_attention import (
+    batched_window_attention,
+    batched_window_attention_plain,
+)
 from tpu_superresolution_torch.models.blocks import (
+    BatchNorm,
     Conv3x3,
     ConvLeaky,
     DerivedCache,
+    DWConv3x3,
     PixelShuffleDirect,
     PixelShuffleUpsample,
     PLayerNorm,
     RGB_MEAN,
+    StochasticDepth,
     ThreeConv,
     conv_nhwc,
     reference_init,
     upsample_and_last,
 )
-from tpu_superresolution_torch.ops.window import relative_position_index, rpe_biases
-
-NOT_PORTED = ("DAT training is not ported: the port serves DAT only (ROADMAP Queue 1, "
-              "'DAT training': the module chain with BatchNorm batch statistics, drop path "
-              "and K11)")
+from tpu_superresolution_torch.ops.window import (
+    rect_window_partition,
+    rect_window_reverse,
+    relative_position_index,
+    rpe_biases,
+)
 
 
 def do_shift(rg_idx: int, b_idx: int) -> bool:
@@ -90,15 +118,34 @@ def do_shift(rg_idx: int, b_idx: int) -> bool:
     return (i % 2 == 0 and j > 0 and (j - 2) % 4 == 0) or (i % 2 != 0 and j % 4 == 0)
 
 
-def bn_eval(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
-    """Inference BatchNorm on the last axis, in fp32."""
-    s = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
-    return (y - bn.running_mean.float()) * s + bn.bias.float()
+def dat_route(spatial: bool, c: int, num_heads: int, split: Sequence[int], hidden: int,
+              train: bool) -> Tuple[str, str]:
+    """(front, tail) of a DAT block of C channels, `num_heads` heads,
+    `split` (s0, s1) and SGFN hidden width `hidden`: the front "K9" (a
+    spatial block) or "K14" (a channel block) where that kernel's limits
+    take the block, else "chain"; the tail "K10" where its limits take
+    the block, else "chain"; in training ("chain", "chain"), as BatchNorm
+    then runs on batch statistics that no kernel folds.  Shapes only: it
+    runs on any device and gives the same answer on every call."""
+    if train:
+        return "chain", "chain"
+    if spatial:
+        front = "K9" if rect_ok(c, num_heads, split) else "chain"
+    else:
+        front = "K14" if chan_ok(c, num_heads) else "chain"
+    return front, "K10" if tail_ok(c, hidden // 2, c // 16) else "chain"
 
 
 def _dense(conv: nn.Conv2d) -> Tuple[torch.Tensor, torch.Tensor]:
     """A 1x1 conv as ([out, in] weight, bias) in fp32."""
     return conv.weight.float().flatten(1), conv.bias.float()
+
+
+def _layernorm_step(plain: bool) -> Callable:
+    """LayerNorm(t, weight, bias) through K2 (or its plain version)."""
+    if plain:
+        return layernorm_plain
+    return lambda t, g, b: layernorm(t.contiguous(), g, b)
 
 
 class DynamicPosBias(nn.Module):
@@ -122,21 +169,58 @@ class DynamicPosBias(nn.Module):
 
 
 class RectBranch(nn.Module):
-    """One rect-window branch (the reference's Spatial_Attention): holds
-    its DynamicPosBias (key ``pos``); the attention itself is K9."""
+    """One rect-window branch (the reference's Spatial_Attention, the JAX
+    package's ``SpatialAttentionBranch``): holds its DynamicPosBias (key
+    ``pos``).  Its attention is K9's (the kernel route) or K16's on the
+    module chain (``rect_branch_attention``)."""
 
     def __init__(self, dim: int, num_heads: int, hsp: int, wsp: int):
         super().__init__()
         self.hsp, self.wsp = hsp, wsp
         self.pos = DynamicPosBias(dim // 4, num_heads)
+        self._derived = DerivedCache()
 
     def bias(self) -> torch.Tensor:
-        """[heads, N, N] fp32 bias of the hsp x wsp window."""
-        dev = self.pos.pos_proj.weight.device
-        table = self.pos(torch.from_numpy(rpe_biases(self.hsp, self.wsp)).to(dev))
-        idx = torch.from_numpy(relative_position_index(self.hsp, self.wsp).reshape(-1)).to(dev)
-        n = self.hsp * self.wsp
-        return table.float()[idx.long()].reshape(n, n, -1).permute(2, 0, 1).contiguous()
+        """[heads, N, N] fp32 bias of the hsp x wsp window: built once per
+        loaded weights outside autograd, in the graph when a gradient is
+        wanted."""
+        def build():
+            dev = self.pos.pos_proj.weight.device
+            table = self.pos(torch.from_numpy(rpe_biases(self.hsp, self.wsp)).to(dev))
+            idx = torch.from_numpy(
+                relative_position_index(self.hsp, self.wsp).reshape(-1)).to(dev)
+            n = self.hsp * self.wsp
+            return table.float()[idx.long()].reshape(n, n, -1).permute(2, 0, 1).contiguous()
+
+        return self._derived.get(list(self.pos.parameters()), None, build)
+
+
+def rect_branch_attention(q, k, v, bias, mask, hsp, wsp, heads, attend: Callable):
+    """One rect-window branch of the module chain on [B, Hp, Wp, C/2] maps
+    (q pre-scaled): partition into [B*nW, heads, N, hd], ``attend(q, k,
+    v, bias, mask)`` (K16 or its plain version; window w takes mask[w %
+    nW]), reverse (the JAX package's ``SpatialAttentionBranch`` with
+    ``attn_impl="pallas"``)."""
+    b, hp, wp, cb = q.shape
+    n, hd = hsp * wsp, cb // heads
+    win = lambda t: rect_window_partition(t, hsp, wsp).reshape(-1, n, heads, hd).transpose(1, 2)
+    o = attend(win(q), win(k), win(v), bias, mask)
+    return rect_window_reverse(o.transpose(1, 2).reshape(-1, n, cb), hsp, wsp, hp, wp)
+
+
+def xcit_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               temperature: torch.Tensor) -> torch.Tensor:
+    """XCiT channel attention in the JAX package's "heads" form
+    (``AdaptiveChannelAttention``, ``CHAN_ATTN_IMPL="heads"``) on q, k, v
+    [B, T, nh, hd]: q and k L2-normalised over the tokens in fp32 (eps
+    1e-12), the per-head [hd, hd] scores times the temperature, softmax
+    in fp32, out = A v; [B, T, nh, hd] in v's dtype."""
+    dt = v.dtype
+    qn = F.normalize(q.float(), dim=1, eps=1e-12).to(dt)
+    kn = F.normalize(k.float(), dim=1, eps=1e-12).to(dt)
+    scores = torch.einsum("bthd,bthe->bhde", qn, kn) * temperature.to(dt).reshape(1, -1, 1, 1)
+    a = torch.softmax(scores.float(), dim=-1).to(dt)
+    return torch.einsum("bhde,bthe->bthd", a, v)
 
 
 class _AIM(nn.Module):
@@ -146,33 +230,46 @@ class _AIM(nn.Module):
 
     def __init__(self, dim: int):
         super().__init__()
-        self.dwconv = nn.Sequential(nn.Conv2d(dim, dim, 3, 1, 1, groups=dim),
-                                    nn.BatchNorm2d(dim), nn.GELU())
+        self.dwconv = nn.Sequential(DWConv3x3(dim), BatchNorm(dim), nn.GELU())
         self.channel_interaction = nn.Sequential(
-            nn.AdaptiveAvgPool2d(1), nn.Conv2d(dim, dim // 8, 1), nn.BatchNorm2d(dim // 8),
+            nn.AdaptiveAvgPool2d(1), nn.Conv2d(dim, dim // 8, 1), BatchNorm(dim // 8),
             nn.GELU(), nn.Conv2d(dim // 8, dim, 1))
         self.spatial_interaction = nn.Sequential(
-            nn.Conv2d(dim, dim // 16, 1), nn.BatchNorm2d(dim // 16), nn.GELU(),
+            nn.Conv2d(dim, dim // 16, 1), BatchNorm(dim // 16), nn.GELU(),
             nn.Conv2d(dim // 16, 1, 1))
+
+    def conv_branch(self, v: torch.Tensor, plain: bool) -> torch.Tensor:
+        """The module chain's conv branch: erf-GELU(BatchNorm(K11(v)))."""
+        return F.gelu(self.dwconv[1](self.dwconv[0](v, plain)))
 
     def folded_dwconv(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The conv branch's depthwise kernel [3, 3, C] and bias with the
-        inference BatchNorm folded in (conv, then BN)."""
+        inference BatchNorm folded in (conv, then BN), for K9 and K14."""
         conv, bn = self.dwconv[0], self.dwconv[1]
-        return fold_bn_into_dense(conv.weight.float()[:, 0].permute(1, 2, 0), conv.bias.float(),
-                                  bn.weight.float(), bn.bias.float(), bn.running_mean.float(),
+        return fold_bn_into_dense(conv.taps().float(), conv.bias.float(), bn.weight.float(),
+                                  bn.bias.float(), bn.running_mean.float(),
                                   bn.running_var.float(), bn.eps)
 
     def channel_gate(self, t: torch.Tensor) -> torch.Tensor:
-        """sigmoid(channel_interaction(t)) as a [B, C] fp32 vector."""
+        """sigmoid(channel_interaction(t)) as a [B, C] fp32 vector (its
+        BatchNorm's statistics over the batch in training)."""
         ci = self.channel_interaction
         w1, b1 = _dense(ci[1])
         w2, b2 = _dense(ci[4])
-        y = F.gelu(bn_eval(F.linear(t.float().mean(dim=(1, 2)), w1, b1), ci[2]))
+        y = F.gelu(ci[2](F.linear(t.float().mean(dim=(1, 2)), w1, b1)))
         return torch.sigmoid(F.linear(y, w2, b2))
 
+    def spatial_map(self, u: torch.Tensor) -> torch.Tensor:
+        """spatial_interaction(u): the per-pixel map [B, H, W, 1] before
+        its sigmoid, in u's dtype (the module chain's)."""
+        si, dt = self.spatial_interaction, u.dtype
+        y = F.linear(u, si[0].weight.flatten(1).to(dt), si[0].bias.to(dt))
+        y = F.gelu(si[1](y))
+        return F.linear(y, si[3].weight.flatten(1).to(dt), si[3].bias.to(dt))
+
     def spatial_weights(self):
-        """The spatial map's 1x1 convs, BatchNorm folded into the first."""
+        """The spatial map's 1x1 convs, BatchNorm folded into the first
+        (inference, for K10)."""
         si = self.spatial_interaction
         w1, b1 = _dense(si[0])
         bn = si[1]
@@ -195,12 +292,23 @@ class SpatialAttention(_AIM):
         self.attns = nn.ModuleList([RectBranch(dim // 2, num_heads // 2, s0, s1),
                                     RectBranch(dim // 2, num_heads // 2, s1, s0)])
 
-    def front_weights(self, norm1: PLayerNorm) -> RectAttnWeights:
-        wdw, bdw = self.folded_dwconv()
+    def _weights(self, norm1: PLayerNorm, wdw=None, bdw=None) -> RectAttnWeights:
         return RectAttnWeights(
             g1=norm1.weight, b1=norm1.bias, wqkv=self.qkv.weight, bqkv=self.qkv.bias,
             wdw=wdw, bdw=bdw, bias0=self.attns[0].bias(), bias1=self.attns[1].bias(),
             num_heads=self.num_heads, split=self.split)
+
+    def front_weights(self, norm1: PLayerNorm) -> RectAttnWeights:
+        return self._weights(norm1, *self.folded_dwconv())
+
+    def chain_front(self, x: torch.Tensor, norm1: PLayerNorm, shifted: bool,
+                    plain: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(attened_x, conv_x) on the module chain: K2, qkv, the conv
+        branch (K11, BatchNorm, GELU) and K16 per branch."""
+        attend = batched_window_attention_plain if plain else batched_window_attention
+        return rect_front(x, self._weights(norm1), shifted, ln1=_layernorm_step(plain),
+                          conv_branch=lambda v: self.conv_branch(v, plain),
+                          attention=functools.partial(rect_branch_attention, attend=attend))
 
 
 class ChannelAttention(_AIM):
@@ -214,20 +322,30 @@ class ChannelAttention(_AIM):
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
-    def front_weights(self, norm1: PLayerNorm) -> ChanAttnWeights:
-        wdw, bdw = self.folded_dwconv()
+    def _weights(self, norm1: PLayerNorm, wdw=None, bdw=None) -> ChanAttnWeights:
         return ChanAttnWeights(
             g1=norm1.weight, b1=norm1.bias, wqkv=self.qkv.weight, bqkv=self.qkv.bias,
             temperature=self.temperature, wdw=wdw, bdw=bdw, num_heads=self.num_heads)
 
+    def front_weights(self, norm1: PLayerNorm) -> ChanAttnWeights:
+        return self._weights(norm1, *self.folded_dwconv())
+
+    def chain_front(self, x: torch.Tensor, norm1: PLayerNorm, shifted: bool,
+                    plain: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(attened_x, conv_x) on the module chain: K2, qkv, XCiT in the
+        "heads" form and the conv branch (K11, BatchNorm, GELU)."""
+        return channel_front(x, self._weights(norm1), ln1=_layernorm_step(plain),
+                             conv_branch=lambda v: self.conv_branch(v, plain),
+                             attention=xcit_heads)
+
 
 class SpatialGate(nn.Module):
-    """SGFN's gate branch: keys ``norm`` and ``conv`` (depthwise 3x3)."""
+    """SGFN's gate branch: keys ``norm`` and ``conv`` (depthwise 3x3, K11)."""
 
     def __init__(self, dim: int):
         super().__init__()
         self.norm = PLayerNorm(dim)
-        self.conv = nn.Conv2d(dim, dim, 3, 1, 1, groups=dim)
+        self.conv = DWConv3x3(dim)
 
 
 class SGFN(nn.Module):
@@ -241,59 +359,93 @@ class SGFN(nn.Module):
 
 
 class DATB(nn.Module):
-    """Dual aggregation block (dat_arch.py:531-565): front (K9 or K14),
-    the channel gate, tail (K10)."""
+    """Dual aggregation block (dat_arch.py:531-565): its front (K9, K14 or
+    the module chain), the channel gate, its tail (K10 or the module
+    chain), as ``dat_route`` decides."""
 
     def __init__(self, dim: int, num_heads: int, split: Tuple[int, int], expansion: float,
                  qkv_bias: bool, rg_idx: int, b_idx: int):
         super().__init__()
         self.spatial = b_idx % 2 == 0
         self.shifted = self.spatial and do_shift(rg_idx, b_idx)
+        self.dim, self.num_heads, self.split = dim, num_heads, tuple(split)
+        self.hidden = int(dim * expansion)
         self.norm1 = PLayerNorm(dim)
         self.attn = (SpatialAttention(dim, num_heads, split, qkv_bias) if self.spatial
                      else ChannelAttention(dim, num_heads, qkv_bias))
         self.norm2 = PLayerNorm(dim)
-        self.ffn = SGFN(dim, int(dim * expansion))
-        self._derived = DerivedCache()
+        self.ffn = SGFN(dim, self.hidden)
+        self._derived_front = DerivedCache()
+        self._derived_tail = DerivedCache()
 
-    def tail_weights(self) -> TailWeights:
-        sp_w1, sp_b1, sp_w2, sp_b2 = self.attn.spatial_weights()
+    def route(self) -> Tuple[str, str]:
+        """(front, tail) of this block in its present mode (``dat_route``)."""
+        return dat_route(self.spatial, self.dim, self.num_heads, self.split, self.hidden,
+                         self.training)
+
+    def tail_weights(self, folded: bool = True) -> TailWeights:
+        """The tail's weights: with `folded`, the spatial map's with the
+        inference BatchNorm folded in (K10); without, none (the module
+        chain runs the spatial interaction itself)."""
+        sp = self.attn.spatial_weights() if folded else (None,) * 4
         f = self.ffn
         return TailWeights(
-            sp_w1=sp_w1, sp_b1=sp_b1, sp_w2=sp_w2, sp_b2=sp_b2,
-            wproj=self.attn.proj.weight, bproj=self.attn.proj.bias,
+            *sp, wproj=self.attn.proj.weight, bproj=self.attn.proj.bias,
             g2=self.norm2.weight, b2=self.norm2.bias, wfc1=f.fc1.weight, bfc1=f.fc1.bias,
-            gsg=f.sg.norm.weight, bsg=f.sg.norm.bias,
-            wdw=f.sg.conv.weight[:, 0].permute(1, 2, 0), bdw=f.sg.conv.bias,
-            wfc2=f.fc2.weight, bfc2=f.fc2.bias)
+            gsg=f.sg.norm.weight, bsg=f.sg.norm.bias, wdw=f.sg.conv.taps(),
+            bdw=f.sg.conv.bias, wfc2=f.fc2.weight, bfc2=f.fc2.bias)
 
-    def _weights(self, packed: bool):
-        """(front, tail) weights and, for the kernels, their packed
-        layouts: derived from the parameters and BatchNorm statistics
-        once per loaded weights."""
+    def _kernel_weights(self, cache: DerivedCache, weights: Callable, pack: Callable,
+                        packed: bool):
+        """(weights, packed layout or None) derived from the parameters
+        and BatchNorm statistics, once per loaded weights at inference."""
         def build():
-            front, tail = self.attn.front_weights(self.norm1), self.tail_weights()
-            if not packed:
-                return front, tail, None, None
-            pack = pack_rect_weights if self.spatial else pack_chan_weights
-            return front, tail, pack(front), pack_tail_weights(tail)
+            w = weights()
+            return w, (pack(w) if packed else None)
 
-        tensors = list(self.parameters()) + list(self.buffers())
-        return self._derived.get(tensors, packed, build)
+        return cache.get(list(self.parameters()) + list(self.buffers()), packed, build)
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
-        front, tail, pf, pt = self._weights(packed=not plain and x.is_cuda)
-        if self.spatial:
-            att, conv = (rect_attention_plain(x, front, self.shifted) if plain
-                         else rect_attention(x, front, self.shifted, pf))
-            gate, u, w_px = self.attn.channel_gate(conv), att, conv
+    def _chain_tail(self, x, u, w_px, gate, plain: bool, branch_scales):
+        """The module chain's tail: the spatial interaction, AIM gating,
+        proj, residual, K2 LN2, fc1, GELU, K2 sg_norm, K11 sg_conv, fc2,
+        residual; products in x's dtype, drop path on both residuals."""
+        dt = x.dtype
+        ln = _layernorm_step(plain)
+        dw = dwconv3x3_plain if plain else dwconv3x3
+        return datb_tail_plain(
+            x, u, w_px, gate, self.tail_weights(folded=False), spatial_map=self.attn.spatial_map,
+            ln=lambda t, g, b: ln(t.to(dt), g, b), dwconv=lambda t, k, b: dw(t.to(dt), k, b),
+            linear=lambda a, wt, b: F.linear(a.to(dt), wt.to(dt), b.to(dt)),
+            branch_scales=branch_scales)
+
+    def forward(self, x: torch.Tensor, plain: bool = False,
+                branch_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The block on x [B, H, W, C]; `branch_scales` [B, 2] are the
+        stochastic-depth multipliers of the two residuals (training)."""
+        front, tail = self.route()
+        packed = not plain and x.is_cuda
+        if front == "chain":
+            att, conv = self.attn.chain_front(x, self.norm1, self.shifted, plain)
         else:
-            att, conv = (channel_attention_plain(x, front) if plain
-                         else channel_attention(x, front, pf))
-            gate, u, w_px = self.attn.channel_gate(att), conv, att
+            pack = pack_rect_weights if self.spatial else pack_chan_weights
+            fw, pf = self._kernel_weights(self._derived_front,
+                                          lambda: self.attn.front_weights(self.norm1), pack,
+                                          packed)
+            if self.spatial:
+                att, conv = (rect_attention_plain(x, fw, self.shifted) if plain
+                             else rect_attention(x, fw, self.shifted, pf))
+            else:
+                att, conv = (channel_attention_plain(x, fw) if plain
+                             else channel_attention(x, fw, pf))
+        u, w_px = (att, conv) if self.spatial else (conv, att)
+        gate = self.attn.channel_gate(w_px)
+        if tail == "chain":
+            return self._chain_tail(x, u, w_px, gate, plain, branch_scales)
+        tw, pt = self._kernel_weights(self._derived_tail, self.tail_weights, pack_tail_weights,
+                                      packed)
         if plain:
-            return datb_tail_plain(x, u, w_px, gate, tail)
-        return datb_tail(x, u, w_px, gate, tail, pt)
+            return datb_tail_plain(x, u, w_px, gate, tw)
+        return datb_tail(x, u, w_px, gate, tw, pt)
 
 
 class ResidualGroup(nn.Module):
@@ -308,15 +460,16 @@ class ResidualGroup(nn.Module):
                  rg_idx, j) for j in range(cfg.depths[rg_idx]))
         self.conv = Conv3x3(c, c) if cfg.resi_connection == "1conv" else ThreeConv(c)
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, plain: bool = False,
+                branch_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
         res = x
-        for blk in self.blocks:
-            x = blk(x, plain)
+        for j, blk in enumerate(self.blocks):
+            x = blk(x, plain, None if branch_scales is None else branch_scales[j])
         return self.conv(x, plain) + res
 
 
-class DAT(nn.Module):
-    """Full DAT at inference: x [B, H, W, in] -> [B, H*s, W*s, out]."""
+class DAT(StochasticDepth, nn.Module):
+    """Full DAT: x [B, H, W, in] -> [B, H*s, W*s, out]."""
 
     def __init__(self, config: DATConfig, dtype: Optional[torch.dtype] = None,
                  impl: str = "auto"):
@@ -360,21 +513,22 @@ class DAT(nn.Module):
                 if isinstance(m, ChannelAttention):
                     m.temperature.fill_(1.0)
 
-    def train(self, mode: bool = True):
-        if mode:
-            raise NotImplementedError(NOT_PORTED)
-        return super().train(False)
+    def routes(self) -> List[List[Tuple[str, str]]]:
+        """Every block's (front, tail) in the present mode, per group."""
+        return [[blk.route() for blk in layer.blocks] for layer in self.layers]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """`generator` draws the stochastic-depth masks in train() mode."""
         cfg = self.config
         dt = self.dtype
         plain = self.impl == "plain"
+        scales = self.sample_branch_scales(x.shape[0], generator, x.device)
         mean = self.mean.to(dt)
         x = (x.to(dt) - mean) * cfg.img_range
         x = conv_nhwc(self.conv_first, x)
         feats = self.before_RG[1](x, plain)
-        for layer in self.layers:
-            feats = layer(feats, plain)
+        for i, layer in enumerate(self.layers):
+            feats = layer(feats, plain, None if scales is None else scales[i])
         feats = self.norm(feats, plain)
         x = self.conv_after_body(feats, plain) + x
         if cfg.upsampler == "pixelshuffle":
@@ -387,11 +541,11 @@ class DAT(nn.Module):
 
 
 def build_dat(config: DATConfig, dtype=None, impl: str = "auto") -> DAT:
-    """A DAT in eval mode (serving only; ``train()`` raises)."""
+    """A DAT in eval mode (``train()`` for training)."""
     return DAT(config, dtype=dtype, impl=impl).eval()
 
 
 register_model("dat", DATConfig, build_dat)
 
 __all__ = ["DAT", "DATB", "ResidualGroup", "SpatialAttention", "ChannelAttention",
-           "DynamicPosBias", "build_dat", "do_shift"]
+           "DynamicPosBias", "build_dat", "dat_route", "do_shift"]

@@ -2,7 +2,7 @@
 ``tpu_superresolution_tpu/train/checkpoint.py``, whose Orbax format is
 still to port):
 
-    {"params": state_dict, "ema": state_dict or None,
+    {"params": state_dict, "ema": {parameter name: tensor} or None,
      "optimizer": optimizer.state_dict(), "step": int,
      "config": model_config.to_dict() or None, "extra": {...}}
 
@@ -59,10 +59,11 @@ def load_checkpoint(path: str, state) -> Tuple[Any, Dict[str, Any]]:
     state.optimizer.load_state_dict(ckpt["optimizer"])
     state.step = int(ckpt["step"])
     if state.ema is not None:
-        # a checkpoint without an EMA re-seeds it from the parameters
+        # a checkpoint without an EMA re-seeds it from the parameters; the
+        # EMA covers parameters only (an older file's buffers are skipped)
         src = ckpt["ema"] if ckpt.get("ema") is not None else ckpt["params"]
         device = next(state.model.parameters()).device
-        state.ema = {k: v.to(device).clone() for k, v in src.items()}
+        state.ema = {k: src[k].to(device).clone() for k, _ in state.model.named_parameters()}
     return state, ckpt.get("extra", {})
 
 

@@ -2,14 +2,17 @@
 for one device): optimizer, train and eval steps, and ``Trainer.fit``.
 
 - The train step of the native-LR transformer families (SwinIR, HAT,
-  hat_fast): paired augmentation on the device -> forward (bf16 compute
-  on CUDA with fp32 parameters and no loss scaling; fp32 on the CPU) ->
-  fp32 loss -> backward -> clip by global norm -> AdamW with the
+  hat_fast, DAT): paired augmentation on the device -> forward (bf16
+  compute on CUDA with fp32 parameters and no loss scaling; fp32 on the
+  CPU) -> fp32 loss -> backward -> clip by global norm -> AdamW with the
   schedule -> EMA -> metrics.  On CUDA the forward runs the kernels
   (``kernels/``): each Swin block or HAB is K1 (ws 8) or K6 (ws 7) with
-  its backward K5 or K6b, each HAT OCAB core K8 with backward K8b; the
-  K2-K4 backwards are torch autograd of their plain versions, as the JAX
-  package leaves its K2-K4 backwards to XLA.
+  its backward K5 or K6b, each HAT OCAB core K8 with backward K8b, each
+  DAT block its module chain (K2, K11, K16; BatchNorm on batch
+  statistics, its running statistics updated in place); the K2-K4, K11
+  and K16 backwards are torch autograd of their plain versions, as the
+  JAX package leaves those backwards to XLA or to a vjp of its
+  reference.
 - The host reads one scalar per epoch (the mean train loss), not one per
   step: each step's metrics stay on the device until the epoch ends.
 - Clipping is ``optax.clip_by_global_norm``'s: g * max / norm when norm
@@ -48,8 +51,11 @@ from tpu_superresolution_torch.train.schedules import build_schedule
 @dataclass
 class TrainState:
     """The model and its optimizer state; `step` counts applied updates.
-    `ema` ({name: tensor}, None = off) is the exponential moving average
-    of the parameters that validation and the best checkpoints use."""
+    `ema` ({parameter name: tensor}, None = off) is the exponential
+    moving average of the parameters that validation and the best
+    checkpoints use; buffers (DAT's BatchNorm statistics) are not
+    averaged: the EMA parameters run with the live buffers, as the JAX
+    package evaluates its EMA params with the live ``batch_stats``."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
@@ -84,7 +90,7 @@ def create_train_state(model: nn.Module, optimizer, schedule, grad_clip_norm: fl
                        ema_decay: Optional[float] = None) -> TrainState:
     ema = None
     if ema_decay:
-        ema = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        ema = {k: p.detach().clone() for k, p in model.named_parameters()}
     return TrainState(model=model, optimizer=optimizer, schedule=schedule,
                       grad_clip_norm=grad_clip_norm, ema=ema, ema_decay=float(ema_decay or 0.0))
 
@@ -116,9 +122,9 @@ def apply_gradients(state: TrainState) -> torch.Tensor:
     state.optimizer.step()
     state.step += 1
     if state.ema is not None:
-        live = state.model.state_dict()
+        live = dict(state.model.named_parameters())
         keys = list(state.ema)
-        torch._foreach_lerp_([state.ema[k] for k in keys], [live[k] for k in keys],
+        torch._foreach_lerp_([state.ema[k] for k in keys], [live[k].detach() for k in keys],
                              1.0 - state.ema_decay)
     return gnorm
 
@@ -141,7 +147,7 @@ def make_train_step(loss_name: str, convention: str, scale: int, patch: Optional
     if convention != "native_lr":
         raise NotImplementedError(
             f"convention {convention!r}: the port trains the native-LR transformer families "
-            "(SwinIR, HAT) only so far; pre_upscale waits for the CNN families (ROADMAP.md "
+            "(SwinIR, HAT, DAT) only so far; pre_upscale waits for the CNN families (ROADMAP.md "
             "Queue 1 item 2)")
     loss_fn = get_loss(loss_name)
 
@@ -266,7 +272,7 @@ class Trainer:
                 continue
             t_val0 = time.time()
             if state.ema is not None:
-                eval_model.load_state_dict(state.ema)
+                eval_model.load_state_dict(ema_state_dict(state))
             agg, n_batches = None, 0
             for lr_np, hr_np in valid_loader:
                 m = eval_step(eval_model, lr_np, hr_np)
@@ -348,6 +354,12 @@ class Trainer:
         plt.savefig(path, dpi=150)
         plt.close()
         self.log(f"[plot] saved loss curves to {path}")
+
+
+def ema_state_dict(state: TrainState) -> Dict[str, torch.Tensor]:
+    """The model's state dict with the EMA parameters in place of the
+    live ones and the live buffers."""
+    return dict(state.model.state_dict(), **state.ema)
 
 
 def _model_copy(model: nn.Module) -> nn.Module:
