@@ -43,7 +43,13 @@ Phases (a failure in any raises, and the script exits non-zero):
             [256,3,128,30], the bench batch's [800,3,128,30] and the
             published DAT x4's N 256, with and without the shift mask,
             timed beside SDPA, and K11 (depthwise 3x3) at [8,64,64,180]
-            and [25,64,64,360], timed beside cuDNN's grouped conv;
+            and [25,64,64,360], timed beside cuDNN's grouped conv; then
+            K15 (window attention, Nq queries against Nk keys; K16's
+            kernel) at HAT's OCAB on the bench batch ([2500,6,49,16]
+            against 100 keys), hat_fast's ([1600,6,64,16] against 144),
+            HAT-SRx4's ([400,6,256,30] against 576) and its train step's
+            ([128,...]), and square with the shift mask ([1600,6,64,30],
+            mask [64,64,64]), timed beside SDPA;
 4. serve    SwinIR-M x4 (seeded random weights, exported to a .pth) behind
             SRService + make_server on 127.0.0.1, three PNG requests;
             status, size, finite output, launch counts per model call,
@@ -60,7 +66,8 @@ Phases (a failure in any raises, and the script exits non-zero):
 6. hat      HAT x4 (HATConfig(): embed 96, depths 6x4, ws 7; seeded
             random weights, exported to a .pth) behind SRService with
             --model hat: the three requests and checks of the serve phase
-            (every CAB is K12); then the bench workload for HAT in
+            (every CAB is K12, every OCAB's attention K15); then the bench
+            workload for HAT in
             MPix/s, kernels vs plain, with a torch.profiler split of one
             forward, and one hat_fast (ws 8) forward, whose blocks are K1
             with `extra`;
@@ -84,8 +91,9 @@ Phases (a failure in any raises, and the script exits non-zero):
             through ``cli.train.main(--model hat --device cuda)`` for one
             epoch of 2 steps + validation on a synthetic DeepRockSR-layout
             set; launches per step, ms per step for the kernels and the
-            plain bf16 path, a profiled step split by part (K6, K6b, K8,
-            K8b, CAB, the rest, idle), the first step's gradients
+            plain bf16 path, a profiled step split by part (forward
+            kernels and plain ops, the backward by autograd node: K6b,
+            K8b, K12, the rest; idle), the first step's gradients
             against the plain fp32 path (with the plain bf16 path beside
             it); then a hat_fast step (K1 / K5 with `extra`): launches
             and first-step gradients;
@@ -94,7 +102,7 @@ Phases (a failure in any raises, and the script exits non-zero):
             squeeze 30, overlap 0.5; seeded random weights, exported to a
             .pth) behind SRService with --model hat: the serve phase's
             requests and checks (launches per call K7 36, K1t 36, K12
-            36, K2 50, K3 8, K4 1, K1 = K6 = 0; the tiled output >= 50 dB against
+            36, K15 6, K2 50, K3 8, K4 1, K1 = K6 = 0; the tiled output >= 50 dB against
             the plain fp32 path), the bench workload in MPix/s, kernels
             vs plain, and a torch.profiler split of one forward;
 11. dat_x4  the published DAT x4 (split (8, 32), expansion 4; seeded
@@ -144,7 +152,7 @@ PSNR_MIN_DB = 50.0
 # 1 ulp of the fp32 result; the bounds leave room for bf16 operands and
 # the plain version's own roundings.
 ULP_BOUND = {"K1": 8, "K1t": 8, "K2": 4, "K3": 4, "K4": 4, "K6": 8, "K7": 8, "K8": 8,
-             "K9": 8, "K10": 8, "K11": 4, "K12": 8, "K14": 8, "K16": 8}
+             "K9": 8, "K10": 8, "K11": 4, "K12": 8, "K14": 8, "K15": 8, "K16": 8}
 # The backward kernels (K5, K6b, K8b): each activation gradient (dx,
 # d extra; dq, dk, dv, d sw) within this many bf16 ulps at its max |ref|,
 # and every parameter gradient within this relative Frobenius error of
@@ -212,16 +220,21 @@ KERNELS = {
     "K16": dict(name="batched_window_attention", route="cuda",
                 source="tpu_superresolution_torch/csrc/batched_attn.cu",
                 replaces="tpu_superresolution_tpu/ops/pallas/window_attention.py:352"),
+    # the same CUDA kernel as K16, at Nq != Nk (HAT's OCAB)
+    "K15": dict(name="fused_window_attention", route="cuda",
+                source="tpu_superresolution_torch/csrc/batched_attn.cu",
+                replaces="tpu_superresolution_tpu/ops/pallas/window_attention.py:193"),
 }
 # Launches per SwinIR-M x4 model call on the serving path (--no-exact).
 PER_CALL = {"K1": 36, "K1t": 0, "K2": 2, "K3": 8, "K4": 1, "K5": 0, "K6": 0, "K6b": 0,
             "K7": 0, "K8": 0, "K8b": 0, "K9": 0, "K10": 0, "K11": 0, "K12": 0, "K14": 0,
-            "K16": 0}
+            "K15": 0, "K16": 0}
 # Per HAT x4 model call (--no-exact): K6 per HAB (24); K12 per HAB's CAB
-# (24: its LN1 inside); K2 for patch_norm, norm and each OCAB's two norms
-# (8); K3 for the 4 RHAG convs, conv_after_body and conv_before_upsample;
-# K4 for the composed reconstruction.  hat_fast runs K1 where hat runs K6.
-HAT_PER_CALL = dict(PER_CALL, K1=0, K2=10, K3=6, K4=1, K6=24, K12=24)
+# (24: its LN1 inside); K15 per OCAB's attention (4); K2 for patch_norm,
+# norm and each OCAB's two norms (8); K3 for the 4 RHAG convs,
+# conv_after_body and conv_before_upsample; K4 for the composed
+# reconstruction.  hat_fast runs K1 where hat runs K6.
+HAT_PER_CALL = dict(PER_CALL, K1=0, K2=10, K3=6, K4=1, K6=24, K12=24, K15=4)
 HAT_FAST_PER_CALL = dict(HAT_PER_CALL, K1=24, K6=0)
 # SwinIR-M x4 from a checkpoint of window 7: its 36 blocks run K6.
 SWINIR_WS7_PER_CALL = dict(PER_CALL, K1=0, K6=36)
@@ -232,11 +245,12 @@ SWINIR_WS7_PER_CALL = dict(PER_CALL, K1=0, K6=36)
 # conv_before_upsample, conv_up1, conv_up2 and conv_hr; no K4.
 SWINIR_L_PER_CALL = dict(PER_CALL, K1=0, K1t=54, K2=56, K3=24, K4=0, K7=54)
 # Per HAT-SRx4 model call (window 16, depths 6x6; --no-exact): every HAB
-# takes the K7 route (K7 and K1t 36 each) and its CAB K12 (36); K2 for
-# patch_norm, norm, each HAB's LN1 (36) and each OCAB's two norms (12);
-# K3 for the 6 RHAG convs, conv_after_body and conv_before_upsample; K4
-# for the composed reconstruction; no block kernel.
-HAT_SRX4_PER_CALL = dict(PER_CALL, K1=0, K1t=36, K2=50, K3=8, K4=1, K7=36, K12=36)
+# takes the K7 route (K7 and K1t 36 each) and its CAB K12 (36); K15 per
+# OCAB (6); K2 for patch_norm, norm, each HAB's LN1 (36) and each OCAB's
+# two norms (12); K3 for the 6 RHAG convs, conv_after_body and
+# conv_before_upsample; K4 for the composed reconstruction; no block
+# kernel.
+HAT_SRX4_PER_CALL = dict(PER_CALL, K1=0, K1t=36, K2=50, K3=8, K4=1, K7=36, K12=36, K15=6)
 # Per DAT x4 model call (DATConfig(): depths 6x6, split (8, 16); --no-exact):
 # K9 per spatial block (18, 9 of them shifted), K14 per channel block
 # (18), K10 per block (36); K2 for before_RG and norm; K3 for the 6 group
@@ -261,10 +275,10 @@ DAT_X4_SERVE_PER_CALL = dict(PER_CALL, K1=0, K2=74, K3=8, K4=1, K9=18, K11=36, K
 # backwards are autograd of the plain versions).
 TRAIN_BATCH = 8
 TRAIN_LR_PATCH = 64
-TRAIN_TIMED_STEPS = 10
-# A DAT step takes ~1 s (host-bound): fewer timed steps keep the script
-# near its former length.
-DAT_TIMED_STEPS = 5
+# Timed steps per train path, few enough to keep the script's phases
+# within ~3 minutes; a DAT step takes ~1 s (host-bound).
+TRAIN_TIMED_STEPS = 6
+DAT_TIMED_STEPS = 3
 TRAIN_PER_STEP = dict(PER_CALL, K5=36)
 # HAT x4 training (HATConfig(), batch 8 of 64^2 LR crops, reflect-padded
 # to 70^2), per train step: K6 forward and K6b backward per HAB (24); K8
@@ -275,7 +289,7 @@ TRAIN_PER_STEP = dict(PER_CALL, K5=36)
 # runs K1 / K5 where hat runs K6 / K6b.
 HAT_TRAIN_PER_STEP = {"K1": 0, "K1t": 0, "K2": 6, "K3": 6, "K4": 1, "K5": 0, "K6": 24,
                       "K6b": 24, "K7": 0, "K8": 4, "K8b": 4, "K9": 0, "K10": 0, "K11": 0,
-                      "K12": 24, "K14": 0, "K16": 0}
+                      "K12": 24, "K14": 0, "K15": 0, "K16": 0}
 HAT_FAST_TRAIN_PER_STEP = dict(HAT_TRAIN_PER_STEP, K1=24, K5=24, K6=0, K6b=0)
 # DAT x4 training (DATConfig(), batch 8 of 64^2 LR crops), per train step:
 # every block on the module chain (BatchNorm on batch statistics): K16 per
@@ -855,11 +869,106 @@ def phase_dat_kernels(res):
     return res
 
 
-def _k16_work(bw, nh, n, hd, n_mask):
-    """(FLOPs, bytes) of one K16 call: QK^T and AV (4 N hd a query row);
-    q, k, v and the output in bf16, the bias and the mask in fp32, each
-    once."""
-    return bw * nh * 4 * n * n * hd, 4 * bw * nh * n * hd * 2 + (nh + n_mask) * n * n * 4
+def _attn_work(bw, nh, nq, nk, hd, n_mask):
+    """(FLOPs, bytes) of one K15 or K16 call: QK^T and AV (4 Nk hd a query
+    row); q, k, v and the output in bf16, the bias and the mask in fp32,
+    each once."""
+    return (bw * nh * 4 * nq * nk * hd,
+            2 * bw * nh * (nq + nk) * hd * 2 + (nh + n_mask) * nq * nk * 4)
+
+
+def _sdpa_mask(bias, mask, bw):
+    """The bias (plus window w's mask[w % nW]) as SDPA's bf16 float
+    attn_mask [BW, nH, Nq, Nk]."""
+    import torch
+
+    nh, nq, nk = bias.shape
+    am = bias[None].expand(bw, nh, nq, nk)
+    if mask is not None:
+        am = am + mask[torch.arange(bw, device=bias.device) % mask.shape[0]][:, None]
+    return am.to(torch.bfloat16).contiguous()
+
+
+def phase_rect_attention_kernels(res):
+    """K15 (window attention, Nq queries against Nk keys) at the shapes of
+    its paths: HAT's OCAB at the bench batch ([2500, 6, 49, 16] against
+    100 keys: ws 7, ows 10, C 96), hat_fast's ([1600, 6, 64, 16] against
+    144), HAT-SRx4's ([400, 6, 256, 30] against 576: ws 16, ows 24, C
+    180) and its train step's ([128, 6, 256, 30]), and the square masked
+    case (SwinIR-M's bench batch at ws 8, [1600, 6, 64, 30] with the
+    shift mask [64, 64, 64]).  Unscaled q with scale hd^-0.5, as the OCAB
+    calls it.  Each output in bf16 ulps against the plain bf16 and fp32
+    versions; kernel, plain and SDPA times (bias + mask as a bf16
+    attn_mask) and the bound, into `res`.  Beside the wrapper's form, the
+    kernel's others are timed at each shape: the probabilities rounded to
+    bf16 once or in two bf16 parts (K15_SPLIT_P), and at hd 16 the
+    element loads that rows off a 16-byte boundary take, which must give
+    the same output bit for bit."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_superresolution_torch.kernels import window_attention as kw
+    from tpu_superresolution_torch.ops.window import shift_mask_tensor
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)  # inputs made on the card
+    bf = torch.bfloat16
+    for label, bw, nq, nk, hd, masked in (
+            ("HAT (ws 7, ows 10) bench batch", 2500, 49, 100, 16, False),
+            ("hat_fast (ws 8, ows 12)", 1600, 64, 144, 16, False),
+            ("HAT-SRx4 (ws 16, ows 24)", 400, 256, 576, 30, False),
+            ("HAT-SRx4 train step", 128, 256, 576, 30, False),
+            ("square, masked (SwinIR-M ws 8, shift 4)", 1600, 64, 64, 30, True)):
+        nh = 6
+        q = torch.randn(bw, nh, nq, hd, generator=gen, device=dev).to(bf)
+        k, v = (torch.randn(bw, nh, nk, hd, generator=gen, device=dev).to(bf) for _ in range(2))
+        bias = 0.5 * torch.randn(nh, nq, nk, generator=gen, device=dev)
+        mask = shift_mask_tensor(64, 64, 8, 4, dev) if masked else None
+        n_mask = 0 if mask is None else mask.shape[0]
+        scale = hd ** -0.5
+        run = lambda: kw.fused_window_attention(q, k, v, bias, mask, scale)
+        plain = lambda: kw.fused_window_attention_plain(q, k, v, bias, mask, scale)
+        out = run()
+        ref16 = plain()
+        ref32 = kw.fused_window_attention_plain(q.float(), k.float(), v.float(), bias, mask,
+                                                scale)
+        am = _sdpa_mask(bias, mask, bw)
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am, scale=scale)
+        torch.cuda.synchronize()
+        _compare(res, "K15", f"{label} [{bw},{nh},{nq},{hd}] x {nk} keys"
+                 f"{', mask ' + str(list(mask.shape)) if masked else ''}", out, ref16, ref32,
+                 cuda_ms(run), cuda_ms(plain), _attn_work(bw, nh, nq, nk, hd, n_mask),
+                 cuda_ms(lib))
+        bound = ULP_BOUND["K15"] * bf16_ulp(float(ref32.abs().max()))
+        forms = []
+        for split in (True, False):
+            form = lambda split=split: kw._launch(q, k, v, bias, mask, scale, kw.launches_rect,
+                                                  split)
+            err = float((form().float() - ref32.float()).abs().max())
+            forms.append(f"{'split' if split else 'bf16'} P {cuda_ms(form):.4f} ms (max_abs_err "
+                         f"vs plain fp32 {err:.3e}, bound {bound:.3e})")
+        if hd % 8 == 0:
+            qu, ku, vu = (_unaligned(t) for t in (q, k, v))
+            form = lambda: kw._launch(qu, ku, vu, bias, mask, scale, kw.launches_rect,
+                                      kw.K15_SPLIT_P)
+            if not torch.equal(form(), out):
+                raise RuntimeError(f"K15 {label}: the element loads change the output")
+            forms.append(f"element loads {cuda_ms(form):.4f} ms (output identical)")
+            del qu, ku, vu
+        log(f"[kernels] K15 {label} forms: {'; '.join(forms)} (wrapper: "
+            f"{'split' if kw.K15_SPLIT_P else 'bf16'} P, 16-byte loads where aligned)")
+        del out, ref16, ref32, am
+    return res
+
+
+def _unaligned(t):
+    """A copy of t whose data starts 2 bytes past a 16-byte boundary."""
+    import torch
+
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 def phase_dat_train_kernels(res):
@@ -897,15 +1006,12 @@ def phase_dat_train_kernels(res):
             out = run()
             ref16, ref32 = plain(), kw.batched_window_attention_plain(q.float(), k.float(),
                                                                       v.float(), bias, mask)
-            am = bias[None].expand(bw, nh, n, n)
-            if mask is not None:
-                am = am + mask[torch.arange(bw, device=dev) % n_mask][:, None]
-            am = am.to(bf).contiguous()
+            am = _sdpa_mask(bias, mask, bw)
             lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am, scale=1.0)
             torch.cuda.synchronize()
             _compare(res, "K16", f"[{bw},{nh},{n},{hd}] {'masked' if masked else 'unmasked'}",
                      out, ref16, ref32, cuda_ms(run), cuda_ms(plain),
-                     _k16_work(bw, nh, n, hd, n_mask), cuda_ms(lib))
+                     _attn_work(bw, nh, n, n, hd, n_mask), cuda_ms(lib))
             del out, ref16, ref32, am
     for shape in ((8, 64, 64, 180), (25, 64, 64, 360)):
         c = shape[-1]
@@ -1547,27 +1653,20 @@ def phase_hat_srx4(workdir, smi):
 
 def _hat_split(model, fwd, smi, tag="hat"):
     """Where one HAT bench forward spends its device time, under
-    torch.profiler: the block kernel (K6 or K1), K7, K1t, K12, K2, K3/K4
-    by kernel name, the other kernels by the module whose profiler range
-    launched them (the CAB's SE gate, the OCABs' plain ops, the HABs'
-    plain ops on the K7 route: the shift and partition gathers; the
-    rest), and the device's idle share of the wall time."""
+    torch.profiler: the block kernel (K6 or K1), K7, K1t, K12, K15 (the
+    OCABs' attention), K2, K3/K4 by kernel name, the other kernels by the
+    module whose profiler range launched them (the CAB's SE gate, the
+    OCABs' remaining plain ops: the qkv, proj and MLP products, the
+    partition and overlap gathers; the HABs' plain ops on the K7 route:
+    the shift and partition gathers; the rest), and the device's idle
+    share of the wall time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     from tpu_superresolution_torch.models.hat import CAB, HAB, OCAB
 
     parts = {HAB: "hat::hab", CAB: "hat::cab", OCAB: "hat::ocab"}
-    stack, handles = [], []
-    for m in model.modules():
-        if type(m) in parts:
-            def enter(mod, args, name=parts[type(m)]):
-                stack.append(record_function(name))
-                stack[-1].__enter__()
-
-            handles.append(m.register_forward_pre_hook(enter))
-            handles.append(m.register_forward_hook(
-                lambda mod, args, out: stack.pop().__exit__(None, None, None)))
+    handles = _range_hooks(model, parts)
     try:
         with torch.no_grad(), profile(
                 activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1596,8 +1695,10 @@ def _hat_split(model, fwd, smi, tag="hat"):
              ("K7 window_attn_kernel", ("window_attn_kernel",)),
              ("K1t swin_tail_kernel", ("swin_tail_kernel",)),
              ("K12 ln_cab_convs_kernel", ("ln_cab_convs_kernel",)),
+             ("K15 batched_attn_kernel (OCAB attention)", ("batched_attn_kernel",)),
              ("K2 layernorm", ("layernorm_rows",)), ("K3/K4 conv_nhwc", ("conv_nhwc",)))
-    by_span = (("hat::cab", "CAB SE gate (plain ops)"), ("hat::ocab", "OCAB plain ops"),
+    by_span = (("hat::cab", "CAB SE gate (plain ops)"),
+               ("hat::ocab", "OCAB plain ops (qkv, proj, MLP, gathers)"),
                ("hat::hab", "HAB plain ops (K7 route: the shift and partition gathers)"))
     other = "other (conv_first, mean shift, tiling, casts)"
     groups = dict.fromkeys([g for g, _ in names] + [g for _, g in by_span] + [other], 0.0)
@@ -2180,28 +2281,24 @@ def _dat_train_split(state, lr, hr, step_ms, smi):
 
 def _hat_train_split(state, lr, hr, step_ms, smi):
     """Where one HAT train step spends its device time, under
-    torch.profiler: the forward, backward and optimizer as ranges, the
-    kernels by name (K6, K6b, K8, K8b, each backward's weight-gradient
-    products and reductions attributed to the per-window kernel before
-    them; K12; K2-K4), the CAB's SE gate by module range, the rest by
-    the range it ran in, and the device's idle share of the wall time."""
+    torch.profiler: the forward's kernels by name (the block kernel K6 /
+    K1, K8, K12, K2-K4) and its plain ops by the module range that
+    launched them (the OCABs', the CABs' SE gates, the HABs' gathers);
+    the backward by autograd node, each with the nodes nested in it: the
+    block backward (K6b / K5) and K8b with their weight-gradient products
+    and reductions, K12's and K2-K4's autograd-of-plain backwards, and
+    the rest (the plain ops' backwards: products, SE gates, gathers,
+    casts); the optimizer; and the device's idle share of the wall
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from tpu_superresolution_torch.models.hat import CAB
+    from tpu_superresolution_torch.models.hat import CAB, HAB, OCAB
     from tpu_superresolution_torch.train.engine import apply_gradients
 
     model = state.model
-    stack, handles = [], []
-    for m in model.modules():
-        if isinstance(m, CAB):
-            def enter(mod, args):
-                stack.append(record_function("hat::cab"))
-                stack[-1].__enter__()
-
-            handles.append(m.register_forward_pre_hook(enter))
-            handles.append(m.register_forward_hook(
-                lambda mod, args, out: stack.pop().__exit__(None, None, None)))
+    parts = {HAB: "hat::hab", CAB: "hat::cab", OCAB: "hat::ocab"}
+    handles = _range_hooks(model, parts)
     model.train()
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2209,7 +2306,6 @@ def _hat_train_split(state, lr, hr, step_ms, smi):
             state.optimizer.zero_grad(set_to_none=True)
             # each phase ends in a synchronise, so a device kernel starts
             # inside the host-side span of the phase that launched it
-            # (the backward launches from autograd's own thread)
             with record_function("step::forward"):
                 loss = (model(lr, generator=torch.Generator().manual_seed(SEED)).float()
                         - hr).abs().mean()
@@ -2228,61 +2324,104 @@ def _hat_train_split(state, lr, hr, step_ms, smi):
     finally:
         for h in handles:
             h.remove()
-    kernels = sorted(_device_kernels(prof), key=lambda e: e.time_range.start)
+    kernels = _device_kernels(prof)
     if not kernels:
-        log("[hat-train] profiler: no device events recorded")
+        log(f"[hat-train] profiler: no device events recorded")
         return
-    steps = ("step::forward", "step::backward", "step::optimizer")
+    cpu = torch.autograd.DeviceType.CPU
+    # the phases by their host-side spans, cut where one ends and the
+    # next begins, so a kernel stamped a little outside its span still
+    # counts in its phase
+    host = {e.name: e.time_range for e in events
+            if e.device_type == cpu and e.name.startswith("step::")}
+    fwd_end, opt_start = host["step::forward"].end, host["step::optimizer"].start
     spans = [(e.time_range.start, e.time_range.end, e.name) for e in events
-             if (e.device_type == torch.autograd.DeviceType.CUDA
-                 and getattr(e, "is_user_annotation", False) and e.name == "hat::cab")
-             or (e.device_type == torch.autograd.DeviceType.CPU and e.name in steps)]
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and getattr(e, "is_user_annotation", False) and e.name in parts.values()]
     us = lambda e: getattr(e, "device_time", 0.0) or getattr(e, "cuda_time", 0.0)
-    groups = dict.fromkeys((
-        "K6 forward (swin_block_kernel<7>)", "K6b (per-window, weight grads, reductions)",
-        "K8 forward (ocab_fwd_kernel)", "K8b (per-window, weight grads, reductions)",
-        "K12 forward (ln_cab_convs_kernel)", "K2-K4 forwards", "CAB SE gate forward",
-        "other forward ops",
-        "plain-op backwards (CAB, K2-K4, gathers, casts)", "optimizer (norm, clip, AdamW)",
-        "other"), 0.0)
-    last_bwd = "K6b (per-window, weight grads, reductions)"
+    fwd_names = (("forward K6 / K1 (swin_block_kernel)", ("swin_block_kernel",)),
+                 ("forward K8 (ocab_fwd_kernel)", ("ocab_fwd_kernel",)),
+                 ("forward K12 ln_cab_convs_kernel", ("ln_cab_convs_kernel",)),
+                 ("forward K2-K4", ("layernorm_rows", "conv_nhwc")))
+    by_span = (("hat::cab", "forward CAB SE gate (plain ops)"),
+               ("hat::ocab", "forward OCAB plain ops (qkv, proj, MLP, gathers)"),
+               ("hat::hab", "forward HAB plain ops (shift and partition gathers)"))
+    bwd_nodes = (("backward K6b / K5 (per-window, weight grads, reductions)",
+                  "SwinBlockFunctionBackward"),
+                 ("backward K8b (per-window, weight grads, reductions)",
+                  "OcabCoreFunctionBackward"),
+                 ("backward K12 (autograd of the plain LN + CAB convs)",
+                  "CabConvsFunctionBackward"),
+                 ("backward K2-K4 (autograd of the plain versions)", "LayerNormFunctionBackward"),
+                 ("backward K2-K4 (autograd of the plain versions)", "ConvFunctionBackward"))
+    rest = "backward other nodes (plain-op backwards: products, SE gates, gathers, casts)"
+    groups = dict.fromkeys([g for g, _ in fwd_names] + ["forward other ops"]
+                           + [g for _, g in by_span] + [g for g, _ in bwd_nodes]
+                           + [rest, "optimizer (norm, clip, AdamW)"], 0.0)
+    bwd_total = 0.0
     for e in kernels:
         n, t = e.name, e.time_range.start
-        inside = {name for a, b, name in spans if a <= t <= b}
-        if "swin_block_bwd_window" in n:
-            g = last_bwd = "K6b (per-window, weight grads, reductions)"
-        elif "ocab_bwd_kernel" in n:
-            g = last_bwd = "K8b (per-window, weight grads, reductions)"
-        elif "wgrad_kernel" in n or "reduce_rows_kernel" in n:
-            g = last_bwd
-        elif "swin_block_kernel" in n:
-            g = "K6 forward (swin_block_kernel<7>)"
-        elif "ocab_fwd_kernel" in n:
-            g = "K8 forward (ocab_fwd_kernel)"
-        elif "ln_cab_convs_kernel" in n:
-            g = "K12 forward (ln_cab_convs_kernel)"
-        elif "layernorm_rows" in n or "conv_nhwc" in n:
-            g = "K2-K4 forwards"
-        elif "hat::cab" in inside:
-            g = "CAB SE gate forward"
-        elif "step::forward" in inside:
-            g = "other forward ops"
-        elif "step::backward" in inside:
-            g = "plain-op backwards (CAB, K2-K4, gathers, casts)"
-        elif "step::optimizer" in inside:
-            g = "optimizer (norm, clip, AdamW)"
+        if t <= fwd_end:
+            inside = {name for a, b, name in spans if a <= t <= b}
+            g = next((g for g, keys in fwd_names if any(k in n for k in keys)), None)
+            g = g or next((g for span, g in by_span if span in inside), "forward other ops")
+        elif t < opt_start:
+            bwd_total += us(e) / 1e3
+            continue
         else:
-            g = "other"
+            g = "optimizer (norm, clip, AdamW)"
         groups[g] += us(e) / 1e3
+    # the backward's kernels by the autograd node that launched them (the
+    # plain versions' own autograd nodes nest inside a kernel's backward)
+    prefix = "autograd::engine::evaluate_function: "
+
+    def nested(e):
+        p = e.cpu_parent
+        while p is not None:
+            if p.name.startswith(prefix):
+                return True
+            p = p.cpu_parent
+        return False
+
+    node_ms = lambda e: (getattr(e, "device_time_total", None)
+                         or getattr(e, "cuda_time_total", 0.0)) / 1e3
+    named = 0.0
+    for e in events:
+        if e.device_type != cpu or not e.name.startswith(prefix) or nested(e):
+            continue
+        g = next((g for g, node in bwd_nodes if e.name[len(prefix):] == node), None)
+        if g is not None:
+            groups[g] += node_ms(e)
+            named += node_ms(e)
+    groups[rest] = max(bwd_total - named, 0.0)
     busy = sum(groups.values())
     idle = max(wall - busy, 0.0)
-    log(f"[hat-train] profiled step: {wall:.2f} ms wall (profiler on, a synchronise after "
-        f"each phase), {len(kernels)} device kernels, busy {busy:.2f} ms ({busy / wall:.1%}), "
-        f"idle {idle:.2f} ms ({idle / wall:.1%}); against the unprofiled median step "
-        f"{step_ms:.2f} ms: busy {busy / step_ms:.1%}, idle {max(step_ms - busy, 0.0):.2f} ms; "
-        f"{len(spans)} ranges ({smi})")
+    log(f"[hat-train] profiled step: {wall:.2f} ms wall (profiler on, a synchronise after each "
+        f"phase), {len(kernels)} device kernels, busy {busy:.2f} ms ({busy / wall:.1%}), idle "
+        f"{idle:.2f} ms ({idle / wall:.1%}); against the unprofiled median step {step_ms:.2f} "
+        f"ms: busy {busy / step_ms:.1%}, idle {max(step_ms - busy, 0.0):.2f} ms; backward "
+        f"{bwd_total:.2f} ms of device time, {named:.2f} of it attributed to the kernels' "
+        f"autograd nodes ({smi})")
     for g, t in groups.items():
         log(f"[hat-train]   {t:8.3f} ms  {t / wall:6.1%}  {g}")
+
+
+def _range_hooks(model, parts):
+    """Open a torch.profiler range named parts[type(m)] around every
+    forward of a module m of those types; returns the hook handles."""
+    from torch.profiler import record_function
+
+    stack, handles = [], []
+    for m in model.modules():
+        if type(m) in parts:
+            def enter(mod, args, name=parts[type(m)]):
+                stack.append(record_function(name))
+                stack[-1].__enter__()
+
+            handles.append(m.register_forward_pre_hook(enter))
+            handles.append(m.register_forward_hook(
+                lambda mod, args, out: stack.pop().__exit__(None, None, None)))
+    return handles
 
 
 def _device_kernels(prof):
@@ -2373,8 +2512,8 @@ def main() -> int:
         return out
 
     timed("build", phase_build)
-    kres = timed("kernels", lambda: phase_dat_train_kernels(phase_window_kernels(
-        phase_dat_kernels(phase_train_kernels(phase_kernels())))))
+    kres = timed("kernels", lambda: phase_rect_attention_kernels(phase_dat_train_kernels(
+        phase_window_kernels(phase_dat_kernels(phase_train_kernels(phase_kernels()))))))
     _lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_lib.BUILD_DIR) as workdir:
         service, launches = timed("serve", phase_serve, workdir, SwinIRConfig(scale=4),

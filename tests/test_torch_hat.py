@@ -282,22 +282,36 @@ def build_exact(cfg):
 
 
 def test_hat_ws16_training_runs_on_cpu_and_names_the_k8_item():
-    """At window 16 HAT trains on the CPU (the K7 route and K12 are
-    differentiable), and K8's window envelope, which the OCAB's training
-    route meets on CUDA, refuses ws 16 naming the ROADMAP item."""
+    """At window 16 HAT trains on the CPU through the route it takes on
+    CUDA: the K7 route's HABs and K12 CABs, and OCABs on K15's module path
+    (K8 does not take ws 16, so the OCAB never calls it); K8's own check
+    still refuses ws 16, naming the ROADMAP item that would let it."""
     from tpu_superresolution_torch.core.config import HATConfig, build_model
+    from tpu_superresolution_torch.kernels import fused_ocab, read_counters, reset_counters
+    from tpu_superresolution_torch.kernels import window_attention as kw
     from tpu_superresolution_torch.kernels.fused_ocab import OcabWeights, check_ocab_args
 
     model = build_model(HATConfig(embed_dim=24, depths=(2,), num_heads=(2,), window_size=16,
                                   squeeze_factor=6))
     model.train()
-    model(torch.rand(1, 16, 16, 3), generator=torch.Generator().manual_seed(0)).mean().backward()
-    assert all(p.grad is not None for p in model.parameters())
     ocab = model.layers[0].residual_group.overlap_attn
+    assert not ocab.takes_k8()
+    calls = []
+    real_k8, real_k15 = fused_ocab.ocab_core_plain, kw.fused_window_attention_plain
+    reset_counters()
+    try:
+        fused_ocab.ocab_core_plain = lambda *a: calls.append("k8") or real_k8(*a)
+        kw.fused_window_attention_plain = lambda *a: calls.append("k15") or real_k15(*a)
+        model(torch.rand(1, 16, 16, 3), generator=torch.Generator().manual_seed(0)).mean().backward()
+    finally:
+        fused_ocab.ocab_core_plain, kw.fused_window_attention_plain = real_k8, real_k15
+    assert calls == ["k15"]
+    assert not any(read_counters().values())
+    assert all(p.grad is not None for p in model.parameters())
     weights = OcabWeights(
         wproj=ocab.proj.weight, bproj=ocab.proj.bias, g2=ocab.norm2.weight, b2=ocab.norm2.bias,
         wfc1=ocab.mlp.fc1.weight, bfc1=ocab.mlp.fc1.bias, wfc2=ocab.mlp.fc2.weight,
         bfc2=ocab.mlp.fc2.bias, num_heads=2)
-    with pytest.raises(ValueError, match="K8 and the block backward at ws 16, for HAT-SRx4 "
-                                         "training"):
+    with pytest.raises(ValueError,
+                       match="K15's path there; ROADMAP Queue 2: K8 and K8b at ws 16"):
         check_ocab_args((4, 256, 24), (4, 576, 24), (4, 256, 24), weights, (2, 256, 576))

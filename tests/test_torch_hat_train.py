@@ -160,17 +160,21 @@ def test_block_backward_without_extra_has_no_extra_gradient():
 _MODEL_CASES = [(dict(), (14, 14)),
                 (dict(attention_impl="fused", gelu_approximate=True), (14, 21)),
                 (dict(window_size=8), (16, 16)),
-                (dict(window_size=8, attention_impl="fused", gelu_approximate=True), (16, 16))]
+                (dict(window_size=8, attention_impl="fused", gelu_approximate=True), (16, 16)),
+                (dict(window_size=16), (20, 24))]
 
 
 @pytest.mark.parametrize("overrides,hw", _MODEL_CASES,
-                         ids=["jnp-ws7", "jax-kernels-ws7", "jnp-ws8", "jax-kernels-ws8"])
+                         ids=["jnp-ws7", "jax-kernels-ws7", "jnp-ws8", "jax-kernels-ws8",
+                              "jnp-ws16"])
 def test_hat_gradients_match_jax(overrides, hw):
     """Every parameter's gradient of an L1 loss through the port's HAT in
     train mode (drop path off) against jax.grad of the JAX HAT with
     train=True: its module path, or its fused kernels in interpret mode
     (K6 / K1 with `extra` and their Pallas backwards, K8 and its
-    backward)."""
+    backward).  At ws 16 (upstream HAT-SRx4's window, reflect-padded to
+    32 x 32 with the shift on) the port's HABs take the K7 route and its
+    OCABs K15's module path, against the JAX module path."""
     from tpu_superresolution_torch.interop import hat_state_dict_from_jax
 
     cfg = small_hat_config(drop_path_rate=0.0, **overrides)
@@ -187,6 +191,8 @@ def test_hat_gradients_match_jax(overrides, hw):
     want = hat_state_dict_from_jax({"params": jax.tree.map(np.asarray, jgrads)})
 
     model = port_from_jax(cfg, variables).train()
+    takes_k8 = [layer.residual_group.overlap_attn.takes_k8() for layer in model.layers]
+    assert takes_k8 == [cfg.window_size != 16] * len(model.layers)
     loss = (model(torch.from_numpy(lr)) - torch.from_numpy(hr)).abs().mean()
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)

@@ -1,7 +1,7 @@
 """The port's ``train`` entry point on the CPU: ``--model hat`` for one
 epoch on a synthetic DeepRockSR-layout set (checkpoints, run report,
-finite loss), its checkpoint resumed by ``--resume`` and loaded by
-``upscale``; the flags and families not ported yet exit with a message;
+finite loss; at window 16 as well), its checkpoint resumed by
+``--resume`` and loaded by ``upscale``; the flags and families not ported yet exit with a message;
 without a GPU and without ``--device cpu`` it raises."""
 
 import json
@@ -78,6 +78,21 @@ def test_train_cli_checkpoint_upscales_as_hat(trained, tmp_path):
                     "--scale", "X4", "--out", str(out), "--device", "cpu"]) == [str(out)]
     with Image.open(out) as im:
         assert im.size == (68, 60)
+
+
+def test_train_cli_trains_hat_at_window_16(trained, tmp_path):
+    """``train --model hat --window_size 16`` (upstream HAT-SRx4's window)
+    takes its steps on the CPU: the HABs on the K7 route, the OCABs on
+    K15's module path (K8 does not take ws 16), a finite loss and
+    validation PSNR."""
+    from tpu_superresolution_torch.cli.train import main
+
+    trainer, state = main(["--data_root", str(trained[0]), "--scale", "X4", "--workdir",
+                           str(tmp_path), "--device", "cpu"] + TINY
+                          + ["--window_size", "16", "--patch_size", "16"])
+    assert state.step == 2 and state.model.config.window_size == 16
+    assert not any(layer.residual_group.overlap_attn.takes_k8() for layer in state.model.layers)
+    assert np.isfinite(trainer.history["train"][0]) and np.isfinite(trainer.best_val_psnr)
 
 
 @pytest.mark.parametrize("model", ["ms_resunet", "unet2d"])

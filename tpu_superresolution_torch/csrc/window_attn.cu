@@ -19,7 +19,8 @@
 //       key tile), then multiplies the tile's head-concatenated output by
 //       Wproj.  At N = 256 one head's fp32 score matrix is 256 KB and
 //       does not fit in shared memory; the tile holds 64 x 64 scores.
-//       That attention core is window_attn_core.cuh, shared with K16.
+//       That attention core is window_attn_core.cuh, shared with K15
+//       and K16.
 //       Pad keys (>= N) get -inf, pad query rows are computed on zeros
 //       and not stored.  Weights are read from L2 by the WMMA fragments.
 //       Splitting the qkv product into its own launch keeps each key
@@ -138,7 +139,7 @@ __global__ void __launch_bounds__(NTHREADS) window_attn_kernel(const AttnArgs a)
     // the head's q, k, v columns of the workspace; O_h / l -> the head's
     // 32 columns of the concatenated output (q carries the softmax scale)
     wattn::attend_head<false>(
-        smem, n, a.tiles, q0, a.rpb + static_cast<long long>(hh) * n * n, mwin, 1.f,
+        smem, n, n, a.tiles, q0, a.rpb + static_cast<long long>(hh) * n * n, mwin, 1.f,
         [&](bf16* dst, int part, int t0) {
           load_head_tile(dst, base, t0, n, n3, part * att + hh * HDP, tid);
         },

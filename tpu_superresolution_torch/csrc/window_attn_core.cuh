@@ -1,19 +1,22 @@
 // The window-attention core shared by K7 (csrc/window_attn.cu: qkv,
-// attention and proj of a Swin block) and K16 (csrc/batched_attn.cu:
+// attention and proj of a Swin block) and K15 / K16 (csrc/batched_attn.cu:
 // attention alone on pre-split q, k, v): one head of one 64-query tile,
 //
 //     O = softmax(scale * Q K^T + rpb + mask) V          (fp32 scores)
 //
-// over a window of n tokens, any n.  The keys stream in 64-row tiles
-// with an online softmax (running max and sum per row, the fp32 output
-// rescaled per key tile), so one head's score matrix never has to fit
-// in shared memory (256 KB at n = 256).  Pad keys (>= n) get -inf, pad
-// query rows are computed on zeros without bias and dropped by the
-// caller.  GEMM operands bf16, fp32 accumulation; heads padded to HDP =
-// 32 dims with zeros.  The probabilities enter P V rounded to bf16 (K7),
-// or with kSplitP as two bf16 parts, P = P_hi + P_lo, in two products
-// (K16): ~16 significant bits, so the output matches fp32 probabilities
-// (the JAX reference's) to its own final rounding.
+// over nq queries and nk keys, any counts (a Swin window: nq = nk = N;
+// HAT's OCAB: the ws^2 queries of a window against the ows^2 keys of the
+// window around it).  The keys stream in 64-row tiles with an online
+// softmax (running max and sum per row, the fp32 output rescaled per key
+// tile), so one head's score matrix never has to fit in shared memory
+// (256 KB at 256 x 256).  Pad keys (>= nk) get -inf, pad query rows
+// (>= nq) are computed on zeros without bias and dropped by the caller.
+// The bias and mask rows have stride nk.  GEMM operands bf16, fp32
+// accumulation; heads padded to HDP = 32 dims with zeros.  The
+// probabilities enter P V rounded to bf16 (K7, K15), or with kSplitP as
+// two bf16 parts, P = P_hi + P_lo, in two products (K16): ~16
+// significant bits, so the output matches fp32 probabilities (the JAX
+// reference's) to its own final rounding.
 #pragma once
 
 #include <mma.h>
@@ -56,15 +59,16 @@ __device__ __forceinline__ float* staging(unsigned char* smem, int warp) {
 
 // One head of the query tile [q0, q0 + 64).  `load(dst, part, t0)` fills
 // a [64][LDH] bf16 tile with rows [t0, t0 + 64) of q (part 0), k (1) or
-// v (2) of this head, zero past n and past the head's dims; `store(r, d,
-// value)` receives O[r][d] / l for r < 64 and d < HDP.  `rp` is the
-// head's [n, n] fp32 bias, `mwin` the window's [n, n] fp32 mask or null.
+// v (2) of this head, zero past nq (q) or nk (k, v) and past the head's
+// dims; `store(r, d, value)` receives O[r][d] / l for r < 64 and d < HDP.
+// `rp` is the head's [nq, nk] fp32 bias, `mwin` the window's [nq, nk]
+// fp32 mask or null; `ktiles` = ceil(nk / 64).
 // All threads of the block call it; it ends with a barrier, so the next
 // head may reuse every buffer.
 template <bool kSplitP, class Load, class Store>
-__device__ __forceinline__ void attend_head(unsigned char* smem, int n, int tiles, int q0,
-                                            const float* rp, const float* mwin, float scale,
-                                            Load load, Store store) {
+__device__ __forceinline__ void attend_head(unsigned char* smem, int nq, int nk, int ktiles,
+                                            int q0, const float* rp, const float* mwin,
+                                            float scale, Load load, Store store) {
   bf16* qs = reinterpret_cast<bf16*>(smem + OFF_Q);
   bf16* ks = reinterpret_cast<bf16*>(smem + OFF_K);
   bf16* vs = reinterpret_cast<bf16*>(smem + OFF_V);
@@ -85,7 +89,7 @@ __device__ __forceinline__ void attend_head(unsigned char* smem, int n, int tile
     row_m[tid] = neg_inf;
     row_l[tid] = 0.f;
   }
-  for (int kt = 0; kt < tiles; ++kt) {
+  for (int kt = 0; kt < ktiles; ++kt) {
     const int k0 = kt * T;
     load(ks, 1, k0);
     load(vs, 2, k0);
@@ -116,13 +120,13 @@ __device__ __forceinline__ void attend_head(unsigned char* smem, int n, int tile
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const int col = k0 + c0 + i;
-        if (col >= n) {
+        if (col >= nk) {
           v[i] = neg_inf;
         } else {
           v[i] *= scale;
-          if (qr < n) {
-            v[i] += rp[static_cast<long long>(qr) * n + col];
-            if (mwin) v[i] += mwin[static_cast<long long>(qr) * n + col];
+          if (qr < nq) {
+            v[i] += rp[static_cast<long long>(qr) * nk + col];
+            if (mwin) v[i] += mwin[static_cast<long long>(qr) * nk + col];
           }
         }
       }

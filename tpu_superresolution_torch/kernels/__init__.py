@@ -15,6 +15,8 @@ every other Swin block outside the block kernel's envelope (W: other
 windows, C up to 256, up to 8 heads), DAT training (DT) and DAT's module
 chain at serving where K9, K14 or K10 refuse a block's shapes (DC: the
 published DAT x4's split (8, 32) and expansion 4, among others).
+HAT-SRx4 training is not a ported path yet: it runs, but K5, K8 and K8b
+have no ws-16 kernel, so its block backward and OCAB run as plain ops.
 
 ==== ========================================================== ======== ==================================================
  #   JAX file:line of pallas_call . entry function                on path  port
@@ -36,18 +38,24 @@ K10  fused_datb_tail.py:374 . fused_datb_tail                      D        CUDA
 K7   fused_attention.py:229 . fused_window_block_attention         H16,W    CUDA csrc/window_attn.cu (any N), fused_attention.fused_window_attention
 K12  cab_conv.py:209 . fused_ln_cab_convs                          H,HT,H16 CUDA csrc/cab_fused.cu, cab_conv.fused_ln_cab_convs
 K11  cab_conv.py:506 . dwconv3x3_halo                              DT,DC    CUDA csrc/dwconv.cu, dwconv.dwconv3x3
-K15  window_attention.py:193 . fused_window_attention              no       to port (HAT's OCAB at serving)
+K15  window_attention.py:193 . fused_window_attention              H,H16    CUDA csrc/batched_attn.cu (K16's kernel at Nq x Nk), window_attention.fused_window_attention
 K16  window_attention.py:352 . batched_window_attention            DT,DC    CUDA csrc/batched_attn.cu (K7's core), window_attention.batched_window_attention
 ==== ========================================================== ======== ==================================================
 
 One CUDA kernel, templated on the window size, serves K1, K6 and K13:
 its ws = 8 launches count as K1, its ws = 7 launches as K6; one
 backward kernel likewise serves K5 (ws 8) and K6's backward (ws 7, K6b).
-In training, K1-K4, K1t, K6, K7, K8 and K12 run through
+In training, K1-K4, K1t, K6, K7, K8, K12 and K15 run through
 ``torch.autograd.Function``s: K1's backward is K5, K6's is K6b, K8's is
 K8b; K2-K4's, K7's and K12's backwards are torch autograd of their
 plain versions, as the JAX package leaves those backwards to XLA, and so
-is K1t's (the block backward at other windows is still to port).  A Swin
+are K1t's and K15's (the JAX package has no K15 backward: its HAT
+trains the OCAB through K8).  At windows other than 7 and 8 the block
+backward (K5) and the OCAB core (K8, K8b) have no kernel yet: HAT at
+ws 16 trains through those autograd-of-plain backwards.
+HAT's OCAB runs K15 as its attention at serving, and in training
+wherever K8 refuses its shapes (``fused_ocab.ocab_ok``: ws 16, C > 192,
+hidden > 384); elsewhere in training it takes K8 / K8b.  A Swin
 block takes the block kernel or the K7 route by its static shapes
 (``fused_block.block_route``); a K7 call is two CUDA launches (the qkv
 product, then attention + proj), counted once; on the K7 route K1's
@@ -95,6 +103,7 @@ COUNTERS = {
     "K11": dwconv.launches,
     "K12": cab_conv.launches_ln_cab,
     "K14": fused_channel_attn.launches,
+    "K15": window_attention.launches_rect,
     "K16": window_attention.launches,
 }
 

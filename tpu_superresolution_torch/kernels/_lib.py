@@ -57,7 +57,7 @@ _SIGNATURES = {
     "sr_swin_tail_bf16": [_P] * 11 + [_I] * 8 + [ctypes.c_float, _P],
     "sr_ln_cab_convs_bf16": [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P],
     "sr_dwconv3x3_bf16": [_P] * 4 + [_I] * 4 + [_P],
-    "sr_batched_window_attention_bf16": [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P],
+    "sr_batched_window_attention_bf16": [_P] * 6 + [_I] * 7 + [ctypes.c_float, _P],
 }
 
 

@@ -23,7 +23,9 @@ On a CPU tensor the wrapper runs ``ocab_core_plain``, differentiable by
 autograd; on a CUDA tensor it launches K8 (through ``OcabCoreFunction``
 when a gradient is wanted, whose backward is K8's backward kernel, K8b)
 or raises.  The kernels take (ws, ows) = (7, 10) or (8, 12), C <= 192,
-heads of hd <= 32 (at most 6) and an MLP hidden <= 384.
+heads of hd <= 32 (at most 6) and an MLP hidden <= 384 (``ocab_ok``);
+HAT's OCAB trains through them where they do, and through its module
+path with K15 (``window_attention.fused_window_attention``) elsewhere.
 """
 
 from __future__ import annotations
@@ -208,6 +210,14 @@ def ocab_core_bwd_plain(ct: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: t
     )
 
 
+def ocab_ok(ws: int, ows: int, c: int, nh: int, hidden: int) -> bool:
+    """Whether K8 and K8b take an OCAB of window `ws`, overlap window
+    `ows`, C channels, `nh` heads and MLP hidden `hidden` (static shapes
+    only, so the route is the same on every device)."""
+    return ((ws, ows) in KERNEL_WINDOWS and c <= CP and c % nh == 0 and c // nh <= HDP
+            and nh <= MAX_HEADS and hidden <= HIDP)
+
+
 def check_ocab_args(q_shape, k_shape, sw_shape, w: OcabWeights, bias_shape,
                     name: str = "fused_ocab_core") -> None:
     """Raise unless the shapes and widths fit the kernels (shapes only,
@@ -219,12 +229,12 @@ def check_ocab_args(q_shape, k_shape, sw_shape, w: OcabWeights, bias_shape,
     ws, ows = math.isqrt(q_shape[1]), math.isqrt(k_shape[1])
     if (ws, ows) not in KERNEL_WINDOWS or ws * ws != q_shape[1] or ows * ows != k_shape[1]:
         raise ValueError(f"{name}: the kernel takes (ws, ows) in {KERNEL_WINDOWS}; got "
-                         f"{q_shape[1]} queries and {k_shape[1]} keys per window (ROADMAP "
-                         f"Queue 3: K8 and the block backward at ws 16, for HAT-SRx4 "
-                         f"training)")
+                         f"{q_shape[1]} queries and {k_shape[1]} keys per window (the OCAB "
+                         f"takes K15's path there; ROADMAP Queue 2: K8 and K8b at ws 16, "
+                         f"for HAT-SRx4 training)")
     if k_shape[0] != q_shape[0] or k_shape[2] != c or q_shape[2] != c:
         raise ValueError(f"{name}: weights for C={c}; q {tuple(q_shape)}, k {tuple(k_shape)}")
-    if c > CP or c % nh or c // nh > HDP or nh > MAX_HEADS or hidden > HIDP:
+    if not ocab_ok(ws, ows, c, nh, hidden):
         raise ValueError(f"{name}: the kernel takes C <= {CP}, hd <= {HDP}, heads <= "
                          f"{MAX_HEADS}, hidden <= {HIDP}; got C={c}, heads={nh}, "
                          f"hidden={hidden}")

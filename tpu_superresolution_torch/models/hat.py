@@ -16,11 +16,15 @@ modules/hat_arch.py:710-994).
   at any other window (upstream HAT-SRx4's ws 16) or width, the K7
   route (``SwinBlock._window_attention_route``: K2, K7 and K1's tail
   kernel, which adds `extra`).
-- OCAB (hat_arch.py:353-439): at inference plain torch ops around K2
-  LayerNorms, as the JAX package's inference path; in training the JAX
-  package's fused route (``OCAB._fused``): K2 LN1, the qkv product with
-  q pre-scaled, the overlap gather as plain ops, then K8, the fused
-  attention -> proj -> LN2 -> MLP core.
+- OCAB (hat_arch.py:353-439): at inference the JAX package's module
+  path, K2 LN1, the qkv product, the window partition and overlap
+  gather, K15 (the rectangular window attention, ws^2 queries against
+  ows^2 keys), the proj, K2 LN2 and the MLP; in training the JAX
+  package's fused route (``OCAB._fused``: K2 LN1, the qkv product with q
+  pre-scaled, the gather as plain ops, then K8, the fused attention ->
+  proj -> LN2 -> MLP core) where K8 takes the shapes
+  (``fused_ocab.ocab_ok``: HAT's ws 7 and hat_fast's ws 8 at their
+  widths), else the module path (upstream HAT-SRx4's ws 16, C > 192).
 - RHAG convs, ``conv_after_body`` and ``conv_before_upsample`` are K3,
   the composed reconstruction K4; ``conv_first``, the mean shift, the
   reflect pad and the exact-mode chain are plain torch.
@@ -30,10 +34,8 @@ modules/hat_arch.py:710-994).
   generator given to ``forward``; they scale the attention and MLP
   residuals, never the CAB branch (hat_arch.py:307-308), and the OCAB
   has none.  On CUDA each HAB's backward is K6b (ws 7) or K5 (ws 8),
-  with the gradient of `extra`, and each OCAB core's K8b; K12's
-  backward is autograd of its plain version.  Training at ws 16 stops
-  at K8's window envelope (ROADMAP: K8 and the block backward at ws
-  16, for HAT-SRx4 training).
+  with the gradient of `extra`, and each OCAB core's K8b; K7's, K1t's,
+  K12's and K15's backwards are autograd of their plain versions.
 """
 
 from __future__ import annotations
@@ -54,7 +56,11 @@ from tpu_superresolution_torch.kernels.cab_conv import (
     fused_ln_cab_convs_plain,
     pack_cab,
 )
-from tpu_superresolution_torch.kernels.fused_ocab import OcabWeights, fused_ocab_core
+from tpu_superresolution_torch.kernels.fused_ocab import OcabWeights, fused_ocab_core, ocab_ok
+from tpu_superresolution_torch.kernels.window_attention import (
+    fused_window_attention,
+    fused_window_attention_plain,
+)
 from tpu_superresolution_torch.models.blocks import (
     Conv3x3,
     ConvLeaky,
@@ -167,8 +173,8 @@ class HAB(SwinBlock):
 class OCAB(nn.Module):
     """Overlapping cross-attention block (hat_arch.py:353-439): q from
     the ws windows, k and v from the enclosing ows windows, then proj,
-    residual, LN and MLP — plain torch around two K2 LayerNorms at
-    inference, the fused route through K8 in training."""
+    residual, LN and MLP — the module path with K15 as its attention,
+    or in training, where K8 takes the shapes, the fused route."""
 
     def __init__(self, dim: int, window_size: int, overlap_ratio: float, num_heads: int,
                  qkv_bias: bool, mlp_ratio: float, gelu_approximate: bool):
@@ -183,9 +189,15 @@ class OCAB(nn.Module):
         self.proj = nn.Linear(dim, dim)
         self.norm2 = PLayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self._bias = DerivedCache()
+
+    def takes_k8(self) -> bool:
+        """Whether training runs the fused route (K8 takes the shapes)."""
+        return ocab_ok(self.window_size, self.overlap_win_size, self.proj.in_features,
+                       self.num_heads, self.mlp.fc1.out_features)
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
-        if self.training:
+        if self.training and self.takes_k8():
             return self._fused(x, plain)
         b, h, w, c = x.shape
         ws, ows, nh = self.window_size, self.overlap_win_size, self.num_heads
@@ -193,13 +205,15 @@ class OCAB(nn.Module):
         bq = None if self.qkv.bias is None else self.qkv.bias.to(dt)
         qkv = F.linear(self.norm1(x, plain), self.qkv.weight.to(dt), bq)
         q, k, v = qkv.chunk(3, dim=-1)
-        qw = window_partition(q, ws).reshape(-1, ws * ws, nh, hd)
-        kw = overlap_windows(k, ws, ows).reshape(-1, ows * ows, nh, hd)
-        vw = overlap_windows(v, ws, ows).reshape(-1, ows * ows, nh, hd)
-        attn = torch.einsum("wqhd,wkhd->whqk", qw.float() * hd ** -0.5, kw.float())
-        attn = attn + relative_position_bias_oca(self.relative_position_bias_table, ws, ows)[None]
-        attn = torch.softmax(attn, dim=-1).to(dt)
-        out = torch.einsum("whqk,wkhd->wqhd", attn, vw).reshape(-1, ws * ws, c)
+        # [B*nW, nH, N, hd]: ws^2 query rows, ows^2 key and value rows
+        qw = window_partition(q, ws).reshape(-1, ws * ws, nh, hd).transpose(1, 2)
+        kw = overlap_windows(k, ws, ows).reshape(-1, ows * ows, nh, hd).transpose(1, 2)
+        vw = overlap_windows(v, ws, ows).reshape(-1, ows * ows, nh, hd).transpose(1, 2)
+        table = self.relative_position_bias_table
+        bias = self._bias.get([table], (ws, ows, x.device),
+                              lambda: relative_position_bias_oca(table, ws, ows))
+        attend = fused_window_attention_plain if plain else fused_window_attention
+        out = attend(qw, kw, vw, bias, None, hd ** -0.5).transpose(1, 2).reshape(-1, ws * ws, c)
         out = window_reverse(out, ws, h, w)
         x = F.linear(out, self.proj.weight.to(dt), self.proj.bias.to(dt)) + x
         return x + self.mlp(self.norm2(x, plain), self.gelu_approximate)
