@@ -2,15 +2,15 @@
 """Drive the PyTorch port's SwinIR-M x4 serving and fine-tuning paths,
 its HAT x4 serving and training paths, its DAT x4 serving and training
 paths (the published DAT x4's widths among them) and its HAT-SRx4
-(upstream HAT, window 16) serving path once on one NVIDIA H100 and check
-them.  Run from the repository root:
+(upstream HAT, window 16) serving and training paths once on one NVIDIA
+H100 and check them.  Run from the repository root:
 
     python3 chip_smoke.py
 
 Phases (a failure in any raises, and the script exits non-zero):
 1. device   the card's name, compute capability 9.0, power limit;
 2. build    nvcc-compile the port's kernels from csrc/ (seconds, ptxas);
-3. kernels  each kernel (K1-K6, K9, K10, K14) against its plain PyTorch version at the
+3. kernels  each kernel against its plain PyTorch version at the
             main paths' shapes (K1 also with stochastic-depth branch
             scales and with HAT's `extra` at hat_fast's widths; K6, the
             ws-7 block, at HAT's tile batch with `extra` and at SwinIR's
@@ -49,7 +49,13 @@ Phases (a failure in any raises, and the script exits non-zero):
             against 100 keys), hat_fast's ([1600,6,64,16] against 144),
             HAT-SRx4's ([400,6,256,30] against 576) and its train step's
             ([128,...]), and square with the shift mask ([1600,6,64,30],
-            mask [64,64,64]), timed beside SDPA;
+            mask [64,64,64]), timed beside SDPA; then the ws-16 training
+            kernels at the HAT-SRx4 train step's shapes: K5w16 (the K7
+            route's block backward) at [8,64,64,180] shift 8 with `extra`
+            and branch scales, K8w16 and K8bw16 (the OCAB core and its
+            backward) on 128 windows of 256 queries x 576 keys, each
+            within 8 bf16 ulps (outputs, activation gradients) and 0.02
+            relative (parameter gradients);
 4. serve    SwinIR-M x4 (seeded random weights, exported to a .pth) behind
             SRService + make_server on 127.0.0.1, three PNG requests;
             status, size, finite output, launch counts per model call,
@@ -105,6 +111,16 @@ Phases (a failure in any raises, and the script exits non-zero):
             36, K15 6, K2 50, K3 8, K4 1, K1 = K6 = 0; the tiled output >= 50 dB against
             the plain fp32 path), the bench workload in MPix/s, kernels
             vs plain, and a torch.profiler split of one forward;
+10b. hat_srx4-train HAT-SRx4 training (hat_srx4_config(), drop path 0.1,
+            batch 8, --patch_size 64, L1, AdamW, clip 1.0) through
+            ``cli.train.main(--model hat --window_size 16 --embed_dim 180
+            --t_depths 6x6 --t_heads 6x6 --mlp_ratio 2 --device cuda)`` for
+            one epoch of 2 steps + validation; launches per step (K5w16
+            36, K8w16 6, K8bw16 6, K15 0), ms per step for the kernels and
+            the plain bf16 path, peak memory, the step's autograd graph
+            (no block or OCAB backward left to autograd of plain ops), a
+            profiled step split by part, and the first step's gradients
+            against the plain fp32 path;
 11. dat_x4  the published DAT x4 (split (8, 32), expansion 4; seeded
             random weights, perturbed BatchNorm statistics): its .pth
             behind SRService (which loads it at split (8, 16): K9 and K14
@@ -126,7 +142,7 @@ Phases (a failure in any raises, and the script exits non-zero):
 
 The second-to-last stdout line is a JSON object describing each kernel
 (launches summed over the serve, SwinIR ws-7, SwinIR-L, hat, dat,
-train, hat-train, hat_srx4, dat_x4 and dat-train phases); the last is
+train, hat-train, hat_srx4, hat_srx4-train, dat_x4 and dat-train phases); the last is
 {"ok": true, "device": {...}}.  There is no CPU path: with no CUDA
 device the script exits non-zero and prints no result.
 """
@@ -151,7 +167,7 @@ PSNR_MIN_DB = 50.0
 # [2^e, 2^(e+1))).  A kernel that rounds its bf16 output once is within
 # 1 ulp of the fp32 result; the bounds leave room for bf16 operands and
 # the plain version's own roundings.
-ULP_BOUND = {"K1": 8, "K1t": 8, "K2": 4, "K3": 4, "K4": 4, "K6": 8, "K7": 8, "K8": 8,
+ULP_BOUND = {"K1": 8, "K1t": 8, "K2": 4, "K3": 4, "K4": 4, "K6": 8, "K7": 8, "K8": 8, "K8w16": 8,
              "K9": 8, "K10": 8, "K11": 4, "K12": 8, "K14": 8, "K15": 8, "K16": 8}
 # The backward kernels (K5, K6b, K8b): each activation gradient (dx,
 # d extra; dq, dk, dv, d sw) within this many bf16 ulps at its max |ref|,
@@ -224,11 +240,21 @@ KERNELS = {
     "K15": dict(name="fused_window_attention", route="cuda",
                 source="tpu_superresolution_torch/csrc/batched_attn.cu",
                 replaces="tpu_superresolution_tpu/ops/pallas/window_attention.py:193"),
+    # K5, K8 and K8b at window 16 (HAT-SRx4 training): kernels of their own
+    "K5w16": dict(name="swin_block_bwd_ws16", route="cuda",
+                  source="tpu_superresolution_torch/csrc/swin_block_bwd16.cu",
+                  replaces="tpu_superresolution_tpu/ops/pallas/fused_block.py:1080"),
+    "K8w16": dict(name="ocab_ws16", route="cuda",
+                  source="tpu_superresolution_torch/csrc/ocab16.cu",
+                  replaces="tpu_superresolution_tpu/ops/pallas/fused_ocab.py:311"),
+    "K8bw16": dict(name="ocab_bwd_ws16", route="cuda",
+                   source="tpu_superresolution_torch/csrc/ocab16.cu",
+                   replaces="tpu_superresolution_tpu/ops/pallas/fused_ocab.py:354"),
 }
 # Launches per SwinIR-M x4 model call on the serving path (--no-exact).
-PER_CALL = {"K1": 36, "K1t": 0, "K2": 2, "K3": 8, "K4": 1, "K5": 0, "K6": 0, "K6b": 0,
-            "K7": 0, "K8": 0, "K8b": 0, "K9": 0, "K10": 0, "K11": 0, "K12": 0, "K14": 0,
-            "K15": 0, "K16": 0}
+PER_CALL = {"K1": 36, "K1t": 0, "K2": 2, "K3": 8, "K4": 1, "K5": 0, "K5w16": 0, "K6": 0,
+            "K6b": 0, "K7": 0, "K8": 0, "K8b": 0, "K8w16": 0, "K8bw16": 0, "K9": 0, "K10": 0,
+            "K11": 0, "K12": 0, "K14": 0, "K15": 0, "K16": 0}
 # Per HAT x4 model call (--no-exact): K6 per HAB (24); K12 per HAB's CAB
 # (24: its LN1 inside); K15 per OCAB's attention (4); K2 for patch_norm,
 # norm and each OCAB's two norms (8); K3 for the 4 RHAG convs,
@@ -276,7 +302,10 @@ DAT_X4_SERVE_PER_CALL = dict(PER_CALL, K1=0, K2=74, K3=8, K4=1, K9=18, K11=36, K
 TRAIN_BATCH = 8
 TRAIN_LR_PATCH = 64
 # Timed steps per train path, few enough to keep the script's phases
-# within ~3 minutes; a DAT step takes ~1 s (host-bound).
+# within ~4 minutes: the kernels of the SwinIR and HAT (ws 7) phases over
+# TRAIN_TIMED_STEPS after 4 warm-up steps; their plain bf16 paths, and
+# both paths of the DAT (~1 s a step, host-bound; its plain path after
+# 1) and HAT-SRx4 phases, over DAT_TIMED_STEPS after 2.
 TRAIN_TIMED_STEPS = 6
 DAT_TIMED_STEPS = 3
 TRAIN_PER_STEP = dict(PER_CALL, K5=36)
@@ -287,9 +316,7 @@ TRAIN_PER_STEP = dict(PER_CALL, K5=36)
 # of the plain version); K3 for the 4 RHAG convs, conv_after_body and
 # conv_before_upsample; K4 for the composed reconstruction.  hat_fast
 # runs K1 / K5 where hat runs K6 / K6b.
-HAT_TRAIN_PER_STEP = {"K1": 0, "K1t": 0, "K2": 6, "K3": 6, "K4": 1, "K5": 0, "K6": 24,
-                      "K6b": 24, "K7": 0, "K8": 4, "K8b": 4, "K9": 0, "K10": 0, "K11": 0,
-                      "K12": 24, "K14": 0, "K15": 0, "K16": 0}
+HAT_TRAIN_PER_STEP = dict(PER_CALL, K1=0, K2=6, K3=6, K6=24, K6b=24, K8=4, K8b=4, K12=24)
 HAT_FAST_TRAIN_PER_STEP = dict(HAT_TRAIN_PER_STEP, K1=24, K5=24, K6=0, K6b=0)
 # DAT x4 training (DATConfig(), batch 8 of 64^2 LR crops), per train step:
 # every block on the module chain (BatchNorm on batch statistics): K16 per
@@ -299,6 +326,19 @@ HAT_FAST_TRAIN_PER_STEP = dict(HAT_TRAIN_PER_STEP, K1=24, K5=24, K6=0, K6b=0)
 # conv_before_upsample, K4 for the composed reconstruction; no K9, K14,
 # K10.  K11's and K16's backwards are autograd of their plain versions.
 DAT_TRAIN_PER_STEP = dict(PER_CALL, K1=0, K2=110, K3=8, K4=1, K11=72, K16=36)
+# HAT-SRx4 training (hat_srx4_config(), batch 8 of 64^2 LR crops), per
+# train step: each HAB's CAB K12, LN1 K2, K7 and K1t forward and K5w16
+# backward, whose LN1 and qkv recompute are one K2 and one K7 launch
+# (36 each: K2 72, K7 72); each OCAB's LN1 K2 (6), K8w16 forward and
+# K8bw16 backward (6 each); K2 for patch_norm and norm; K3 for the 6 RHAG
+# convs, conv_after_body and conv_before_upsample; K4 for the composed
+# reconstruction.  No K15 (the OCABs take the fused route).
+HAT_SRX4_TRAIN_PER_STEP = dict(PER_CALL, K1=0, K1t=36, K2=80, K3=8, K4=1, K5w16=36, K7=72,
+                               K8w16=6, K8bw16=6, K12=36)
+# The ws-16 training kernels' activation gradients (dx, d extra; dq, dk,
+# dv, d sw) are held to this many bf16 ulps at each one's max |ref|, as
+# the forwards' outputs (ULP_BOUND), not to K5_DX_ULPS.
+W16_ULPS = 8
 # First step, kernels (bf16) vs the plain fp32 path from the same weights,
 # batch and stochastic-depth masks: bf16 activations keep ~3 significant
 # digits, so loss and grad norm agree to about a percent and every
@@ -456,22 +496,22 @@ def _swin_work(shape, c=180, hidden=360, backward=False, ws=8, extra=False):
 
 
 def _compare_grads(results, key, label, got, ref16, ref32, act_fields, param_fields,
-                   t_kernel, t_plain, work):
-    """A backward kernel's outputs: each activation gradient in bf16 ulps
-    at its max |ref|, each parameter gradient in relative Frobenius
-    error, against the plain version in fp32 (and bf16), beside the
-    plain bf16 version's own error."""
+                   t_kernel, t_plain, work, ulps=K5_DX_ULPS):
+    """A backward kernel's outputs: each activation gradient within
+    `ulps` bf16 ulps at its max |ref|, each parameter gradient in
+    relative Frobenius error, against the plain version in fp32 (and
+    bf16), beside the plain bf16 version's own error."""
     bad, errs = [], []
     for k in act_fields:
         a, r16, r32 = getattr(got, k).float(), getattr(ref16, k).float(), getattr(ref32, k).float()
         mag = float(r32.abs().max())
-        bound = K5_DX_ULPS * bf16_ulp(mag)
+        bound = ulps * bf16_ulp(mag)
         e32, e16 = float((a - r32).abs().max()), float((a - r16).abs().max())
         own = float((r16 - r32).abs().max())
         ok = math.isfinite(e32) and e32 <= bound and e16 <= bound
         errs.append(e32)
         log(f"[kernels] {key} {label} {k if k.startswith('d') else 'd' + k}: max_abs_err vs plain fp32 {e32:.3e}, vs plain bf16 "
-            f"{e16:.3e} (bound {bound:.3e} = {K5_DX_ULPS} bf16 ulp at max|ref| {mag:.3f}; "
+            f"{e16:.3e} (bound {bound:.3e} = {ulps} bf16 ulp at max|ref| {mag:.3f}; "
             f"plain bf16 vs fp32 {own:.3e}) {'ok' if ok else 'FAIL'}")
         if not ok:
             bad.append(k)
@@ -733,6 +773,80 @@ def phase_train_kernels(res):
                        fused_ocab.GRAD_FIELDS + ("bias",), cuda_ms(runb), cuda_ms(plainb),
                        _ocab_work(windows, nq, nk, c, nh, hidden, backward=True))
         del out, got, ref16, ref32
+    return res
+
+
+def phase_w16_kernels(res):
+    """The ws-16 training kernels at the HAT-SRx4 train step's shapes
+    (``hat_srx4_config()``, batch 8 of 64^2 LR crops): K5w16, the K7
+    route's block backward, at [8,64,64,180] shift 8 with the mask,
+    `extra` and branch scales, on dx, d extra and the 13 parameter
+    gradients (its call includes the K2 and K7 launches that recompute
+    LN1 and qkv); K8w16 and K8bw16, the OCAB core and its backward, on
+    the step's 128 windows of 256 queries x 576 keys, C 180, hidden 360.
+    Each against its plain version in bf16 and fp32, within W16_ULPS bf16
+    ulps (outputs, activation gradients) and K5_REL_BOUND (parameter
+    gradients), with times and bounds, into `res`."""
+    import torch
+
+    from tpu_superresolution_torch.kernels import fused_ocab
+    from tpu_superresolution_torch.kernels.fused_block import (
+        GRAD_FIELDS,
+        fused_swin_block_backward,
+        pack_block_weights,
+        swin_block_bwd_plain,
+    )
+    from tpu_superresolution_torch.ops.window import shift_mask_tensor
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 7)
+    bf = torch.bfloat16
+    scales = torch.tensor([[1.0 / 0.9, 0.0], [1.0 / 0.9, 1.0 / 0.9]] * 4, device=dev)
+    c, nh, hidden, ws, shift = 180, 6, 360, 16, 8
+    shape = (8, 64, 64, c)
+    wb = _random_block(gen, dev, c, nh, hidden, ws)
+    pk = pack_block_weights(wb)
+    x = torch.randn(*shape, generator=gen).to(dev, bf)
+    ct = (0.1 * torch.randn(*shape, generator=gen)).to(dev, bf)
+    ex = (0.05 * torch.randn(*shape, generator=gen)).to(dev, bf)
+    mask = shift_mask_tensor(shape[1], shape[2], ws, shift, dev)
+    run = lambda: fused_swin_block_backward(ct, x, wb, ws, shift, mask, True, scales, packed=pk,
+                                            extra=ex)
+    plain = lambda: swin_block_bwd_plain(ct, x, wb, ws, shift, mask, True, scales, ex)
+    got = run()
+    ref16 = plain()
+    ref32 = swin_block_bwd_plain(ct.float(), x.float(), wb, ws, shift, mask, True, scales,
+                                 ex.float())
+    torch.cuda.synchronize()
+    _compare_grads(res, "K5w16", f"{list(shape)} ws {ws} shift {shift} extra, branch scales",
+                   got, ref16, ref32, ("dx", "extra"), GRAD_FIELDS, cuda_ms(run), cuda_ms(plain),
+                   _swin_work(shape, c, hidden, backward=True, ws=ws, extra=True), ulps=W16_ULPS)
+    del got, ref16, ref32
+
+    windows, nq, nk = 128, 256, 576
+    w = _random_ocab(gen, dev, c, nh, hidden)
+    rnd = lambda *shape, sc=1.0: (sc * torch.randn(*shape, generator=gen)).to(dev, bf)
+    q, k, v, sw = rnd(windows, nq, c, sc=0.25), rnd(windows, nk, c), rnd(windows, nk, c), \
+        rnd(windows, nq, c)
+    bias = (0.5 * torch.randn(nh, nq, nk, generator=gen)).to(dev)
+    ct = rnd(windows, nq, c, sc=0.1)
+    f32 = [t.float() for t in (q, k, v, sw)]
+    label = f"{windows} windows, {nq} queries x {nk} keys, C {c}, hidden {hidden}"
+    run = lambda: fused_ocab.fused_ocab_core(q, k, v, sw, w, bias, True)
+    plain = lambda: fused_ocab.ocab_core_plain(q, k, v, sw, w, bias, True)
+    out = run()
+    _compare(res, "K8w16", label, out, plain(), fused_ocab.ocab_core_plain(*f32, w, bias, True),
+             cuda_ms(run), cuda_ms(plain), _ocab_work(windows, nq, nk, c, nh, hidden))
+    runb = lambda: fused_ocab.fused_ocab_core_backward(ct, q, k, v, sw, w, bias, True)
+    plainb = lambda: fused_ocab.ocab_core_bwd_plain(ct, q, k, v, sw, w, bias, True)
+    got = runb()
+    ref16 = plainb()
+    ref32 = fused_ocab.ocab_core_bwd_plain(ct.float(), *f32, w, bias, True)
+    torch.cuda.synchronize()
+    _compare_grads(res, "K8bw16", label, got, ref16, ref32, ("dq", "dk", "dv", "dsw"),
+                   fused_ocab.GRAD_FIELDS + ("bias",), cuda_ms(runb), cuda_ms(plainb),
+                   _ocab_work(windows, nq, nk, c, nh, hidden, backward=True), ulps=W16_ULPS)
+    del out, got, ref16, ref32
     return res
 
 
@@ -1843,7 +1957,8 @@ def phase_train(workdir, smi):
         model.load_state_dict(src.state_dict())
         st = _train_state(model, steps)
         gen = torch.Generator().manual_seed(SEED)
-        for _ in range(3):
+        warm, timed = (3, TRAIN_TIMED_STEPS) if label == "kernels" else (1, DAT_TIMED_STEPS)
+        for _ in range(warm):
             step(st, lr, hr, gen)
         torch.cuda.synchronize()
         reset_counters()
@@ -1851,7 +1966,7 @@ def phase_train(workdir, smi):
         torch.cuda.synchronize()
         per_step = read_counters()
         dts = []
-        for _ in range(TRAIN_TIMED_STEPS):
+        for _ in range(timed):
             t0 = time.perf_counter()
             m = step(st, lr, hr, gen)
             torch.cuda.synchronize()
@@ -1859,7 +1974,7 @@ def phase_train(workdir, smi):
         ms = statistics.median(dts) * 1e3
         times[label] = ms
         log(f"[train] {label} bf16 path: launches per step {per_step}; median "
-            f"{ms:.2f} ms/step over {TRAIN_TIMED_STEPS} steps after 4 warm-up "
+            f"{ms:.2f} ms/step over {timed} steps after {warm + 1} warm-up "
             f"(min {min(dts) * 1e3:.2f}, max {max(dts) * 1e3:.2f}), "
             f"{batch / ms * 1e3:.1f} images/s; loss {float(m['loss']):.6f} ({smi})")
         if label == "kernels":
@@ -2046,7 +2161,8 @@ def phase_hat_train(workdir, smi):
         model.load_state_dict(src.state_dict())
         st = _train_state(model, steps)
         gen = torch.Generator().manual_seed(SEED)
-        for _ in range(3):
+        warm, timed = (3, TRAIN_TIMED_STEPS) if label == "kernels" else (1, DAT_TIMED_STEPS)
+        for _ in range(warm):
             step(st, lr, hr, gen)
         torch.cuda.synchronize()
         reset_counters()
@@ -2054,14 +2170,14 @@ def phase_hat_train(workdir, smi):
         torch.cuda.synchronize()
         per_step = read_counters()
         dts = []
-        for _ in range(TRAIN_TIMED_STEPS):
+        for _ in range(timed):
             t0 = time.perf_counter()
             m = step(st, lr, hr, gen)
             torch.cuda.synchronize()
             dts.append(time.perf_counter() - t0)
         ms = statistics.median(dts) * 1e3
         log(f"[hat-train] {label} bf16 path: launches per step {per_step}; median {ms:.2f} "
-            f"ms/step over {TRAIN_TIMED_STEPS} steps after 4 warm-up (min "
+            f"ms/step over {timed} steps after {warm + 1} warm-up (min "
             f"{min(dts) * 1e3:.2f}, max {max(dts) * 1e3:.2f}), {batch / ms * 1e3:.1f} images/s; "
             f"loss {float(m['loss']):.6f} ({smi})")
         if label == "kernels":
@@ -2108,6 +2224,144 @@ def phase_hat_train(workdir, smi):
     del model, st
     _first_step_gate(fcfg, fsrc, lr, hr, "hat-train hat_fast", smi)
     return [launches, per_step_all, fast]
+
+
+def phase_hat_srx4_train(workdir, smi):
+    """HAT-SRx4 training: the train CLI (``--model hat --window_size 16
+    --embed_dim 180 --t_depths 6,6,6,6,6,6 --t_heads 6,6,6,6,6,6
+    --mlp_ratio 2``, which builds ``hat_srx4_config()``; batch 8,
+    --patch_size 64, L1, AdamW, clip 1.0) for one epoch of 2 steps plus
+    validation on a synthetic DeepRock tree; then per-step launches
+    (exactly HAT_SRX4_TRAIN_PER_STEP), ms per step for the kernels and the
+    plain bf16 path, the peak device memory, the autograd graph of a step
+    (every HAB's backward WindowBlockFunction's, i.e. K5w16, every OCAB's
+    OcabCoreFunction's, i.e. K8bw16, and none left to autograd of plain
+    ops), a profiled step split by part, and the first step's gradients
+    against the plain fp32 path.  Returns the launches of the CLI run and
+    of the counted step."""
+    import numpy as np
+    import torch
+
+    from tpu_superresolution_torch.cli.train import main as train_main
+    from tpu_superresolution_torch.core.config import build_model
+    from tpu_superresolution_torch.kernels import read_counters, reset_counters
+    from tpu_superresolution_torch.train.engine import make_train_step
+
+    batch, patch, scale = TRAIN_BATCH, TRAIN_LR_PATCH, 4
+    n_train, n_valid = 2 * batch, 2
+    data = f"{workdir}/deeprock_hat_srx4"
+    _write_deeprock(data, n_train, n_valid, hr_size=320, scale=scale, seed=SEED + 8)
+    cfg = hat_srx4_config()
+
+    # 1. the entry point: one epoch of 2 steps + validation of 2 images
+    reset_counters()
+    t0 = time.perf_counter()
+    trainer, state = train_main([
+        "--data_root", data, "--scale", "X4", "--model", "hat", "--window_size", "16",
+        "--embed_dim", "180", "--t_depths", "6,6,6,6,6,6", "--t_heads", "6,6,6,6,6,6",
+        "--mlp_ratio", "2", "--epochs", "1", "--batch_size", str(batch), "--patch_size",
+        str(patch), "--loss", "l1", "--workdir", f"{workdir}/hat_srx4_run", "--seed", str(SEED),
+        "--device", "cuda"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_counters()
+    steps, val_calls = n_train // batch, 1
+    expect = {k: steps * HAT_SRX4_TRAIN_PER_STEP[k] + val_calls * HAT_SRX4_PER_CALL[k]
+              for k in HAT_SRX4_TRAIN_PER_STEP}
+    log(f"[hat_srx4-train] train CLI, HAT-SRx4 (window 16, embed 180, depths 6x6, mlp 2, "
+        f"drop_path_rate {trainer.model_config.drop_path_rate}), batch {batch}, patch {patch}: "
+        f"{steps} steps + validation in {cli_s:.1f} s (incl. the first steps' set-up); train "
+        f"loss {trainer.history['train'][0]:.6f}, val PSNR {trainer.best_val_psnr:.2f} dB; "
+        f"launches {launches} (expected {expect}) ({smi})")
+    if trainer.model_config != cfg:
+        raise RuntimeError(f"the CLI built {trainer.model_config}, not {cfg}")
+    if state.step != steps or not math.isfinite(trainer.history["train"][0]):
+        raise RuntimeError(f"train CLI: {state.step} steps, loss {trainer.history['train']}")
+    if launches != expect:
+        raise RuntimeError(f"HAT-SRx4 train CLI launches {launches}, expected {expect}")
+    del trainer, state
+
+    # 2. one step's launches, the step's graph, step times (kernels vs
+    # plain bf16), peak memory, a split
+    rng = np.random.default_rng(SEED + 9)
+    lr = torch.from_numpy(rng.random((batch, patch, patch, 3), dtype=np.float32)).cuda()
+    hr = torch.from_numpy(
+        rng.random((batch, patch * scale, patch * scale, 3), dtype=np.float32)).cuda()
+    step = make_train_step("l1", "native_lr", scale, patch, False)
+    src = build_model(cfg)
+    src.reset_parameters(torch.Generator().manual_seed(SEED))
+    per_step_all, times = {}, {}
+    for label, impl in (("kernels", "auto"), ("plain", "plain")):
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(cfg, dtype=torch.bfloat16, impl=impl, device="cuda")
+        model.load_state_dict(src.state_dict())
+        st = _train_state(model, steps)
+        gen = torch.Generator().manual_seed(SEED)
+        step(st, lr, hr, gen)
+        torch.cuda.synchronize()
+        reset_counters()
+        step(st, lr, hr, gen)
+        torch.cuda.synchronize()
+        per_step = read_counters()
+        dts = []
+        for _ in range(DAT_TIMED_STEPS):
+            t0 = time.perf_counter()
+            m = step(st, lr, hr, gen)
+            torch.cuda.synchronize()
+            dts.append(time.perf_counter() - t0)
+        ms = statistics.median(dts) * 1e3
+        times[label] = ms
+        log(f"[hat_srx4-train] {label} bf16 path: launches per step {per_step}; median "
+            f"{ms:.2f} ms/step over {DAT_TIMED_STEPS} steps after 2 warm-up (min "
+            f"{min(dts) * 1e3:.2f}, max {max(dts) * 1e3:.2f}), {batch / ms * 1e3:.1f} "
+            f"images/s; loss {float(m['loss']):.6f}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB ({smi})")
+        if label == "kernels":
+            if per_step != HAT_SRX4_TRAIN_PER_STEP:
+                raise RuntimeError(f"HAT-SRx4 launches per train step {per_step}, expected "
+                                   f"{HAT_SRX4_TRAIN_PER_STEP}")
+            per_step_all = per_step
+            _check_backward_nodes(model, lr, hr, cfg)
+            _hat_train_split(st, lr, hr, ms, smi, tag="hat_srx4-train")
+        else:
+            if any(per_step.values()):
+                raise RuntimeError(f"the plain path launched kernels: {per_step}")
+            _profile_step(step, st, lr, hr, gen, tag="hat_srx4-train plain bf16")
+        del model, st
+    log(f"[hat_srx4-train] kernels {times['kernels']:.2f} ms/step, plain bf16 "
+        f"{times['plain']:.2f} ms/step ({times['plain'] / times['kernels']:.2f}x) ({smi})")
+
+    # 3. the first step's gradients against the plain fp32 path
+    _first_step_gate(cfg, src, lr, hr, "hat_srx4-train", smi)
+    return [launches, per_step_all]
+
+
+def _check_backward_nodes(model, lr, hr, cfg):
+    """The autograd graph of one HAT-SRx4 train-mode forward: each HAB's
+    block is one WindowBlockFunction (backward K5w16) and each OCAB core
+    one OcabCoreFunction (backward K8bw16); no K7, K1t or K15 autograd
+    function, whose backwards are autograd of plain ops, is in it."""
+    import torch
+
+    model.train()
+    loss = (model(lr, generator=torch.Generator().manual_seed(SEED)).float() - hr).abs().mean()
+    counts, seen, todo = {}, set(), [loss.grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        counts[type(fn).__name__] = counts.get(type(fn).__name__, 0) + 1
+        todo.extend(f for f, _ in fn.next_functions)
+    blocks = sum(cfg.depths)
+    want = {"WindowBlockFunctionBackward": blocks, "OcabCoreFunctionBackward": len(cfg.depths)}
+    plain = ("WindowAttentionFunctionBackward", "BlockTailFunctionBackward",
+             "BatchedWindowAttentionFunctionBackward", "SwinBlockFunctionBackward")
+    got = {k: counts.get(k, 0) for k in list(want) + list(plain)}
+    log(f"[hat_srx4-train] autograd graph of a step: {len(seen)} nodes; {got}")
+    if any(got[k] != v for k, v in want.items()) or any(got[k] for k in plain):
+        raise RuntimeError(f"HAT-SRx4 backward nodes {got}, expected {want} and none of {plain}")
+    del loss
 
 
 def phase_dat_train(workdir, smi):
@@ -2175,7 +2429,9 @@ def phase_dat_train(workdir, smi):
         model.load_state_dict(src.state_dict())
         st = _train_state(model, steps)
         gen = torch.Generator().manual_seed(SEED)
-        step(st, lr, hr, gen)
+        warm = 1 if label == "kernels" else 0  # the plain path's counted step warms it
+        for _ in range(warm):
+            step(st, lr, hr, gen)
         torch.cuda.synchronize()
         reset_counters()
         step(st, lr, hr, gen)
@@ -2189,7 +2445,7 @@ def phase_dat_train(workdir, smi):
             dts.append(time.perf_counter() - t0)
         ms = statistics.median(dts) * 1e3
         log(f"[dat-train] {label} bf16 path: launches per step {per_step}; median {ms:.2f} "
-            f"ms/step over {DAT_TIMED_STEPS} steps after 2 warm-up (min "
+            f"ms/step over {DAT_TIMED_STEPS} steps after {warm + 1} warm-up (min "
             f"{min(dts) * 1e3:.2f}, max {max(dts) * 1e3:.2f}), {batch / ms * 1e3:.1f} images/s; "
             f"loss {float(m['loss']):.6f}; peak memory "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB ({smi})")
@@ -2279,7 +2535,7 @@ def _dat_train_split(state, lr, hr, step_ms, smi):
         f"{[(n[:60], c) for n, c in top]}")
 
 
-def _hat_train_split(state, lr, hr, step_ms, smi):
+def _hat_train_split(state, lr, hr, step_ms, smi, tag="hat-train"):
     """Where one HAT train step spends its device time, under
     torch.profiler: the forward's kernels by name (the block kernel K6 /
     K1, K8, K12, K2-K4) and its plain ops by the module range that
@@ -2319,14 +2575,14 @@ def _hat_train_split(state, lr, hr, step_ms, smi):
             wall = (time.perf_counter() - t0) * 1e3
         events = prof.events()
     except Exception as e:  # the profile is a reading aid, not a check
-        log(f"[hat-train] profiler failed: {type(e).__name__}: {e}")
+        log(f"[{tag}] profiler failed: {type(e).__name__}: {e}")
         return
     finally:
         for h in handles:
             h.remove()
     kernels = _device_kernels(prof)
     if not kernels:
-        log(f"[hat-train] profiler: no device events recorded")
+        log(f"[{tag}] profiler: no device events recorded")
         return
     cpu = torch.autograd.DeviceType.CPU
     # the phases by their host-side spans, cut where one ends and the
@@ -2340,7 +2596,11 @@ def _hat_train_split(state, lr, hr, step_ms, smi):
              and getattr(e, "is_user_annotation", False) and e.name in parts.values()]
     us = lambda e: getattr(e, "device_time", 0.0) or getattr(e, "cuda_time", 0.0)
     fwd_names = (("forward K6 / K1 (swin_block_kernel)", ("swin_block_kernel",)),
-                 ("forward K8 (ocab_fwd_kernel)", ("ocab_fwd_kernel",)),
+                 ("forward K8 (ocab_fwd_kernel / ocab16_fwd_kernel)", ("ocab_fwd_kernel",
+                                                                       "ocab16_fwd_kernel")),
+                 ("forward K7 (qkv_gemm_kernel, window_attn_kernel)", ("qkv_gemm_kernel",
+                                                                       "window_attn_kernel")),
+                 ("forward K1t swin_tail_kernel", ("swin_tail_kernel",)),
                  ("forward K12 ln_cab_convs_kernel", ("ln_cab_convs_kernel",)),
                  ("forward K2-K4", ("layernorm_rows", "conv_nhwc")))
     by_span = (("hat::cab", "forward CAB SE gate (plain ops)"),
@@ -2348,7 +2608,9 @@ def _hat_train_split(state, lr, hr, step_ms, smi):
                ("hat::hab", "forward HAB plain ops (shift and partition gathers)"))
     bwd_nodes = (("backward K6b / K5 (per-window, weight grads, reductions)",
                   "SwinBlockFunctionBackward"),
-                 ("backward K8b (per-window, weight grads, reductions)",
+                 ("backward K5w16 (K2 + K7 qkv recompute, per-window, weight grads, "
+                  "reductions)", "WindowBlockFunctionBackward"),
+                 ("backward K8b / K8bw16 (per-window, weight grads, reductions)",
                   "OcabCoreFunctionBackward"),
                  ("backward K12 (autograd of the plain LN + CAB convs)",
                   "CabConvsFunctionBackward"),
@@ -2396,14 +2658,14 @@ def _hat_train_split(state, lr, hr, step_ms, smi):
     groups[rest] = max(bwd_total - named, 0.0)
     busy = sum(groups.values())
     idle = max(wall - busy, 0.0)
-    log(f"[hat-train] profiled step: {wall:.2f} ms wall (profiler on, a synchronise after each "
+    log(f"[{tag}] profiled step: {wall:.2f} ms wall (profiler on, a synchronise after each "
         f"phase), {len(kernels)} device kernels, busy {busy:.2f} ms ({busy / wall:.1%}), idle "
         f"{idle:.2f} ms ({idle / wall:.1%}); against the unprofiled median step {step_ms:.2f} "
         f"ms: busy {busy / step_ms:.1%}, idle {max(step_ms - busy, 0.0):.2f} ms; backward "
         f"{bwd_total:.2f} ms of device time, {named:.2f} of it attributed to the kernels' "
         f"autograd nodes ({smi})")
     for g, t in groups.items():
-        log(f"[hat-train]   {t:8.3f} ms  {t / wall:6.1%}  {g}")
+        log(f"[{tag}]   {t:8.3f} ms  {t / wall:6.1%}  {g}")
 
 
 def _range_hooks(model, parts):
@@ -2459,25 +2721,25 @@ def _packing_cost(model):
         f"({n / len(weights):.0f} per block), {ms:.2f} ms (host and device, synchronised)")
 
 
-def _profile_step(step, state, lr, hr, gen):
-    """torch.profiler over one train step: device time by kernel name
-    and the step's CUDA kernel count (the weight packing's small ops
-    included)."""
+def _profile_step(step, state, lr, hr, gen, tag="train"):
+    """torch.profiler over one train step, device activity only (no host
+    events to process): device time by kernel name and the step's CUDA
+    kernel count (the weight packing's small ops included)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             step(state, lr, hr, gen)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         kernels = _device_kernels(prof)
     except Exception as e:  # the profile is a reading aid, not a check
-        log(f"[train] profiler failed: {type(e).__name__}: {e}")
+        log(f"[{tag}] profiler failed: {type(e).__name__}: {e}")
         return
     if not kernels:
-        log("[train] profiler: no device events recorded")
+        log(f"[{tag}] profiler: no device events recorded")
         return
     us = lambda e: getattr(e, "device_time", 0.0) or getattr(e, "cuda_time", 0.0)
     busy = sum(us(e) for e in kernels) / 1e3
@@ -2487,11 +2749,11 @@ def _profile_step(step, state, lr, hr, gen):
         by_name[e.name] = (n + 1, t + us(e) / 1e3)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     small = sum(n for n, t in by_name.values() if t / max(n, 1) < 0.01)
-    log(f"[train] profiled step: {wall:.2f} ms wall (profiler on), {len(kernels)} device "
+    log(f"[{tag}] profiled step: {wall:.2f} ms wall (profiler on), {len(kernels)} device "
         f"kernels, device busy {busy:.2f} ms ({busy / wall:.1%}); kernels under 10 us "
         f"each: {small}")
     for name, (n, t) in top:
-        log(f"[train]   {t:8.3f} ms  x{n:<4d} {name[:90]}")
+        log(f"[{tag}]   {t:8.3f} ms  x{n:<4d} {name[:90]}")
 
 
 def main() -> int:
@@ -2512,8 +2774,9 @@ def main() -> int:
         return out
 
     timed("build", phase_build)
-    kres = timed("kernels", lambda: phase_rect_attention_kernels(phase_dat_train_kernels(
-        phase_window_kernels(phase_dat_kernels(phase_train_kernels(phase_kernels()))))))
+    kres = timed("kernels", lambda: phase_w16_kernels(phase_rect_attention_kernels(
+        phase_dat_train_kernels(phase_window_kernels(phase_dat_kernels(
+            phase_train_kernels(phase_kernels())))))))
     _lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_lib.BUILD_DIR) as workdir:
         service, launches = timed("serve", phase_serve, workdir, SwinIRConfig(scale=4),
@@ -2527,6 +2790,7 @@ def main() -> int:
         train_launches, _ = timed("train", phase_train, workdir, smi)
         hat_train_launches = timed("hat-train", phase_hat_train, workdir, smi)
         srx4_launches = timed("hat_srx4", phase_hat_srx4, workdir, smi)
+        srx4_train_launches = timed("hat_srx4-train", phase_hat_srx4_train, workdir, smi)
         dat_x4_launches = timed("dat_x4", phase_dat_x4, workdir, smi)
         dat_train_launches = timed("dat-train", phase_dat_train, workdir, smi)
 
@@ -2539,7 +2803,7 @@ def main() -> int:
             launches=sum(d.get(key, 0) for d in [launches, ws7_launches, swinir_l_launches,
                                                  hat_launches, dat_launches, train_launches,
                                                  srx4_launches, dat_x4_launches]
-                         + hat_train_launches + dat_train_launches),
+                         + hat_train_launches + dat_train_launches + srx4_train_launches),
             max_abs_err=max(r["err"] for r in kres[key]),
             ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
             bound_by=first["bound_by"], library_ms=first["library_ms"],

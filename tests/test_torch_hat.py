@@ -283,9 +283,10 @@ def build_exact(cfg):
 
 def test_hat_ws16_training_runs_on_cpu_and_names_the_k8_item():
     """At window 16 HAT trains on the CPU through the route it takes on
-    CUDA: the K7 route's HABs and K12 CABs, and OCABs on K15's module path
-    (K8 does not take ws 16, so the OCAB never calls it); K8's own check
-    still refuses ws 16, naming the ROADMAP item that would let it."""
+    CUDA: the K7 route's HABs and K12 CABs, and OCABs on the fused route
+    through K8's plain version (K8w16 / K8bw16 on the card), never K15's
+    module path; K8's own check takes ws 16 and names the module path for
+    a window it does not take."""
     from tpu_superresolution_torch.core.config import HATConfig, build_model
     from tpu_superresolution_torch.kernels import fused_ocab, read_counters, reset_counters
     from tpu_superresolution_torch.kernels import window_attention as kw
@@ -295,7 +296,7 @@ def test_hat_ws16_training_runs_on_cpu_and_names_the_k8_item():
                                   squeeze_factor=6))
     model.train()
     ocab = model.layers[0].residual_group.overlap_attn
-    assert not ocab.takes_k8()
+    assert ocab.takes_k8()
     calls = []
     real_k8, real_k15 = fused_ocab.ocab_core_plain, kw.fused_window_attention_plain
     reset_counters()
@@ -305,13 +306,13 @@ def test_hat_ws16_training_runs_on_cpu_and_names_the_k8_item():
         model(torch.rand(1, 16, 16, 3), generator=torch.Generator().manual_seed(0)).mean().backward()
     finally:
         fused_ocab.ocab_core_plain, kw.fused_window_attention_plain = real_k8, real_k15
-    assert calls == ["k15"]
+    assert calls == ["k8"]
     assert not any(read_counters().values())
     assert all(p.grad is not None for p in model.parameters())
     weights = OcabWeights(
         wproj=ocab.proj.weight, bproj=ocab.proj.bias, g2=ocab.norm2.weight, b2=ocab.norm2.bias,
         wfc1=ocab.mlp.fc1.weight, bfc1=ocab.mlp.fc1.bias, wfc2=ocab.mlp.fc2.weight,
         bfc2=ocab.mlp.fc2.bias, num_heads=2)
-    with pytest.raises(ValueError,
-                       match="K15's path there; ROADMAP Queue 2: K8 and K8b at ws 16"):
-        check_ocab_args((4, 256, 24), (4, 576, 24), (4, 256, 24), weights, (2, 256, 576))
+    check_ocab_args((4, 256, 24), (4, 576, 24), (4, 256, 24), weights, (2, 256, 576))
+    with pytest.raises(ValueError, match="K15's module path there"):
+        check_ocab_args((4, 144, 24), (4, 324, 24), (4, 144, 24), weights, (2, 144, 324))

@@ -174,7 +174,8 @@ def test_hat_gradients_match_jax(overrides, hw):
     (K6 / K1 with `extra` and their Pallas backwards, K8 and its
     backward).  At ws 16 (upstream HAT-SRx4's window, reflect-padded to
     32 x 32 with the shift on) the port's HABs take the K7 route and its
-    OCABs K15's module path, against the JAX module path."""
+    OCABs the fused route (K8's plain version), against the JAX module
+    path."""
     from tpu_superresolution_torch.interop import hat_state_dict_from_jax
 
     cfg = small_hat_config(drop_path_rate=0.0, **overrides)
@@ -192,7 +193,7 @@ def test_hat_gradients_match_jax(overrides, hw):
 
     model = port_from_jax(cfg, variables).train()
     takes_k8 = [layer.residual_group.overlap_attn.takes_k8() for layer in model.layers]
-    assert takes_k8 == [cfg.window_size != 16] * len(model.layers)
+    assert all(takes_k8)
     loss = (model(torch.from_numpy(lr)) - torch.from_numpy(hr)).abs().mean()
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)

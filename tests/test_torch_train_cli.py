@@ -83,15 +83,15 @@ def test_train_cli_checkpoint_upscales_as_hat(trained, tmp_path):
 def test_train_cli_trains_hat_at_window_16(trained, tmp_path):
     """``train --model hat --window_size 16`` (upstream HAT-SRx4's window)
     takes its steps on the CPU: the HABs on the K7 route, the OCABs on
-    K15's module path (K8 does not take ws 16), a finite loss and
-    validation PSNR."""
+    the fused route (K8 takes ws 16), a finite loss and validation
+    PSNR."""
     from tpu_superresolution_torch.cli.train import main
 
     trainer, state = main(["--data_root", str(trained[0]), "--scale", "X4", "--workdir",
                            str(tmp_path), "--device", "cpu"] + TINY
                           + ["--window_size", "16", "--patch_size", "16"])
     assert state.step == 2 and state.model.config.window_size == 16
-    assert not any(layer.residual_group.overlap_attn.takes_k8() for layer in state.model.layers)
+    assert all(layer.residual_group.overlap_attn.takes_k8() for layer in state.model.layers)
     assert np.isfinite(trainer.history["train"][0]) and np.isfinite(trainer.best_val_psnr)
 
 
@@ -124,3 +124,26 @@ def test_train_cli_raises_without_a_gpu(trained, monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--data_root", str(trained[0]), "--scale", "X4", "--workdir", str(tmp_path)]
              + TINY)
+
+
+def test_train_cli_mlp_ratio_builds_hat_srx4():
+    """``--mlp_ratio`` resizes the MLP: upstream HAT-SRx4's flags give its
+    config (window 16, embed 180, depths and heads 6x6, mlp 2), whose
+    blocks and OCABs the ws-16 training kernels take; a family without
+    the field refuses it."""
+    from tpu_superresolution_torch.cli.train import build_argparser, model_config_from_args
+    from tpu_superresolution_torch.kernels.fused_block import k5w16_ok
+    from tpu_superresolution_torch.kernels.fused_ocab import ocab_ok
+
+    flags = ["--data_root", "d", "--scale", "X4", "--model", "hat", "--window_size", "16",
+             "--embed_dim", "180", "--t_depths", "6,6,6,6,6,6", "--t_heads", "6,6,6,6,6,6"]
+    default = model_config_from_args(build_argparser().parse_args(flags))
+    cfg = model_config_from_args(build_argparser().parse_args(flags + ["--mlp_ratio", "2"]))
+    assert default.mlp_ratio == 4.0 and cfg.mlp_ratio == 2.0
+    hidden = int(cfg.embed_dim * cfg.mlp_ratio)
+    assert k5w16_ok(cfg.window_size, cfg.embed_dim, 6, hidden)
+    assert ocab_ok(16, 24, cfg.embed_dim, 6, hidden)
+    assert not k5w16_ok(16, 180, 6, int(180 * default.mlp_ratio))
+    with pytest.raises(SystemExit, match="mlp_ratio"):
+        model_config_from_args(build_argparser().parse_args(
+            ["--data_root", "d", "--scale", "X4", "--model", "dat", "--mlp_ratio", "2"]))

@@ -153,7 +153,7 @@ _ROUTE_CASES = [
     (7, 24, 2, 2.0, True, "k8"),     # HAT's ws 7 within K8's widths
     (8, 24, 2, 2.0, True, "k8"),     # hat_fast's ws 8
     (7, 96, 6, 4.0, True, "k8"),     # HATConfig(): hidden 384, K8's largest
-    (16, 24, 2, 2.0, True, "k15"),   # upstream HAT-SRx4's window
+    (16, 24, 2, 2.0, True, "k8"),    # upstream HAT-SRx4's window
     (7, 240, 8, 2.0, True, "k15"),   # C > 192 (8 heads)
     (7, 120, 6, 4.0, True, "k15"),   # hidden 480 > 384
     (7, 24, 2, 2.0, False, "k15"),   # inference: always the module path
@@ -166,7 +166,7 @@ _ROUTE_CASES = [
                               for w, c, h, m, t, _ in _ROUTE_CASES])
 def test_ocab_route_by_shape(ws, c, nh, mlp, training, route, monkeypatch):
     """The OCAB takes K8's fused route in training exactly where
-    fused_ocab.ocab_ok holds (ws 7 / ows 10 or ws 8 / ows 12, C <= 192,
+    fused_ocab.ocab_ok holds (ws 7 / ows 10, ws 8 / ows 12 or ws 16 / ows 24, C <= 192,
     hd <= 32, <= 6 heads, hidden <= 384), and K15's module path
     everywhere else and at inference; the route is decided from shapes,
     the same on the CPU as on CUDA."""

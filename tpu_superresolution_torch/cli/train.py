@@ -11,8 +11,11 @@ reference train.py:183-423):
 package's default) and ``unet2d`` are still to port (ROADMAP.md Queue 1
 item 2) and exit with that message.  The transformer overrides
 ``--embed_dim``, ``--t_depths``, ``--t_heads`` and ``--window_size``
-resize the family's default config; one its config lacks (DAT has no
-``--window_size``) exits, as in the JAX CLI.  Weights start from the reference
+resize the family's default config, as in the JAX CLI, and
+``--mlp_ratio`` (not in the JAX CLI) its MLP width: HAT's default is 4,
+upstream HAT-SRx4's 2 (``--window_size 16 --embed_dim 180 --t_depths
+6,6,6,6,6,6 --t_heads 6,6,6,6,6,6 --mlp_ratio 2``); an override its
+config lacks (DAT has no ``--window_size``) exits.  Weights start from the reference
 initialisation drawn from ``--seed``; ``--resume`` restores a ``.pt`` /
 ``.pth`` checkpoint this CLI or ``finetune`` wrote (weights, and the
 optimizer state, step and EMA unless ``--finetune``).  Each validated
@@ -110,6 +113,8 @@ def build_argparser():
     ap.add_argument("--t_depths", type=str, default=None, help="comma list, e.g. 6,6,6,6")
     ap.add_argument("--t_heads", type=str, default=None)
     ap.add_argument("--window_size", type=int, default=None)
+    ap.add_argument("--mlp_ratio", type=float, default=None,
+                    help="MLP hidden / embed (HAT's default 4; upstream HAT-SRx4 trains at 2)")
     ap.add_argument("--depth", type=int, default=4, help="unet2d (not ported yet)")
     ap.add_argument("--residual", action="store_true", help="unet2d (not ported yet)")
     ap.add_argument("--cache_decoded", action="store_true", help="not ported yet: refused")
@@ -141,6 +146,8 @@ def model_config_from_args(args):
         over["num_heads"] = tuple(int(h) for h in args.t_heads.split(","))
     if args.window_size is not None:
         over["window_size"] = args.window_size
+    if args.mlp_ratio is not None:
+        over["mlp_ratio"] = args.mlp_ratio
     bad = [k for k in over if not hasattr(mcfg, k)]
     if bad:
         raise SystemExit(f"flag(s) {bad} not valid for model '{args.model}' (its config has no "

@@ -163,6 +163,20 @@ __global__ void __launch_bounds__(NTHREADS) window_attn_kernel(const AttnArgs a)
 
 }  // namespace
 
+// Launch 1 alone, on rows already packed to ck columns: the K5-ws16
+// backward's qkv recompute (kernels/fused_block.py).
+extern "C" int sr_qkv_product_bf16(const void* x, const void* wqkv, const void* bqkv, void* qkv,
+                                   long long rows, int ck, int n3, void* stream) {
+  if (ck < 16 || ck > MAX_C || ck % 16 || n3 < 16 || n3 % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return 0;
+  qkv_gemm_kernel<<<static_cast<unsigned int>((rows + T - 1) / T), NTHREADS, QKV_SMEM,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
+      static_cast<const float*>(bqkv), static_cast<bf16*>(qkv), rows, ck, ck, n3);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int sr_window_attention_bf16(const void* xw, const void* wqkv, const void* bqkv,
                                         const void* wproj, const void* bproj, const void* rpb,
                                         const void* mask, void* qkv_ws, void* out, int bw, int n,

@@ -14,16 +14,17 @@ x4 serving (D), HAT-SRx4 serving (H16: upstream's HAT, window 16, C 180),
 every other Swin block outside the block kernel's envelope (W: other
 windows, C up to 256, up to 8 heads), DAT training (DT) and DAT's module
 chain at serving where K9, K14 or K10 refuse a block's shapes (DC: the
-published DAT x4's split (8, 32) and expansion 4, among others).
-HAT-SRx4 training is not a ported path yet: it runs, but K5, K8 and K8b
-have no ws-16 kernel, so its block backward and OCAB run as plain ops.
+published DAT x4's split (8, 32) and expansion 4, among others), and
+HAT-SRx4 training (H16T: window 16, C 180, hidden 360).
 
 ==== ========================================================== ======== ==================================================
  #   JAX file:line of pallas_call . entry function                on path  port
 ==== ========================================================== ======== ==================================================
 K1   fused_block.py:958 . fused_swin_block (_mega_forward)         S,T,H    CUDA csrc/swin_block.cu (ws 8, extra), fused_block.fused_windows_block
-     (the same function at any other window or width)             H16,W    K2 + K7 + K1's tail, CUDA csrc/swin_tail.cu, fused_block.fused_block_tail (K1t)
+     (the same function at any other window or width)             H16,W,   K2 + K7 + K1's tail, CUDA csrc/swin_tail.cu, fused_block.fused_block_tail (K1t)
+                                                                  H16T
 K5   fused_block.py:1080 . _mega_backward                          T,HT     CUDA csrc/swin_block_bwd.cu (ws 8, extra), fused_block.SwinBlockFunction
+     (at ws 16, the K7 route's block, counted as K5w16)            H16T     CUDA csrc/swin_block_bwd16.cu, fused_block.WindowBlockFunction
 K2   layernorm.py:54 . pallas_layernorm (layernorm_spatial)        all      CUDA csrc/layernorm.cu, layernorm.layernorm
 K3   cab_conv.py:307 . conv3x3_halo                                all      CUDA csrc/conv.cu, cab_conv.conv3x3
 K4   cab_conv.py:418 . conv_halo                                   all      CUDA csrc/conv.cu, cab_conv.conv_k
@@ -31,12 +32,16 @@ K6   fused_block.py:1427 . fused_packed_windows_block (forward)    H,HT     CUDA
 K6b  fused_block.py:1604 . _packed_backward                        HT       CUDA csrc/swin_block_bwd.cu (ws 7, extra), fused_block.SwinBlockFunction
 K13  fused_block.py:1532 . fused_spatial_windows_block             H        the K6 instantiation (it reads windows from the spatial map)
 K8   fused_ocab.py:311 . fused_ocab_core (_fwd_kernel)             HT       CUDA csrc/ocab.cu, fused_ocab.fused_ocab_core
+     (at (ws, ows) (16, 24), counted as K8w16)                     H16T     CUDA csrc/ocab16.cu
 K8b  fused_ocab.py:354 . fused_ocab_core (_bwd_kernel)             HT       CUDA csrc/ocab.cu, fused_ocab.OcabCoreFunction
+     (at (16, 24), counted as K8bw16)                              H16T     CUDA csrc/ocab16.cu
 K9   fused_rect_attn.py:433 . fused_rect_attention                 D        CUDA csrc/dat_rect.cu, fused_rect_attn.rect_attention
 K14  fused_channel_attn.py:209 . fused_channel_attention           D        CUDA csrc/dat_channel.cu, fused_channel_attn.channel_attention
 K10  fused_datb_tail.py:374 . fused_datb_tail                      D        CUDA csrc/dat_tail.cu, fused_datb_tail.datb_tail
-K7   fused_attention.py:229 . fused_window_block_attention         H16,W    CUDA csrc/window_attn.cu (any N), fused_attention.fused_window_attention
-K12  cab_conv.py:209 . fused_ln_cab_convs                          H,HT,H16 CUDA csrc/cab_fused.cu, cab_conv.fused_ln_cab_convs
+K7   fused_attention.py:229 . fused_window_block_attention         H16,W,   CUDA csrc/window_attn.cu (any N), fused_attention.fused_window_attention
+                                                                  H16T
+K12  cab_conv.py:209 . fused_ln_cab_convs                          H,HT,    CUDA csrc/cab_fused.cu, cab_conv.fused_ln_cab_convs
+                                                                  H16,H16T
 K11  cab_conv.py:506 . dwconv3x3_halo                              DT,DC    CUDA csrc/dwconv.cu, dwconv.dwconv3x3
 K15  window_attention.py:193 . fused_window_attention              H,H16    CUDA csrc/batched_attn.cu (K16's kernel at Nq x Nk), window_attention.fused_window_attention
 K16  window_attention.py:352 . batched_window_attention            DT,DC    CUDA csrc/batched_attn.cu (K7's core), window_attention.batched_window_attention
@@ -50,12 +55,16 @@ In training, K1-K4, K1t, K6, K7, K8, K12 and K15 run through
 K8b; K2-K4's, K7's and K12's backwards are torch autograd of their
 plain versions, as the JAX package leaves those backwards to XLA, and so
 are K1t's and K15's (the JAX package has no K15 backward: its HAT
-trains the OCAB through K8).  At windows other than 7 and 8 the block
-backward (K5) and the OCAB core (K8, K8b) have no kernel yet: HAT at
-ws 16 trains through those autograd-of-plain backwards.
+trains the OCAB through K8).  A K7-route block at ws 16 within the
+block kernel's widths trains through ``fused_block.WindowBlockFunction``
+instead, whose backward is K5 at ws 16 (K5w16; it recomputes LN1 with a
+K2 launch and qkv with K7's qkv launch, counted as K2 and K7).  At the
+K7 route's other windows the block backward is still autograd of the
+plain versions (ROADMAP Queue 2).
 HAT's OCAB runs K15 as its attention at serving, and in training
-wherever K8 refuses its shapes (``fused_ocab.ocab_ok``: ws 16, C > 192,
-hidden > 384); elsewhere in training it takes K8 / K8b.  A Swin
+wherever K8 refuses its shapes (``fused_ocab.ocab_ok``: C > 192,
+hidden > 384, windows other than 7, 8 and 16); elsewhere in training it
+takes K8 / K8b (K8w16 / K8bw16 at ws 16).  A Swin
 block takes the block kernel or the K7 route by its static shapes
 (``fused_block.block_route``); a K7 call is two CUDA launches (the qkv
 product, then attention + proj), counted once; on the K7 route K1's
@@ -93,11 +102,14 @@ COUNTERS = {
     "K3": cab_conv.launches_conv3x3,
     "K4": cab_conv.launches_conv_k,
     "K5": fused_block.launches_bwd,
+    "K5w16": fused_block.launches_bwd_w16,
     "K6": fused_block.launches_ws7,
     "K6b": fused_block.launches_bwd_ws7,
     "K7": fused_attention.launches,
     "K8": fused_ocab.launches,
     "K8b": fused_ocab.launches_bwd,
+    "K8w16": fused_ocab.launches_w16,
+    "K8bw16": fused_ocab.launches_bwd_w16,
     "K9": fused_rect_attn.launches,
     "K10": fused_datb_tail.launches,
     "K11": dwconv.launches,

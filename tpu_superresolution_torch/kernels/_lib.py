@@ -58,6 +58,10 @@ _SIGNATURES = {
     "sr_ln_cab_convs_bf16": [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P],
     "sr_dwconv3x3_bf16": [_P] * 4 + [_I] * 4 + [_P],
     "sr_batched_window_attention_bf16": [_P] * 6 + [_I] * 7 + [ctypes.c_float, _P],
+    "sr_qkv_product_bf16": [_P] * 4 + [ctypes.c_longlong, _I, _I, _P],
+    "sr_swin_block_bwd16_bf16": [_P] * 29 + [_I] * 7 + [ctypes.c_float, _I, _I, _P],
+    "sr_ocab16_fwd_bf16": [_P] * 14 + [_I] * 4 + [ctypes.c_float, _P],
+    "sr_ocab16_bwd_bf16": [_P] * 26 + [_I] * 4 + [ctypes.c_float, _I, _I, _P],
 }
 
 

@@ -161,6 +161,27 @@ def _launch(xw: torch.Tensor, packed: PackedWindowAttention,
     return out
 
 
+def qkv_product(x: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor) -> torch.Tensor:
+    """K7's first launch alone (CUDA tensors only): x [rows, CK] bf16
+    (CK a multiple of 16, the pad columns zero) times packed [n3, CK]
+    bf16 weights plus fp32 bias -> [rows, n3] bf16.  The ws-16 block
+    backward's qkv recompute; counted as a K7 call."""
+    _lib.require_cuda(x, "qkv_product")
+    rows, ck = x.shape
+    n3 = int(wqkv.shape[0])
+    _lib.check_tensor(x, "x", torch.bfloat16, x.device, ndim=2, align=16)
+    _lib.check_tensor(wqkv, "wqkv", torch.bfloat16, x.device, shape=(n3, ck), align=32)
+    _lib.check_tensor(bqkv, "bqkv", torch.float32, x.device, shape=(n3,), align=16)
+    out = torch.empty(rows, n3, dtype=torch.bfloat16, device=x.device)
+    with torch.cuda.device(x.device):
+        status = _lib.library().sr_qkv_product_bf16(
+            x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), out.data_ptr(), rows, ck, n3,
+            _lib.stream_of(x))
+    _lib.check_status(status, "sr_qkv_product_bf16")
+    launches.count += 1
+    return out
+
+
 class WindowAttentionFunction(torch.autograd.Function):
     """Forward K7 (weights packed on every call), backward autograd of
     ``window_attention_plain``."""

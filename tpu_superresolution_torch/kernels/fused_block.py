@@ -54,7 +54,14 @@ forward is K1 / K6 and its backward K5 / K6's backward, with the
 gradients mapped from the kernels' packed layout back to the raw
 ``[out, in]`` parameters here (the counterpart of
 ``fused_block.py:1098-1105``).  Its ws-7 backward launches count as
-K6b.
+K6b.  A K7-route block at ws 16 within the block kernel's widths
+(``k5w16_ok``: upstream HAT-SRx4's HABs) trains through
+``WindowBlockFunction``: forward the route's K2, gathers, K7 and K1t,
+backward K5 at ws 16 (``csrc/swin_block_bwd16.cu``, counted as K5w16,
+after a K2 launch and K7's qkv launch that recompute LN1 and qkv).  At
+the route's other windows the backward is still autograd of the
+kernels' plain versions, where the JAX package runs K5 (ws 24, 32, ...)
+or ``_packed_backward`` (ws 6, 12, ...): ROADMAP Queue 2.
 """
 
 from __future__ import annotations
@@ -68,9 +75,10 @@ import torch.nn.functional as F
 from tpu_superresolution_torch.kernels import _lib
 from tpu_superresolution_torch.kernels.fused_attention import (
     check_attention_limits,
+    qkv_product,
     window_attention_plain,
 )
-from tpu_superresolution_torch.kernels.layernorm import layernorm_plain
+from tpu_superresolution_torch.kernels.layernorm import layernorm, layernorm_plain
 from tpu_superresolution_torch.ops.window import (
     cyclic_shift,
     cyclic_unshift,
@@ -94,6 +102,8 @@ launches_ws7 = _lib.LaunchCounter("K6 swin_block ws7")
 launches_bwd = _lib.LaunchCounter("K5 swin_block_bwd")
 launches_bwd_ws7 = _lib.LaunchCounter("K6b swin_block_bwd ws7")
 launches_tail = _lib.LaunchCounter("K1t swin_block_tail")
+launches_bwd_w16 = _lib.LaunchCounter("K5w16 swin_block_bwd ws16")
+BWD16_WINDOW = 16  # the window of csrc/swin_block_bwd16.cu
 # the counters of the forward and backward kernels for each window size
 FORWARD_COUNTERS = {8: launches, 7: launches_ws7}
 BACKWARD_COUNTERS = {8: launches_bwd, 7: launches_bwd_ws7}
@@ -171,7 +181,8 @@ class PackedSwinBlock:
     zero-padded to the kernel's tile sizes (q rows pre-scaled by
     hd^-0.5, head dims padded hd -> 32, channels C -> 192), fp32 biases
     and LayerNorm params, and the gathered [nH, N, N] relative-position
-    bias of the window size (N = ws^2)."""
+    bias of the window size (N = ws^2).  K1/K6 and their backwards take
+    it at ws 7 and 8, K5w16 at ws 16."""
 
     wqkv: torch.Tensor   # [3*CP, CP] bf16
     bqkv: torch.Tensor   # [3*CP] fp32
@@ -192,22 +203,26 @@ class PackedSwinBlock:
     window_size: int
 
 
-def check_kernel_limits(w: SwinBlockWeights) -> None:
-    """Raise unless the block's widths and window fit the kernels."""
+def _check_widths(w: SwinBlockWeights) -> None:
     c, nh, hidden = w.dim, w.num_heads, int(w.wfc1.shape[0])
     if c > CP or c % nh or c // nh > HDP or nh > MAX_HEADS or hidden > HIDP:
         raise ValueError(
             f"swin_block kernel takes C <= {CP}, hd <= {HDP}, heads <= "
             f"{MAX_HEADS}, hidden <= {HIDP}; got C={c}, heads={nh}, hidden={hidden}"
         )
+    if w.bqkv is None:
+        raise ValueError("swin_block kernel takes qkv_bias=True only")
+
+
+def check_kernel_limits(w: SwinBlockWeights) -> None:
+    """Raise unless the block's widths and window fit the kernels."""
+    _check_widths(w)
     ws = w.window_size
     if ws not in KERNEL_WINDOWS or w.table.shape[0] != (2 * ws - 1) ** 2:
         raise ValueError(
             f"swin_block kernel takes window sizes {KERNEL_WINDOWS}; the bias table "
             f"{tuple(w.table.shape)} is for ws={ws}"
         )
-    if w.bqkv is None:
-        raise ValueError("swin_block kernel takes qkv_bias=True only")
 
 
 def block_route(ws: int, c: int, heads: int, hidden: int, qkv_bias: bool = True) -> str:
@@ -222,6 +237,14 @@ def block_route(ws: int, c: int, heads: int, hidden: int, qkv_bias: bool = True)
         return "block"
     check_attention_limits(c, heads, "swin block")
     return "window_attention"
+
+
+def k5w16_ok(ws: int, c: int, heads: int, hidden: int, qkv_bias: bool = True) -> bool:
+    """Whether a "window_attention"-route block of window `ws` trains
+    through K5 at ws 16 (``WindowBlockFunction``): ws 16 within the block
+    kernel's widths.  Shapes only, as ``block_route``."""
+    return (ws == BWD16_WINDOW and qkv_bias and c <= CP and c % heads == 0
+            and c // heads <= HDP and heads <= MAX_HEADS and hidden <= HIDP)
 
 
 def check_block_args(shape: Sequence[int], w: SwinBlockWeights, ws: int, shift: int,
@@ -246,13 +269,15 @@ def check_block_args(shape: Sequence[int], w: SwinBlockWeights, ws: int, shift: 
 
 
 def check_differentiable(ws: int, extra: Optional[torch.Tensor], name: str) -> None:
-    """The backward kernel takes the forward's windows (K5 at ws 8, K6's
-    backward at ws 7), with or without `extra`; raise for any other."""
+    """The block kernel's backward takes its forward's windows (K5 at ws
+    8, K6's backward at ws 7), with or without `extra`; raise for any
+    other (a block at ws 16 trains on the K7 route, through K5w16)."""
     if ws not in KERNEL_WINDOWS:
         raise NotImplementedError(
-            f"{name}: no backward kernel for ws={ws}"
-            f"{' with extra' if extra is not None else ''} on CUDA: the backward takes ws in "
-            f"{KERNEL_WINDOWS}; run under torch.no_grad(), or on the CPU"
+            f"{name}: no block-kernel backward for ws={ws}"
+            f"{' with extra' if extra is not None else ''} on CUDA: it takes ws in "
+            f"{KERNEL_WINDOWS} (ws {BWD16_WINDOW} trains on the K7 route, through "
+            f"WindowBlockFunction); run under torch.no_grad(), or on the CPU"
         )
 
 
@@ -262,7 +287,7 @@ def pack_block_weights(w: SwinBlockWeights, rpb: Optional[torch.Tensor] = None) 
     the JAX package's ``_prep_weights``).  At inference the caller
     builds it once per loaded weights; in training once per step.
     `rpb`: the gathered bias, when the caller already has it."""
-    check_kernel_limits(w)
+    _check_widths(w)
     c, nh = w.dim, w.num_heads
     hd, hidden = c // nh, int(w.wfc1.shape[0])
     bf = torch.bfloat16
@@ -813,21 +838,99 @@ def fused_swin_block_backward(ct: torch.Tensor, x: torch.Tensor, w: SwinBlockWei
                               packed: Optional[PackedSwinBlock] = None,
                               extra: Optional[torch.Tensor] = None) -> SwinBlockGrads:
     """The backward of one Swin block for the cotangent `ct` (K5 at ws 8,
-    K6's backward at ws 7; d`extra` when the forward had `extra`).  CPU
-    tensors -> plain version; CUDA tensors -> the kernel (bf16 ct, x and
-    extra, fp32 branch scales), gradients in raw weight space."""
+    K6's backward at ws 7, K5w16 at ws 16; d`extra` when the forward had
+    `extra`).  CPU tensors -> plain version; CUDA tensors -> the kernel
+    (bf16 ct, x and extra, fp32 branch scales), gradients in raw weight
+    space."""
     if x.device.type == "cpu":
         return swin_block_bwd_plain(ct, x, w, ws, shift, mask, gelu_approx, branch_scales, extra)
-    _check_block_input(x, w, ws, shift, "fused_swin_block_backward")
+    name = "fused_swin_block_backward"
+    if ws == BWD16_WINDOW:
+        _lib.require_cuda(x, name)
+        check_k5w16_args(tuple(x.shape), w, shift, name)
+        _lib.check_tensor(x, "x", torch.bfloat16, x.device, ndim=4, align=2)
+    else:
+        _check_block_input(x, w, ws, shift, name)
     if branch_scales is not None:
         branch_scales = branch_scales.float().contiguous()
     if packed is None:
         packed = pack_block_weights(w)
     if extra is not None:
         extra = extra.contiguous()
-    dx, g, dextra = _launch_bwd(ct.contiguous(), x, packed, shift, mask, gelu_approx,
-                                branch_scales, extra)
+    launch = _launch_bwd16 if ws == BWD16_WINDOW else _launch_bwd
+    dx, g, dextra = launch(ct.contiguous(), x, packed, shift, mask, gelu_approx, branch_scales,
+                           extra)
     return SwinBlockGrads(dx=dx, extra=dextra, **unpack_block_grads(g, packed, w.scale))
+
+
+def check_k5w16_args(shape: Sequence[int], w: SwinBlockWeights, shift: int, name: str) -> None:
+    """Raise unless an x of `shape` [B, H, W, C] with `shift` and the
+    weights `w` fit K5w16 (shapes only, so it runs on any device)."""
+    ws = BWD16_WINDOW
+    if len(shape) != 4 or shape[1] % ws or shape[2] % ws or not 0 <= shift < ws:
+        raise ValueError(f"{name}: K5w16 takes x [B, H, W, C] of whole {ws} x {ws} windows and "
+                         f"a shift in [0, {ws}); got {tuple(shape)}, shift {shift}")
+    if w.window_size != ws or shape[3] != w.dim:
+        raise ValueError(f"{name}: weights for C={w.dim}, ws={w.window_size}; x {tuple(shape)} "
+                         f"at ws={ws}")
+    _check_widths(w)
+
+
+# K5w16's per-window sums come per (window, 64-row tile): 4 rows a window.
+K5W16_TILES = 4
+# bf16 operand columns per token of K5w16's workspace: o, y2c, act, dmlp,
+# dh1, dattn, do, dqkv (csrc/swin_block_bwd16.cu); fp32: dx1 (CP) per
+# token, then one tile's x1 (CP) and h1 (HIDP) rows per window.
+K5W16_BF16_COLS = 5 * CP + 2 * HIDP + 3 * CP
+
+
+def _launch_bwd16(ct, x, packed: PackedSwinBlock, shift, mask, gelu_approx, scales, extra=None):
+    """The block backward at ws 16: LN1 (K2) and qkv (K7's qkv launch)
+    recomputed into the workspace, then K5w16's per-window kernel, the
+    weight-gradient products and the ordered reductions.  Returns (dx,
+    packed-space fp32 gradients, d extra or None); counts one K5w16
+    launch."""
+    ws = BWD16_WINDOW
+    _check_packed(packed, x, mask, scales, "fused_swin_block_backward", extra)
+    _lib.check_tensor(ct, "ct", torch.bfloat16, x.device, shape=tuple(x.shape), align=2)
+    b, h, wd, c = x.shape
+    nh, n = packed.num_heads, ws * ws
+    windows = b * (h // ws) * (wd // ws)
+    tokens = windows * n
+    splits, rows = k5_splits(tokens)
+    dev = x.device
+    yc = F.pad(window_partition(cyclic_shift(layernorm(x, packed.g1, packed.b1, LN_EPS), shift),
+                                ws), (0, CP - c)).reshape(tokens, CP)
+    qkv = qkv_product(yc, packed.wqkv, packed.bqkv)
+    dx = torch.empty_like(x)
+    dextra = None if extra is None else torch.empty_like(x)
+    ws16 = torch.empty(tokens * K5W16_BF16_COLS, dtype=torch.bfloat16, device=dev)
+    ws32 = torch.empty(tokens * CP + windows * 64 * (CP + HIDP), dtype=torch.float32, device=dev)
+    part_win = torch.empty(windows * K5W16_TILES * K5_VEC, dtype=torch.float32, device=dev)
+    dsp = torch.empty(windows * nh * n * n, dtype=torch.float32, device=dev)
+    part_w = torch.empty(splits * K5_WGRAD, dtype=torch.float32, device=dev)
+    vec = torch.empty(K5_VEC, dtype=torch.float32, device=dev)
+    drpb = torch.empty(nh, n, n, dtype=torch.float32, device=dev)
+    wgrad = torch.empty(K5_WGRAD, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        status = _lib.library().sr_swin_block_bwd16_bf16(
+            ct.data_ptr(), x.data_ptr(), _ptr(extra), dx.data_ptr(), _ptr(dextra),
+            yc.data_ptr(), qkv.data_ptr(),
+            packed.g1.data_ptr(), packed.b1.data_ptr(), packed.g2.data_ptr(), packed.b2.data_ptr(),
+            packed.wqkv.data_ptr(), packed.wproj.data_ptr(), packed.bproj.data_ptr(),
+            packed.wfc1.data_ptr(), packed.bfc1.data_ptr(), packed.wfc2.data_ptr(),
+            packed.bfc2.data_ptr(), packed.rpb.data_ptr(), _ptr(mask), _ptr(scales),
+            ws16.data_ptr(), ws32.data_ptr(), part_win.data_ptr(), dsp.data_ptr(),
+            part_w.data_ptr(), vec.data_ptr(), drpb.data_ptr(), wgrad.data_ptr(),
+            b, h, wd, c, nh, shift, int(bool(gelu_approx)), LN_EPS, splits, rows,
+            _lib.stream_of(x),
+        )
+    _lib.check_status(status, "sr_swin_block_bwd16_bf16")
+    launches_bwd_w16.count += 1
+    g = split_wgrad(wgrad, _WGRAD_SHAPES)
+    g.update(split_vec(vec, _VEC_OFFSETS, _VEC_SIZES))
+    g["rpb"] = drpb
+    return dx, g, dextra
 
 
 class SwinBlockFunction(torch.autograd.Function):
@@ -888,3 +991,54 @@ def fused_windows_block(x: torch.Tensor, w: SwinBlockWeights, ws: int, shift: in
     if packed is None:
         packed = pack_block_weights(w)
     return _launch_block(x, packed, shift, mask, gelu_approx, branch_scales, extra)
+
+
+class WindowBlockFunction(torch.autograd.Function):
+    """A K7-route block at ws 16 on CUDA: forward `route(x, w, scales,
+    extra)` (the route's K2, gathers, K7 and K1t, run with no graph),
+    backward K5w16 (``_launch_bwd16``).  Inputs as
+    ``SwinBlockFunction``'s; the weights are packed for K5w16 in the
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, scales, extra, meta, *params):
+        route, shift, mask, gelu_approx, num_heads, table = meta
+        raw = dict(zip(GRAD_FIELDS[:-1], params))
+        ctx.save_for_backward(x, scales, extra, *params)
+        ctx.block = (shift, mask, gelu_approx, num_heads, table)
+        return route(x, SwinBlockWeights(table=table, num_heads=num_heads, **raw), scales, extra)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, scales, extra, *params = ctx.saved_tensors
+        shift, mask, gelu_approx, num_heads, table = ctx.block
+        raw = dict(zip(GRAD_FIELDS, params))
+        rpb = raw.pop("rpb")
+        w = SwinBlockWeights(table=table, num_heads=num_heads, **raw)
+        packed = pack_block_weights(w, rpb=rpb)
+        dx, g, dextra = _launch_bwd16(ct.to(x.dtype).contiguous(), x, packed, shift, mask,
+                                      gelu_approx, scales, extra)
+        grads = unpack_block_grads(g, packed, w.scale)
+        return (dx, None, dextra, None) + tuple(grads[k] for k in GRAD_FIELDS)
+
+
+def window_block_k5w16(x: torch.Tensor, w: SwinBlockWeights, shift: int,
+                       mask: Optional[torch.Tensor], gelu_approx: bool,
+                       branch_scales: Optional[torch.Tensor], extra: Optional[torch.Tensor],
+                       route: Callable) -> torch.Tensor:
+    """A K7-route block at ws 16 in training on CUDA (bf16 x and extra):
+    ``route(x, w, branch_scales, extra)`` forward, K5w16 backward, with
+    the gathered bias's gradient scattered to the table by the gather's
+    autograd."""
+    name = "window_block_k5w16"
+    _lib.require_cuda(x, name)
+    check_k5w16_args(tuple(x.shape), w, shift, name)
+    x = x.contiguous()
+    if branch_scales is not None:
+        branch_scales = branch_scales.float().contiguous()
+    if extra is not None:
+        extra = extra.contiguous()
+    params = [getattr(w, k) for k in GRAD_FIELDS[:-1]]
+    rpb = relative_position_bias(w.table, BWD16_WINDOW)
+    meta = (route, shift, mask, gelu_approx, w.num_heads, w.table)
+    return WindowBlockFunction.apply(x, branch_scales, extra, meta, *params, rpb)

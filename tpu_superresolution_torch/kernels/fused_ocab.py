@@ -22,10 +22,13 @@ kernel pads in shared memory.
 On a CPU tensor the wrapper runs ``ocab_core_plain``, differentiable by
 autograd; on a CUDA tensor it launches K8 (through ``OcabCoreFunction``
 when a gradient is wanted, whose backward is K8's backward kernel, K8b)
-or raises.  The kernels take (ws, ows) = (7, 10) or (8, 12), C <= 192,
-heads of hd <= 32 (at most 6) and an MLP hidden <= 384 (``ocab_ok``);
-HAT's OCAB trains through them where they do, and through its module
-path with K15 (``window_attention.fused_window_attention``) elsewhere.
+or raises.  The kernels take (ws, ows) = (7, 10) or (8, 12) (one CTA a
+window, ``csrc/ocab.cu``) and (16, 24), upstream HAT-SRx4's OCAB
+(``csrc/ocab16.cu``: the keys streamed in 64-row tiles; its launches
+count as K8w16 and K8bw16), at C <= 192, heads of hd <= 32 (at most 6)
+and an MLP hidden <= 384 (``ocab_ok``); HAT's OCAB trains through them
+where they do, and through its module path with K15
+(``window_attention.fused_window_attention``) elsewhere.
 """
 
 from __future__ import annotations
@@ -54,12 +57,16 @@ from tpu_superresolution_torch.kernels.fused_block import (
     unpack_proj_grad,
 )
 
-# (ws, ows) pairs the kernels are instantiated for: HAT's ws 7 and
-# hat_fast's ws 8 at overlap ratio 0.5.
-KERNEL_WINDOWS = ((7, 10), (8, 12))
+# (ws, ows) pairs the kernels are instantiated for at overlap ratio 0.5:
+# HAT's ws 7 and hat_fast's ws 8 (csrc/ocab.cu), upstream HAT-SRx4's ws
+# 16 (csrc/ocab16.cu).
+KERNEL_WINDOWS = ((7, 10), (8, 12), (16, 24))
+W16 = (16, 24)
 
 launches = _lib.LaunchCounter("K8 ocab")
 launches_bwd = _lib.LaunchCounter("K8b ocab_bwd")
+launches_w16 = _lib.LaunchCounter("K8w16 ocab ws16")
+launches_bwd_w16 = _lib.LaunchCounter("K8bw16 ocab_bwd ws16")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,8 +237,7 @@ def check_ocab_args(q_shape, k_shape, sw_shape, w: OcabWeights, bias_shape,
     if (ws, ows) not in KERNEL_WINDOWS or ws * ws != q_shape[1] or ows * ows != k_shape[1]:
         raise ValueError(f"{name}: the kernel takes (ws, ows) in {KERNEL_WINDOWS}; got "
                          f"{q_shape[1]} queries and {k_shape[1]} keys per window (the OCAB "
-                         f"takes K15's path there; ROADMAP Queue 2: K8 and K8b at ws 16, "
-                         f"for HAT-SRx4 training)")
+                         f"takes K15's module path there)")
     if k_shape[0] != q_shape[0] or k_shape[2] != c or q_shape[2] != c:
         raise ValueError(f"{name}: weights for C={c}; q {tuple(q_shape)}, k {tuple(k_shape)}")
     if not ocab_ok(ws, ows, c, nh, hidden):
@@ -276,7 +282,7 @@ def _check_launch(q, k, v, sw, packed: PackedOcab, bias, name, ct=None) -> None:
         ("g2", packed.g2, (c,), f32, 4), ("b2", packed.b2, (c,), f32, 4),
         ("wfc1", packed.wfc1, (HIDP, CP), bf, 32), ("bfc1", packed.bfc1, (HIDP,), f32, 16),
         ("wfc2", packed.wfc2, (CP, HIDP), bf, 32), ("bfc2", packed.bfc2, (CP,), f32, 16),
-        ("bias", bias, (packed.num_heads, nq, nk), f32, 4),
+        ("bias", bias, (packed.num_heads, nq, nk), f32, 16 if (nq, nk) == (256, 576) else 4),
     ):
         _lib.check_tensor(t, f"{name}: {tname}", dtype, dev, shape=shape, align=align)
 
@@ -288,17 +294,22 @@ def _weight_ptrs(packed: PackedOcab, bias):
 
 
 def _launch_fwd(q, k, v, sw, packed: PackedOcab, bias, gelu_approx) -> torch.Tensor:
+    """K8 (csrc/ocab.cu) at ws 7 and 8, K8w16 (csrc/ocab16.cu) at ws 16."""
     _check_launch(q, k, v, sw, packed, bias, "fused_ocab_core")
     bw, nq, c = q.shape
+    ws, ows = math.isqrt(nq), math.isqrt(k.shape[1])
     out = torch.empty_like(sw)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), sw.data_ptr(), out.data_ptr(),
+            *_weight_ptrs(packed, bias), bw, c, packed.num_heads)
     with torch.cuda.device(sw.device):
-        status = _lib.library().sr_ocab_fwd_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), sw.data_ptr(), out.data_ptr(),
-            *_weight_ptrs(packed, bias), bw, c, packed.num_heads, math.isqrt(nq),
-            math.isqrt(k.shape[1]), int(bool(gelu_approx)), LN_EPS, _lib.stream_of(sw),
-        )
+        if (ws, ows) == W16:
+            status = _lib.library().sr_ocab16_fwd_bf16(
+                *ptrs, int(bool(gelu_approx)), LN_EPS, _lib.stream_of(sw))
+        else:
+            status = _lib.library().sr_ocab_fwd_bf16(
+                *ptrs, ws, ows, int(bool(gelu_approx)), LN_EPS, _lib.stream_of(sw))
     _lib.check_status(status, "sr_ocab_fwd_bf16")
-    launches.count += 1
+    (launches_w16 if (ws, ows) == W16 else launches).count += 1
     return out
 
 
@@ -315,41 +326,62 @@ K8_WGRAD = sum(m * n for _, m, n in _WGRAD_SHAPES)
 # dh1, dattn; then fp32 x1 (CP) and h1 (HIDP).
 K8_BF16_COLS = CP + CP + HIDP + CP + HIDP + CP
 K8_F32_COLS = CP + HIDP
+# At ws 16 (csrc/ocab16.cu): the same columns and dO (CP) per query row;
+# fp32 x1 and h1 for one 64-row tile per window; per-window sums per
+# (window, tile), 4 rows a window; dS [nh, 256, 576] per window.
+K8W16_BF16_COLS = K8_BF16_COLS + CP
+K8W16_TILES = 4
 
 
 def _launch_bwd(ct, q, k, v, sw, packed: PackedOcab, bias, gelu_approx):
-    """K8b: the per-window backward, the weight-gradient products and the
-    ordered reductions.  Returns (dq, dk, dv, dsw, packed-space fp32
-    gradients with the bias gradient under "bias")."""
+    """K8b (ws 7, 8) or K8bw16 (ws 16): the per-window backward, the
+    weight-gradient products and the ordered reductions.  Returns (dq,
+    dk, dv, dsw, packed-space fp32 gradients with the bias gradient under
+    "bias")."""
     _check_launch(q, k, v, sw, packed, bias, "fused_ocab_core backward", ct)
     bw, nq, c = q.shape
     nk, nh = k.shape[1], packed.num_heads
+    ws, ows = math.isqrt(nq), math.isqrt(nk)
+    w16 = (ws, ows) == W16
     dev = sw.device
-    tokens = bw * N_TOK  # workspace rows
+    f32 = torch.float32
+    tokens = bw * (nq if w16 else N_TOK)  # workspace rows
     splits, rows = k5_splits(tokens)
     dq, dk, dv, dsw = (torch.empty_like(t) for t in (q, k, v, sw))
-    ws16 = torch.empty(tokens * K8_BF16_COLS, dtype=torch.bfloat16, device=dev)
-    ws32 = torch.empty(tokens * K8_F32_COLS, dtype=torch.float32, device=dev)
-    vec_len = K8_VEC + nh * nq * nk
-    part_win = torch.empty(bw * vec_len, dtype=torch.float32, device=dev)
-    part_w = torch.empty(splits * K8_WGRAD, dtype=torch.float32, device=dev)
-    vec = torch.empty(vec_len, dtype=torch.float32, device=dev)
-    wgrad = torch.empty(K8_WGRAD, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        status = _lib.library().sr_ocab_bwd_bf16(
-            ct.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), sw.data_ptr(),
+    part_w = torch.empty(splits * K8_WGRAD, dtype=f32, device=dev)
+    wgrad = torch.empty(K8_WGRAD, dtype=f32, device=dev)
+    acts = (ct.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), sw.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dsw.data_ptr(),
-            *_weight_ptrs(packed, bias),
-            ws16.data_ptr(), ws32.data_ptr(), part_win.data_ptr(), part_w.data_ptr(),
-            vec.data_ptr(), wgrad.data_ptr(),
-            bw, c, nh, math.isqrt(nq), math.isqrt(nk), int(bool(gelu_approx)), LN_EPS,
-            splits, rows, _lib.stream_of(sw),
-        )
+            *_weight_ptrs(packed, bias))
+    tail = (int(bool(gelu_approx)), LN_EPS, splits, rows, _lib.stream_of(sw))
+    if w16:
+        ws16 = torch.empty(tokens * K8W16_BF16_COLS, dtype=torch.bfloat16, device=dev)
+        ws32 = torch.empty(bw * 64 * K8_F32_COLS, dtype=f32, device=dev)
+        part_win = torch.empty(bw * K8W16_TILES * K8_VEC, dtype=f32, device=dev)
+        dsp = torch.empty(bw * nh * nq * nk, dtype=f32, device=dev)
+        vec = torch.empty(K8_VEC, dtype=f32, device=dev)
+        dbias = torch.empty(nh, nq, nk, dtype=f32, device=dev)
+        with torch.cuda.device(dev):
+            status = _lib.library().sr_ocab16_bwd_bf16(
+                *acts, ws16.data_ptr(), ws32.data_ptr(), part_win.data_ptr(), dsp.data_ptr(),
+                part_w.data_ptr(), vec.data_ptr(), dbias.data_ptr(), wgrad.data_ptr(),
+                bw, c, nh, *tail)
+    else:
+        ws16 = torch.empty(tokens * K8_BF16_COLS, dtype=torch.bfloat16, device=dev)
+        ws32 = torch.empty(tokens * K8_F32_COLS, dtype=f32, device=dev)
+        vec_len = K8_VEC + nh * nq * nk
+        part_win = torch.empty(bw * vec_len, dtype=f32, device=dev)
+        vec = torch.empty(vec_len, dtype=f32, device=dev)
+        dbias = vec[K8_VEC:].reshape(nh, nq, nk)
+        with torch.cuda.device(dev):
+            status = _lib.library().sr_ocab_bwd_bf16(
+                *acts, ws16.data_ptr(), ws32.data_ptr(), part_win.data_ptr(), part_w.data_ptr(),
+                vec.data_ptr(), wgrad.data_ptr(), bw, c, nh, ws, ows, *tail)
     _lib.check_status(status, "sr_ocab_bwd_bf16")
-    launches_bwd.count += 1
+    (launches_bwd_w16 if w16 else launches_bwd).count += 1
     g = split_wgrad(wgrad, _WGRAD_SHAPES)
     g.update(split_vec(vec, _VEC_OFFSETS, _VEC_SIZES))
-    g["bias"] = vec[K8_VEC:].reshape(nh, nq, nk)
+    g["bias"] = dbias
     return dq, dk, dv, dsw, g
 
 

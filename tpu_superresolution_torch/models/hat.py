@@ -33,9 +33,12 @@ modules/hat_arch.py:710-994).
   scales for every HAB (linear decay to ``drop_path_rate``) from the
   generator given to ``forward``; they scale the attention and MLP
   residuals, never the CAB branch (hat_arch.py:307-308), and the OCAB
-  has none.  On CUDA each HAB's backward is K6b (ws 7) or K5 (ws 8),
-  with the gradient of `extra`, and each OCAB core's K8b; K7's, K1t's,
-  K12's and K15's backwards are autograd of their plain versions.
+  has none.  On CUDA each HAB's backward is K6b (ws 7), K5 (ws 8) or
+  K5w16 (ws 16, the K7 route's block: ``fused_block.WindowBlockFunction``),
+  with the gradient of `extra`, and each OCAB core's K8b (K8bw16 at ws
+  16); K12's backward is autograd of its plain version, as are K7's,
+  K1t's and K15's where a block or OCAB outside those shapes runs them
+  in training.
 """
 
 from __future__ import annotations

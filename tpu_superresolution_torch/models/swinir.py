@@ -23,7 +23,7 @@ network_swinir.py:618-851).
 - Training: ``model.train()`` draws per-sample stochastic-depth branch
   scales for every block (linear decay to ``drop_path_rate``) from the
   generator given to ``forward``; on CUDA each block's backward is K5
-  and the derived weights (K1 packing, conv layouts, the composed
+  (K6b at ws 7, K5w16 on the K7 route at ws 16) and the derived weights (K1 packing, conv layouts, the composed
   reconstruction) are rebuilt inside the graph on every step.
 """
 
@@ -48,9 +48,11 @@ from tpu_superresolution_torch.kernels.fused_block import (
     block_route,
     fused_block_tail,
     fused_windows_block,
+    k5w16_ok,
     pack_block_tail,
     pack_block_weights,
     swin_block_plain,
+    window_block_k5w16,
 )
 from tpu_superresolution_torch.kernels.layernorm import layernorm
 from tpu_superresolution_torch.models.blocks import (
@@ -160,7 +162,9 @@ class SwinBlock(nn.Module):
         reverse and unshift, `extra`, LN2, MLP, residual); each
         wrapper's plain version on the CPU.  At inference on CUDA both
         kernels' weights (the gathered bias among them) are packed once
-        per loaded weights."""
+        per loaded weights.  In training on CUDA a block that
+        ``k5w16_ok`` takes (ws 16) runs that composition forward and
+        K5w16 backward (``fused_block.window_block_k5w16``)."""
         pa = pt = None
         if x.is_cuda:
             def pack():
@@ -176,10 +180,18 @@ class SwinBlock(nn.Module):
             return fused_window_attention(xw, w.wqkv, w.bqkv, w.wproj, w.bproj, rpb, mask,
                                           packed=pa)
 
-        return swin_block_plain(
-            x, wts, ws, shift, mask, self.gelu_approximate, branch_scales, extra,
-            ln1=lambda x, g, b: layernorm(x.contiguous(), g, b), attention=attention,
-            tail=functools.partial(fused_block_tail, packed=pt))
+        def route(x, w, scales, extra):
+            return swin_block_plain(
+                x, w, ws, shift, mask, self.gelu_approximate, scales, extra,
+                ln1=lambda x, g, b: layernorm(x.contiguous(), g, b), attention=attention,
+                tail=functools.partial(fused_block_tail, packed=pt))
+
+        if (x.is_cuda and torch.is_grad_enabled()
+                and k5w16_ok(ws, wts.dim, wts.num_heads, int(wts.wfc1.shape[0]),
+                             wts.bqkv is not None)):
+            return window_block_k5w16(x, wts, shift, mask, self.gelu_approximate, branch_scales,
+                                      extra, route)
+        return route(x, wts, branch_scales, extra)
 
 
 class BasicLayer(nn.Module):
