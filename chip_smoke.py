@@ -11,8 +11,14 @@ Phases (a failure in any raises, and the script exits non-zero):
 1. device   the card's name, compute capability 9.0, power limit;
 2. build    nvcc-compile the port's kernels from csrc/ (seconds, ptxas);
 3. kernels  each kernel against its plain PyTorch version at the
-            main paths' shapes (K1 also with stochastic-depth branch
-            scales and with HAT's `extra` at hat_fast's widths; K6, the
+            main paths' shapes (K3/K4 at 14 shapes: the bench tiles, a
+            whole image, the train batch with the weight packed in the
+            call, HAT's tiles, a [1,52,76,180] image, ThreeConv's 180->45
+            and 45->180, SwinIR-L's 240->240 and the composed x2, x3 and
+            x4 reconstructions, each with its route, its ratio to cuDNN,
+            its share of the bound and 20 calls timed back to back; K1
+            also with stochastic-depth branch scales and with HAT's
+            `extra` at hat_fast's widths; K6, the
             ws-7 block, at HAT's tile batch with `extra` and at SwinIR's
             widths without; K5, the block backward, on dx and its 13
             parameter gradients): the error vs the plain version in bf16
@@ -63,7 +69,9 @@ Phases (a failure in any raises, and the script exits non-zero):
             plain fp32 path;
 5. bench    the bench.py workload (256^2 LR, tile 64, overlap 8, x4, bf16,
             25 tiles in one batch, 10 timed iterations) in MPix/s, for the
-            kernels and for the plain path; then SwinIR-M x4 at window 7
+            kernels and for the plain path, and K3/K4's device time in one
+            profiled forward (likewise in the HAT, DAT and HAT-SRx4
+            bench phases); then SwinIR-M x4 at window 7
             (its blocks run K6): launches and PSNR vs the plain fp32 path;
             and one SwinIR-L-width forward (embed 240, 8 heads, ws 8,
             depths 9x6, 3conv, nearest+conv; 4 tiles of 64^2), whose
@@ -392,6 +400,29 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def queued_ms(fn, calls: int = 20) -> float:
+    """Median over 5 runs of `calls` back-to-back calls of fn() between two
+    CUDA events, per call: the device time when the host keeps the queue
+    full (cuda_ms times one call from an idle device, so it also counts
+    the host's work before the launch)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
 # ----------------------------------------------------------------- phases
 
 
@@ -425,8 +456,21 @@ def phase_build():
     log(f"[build] {path.name} in {seconds:.1f} s "
         f"({'compiled' if out else 'already built'})")
     for line in out.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if ("registers" in line or "spill" in line or "error" in line) and "C7519" not in line:
             log(f"[build] {line.strip()}")
+    # K3/K4's kernels by name (csrc/conv.cu: the flat and halo routes, one
+    # instantiation a compiled N tile): registers, shared memory, spills
+    name = None
+    for line in out.splitlines():
+        if "Function properties for" in line:
+            fn = line.split("Function properties for")[-1].strip()
+            kinds = ("conv_nhwc_wgmma_kernel", "conv_nhwc_halo_kernel")
+            name = next((f"{k} N={fn.split('ILi')[1].split('E')[0]}" for k in kinds if k in fn),
+                        None)
+        elif name and ("spill" in line or "Used" in line):
+            log(f"[build] conv.cu {name}: {line.strip()}")
+            if "Used" in line:
+                name = None
 
 
 def _random_block(gen, device, c=180, nh=6, hidden=360, ws=8):
@@ -536,7 +580,6 @@ def phase_kernels():
     import torch
     import torch.nn.functional as F
 
-    from tpu_superresolution_torch.kernels.cab_conv import conv3x3, conv_k, conv_plain
     from tpu_superresolution_torch.kernels.fused_block import (
         GRAD_FIELDS,
         fused_swin_block_backward,
@@ -635,32 +678,109 @@ def phase_kernels():
                  cuda_ms(lambda: F.layer_norm(x, (c,), g16, b16, 1e-5)))
 
     # K3: 3x3 convs 180->180 and 180->64 on bench tiles, a whole image and
-    # the train batch, and HAT's 96->96 on its tiles; K4: the composed 5x5
-    # 64->48 reconstruction conv.
-    cases = [("K3", (25, 64, 64, 180), 180, 3, ((1, 1), (1, 1))),
-             ("K3", (25, 64, 64, 180), 64, 3, ((1, 1), (1, 1))),
-             ("K3", (1, 256, 256, 180), 180, 3, ((1, 1), (1, 1))),
-             ("K3", (1, 256, 256, 180), 64, 3, ((1, 1), (1, 1))),
-             ("K3", (8, 64, 64, 180), 180, 3, ((1, 1), (1, 1))),
-             ("K3", (25, 70, 70, 96), 96, 3, ((1, 1), (1, 1))),
-             ("K4", (25, 64, 64, 64), 48, 5, ((2, 2), (2, 2))),
-             ("K4", (8, 64, 64, 64), 48, 5, ((2, 2), (2, 2)))]
-    for key, shape, cout, k, pad in cases:
+    # the train batch, HAT's 96->96 on its tiles, a [1,52,76,180] image
+    # (sides not multiples of 8 or 16), ThreeConv's 180->45 and 45->180
+    # and SwinIR-L's 240->240; K4: the composed 5x5 64->48 reconstruction
+    # conv on bench tiles and the train batch, and the composed x2 and x3
+    # kernels as ops/fused_upsample.py builds them.  Inference shapes run
+    # with the weight packed once (as the models cache it), the train
+    # batch with the packing in every call (as under autograd).
+    _conv_cases(res, gen, dev, CONV_CASES)
+    return res
+
+
+# K3/K4 cases: (key, input shape, Cout (or "x2"/"x3": the composed
+# reconstruction), k, weight packed once); the first of each key is its
+# row in the JSON line.
+CONV_CASES = [("K3", (25, 64, 64, 180), 180, 3, True),
+              ("K3", (25, 64, 64, 180), 64, 3, True),
+              ("K3", (1, 256, 256, 180), 180, 3, True),
+              ("K3", (1, 256, 256, 180), 64, 3, True),
+              ("K3", (8, 64, 64, 180), 180, 3, False),
+              ("K3", (25, 70, 70, 96), 96, 3, True),
+              ("K4", (25, 64, 64, 64), 48, 5, True),
+              ("K4", (8, 64, 64, 64), 48, 5, False),
+              ("K3", (1, 52, 76, 180), 180, 3, True),
+              ("K3", (25, 64, 64, 180), 45, 3, True),
+              ("K3", (25, 64, 64, 45), 180, 3, True),
+              ("K3", (25, 64, 64, 240), 240, 3, True),
+              ("K4", (25, 64, 64, 64), "x2", 5, True),
+              ("K4", (25, 64, 64, 64), "x3", 5, True)]
+
+
+def _conv_cases(res, gen, dev, cases):
+    """Each K3/K4 case against its plain version, timed beside cuDNN; its
+    route, its ratio to cuDNN and its share of the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_superresolution_torch.kernels.cab_conv import (
+        conv3x3,
+        conv_k,
+        conv_plain,
+        conv_route,
+        conv_vec,
+        pack_conv_weight,
+    )
+
+    bf = torch.bfloat16
+    for key, shape, cout, k, prepacked in cases:
         cin = shape[-1]
         x = torch.randn(*shape, generator=gen).to(dev, bf)
-        kern = (torch.randn(k, k, cin, cout, generator=gen) * (k * k * cin) ** -0.5).to(dev, bf)
-        bias = (0.1 * torch.randn(cout, generator=gen)).to(dev)
-        fn = (lambda: conv3x3(x, kern, bias)) if key == "K3" else (lambda: conv_k(x, kern, bias, pad))
+        if isinstance(cout, str):  # a composed reconstruction kernel
+            comp = _random_composed(gen, int(cout[1:]), cin, dev)
+            kern, bias, pad = comp.kernel, comp.bias, comp.pad
+            label = f"{list(shape)} -> {int(kern.shape[3])}, 5x5 ({cout} reconstruction)"
+            cout = int(kern.shape[3])
+        else:
+            kern = (torch.randn(k, k, cin, cout, generator=gen) * (k * k * cin) ** -0.5).to(dev, bf)
+            bias = (0.1 * torch.randn(cout, generator=gen)).to(dev)
+            pad = ((k // 2, k // 2), (k // 2, k // 2))
+            label = f"{list(shape)} -> {cout}, {k}x{k}"
+        packed = pack_conv_weight(kern) if prepacked else None
+        label += "" if prepacked else " (weight packed in the call)"
+        fn = ((lambda: conv3x3(x, kern, bias, packed)) if key == "K3"
+              else (lambda: conv_k(x, kern, bias, pad, packed)))
         out = fn()
         # the one-call library yardstick: cuDNN on the same NHWC tensor
         xn, wn, b16 = x.permute(0, 3, 1, 2), kern.permute(3, 2, 0, 1).contiguous(), bias.to(bf)
+        (pt, pb), (pl, pr) = pad
+        lib = ((lambda: F.conv2d(xn, wn, b16, padding=k // 2)) if pt == pb and pl == pr
+               else (lambda: F.conv2d(F.pad(xn, (pl, pr, pt, pb)), wn, b16)))
         pixels = math.prod(shape[:3])
-        _compare(res, key, f"{list(shape)} -> {cout}, {k}x{k}", out,
+        plan = conv_route(cin, cout, k, k)
+        t_kernel, t_lib = cuda_ms(fn), cuda_ms(lib)
+        _compare(res, key, label, out,
                  conv_plain(x, kern, bias, pad), conv_plain(x.float(), kern.float(), bias, pad),
-                 cuda_ms(fn), cuda_ms(lambda: conv_plain(x, kern, bias, pad)),
+                 t_kernel, cuda_ms(lambda: conv_plain(x, kern, bias, pad)),
                  (2 * pixels * cin * cout * k * k,
                   pixels * (cin + cout) * 2 + kern.numel() * 2 + cout * 4),
-                 cuda_ms(lambda: F.conv2d(xn, wn, b16, padding=k // 2)))
+                 t_lib)
+        row = res[key][-1]
+        log(f"[kernels] {key} {label}: route {plan.describe(conv_vec(x, plan))}; "
+            f"{row['ms'] / t_lib:.3f}x cuDNN, {row['bound_ms'] / row['ms']:.1%} of the bound; "
+            f"20 calls back to back: kernel {queued_ms(fn):.4f} ms, cuDNN {queued_ms(lib):.4f} ms "
+            f"a call")
+        del out
+
+
+def _random_composed(gen, scale, cin, device):
+    """The composed reconstruction (x2: conv nf -> 4 nf, PixelShuffle(2);
+    x3: conv -> 9 nf, PixelShuffle(3); then conv_last nf -> 3) as
+    ops/fused_upsample.py builds it for K4, from seeded random weights."""
+    import torch
+    import torch.nn as nn
+
+    from tpu_superresolution_torch.models.blocks import PixelShuffleUpsample, hwio
+    from tpu_superresolution_torch.ops.fused_upsample import compose_upsample
+
+    up, last = PixelShuffleUpsample(scale, cin), nn.Conv2d(cin, 3, 3, 1, 1)
+    with torch.no_grad():
+        for p in list(up.parameters()) + list(last.parameters()):
+            scale = p[0].numel() ** -0.5 if p.dim() > 1 else 0.1
+            p.copy_(torch.randn(p.shape, generator=gen) * scale)
+    return compose_upsample(up.stages(), (hwio(last.weight), last.bias), torch.bfloat16, device)
+
     return res
 
 
@@ -1448,7 +1568,31 @@ def phase_bench(service, smi, name="SwinIR-M x4", tag="bench"):
             dt = (time.perf_counter() - t0) / n_iter
         log(f"[{tag}] {name}, 256^2 LR, tile 64/8, 25 tiles in one batch, bf16, "
             f"{label}: {dt * 1e3:.2f} ms/image, {1024 * 1024 / 1e6 / dt:.3f} MPix/s ({smi})")
-    return lambda: tiled_forward(service.model, x, 4, 64, 8)
+    fwd = lambda: tiled_forward(service.model, x, 4, 64, 8)
+    _conv_share(fwd, name, tag, smi)
+    return fwd
+
+
+def _conv_share(fwd, name, tag, smi):
+    """K3/K4's device time in one profiled bench forward (kernels named
+    conv_nhwc_*), beside the forward's busy device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fwd()
+            torch.cuda.synchronize()
+    except Exception as e:  # the profile is a reading aid, not a check
+        log(f"[{tag}] profiler failed: {type(e).__name__}: {e}")
+        return
+    kernels = _device_kernels(prof)
+    us = lambda e: getattr(e, "device_time", 0.0) or getattr(e, "cuda_time", 0.0)
+    conv = [e for e in kernels if "conv_nhwc" in e.name]
+    busy, conv_us = sum(us(e) for e in kernels), sum(us(e) for e in conv)
+    if busy:
+        log(f"[{tag}] {name} profiled forward: K3/K4 x{len(conv)} {conv_us / 1e3:.3f} ms of "
+            f"{busy / 1e3:.3f} ms busy ({conv_us / busy:.1%}) ({smi})")
 
 
 def _psnr_db(a, b) -> float:

@@ -18,7 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tpu_superresolution_torch.kernels.cab_conv import conv3x3, conv_plain
+from tpu_superresolution_torch.kernels.cab_conv import conv3x3, conv_plain, pack_conv_weight
 from tpu_superresolution_torch.kernels.dwconv import dwconv3x3, dwconv3x3_plain
 from tpu_superresolution_torch.kernels.layernorm import layernorm, layernorm_plain
 from tpu_superresolution_torch.ops.fused_upsample import (
@@ -129,16 +129,23 @@ class Conv3x3(nn.Conv2d):
         self._derived = DerivedCache()
 
     def kernel_weights(self, dtype: torch.dtype, device: torch.device):
-        return self._derived.get(
-            (self.weight, self.bias), (dtype, device),
-            lambda: (hwio(self.weight).to(dtype).contiguous(), self.bias.float().contiguous()),
-        )
+        """(kernel [3, 3, Cin, Cout] in `dtype`, fp32 bias, K3's packed
+        weight or None): the packing is cached with the rest outside
+        autograd on a CUDA device, and left to K3's wrapper (every call)
+        when a gradient is wanted."""
+        def build(pack: bool):
+            k = hwio(self.weight).to(dtype).contiguous()
+            packed = pack_conv_weight(k) if pack and torch.device(device).type == "cuda" else None
+            return k, self.bias.float().contiguous(), packed
+
+        return self._derived.get((self.weight, self.bias), (dtype, device),
+                                 lambda: build(True), lambda: build(False))
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
-        k, b = self.kernel_weights(x.dtype, x.device)
+        k, b, packed = self.kernel_weights(x.dtype, x.device)
         if plain:
             return conv_plain(x, k, b, ((1, 1), (1, 1)))
-        return conv3x3(x, k, b)
+        return conv3x3(x, k, b, packed)
 
 
 class DWConv3x3(nn.Conv2d):

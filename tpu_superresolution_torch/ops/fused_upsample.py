@@ -21,12 +21,18 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from tpu_superresolution_torch.kernels.cab_conv import Pad, conv_k, conv_plain
+from tpu_superresolution_torch.kernels.cab_conv import (
+    Pad,
+    PackedConv,
+    conv_k,
+    conv_plain,
+    pack_conv_weight,
+)
 from tpu_superresolution_torch.ops.pixelshuffle import pixel_shuffle
 
 
@@ -182,12 +188,15 @@ def composed_upsample_params(stages, last):
 @dataclasses.dataclass(frozen=True)
 class ComposedUpsample:
     """The composed reconstruction conv, ready for K4: kernel
-    [kh, kw, cin, out*r^2] in the compute dtype, fp32 bias."""
+    [kh, kw, cin, out*r^2] in the compute dtype, fp32 bias, and K4's
+    packed weight where it was built once for inference on a CUDA device
+    (else None: the wrapper packs on every call)."""
 
     kernel: torch.Tensor
     bias: torch.Tensor
     pad: Pad
     r: int
+    packed: Optional[PackedConv] = None
 
 
 def compose_upsample(stages, last, dtype: torch.dtype,
@@ -198,12 +207,10 @@ def compose_upsample(stages, last, dtype: torch.dtype,
     K, B, pad, r = composed_upsample_params(
         [(to_np(w), to_np(b), r) for w, b, r in stages], (to_np(last[0]), to_np(last[1]))
     )
-    return ComposedUpsample(
-        kernel=torch.from_numpy(K).to(device=device, dtype=dtype).contiguous(),
-        bias=torch.from_numpy(B).to(device),
-        pad=pad,
-        r=r,
-    )
+    kernel = torch.from_numpy(K).to(device=device, dtype=dtype).contiguous()
+    packed = pack_conv_weight(kernel) if torch.device(device).type == "cuda" else None
+    return ComposedUpsample(kernel=kernel, bias=torch.from_numpy(B).to(device), pad=pad, r=r,
+                            packed=packed)
 
 
 def compose_upsample_torch(stages, last, dtype: torch.dtype) -> ComposedUpsample:
@@ -220,8 +227,9 @@ def fused_pixelshuffle_reconstruct(y: torch.Tensor, comp: ComposedUpsample,
     """One conv (K4, or its plain version) + one pixel_shuffle.
     y: [B, H, W, C] after conv_before_upsample's LeakyReLU ->
     [B, H*r, W*r, out_ch]."""
-    conv = conv_plain if plain else conv_k
-    return pixel_shuffle(conv(y, comp.kernel, comp.bias, comp.pad), comp.r)
+    if plain:
+        return pixel_shuffle(conv_plain(y, comp.kernel, comp.bias, comp.pad), comp.r)
+    return pixel_shuffle(conv_k(y, comp.kernel, comp.bias, comp.pad, comp.packed), comp.r)
 
 
 def chain_pixelshuffle_reconstruct(y: torch.Tensor, stages: Sequence, last,
