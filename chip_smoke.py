@@ -49,13 +49,17 @@ Phases (a failure in any raises, and the script exits non-zero):
             [256,3,128,30], the bench batch's [800,3,128,30] and the
             published DAT x4's N 256, with and without the shift mask,
             timed beside SDPA, and K11 (depthwise 3x3) at [8,64,64,180]
-            and [25,64,64,360], timed beside cuDNN's grouped conv; then
-            K15 (window attention, Nq queries against Nk keys; K16's
-            kernel) at HAT's OCAB on the bench batch ([2500,6,49,16]
-            against 100 keys), hat_fast's ([1600,6,64,16] against 144),
-            HAT-SRx4's ([400,6,256,30] against 576) and its train step's
-            ([128,...]), and square with the shift mask ([1600,6,64,30],
-            mask [64,64,64]), timed beside SDPA; then the ws-16 training
+            and [25,64,64,360], timed beside cuDNN's grouped conv (both
+            K11 kernels, "rows" and "tiles", timed and held equal bit
+            for bit); K16 also at a branch of hd 44; then
+            K15 (window attention, Nq queries against Nk keys: the wgmma
+            kernel or K16's tiled one, by shape) at HAT's OCAB on the
+            bench batch ([2500,6,49,16] against 100 keys), hat_fast's
+            ([1600,6,64,16] against 144), HAT-SRx4's ([400,6,256,30]
+            against 576) and its train step's ([128,...]), square with
+            the shift mask ([1600,6,64,30], mask [64,64,64]), and at the
+            wide route's hd 44 and 64, timed beside SDPA (both kernels
+            where both take the shape); then the ws-16 training
             kernels at the HAT-SRx4 train step's shapes: K5w16 (the K7
             route's block backward) at [8,64,64,180] shift 8 with `extra`
             and branch scales, K8w16 and K8bw16 (the OCAB core and its
@@ -76,7 +80,11 @@ Phases (a failure in any raises, and the script exits non-zero):
             and one SwinIR-L-width forward (embed 240, 8 heads, ws 8,
             depths 9x6, 3conv, nearest+conv; 4 tiles of 64^2), whose
             blocks take the K7 route (K2, K7, K1t): launches and PSNR
-            likewise;
+            likewise; then the "wide" route's forwards (depth (2,), 4
+            tiles of 64^2): SwinIR at C 264 in 6 heads and at C 180 in 4
+            heads (K2, K7's product launch, K15, K1t a block), HAT at
+            embed 264 (its CABs on K2 + K3 with the GELU + K3):
+            launches and PSNR likewise;
 6. hat      HAT x4 (HATConfig(): embed 96, depths 6x4, ws 7; seeded
             random weights, exported to a .pth) behind SRService with
             --model hat: the three requests and checks of the serve phase
@@ -149,7 +157,7 @@ Phases (a failure in any raises, and the script exits non-zero):
             resolution, BF16_FLOOR).
 
 The second-to-last stdout line is a JSON object describing each kernel
-(launches summed over the serve, SwinIR ws-7, SwinIR-L, hat, dat,
+(launches summed over the serve, SwinIR ws-7, SwinIR-L, wide, hat, dat,
 train, hat-train, hat_srx4, hat_srx4-train, dat_x4 and dat-train phases); the last is
 {"ok": true, "device": {...}}.  There is no CPU path: with no CUDA
 device the script exits non-zero and prints no result.
@@ -244,9 +252,10 @@ KERNELS = {
     "K16": dict(name="batched_window_attention", route="cuda",
                 source="tpu_superresolution_torch/csrc/batched_attn.cu",
                 replaces="tpu_superresolution_tpu/ops/pallas/window_attention.py:352"),
-    # the same CUDA kernel as K16, at Nq != Nk (HAT's OCAB)
+    # HAT's OCAB: the wgmma kernel (window_attention.k15_route; K16's
+    # tiled kernel in csrc/batched_attn.cu keeps the other shapes of hd <= 32)
     "K15": dict(name="fused_window_attention", route="cuda",
-                source="tpu_superresolution_torch/csrc/batched_attn.cu",
+                source="tpu_superresolution_torch/csrc/window_attn_wg.cu",
                 replaces="tpu_superresolution_tpu/ops/pallas/window_attention.py:193"),
     # K5, K8 and K8b at window 16 (HAT-SRx4 training): kernels of their own
     "K5w16": dict(name="swin_block_bwd_ws16", route="cuda",
@@ -690,8 +699,9 @@ def phase_kernels():
 
 
 # K3/K4 cases: (key, input shape, Cout (or "x2"/"x3": the composed
-# reconstruction), k, weight packed once); the first of each key is its
-# row in the JSON line.
+# reconstruction), k, weight packed once[, the GELU in the epilogue]);
+# the first of each key is its row in the JSON line.  The last two are
+# the CAB of HAT at embed 264 (the "wide" route's K2 + K3 + K3).
 CONV_CASES = [("K3", (25, 64, 64, 180), 180, 3, True),
               ("K3", (25, 64, 64, 180), 64, 3, True),
               ("K3", (1, 256, 256, 180), 180, 3, True),
@@ -705,7 +715,9 @@ CONV_CASES = [("K3", (25, 64, 64, 180), 180, 3, True),
               ("K3", (25, 64, 64, 45), 180, 3, True),
               ("K3", (25, 64, 64, 240), 240, 3, True),
               ("K4", (25, 64, 64, 64), "x2", 5, True),
-              ("K4", (25, 64, 64, 64), "x3", 5, True)]
+              ("K4", (25, 64, 64, 64), "x3", 5, True),
+              ("K3", (4, 70, 70, 264), 88, 3, True, True),
+              ("K3", (4, 70, 70, 88), 264, 3, True)]
 
 
 def _conv_cases(res, gen, dev, cases):
@@ -724,7 +736,8 @@ def _conv_cases(res, gen, dev, cases):
     )
 
     bf = torch.bfloat16
-    for key, shape, cout, k, prepacked in cases:
+    for key, shape, cout, k, prepacked, *act in cases:
+        gelu = bool(act and act[0])
         cin = shape[-1]
         x = torch.randn(*shape, generator=gen).to(dev, bf)
         if isinstance(cout, str):  # a composed reconstruction kernel
@@ -736,10 +749,10 @@ def _conv_cases(res, gen, dev, cases):
             kern = (torch.randn(k, k, cin, cout, generator=gen) * (k * k * cin) ** -0.5).to(dev, bf)
             bias = (0.1 * torch.randn(cout, generator=gen)).to(dev)
             pad = ((k // 2, k // 2), (k // 2, k // 2))
-            label = f"{list(shape)} -> {cout}, {k}x{k}"
+            label = f"{list(shape)} -> {cout}, {k}x{k}{' + GELU' if gelu else ''}"
         packed = pack_conv_weight(kern) if prepacked else None
         label += "" if prepacked else " (weight packed in the call)"
-        fn = ((lambda: conv3x3(x, kern, bias, packed)) if key == "K3"
+        fn = ((lambda: conv3x3(x, kern, bias, packed, gelu=gelu)) if key == "K3"
               else (lambda: conv_k(x, kern, bias, pad, packed)))
         out = fn()
         # the one-call library yardstick: cuDNN on the same NHWC tensor
@@ -750,13 +763,17 @@ def _conv_cases(res, gen, dev, cases):
         pixels = math.prod(shape[:3])
         plan = conv_route(cin, cout, k, k)
         t_kernel, t_lib = cuda_ms(fn), cuda_ms(lib)
+        plain = lambda: conv_plain(x, kern, bias, pad, gelu)
         _compare(res, key, label, out,
-                 conv_plain(x, kern, bias, pad), conv_plain(x.float(), kern.float(), bias, pad),
-                 t_kernel, cuda_ms(lambda: conv_plain(x, kern, bias, pad)),
+                 plain(), conv_plain(x.float(), kern.float(), bias, pad, gelu),
+                 t_kernel, cuda_ms(plain),
                  (2 * pixels * cin * cout * k * k,
                   pixels * (cin + cout) * 2 + kern.numel() * 2 + cout * 4),
                  t_lib)
         row = res[key][-1]
+        if gelu:
+            log(f"[kernels] {key} {label}: the same conv without the GELU "
+                f"{cuda_ms(lambda: conv3x3(x, kern, bias, packed)):.4f} ms")
         log(f"[kernels] {key} {label}: route {plan.describe(conv_vec(x, plan))}; "
             f"{row['ms'] / t_lib:.3f}x cuDNN, {row['bound_ms'] / row['ms']:.1%} of the bound; "
             f"20 calls back to back: kernel {queued_ms(fn):.4f} ms, cuDNN {queued_ms(lib):.4f} ms "
@@ -1128,16 +1145,19 @@ def phase_rect_attention_kernels(res):
     its paths: HAT's OCAB at the bench batch ([2500, 6, 49, 16] against
     100 keys: ws 7, ows 10, C 96), hat_fast's ([1600, 6, 64, 16] against
     144), HAT-SRx4's ([400, 6, 256, 30] against 576: ws 16, ows 24, C
-    180) and its train step's ([128, 6, 256, 30]), and the square masked
+    180) and its train step's ([128, 6, 256, 30]), the square masked
     case (SwinIR-M's bench batch at ws 8, [1600, 6, 64, 30] with the
-    shift mask [64, 64, 64]).  Unscaled q with scale hd^-0.5, as the OCAB
-    calls it.  Each output in bf16 ulps against the plain bf16 and fp32
-    versions; kernel, plain and SDPA times (bias + mask as a bf16
-    attn_mask) and the bound, into `res`.  Beside the wrapper's form, the
-    kernel's others are timed at each shape: the probabilities rounded to
-    bf16 once or in two bf16 parts (K15_SPLIT_P), and at hd 16 the
-    element loads that rows off a 16-byte boundary take, which must give
-    the same output bit for bit."""
+    shift mask [64, 64, 64]), and the widths the "wide" route brings:
+    hd 44 (C 264 in 6 heads) at HAT's OCAB, at the OCAB of window 16 and
+    square with the shift mask, and hd 64.  Unscaled q with scale
+    hd^-0.5, as the OCAB calls it.  Each output in bf16 ulps against the
+    plain bf16 and fp32 versions; kernel, plain and SDPA times (bias +
+    mask as a bf16 attn_mask) and the bound, into `res`.  Beside the
+    wrapper's call (its route, ``k15_route``), the call back to back and,
+    at hd <= 32, both kernels (the tiled one with P rounded to bf16 once
+    and in two bf16 parts, the wgmma one) are timed at each shape, and at
+    hd % 8 == 0 the element loads that rows off a 16-byte boundary take,
+    which must give the same output bit for bit."""
     import torch
     import torch.nn.functional as F
 
@@ -1147,17 +1167,27 @@ def phase_rect_attention_kernels(res):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)  # inputs made on the card
     bf = torch.bfloat16
-    for label, bw, nq, nk, hd, masked in (
-            ("HAT (ws 7, ows 10) bench batch", 2500, 49, 100, 16, False),
-            ("hat_fast (ws 8, ows 12)", 1600, 64, 144, 16, False),
-            ("HAT-SRx4 (ws 16, ows 24)", 400, 256, 576, 30, False),
-            ("HAT-SRx4 train step", 128, 256, 576, 30, False),
-            ("square, masked (SwinIR-M ws 8, shift 4)", 1600, 64, 64, 30, True)):
-        nh = 6
+    # (label, BW, nH, Nq, Nk, hd, the shift mask's (map side, ws, shift) or None)
+    for label, bw, nh, nq, nk, hd, geom in (
+            ("HAT (ws 7, ows 10) bench batch", 2500, 6, 49, 100, 16, None),
+            ("hat_fast (ws 8, ows 12)", 1600, 6, 64, 144, 16, None),
+            ("HAT-SRx4 (ws 16, ows 24)", 400, 6, 256, 576, 30, None),
+            ("HAT-SRx4 train step", 128, 6, 256, 576, 30, None),
+            ("square, masked (SwinIR-M ws 8, shift 4)", 1600, 6, 64, 64, 30, (64, 8, 4)),
+            ("HAT embed 264 (ws 7, ows 10, hd 44)", 2500, 6, 49, 100, 44, None),
+            ("HAT embed 264 at ws 16 (ows 24, hd 44)", 64, 6, 256, 576, 44, None),
+            ("square, masked, hd 44 (C 264, ws 8, shift 4)", 1600, 6, 64, 64, 44, (64, 8, 4)),
+            ("hd 64 (C 256, 4 heads; ws 8, ows 12)", 1600, 4, 64, 144, 64, None),
+            # the wide route's HABs and blocks at phase_wide's shapes
+            ("square, masked, hd 45 (C 180 in 4 heads, ws 8, shift 4)", 256, 4, 64, 64, 45,
+             (64, 8, 4)),
+            ("HAT embed 264 HAB, masked, hd 44 (ws 7, shift 3)", 400, 6, 49, 49, 44,
+             (70, 7, 3))):
+        masked = geom is not None
         q = torch.randn(bw, nh, nq, hd, generator=gen, device=dev).to(bf)
         k, v = (torch.randn(bw, nh, nk, hd, generator=gen, device=dev).to(bf) for _ in range(2))
         bias = 0.5 * torch.randn(nh, nq, nk, generator=gen, device=dev)
-        mask = shift_mask_tensor(64, 64, 8, 4, dev) if masked else None
+        mask = shift_mask_tensor(geom[0], geom[0], geom[1], geom[2], dev) if masked else None
         n_mask = 0 if mask is None else mask.shape[0]
         scale = hd ** -0.5
         run = lambda: kw.fused_window_attention(q, k, v, bias, mask, scale)
@@ -1174,13 +1204,24 @@ def phase_rect_attention_kernels(res):
                  cuda_ms(run), cuda_ms(plain), _attn_work(bw, nh, nq, nk, hd, n_mask),
                  cuda_ms(lib))
         bound = ULP_BOUND["K15"] * bf16_ulp(float(ref32.abs().max()))
-        forms = []
-        for split in (True, False):
-            form = lambda split=split: kw._launch(q, k, v, bias, mask, scale, kw.launches_rect,
-                                                  split)
+        route = kw.k15_route(nq, nk, hd, masked, kw.K15_SPLIT_P)
+        forms = [f"call {cuda_ms(run):.4f} ms, b2b {queued_ms(run):.4f} (SDPA b2b "
+                 f"{queued_ms(lib):.4f})"]
+        # the other kernel where both take the shape (hd <= 32), and the
+        # other form of P on the tiled kernel
+        for other, split in (("tiled", True), ("tiled", False), ("wgmma", False)):
+            if hd > 32:  # the wgmma kernel's alone
+                continue
+            form = lambda other=other, split=split: kw._launch(
+                q, k, v, bias, mask, scale, kw.launches_rect, split, route=other)
             err = float((form().float() - ref32.float()).abs().max())
-            forms.append(f"{'split' if split else 'bf16'} P {cuda_ms(form):.4f} ms (max_abs_err "
-                         f"vs plain fp32 {err:.3e}, bound {bound:.3e})")
+            if not err <= bound:
+                raise RuntimeError(f"K15 {label}: the {other} kernel with "
+                                   f"{'split' if split else 'bf16'} P is {err:.3e} off the plain "
+                                   f"fp32 version (bound {bound:.3e})")
+            forms.append(f"{other} {'split' if split else 'bf16'} P {cuda_ms(form):.4f} ms "
+                         f"(b2b {queued_ms(form):.4f}; max_abs_err vs plain fp32 {err:.3e}, "
+                         f"bound {bound:.3e})")
         if hd % 8 == 0:
             qu, ku, vu = (_unaligned(t) for t in (q, k, v))
             form = lambda: kw._launch(qu, ku, vu, bias, mask, scale, kw.launches_rect,
@@ -1189,7 +1230,7 @@ def phase_rect_attention_kernels(res):
                 raise RuntimeError(f"K15 {label}: the element loads change the output")
             forms.append(f"element loads {cuda_ms(form):.4f} ms (output identical)")
             del qu, ku, vu
-        log(f"[kernels] K15 {label} forms: {'; '.join(forms)} (wrapper: "
+        log(f"[kernels] K15 {label} route {route} forms: {'; '.join(forms)} (wrapper: "
             f"{'split' if kw.K15_SPLIT_P else 'bf16'} P, 16-byte loads where aligned)")
         del out, ref16, ref32, am
     return res
@@ -1209,8 +1250,10 @@ def phase_dat_train_kernels(res):
     """The DAT module chain's kernels: K16 (batched window attention) at
     the DAT train step's [256, 3, 128, 30] and the bench tile batch's
     [800, 3, 128, 30] (DATConfig(): windows 8 x 16 of a 64^2 map, 3 heads
-    a branch of hd 30), each with and without the shift mask, and at the
-    published DAT x4's N 256 ([400, 3, 256, 30], windows 8 x 32); K11
+    a branch of hd 30), each with and without the shift mask, at the
+    published DAT x4's N 256 ([400, 3, 256, 30], windows 8 x 32) and at
+    branches of hd 44 and 64 (C 176 and 256 in 4 heads: the wgmma
+    kernel); K11
     (depthwise 3x3) at the train step's conv branch [8, 64, 64, 180] and
     the published x4's sg_conv [25, 64, 64, 360].  Each output in bf16
     ulps against the plain bf16 and fp32 versions; kernel, plain and
@@ -1226,8 +1269,9 @@ def phase_dat_train_kernels(res):
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 6)
     bf = torch.bfloat16
-    nh, hd = 3, 30
-    for bw, (hsp, wsp) in ((256, (8, 16)), (800, (8, 16)), (400, (8, 32))):
+    for bw, nh, hd, (hsp, wsp) in ((256, 3, 30, (8, 16)), (800, 3, 30, (8, 16)),
+                                   (400, 3, 30, (8, 32)), (256, 2, 44, (8, 16)),
+                                   (256, 2, 64, (8, 16))):
         n = hsp * wsp
         q = (torch.randn(bw, nh, n, hd, generator=gen) * hd ** -0.5).to(dev, bf)
         k, v = (torch.randn(bw, nh, n, hd, generator=gen).to(dev, bf) for _ in range(2))
@@ -1243,7 +1287,8 @@ def phase_dat_train_kernels(res):
             am = _sdpa_mask(bias, mask, bw)
             lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am, scale=1.0)
             torch.cuda.synchronize()
-            _compare(res, "K16", f"[{bw},{nh},{n},{hd}] {'masked' if masked else 'unmasked'}",
+            _compare(res, "K16", f"[{bw},{nh},{n},{hd}] {'masked' if masked else 'unmasked'} "
+                     f"({kw.k15_route(n, n, hd, masked, kw.K16_SPLIT_P)} route)",
                      out, ref16, ref32, cuda_ms(run), cuda_ms(plain),
                      _attn_work(bw, nh, n, n, hd, n_mask), cuda_ms(lib))
             del out, ref16, ref32, am
@@ -1261,7 +1306,20 @@ def phase_dat_train_kernels(res):
         lib = lambda: F.conv2d(xn, wt, bb, padding=1, groups=c)
         torch.cuda.synchronize()
         pixels = math.prod(shape[:3])
-        _compare(res, "K11", f"{list(shape)}", out, ref16, ref32, cuda_ms(run), cuda_ms(plain),
+        plan = kd.dwconv_plan(*shape, torch.cuda.get_device_properties(dev).multi_processor_count)
+        # the "rows" kernel sums in the "tiles" kernel's order: bit for bit
+        forms = []
+        for route in ("rows", "tiles"):
+            form = lambda route=route: kd._launch(x, taps, b, route=route)
+            if not torch.equal(out, form()):
+                raise RuntimeError(f"K11 {list(shape)}: the rows and tiles kernels disagree")
+            forms.append(f"{route} {cuda_ms(form):.4f} ms (b2b {queued_ms(form):.4f})")
+        log(f"[kernels] K11 {list(shape)} both kernels, output identical: {'; '.join(forms)}")
+        geometry = (f": {plan.threads} threads, {plan.rows} rows x {plan.seg} columns a CTA, "
+                    f"{plan.slots} row buffers, grid {plan.grid}" if plan.route == "rows" else "")
+        _compare(res, "K11", f"{list(shape)} ({plan.route} route{geometry}; b2b "
+                 f"{queued_ms(run):.4f} ms, cuDNN b2b {queued_ms(lib):.4f})",
+                 out, ref16, ref32, cuda_ms(run), cuda_ms(plain),
                  (18 * pixels * c, 2 * pixels * c * 2 + 10 * c * 4), cuda_ms(lib))
         del out, ref16, ref32
     return res
@@ -1355,9 +1413,36 @@ def phase_window_kernels(res):
                  _k7_work(xw.shape[0], ws * ws, c, nh))
         del out, ref16, ref32
 
+    # K7's product launch alone, as the "wide" route's qkv and proj at
+    # phase_wide's shapes (4 tiles of 64^2): C 264 (qkv 792, proj 264)
+    # and C 180 in 4 heads (qkv 540: paired stores), beside cuBLAS; odd
+    # widths (element loads and stores) at 45 -> 135
+    for rows, c_in, c_out in ((16384, 264, 792), (16384, 264, 264), (16384, 180, 540),
+                              (4096, 45, 135)):
+        x = torch.randn(rows, c_in, generator=gen).to(dev, bf)
+        w = (torch.randn(c_out, c_in, generator=gen) * c_in ** -0.5).bfloat16().float().to(dev)
+        b = (0.1 * torch.randn(c_out, generator=gen)).to(dev)
+        packed = fa.pack_window_product(w, b)
+        run = lambda: fa.window_product(x, w, b, packed)
+        plain = lambda: fa.window_product_plain(x, w, b)
+        wb, bb = w.to(bf), b.to(bf)
+        out = run()
+        ref16, ref32 = plain(), fa.window_product_plain(x.float(), w, b)
+        torch.cuda.synchronize()
+        _compare(res, "K7", f"product (wide route) [{rows},{c_in}] -> {c_out}", out, ref16, ref32,
+                 cuda_ms(run), cuda_ms(plain),
+                 (2 * rows * c_in * c_out,
+                  rows * (c_in + c_out) * 2 + c_out * c_in * 2 + c_out * 4),
+                 cuda_ms(lambda: F.linear(x, wb, bb)))
+        del out, ref16, ref32
+
     for shape, nh, hidden, ws, shift, with_extra, with_scales in (
             ((25, 64, 64, 180), 6, 360, 16, 8, True, False),
-            ((25, 64, 64, 240), 8, 480, 8, 4, False, True)):
+            ((25, 64, 64, 240), 8, 480, 8, 4, False, True),
+            # the "wide" route's blocks at phase_wide's shapes: SwinIR at
+            # C 264 and HAT's HAB at embed 264 (ws 7, the CAB as extra)
+            ((4, 64, 64, 264), 6, 528, 8, 4, False, False),
+            ((4, 70, 70, 264), 6, 528, 7, 3, True, False)):
         b, c = shape[0], shape[-1]
         w = _random_block(gen, dev, c=c, nh=nh, hidden=hidden, ws=ws)
         packed = fb.pack_block_tail(w.g2, w.b2, w.wfc1, w.bfc1, w.wfc2, w.bfc2)
@@ -1785,7 +1870,8 @@ def _dat_split(fwd, smi, tag="dat"):
              ("K14 chan_softmax + chan_apply", ("chan_softmax_kernel", "chan_apply_kernel")),
              ("K10 datb_tail_kernel", ("datb_tail_kernel",)),
              ("K16 batched_attn_kernel", ("batched_attn_kernel",)),
-             ("K11 dwconv3x3_kernel", ("dwconv3x3_kernel",)),
+             ("K11 dwconv3x3_rows_kernel / dwconv3x3_kernel", ("dwconv3x3_rows_kernel",
+                                                                 "dwconv3x3_kernel")),
              ("K2 layernorm", ("layernorm_rows",)),
              ("K3/K4 conv_nhwc", ("conv_nhwc",)))
     other = ("plain ops (module-chain GEMMs, BatchNorm, GELU, partitions, channel gates, "
@@ -1880,6 +1966,82 @@ def phase_swinir_l(smi):
     return counts
 
 
+# The "wide" route (fused_block.block_route): blocks past K7's widths
+# run K2 for LN1, K7's product launch for qkv and proj (two K7 calls)
+# around K15's window attention, and K1t; a HAT CAB past K12's widths
+# runs K2 + K3 (the GELU in its epilogue) + K3 (cab_conv.cab_route).  Per
+# model call at depth (2,): SwinIR: K2 for patch_norm, norm and each
+# block's LN1 (4); K7 2 and K1t 1 per block; K3 for the RSTB conv,
+# conv_after_body and conv_before_upsample; K4 for the composed
+# reconstruction; K15 per block.  HAT (ws 7, one RHAG of 2 HABs and the
+# OCAB): K2 2 + 2 per HAB (the CAB's LN, LN1) + 2 for the OCAB's norms;
+# K7 2 and K1t 1 per HAB; K3 2 per CAB + 3; K15 per HAB and the OCAB
+# (whose qkv and proj the JAX package leaves to XLA too).
+WIDE_SWINIR_PER_CALL = dict(PER_CALL, K1=0, K1t=2, K2=4, K3=3, K4=1, K7=4, K15=2)
+WIDE_HAT_PER_CALL = dict(PER_CALL, K1=0, K1t=2, K2=8, K3=7, K4=1, K7=4, K15=3)
+
+
+def phase_wide(smi):
+    """The "wide" route on the card, each at depth (2,) on 4 tiles of
+    64^2 in bf16 (seeded random weights): a SwinIR at C 264 in 6 heads (hd
+    44, ws 8), a SwinIR at C 180 in 4 heads (hd 45: odd, so K15's element
+    loads), and a HAT at embed 264 (6 heads, ws 7: its CABs past K12's C
+    256 take K2 + K3 with the GELU + K3, its OCAB K15 at hd 44; conv_scale 0.3
+    so that the CAB branch moves the output); launches per call, and the
+    output >= 50 dB against the plain fp32 path."""
+    import numpy as np
+    import torch
+
+    from tpu_superresolution_torch.core.config import HATConfig, SwinIRConfig, build_model
+    from tpu_superresolution_torch.kernels import read_counters, reset_counters
+    from tpu_superresolution_torch.kernels.cab_conv import cab_route
+    from tpu_superresolution_torch.kernels.fused_block import block_route
+
+    x = torch.from_numpy(np.random.default_rng(SEED).random((4, 64, 64, 3), np.float32)).cuda()
+    total = {}
+    for label, cfg, want in (
+            ("SwinIR C 264, 6 heads, ws 8", SwinIRConfig(scale=4, embed_dim=264, depths=(2,),
+                                                         num_heads=(6,), window_size=8),
+             WIDE_SWINIR_PER_CALL),
+            ("SwinIR C 180, 4 heads (hd 45), ws 8",
+             SwinIRConfig(scale=4, embed_dim=180, depths=(2,), num_heads=(4,), window_size=8),
+             WIDE_SWINIR_PER_CALL),
+            ("HAT embed 264, 6 heads, ws 7", HATConfig(scale=4, embed_dim=264, depths=(2,),
+                                                       num_heads=(6,), conv_scale=0.3),
+             WIDE_HAT_PER_CALL)):
+        c, nh = cfg.embed_dim, cfg.num_heads[0]
+        route = block_route(cfg.window_size, c, nh, int(c * cfg.mlp_ratio))
+        src = build_model(cfg)
+        src.reset_parameters(torch.Generator().manual_seed(SEED))
+        model = build_model(cfg, dtype=torch.bfloat16, device="cuda")
+        model.load_state_dict(src.state_dict())
+        ref = build_model(cfg, dtype=torch.float32, impl="plain", device="cuda")
+        ref.load_state_dict(src.state_dict())
+        with torch.no_grad():
+            model(x)  # warm-up: the derived weights
+            torch.cuda.synchronize()
+            reset_counters()
+            y = model(x)
+            torch.cuda.synchronize()
+            counts = read_counters()
+            ms = cuda_ms(lambda: model(x), iters=5, warmup=1)
+            psnr = _psnr_db(y, ref(x))
+        cab = (f", CAB route {cab_route(c, c // cfg.compress_ratio)}"
+               if cfg.name.startswith("hat") else "")
+        log(f"[wide] {label}: block route {route}{cab}; launches {counts} (expected {want}); "
+            f"{ms:.2f} ms; PSNR vs plain fp32 {psnr:.2f} dB (bound >= {PSNR_MIN_DB} dB) ({smi})")
+        if route != "wide":
+            raise RuntimeError(f"wide {label}: block route {route}")
+        if counts != want:
+            raise RuntimeError(f"wide {label}: launches {counts}, expected {want}")
+        if psnr < PSNR_MIN_DB or not bool(torch.isfinite(y).all()):
+            raise RuntimeError(f"wide {label}: output PSNR {psnr:.2f} dB < {PSNR_MIN_DB} dB")
+        for key, n in counts.items():
+            total[key] = total.get(key, 0) + n
+        del model, ref, src
+    return total
+
+
 def hat_srx4_config():
     """HAT-SRx4 as upstream publishes it (XPixelGroup/HAT,
     options/test/HAT_SRx4_ImageNet-pretrain.yml): window 16, embed 180,
@@ -1953,7 +2115,8 @@ def _hat_split(model, fwd, smi, tag="hat"):
              ("K7 window_attn_kernel", ("window_attn_kernel",)),
              ("K1t swin_tail_kernel", ("swin_tail_kernel",)),
              ("K12 ln_cab_convs_kernel", ("ln_cab_convs_kernel",)),
-             ("K15 batched_attn_kernel (OCAB attention)", ("batched_attn_kernel",)),
+             ("K15 window_attn_wg_kernel / batched_attn_kernel (OCAB attention)",
+              ("window_attn_wg_kernel", "batched_attn_kernel")),
              ("K2 layernorm", ("layernorm_rows",)), ("K3/K4 conv_nhwc", ("conv_nhwc",)))
     by_span = (("hat::cab", "CAB SE gate (plain ops)"),
                ("hat::ocab", "OCAB plain ops (qkv, proj, MLP, gathers)"),
@@ -2650,7 +2813,8 @@ def _dat_train_split(state, lr, hr, step_ms, smi):
              if e.device_type == torch.autograd.DeviceType.CPU and e.name in steps]
     us = lambda e: getattr(e, "device_time", 0.0) or getattr(e, "cuda_time", 0.0)
     names = (("K16 forward (batched_attn_kernel)", ("batched_attn_kernel",)),
-             ("K11 forward (dwconv3x3_kernel)", ("dwconv3x3_kernel",)),
+             ("K11 forward (dwconv3x3_rows_kernel / dwconv3x3_kernel)",
+              ("dwconv3x3_rows_kernel", "dwconv3x3_kernel")),
              ("K2-K4 forwards", ("layernorm_rows", "conv_nhwc")))
     by_span = (("step::forward", "other forward ops (GEMMs, BatchNorm, GELU, partitions, pads)"),
                ("step::backward", "backward (autograd; K16's, K11's, K2-K4's plain versions)"),
@@ -2929,6 +3093,7 @@ def main() -> int:
         del service
         ws7_launches = timed("swinir-ws7", phase_swinir_ws7, smi)
         swinir_l_launches = timed("swinir-l", phase_swinir_l, smi)
+        wide_launches = timed("wide", phase_wide, smi)
         hat_launches = timed("hat", phase_hat, workdir, smi)
         dat_launches = timed("dat", phase_dat, workdir, smi)
         train_launches, _ = timed("train", phase_train, workdir, smi)
@@ -2945,7 +3110,8 @@ def main() -> int:
             name=meta["name"], route=meta["route"], source=meta["source"],
             replaces=meta["replaces"],
             launches=sum(d.get(key, 0) for d in [launches, ws7_launches, swinir_l_launches,
-                                                 hat_launches, dat_launches, train_launches,
+                                                 wide_launches, hat_launches, dat_launches,
+                                                 train_launches,
                                                  srx4_launches, dat_x4_launches]
                          + hat_train_launches + dat_train_launches + srx4_train_launches),
             max_abs_err=max(r["err"] for r in kres[key]),

@@ -132,7 +132,7 @@ def _tail_case(c, hidden, ws, shift, seed):
 
 
 @pytest.mark.parametrize("c,hidden,ws,shift", [(180, 360, 16, 8), (240, 720, 6, 3),
-                                               (24, 40, 8, 0)])
+                                               (24, 40, 8, 0), (264, 528, 8, 4)])
 def test_tail_packed_layout_and_addressing_compute_the_plain_function(c, hidden, ws, shift):
     """The tail kernel's arithmetic, emulated in fp32 from its packed
     operands: each pixel's attention row found by the kernel's address

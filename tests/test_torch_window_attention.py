@@ -184,20 +184,22 @@ _ROUTES = [
     ((8, 256, 8, 512, True), "window_attention"),
     ((8, 180, 6, 720, True), "window_attention"),   # hidden past 384
     ((8, 180, 6, 360, False), "window_attention"),  # no qkv bias
-    ((8, 288, 8, 576, True), "C=288"),
-    ((8, 128, 2, 256, True), "hd <= 32"),
-    ((8, 252, 9, 504, True), "heads=9"),
+    ((8, 288, 8, 576, True), "wide"),   # past K7's and K1t's C 256
+    ((8, 128, 2, 256, True), "wide"),   # hd 64
+    ((8, 252, 9, 504, True), "wide"),   # 9 heads
+    ((8, 264, 4, 528, True), "hd <= 64"),
 ]
 
 
 @pytest.mark.parametrize("shape,route", _ROUTES, ids=[str(s) for s, _ in _ROUTES])
 def test_block_route_by_shape(shape, route):
     """block_route picks the block kernel at ws 7 / 8 within its widths,
-    the K7 route for any other window or width up to C 256 and 8 heads,
-    and raises, naming the limit and ROADMAP Queue 3, past both."""
+    the K7 route for any other window or width up to C 256 and 8 heads of
+    hd <= 32, the wide route (K15) past those, and raises, naming the
+    limit and ROADMAP Queue 3, past K15's heads of 64 dims."""
     from tpu_superresolution_torch.kernels.fused_block import block_route
 
-    if route in ("block", "window_attention"):
+    if route in ("block", "window_attention", "wide"):
         assert block_route(*shape) == route
         assert block_route(*shape) == route  # the same answer on every call
     else:

@@ -1,5 +1,8 @@
 // K15 and K16 — window attention on pre-split q, k, v, square or
-// rectangular.
+// rectangular: the "tiled" route of kernels/window_attention.py::
+// k15_route (heads of <= 32 dims where the wgmma kernel,
+// csrc/window_attn_wg.cu, is not faster: K16's DAT windows, masked
+// windows, HAT-SRx4's 256 queries x 576 keys).
 //
 // Replaces: tpu_superresolution_tpu/ops/pallas/window_attention.py
 //           fused_window_attention (pallas_call at :193; K15: Nq != Nk

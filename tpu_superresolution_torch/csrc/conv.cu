@@ -7,8 +7,10 @@
 //           conv_halo    (_convk_kernel) -> K4 (any kh x kw, asymmetric
 //                                           zero pad)
 //           both through sr_conv_bf16.
-// Math: y[b, oy, ox, n] = bias[n] + sum_{dy, dx, ci}
-//         x[b, oy + dy - pad_top, ox + dx - pad_left, ci] * w[dy, dx, ci, n]
+// Math: y[b, oy, ox, n] = act(bias[n] + sum_{dy, dx, ci}
+//         x[b, oy + dy - pad_top, ox + dx - pad_left, ci] * w[dy, dx, ci, n])
+//       act the identity, or the exact-erf GELU (HAT's CAB conv1 where
+//       the CAB is past K12's widths: kernels/cab_conv.py::ln_cab_convs)
 //       with x read as 0 outside the image (SAME output size).  The GEMM:
 //       M = b*h*w pixels, N = Cout, K = kh*kw*Cin, walked in K steps of
 //       one tap and one 64-channel chunk (zero-filled past Cin).
@@ -118,6 +120,7 @@ struct Params {
   int taps, chunks;
   int vec;      // A copy width in bf16: 8, 4, 2 or 1
   int y16;      // y is 16-byte aligned
+  int gelu;     // the exact-erf GELU on (sum + bias) before the rounding
   int n_tiles;
   // the halo route
   int batch, tiles_x, tiles_y;  // 8 x TW-pixel blocks of an image
@@ -222,13 +225,20 @@ __device__ __forceinline__ void consumer_barrier() {
   asm volatile("bar.sync 2, %0;\n" ::"n"(NT) : "memory");  // the NT consumer threads
 }
 
-// A consumer thread's accumulators + bias, rounded to bf16, into the
-// staging tile: d[4j + {0, 1}] at element e0 + 8j + 2q (+1), d[4j + {2,
-// 3}] at e1 + ...; columns from ncols on are not written.
+// The epilogue's function of a sum: + bias, then (HAT's CAB conv1 on the
+// "wide" route) the exact-erf GELU.
+__device__ __forceinline__ float epilogue(float v, float b, int gelu) {
+  v += b;
+  return gelu ? 0.5f * v * (1.f + erff(v * 0.7071067811865476f)) : v;
+}
+
+// A consumer thread's accumulators through `epilogue`, rounded to bf16,
+// into the staging tile: d[4j + {0, 1}] at element e0 + 8j + 2q (+1),
+// d[4j + {2, 3}] at e1 + ...; columns from ncols on are not written.
 template <int N>
 __device__ __forceinline__ void write_staging(const float (&d)[N / 2], bf16* ebuf,
                                               const float* bias, int e0, int e1, int ld,
-                                              int ncols, int q) {
+                                              int ncols, int q, int gelu) {
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
     const int c = j * 8 + 2 * q;  // this thread's columns c, c + 1
@@ -239,14 +249,16 @@ __device__ __forceinline__ void write_staging(const float (&d)[N / 2], bf16* ebu
       bf16* r0 = ebuf + e0 + c;
       bf16* r1 = ebuf + e1 + c;
       if (two && (ld & 1) == 0) {
-        *reinterpret_cast<uint32_t*>(r0) = pack_bf16(d[4 * j] + b0, d[4 * j + 1] + b1);
-        *reinterpret_cast<uint32_t*>(r1) = pack_bf16(d[4 * j + 2] + b0, d[4 * j + 3] + b1);
+        *reinterpret_cast<uint32_t*>(r0) =
+            pack_bf16(epilogue(d[4 * j], b0, gelu), epilogue(d[4 * j + 1], b1, gelu));
+        *reinterpret_cast<uint32_t*>(r1) =
+            pack_bf16(epilogue(d[4 * j + 2], b0, gelu), epilogue(d[4 * j + 3], b1, gelu));
       } else {
-        r0[0] = __float2bfloat16(d[4 * j] + b0);
-        r1[0] = __float2bfloat16(d[4 * j + 2] + b0);
+        r0[0] = __float2bfloat16(epilogue(d[4 * j], b0, gelu));
+        r1[0] = __float2bfloat16(epilogue(d[4 * j + 2], b0, gelu));
         if (two) {
-          r0[1] = __float2bfloat16(d[4 * j + 1] + b1);
-          r1[1] = __float2bfloat16(d[4 * j + 3] + b1);
+          r0[1] = __float2bfloat16(epilogue(d[4 * j + 1], b1, gelu));
+          r1[1] = __float2bfloat16(epilogue(d[4 * j + 3], b1, gelu));
         }
       }
     }
@@ -271,7 +283,7 @@ __device__ __forceinline__ void store_tile(const Params& p, const float (&d)[N /
   const bool issuer = ct == 0 && cw == 0;
   if (issuer) hopper::bulk_wait_read();
   consumer_barrier();  // the last tile's copy-out has read ebuf
-  write_staging<N>(d, ebuf, bias, r0 * ld, (r0 + 8) * ld, ld, ncols, q);
+  write_staging<N>(d, ebuf, bias, r0 * ld, (r0 + 8) * ld, ld, ncols, q, p.gelu);
   hopper::fence_proxy_async();  // the staging writes, before the bulk copy reads them
   consumer_barrier();
   const int rows = min(BM, p.m_total - m0);
@@ -525,7 +537,7 @@ __device__ __forceinline__ void store_block(const Params& p, const float (&d)[N 
   const int e0 = TW * (i0 >> 3) + 8 * cw + (i0 & 7), e1 = e0 + TW;
   if (issuer) hopper::bulk_wait_read();
   consumer_barrier<NT>();  // the last block's copy-out has read ebuf
-  write_staging<N>(d, ebuf, bias, e0 * ld, e1 * ld, ld, ncols, q);
+  write_staging<N>(d, ebuf, bias, e0 * ld, e1 * ld, ld, ncols, q, p.gelu);
   hopper::fence_proxy_async();  // the staging writes, before the bulk copies read them
   consumer_barrier<NT>();
   int b, y0, x0;
@@ -815,13 +827,14 @@ __global__ void pack_weight_kernel(const bf16* __restrict__ k, bf16* __restrict_
 // kh * kw, n_tile, 64] bf16 (chunks = ceil(cin / 64)); bias [cout] fp32;
 // y [batch, h, w, cout] bf16.  n_tile: a compiled N (16, 32, 48, 64, 96,
 // 128, 192, 256); vec: the A copy width in bf16 (8, 4, 2 or 1; it must
-// divide cin and x must be aligned to it); route: 1 halo, 0 flat.  kernel:
+// divide cin and x must be aligned to it); route: 1 halo, 0 flat; gelu:
+// 1 applies the exact-erf GELU after the bias (before the rounding).  kernel:
 // null, or the [kh, kw, cin, cout] bf16 weight to pack into wp first.
 // Returns cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int sr_conv_bf16(const void* x, const void* wp, const void* bias, void* y, int batch,
                             int h, int wd, int cin, int cout, int kh, int kw, int pad_top,
                             int pad_left, int n_tile, int n_tiles, int vec, int route,
-                            const void* kernel, void* stream) {
+                            int gelu, const void* kernel, void* stream) {
   const long long m_total = static_cast<long long>(batch) * h * wd;
   if (m_total == 0 || cout == 0) return 0;
   const bool vec_ok = (vec == 8 || vec == 4 || vec == 2 || vec == 1) && cin % vec == 0 &&
@@ -849,6 +862,7 @@ extern "C" int sr_conv_bf16(const void* x, const void* wp, const void* bias, voi
   p.n_tiles = n_tiles;
   p.batch = batch;
   p.y16 = aligned_to(y, 16);
+  p.gelu = gelu;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kernel != nullptr) {
     // pack the [kh, kw, Cin, Cout] kernel into wp first (same stream)

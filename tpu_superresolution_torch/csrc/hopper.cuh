@@ -3,8 +3,9 @@
 // bulk copies (global <-> shared, completing on an mbarrier or in bulk
 // groups), the proxy fence, the 128-byte swizzle of a K-major operand tile
 // and its wgmma shared-memory descriptor, and the warpgroup matrix
-// multiply itself (m64 x N x k16, bf16 in, fp32 accumulate, both operands
-// K-major in shared memory).
+// multiply itself (m64 x N x k16, bf16 in, fp32 accumulate: both operands
+// K-major in shared memory, or A from registers and B MN-major, as the
+// window attention's P V; csrc/window_attn_wg.cu).
 //
 // The K-major 128B-swizzled tile (what wgmma reads with layout type
 // SWIZZLE_128B and what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B): one
@@ -151,6 +152,29 @@ __device__ __forceinline__ uint32_t sw128_offset(uint32_t row, uint32_t col_byte
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t group_bytes = 1024) {
   return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (static_cast<uint64_t>(1) << 16) |
          (static_cast<uint64_t>(group_bytes >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+// wgmma descriptor of an operand tile whose rows (an M, N or K index)
+// are RB = 32, 64 or 128 bytes long, stored at a stride of RB bytes with
+// the matching swizzle (the 16-byte chunk j of row r at j ^ ((r * RB /
+// 128) % (RB / 16)), i.e. Swizzle<log2(RB / 16), 4, 3> on the byte
+// offset; the tile base aligned to 1024 bytes): layout type 3 (32B), 2
+// (64B) or 1 (128B), stride byte offset 8 rows.  The same bytes serve as
+// a K-major operand (rows along M or N, K within the row) and, with the
+// instruction's transpose bit, as an MN-major B (rows along K, N within
+// the row, N = RB / 2).
+template <int RB>
+__device__ __forceinline__ uint64_t desc_swizzled(uint32_t addr) {
+  static_assert(RB == 32 || RB == 64 || RB == 128, "rows of 32, 64 or 128 bytes");
+  constexpr uint64_t layout = RB == 128 ? 1 : RB == 64 ? 2 : 3;
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>((8 * RB) >> 4) << 32) | (layout << 62);
+}
+
+// Byte offset `off` (row * RB + byte in the row) of that layout.
+template <int RB>
+__device__ __forceinline__ uint32_t swizzled_offset(uint32_t off) {
+  return off ^ (((off >> 7) & (RB / 16 - 1)) << 4);
 }
 
 // ---------------------------------------------------------------- wgmma
@@ -402,6 +426,57 @@ template <> struct Wgmma<256> {
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
           "+f"(d[126]), "+f"(d[127])
         : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+// D[64 x N] (+)= A[64 x 16] * B[16 x N], A from registers (the warp's
+// 16 rows, as mma.m16n8k16's A fragment: a[0] rows g, cols 2q, 2q + 1;
+// a[1] row g + 8; a[2] row g, cols 2q + 8, 2q + 9; a[3] row g + 8, with g
+// = lane / 4, q = lane % 4; the lower column in the low half), B from
+// shared memory MN-major (descriptor `db`, rows along K of N elements;
+// the transpose bit set), D as Wgmma's; scale_d 0 overwrites D.
+template <int N>
+struct WgmmaRS;
+
+template <> struct WgmmaRS<16> {
+  static __device__ __forceinline__ void mma(float (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaRS<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaRS<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
   }
 };
 

@@ -10,7 +10,7 @@
 //           (csrc/swin_block.cu, ws 7 / 8, C <= 192) does not take.  With
 //           K2 (LN1) and K7 (qkv, attention, proj) before it, it computes
 //           K1's function at ws 16 (upstream HAT-SRx4) and any other window.
-// Math (per pixel p of x [B, H, W, C], C <= 256, any MLP hidden):
+// Math (per pixel p of x [B, H, W, C], C <= 512, any MLP hidden):
 //         x1  = x + m1 * attn[win(p), tok(p)] + extra
 //         out = x1 + m2 * fc2(gelu(fc1(LN2(x1))))
 //       where attn [B*nW, N = ws*ws, C] is K7's output on the windows of
@@ -33,7 +33,10 @@
 //       Weights ([out, in], zero-padded to multiples of 16 by the host
 //       packing) are read from L2 by the WMMA fragments.  Shared memory
 //       is sized by C: ~98 KB at C 180, so two blocks share an SM and
-//       hide each other's L2 latency (~124 KB at C 256: one).
+//       hide each other's L2 latency (~124 KB at C 256, ~218 KB at the
+//       "wide" route's C 512: one).  With K2 (LN1), K7's product launch
+//       (qkv, proj) and K15 (the attention) before it, it completes the
+//       "wide" route's blocks (C 257-512, or heads of 33-64 dims).
 // Bound on the H100: HAT-SRx4's bench batch ([25,64,64,180], hidden 360)
 //       needs 4*C*hidden = 259,200 FLOP a pixel, 26.5 GFLOP = 0.027 ms at
 //       the bf16 peak, against x, attn, extra in and out (147 MB, 0.044
@@ -47,7 +50,7 @@ using namespace nvcuda;
 
 namespace {
 
-constexpr int MAX_C = 256;
+constexpr int MAX_C = 512;
 constexpr int HC = 128;  // hidden columns per chunk
 constexpr int T = 64;    // pixels per block
 constexpr int NWARPS = 8;

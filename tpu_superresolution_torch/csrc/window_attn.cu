@@ -23,6 +23,9 @@
 //       and K16.
 //       Pad keys (>= N) get -inf, pad query rows are computed on zeros
 //       and not stored.  Weights are read from L2 by the WMMA fragments.
+//       Launch (1) alone is also the "wide" route's qkv and proj product
+//       (sr_window_product_bf16: any C <= 512 and output width, for the
+//       Swin blocks past this kernel's widths, whose attention is K15).
 //       Splitting the qkv product into its own launch keeps each key
 //       tile's k and v computed once, not once per query tile; the
 //       workspace costs one bf16 write and one read of 3*nh*32 columns a
@@ -54,37 +57,68 @@ constexpr int T = 64;  // query / key / token rows per tile
 constexpr int NWARPS = 8;
 constexpr int NTHREADS = NWARPS * 32;
 
-// ---- launch 1: the qkv product ----
-constexpr int LDX = MAX_C + 8;  // bf16
-constexpr int QKV_SMEM = T * LDX * 2 + NWARPS * 256 * 4;
+// ---- launch 1: the qkv product (alone: any product of up to 512 input
+// channels, the "wide" route's qkv and proj) ----
+constexpr int MAX_LINEAR_C = 512;
+__host__ __device__ constexpr int qkv_smem(int ck) { return T * (ck + 8) * 2 + NWARPS * 256 * 4; }
 
+// y[:, :n_out] = x W^T + b on `rows` rows of x (row stride c, columns past
+// c read as 0): the rows' [64][ck] tile in shared memory (loaded in
+// pairs of columns where `pairs`: c even, x 4-byte aligned), one
+// 16-column strip of W a warp (n3 columns, a multiple of 16; the bias
+// holds n3), y's row stride n_out: 8-column stores where vec == 8,
+// pairs where vec == 2 (n_out even), else element stores up to n_out.
 __global__ void __launch_bounds__(NTHREADS)
     qkv_gemm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
                     const float* __restrict__ bqkv, bf16* __restrict__ qkv, long long rows,
-                    int c, int ck, int n3) {
+                    int c, int ck, int n3, int n_out, int vec, int pairs) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* xs = reinterpret_cast<bf16*>(smem);
+  const int ldx = ck + 8;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float* stg = reinterpret_cast<float*>(smem + T * LDX * 2) + warp * 256;
+  float* stg = reinterpret_cast<float*>(smem + T * ldx * 2) + warp * 256;
   const long long r0 = static_cast<long long>(blockIdx.x) * T;
 
-  for (int i = tid; i < T * ck; i += NTHREADS) {
-    const int r = i / ck, k = i % ck;
-    const long long row = r0 + r;
-    xs[r * LDX + k] = (row < rows && k < c) ? x[row * c + k] : __float2bfloat16(0.f);
+  if (pairs) {
+    const int half = ck / 2;
+    for (int i = tid; i < T * half; i += NTHREADS) {
+      const int r = i / half, k = 2 * (i - r * half);
+      const long long row = r0 + r;
+      __nv_bfloat162 v = __floats2bfloat162_rn(0.f, 0.f);
+      if (row < rows && k < c) v = *reinterpret_cast<const __nv_bfloat162*>(x + row * c + k);
+      *reinterpret_cast<__nv_bfloat162*>(xs + r * ldx + k) = v;
+    }
+  } else {
+    for (int i = tid; i < T * ck; i += NTHREADS) {
+      const int r = i / ck, k = i % ck;
+      const long long row = r0 + r;
+      xs[r * ldx + k] = (row < rows && k < c) ? x[row * c + k] : __float2bfloat16(0.f);
+    }
   }
   __syncthreads();
   Acc acc[4];
   for (int strip = warp; strip < n3 / 16; strip += NWARPS) {
     const int n0 = strip * 16;
-    gemm_strip_rt(acc, xs, LDX, wqkv, ck, n0, ck);
+    gemm_strip_rt(acc, xs, ldx, wqkv, ck, n0, ck);
     strip_epilogue(acc, stg, lane, n0, [&](int r, int n, float (&v)[8]) {
       if (r0 + r >= rows) return;
       float b[8];
       load8(b, bqkv + n);
 #pragma unroll
       for (int i = 0; i < 8; ++i) v[i] += b[i];
-      store8_bf16(qkv + (r0 + r) * n3 + n, v);
+      bf16* dst = qkv + (r0 + r) * n_out + n;
+      if (vec == 8 && n + 8 <= n_out) {
+        store8_bf16(dst, v);
+      } else if (vec == 2) {
+#pragma unroll
+        for (int i = 0; i < 8; i += 2)
+          if (n + i < n_out)
+            *reinterpret_cast<__nv_bfloat162*>(dst + i) = __floats2bfloat162_rn(v[i], v[i + 1]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (n + i < n_out) dst[i] = __float2bfloat16(v[i]);
+      }
     });
   }
 }
@@ -161,20 +195,35 @@ __global__ void __launch_bounds__(NTHREADS) window_attn_kernel(const AttnArgs a)
   }
 }
 
-}  // namespace
-
-// Launch 1 alone, on rows already packed to ck columns: the K5-ws16
-// backward's qkv recompute (kernels/fused_block.py).
-extern "C" int sr_qkv_product_bf16(const void* x, const void* wqkv, const void* bqkv, void* qkv,
-                                   long long rows, int ck, int n3, void* stream) {
-  if (ck < 16 || ck > MAX_C || ck % 16 || n3 < 16 || n3 % 16)
+int launch_product(const void* x, const void* w, const void* b, void* y, long long rows, int c,
+                   int n3, int n_out, cudaStream_t s) {
+  const int ck = (c + 15) / 16 * 16;
+  if (c < 1 || c > MAX_LINEAR_C || n3 < 16 || n3 % 16 || n_out < 1 || n_out > n3)
     return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return 0;
-  qkv_gemm_kernel<<<static_cast<unsigned int>((rows + T - 1) / T), NTHREADS, QKV_SMEM,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
-      static_cast<const float*>(bqkv), static_cast<bf16*>(qkv), rows, ck, ck, n3);
+  static const cudaError_t attr = cudaFuncSetAttribute(  // once: the most any launch takes
+      qkv_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, qkv_smem(MAX_LINEAR_C));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int vec = n_out % 8 == 0 && aligned_to(y, 16) ? 8
+                  : n_out % 2 == 0 && aligned_to(y, 4) ? 2 : 1;
+  const int pairs = c % 2 == 0 && aligned_to(x, 4);
+  qkv_gemm_kernel<<<static_cast<unsigned int>((rows + T - 1) / T), NTHREADS, qkv_smem(ck), s>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const float*>(b),
+      static_cast<bf16*>(y), rows, c, ck, n3, n_out, vec, pairs);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Launch 1 as a product of its own (kernels/fused_attention.py::
+// window_product, the "wide" route's qkv and proj; qkv_product, the
+// K5-ws16 backward's qkv recompute on rows already packed to ck
+// columns): x [rows, c] bf16 (c <= 512) times the packed w [n3, ck] bf16
+// (zero-padded to multiples of 16) plus b [n3] fp32 -> y [rows, n_out]
+// bf16, n_out <= n3.
+extern "C" int sr_window_product_bf16(const void* x, const void* w, const void* b, void* y,
+                                      long long rows, int c, int n3, int n_out, void* stream) {
+  return launch_product(x, w, b, y, rows, c, n3, n_out, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int sr_window_attention_bf16(const void* xw, const void* wqkv, const void* bqkv,
@@ -189,10 +238,8 @@ extern "C" int sr_window_attention_bf16(const void* xw, const void* wqkv, const 
   const int ck = (c + 15) / 16 * 16;
   const int n3 = 3 * nh * HDP;
   const long long rows = static_cast<long long>(bw) * n;
-  qkv_gemm_kernel<<<static_cast<unsigned int>((rows + T - 1) / T), NTHREADS, QKV_SMEM, s>>>(
-      static_cast<const bf16*>(xw), static_cast<const bf16*>(wqkv),
-      static_cast<const float*>(bqkv), static_cast<bf16*>(qkv_ws), rows, c, ck, n3);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err =
+      static_cast<cudaError_t>(launch_product(xw, wqkv, bqkv, qkv_ws, rows, c, n3, n3, s));
   if (err != cudaSuccess) return static_cast<int>(err);
 
   err = cudaFuncSetAttribute(window_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

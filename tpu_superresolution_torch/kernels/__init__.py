@@ -23,6 +23,7 @@ HAT-SRx4 training (H16T: window 16, C 180, hidden 360).
 K1   fused_block.py:958 . fused_swin_block (_mega_forward)         S,T,H    CUDA csrc/swin_block.cu (ws 8, extra), fused_block.fused_windows_block
      (the same function at any other window or width)             H16,W,   K2 + K7 + K1's tail, CUDA csrc/swin_tail.cu, fused_block.fused_block_tail (K1t)
                                                                   H16T
+     (past K7's widths, C <= 512: the "wide" route)              -        K2 + K7's product + K15 + K7's product + K1t
 K5   fused_block.py:1080 . _mega_backward                          T,HT     CUDA csrc/swin_block_bwd.cu (ws 8, extra), fused_block.SwinBlockFunction
      (at ws 16, the K7 route's block, counted as K5w16)            H16T     CUDA csrc/swin_block_bwd16.cu, fused_block.WindowBlockFunction
 K2   layernorm.py:54 . pallas_layernorm (layernorm_spatial)        all      CUDA csrc/layernorm.cu, layernorm.layernorm
@@ -42,8 +43,8 @@ K7   fused_attention.py:229 . fused_window_block_attention         H16,W,   CUDA
                                                                   H16T
 K12  cab_conv.py:209 . fused_ln_cab_convs                          H,HT,    CUDA csrc/cab_fused.cu, cab_conv.fused_ln_cab_convs
                                                                   H16,H16T
-K11  cab_conv.py:506 . dwconv3x3_halo                              DT,DC    CUDA csrc/dwconv.cu, dwconv.dwconv3x3
-K15  window_attention.py:193 . fused_window_attention              H,H16    CUDA csrc/batched_attn.cu (K16's kernel at Nq x Nk), window_attention.fused_window_attention
+K11  cab_conv.py:506 . dwconv3x3_halo                              DT,DC    CUDA csrc/dwconv.cu ("rows" or "tiles", dwconv.dwconv_plan), dwconv.dwconv3x3
+K15  window_attention.py:193 . fused_window_attention              H,H16    CUDA csrc/window_attn_wg.cu or csrc/batched_attn.cu (window_attention.k15_route), window_attention.fused_window_attention
 K16  window_attention.py:352 . batched_window_attention            DT,DC    CUDA csrc/batched_attn.cu (K7's core), window_attention.batched_window_attention
 ==== ========================================================== ======== ==================================================
 
@@ -65,10 +66,13 @@ HAT's OCAB runs K15 as its attention at serving, and in training
 wherever K8 refuses its shapes (``fused_ocab.ocab_ok``: C > 192,
 hidden > 384, windows other than 7, 8 and 16); elsewhere in training it
 takes K8 / K8b (K8w16 / K8bw16 at ws 16).  A Swin
-block takes the block kernel or the K7 route by its static shapes
-(``fused_block.block_route``); a K7 call is two CUDA launches (the qkv
-product, then attention + proj), counted once; on the K7 route K1's
-tail kernel (counted as K1t) completes the block.  A DAT block at
+block takes the block kernel, the K7 route or the "wide" route by its
+static shapes (``fused_block.block_route``); a K7 call is two CUDA
+launches (the qkv product, then attention + proj), counted once; on the
+wide route (C 257-512, more than 8 heads or hd 33-64) K7's product
+launch alone computes qkv and proj (each counted as a K7 call) around
+K15's attention; on both K1's tail kernel (counted as K1t) completes the
+block.  A DAT block at
 serving is K9 (spatial) or K14 (channel), then K10, where their limits
 take its shapes (``models.dat.dat_route``); a K9 call is two CUDA
 launches, a K14 call three, a K10 call one, each counted once per

@@ -44,7 +44,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # name: argtypes (pointers and the stream last as c_void_p)
     "sr_layernorm_bf16": [_P, _P, _P, _P, ctypes.c_longlong, _I, ctypes.c_float, _P],
-    "sr_conv_bf16": [_P, _P, _P, _P] + [_I] * 13 + [_P, _P],
+    "sr_conv_bf16": [_P, _P, _P, _P] + [_I] * 14 + [_P, _P],
     "sr_swin_block_bf16": [_P] * 18 + [_I] * 8 + [ctypes.c_float, _P],
     "sr_swin_block_bwd_bf16": [_P] * 26 + [_I] * 8 + [ctypes.c_float, _I, _I, _P],
     "sr_ocab_fwd_bf16": [_P] * 14 + [_I] * 6 + [ctypes.c_float, _P],
@@ -55,9 +55,11 @@ _SIGNATURES = {
     "sr_window_attention_bf16": [_P] * 9 + [_I] * 5 + [_P],
     "sr_swin_tail_bf16": [_P] * 11 + [_I] * 8 + [ctypes.c_float, _P],
     "sr_ln_cab_convs_bf16": [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P],
-    "sr_dwconv3x3_bf16": [_P] * 4 + [_I] * 4 + [_P],
+    "sr_dwconv3x3_bf16": [_P] * 4 + [ctypes.POINTER(_I), _P],
     "sr_batched_window_attention_bf16": [_P] * 6 + [_I] * 7 + [ctypes.c_float, _P],
-    "sr_qkv_product_bf16": [_P] * 4 + [ctypes.c_longlong, _I, _I, _P],
+    "sr_window_attention_wg_bf16": ([_P] * 6 + [_I] * 7 + [ctypes.c_float] + [_I] * 6
+                                    + [_P]),
+    "sr_window_product_bf16": [_P] * 4 + [ctypes.c_longlong, _I, _I, _I, _P],
     "sr_swin_block_bwd16_bf16": [_P] * 29 + [_I] * 7 + [ctypes.c_float, _I, _I, _P],
     "sr_ocab16_fwd_bf16": [_P] * 14 + [_I] * 4 + [ctypes.c_float, _P],
     "sr_ocab16_bwd_bf16": [_P] * 26 + [_I] * 4 + [ctypes.c_float, _I, _I, _P],
@@ -172,7 +174,28 @@ def check_status(status: int, name: str) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
+    """The current CUDA stream of t's device, as the pointer the C entry
+    points take (the raw-stream query where this torch has it: no Stream
+    object built on every launch)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(t.device.index)
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device `index` (the persistent grids' size)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def call(t: torch.Tensor, fn, *args) -> int:
+    """fn(*args) with t's CUDA device current (entering the device
+    context only when another device is current)."""
+    if t.device.index == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(t.device):
+        return fn(*args)
 
 
 def check_tensor(

@@ -43,8 +43,10 @@ TPU VMEM switch); the port runs it for every HAB's CAB on CUDA.  Its
 gradient is ``CabConvsFunction``: forward K12, backward torch autograd
 of ``fused_ln_cab_convs_plain``, as the JAX custom_vjp differentiates
 ``_reference`` (``cab_conv.py:548-550``).  The kernel takes C <= 256 and
-Cmid <= 128; the JAX package's erf is an A&S polynomial, the port's
-torch's erf.
+Cmid <= 128; past those widths ``cab_route`` sends the CAB to
+``ln_cab_convs``, the same function as K2 + K3 (with the GELU in its
+epilogue) + K3.  The JAX
+package's erf is an A&S polynomial, the port's torch's erf.
 """
 
 from __future__ import annotations
@@ -57,7 +59,7 @@ import torch
 import torch.nn.functional as F
 
 from tpu_superresolution_torch.kernels import _lib
-from tpu_superresolution_torch.kernels.layernorm import EPS, layernorm_plain
+from tpu_superresolution_torch.kernels.layernorm import EPS, layernorm, layernorm_plain
 
 Pad = Tuple[Tuple[int, int], Tuple[int, int]]
 
@@ -71,14 +73,17 @@ CAB_MAX_MID = 128
 
 
 def conv_plain(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
-               pad: Pad) -> torch.Tensor:
+               pad: Pad, gelu: bool = False) -> torch.Tensor:
     """The plain PyTorch version: x [B, H, W, Cin], kernel [kh, kw, Cin,
     Cout], bias [Cout]; zero pad ((top, bottom), (left, right)); the
-    conv runs in x's dtype, like the JAX package's XLA conv."""
+    conv runs in x's dtype, like the JAX package's XLA conv.  `gelu`:
+    then the exact-erf GELU in fp32, rounded to x's dtype (the kernel
+    applies it before its one rounding)."""
     (pt, pb), (pl, pr) = pad
     xn = F.pad(x.permute(0, 3, 1, 2), (pl, pr, pt, pb))
     y = F.conv2d(xn, kernel.permute(3, 2, 0, 1).to(x.dtype))
-    return (y.permute(0, 2, 3, 1) + bias.to(x.dtype)).contiguous()
+    y = (y.permute(0, 2, 3, 1) + bias.to(x.dtype)).contiguous()
+    return F.gelu(y.float()).to(x.dtype) if gelu else y
 
 
 # csrc/conv.cu: output pixels a CTA (the flat route's 128 consecutive
@@ -283,7 +288,7 @@ def conv_tiled_plain(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, 
 
 
 def _launch(x, kernel, bias, pad: Pad, name: str,
-            packed: Optional[PackedConv] = None) -> torch.Tensor:
+            packed: Optional[PackedConv] = None, gelu: bool = False) -> torch.Tensor:
     _lib.require_cuda(x, name)
     kh, kw = int(kernel.shape[0]), int(kernel.shape[1])
     (pt, pb), (pl, pr) = pad
@@ -313,7 +318,7 @@ def _launch(x, kernel, bias, pad: Pad, name: str,
     y = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
     args = (x.data_ptr(), wp.data_ptr(), bias.data_ptr(), y.data_ptr(),
             b, h, w, cin, cout, kh, kw, pt, pl, plan.n_tile, plan.n_tiles, vec,
-            int(plan.route == "halo"), src, _lib.stream_of(x))
+            int(plan.route == "halo"), int(gelu), src, _lib.stream_of(x))
     fn = _lib.library().sr_conv_bf16
     if x.device.index == torch.cuda.current_device():
         status = fn(*args)
@@ -339,35 +344,37 @@ class ConvFunction(torch.autograd.Function):
     backward autograd of ``conv_plain``."""
 
     @staticmethod
-    def forward(ctx, x, kernel, bias, pad, name):
+    def forward(ctx, x, kernel, bias, pad, name, gelu=False):
         ctx.save_for_backward(x, kernel, bias)
-        ctx.pad = pad
-        return _launch(x, kernel, bias, pad, name)
+        ctx.pad, ctx.gelu = pad, gelu
+        return _launch(x, kernel, bias, pad, name, gelu=gelu)
 
     @staticmethod
     def backward(ctx, grad_out):
         x, kernel, bias = ctx.saved_tensors
-        return _lib.plain_vjp(lambda x, k, b, pad, _name: conv_plain(x, k, b, pad),
-                         (x, kernel, bias, ctx.pad, None), ctx.needs_input_grad, grad_out)
+        return _lib.plain_vjp(lambda x, k, b, pad, _name, gelu: conv_plain(x, k, b, pad, gelu),
+                              (x, kernel, bias, ctx.pad, None, ctx.gelu), ctx.needs_input_grad,
+                              grad_out)
 
 
-def _conv(x, kernel, bias, pad, name, packed):
+def _conv(x, kernel, bias, pad, name, packed, gelu=False):
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, kernel, bias)):
-        return ConvFunction.apply(x, kernel, bias, pad, name)
-    return _launch(x, kernel, bias, pad, name, packed)
+        return ConvFunction.apply(x, kernel, bias, pad, name, gelu)
+    return _launch(x, kernel, bias, pad, name, packed, gelu)
 
 
 def conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
-            packed: Optional[PackedConv] = None) -> torch.Tensor:
-    """K3: SAME 3x3 conv.  CPU tensor -> plain version; CUDA tensor ->
-    the kernel (bf16 x and kernel [3, 3, Cin, Cout], fp32 bias), through
+            packed: Optional[PackedConv] = None, gelu: bool = False) -> torch.Tensor:
+    """K3: SAME 3x3 conv (then, with `gelu`, the exact-erf GELU in the
+    kernel's epilogue).  CPU tensor -> plain version; CUDA tensor -> the
+    kernel (bf16 x and kernel [3, 3, Cin, Cout], fp32 bias), through
     ``ConvFunction`` when a gradient is wanted.  `packed` (inference
     only: ``pack_conv_weight(kernel)``) skips the per-call packing."""
     if x.device.type == "cpu":
-        return conv_plain(x, kernel, bias, ((1, 1), (1, 1)))
+        return conv_plain(x, kernel, bias, ((1, 1), (1, 1)), gelu)
     if tuple(kernel.shape[:2]) != (3, 3):
         raise ValueError(f"conv3x3: kernel {tuple(kernel.shape)} is not 3x3")
-    return _conv(x, kernel, bias, ((1, 1), (1, 1)), "conv3x3", packed)
+    return _conv(x, kernel, bias, ((1, 1), (1, 1)), "conv3x3", packed, gelu)
 
 
 def conv_k(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
@@ -399,6 +406,29 @@ def fused_ln_cab_convs_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     y = conv(layernorm_plain(x, g, b, EPS), k1, c1)
     y = F.gelu(y.float()).to(dt)
     return conv(y, k2, c2).contiguous()
+
+
+def cab_route(c: int, cmid: int) -> str:
+    """The route of HAT's CAB front at C channels and Cmid = C /
+    compress_ratio: "K12" (one launch) within K12's widths, else "convs"
+    (``ln_cab_convs``: K2, K3, exact-erf GELU, K3, which take any width).
+    Shapes only: the same on every call and device."""
+    return "K12" if c <= CAB_MAX_C and cmid <= CAB_MAX_MID else "convs"
+
+
+def ln_cab_convs(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, k1: torch.Tensor,
+                 c1: torch.Tensor, k2: torch.Tensor, c2: torch.Tensor,
+                 packed: Tuple[Optional[PackedConv], Optional[PackedConv]] = (None, None)
+                 ) -> torch.Tensor:
+    """K12's function as the port's own kernels, for CABs past K12's
+    widths: K2 (LayerNorm, x's dtype), K3 (conv1 + bias, then the
+    exact-erf GELU of ``hat.py:134`` in its epilogue before the one
+    rounding), K3 (conv2 + bias); each wrapper's plain version on a CPU
+    tensor, so that it equals ``fused_ln_cab_convs_plain`` there.
+    `packed` (inference only): the two convs' ``pack_conv_weight``."""
+    y = conv3x3(layernorm(x.contiguous(), g, b), k1.contiguous(), c1.float().contiguous(),
+                packed[0], gelu=True)
+    return conv3x3(y, k2.contiguous(), c2.float().contiguous(), packed[1])
 
 
 def check_cab_limits(c: int, cmid: int, name: str = "fused_ln_cab_convs") -> None:

@@ -16,7 +16,11 @@ one [P*N, P*N] tile with -1e9 off the diagonal) and its token padding to
 a multiple of 8 have no counterpart here: the CUDA kernel tiles queries
 and keys in 64-row tiles with an online softmax, so it takes any N (36,
 49, 64, 144, 256, up to 1024 and beyond), C <= 256, at most 8 heads of
-hd <= 32.
+hd <= 32.  Its first launch, the qkv product, also runs alone
+(``window_product``, counted as a K7 call) as the qkv and proj products
+of the Swin blocks past those widths (the "wide" route,
+``fused_block.wide_window_attention``: C <= 512, any output width),
+whose attention is K15.
 
 On a CPU tensor the wrapper runs ``window_attention_plain``; on a CUDA
 tensor it launches K7 (bf16 xw, fp32 bias and mask), through
@@ -67,10 +71,15 @@ def window_attention_plain(xw, wqkv, bqkv, wproj, bproj, rpb, mask, scale):
     return F.linear(out, wproj.to(dt), bproj.to(dt))
 
 
+def attention_fits(c: int, nh: int) -> bool:
+    """Whether a width of C channels in `nh` heads fits K7 (shapes only,
+    so it runs on any device)."""
+    return c <= MAX_C and nh <= MAX_HEADS and c % nh == 0 and c // nh <= HDP
+
+
 def check_attention_limits(c: int, nh: int, name: str = "fused_window_attention") -> None:
-    """Raise unless a width of C channels in `nh` heads fits K7 (shapes
-    only, so it runs on any device)."""
-    if c > MAX_C or nh > MAX_HEADS or c % nh or c // nh > HDP:
+    """Raise unless ``attention_fits(c, nh)``."""
+    if not attention_fits(c, nh):
         raise ValueError(f"{name}: K7 takes C <= {MAX_C}, heads <= {MAX_HEADS}, hd <= {HDP}; "
                          f"got C={c}, heads={nh} (ROADMAP Queue 3)")
 
@@ -169,17 +178,113 @@ def qkv_product(x: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor) -> torc
     _lib.require_cuda(x, "qkv_product")
     rows, ck = x.shape
     n3 = int(wqkv.shape[0])
+    if ck % 16:
+        raise ValueError(f"qkv_product: x's {ck} columns are not packed to a multiple of 16")
     _lib.check_tensor(x, "x", torch.bfloat16, x.device, ndim=2, align=16)
     _lib.check_tensor(wqkv, "wqkv", torch.bfloat16, x.device, shape=(n3, ck), align=32)
     _lib.check_tensor(bqkv, "bqkv", torch.float32, x.device, shape=(n3,), align=16)
     out = torch.empty(rows, n3, dtype=torch.bfloat16, device=x.device)
     with torch.cuda.device(x.device):
-        status = _lib.library().sr_qkv_product_bf16(
-            x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), out.data_ptr(), rows, ck, n3,
+        status = _lib.library().sr_window_product_bf16(
+            x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), out.data_ptr(), rows, ck, n3, n3,
             _lib.stream_of(x))
-    _lib.check_status(status, "sr_qkv_product_bf16")
+    _lib.check_status(status, "sr_window_product_bf16")
     launches.count += 1
     return out
+
+
+# K7's first launch as a product of its own: the "wide" route's qkv and
+# proj (fused_block.wide_window_attention), input widths up to 512.
+MAX_PRODUCT_C = 512
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedProduct:
+    """The product launch's operands: the bf16 [out, in] weight
+    zero-padded to [N3, CK] (multiples of 16) and the fp32 bias [N3]."""
+
+    w: torch.Tensor  # [N3, CK] bf16
+    b: torch.Tensor  # [N3] fp32
+    c_in: int
+    c_out: int
+
+
+@torch.no_grad()
+def pack_window_product(weight: torch.Tensor, bias: Optional[torch.Tensor],
+                        dtype: torch.dtype = torch.bfloat16) -> PackedProduct:
+    """Lay an ``nn.Linear`` weight [out, in] and bias (None: zeros) out
+    for the product launch (the weight in `dtype`: the kernel's bf16, or
+    fp32 for the CPU tests' emulation): once per loaded weights at
+    inference, on every call in training."""
+    c_out, c_in = int(weight.shape[0]), int(weight.shape[1])
+    if c_in > MAX_PRODUCT_C:
+        raise ValueError(f"window_product: K7's product takes C <= {MAX_PRODUCT_C} input "
+                         f"channels, got {c_in} (ROADMAP Queue 3)")
+    n3, ck = _round16(c_out), _round16(c_in)
+    b = torch.zeros(c_out, device=weight.device) if bias is None else bias.float()
+    return PackedProduct(
+        w=F.pad(weight.float(), (0, ck - c_in, 0, n3 - c_out)).to(dtype).contiguous(),
+        b=F.pad(b, (0, n3 - c_out)).contiguous(), c_in=c_in, c_out=c_out)
+
+
+def window_product_plain(x: torch.Tensor, weight: torch.Tensor,
+                         bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """The plain version of the product launch: ``F.linear`` in x's
+    dtype (what ``window_attention_plain`` computes for qkv and proj)."""
+    return F.linear(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype))
+
+
+def _launch_product(x: torch.Tensor, packed: PackedProduct) -> torch.Tensor:
+    """One launch of K7's product kernel on x [rows, C_in] bf16, counted
+    as a K7 call."""
+    rows, c = x.shape
+    if c != packed.c_in:
+        raise ValueError(f"window_product: weights for C={packed.c_in}, x has C={c}")
+    n3 = int(packed.w.shape[0])
+    _lib.check_tensor(x, "x", torch.bfloat16, x.device, ndim=2, align=2)
+    _lib.check_tensor(packed.w, "w", torch.bfloat16, x.device, shape=(n3, _round16(c)),
+                      align=32)
+    _lib.check_tensor(packed.b, "b", torch.float32, x.device, shape=(n3,), align=16)
+    out = torch.empty(rows, packed.c_out, dtype=torch.bfloat16, device=x.device)
+    status = _lib.call(x, _lib.library().sr_window_product_bf16, x.data_ptr(),
+                       packed.w.data_ptr(), packed.b.data_ptr(), out.data_ptr(), rows, c, n3,
+                       packed.c_out, _lib.stream_of(x))
+    _lib.check_status(status, "sr_window_product_bf16")
+    launches.count += 1
+    return out
+
+
+class WindowProductFunction(torch.autograd.Function):
+    """Forward K7's product launch (weights packed on every call),
+    backward autograd of ``window_product_plain``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight, bias)
+        return _launch_product(x, pack_window_product(weight, bias))
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return _lib.plain_vjp(window_product_plain, ctx.saved_tensors, ctx.needs_input_grad,
+                              grad_out)
+
+
+def window_product(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+                   packed: Optional[PackedProduct] = None) -> torch.Tensor:
+    """x [rows, C_in] times an ``nn.Linear`` weight [C_out, C_in] plus
+    bias, in K7's first launch (C_in <= 512, any C_out; fp32 sums, one
+    rounding): the plain version for CPU tensors, the kernel for CUDA
+    tensors, through ``WindowProductFunction`` when a gradient is wanted.
+    `packed` (inference only: ``pack_window_product``) skips the
+    per-call packing."""
+    if x.device.type == "cpu":
+        return window_product_plain(x, weight, bias)
+    _lib.require_cuda(x, "window_product")
+    x = x.contiguous()
+    inputs = [x, weight] + ([] if bias is None else [bias])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return WindowProductFunction.apply(x, weight, bias)
+    return _launch_product(x, packed or pack_window_product(weight, bias))
 
 
 class WindowAttentionFunction(torch.autograd.Function):

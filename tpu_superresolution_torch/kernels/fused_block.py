@@ -31,7 +31,11 @@ Which blocks take the kernel is decided by ``block_route`` from static
 shapes alone, the same on every call and device: ws 7 or 8 within those
 widths -> "block"; any other window (6, 12, 16, ...), C up to 256, up to
 8 heads of hd <= 32, or no qkv bias -> "window_attention"; wider blocks
-raise.  The "window_attention" route computes K1's function in three
+(C 257-512, more than 8 heads or hd 33-64) -> "wide", the same
+composition with the window attention in K7's product launch (qkv),
+K15 (the biased, masked attention) and K7's product launch again (proj)
+(``wide_window_attention``), trained by autograd; wider C, or heads of
+more than 64 dims, raise.  The "window_attention" route computes K1's function in three
 hand-written kernels: K2 for LN1, then (after the cyclic shift and the
 window partition as plain gathers) K7 for the qkv product, attention
 and proj, then K1's tail (``csrc/swin_tail.cu``: the attention residual
@@ -74,9 +78,16 @@ import torch.nn.functional as F
 
 from tpu_superresolution_torch.kernels import _lib
 from tpu_superresolution_torch.kernels.fused_attention import (
-    check_attention_limits,
+    PackedProduct,
+    attention_fits,
+    pack_window_product,
     qkv_product,
     window_attention_plain,
+    window_product,
+)
+from tpu_superresolution_torch.kernels.window_attention import (
+    fused_window_attention,
+    k15_route,
 )
 from tpu_superresolution_torch.kernels.layernorm import layernorm, layernorm_plain
 from tpu_superresolution_torch.ops.window import (
@@ -95,7 +106,7 @@ HIDP = 384   # padded MLP hidden
 MAX_HEADS = CP // HDP
 LN_EPS = 1e-5
 N_TOK = 64   # token rows per window in the kernels (ws^2, padded)
-TAIL_MAX_C = 256  # channels of csrc/swin_tail.cu (any MLP hidden)
+TAIL_MAX_C = 512  # channels of csrc/swin_tail.cu (any MLP hidden)
 
 launches = _lib.LaunchCounter("K1 swin_block ws8")
 launches_ws7 = _lib.LaunchCounter("K6 swin_block ws7")
@@ -228,15 +239,52 @@ def check_kernel_limits(w: SwinBlockWeights) -> None:
 def block_route(ws: int, c: int, heads: int, hidden: int, qkv_bias: bool = True) -> str:
     """The route of a Swin block of window `ws`, C channels, `heads`
     heads and MLP hidden width `hidden`: "block" (the block kernel, K1 /
-    K6 forward, K5 / K6b backward) or "window_attention" (K2 for LN1, K7,
-    K1's tail kernel; any hidden width).  Shapes only: it runs on any
-    device and gives the same answer on every call.  Raises ValueError
-    when neither route takes the block."""
-    if (ws in KERNEL_WINDOWS and qkv_bias and c <= CP and c % heads == 0 and c // heads <= HDP
+    K6 forward, K5 / K6b backward), "window_attention" (K2 for LN1, K7,
+    K1's tail kernel; any hidden width) or, past K7's widths (C 257-512,
+    more than 8 heads or hd 33-64), "wide" (K2 for LN1, K7's product
+    launch for qkv and proj around K15's attention, K1's tail kernel;
+    ``wide_window_attention``).  Shapes only: it runs on any device and
+    gives the same answer on every call.  Raises ValueError, naming the
+    limit, when no route takes the block (heads that do not divide C, C
+    past the tail kernel's 512, heads of more than K15's 64 dims)."""
+    if c % heads:
+        raise ValueError(f"swin block: {heads} heads do not divide C={c}")
+    if (ws in KERNEL_WINDOWS and qkv_bias and c <= CP and c // heads <= HDP
             and heads <= MAX_HEADS and hidden <= HIDP):
         return "block"
-    check_attention_limits(c, heads, "swin block")
-    return "window_attention"
+    if attention_fits(c, heads):
+        return "window_attention"
+    if c > TAIL_MAX_C:
+        raise ValueError(f"swin block: the wide route's kernels (K7's product, K1t) take "
+                         f"C <= {TAIL_MAX_C}; got C={c} (ROADMAP Queue 3)")
+    k15_route(ws * ws, ws * ws, c // heads)  # raises past K15's limits
+    return "wide"
+
+
+def pack_wide_attention(w: SwinBlockWeights) -> Tuple[PackedProduct, PackedProduct]:
+    """The "wide" route's qkv and proj weights laid out for K7's product
+    launch (``pack_window_product``)."""
+    return pack_window_product(w.wqkv, w.bqkv), pack_window_product(w.wproj, w.bproj)
+
+
+def wide_window_attention(xw: torch.Tensor, w: SwinBlockWeights, rpb: torch.Tensor,
+                          mask: Optional[torch.Tensor],
+                          packed: Optional[Tuple[PackedProduct, PackedProduct]] = None
+                          ) -> torch.Tensor:
+    """The "wide" route's window attention on [B*nW, N, C] windows:
+    ``window_attention_plain``'s function with the qkv and proj products
+    in K7's product launch (``window_product``; fp32 sums, one rounding)
+    and the biased, masked softmax attention through K15's wrapper (fp32
+    scores and softmax) on [B*nW, nH, N, hd] heads; the head split and
+    merge are plain gathers.  `packed` (inference only):
+    ``pack_wide_attention``."""
+    bw, n, c = xw.shape
+    nh = w.num_heads
+    pq, pp = packed or (None, None)
+    qkv = window_product(xw.reshape(bw * n, c), w.wqkv, w.bqkv, pq)
+    q, k, v = qkv.reshape(bw, n, 3, nh, c // nh).permute(2, 0, 3, 1, 4).unbind(0)
+    out = fused_window_attention(q, k, v, rpb, mask, w.scale).transpose(1, 2)
+    return window_product(out.reshape(bw * n, c), w.wproj, w.bproj, pp).reshape(bw, n, c)
 
 
 def k5w16_ok(ws: int, c: int, heads: int, hidden: int, qkv_bias: bool = True) -> bool:

@@ -55,9 +55,12 @@ from tpu_superresolution_torch.core.config import (
     register_model,
 )
 from tpu_superresolution_torch.kernels.cab_conv import (
+    cab_route,
     fused_ln_cab_convs,
     fused_ln_cab_convs_plain,
+    ln_cab_convs,
     pack_cab,
+    pack_conv_weight,
 )
 from tpu_superresolution_torch.kernels.fused_ocab import OcabWeights, fused_ocab_core, ocab_ok
 from tpu_superresolution_torch.kernels.window_attention import (
@@ -112,8 +115,10 @@ class ChannelAttention(nn.Module):
 class CAB(nn.Module):
     """Channel attention block (hat_arch.py:62-75) on HAB's pre-norm x:
     LN1 (HAB's norm1), conv C -> C/compress, exact GELU, conv back to C
-    as one K12 call (its plain version on the CPU or with plain), then
-    the SE gate (keys ``cab.0``, ``cab.2``, ``cab.3``)."""
+    as one K12 call (its plain version on the CPU or with plain) or,
+    past K12's widths (``cab_route``), K2 + K3 (the GELU in its
+    epilogue) + K3, then the SE gate (keys ``cab.0``, ``cab.2``,
+    ``cab.3``)."""
 
     def __init__(self, num_feat: int, compress_ratio: int, squeeze_factor: int):
         super().__init__()
@@ -135,21 +140,27 @@ class CAB(nn.Module):
             return (norm.weight, norm.bias, hwio(conv1.weight).to(dt), conv1.bias,
                     hwio(conv2.weight).to(dt), conv2.bias)
 
-        def packed_weights():
-            w = weights()
-            return w, pack_cab(*w)
-
         if plain:
-            y = fused_ln_cab_convs_plain(x, *weights())
-        elif not x.is_cuda:
-            y = fused_ln_cab_convs(x, *weights())
-        else:
-            # at inference the layouts and the kernel's packing are built
+            return self.cab[3](fused_ln_cab_convs_plain(x, *weights()))
+        route = cab_route(conv1.in_channels, conv1.out_channels)
+        packed = None
+        if x.is_cuda:
+            # at inference the layouts and the kernels' packing are built
             # once per loaded weights; in training on every call
+            def pack():
+                w = weights()
+                return w, (pack_cab(*w) if route == "K12"
+                           else (pack_conv_weight(w[2]), pack_conv_weight(w[4])))
+
             params = [norm.weight, norm.bias, conv1.weight, conv1.bias, conv2.weight, conv2.bias]
-            w, packed = self._packed.get(params, (x.device, dt), packed_weights,
+            w, packed = self._packed.get(params, (route, x.device, dt), pack,
                                          lambda: (weights(), None))
+        else:
+            w = weights()
+        if route == "K12":
             y = fused_ln_cab_convs(x, *w, packed=packed)
+        else:
+            y = ln_cab_convs(x, *w, packed=packed or (None, None))
         return self.cab[3](y)
 
 

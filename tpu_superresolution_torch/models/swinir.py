@@ -7,14 +7,17 @@ network_swinir.py:618-851).
   package's ``export_swinir`` output load with ``strict=True``.  The
   reference's ``relative_position_index`` / ``attn_mask`` buffers are
   not parameters here: both are computed from the shapes.
-- The trunk stays [B, H, W, C].  Each Swin block takes one of two
+- The trunk stays [B, H, W, C].  Each Swin block takes one of three
   routes, chosen from its static shapes by ``fused_block.block_route``:
   one launch of the block kernel on CUDA (K1 at ws 8, K6 at ws 7; the
   cyclic shift in the kernel's addressing), or, for any other window or
   for widths outside the block kernel (C up to 256, up to 8 heads), K1's
   function in three kernels: K2 for LN1, K7 for the window attention
   and K1's tail kernel for the residuals, LN2 and the MLP (the cyclic
-  shift and window partition between them as plain gathers).  The
+  shift and window partition between them as plain gathers), or, past
+  those widths ("wide": C 257-512, more than 8 heads or hd 33-64), the
+  same with K7's product launch for qkv and proj around K15's biased,
+  masked window attention.  The
   LayerNorms outside blocks are K2, the trunk 3x3 convs K3 and the
   composed reconstruction conv K4.  ``conv_first``, the mean shift, the reflect
   pad, pixel shuffles and the exact-mode chain are plain torch, as the
@@ -51,7 +54,9 @@ from tpu_superresolution_torch.kernels.fused_block import (
     k5w16_ok,
     pack_block_tail,
     pack_block_weights,
+    pack_wide_attention,
     swin_block_plain,
+    wide_window_attention,
     window_block_k5w16,
 )
 from tpu_superresolution_torch.kernels.layernorm import layernorm
@@ -142,9 +147,11 @@ class SwinBlock(nn.Module):
         if plain:
             return swin_block_plain(x, wts, ws, shift, mask, self.gelu_approximate, branch_scales,
                                     extra)
-        if block_route(ws, wts.dim, wts.num_heads, int(wts.wfc1.shape[0]),
-                       wts.bqkv is not None) == "window_attention":
-            return self._window_attention_route(x, wts, ws, shift, mask, branch_scales, extra)
+        route = block_route(ws, wts.dim, wts.num_heads, int(wts.wfc1.shape[0]),
+                            wts.bqkv is not None)
+        if route != "block":
+            return self._window_attention_route(x, wts, ws, shift, mask, branch_scales, extra,
+                                                wide=route == "wide")
         packed = None
         if x.is_cuda:
             # in training the kernels' autograd function packs on every call
@@ -154,28 +161,36 @@ class SwinBlock(nn.Module):
                                    packed=packed, branch_scales=branch_scales)
 
     def _window_attention_route(self, x, wts: SwinBlockWeights, ws: int, shift: int, mask,
-                                branch_scales, extra) -> torch.Tensor:
+                                branch_scales, extra, wide: bool = False) -> torch.Tensor:
         """K1's function for blocks outside the block kernel:
         ``swin_block_plain``'s composition with K2 for LN1, the cyclic
         shift and window partition as plain gathers, K7 on [B*nW, N, C]
-        and K1's tail kernel (attention residual through the window
-        reverse and unshift, `extra`, LN2, MLP, residual); each
-        wrapper's plain version on the CPU.  At inference on CUDA both
-        kernels' weights (the gathered bias among them) are packed once
-        per loaded weights.  In training on CUDA a block that
-        ``k5w16_ok`` takes (ws 16) runs that composition forward and
-        K5w16 backward (``fused_block.window_block_k5w16``)."""
+        (or, on the "wide" route, ``wide_window_attention``: K7's product
+        launch for qkv and proj around K15's attention) and K1's tail
+        kernel (attention residual through the window reverse and
+        unshift, `extra`, LN2, MLP, residual); each wrapper's plain
+        version on the CPU.  At inference on CUDA the kernels' weights
+        (the gathered bias among them) are packed once per loaded
+        weights.  In training on CUDA a block that ``k5w16_ok`` takes
+        (ws 16) runs that composition forward and K5w16 backward
+        (``fused_block.window_block_k5w16``); elsewhere the backward is
+        autograd of the wrappers."""
         pa = pt = None
         if x.is_cuda:
             def pack():
                 rpb = relative_position_bias(wts.table, ws)
-                return (pack_window_attention(wts.wqkv, wts.bqkv, wts.wproj, wts.bproj, rpb),
+                return ((rpb, pack_wide_attention(wts)) if wide else
+                        pack_window_attention(wts.wqkv, wts.bqkv, wts.wproj, wts.bproj, rpb),
                         pack_block_tail(wts.g2, wts.b2, wts.wfc1, wts.bfc1, wts.wfc2, wts.bfc2))
 
-            pa, pt = self._packed.get(list(self.parameters()), ("k7", ws, x.device), pack,
+            pa, pt = self._packed.get(list(self.parameters()),
+                                      ("wide" if wide else "k7", ws, x.device), pack,
                                       lambda: (None, None))
 
         def attention(xw, w, ws, mask):
+            if wide:
+                rpb, pw = pa if pa is not None else (relative_position_bias(w.table, ws), None)
+                return wide_window_attention(xw, w, rpb, mask, pw)
             rpb = None if pa is not None else relative_position_bias(w.table, ws)
             return fused_window_attention(xw, w.wqkv, w.bqkv, w.wproj, w.bproj, rpb, mask,
                                           packed=pa)
