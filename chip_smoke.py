@@ -34,16 +34,20 @@ Phases (a failure in any raises, and the script exits non-zero):
             batch and on a [2,52,76,180] image (sides not multiples of
             16): K9 unshifted and shifted, K14 and K10, each output in
             bf16 ulps against the plain bf16 and fp32 versions; then K7
-            (window attention for any window) at HAT-SRx4's
+            (window attention for any window, width and head dim: its
+            product and stream attention kernels) at HAT-SRx4's
             [25,64,64,180] ws 16 unshifted and shift 8, at SwinIR-L's
             widths (C 240, 8 heads, ws 8, shifted), at ws 6 (N 36) and
-            at ws 32 (N 1024); K1's tail on the K7 route (K1t: the
+            at ws 32 (N 1024), the bias as table + token codes and
+            dense, beside F.linear + SDPA + F.linear; its product launch
+            beside cuBLAS; K1's tail on the K7 route (K1t: the
             attention residual through the window reverse and unshift,
             `extra`, LN2, the MLP and its residual) at HAT-SRx4's
             widths (ws 16, shift 8, extra) and SwinIR-L's (ws 8, shift
             4, branch scales); and K12 (LN + the CAB's two convs) at
             the HAT-SRx4, HAT, hat_fast and HAT-S shapes, also timed
-            against the K2 + cuDNN convs + GELU it replaced; each in
+            against K2 + cuDNN convs + GELU and against the port's K2 +
+            K3 (GELU) + K3; each in
             bf16 ulps likewise; then DAT's module-chain kernels: K16
             (batched window attention) at the DAT train step's
             [256,3,128,30], the bench batch's [800,3,128,30] and the
@@ -57,9 +61,10 @@ Phases (a failure in any raises, and the script exits non-zero):
             bench batch ([2500,6,49,16] against 100 keys), hat_fast's
             ([1600,6,64,16] against 144), HAT-SRx4's ([400,6,256,30]
             against 576) and its train step's ([128,...]), square with
-            the shift mask ([1600,6,64,30], mask [64,64,64]), and at the
-            wide route's hd 44 and 64, timed beside SDPA (both kernels
-            where both take the shape); then the ws-16 training
+            the shift mask ([1600,6,64,30], mask [64,64,64]), at hd 44
+            and 64, and on the stream kernel (hd 96; a masked unit of
+            1024 keys), timed beside SDPA (both kernels where both take
+            the shape); then the ws-16 training
             kernels at the HAT-SRx4 train step's shapes: K5w16 (the K7
             route's block backward) at [8,64,64,180] shift 8 with `extra`
             and branch scales, K8w16 and K8bw16 (the OCAB core and its
@@ -80,11 +85,11 @@ Phases (a failure in any raises, and the script exits non-zero):
             and one SwinIR-L-width forward (embed 240, 8 heads, ws 8,
             depths 9x6, 3conv, nearest+conv; 4 tiles of 64^2), whose
             blocks take the K7 route (K2, K7, K1t): launches and PSNR
-            likewise; then the "wide" route's forwards (depth (2,), 4
-            tiles of 64^2): SwinIR at C 264 in 6 heads and at C 180 in 4
-            heads (K2, K7's product launch, K15, K1t a block), HAT at
-            embed 264 (its CABs on K2 + K3 with the GELU + K3):
-            launches and PSNR likewise;
+            likewise; then forwards at widths past the block kernel's
+            (depth (2,), 4 tiles of 64^2): SwinIR at C 264 in 6 heads, C
+            180 in 4 heads, C 576 in 8 heads and C 192 in 2 heads (hd
+            96) (K2, K7, K1t a block), HAT at embed 264 (its CABs on K2 +
+            K3 with the GELU + K3): launches and PSNR likewise;
 6. hat      HAT x4 (HATConfig(): embed 96, depths 6x4, ws 7; seeded
             random weights, exported to a .pth) behind SRService with
             --model hat: the three requests and checks of the serve phase
@@ -235,8 +240,10 @@ KERNELS = {
     "K14": dict(name="dat_channel_attention", route="cuda",
                 source="tpu_superresolution_torch/csrc/dat_channel.cu",
                 replaces="tpu_superresolution_tpu/ops/pallas/fused_channel_attn.py:209"),
+    # K7: the stream attention kernel between two launches of its product
+    # kernel (csrc/window_attn.cu)
     "K7": dict(name="window_attention", route="cuda",
-               source="tpu_superresolution_torch/csrc/window_attn.cu",
+               source="tpu_superresolution_torch/csrc/window_attn_stream.cu",
                replaces="tpu_superresolution_tpu/ops/pallas/fused_attention.py:229"),
     "K12": dict(name="ln_cab_convs", route="cuda",
                 source="tpu_superresolution_torch/csrc/cab_fused.cu",
@@ -467,17 +474,20 @@ def phase_build():
     for line in out.splitlines():
         if ("registers" in line or "spill" in line or "error" in line) and "C7519" not in line:
             log(f"[build] {line.strip()}")
-    # K3/K4's kernels by name (csrc/conv.cu: the flat and halo routes, one
-    # instantiation a compiled N tile): registers, shared memory, spills
+    # the wgmma kernels by name (csrc/conv.cu: K3/K4's flat and halo routes;
+    # csrc/window_attn.cu and window_attn_stream.cu: K7's product and
+    # attention; csrc/cab_fused.cu: K12), with their template arguments:
+    # registers, shared memory, spills
+    kinds = ("conv_nhwc_wgmma_kernel", "conv_nhwc_halo_kernel", "window_product_kernel",
+             "window_attn_stream_kernel", "cab_wgmma_kernel")
     name = None
     for line in out.splitlines():
         if "Function properties for" in line:
             fn = line.split("Function properties for")[-1].strip()
-            kinds = ("conv_nhwc_wgmma_kernel", "conv_nhwc_halo_kernel")
-            name = next((f"{k} N={fn.split('ILi')[1].split('E')[0]}" for k in kinds if k in fn),
-                        None)
+            name = next((f"{k} <{','.join(fn.split('ILi')[1].split('EEv')[0].split('ELi'))}>"
+                         for k in kinds if k in fn and "ILi" in fn), None)
         elif name and ("spill" in line or "Used" in line):
-            log(f"[build] conv.cu {name}: {line.strip()}")
+            log(f"[build] {name}: {line.strip()}")
             if "Used" in line:
                 name = None
 
@@ -701,7 +711,7 @@ def phase_kernels():
 # K3/K4 cases: (key, input shape, Cout (or "x2"/"x3": the composed
 # reconstruction), k, weight packed once[, the GELU in the epilogue]);
 # the first of each key is its row in the JSON line.  The last two are
-# the CAB of HAT at embed 264 (the "wide" route's K2 + K3 + K3).
+# the CAB of HAT at embed 264 (past K12's widths: K2 + K3 + K3).
 CONV_CASES = [("K3", (25, 64, 64, 180), 180, 3, True),
               ("K3", (25, 64, 64, 180), 64, 3, True),
               ("K3", (1, 256, 256, 180), 180, 3, True),
@@ -1147,9 +1157,10 @@ def phase_rect_attention_kernels(res):
     144), HAT-SRx4's ([400, 6, 256, 30] against 576: ws 16, ows 24, C
     180) and its train step's ([128, 6, 256, 30]), the square masked
     case (SwinIR-M's bench batch at ws 8, [1600, 6, 64, 30] with the
-    shift mask [64, 64, 64]), and the widths the "wide" route brings:
-    hd 44 (C 264 in 6 heads) at HAT's OCAB, at the OCAB of window 16 and
-    square with the shift mask, and hd 64.  Unscaled q with scale
+    shift mask [64, 64, 64]), hd 44 (C 264 in 6 heads) at HAT's OCAB,
+    at the OCAB of window 16 and square with the shift mask, hd 64, and
+    the "stream" route's shapes: hd 96 and a masked unit of 1024 keys at
+    hd 64.  Unscaled q with scale
     hd^-0.5, as the OCAB calls it.  Each output in bf16 ulps against the
     plain bf16 and fp32 versions; kernel, plain and SDPA times (bias +
     mask as a bf16 attn_mask) and the bound, into `res`.  Beside the
@@ -1178,11 +1189,11 @@ def phase_rect_attention_kernels(res):
             ("HAT embed 264 at ws 16 (ows 24, hd 44)", 64, 6, 256, 576, 44, None),
             ("square, masked, hd 44 (C 264, ws 8, shift 4)", 1600, 6, 64, 64, 44, (64, 8, 4)),
             ("hd 64 (C 256, 4 heads; ws 8, ows 12)", 1600, 4, 64, 144, 64, None),
-            # the wide route's HABs and blocks at phase_wide's shapes
-            ("square, masked, hd 45 (C 180 in 4 heads, ws 8, shift 4)", 256, 4, 64, 64, 45,
-             (64, 8, 4)),
-            ("HAT embed 264 HAB, masked, hd 44 (ws 7, shift 3)", 400, 6, 49, 49, 44,
-             (70, 7, 3))):
+            # the "stream" route (csrc/window_attn_stream.cu): heads past 64
+            # dims (an OCAB at C 576 in 6 heads) and a unit of 1024 keys
+            ("stream: OCAB hd 96 (C 576, 6 heads; ws 7, ows 10)", 400, 6, 49, 100, 96, None),
+            ("stream: square, masked, ws 32 (N 1024), hd 64", 8, 2, 1024, 1024, 64,
+             (64, 32, 16))):
         masked = geom is not None
         q = torch.randn(bw, nh, nq, hd, generator=gen, device=dev).to(bf)
         k, v = (torch.randn(bw, nh, nk, hd, generator=gen, device=dev).to(bf) for _ in range(2))
@@ -1210,7 +1221,7 @@ def phase_rect_attention_kernels(res):
         # the other kernel where both take the shape (hd <= 32), and the
         # other form of P on the tiled kernel
         for other, split in (("tiled", True), ("tiled", False), ("wgmma", False)):
-            if hd > 32:  # the wgmma kernel's alone
+            if hd > 32:  # the wgmma or the stream kernel's alone
                 continue
             form = lambda other=other, split=split: kw._launch(
                 q, k, v, bias, mask, scale, kw.launches_rect, split, route=other)
@@ -1327,20 +1338,17 @@ def phase_dat_train_kernels(res):
 
 def _random_k7(gen, device, c, nh, ws):
     """K7's raw weights at width C, `nh` heads and window `ws` with O(1)
-    activations (bf16-representable GEMM weights) and its gathered
-    [nh, ws^2, ws^2] bias."""
+    activations (bf16-representable GEMM weights) and its relative-
+    position table [(2ws-1)^2, nh]."""
     import torch
-
-    from tpu_superresolution_torch.ops.window import relative_position_bias
 
     def r(*shape, scale=1.0, bf=False):
         t = torch.randn(*shape, generator=gen) * scale
         return (t.bfloat16().float() if bf else t).to(device)
 
-    table = r((2 * ws - 1) ** 2, nh, scale=0.5)
     return (r(3 * c, c, scale=c ** -0.5, bf=True), r(3 * c, scale=0.1),
             r(c, c, scale=c ** -0.5, bf=True), r(c, scale=0.1),
-            relative_position_bias(table, ws))
+            r((2 * ws - 1) ** 2, nh, scale=0.5))
 
 
 def _k7_work(windows, n, c, nh):
@@ -1366,19 +1374,24 @@ def _k12_work(pixels, c, cm):
 
 
 def phase_window_kernels(res):
-    """K7 (the window-attention kernel for any window) and K12 (HAT's
-    fused LN + CAB convs) at the main paths' shapes, each output within
-    ULP_BOUND bf16 ulps of its plain bf16 and fp32 versions, with times
-    and bounds, into `res`.  K7: HAT-SRx4's bench batch [25,64,64,180]
-    at ws 16 (N 256), unshifted and shift 8 with the mask; SwinIR-L's
-    widths (C 240, 8 heads) at ws 8 shifted; ws 6 (N 36); ws 32 (N
-    1024) shifted.  K1t (K1's tail on the K7 route): HAT-SRx4's widths
-    at ws 16, shift 8, with `extra`; SwinIR-L's (C 240, hidden 480) at
-    ws 8, shift 4, with branch scales.  K12: the HAT-SRx4, HAT (ws 7,
-    reflect-padded tiles), hat_fast and HAT-S shapes, each also timed
-    against the composition it replaced in the CAB (K2, then cuDNN
-    conv, GELU, cuDNN conv).  Each kernel's first case is the one the
-    kernels line reports."""
+    """K7 (the window attention for any window, width and head dim), K1t
+    and K12 (HAT's fused LN + CAB convs) at the main paths' shapes, each
+    output within ULP_BOUND bf16 ulps of its plain bf16 and fp32
+    versions, with times and bounds, into `res`.  K7: HAT-SRx4's bench
+    batch [25,64,64,180] at ws 16 (N 256), unshifted and shift 8 with the
+    mask; SwinIR-L's widths (C 240, 8 heads) at ws 8 shifted; ws 6 (N
+    36); ws 32 (N 1024) shifted; each with the bias as the table + token
+    codes (the models' form) and dense, beside F.linear + SDPA (float
+    mask) + F.linear; then its product launch alone beside cuBLAS
+    (`F.linear`) at [16384,264] -> 792 and -> 264, [16384,180] -> 540,
+    HAT-SRx4's qkv [102400,180] -> 540, an odd width and C 576.  K1t:
+    HAT-SRx4's widths at ws 16, shift 8, with `extra`; SwinIR-L's (C 240,
+    hidden 480) at ws 8, shift 4, with branch scales; C 264 at ws 8 and 7.
+    K12: the HAT-SRx4, HAT (ws 7, reflect-padded tiles), hat_fast and
+    HAT-S shapes, each also timed against the two compositions that
+    compute its function (K2, then cuDNN conv, GELU, cuDNN conv; and the
+    port's K2 + K3 with the GELU epilogue + K3).  Each kernel's first
+    case is the one the kernels line reports."""
     import torch
     import torch.nn.functional as F
 
@@ -1386,50 +1399,81 @@ def phase_window_kernels(res):
     from tpu_superresolution_torch.kernels import fused_attention as fa
     from tpu_superresolution_torch.kernels import fused_block as fb
     from tpu_superresolution_torch.kernels.layernorm import layernorm
-    from tpu_superresolution_torch.ops.window import shift_mask_tensor, window_partition
+    from tpu_superresolution_torch.ops.window import (
+        relative_position_bias,
+        shift_mask_tensor,
+        window_codes_tensor,
+        window_partition,
+    )
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 6)
     bf = torch.bfloat16
     for shape, nh, ws, shift in (((25, 64, 64, 180), 6, 16, 0), ((25, 64, 64, 180), 6, 16, 8),
                                  ((25, 64, 64, 240), 8, 8, 4), ((8, 48, 48, 180), 6, 6, 3),
-                                 ((2, 64, 64, 180), 6, 32, 16)):
+                                 ((2, 64, 64, 180), 6, 32, 16),
+                                 # odd widths: element copies, heads of 15 dims
+                                 ((2, 32, 32, 45), 3, 8, 4)):
         c = shape[-1]
-        wqkv, bqkv, wproj, bproj, rpb = _random_k7(gen, dev, c, nh, ws)
-        packed = fa.pack_window_attention(wqkv, bqkv, wproj, bproj, rpb)
+        wqkv, bqkv, wproj, bproj, table = _random_k7(gen, dev, c, nh, ws)
+        rpb = relative_position_bias(table, ws)
+        packed = fa.pack_window_attention(wqkv, bqkv, wproj, bproj, rpb, table, ws)
+        codes = window_codes_tensor(shape[1], shape[2], ws, shift, dev)
         x = torch.randn(*shape, generator=gen).to(dev, bf)
         xw = window_partition(x, ws).contiguous()
         mask = shift_mask_tensor(shape[1], shape[2], ws, shift, dev) if shift else None
-        run = lambda: fa.fused_window_attention(xw, wqkv, bqkv, wproj, bproj, rpb, mask,
-                                                packed=packed)
+        # the rel form (table + token codes: the models' path) and the
+        # dense form (the gathered [nH, N, N] bias and [nW, N, N] mask)
+        run = lambda: fa.fused_window_attention(xw, wqkv, bqkv, wproj, bproj, None, mask,
+                                                packed=packed, codes=codes)
+        dense = lambda: fa.fused_window_attention(xw, wqkv, bqkv, wproj, bproj, rpb, mask,
+                                                  packed=packed)
         scale = (c // nh) ** -0.5
         plain = lambda: fa.window_attention_plain(xw, wqkv, bqkv, wproj, bproj, rpb, mask, scale)
-        out = run()
+        # one PyTorch call a stage: F.linear, SDPA with the float mask
+        # bias + mask, F.linear
+        bw, n = xw.shape[0], ws * ws
+        am = rpb[None].to(bf) if mask is None else _sdpa_mask(rpb, mask, bw)
+        wqkv_b, bqkv_b, wproj_b, bproj_b = (t.to(bf) for t in (wqkv, bqkv, wproj, bproj))
+
+        def library():
+            qkv = F.linear(xw, wqkv_b, bqkv_b).reshape(bw, n, 3, nh, c // nh).permute(2, 0, 3, 1, 4)
+            o = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2], attn_mask=am)
+            return F.linear(o.transpose(1, 2).reshape(bw, n, c), wproj_b, bproj_b)
+
         ref16 = plain()
         ref32 = fa.window_attention_plain(xw.float(), wqkv, bqkv, wproj, bproj, rpb, mask, scale)
-        torch.cuda.synchronize()
-        _compare(res, "K7", f"{list(shape)} C {c} {nh} heads ws {ws} (N {ws * ws}) shift {shift}",
-                 out, ref16, ref32, cuda_ms(run), cuda_ms(plain),
-                 _k7_work(xw.shape[0], ws * ws, c, nh))
-        del out, ref16, ref32
+        label = f"{list(shape)} C {c} {nh} heads ws {ws} (N {n}) shift {shift}"
+        t_lib = cuda_ms(library)
+        for form, fn in (("table + codes", run), ("dense bias and mask", dense)):
+            out = fn()
+            torch.cuda.synchronize()
+            _compare(res, "K7", f"{label}, {form} (b2b {queued_ms(fn):.4f} ms, composition b2b "
+                     f"{queued_ms(library):.4f})", out, ref16, ref32, cuda_ms(fn), cuda_ms(plain),
+                     _k7_work(bw, n, c, nh), t_lib)
+            del out
+        del ref16, ref32, am
 
-    # K7's product launch alone, as the "wide" route's qkv and proj at
-    # phase_wide's shapes (4 tiles of 64^2): C 264 (qkv 792, proj 264)
-    # and C 180 in 4 heads (qkv 540: paired stores), beside cuBLAS; odd
-    # widths (element loads and stores) at 45 -> 135
+    # K7's product launch alone (its qkv and proj products; the ws-16
+    # block backward's qkv recompute), beside cuBLAS: C 264 (qkv 792,
+    # proj 264), C 180 in 4 heads (qkv 540), HAT-SRx4's qkv on its bench
+    # batch, an odd width (element loads and stores) and C 576
     for rows, c_in, c_out in ((16384, 264, 792), (16384, 264, 264), (16384, 180, 540),
-                              (4096, 45, 135)):
+                              (102400, 180, 540), (4096, 45, 135), (16384, 576, 1728)):
         x = torch.randn(rows, c_in, generator=gen).to(dev, bf)
         w = (torch.randn(c_out, c_in, generator=gen) * c_in ** -0.5).bfloat16().float().to(dev)
         b = (0.1 * torch.randn(c_out, generator=gen)).to(dev)
         packed = fa.pack_window_product(w, b)
-        run = lambda: fa.window_product(x, w, b, packed)
+        run = lambda: fa._launch_product(x, packed)
         plain = lambda: fa.window_product_plain(x, w, b)
         wb, bb = w.to(bf), b.to(bf)
         out = run()
         ref16, ref32 = plain(), fa.window_product_plain(x.float(), w, b)
         torch.cuda.synchronize()
-        _compare(res, "K7", f"product (wide route) [{rows},{c_in}] -> {c_out}", out, ref16, ref32,
+        plan = packed.plan
+        _compare(res, "K7", f"product [{rows},{c_in}] -> {c_out} (N {plan.n_tile} x "
+                 f"{plan.n_tiles}; b2b {queued_ms(run):.4f} ms, cuBLAS b2b "
+                 f"{queued_ms(lambda: F.linear(x, wb, bb)):.4f})", out, ref16, ref32,
                  cuda_ms(run), cuda_ms(plain),
                  (2 * rows * c_in * c_out,
                   rows * (c_in + c_out) * 2 + c_out * c_in * 2 + c_out * 4),
@@ -1439,10 +1483,11 @@ def phase_window_kernels(res):
     for shape, nh, hidden, ws, shift, with_extra, with_scales in (
             ((25, 64, 64, 180), 6, 360, 16, 8, True, False),
             ((25, 64, 64, 240), 8, 480, 8, 4, False, True),
-            # the "wide" route's blocks at phase_wide's shapes: SwinIR at
-            # C 264 and HAT's HAB at embed 264 (ws 7, the CAB as extra)
+            # phase_wide's blocks: SwinIR at C 264 and HAT's HAB at embed
+            # 264 (ws 7, the CAB as extra), and C 576 (32 pixels a block)
             ((4, 64, 64, 264), 6, 528, 8, 4, False, False),
-            ((4, 70, 70, 264), 6, 528, 7, 3, True, False)):
+            ((4, 70, 70, 264), 6, 528, 7, 3, True, False),
+            ((4, 64, 64, 576), 8, 1152, 8, 4, False, False)):
         b, c = shape[0], shape[-1]
         w = _random_block(gen, dev, c=c, nh=nh, hidden=hidden, ws=ws)
         packed = fb.pack_block_tail(w.g2, w.b2, w.wfc1, w.bfc1, w.wfc2, w.bfc2)
@@ -1469,7 +1514,10 @@ def phase_window_kernels(res):
     for label, shape, cm in (("HAT-SRx4", (25, 64, 64, 180), 60),
                              ("HAT (ws 7, padded tiles)", (25, 70, 70, 96), 32),
                              ("hat_fast", (25, 64, 64, 96), 32),
-                             ("HAT-S (compress 24)", (25, 64, 64, 144), 6)):
+                             ("HAT-S (compress 24)", (25, 64, 64, 144), 6),
+                             # widths off the 4-channel pieces: pair and element paths
+                             ("C 90 (pairs)", (2, 30, 31, 90), 30),
+                             ("C 45 (elements)", (2, 17, 20, 45), 15)):
         c = shape[-1]
         def rnd(*s, sc=1.0, b16=False):
             t = torch.randn(*s, generator=gen) * sc
@@ -1491,15 +1539,23 @@ def phase_window_kernels(res):
         composed = lambda: nhwc(F.conv2d(
             F.gelu(nhwc(F.conv2d(layernorm(x, g, b).permute(0, 3, 1, 2), w1, c1b, padding=1))
                    ).permute(0, 3, 1, 2), w2, c2b, padding=1))
+        # the port's own composition (K2, K3 with the GELU, K3), the CAB's
+        # route past K12's widths
+        pconvs = (cc.pack_conv_weight(k1b), cc.pack_conv_weight(k2b))
+        convs = lambda: cc.ln_cab_convs(x, g, b, k1b, c1, k2b, c2, packed=pconvs)
         out = run()
         ref16 = plain()
         ref32 = cc.fused_ln_cab_convs_plain(x.float(), g, b, k1, c1, k2, c2)
         torch.cuda.synchronize()
-        t_kernel, t_composed = cuda_ms(run), cuda_ms(composed)
-        _compare(res, "K12", f"{label} {list(shape)} {c} -> {cm} -> {c}", out, ref16, ref32,
+        t_kernel, t_composed, t_convs = cuda_ms(run), cuda_ms(composed), cuda_ms(convs)
+        plan = packed.plan
+        _compare(res, "K12", f"{label} {list(shape)} {c} -> {cm} -> {c} (N1 {plan.n1}, N2 "
+                 f"{plan.n2} x {plan.passes}; route {cc.cab_route(c, cm)})", out, ref16, ref32,
                  t_kernel, cuda_ms(plain), _k12_work(math.prod(shape[:3]), c, cm))
-        log(f"[kernels] K12 {label}: kernel {t_kernel:.4f} ms, the K2 + cuDNN convs + GELU it "
-            f"replaced {t_composed:.4f} ms ({t_kernel / t_composed:.2f}x)")
+        log(f"[kernels] K12 {label}: kernel {t_kernel:.4f} ms (b2b {queued_ms(run):.4f}); "
+            f"K2 + cuDNN convs + GELU {t_composed:.4f} ms (b2b {queued_ms(composed):.4f}); "
+            f"K2 + K3 (GELU) + K3 {t_convs:.4f} ms (b2b {queued_ms(convs):.4f}); kernel / better "
+            f"composition {t_kernel / min(t_composed, t_convs):.2f}x")
         del out, ref16, ref32
     return res
 
@@ -1966,29 +2022,31 @@ def phase_swinir_l(smi):
     return counts
 
 
-# The "wide" route (fused_block.block_route): blocks past K7's widths
-# run K2 for LN1, K7's product launch for qkv and proj (two K7 calls)
-# around K15's window attention, and K1t; a HAT CAB past K12's widths
-# runs K2 + K3 (the GELU in its epilogue) + K3 (cab_conv.cab_route).  Per
-# model call at depth (2,): SwinIR: K2 for patch_norm, norm and each
-# block's LN1 (4); K7 2 and K1t 1 per block; K3 for the RSTB conv,
-# conv_after_body and conv_before_upsample; K4 for the composed
-# reconstruction; K15 per block.  HAT (ws 7, one RHAG of 2 HABs and the
-# OCAB): K2 2 + 2 per HAB (the CAB's LN, LN1) + 2 for the OCAB's norms;
-# K7 2 and K1t 1 per HAB; K3 2 per CAB + 3; K15 per HAB and the OCAB
-# (whose qkv and proj the JAX package leaves to XLA too).
-WIDE_SWINIR_PER_CALL = dict(PER_CALL, K1=0, K1t=2, K2=4, K3=3, K4=1, K7=4, K15=2)
-WIDE_HAT_PER_CALL = dict(PER_CALL, K1=0, K1t=2, K2=8, K3=7, K4=1, K7=4, K15=3)
+# Blocks past the block kernel's widths (once the "wide" route; now the K7
+# route, fused_block.block_route): K2 for LN1, K7 (any width, head dim
+# and window) and K1t; a HAT CAB past K12's widths runs K2 + K3 (the GELU
+# in its epilogue) + K3 (cab_conv.cab_route).  Per model call at depth
+# (2,): SwinIR: K2 for patch_norm, norm and each block's LN1 (4); K7 and
+# K1t 1 per block; K3 for the RSTB conv, conv_after_body and
+# conv_before_upsample; K4 for the composed reconstruction.  HAT (ws 7,
+# one RHAG of 2 HABs and the OCAB): K2 2 + 2 per HAB (the CAB's LN, LN1)
+# + 2 for the OCAB's norms; K7 and K1t 1 per HAB; K3 2 per CAB + 3; K15
+# for the OCAB (whose qkv and proj the JAX package leaves to XLA too).
+WIDE_SWINIR_PER_CALL = dict(PER_CALL, K1=0, K1t=2, K2=4, K3=3, K4=1, K7=2)
+WIDE_HAT_PER_CALL = dict(PER_CALL, K1=0, K1t=2, K2=8, K3=7, K4=1, K7=2, K15=1)
 
 
 def phase_wide(smi):
-    """The "wide" route on the card, each at depth (2,) on 4 tiles of
-    64^2 in bf16 (seeded random weights): a SwinIR at C 264 in 6 heads (hd
-    44, ws 8), a SwinIR at C 180 in 4 heads (hd 45: odd, so K15's element
-    loads), and a HAT at embed 264 (6 heads, ws 7: its CABs past K12's C
-    256 take K2 + K3 with the GELU + K3, its OCAB K15 at hd 44; conv_scale 0.3
-    so that the CAB branch moves the output); launches per call, and the
-    output >= 50 dB against the plain fp32 path."""
+    """The widths past the block kernel's on the card (once the "wide"
+    route, now the K7 route), each at depth (2,) on 4 tiles of 64^2 in
+    bf16 (seeded random weights): a SwinIR at C 264 in 6 heads (hd 44, ws
+    8), a SwinIR at C 180 in 4 heads (hd 45: odd), a HAT at embed 264 (6
+    heads, ws 7: its CABs past K12's C 256 take K2 + K3 with the GELU +
+    K3, its OCAB K15 at hd 44; conv_scale 0.3 so that the CAB branch
+    moves the output), and the widths ROADMAP Queue 3 item 1 repaired: a
+    SwinIR at C 576 in 8 heads (hd 72; K1t's 32-row blocks) and one at C
+    192 in 2 heads (hd 96); launches per call, and the output >= 50 dB
+    against the plain fp32 path."""
     import numpy as np
     import torch
 
@@ -2008,7 +2066,13 @@ def phase_wide(smi):
              WIDE_SWINIR_PER_CALL),
             ("HAT embed 264, 6 heads, ws 7", HATConfig(scale=4, embed_dim=264, depths=(2,),
                                                        num_heads=(6,), conv_scale=0.3),
-             WIDE_HAT_PER_CALL)):
+             WIDE_HAT_PER_CALL),
+            ("SwinIR C 576, 8 heads (hd 72), ws 8",
+             SwinIRConfig(scale=4, embed_dim=576, depths=(2,), num_heads=(8,), window_size=8),
+             WIDE_SWINIR_PER_CALL),
+            ("SwinIR C 192, 2 heads (hd 96), ws 8",
+             SwinIRConfig(scale=4, embed_dim=192, depths=(2,), num_heads=(2,), window_size=8),
+             WIDE_SWINIR_PER_CALL)):
         c, nh = cfg.embed_dim, cfg.num_heads[0]
         route = block_route(cfg.window_size, c, nh, int(c * cfg.mlp_ratio))
         src = build_model(cfg)
@@ -2030,7 +2094,7 @@ def phase_wide(smi):
                if cfg.name.startswith("hat") else "")
         log(f"[wide] {label}: block route {route}{cab}; launches {counts} (expected {want}); "
             f"{ms:.2f} ms; PSNR vs plain fp32 {psnr:.2f} dB (bound >= {PSNR_MIN_DB} dB) ({smi})")
-        if route != "wide":
+        if route != "window_attention":
             raise RuntimeError(f"wide {label}: block route {route}")
         if counts != want:
             raise RuntimeError(f"wide {label}: launches {counts}, expected {want}")
@@ -2111,10 +2175,10 @@ def _hat_split(model, fwd, smi, tag="hat"):
              and getattr(e, "is_user_annotation", False) and e.name in parts.values()]
     us = lambda e: getattr(e, "device_time", 0.0) or getattr(e, "cuda_time", 0.0)
     names = (("block kernel (swin_block_kernel)", ("swin_block_kernel",)),
-             ("K7 qkv_gemm_kernel", ("qkv_gemm_kernel",)),
-             ("K7 window_attn_kernel", ("window_attn_kernel",)),
+             ("K7 window_product_kernel (qkv, proj)", ("window_product_kernel",)),
+             ("K7 window_attn_stream_kernel", ("window_attn_stream_kernel",)),
              ("K1t swin_tail_kernel", ("swin_tail_kernel",)),
-             ("K12 ln_cab_convs_kernel", ("ln_cab_convs_kernel",)),
+             ("K12 cab_wgmma_kernel", ("cab_wgmma_kernel",)),
              ("K15 window_attn_wg_kernel / batched_attn_kernel (OCAB attention)",
               ("window_attn_wg_kernel", "batched_attn_kernel")),
              ("K2 layernorm", ("layernorm_rows",)), ("K3/K4 conv_nhwc", ("conv_nhwc",)))
@@ -2906,10 +2970,10 @@ def _hat_train_split(state, lr, hr, step_ms, smi, tag="hat-train"):
     fwd_names = (("forward K6 / K1 (swin_block_kernel)", ("swin_block_kernel",)),
                  ("forward K8 (ocab_fwd_kernel / ocab16_fwd_kernel)", ("ocab_fwd_kernel",
                                                                        "ocab16_fwd_kernel")),
-                 ("forward K7 (qkv_gemm_kernel, window_attn_kernel)", ("qkv_gemm_kernel",
-                                                                       "window_attn_kernel")),
+                 ("forward K7 (window_product_kernel, window_attn_stream_kernel)",
+                  ("window_product_kernel", "window_attn_stream_kernel")),
                  ("forward K1t swin_tail_kernel", ("swin_tail_kernel",)),
-                 ("forward K12 ln_cab_convs_kernel", ("ln_cab_convs_kernel",)),
+                 ("forward K12 cab_wgmma_kernel", ("cab_wgmma_kernel",)),
                  ("forward K2-K4", ("layernorm_rows", "conv_nhwc")))
     by_span = (("hat::cab", "forward CAB SE gate (plain ops)"),
                ("hat::ocab", "forward OCAB plain ops (qkv, proj, MLP, gathers)"),

@@ -100,12 +100,25 @@ def test_autograd_function_backward_is_autograd_of_the_plain_version():
             assert torch.allclose(g, leaves[i].grad, atol=1e-6), i
 
 
+def unpack_cab_weights(p):
+    """K12's packed conv weights as tap-major [9, K, N] fp32 matrices:
+    conv1's [chunks, 9, N1, 64] and conv2's [passes, 9, N2, 64] swizzled
+    tiles read back through the 128B swizzle (an involution)."""
+    from tpu_superresolution_torch.kernels.cab_conv import _swizzle_rows
+
+    w1 = _swizzle_rows(p.w1.float())  # [chunks, 9, N1, 64]
+    w1 = w1.permute(1, 0, 3, 2).reshape(9, -1, w1.shape[2])
+    w2 = _swizzle_rows(p.w2.float())  # [passes, 9, N2, 64]
+    w2 = w2.permute(1, 3, 0, 2).reshape(9, w2.shape[3], -1)
+    return w1, w2
+
+
 @pytest.mark.parametrize("c,cm", [(180, 60), (96, 32), (144, 6)])
 def test_packed_layout_computes_the_plain_function(c, cm):
-    """K12's packed operands (tap-major [9 * CK, CMP] and [9 * CMP, CK],
-    channels zero-padded to multiples of 16), used as the kernel's
-    implicit GEMM uses them and computed in fp32, give the plain
-    version's output on bf16-representable weights."""
+    """K12's packed operands (one 128B-swizzled [N, 64] tile a (chunk or
+    pass, tap), channels zero-padded to the chunks and N tiles), used as
+    the kernel's implicit GEMMs use them and computed in fp32, give the
+    plain version's output on bf16-representable weights."""
     import torch.nn.functional as F
 
     from tpu_superresolution_torch.kernels.cab_conv import fused_ln_cab_convs_plain, pack_cab
@@ -115,21 +128,23 @@ def test_packed_layout_computes_the_plain_function(c, cm):
     for k in ("k1", "k2"):
         a[k] = a[k].to(torch.bfloat16).float()
     p = pack_cab(a["g"], a["b"], a["k1"], a["c1"], a["k2"], a["c2"])
-    ck, cmp = -(-c // 16) * 16, -(-cm // 16) * 16
-    assert tuple(p.k1.shape) == (9 * ck, cmp) and tuple(p.k2.shape) == (9 * cmp, ck)
+    w1, w2 = unpack_cab_weights(p)
+    ck = -(-c // 64) * 64
+    assert tuple(w1.shape) == (9, ck, p.plan.n1) and p.plan.n1 >= cm
+    assert tuple(w2.shape) == (9, 64, p.plan.n2 * p.plan.passes) and p.plan.n2 * p.plan.passes >= c
 
-    def conv(t, w, bias, kdim):  # sum over taps of the shifted map times the tap's rows
+    def conv(t, w, bias):  # sum over taps of the shifted map times the tap's [K, N] matrix
         tp = F.pad(t, (0, 0, 1, 1, 1, 1))
         h, wd = t.shape[1], t.shape[2]
         out = bias.expand(t.shape[0], h, wd, -1).clone()
         for tap in range(9):
             dy, dx = divmod(tap, 3)
-            out = out + tp[:, dy:dy + h, dx:dx + wd] @ w[tap * kdim:(tap + 1) * kdim].float()
+            out = out + tp[:, dy:dy + h, dx:dx + wd] @ w[tap]
         return out
 
     ln = F.pad(layernorm_plain(a["x"], p.g, p.b), (0, ck - c))
-    y1 = F.gelu(conv(ln, p.k1, p.c1, ck))
-    got = conv(y1, p.k2, p.c2, cmp)[..., :c]
+    y1 = F.pad(F.gelu(conv(ln, w1, p.c1)), (0, 64 - p.plan.n1))
+    got = conv(y1, w2, p.c2)[..., :c]
     want = fused_ln_cab_convs_plain(*(a[k] for k in _NAMES))
     assert (got - want).abs().max() <= 1e-4
 

@@ -2,23 +2,26 @@
 host side of K15's and K11's Hopper kernels, against the JAX package,
 fp32 on the CPU:
 
-- ``fused_block.block_route`` takes blocks past K7's widths (C 257-512,
-  more than 8 heads, hd 33-64) by the "wide" route instead of raising,
-  and names the limit where it refuses;
+- ``fused_block.block_route`` sends every block outside the block
+  kernel to the K7 route (once the "wide" route: C past 256, more than 8
+  heads, hd 33-64, C past 512, hd past 64), and names the limit where it
+  refuses (heads that do not divide C);
 - a SwinIR and a HAT at those widths (C 264 in 6 heads, C 180 in 4 and 9
   heads; HAT at embed 264, whose CAB is past K12's C 256) against the
-  JAX jnp path, with K15's kernel path emulated: the wrapper's CUDA-tensor
-  code (route, limits, autograd function) runs, each launch computed by
-  the plain version and counted;
+  JAX jnp path, with K7's and K15's kernel paths emulated: the wrappers'
+  CUDA-tensor code (route, packing, autograd function) runs, each launch
+  computed by the kernels' schedules in torch (K7,
+  ``tests/test_torch_k7_wg.py``) or the plain version (K15) and counted;
 - the CAB's route past K12 (K2 + K3 with the GELU + K3) against the JAX CAB
   reference, an OCAB at hd 44 against the JAX OCAB (module path, jnp and
   K15 in interpret mode), a DAT rect branch at hd 44 on the module chain
   against the JAX module chain;
 - K15's plain version at hd 44 and 64 against the JAX
   ``window_attention_reference`` and the JAX kernel in interpret mode;
-- K7's product launch (the wide route's qkv and proj) from its packed
-  operands, and a wide block's training through its autograd functions;
-- ``k15_route`` by shape, its refusals, ``wg_plan`` (the wgmma kernel's
+- K7's product launch (its qkv and proj) from its packed operands, and
+  a wide block's training through K7's autograd function;
+- ``k15_route`` by shape (the "stream" route where the others stop),
+  ``wg_plan`` (the wgmma kernel's
   launch plan) and that kernel's schedule
   (CTAs walking (window, head) units head-major, 64-row query tiles,
   16-key slices, chunks with an online softmax in the log2 domain, the
@@ -37,6 +40,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from tests.test_torch_k7_wg import k7_emulated, product_emulated  # noqa: F401 (a fixture)
 from tests.test_torch_ocab import _jax_ocab
 from tests.util_torchport import (
     TOL,
@@ -74,43 +78,6 @@ def k15_emulated(monkeypatch):
     return routes
 
 
-def _product_emulated(x, packed):
-    """K7's product launch in fp32 torch ops from its packed operands:
-    x's columns zero-padded to CK, times the padded [N3, CK] weight, plus
-    the padded bias, the first C_out columns kept."""
-    ck = packed.w.shape[1]
-    y = F.pad(x.float(), (0, ck - x.shape[1])) @ packed.w.float().T + packed.b
-    return y[:, :packed.c_out].to(x.dtype)
-
-
-def _emulate_products(monkeypatch):
-    """The "wide" route's K7 product calls on CPU tensors: the wrapper's
-    CUDA-tensor code runs (packing, autograd function), each launch
-    computed by ``_product_emulated`` and counted as a K7 call.  The
-    weights are packed in fp32 here, so that the models match the JAX
-    package at fp32 (``test_window_product_packing_emulated`` checks the
-    bf16 packing)."""
-    from tpu_superresolution_torch.kernels import fused_attention as fa
-    from tpu_superresolution_torch.kernels import fused_block as fb
-
-    real_pack = fa.pack_window_product
-    monkeypatch.setattr(fa, "pack_window_product", lambda w, b: real_pack(w, b, torch.float32))
-
-    def fake_launch(x, packed):
-        fa.launches.count += 1
-        return _product_emulated(x, packed)
-
-    def product(x, weight, bias, packed=None):
-        if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                           for t in (x, weight, bias)):
-            return fa.WindowProductFunction.apply(x, weight, bias)
-        return fa._launch_product(x, packed or fa.pack_window_product(weight, bias))
-
-    monkeypatch.setattr(fa, "_launch_product", fake_launch)
-    monkeypatch.setattr(fb, "window_product", product)
-    fa.launches.reset()
-
-
 # ------------------------------------------------------------ block route
 
 _WIDE = [
@@ -126,23 +93,28 @@ _WIDE = [
 
 @pytest.mark.parametrize("ws,c,heads", _WIDE, ids=[f"ws{w}-C{c}-h{h}" for w, c, h in _WIDE])
 def test_block_route_takes_wide_widths(ws, c, heads):
-    """The "wide" route where K7 or K1t refuses the block, at any hidden
-    width (the others' routes are ``test_torch_window_attention.py``'s)."""
+    """The K7 route where the block kernel refuses the block, at any
+    hidden width (once the "wide" route; the others' routes are
+    ``test_torch_window_attention.py``'s)."""
     from tpu_superresolution_torch.kernels.fused_block import block_route
 
-    assert block_route(ws, c, heads, 2 * c) == "wide"
+    assert block_route(ws, c, heads, 2 * c) == "window_attention"
 
 
-@pytest.mark.parametrize("c,heads,match", [(264, 4, "hd <= 64"), (180, 7, "do not divide"),
-                                            (528, 12, "C <= 512")])
-def test_block_route_refuses_what_no_route_takes(c, heads, match):
-    """Heads of 66 dims (past K15's 64), heads that do not divide C, or
-    C past the wide route's 512 (K7's product launch, K1t) raise, with
-    the limit in the message."""
+@pytest.mark.parametrize("c,heads,want", [(264, 4, "window_attention"), (180, 7, "do not divide"),
+                                          (528, 12, "window_attention")],
+                         ids=["264-4-hd <= 64", "180-7-do not divide", "528-12-C <= 512"])
+def test_block_route_refuses_what_no_route_takes(c, heads, want):
+    """Heads that do not divide C raise, with the limit in the message;
+    heads of 66 dims and C 528 (which raised before K7 took any head dim
+    and any C) route."""
     from tpu_superresolution_torch.kernels.fused_block import block_route
 
-    with pytest.raises(ValueError, match=match):
-        block_route(8, c, heads, 2 * c)
+    if want == "window_attention":
+        assert block_route(8, c, heads, 2 * c) == want
+    else:
+        with pytest.raises(ValueError, match=want):
+            block_route(8, c, heads, 2 * c)
 
 
 # ------------------------------------------------------------- the models
@@ -151,12 +123,12 @@ _SWINIR_WIDE = [(264, 6), (180, 4), (180, 9)]
 
 
 @pytest.mark.parametrize("c,heads", _SWINIR_WIDE, ids=[f"C{c}-h{h}" for c, h in _SWINIR_WIDE])
-def test_swinir_wide_matches_jax(c, heads, k15_emulated, monkeypatch):
-    """A SwinIR of one RSTB of two blocks (the second shifted, its mask
-    through K15) at a width past K7's, on a 16 x 16 input: every block
-    takes the "wide" route, K15 runs twice a call (the wgmma route at hd
-    > 32), K7's product launch four times (qkv and proj, emulated from
-    its packed operands), and the output matches the JAX jnp path."""
+def test_swinir_wide_matches_jax(c, heads, k15_emulated, k7_emulated, monkeypatch):
+    """A SwinIR of one RSTB of two blocks (the second shifted) at a width
+    past the old K7's, on a 16 x 16 input: every block takes the K7
+    route, K7 runs once a block (its three kernels emulated from the
+    packed operands, the mask dense), K15 never, and the output matches
+    the JAX jnp path."""
     from tpu_superresolution_torch.kernels import window_attention as kw
     from tpu_superresolution_torch.kernels import fused_attention as fa
     from tpu_superresolution_torch.models.swinir import SwinBlock
@@ -164,29 +136,27 @@ def test_swinir_wide_matches_jax(c, heads, k15_emulated, monkeypatch):
     taken = []
     real = SwinBlock._window_attention_route
     monkeypatch.setattr(SwinBlock, "_window_attention_route",
-                        lambda self, *a, **k: taken.append((self.shift_size, k.get("wide")))
+                        lambda self, *a, **k: taken.append(self.shift_size)
                         or real(self, *a, **k))
-    _emulate_products(monkeypatch)
     cfg = small_swinir_config(embed_dim=c, depths=(2,), num_heads=(heads,))
     model, variables = perturbed_jax_swinir(cfg, (16, 16))
     x = np.random.default_rng(c + heads).random((1, 16, 16, 3), dtype=np.float32)
     want = jax_forward(model, variables, x)
     got = port_forward(port_from_jax(cfg, variables), x)
-    assert taken == [(0, True), (4, True)]
-    assert kw.launches_rect.count == 2 and kw.launches.count == 0
-    assert fa.launches.count == 4
-    hd = c // heads
-    assert k15_emulated == ["wgmma", "wgmma" if hd > 32 else "tiled"]
+    assert taken == [0, 4]
+    assert kw.launches_rect.count == 0 and kw.launches.count == 0 and k15_emulated == []
+    assert fa.launches.count == 2
     assert got.shape == want.shape == (1, 64, 64, 3)
     assert np.abs(got - want).max() <= TOL
 
 
-def test_hat_wide_matches_jax(k15_emulated, monkeypatch):
+def test_hat_wide_matches_jax(k15_emulated, k7_emulated, monkeypatch):
     """HAT at embed 264 in 6 heads (hd 44; one RHAG of two HABs and the
-    OCAB, ws 7, conv_scale 0.3): the HABs take the "wide" route, their
-    CABs (C 264 > K12's 256) K2 + K3 with the GELU + K3, the OCAB K15 at hd 44;
-    against the JAX jnp path."""
+    OCAB, ws 7, conv_scale 0.3): the HABs take the K7 route (emulated),
+    their CABs (C 264 > K12's 256) K2 + K3 with the GELU + K3, the OCAB
+    K15 at hd 44; against the JAX jnp path."""
     from tpu_superresolution_torch.kernels import cab_conv
+    from tpu_superresolution_torch.kernels import fused_attention as fa
     from tpu_superresolution_torch.kernels import window_attention as kw
     from tpu_superresolution_torch.models import hat
 
@@ -204,14 +174,15 @@ def test_hat_wide_matches_jax(k15_emulated, monkeypatch):
     got = port_forward(port_from_jax(cfg, variables), x)
     assert cab_conv.cab_route(264, 88) == "convs"
     assert calls == ["ln_cab_convs", "ln_cab_convs"]
-    assert kw.launches_rect.count == 3  # two HABs, one OCAB
-    assert k15_emulated == ["wgmma"] * 3
+    assert kw.launches_rect.count == 1 and k15_emulated == ["wgmma"]  # the OCAB
+    assert fa.launches.count == 2  # the HABs
     assert got.shape == want.shape == (1, 56, 56, 3)
     assert np.abs(got - want).max() <= TOL
 
 
-_CAB_ROUTES = [(96, 32, "K12"), (180, 60, "K12"), (256, 128, "K12"), (264, 88, "convs"),
-               (240, 160, "convs")]
+# K12 takes C <= 256 and Cmid <= 64 (one 64-channel chunk of its y1)
+_CAB_ROUTES = [(96, 32, "K12"), (180, 60, "K12"), (256, 128, "convs"), (264, 88, "convs"),
+               (240, 160, "convs"), (256, 64, "K12"), (144, 6, "K12")]
 
 
 @pytest.mark.parametrize("c,cm,route", _CAB_ROUTES, ids=[f"C{c}-mid{m}" for c, m, _ in _CAB_ROUTES])
@@ -378,20 +349,24 @@ def test_k15_route_by_shape(nq, nk, hd, masked, split, route):
     assert k15_route(nq, nk, hd, masked, split) == route
 
 
-@pytest.mark.parametrize("nq,nk,hd,match", [(49, 100, 65, "hd <= 64"),
-                                            (1024, 1024, 64, "holds at most")])
-def test_k15_route_refuses_with_the_limit(nq, nk, hd, match):
+@pytest.mark.parametrize("nq,nk,hd", [(49, 100, 65), (1024, 1024, 64)],
+                         ids=["49-100-65-hd <= 64", "1024-1024-64-holds at most"])
+def test_k15_route_refuses_with_the_limit(nq, nk, hd, k15_emulated):
     """Heads past 64 dims, and a (window, head) whose q, k and v do not
-    fit the wgmma kernel's shared memory, raise with the limit named, on
-    the kernel path too."""
+    fit the wgmma kernel's one-stage units (the shapes that raised before
+    the stream kernel), take the "stream" route, on the kernel path too,
+    and match the JAX reference."""
+    from tpu_superresolution_tpu.ops.pallas.window_attention import window_attention_reference
     from tpu_superresolution_torch.kernels import window_attention as kw
 
-    with pytest.raises(ValueError, match=match):
-        kw.k15_route(nq, nk, hd)
-    z = lambda *s: torch.zeros(*s)
-    with pytest.raises(ValueError, match=match):
-        kw._kernel_attention(z(1, 1, nq, hd), z(1, 1, nk, hd), z(1, 1, nk, hd), z(1, nq, nk),
-                             None, 1.0, kw.launches_rect, False, "fused_window_attention")
+    assert kw.k15_route(nq, nk, hd) == "stream"
+    q, k, v, bias, _ = _attn_inputs(1, 1, nq, nk, hd, 0, seed=7)
+    got = kw._kernel_attention(*(torch.from_numpy(a) for a in (q, k, v, bias)), None,
+                               hd ** -0.5, kw.launches_rect, False, "fused_window_attention")
+    assert k15_emulated == ["stream"] and kw.launches_rect.count == 1
+    want = window_attention_reference(*(jnp.asarray(a) for a in (q, k, v, bias)), None,
+                                      hd ** -0.5)
+    assert np.abs(got.numpy() - np.asarray(want)).max() <= TOL
 
 
 @pytest.mark.parametrize("bw,nh,sms", [(2500, 6, 132), (10, 6, 132), (7, 9, 132), (1, 1, 132),
@@ -509,12 +484,13 @@ _PRODUCTS = [(264, 792), (264, 264), (180, 540), (45, 7), (512, 1536)]
 
 @pytest.mark.parametrize("c_in,c_out", _PRODUCTS, ids=[f"{a}-{b}" for a, b in _PRODUCTS])
 def test_window_product_packing_emulated(c_in, c_out):
-    """K7's product launch on the wide route, emulated from its packed
-    operands (input channels padded to 16, output rows padded to 16, the
-    bias padded, C_out columns stored), gives ``window_product_plain``
-    at fp32 for bf16-representable weights; the packed shapes are what
-    the C entry checks."""
+    """K7's product launch, emulated from its packed operands (128-row x
+    N tiles, 64-column chunks, the swizzled tiles read back, the bias
+    padded, C_out columns stored), gives ``window_product_plain`` at fp32
+    for bf16-representable weights; the packed shapes are what the C
+    entry checks."""
     from tpu_superresolution_torch.kernels.fused_attention import (
+        PRODUCT_BK,
         pack_window_product,
         window_product_plain,
     )
@@ -524,30 +500,43 @@ def test_window_product_packing_emulated(c_in, c_out):
     w = (torch.randn(c_out, c_in, generator=g) * c_in ** -0.5).bfloat16().float()
     b = 0.1 * torch.randn(c_out, generator=g)
     packed = pack_window_product(w, b)
-    assert tuple(packed.w.shape) == (-(-c_out // 16) * 16, -(-c_in // 16) * 16)
-    assert packed.w.dtype == torch.bfloat16 and tuple(packed.b.shape) == (packed.w.shape[0],)
-    got = _product_emulated(x, packed)
+    plan = packed.plan
+    assert tuple(packed.wp.shape) == (plan.n_tiles, -(-c_in // PRODUCT_BK), plan.n_tile,
+                                      PRODUCT_BK)
+    assert packed.wp.dtype == torch.bfloat16 and tuple(packed.b.shape) == (
+        plan.n_tiles * plan.n_tile,)
+    got = product_emulated(x, packed)
     assert (got - window_product_plain(x, w, b)).abs().max().item() <= TOL
-    assert (_product_emulated(x, pack_window_product(w, None))
+    assert (product_emulated(x, pack_window_product(w, None))
             - window_product_plain(x, w, None)).abs().max().item() <= TOL
 
 
 def test_window_product_refuses_past_its_width():
-    from tpu_superresolution_torch.kernels.fused_attention import pack_window_product
+    """C 520, past the old product's 512 (its x tile held the whole K in
+    shared memory), packs and computes the plain product: C streams in
+    64-column chunks."""
+    from tpu_superresolution_torch.kernels.fused_attention import (
+        pack_window_product,
+        window_product_plain,
+    )
 
-    with pytest.raises(ValueError, match="C <= 512"):
-        pack_window_product(torch.zeros(8, 520), None)
+    g = torch.Generator().manual_seed(520)
+    x = torch.randn(9, 520, generator=g)
+    w = (torch.randn(8, 520, generator=g) * 520 ** -0.5).bfloat16().float()
+    packed = pack_window_product(w, None)
+    assert packed.wp.shape[1] == 9
+    got = product_emulated(x, packed)
+    assert (got - window_product_plain(x, w, None)).abs().max().item() <= TOL
 
 
-def test_wide_route_trains_through_the_product_function(monkeypatch, k15_emulated):
-    """A wide block in training: K7's product calls go through
-    ``WindowProductFunction`` (forward emulated, backward autograd of the
-    plain version) and K15's through its autograd function, so that the
-    gradients of every weight match the plain block's."""
+def test_wide_route_trains_through_the_product_function(k15_emulated, k7_emulated):
+    """A block at C 264 in 6 heads (once the "wide" route) in training:
+    its K7 call goes through ``WindowAttentionFunction`` (forward the
+    emulated kernels, backward autograd of the plain version), so that
+    the gradients of every weight match the plain block's."""
     from tpu_superresolution_torch.kernels import fused_attention as fa
     from tpu_superresolution_torch.models.swinir import SwinBlock
 
-    _emulate_products(monkeypatch)
     torch.manual_seed(3)
     blk = SwinBlock(dim=264, num_heads=6, window_size=8, shift_size=4, mlp_ratio=2.0)
     x = torch.randn(1, 16, 16, 264)
@@ -555,7 +544,7 @@ def test_wide_route_trains_through_the_product_function(monkeypatch, k15_emulate
     got = {n: p.grad.clone() for n, p in blk.named_parameters()}
     blk.zero_grad()
     blk(x, plain=True).square().sum().backward()
-    assert fa.launches.count == 2 and k15_emulated == ["wgmma"]
+    assert fa.launches.count == 1 and k15_emulated == []
     for n, p in blk.named_parameters():
         assert torch.allclose(got[n], p.grad, atol=1e-4, rtol=1e-4), n
 

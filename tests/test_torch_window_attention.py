@@ -137,14 +137,25 @@ def test_autograd_function_backward_is_autograd_of_the_plain_version():
             assert torch.allclose(g, leaves[i].grad, atol=1e-6), i
 
 
+def unpack_product(packed):
+    """The [C_out, C_in] fp32 weight and [C_out] bias a packed product
+    operand holds: its [N, 64] tiles read back through the 128B swizzle
+    (an involution), the padding dropped."""
+    from tpu_superresolution_torch.kernels.cab_conv import _swizzle_rows
+
+    nt, chunks, n, bk = packed.wp.shape
+    w = _swizzle_rows(packed.wp.float()).transpose(1, 2).reshape(nt * n, chunks * bk)
+    return w[:packed.c_out, :packed.c_in], packed.b[:packed.c_out]
+
+
 @pytest.mark.parametrize("c,nh,with_bias", [(180, 6, True), (60, 2, False), (240, 8, True)])
 def test_packed_layout_computes_the_plain_function(c, nh, with_bias):
-    """K7's packed operands (head dims padded hd -> 32 with q pre-scaled,
-    channels padded to 16, the bias gathered), used as the kernel uses
-    them and computed in fp32, give the plain version's output: the
-    packing that only the card runs is checked here."""
+    """K7's packed operands (head dims padded hd -> hdw with q pre-scaled,
+    the product weights in swizzled [N, 64] tiles, the bias gathered),
+    used as the kernels use them and computed in fp32, give the plain
+    version's output: the packing that only the card runs is checked
+    here."""
     from tpu_superresolution_torch.kernels.fused_attention import (
-        HDP,
         pack_window_attention,
         window_attention_plain,
     )
@@ -153,21 +164,22 @@ def test_packed_layout_computes_the_plain_function(c, nh, with_bias):
     xw, wqkv, bqkv, wproj, bproj, rpb, mask = _port_args(a)
     p = pack_window_attention(wqkv, bqkv, wproj, bproj, rpb)
     bw, n, _ = xw.shape
-    ck = p.wqkv.shape[1]
-    xp = torch.nn.functional.pad(xw, (0, ck - c))
-    qkv = (xp @ p.wqkv.float().t() + p.bqkv).reshape(bw, n, 3, nh, HDP)
+    hdw = p.hdw
+    wq, bq = unpack_product(p.qkv)
+    wp, bp = unpack_product(p.proj)
+    qkv = (xw @ wq.t() + bq).reshape(bw, n, 3, nh, hdw)
     s = torch.einsum("wqhd,wkhd->whqk", qkv[:, :, 0], qkv[:, :, 1]) + p.rpb[None]
     s = s + mask.repeat(bw // mask.shape[0], 1, 1)[:, None]
     o = torch.einsum("whqk,wkhd->wqhd", torch.softmax(s, -1), qkv[:, :, 2]).reshape(bw, n, -1)
-    got = (o @ p.wproj.float().t() + p.bproj)[..., :c]
+    got = o @ wp.t() + bp
     # the packing rounds the GEMM weights to bf16 after the q pre-scale
     bf = lambda t: t.to(torch.bfloat16).float()
     qscale = torch.ones(3 * c, 1)
     qscale[:c] = a["scale"]
     want = window_attention_plain(xw, bf(wqkv * qscale) / qscale, bqkv, bf(wproj), bproj, rpb,
                                   mask, a["scale"])
-    assert tuple(p.wqkv.shape) == (3 * nh * HDP, -(-c // 16) * 16)
-    assert tuple(p.wproj.shape) == (-(-c // 16) * 16, nh * HDP)
+    assert tuple(wq.shape) == (3 * nh * hdw, c) and tuple(wp.shape) == (c, nh * hdw)
+    assert p.qkv.wp.shape[1:] == (-(-c // 64), p.qkv.plan.n_tile, 64)
     assert (got - want).abs().max() <= 1e-4
 
 
@@ -184,28 +196,22 @@ _ROUTES = [
     ((8, 256, 8, 512, True), "window_attention"),
     ((8, 180, 6, 720, True), "window_attention"),   # hidden past 384
     ((8, 180, 6, 360, False), "window_attention"),  # no qkv bias
-    ((8, 288, 8, 576, True), "wide"),   # past K7's and K1t's C 256
-    ((8, 128, 2, 256, True), "wide"),   # hd 64
-    ((8, 252, 9, 504, True), "wide"),   # 9 heads
-    ((8, 264, 4, 528, True), "hd <= 64"),
+    ((8, 288, 8, 576, True), "window_attention"),   # past the block kernel's C 192
+    ((8, 128, 2, 256, True), "window_attention"),   # hd 64
+    ((8, 252, 9, 504, True), "window_attention"),   # 9 heads
+    ((8, 264, 4, 528, True), "window_attention"),   # hd 66
 ]
 
 
 @pytest.mark.parametrize("shape,route", _ROUTES, ids=[str(s) for s, _ in _ROUTES])
 def test_block_route_by_shape(shape, route):
-    """block_route picks the block kernel at ws 7 / 8 within its widths,
-    the K7 route for any other window or width up to C 256 and 8 heads of
-    hd <= 32, the wide route (K15) past those, and raises, naming the
-    limit and ROADMAP Queue 3, past K15's heads of 64 dims."""
+    """block_route picks the block kernel at ws 7 / 8 within its widths
+    and the K7 route for every other window, width, head count and head
+    dim, the same answer on every call."""
     from tpu_superresolution_torch.kernels.fused_block import block_route
 
-    if route in ("block", "window_attention", "wide"):
-        assert block_route(*shape) == route
-        assert block_route(*shape) == route  # the same answer on every call
-    else:
-        with pytest.raises(ValueError, match=route) as err:
-            block_route(*shape)
-        assert "ROADMAP Queue 3" in str(err.value)
+    assert block_route(*shape) == route
+    assert block_route(*shape) == route  # the same answer on every call
 
 
 @pytest.mark.parametrize("overrides,hw,impl", [

@@ -18,8 +18,8 @@
 //       padded map and the zero rows of HAT's overlap gather at the image
 //       border are real keys (their score is the bias alone): all three
 //       are the caller's data, not special cases here.
-// Design: the attention core of K7 (window_attn_core.cuh) without the
-//       qkv and proj products: one 256-thread block per (window, head,
+// Design: the tiled attention core (window_attn_core.cuh, K7's first
+//       design, without its qkv and proj): one 256-thread block per (window, head,
 //       64-query tile) streams the window's Nk keys in 64-row tiles with
 //       an online softmax, so any Nq and Nk run (HAT's 49 x 100 leaves a
 //       partial query tile and a partial key tile) and no window count is

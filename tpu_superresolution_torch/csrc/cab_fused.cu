@@ -1,215 +1,624 @@
 // K12 — HAT's CAB front in one pass: LayerNorm -> conv3x3 (C -> Cmid)
-// -> exact GELU -> conv3x3 (Cmid -> C), NHWC.
+// -> exact GELU -> conv3x3 (Cmid -> C), NHWC, on Hopper's wgmma.
 //
 // Replaces: tpu_superresolution_tpu/ops/pallas/cab_conv.py
 //           fused_ln_cab_convs -> _forward -> _kernel (pallas_call at
 //           :209); oracle _reference (:153).
 // Math: y1 = gelu_erf(conv3x3(LN(x)) + c1), y = conv3x3(y1) + c2, both
 //       convs SAME with zero padding: LN's output is zero outside the
-//       image, and so is conv2's input (cab_conv.py:143-148).  LN uses
-//       fp32 fast-variance statistics (E[x^2] - E[x]^2 clamped at 0);
-//       GEMM operands bf16 with fp32 accumulation; y1 rounds to bf16.
-//       The SE gate stays outside, as in the JAX package.
-// Tiles: one 256-thread block per 8 x 8 output pixels.  The block
-//       recomputes the halo: LN on the 12 x 12 input tile, conv1 on the
-//       10 x 10 tile, conv2 on the 8 x 8 outputs.  Each tile is a flat
-//       array of 12-pixel rows in shared memory, so a conv tap (dy, dx)
-//       is the same array shifted by dy*12 + dx rows and every tap's A
-//       operand is a plain WMMA tile (an implicit GEMM with no gather);
-//       the two columns of each row past the tile's width compute
-//       values no valid output reads.  conv1 runs 128 rows (8 WMMA
-//       tiles) for 100 used, conv2 96 rows for 64 outputs.  A warp owns
-//       one 16-column tile of 64 (conv1) or 48 (conv2) rows.
+//       image, and so is conv2's input (cab_conv.py:143-148: conv1 on the
+//       halo rows past the border is not conv2's padding).  LN uses fp32
+//       fast-variance statistics (E[x^2] - E[x]^2 clamped at 0) and
+//       rounds to bf16; GEMM operands bf16 with fp32 accumulation; y1
+//       rounds to bf16 once, after the GELU.  The SE gate stays outside,
+//       as in the JAX package.
+// Blocks: a persistent grid (one 384-thread CTA an SM) walks 14 x 14
+//       output blocks.  A block's conv1 runs on the 16 x 16 pixels around
+//       it (four wgmma m64 tiles of 8 x 8 pixels, none wasted) and its
+//       conv2 on 2 x 2 tiles of 8 x 8 (196 of 256 rows used).  Operands
+//       live in csrc/conv.cu's halo layout: a pixel is one 128-byte row
+//       of 64 channels, 128B-swizzled; a tap's A operand is a window of a
+//       halo buffer read in place (start at the tap's pixel, 8-pixel core
+//       matrices one halo row apart), so no operand is copied per tap.
+// Design: two launches.  ln_stats_kernel computes every pixel's LN
+//       statistics (128 pixels' rows a block, copied to shared memory by
+//       16-byte loads, a thread a row) into a workspace: in
+//       the fused kernel's producer the statistics of a halo's 324 pixels
+//       cost ~1.6x the reads and a chain of warp reductions a pixel, which
+//       measured slower than the whole pass.  The fused kernel (416
+//       threads): warpgroup 0 reads the halo's statistics, then, per
+//       64-channel chunk, takes the raw chunk by cp.async (8 bytes a copy,
+//       zero outside the image and past C, all in flight at once) into one
+//       of three halo buffers and normalise it in place, swizzled, the
+//       buffers a ring of items: a block's chunks, then its y1 (a buffer
+//       the producer hands over unwritten), so that the next block's
+//       chunks load while this block's conv2 runs.  Warp 12 feeds the
+//       packed weights (kernels/cab_conv.py ``pack_cab``: one
+//       [N, 64] 128B-swizzled tile a (chunk or pass, tap), bulk-copied) in
+//       runs of taps through a ring of stages under mbarriers: both 3x3
+//       weights (2 x 221 KB at C 180) do not fit beside a block, so they
+//       stream, as K3's do.  Warpgroups 1 and 2 consume, each one row of
+//       8 x 8 tiles: conv1 as wgmma m64 x N1 x k16 (N1 = Cmid rounded up
+//       to 16, 32 or 64) over 9 taps x the chunks; + c1, GELU in
+//       registers, zeroed outside the image, bf16 into the y1 item (the
+//       16 x 16 pixels in the same swizzled layout, one 64-channel chunk);
+//       then conv2 as wgmma m64 x N2 x k16 over 9 taps, in passes of N2
+//       (48, 64 or 96) output channels, + c2; each warp stages 8 pixels'
+//       outputs and stores each pixel's run of channels whole.
+//       Measured on the H100 (clock64 timelines of one CTA): the first
+//       producer, three warps issuing dependent shared-memory round trips,
+//       took ~20K cycles a chunk and bounded the kernel; its loads are now
+//       plain shared accesses eight pixels a step, the next chunk's copies
+//       in flight meanwhile.
 // Bound on the H100: HAT-SRx4's CAB (C 180 -> 60 -> 180) does 388,800
 //       FLOP a pixel against 4 bytes of x in and out: 39.8 GFLOP on the
-//       bench batch [25,64,64,180], 0.040 ms at the bf16 peak, vs 73.7
-//       MB (0.022 ms): compute-bound; HAT's (96 -> 32 -> 96) 13.5 GFLOP
-//       vs 47.0 MB: even.  This first version does ~2x the products (the
-//       halo and the flat rows) and reads the weights (2 x 194 KB at C
-//       180, more than fits beside a tile) from L2 through the WMMA B
-//       fragments.  Two M tiles a warp in conv1 (every warp busy at Cmid
-//       32) with the next B fragment fetched ahead measured 5% faster at
-//       C 96 and 32% slower at C 180 on the H100 (PERF.md).
-#include <mma.h>
-
+//       bench batch [25,64,64,180], 0.040 ms at the bf16 peak, vs 73.7 MB
+//       (0.022 ms): compute-bound; HAT's (96 -> 32 -> 96) 13.5 GFLOP vs
+//       47.0 MB: even.  The 14 x 14 blocks do 1.31x the products (conv2's
+//       unused rows) and feed both weights from L2 once a block.
 #include "common.cuh"
-#include "dat_common.cuh"
-#include "swin_common.cuh"
-
-using namespace nvcuda;
+#include "hopper.cuh"
 
 namespace {
 
+constexpr int OB = 14;             // output block side
+constexpr int HS = 18;             // halo side: the input halo and the y1 buffer
+constexpr int HPX = HS * HS;       // 324 pixel rows
+constexpr int HBUF = (HPX * 128 + 1023) / 1024 * 1024;  // one 64-channel chunk buffer
+constexpr int kThreads = 416;    // warpgroup 0: LN; 1, 2: consumers; warp 12: the weights
+constexpr int kLnThreads = 128;
+constexpr int kSmemMax = 232448;
+constexpr int kStageBytes = 24576;  // a weight stage: a run of taps' tiles
+constexpr int kMaxStages = 4;
+constexpr int kSlots = 3;  // halo buffers: a ring of a block's LN chunks and its y1
 constexpr int MAX_C = 256;
-constexpr int MAX_MID = 128;
-constexpr int TH = 8, TW = 8;    // output pixels per block
-constexpr int FW = TW + 4;       // flat row width of every tile
-constexpr int LN_ROWS = 160;     // (TH+4)*FW = 144 used, room for conv1's shifted reads
-constexpr int M1 = 128;          // conv1 rows: (TH+2)*FW = 120, padded to 8 WMMA tiles
-constexpr int M2 = TH * FW;      // conv2 rows: 96
-constexpr int NWARPS = 8;
-constexpr int NTHREADS = NWARPS * 32;
-static_assert(M1 + 2 * FW + 2 <= LN_ROWS && M2 + 2 * FW + 2 <= M1,
-              "a tap's shifted rows must stay inside the tile below");
+constexpr int MAX_SC2 = 384;  // conv2's padded bias: passes * N2 <= 288 at C <= 256
 
-struct CabArgs {
+struct Params {
   const bf16* x;
+  const float2* stats;  // [batch * h * w] (mean, rstd): ln_stats_kernel's
   const float* g;
   const float* b;
-  const bf16* k1;   // [9 * ck][cmp]: tap-major, row-major K x N
-  const float* c1;  // [cmp]
-  const bf16* k2;   // [9 * cmp][co]
-  const float* c2;  // [co]
+  const bf16* w1;   // [chunks, 9, N1, 64] swizzled
+  const float* c1;  // [N1]
+  const bf16* w2;   // [passes, 9, N2, 64] swizzled
+  const float* c2;  // [passes * N2]
   bf16* y;
-  int batch, h, w, c, ck, cmp, co;
-  float eps;
+  int batch, h, w, c, cmid, chunks, passes;
+  int tiles_y, tiles_x;
+  int stages;
+  int vec_in;   // 4: x read 4 channels (8 bytes) at a time (C % 4 == 0), else 1
+  int vec_out;  // bytes a store piece: 16 (C % 8 == 0), 8 (C % 4 == 0), 4 (C even) or 2
 };
 
-// acc[mt] = sum over the 9 taps of A_tap[16*mt + m0 ..][0:kdim] @ W_tap
-// [0:kdim][n0:n0+16], A_tap the shared tile shifted by dy*FW + dx rows
-// (leading dimension lda), W global row-major [9*kdim][ldw].
-template <int MT>
-__device__ __forceinline__ void conv_tiles(Acc (&acc)[MT], const bf16* a, int lda, int m0,
-                                           const bf16* w, int ldw, int n0, int kdim) {
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) wmma::fill_fragment(acc[mt], 0.f);
-  for (int tap = 0; tap < 9; ++tap) {
-    const int off = (tap / 3) * FW + tap % 3;
-    for (int k = 0; k < kdim; k += 16) {
-      FragB fb;
-      wmma::load_matrix_sync(fb, w + static_cast<long long>(tap * kdim + k) * ldw + n0, ldw);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        FragA fa;
-        wmma::load_matrix_sync(fa, a + (m0 + mt * 16 + off) * lda + k, lda);
-        wmma::mma_sync(acc[mt], fa, fb, acc[mt]);
+// Taps a weight stage carries: as many of a chunk's or pass's 9 as fit.
+// The feed is latency-bound (a block's 180-432 KB of weights from L2), so
+// the ring is four small stages, three copies in flight, rather than two
+// large ones.
+template <int N>
+__host__ __device__ constexpr int taps_per_stage() {
+  return kStageBytes / (N * 128) < 9 ? kStageBytes / (N * 128) : 9;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float gelu_erf(float v) {
+  return 0.5f * v * (1.f + erff(v * 0.7071067811865476f));
+}
+
+__device__ __forceinline__ void block_origin(const Params& p, int blk, int& img, int& oy0,
+                                             int& ox0) {
+  const int per = p.tiles_y * p.tiles_x;
+  img = blk / per;
+  const int rem = blk - img * per;
+  oy0 = rem / p.tiles_x * OB;
+  ox0 = rem % p.tiles_x * OB;
+}
+
+__device__ __forceinline__ void ln_barrier() {
+  asm volatile("bar.sync 3, 128;\n" ::: "memory");  // the LN warpgroup
+}
+
+__device__ __forceinline__ void consumers_barrier() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");  // both consumer warpgroups
+}
+
+// The weight runs of one block, in the consumers' order: conv1's chunks
+// (each 9 taps in runs of T1), then conv2's passes (9 taps in runs of T2).
+template <int N1, int N2>
+struct Runs {
+  static constexpr int T1 = taps_per_stage<N1>(), T2 = taps_per_stage<N2>();
+  static constexpr int R1 = (9 + T1 - 1) / T1, R2 = (9 + T2 - 1) / T2;  // runs a chunk / pass
+};
+
+template <int N1, int N2>
+__global__ void __launch_bounds__(kThreads, 1) cab_wgmma_kernel(const Params p) {
+  using R = Runs<N1, N2>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  // kSlots buffers of 18 x 18 pixel rows, a ring of items: a block's LN
+  // chunks, then its y1 (written by the consumers)
+  const uint32_t halo0 = (raw + 1023u) & ~1023u;
+  const uint32_t ring = halo0 + kSlots * HBUF;
+  const int S = p.stages;
+  const uint32_t bars = ring + S * kStageBytes;  // halo full[2], empty[2], w full[S], empty[S]
+  float2* stats =
+      reinterpret_cast<float2*>(smem_raw + (bars + (2 * kSlots + 2 * kMaxStages) * 8 - raw));
+  float* sg = reinterpret_cast<float*>(stats + HPX);
+  float* sb = sg + MAX_C;
+  float* sc1 = sb + MAX_C;
+  float* sc2 = sc1 + 64;
+  // after sc2: each consumer warp's output staging, 8 pixels x (N2 + 8) bf16
+  const int cwarp = (threadIdx.x >> 5) - 4;  // consumer warp 0..7 (producer warps: < 0)
+  bf16* wstage = reinterpret_cast<bf16*>(sc2 + MAX_SC2) + max(cwarp, 0) * 8 * (N2 + 8);
+  auto halo_full = [&](int i) { return bars + 8u * i; };
+  auto halo_empty = [&](int i) { return bars + 8u * (kSlots + i); };
+  auto w_full = [&](int s) { return bars + 8u * (2 * kSlots + s); };
+  auto w_empty = [&](int s) { return bars + 8u * (2 * kSlots + kMaxStages + s); };
+  // item hc of the halo ring: slot hc % kSlots, phase (hc / kSlots) & 1
+  auto slot = [](int hc) { return hc % kSlots; };
+  auto phase = [](int hc) { return (hc / kSlots) & 1; };
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  for (int i = tid; i < p.c; i += kThreads) {
+    sg[i] = p.g[i];
+    sb[i] = p.b[i];
+  }
+  for (int i = tid; i < N1; i += kThreads) sc1[i] = p.c1[i];
+  for (int i = tid; i < p.passes * N2; i += kThreads) sc2[i] = p.c2[i];
+  if (tid == 0) {
+    for (int i = 0; i < kSlots; ++i) {
+      hopper::mbar_init(halo_full(i), kLnThreads);
+      hopper::mbar_init(halo_empty(i), 8);  // lane 0 of each consumer warp
+    }
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(w_full(s), 1);      // the feeder's expect_tx; the bytes complete it
+      hopper::mbar_init(w_empty(s), 8);
+    }
+    hopper::mbar_init_fence();
+  }
+  hopper::fence_proxy_async();
+  __syncthreads();
+
+  const int blocks = p.batch * p.tiles_y * p.tiles_x;
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);  // warp-uniform role
+  if (wg == 3) {
+    // --------------------------------------------------- weight feeder
+    if (lane != 0) return;
+    int g = 0;
+    for (int blk = blockIdx.x; blk < blocks; blk += gridDim.x) {
+      for (int part = 0; part < 2; ++part) {
+        const int reps = part == 0 ? p.chunks : p.passes;
+        const int T = part == 0 ? R::T1 : R::T2, nr = part == 0 ? R::R1 : R::R2;
+        const int tile = (part == 0 ? N1 : N2) * 128;
+        const bf16* src = part == 0 ? p.w1 : p.w2;
+        for (int rep = 0; rep < reps; ++rep)
+          for (int r = 0; r < nr; ++r, ++g) {
+            const int st = g % S, tap0 = r * T, ntaps = min(T, 9 - tap0);
+            hopper::mbar_wait(w_empty(st), ((g / S) & 1) ^ 1);
+            hopper::mbar_arrive_expect_tx(w_full(st), ntaps * tile);
+            hopper::bulk_copy(ring + st * kStageBytes,
+                              src + (static_cast<long long>(rep) * 9 + tap0) * (tile / 2),
+                              ntaps * tile, w_full(st));
+          }
       }
     }
+    return;
+  }
+  if (wg == 0) {
+    // ------------------------------------------------------ LN producer
+    const int t = tid;  // 0..127
+    int hc = 0;
+    for (int blk = blockIdx.x; blk < blocks; blk += gridDim.x) {
+      int img, oy0, ox0;
+      block_origin(p, blk, img, oy0, ox0);
+      const bf16* xi = p.x + static_cast<long long>(img) * p.h * p.w * p.c;
+      ln_barrier();  // the last block's chunks have read the statistics
+      // each halo pixel's mean and rstd (ln_stats_kernel's, read from
+      // device memory; rstd -1 outside the image)
+      for (int px = t; px < HPX; px += kLnThreads) {
+        const int yy = oy0 - 2 + px / HS, xx = ox0 - 2 + px % HS;
+        stats[px] = yy >= 0 && yy < p.h && xx >= 0 && xx < p.w
+                        ? __ldg(p.stats + (static_cast<long long>(img) * p.h + yy) * p.w + xx)
+                        : make_float2(0.f, -1.f);
+      }
+      ln_barrier();
+      if (p.vec_in == 4) {
+        // each chunk's raw x by cp.async (8 bytes, zero-filled outside the
+        // image and past C; no registers held, so every piece is in flight
+        // at once), the next chunk's copies issued before this chunk's LN
+        // in place.  A thread's pieces keep 4 fixed channels (128 threads,
+        // 16 pieces a pixel), so its g and b sit in registers.
+        const int k = 4 * (t & 15), px0 = t >> 4, base = hc;  // chunk ch is item base + ch
+        constexpr int kStep = kLnThreads / 16;                // pixels a pass of the threads
+        constexpr int kPx = (HPX + kStep - 1) / kStep;       // a thread's pixels: px0 + 8 i
+        static_assert(kPx <= 64, "a bit a pixel");
+        // which of the thread's pixels lie inside the image (bit i: px0 + 8 i)
+        uint64_t inside = 0;
+#pragma unroll
+        for (int i = 0; i < kPx; ++i)
+          if (px0 + kStep * i < HPX && stats[px0 + kStep * i].y >= 0.f) inside |= 1ull << i;
+        auto issue = [&](int ch) {
+          const uint32_t hbuf = halo0 + slot(base + ch) * HBUF;
+          hopper::mbar_wait(halo_empty(slot(base + ch)), phase(base + ch) ^ 1);
+          const int ci = ch * 64 + k;
+#pragma unroll 8
+          for (int i = 0; i < kPx; ++i) {
+            const int px = px0 + kStep * i;
+            if (px >= HPX) break;
+            const int yy = oy0 - 2 + px / HS, xx = ox0 - 2 + px % HS;
+            const bool ok = ((inside >> i) & 1) && ci < p.c;
+            const bf16* src = ok ? xi + (static_cast<long long>(yy) * p.w + xx) * p.c + ci : p.x;
+            hopper::cp_async<8>(hbuf + hopper::sw128_offset(px, 2 * k), src, ok ? 8 : 0);
+          }
+          hopper::cp_async_commit();
+        };
+        issue(0);
+        for (int ch = 0; ch < p.chunks; ++ch) {
+          if (ch + 1 < p.chunks) {
+            issue(ch + 1);
+            hopper::cp_async_wait_group<1>();
+          } else {
+            hopper::cp_async_wait_group<0>();
+          }
+          ln_barrier();  // every thread's pieces of this chunk have landed
+          uint8_t* hbuf = smem_raw + (halo0 + slot(base + ch) * HBUF - raw);
+          const int ci = ch * 64 + k;
+          const bool in_c = ci < p.c;
+          const float4 gg = in_c ? *reinterpret_cast<const float4*>(sg + ci) : float4{};
+          const float4 bb = in_c ? *reinterpret_cast<const float4*>(sb + ci) : float4{};
+          // plain shared loads and stores, eight pixels a step: the compiler
+          // overlaps their latencies
+#pragma unroll 8
+          for (int i = 0; i < kPx; ++i) {
+            const int px = px0 + kStep * i;
+            if (px >= HPX) break;
+            uint2* at = reinterpret_cast<uint2*>(hbuf + hopper::sw128_offset(px, 2 * k));
+            const uint2 r = *at;
+            const float2 st = stats[px];
+            uint2 out = make_uint2(0u, 0u);
+            if (((inside >> i) & 1) && in_c) {
+              const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
+              const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
+              out.x = pack_bf16((a.x - st.x) * st.y * gg.x + bb.x,
+                                (a.y - st.x) * st.y * gg.y + bb.y);
+              out.y = pack_bf16((b.x - st.x) * st.y * gg.z + bb.z,
+                                (b.y - st.x) * st.y * gg.w + bb.w);
+            }
+            *at = out;
+          }
+          hopper::mbar_arrive(halo_full(slot(base + ch)));  // (shared stores: by the arrive)
+        }
+        hc = base + p.chunks;
+      } else {
+        for (int ch = 0; ch < p.chunks; ++ch, ++hc) {
+          const int hb = slot(hc), c0 = ch * 64;
+          hopper::mbar_wait(halo_empty(hb), phase(hc) ^ 1);
+          const uint32_t hbuf = halo0 + hb * HBUF;
+          // channel pairs (c0 + 2k, +1) of every halo pixel: 32 a pixel
+          for (int e = t; e < HPX * 32; e += kLnThreads) {
+            const int px = e >> 5, k = 2 * (e & 31), ci = c0 + k;
+            const float2 st = stats[px];
+            float v0 = 0.f, v1 = 0.f;
+            if (st.y >= 0.f && ci < p.c) {
+              const int yy = oy0 - 2 + px / HS, xx = ox0 - 2 + px % HS;
+              const bf16* xr = xi + (static_cast<long long>(yy) * p.w + xx) * p.c + ci;
+              v0 = (__bfloat162float(xr[0]) - st.x) * st.y * sg[ci] + sb[ci];
+              if (ci + 1 < p.c)
+                v1 = (__bfloat162float(xr[1]) - st.x) * st.y * sg[ci + 1] + sb[ci + 1];
+            }
+            asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(hbuf + hopper::sw128_offset(px, 2 * k)),
+                         "r"(pack_bf16(v0, v1))
+                         : "memory");
+          }
+          hopper::mbar_arrive(halo_full(hb));  // (shared stores: ordered by the arrive)
+        }
+      }
+      // the block's y1 item: its buffer, once free, goes to the consumers
+      // unwritten (they write y1 into it and release it after conv2)
+      hopper::mbar_wait(halo_empty(slot(hc)), phase(hc) ^ 1);
+      hopper::mbar_arrive(halo_full(slot(hc)));
+      ++hc;
+    }
+    return;
+  }
+  // ------------------------------------------------------------ consumers
+  const int cw = wg - 1, ct = tid - 128 * wg, q = lane & 3;
+  const int i0 = (ct >> 5) * 16 + (lane >> 2);  // the thread's tile rows i0, i0 + 8
+  const uint32_t group = HS * 128;              // one halo row between core matrices
+  const int ksub2 = (p.cmid + 15) >> 4;
+  int g = 0, hc = 0;
+  for (int blk = blockIdx.x; blk < blocks; blk += gridDim.x) {
+    int img, oy0, ox0;
+    block_origin(p, blk, img, oy0, ox0);
+    // ---- conv1 on region rows 8 cw .. 8 cw + 7, columns 0-7 and 8-15
+    float a1[2][N1 / 2];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int e = 0; e < N1 / 2; ++e) a1[m][e] = 0.f;
+    for (int ch = 0; ch < p.chunks; ++ch, ++hc) {
+      const int hb = slot(hc);
+      const int ksub = (min(64, p.c - ch * 64) + 15) >> 4;
+      hopper::mbar_wait(halo_full(hb), phase(hc));
+      hopper::fence_proxy_async();  // the LN writes, before wgmma reads them
+      const uint32_t hbuf = halo0 + hb * HBUF;
+      for (int r = 0; r < R::R1; ++r, ++g) {
+        const int st = g % S, tap0 = r * R::T1, ntaps = min(R::T1, 9 - tap0);
+        hopper::mbar_wait(w_full(st), (g / S) & 1);
+        hopper::wgmma_fence();
+        for (int i = 0; i < ntaps; ++i) {
+          const int dy = (tap0 + i) / 3, dx = (tap0 + i) % 3;
+          const uint64_t db = hopper::desc_sw128(ring + st * kStageBytes + i * N1 * 128);
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            const uint64_t da =
+                hopper::desc_sw128(hbuf + ((8 * cw + dy) * HS + 8 * m + dx) * 128, group);
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              if (k < ksub) hopper::Wgmma<N1>::mma(a1[m], da + 2 * k, db + 2 * k, 1);
+          }
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();  // one group in flight: the previous run's is done
+        if (r > 0 && lane == 0) hopper::mbar_arrive(w_empty((g - 1) % S));
+      }
+      hopper::wgmma_wait<0>();
+      if (lane == 0) {
+        hopper::mbar_arrive(w_empty((g - 1) % S));
+        hopper::mbar_arrive(halo_empty(hb));
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < 2; ++m) hopper::fence_operands(a1[m]);
+    // ---- y1 = gelu(conv1 + c1), zero outside the image, into the block's
+    // y1 item (a halo buffer the producer hands over unwritten; its rows
+    // and columns past the 16 x 16 pixels feed only outputs past the block)
+    const int yb = slot(hc);
+    hopper::mbar_wait(halo_full(yb), phase(hc));
+    const uint32_t y1buf = halo0 + yb * HBUF;
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int i = i0 + 8 * h2;
+        const int ry = 8 * cw + i / 8, rx = 8 * m + i % 8;  // region pixel
+        const int yy = oy0 - 1 + ry, xx = ox0 - 1 + rx;
+        const bool in = yy >= 0 && yy < p.h && xx >= 0 && xx < p.w;
+        const int px = (ry + 1) * HS + rx + 1;  // y1 buffer pixel (origin at the block - 2)
+#pragma unroll
+        for (int j = 0; j < N1 / 8; ++j) {
+          const int n = 8 * j + 2 * q;
+          const float v0 = in ? gelu_erf(a1[m][4 * j + 2 * h2] + sc1[n]) : 0.f;
+          const float v1 = in ? gelu_erf(a1[m][4 * j + 2 * h2 + 1] + sc1[n + 1]) : 0.f;
+          asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(y1buf + hopper::sw128_offset(px, 2 * n)),
+                       "r"(pack_bf16(v0, v1))
+                       : "memory");
+        }
+      }
+    hopper::fence_proxy_async();  // the y1 writes, before wgmma reads them
+    consumers_barrier();
+    // ---- conv2 on output rows 8 cw .. 8 cw + 7 (valid < 14), in passes of N2
+    for (int pass = 0; pass < p.passes; ++pass) {
+      float a2[2][N2 / 2];
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int e = 0; e < N2 / 2; ++e) a2[m][e] = 0.f;
+      for (int r = 0; r < R::R2; ++r, ++g) {
+        const int st = g % S, tap0 = r * R::T2, ntaps = min(R::T2, 9 - tap0);
+        hopper::mbar_wait(w_full(st), (g / S) & 1);
+        hopper::wgmma_fence();
+        for (int i = 0; i < ntaps; ++i) {
+          const int dy = (tap0 + i) / 3, dx = (tap0 + i) % 3;
+          const uint64_t db = hopper::desc_sw128(ring + st * kStageBytes + i * N2 * 128);
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            // output pixel (oy, ox) reads y1 at (oy + dy - 1, ox + dx - 1):
+            // buffer pixel (oy + dy + 1, ox + dx + 1)
+            const uint64_t da = hopper::desc_sw128(
+                y1buf + ((8 * cw + dy + 1) * HS + 8 * m + dx + 1) * 128, group);
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              if (k < ksub2) hopper::Wgmma<N2>::mma(a2[m], da + 2 * k, db + 2 * k, 1);
+          }
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();
+        if (r > 0 && lane == 0) hopper::mbar_arrive(w_empty((g - 1) % S));
+      }
+      hopper::wgmma_wait<0>();
+      if (lane == 0) hopper::mbar_arrive(w_empty((g - 1) % S));
+#pragma unroll
+      for (int m = 0; m < 2; ++m) hopper::fence_operands(a2[m]);
+      // ---- y = conv2 + c2 at the block's valid pixels: each warp stages
+      // 8 pixels' N2 channels at a time, then stores each pixel's run of
+      // them whole (16-, 8-, 4- or 2-byte pieces): coalesced, where pairs
+      // straight from the accumulators would touch 8 pixels' rows an
+      // instruction
+      const int n0 = pass * N2, nc = min(N2, p.c - n0);
+      const int vb = p.vec_out, ppr = nc * 2 / vb;  // bytes a piece, pieces a pixel
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+#pragma unroll
+          for (int j = 0; j < N2 / 8; ++j) {
+            const int n = 8 * j + 2 * q;
+            *reinterpret_cast<uint32_t*>(wstage + (lane >> 2) * (N2 + 8) + n) =
+                pack_bf16(a2[m][4 * j + 2 * h2] + sc2[n0 + n],
+                          a2[m][4 * j + 2 * h2 + 1] + sc2[n0 + n + 1]);
+          }
+          __syncwarp();
+          const int by = 8 * cw + 2 * (ct >> 5) + h2, yy = oy0 + by;
+          for (int e = lane; e < 8 * ppr; e += 32) {
+            const int r = e / ppr, v = e - r * ppr;
+            const int bx = 8 * m + r, xx = ox0 + bx;
+            if (by >= OB || bx >= OB || yy >= p.h || xx >= p.w) continue;
+            char* dst = reinterpret_cast<char*>(
+                p.y + ((static_cast<long long>(img) * p.h + yy) * p.w + xx) * p.c + n0) + v * vb;
+            const char* src = reinterpret_cast<const char*>(wstage + r * (N2 + 8)) + v * vb;
+            if (vb == 16)
+              *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+            else if (vb == 8)
+              *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+            else if (vb == 4)
+              *reinterpret_cast<uint32_t*>(dst) = *reinterpret_cast<const uint32_t*>(src);
+            else
+              *reinterpret_cast<unsigned short*>(dst) =
+                  *reinterpret_cast<const unsigned short*>(src);
+          }
+          __syncwarp();
+        }
+    }
+    // conv2's last wgmma has read y1 (wait<0> above): release its item
+    if (lane == 0) hopper::mbar_arrive(halo_empty(yb));
+    ++hc;
   }
 }
 
-__global__ void __launch_bounds__(NTHREADS) ln_cab_convs_kernel(const CabArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ldl = a.ck + 16, ldy = a.cmp + 16;  // multiples of 16: every row 32-byte aligned
-  bf16* ln = reinterpret_cast<bf16*>(smem);
-  bf16* y1 = ln + LN_ROWS * ldl;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float* stg = reinterpret_cast<float*>(y1 + M1 * ldy) + warp * 256;
+// LN's statistics of every pixel, fp32 fast variance: a block copies 128
+// pixels' rows (one contiguous run of x) into shared memory by 16-byte
+// loads, then a thread sums its pixel's row there.
+constexpr int kStatsPx = 128;
 
-  const int tiles_w = (a.w + TW - 1) / TW, tiles_h = (a.h + TH - 1) / TH;
-  const int ox0 = (blockIdx.x % tiles_w) * TW;
-  const int oy0 = ((blockIdx.x / tiles_w) % tiles_h) * TH;
-  const long long img = blockIdx.x / (tiles_w * tiles_h);
-  const int c = a.c;
-
-  // ---- LN of the 12 x 12 input tile (zero outside the image) ----
+__global__ void __launch_bounds__(kStatsPx) ln_stats_kernel(const bf16* __restrict__ x,
+                                                            float2* __restrict__ stats,
+                                                            long long pixels, int c, float eps) {
+  extern __shared__ uint4 srow[];  // kStatsPx * c bf16
+  const long long p0 = static_cast<long long>(blockIdx.x) * kStatsPx;
+  const int np = static_cast<int>(min(static_cast<long long>(kStatsPx), pixels - p0));
+  const int n = np * c, n16 = n / 8;  // elements, whole 16-byte pieces
+  const bf16* src = x + p0 * c;  // 16-byte aligned: kStatsPx * c * 2 bytes a block
+  for (int i = threadIdx.x; i < n16; i += kStatsPx)
+    srow[i] = __ldg(reinterpret_cast<const uint4*>(src) + i);
+  bf16* sb = reinterpret_cast<bf16*>(srow);
+  for (int i = 8 * n16 + threadIdx.x; i < n; i += kStatsPx) sb[i] = src[i];
+  __syncthreads();
+  const int t = threadIdx.x;
+  if (t >= np) return;
+  float s = 0.f, sq = 0.f;
+  const bf16* row = sb + t * c;
+  if (c % 2 == 0) {
+    for (int i = 0; i < c; i += 2) {
+      const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + i));
+      s += v.x + v.y;
+      sq += v.x * v.x + v.y * v.y;
+    }
+  } else {
+    for (int i = 0; i < c; ++i) {
+      const float v = __bfloat162float(row[i]);
+      s += v;
+      sq += v * v;
+    }
+  }
   const float inv_c = 1.f / static_cast<float>(c);
-  for (int t = warp; t < LN_ROWS; t += NWARPS) {
-    bf16* row = ln + t * ldl;
-    const int py = oy0 - 2 + t / FW, px = ox0 - 2 + t % FW;
-    if (t >= (TH + 4) * FW || py < 0 || py >= a.h || px < 0 || px >= a.w) {
-      for (int i = lane; i < a.ck; i += 32) row[i] = __float2bfloat16(0.f);
-      continue;
-    }
-    const bf16* xr = a.x + ((img * a.h + py) * a.w + px) * c;
-    float v[MAX_C / 32];
-    float s = 0.f, sq = 0.f;
-#pragma unroll
-    for (int j = 0; j < MAX_C / 32; ++j) {
-      const int i = lane + 32 * j;
-      v[j] = i < c ? __bfloat162float(xr[i]) : 0.f;
-      s += v[j];
-      sq += v[j] * v[j];
-    }
-    s = warp_sum(s);
-    sq = warp_sum(sq);
-    const float mu = s * inv_c;
-    const float rstd = rsqrtf(fmaxf(sq * inv_c - mu * mu, 0.f) + a.eps);
-#pragma unroll
-    for (int j = 0; j < MAX_C / 32; ++j) {
-      const int i = lane + 32 * j;
-      if (i < c) row[i] = __float2bfloat16((v[j] - mu) * rstd * a.g[i] + a.b[i]);
-      else if (i < a.ck) row[i] = __float2bfloat16(0.f);
-    }
-  }
-  __syncthreads();
+  const float mu = s * inv_c;
+  stats[p0 + t] = make_float2(mu, rsqrtf(fmaxf(sq * inv_c - mu * mu, 0.f) + eps));
+}
 
-  // ---- y1 = gelu(conv1(LN) + c1) on the 10 x 10 tile, zero outside the image ----
-  {
-    constexpr int MT = 4;
-    const int units = (a.cmp / 16) * (M1 / 16 / MT);
-    for (int u = warp; u < units; u += NWARPS) {
-      const int n0 = (u % (a.cmp / 16)) * 16, m0 = (u / (a.cmp / 16)) * MT * 16;
-      Acc acc[MT];
-      conv_tiles<MT>(acc, ln, ldl, m0, a.k1, a.cmp, n0, a.ck);
-      tiles_epilogue<MT>(acc, stg, lane, n0, [&](int r, int n, float (&v)[8]) {
-        const int row = m0 + r;
-        const int ry = row / FW, rx = row % FW;
-        const int py = oy0 - 1 + ry, px = ox0 - 1 + rx;
-        const bool inside = ry < TH + 2 && rx < TW + 2 && py >= 0 && py < a.h && px >= 0 &&
-                            px < a.w;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) v[i] = inside ? gelu(v[i] + a.c1[n + i], 0) : 0.f;
-        store8_bf16(y1 + row * ldy + n, v);
-      });
-    }
+template <int N1, int N2>
+int launch(Params p, cudaStream_t stream) {
+  // alignment slack, the halo ring, the barriers, the statistics, g, b,
+  // c1, c2, the consumer warps' output staging; then the weight stages
+  constexpr int fixed = 1024 + kSlots * HBUF + (2 * kSlots + 2 * kMaxStages) * 8 + HPX * 8 +
+                        (2 * MAX_C + 64 + MAX_SC2) * 4 + 8 * 8 * (N2 + 8) * 2;
+  p.stages = (kSmemMax - fixed) / kStageBytes;
+  if (p.stages > kMaxStages) p.stages = kMaxStages;
+  if (p.stages < 2 || p.passes * N2 > MAX_SC2) return static_cast<int>(cudaErrorInvalidValue);
+  const int bytes = fixed + p.stages * kStageBytes;
+  static int sms = 0;
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!done[dev]) {
+    e = cudaFuncSetAttribute(cab_wgmma_kernel<N1, N2>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    done[dev] = true;
   }
-  __syncthreads();
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int blocks = p.batch * p.tiles_y * p.tiles_x;
+  cab_wgmma_kernel<N1, N2><<<blocks < sms ? blocks : sms, kThreads, bytes, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
 
-  // ---- y = conv2(y1) + c2 on the 8 x 8 outputs ----
-  {
-    constexpr int MT = 3;
-    const int units = (a.co / 16) * (M2 / 16 / MT);
-    for (int u = warp; u < units; u += NWARPS) {
-      const int n0 = (u % (a.co / 16)) * 16, m0 = (u / (a.co / 16)) * MT * 16;
-      Acc acc[MT];
-      conv_tiles<MT>(acc, y1, ldy, m0, a.k2, a.co, n0, a.cmp);
-      tiles_epilogue<MT>(acc, stg, lane, n0, [&](int r, int n, float (&v)[8]) {
-        const int row = m0 + r;
-        const int py = oy0 + row / FW, px = ox0 + row % FW;
-        if (row % FW >= TW || py >= a.h || px >= a.w) return;
-        bf16* yr = a.y + ((img * a.h + py) * a.w + px) * c;
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          if (n + i < c) yr[n + i] = __float2bfloat16(v[i] + a.c2[n + i]);
-      });
-    }
+template <int N1>
+int launch_n2(const Params& p, int n2, cudaStream_t s) {
+  switch (n2) {
+    case 48: return launch<N1, 48>(p, s);
+    case 64: return launch<N1, 64>(p, s);
+    case 96: return launch<N1, 96>(p, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-extern "C" int sr_ln_cab_convs_bf16(const void* x, const void* g, const void* b, const void* k1,
-                                    const void* c1, const void* k2, const void* c2, void* y,
-                                    int batch, int h, int w, int c, int cmid, float eps,
-                                    void* stream) {
-  if (c < 1 || c > MAX_C || cmid < 1 || cmid > MAX_MID)
+// Two launches: LN's statistics of every pixel into `stats` [batch * h *
+// w] float2 (a workspace), then the fused kernel.  x [batch, h, w, c]
+// bf16 NHWC; g, b [c] fp32; w1 the packed conv1
+// [ceil(c / 64), 9, n1, 64] and c1 [n1]; w2 the packed conv2 [passes, 9,
+// n2, 64] and c2 [passes * n2] (kernels/cab_conv.py ``pack_cab``); n1 16,
+// 32 or 64 (cmid <= n1), n2 48, 64 or 96 (passes * n2 >= c); y like x.
+extern "C" int sr_ln_cab_convs_bf16(const void* x, const void* g, const void* b, const void* w1,
+                                    const void* c1, const void* w2, const void* c2, void* y,
+                                    void* stats, int batch, int h, int w, int c, int cmid,
+                                    int n1, int n2, int passes, float eps, void* stream) {
+  if (c < 1 || c > MAX_C || cmid < 1 || cmid > n1 || passes < 1 ||
+      static_cast<long long>(passes) * n2 < c || !aligned_to(w1, 16) || !aligned_to(w2, 16) ||
+      !aligned_to(x, 16))
     return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<long long>(batch) * h * w == 0) return 0;
-  CabArgs a;
-  a.x = static_cast<const bf16*>(x);
-  a.g = static_cast<const float*>(g);
-  a.b = static_cast<const float*>(b);
-  a.k1 = static_cast<const bf16*>(k1);
-  a.c1 = static_cast<const float*>(c1);
-  a.k2 = static_cast<const bf16*>(k2);
-  a.c2 = static_cast<const float*>(c2);
-  a.y = static_cast<bf16*>(y);
-  a.batch = batch;
-  a.h = h;
-  a.w = w;
-  a.c = c;
-  a.ck = (c + 15) / 16 * 16;
-  a.cmp = (cmid + 15) / 16 * 16;
-  a.co = a.ck;
-  a.eps = eps;
-  const int smem = LN_ROWS * (a.ck + 16) * 2 + M1 * (a.cmp + 16) * 2 + NWARPS * 256 * 4;
-  const cudaError_t err = cudaFuncSetAttribute(
-      ln_cab_convs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks =
-      static_cast<long long>(batch) * ((h + TH - 1) / TH) * ((w + TW - 1) / TW);
-  ln_cab_convs_kernel<<<static_cast<unsigned int>(blocks), NTHREADS, smem,
-                        static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  Params p;
+  p.x = static_cast<const bf16*>(x);
+  p.g = static_cast<const float*>(g);
+  p.b = static_cast<const float*>(b);
+  p.w1 = static_cast<const bf16*>(w1);
+  p.c1 = static_cast<const float*>(c1);
+  p.w2 = static_cast<const bf16*>(w2);
+  p.c2 = static_cast<const float*>(c2);
+  p.y = static_cast<bf16*>(y);
+  p.batch = batch;
+  p.h = h;
+  p.w = w;
+  p.c = c;
+  p.cmid = cmid;
+  p.chunks = (c + 63) / 64;
+  p.passes = passes;
+  p.tiles_y = (h + OB - 1) / OB;
+  p.tiles_x = (w + OB - 1) / OB;
+  p.vec_in = c % 4 == 0 && aligned_to(x, 8) ? 4 : 1;
+  p.vec_out = c % 8 == 0 && aligned_to(y, 16) ? 16 : c % 4 == 0 && aligned_to(y, 8) ? 8
+              : c % 2 == 0 && aligned_to(y, 4) ? 4 : 2;
+  p.stats = static_cast<const float2*>(stats);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long pixels = static_cast<long long>(batch) * h * w;
+  static bool stats_attr[64] = {};  // the dynamic shared memory limit, set once a device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!stats_attr[dev]) {
+    e = cudaFuncSetAttribute(ln_stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kStatsPx * MAX_C * 2);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    stats_attr[dev] = true;
+  }
+  ln_stats_kernel<<<static_cast<unsigned int>((pixels + kStatsPx - 1) / kStatsPx), kStatsPx,
+                    kStatsPx * c * 2, s>>>(p.x, static_cast<float2*>(stats), pixels, c, eps);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  switch (n1) {
+    case 16: return launch_n2<16>(p, n2, s);
+    case 32: return launch_n2<32>(p, n2, s);
+    case 64: return launch_n2<64>(p, n2, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

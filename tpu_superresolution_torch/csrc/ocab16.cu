@@ -22,7 +22,7 @@
 //       shared memory; 576 keys of 64-row score tiles do not fit beside
 //       the rest, so the keys stream in 64-row tiles:
 //       forward: one 256-thread CTA per (window, 64-query tile), 512 at
-//          the train step; K7's attention core (window_attn_core.cuh,
+//          the train step; the tiled attention core (window_attn_core.cuh,
 //          online softmax, P rounded to bf16 as K8 does) per head, then
 //          K8's proj -> residual -> LN2 -> MLP -> residual on the 64 rows.
 //       backward: one 256-thread CTA per window.  Phase A, per query

@@ -1,7 +1,7 @@
 // WMMA helpers shared by the Swin block kernels (K1/K6 csrc/swin_block.cu,
-// K5/K6b csrc/swin_block_bwd.cu, K1's tail csrc/swin_tail.cu), K7
-// (csrc/window_attn.cu) and the OCAB kernels (K8/K8b
-// csrc/ocab.cu): 16x16x16 bf16 fragments with fp32
+// K5/K6b csrc/swin_block_bwd.cu, K1's tail csrc/swin_tail.cu), the
+// tiled attention core (csrc/window_attn_core.cuh) and the OCAB kernels
+// (K8/K8b csrc/ocab.cu): 16x16x16 bf16 fragments with fp32
 // accumulation, 64-row strip GEMMs against weights read straight from
 // global memory, and the staged epilogue that hands each lane eight
 // consecutive accumulator columns.
@@ -43,17 +43,19 @@ __device__ __forceinline__ void gemm_strip(Acc (&acc)[4], const bf16* a, int lda
   }
 }
 
-// gemm_strip with a run-time depth k_dim and W's leading dimension ldw.
-__device__ __forceinline__ void gemm_strip_rt(Acc (&acc)[4], const bf16* a, int lda,
+// gemm_strip with a run-time depth k_dim and W's leading dimension ldw,
+// over acc's MT 16-row tiles.
+template <int MT>
+__device__ __forceinline__ void gemm_strip_rt(Acc (&acc)[MT], const bf16* a, int lda,
                                               const bf16* w, int ldw, int n0, int k_dim) {
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt) wmma::fill_fragment(acc[mt], 0.f);
+  for (int mt = 0; mt < MT; ++mt) wmma::fill_fragment(acc[mt], 0.f);
   const bf16* wrow = w + static_cast<long long>(n0) * ldw;
   for (int k = 0; k < k_dim; k += 16) {
     FragBt fb;
     wmma::load_matrix_sync(fb, wrow + k, ldw);
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
+    for (int mt = 0; mt < MT; ++mt) {
       FragA fa;
       wmma::load_matrix_sync(fa, a + mt * 16 * lda + k, lda);
       wmma::mma_sync(acc[mt], fa, fb, acc[mt]);
@@ -79,12 +81,12 @@ __device__ __forceinline__ void store8_bf16(bf16* dst, const float (&v)[8]) {
 // Hand the accumulators to `fn(row, col, v[8])`, eight consecutive
 // columns of one row per lane, through the warp's 16x16 fp32 staging
 // tile (the WMMA fragment layout is opaque).
-template <typename Fn>
-__device__ __forceinline__ void strip_epilogue(Acc (&acc)[4], float* stg, int lane, int n0,
+template <int MT, typename Fn>
+__device__ __forceinline__ void strip_epilogue(Acc (&acc)[MT], float* stg, int lane, int n0,
                                                Fn fn) {
   const int rr = lane >> 1, cc = (lane & 1) * 8;
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
+  for (int mt = 0; mt < MT; ++mt) {
     wmma::store_matrix_sync(stg, acc[mt], 16, wmma::mem_row_major);
     __syncwarp();
     float v[8];

@@ -10,7 +10,7 @@
 //           (csrc/swin_block.cu, ws 7 / 8, C <= 192) does not take.  With
 //           K2 (LN1) and K7 (qkv, attention, proj) before it, it computes
 //           K1's function at ws 16 (upstream HAT-SRx4) and any other window.
-// Math (per pixel p of x [B, H, W, C], C <= 512, any MLP hidden):
+// Math (per pixel p of x [B, H, W, C], C up to 2272, any MLP hidden):
 //         x1  = x + m1 * attn[win(p), tok(p)] + extra
 //         out = x1 + m2 * fc2(gelu(fc1(LN2(x1))))
 //       where attn [B*nW, N = ws*ws, C] is K7's output on the windows of
@@ -22,21 +22,21 @@
 //       given; GELU tanh or erf; bf16 GEMM operands with fp32
 //       accumulation; the residual stream fp32 between the loads and the
 //       single rounding at the store — K1's arithmetic.
-// Design: one 256-thread block per 64 pixels (rows of the flat map, so
-//       x, extra and out are read and written row-contiguously, two
-//       channels a lane, and only the attention rows are gathered).  x1
-//       stays fp32 in shared memory [64][CK]; LN2's output bf16
-//       [64][CK+8]; the MLP hidden is processed in chunks of 128 columns
-//       (bf16 [64][136], one 16-column strip a warp): fc1 + GELU of a
+// Design: one 256-thread block per T pixels (T = 64, or 32 or 16 where
+//       64 rows of C do not fit: C past 528, past 1104; rows of the flat
+//       map, so x, extra and out are read and written row-contiguously,
+//       two channels a lane, and only the attention rows are gathered).
+//       x1 stays fp32 in shared memory [T][CK]; LN2's output bf16
+//       [T][CK+8]; the MLP hidden is processed in chunks of 128 columns
+//       (bf16 [T][136], one 16-column strip a warp): fc1 + GELU of a
 //       chunk, then its fc2 partial product added into x1 (times m2,
 //       fc2's bias with the first chunk), so any hidden width fits.
 //       Weights ([out, in], zero-padded to multiples of 16 by the host
 //       packing) are read from L2 by the WMMA fragments.  Shared memory
 //       is sized by C: ~98 KB at C 180, so two blocks share an SM and
-//       hide each other's L2 latency (~124 KB at C 256, ~218 KB at the
-//       "wide" route's C 512: one).  With K2 (LN1), K7's product launch
-//       (qkv, proj) and K15 (the attention) before it, it completes the
-//       "wide" route's blocks (C 257-512, or heads of 33-64 dims).
+//       hide each other's L2 latency (~124 KB at C 256, ~218 KB at C
+//       512: one; past 528 channels fewer rows a block keep it within
+//       the 227 KB).
 // Bound on the H100: HAT-SRx4's bench batch ([25,64,64,180], hidden 360)
 //       needs 4*C*hidden = 259,200 FLOP a pixel, 26.5 GFLOP = 0.027 ms at
 //       the bf16 peak, against x, attn, extra in and out (147 MB, 0.044
@@ -50,27 +50,26 @@ using namespace nvcuda;
 
 namespace {
 
-constexpr int MAX_C = 512;
 constexpr int HC = 128;  // hidden columns per chunk
-constexpr int T = 64;    // pixels per block
 constexpr int NWARPS = 8;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int LDH = HC + 8;  // bf16 hidden chunk
 
+constexpr int SMEM_LIMIT = 232448;
+
 // Shared-memory layout for CK padded channels (a multiple of 16, so
-// every buffer starts 128-byte aligned): x1 fp32 [T][CK], LN2 output
-// bf16 [T][CK + 8], the hidden chunk bf16 [T][LDH], m2 per row, and a
-// 1 KB epilogue tile per warp.
+// every buffer starts 128-byte aligned) and T rows: x1 fp32 [T][CK], LN2
+// output bf16 [T][CK + 8], the hidden chunk bf16 [T][LDH], m2 per row,
+// and a 1 KB epilogue tile per warp.
 struct Layout {
   int off_y, off_h, off_m2, off_stg, bytes;
-  __host__ __device__ constexpr explicit Layout(int ck)
-      : off_y(T * ck * 4),
-        off_h(off_y + T * (ck + 8) * 2),
-        off_m2(off_h + T * LDH * 2),
-        off_stg(off_m2 + T * 4),
+  __host__ __device__ constexpr Layout(int ck, int t)
+      : off_y(t * ck * 4),
+        off_h(off_y + t * (ck + 8) * 2),
+        off_m2(off_h + t * LDH * 2),
+        off_stg(off_m2 + t * 4),
         bytes(off_stg + NWARPS * 256 * 4) {}
 };
-static_assert(Layout(MAX_C).bytes <= 232448, "over the 227 KB shared-memory limit");
 
 struct TailArgs {
   const bf16* x;      // [B, H, W, C]
@@ -90,9 +89,11 @@ struct TailArgs {
   float eps;
 };
 
+template <int T>
 __global__ void __launch_bounds__(NTHREADS, 2) swin_tail_kernel(const TailArgs a) {
+  constexpr int MT = T / 16;
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout lay(a.ck);
+  const Layout lay(a.ck, T);
   const int ldx = a.ck, ldy = a.ck + 8;
   float* xs = reinterpret_cast<float*>(smem);
   bf16* ys = reinterpret_cast<bf16*>(smem + lay.off_y);
@@ -159,7 +160,7 @@ __global__ void __launch_bounds__(NTHREADS, 2) swin_tail_kernel(const TailArgs a
   __syncthreads();
 
   // ---- MLP, one hidden chunk at a time ----
-  Acc acc[4];
+  Acc acc[MT];
   for (int h0 = 0; h0 < a.hk; h0 += HC) {
     const int hc = min(HC, a.hk - h0);
     // hidden[:, h0:h0+hc] = gelu(LN2(x1) Wfc1[h0:h0+hc]^T + bfc1)
@@ -213,23 +214,34 @@ __global__ void __launch_bounds__(NTHREADS, 2) swin_tail_kernel(const TailArgs a
   }
 }
 
+template <int T>
+int launch(const TailArgs& a, cudaStream_t stream) {
+  const int smem_bytes = Layout(a.ck, T).bytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      swin_tail_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  swin_tail_kernel<T><<<static_cast<unsigned int>((a.rows + T - 1) / T), NTHREADS, smem_bytes,
+                        stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// rows: 64, 32 or 16 pixels a block (kernels/fused_block.py::tail_rows,
+// the most whose shared memory fits C).
 extern "C" int sr_swin_tail_bf16(const void* x, const void* attn, const void* extra, void* y,
                                  const void* g2, const void* b2, const void* wfc1,
                                  const void* bfc1, const void* wfc2, const void* bfc2,
                                  const void* scales, int batch, int h, int w, int c, int hidden,
-                                 int ws, int shift, int gelu_tanh, float eps, void* stream) {
-  if (c < 1 || c > MAX_C || hidden < 1 || ws < 1 || h % ws || w % ws || shift < 0 ||
-      shift >= ws)
+                                 int ws, int shift, int gelu_tanh, float eps, int rows_a_block,
+                                 void* stream) {
+  const int ck = (c + 15) / 16 * 16;
+  if (c < 1 || hidden < 1 || ws < 1 || h % ws || w % ws || shift < 0 || shift >= ws ||
+      (rows_a_block != 64 && rows_a_block != 32 && rows_a_block != 16) ||
+      Layout(ck, rows_a_block).bytes > SMEM_LIMIT)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long rows = static_cast<long long>(batch) * h * w;
   if (rows == 0) return 0;
-  const int ck = (c + 15) / 16 * 16;
-  const int smem_bytes = Layout(ck).bytes;
-  const cudaError_t err = cudaFuncSetAttribute(
-      swin_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
   TailArgs a;
   a.x = static_cast<const bf16*>(x);
   a.attn = static_cast<const bf16*>(attn);
@@ -254,7 +266,8 @@ extern "C" int sr_swin_tail_bf16(const void* x, const void* attn, const void* ex
   a.pairs = c % 2 == 0 && aligned_to(x, 4) && aligned_to(attn, 4) && aligned_to(y, 4) &&
             (!extra || aligned_to(extra, 4));
   a.eps = eps;
-  swin_tail_kernel<<<static_cast<unsigned int>((rows + T - 1) / T), NTHREADS, smem_bytes,
-                     static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows_a_block == 64) return launch<64>(a, s);
+  if (rows_a_block == 32) return launch<32>(a, s);
+  return launch<16>(a, s);
 }

@@ -1,6 +1,6 @@
-// The window-attention core shared by K7 (csrc/window_attn.cu: qkv,
-// attention and proj of a Swin block) and K15 / K16 (csrc/batched_attn.cu:
-// attention alone on pre-split q, k, v): one head of one 64-query tile,
+// The tiled window-attention core (K7's first design) shared by K15 / K16
+// (csrc/batched_attn.cu: attention alone on pre-split q, k, v) and K8w16
+// (csrc/ocab16.cu, the ws-16 OCAB core): one head of one 64-query tile,
 //
 //     O = softmax(scale * Q K^T + rpb + mask) V          (fp32 scores)
 //
@@ -13,7 +13,7 @@
 // (>= nq) are computed on zeros without bias and dropped by the caller.
 // The bias and mask rows have stride nk.  GEMM operands bf16, fp32
 // accumulation; heads padded to HDP = 32 dims with zeros.  The
-// probabilities enter P V rounded to bf16 (K7, K15), or with kSplitP as
+// probabilities enter P V rounded to bf16 (K15, K8w16), or with kSplitP as
 // two bf16 parts, P = P_hi + P_lo, in two products (K16): ~16
 // significant bits, so the output matches fp32 probabilities (the JAX
 // reference's) to its own final rounding.

@@ -11,8 +11,8 @@ Every ``pl.pallas_call`` of the JAX package
 port.  "On path": SwinIR-M x4 serving (S) and fine-tuning (T), HAT x4
 serving (H) and training (HT) (``hat``, ws 7; ``hat_fast``, ws 8), DAT
 x4 serving (D), HAT-SRx4 serving (H16: upstream's HAT, window 16, C 180),
-every other Swin block outside the block kernel's envelope (W: other
-windows, C up to 256, up to 8 heads), DAT training (DT) and DAT's module
+every other Swin block outside the block kernel's envelope (W: any
+other window, width, head count or head dim), DAT training (DT) and DAT's module
 chain at serving where K9, K14 or K10 refuse a block's shapes (DC: the
 published DAT x4's split (8, 32) and expansion 4, among others), and
 HAT-SRx4 training (H16T: window 16, C 180, hidden 360).
@@ -23,7 +23,6 @@ HAT-SRx4 training (H16T: window 16, C 180, hidden 360).
 K1   fused_block.py:958 . fused_swin_block (_mega_forward)         S,T,H    CUDA csrc/swin_block.cu (ws 8, extra), fused_block.fused_windows_block
      (the same function at any other window or width)             H16,W,   K2 + K7 + K1's tail, CUDA csrc/swin_tail.cu, fused_block.fused_block_tail (K1t)
                                                                   H16T
-     (past K7's widths, C <= 512: the "wide" route)              -        K2 + K7's product + K15 + K7's product + K1t
 K5   fused_block.py:1080 . _mega_backward                          T,HT     CUDA csrc/swin_block_bwd.cu (ws 8, extra), fused_block.SwinBlockFunction
      (at ws 16, the K7 route's block, counted as K5w16)            H16T     CUDA csrc/swin_block_bwd16.cu, fused_block.WindowBlockFunction
 K2   layernorm.py:54 . pallas_layernorm (layernorm_spatial)        all      CUDA csrc/layernorm.cu, layernorm.layernorm
@@ -39,13 +38,14 @@ K8b  fused_ocab.py:354 . fused_ocab_core (_bwd_kernel)             HT       CUDA
 K9   fused_rect_attn.py:433 . fused_rect_attention                 D        CUDA csrc/dat_rect.cu, fused_rect_attn.rect_attention
 K14  fused_channel_attn.py:209 . fused_channel_attention           D        CUDA csrc/dat_channel.cu, fused_channel_attn.channel_attention
 K10  fused_datb_tail.py:374 . fused_datb_tail                      D        CUDA csrc/dat_tail.cu, fused_datb_tail.datb_tail
-K7   fused_attention.py:229 . fused_window_block_attention         H16,W,   CUDA csrc/window_attn.cu (any N), fused_attention.fused_window_attention
-                                                                  H16T
-K12  cab_conv.py:209 . fused_ln_cab_convs                          H,HT,    CUDA csrc/cab_fused.cu, cab_conv.fused_ln_cab_convs
+K7   fused_attention.py:229 . fused_window_block_attention         H16,W,   CUDA csrc/window_attn.cu (the qkv and proj product) + csrc/window_attn_stream.cu
+                                                                  H16T     (the attention), fused_attention.fused_window_attention
+K12  cab_conv.py:209 . fused_ln_cab_convs                          H,HT,    CUDA csrc/cab_fused.cu (C <= 256, Cmid <= 64), cab_conv.fused_ln_cab_convs
                                                                   H16,H16T
 K11  cab_conv.py:506 . dwconv3x3_halo                              DT,DC    CUDA csrc/dwconv.cu ("rows" or "tiles", dwconv.dwconv_plan), dwconv.dwconv3x3
-K15  window_attention.py:193 . fused_window_attention              H,H16    CUDA csrc/window_attn_wg.cu or csrc/batched_attn.cu (window_attention.k15_route), window_attention.fused_window_attention
-K16  window_attention.py:352 . batched_window_attention            DT,DC    CUDA csrc/batched_attn.cu (K7's core), window_attention.batched_window_attention
+K15  window_attention.py:193 . fused_window_attention              H,H16    CUDA csrc/window_attn_wg.cu, csrc/batched_attn.cu or csrc/window_attn_stream.cu
+                                                                           (window_attention.k15_route), window_attention.fused_window_attention
+K16  window_attention.py:352 . batched_window_attention            DT,DC    CUDA csrc/batched_attn.cu (the tiled core), window_attention.batched_window_attention
 ==== ========================================================== ======== ==================================================
 
 One CUDA kernel, templated on the window size, serves K1, K6 and K13:
@@ -59,20 +59,20 @@ are K1t's and K15's (the JAX package has no K15 backward: its HAT
 trains the OCAB through K8).  A K7-route block at ws 16 within the
 block kernel's widths trains through ``fused_block.WindowBlockFunction``
 instead, whose backward is K5 at ws 16 (K5w16; it recomputes LN1 with a
-K2 launch and qkv with K7's qkv launch, counted as K2 and K7).  At the
+K2 launch and qkv with K7's product launch, counted as K2 and K7).  At the
 K7 route's other windows the block backward is still autograd of the
 plain versions (ROADMAP Queue 2).
 HAT's OCAB runs K15 as its attention at serving, and in training
 wherever K8 refuses its shapes (``fused_ocab.ocab_ok``: C > 192,
 hidden > 384, windows other than 7, 8 and 16); elsewhere in training it
 takes K8 / K8b (K8w16 / K8bw16 at ws 16).  A Swin
-block takes the block kernel, the K7 route or the "wide" route by its
-static shapes (``fused_block.block_route``); a K7 call is two CUDA
-launches (the qkv product, then attention + proj), counted once; on the
-wide route (C 257-512, more than 8 heads or hd 33-64) K7's product
-launch alone computes qkv and proj (each counted as a K7 call) around
-K15's attention; on both K1's tail kernel (counted as K1t) completes the
-block.  A DAT block at
+block takes the block kernel or the K7 route by its static shapes
+(``fused_block.block_route``); a K7 call is three CUDA launches (the qkv
+product into a head-split workspace, the attention, the proj product),
+counted once, and takes any width, head count, head dim and window; K1's
+tail kernel (counted as K1t) completes the block.  A HAT CAB takes K12
+(two launches, LN's statistics and the fused kernel, counted once) or,
+past its widths, K2 + K3 + K3 (``cab_conv.cab_route``).  A DAT block at
 serving is K9 (spatial) or K14 (channel), then K10, where their limits
 take its shapes (``models.dat.dat_route``); a K9 call is two CUDA
 launches, a K14 call three, a K10 call one, each counted once per

@@ -40,13 +40,22 @@ at ``:209``): y = conv3x3(gelu_erf(conv3x3(LN(x)))) with SAME zero
 padding of the LN output and of conv2's input; the SE gate stays
 outside.  The JAX package keeps it off by default (``ENABLE = False``, a
 TPU VMEM switch); the port runs it for every HAB's CAB on CUDA.  Its
-gradient is ``CabConvsFunction``: forward K12, backward torch autograd
-of ``fused_ln_cab_convs_plain``, as the JAX custom_vjp differentiates
+kernel is K3's machinery fused, two launches counted once: LN's
+statistics of every pixel, then a persistent CTA walking 14 x 14 output
+blocks, whose producer warpgroup normalises the block's 18 x 18 input
+halo (zero outside the image) chunk by chunk into swizzled halo buffers
+and streams both convs' packed weight taps through an mbarrier ring;
+two consumer warpgroups run conv1 as wgmma on the 16 x 16 pixels around
+the block (each tap's operand a window of the halo, read in place), the
+GELU in registers into a y1 buffer zeroed outside the image, and conv2
+on the block (``cab_plan`` picks the N tiles).  Its gradient is
+``CabConvsFunction``: forward K12, backward torch autograd of
+``fused_ln_cab_convs_plain``, as the JAX custom_vjp differentiates
 ``_reference`` (``cab_conv.py:548-550``).  The kernel takes C <= 256 and
-Cmid <= 128; past those widths ``cab_route`` sends the CAB to
+Cmid <= 64; past those widths ``cab_route`` sends the CAB to
 ``ln_cab_convs``, the same function as K2 + K3 (with the GELU in its
-epilogue) + K3.  The JAX
-package's erf is an A&S polynomial, the port's torch's erf.
+epilogue) + K3.  The JAX package's erf is an A&S polynomial, the port's
+torch's erf.
 """
 
 from __future__ import annotations
@@ -68,8 +77,8 @@ launches_conv_k = _lib.LaunchCounter("K4 conv_k")
 launches_ln_cab = _lib.LaunchCounter("K12 ln_cab_convs")
 
 # Limits of csrc/cab_fused.cu.
-CAB_MAX_C = 256
-CAB_MAX_MID = 128
+CAB_MAX_C = 256   # csrc/cab_fused.cu: channels (four 64-channel chunks)
+CAB_MAX_MID = 64  # and Cmid (one 64-channel chunk of y1)
 
 
 def conv_plain(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
@@ -408,12 +417,39 @@ def fused_ln_cab_convs_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     return conv(y, k2, c2).contiguous()
 
 
+# csrc/cab_fused.cu: its widths, compiled conv1 / conv2 N tiles
+CAB_N1 = (16, 32, 64)
+CAB_N2 = (48, 64, 96)
+CAB_BLOCK = 14  # output pixels a block side
+
+
 def cab_route(c: int, cmid: int) -> str:
     """The route of HAT's CAB front at C channels and Cmid = C /
     compress_ratio: "K12" (one launch) within K12's widths, else "convs"
     (``ln_cab_convs``: K2, K3, exact-erf GELU, K3, which take any width).
     Shapes only: the same on every call and device."""
     return "K12" if c <= CAB_MAX_C and cmid <= CAB_MAX_MID else "convs"
+
+
+@dataclasses.dataclass(frozen=True)
+class CabPlan:
+    """K12's N tiles: conv1's `n1` (Cmid rounded up), conv2's `n2` in
+    `passes` passes over C."""
+
+    n1: int
+    n2: int
+    passes: int
+
+
+@functools.lru_cache(maxsize=64)
+def cab_plan(c: int, cmid: int) -> CabPlan:
+    """conv1's narrowest N tile that holds Cmid; conv2's N tile and
+    passes with the least padded width, ties to the wider tile (fewer
+    passes).  Shapes only."""
+    check_cab_limits(c, cmid)
+    n1 = next(n for n in CAB_N1 if n >= cmid)
+    n2 = min(CAB_N2, key=lambda n: (-(-c // n) * n, -n))
+    return CabPlan(n1, n2, -(-c // n2))
 
 
 def ln_cab_convs(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, k1: torch.Tensor,
@@ -439,52 +475,64 @@ def check_cab_limits(c: int, cmid: int, name: str = "fused_ln_cab_convs") -> Non
 
 @dataclasses.dataclass(frozen=True)
 class PackedCab:
-    """K12's operands: tap-major bf16 conv weights [9 * CK, CMP] and [9 *
-    CMP, CK] (channels zero-padded to multiples of 16), fp32 biases
-    padded alike, fp32 LN params."""
+    """K12's operands: conv1's weight as one [N1, 64] tile a (64-channel
+    chunk of C, tap) and conv2's as one [N2, 64] tile a (pass, tap), each
+    K-major and 128B-swizzled (16-byte chunk j of row n at j ^ (n % 8)),
+    zero past the channels (``w1`` [chunks, 9, N1, 64], ``w2`` [passes, 9,
+    N2, 64]); fp32 biases padded alike; fp32 LN params."""
 
-    k1: torch.Tensor
+    w1: torch.Tensor
     c1: torch.Tensor
-    k2: torch.Tensor
+    w2: torch.Tensor
     c2: torch.Tensor
     g: torch.Tensor
     b: torch.Tensor
     dim: int
     mid: int
+    plan: CabPlan
+
+
+def _pack_taps(k: torch.Tensor, n_tile: int, n_tiles: int, dtype: torch.dtype) -> torch.Tensor:
+    """A [3, 3, Cin, Cout] kernel as [n_tiles * chunks, 9, n_tile, 64]
+    swizzled tiles: tile (N tile or chunk, tap) holds output channels
+    n_tile t.. and input channels 64 c.. (one of the two is 1 in K12)."""
+    cin, cout = int(k.shape[2]), int(k.shape[3])
+    chunks = -(-cin // CONV_BK)
+    w = F.pad(k.detach().float().reshape(9, cin, cout),
+              (0, n_tile * n_tiles - cout, 0, chunks * CONV_BK - cin))
+    w = w.reshape(9, chunks, CONV_BK, n_tiles, n_tile).permute(3, 1, 0, 4, 2)
+    return _swizzle_rows(w.reshape(n_tiles * chunks, 9, n_tile, CONV_BK)).to(dtype).contiguous()
 
 
 @torch.no_grad()
-def pack_cab(g, b, k1, c1, k2, c2) -> PackedCab:
+def pack_cab(g, b, k1, c1, k2, c2, dtype: torch.dtype = torch.bfloat16) -> PackedCab:
     c, cm = int(k1.shape[2]), int(k1.shape[3])
-    check_cab_limits(c, cm)
-    ck, cmp = -(-c // 16) * 16, -(-cm // 16) * 16
-    bf = torch.bfloat16
+    plan = cab_plan(c, cm)
     return PackedCab(
-        k1=F.pad(k1.float(), (0, cmp - cm, 0, ck - c)).reshape(9 * ck, cmp).to(bf).contiguous(),
-        c1=F.pad(c1.float(), (0, cmp - cm)).contiguous(),
-        k2=F.pad(k2.float(), (0, ck - c, 0, cmp - cm)).reshape(9 * cmp, ck).to(bf).contiguous(),
-        c2=F.pad(c2.float(), (0, ck - c)).contiguous(),
-        g=g.float().contiguous(), b=b.float().contiguous(), dim=c, mid=cm)
+        w1=_pack_taps(k1, plan.n1, 1, dtype), c1=F.pad(c1.float(), (0, plan.n1 - cm)).contiguous(),
+        w2=_pack_taps(k2, plan.n2, plan.passes, dtype),
+        c2=F.pad(c2.float(), (0, plan.n2 * plan.passes - c)).contiguous(),
+        g=g.float().contiguous(), b=b.float().contiguous(), dim=c, mid=cm, plan=plan)
 
 
 def _launch_cab(x: torch.Tensor, p: PackedCab) -> torch.Tensor:
-    _lib.check_tensor(x, "x", torch.bfloat16, x.device, ndim=4, align=2)
+    if x.data_ptr() % 16:  # the statistics pass reads 16-byte pieces
+        x = x.clone()
+    _lib.check_tensor(x, "x", torch.bfloat16, x.device, ndim=4, align=16)
     bsz, h, w, c = x.shape
     if c != p.dim:
         raise ValueError(f"fused_ln_cab_convs: weights for C={p.dim}, x has C={c}")
-    ck, cmp = -(-c // 16) * 16, -(-p.mid // 16) * 16
-    bf, f32 = torch.bfloat16, torch.float32
-    for name, t, shape, dtype, align in (
-            ("k1", p.k1, (9 * ck, cmp), bf, 32), ("c1", p.c1, (cmp,), f32, 4),
-            ("k2", p.k2, (9 * cmp, ck), bf, 32), ("c2", p.c2, (ck,), f32, 4),
-            ("g", p.g, (c,), f32, 4), ("b", p.b, (c,), f32, 4)):
-        _lib.check_tensor(t, name, dtype, x.device, shape=shape, align=align)
+    plan = p.plan
+    if p.w1.device != x.device or p.w1.dtype != torch.bfloat16:
+        raise ValueError(f"fused_ln_cab_convs: weights packed as {p.w1.dtype} on "
+                         f"{p.w1.device}, x on {x.device}")
+    # (pack_cab makes every operand contiguous in the plan's shapes)
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        status = _lib.library().sr_ln_cab_convs_bf16(
-            x.data_ptr(), p.g.data_ptr(), p.b.data_ptr(), p.k1.data_ptr(), p.c1.data_ptr(),
-            p.k2.data_ptr(), p.c2.data_ptr(), y.data_ptr(), bsz, h, w, c, p.mid, EPS,
-            _lib.stream_of(x))
+    stats = torch.empty(bsz * h * w * 2, dtype=torch.float32, device=x.device)  # mean, rstd
+    status = _lib.call(x, _lib.library().sr_ln_cab_convs_bf16, x.data_ptr(), p.g.data_ptr(),
+                       p.b.data_ptr(), p.w1.data_ptr(), p.c1.data_ptr(), p.w2.data_ptr(),
+                       p.c2.data_ptr(), y.data_ptr(), stats.data_ptr(), bsz, h, w, c, p.mid,
+                       plan.n1, plan.n2, plan.passes, EPS, _lib.stream_of(x))
     _lib.check_status(status, "sr_ln_cab_convs_bf16")
     launches_ln_cab.count += 1
     return y

@@ -1,6 +1,7 @@
 """K7 — fused window attention: the qkv product, the biased and masked
 window softmax attention and the output projection (CUDA,
-``csrc/window_attn.cu``).
+``csrc/window_attn.cu``, the product, and ``csrc/window_attn_stream.cu``,
+the attention).
 
 Port of ``tpu_superresolution_tpu/ops/pallas/fused_attention.py``
 (``fused_window_block_attention``, ``pl.pallas_call`` in
@@ -13,14 +14,28 @@ Port of ``tpu_superresolution_tpu/ops/pallas/fused_attention.py``
 Weights are in the reference torch layout (``nn.Linear``'s [out, in]);
 `bqkv` None means zeros.  The TPU kernel's window packing (P windows on
 one [P*N, P*N] tile with -1e9 off the diagonal) and its token padding to
-a multiple of 8 have no counterpart here: the CUDA kernel tiles queries
-and keys in 64-row tiles with an online softmax, so it takes any N (36,
-49, 64, 144, 256, up to 1024 and beyond), C <= 256, at most 8 heads of
-hd <= 32.  Its first launch, the qkv product, also runs alone
-(``window_product``, counted as a K7 call) as the qkv and proj products
-of the Swin blocks past those widths (the "wide" route,
-``fused_block.wide_window_attention``: C <= 512, any output width),
-whose attention is K15.
+a multiple of 8 have no counterpart here.  A K7 call is three CUDA
+launches, counted once:
+
+1. the product kernel (a persistent wgmma GEMM fed by an mbarrier ring,
+   C in 64-column chunks, so any C) computes qkv
+   into a head-split workspace [3, BW, nH, nb, N, hb], each (window,
+   head) run in the swizzled layout the attention's wgmma reads (heads
+   padded to hb = 16, 32 or 64 dims, past 64 in nb blocks of 64);
+2. the stream attention kernel (``window_attention.launch_stream``)
+   takes each run by one bulk copy and writes the heads' outputs
+   token-major [BW * N, nH * nb * hb]; its bias and mask are either the
+   dense [nH, N, N] / [nW, N, N] fp32 arrays or, where the caller gives
+   the window's token codes (``ops.window.window_token_codes``) and the
+   weights were packed with the relative-position table, the table
+   resident in shared memory and one code per token (the same fp32
+   values, no [nH, N, N] reads);
+3. the product kernel again computes the proj.
+
+So K7 takes any C, any number of heads, any head dim and any window.
+``qkv_product`` (the ws-16 block backward's qkv recompute, counted as a
+K7 call) runs the product kernel alone; ``window_product_plain`` is its
+plain version.
 
 On a CPU tensor the wrapper runs ``window_attention_plain``; on a CUDA
 tensor it launches K7 (bf16 xw, fp32 bias and mask), through
@@ -32,20 +47,21 @@ differentiates ``_reference_impl`` (``fused_attention.py:307-311``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from tpu_superresolution_torch.kernels import _lib
-
-# Limits of csrc/window_attn.cu.
-MAX_C = 256
-MAX_HEADS = 8
-HDP = 32      # padded head dim
-Q_TILE = 64   # query and key rows per tile
+from tpu_superresolution_torch.kernels.window_attention import head_block, launch_stream
 
 launches = _lib.LaunchCounter("K7 window_attention")
+
+# csrc/window_attn.cu: rows a tile, K columns a stage, compiled N tiles
+PRODUCT_BM = 128
+PRODUCT_BK = 64
+PRODUCT_N_TILES = (16, 32, 64, 96, 128, 144, 192, 256, 264)  # 264: two wgmmas, 136 + 128
 
 
 def window_attention_plain(xw, wqkv, bqkv, wproj, bproj, rpb, mask, scale):
@@ -71,142 +87,49 @@ def window_attention_plain(xw, wqkv, bqkv, wproj, bproj, rpb, mask, scale):
     return F.linear(out, wproj.to(dt), bproj.to(dt))
 
 
-def attention_fits(c: int, nh: int) -> bool:
-    """Whether a width of C channels in `nh` heads fits K7 (shapes only,
-    so it runs on any device)."""
-    return c <= MAX_C and nh <= MAX_HEADS and c % nh == 0 and c // nh <= HDP
-
-
-def check_attention_limits(c: int, nh: int, name: str = "fused_window_attention") -> None:
-    """Raise unless ``attention_fits(c, nh)``."""
-    if not attention_fits(c, nh):
-        raise ValueError(f"{name}: K7 takes C <= {MAX_C}, heads <= {MAX_HEADS}, hd <= {HDP}; "
-                         f"got C={c}, heads={nh} (ROADMAP Queue 3)")
+# ------------------------------------------------------------ the product
 
 
 @dataclasses.dataclass(frozen=True)
-class PackedWindowAttention:
-    """K7's weight operands: bf16 [out, in] GEMM weights with each head's
-    dims zero-padded hd -> 32 (q rows pre-scaled by hd^-0.5), input
-    channels padded to CK = a multiple of 16, proj rows padded to CO;
-    fp32 biases; the gathered [nH, N, N] fp32 bias."""
+class ProductPlan:
+    """The product kernel's N tiling of an output width: `n_tiles` tiles
+    of `n_tile` columns (a compiled wgmma N)."""
 
-    wqkv: torch.Tensor   # [3 * nh * 32, CK] bf16
-    bqkv: torch.Tensor   # [3 * nh * 32] fp32
-    wproj: torch.Tensor  # [CO, nh * 32] bf16
-    bproj: torch.Tensor  # [CO] fp32
-    rpb: torch.Tensor    # [nh, N, N] fp32
-    dim: int
-    num_heads: int
+    n_tile: int
+    n_tiles: int
 
 
-def _round16(v: int) -> int:
-    return -(-v // 16) * 16
-
-
-@torch.no_grad()
-def pack_window_attention(wqkv, bqkv, wproj, bproj, rpb) -> PackedWindowAttention:
-    """Lay the raw weights out for K7 (the counterpart of the JAX
-    package's ``_prep_weights``): once per loaded weights at inference,
-    on every call in training."""
-    nh = int(rpb.shape[0])
-    c = int(wqkv.shape[1])
-    check_attention_limits(c, nh)
-    hd, ck, co = c // nh, _round16(c), _round16(c)
-    scale = hd ** -0.5
-    dev = wqkv.device
-    w = wqkv.float().reshape(3, nh, hd, c).clone()
-    w[0] *= scale
-    b = (torch.zeros(3, nh, hd, device=dev) if bqkv is None
-         else bqkv.float().reshape(3, nh, hd).clone())
-    b[0] *= scale
-    wp = F.pad(wproj.float().reshape(c, nh, hd), (0, HDP - hd, 0, 0, 0, co - c))
-    return PackedWindowAttention(
-        wqkv=F.pad(w, (0, ck - c, 0, HDP - hd)).reshape(3 * nh * HDP, ck)
-        .to(torch.bfloat16).contiguous(),
-        bqkv=F.pad(b, (0, HDP - hd)).reshape(-1).contiguous(),
-        wproj=wp.reshape(co, nh * HDP).to(torch.bfloat16).contiguous(),
-        bproj=F.pad(bproj.float(), (0, co - c)).contiguous(),
-        rpb=rpb.float().contiguous(),
-        dim=c,
-        num_heads=nh,
-    )
-
-
-def _launch(xw: torch.Tensor, packed: PackedWindowAttention,
-            mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """The two CUDA launches of one K7 call (the qkv product into a
-    workspace, then attention + proj per 64-query tile), counted once."""
-    _lib.check_tensor(xw, "xw", torch.bfloat16, xw.device, ndim=3, align=2)
-    bw, n, c = xw.shape
-    nh = packed.num_heads
-    if c != packed.dim:
-        raise ValueError(f"fused_window_attention: weights for C={packed.dim}, xw has C={c}")
-    dev = xw.device
-    a, ck, co = nh * HDP, _round16(c), _round16(c)
-    bf, f32 = torch.bfloat16, torch.float32
-    for name, t, shape, dtype, align in (
-            ("wqkv", packed.wqkv, (3 * a, ck), bf, 32), ("bqkv", packed.bqkv, (3 * a,), f32, 16),
-            ("wproj", packed.wproj, (co, a), bf, 32), ("bproj", packed.bproj, (co,), f32, 4),
-            ("rpb", packed.rpb, (nh, n, n), f32, 4)):
-        _lib.check_tensor(t, name, dtype, dev, shape=shape, align=align)
-    n_mask = 0
-    if mask is not None:
-        n_mask = int(mask.shape[0])
-        _lib.check_tensor(mask, "mask", f32, dev, shape=(n_mask, n, n), align=4)
-        if n_mask == 0 or bw % n_mask:
-            raise ValueError(f"fused_window_attention: {bw} windows are not a whole number of "
-                             f"mask periods of {n_mask}")
-    out = torch.empty_like(xw)
-    qkv = torch.empty(bw * n, 3 * a, dtype=bf, device=dev)
-    with torch.cuda.device(dev):
-        status = _lib.library().sr_window_attention_bf16(
-            xw.data_ptr(), packed.wqkv.data_ptr(), packed.bqkv.data_ptr(),
-            packed.wproj.data_ptr(), packed.bproj.data_ptr(), packed.rpb.data_ptr(),
-            None if mask is None else mask.data_ptr(), qkv.data_ptr(), out.data_ptr(),
-            bw, n, c, nh, n_mask, _lib.stream_of(xw))
-    _lib.check_status(status, "sr_window_attention_bf16")
-    launches.count += 1
-    return out
-
-
-def qkv_product(x: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor) -> torch.Tensor:
-    """K7's first launch alone (CUDA tensors only): x [rows, CK] bf16
-    (CK a multiple of 16, the pad columns zero) times packed [n3, CK]
-    bf16 weights plus fp32 bias -> [rows, n3] bf16.  The ws-16 block
-    backward's qkv recompute; counted as a K7 call."""
-    _lib.require_cuda(x, "qkv_product")
-    rows, ck = x.shape
-    n3 = int(wqkv.shape[0])
-    if ck % 16:
-        raise ValueError(f"qkv_product: x's {ck} columns are not packed to a multiple of 16")
-    _lib.check_tensor(x, "x", torch.bfloat16, x.device, ndim=2, align=16)
-    _lib.check_tensor(wqkv, "wqkv", torch.bfloat16, x.device, shape=(n3, ck), align=32)
-    _lib.check_tensor(bqkv, "bqkv", torch.float32, x.device, shape=(n3,), align=16)
-    out = torch.empty(rows, n3, dtype=torch.bfloat16, device=x.device)
-    with torch.cuda.device(x.device):
-        status = _lib.library().sr_window_product_bf16(
-            x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), out.data_ptr(), rows, ck, n3, n3,
-            _lib.stream_of(x))
-    _lib.check_status(status, "sr_window_product_bf16")
-    launches.count += 1
-    return out
-
-
-# K7's first launch as a product of its own: the "wide" route's qkv and
-# proj (fused_block.wide_window_attention), input widths up to 512.
-MAX_PRODUCT_C = 512
+@functools.lru_cache(maxsize=256)
+def product_plan(c_out: int) -> ProductPlan:
+    """The N tiling with the least padded width, counting each tile's
+    reload of the 128-row x chunk as 64 more columns (the operands' L2
+    traffic, not the tensor cores, bounds these products); ties go to
+    fewer tiles.  Shapes only."""
+    best = None
+    for n_tiles in range(1, -(-c_out // 16) + 1):
+        per = -(-c_out // n_tiles)
+        if per > PRODUCT_N_TILES[-1]:
+            continue
+        n = next(t for t in PRODUCT_N_TILES if t >= per)
+        cost = (n_tiles * (n + 64), n_tiles)
+        if best is None or cost < best[0]:
+            best = (cost, ProductPlan(n, n_tiles))
+    return best[1]
 
 
 @dataclasses.dataclass(frozen=True)
 class PackedProduct:
-    """The product launch's operands: the bf16 [out, in] weight
-    zero-padded to [N3, CK] (multiples of 16) and the fp32 bias [N3]."""
+    """The product launch's operands: the weight [C_out, C_in] as one
+    [N, 64] tile a (N tile, 64-column chunk of C_in), K-major and
+    128B-swizzled (16-byte chunk j of row n at j ^ (n % 8)), zero past
+    C_in and C_out: ``wp`` [n_tiles, chunks, N, 64]; the fp32 bias padded
+    to n_tiles * N."""
 
-    w: torch.Tensor  # [N3, CK] bf16
-    b: torch.Tensor  # [N3] fp32
+    wp: torch.Tensor
+    b: torch.Tensor
     c_in: int
     c_out: int
+    plan: ProductPlan
 
 
 @torch.no_grad()
@@ -216,15 +139,18 @@ def pack_window_product(weight: torch.Tensor, bias: Optional[torch.Tensor],
     for the product launch (the weight in `dtype`: the kernel's bf16, or
     fp32 for the CPU tests' emulation): once per loaded weights at
     inference, on every call in training."""
+    from tpu_superresolution_torch.kernels.cab_conv import _swizzle_rows
+
     c_out, c_in = int(weight.shape[0]), int(weight.shape[1])
-    if c_in > MAX_PRODUCT_C:
-        raise ValueError(f"window_product: K7's product takes C <= {MAX_PRODUCT_C} input "
-                         f"channels, got {c_in} (ROADMAP Queue 3)")
-    n3, ck = _round16(c_out), _round16(c_in)
-    b = torch.zeros(c_out, device=weight.device) if bias is None else bias.float()
-    return PackedProduct(
-        w=F.pad(weight.float(), (0, ck - c_in, 0, n3 - c_out)).to(dtype).contiguous(),
-        b=F.pad(b, (0, n3 - c_out)).contiguous(), c_in=c_in, c_out=c_out)
+    plan = product_plan(c_out)
+    chunks = -(-c_in // PRODUCT_BK)
+    npad = plan.n_tiles * plan.n_tile
+    w = F.pad(weight.detach().float(), (0, chunks * PRODUCT_BK - c_in, 0, npad - c_out))
+    w = w.reshape(plan.n_tiles, plan.n_tile, chunks, PRODUCT_BK).transpose(1, 2)
+    b = torch.zeros(c_out, device=weight.device) if bias is None else bias.detach().float()
+    return PackedProduct(wp=_swizzle_rows(w).to(dtype).contiguous(),
+                         b=F.pad(b, (0, npad - c_out)).contiguous(), c_in=c_in, c_out=c_out,
+                         plan=plan)
 
 
 def window_product_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -234,57 +160,156 @@ def window_product_plain(x: torch.Tensor, weight: torch.Tensor,
     return F.linear(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype))
 
 
-def _launch_product(x: torch.Tensor, packed: PackedProduct) -> torch.Tensor:
-    """One launch of K7's product kernel on x [rows, C_in] bf16, counted
-    as a K7 call."""
+def _vec(x: torch.Tensor, c: int) -> int:
+    """The widest x copy (8, 4, 2 or 1 bf16) that divides C and x's
+    alignment."""
+    return next(v for v in (8, 4, 2, 1) if c % v == 0 and x.data_ptr() % (2 * v) == 0)
+
+
+def _launch_product(x: torch.Tensor, packed: PackedProduct,
+                    split: Optional[Tuple[int, int, int, int, int]] = None) -> torch.Tensor:
+    """One launch of the product kernel on x [rows, C_in] bf16: y [rows,
+    C_out], or with `split` = (BW, N, nH, hdw, hb) K7's head-split qkv
+    workspace (flat, 3 * rows * nH * hdw values)."""
     rows, c = x.shape
     if c != packed.c_in:
         raise ValueError(f"window_product: weights for C={packed.c_in}, x has C={c}")
-    n3 = int(packed.w.shape[0])
+    plan = packed.plan
     _lib.check_tensor(x, "x", torch.bfloat16, x.device, ndim=2, align=2)
-    _lib.check_tensor(packed.w, "w", torch.bfloat16, x.device, shape=(n3, _round16(c)),
-                      align=32)
-    _lib.check_tensor(packed.b, "b", torch.float32, x.device, shape=(n3,), align=16)
-    out = torch.empty(rows, packed.c_out, dtype=torch.bfloat16, device=x.device)
+    if packed.wp.device != x.device or packed.wp.dtype != torch.bfloat16:
+        raise ValueError(f"window_product: weight packed as {packed.wp.dtype} on "
+                         f"{packed.wp.device}, x on {x.device}")
+    # (pack_window_product makes wp and b contiguous in the plan's shapes)
+    bw = ntok = nh = hdw = hb = 0
+    if split is None:
+        y = torch.empty(rows, packed.c_out, dtype=torch.bfloat16, device=x.device)
+    else:
+        bw, ntok, nh, hdw, hb = split
+        y = torch.empty(3 * rows * nh * hdw, dtype=torch.bfloat16, device=x.device)
     status = _lib.call(x, _lib.library().sr_window_product_bf16, x.data_ptr(),
-                       packed.w.data_ptr(), packed.b.data_ptr(), out.data_ptr(), rows, c, n3,
-                       packed.c_out, _lib.stream_of(x))
+                       packed.wp.data_ptr(), packed.b.data_ptr(), y.data_ptr(), rows, c,
+                       plan.n_tile, plan.n_tiles, packed.c_out, _vec(x, c), int(split is not None),
+                       bw, ntok, nh, hdw, hb, _lib.stream_of(x))
     _lib.check_status(status, "sr_window_product_bf16")
+    return y
+
+
+def qkv_product(x: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor) -> torch.Tensor:
+    """The product launch alone (CUDA tensors only): x [rows, CK] bf16
+    times [n3, CK] bf16 weights plus fp32 bias -> [rows, n3] bf16.  The
+    ws-16 block backward's qkv recompute; counted as a K7 call."""
+    _lib.require_cuda(x, "qkv_product")
+    out = _launch_product(x, pack_window_product(wqkv, bqkv))
     launches.count += 1
     return out
 
 
-class WindowProductFunction(torch.autograd.Function):
-    """Forward K7's product launch (weights packed on every call),
-    backward autograd of ``window_product_plain``."""
-
-    @staticmethod
-    def forward(ctx, x, weight, bias):
-        ctx.save_for_backward(x, weight, bias)
-        return _launch_product(x, pack_window_product(weight, bias))
-
-    @staticmethod
-    def backward(ctx, grad_out):
-        return _lib.plain_vjp(window_product_plain, ctx.saved_tensors, ctx.needs_input_grad,
-                              grad_out)
+# ---------------------------------------------------------- the attention
 
 
-def window_product(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
-                   packed: Optional[PackedProduct] = None) -> torch.Tensor:
-    """x [rows, C_in] times an ``nn.Linear`` weight [C_out, C_in] plus
-    bias, in K7's first launch (C_in <= 512, any C_out; fp32 sums, one
-    rounding): the plain version for CPU tensors, the kernel for CUDA
-    tensors, through ``WindowProductFunction`` when a gradient is wanted.
-    `packed` (inference only: ``pack_window_product``) skips the
-    per-call packing."""
-    if x.device.type == "cpu":
-        return window_product_plain(x, weight, bias)
-    _lib.require_cuda(x, "window_product")
-    x = x.contiguous()
-    inputs = [x, weight] + ([] if bias is None else [bias])
-    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
-        return WindowProductFunction.apply(x, weight, bias)
-    return _launch_product(x, packed or pack_window_product(weight, bias))
+@dataclasses.dataclass(frozen=True)
+class PackedWindowAttention:
+    """K7's operands: the qkv product's weight with each head's dims
+    zero-padded hd -> hdw = nb * hb and its q rows pre-scaled by
+    hd^-0.5 (outputs [3, nH, hdw]), the proj's weight with its input
+    columns padded alike ([C, nH * hdw]), and the bias: the gathered
+    [nH, N, N] fp32 `rpb` (dense) and/or the [(2ws-1)^2, nH] fp32 `table`
+    of window `ws` (the rel form, with the caller's token codes)."""
+
+    qkv: PackedProduct
+    proj: PackedProduct
+    rpb: Optional[torch.Tensor]
+    table: Optional[torch.Tensor]
+    ws: int
+    dim: int
+    num_heads: int
+
+    @property
+    def hb(self) -> int:
+        return head_block(self.dim // self.num_heads)
+
+    @property
+    def hdw(self) -> int:
+        hd = self.dim // self.num_heads
+        return -(-hd // self.hb) * self.hb
+
+    def dense_bias(self) -> torch.Tensor:
+        if self.rpb is not None:
+            return self.rpb
+        from tpu_superresolution_torch.ops.window import relative_position_bias
+
+        return relative_position_bias(self.table, self.ws)
+
+
+@torch.no_grad()
+def pack_window_attention(wqkv, bqkv, wproj, bproj, rpb=None, table=None, ws: int = 0,
+                          dtype: torch.dtype = torch.bfloat16) -> PackedWindowAttention:
+    """Lay the raw weights out for K7 (the counterpart of the JAX
+    package's ``_prep_weights``): once per loaded weights at inference,
+    on every call in training.  Give the gathered bias `rpb` [nH, N, N],
+    or the relative-position `table` [(2ws-1)^2, nH] and window `ws` (or
+    both)."""
+    nh = int(rpb.shape[0]) if rpb is not None else int(table.shape[1])
+    c = int(wqkv.shape[1])
+    if c % nh:
+        raise ValueError(f"fused_window_attention: {nh} heads do not divide C={c}")
+    if table is not None and tuple(table.shape) != ((2 * ws - 1) ** 2, nh):
+        raise ValueError(f"fused_window_attention: table {tuple(table.shape)} is not the "
+                         f"[(2ws-1)^2, nH] table of ws {ws} and {nh} heads")
+    hd = c // nh
+    hb = head_block(hd)
+    hdw = -(-hd // hb) * hb
+    dev = wqkv.device
+    w = wqkv.detach().float().reshape(3, nh, hd, c).clone()
+    w[0] *= hd ** -0.5
+    b = (torch.zeros(3, nh, hd, device=dev) if bqkv is None
+         else bqkv.detach().float().reshape(3, nh, hd).clone())
+    b[0] *= hd ** -0.5
+    wq = F.pad(w, (0, 0, 0, hdw - hd)).reshape(3 * nh * hdw, c)
+    wp = F.pad(wproj.detach().float().reshape(c, nh, hd), (0, hdw - hd)).reshape(c, nh * hdw)
+    return PackedWindowAttention(
+        qkv=pack_window_product(wq, F.pad(b, (0, hdw - hd)).reshape(-1), dtype),
+        proj=pack_window_product(wp, bproj, dtype),
+        rpb=None if rpb is None else rpb.float().contiguous(),
+        table=None if table is None else table.detach().float().contiguous(),
+        ws=ws, dim=c, num_heads=nh)
+
+
+def _launch(xw: torch.Tensor, packed: PackedWindowAttention, mask: Optional[torch.Tensor],
+            codes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The three CUDA launches of one K7 call (qkv product into the
+    head-split workspace, attention, proj product), counted once; the
+    rel form where `codes` is given and the weights carry the table."""
+    _lib.check_tensor(xw, "xw", torch.bfloat16, xw.device, ndim=3, align=2)
+    bw, n, c = xw.shape
+    nh, hb, hdw = packed.num_heads, packed.hb, packed.hdw
+    if c != packed.dim:
+        raise ValueError(f"fused_window_attention: weights for C={packed.dim}, xw has C={c}")
+    dev = xw.device
+    f32 = torch.float32
+    rel = codes is not None and packed.table is not None
+    if rel:
+        _lib.check_tensor(codes, "codes", torch.int32, dev, ndim=2, align=4)
+        if int(codes.shape[1]) != n or packed.ws ** 2 != n or bw % int(codes.shape[0]):
+            raise ValueError(f"fused_window_attention: codes {tuple(codes.shape)} for "
+                             f"{bw} windows of {n} tokens at ws {packed.ws}")
+        bias, mask = packed.table, None
+    else:
+        bias = packed.dense_bias()
+        _lib.check_tensor(bias, "rpb", f32, dev, shape=(nh, n, n), align=4)
+        if mask is not None:
+            n_mask = int(mask.shape[0])
+            _lib.check_tensor(mask, "mask", f32, dev, shape=(n_mask, n, n), align=4)
+            if n_mask == 0 or bw % n_mask:
+                raise ValueError(f"fused_window_attention: {bw} windows are not a whole "
+                                 f"number of mask periods of {n_mask}")
+    qkv = _launch_product(xw.reshape(bw * n, c), packed.qkv, (bw, n, nh, hdw, hb))
+    att = torch.empty(bw * n, nh * hdw, dtype=torch.bfloat16, device=dev)
+    launch_stream(qkv, None, None, bias, mask, codes if rel else None, att, bw, nh, n, n,
+                  c // nh, 1.0, False, packed.ws if rel else 0, bulk=True, tokmajor=True)
+    out = _launch_product(att, packed.proj)
+    launches.count += 1
+    return out.reshape(bw, n, c)
 
 
 class WindowAttentionFunction(torch.autograd.Function):
@@ -308,25 +333,38 @@ class WindowAttentionFunction(torch.autograd.Function):
 def fused_window_attention(xw: torch.Tensor, wqkv: torch.Tensor, bqkv: Optional[torch.Tensor],
                            wproj: torch.Tensor, bproj: torch.Tensor,
                            rpb: Optional[torch.Tensor], mask: Optional[torch.Tensor],
-                           packed: Optional[PackedWindowAttention] = None) -> torch.Tensor:
+                           packed: Optional[PackedWindowAttention] = None,
+                           codes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K7 on xw [BW, N, C] with the gathered bias rpb [nH, N, N] and the
     shift mask [nW, N, N] or None (window w uses mask[w % nW]); the
     scale is hd^-0.5.  CPU tensor -> plain version; CUDA tensor -> the
     kernel, through ``WindowAttentionFunction`` when a gradient is
     wanted.  `packed` (inference only) skips the per-call packing and
-    holds the bias: rpb may then be None."""
-    if rpb is None:
-        rpb = packed.rpb
-    c, nh = int(xw.shape[-1]), int(rpb.shape[0])
+    holds the bias: rpb may then be None.  `codes` [n_codes, N] int32
+    (``ops.window.window_codes_tensor``, the mask's token codes) with
+    weights packed with their table: the kernel's rel form, which then
+    reads neither rpb nor mask."""
+    c, nh = int(xw.shape[-1]), packed.num_heads if rpb is None else int(rpb.shape[0])
+    if c % nh:
+        raise ValueError(f"fused_window_attention: {nh} heads do not divide C={c}")
     scale = (c // nh) ** -0.5
     if xw.device.type == "cpu":
+        rpb = packed.dense_bias() if rpb is None else rpb
         return window_attention_plain(xw, wqkv, bqkv, wproj, bproj, rpb, mask, scale)
     _lib.require_cuda(xw, "fused_window_attention")
-    check_attention_limits(c, nh)
+    return _kernel_window_attention(xw, wqkv, bqkv, wproj, bproj, rpb, mask, packed, codes,
+                                    scale)
+
+
+def _kernel_window_attention(xw, wqkv, bqkv, wproj, bproj, rpb, mask, packed, codes, scale):
+    """The CUDA tensors' path of ``fused_window_attention``: through the
+    autograd function when a gradient is wanted, else the three launches
+    on the packed weights."""
     xw = xw.contiguous()
-    inputs = [xw, wqkv, wproj, bproj, rpb] + ([] if bqkv is None else [bqkv])
-    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+    inputs = [xw, wqkv, wproj, bproj] + ([] if bqkv is None else [bqkv])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs + [rpb] if t is not None):
+        rpb = packed.dense_bias() if rpb is None else rpb
         return WindowAttentionFunction.apply(xw, wqkv, bqkv, wproj, bproj, rpb, mask, scale)
     if packed is None:
         packed = pack_window_attention(wqkv, bqkv, wproj, bproj, rpb)
-    return _launch(xw, packed, mask)
+    return _launch(xw, packed, None if mask is None else mask.float().contiguous(), codes)

@@ -29,19 +29,16 @@ qkv_bias=True, and raise otherwise.
 
 Which blocks take the kernel is decided by ``block_route`` from static
 shapes alone, the same on every call and device: ws 7 or 8 within those
-widths -> "block"; any other window (6, 12, 16, ...), C up to 256, up to
-8 heads of hd <= 32, or no qkv bias -> "window_attention"; wider blocks
-(C 257-512, more than 8 heads or hd 33-64) -> "wide", the same
-composition with the window attention in K7's product launch (qkv),
-K15 (the biased, masked attention) and K7's product launch again (proj)
-(``wide_window_attention``), trained by autograd; wider C, or heads of
-more than 64 dims, raise.  The "window_attention" route computes K1's function in three
-hand-written kernels: K2 for LN1, then (after the cyclic shift and the
-window partition as plain gathers) K7 for the qkv product, attention
-and proj, then K1's tail (``csrc/swin_tail.cu``: the attention residual
-read back through the window reverse and unshift in its addressing,
-`extra`, LN2, the MLP and its residual, in K1's arithmetic).  Both
-routes and the plain version are one composition, ``swin_block_plain``,
+widths -> "block"; every other block (any window, any C, any number of
+heads of any head dim, no qkv bias) -> "window_attention", which
+computes K1's function in three hand-written kernels: K2 for LN1, then
+(after the cyclic shift and the window partition as plain gathers) K7
+for the qkv product, attention and proj, then K1's tail
+(``csrc/swin_tail.cu``: the attention residual read back through the
+window reverse and unshift in its addressing, `extra`, LN2, the MLP and
+its residual, in K1's arithmetic).  Only heads that do not divide C
+raise, as the JAX block fails on them.  Both routes and the plain
+version are one composition, ``swin_block_plain``,
 whose steps the route swaps for the kernels' wrappers.  One
 divergence: the JAX package runs ws 16 (upstream HAT-SRx4) through K1
 as one kernel; here a 256-token window does not fit the whole-block
@@ -62,7 +59,7 @@ K6b.  A K7-route block at ws 16 within the block kernel's widths
 (``k5w16_ok``: upstream HAT-SRx4's HABs) trains through
 ``WindowBlockFunction``: forward the route's K2, gathers, K7 and K1t,
 backward K5 at ws 16 (``csrc/swin_block_bwd16.cu``, counted as K5w16,
-after a K2 launch and K7's qkv launch that recompute LN1 and qkv).  At
+after a K2 launch and K7's product launch that recompute LN1 and qkv).  At
 the route's other windows the backward is still autograd of the
 kernels' plain versions, where the JAX package runs K5 (ws 24, 32, ...)
 or ``_packed_backward`` (ws 6, 12, ...): ROADMAP Queue 2.
@@ -77,18 +74,7 @@ import torch
 import torch.nn.functional as F
 
 from tpu_superresolution_torch.kernels import _lib
-from tpu_superresolution_torch.kernels.fused_attention import (
-    PackedProduct,
-    attention_fits,
-    pack_window_product,
-    qkv_product,
-    window_attention_plain,
-    window_product,
-)
-from tpu_superresolution_torch.kernels.window_attention import (
-    fused_window_attention,
-    k15_route,
-)
+from tpu_superresolution_torch.kernels.fused_attention import qkv_product, window_attention_plain
 from tpu_superresolution_torch.kernels.layernorm import layernorm, layernorm_plain
 from tpu_superresolution_torch.ops.window import (
     cyclic_shift,
@@ -106,7 +92,8 @@ HIDP = 384   # padded MLP hidden
 MAX_HEADS = CP // HDP
 LN_EPS = 1e-5
 N_TOK = 64   # token rows per window in the kernels (ws^2, padded)
-TAIL_MAX_C = 512  # channels of csrc/swin_tail.cu (any MLP hidden)
+TAIL_ROWS = (64, 32, 16)  # csrc/swin_tail.cu: pixels a block, the most that fit C
+TAIL_SMEM = 232448
 
 launches = _lib.LaunchCounter("K1 swin_block ws8")
 launches_ws7 = _lib.LaunchCounter("K6 swin_block ws7")
@@ -239,52 +226,18 @@ def check_kernel_limits(w: SwinBlockWeights) -> None:
 def block_route(ws: int, c: int, heads: int, hidden: int, qkv_bias: bool = True) -> str:
     """The route of a Swin block of window `ws`, C channels, `heads`
     heads and MLP hidden width `hidden`: "block" (the block kernel, K1 /
-    K6 forward, K5 / K6b backward), "window_attention" (K2 for LN1, K7,
-    K1's tail kernel; any hidden width) or, past K7's widths (C 257-512,
-    more than 8 heads or hd 33-64), "wide" (K2 for LN1, K7's product
-    launch for qkv and proj around K15's attention, K1's tail kernel;
-    ``wide_window_attention``).  Shapes only: it runs on any device and
-    gives the same answer on every call.  Raises ValueError, naming the
-    limit, when no route takes the block (heads that do not divide C, C
-    past the tail kernel's 512, heads of more than K15's 64 dims)."""
+    K6 forward, K5 / K6b backward) at ws 7 or 8 within its widths, else
+    "window_attention" (K2 for LN1, K7, K1's tail kernel; any window,
+    width, head count and head dim).  Shapes only: it runs on any device
+    and gives the same answer on every call.  Raises ValueError where
+    the heads do not divide C (the JAX block fails there too)."""
     if c % heads:
         raise ValueError(f"swin block: {heads} heads do not divide C={c}")
     if (ws in KERNEL_WINDOWS and qkv_bias and c <= CP and c // heads <= HDP
             and heads <= MAX_HEADS and hidden <= HIDP):
         return "block"
-    if attention_fits(c, heads):
-        return "window_attention"
-    if c > TAIL_MAX_C:
-        raise ValueError(f"swin block: the wide route's kernels (K7's product, K1t) take "
-                         f"C <= {TAIL_MAX_C}; got C={c} (ROADMAP Queue 3)")
-    k15_route(ws * ws, ws * ws, c // heads)  # raises past K15's limits
-    return "wide"
-
-
-def pack_wide_attention(w: SwinBlockWeights) -> Tuple[PackedProduct, PackedProduct]:
-    """The "wide" route's qkv and proj weights laid out for K7's product
-    launch (``pack_window_product``)."""
-    return pack_window_product(w.wqkv, w.bqkv), pack_window_product(w.wproj, w.bproj)
-
-
-def wide_window_attention(xw: torch.Tensor, w: SwinBlockWeights, rpb: torch.Tensor,
-                          mask: Optional[torch.Tensor],
-                          packed: Optional[Tuple[PackedProduct, PackedProduct]] = None
-                          ) -> torch.Tensor:
-    """The "wide" route's window attention on [B*nW, N, C] windows:
-    ``window_attention_plain``'s function with the qkv and proj products
-    in K7's product launch (``window_product``; fp32 sums, one rounding)
-    and the biased, masked softmax attention through K15's wrapper (fp32
-    scores and softmax) on [B*nW, nH, N, hd] heads; the head split and
-    merge are plain gathers.  `packed` (inference only):
-    ``pack_wide_attention``."""
-    bw, n, c = xw.shape
-    nh = w.num_heads
-    pq, pp = packed or (None, None)
-    qkv = window_product(xw.reshape(bw * n, c), w.wqkv, w.bqkv, pq)
-    q, k, v = qkv.reshape(bw, n, 3, nh, c // nh).permute(2, 0, 3, 1, 4).unbind(0)
-    out = fused_window_attention(q, k, v, rpb, mask, w.scale).transpose(1, 2)
-    return window_product(out.reshape(bw * n, c), w.wproj, w.bproj, pp).reshape(bw, n, c)
+    tail_rows(c)  # raises past the tail kernel's widths
+    return "window_attention"
 
 
 def k5w16_ok(ws: int, c: int, heads: int, hidden: int, qkv_bias: bool = True) -> bool:
@@ -480,14 +433,25 @@ def _round16(v: int) -> int:
     return -(-v // 16) * 16
 
 
+def tail_rows(c: int) -> int:
+    """The tail kernel's pixels a block at C channels: the most of 64, 32
+    and 16 whose shared memory (x1 fp32 and LN2's output bf16 per row,
+    the 128-column hidden chunk, the warps' epilogue tiles) fits; C <=
+    528, 1104 and 2272.  Raises ValueError past that."""
+    ck = _round16(c)
+    for t in TAIL_ROWS:
+        if t * ck * 4 + t * (ck + 8) * 2 + t * 136 * 2 + t * 4 + 8 * 256 * 4 <= TAIL_SMEM:
+            return t
+    raise ValueError(f"fused_block_tail: C={c} leaves no room for 16 rows in the tail "
+                     f"kernel's shared memory (C <= 2272)")
+
+
 @torch.no_grad()
 def pack_block_tail(g2, b2, wfc1, bfc1, wfc2, bfc2) -> PackedBlockTail:
     """Lay the raw LN2 and MLP weights out for the tail kernel: once per
     loaded weights at inference, on every call in training."""
     hidden, c = int(wfc1.shape[0]), int(wfc1.shape[1])
-    if c > TAIL_MAX_C:
-        raise ValueError(f"fused_block_tail: the kernel takes C <= {TAIL_MAX_C}, got C={c} "
-                         f"(ROADMAP Queue 3)")
+    tail_rows(c)
     ck, hk = _round16(c), _round16(hidden)
     bf = torch.bfloat16
     return PackedBlockTail(
@@ -530,7 +494,7 @@ def _launch_tail(x, attn, packed: PackedBlockTail, ws, shift, gelu_approx, scale
             packed.g2.data_ptr(), packed.b2.data_ptr(), packed.wfc1.data_ptr(),
             packed.bfc1.data_ptr(), packed.wfc2.data_ptr(), packed.bfc2.data_ptr(),
             _ptr(scales), b, h, wd, c, packed.hidden, ws, shift, int(bool(gelu_approx)), LN_EPS,
-            _lib.stream_of(x))
+            tail_rows(c), _lib.stream_of(x))
     _lib.check_status(status, "sr_swin_tail_bf16")
     launches_tail.count += 1
     return y
@@ -933,7 +897,7 @@ K5W16_BF16_COLS = 5 * CP + 2 * HIDP + 3 * CP
 
 
 def _launch_bwd16(ct, x, packed: PackedSwinBlock, shift, mask, gelu_approx, scales, extra=None):
-    """The block backward at ws 16: LN1 (K2) and qkv (K7's qkv launch)
+    """The block backward at ws 16: LN1 (K2) and qkv (K7's product launch)
     recomputed into the workspace, then K5w16's per-window kernel, the
     weight-gradient products and the ordered reductions.  Returns (dx,
     packed-space fp32 gradients, d extra or None); counts one K5w16

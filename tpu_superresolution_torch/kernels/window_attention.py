@@ -37,7 +37,15 @@ shapes alone (the same answer on every call and device):
   (window, head, 64-query tile) on K7's wmma core, keys streamed in
   64-row tiles; hd <= 32.  It keeps the other shapes of hd <= 32 (K16's
   DAT windows, HAT-SRx4's 256 x 576, masked windows), where it is as
-  fast or faster.
+  fast or faster;
+- "stream" (``csrc/window_attn_stream.cu``, K7's attention kernel): the
+  same persistent, head-major wgmma design whose ring items are a 64-row
+  query tile and a key chunk (an online softmax across chunks) where a
+  whole unit does not fit two stages, heads padded to 16, 32 or 64 dims
+  or, past 64, in 64-dim blocks with P V in passes of up to 128 columns;
+  every shape the other two do not take: heads of more than 64 dims, and
+  (window, head) units too large for the wgmma kernel's one-stage design
+  (ws 32 at hd 33-64).  ``stream_plan`` decides its launch.
 
 Each wrapper counts its own launches, whichever kernel runs.  The
 gradient is torch autograd of the plain version, as the JAX custom_vjp
@@ -56,7 +64,7 @@ import torch
 
 from tpu_superresolution_torch.kernels import _lib
 
-MAX_HD = 64       # heads of up to 64 dims (both routes pad them)
+WG_MAX_HD = 64    # the wgmma kernel's heads (padded to 16, 32 or 64 dims)
 TILED_MAX_HD = 32  # the tiled kernel's padded head dim
 # csrc/window_attn_wg.cu: query rows a tile, the fast path's compiled
 # 16-key slice counts (the general path's chunk is the last), ring stages
@@ -165,27 +173,117 @@ def wg_ctas_per_head(bw: int, nh: int, sms: int) -> int:
     return max(1, min(bw, sms // nh))
 
 
+# csrc/window_attn_stream.cu: query rows a tile, ring stages at most
+STREAM_Q_TILE = 64
+STREAM_MAX_STAGES = 4
+
+
+def head_block(hd: int) -> int:
+    """The stream kernel's head block: 16, 32 or 64 dims (heads past 64
+    dims take ceil(hd / 64) blocks of 64)."""
+    return 16 if hd <= 16 else 32 if hd <= 32 else 64
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamPlan:
+    """How csrc/window_attn_stream.cu runs one shape, decided here and
+    only checked by the C entry: the head block `hb` and its count `nb`,
+    O's 64-dim blocks a pass `ob` (two at hd 65-128, so that P V runs
+    once; past 128 dims, passes of 128 columns), 16-key slices a chunk
+    `ns` (8: 128-key chunks, the row of S a thread holds in 64 registers;
+    4 for a whole unit of at most 64 keys), `whole` (an item is a whole
+    (window, head) unit, where two of them fit) or a 64-row query tile
+    and one key chunk an item, its ring stages and shared memory."""
+
+    hb: int
+    nb: int
+    ob: int
+    ns: int
+    whole: bool
+    stages: int
+    smem: int
+
+    @property
+    def passes(self) -> int:
+        return -(-self.nb // self.ob)
+
+
+def _a1024(n: int) -> int:
+    return -(-n // 1024) * 1024
+
+
+@functools.lru_cache(maxsize=256)
+def stream_plan(nq: int, nk: int, hd: int, ws: int = 0) -> StreamPlan:
+    """The stream kernel's plan at a shape; `ws` > 0: the "rel" form (the
+    (2ws-1)^2-entry bias table resident, a token code array an item)."""
+    hb = head_block(hd)
+    nb = -(-hd // hb)
+    ob = 2 if hb == 64 and nb > 1 else 1
+    rb = 2 * hb
+    nqt = -(-nq // STREAM_Q_TILE)
+    table = -(-(2 * ws - 1) ** 2 * 4 // 16) * 16 if ws else 0
+    fixed = 1024 + 2048 + 2 * STREAM_Q_TILE * ob * hb * 2 + table + 16 * STREAM_MAX_STAGES
+    # a whole unit: its keys in chunks of 64 (at most 64 keys) or 256 (or
+    # 128 past 64 dims), each chunk's rows all allocated (S reads them)
+    ns = 4 if ob == 1 and nk <= 64 else 8
+    kc = 16 * ns
+    nkc = -(-nk // kc)
+    codes = _a1024(nkc * kc * 4) if ws else 0
+    whole = nb * (_a1024(nqt * STREAM_Q_TILE * rb) + 2 * _a1024(nkc * kc * rb)) + codes
+    if fixed + 2 * whole <= WG_SMEM_LIMIT:
+        stages = min(STREAM_MAX_STAGES, (WG_SMEM_LIMIT - fixed) // whole)
+        return StreamPlan(hb, nb, ob, ns, True, stages, fixed + stages * whole)
+    ns = 8
+    kc = 16 * ns
+    codes = _a1024(-(-nk // kc) * kc * 4) if ws else 0
+    item = nb * (_a1024(STREAM_Q_TILE * rb) + 2 * _a1024(kc * rb)) + codes
+    stages = min(STREAM_MAX_STAGES, (WG_SMEM_LIMIT - fixed) // item)
+    if stages < 1:
+        raise ValueError(f"window attention: one item of the stream kernel at hd={hd} "
+                         f"({item} bytes) does not fit beside its {fixed} fixed bytes")
+    return StreamPlan(hb, nb, ob, ns, False, stages, fixed + stages * item)
+
+
 @functools.lru_cache(maxsize=256)
 def k15_route(nq: int, nk: int, hd: int, masked: bool = False, split_p: bool = False) -> str:
     """The kernel for an attention of `nq` queries against `nk` keys in
     heads of `hd` dims, with or without a mask, with P rounded once (K15)
-    or in two parts (K16): "wgmma" for heads of 33-64 dims, and for K15's
+    or in two parts (K16): "tiled" (the first design) for the shapes of hd
+    <= 32 the wgmma kernel is slower at (K16's DAT windows, HAT-SRx4's 256
+    x 576, masked windows); "wgmma" for heads of 33-64 dims and K15's
     unmasked shapes of at most 64 queries and 256 keys (HAT's and
-    hat_fast's OCABs); "tiled" (the first design) for the other shapes of hd <= 32
-    (K16's DAT windows, HAT-SRx4's 256 x 576, masked windows).  Shapes
-    only; raises ValueError, naming the limit, where neither takes the
-    shape."""
-    if nq < 1 or nk < 1 or hd < 1 or hd > MAX_HD:
-        raise ValueError(f"window attention: heads of hd <= {MAX_HD} dims and at least one "
-                         f"query and key; got Nq={nq}, Nk={nk}, hd={hd} (ROADMAP Queue 3)")
+    hat_fast's OCABs), where one (window, head) unit fits its stage;
+    "stream" for the rest (heads past 64 dims, larger units).  Shapes
+    only; raises ValueError only for empty shapes."""
+    if nq < 1 or nk < 1 or hd < 1:
+        raise ValueError(f"window attention: at least one query, key and head dim; got "
+                         f"Nq={nq}, Nk={nk}, hd={hd}")
     if hd <= TILED_MAX_HD and (masked or split_p or nq > WG_Q_TILE or nk > WG_KEY_CHUNK):
         return "tiled"
-    if wg_plan(nq, nk, hd, masked, split_p) is None:
-        raise ValueError(f"window attention: one (window, head) of Nq={nq} queries and "
-                         f"Nk={nk} keys at hd={hd} takes {wg_stage_bytes(nq, nk, hd)} bytes of "
-                         f"q, k, v; the wgmma kernel holds at most "
-                         f"{WG_SMEM_LIMIT - wg_fixed_bytes(hd)} (ROADMAP Queue 3)")
-    return "wgmma"
+    if hd <= WG_MAX_HD and wg_plan(nq, nk, hd, masked, split_p) is not None:
+        return "wgmma"
+    return "stream"
+
+
+def launch_stream(q, k, v, bias, mask, codes, out, bw, nh, nq, nk, hd, scale, split_p,
+                  ws: int = 0, bulk: bool = False, tokmajor: bool = False) -> None:
+    """One launch of csrc/window_attn_stream.cu (plan from
+    ``stream_plan``): the K15 / K16 route "stream" (q, k, v [BW, nH, N,
+    hd], dense bias and mask, head-major out) or K7's attention (`bulk`:
+    q the head-split workspace; `codes` with the table as `bias`: the rel
+    form at window `ws`; `tokmajor` out)."""
+    plan = stream_plan(nq, nk, hd, ws if codes is not None else 0)
+    dev = out.device
+    status = _lib.call(
+        out, _lib.library().sr_window_attention_stream_bf16, q.data_ptr(),
+        None if k is None else k.data_ptr(), None if v is None else v.data_ptr(),
+        bias.data_ptr(), None if mask is None else mask.data_ptr(),
+        None if codes is None else codes.data_ptr(), out.data_ptr(), bw, nh, nq, nk, hd,
+        0 if mask is None else int(mask.shape[0]), 0 if codes is None else int(codes.shape[0]),
+        ws, int(bool(split_p)), float(scale), wg_ctas_per_head(bw, nh, _lib.sm_count(dev.index)),
+        plan.hb, plan.ob, plan.ns, plan.stages, int(plan.whole), int(bulk), int(tokmajor),
+        _lib.stream_of(out))
+    _lib.check_status(status, "sr_window_attention_stream_bf16")
 
 
 def _launch(q, k, v, bias, mask, scale, counter, split_p,
@@ -208,7 +306,12 @@ def _launch(q, k, v, bias, mask, scale, counter, split_p,
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(), bw, nh, nq, nk, hd,
             n_mask, int(bool(split_p)), float(scale))
-    if (route or k15_route(nq, nk, hd, mask is not None, split_p)) == "wgmma":
+    route = route or k15_route(nq, nk, hd, mask is not None, split_p)
+    if route == "stream":
+        launch_stream(q, k, v, bias, mask, None, out, bw, nh, nq, nk, hd, scale, split_p)
+        counter.count += 1
+        return out
+    if route == "wgmma":
         name = "sr_window_attention_wg_bf16"
         plan = wg_plan(nq, nk, hd, mask is not None, bool(split_p))
         status = _lib.call(q, _lib.library().sr_window_attention_wg_bf16, *args,
@@ -272,7 +375,7 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K15: window attention of q [B*nW, nH, Nq, hd] against k, v [B*nW,
     nH, Nk, hd] with bias [nH, Nq, Nk] and an optional mask [nW, Nq, Nk]
     (window w takes mask[w % nW]): the plain version for CPU tensors, K15
-    for CUDA tensors (bf16 q, k, v, hd <= 64; ``k15_route``), through
+    for CUDA tensors (bf16 q, k, v, any hd; ``k15_route``), through
     ``BatchedWindowAttentionFunction`` when a gradient is wanted."""
     return _attention(q, k, v, bias, mask, scale, launches_rect, K15_SPLIT_P,
                       "fused_window_attention")

@@ -13,11 +13,10 @@ network_swinir.py:618-851).
   cyclic shift in the kernel's addressing), or, for any other window or
   for widths outside the block kernel (C up to 256, up to 8 heads), K1's
   function in three kernels: K2 for LN1, K7 for the window attention
-  and K1's tail kernel for the residuals, LN2 and the MLP (the cyclic
-  shift and window partition between them as plain gathers), or, past
-  those widths ("wide": C 257-512, more than 8 heads or hd 33-64), the
-  same with K7's product launch for qkv and proj around K15's biased,
-  masked window attention.  The
+  (any width, head count, head dim and window; at inference its bias
+  and shift mask in the compact table + token-code form) and K1's tail
+  kernel for the residuals, LN2 and the MLP (the cyclic shift and window
+  partition between them as plain gathers).  The
   LayerNorms outside blocks are K2, the trunk 3x3 convs K3 and the
   composed reconstruction conv K4.  ``conv_first``, the mean shift, the reflect
   pad, pixel shuffles and the exact-mode chain are plain torch, as the
@@ -54,9 +53,7 @@ from tpu_superresolution_torch.kernels.fused_block import (
     k5w16_ok,
     pack_block_tail,
     pack_block_weights,
-    pack_wide_attention,
     swin_block_plain,
-    wide_window_attention,
     window_block_k5w16,
 )
 from tpu_superresolution_torch.kernels.layernorm import layernorm
@@ -76,7 +73,11 @@ from tpu_superresolution_torch.models.blocks import (
     reference_init,
     upsample_and_last,
 )
-from tpu_superresolution_torch.ops.window import relative_position_bias, shift_mask_tensor
+from tpu_superresolution_torch.ops.window import (
+    relative_position_bias,
+    shift_mask_tensor,
+    window_codes_tensor,
+)
 
 class WindowAttention(nn.Module):
     """W-MSA with learned relative position bias (network_swinir.py:65-145).
@@ -150,8 +151,7 @@ class SwinBlock(nn.Module):
         route = block_route(ws, wts.dim, wts.num_heads, int(wts.wfc1.shape[0]),
                             wts.bqkv is not None)
         if route != "block":
-            return self._window_attention_route(x, wts, ws, shift, mask, branch_scales, extra,
-                                                wide=route == "wide")
+            return self._window_attention_route(x, wts, ws, shift, mask, branch_scales, extra)
         packed = None
         if x.is_cuda:
             # in training the kernels' autograd function packs on every call
@@ -161,39 +161,34 @@ class SwinBlock(nn.Module):
                                    packed=packed, branch_scales=branch_scales)
 
     def _window_attention_route(self, x, wts: SwinBlockWeights, ws: int, shift: int, mask,
-                                branch_scales, extra, wide: bool = False) -> torch.Tensor:
+                                branch_scales, extra) -> torch.Tensor:
         """K1's function for blocks outside the block kernel:
         ``swin_block_plain``'s composition with K2 for LN1, the cyclic
         shift and window partition as plain gathers, K7 on [B*nW, N, C]
-        (or, on the "wide" route, ``wide_window_attention``: K7's product
-        launch for qkv and proj around K15's attention) and K1's tail
-        kernel (attention residual through the window reverse and
-        unshift, `extra`, LN2, MLP, residual); each wrapper's plain
-        version on the CPU.  At inference on CUDA the kernels' weights
-        (the gathered bias among them) are packed once per loaded
-        weights.  In training on CUDA a block that ``k5w16_ok`` takes
+        and K1's tail kernel (attention residual through the window
+        reverse and unshift, `extra`, LN2, MLP, residual); each wrapper's
+        plain version on the CPU.  At inference on CUDA the kernels'
+        weights (with the relative-position table) are packed once per
+        loaded weights, and K7 takes the bias and mask as the table and
+        the map's token codes.  In training on CUDA a block that ``k5w16_ok`` takes
         (ws 16) runs that composition forward and K5w16 backward
         (``fused_block.window_block_k5w16``); elsewhere the backward is
         autograd of the wrappers."""
-        pa = pt = None
+        pa = pt = codes = None
         if x.is_cuda:
             def pack():
-                rpb = relative_position_bias(wts.table, ws)
-                return ((rpb, pack_wide_attention(wts)) if wide else
-                        pack_window_attention(wts.wqkv, wts.bqkv, wts.wproj, wts.bproj, rpb),
+                return (pack_window_attention(wts.wqkv, wts.bqkv, wts.wproj, wts.bproj,
+                                              table=wts.table, ws=ws),
                         pack_block_tail(wts.g2, wts.b2, wts.wfc1, wts.bfc1, wts.wfc2, wts.bfc2))
 
-            pa, pt = self._packed.get(list(self.parameters()),
-                                      ("wide" if wide else "k7", ws, x.device), pack,
+            pa, pt = self._packed.get(list(self.parameters()), ("k7", ws, x.device), pack,
                                       lambda: (None, None))
+            codes = window_codes_tensor(x.shape[1], x.shape[2], ws, shift, x.device)
 
         def attention(xw, w, ws, mask):
-            if wide:
-                rpb, pw = pa if pa is not None else (relative_position_bias(w.table, ws), None)
-                return wide_window_attention(xw, w, rpb, mask, pw)
             rpb = None if pa is not None else relative_position_bias(w.table, ws)
             return fused_window_attention(xw, w.wqkv, w.bqkv, w.wproj, w.bproj, rpb, mask,
-                                          packed=pa)
+                                          packed=pa, codes=codes)
 
         def route(x, w, scales, extra):
             return swin_block_plain(

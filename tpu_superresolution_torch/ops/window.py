@@ -68,6 +68,45 @@ def shift_mask_tensor(h: int, w: int, ws: int, shift: int,
     return torch.from_numpy(shift_attn_mask(h, w, ws, shift)).to(device)
 
 
+def shift_region_ids(h: int, w: int, ws: int, shift: int) -> np.ndarray:
+    """Per-token region labels [nW, ws*ws] of the shifted-window mask
+    (SwinIR's calculate_mask img_mask, network_swinir.py:216-237): two
+    tokens of a window attend iff their labels match, so that
+    ``shift_attn_mask`` is -100 where they differ.  All zero without a
+    shift."""
+    n_windows = (h // ws) * (w // ws)
+    if shift == 0:
+        return np.zeros((n_windows, ws * ws), dtype=np.int32)
+    img_mask = np.zeros((h, w), dtype=np.int32)
+    cnt = 0
+    for hs in (slice(0, -ws), slice(-ws, -shift), slice(-shift, None)):
+        for wsl in (slice(0, -ws), slice(-ws, -shift), slice(-shift, None)):
+            img_mask[hs, wsl] = cnt
+            cnt += 1
+    m = img_mask.reshape(h // ws, ws, w // ws, ws).transpose(0, 2, 1, 3)
+    return np.ascontiguousarray(m.reshape(-1, ws * ws))
+
+
+def window_token_codes(h: int, w: int, ws: int, shift: int) -> np.ndarray:
+    """K7's compact form of the bias gather and the shift mask: one int32
+    code per token, [nW, ws*ws] with a shift (window w takes row w % nW)
+    or [1, ws*ws] without: bits 0-15 the token's position y (2ws-1) + x,
+    so that ``relative_position_index``[i, j] = pos_i - pos_j + (ws-1)
+    (2ws-1) + ws-1, and bits 16-31 its ``shift_region_ids`` label."""
+    yy, xx = np.divmod(np.arange(ws * ws), ws)
+    pos = (yy * (2 * ws - 1) + xx).astype(np.int32)[None]
+    if shift == 0:
+        return pos
+    return (pos | (shift_region_ids(h, w, ws, shift) << 16)).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=32)
+def window_codes_tensor(h: int, w: int, ws: int, shift: int,
+                        device: torch.device) -> torch.Tensor:
+    """`window_token_codes` as an int32 tensor on `device`, built once."""
+    return torch.from_numpy(window_token_codes(h, w, ws, shift)).to(device)
+
+
 @functools.lru_cache(maxsize=8)
 def relative_position_index(ws: int, ws_w: Optional[int] = None) -> np.ndarray:
     """Swin relative-position index table [N, N] of a ws x ws window, or
