@@ -55,16 +55,17 @@ Phases (a failure in any raises, and the script exits non-zero):
             timed beside SDPA, and K11 (depthwise 3x3) at [8,64,64,180]
             and [25,64,64,360], timed beside cuDNN's grouped conv (both
             K11 kernels, "rows" and "tiles", timed and held equal bit
-            for bit); K16 also at a branch of hd 44; then
-            K15 (window attention, Nq queries against Nk keys: the wgmma
-            kernel or K16's tiled one, by shape) at HAT's OCAB on the
+            for bit); K16 also at branches of hd 44 and 64; then
+            K15 (window attention, Nq queries against Nk keys: the wgmma,
+            tiled or stream kernel, by shape) at HAT's OCAB on the
             bench batch ([2500,6,49,16] against 100 keys), hat_fast's
             ([1600,6,64,16] against 144), HAT-SRx4's ([400,6,256,30]
             against 576) and its train step's ([128,...]), square with
-            the shift mask ([1600,6,64,30], mask [64,64,64]), at hd 44
-            and 64, and on the stream kernel (hd 96; a masked unit of
-            1024 keys), timed beside SDPA (both kernels where both take
-            the shape); then the ws-16 training
+            the shift mask ([1600,6,64,30], mask [64,64,64]), at hd 44,
+            45 and 64, hd 96 and a masked unit of 1024 keys, timed
+            beside SDPA; at every K16 and K15 row each kernel that takes
+            the shape is checked and timed, and a route check line says
+            whether k15_route's kernel was the fastest; then the ws-16 training
             kernels at the HAT-SRx4 train step's shapes: K5w16 (the K7
             route's block backward) at [8,64,64,180] shift 8 with `extra`
             and branch scales, K8w16 and K8bw16 (the OCAB core and its
@@ -260,7 +261,8 @@ KERNELS = {
                 source="tpu_superresolution_torch/csrc/batched_attn.cu",
                 replaces="tpu_superresolution_tpu/ops/pallas/window_attention.py:352"),
     # HAT's OCAB: the wgmma kernel (window_attention.k15_route; K16's
-    # tiled kernel in csrc/batched_attn.cu keeps the other shapes of hd <= 32)
+    # tiled kernel in csrc/batched_attn.cu and K7's stream kernel take the
+    # other shapes)
     "K15": dict(name="fused_window_attention", route="cuda",
                 source="tpu_superresolution_torch/csrc/window_attn_wg.cu",
                 replaces="tpu_superresolution_tpu/ops/pallas/window_attention.py:193"),
@@ -1159,16 +1161,17 @@ def phase_rect_attention_kernels(res):
     case (SwinIR-M's bench batch at ws 8, [1600, 6, 64, 30] with the
     shift mask [64, 64, 64]), hd 44 (C 264 in 6 heads) at HAT's OCAB,
     at the OCAB of window 16 and square with the shift mask, hd 64, and
-    the "stream" route's shapes: hd 96 and a masked unit of 1024 keys at
-    hd 64.  Unscaled q with scale
+    odd heads (hd 45, unmasked and masked) and HAT embed 264's masked 49-token HAB
+    units, and the "stream" route's shapes: hd 96 and a masked unit of
+    1024 keys at hd 64.  Unscaled q with scale
     hd^-0.5, as the OCAB calls it.  Each output in bf16 ulps against the
     plain bf16 and fp32 versions; kernel, plain and SDPA times (bias +
     mask as a bf16 attn_mask) and the bound, into `res`.  Beside the
-    wrapper's call (its route, ``k15_route``), the call back to back and,
-    at hd <= 32, both kernels (the tiled one with P rounded to bf16 once
-    and in two bf16 parts, the wgmma one) are timed at each shape, and at
-    hd % 8 == 0 the element loads that rows off a 16-byte boundary take,
-    which must give the same output bit for bit."""
+    wrapper's call (its route, ``k15_route``), the call back to back and
+    every kernel that takes the shape (``_attention_forms``) are timed at
+    each shape, and at hd % 8 == 0 the element loads that rows off a
+    16-byte boundary take, which must give the same output bit for
+    bit."""
     import torch
     import torch.nn.functional as F
 
@@ -1189,6 +1192,13 @@ def phase_rect_attention_kernels(res):
             ("HAT embed 264 at ws 16 (ows 24, hd 44)", 64, 6, 256, 576, 44, None),
             ("square, masked, hd 44 (C 264, ws 8, shift 4)", 1600, 6, 64, 64, 44, (64, 8, 4)),
             ("hd 64 (C 256, 4 heads; ws 8, ows 12)", 1600, 4, 64, 144, 64, None),
+            # odd heads (element loads; the wgmma kernel unmasked, the
+            # stream kernel masked) and masked 49-token units
+            ("OCAB hd 45 (C 180 in 4 heads; ws 8, ows 12)", 1600, 4, 64, 144, 45, None),
+            ("square, masked, hd 45 (C 180 in 4 heads, ws 8, shift 4)", 256, 4, 64, 64, 45,
+             (64, 8, 4)),
+            ("HAT embed 264 HAB, masked, hd 44 (ws 7, shift 3)", 400, 6, 49, 49, 44,
+             (70, 7, 3)),
             # the "stream" route (csrc/window_attn_stream.cu): heads past 64
             # dims (an OCAB at C 576 in 6 heads) and a unit of 1024 keys
             ("stream: OCAB hd 96 (C 576, 6 heads; ws 7, ows 10)", 400, 6, 49, 100, 96, None),
@@ -1214,25 +1224,11 @@ def phase_rect_attention_kernels(res):
                  f"{', mask ' + str(list(mask.shape)) if masked else ''}", out, ref16, ref32,
                  cuda_ms(run), cuda_ms(plain), _attn_work(bw, nh, nq, nk, hd, n_mask),
                  cuda_ms(lib))
-        bound = ULP_BOUND["K15"] * bf16_ulp(float(ref32.abs().max()))
         route = kw.k15_route(nq, nk, hd, masked, kw.K15_SPLIT_P)
         forms = [f"call {cuda_ms(run):.4f} ms, b2b {queued_ms(run):.4f} (SDPA b2b "
                  f"{queued_ms(lib):.4f})"]
-        # the other kernel where both take the shape (hd <= 32), and the
-        # other form of P on the tiled kernel
-        for other, split in (("tiled", True), ("tiled", False), ("wgmma", False)):
-            if hd > 32:  # the wgmma or the stream kernel's alone
-                continue
-            form = lambda other=other, split=split: kw._launch(
-                q, k, v, bias, mask, scale, kw.launches_rect, split, route=other)
-            err = float((form().float() - ref32.float()).abs().max())
-            if not err <= bound:
-                raise RuntimeError(f"K15 {label}: the {other} kernel with "
-                                   f"{'split' if split else 'bf16'} P is {err:.3e} off the plain "
-                                   f"fp32 version (bound {bound:.3e})")
-            forms.append(f"{other} {'split' if split else 'bf16'} P {cuda_ms(form):.4f} ms "
-                         f"(b2b {queued_ms(form):.4f}; max_abs_err vs plain fp32 {err:.3e}, "
-                         f"bound {bound:.3e})")
+        forms += _attention_forms("K15", label, q, k, v, bias, mask, scale, kw.K15_SPLIT_P,
+                                  ref32)
         if hd % 8 == 0:
             qu, ku, vu = (_unaligned(t) for t in (q, k, v))
             form = lambda: kw._launch(qu, ku, vu, bias, mask, scale, kw.launches_rect,
@@ -1244,7 +1240,61 @@ def phase_rect_attention_kernels(res):
         log(f"[kernels] K15 {label} route {route} forms: {'; '.join(forms)} (wrapper: "
             f"{'split' if kw.K15_SPLIT_P else 'bf16'} P, 16-byte loads where aligned)")
         del out, ref16, ref32, am
+    _log_route_rows()
     return res
+
+
+# (kernel, row, the route's kernel and form of P, {form: b2b ms}) of
+# every K15 / K16 row: the measurements that k15_route's choices stand on
+_ROUTE_ROWS = []
+
+
+def _attention_forms(key, label, q, k, v, bias, mask, scale, split_p, ref32):
+    """Every kernel that takes the shape of a K15 / K16 call, each checked
+    against the plain fp32 version (within ULP_BOUND[key] bf16 ulps) and
+    timed alone and back to back: the tiled kernel at hd <= 32 (P in two
+    bf16 parts and rounded once), the wgmma kernel where ``wg_plan``
+    places a unit, and the stream kernel (every shape), the last two with
+    the wrapper's form of P.  Returns the forms' log strings."""
+    from tpu_superresolution_torch.kernels import window_attention as kw
+
+    bw, nh, nq, hd = q.shape
+    nk = k.shape[2]
+    masked = mask is not None
+    bound = ULP_BOUND[key] * bf16_ulp(float(ref32.abs().max()))
+    counter = kw.launches_rect if key == "K15" else kw.launches
+    routes = []
+    if hd <= kw.TILED_MAX_HD:
+        routes += [("tiled", True), ("tiled", False)]
+    if hd <= kw.WG_MAX_HD and kw.wg_plan(nq, nk, hd, masked, bool(split_p)) is not None:
+        routes.append(("wgmma", split_p))
+    routes.append(("stream", split_p))
+    forms, b2b = [], {}
+    for other, split in routes:
+        form = lambda other=other, split=split: kw._launch(q, k, v, bias, mask, scale, counter,
+                                                           split, route=other)
+        err = float((form().float() - ref32.float()).abs().max())
+        if not err <= bound:
+            raise RuntimeError(f"{key} {label}: the {other} kernel with "
+                               f"{'split' if split else 'bf16'} P is {err:.3e} off the plain "
+                               f"fp32 version (bound {bound:.3e})")
+        name = f"{other} {'split' if split else 'bf16'} P"
+        b2b[name] = queued_ms(form)
+        forms.append(f"{name} {cuda_ms(form):.4f} ms (b2b {b2b[name]:.4f}; max_abs_err vs "
+                     f"plain fp32 {err:.3e}, bound {bound:.3e})")
+    wrapper = f"{kw.k15_route(nq, nk, hd, masked, split_p)} {'split' if split_p else 'bf16'} P"
+    _ROUTE_ROWS.append((key, label, wrapper, b2b))
+    return forms
+
+
+def _log_route_rows():
+    """One line a K15 / K16 row: each kernel's back-to-back time against
+    the fastest's, and whether the route's choice is the fastest."""
+    for key, label, wrapper, b2b in _ROUTE_ROWS:
+        best = min(b2b, key=b2b.get)
+        log(f"[kernels] route check {key} {label}: route {wrapper} "
+            f"{'(fastest)' if wrapper == best else f'(fastest: {best})'}; "
+            + ", ".join(f"{n} {t / b2b[best]:.2f}x" for n, t in b2b.items()))
 
 
 def _unaligned(t):
@@ -1263,8 +1313,8 @@ def phase_dat_train_kernels(res):
     [800, 3, 128, 30] (DATConfig(): windows 8 x 16 of a 64^2 map, 3 heads
     a branch of hd 30), each with and without the shift mask, at the
     published DAT x4's N 256 ([400, 3, 256, 30], windows 8 x 32) and at
-    branches of hd 44 and 64 (C 176 and 256 in 4 heads: the wgmma
-    kernel); K11
+    branches of hd 44 and 64 (C 176 and 256 in 4 heads: the stream
+    kernel), every kernel that takes a row timed (``_attention_forms``); K11
     (depthwise 3x3) at the train step's conv branch [8, 64, 64, 180] and
     the published x4's sg_conv [25, 64, 64, 360].  Each output in bf16
     ulps against the plain bf16 and fp32 versions; kernel, plain and
@@ -1302,6 +1352,12 @@ def phase_dat_train_kernels(res):
                      f"({kw.k15_route(n, n, hd, masked, kw.K16_SPLIT_P)} route)",
                      out, ref16, ref32, cuda_ms(run), cuda_ms(plain),
                      _attn_work(bw, nh, n, n, hd, n_mask), cuda_ms(lib))
+            label = f"[{bw},{nh},{n},{hd}] {'masked' if masked else 'unmasked'}"
+            route = kw.k15_route(n, n, hd, masked, kw.K16_SPLIT_P)
+            forms = _attention_forms("K16", label, q, k, v, bias, mask, 1.0, kw.K16_SPLIT_P,
+                                     ref32)
+            log(f"[kernels] K16 {label} route {route} forms: {'; '.join(forms)} (wrapper: "
+                f"{'split' if kw.K16_SPLIT_P else 'bf16'} P)")
             del out, ref16, ref32, am
     for shape in ((8, 64, 64, 180), (25, 64, 64, 360)):
         c = shape[-1]
@@ -1547,15 +1603,27 @@ def phase_window_kernels(res):
         ref16 = plain()
         ref32 = cc.fused_ln_cab_convs_plain(x.float(), g, b, k1, c1, k2, c2)
         torch.cuda.synchronize()
-        t_kernel, t_composed, t_convs = cuda_ms(run), cuda_ms(composed), cuda_ms(convs)
+        # each timed twice, in the order kernel, compositions, then back,
+        # alone and back to back; the mean of the two passes
+        fns = {"kernel": run, "K2 + cuDNN convs + GELU": composed, "K2 + K3 (GELU) + K3": convs}
+        order = list(fns) + list(fns)[::-1]
+        alone, b2b = ({n: [] for n in fns} for _ in range(2))
+        for n in order:
+            alone[n].append(cuda_ms(fns[n]))
+            b2b[n].append(queued_ms(fns[n]))
+        mean = lambda v: sum(v) / len(v)
+        t = {n: mean(v) for n, v in alone.items()}
+        q = {n: mean(v) for n, v in b2b.items()}
         plan = packed.plan
         _compare(res, "K12", f"{label} {list(shape)} {c} -> {cm} -> {c} (N1 {plan.n1}, N2 "
                  f"{plan.n2} x {plan.passes}; route {cc.cab_route(c, cm)})", out, ref16, ref32,
-                 t_kernel, cuda_ms(plain), _k12_work(math.prod(shape[:3]), c, cm))
-        log(f"[kernels] K12 {label}: kernel {t_kernel:.4f} ms (b2b {queued_ms(run):.4f}); "
-            f"K2 + cuDNN convs + GELU {t_composed:.4f} ms (b2b {queued_ms(composed):.4f}); "
-            f"K2 + K3 (GELU) + K3 {t_convs:.4f} ms (b2b {queued_ms(convs):.4f}); kernel / better "
-            f"composition {t_kernel / min(t_composed, t_convs):.2f}x")
+                 t["kernel"], cuda_ms(plain), _k12_work(math.prod(shape[:3]), c, cm))
+        best = lambda d: min(d[n] for n in fns if n != "kernel")
+        log(f"[kernels] K12 {label}: " + "; ".join(
+            f"{n} {t[n]:.4f} ms ({' / '.join(f'{x:.4f}' for x in alone[n])}), b2b {q[n]:.4f} "
+            f"({' / '.join(f'{x:.4f}' for x in b2b[n])})" for n in fns)
+            + f"; kernel / better composition {t['kernel'] / best(t):.2f}x alone, "
+            f"{q['kernel'] / best(q):.2f}x b2b")
         del out, ref16, ref32
     return res
 

@@ -108,9 +108,9 @@ def stream_emulated(q, k, v, bias, mask, scale, per_head, plan, rel=None):
     (one chunk a whole unit's item, or item by item), with an online
     softmax in the log2 domain; the bias (times log2 e) from the dense
     [nH, Nq, Nk] `bias` and [nW, Nq, Nk] `mask`, or with `rel` = (table,
-    codes, ws) from the table at pos_q - pos_k + (ws-1)(2ws-1) + ws-1
-    and -100 where the codes' regions differ; -inf past Nk.  Returns the
-    output [BW, nH, Nq, hdw]."""
+    codes, ws, shifted) from the table at pos_q - pos_k + (ws-1)(2ws-1) +
+    ws-1 and, where `shifted`, -100 where the codes' regions differ; -inf
+    past Nk.  Returns the output [BW, nH, Nq, hdw]."""
     bw, nh, nq, hdw = q.shape
     nk = k.shape[2]
     kc = 16 * plan.ns
@@ -120,12 +120,13 @@ def stream_emulated(q, k, v, bias, mask, scale, per_head, plan, rel=None):
         h, g = divmod(cta, per_head)
         for w in range(g, bw, per_head):
             if rel is not None:
-                table, codes, ws = rel
+                table, codes, ws, shifted = rel
                 cw = codes[w % codes.shape[0]]
                 pos, reg = cw & 0xFFFF, cw >> 16
                 idx = pos[:, None] - pos[None, :] + (ws - 1) * (2 * ws - 1) + ws - 1
                 bl = table[:, h][idx.long()] * LOG2E
-                bl = bl + torch.where(reg[:, None] != reg[None, :], -100.0, 0.0) * LOG2E
+                if shifted:
+                    bl = bl + torch.where(reg[:, None] != reg[None, :], -100.0, 0.0) * LOG2E
             else:
                 bl = bias[h] * LOG2E
                 if mask is not None:
@@ -168,14 +169,15 @@ def k7_emulated_launch(xw, packed, mask, codes=None, sms=4):
     """One K7 call, as its three kernels compute it on the card, in fp32
     torch ops: the qkv product into the head-split workspace, the stream
     attention (the rel form where `codes` is given and the weights carry
-    the table) into the token-major [BW * N, nH * hdw] output, the proj
-    product."""
+    the table, its regions masked where the block is shifted: `mask`
+    given, as the wrapper decides) into the token-major [BW * N, nH *
+    hdw] output, the proj product."""
     from tpu_superresolution_torch.kernels.window_attention import stream_plan, wg_ctas_per_head
 
     bw, n, c = xw.shape
     nh, hb, hdw = packed.num_heads, packed.hb, packed.hdw
-    rel = (packed.table, codes, packed.ws) if codes is not None and packed.table is not None \
-        else None
+    rel = (packed.table, codes, packed.ws, mask is not None) \
+        if codes is not None and packed.table is not None else None
     ws = product_emulated(xw.reshape(bw * n, c), packed.qkv, (bw, n, nh, hdw, hb))
     q, k, v = unpack_workspace(ws, bw, n, nh, hdw, hb)
     plan = stream_plan(n, n, c // nh, packed.ws if rel else 0)
@@ -307,7 +309,8 @@ def test_routes_from_static_shapes(shape, route):
     ws, c, heads, hidden = shape
     assert block_route(*shape) == block_route(*shape) == route
     hd, n = c // heads, ws * ws
-    want = "tiled" if hd <= 32 else "wgmma" if hd <= 64 and n <= 256 else "stream"
+    # masked: the tiled kernel at hd <= 32, else the stream kernel
+    want = "tiled" if hd <= 32 else "stream"
     assert k15_route(n, n, hd, True) == want
 
 
@@ -389,6 +392,36 @@ def test_k7_schedule_emulated_matches_plain(case):
     for got in (k7_emulated_launch(xw, packed, mask), k7_emulated_launch(xw, packed, mask, codes)):
         assert not torch.isnan(got).any()
         assert (got - want).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("shift", [0, 4])
+def test_k7_rel_form_shift_from_the_mask_not_the_codes(monkeypatch, shift):
+    """A map of one window takes one row of codes, which carries region
+    bits when the codes were built for a shift.  The wrapper tells the
+    attention launch that the block is shifted from the caller's mask (not
+    from the codes' rows), and the rel form then reproduces the plain
+    version with that mask, or unmasked where the mask is None."""
+    from tpu_superresolution_torch.kernels import fused_attention as fa
+    from tpu_superresolution_torch.ops.window import shift_mask_tensor, window_codes_tensor
+
+    ws, c, nh = 8, 32, 2
+    xw, wqkv, bqkv, wproj, bproj, table, rpb, _, _ = _k7_case(1, ws, c, nh, 0, 11)
+    cpu = torch.device("cpu")
+    codes = window_codes_tensor(ws, ws, ws, 4, cpu)  # one window, region bits set
+    assert codes.shape[0] == 1 and bool((codes >> 16).any())
+    mask = shift_mask_tensor(ws, ws, ws, shift, cpu) if shift else None
+    seen = []
+    monkeypatch.setattr(fa, "_launch_product",
+                        lambda x, p, split=None: torch.zeros(x.shape[0], p.c_out))
+    monkeypatch.setattr(fa, "launch_stream", lambda *a, **k: seen.append(k["shifted"]))
+    packed = fa.pack_window_attention(wqkv, bqkv, wproj, bproj, table=table, ws=ws)
+    fa._launch(xw.bfloat16(), packed, mask, codes)
+    assert seen == [bool(shift)]
+    packed = fa.pack_window_attention(wqkv, bqkv, wproj, bproj, rpb, table, ws,
+                                      dtype=torch.float32)
+    want = fa.window_attention_plain(xw, wqkv, bqkv, wproj, bproj, rpb, mask, (c // nh) ** -0.5)
+    got = k7_emulated_launch(xw, packed, mask, codes)
+    assert (got - want).abs().max().item() <= TOL
 
 
 def test_k15_stream_route_emulated_matches_plain():

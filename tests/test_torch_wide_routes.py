@@ -20,12 +20,11 @@ fp32 on the CPU:
   ``window_attention_reference`` and the JAX kernel in interpret mode;
 - K7's product launch (its qkv and proj) from its packed operands, and
   a wide block's training through K7's autograd function;
-- ``k15_route`` by shape (the "stream" route where the others stop),
-  ``wg_plan`` (the wgmma kernel's
-  launch plan) and that kernel's schedule
-  (CTAs walking (window, head) units head-major, 64-row query tiles,
-  16-key slices, chunks with an online softmax in the log2 domain, the
-  padded bias table) written out in torch ops;
+- ``k15_route`` by shape (each kernel where chip_smoke.py measured it
+  fastest), ``wg_plan`` (the wgmma kernel's launch plan) and that
+  kernel's schedule (CTAs walking (window, head) units head-major,
+  64-row query tiles, 16-key slices, the padded bias table, the softmax
+  in the log2 domain) written out in torch ops;
 - ``dwconv_plan`` (K11's "rows" route: bands of rows, column segments,
   row buffers, a thread's fixed channels) and that route's schedule
   written out in torch ops.
@@ -192,7 +191,7 @@ def test_cab_route_by_width(c, cm, route):
     assert cab_route(c, cm) == route
 
 
-@pytest.mark.parametrize("c,cm", [(264, 88), (240, 160)])
+@pytest.mark.parametrize("c,cm", [(264, 88), (240, 160), (256, 128)])
 def test_cab_convs_route_matches_jax_reference(c, cm):
     """K2 + K3 with the GELU + K3 (``ln_cab_convs``, each wrapper's plain
     version on the CPU) against the JAX K12 reference and the port's K12
@@ -258,7 +257,7 @@ def test_ocab_hd44_matches_jax(impl, k15_emulated):
 def test_dat_branch_hd44_matches_jax(k15_emulated):
     """DAT at embed 88 in 2 heads (hd 44 a rect branch, past K9's 32):
     its spatial block on the module chain with K16's kernel path emulated
-    (the wgmma route, P in two parts), against the JAX module chain."""
+    (the stream route: P in two parts), against the JAX module chain."""
     from tpu_superresolution_torch.kernels import window_attention as kw
 
     from tests.test_torch_dat import perturbed_jax_dat, port_dat, small_dat_config
@@ -270,7 +269,7 @@ def test_dat_branch_hd44_matches_jax(k15_emulated):
     port = port_dat(cfg, variables)
     assert port.routes()[0][0][0] == "chain"
     got = port_forward(port, x)
-    assert kw.launches.count == 2 and k15_emulated == ["wgmma", "wgmma"]
+    assert kw.launches.count == 2 and k15_emulated == ["stream", "stream"]
     assert got.shape == want.shape
     assert np.abs(got - want).max() <= TOL
 
@@ -299,7 +298,7 @@ def test_plain_at_wide_heads_matches_jax(case, k15_emulated):
     """fused_window_attention_plain at hd 44, 45 and 64 against the JAX
     window_attention_reference and the JAX fused_window_attention in
     interpret mode; the wrapper's kernel path (emulated) takes the shape
-    on the wgmma route."""
+    on the wgmma route unmasked, on the stream route masked."""
     from tpu_superresolution_tpu.ops.pallas.window_attention import (
         fused_window_attention,
         window_attention_reference,
@@ -320,7 +319,7 @@ def test_plain_at_wide_heads_matches_jax(case, k15_emulated):
     assert np.abs(got - np.asarray(want)).max() <= TOL
     through = kw.fused_window_attention(*(torch.from_numpy(a) for a in (q, k, v, bias)),
                                         None if mask is None else torch.from_numpy(mask), scale)
-    assert k15_emulated == ["wgmma"]
+    assert k15_emulated == ["stream" if n_mask else "wgmma"]
     assert np.abs(through.numpy() - np.asarray(want)).max() <= TOL
 
 
@@ -334,9 +333,9 @@ _K15_ROUTES = [
     (64, 64, 30, True, False, "tiled"),     # masked square windows
     (128, 128, 30, True, True, "tiled"),    # K16: DAT's windows
     (49, 100, 44, False, False, "wgmma"),   # past the tiled kernel's hd 32
-    (256, 576, 44, False, False, "wgmma"),
-    (128, 128, 44, True, True, "wgmma"),
-    (64, 64, 64, True, False, "wgmma"),
+    (256, 576, 44, False, False, "stream"),  # past the wgmma kernel's 256 keys
+    (128, 128, 44, True, True, "stream"),
+    (64, 64, 64, True, False, "stream"),
 ]
 
 
@@ -384,63 +383,51 @@ def test_wg_ctas_cover_every_unit_once(bw, nh, sms):
     assert nh * g <= max(sms, nh)
 
 
-def _wg_emulated(q, k, v, bias, mask, scale, per_head):
+def _wg_emulated(q, k, v, bias, scale, per_head):
     """csrc/window_attn_wg.cu's schedule in fp32 torch ops: CTAs walk
     (window, head) units head-major; q, k, v padded to the head's padded
-    dims and to 64 query / 16 key rows; 64-row query tiles; keys in
-    chunks of 16 NS (the fast path's fewest slices, else 256) with an
-    online softmax in the log2 domain; the bias times log2 e, -inf past
-    Nk (the fast path's padded table), the mask likewise."""
+    dims and to 64 query rows and the plan's 16 NS keys (slices past the
+    keys read the zero tile); 64-row query tiles; the bias times log2 e
+    from the padded table (-inf past Nk, 0 past Nq) and the softmax over
+    the unit's keys in the log2 domain."""
     from tpu_superresolution_torch.kernels.window_attention import wg_plan
 
     bw, nh, nq, hd = q.shape
     nk = k.shape[2]
-    kc = 16 * wg_plan(nq, nk, hd, mask is not None, False).slices
+    kc = 16 * wg_plan(nq, nk, hd, False, False).slices
     hdp = 16 if hd <= 16 else 32 if hd <= 32 else 64
-    nqp, nkp = -(-nq // 64) * 64, -(-nk // kc) * kc
+    nqp = -(-nq // 64) * 64
     out = torch.full_like(q, float("nan"))
     for cta in range(nh * per_head):
         h, g = divmod(cta, per_head)
-        table = torch.full((nqp, nkp), float("-inf"))
+        table = torch.full((nqp, kc), float("-inf"))
         table[:, :nk] = 0.0
         table[:nq, :nk] = bias[h] * LOG2E
         for w in range(g, bw, per_head):
             qp = F.pad(q[w, h], (0, hdp - hd, 0, nqp - nq))
-            kp = F.pad(k[w, h], (0, hdp - hd, 0, nkp - nk))  # pad slices: the zero tile
-            vp = F.pad(v[w, h], (0, hdp - hd, 0, nkp - nk))
-            tb = table.clone()
-            if mask is not None:
-                tb[:nq, :nk] += mask[w % mask.shape[0]] * LOG2E
+            kp = F.pad(k[w, h], (0, hdp - hd, 0, kc - nk))  # pad slices: the zero tile
+            vp = F.pad(v[w, h], (0, hdp - hd, 0, kc - nk))
             for q0 in range(0, nqp, 64):
-                o = torch.zeros(64, hdp)
-                m = torch.full((64,), float("-inf"))
-                l = torch.zeros(64)
-                for c0 in range(0, nkp, kc):
-                    s = qp[q0:q0 + 64] @ kp[c0:c0 + kc].T * (scale * LOG2E) + tb[q0:q0 + 64,
-                                                                                 c0:c0 + kc]
-                    mn = torch.maximum(m, s.max(1).values)
-                    al = torch.exp2(m - mn)
-                    p = torch.exp2(s - mn[:, None])
-                    l = l * al + p.sum(1)
-                    o = o * al[:, None] + p @ vp[c0:c0 + kc]
-                    m = mn
+                s = qp[q0:q0 + 64] @ kp.T * (scale * LOG2E) + table[q0:q0 + 64]
+                p = torch.exp2(s - s.max(1).values[:, None])
+                o = p @ vp / p.sum(1)[:, None]
                 rows = min(64, nq - q0)
-                out[w, h, q0:q0 + rows] = (o / l[:, None])[:rows, :hd]
+                out[w, h, q0:q0 + rows] = o[:rows, :hd]
     return out
 
 
 _EMULATED = [(5, 2, 49, 100, 16, 0), (3, 2, 64, 144, 16, 0), (2, 2, 16, 36, 5, 0),
-             (4, 1, 64, 64, 44, 2), (2, 1, 100, 300, 30, 0)]
+             (4, 1, 100, 60, 44, 0), (2, 1, 70, 200, 30, 0)]
 
 
 @pytest.mark.parametrize("case", _EMULATED, ids=[f"{c[2]}x{c[3]}-hd{c[4]}-m{c[5]}"
                                                  for c in _EMULATED])
 def test_wg_schedule_emulated_matches_plain(case):
     """The wgmma kernel's schedule written out in torch (its CTA walk on
-    a card of 4 SMs, padding, key chunks and log2-domain online
-    softmax) reproduces the plain version at fp32: one chunk (HAT's 49 x
-    100, hat_fast's 64 x 144), odd head dims, a mask, and past 256 keys
-    with several query tiles."""
+    a card of 4 SMs, padding, the padded bias table and a log2-domain
+    softmax over the unit's keys) reproduces the plain version at fp32:
+    HAT's 49 x 100, hat_fast's 64 x 144, odd head dims, slices past the
+    keys (the zero tile), and several query tiles."""
     from tpu_superresolution_torch.kernels.window_attention import fused_window_attention_plain
 
     q, k, v, bias, mask = (None if a is None else torch.from_numpy(a)
@@ -448,16 +435,17 @@ def test_wg_schedule_emulated_matches_plain(case):
     from tpu_superresolution_torch.kernels.window_attention import wg_ctas_per_head
 
     scale = case[4] ** -0.5
-    got = _wg_emulated(q, k, v, bias, mask, scale, wg_ctas_per_head(case[0], case[1], 4))
-    want = fused_window_attention_plain(q, k, v, bias, mask, scale)
+    assert mask is None
+    got = _wg_emulated(q, k, v, bias, scale, wg_ctas_per_head(case[0], case[1], 4))
+    want = fused_window_attention_plain(q, k, v, bias, None, scale)
     assert not torch.isnan(got).any()
     assert (got - want).abs().max().item() <= TOL
 
 
 def test_kernel_path_wide_heads_emulated(k15_emulated):
-    """The kernel path's autograd function at hd 44 (K15) and hd 64 with
-    the mask (K16): routes, launches, and the plain version's output and
-    gradients."""
+    """The kernel path's autograd function at hd 44 (K15, the wgmma
+    route) and hd 64 with the mask (K16, the stream route): routes,
+    launches, and the plain version's output and gradients."""
     from tpu_superresolution_torch.kernels import window_attention as kw
 
     for fn, case, counter in ((kw.fused_window_attention, (3, 2, 49, 100, 44, 0),
@@ -476,7 +464,7 @@ def test_kernel_path_wide_heads_emulated(k15_emulated):
         kw.fused_window_attention_plain(*ref, mask, 0.125).sum().backward()
         for a, b in zip(leaves, ref):
             assert torch.allclose(a.grad, b.grad, atol=1e-5)
-    assert k15_emulated == ["wgmma", "wgmma"]
+    assert k15_emulated == ["wgmma", "stream"]
 
 
 _PRODUCTS = [(264, 792), (264, 264), (180, 540), (45, 7), (512, 1536)]
@@ -550,14 +538,14 @@ def test_wide_route_trains_through_the_product_function(k15_emulated, k7_emulate
 
 
 _PLANS_WG = [
-    # (Nq, Nk, hd, masked, split P): (slices, fast, units split over the consumers)
-    ((49, 100, 16, False, False), (7, True, False)),    # HAT's OCAB
-    ((64, 144, 16, False, False), (9, True, False)),    # hat_fast's
-    ((49, 100, 44, False, False), (7, True, False)),
-    ((64, 64, 45, True, False), (16, False, False)),    # masked square, odd hd
-    ((49, 49, 44, True, False), (16, False, False)),    # HAT's HAB at ws 7, hd 44
-    ((128, 128, 64, True, True), (16, False, False)),   # K16
-    ((256, 576, 44, False, False), (16, False, True)),  # one stage: both consumers a unit
+    # (Nq, Nk, hd, masked, split P): slices, or None where the kernel does not take it
+    ((49, 100, 16, False, False), 7),      # HAT's OCAB
+    ((64, 144, 16, False, False), 9),      # hat_fast's
+    ((49, 100, 44, False, False), 7),
+    ((64, 64, 45, True, False), None),     # masked square, odd hd: the stream kernel
+    ((49, 49, 44, True, False), None),     # HAT's HAB at ws 7, hd 44
+    ((128, 128, 64, True, True), None),    # K16
+    ((256, 576, 44, False, False), None),  # past 256 keys
 ]
 
 
@@ -566,21 +554,20 @@ _PLANS_WG = [
                               for (a, b, c, d, e), _ in _PLANS_WG])
 def test_wg_plan_is_what_the_entry_accepts(shape, want):
     """``wg_plan`` (the one place the wgmma kernel's launch is decided):
-    its slices and fast path, stages that pair up with the consumers (or
-    one stage whose units both consumers share, each with its own query
-    tiles), and shared memory within the limit, as the C entry checks."""
+    the fewest compiled slices that hold the keys, an even number of
+    stages (two consumers, each reusing its own) and shared memory within
+    the limit, as the C entry checks; None (and so another route) for a
+    mask, split P or more than 256 keys."""
     from tpu_superresolution_torch.kernels import window_attention as kw
 
     nq, nk, hd, masked, split = shape
     plan = kw.wg_plan(*shape)
-    assert (plan.slices, plan.fast, plan.split) == want
-    assert plan.slices in kw.WG_FAST_SLICES and (not plan.fast or 16 * plan.slices >= nk)
-    if plan.split:
-        assert plan.stages == 1 and plan.consumers == 2 and -(-nq // 64) >= 2
-    else:
-        assert 1 <= plan.consumers <= plan.stages and plan.stages % plan.consumers == 0
-    assert plan.stages <= kw.WG_MAX_STAGES
-    table = -(-nq // 64) * 64 * (16 * plan.slices + 8) * 4 if plan.fast else 0
+    if want is None:
+        assert plan is None and kw.k15_route(*shape) != "wgmma"
+        return
+    assert plan.slices == want and plan.slices in kw.WG_SLICES and 16 * plan.slices >= nk
+    assert 2 <= plan.stages <= kw.WG_MAX_STAGES and plan.stages % 2 == 0
+    table = -(-nq // 64) * 64 * (16 * plan.slices + 8) * 4
     assert plan.smem == (kw.wg_fixed_bytes(hd) + table
                          + plan.stages * kw.wg_stage_bytes(nq, nk, hd)) <= kw.WG_SMEM_LIMIT
 

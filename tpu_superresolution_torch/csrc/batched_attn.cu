@@ -1,7 +1,7 @@
 // K15 and K16 — window attention on pre-split q, k, v, square or
 // rectangular: the "tiled" route of kernels/window_attention.py::
-// k15_route (heads of <= 32 dims where the wgmma kernel,
-// csrc/window_attn_wg.cu, is not faster: K16's DAT windows, masked
+// k15_route (the heads of <= 32 dims the wgmma kernel,
+// csrc/window_attn_wg.cu, does not take: K16's DAT windows, masked
 // windows, HAT-SRx4's 256 queries x 576 keys).
 //
 // Replaces: tpu_superresolution_tpu/ops/pallas/window_attention.py

@@ -1,4 +1,4 @@
-// K7's attention, and K15 / K16 past the other kernels' shapes — window
+// K7's attention, and K15 / K16 where it is the fastest kernel — window
 // attention whose keys stream through an mbarrier ring, on Hopper's wgmma.
 //
 // Replaces: tpu_superresolution_tpu/ops/pallas/fused_attention.py
@@ -8,8 +8,9 @@
 //           tpu_superresolution_tpu/ops/pallas/window_attention.py
 //           fused_window_attention / batched_window_attention (:193,
 //           :352) for the shapes kernels/window_attention.py::k15_route
-//           sends here (heads of more than 64 dims, a (window, head) too
-//           large for csrc/window_attn_wg.cu's one-stage units).
+//           sends here (the heads of more than 32 dims the wgmma kernel
+//           does not take: masked units, K16 at hd 33-64, more than 256
+//           keys, heads past 64 dims).
 // Math (per window w and head h):
 //         out[w, h] = softmax(scale q k^T + bias[h] + mask[w % nW]) v
 //       scores and softmax fp32 (in the log2 domain), P rounded to bf16
@@ -81,6 +82,7 @@ struct Args {
   const int* codes;     // rel: [n_codes, nk]
   bf16* out;            // [BW, nh, nq, hd] or token-major [BW * nq, nh * nb * hb]
   int bw, nh, nq, nk, hd, nb, n_mask, n_codes, tsize, toff;
+  int shifted;           // rel: the codes' region bits are read (else ignored)
   int per_head, stages, ncons;
   int qi, pi, ki;       // query tiles, passes, key chunks an item
   int nqt, passes, nkc;
@@ -170,8 +172,7 @@ __device__ __forceinline__ void rel_scores(float (&sc)[NS * 8], const int* scode
 #pragma unroll
     for (int e2 = 0; e2 < 4; ++e2) {
       const int e0 = 4 * (e2 >> 1) + (e2 & 1);  // row r0's element; r1's is e0 + 2
-      // unmasked codes carry no region bits
-      const int kpos = kMasked ? kcode[e2] & 0xffff : kcode[e2];
+      const int kpos = kcode[e2] & 0xffff;
       float x0 = fmaf(tab0[-kpos], LOG2E, sc[8 * j + e0] * sl);
       float x1 = fmaf(tab1[-kpos], LOG2E, sc[8 * j + e0 + 2] * sl);
       if constexpr (kMasked) {
@@ -382,18 +383,21 @@ __global__ void __launch_bounds__(NTHREADS, 1) window_attn_stream_kernel(const A
               hopper::fence_operands(sc);
               float mx0 = neg_inf, mx1 = neg_inf;
               if constexpr (kRel) {
-                // uniform branches: the unshifted window's codes carry no
-                // regions, and a chunk inside the keys needs no key test
+                // uniform branches: the regions only where the block is
+                // shifted, and a chunk inside the keys needs no key test
                 const bool full = (kc + 1) * KC <= a.nk;
-                if (full && a.n_codes == 1)
+                if (full && !a.shifted)
                   rel_scores<NS, false, true>(sc, scodes, kc * KC, q4, tab0, tab1, qreg0, qreg1,
                                               sl, a.nk, mx0, mx1);
                 else if (full)
                   rel_scores<NS, true, true>(sc, scodes, kc * KC, q4, tab0, tab1, qreg0, qreg1,
                                              sl, a.nk, mx0, mx1);
-                else
+                else if (a.shifted)
                   rel_scores<NS, true, false>(sc, scodes, kc * KC, q4, tab0, tab1, qreg0, qreg1,
                                               sl, a.nk, mx0, mx1);
+                else
+                  rel_scores<NS, false, false>(sc, scodes, kc * KC, q4, tab0, tab1, qreg0, qreg1,
+                                               sl, a.nk, mx0, mx1);
               } else {
 #pragma unroll
                 for (int j = 0; j < NS; ++j) {
@@ -577,13 +581,15 @@ int launch_mode(const Args& a, size_t smem, int grid, cudaStream_t s, bool rel, 
 // whole (one item a unit) or stream (a 64-row query tile, a pass and a
 // key chunk an item).  bulk: q is K7's head-split workspace [3, bw, nh,
 // nb, nq, hb] (k and v unused); else q, k, v [bw, nh, n, hd].  rel: bias
-// is the table [tsize, nh], codes [n_codes, nk] (nq == nk; bulk only);
-// else bias [nh, nq, nk] and mask [n_mask, nq, nk] or null.  tokmajor:
+// is the table [tsize, nh], codes [n_codes, nk] (nq == nk; bulk only),
+// their region bits read only where `shifted` (the -100 mask of a shifted
+// block; an unshifted block's scores ignore them); else bias [nh, nq,
+// nk] and mask [n_mask, nq, nk] or null.  tokmajor:
 // out [bw * nq, nh * nb * hb], else [bw, nh, nq, hd].
 extern "C" int sr_window_attention_stream_bf16(
     const void* q, const void* k, const void* v, const void* bias, const void* mask,
     const void* codes, void* out, int bw, int nh, int nq, int nk, int hd, int n_mask,
-    int n_codes, int ws, int split_p, float scale, int per_head, int hb, int ob, int ns,
+    int n_codes, int ws, int shifted, int split_p, float scale, int per_head, int hb, int ob, int ns,
     int stages, int whole, int bulk, int tokmajor, void* stream) {
   const bool rel = codes != nullptr;
   if (nh < 1 || nq < 1 || nk < 1 || hd < 1 || per_head < 1 || (mask && n_mask < 1) ||
@@ -615,6 +621,7 @@ extern "C" int sr_window_attention_stream_bf16(
   a.nb = nb;
   a.n_mask = n_mask;
   a.n_codes = n_codes;
+  a.shifted = shifted != 0;
   a.tsize = (2 * ws - 1) * (2 * ws - 1);
   a.toff = (ws - 1) * (2 * ws - 1) + ws - 1;
   a.per_head = per_head < bw ? per_head : bw;

@@ -1,18 +1,15 @@
-// K15 / K16 on Hopper's wgmma — window attention on pre-split q, k, v
+// K15 on Hopper's wgmma — window attention on pre-split q, k, v
 // (the "wgmma" route of kernels/window_attention.py::k15_route).
 //
 // Replaces: tpu_superresolution_tpu/ops/pallas/window_attention.py
 //           fused_window_attention (pallas_call at :193; K15, HAT's OCAB
-//           at serving) and, for heads of 33-64 dims,
-//           batched_window_attention (:352; K16, DAT's rect windows);
-//           oracle window_attention_reference (:229).
-// Math (per window w and head h, hd <= 64):
-//         out[w, h] = softmax(scale * q[w, h] k[w, h]^T + bias[h]
-//                             + mask[w % nW]) v[w, h]
+//           at serving); oracle window_attention_reference (:229).
+// Math (per window w and head h, hd <= 64, Nk <= 256, no mask):
+//         out[w, h] = softmax(scale * q[w, h] k[w, h]^T + bias[h]) v[w, h]
 //       q, out [BW, nH, Nq, hd] and k, v [BW, nH, Nk, hd] bf16; bias
-//       [nH, Nq, Nk] and mask [nW, Nq, Nk] fp32; scores and softmax in
-//       fp32 (in the log2 domain: scores times log2(e), exp2).  Pad keys
-//       of DAT's padded map and HAT's zero overlap rows are real keys.
+//       [nH, Nq, Nk] fp32; scores and softmax in fp32 (in the log2
+//       domain: scores times log2(e), exp2).  HAT's zero overlap rows
+//       are real keys.
 // Design: a persistent grid of nH x G CTAs (G = SMs / nH, at most the
 //       window count): CTA (h, g) walks windows g, g + G, ... of head h
 //       ("head-major"), so the head's fp32 bias [Nq, Nk] (pre-multiplied
@@ -32,29 +29,25 @@
 //       zeroed once, and the producer writes only real rows and dims, so
 //       pad rows and dims stay zero (slices past the keys read a zero
 //       tile, so that no wgmma sits in a branch: ptxas serialises those).
-//       Warpgroups 0 and 1 consume alternate units (where only one
-//       stage fits, both take every unit, each its alternate 64-row query
-//       tiles; one warpgroup where the unit has one tile): S = Q K^T
-//       as wgmma m64n16k16 on 16-key slices (hd / 16 k-steps, one at hd
-//       16), so a query tile's whole
-//       row of up to 256 keys sits in registers and its softmax is a
-//       plain one; past 256 keys (576 at window 16) the keys come in
-//       256-key chunks with an online softmax.  Unmasked, with P rounded
-//       once and Nk <= 256 (HAT's OCABs), the fast path holds the head's
-//       bias as a padded table (times log2 e, -inf past Nk, 0 past Nq,
-//       rows 8 banks apart) and takes the fewest slices that hold the
-//       keys (4, 7, 8, 9, 12 or 16: 7 for HAT's 100 keys, 9 for
-//       hat_fast's 144), so a score costs one FMA and half a float2 load;
-//       otherwise the bias and mask come from device memory with the
-//       tests.  O = P V as wgmma with P from registers (bf16, or with
-//       split_p two bf16 parts in two products) and V from shared memory
-//       as a transposed (MN-major) B.  Nq > 64 runs 64-row query tiles one
-//       after another on the unit's stage.  The output tile is staged in
-//       shared memory and written by one bulk copy where hd % 8 == 0 (a
-//       unit's rows are one contiguous run), else by coalesced stores.
-//       Where it is slower than the tiled kernel (hd <= 32 with a mask,
-//       split P, more than 64 queries or 256 keys) k15_route keeps that
-//       one.
+//       Warpgroups 0 and 1 consume alternate units: S = Q K^T as wgmma
+//       m64n16k16 on 16-key slices (hd / 16 k-steps, one at hd 16), so a
+//       query tile's whole row of up to 256 keys sits in registers and its
+//       softmax is a plain one.  The head's bias is held as a padded table
+//       (times log2 e, -inf past Nk, 0 past Nq, rows 8 banks apart), and a
+//       unit takes the fewest slices that hold the keys (4, 7, 8, 9, 12 or
+//       16: 7 for HAT's 100 keys, 9 for hat_fast's 144), so a score costs
+//       one FMA and half a float2 load.  O = P V as wgmma with P from
+//       registers (rounded to bf16 once) and V from shared memory as a
+//       transposed (MN-major) B.  Nq > 64 runs 64-row query tiles one after
+//       another on the unit's stage.  The output tile is staged in shared
+//       memory and written by one bulk copy where hd % 8 == 0 (a unit's
+//       rows are one contiguous run), else by coalesced stores.
+//       The kernel takes only unmasked units of at most 256 keys with P
+//       rounded once whose table fits beside two stages (HAT's OCABs at
+//       every head dim to 64): there it is the fastest of the three
+//       kernels; with a mask, split P or more keys the stream kernel or
+//       the tiled one is faster (chip_smoke.py's route check), and
+//       k15_route sends those shapes there.
 // Bound on the H100 (4 Nk hd FLOP a query row; q, k, v, out in bf16, the
 //       bias once): memory-bound.  HAT's OCAB at the bench batch
 //       ([2500, 6, 49, 16] against 100 keys): 143 MB, 0.0427 ms; hat_fast
@@ -76,25 +69,21 @@ constexpr int CONSUMER_REGS = 216;
 constexpr int MAX_STAGES = 4;
 constexpr int SMEM_LIMIT = 232448;
 constexpr float LOG2E = 1.4426950408889634f;
-// 16-key slices a chunk: the fast path's instantiations (the smallest
-// that holds Nk), the general path's chunk
-constexpr int FAST_SLICES[] = {4, 7, 8, 9, 12, 16};
-constexpr int GENERAL_SLICES = 16;
+// 16-key slices a unit: the compiled counts (the smallest that holds Nk)
+constexpr int SLICES[] = {4, 7, 8, 9, 12, 16};
 
 struct Args {
   const bf16* q;       // [BW, nh, nq, hd]
   const bf16* k;       // [BW, nh, nk, hd]
   const bf16* v;
   const float* bias;   // [nh, nq, nk]
-  const float* mask;   // [n_mask, nq, nk] or null
   bf16* out;           // [BW, nh, nq, hd]
-  int bw, nh, nq, nk, hd, n_mask;
+  int bw, nh, nq, nk, hd;
   int per_head;        // CTAs a head (G)
   int vec;             // elements a copy: 8, 2 or 1
-  int stages, ncons;   // ring stages; consumer warpgroups in use
-  int split;           // both consumers share each unit, alternate query tiles each
+  int stages;          // ring stages (even: each consumer reuses its own)
   int bulk_out;
-  int ldb;             // the fast path's bias table row stride (floats)
+  int ldb;             // the bias table's row stride (floats)
   float scale_log2;    // scale * log2(e)
   uint32_t q_bytes, kv_bytes, stage_bytes, staging_bytes, bias_bytes;
 };
@@ -157,16 +146,12 @@ __device__ __forceinline__ void load_part(uint32_t dst, const bf16* src, int row
   }
 }
 
-// HDP: padded head dim.  NS: 16-key slices a chunk.  kFast: one chunk
-// (Nk <= 16 NS), no mask, the bias in shared memory as a padded table
-// pre-multiplied by log2 e (-inf past Nk, 0 past Nq), so the scores need
-// no tests; else keys in chunks of 16 NS with an online softmax, the
-// bias and mask read from device memory with the tests.  kSplitP: P V in
-// two bf16 parts.
-template <int HDP, int NS, bool kFast, bool kSplitP>
+// HDP: padded head dim.  NS: 16-key slices a unit (Nk <= 16 NS); the
+// bias in shared memory as a padded table pre-multiplied by log2 e (-inf
+// past Nk, 0 past Nq), so the scores need no tests.
+template <int HDP, int NS>
 __global__ void __launch_bounds__(NTHREADS, 1) window_attn_wg_kernel(const Args a) {
   constexpr int RB = HDP * 2;  // bytes a row of a q, k or v part
-  constexpr int KC = NS * 16;  // keys a chunk
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = hopper::smem_addr(smem_raw);
   const uint32_t ring = (raw + 1023u) & ~1023u;
@@ -182,8 +167,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) window_attn_wg_kernel(const Args 
 
   const int tid = threadIdx.x;
   const int h = blockIdx.x / a.per_head, g = blockIdx.x % a.per_head;
-  const int nqt = (a.nq + QT - 1) / QT, nkc = (a.nk + KC - 1) / KC;
-  if constexpr (kFast) {
+  const int nqt = (a.nq + QT - 1) / QT;
+  {
     // [nqt * 64][ldb] fp32: bias * log2 e; -inf past Nk; 0 past Nq
     const float* src = a.bias + h * plane;
     const int rows = nqt * QT;
@@ -201,7 +186,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) window_attn_wg_kernel(const Args 
   if (tid == 0) {
     for (int s = 0; s < a.stages; ++s) {
       hopper::mbar_init(full(s), 128);   // every producer thread's copies
-      hopper::mbar_init(empty(s), 128 * (a.split ? NCONS : 1));  // the consuming threads
+      hopper::mbar_init(empty(s), 128);  // the consuming warpgroup's threads
     }
     hopper::mbar_init_fence();
   }
@@ -232,15 +217,11 @@ __global__ void __launch_bounds__(NTHREADS, 1) window_attn_wg_kernel(const Args 
   // ------------------------------------------------------------- consumers
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
   const int cw = wg, ct = tid & 127, wi = ct >> 5, lane = tid & 31, q4 = lane & 3;
-  if (cw >= a.ncons) return;
   const uint32_t stg = staging + cw * (QT * RB);
   bf16* sg = reinterpret_cast<bf16*>(smem_raw + (stg - raw));
-  const float* gbias = a.bias + h * plane;
   const float sl = a.scale_log2;
-  // a unit a consumer in turn, or (split) every unit on both, each
-  // taking alternate 64-row query tiles
-  const int ustep = a.split ? 1 : a.ncons, qstep = a.split ? NCONS : 1;
-  for (int i = a.split ? 0 : cw; i < n_units; i += ustep) {
+  const int nsub = (a.nk + 15) >> 4;  // slices holding keys
+  for (int i = cw; i < n_units; i += NCONS) {  // a unit a consumer in turn
     const int s = i % a.stages;
     hopper::mbar_wait(full(s), (i / a.stages) & 1);
     // the producer's generic-proxy writes, visible through the barrier,
@@ -248,133 +229,83 @@ __global__ void __launch_bounds__(NTHREADS, 1) window_attn_wg_kernel(const Args 
     hopper::fence_proxy_async();
     const int w = g + i * a.per_head;
     const long long wh = static_cast<long long>(w) * a.nh + h;
-    const float* mwin = a.mask ? a.mask + static_cast<long long>(w % a.n_mask) * plane : nullptr;
     const uint32_t qd = ring + s * a.stage_bytes, kd = qd + a.q_bytes, vd = kd + a.kv_bytes;
-    for (int qt = a.split ? cw : 0; qt < nqt; qt += qstep) {
-      const int r0 = qt * QT + wi * 16 + (lane >> 2), r1 = r0 + 8;
+    for (int qt = 0; qt < nqt; ++qt) {
+      const int r0 = qt * QT + wi * 16 + (lane >> 2);
       float o[HDP / 2];
 #pragma unroll
       for (int e = 0; e < HDP / 2; ++e) o[e] = 0.f;
-      float m0 = neg_inf, m1 = neg_inf, l0 = 0.f, l1 = 0.f;
+      float l0 = 0.f, l1 = 0.f;
       const uint64_t dq = hopper::desc_swizzled<RB>(qd + qt * QT * RB);
-      for (int kc = 0; kc < nkc; ++kc) {
-        const int nsub = min(NS, (a.nk - kc * KC + 15) >> 4);  // slices holding keys
-        float sc[NS][8];
-        // S = Q K^T on 16-key slices, hd / 16 k-steps of 32 bytes; every
-        // slice issued (the zero tile past the keys), so that no wgmma
-        // sits in a branch
-        hopper::wgmma_fence();
+      float sc[NS][8];
+      // S = Q K^T on 16-key slices, hd / 16 k-steps of 32 bytes; every
+      // slice issued (the zero tile past the keys), so that no wgmma sits
+      // in a branch
+      hopper::wgmma_fence();
 #pragma unroll
-        for (int j = 0; j < NS; ++j) {
-          const uint64_t dk = hopper::desc_swizzled<RB>(
-              j < nsub ? kd + (kc * KC + j * 16) * RB : zero_tile);
+      for (int j = 0; j < NS; ++j) {
+        const uint64_t dk = hopper::desc_swizzled<RB>(j < nsub ? kd + j * 16 * RB : zero_tile);
 #pragma unroll
-          for (int kk = 0; kk < HDP / 16; ++kk)
-            hopper::Wgmma<16>::mma(sc[j], dq + 2 * kk, dk + 2 * kk, kk);
-        }
-        hopper::wgmma_commit();
-        hopper::wgmma_wait<0>();
-        // scores in the log2 domain
-        float mx0 = neg_inf, mx1 = neg_inf;
-#pragma unroll
-        for (int j = 0; j < NS; ++j) {
-          hopper::fence_operands(sc[j]);
-          if constexpr (kFast) {
-            const float* b0 = sbias + r0 * a.ldb + j * 16 + 2 * q4;
-            const float* b1 = b0 + 8 * a.ldb;
-            const float2 u0 = *reinterpret_cast<const float2*>(b0);
-            const float2 u1 = *reinterpret_cast<const float2*>(b1);
-            const float2 u2 = *reinterpret_cast<const float2*>(b0 + 8);
-            const float2 u3 = *reinterpret_cast<const float2*>(b1 + 8);
-            sc[j][0] = fmaf(sc[j][0], sl, u0.x);
-            sc[j][1] = fmaf(sc[j][1], sl, u0.y);
-            sc[j][2] = fmaf(sc[j][2], sl, u1.x);
-            sc[j][3] = fmaf(sc[j][3], sl, u1.y);
-            sc[j][4] = fmaf(sc[j][4], sl, u2.x);
-            sc[j][5] = fmaf(sc[j][5], sl, u2.y);
-            sc[j][6] = fmaf(sc[j][6], sl, u3.x);
-            sc[j][7] = fmaf(sc[j][7], sl, u3.y);
-          } else {
-            // pad keys -inf, pad query rows without bias (dropped at the
-            // store)
-#pragma unroll
-            for (int e = 0; e < 8; ++e) {
-              const int col = kc * KC + j * 16 + 8 * (e >> 2) + 2 * q4 + (e & 1);
-              const int row = (e & 2) ? r1 : r0;
-              float x = neg_inf;
-              if (col < a.nk) {
-                x = sc[j][e] * sl;
-                if (row < a.nq) {
-                  const long long at = static_cast<long long>(row) * a.nk + col;
-                  x = fmaf(gbias[at], LOG2E, x);
-                  if (mwin) x = fmaf(mwin[at], LOG2E, x);
-                }
-              }
-              sc[j][e] = x;
-            }
-          }
-          mx0 = fmaxf(mx0, fmaxf(fmaxf(sc[j][0], sc[j][1]), fmaxf(sc[j][4], sc[j][5])));
-          mx1 = fmaxf(mx1, fmaxf(fmaxf(sc[j][2], sc[j][3]), fmaxf(sc[j][6], sc[j][7])));
-        }
-#pragma unroll
-        for (int d = 1; d <= 2; d <<= 1) {
-          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, d));
-          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, d));
-        }
-        // finite: every chunk holds a real key, the bias and mask finite
-        const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-        if (!kFast) {
-          const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);  // 0 on the first chunk
-          l0 *= al0;
-          l1 *= al1;
-#pragma unroll
-          for (int t = 0; t < HDP / 8; ++t) {
-            o[4 * t] *= al0;
-            o[4 * t + 1] *= al0;
-            o[4 * t + 2] *= al1;
-            o[4 * t + 3] *= al1;
-          }
-        }
-        m0 = mn0;
-        m1 = mn1;
-        // P = exp2(S - m) into A fragments: slice j is the k-step j of P V
-        uint32_t pa[NS][4];
-        uint32_t pl[kSplitP ? NS : 1][4];
-#pragma unroll
-        for (int j = 0; j < NS; ++j) {
-          float p[8];
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            p[e] = exp2f(sc[j][e] - ((e & 2) ? mn1 : mn0));  // 0 at -inf
-            if (e & 2)
-              l1 += p[e];
-            else
-              l0 += p[e];
-          }
-#pragma unroll
-          for (int f = 0; f < 4; ++f) pa[j][f] = pack_bf16(p[2 * f], p[2 * f + 1]);
-          if constexpr (kSplitP) {
-#pragma unroll
-            for (int f = 0; f < 4; ++f) {
-              const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&pa[j][f]);
-              pl[j][f] = pack_bf16(p[2 * f] - __low2float(hi), p[2 * f + 1] - __high2float(hi));
-            }
-          }
-        }
-        hopper::wgmma_fence();
-#pragma unroll
-        for (int j = 0; j < NS; ++j) {
-          const uint64_t dv = hopper::desc_swizzled<RB>(
-              j < nsub ? vd + (kc * KC + j * 16) * RB : zero_tile);
-          hopper::WgmmaRS<HDP>::mma(o, pa[j], dv, 1);
-          if constexpr (kSplitP) hopper::WgmmaRS<HDP>::mma(o, pl[j], dv, 1);
-        }
-        hopper::wgmma_commit();
-        hopper::wgmma_wait<0>();
-        hopper::fence_operands(o);
+        for (int kk = 0; kk < HDP / 16; ++kk)
+          hopper::Wgmma<16>::mma(sc[j], dq + 2 * kk, dk + 2 * kk, kk);
       }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      // scores in the log2 domain, the bias from the table
+      float mx0 = neg_inf, mx1 = neg_inf;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        hopper::fence_operands(sc[j]);
+        const float* b0 = sbias + r0 * a.ldb + j * 16 + 2 * q4;
+        const float* b1 = b0 + 8 * a.ldb;
+        const float2 u0 = *reinterpret_cast<const float2*>(b0);
+        const float2 u1 = *reinterpret_cast<const float2*>(b1);
+        const float2 u2 = *reinterpret_cast<const float2*>(b0 + 8);
+        const float2 u3 = *reinterpret_cast<const float2*>(b1 + 8);
+        sc[j][0] = fmaf(sc[j][0], sl, u0.x);
+        sc[j][1] = fmaf(sc[j][1], sl, u0.y);
+        sc[j][2] = fmaf(sc[j][2], sl, u1.x);
+        sc[j][3] = fmaf(sc[j][3], sl, u1.y);
+        sc[j][4] = fmaf(sc[j][4], sl, u2.x);
+        sc[j][5] = fmaf(sc[j][5], sl, u2.y);
+        sc[j][6] = fmaf(sc[j][6], sl, u3.x);
+        sc[j][7] = fmaf(sc[j][7], sl, u3.y);
+        mx0 = fmaxf(mx0, fmaxf(fmaxf(sc[j][0], sc[j][1]), fmaxf(sc[j][4], sc[j][5])));
+        mx1 = fmaxf(mx1, fmaxf(fmaxf(sc[j][2], sc[j][3]), fmaxf(sc[j][6], sc[j][7])));
+      }
+#pragma unroll
+      for (int d = 1; d <= 2; d <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, d));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, d));
+      }
+      // finite: every row holds a real key, the bias finite
+      // P = exp2(S - m) into A fragments: slice j is the k-step j of P V
+      uint32_t pa[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        float p[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          p[e] = exp2f(sc[j][e] - ((e & 2) ? mx1 : mx0));  // 0 at -inf
+          if (e & 2)
+            l1 += p[e];
+          else
+            l0 += p[e];
+        }
+#pragma unroll
+        for (int f = 0; f < 4; ++f) pa[j][f] = pack_bf16(p[2 * f], p[2 * f + 1]);
+      }
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const uint64_t dv = hopper::desc_swizzled<RB>(j < nsub ? vd + j * 16 * RB : zero_tile);
+        hopper::WgmmaRS<HDP>::mma(o, pa[j], dv, 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operands(o);
       // the stage's last read: hand it back to the producer
-      if (qt + qstep >= nqt) hopper::mbar_arrive(empty(s));
+      if (qt + 1 == nqt) hopper::mbar_arrive(empty(s));
 #pragma unroll
       for (int d = 1; d <= 2; d <<= 1) {
         l0 += __shfl_xor_sync(0xffffffffu, l0, d);
@@ -425,9 +356,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) window_attn_wg_kernel(const Args 
   if (ct == 0) hopper::bulk_wait();  // the last tile's copy has landed
 }
 
-template <int HDP, int NS, bool kFast, bool kSplitP>
+template <int HDP, int NS>
 int launch(const Args& a, size_t smem, int grid, cudaStream_t stream) {
-  auto kernel = window_attn_wg_kernel<HDP, NS, kFast, kSplitP>;
+  auto kernel = window_attn_wg_kernel<HDP, NS>;
   static const cudaError_t attr = cudaFuncSetAttribute(  // once: the most any launch takes
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
   if (attr != cudaSuccess) return static_cast<int>(attr);
@@ -436,47 +367,35 @@ int launch(const Args& a, size_t smem, int grid, cudaStream_t stream) {
 }
 
 template <int HDP>
-int launch_hdp(const Args& a, size_t smem, int grid, cudaStream_t s, bool fast, int ns,
-               bool split) {
-  if (!fast)
-    return split ? launch<HDP, GENERAL_SLICES, false, true>(a, smem, grid, s)
-                 : launch<HDP, GENERAL_SLICES, false, false>(a, smem, grid, s);
+int launch_hdp(const Args& a, size_t smem, int grid, cudaStream_t s, int ns) {
   switch (ns) {
-    case 4: return launch<HDP, 4, true, false>(a, smem, grid, s);
-    case 7: return launch<HDP, 7, true, false>(a, smem, grid, s);
-    case 8: return launch<HDP, 8, true, false>(a, smem, grid, s);
-    case 9: return launch<HDP, 9, true, false>(a, smem, grid, s);
-    case 12: return launch<HDP, 12, true, false>(a, smem, grid, s);
-    default: return launch<HDP, 16, true, false>(a, smem, grid, s);
+    case 4: return launch<HDP, 4>(a, smem, grid, s);
+    case 7: return launch<HDP, 7>(a, smem, grid, s);
+    case 8: return launch<HDP, 8>(a, smem, grid, s);
+    case 9: return launch<HDP, 9>(a, smem, grid, s);
+    case 12: return launch<HDP, 12>(a, smem, grid, s);
+    default: return launch<HDP, 16>(a, smem, grid, s);
   }
 }
 
 }  // namespace
 
 // per_head: CTAs a head (kernels/window_attention.py::wg_ctas_per_head);
-// slices, fast, stages, ncons, split: the launch plan
-// (window_attention.py::wg_plan decides it; this entry only checks it).  Returns
-// cudaErrorInvalidValue where the shapes are outside the kernel (hd > 64)
-// or the plan does not fit them: a fast path with a mask, split P, a
-// slice count that is not compiled or does not hold the keys; stages
-// that do not pair up with the consumers (or, split, a unit's query
-// tiles shared by consumers other than both on one stage); more than the
-// shared memory.
+// slices, stages: the launch plan (window_attention.py::wg_plan decides
+// it; this entry only checks it).  Returns cudaErrorInvalidValue where the
+// shapes are outside the kernel (hd > 64) or the plan does not fit them: a
+// slice count that is not compiled or does not hold the keys, stages that
+// do not pair up with the two consumers, more than the shared memory.
 extern "C" int sr_window_attention_wg_bf16(const void* q, const void* k, const void* v,
-                                           const void* bias, const void* mask, void* out,
-                                           int bw, int nh, int nq, int nk, int hd, int n_mask,
-                                           int split_p, float scale, int per_head, int slices,
-                                           int fast, int stages, int ncons, int split,
-                                           void* stream) {
-  if (nh < 1 || nq < 1 || nk < 1 || hd < 1 || hd > 64 || (mask && n_mask < 1) || per_head < 1)
+                                           const void* bias, void* out, int bw, int nh, int nq,
+                                           int nk, int hd, float scale, int per_head,
+                                           int slices, int stages, void* stream) {
+  if (nh < 1 || nq < 1 || nk < 1 || hd < 1 || hd > 64 || per_head < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   bool compiled = false;
-  for (int c : FAST_SLICES) compiled = compiled || c == slices;
-  if (fast ? (mask || split_p || !compiled || 16 * slices < nk) : slices != GENERAL_SLICES)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (ncons < 1 || ncons > NCONS || stages < 1 || stages > MAX_STAGES ||
-      (split ? ncons != NCONS || stages != 1 || (nq + QT - 1) / QT < NCONS
-             : stages < ncons || stages % ncons))
+  for (int c : SLICES) compiled = compiled || c == slices;
+  if (!compiled || 16 * slices < nk || stages < NCONS || stages > MAX_STAGES ||
+      stages % NCONS)
     return static_cast<int>(cudaErrorInvalidValue);
   if (bw == 0) return 0;
   const int hdp = hd <= 16 ? 16 : hd <= 32 ? 32 : 64;
@@ -487,14 +406,12 @@ extern "C" int sr_window_attention_wg_bf16(const void* q, const void* k, const v
   a.k = static_cast<const bf16*>(k);
   a.v = static_cast<const bf16*>(v);
   a.bias = static_cast<const float*>(bias);
-  a.mask = static_cast<const float*>(mask);
   a.out = static_cast<bf16*>(out);
   a.bw = bw;
   a.nh = nh;
   a.nq = nq;
   a.nk = nk;
   a.hd = hd;
-  a.n_mask = n_mask;
   a.per_head = per_head < bw ? per_head : bw;
   a.scale_log2 = scale * LOG2E;
   const int nqp = (nq + QT - 1) / QT * QT;
@@ -503,13 +420,11 @@ extern "C" int sr_window_attention_wg_bf16(const void* q, const void* k, const v
   a.stage_bytes = a.q_bytes + 2 * a.kv_bytes;
   a.staging_bytes = NCONS * QT * rb;
   const size_t fixed = 1024 + 2048 + a.staging_bytes + 16 * MAX_STAGES;
-  // the fast path's bias table: rows 8 banks apart, so that a warp's
-  // float2 reads take two wavefronts
+  // the bias table: rows 8 banks apart, so that a warp's float2 reads
+  // take two wavefronts
   a.ldb = 16 * slices + 8;
-  a.bias_bytes = fast ? static_cast<uint32_t>(nqp) * a.ldb * 4 : 0u;
+  a.bias_bytes = static_cast<uint32_t>(nqp) * a.ldb * 4;
   a.stages = stages;
-  a.ncons = ncons;
-  a.split = split;
   const size_t smem = fixed + a.bias_bytes + size_t(a.stages) * a.stage_bytes;
   if (smem > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
   const bool a16 = aligned_to(q, 16) && aligned_to(k, 16) && aligned_to(v, 16);
@@ -518,7 +433,7 @@ extern "C" int sr_window_attention_wg_bf16(const void* q, const void* k, const v
   a.bulk_out = hd % 8 == 0 && aligned_to(out, 16);
   const int grid = nh * a.per_head;
   const auto s = static_cast<cudaStream_t>(stream);
-  if (hdp == 16) return launch_hdp<16>(a, smem, grid, s, fast, slices, split_p);
-  if (hdp == 32) return launch_hdp<32>(a, smem, grid, s, fast, slices, split_p);
-  return launch_hdp<64>(a, smem, grid, s, fast, slices, split_p);
+  if (hdp == 16) return launch_hdp<16>(a, smem, grid, s, slices);
+  if (hdp == 32) return launch_hdp<32>(a, smem, grid, s, slices);
+  return launch_hdp<64>(a, smem, grid, s, slices);
 }

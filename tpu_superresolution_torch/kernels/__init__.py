@@ -45,7 +45,8 @@ K12  cab_conv.py:209 . fused_ln_cab_convs                          H,HT,    CUDA
 K11  cab_conv.py:506 . dwconv3x3_halo                              DT,DC    CUDA csrc/dwconv.cu ("rows" or "tiles", dwconv.dwconv_plan), dwconv.dwconv3x3
 K15  window_attention.py:193 . fused_window_attention              H,H16    CUDA csrc/window_attn_wg.cu, csrc/batched_attn.cu or csrc/window_attn_stream.cu
                                                                            (window_attention.k15_route), window_attention.fused_window_attention
-K16  window_attention.py:352 . batched_window_attention            DT,DC    CUDA csrc/batched_attn.cu (the tiled core), window_attention.batched_window_attention
+K16  window_attention.py:352 . batched_window_attention            DT,DC    CUDA csrc/batched_attn.cu (the tiled core) or csrc/window_attn_stream.cu
+                                                                           (window_attention.k15_route), window_attention.batched_window_attention
 ==== ========================================================== ======== ==================================================
 
 One CUDA kernel, templated on the window size, serves K1, K6 and K13:

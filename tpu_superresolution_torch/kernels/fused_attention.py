@@ -293,7 +293,7 @@ def _launch(xw: torch.Tensor, packed: PackedWindowAttention, mask: Optional[torc
         if int(codes.shape[1]) != n or packed.ws ** 2 != n or bw % int(codes.shape[0]):
             raise ValueError(f"fused_window_attention: codes {tuple(codes.shape)} for "
                              f"{bw} windows of {n} tokens at ws {packed.ws}")
-        bias, mask = packed.table, None
+        bias = packed.table
     else:
         bias = packed.dense_bias()
         _lib.check_tensor(bias, "rpb", f32, dev, shape=(nh, n, n), align=4)
@@ -305,8 +305,11 @@ def _launch(xw: torch.Tensor, packed: PackedWindowAttention, mask: Optional[torc
                                  f"number of mask periods of {n_mask}")
     qkv = _launch_product(xw.reshape(bw * n, c), packed.qkv, (bw, n, nh, hdw, hb))
     att = torch.empty(bw * n, nh * hdw, dtype=torch.bfloat16, device=dev)
-    launch_stream(qkv, None, None, bias, mask, codes if rel else None, att, bw, nh, n, n,
-                  c // nh, 1.0, False, packed.ws if rel else 0, bulk=True, tokmajor=True)
+    # the rel form masks the codes' regions where the caller's block is
+    # shifted (its mask given), whatever bits the codes carry
+    launch_stream(qkv, None, None, bias, None if rel else mask, codes if rel else None, att, bw,
+                  nh, n, n, c // nh, 1.0, False, packed.ws if rel else 0,
+                  shifted=rel and mask is not None, bulk=True, tokmajor=True)
     out = _launch_product(att, packed.proj)
     launches.count += 1
     return out.reshape(bw, n, c)
@@ -343,7 +346,8 @@ def fused_window_attention(xw: torch.Tensor, wqkv: torch.Tensor, bqkv: Optional[
     holds the bias: rpb may then be None.  `codes` [n_codes, N] int32
     (``ops.window.window_codes_tensor``, the mask's token codes) with
     weights packed with their table: the kernel's rel form, which then
-    reads neither rpb nor mask."""
+    reads neither rpb nor mask's values (the codes' regions are masked
+    where a mask is given, and ignored where it is None)."""
     c, nh = int(xw.shape[-1]), packed.num_heads if rpb is None else int(rpb.shape[0])
     if c % nh:
         raise ValueError(f"fused_window_attention: {nh} heads do not divide C={c}")

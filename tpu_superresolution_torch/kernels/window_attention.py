@@ -20,32 +20,36 @@ their shift mask is additive -100 and the pad tokens of a padded map are
 real keys.  K15 is the general case; HAT's OCAB runs it with the ws^2
 queries of each window against the ows^2 keys of the overlapping window
 around it (the zero rows of the gather at the border are real keys).
-Two CUDA kernels compute both, chosen by ``k15_route`` from static
-shapes alone (the same answer on every call and device):
+Three CUDA kernels compute both, chosen by ``k15_route`` from static
+shapes alone (the same answer on every call and device); chip_smoke.py's
+route check times all three at every K15 / K16 row:
 
-- "wgmma" (``csrc/window_attn_wg.cu``): a persistent grid whose
-  CTAs walk (window, head) units head-major with their head's fp32 bias
-  resident in shared memory, a producer warpgroup filling a ring of q,
-  k, v stages under mbarriers, and two consumer warpgroups running
-  Hopper's wgmma (S = Q K^T with the whole row of up to 256 keys in
-  registers, a plain softmax there, O = P V with P from registers); any
-  Nq (64-row query tiles a unit), any Nk (256-key chunks with an online
-  softmax past 256), hd <= 64 (heads padded to 16, 32 or 64 dims).  It
-  takes every head of 33-64 dims and K15's unmasked shapes of up to 64
-  queries and 256 keys (HAT's and hat_fast's OCABs);
-- "tiled" (``csrc/batched_attn.cu``, the first design): one 256-thread block per
-  (window, head, 64-query tile) on K7's wmma core, keys streamed in
-  64-row tiles; hd <= 32.  It keeps the other shapes of hd <= 32 (K16's
-  DAT windows, HAT-SRx4's 256 x 576, masked windows), where it is as
-  fast or faster;
+- "wgmma" (``csrc/window_attn_wg.cu``): a persistent grid whose CTAs
+  walk (window, head) units head-major with their head's fp32 bias
+  resident in shared memory as a padded table, a producer warpgroup
+  filling a ring of q, k, v stages under mbarriers, and two consumer
+  warpgroups running Hopper's wgmma (S = Q K^T with the whole row of up
+  to 256 keys in registers, a plain softmax, O = P V with P from
+  registers); unmasked units of at most 256 keys with P rounded once,
+  hd <= 64 (heads padded to 16, 32 or 64 dims): HAT's and hat_fast's
+  OCABs at every head dim;
+- "tiled" (``csrc/batched_attn.cu``, the first design): one 256-thread
+  block per (window, head, 64-query tile) on K7's wmma core, keys
+  streamed in 64-row tiles; hd <= 32.  It keeps the other shapes of hd
+  <= 32: the fastest at K16's unmasked DAT windows, the published DAT
+  x4's N 256 and HAT-SRx4's 256 x 576; at masked units of at most 128
+  queries the stream kernel is ~1.2x faster, but in K16's form (split
+  P) its other rounding moved a DAT training gradient past chip_smoke's
+  first-step gate, so K16 keeps this kernel's numerics there;
 - "stream" (``csrc/window_attn_stream.cu``, K7's attention kernel): the
-  same persistent, head-major wgmma design whose ring items are a 64-row
-  query tile and a key chunk (an online softmax across chunks) where a
-  whole unit does not fit two stages, heads padded to 16, 32 or 64 dims
-  or, past 64, in 64-dim blocks with P V in passes of up to 128 columns;
-  every shape the other two do not take: heads of more than 64 dims, and
-  (window, head) units too large for the wgmma kernel's one-stage design
-  (ws 32 at hd 33-64).  ``stream_plan`` decides its launch.
+  same persistent, head-major wgmma design with the dense bias and mask
+  read from device memory, whose ring items are whole units or a 64-row
+  query tile and a key chunk (an online softmax across chunks), heads
+  padded to 16, 32 or 64 dims or, past 64, in 64-dim blocks with P V in
+  passes of up to 128 columns; every shape of more than 32 dims the
+  wgmma kernel does not take (masked units, K16's split P, units of more
+  than 256 keys, heads past 64 dims), where it is the fastest of the
+  kernels that take the shape.  ``stream_plan`` decides its launch.
 
 Each wrapper counts its own launches, whichever kernel runs.  The
 gradient is torch autograd of the plain version, as the JAX custom_vjp
@@ -66,12 +70,11 @@ from tpu_superresolution_torch.kernels import _lib
 
 WG_MAX_HD = 64    # the wgmma kernel's heads (padded to 16, 32 or 64 dims)
 TILED_MAX_HD = 32  # the tiled kernel's padded head dim
-# csrc/window_attn_wg.cu: query rows a tile, the fast path's compiled
-# 16-key slice counts (the general path's chunk is the last), ring stages
-# at most, and a CTA's shared memory
+# csrc/window_attn_wg.cu: query rows a tile, the compiled 16-key slice
+# counts a unit, ring stages at most, and a CTA's shared memory
 WG_Q_TILE = 64
-WG_FAST_SLICES = (4, 7, 8, 9, 12, 16)
-WG_KEY_CHUNK = 16 * WG_FAST_SLICES[-1]  # keys a chunk held in registers
+WG_SLICES = (4, 7, 8, 9, 12, 16)
+WG_MAX_KEYS = 16 * WG_SLICES[-1]  # keys a unit, its row of S in registers
 WG_MAX_STAGES = 4
 WG_SMEM_LIMIT = 232448
 # Whether P enters P V as two bf16 parts (~16 significant bits) or
@@ -128,42 +131,32 @@ def wg_fixed_bytes(hd: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class WgPlan:
     """How the wgmma kernel runs one shape, decided here and only
-    checked by the C entry: its 16-key slices a chunk (the fast path's
-    fewest that hold the keys, else 16), whether it takes the fast path
-    (unmasked, P rounded once, Nk <= 256, and the head's padded bias
-    table fits beside two ring stages), its ring stages, its consumer
-    warpgroups (two where the stages pair up, so that a stage is always
-    reused by the same warpgroup), whether both consumers share each
-    unit (`split`: where one stage fits and a unit has two or more
-    64-row query tiles, each takes alternate tiles), and its shared
-    memory."""
+    checked by the C entry: its 16-key slices a unit (the fewest compiled
+    that hold the keys), its ring stages (even: two consumer warpgroups,
+    each reusing its own stages) and its shared memory (the head's padded
+    bias table beside the stages)."""
 
     slices: int
-    fast: bool
     stages: int
-    consumers: int
-    split: bool
     smem: int
 
 
 @functools.lru_cache(maxsize=256)
 def wg_plan(nq: int, nk: int, hd: int, masked: bool, split_p: bool) -> Optional[WgPlan]:
-    """The wgmma kernel's plan at a shape, or None where one unit's q, k
-    and v do not fit its shared memory."""
+    """The wgmma kernel's plan at a shape, or None where it does not take
+    it: a mask, split P, more than 64 dims or 256 keys, or a table that
+    does not fit beside two stages."""
+    if masked or split_p or hd > WG_MAX_HD or nk > WG_MAX_KEYS:
+        return None
     fixed = wg_fixed_bytes(hd)
     stage = wg_stage_bytes(nq, nk, hd)
-    ns = next((n for n in WG_FAST_SLICES if 16 * n >= nk), 0)
+    ns = next(n for n in WG_SLICES if 16 * n >= nk)
     table = -(-nq // WG_Q_TILE) * WG_Q_TILE * (16 * ns + 8) * 4  # rows 8 banks apart
-    fast = bool(ns) and not masked and not split_p and fixed + table + 2 * stage <= WG_SMEM_LIMIT
-    bias = table if fast else 0
-    stages = min(WG_MAX_STAGES, (WG_SMEM_LIMIT - fixed - bias) // stage)
-    if stages < 1:
+    stages = min(WG_MAX_STAGES, (WG_SMEM_LIMIT - fixed - table) // stage)
+    stages -= stages % 2
+    if stages < 2:
         return None
-    consumers = 2 if stages >= 2 else 1
-    stages -= stages % consumers
-    split = stages == 1 and nq > WG_Q_TILE
-    return WgPlan(ns if fast else WG_FAST_SLICES[-1], fast, stages, 2 if split else consumers,
-                  split, fixed + bias + stages * stage)
+    return WgPlan(ns, stages, fixed + table + stages * stage)
 
 
 def wg_ctas_per_head(bw: int, nh: int, sms: int) -> int:
@@ -248,30 +241,31 @@ def stream_plan(nq: int, nk: int, hd: int, ws: int = 0) -> StreamPlan:
 def k15_route(nq: int, nk: int, hd: int, masked: bool = False, split_p: bool = False) -> str:
     """The kernel for an attention of `nq` queries against `nk` keys in
     heads of `hd` dims, with or without a mask, with P rounded once (K15)
-    or in two parts (K16): "tiled" (the first design) for the shapes of hd
-    <= 32 the wgmma kernel is slower at (K16's DAT windows, HAT-SRx4's 256
-    x 576, masked windows); "wgmma" for heads of 33-64 dims and K15's
-    unmasked shapes of at most 64 queries and 256 keys (HAT's and
-    hat_fast's OCABs), where one (window, head) unit fits its stage;
-    "stream" for the rest (heads past 64 dims, larger units).  Shapes
-    only; raises ValueError only for empty shapes."""
+    or in two parts (K16): "wgmma" where ``wg_plan`` takes the shape
+    (unmasked, P rounded once, at most 256 keys: HAT's and hat_fast's
+    OCABs); "tiled" for the other shapes of hd <= 32 (K16's DAT windows,
+    HAT-SRx4's 256 x 576); "stream" for the rest (masked units, K16 at hd
+    33-64, more keys, heads past 64 dims).  Shapes only; raises
+    ValueError only for empty shapes."""
     if nq < 1 or nk < 1 or hd < 1:
         raise ValueError(f"window attention: at least one query, key and head dim; got "
                          f"Nq={nq}, Nk={nk}, hd={hd}")
-    if hd <= TILED_MAX_HD and (masked or split_p or nq > WG_Q_TILE or nk > WG_KEY_CHUNK):
-        return "tiled"
-    if hd <= WG_MAX_HD and wg_plan(nq, nk, hd, masked, split_p) is not None:
+    if wg_plan(nq, nk, hd, masked, split_p) is not None:
         return "wgmma"
+    if hd <= TILED_MAX_HD:
+        return "tiled"
     return "stream"
 
 
 def launch_stream(q, k, v, bias, mask, codes, out, bw, nh, nq, nk, hd, scale, split_p,
-                  ws: int = 0, bulk: bool = False, tokmajor: bool = False) -> None:
+                  ws: int = 0, shifted: bool = False, bulk: bool = False,
+                  tokmajor: bool = False) -> None:
     """One launch of csrc/window_attn_stream.cu (plan from
     ``stream_plan``): the K15 / K16 route "stream" (q, k, v [BW, nH, N,
     hd], dense bias and mask, head-major out) or K7's attention (`bulk`:
     q the head-split workspace; `codes` with the table as `bias`: the rel
-    form at window `ws`; `tokmajor` out)."""
+    form at window `ws`, the codes' regions masked only where `shifted`;
+    `tokmajor` out)."""
     plan = stream_plan(nq, nk, hd, ws if codes is not None else 0)
     dev = out.device
     status = _lib.call(
@@ -280,7 +274,7 @@ def launch_stream(q, k, v, bias, mask, codes, out, bw, nh, nq, nk, hd, scale, sp
         bias.data_ptr(), None if mask is None else mask.data_ptr(),
         None if codes is None else codes.data_ptr(), out.data_ptr(), bw, nh, nq, nk, hd,
         0 if mask is None else int(mask.shape[0]), 0 if codes is None else int(codes.shape[0]),
-        ws, int(bool(split_p)), float(scale), wg_ctas_per_head(bw, nh, _lib.sm_count(dev.index)),
+        ws, int(bool(shifted)), int(bool(split_p)), float(scale), wg_ctas_per_head(bw, nh, _lib.sm_count(dev.index)),
         plan.hb, plan.ob, plan.ns, plan.stages, int(plan.whole), int(bulk), int(tokmajor),
         _lib.stream_of(out))
     _lib.check_status(status, "sr_window_attention_stream_bf16")
@@ -289,7 +283,7 @@ def launch_stream(q, k, v, bias, mask, codes, out, bw, nh, nq, nk, hd, scale, sp
 def _launch(q, k, v, bias, mask, scale, counter, split_p,
             route: Optional[str] = None) -> torch.Tensor:
     """Launch K15 / K16 on `route`'s kernel (``k15_route``'s by default;
-    chip_smoke.py times both where both take the shape)."""
+    chip_smoke.py times every kernel that takes the shape)."""
     bw, nh, nq, hd = q.shape
     nk = k.shape[2]
     dev = q.device
@@ -303,9 +297,6 @@ def _launch(q, k, v, bias, mask, scale, counter, split_p,
         n_mask = int(mask.shape[0])
         _lib.check_tensor(mask, "mask", f32, dev, shape=(n_mask, nq, nk), align=4)
     out = torch.empty_like(q)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            None if mask is None else mask.data_ptr(), out.data_ptr(), bw, nh, nq, nk, hd,
-            n_mask, int(bool(split_p)), float(scale))
     route = route or k15_route(nq, nk, hd, mask is not None, split_p)
     if route == "stream":
         launch_stream(q, k, v, bias, mask, None, out, bw, nh, nq, nk, hd, scale, split_p)
@@ -314,13 +305,21 @@ def _launch(q, k, v, bias, mask, scale, counter, split_p,
     if route == "wgmma":
         name = "sr_window_attention_wg_bf16"
         plan = wg_plan(nq, nk, hd, mask is not None, bool(split_p))
-        status = _lib.call(q, _lib.library().sr_window_attention_wg_bf16, *args,
+        if plan is None:
+            raise ValueError(f"window attention: the wgmma kernel does not take Nq={nq}, "
+                             f"Nk={nk}, hd={hd}{' with a mask' if mask is not None else ''}"
+                             f"{' with split P' if split_p else ''}")
+        status = _lib.call(q, _lib.library().sr_window_attention_wg_bf16, q.data_ptr(),
+                           k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(), bw, nh,
+                           nq, nk, hd, float(scale),
                            wg_ctas_per_head(bw, nh, _lib.sm_count(dev.index)), plan.slices,
-                           int(plan.fast), plan.stages, plan.consumers, int(plan.split),
-                           _lib.stream_of(q))
+                           plan.stages, _lib.stream_of(q))
     else:
         name = "sr_batched_window_attention_bf16"
-        status = _lib.call(q, _lib.library().sr_batched_window_attention_bf16, *args,
+        status = _lib.call(q, _lib.library().sr_batched_window_attention_bf16, q.data_ptr(),
+                           k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                           None if mask is None else mask.data_ptr(), out.data_ptr(), bw, nh,
+                           nq, nk, hd, n_mask, int(bool(split_p)), float(scale),
                            _lib.stream_of(q))
     _lib.check_status(status, name)
     counter.count += 1
