@@ -17,10 +17,14 @@ Phases (a failure in any raises, and the script exits non-zero):
             and 45->180, SwinIR-L's 240->240 and the composed x2, x3 and
             x4 reconstructions, each with its route, its ratio to cuDNN,
             its share of the bound and 20 calls timed back to back; K1
-            also with stochastic-depth branch scales and with HAT's
-            `extra` at hat_fast's widths; K6, the
+            at the train batch and SwinIR-M's bench batch [25,64,64,180]
+            (shift 0 and 4), also with stochastic-depth branch scales and
+            with HAT's `extra` at hat_fast's widths; K6, the
             ws-7 block, at HAT's tile batch with `extra` and at SwinIR's
-            widths without; K5, the block backward, on dx and its 13
+            widths without; at every K1 / K6 row the K7 route's
+            composition of the same block (K2, the gathers, K7, K1t)
+            timed beside the kernel, alone and back to back, in both
+            orders; K5, the block backward, on dx and its 13
             parameter gradients): the error vs the plain version in bf16
             and in fp32 (TF32 off), each against its stated bound; the
             median time of kernel, plain version and, where one PyTorch
@@ -45,7 +49,8 @@ Phases (a failure in any raises, and the script exits non-zero):
             `extra`, LN2, the MLP and its residual) at HAT-SRx4's
             widths (ws 16, shift 8, extra) and SwinIR-L's (ws 8, shift
             4, branch scales); and K12 (LN + the CAB's two convs) at
-            the HAT-SRx4, HAT, hat_fast and HAT-S shapes, also timed
+            the HAT-SRx4, HAT, hat_fast and HAT-S shapes and at C 256 /
+            Cmid 128 (y1 in two 64-channel chunks), also timed
             against K2 + cuDNN convs + GELU and against the port's K2 +
             K3 (GELU) + K3; each in
             bf16 ulps likewise; then DAT's module-chain kernels: K16
@@ -474,14 +479,15 @@ def phase_build():
     log(f"[build] {path.name} in {seconds:.1f} s "
         f"({'compiled' if out else 'already built'})")
     for line in out.splitlines():
-        if ("registers" in line or "spill" in line or "error" in line) and "C7519" not in line:
+        if (("registers" in line or "spill" in line or "error" in line or "C7515" in line)
+                and "C7519" not in line):
             log(f"[build] {line.strip()}")
     # the wgmma kernels by name (csrc/conv.cu: K3/K4's flat and halo routes;
     # csrc/window_attn.cu and window_attn_stream.cu: K7's product and
-    # attention; csrc/cab_fused.cu: K12), with their template arguments:
-    # registers, shared memory, spills
+    # attention; csrc/cab_fused.cu: K12; csrc/swin_block.cu: K1 / K6), with
+    # their template arguments: registers, shared memory, spills
     kinds = ("conv_nhwc_wgmma_kernel", "conv_nhwc_halo_kernel", "window_product_kernel",
-             "window_attn_stream_kernel", "cab_wgmma_kernel")
+             "window_attn_stream_kernel", "cab_wgmma_kernel", "swin_block_wg_kernel")
     name = None
     for line in out.splitlines():
         if "Function properties for" in line:
@@ -597,6 +603,56 @@ def _compare_grads(results, key, label, got, ref16, ref32, act_fields, param_fie
     _record(results, key, label, max(errs), t_kernel, t_plain, work)
 
 
+def _k7_route(w, ws, shift, mask, gelu_approx, scales, extra, shape):
+    """The K7 route's composition of one block (what the models run
+    where the block kernel does not take the widths): K2 for LN1, the
+    shift and partition gathers, K7's three launches (the bias as the
+    table + the map's token codes) and K1t, the weights packed once."""
+    import functools
+
+    import torch
+
+    from tpu_superresolution_torch.kernels import fused_attention as fa
+    from tpu_superresolution_torch.kernels import fused_block as fb
+    from tpu_superresolution_torch.kernels.layernorm import layernorm
+    from tpu_superresolution_torch.ops.window import window_codes_tensor
+
+    pa = fa.pack_window_attention(w.wqkv, w.bqkv, w.wproj, w.bproj, table=w.table, ws=ws)
+    pt = fb.pack_block_tail(w.g2, w.b2, w.wfc1, w.bfc1, w.wfc2, w.bfc2)
+    codes = window_codes_tensor(shape[1], shape[2], ws, shift if mask is not None else 0,
+                                torch.device("cuda"))
+
+    def attention(xw, w_, ws_, mask_):
+        return fa.fused_window_attention(xw, w.wqkv, w.bqkv, w.wproj, w.bproj, None, mask_,
+                                         packed=pa, codes=codes)
+
+    return lambda x: fb.swin_block_plain(
+        x, w, ws, shift, mask, gelu_approx, scales, extra,
+        ln1=lambda x, g, b: layernorm(x.contiguous(), g, b), attention=attention,
+        tail=functools.partial(fb.fused_block_tail, packed=pt))
+
+
+def _against_k7_route(key, label, run, route, x):
+    """The block kernel and the K7 route's composition on the same
+    inputs, each timed alone and 20 calls back to back, twice in the
+    order kernel, composition, composition, kernel (the mean of the two);
+    logged beside each other.  Returns the composition's b2b time."""
+    fns = {"kernel": run, "K7 route": lambda: route(x)}
+    alone, b2b = ({n: [] for n in fns} for _ in range(2))
+    for n in ("kernel", "K7 route", "K7 route", "kernel"):
+        alone[n].append(cuda_ms(fns[n]))
+        b2b[n].append(queued_ms(fns[n]))
+    mean = lambda v: sum(v) / len(v)
+    t = {n: mean(v) for n, v in alone.items()}
+    q = {n: mean(v) for n, v in b2b.items()}
+    log(f"[kernels] {key} {label} against the K7 route (K2 + gathers + K7 + K1t): " + "; ".join(
+        f"{n} {t[n]:.4f} ms ({' / '.join(f'{v:.4f}' for v in alone[n])}), b2b {q[n]:.4f} "
+        f"({' / '.join(f'{v:.4f}' for v in b2b[n])})" for n in fns)
+        + f"; kernel / K7 route {t['kernel'] / t['K7 route']:.2f}x alone, "
+        f"{q['kernel'] / q['K7 route']:.2f}x b2b")
+    return q["K7 route"]
+
+
 def phase_kernels():
     import torch
     import torch.nn.functional as F
@@ -605,6 +661,7 @@ def phase_kernels():
         GRAD_FIELDS,
         fused_swin_block_backward,
         fused_windows_block,
+        pack_block_tiles,
         pack_block_weights,
         swin_block_bwd_plain,
         swin_block_plain,
@@ -617,26 +674,34 @@ def phase_kernels():
     bf = torch.bfloat16
     res = {}
 
-    # K1: swin block, shift 0 and 4 on the serve tile batch / train batch
-    # (with and without stochastic-depth branch scales), and a whole image
+    # K1: swin block, shift 0 and 4 on the train batch and SwinIR-M's
+    # bench batch (25 tiles of 64^2), a whole image, and the train batch
+    # with stochastic-depth branch scales; at each row beside the K7
+    # route's composition of the same block
     w = _random_block(gen, dev)
-    packed = pack_block_weights(w)
+    tiles = pack_block_tiles(w)
+    packed = pack_block_weights(w)  # the backward's layout (K5 below)
     scales = torch.tensor([[1.0 / 0.9, 0.0], [1.0 / 0.9, 1.0 / 0.9]] * 4, device=dev)
     for shape, shift, sc in (((8, 64, 64, 180), 0, None), ((8, 64, 64, 180), 4, None),
+                             ((25, 64, 64, 180), 0, None), ((25, 64, 64, 180), 4, None),
                              ((1, 256, 256, 180), 4, None), ((8, 64, 64, 180), 0, scales),
                              ((8, 64, 64, 180), 4, scales)):
         x = torch.randn(*shape, generator=gen).to(dev, bf)
         mask = shift_mask_tensor(shape[1], shape[2], 8, shift, dev) if shift else None
-        run = lambda: fused_windows_block(x, w, 8, shift, mask, True, packed=packed,
+        run = lambda: fused_windows_block(x, w, 8, shift, mask, True, packed=tiles,
                                           branch_scales=sc)
         out = run()
         ref16 = swin_block_plain(x, w, 8, shift, mask, True, sc)
         ref32 = swin_block_plain(x.float(), w, 8, shift, mask, True, sc)
         torch.cuda.synchronize()
         label = f"{list(shape)} shift {shift}" + ("" if sc is None else " branch scales")
-        _compare(res, "K1", label, out, ref16, ref32, cuda_ms(run),
+        route = _k7_route(w, 8, shift, mask, True, sc, None, shape)
+        t_route = _against_k7_route("K1", label, run, route, x)
+        _compare(res, "K1", f"{label} (b2b {queued_ms(run):.4f} ms, K7 route b2b "
+                 f"{t_route:.4f})", out, ref16, ref32, cuda_ms(run),
                  cuda_ms(lambda: swin_block_plain(x, w, 8, shift, mask, True, sc)),
                  _swin_work(shape))
+        del out, ref16, ref32
 
     # The HAT block (C 96, 6 heads, hidden 384) with its CAB term `extra`:
     # K6 (ws 7) on the HAT bench's 25 tiles of 64^2 reflect-padded to 70^2,
@@ -649,7 +714,7 @@ def phase_kernels():
             ("K1", 8, (25, 64, 64, 96), 0, (96, 6, 384), True),
             ("K1", 8, (25, 64, 64, 96), 4, (96, 6, 384), True)):
         wb = _random_block(gen, dev, c, nh, hidden, ws)
-        pk = pack_block_weights(wb)
+        pk = pack_block_tiles(wb)
         x = torch.randn(*shape, generator=gen).to(dev, bf)
         ex = (0.05 * torch.randn(*shape, generator=gen)).to(dev, bf) if with_extra else None
         mask = shift_mask_tensor(shape[1], shape[2], ws, shift, dev) if shift else None
@@ -661,7 +726,10 @@ def phase_kernels():
                                  extra=None if ex is None else ex.float())
         torch.cuda.synchronize()
         label = f"{list(shape)} ws {ws} shift {shift}" + (" extra" if with_extra else "")
-        _compare(res, key, label, out, ref16, ref32, cuda_ms(run), cuda_ms(plain),
+        route = _k7_route(wb, ws, shift, mask, True, None, ex, shape)
+        t_route = _against_k7_route(key, label, run, route, x)
+        _compare(res, key, f"{label} (b2b {queued_ms(run):.4f} ms, K7 route b2b "
+                 f"{t_route:.4f})", out, ref16, ref32, cuda_ms(run), cuda_ms(plain),
                  _swin_work(shape, c, hidden, ws=ws, extra=with_extra))
         del out, ref16, ref32
 
@@ -1571,6 +1639,8 @@ def phase_window_kernels(res):
                              ("HAT (ws 7, padded tiles)", (25, 70, 70, 96), 32),
                              ("hat_fast", (25, 64, 64, 96), 32),
                              ("HAT-S (compress 24)", (25, 64, 64, 144), 6),
+                             # Cmid 65-128: y1 in two 64-channel chunks
+                             ("C 256 / Cmid 128 (compress 2)", (25, 64, 64, 256), 128),
                              # widths off the 4-channel pieces: pair and element paths
                              ("C 90 (pairs)", (2, 30, 31, 90), 30),
                              ("C 45 (elements)", (2, 17, 20, 45), 15)):
@@ -2242,7 +2312,7 @@ def _hat_split(model, fwd, smi, tag="hat"):
              if e.device_type == torch.autograd.DeviceType.CUDA
              and getattr(e, "is_user_annotation", False) and e.name in parts.values()]
     us = lambda e: getattr(e, "device_time", 0.0) or getattr(e, "cuda_time", 0.0)
-    names = (("block kernel (swin_block_kernel)", ("swin_block_kernel",)),
+    names = (("block kernel (swin_block_wg_kernel)", ("swin_block_wg_kernel",)),
              ("K7 window_product_kernel (qkv, proj)", ("window_product_kernel",)),
              ("K7 window_attn_stream_kernel", ("window_attn_stream_kernel",)),
              ("K1t swin_tail_kernel", ("swin_tail_kernel",)),
@@ -3035,7 +3105,7 @@ def _hat_train_split(state, lr, hr, step_ms, smi, tag="hat-train"):
              if e.device_type == torch.autograd.DeviceType.CUDA
              and getattr(e, "is_user_annotation", False) and e.name in parts.values()]
     us = lambda e: getattr(e, "device_time", 0.0) or getattr(e, "cuda_time", 0.0)
-    fwd_names = (("forward K6 / K1 (swin_block_kernel)", ("swin_block_kernel",)),
+    fwd_names = (("forward K6 / K1 (swin_block_wg_kernel)", ("swin_block_wg_kernel",)),
                  ("forward K8 (ocab_fwd_kernel / ocab16_fwd_kernel)", ("ocab_fwd_kernel",
                                                                        "ocab16_fwd_kernel")),
                  ("forward K7 (window_product_kernel, window_attn_stream_kernel)",
@@ -3136,29 +3206,34 @@ def _device_kernels(prof):
 
 
 def _packing_cost(model):
-    """What K1's weight packing costs each train step: device kernels
-    and synchronised milliseconds for all blocks."""
+    """What the block kernels' weight packing costs each train step (the
+    forward's ``pack_block_tiles`` and the backward's
+    ``pack_block_weights`` for every block): device kernels and
+    synchronised milliseconds for all blocks."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from tpu_superresolution_torch.kernels.fused_block import pack_block_weights
+    from tpu_superresolution_torch.kernels.fused_block import pack_block_tiles, pack_block_weights
 
     weights = [b.block_weights() for layer in model.layers
                for b in layer.residual_group.blocks]
-    run = lambda: [pack_block_weights(w) for w in weights]
-    run()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for label, pack in (("forward tiles (pack_block_tiles)", pack_block_tiles),
+                        ("backward layout (pack_block_weights)", pack_block_weights)):
+        run = lambda: [pack(w) for w in weights]
         run()
         torch.cuda.synchronize()
-    n = len(_device_kernels(prof))
-    t0 = time.perf_counter()
-    for _ in range(5):
-        run()
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / 5 * 1e3
-    log(f"[train] K1 weight packing per step: {len(weights)} blocks, {n} device kernels "
-        f"({n / len(weights):.0f} per block), {ms:.2f} ms (host and device, synchronised)")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        n = len(_device_kernels(prof))
+        t0 = time.perf_counter()
+        for _ in range(5):
+            run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 5 * 1e3
+        log(f"[train] K1 weight packing per step, {label}: {len(weights)} blocks, {n} device "
+            f"kernels ({n / len(weights):.0f} per block), {ms:.2f} ms (host and device, "
+            f"synchronised)")
 
 
 def _profile_step(step, state, lr, hr, gen, tag="train"):

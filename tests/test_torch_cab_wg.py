@@ -9,8 +9,9 @@ the CPU:
   outside the image and past C, in 64-channel chunks; conv1 on the 16 x
   16 pixels around the block as four 8 x 8 tiles whose tap operands are
   windows of the halo; + c1, the GELU, zero outside the image, into the
-  18 x 18 y1 buffer; conv2 on 2 x 2 tiles of 8 x 8 in passes of N2
-  channels, the block's 14 x 14 kept) reproduces
+  18 x 18 y1 buffer, one 64-channel chunk a y1 item (two at Cmid 65-128);
+  conv2 on 2 x 2 tiles of 8 x 8 in passes of N2 channels, each reducing
+  over the y1 chunks, the block's 14 x 14 kept) reproduces
   ``fused_ln_cab_convs_plain``.
 
 Bound: 3e-5 max abs (fp32)."""
@@ -27,8 +28,8 @@ OB, HS = 14, 18  # csrc/cab_fused.cu: output block side, halo / y1 buffer side
 
 
 def unpack_taps(w: torch.Tensor) -> torch.Tensor:
-    """[reps, 9, N, 64] swizzled tiles -> [9, 64 reps or 64, ...]: tap-major
-    [K, N] matrices, rep the K chunk (conv1) or the N pass (conv2)."""
+    """[reps, 9, N, 64] swizzled tiles, unswizzled: rep the K chunk
+    (conv1) or the (N pass, K chunk) pair (conv2)."""
     from tpu_superresolution_torch.kernels.cab_conv import _swizzle_rows
 
     return _swizzle_rows(w.float())  # [reps, 9, N, 64]
@@ -42,7 +43,8 @@ def cab_emulated(x, p):
     b, h, w, c = x.shape
     plan = p.plan
     w1 = unpack_taps(p.w1)  # [chunks, 9, N1, 64]
-    w2 = unpack_taps(p.w2)  # [passes, 9, N2, 64]
+    mch = -(-plan.n1 // 64)  # y1 chunks
+    w2 = unpack_taps(p.w2).reshape(plan.passes, mch, 9, plan.n2, 64)
     chunks = w1.shape[0]
     ln = F.pad(layernorm_plain(x, p.g, p.b), (0, 64 * chunks - c))
     y = torch.full_like(x, float("nan"))
@@ -67,7 +69,8 @@ def cab_emulated(x, p):
                                 a = halo[8 * ty + dy:8 * ty + dy + 8, 8 * tx + dx:8 * tx + dx + 8,
                                          64 * ch:64 * ch + 64]
                                 acc1[8 * ty:8 * ty + 8, 8 * tx:8 * tx + 8] += a @ w1[ch, tap].T
-                y1 = torch.zeros(HS + 2, HS + 2, 64)  # room for the unused tiles' reads
+                # the y1 items (64 channels each); room for the unused tiles' reads
+                y1 = torch.zeros(HS + 2, HS + 2, 64 * mch)
                 for ry in range(16):
                     for rx in range(16):
                         yy, xx = oy0 - 1 + ry, ox0 - 1 + rx
@@ -79,11 +82,12 @@ def cab_emulated(x, p):
                     for tx in range(2):
                         for ps in range(plan.passes):
                             acc = torch.zeros(8, 8, plan.n2)
-                            for tap in range(9):
-                                dy, dx = divmod(tap, 3)
-                                a = y1[8 * ty + dy + 1:8 * ty + dy + 9,
-                                       8 * tx + dx + 1:8 * tx + dx + 9]
-                                acc += a @ w2[ps, tap].T
+                            for yc in range(mch):
+                                for tap in range(9):
+                                    dy, dx = divmod(tap, 3)
+                                    a = y1[8 * ty + dy + 1:8 * ty + dy + 9,
+                                           8 * tx + dx + 1:8 * tx + dx + 9, 64 * yc:64 * yc + 64]
+                                    acc += a @ w2[ps, yc, tap].T
                             out[8 * ty:8 * ty + 8, 8 * tx:8 * tx + 8,
                                 ps * plan.n2:(ps + 1) * plan.n2] = acc
                 out = out + p.c2
@@ -93,7 +97,8 @@ def cab_emulated(x, p):
 
 
 _PLANS = [((180, 60), (64, 96, 2)), ((96, 32), (32, 96, 1)), ((144, 6), (16, 48, 3)),
-          ((256, 64), (64, 64, 4)), ((24, 5), (16, 48, 1))]
+          ((256, 64), (64, 64, 4)), ((24, 5), (16, 48, 1)), ((256, 128), (128, 64, 4)),
+          ((180, 90), (128, 96, 2))]
 
 
 @pytest.mark.parametrize("shape,want", _PLANS, ids=[f"C{c}-mid{m}" for (c, m), _ in _PLANS])
@@ -112,13 +117,13 @@ def test_cab_plan_by_width(shape, want):
 def test_cab_plan_refuses_past_its_widths():
     from tpu_superresolution_torch.kernels.cab_conv import cab_plan, cab_route
 
-    for c, cm in ((264, 88), (256, 128)):
+    for c, cm in ((264, 88), (240, 160)):
         assert cab_route(c, cm) == "convs"
         with pytest.raises(ValueError, match="K12 takes"):
             cab_plan(c, cm)
 
 
-@pytest.mark.parametrize("c,cm", [(180, 60), (96, 32), (144, 6), (30, 10)])
+@pytest.mark.parametrize("c,cm", [(180, 60), (96, 32), (144, 6), (30, 10), (256, 128), (96, 80)])
 def test_cab_tiles_unswizzle_to_the_weights(c, cm):
     """Both convs' packed tiles, unswizzled, give back the bf16 kernels
     exactly (zero in the padding) and the biases padded with zeros."""
@@ -133,8 +138,9 @@ def test_cab_tiles_unswizzle_to_the_weights(c, cm):
     w1 = w1.permute(1, 0, 3, 2).reshape(9, -1, plan.n1)  # [tap, in, mid]
     assert torch.equal(w1[:, :c, :cm], k1.reshape(9, c, cm).bfloat16().float())
     assert not w1[:, c:].any() and not w1[:, :, cm:].any()
-    w2 = unpack_taps(p.w2)  # [passes, 9, N2, 64]: [pass, tap, out, mid]
-    w2 = w2.permute(1, 3, 0, 2).reshape(9, 64, -1)  # [tap, mid, out]
+    mch = -(-plan.n1 // 64)
+    w2 = unpack_taps(p.w2).reshape(plan.passes, mch, 9, plan.n2, 64)  # [pass, chunk, tap, out, mid]
+    w2 = w2.permute(2, 1, 4, 0, 3).reshape(9, 64 * mch, -1)  # [tap, mid, out]
     assert torch.equal(w2[:, :cm, :c], k2.reshape(9, cm, c).bfloat16().float())
     assert not w2[:, cm:].any() and not w2[:, :, c:].any()
     assert torch.equal(p.c1[:cm], c1) and not p.c1[cm:].any()
@@ -142,7 +148,8 @@ def test_cab_tiles_unswizzle_to_the_weights(c, cm):
 
 
 _SCHEDULES = [((1, 20, 17, 24, 8), "odd-sides"), ((2, 14, 28, 96, 32), "whole-blocks"),
-              ((1, 9, 30, 180, 60), "C180-3-chunks"), ((1, 16, 15, 144, 6), "C144-3-passes")]
+              ((1, 9, 30, 180, 60), "C180-3-chunks"), ((1, 16, 15, 144, 6), "C144-3-passes"),
+              ((1, 16, 15, 256, 128), "C256-mid128-two-y1-chunks")]
 
 
 @pytest.mark.parametrize("shape", [s for s, _ in _SCHEDULES], ids=[i for _, i in _SCHEDULES])
@@ -151,7 +158,8 @@ def test_cab_schedule_emulated_matches_plain(shape):
     its zero ring, conv1 on 8 x 8 tiles of the 16 x 16 region, y1 zero
     outside the image, conv2 in passes) reproduces the plain version at
     fp32: image sides that are and are not multiples of 14, C past one
-    64-channel chunk, conv2 in two and three passes."""
+    64-channel chunk, conv2 in two and three passes, and Cmid 128 (y1 in
+    two chunks, conv2 reducing over both)."""
     from tpu_superresolution_torch.kernels.cab_conv import fused_ln_cab_convs_plain, pack_cab
 
     b, h, w, c, cm = shape

@@ -179,8 +179,8 @@ def test_hat_wide_matches_jax(k15_emulated, k7_emulated, monkeypatch):
     assert np.abs(got - want).max() <= TOL
 
 
-# K12 takes C <= 256 and Cmid <= 64 (one 64-channel chunk of its y1)
-_CAB_ROUTES = [(96, 32, "K12"), (180, 60, "K12"), (256, 128, "convs"), (264, 88, "convs"),
+# K12 takes C <= 256 and Cmid <= 128 (its y1 in one or two 64-channel chunks)
+_CAB_ROUTES = [(96, 32, "K12"), (180, 60, "K12"), (256, 128, "K12"), (264, 88, "convs"),
                (240, 160, "convs"), (256, 64, "K12"), (144, 6, "K12")]
 
 

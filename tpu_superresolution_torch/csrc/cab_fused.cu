@@ -39,12 +39,16 @@
 //       weights (2 x 221 KB at C 180) do not fit beside a block, so they
 //       stream, as K3's do.  Warpgroups 1 and 2 consume, each one row of
 //       8 x 8 tiles: conv1 as wgmma m64 x N1 x k16 (N1 = Cmid rounded up
-//       to 16, 32 or 64) over 9 taps x the chunks; + c1, GELU in
-//       registers, zeroed outside the image, bf16 into the y1 item (the
-//       16 x 16 pixels in the same swizzled layout, one 64-channel chunk);
-//       then conv2 as wgmma m64 x N2 x k16 over 9 taps, in passes of N2
-//       (48, 64 or 96) output channels, + c2; each warp stages 8 pixels'
-//       outputs and stores each pixel's run of channels whole.
+//       to 16, 32, 64 or 128) over 9 taps x the chunks; + c1, GELU in
+//       registers, zeroed outside the image, bf16 into the y1 items (the
+//       16 x 16 pixels in the same swizzled layout, an item a 64-channel
+//       chunk of Cmid: two at Cmid 65-128); then conv2 as wgmma m64 x N2
+//       x k16 over 9 taps a y1 chunk, in passes of N2 (48, 64 or 96)
+//       output channels, + c2; each warp stages 8 pixels' outputs and
+//       stores each pixel's run of channels whole.  At N1 128 a block's
+//       items are its C chunks and two y1 items; the three slots still
+//       hold them (the next block's first chunk loads into the third slot
+//       while conv2 reads both y1 items).
 //       Measured on the H100 (clock64 timelines of one CTA): the first
 //       producer, three warps issuing dependent shared-memory round trips,
 //       took ~20K cycles a chunk and bounded the kernel; its loads are now
@@ -66,12 +70,21 @@ constexpr int HS = 18;             // halo side: the input halo and the y1 buffe
 constexpr int HPX = HS * HS;       // 324 pixel rows
 constexpr int HBUF = (HPX * 128 + 1023) / 1024 * 1024;  // one 64-channel chunk buffer
 constexpr int kThreads = 416;    // warpgroup 0: LN; 1, 2: consumers; warp 12: the weights
+// At N1 128 conv1's accumulators alone take 128 registers a consumer
+// thread, all 416 threads may have (an SM sub-partition's 16K registers
+// over its four warps): there the weights get a whole warpgroup (512
+// threads) and setmaxnreg moves registers to the consumers,
+// 32 x (120 + 2 x 184 + 24) = 16384 a sub-partition.
+template <int N1>
+__host__ __device__ constexpr int threads_of() { return N1 > 64 ? 512 : kThreads; }
+constexpr int kLnRegs = 120, kConsumerRegs = 184, kFeederRegs = 24;
 constexpr int kLnThreads = 128;
 constexpr int kSmemMax = 232448;
 constexpr int kStageBytes = 24576;  // a weight stage: a run of taps' tiles
 constexpr int kMaxStages = 4;
-constexpr int kSlots = 3;  // halo buffers: a ring of a block's LN chunks and its y1
+constexpr int kSlots = 3;  // halo buffers: a ring of a block's LN chunks and its y1 chunks
 constexpr int MAX_C = 256;
+constexpr int MAX_N1 = 128;  // Cmid <= 128: y1 in one or two 64-channel chunks
 constexpr int MAX_SC2 = 384;  // conv2's padded bias: passes * N2 <= 288 at C <= 256
 
 struct Params {
@@ -81,7 +94,7 @@ struct Params {
   const float* b;
   const bf16* w1;   // [chunks, 9, N1, 64] swizzled
   const float* c1;  // [N1]
-  const bf16* w2;   // [passes, 9, N2, 64] swizzled
+  const bf16* w2;   // [passes, N1 / 64 or 1, 9, N2, 64] swizzled: a pass's y1 chunks
   const float* c2;  // [passes * N2]
   bf16* y;
   int batch, h, w, c, cmid, chunks, passes;
@@ -127,15 +140,18 @@ __device__ __forceinline__ void consumers_barrier() {
 }
 
 // The weight runs of one block, in the consumers' order: conv1's chunks
-// (each 9 taps in runs of T1), then conv2's passes (9 taps in runs of T2).
+// (each 9 taps in runs of T1), then conv2's passes (each y1 chunk's 9
+// taps in runs of T2).
 template <int N1, int N2>
 struct Runs {
   static constexpr int T1 = taps_per_stage<N1>(), T2 = taps_per_stage<N2>();
   static constexpr int R1 = (9 + T1 - 1) / T1, R2 = (9 + T2 - 1) / T2;  // runs a chunk / pass
+  static constexpr int Y1 = N1 > 64 ? 2 : 1;  // y1 chunks (halo items) of a block
 };
 
 template <int N1, int N2>
-__global__ void __launch_bounds__(kThreads, 1) cab_wgmma_kernel(const Params p) {
+__global__ void __launch_bounds__(threads_of<N1>(), 1) cab_wgmma_kernel(const Params p) {
+  constexpr int NT = threads_of<N1>();
   using R = Runs<N1, N2>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = hopper::smem_addr(smem_raw);
@@ -150,7 +166,7 @@ __global__ void __launch_bounds__(kThreads, 1) cab_wgmma_kernel(const Params p) 
   float* sg = reinterpret_cast<float*>(stats + HPX);
   float* sb = sg + MAX_C;
   float* sc1 = sb + MAX_C;
-  float* sc2 = sc1 + 64;
+  float* sc2 = sc1 + MAX_N1;
   // after sc2: each consumer warp's output staging, 8 pixels x (N2 + 8) bf16
   const int cwarp = (threadIdx.x >> 5) - 4;  // consumer warp 0..7 (producer warps: < 0)
   bf16* wstage = reinterpret_cast<bf16*>(sc2 + MAX_SC2) + max(cwarp, 0) * 8 * (N2 + 8);
@@ -163,12 +179,12 @@ __global__ void __launch_bounds__(kThreads, 1) cab_wgmma_kernel(const Params p) 
   auto phase = [](int hc) { return (hc / kSlots) & 1; };
 
   const int tid = threadIdx.x, lane = tid & 31;
-  for (int i = tid; i < p.c; i += kThreads) {
+  for (int i = tid; i < p.c; i += NT) {
     sg[i] = p.g[i];
     sb[i] = p.b[i];
   }
-  for (int i = tid; i < N1; i += kThreads) sc1[i] = p.c1[i];
-  for (int i = tid; i < p.passes * N2; i += kThreads) sc2[i] = p.c2[i];
+  for (int i = tid; i < N1; i += NT) sc1[i] = p.c1[i];
+  for (int i = tid; i < p.passes * N2; i += NT) sc2[i] = p.c2[i];
   if (tid == 0) {
     for (int i = 0; i < kSlots; ++i) {
       hopper::mbar_init(halo_full(i), kLnThreads);
@@ -187,11 +203,13 @@ __global__ void __launch_bounds__(kThreads, 1) cab_wgmma_kernel(const Params p) 
   const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);  // warp-uniform role
   if (wg == 3) {
     // --------------------------------------------------- weight feeder
-    if (lane != 0) return;
+    if constexpr (NT > kThreads)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kFeederRegs));
+    if (tid != 3 * 128) return;
     int g = 0;
     for (int blk = blockIdx.x; blk < blocks; blk += gridDim.x) {
       for (int part = 0; part < 2; ++part) {
-        const int reps = part == 0 ? p.chunks : p.passes;
+        const int reps = part == 0 ? p.chunks : p.passes * R::Y1;
         const int T = part == 0 ? R::T1 : R::T2, nr = part == 0 ? R::R1 : R::R2;
         const int tile = (part == 0 ? N1 : N2) * 128;
         const bf16* src = part == 0 ? p.w1 : p.w2;
@@ -209,6 +227,8 @@ __global__ void __launch_bounds__(kThreads, 1) cab_wgmma_kernel(const Params p) 
     return;
   }
   if (wg == 0) {
+    if constexpr (NT > kThreads)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kLnRegs));
     // ------------------------------------------------------ LN producer
     const int t = tid;  // 0..127
     int hc = 0;
@@ -317,19 +337,23 @@ __global__ void __launch_bounds__(kThreads, 1) cab_wgmma_kernel(const Params p) 
           hopper::mbar_arrive(halo_full(hb));  // (shared stores: ordered by the arrive)
         }
       }
-      // the block's y1 item: its buffer, once free, goes to the consumers
+      // the block's y1 items: each buffer, once free, goes to the consumers
       // unwritten (they write y1 into it and release it after conv2)
-      hopper::mbar_wait(halo_empty(slot(hc)), phase(hc) ^ 1);
-      hopper::mbar_arrive(halo_full(slot(hc)));
-      ++hc;
+      for (int yc = 0; yc < R::Y1; ++yc, ++hc) {
+        hopper::mbar_wait(halo_empty(slot(hc)), phase(hc) ^ 1);
+        hopper::mbar_arrive(halo_full(slot(hc)));
+      }
     }
     return;
   }
   // ------------------------------------------------------------ consumers
+  if constexpr (NT > kThreads)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
   const int cw = wg - 1, ct = tid - 128 * wg, q = lane & 3;
   const int i0 = (ct >> 5) * 16 + (lane >> 2);  // the thread's tile rows i0, i0 + 8
   const uint32_t group = HS * 128;              // one halo row between core matrices
-  const int ksub2 = (p.cmid + 15) >> 4;
+  const int ksub2 = (min(64, p.cmid) + 15) >> 4;  // y1 chunk 0's k-steps
+  const int ksub2b = (max(p.cmid - 64, 0) + 15) >> 4;  // chunk 1's
   int g = 0, hc = 0;
   for (int blk = blockIdx.x; blk < blocks; blk += gridDim.x) {
     int img, oy0, ox0;
@@ -375,11 +399,15 @@ __global__ void __launch_bounds__(kThreads, 1) cab_wgmma_kernel(const Params p) 
 #pragma unroll
     for (int m = 0; m < 2; ++m) hopper::fence_operands(a1[m]);
     // ---- y1 = gelu(conv1 + c1), zero outside the image, into the block's
-    // y1 item (a halo buffer the producer hands over unwritten; its rows
-    // and columns past the 16 x 16 pixels feed only outputs past the block)
-    const int yb = slot(hc);
-    hopper::mbar_wait(halo_full(yb), phase(hc));
-    const uint32_t y1buf = halo0 + yb * HBUF;
+    // y1 items (halo buffers the producer hands over unwritten; their rows
+    // and columns past the 16 x 16 pixels feed only outputs past the
+    // block): channel n into item n / 64
+    uint32_t y1bufs[R::Y1];
+#pragma unroll
+    for (int yc = 0; yc < R::Y1; ++yc) {
+      hopper::mbar_wait(halo_full(slot(hc + yc)), phase(hc + yc));
+      y1bufs[yc] = halo0 + slot(hc + yc) * HBUF;
+    }
 #pragma unroll
     for (int m = 0; m < 2; ++m)
 #pragma unroll
@@ -394,21 +422,26 @@ __global__ void __launch_bounds__(kThreads, 1) cab_wgmma_kernel(const Params p) 
           const int n = 8 * j + 2 * q;
           const float v0 = in ? gelu_erf(a1[m][4 * j + 2 * h2] + sc1[n]) : 0.f;
           const float v1 = in ? gelu_erf(a1[m][4 * j + 2 * h2 + 1] + sc1[n + 1]) : 0.f;
-          asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(y1buf + hopper::sw128_offset(px, 2 * n)),
+          asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(
+                           y1bufs[j / 8] + hopper::sw128_offset(px, 2 * (n & 63))),
                        "r"(pack_bf16(v0, v1))
                        : "memory");
         }
       }
     hopper::fence_proxy_async();  // the y1 writes, before wgmma reads them
     consumers_barrier();
-    // ---- conv2 on output rows 8 cw .. 8 cw + 7 (valid < 14), in passes of N2
+    // ---- conv2 on output rows 8 cw .. 8 cw + 7 (valid < 14), in passes of
+    // N2, each reducing over the y1 chunks
     for (int pass = 0; pass < p.passes; ++pass) {
       float a2[2][N2 / 2];
 #pragma unroll
       for (int m = 0; m < 2; ++m)
 #pragma unroll
         for (int e = 0; e < N2 / 2; ++e) a2[m][e] = 0.f;
-      for (int r = 0; r < R::R2; ++r, ++g) {
+      for (int rr = 0; rr < R::Y1 * R::R2; ++rr, ++g) {
+        const int yc = R::Y1 > 1 ? rr / R::R2 : 0, r = rr - yc * R::R2;
+        const uint32_t y1buf = yc ? y1bufs[R::Y1 - 1] : y1bufs[0];
+        const int ks = yc == 0 ? ksub2 : ksub2b;
         const int st = g % S, tap0 = r * R::T2, ntaps = min(R::T2, 9 - tap0);
         hopper::mbar_wait(w_full(st), (g / S) & 1);
         hopper::wgmma_fence();
@@ -423,12 +456,12 @@ __global__ void __launch_bounds__(kThreads, 1) cab_wgmma_kernel(const Params p) 
                 y1buf + ((8 * cw + dy + 1) * HS + 8 * m + dx + 1) * 128, group);
 #pragma unroll
             for (int k = 0; k < 4; ++k)
-              if (k < ksub2) hopper::Wgmma<N2>::mma(a2[m], da + 2 * k, db + 2 * k, 1);
+              if (k < ks) hopper::Wgmma<N2>::mma(a2[m], da + 2 * k, db + 2 * k, 1);
           }
         }
         hopper::wgmma_commit();
         hopper::wgmma_wait<1>();
-        if (r > 0 && lane == 0) hopper::mbar_arrive(w_empty((g - 1) % S));
+        if (rr > 0 && lane == 0) hopper::mbar_arrive(w_empty((g - 1) % S));
       }
       hopper::wgmma_wait<0>();
       if (lane == 0) hopper::mbar_arrive(w_empty((g - 1) % S));
@@ -474,9 +507,10 @@ __global__ void __launch_bounds__(kThreads, 1) cab_wgmma_kernel(const Params p) 
           __syncwarp();
         }
     }
-    // conv2's last wgmma has read y1 (wait<0> above): release its item
-    if (lane == 0) hopper::mbar_arrive(halo_empty(yb));
-    ++hc;
+    // conv2's last wgmma has read y1 (wait<0> above): release its items
+    if (lane == 0)
+      for (int yc = 0; yc < R::Y1; ++yc) hopper::mbar_arrive(halo_empty(slot(hc + yc)));
+    hc += R::Y1;
   }
 }
 
@@ -525,7 +559,7 @@ int launch(Params p, cudaStream_t stream) {
   // alignment slack, the halo ring, the barriers, the statistics, g, b,
   // c1, c2, the consumer warps' output staging; then the weight stages
   constexpr int fixed = 1024 + kSlots * HBUF + (2 * kSlots + 2 * kMaxStages) * 8 + HPX * 8 +
-                        (2 * MAX_C + 64 + MAX_SC2) * 4 + 8 * 8 * (N2 + 8) * 2;
+                        (2 * MAX_C + MAX_N1 + MAX_SC2) * 4 + 8 * 8 * (N2 + 8) * 2;
   p.stages = (kSmemMax - fixed) / kStageBytes;
   if (p.stages > kMaxStages) p.stages = kMaxStages;
   if (p.stages < 2 || p.passes * N2 > MAX_SC2) return static_cast<int>(cudaErrorInvalidValue);
@@ -545,7 +579,7 @@ int launch(Params p, cudaStream_t stream) {
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int blocks = p.batch * p.tiles_y * p.tiles_x;
-  cab_wgmma_kernel<N1, N2><<<blocks < sms ? blocks : sms, kThreads, bytes, stream>>>(p);
+  cab_wgmma_kernel<N1, N2><<<blocks < sms ? blocks : sms, threads_of<N1>(), bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -564,14 +598,15 @@ int launch_n2(const Params& p, int n2, cudaStream_t s) {
 // Two launches: LN's statistics of every pixel into `stats` [batch * h *
 // w] float2 (a workspace), then the fused kernel.  x [batch, h, w, c]
 // bf16 NHWC; g, b [c] fp32; w1 the packed conv1
-// [ceil(c / 64), 9, n1, 64] and c1 [n1]; w2 the packed conv2 [passes, 9,
-// n2, 64] and c2 [passes * n2] (kernels/cab_conv.py ``pack_cab``); n1 16,
-// 32 or 64 (cmid <= n1), n2 48, 64 or 96 (passes * n2 >= c); y like x.
+// [ceil(c / 64), 9, n1, 64] and c1 [n1]; w2 the packed conv2 [passes,
+// ceil(cmid / 64), 9, n2, 64] and c2 [passes * n2] (kernels/cab_conv.py
+// ``pack_cab``); n1 16, 32, 64 or 128 (cmid <= n1; cmid > 64 exactly at
+// 128), n2 48, 64 or 96 (passes * n2 >= c); y like x.
 extern "C" int sr_ln_cab_convs_bf16(const void* x, const void* g, const void* b, const void* w1,
                                     const void* c1, const void* w2, const void* c2, void* y,
                                     void* stats, int batch, int h, int w, int c, int cmid,
                                     int n1, int n2, int passes, float eps, void* stream) {
-  if (c < 1 || c > MAX_C || cmid < 1 || cmid > n1 || passes < 1 ||
+  if (c < 1 || c > MAX_C || cmid < 1 || cmid > n1 || (cmid > 64) != (n1 > 64) || passes < 1 ||
       static_cast<long long>(passes) * n2 < c || !aligned_to(w1, 16) || !aligned_to(w2, 16) ||
       !aligned_to(x, 16))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -619,6 +654,7 @@ extern "C" int sr_ln_cab_convs_bf16(const void* x, const void* g, const void* b,
     case 16: return launch_n2<16>(p, n2, s);
     case 32: return launch_n2<32>(p, n2, s);
     case 64: return launch_n2<64>(p, n2, s);
+    case 128: return launch_n2<128>(p, n2, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -20,7 +20,7 @@ HAT-SRx4 training (H16T: window 16, C 180, hidden 360).
 ==== ========================================================== ======== ==================================================
  #   JAX file:line of pallas_call . entry function                on path  port
 ==== ========================================================== ======== ==================================================
-K1   fused_block.py:958 . fused_swin_block (_mega_forward)         S,T,H    CUDA csrc/swin_block.cu (ws 8, extra), fused_block.fused_windows_block
+K1   fused_block.py:958 . fused_swin_block (_mega_forward)         S,T,H    CUDA csrc/swin_block.cu (ws 8, extra; wgmma, fused_block.block_plan), fused_block.fused_windows_block
      (the same function at any other window or width)             H16,W,   K2 + K7 + K1's tail, CUDA csrc/swin_tail.cu, fused_block.fused_block_tail (K1t)
                                                                   H16T
 K5   fused_block.py:1080 . _mega_backward                          T,HT     CUDA csrc/swin_block_bwd.cu (ws 8, extra), fused_block.SwinBlockFunction
@@ -40,7 +40,7 @@ K14  fused_channel_attn.py:209 . fused_channel_attention           D        CUDA
 K10  fused_datb_tail.py:374 . fused_datb_tail                      D        CUDA csrc/dat_tail.cu, fused_datb_tail.datb_tail
 K7   fused_attention.py:229 . fused_window_block_attention         H16,W,   CUDA csrc/window_attn.cu (the qkv and proj product) + csrc/window_attn_stream.cu
                                                                   H16T     (the attention), fused_attention.fused_window_attention
-K12  cab_conv.py:209 . fused_ln_cab_convs                          H,HT,    CUDA csrc/cab_fused.cu (C <= 256, Cmid <= 64), cab_conv.fused_ln_cab_convs
+K12  cab_conv.py:209 . fused_ln_cab_convs                          H,HT,    CUDA csrc/cab_fused.cu (C <= 256, Cmid <= 128), cab_conv.fused_ln_cab_convs
                                                                   H16,H16T
 K11  cab_conv.py:506 . dwconv3x3_halo                              DT,DC    CUDA csrc/dwconv.cu ("rows" or "tiles", dwconv.dwconv_plan), dwconv.dwconv3x3
 K15  window_attention.py:193 . fused_window_attention              H,H16    CUDA csrc/window_attn_wg.cu, csrc/batched_attn.cu or csrc/window_attn_stream.cu
@@ -49,8 +49,9 @@ K16  window_attention.py:352 . batched_window_attention            DT,DC    CUDA
                                                                            (window_attention.k15_route), window_attention.batched_window_attention
 ==== ========================================================== ======== ==================================================
 
-One CUDA kernel, templated on the window size, serves K1, K6 and K13:
-its ws = 8 launches count as K1, its ws = 7 launches as K6; one
+One CUDA kernel, templated on the window size (and on its padded width
+and head dim), serves K1, K6 and K13: its ws = 8 launches count as K1,
+its ws = 7 launches as K6; one
 backward kernel likewise serves K5 (ws 8) and K6's backward (ws 7, K6b).
 In training, K1-K4, K1t, K6, K7, K8, K12 and K15 run through
 ``torch.autograd.Function``s: K1's backward is K5, K6's is K6b, K8's is

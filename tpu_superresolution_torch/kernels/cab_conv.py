@@ -52,7 +52,9 @@ on the block (``cab_plan`` picks the N tiles).  Its gradient is
 ``CabConvsFunction``: forward K12, backward torch autograd of
 ``fused_ln_cab_convs_plain``, as the JAX custom_vjp differentiates
 ``_reference`` (``cab_conv.py:548-550``).  The kernel takes C <= 256 and
-Cmid <= 64; past those widths ``cab_route`` sends the CAB to
+Cmid <= 128, as the JAX kernel does (Cmid 65-128: conv1 at N 128, y1 in
+two 64-channel chunks, conv2 reducing over both); past those widths
+``cab_route`` sends the CAB to
 ``ln_cab_convs``, the same function as K2 + K3 (with the GELU in its
 epilogue) + K3.  The JAX package's erf is an A&S polynomial, the port's
 torch's erf.
@@ -78,7 +80,7 @@ launches_ln_cab = _lib.LaunchCounter("K12 ln_cab_convs")
 
 # Limits of csrc/cab_fused.cu.
 CAB_MAX_C = 256   # csrc/cab_fused.cu: channels (four 64-channel chunks)
-CAB_MAX_MID = 64  # and Cmid (one 64-channel chunk of y1)
+CAB_MAX_MID = 128  # and Cmid (y1 in one or two 64-channel chunks)
 
 
 def conv_plain(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
@@ -418,7 +420,7 @@ def fused_ln_cab_convs_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
 
 
 # csrc/cab_fused.cu: its widths, compiled conv1 / conv2 N tiles
-CAB_N1 = (16, 32, 64)
+CAB_N1 = (16, 32, 64, 128)
 CAB_N2 = (48, 64, 96)
 CAB_BLOCK = 14  # output pixels a block side
 
@@ -476,10 +478,11 @@ def check_cab_limits(c: int, cmid: int, name: str = "fused_ln_cab_convs") -> Non
 @dataclasses.dataclass(frozen=True)
 class PackedCab:
     """K12's operands: conv1's weight as one [N1, 64] tile a (64-channel
-    chunk of C, tap) and conv2's as one [N2, 64] tile a (pass, tap), each
-    K-major and 128B-swizzled (16-byte chunk j of row n at j ^ (n % 8)),
-    zero past the channels (``w1`` [chunks, 9, N1, 64], ``w2`` [passes, 9,
-    N2, 64]); fp32 biases padded alike; fp32 LN params."""
+    chunk of C, tap) and conv2's as one [N2, 64] tile a (pass, 64-channel
+    chunk of Cmid, tap), each K-major and 128B-swizzled (16-byte chunk j
+    of row n at j ^ (n % 8)), zero past the channels (``w1`` [chunks, 9,
+    N1, 64], ``w2`` [passes * mid chunks, 9, N2, 64], a pass's chunks
+    together); fp32 biases padded alike; fp32 LN params."""
 
     w1: torch.Tensor
     c1: torch.Tensor
@@ -495,7 +498,8 @@ class PackedCab:
 def _pack_taps(k: torch.Tensor, n_tile: int, n_tiles: int, dtype: torch.dtype) -> torch.Tensor:
     """A [3, 3, Cin, Cout] kernel as [n_tiles * chunks, 9, n_tile, 64]
     swizzled tiles: tile (N tile or chunk, tap) holds output channels
-    n_tile t.. and input channels 64 c.. (one of the two is 1 in K12)."""
+    n_tile t.. and input channels 64 c.., N tile-major (conv1 has one N
+    tile; conv2 one 64-channel chunk of Cmid, or two past Cmid 64)."""
     cin, cout = int(k.shape[2]), int(k.shape[3])
     chunks = -(-cin // CONV_BK)
     w = F.pad(k.detach().float().reshape(9, cin, cout),

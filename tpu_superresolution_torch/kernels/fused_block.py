@@ -27,6 +27,22 @@ computes exactly that composition.  The kernels take ws 7 or 8, C <=
 192, heads of hd <= 32 (at most 6), an MLP hidden <= 384 and
 qkv_bias=True, and raise otherwise.
 
+The forward kernel runs on Hopper's wgmma: a persistent CTA an SM walks
+window pairs, two consumer warpgroups a window each (its 64 token rows
+one m64 tile), a feeder warp streaming the weights through an mbarrier
+ring of 12 KB stages; the products accumulate in registers, where every
+epilogue runs (LN1 / LN2, q into Q K^T's A fragments, the softmax with
+the bias and mask, P and the GELU'd hidden chunk as the A operands of P V
+and fc2).  Its launch plan comes from static shapes alone
+(``block_plan``: padded width 96 or 192, head dim 16 or 32, hidden in
+64-column chunks, ring stages), and its operands from
+``pack_block_tiles``: one stream of [N, 64] 128B-swizzled weight tiles
+in the consumers' order, the biases, and the [nH, (2ws-1)^2] bias table
+that it reads through the token codes of ``ops.window.window_token_codes``
+(the bias and the shift mask, bit for bit, without the dense [nH, N, N]
+and [nW, N, N] reads).  ``pack_block_weights`` (the [out, in] layout
+padded to 192 / 32 / 384 with the gathered bias) stays the backwards'.
+
 Which blocks take the kernel is decided by ``block_route`` from static
 shapes alone, the same on every call and device: ws 7 or 8 within those
 widths -> "block"; every other block (any window, any C, any number of
@@ -41,10 +57,10 @@ raise, as the JAX block fails on them.  Both routes and the plain
 version are one composition, ``swin_block_plain``,
 whose steps the route swaps for the kernels' wrappers.  One
 divergence: the JAX package runs ws 16 (upstream HAT-SRx4) through K1
-as one kernel; here a 256-token window does not fit the whole-block
-kernel's single-CTA, 64-row design, which already holds ~209 KB of
-shared memory at ws 8 (``csrc/swin_block.cu``), so it takes three.  A
-single fused ws-16 block is queued in ROADMAP.
+as one kernel; here the whole-block kernel holds a window as one 64-row
+wgmma tile in a consumer warpgroup, two windows in ~226 KB of shared
+memory at width 192 (``csrc/swin_block.cu``), so a 256-token window
+takes three kernels.  A single fused ws-16 block is queued in ROADMAP.
 
 The backward ports ``_bwd_kernel`` as ``_mega_backward`` (K5) and
 ``_packed_backward`` (K6) call it: recompute the forward, chain the
@@ -68,6 +84,7 @@ or ``_packed_backward`` (ws 6, 12, ...): ROADMAP Queue 2.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
@@ -80,11 +97,12 @@ from tpu_superresolution_torch.ops.window import (
     cyclic_shift,
     cyclic_unshift,
     relative_position_bias,
+    window_codes_tensor,
     window_partition,
     window_reverse,
 )
 
-# Compile-time sizes of csrc/swin_block.cu and csrc/swin_block_bwd.cu.
+# Compile-time sizes of csrc/swin_block_bwd.cu (and the forward's limits).
 KERNEL_WINDOWS = (7, 8)  # window sizes of the forward and backward kernels
 CP = 192     # padded channels
 HDP = 32     # padded head dim
@@ -105,6 +123,14 @@ BWD16_WINDOW = 16  # the window of csrc/swin_block_bwd16.cu
 # the counters of the forward and backward kernels for each window size
 FORWARD_COUNTERS = {8: launches, 7: launches_ws7}
 BACKWARD_COUNTERS = {8: launches_bwd, 7: launches_bwd_ws7}
+# csrc/swin_block.cu (the forward): its instantiations (padded width,
+# padded head dim), the hidden chunk, the ring's stages, shared memory
+BLOCK_INSTANCES = ((96, 16), (96, 32), (192, 32))
+BLOCK_HC = 64
+BLOCK_STAGE_BYTES = 12288
+BLOCK_MAX_STAGES = 8
+BLOCK_SMEM = 232448
+BLOCK_TABLE_BYTES = MAX_HEADS * 225 * 4  # [nH, (2ws-1)^2] fp32 at ws <= 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,12 +201,12 @@ class SwinBlockGrads:
 
 @dataclasses.dataclass(frozen=True)
 class PackedSwinBlock:
-    """The kernels' operands: bf16 GEMM weights in the [out, in] layout,
-    zero-padded to the kernel's tile sizes (q rows pre-scaled by
+    """The backward kernels' operands: bf16 GEMM weights in the [out, in]
+    layout, zero-padded to the kernels' tile sizes (q rows pre-scaled by
     hd^-0.5, head dims padded hd -> 32, channels C -> 192), fp32 biases
     and LayerNorm params, and the gathered [nH, N, N] relative-position
-    bias of the window size (N = ws^2).  K1/K6 and their backwards take
-    it at ws 7 and 8, K5w16 at ws 16."""
+    bias of the window size (N = ws^2).  K5 and K6b take it at ws 8 and
+    7, K5w16 at ws 16 (the forward takes ``PackedBlockTiles``)."""
 
     wqkv: torch.Tensor   # [3*CP, CP] bf16
     bqkv: torch.Tensor   # [3*CP] fp32
@@ -324,6 +350,145 @@ def pack_block_weights(w: SwinBlockWeights, rpb: Optional[torch.Tensor] = None) 
         hidden=hidden,
         window_size=w.window_size,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockPlan:
+    """How csrc/swin_block.cu runs a block's widths: the instantiation
+    (padded width `cp`, 96 or 192; padded head dim `hdp`, 16 or 32),
+    `kc` 64-column K chunks of an A operand, `halves` 96-column N halves
+    of the proj and fc2, `chunks` 64-column hidden chunks, `stages` ring
+    stages of 12 KB and `smem` bytes of shared memory a CTA."""
+
+    cp: int
+    hdp: int
+    kc: int
+    halves: int
+    chunks: int
+    stages: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=64)
+def block_plan(c: int, heads: int, hidden: int) -> BlockPlan:
+    """The forward kernel's plan from static shapes alone (its C entry
+    only checks it): hd padded to 16 or 32; the width padded to 96 where
+    C and the heads' padded dims fit, else 192; a window's buffers (the
+    A operand, R: the attention output beside x, then x1 in fp32; the
+    head's k and v) twice, the bias table and the barriers, then as many
+    12 KB stages as fit, at most 8.  Raises ValueError outside the
+    kernel's widths (C <= 192, <= 6 heads of hd <= 32, hidden <= 384)."""
+    if c % heads or c > CP or heads > MAX_HEADS or c // heads > HDP or hidden > HIDP:
+        raise ValueError(f"swin_block kernel takes C <= {CP}, hd <= {HDP}, heads <= "
+                         f"{MAX_HEADS}, hidden <= {HIDP}; got C={c}, heads={heads}, "
+                         f"hidden={hidden}")
+    hdp = 16 if c // heads <= 16 else 32
+    cp = 96 if c <= 96 and heads * hdp <= 96 else 192
+    kc = -(-cp // 64)
+    a_bytes = kc * 8192
+    r_bytes = -(-max(a_bytes + 128 * cp, 256 * cp) // 1024) * 1024
+    fixed = (1024 + 2 * (a_bytes + r_bytes + 2 * 64 * 2 * hdp) + BLOCK_TABLE_BYTES
+             + 2 * BLOCK_MAX_STAGES * 8)
+    stages = min(BLOCK_MAX_STAGES, (BLOCK_SMEM - fixed) // BLOCK_STAGE_BYTES)
+    return BlockPlan(cp=cp, hdp=hdp, kc=kc, halves=cp // 96, chunks=-(-hidden // BLOCK_HC),
+                     stages=stages, smem=fixed + stages * BLOCK_STAGE_BYTES)
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedBlockTiles:
+    """The forward kernel's operands (``pack_block_tiles``): `tiles`, the
+    weight stream of [N, 64] K-major tiles, each 128B-swizzled (16-byte
+    chunk j of row n at j ^ (n % 8)), in the order the consumers take
+    them: per head, its q, k, v rows (N 3 hdp, q pre-scaled) per
+    64-column K chunk; the proj per 96-column N half per K chunk (its
+    input columns head-padded, h hdp + d); per 64-column hidden chunk,
+    fc1's K chunks then fc2's N halves; zero past the widths.  fp32
+    biases (`bqkv` [nH, 3, hdp], `bproj` and `bfc2` [cp], `bfc1` [chunks
+    64]), fp32 LN params, and `table`, the relative-position table
+    transposed to [nH, (2ws-1)^2]."""
+
+    tiles: torch.Tensor
+    bqkv: torch.Tensor
+    bproj: torch.Tensor
+    bfc1: torch.Tensor
+    bfc2: torch.Tensor
+    g1: torch.Tensor
+    b1: torch.Tensor
+    g2: torch.Tensor
+    b2: torch.Tensor
+    table: torch.Tensor
+    dim: int
+    num_heads: int
+    hidden: int
+    window_size: int
+    plan: BlockPlan
+
+
+@functools.lru_cache(maxsize=64)
+def _tile_indices(c: int, heads: int, hidden: int, device: torch.device):
+    """For each element of ``pack_block_tiles``' weight stream and of its
+    bias vector, the index in the flat sources it gathers from: weights
+    [wqkv (q rows pre-scaled) | wproj | wfc1 | wfc2 | 0], biases [bqkv
+    (q pre-scaled) | bproj | bfc1 | bfc2 | 0], the trailing zero for the
+    padding; so that packing is a few ops a block (training packs every
+    block on every step)."""
+    from tpu_superresolution_torch.kernels.cab_conv import _swizzle_rows
+
+    plan = block_plan(c, heads, hidden)
+    hd, hdp, kc, halves, chunks = c // heads, plan.hdp, plan.kc, plan.halves, plan.chunks
+    k, n_out, hid = kc * 64, plan.cp, chunks * BLOCK_HC
+    zero = 4 * c * c + 2 * hidden * c
+    pad = lambda t, p, z=zero: F.pad(t, p, value=z)
+    at = lambda n, start: torch.arange(start, start + n)
+    wq = pad(at(3 * c * c, 0).reshape(3, heads, hd, c).transpose(0, 1), (0, k - c, 0, hdp - hd))
+    qkv = wq.reshape(heads, 3 * hdp, kc, 64).transpose(1, 2)  # [heads, kc, 3 hdp, 64]
+    wp = pad(at(c * c, 3 * c * c).reshape(c, heads, hd), (0, hdp - hd)).reshape(c, heads * hdp)
+    wp = pad(wp, (0, k - heads * hdp, 0, n_out - c))
+    proj = wp.reshape(halves, 96, kc, 64).transpose(1, 2)  # [halves, kc, 96, 64]
+    w1 = pad(at(hidden * c, 4 * c * c).reshape(hidden, c), (0, k - c, 0, hid - hidden))
+    fc1 = w1.reshape(chunks, BLOCK_HC, kc, 64).transpose(1, 2)  # [chunks, kc, 64, 64]
+    w2 = pad(at(c * hidden, 4 * c * c + hidden * c).reshape(c, hidden),
+             (0, hid - hidden, 0, n_out - c))
+    fc2 = w2.reshape(halves, 96, chunks, 64).permute(2, 0, 1, 3)  # [chunks, halves, 96, 64]
+    per_chunk = lambda t: _swizzle_rows(t).reshape(chunks, -1)
+    tiles = torch.cat([_swizzle_rows(qkv).reshape(-1), _swizzle_rows(proj).reshape(-1),
+                       torch.cat([per_chunk(fc1), per_chunk(fc2)], dim=1).reshape(-1)])
+    bz = 5 * c + hidden
+    bq = pad(at(3 * c, 0).reshape(3, heads, hd).transpose(0, 1), (0, hdp - hd), bz)
+    bias = torch.cat([bq.reshape(-1), pad(at(c, 3 * c), (0, n_out - c), bz),
+                      pad(at(hidden, 4 * c), (0, hid - hidden), bz),
+                      pad(at(c, 4 * c + hidden), (0, n_out - c), bz)])
+    q_scale = torch.ones(3 * c, 1)
+    q_scale[:c] = (c // heads) ** -0.5
+    return tiles.to(device), bias.to(device), q_scale.to(device)
+
+
+@torch.no_grad()
+def pack_block_tiles(w: SwinBlockWeights, dtype: torch.dtype = torch.bfloat16
+                     ) -> PackedBlockTiles:
+    """Lay one block's weights out for the forward kernel: once per loaded
+    weights at inference (``SwinBlock``'s cache), once per step in
+    training (two gathers from the flat weights and biases).  `dtype`
+    float32 keeps the weights unrounded (the CPU tests' emulation of the
+    kernel)."""
+    _check_widths(w)
+    c, nh, hidden = w.dim, w.num_heads, int(w.wfc1.shape[0])
+    plan = block_plan(c, nh, hidden)
+    dev = w.wqkv.device
+    tile_idx, bias_idx, q_scale = _tile_indices(c, nh, hidden, dev)
+    f = lambda t: t.detach().float()
+    zero = torch.zeros(1, device=dev)
+    src = torch.cat([(f(w.wqkv) * q_scale).reshape(-1), f(w.wproj).reshape(-1),
+                     f(w.wfc1).reshape(-1), f(w.wfc2).reshape(-1), zero])
+    bsrc = torch.cat([f(w.bqkv) * q_scale[:, 0], f(w.bproj), f(w.bfc1), f(w.bfc2), zero])
+    bias = bsrc[bias_idx]
+    n_q, n_out, hid = nh * 3 * plan.hdp, plan.cp, plan.chunks * BLOCK_HC
+    return PackedBlockTiles(
+        tiles=src.to(dtype)[tile_idx], bqkv=bias[:n_q], bproj=bias[n_q:n_q + n_out],
+        bfc1=bias[n_q + n_out:n_q + n_out + hid], bfc2=bias[n_q + n_out + hid:],
+        g1=f(w.g1).contiguous(), b1=f(w.b1).contiguous(), g2=f(w.g2).contiguous(),
+        b2=f(w.b2).contiguous(), table=f(w.table).t().contiguous(), dim=c, num_heads=nh,
+        hidden=hidden, window_size=w.window_size, plan=plan)
 
 
 def gelu(x: torch.Tensor, approximate: bool) -> torch.Tensor:
@@ -668,8 +833,8 @@ def _check_packed(packed: PackedSwinBlock, x: torch.Tensor, mask, scales, name: 
     dev = x.device
     ws = packed.window_size
     n = ws * ws
-    # WMMA reads the bf16 weight tiles straight from global memory (32-byte
-    # aligned rows); biases are read as float4, LayerNorm params as
+    # the backwards' WMMA reads the bf16 weight tiles straight from global
+    # memory (32-byte aligned rows); biases are read as float4, LayerNorm params as
     # scalars, rpb and mask as float4 rows at ws = 8 and as scalars at 7.
     bf, f32 = torch.bfloat16, torch.float32
     table_align = 16 if n % 8 == 0 else 4
@@ -698,32 +863,67 @@ def _check_packed(packed: PackedSwinBlock, x: torch.Tensor, mask, scales, name: 
         _lib.check_tensor(extra, "extra", bf, dev, shape=tuple(x.shape), align=2)
 
 
+def _check_tiles(packed: PackedBlockTiles, x: torch.Tensor, scales, name: str,
+                 extra: Optional[torch.Tensor] = None) -> None:
+    b, h, wd, c = x.shape
+    if packed.dim != c:
+        raise ValueError(f"{name}: weights for C={packed.dim}, x has C={c}")
+    dev = x.device
+    plan = packed.plan
+    n_tiles = (packed.num_heads * plan.kc * 3 * plan.hdp + plan.halves * plan.kc * 96
+               + plan.chunks * (plan.kc * BLOCK_HC + plan.halves * 96)) * 64
+    bf, f32 = torch.bfloat16, torch.float32
+    # the tiles go by bulk copies (16-byte aligned), the biases as float2
+    for tname, t, shape, dtype, align in (
+        ("tiles", packed.tiles, (n_tiles,), bf, 16),
+        ("bqkv", packed.bqkv, (packed.num_heads * 3 * plan.hdp,), f32, 8),
+        ("bproj", packed.bproj, (plan.cp,), f32, 8),
+        ("bfc1", packed.bfc1, (plan.chunks * BLOCK_HC,), f32, 8),
+        ("bfc2", packed.bfc2, (plan.cp,), f32, 8),
+        ("g1", packed.g1, (c,), f32, 4),
+        ("b1", packed.b1, (c,), f32, 4),
+        ("g2", packed.g2, (c,), f32, 4),
+        ("b2", packed.b2, (c,), f32, 4),
+        ("table", packed.table, (packed.num_heads, (2 * packed.window_size - 1) ** 2), f32, 4),
+    ):
+        _lib.check_tensor(t, tname, dtype, dev, shape=shape, align=align)
+    align = 4 if c % 2 == 0 else 2  # bf16 pairs as one 4-byte access at even C
+    _lib.check_tensor(x, "x", bf, dev, ndim=4, align=align)
+    if scales is not None:
+        _lib.check_tensor(scales, "branch_scales", f32, dev, shape=(b, 2), align=4)
+    if extra is not None:
+        _lib.check_tensor(extra, "extra", bf, dev, shape=tuple(x.shape), align=align)
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _launch_block(x, packed: PackedSwinBlock, shift, mask, gelu_approx, scales,
+def _launch_block(x, packed: PackedBlockTiles, shift, mask, gelu_approx, scales,
                   extra=None) -> torch.Tensor:
-    """Launch the forward kernel's instantiation for packed.window_size
-    (ws 8: K1, ws 7: K6) and count the launch on that kernel."""
-    _check_packed(packed, x, mask, scales, "fused_windows_block", extra)
+    """Launch the forward kernel for packed.window_size (ws 8: K1, ws 7:
+    K6) on ``block_plan``'s plan and count the launch on that kernel.
+    The bias and the mask come from the table and the map's token codes;
+    `mask` (``shift_attn_mask``'s, the models' only one) says only
+    whether the windows are masked."""
+    _check_tiles(packed, x, scales, "fused_windows_block", extra)
     b, h, wd, c = x.shape
+    ws, plan = packed.window_size, packed.plan
+    shifted = mask is not None and shift > 0
+    codes = window_codes_tensor(h, wd, ws, shift if shifted else 0, x.device)
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        status = _lib.library().sr_swin_block_bf16(
-            x.data_ptr(), _ptr(extra), y.data_ptr(),
-            packed.g1.data_ptr(), packed.b1.data_ptr(),
-            packed.g2.data_ptr(), packed.b2.data_ptr(),
-            packed.wqkv.data_ptr(), packed.bqkv.data_ptr(),
-            packed.wproj.data_ptr(), packed.bproj.data_ptr(),
-            packed.wfc1.data_ptr(), packed.bfc1.data_ptr(),
-            packed.wfc2.data_ptr(), packed.bfc2.data_ptr(),
-            packed.rpb.data_ptr(), _ptr(mask), _ptr(scales),
-            b, h, wd, c, packed.num_heads, packed.window_size, shift,
-            int(bool(gelu_approx)), LN_EPS, _lib.stream_of(x),
-        )
+    status = _lib.call(
+        x, _lib.library().sr_swin_block_bf16,
+        x.data_ptr(), _ptr(extra), y.data_ptr(), packed.tiles.data_ptr(),
+        packed.bqkv.data_ptr(), packed.bproj.data_ptr(), packed.bfc1.data_ptr(),
+        packed.bfc2.data_ptr(), packed.g1.data_ptr(), packed.b1.data_ptr(),
+        packed.g2.data_ptr(), packed.b2.data_ptr(), packed.table.data_ptr(),
+        codes.data_ptr(), _ptr(scales), b, h, wd, c, packed.num_heads, packed.hidden, ws,
+        shift, int(shifted), plan.cp, plan.hdp, plan.stages, int(bool(gelu_approx)), LN_EPS,
+        _lib.stream_of(x),
+    )
     _lib.check_status(status, "sr_swin_block_bf16")
-    FORWARD_COUNTERS[packed.window_size].count += 1
+    FORWARD_COUNTERS[ws].count += 1
     return y
 
 
@@ -950,7 +1150,8 @@ class SwinBlockFunction(torch.autograd.Function):
     is K5 / K6's backward.  Inputs: x, the branch scales (or None),
     `extra` (or None), then the 13 tensors of GRAD_FIELDS (raw weights
     and the gathered bias); the weights are packed for the kernels on
-    every call."""
+    every call (``pack_block_tiles`` for the forward,
+    ``pack_block_weights`` for the backward)."""
 
     @staticmethod
     def forward(ctx, x, scales, extra, meta, *params):
@@ -961,7 +1162,7 @@ class SwinBlockFunction(torch.autograd.Function):
         packed = pack_block_weights(w, rpb=rpb)
         ctx.save_for_backward(x, scales, extra)
         ctx.block = (w.scale, packed, shift, mask, gelu_approx)
-        return _launch_block(x, packed, shift, mask, gelu_approx, scales, extra)
+        return _launch_block(x, pack_block_tiles(w), shift, mask, gelu_approx, scales, extra)
 
     @staticmethod
     def backward(ctx, ct):
@@ -976,7 +1177,7 @@ class SwinBlockFunction(torch.autograd.Function):
 def fused_windows_block(x: torch.Tensor, w: SwinBlockWeights, ws: int, shift: int,
                         mask: Optional[torch.Tensor], gelu_approx: bool,
                         extra: Optional[torch.Tensor] = None,
-                        packed: Optional[PackedSwinBlock] = None,
+                        packed: Optional[PackedBlockTiles] = None,
                         branch_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One Swin block on x [B, H, W, C] with window `ws`, cyclic shift
     `shift`, the shift mask [nW, ws^2, ws^2] built on (H, W), the
@@ -984,8 +1185,10 @@ def fused_windows_block(x: torch.Tensor, w: SwinBlockWeights, ws: int, shift: in
     scales [B, 2].  CPU tensor -> plain version (differentiable by
     autograd); CUDA tensor -> the kernel (bf16 x and extra): K1 at ws 8,
     K6 at ws 7, through ``SwinBlockFunction`` (backward K5 / K6's
-    backward, with d`extra`) when a gradient is wanted.  `packed` is
-    used for inference only."""
+    backward, with d`extra`) when a gradient is wanted.  `packed`
+    (``pack_block_tiles(w)``) is used for inference only.  On CUDA the
+    kernel rebuilds `mask` (``shift_attn_mask``'s) from the map's token
+    codes."""
     if x.device.type == "cpu":
         return swin_block_plain(x, w, ws, shift, mask, gelu_approx, branch_scales, extra)
     _check_block_input(x, w, ws, shift, "fused_windows_block")
@@ -1001,7 +1204,7 @@ def fused_windows_block(x: torch.Tensor, w: SwinBlockWeights, ws: int, shift: in
         meta = (shift, mask, gelu_approx, w.num_heads, w.table)
         return SwinBlockFunction.apply(x, branch_scales, extra, meta, *params, rpb)
     if packed is None:
-        packed = pack_block_weights(w)
+        packed = pack_block_tiles(w)
     return _launch_block(x, packed, shift, mask, gelu_approx, branch_scales, extra)
 
 

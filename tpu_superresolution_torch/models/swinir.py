@@ -52,7 +52,7 @@ from tpu_superresolution_torch.kernels.fused_block import (
     fused_windows_block,
     k5w16_ok,
     pack_block_tail,
-    pack_block_weights,
+    pack_block_tiles,
     swin_block_plain,
     window_block_k5w16,
 )
@@ -156,7 +156,7 @@ class SwinBlock(nn.Module):
         if x.is_cuda:
             # in training the kernels' autograd function packs on every call
             packed = self._packed.get(list(self.parameters()), x.device,
-                                      lambda: pack_block_weights(wts), lambda: None)
+                                      lambda: pack_block_tiles(wts), lambda: None)
         return fused_windows_block(x, wts, ws, shift, mask, self.gelu_approximate, extra=extra,
                                    packed=packed, branch_scales=branch_scales)
 
