@@ -36,8 +36,10 @@ Phases (a failure in any raises, and the script exits non-zero):
             (its backward, on dq, dk, dv, d sw and 9 gradients); then
             DAT's kernels at DATConfig()'s widths on the bench tile
             batch and on a [2,52,76,180] image (sides not multiples of
-            16): K9 unshifted and shifted, K14 and K10, each output in
-            bf16 ulps against the plain bf16 and fp32 versions; then K7
+            16): K9 unshifted and shifted, K14 and K10, and K10 at the
+            published DAT x4's SGFN half 360, each output in bf16 ulps
+            against the plain bf16 and fp32 versions, each K10 row
+            beside the module chain's composition of its tail; then K7
             (window attention for any window, width and head dim: its
             product and stream attention kernels) at HAT-SRx4's
             [25,64,64,180] ws 16 unshifted and shift 8, at SwinIR-L's
@@ -151,11 +153,12 @@ Phases (a failure in any raises, and the script exits non-zero):
 11. dat_x4  the published DAT x4 (split (8, 32), expansion 4; seeded
             random weights, perturbed BatchNorm statistics): its .pth
             behind SRService (which loads it at split (8, 16): K9 and K14
-            fronts, module-chain tails), the serve phase's checks; then
-            the model at (8, 32) on the bench workload, whose spatial
-            blocks and tails take the module chain: launches per call
-            (K14 18, K16 36, K11 54, K9 = K10 = 0), >= 50 dB against the
-            plain fp32 path, MPix/s kernels vs plain, a profiled split;
+            fronts, K10 tails), the serve phase's checks; then the model
+            at (8, 32) on the bench workload, whose spatial fronts take
+            the module chain and whose tails K10: launches per call
+            (K10 36, K14 18, K16 36, K11 18, K9 = 0), >= 50 dB against
+            the plain fp32 path, MPix/s kernels vs plain, a profiled
+            split;
 12. dat-train DAT x4 training (DATConfig() at full width and depth, drop
             path 0.1, batch 8, --patch_size 64, L1, AdamW, clip 1.0,
             --ema_decay 0.999) through ``cli.train.main(--model dat
@@ -315,17 +318,15 @@ HAT_SRX4_PER_CALL = dict(PER_CALL, K1=0, K1t=36, K2=50, K3=8, K4=1, K7=36, K12=3
 # reconstruction.  One K9 call is 2 CUDA launches, one K14 call 3.
 DAT_PER_CALL = dict(PER_CALL, K1=0, K2=2, K3=8, K4=1, K9=18, K10=36, K14=18)
 # The published DAT x4 (DAT's test_DAT_x4.yml: split (8, 32), expansion 4;
-# SGFN half 360), per bench call: K9 refuses s0 * s1 = 256 and K10 the half
-# 360, so the spatial fronts (18) and every tail (36) take the module chain:
-# K16 per rect branch (36), K11 per spatial conv branch and per sg_conv
-# (18 + 36), K2 for before_RG, norm, the 18 chain fronts' LN1 and every
-# block's LN2 and sg_norm (2 + 18 + 72); K14 per channel front (18).
-DAT_X4_PER_CALL = dict(PER_CALL, K1=0, K2=92, K3=8, K4=1, K11=54, K14=18, K16=36)
+# SGFN half 360), per bench call: K9 refuses s0 * s1 = 256, so the spatial
+# fronts (18) take the module chain: K16 per rect branch (36), K11 per
+# spatial conv branch (18), K2 for before_RG, norm and the 18 chain fronts'
+# LN1 (2 + 18); K14 per channel front (18); K10 per block tail (36).
+DAT_X4_PER_CALL = dict(PER_CALL, K1=0, K2=20, K3=8, K4=1, K10=36, K11=18, K14=18, K16=36)
 # A published DAT x4 .pth served: the split is not in the weights, so the
 # checkpoint loads at (8, 16) with expansion 4 (infer_dat_config, as the
-# JAX package): K9 and K14 fronts, module-chain tails (K11 per sg_conv,
-# K2 per LN2 and sg_norm).
-DAT_X4_SERVE_PER_CALL = dict(PER_CALL, K1=0, K2=74, K3=8, K4=1, K9=18, K11=36, K14=18)
+# JAX package): K9 and K14 fronts, K10 tails.
+DAT_X4_SERVE_PER_CALL = dict(PER_CALL, K1=0, K2=2, K3=8, K4=1, K9=18, K10=36, K14=18)
 # Fine-tuning: batch 8 of 64^2 LR crops; per train step, with the
 # composed reconstruction (fused_reconstruct, the config's default): K1
 # per block forward, K5 per block backward, K2-K4 forwards (their
@@ -487,7 +488,8 @@ def phase_build():
     # attention; csrc/cab_fused.cu: K12; csrc/swin_block.cu: K1 / K6), with
     # their template arguments: registers, shared memory, spills
     kinds = ("conv_nhwc_wgmma_kernel", "conv_nhwc_halo_kernel", "window_product_kernel",
-             "window_attn_stream_kernel", "cab_wgmma_kernel", "swin_block_wg_kernel")
+             "window_attn_stream_kernel", "cab_wgmma_kernel", "swin_block_wg_kernel",
+             "datb_tail_wg_kernel")
     name = None
     for line in out.splitlines():
         if "Function properties for" in line:
@@ -1152,20 +1154,20 @@ def phase_dat_kernels(res):
     """DAT's kernels at DATConfig()'s widths (C 180, 6 heads, split
     (8, 16), hidden 360) on the bench tile batch [25,64,64,180] and on a
     whole image whose sides are not multiples of 16 ([2,52,76,180]): K9
-    unshifted and shifted, K14, K10; each output against the plain
-    version in bf16 and fp32, with times and bounds, into `res`."""
+    unshifted and shifted, K14, K10; then K10 at the published DAT x4's
+    SGFN half 360 on the bench batch.  Each output against the plain
+    version in bf16 and fp32, with times and bounds, into `res`; each K10
+    row also beside the module chain's composition of the same tail."""
     import torch
 
     from tpu_superresolution_torch.kernels import fused_channel_attn as fc
-    from tpu_superresolution_torch.kernels import fused_datb_tail as ft
     from tpu_superresolution_torch.kernels import fused_rect_attn as fr
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 4)
     bf = torch.bfloat16
     rect, chan, tail = _random_dat_block(gen, dev)
-    prect, pchan, ptail = (fr.pack_rect_weights(rect), fc.pack_chan_weights(chan),
-                           ft.pack_tail_weights(tail))
+    prect, pchan = fr.pack_rect_weights(rect), fc.pack_chan_weights(chan)
     for shape in ((25, 64, 64, 180), (2, 52, 76, 180)):
         x = torch.randn(*shape, generator=gen).to(dev, bf)
         for shifted in (False, True):
@@ -1186,18 +1188,107 @@ def phase_dat_kernels(res):
         _compare_outputs(res, "K14", f"{list(shape)}", outs, refs16, refs32, cuda_ms(run),
                          cuda_ms(plain), _dat_work("K14", shape))
         del outs, refs16, refs32
-        u = torch.randn(*shape, generator=gen).to(dev, bf)
-        w_px = torch.randn(*shape, generator=gen).to(dev, bf)
-        gate = torch.sigmoid(torch.randn(shape[0], shape[3], generator=gen)).to(dev)
-        run = lambda: ft.datb_tail(x, u, w_px, gate, tail, ptail)
-        plain = lambda: ft.datb_tail_plain(x, u, w_px, gate, tail)
-        out = run()
-        ref16, ref32 = plain(), ft.datb_tail_plain(x.float(), u.float(), w_px.float(), gate, tail)
-        torch.cuda.synchronize()
-        _compare_outputs(res, "K10", f"{list(shape)}", (out,), (ref16,), (ref32,), cuda_ms(run),
-                         cuda_ms(plain), _dat_work("K10", shape))
-        del out, ref16, ref32
+        _k10_row(res, gen, dev, x, tail)
+    _, _, tail720 = _random_dat_block(gen, dev, hidden=720)
+    _k10_row(res, gen, dev, torch.randn(25, 64, 64, 180, generator=gen).to(dev, bf), tail720)
+    _k10_envelope(gen, dev)
     return res
+
+
+# K10's envelope beyond the timed rows, as (x's shape [B, H, W, C],
+# hidden = 2 x the SGFN half): padded widths 64 / 128 / 192, halves 45 to
+# 384, C not a multiple of 4 or odd, two and three strips past W 64,
+# bands of one row.
+K10_ENVELOPE = [((2, 9, 70, 60), 120), ((1, 7, 130, 96), 384), ((3, 5, 64, 150), 300),
+                ((1, 4, 33, 45), 90), ((2, 3, 5, 192), 768)]
+
+
+def _k10_envelope(gen, dev):
+    """K10 against its plain version (bf16 and fp32) within ULP_BOUND at
+    each K10_ENVELOPE shape: correctness only, no times."""
+    import torch
+
+    from tpu_superresolution_torch.kernels import fused_datb_tail as ft
+
+    bf = torch.bfloat16
+    for shape, hidden in K10_ENVELOPE:
+        c = shape[3]
+        _, _, tail = _random_dat_block(gen, dev, c=c, nh=2, hidden=hidden)
+        x, u, w_px = (torch.randn(*shape, generator=gen).to(dev, bf) for _ in range(3))
+        gate = torch.sigmoid(torch.randn(shape[0], c, generator=gen)).to(dev)
+        out = ft.datb_tail(x, u, w_px, gate, tail)
+        ref16 = ft.datb_tail_plain(x, u, w_px, gate, tail)
+        ref32 = ft.datb_tail_plain(x.float(), u.float(), w_px.float(), gate, tail)
+        torch.cuda.synchronize()
+        mag = float(ref32.abs().max())
+        bound = ULP_BOUND["K10"] * bf16_ulp(mag)
+        e16 = float((out.float() - ref16.float()).abs().max())
+        e32 = float((out.float() - ref32).abs().max())
+        ok = math.isfinite(e16) and math.isfinite(e32) and max(e16, e32) <= bound
+        log(f"[kernels] K10 envelope {list(shape)} half {hidden // 2} (plan "
+            f"{ft.tail_plan(*shape, hidden // 2, 132)}): max_abs_err vs plain bf16 {e16:.3e}, "
+            f"vs plain fp32 {e32:.3e} (bound {bound:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"K10 envelope {list(shape)} half {hidden // 2}: kernel disagrees")
+
+
+def _k10_row(res, gen, dev, x, tail):
+    """K10 on x and random u, w_px, gate against its plain version, and
+    beside the module chain's composition of the same tail (what the
+    published DAT x4 ran before K10 took its SGFN half: bf16 F.linear
+    products, K2 for LN2 and sg_norm, K11, erf GELU and the gating in
+    plain ops, the products' weights in bf16), each timed alone
+    and 20 calls back to back, twice in the order kernel, chain, chain,
+    kernel (the mean of the two)."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_superresolution_torch.kernels import _lib
+    from tpu_superresolution_torch.kernels import fused_datb_tail as ft
+    from tpu_superresolution_torch.kernels.dwconv import dwconv3x3
+    from tpu_superresolution_torch.kernels.layernorm import layernorm
+
+    bf = torch.bfloat16
+    shape = tuple(x.shape)
+    half = tail.half
+    ptail = ft.pack_tail_weights(tail)
+    plan = ft.tail_plan(*shape, half, _lib.sm_count(dev.index or 0))
+    u = torch.randn(*shape, generator=gen).to(dev, bf)
+    w_px = torch.randn(*shape, generator=gen).to(dev, bf)
+    gate = torch.sigmoid(torch.randn(shape[0], shape[3], generator=gen)).to(dev)
+    tail16 = dataclasses.replace(tail, **{k: getattr(tail, k).to(bf) for k in (
+        "sp_w1", "sp_b1", "sp_w2", "sp_b2", "wproj", "bproj", "wfc1", "bfc1", "wfc2", "bfc2")})
+    run = lambda: ft.datb_tail(x, u, w_px, gate, tail, ptail)
+    plain = lambda: ft.datb_tail_plain(x, u, w_px, gate, tail)
+    chain = lambda: ft.datb_tail_plain(
+        x, u, w_px, gate.to(bf), tail16, ln=lambda t, g, b: layernorm(t.to(bf).contiguous(), g, b),
+        dwconv=lambda t, k, b: dwconv3x3(t.to(bf), k, b),
+        linear=lambda a, wt, b: F.linear(a.to(bf), wt, b))
+    out = run()
+    ref16, ref32 = plain(), ft.datb_tail_plain(x.float(), u.float(), w_px.float(), gate, tail)
+    torch.cuda.synchronize()
+    fns = {"kernel": run, "module chain": chain}
+    alone, b2b = ({n: [] for n in fns} for _ in range(2))
+    for n in ("kernel", "module chain", "module chain", "kernel"):
+        alone[n].append(cuda_ms(fns[n]))
+        b2b[n].append(queued_ms(fns[n]))
+    mean = lambda v: sum(v) / len(v)
+    t = {n: mean(v) for n, v in alone.items()}
+    q = {n: mean(v) for n, v in b2b.items()}
+    label = (f"{list(shape)} half {half} (band {plan.band}, {plan.strips} strip(s), "
+             f"{plan.units} units on {plan.grid} CTAs, {plan.stages} stages; b2b "
+             f"{q['kernel']:.4f} ms, module chain {t['module chain']:.4f} ms, b2b "
+             f"{q['module chain']:.4f})")
+    _compare_outputs(res, "K10", label, (out,), (ref16,), (ref32,), t["kernel"], cuda_ms(plain),
+                     _dat_work("K10", shape, hidden=2 * half))
+    log(f"[kernels] K10 {list(shape)} half {half} against the module chain: " + "; ".join(
+        f"{n} {t[n]:.4f} ms ({' / '.join(f'{v:.4f}' for v in alone[n])}), b2b {q[n]:.4f} "
+        f"({' / '.join(f'{v:.4f}' for v in b2b[n])})" for n in fns)
+        + f"; kernel / chain {t['kernel'] / t['module chain']:.2f}x alone, "
+        f"{q['kernel'] / q['module chain']:.2f}x b2b")
+    del out, ref16, ref32
 
 
 def _attn_work(bw, nh, nq, nk, hd, n_mask):
@@ -1961,10 +2052,10 @@ def phase_dat(workdir, smi):
 def phase_dat_x4(workdir, smi):
     """The published DAT x4 (DAT's options/Test/test_DAT_x4.yml: split
     (8, 32), expansion 4; seeded random weights with perturbed BatchNorm
-    statistics): K9 and K10 refuse its blocks, so they take the module
-    chain (K16, K11) where they used to raise.  (1) Its .pth behind
-    SRService with --model dat: the weights carry no split, so it loads
-    at (8, 16) with expansion 4 (K9 and K14 fronts, module-chain tails;
+    statistics): K9 refuses its spatial fronts, which take the module
+    chain (K16, K11); K10 takes every tail (SGFN half 360).  (1) Its .pth
+    behind SRService with --model dat: the weights carry no split, so it
+    loads at (8, 16) with expansion 4 (K9 and K14 fronts, K10 tails;
     launches per call DAT_X4_SERVE_PER_CALL), the serve phase's requests
     and checks.  (2) The model at split (8, 32) on the bench workload
     (256^2 LR, tile 64 / overlap 8, 25 tiles, bf16): launches per call
@@ -1996,7 +2087,7 @@ def phase_dat_x4(workdir, smi):
         models[label] = build_model(cfg, dtype=dtype, impl=impl, device="cuda")
         models[label].load_state_dict(src.state_dict())
     routes = models["kernels"].routes()[0][:2]
-    if routes != [("chain", "chain"), ("K14", "chain")]:
+    if routes != [("chain", "K10"), ("K14", "K10")]:
         raise RuntimeError(f"dat_x4 routes {routes}")
     x = torch.from_numpy(np.random.default_rng(SEED).random((1, 256, 256, 3), np.float32)).cuda()
     fwd = lambda label: tiled_forward(models[label], x, 4, 64, 8)
@@ -2062,7 +2153,7 @@ def _dat_split(fwd, smi, tag="dat"):
              ("K9 dwconv_gelu_kernel", ("dwconv_gelu_kernel",)),
              ("K14 chan_qkv_kernel", ("chan_qkv_kernel",)),
              ("K14 chan_softmax + chan_apply", ("chan_softmax_kernel", "chan_apply_kernel")),
-             ("K10 datb_tail_kernel", ("datb_tail_kernel",)),
+             ("K10 datb_tail_wg_kernel", ("datb_tail",)),
              ("K16 batched_attn_kernel", ("batched_attn_kernel",)),
              ("K11 dwconv3x3_rows_kernel / dwconv3x3_kernel", ("dwconv3x3_rows_kernel",
                                                                  "dwconv3x3_kernel")),

@@ -3,12 +3,15 @@ spatial front, K14 the channel front, K10 the block tail), and its
 BatchNorm folding, against the JAX package's Pallas kernels called
 directly in interpret mode: the same numpy-seeded inputs, fp32 on the
 CPU (where the port's wrappers run their plain versions), bound 3e-5
-max abs."""
+max abs.  K10's host side too: its envelope and launch plan, and its
+band schedule written out in torch ops on the packed operands, against
+the plain version and the JAX kernel (3e-5)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from tests.util_torchport import TOL
 
@@ -98,29 +101,208 @@ def test_channel_attention_matches_jax_kernel():
     assert np.abs(cx.numpy() - np.asarray(conv_j)).max() <= TOL
 
 
-def test_datb_tail_matches_jax_kernel():
-    """K10's plain version against ``fused_datb_tail`` (flax [in, out]
-    layouts there, torch [out, in] here)."""
-    from tpu_superresolution_tpu.ops.pallas.fused_datb_tail import fused_datb_tail
-    from tpu_superresolution_torch.kernels.fused_datb_tail import TailWeights, datb_tail
-
-    rng = np.random.default_rng(3)
+def _tail_case(seed, b, h, w, c, half):
+    """x, u, w_px, the sigmoided gate and a tail's weights in the JAX
+    package's flax layouts ([in, out]; wdw [3, 3, 1, half])."""
+    rng = np.random.default_rng(seed)
     f = lambda *s, sc=1.0: (sc * rng.standard_normal(s)).astype(np.float32)
-    hid, half, m = 2 * C, C, C // 16
-    x, u, w_px = f(B, H, W, C), f(B, H, W, C), f(B, H, W, C)
-    gate = 1 / (1 + np.exp(-f(B, C)))
-    j = dict(sp_w1=f(C, m, sc=C ** -0.5), sp_b1=f(m, sc=0.1), sp_w2=f(m, 1), sp_b2=f(1, sc=0.1),
-             wproj=f(C, C, sc=C ** -0.5), bproj=f(C, sc=0.1), g2=1 + f(C, sc=0.1),
-             b2=f(C, sc=0.1), wfc1=f(C, hid, sc=C ** -0.5), bfc1=f(hid, sc=0.1),
+    m = c // 16
+    x, u, w_px = f(b, h, w, c), f(b, h, w, c), f(b, h, w, c)
+    gate = 1 / (1 + np.exp(-f(b, c)))
+    j = dict(sp_w1=f(c, m, sc=c ** -0.5), sp_b1=f(m, sc=0.1), sp_w2=f(m, 1), sp_b2=f(1, sc=0.1),
+             wproj=f(c, c, sc=c ** -0.5), bproj=f(c, sc=0.1), g2=1 + f(c, sc=0.1),
+             b2=f(c, sc=0.1), wfc1=f(c, 2 * half, sc=c ** -0.5), bfc1=f(2 * half, sc=0.1),
              gsg=1 + f(half, sc=0.1), bsg=f(half, sc=0.1), wdw=f(3, 3, 1, half, sc=1 / 3),
-             bdw=f(half, sc=0.1), wfc2=f(half, C, sc=half ** -0.5), bfc2=f(C, sc=0.1))
-    want = fused_datb_tail(*(jnp.asarray(v) for v in (x, u, w_px, gate)),
-                           *(jnp.asarray(v) for v in j.values()), interpret=True)
-    tw = TailWeights(**{k: _t(v.T if k in ("sp_w1", "sp_w2", "wproj", "wfc1", "wfc2") else v)
-                        for k, v in j.items() if k != "wdw"}, wdw=_t(j["wdw"][:, :, 0]))
-    got = datb_tail(_t(x), _t(u), _t(w_px), _t(gate), tw)
-    assert got.shape == (B, H, W, C)
-    assert np.abs(got.numpy() - np.asarray(want)).max() <= TOL
+             bdw=f(half, sc=0.1), wfc2=f(half, c, sc=half ** -0.5), bfc2=f(c, sc=0.1))
+    return (x, u, w_px, gate), j
+
+
+def _torch_tail_weights(j):
+    from tpu_superresolution_torch.kernels.fused_datb_tail import TailWeights
+
+    return TailWeights(**{k: _t(v.T if k in ("sp_w1", "sp_w2", "wproj", "wfc1", "wfc2") else v)
+                          for k, v in j.items() if k != "wdw"}, wdw=_t(j["wdw"][:, :, 0]))
+
+
+def _jax_tail(acts, j):
+    from tpu_superresolution_tpu.ops.pallas.fused_datb_tail import fused_datb_tail
+
+    return np.asarray(fused_datb_tail(*(jnp.asarray(v) for v in acts),
+                                      *(jnp.asarray(v) for v in j.values()), interpret=True))
+
+
+@pytest.mark.parametrize("c,half", [(32, 32), (32, 64), (40, 80)],
+                         ids=["c32-half32", "c32-half64", "c40-half80"])
+def test_datb_tail_matches_jax_kernel(c, half):
+    """K10's plain version against ``fused_datb_tail`` (flax [in, out]
+    layouts there, torch [out, in] here); the SGFN half C and 2C (the
+    published DAT x4's ratio), and a width that is not a multiple of 16."""
+    from tpu_superresolution_torch.kernels.fused_datb_tail import datb_tail
+
+    acts, j = _tail_case(3 + c + half, B, H, W, c, half)
+    want = _jax_tail(acts, j)
+    got = datb_tail(*(_t(v) for v in acts), _torch_tail_weights(j))
+    assert got.shape == (B, H, W, c)
+    assert np.abs(got.numpy() - want).max() <= TOL
+
+
+def test_tail_plan_and_envelope():
+    """K10's envelope (C <= 192, half <= 384, width <= 16) and its launch
+    plan from static shapes: bands of about one unit an SM, strips with a
+    halo column past W 64, the weight ring's stages within the shared
+    memory at every padded width and half; the wrapper's check names the
+    limits."""
+    from tpu_superresolution_torch.kernels import fused_datb_tail as ft
+
+    assert ft.tail_ok(180, 180, 11) and ft.tail_ok(180, 360, 11) and ft.tail_ok(192, 384, 12)
+    assert not ft.tail_ok(193, 180, 12) and not ft.tail_ok(180, 385, 11)
+    assert not ft.tail_ok(180, 180, 17)
+    p = ft.tail_plan(25, 64, 64, 180, 180, 132)  # DATConfig()'s tail on the bench batch
+    assert (p.cp, p.hp, p.halo, p.seg, p.strips) == (192, 192, 0, 64, 1)
+    assert (p.band, p.nbands, p.units, p.grid, p.stages) == (13, 5, 125, 125, 8)
+    p = ft.tail_plan(25, 64, 64, 180, 360, 132)  # the published x4's
+    assert (p.hp, p.stages, p.grid) == (384, 2, 125) and p.smem <= ft.SMEM_LIMIT
+    p = ft.tail_plan(2, 52, 76, 180, 180, 132)
+    assert (p.halo, p.seg, p.strips, p.band, p.nbands, p.units) == (1, 62, 2, 2, 26, 104)
+    for c in range(16, 193, 16):
+        for half in range(16, 385, 16):
+            p = ft.tail_plan(1, 8, 8, c, half, 132)
+            assert 2 <= p.stages <= ft.MAX_STAGES and p.smem <= ft.SMEM_LIMIT
+            assert p.cp % 64 == 0 and p.hp % 64 == 0 and p.cp >= c and p.hp >= half
+    with pytest.raises(ValueError, match="outside the kernel"):
+        ft.tail_plan(1, 8, 8, 180, 400, 132)
+    _, j = _tail_case(9, 1, 1, 1, 208, 104)
+    with pytest.raises(ValueError, match="C <= 192, an SGFN half <= 384"):
+        ft.check_tail_args((1, 8, 8, 208), _torch_tail_weights(j))
+
+
+def _tail_emulated(x, u, w_px, gate, pk, plan):
+    """K10's schedule in torch ops on its packed operands (fp32): the
+    stream's tiles unswizzled in the feeder's order; per unit (image,
+    strip, band) the chain on the band's rows and its two halo rows (a
+    row outside the image: a zero h2 row), LN_sg's statistics summed over
+    64-column chunks, a ring of three h2 rows, row t - 1's output after
+    row t's chain, the depthwise conv over tile rows (zero outside the
+    tile), the strip's output columns stored.  Returns the output and how
+    often each pixel was stored."""
+    from tests.test_torch_block_wg import _Stream
+    from tpu_superresolution_torch.kernels.fused_datb_tail import LN_EPS, SPP, vec_offsets
+
+    b, h, wd, c = x.shape
+    half, cp, hp = pk.half, pk.cp, pk.hp
+    kc, hpc = cp // 64, hp // 64
+    s = _Stream(pk.tiles)
+    sp = torch.cat([s.next(SPP) for _ in range(kc)], 1)
+    proj = torch.zeros(cp, cp)
+    for i in range(kc):
+        for n in range(kc):
+            proj[64 * n:64 * n + 64, 64 * i:64 * i + 64] = s.next(64)
+    fc1b = torch.cat([torch.cat([s.next(64) for _ in range(kc)], 1) for _ in range(hpc)])
+    fc1a, fc2 = [], []
+    for _ in range(hpc):
+        fc1a.append(torch.cat([s.next(64) for _ in range(kc)], 1))
+        fc2.append(torch.cat([s.next(64) for _ in range(kc)]))
+    assert s.done()
+    fc1a, fc2 = torch.cat(fc1a), torch.cat(fc2, 1)
+    o = vec_offsets(cp, hp)
+    v = lambda key, n: pk.vec[o[key]:o[key] + n]
+    taps = pk.vec[o["wdw"]:o["bdw"]].view(3, 3, hp)
+    pad = lambda t: F.pad(t, (0, cp - c))
+
+    def ln(t, g, bb, n):
+        mu = t.sum(-1, keepdim=True) / n
+        var = ((t * t).sum(-1, keepdim=True) / n - mu * mu).clamp_min(0)
+        return (t - mu) * torch.rsqrt(var + LN_EPS) * g + bb
+
+    out = torch.full_like(x, float("nan"))
+    stored = torch.zeros(b, h, wd, dtype=torch.int32)
+    for un in range(plan.units):
+        band, rest = un % plan.nbands, un // plan.nbands
+        strip, img = rest % plan.strips, rest // plan.strips
+        r0 = band * plan.band
+        r1 = min(r0 + plan.band, h)
+        cols = strip * plan.seg - plan.halo + torch.arange(64)
+        valid = (cols >= 0) & (cols < wd)
+        is_out = (cols >= strip * plan.seg) & (cols < min(strip * plan.seg + plan.seg, wd))
+        cl = cols.clamp(0, wd - 1)
+        ring, ys, x2s = {}, {}, {}
+        for t in range(r0 - 1, r1 + 1):
+            k = t - r0 + 1
+            if not 0 <= t < h:
+                ring[k % 3] = torch.zeros(64, hp)
+            else:
+                row = lambda a: pad(a[img, t, cl] * valid[:, None])
+                uu, ww, xx = row(u), row(w_px), row(x)
+                pm = F.gelu(uu @ sp.t() + v("spb1", SPP)) @ v("spw2", SPP) + v("spb2", 1)
+                sg = uu * pad(gate[img]) + ww * torch.sigmoid(pm)[:, None]
+                x2s[k % 2] = xx + sg @ proj.t() + v("bproj", cp)
+                ys[k % 2] = ln(x2s[k % 2], v("g2", cp), v("b2", cp), c)
+                h2 = F.gelu(ys[k % 2] @ fc1b.t() + pk.vec[o["bfc1"] + hp:o["gsg"]])
+                chunks = h2.split(64, -1)
+                s1 = sum(ch.sum(-1, keepdim=True) for ch in chunks) / half
+                s2 = sum((ch * ch).sum(-1, keepdim=True) for ch in chunks) / half
+                rs = torch.rsqrt((s2 - s1 * s1).clamp_min(0) + LN_EPS)
+                ring[k % 3] = ((h2 - s1) * rs * v("gsg", hp) + v("bsg", hp)) * valid[:, None]
+            if t - 1 < r0:
+                continue
+            ko = k - 1
+            rows = [ring[(ko + 2) % 3], ring[ko % 3], ring[(ko + 1) % 3]]
+            d = v("bdw", hp).expand(64, hp).clone()
+            for dy in range(3):
+                padded = F.pad(rows[dy], (0, 0, 1, 1))  # tile rows outside [0, 64): zero
+                for dx in range(3):
+                    d = d + padded[dx:dx + 64] * taps[dy, dx]
+            g = F.gelu(ys[ko % 2] @ fc1a.t() + v("bfc1", hp)) * d
+            y = x2s[ko % 2] + g @ fc2.t() + v("bfc2", cp)
+            out[img, t - 1, cols[is_out]] = y[is_out, :c]
+            stored[img, t - 1, cols[is_out]] += 1
+    return out, stored
+
+
+_EMULATED = [
+    # (b, h, w, c, half, sms): bands, strips, padded widths
+    ((2, 9, 70, 40, 80, 5), "w70-two-strips-c40-half80"),
+    ((1, 11, 24, 72, 144, 4), "w24-uneven-bands-cp128"),
+    ((3, 5, 64, 32, 32, 2), "w64-one-row-tile"),
+]
+
+
+@pytest.mark.parametrize("shape", [s for s, _ in _EMULATED], ids=[i for _, i in _EMULATED])
+def test_tail_schedule_emulated_matches_plain(shape):
+    """K10's band schedule on its packed operands (``tail_plan``,
+    ``pack_tail_weights`` in fp32) reproduces ``datb_tail_plain`` at fp32
+    and stores every pixel once."""
+    from tpu_superresolution_torch.kernels.fused_datb_tail import (
+        datb_tail_plain,
+        pack_tail_weights,
+        tail_plan,
+    )
+
+    b, h, wd, c, half, sms = shape
+    acts, j = _tail_case(70 + c, b, h, wd, c, half)
+    tw = _torch_tail_weights(j)
+    x, u, w_px, gate = (_t(a) for a in acts)
+    got, stored = _tail_emulated(x, u, w_px, gate, pack_tail_weights(tw, torch.float32),
+                                 tail_plan(b, h, wd, c, half, sms))
+    assert torch.equal(stored, torch.ones_like(stored))
+    want = datb_tail_plain(x, u, w_px, gate, tw)
+    assert (got - want).abs().max().item() <= TOL
+
+
+def test_tail_schedule_emulated_matches_jax_kernel():
+    """The band schedule (two strips of a 70-wide map, bands of 3 rows,
+    half 2C) against ``fused_datb_tail`` in interpret mode."""
+    from tpu_superresolution_torch.kernels.fused_datb_tail import pack_tail_weights, tail_plan
+
+    b, h, wd, c, half = 1, 16, 70, 40, 80
+    acts, j = _tail_case(80, b, h, wd, c, half)
+    want = _jax_tail(acts, j)
+    x, u, w_px, gate = (_t(a) for a in acts)
+    plan = tail_plan(b, h, wd, c, half, 12)
+    assert (plan.strips, plan.band) == (2, 3)
+    got, _ = _tail_emulated(x, u, w_px, gate,
+                            pack_tail_weights(_torch_tail_weights(j), torch.float32), plan)
+    assert np.abs(got.numpy() - want).max() <= TOL
 
 
 def test_bn_folding_matches_jax():

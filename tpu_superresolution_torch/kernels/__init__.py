@@ -14,7 +14,7 @@ x4 serving (D), HAT-SRx4 serving (H16: upstream's HAT, window 16, C 180),
 every other Swin block outside the block kernel's envelope (W: any
 other window, width, head count or head dim), DAT training (DT) and DAT's module
 chain at serving where K9, K14 or K10 refuse a block's shapes (DC: the
-published DAT x4's split (8, 32) and expansion 4, among others), and
+published DAT x4's split (8, 32) fronts, among others), and
 HAT-SRx4 training (H16T: window 16, C 180, hidden 360).
 
 ==== ========================================================== ======== ==================================================
@@ -37,7 +37,7 @@ K8b  fused_ocab.py:354 . fused_ocab_core (_bwd_kernel)             HT       CUDA
      (at (16, 24), counted as K8bw16)                              H16T     CUDA csrc/ocab16.cu
 K9   fused_rect_attn.py:433 . fused_rect_attention                 D        CUDA csrc/dat_rect.cu, fused_rect_attn.rect_attention
 K14  fused_channel_attn.py:209 . fused_channel_attention           D        CUDA csrc/dat_channel.cu, fused_channel_attn.channel_attention
-K10  fused_datb_tail.py:374 . fused_datb_tail                      D        CUDA csrc/dat_tail.cu, fused_datb_tail.datb_tail
+K10  fused_datb_tail.py:374 . fused_datb_tail                      D,DC     CUDA csrc/dat_tail.cu (C <= 192, half <= 384; fused_datb_tail.tail_plan), fused_datb_tail.datb_tail
 K7   fused_attention.py:229 . fused_window_block_attention         H16,W,   CUDA csrc/window_attn.cu (the qkv and proj product) + csrc/window_attn_stream.cu
                                                                   H16T     (the attention), fused_attention.fused_window_attention
 K12  cab_conv.py:209 . fused_ln_cab_convs                          H,HT,    CUDA csrc/cab_fused.cu (C <= 256, Cmid <= 128), cab_conv.fused_ln_cab_convs
