@@ -24,15 +24,18 @@ Phases (a failure in any raises, and the script exits non-zero):
             widths without; at every K1 / K6 row the K7 route's
             composition of the same block (K2, the gathers, K7, K1t)
             timed beside the kernel, alone and back to back, in both
-            orders; K5, the block backward, on dx and its 13
-            parameter gradients): the error vs the plain version in bf16
+            orders; K5, the block backward on the forward's packed
+            tiles, on dx and its 13 parameter gradients, timed alone and
+            20 calls back to back, its bytes moved by design, two runs
+            bit-identical): the error vs the plain version in bf16
             and in fp32 (TF32 off), each against its stated bound; the
             median time of kernel, plain version and, where one PyTorch
             call computes the same function, that call; the bound (bytes
             or operations at the H100's published peaks); then the
             training kernels at the HAT train step's shapes: K6b (the
             ws-7 block backward) and K5 with d`extra`, on dx, d extra
-            and the 13 parameter gradients, K8 (the OCAB core) and K8b
+            and the 13 parameter gradients (as K5's rows: b2b, bytes,
+            two runs bit-identical), K8 (the OCAB core) and K8b
             (its backward, on dq, dk, dv, d sw and 9 gradients); then
             DAT's kernels at DATConfig()'s widths on the bench tile
             batch and on a [2,52,76,180] image (sides not multiples of
@@ -118,7 +121,8 @@ Phases (a failure in any raises, and the script exits non-zero):
             8 steps + validation on a synthetic DeepRockSR-layout set;
             launches per step, median ms per step and images/s for the
             kernels and the plain bf16 path, a profiled step, the cost
-            of K1's per-step weight packing, and the first step's loss,
+            of the blocks' per-step weight packing (pack_block_tiles,
+            which K1 and K5 both read), and the first step's loss,
             grad norm and per-parameter gradient cosine against the
             plain fp32 path;
 9. hat-train HAT x4 training (HATConfig() at full width and depth, drop
@@ -130,8 +134,9 @@ Phases (a failure in any raises, and the script exits non-zero):
             kernels and plain ops, the backward by autograd node: K6b,
             K8b, K12, the rest; idle), the first step's gradients
             against the plain fp32 path (with the plain bf16 path beside
-            it); then a hat_fast step (K1 / K5 with `extra`): launches
-            and first-step gradients;
+            it), the HABs' per-step weight packing; then a hat_fast step
+            (K1 / K5 with `extra`): launches, packing and first-step
+            gradients;
 10. hat_srx4 HAT-SRx4 (upstream HAT_SRx4_ImageNet-pretrain.yml: window
             16, embed 180, depths 6x6, heads 6, mlp 2, compress 3,
             squeeze 30, overlap 0.5; seeded random weights, exported to a
@@ -489,7 +494,7 @@ def phase_build():
     # their template arguments: registers, shared memory, spills
     kinds = ("conv_nhwc_wgmma_kernel", "conv_nhwc_halo_kernel", "window_product_kernel",
              "window_attn_stream_kernel", "cab_wgmma_kernel", "swin_block_wg_kernel",
-             "datb_tail_wg_kernel")
+             "datb_tail_wg_kernel", "swin_block_bwd_kernel")
     name = None
     for line in out.splitlines():
         if "Function properties for" in line:
@@ -605,6 +610,43 @@ def _compare_grads(results, key, label, got, ref16, ref32, act_fields, param_fie
     _record(results, key, label, max(errs), t_kernel, t_plain, work)
 
 
+def _check_deterministic(key, label, a, b, fields):
+    """Two runs of a backward kernel on the same inputs: every output the
+    same bits (static schedules, ordered sums, no atomics)."""
+    import torch
+
+    torch.cuda.synchronize()
+    bad = [k for k in fields if not torch.equal(getattr(a, k), getattr(b, k))]
+    log(f"[kernels] {key} {label}: two runs {'bit-identical' if not bad else 'DIFFER'} on "
+        f"{len(fields)} outputs")
+    if bad:
+        raise RuntimeError(f"{key} {label}: not deterministic on {bad}")
+
+
+def _bwd_bytes_log(key, shape, c, nh, hidden, ws):
+    """The backward's bytes moved per call by its design
+    (csrc/swin_block_bwd.cu): activations in and out, the dW workspace
+    written by K5a and read by K5b, x1's scratch and the partials each
+    written and read once (K5b's repeated reads of an X tile by other
+    output tiles are L2's)."""
+    import torch
+
+    from tpu_superresolution_torch.kernels import _lib
+    from tpu_superresolution_torch.kernels.fused_block import bwd_bytes, bwd_grid, bwd_plan
+
+    windows = shape[0] * (shape[1] // ws) * (shape[2] // ws)
+    plan = bwd_plan(c, nh, hidden)
+    grid, splits = bwd_grid(plan, windows, _lib.sm_count(torch.cuda.current_device()))
+    sizes = bwd_bytes(plan, windows, nh, grid, splits)
+    acts = math.prod(shape) * 2 * (3 if key == "K5" and c == 180 else 5)
+    moved = acts + 2 * sum(sizes.values())
+    log(f"[kernels] {key} {list(shape)} bytes moved by the design: " + ", ".join(
+        f"{k} {v / 1e6:.1f} MB" for k, v in sizes.items())
+        + f"; activations {acts / 1e6:.1f} MB; in all {moved / 1e6:.1f} MB "
+        f"({moved / PEAK_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s); K5a grid {grid}, "
+        f"K5b splits {splits} x {plan.units} units")
+
+
 def _k7_route(w, ws, shift, mask, gelu_approx, scales, extra, shape):
     """The K7 route's composition of one block (what the models run
     where the block kernel does not take the widths): K2 for LN1, the
@@ -664,7 +706,6 @@ def phase_kernels():
         fused_swin_block_backward,
         fused_windows_block,
         pack_block_tiles,
-        pack_block_weights,
         swin_block_bwd_plain,
         swin_block_plain,
     )
@@ -681,8 +722,7 @@ def phase_kernels():
     # with stochastic-depth branch scales; at each row beside the K7
     # route's composition of the same block
     w = _random_block(gen, dev)
-    tiles = pack_block_tiles(w)
-    packed = pack_block_weights(w)  # the backward's layout (K5 below)
+    tiles = pack_block_tiles(w)  # the forward's stream, which the backward (K5) reads too
     scales = torch.tensor([[1.0 / 0.9, 0.0], [1.0 / 0.9, 1.0 / 0.9]] * 4, device=dev)
     for shape, shift, sc in (((8, 64, 64, 180), 0, None), ((8, 64, 64, 180), 4, None),
                              ((25, 64, 64, 180), 0, None), ((25, 64, 64, 180), 4, None),
@@ -735,19 +775,25 @@ def phase_kernels():
                  _swin_work(shape, c, hidden, ws=ws, extra=with_extra))
         del out, ref16, ref32
 
-    # K5: the block backward at the train shape, shift 0 and 4, scales on
+    # K5: the block backward at the train shape, shift 0 and 4, scales on,
+    # on the forward's weight stream; the first row run twice for the same bits
     shape = (8, 64, 64, 180)
     for shift in (0, 4):
         x = torch.randn(*shape, generator=gen).to(dev, bf)
         ct = (0.1 * torch.randn(*shape, generator=gen)).to(dev, bf)
         mask = shift_mask_tensor(shape[1], shape[2], 8, shift, dev) if shift else None
         run = lambda: fused_swin_block_backward(ct, x, w, 8, shift, mask, True, scales,
-                                                packed=packed)
+                                                packed=tiles)
         got = run()
+        if shift == 0:
+            _check_deterministic("K5", f"{list(shape)} shift {shift}", got, run(),
+                                 ("dx",) + GRAD_FIELDS)
         ref16 = swin_block_bwd_plain(ct, x, w, 8, shift, mask, True, scales)
         ref32 = swin_block_bwd_plain(ct.float(), x.float(), w, 8, shift, mask, True, scales)
         torch.cuda.synchronize()
-        _compare_grads(res, "K5", f"{list(shape)} shift {shift} branch scales", got, ref16,
+        _bwd_bytes_log("K5", shape, 180, 6, 360, 8)
+        _compare_grads(res, "K5", f"{list(shape)} shift {shift} branch scales (b2b "
+                       f"{queued_ms(run):.4f} ms)", got, ref16,
                        ref32, ("dx",), GRAD_FIELDS, cuda_ms(run),
                        cuda_ms(lambda: swin_block_bwd_plain(ct, x, w, 8, shift, mask, True,
                                                             scales)),
@@ -934,7 +980,7 @@ def phase_train_kernels(res):
     from tpu_superresolution_torch.kernels.fused_block import (
         GRAD_FIELDS,
         fused_swin_block_backward,
-        pack_block_weights,
+        pack_block_tiles,
         swin_block_bwd_plain,
     )
     from tpu_superresolution_torch.ops.window import shift_mask_tensor
@@ -947,7 +993,7 @@ def phase_train_kernels(res):
     for key, ws, shape, shift in (("K6b", 7, (8, 70, 70, c), 0), ("K6b", 7, (8, 70, 70, c), 3),
                                   ("K5", 8, (8, 64, 64, c), 0), ("K5", 8, (8, 64, 64, c), 4)):
         wb = _random_block(gen, dev, c, nh, hidden, ws)
-        pk = pack_block_weights(wb)
+        pk = pack_block_tiles(wb)  # the forward's stream, which K6b / K5 read
         x = torch.randn(*shape, generator=gen).to(dev, bf)
         ct = (0.1 * torch.randn(*shape, generator=gen)).to(dev, bf)
         ex = (0.05 * torch.randn(*shape, generator=gen)).to(dev, bf)
@@ -956,11 +1002,16 @@ def phase_train_kernels(res):
                                                 packed=pk, extra=ex)
         plain = lambda: swin_block_bwd_plain(ct, x, wb, ws, shift, mask, True, scales, ex)
         got = run()
+        if shift == 0:  # the same bits on a second run
+            _check_deterministic(key, f"{list(shape)} ws {ws} shift {shift}", got, run(),
+                                 ("dx", "extra") + GRAD_FIELDS)
         ref16 = plain()
         ref32 = swin_block_bwd_plain(ct.float(), x.float(), wb, ws, shift, mask, True, scales,
                                      ex.float())
         torch.cuda.synchronize()
-        _compare_grads(res, key, f"{list(shape)} ws {ws} shift {shift} extra, branch scales",
+        _bwd_bytes_log(key, shape, c, nh, hidden, ws)
+        _compare_grads(res, key, f"{list(shape)} ws {ws} shift {shift} extra, branch scales "
+                       f"(b2b {queued_ms(run):.4f} ms)",
                        got, ref16, ref32, ("dx", "extra"), GRAD_FIELDS, cuda_ms(run),
                        cuda_ms(plain), _swin_work(shape, c, hidden, backward=True, ws=ws,
                                                  extra=True))
@@ -2786,6 +2837,7 @@ def phase_hat_train(workdir, smi):
                                    f"{HAT_TRAIN_PER_STEP}")
             per_step_all = per_step
             _hat_train_split(st, lr, hr, ms, smi)
+            _packing_cost(model, tag="hat-train")
         elif any(per_step.values()):
             raise RuntimeError(f"the plain path launched kernels: {per_step}")
         del model, st
@@ -2821,6 +2873,7 @@ def phase_hat_train(workdir, smi):
     if fast != HAT_FAST_TRAIN_PER_STEP:
         raise RuntimeError(f"hat_fast launches per step {fast}, expected "
                            f"{HAT_FAST_TRAIN_PER_STEP}")
+    _packing_cost(model, tag="hat-train hat_fast")
     del model, st
     _first_step_gate(fcfg, fsrc, lr, hr, "hat-train hat_fast", smi)
     return [launches, per_step_all, fast]
@@ -2923,6 +2976,7 @@ def phase_hat_srx4_train(workdir, smi):
             per_step_all = per_step
             _check_backward_nodes(model, lr, hr, cfg)
             _hat_train_split(st, lr, hr, ms, smi, tag="hat_srx4-train")
+            _packing_cost(model, k5w16=True, tag="hat_srx4-train")
         else:
             if any(per_step.values()):
                 raise RuntimeError(f"the plain path launched kernels: {per_step}")
@@ -3207,7 +3261,7 @@ def _hat_train_split(state, lr, hr, step_ms, smi, tag="hat-train"):
     by_span = (("hat::cab", "forward CAB SE gate (plain ops)"),
                ("hat::ocab", "forward OCAB plain ops (qkv, proj, MLP, gathers)"),
                ("hat::hab", "forward HAB plain ops (shift and partition gathers)"))
-    bwd_nodes = (("backward K6b / K5 (per-window, weight grads, reductions)",
+    bwd_nodes = (("backward K6b / K5 (per-window wgmma kernel, dW GEMM, ordered sums, fold)",
                   "SwinBlockFunctionBackward"),
                  ("backward K5w16 (K2 + K7 qkv recompute, per-window, weight grads, "
                   "reductions)", "WindowBlockFunctionBackward"),
@@ -3296,11 +3350,11 @@ def _device_kernels(prof):
             and not getattr(e, "is_user_annotation", False)]
 
 
-def _packing_cost(model):
-    """What the block kernels' weight packing costs each train step (the
-    forward's ``pack_block_tiles`` and the backward's
-    ``pack_block_weights`` for every block): device kernels and
-    synchronised milliseconds for all blocks."""
+def _packing_cost(model, k5w16=False, tag="train"):
+    """What the block kernels' weight packing costs each train step: the
+    forward's ``pack_block_tiles`` for every block, which K5 / K6b read
+    too, and ``pack_block_weights`` only where K5w16 runs (`k5w16`):
+    device kernels and synchronised milliseconds for all blocks."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3308,8 +3362,10 @@ def _packing_cost(model):
 
     weights = [b.block_weights() for layer in model.layers
                for b in layer.residual_group.blocks]
-    for label, pack in (("forward tiles (pack_block_tiles)", pack_block_tiles),
-                        ("backward layout (pack_block_weights)", pack_block_weights)):
+    packs = [("forward tiles (pack_block_tiles, read by K5 / K6b too)", pack_block_tiles)]
+    if k5w16:
+        packs = [("K5w16's layout (pack_block_weights)", pack_block_weights)]
+    for label, pack in packs:
         run = lambda: [pack(w) for w in weights]
         run()
         torch.cuda.synchronize()
@@ -3322,7 +3378,7 @@ def _packing_cost(model):
             run()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / 5 * 1e3
-        log(f"[train] K1 weight packing per step, {label}: {len(weights)} blocks, {n} device "
+        log(f"[{tag}] block weight packing per step, {label}: {len(weights)} blocks, {n} device "
             f"kernels ({n / len(weights):.0f} per block), {ms:.2f} ms (host and device, "
             f"synchronised)")
 

@@ -321,3 +321,39 @@ def test_train_mode_draws_branch_scales_per_hab():
     model.eval()
     assert model.sample_branch_scales(3, None, "cpu") is None
     assert _small_port_hat(drop_path_rate=0.0).train().sample_branch_scales(3, None, "cpu") is None
+
+
+@pytest.mark.parametrize("oracle,shift", [("packed", 3), ("packed", 0)],
+                         ids=["packed-ws7-s3", "packed-ws7-s0"])
+def test_k6b_schedule_emulated_matches_jax_packed_backward(oracle, shift):
+    """K6b's schedule on Hopper (csrc/swin_block_bwd.cu at ws 7, written
+    out in torch ops on the forward's packed stream:
+    tests/test_torch_swin_backward.py::block_bwd_emulated) against
+    jax.vjp of the JAX package's ``fused_packed_windows_block`` in
+    interpret mode (its backward is ``_packed_backward``) with `extra` and
+    branch scales: dx, d extra, every weight gradient and the gathered
+    bias's (atol 2e-4 / rtol 1e-3)."""
+    from tests.test_torch_swin_backward import block_bwd_emulated
+    from tpu_superresolution_tpu.ops.window import relative_position_index
+    from tpu_superresolution_torch.kernels.fused_block import pack_block_tiles
+
+    ws = 7
+    rng = np.random.default_rng(300 + shift)
+    w, args, table = _block_weights(rng, ws=ws)
+    b, h, wd, c, nh = 2, 2 * ws, 3 * ws, 32, 2
+    x = rng.standard_normal((b, h, wd, c)).astype(np.float32)
+    extra = (0.5 * rng.standard_normal((b, h, wd, c))).astype(np.float32)
+    ct = rng.standard_normal((b, h, wd, c)).astype(np.float32)
+    n = ws * ws
+    bias = table[relative_position_index(ws).reshape(-1)].reshape(n, n, nh).transpose(2, 0, 1)
+    f = _jax_block_fn(oracle, ws, shift, b, h, wd, c, nh, True)
+    _, vjp = jax.vjp(f, jnp.asarray(x), jnp.asarray(extra), *args, jnp.asarray(bias))
+    jgrads = vjp(jnp.asarray(ct))
+    p = pack_block_tiles(w, dtype=torch.float32)
+    dx, dex, got, _ = block_bwd_emulated(_t(ct), _t(x), p, ws, shift, shift > 0, True,
+                                         _t(SCALES), _t(extra), grid=2)
+    _assert_close(dx.numpy(), np.asarray(jgrads[0]), "dx")
+    _assert_close(dex.numpy(), np.asarray(jgrads[1]), "dextra")
+    for name, g in zip(_JAX_ORDER, jgrads[2:14]):
+        _assert_close(got[name].numpy(), _as_port(name, g), name)
+    _assert_close(got["rpb"].numpy(), np.asarray(jgrads[14]), "rpb")

@@ -1,11 +1,11 @@
 // K5 and K6's backward — the backward of one Swin transformer block (the
-// gradient of csrc/swin_block.cu), for window size 8 (K5) or 7 (K6's
-// backward), with the gradient of HAT's additive term `extra`.
+// gradient of csrc/swin_block.cu), for window size 8 (K5) or 7 (K6b), with
+// the gradient of HAT's additive term `extra`, on Hopper's wgmma.
 //
 // Replaces: tpu_superresolution_tpu/ops/pallas/fused_block.py
 //           K5  _mega_backward -> _bwd_kernel (pallas_call at :1080),
 //               with and without `extra` (has_extra);
-//           K6  _packed_backward -> _bwd_kernel (pallas_call at :1604),
+//           K6b _packed_backward -> _bwd_kernel (pallas_call at :1604),
 //               the same arithmetic on windows the caller partitioned and
 //               token-padded in HBM.  This kernel reads the windows from
 //               the spatial map, so one source serves both.
@@ -24,630 +24,443 @@
 //       with bf16 GEMM operands and fp32 accumulation, casting to bf16
 //       at the JAX kernel's points, so the kernel and the plain bf16
 //       version (kernels/fused_block.py::swin_block_bwd_plain) round
-//       alike.  Gradients come out in the packed layout of the forward's
-//       weights ([out, in], q pre-scaled, heads and channels
-//       zero-padded); the wrapper maps them to raw weight space.
+//       alike.  The weight gradients come out in the layout of the
+//       forward's weight stream (``pack_block_tiles``: q pre-scaled,
+//       heads and widths zero-padded, 128B-swizzled [N, 64] tiles); the
+//       wrapper folds them to raw weight space (``fold_block_grads``).
 // Bound on the H100: at SwinIR's train shape [8,64,64,180] the block's
 //       backward does ~51 GFLOP of bf16 products at the unpadded widths
 //       (14 recompute without fc2, 17 activation gradients, 3 attention
 //       backward, 17 the four weight-gradient products) against ~37 MB
 //       in and out, so it is compute-bound: ~52 us at the 989 TFLOP/s
-//       bf16 peak; HAT's at [8,70,70,96] ~25 GFLOP, ~26 us.  The WMMA
-//       kernels below run at a few % of the peak (PERF.md).
-// Design: the TPU kernel sums the weight gradients in VMEM across a
-//       sequential grid; a Hopper grid has no order.  So the work is
-//       three deterministic launches:
-//       K5a  one 384-thread CTA per window (the forward's shift-by-
-//            addressing: it reads x, extra and ct at the shifted pixels
-//            and writes dx and dextra there, with the same mask).  It
-//            writes each window's GEMM operand pairs (yc, dqkv), (o,
-//            dattn), (y2c, dh1), (a, dmlp) to a bf16 workspace, the
-//            per-window LayerNorm and bias partial sums and dS to an
-//            fp32 workspace, and dx.  It holds one head's A and dS at a
-//            time and keeps 210 KB of shared memory: the fp32 residual /
-//            cotangent [64][192], a 73 KB bf16 buffer that holds qkv,
-//            then the MLP gradient, then qkv again (reloaded from the
-//            workspace) and finally dqkv, two bf16 [64][200] buffers
-//            that alias an fp32 [64][192] one, the score / probability
-//            tiles and the per-warp staging.  x1 and h1 (fp32) go
-//            through the workspace too.
-//       K5b, K5c  csrc/wgrad.cuh: split-K WMMA weight-gradient products
-//            and ordered reductions.
-// Token padding (ws 7): every buffer keeps NTP = 64 token rows, as in
-//       the forward.  Rows 49..63 have zero x and zero cotangent, so
-//       every gradient operand (dmlp, dh1, dattn, dqkv) is exactly zero
-//       there and they add nothing to a weight-gradient product, bias sum
-//       or LayerNorm sum; their activations (LN of a zero row = b) stay
-//       finite.  Key columns 49..63 get -inf scores, so A and dS are
-//       exactly 0 there.  The ws-7 rpb and mask rows are not 16-byte
-//       aligned and are read as scalars; the rpb gradient is written as
-//       [nh][49][49] per window.
-#include "common.cuh"
-#include "swin_common.cuh"
-#include "wgrad.cuh"
+//       bf16 peak; HAT's at [8,70,70,96] ~25 GFLOP, ~26 us.
+// Design: three launches, all deterministic (static schedules, ordered
+//       sums, no atomics):
+//   K5a ``swin_block_bwd_kernel``: persistent CTAs of 384 threads, one an
+//       SM, walk window pairs as the forward does: consumer warpgroups 0
+//       and 1 each own a window's 64 token rows as one wgmma m64 tile;
+//       warpgroup 2 (one thread; setmaxnreg 40 / 232) streams the
+//       forward's own ``pack_block_tiles`` tiles through an mbarrier ring
+//       in the backward's order: qkv, proj (recompute); per hidden chunk
+//       fc1, fc2, fc1; proj; qkv (the heads' recompute); qkv (dy).  The
+//       products Y W^T read a tile as a K-major B, the products dY W read
+//       the same bytes as an MN-major B (the transpose bit), so one
+//       stream serves both directions.  Per window:
+//         F1  x -> LN1 -> yc (A buffer); per head qkv, Q K^T, the bias
+//             from the [nh, (2ws-1)^2] table + one code a token, softmax,
+//             P V -> O (R buffer);
+//         F2  x1 = x + m1 (O Wproj + b) + extra (fp32, to a per-CTA
+//             scratch), LN2 -> y2c (A buffer); dmlp -> R buffer;
+//         M   per 64-column hidden chunk: h1 = y2c Wfc1^T (recompute),
+//             act, gelu'(h1); dmlp Wfc2 (MN-major B) -> dh1 in registers,
+//             the A fragments of dy2 += dh1 Wfc1 (MN-major B);
+//         L2  LN2 backward in dy2's registers: dx1 (to the scratch),
+//             dextra, dattn -> A buffer;
+//         P   do = dattn Wproj (MN-major B) -> the heads' [64, hdp] tiles
+//             in the R buffer;
+//         A2  yc again; per head: qkv again; S, P, dA = do V^T, dS, dQ =
+//             dS K in the query rows; then S^T, P^T, dP^T = V do^T, dS^T,
+//             dK = dS^T Q and dV = P^T do in the key rows (the softmax
+//             row statistics through shared memory), so every operand is
+//             a register fragment or a swizzled tile;
+//         D   dy = sum over heads of dqkv_h Wqkv_h (MN-major B, A
+//             fragments read back from the workspace), LN1 backward, dx.
+//       The dW operand pairs (yc, dqkv), (o, dattn), (y2c, dh1), (act,
+//       dmlp) go to a bf16 workspace as [64 tokens, 64] 128B-swizzled
+//       tiles, a window's 64 tokens one K step of K5b; the five that sit
+//       whole in the A or R buffer (yc, o, y2c, dmlp, dattn) leave by
+//       bulk copies, the others from registers.  The LN sums go
+//       to per-(CTA, warp) fp32 partials, d(rpb) to a per-(CTA,
+//       warpgroup) [nh, 64, 64] fp32 partial; each thread owns its
+//       entries, so the read-modify-writes need no ordering.  A tile's
+//       loads from the scratch, the cotangent and the partials are issued
+//       together before the stores that follow them (the compiler keeps a
+//       load behind a store that may alias it: a round trip each, PERF.md
+//       §6); bf16 pairs of the maps are loaded and stored without a branch
+//       on C's parity (with one, the width-192 files took minutes to
+//       build; without, seconds).  The kernel is latency-bound (two warps
+//       a scheduler, each small product waited for).
+//   K5b ``wgrad_wg_kernel``: dW = dY^T X for the four products as a wgmma
+//       GEMM over tokens, both operands token-major (A and B MN-major),
+//       64 x <= 192 output tiles, split over windows; a producer warp
+//       bulk-copies the workspace's 8 KB tiles through a 3-stage ring;
+//       each split writes an fp32 partial in the weight stream's layout,
+//       and the bias sums db = dY^T 1 after it (a tile of ones as one
+//       more B: the column sums K5a would otherwise reduce per window).
+//   K5c ``reduce_ordered_kernel``: the splits', the warps' and the
+//       warpgroups' partials summed in a fixed order.
+// Token padding (ws 7): every window keeps 64 token rows.  Rows 49..63
+//       have zero x and zero cotangent, so every gradient operand (dmlp,
+//       dh1, dattn, do, dqkv) is exactly zero there and adds nothing to a
+//       weight-gradient product, bias sum or LayerNorm sum; their
+//       activations stay finite.  Keys 49..63 score -inf, so A and dS are
+//       0 there; in the key-row pass, pad keys and pad queries give P^T 0.
+#include "swin_block_bwd.cuh"
 
-namespace {
+namespace swin_bwd {
 
-constexpr int NTP = 64;  // token rows of every buffer: a window's WS*WS, padded
-constexpr int CP = 192;
-constexpr int HDP = 32;
-constexpr int QKVP = 3 * CP;
-constexpr int HIDP = 384;
-constexpr int NWARPS = 12;
-constexpr int NTHREADS = NWARPS * 32;
+// K5a's instantiations, each compiled in its own file
+extern template int launch_window<7, 96, 16>(const Args&, int, cudaStream_t);
+extern template int launch_window<7, 96, 32>(const Args&, int, cudaStream_t);
+extern template int launch_window<7, 192, 32>(const Args&, int, cudaStream_t);
+extern template int launch_window<8, 96, 16>(const Args&, int, cudaStream_t);
+extern template int launch_window<8, 96, 32>(const Args&, int, cudaStream_t);
+extern template int launch_window<8, 192, 32>(const Args&, int, cudaStream_t);
 
-constexpr int LDX = CP;          // fp32
-constexpr int LDY = CP + 8;      // bf16
-constexpr int LDQKV = QKVP + 8;  // bf16
-constexpr int LDH = HIDP + 8;    // bf16
-constexpr int LDS = NTP + 4;     // fp32
-constexpr int LDP = NTP + 8;     // bf16
-constexpr int LDO = CP + 8;      // bf16
+template <int WS>
+int launch_window_ws(const Args& a, int cp, int hdp, int grid, cudaStream_t s) {
+  if (cp == 96 && hdp == 16) return launch_window<WS, 96, 16>(a, grid, s);
+  if (cp == 96 && hdp == 32) return launch_window<WS, 96, 32>(a, grid, s);
+  if (cp == 192 && hdp == 32) return launch_window<WS, 192, 32>(a, grid, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
-constexpr int OFF_R = 0;
-constexpr int OFF_BIG = OFF_R + NTP * LDX * 4;
-constexpr int OFF_Y = OFF_BIG + NTP * LDQKV * 2;
-constexpr int OFF_O = OFF_Y + NTP * LDY * 2;
-constexpr int OFF_S = OFF_O + NTP * LDO * 2;
-constexpr int OFF_P = OFF_S + NTP * LDS * 4;
-constexpr int OFF_STG = OFF_P + NTP * LDP * 2;
-constexpr int OFF_STAT = OFF_STG + NWARPS * 256 * 4;
-constexpr int SMEM_BYTES = OFF_STAT + 4 * NTP * 4;
-static_assert(SMEM_BYTES <= 232448, "over the 227 KB shared-memory limit");
-static_assert(NTP * LDH <= NTP * LDQKV, "the MLP gradient must fit the qkv buffer");
-static_assert(NTP * LDX * 4 <= OFF_S - OFF_Y, "fp32 dy must fit the two bf16 buffers");
-static_assert(NTP * LDS * 4 <= OFF_O - OFF_Y, "fp32 dA must fit the first bf16 buffer");
-static_assert(OFF_BIG % 128 == 0 && OFF_Y % 128 == 0 && OFF_O % 128 == 0 && OFF_S % 128 == 0 &&
-                  OFF_P % 128 == 0 && OFF_STG % 128 == 0 && OFF_STAT % 128 == 0,
-              "shared buffers must stay 128-byte aligned");
+// ------------------------------------------------------------------ K5b
+// dW = dY^T X of the four products, token-major operands in the
+// workspace's [64 tokens, 64] tiles; a unit is one 64-row tile of dW's
+// rows (dY's columns) by up to three 64-column tiles of X, over a split
+// of the windows.  Its fp32 partial goes to the weight stream's layout.
+// A unit of the first X group also sums dY's columns, db = dY^T 1 (a
+// resident tile of ones as one more B), into the bias vector's layout
+// after the stream.
+constexpr int WG_CONS = 128;
+constexpr int WG_THREADS = WG_CONS + 32;  // + a producer warp
+constexpr int WG_STAGES = 3;
+constexpr int WG_STAGE = 4 * 8192;  // the dY tile and <= 3 X tiles
+constexpr int WG_SMEM = 1024 + WG_STAGES * WG_STAGE + 8192 + 2 * WG_STAGES * 8;  // + the ones
 
-// Offsets in a window's fp32 partial-sum vector (kernels/fused_block.py
-// _VEC_OFFSETS); the per-head dS [nh][N][N] (N = ws^2) follows at VEC_LEN.
-constexpr int V_G1 = 0, V_B1 = CP, V_G2 = 2 * CP, V_B2 = 3 * CP, V_BQKV = 4 * CP,
-              V_BPROJ = 7 * CP, V_BFC1 = 8 * CP, V_BFC2 = 8 * CP + HIDP, VEC_LEN = 9 * CP + HIDP;
-
-struct BwdArgs {
-  const bf16* ct;
-  const bf16* x;
-  const bf16* extra;  // [batch, h, w, c] or null
-  bf16* dx;
-  bf16* dextra;       // written when extra is not null
-  const float* g1;
-  const float* b1;
-  const float* g2;
-  const float* b2;
-  const bf16* wqkv;   // [QKVP, CP]
-  const float* bqkv;
-  const bf16* wproj;  // [CP, CP]
-  const float* bproj;
-  const bf16* wfc1;   // [HIDP, CP]
-  const float* bfc1;
-  const bf16* wfc2;   // [CP, HIDP]
-  const float* bfc2;
-  const float* rpb;   // [nh, N, N]
-  const float* mask;  // [nW, N, N] or null
-  const float* scales;
-  // workspace, [tokens][cols] with tokens (NTP per window) in window-major order
-  bf16* g_yc;    // CP
-  bf16* g_qkv;   // QKVP
-  bf16* g_o;     // CP
-  bf16* g_y2c;   // CP
-  bf16* g_act;   // HIDP
-  bf16* g_dmlp;  // CP
-  bf16* g_dh1;   // HIDP
-  bf16* g_dattn;  // CP
-  bf16* g_dqkv;  // QKVP
-  float* g_x1;   // CP
-  float* g_h1;   // HIDP
-  float* part;   // [windows][vec_len]
-  int vec_len;
-  int batch, h, w, c, nh, shift, gelu_tanh;
-  float eps;
+struct WGemm {
+  const bf16* dy;  // workspace operand: [windows][dy_tiles][64][64]
+  const bf16* x;   // [windows][x_tiles][64][64]
+  int dy_tiles, x_tiles;
+  int n_groups;  // of <= 3 X tiles; a unit per (dY tile, group)
+  int kind;  // 0 qkv, 1 proj, 2 fc1, 3 fc2
+  int bias_off, bias_rows;  // its bias in the bias vector: [bias_off, + bias_rows)
 };
 
-template <int WS>
-__global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_window(const BwdArgs a) {
-  constexpr int NT = WS * WS;  // real tokens per window
-  static_assert(NT <= NTP && NTP - NT < 16, "the token pad must stay under one WMMA tile");
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* rs = reinterpret_cast<float*>(smem + OFF_R);     // x, x1, then ct, dx1
-  bf16* big = reinterpret_cast<bf16*>(smem + OFF_BIG);    // qkv / dh1 / qkv / dqkv
-  bf16* ys = reinterpret_cast<bf16*>(smem + OFF_Y);       // yc, y2c, dmlp, dattn
-  bf16* os = reinterpret_cast<bf16*>(smem + OFF_O);       // o, do
-  float* dys = reinterpret_cast<float*>(smem + OFF_Y);    // fp32 dy over ys + os
-  float* das = reinterpret_cast<float*>(smem + OFF_Y);    // fp32 dA over ys
-  float* ss = reinterpret_cast<float*>(smem + OFF_S);     // scores, then A (fp32)
-  bf16* ps = reinterpret_cast<bf16*>(smem + OFF_P);       // A, then dS (bf16)
-  float* mu1 = reinterpret_cast<float*>(smem + OFF_STAT);
-  float* r1 = mu1 + NTP;
-  float* mu2 = r1 + NTP;
-  float* r2 = mu2 + NTP;
+struct WArgs {
+  WGemm g[4];
+  int unit0[5];  // first unit of each product
+  int windows, splits;
+  int nh, hdp, kc, nhalf;
+  long long stream_len;  // elements of the weight stream
+  long long row_len;     // a split's partial: the stream, then the bias vector
+  float* part;           // [splits][row_len]
+};
 
+// Offset in the weight stream (pack_block_tiles' layout) of dW's entry
+// (row m, column n) of product `kind`, or -1 where the stream has none.
+__device__ __forceinline__ long long stream_offset(const WArgs& a, int kind, int m, int n) {
+  const int q3 = 3 * a.hdp;
+  const long long p0 = static_cast<long long>(a.nh) * a.kc * q3 * 64;
+  const long long p1 = p0 + static_cast<long long>(a.nhalf) * a.kc * 96 * 64;
+  const long long chunk = static_cast<long long>(a.kc) * 4096 + a.nhalf * 96 * 64;
+  auto swz = [](int r, int k) { return ((((k >> 3) ^ r) & 7) << 3) | (k & 7); };
+  if (kind == 0) {  // rows h 3 hdp + r, columns kc 64 + k
+    const int h = m / q3, r = m - h * q3;
+    if (h >= a.nh) return -1;
+    return (static_cast<long long>(h) * a.kc + (n >> 6)) * q3 * 64 + r * 64 + swz(r, n & 63);
+  }
+  if (kind == 2) {  // hidden rows j 64 + r
+    const int j = m >> 6, r = m & 63;
+    return p1 + j * chunk + (n >> 6) * 4096 + r * 64 + swz(r, n & 63);
+  }
+  const int hf = m / 96, r = m - hf * 96;  // proj / fc2: out rows hf 96 + r
+  if (hf >= a.nhalf) return -1;
+  if (kind == 1) return p0 + (static_cast<long long>(hf) * a.kc + (n >> 6)) * 96 * 64 + r * 64 +
+                        swz(r, n & 63);
+  return p1 + (n >> 6) * chunk + static_cast<long long>(a.kc) * 4096 + hf * 96 * 64 + r * 64 +
+         swz(r, n & 63);
+}
+
+template <int NN, bool ONES>
+__device__ __forceinline__ void wgrad_mainloop(float (&acc)[3][32], float (&accb)[32],
+                                               uint32_t ring, uint32_t ones, uint32_t bars,
+                                               int nw, int lane) {
+  for (int i = 0; i < nw; ++i) {
+    const int st = i % WG_STAGES;
+    hopper::mbar_wait(bars + 8u * st, (i / WG_STAGES) & 1);
+    const uint32_t at = ring + st * WG_STAGE;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da = hopper::desc_sw128(at + kk * 2048);
+#pragma unroll
+      for (int t = 0; t < NN; ++t)
+        Wgmma64T<1, 1>::mma(acc[t], da, hopper::desc_sw128(at + (t + 1) * 8192 + kk * 2048), 1);
+      if (ONES) Wgmma64T<1, 1>::mma(accb, da, hopper::desc_sw128(ones + kk * 2048), 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();
+    if (i > 0 && lane == 0) hopper::mbar_arrive(bars + 8u * (WG_STAGES + (i - 1) % WG_STAGES));
+  }
+  hopper::wgmma_wait<0>();
+#pragma unroll
+  for (int t = 0; t < 3; ++t) hopper::fence_operands(acc[t]);
+  hopper::fence_operands(accb);
+}
+
+__global__ void __launch_bounds__(WG_THREADS, 2) wgrad_wg_kernel(const WArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  const uint32_t ones = ring + WG_STAGES * WG_STAGE;  // [64, 64] bf16 ones
+  const uint32_t bars = ones + 8192;                   // full[3], empty[3]
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float* stg = reinterpret_cast<float*>(smem + OFF_STG) + warp * 256;
-
-  const int nww = a.w / WS, nwh = a.h / WS;
-  const int win = blockIdx.x % (nwh * nww);
-  const int bidx = blockIdx.x / (nwh * nww);
-  const int wy = win / nww, wx = win % nww;
-  const int c = a.c;
-  const float m1 = a.scales ? a.scales[2 * bidx] : 1.f;
-  const float m2 = a.scales ? a.scales[2 * bidx + 1] : 1.f;
-  const long long row0 = static_cast<long long>(blockIdx.x) * NTP;
-  float* part = a.part + static_cast<long long>(blockIdx.x) * a.vec_len;
-
-  // element offset of the window's token t (< NT) in x, extra, ct, dx, dextra
-  auto token_offset = [&](int t) -> long long {
-    const int r = (wy * WS + t / WS + a.shift) % a.h;
-    const int q = (wx * WS + t % WS + a.shift) % a.w;
-    return ((static_cast<long long>(bidx) * a.h + r) * a.w + q) * c;
-  };
-  auto grow = [&](bf16* base, int ld, int r) { return base + (row0 + r) * ld; };
-
-  Acc acc[4];
-
-  // ================= forward recompute =================
-  for (int t = warp; t < NTP; t += NWARPS) {
-    const bf16* xr = t < NT ? a.x + token_offset(t) : nullptr;
-    for (int i = lane; i < CP; i += 32)
-      rs[t * LDX + i] = (xr && i < c) ? __bfloat162float(xr[i]) : 0.f;
+  const int split = blockIdx.x % a.splits, unit = blockIdx.x / a.splits;
+  int gi = 0;
+  while (gi < 3 && unit >= a.unit0[gi + 1]) ++gi;
+  const WGemm g = a.g[gi];
+  const int local = unit - a.unit0[gi];
+  const int mt = local / g.n_groups, nt0 = 3 * (local % g.n_groups);
+  const int nn = g.x_tiles - nt0 < 3 ? g.x_tiles - nt0 : 3;
+  const int wbeg = static_cast<int>(static_cast<long long>(a.windows) * split / a.splits);
+  const int wend = static_cast<int>(static_cast<long long>(a.windows) * (split + 1) / a.splits);
+  const int nw = wend - wbeg;
+  const bool with_bias = nt0 == 0;
+  if (with_bias) {
+    for (int i = tid; i < 8192 / 4; i += WG_THREADS) st32(ones + 4 * i, 0x3f803f80u);  // bf16 1, 1
+    hopper::fence_proxy_async();
   }
-  for (int i = tid; i < NTP * LDO; i += NTHREADS) os[i] = __float2bfloat16(0.f);
-  __syncwarp();
-  layernorm_rows<NTP, NWARPS>(rs, LDX, ys, LDY, CP, a.g1, a.b1, c, a.eps, warp, lane, mu1,
-                              r1);
-  __syncthreads();
-  copy_rows<NTP, NTHREADS>(ys, LDY, a.g_yc + row0 * CP, CP, CP, tid);
-
-  // qkv = yc @ Wqkv^T + bqkv -> bf16 (shared and workspace)
-  for (int strip = warp; strip < QKVP / 16; strip += NWARPS) {
-    const int n0 = strip * 16;
-    gemm_strip<CP>(acc, ys, LDY, a.wqkv, n0);
-    strip_epilogue(acc, stg, lane, n0, [&](int r, int n, float (&v)[8]) {
-      float b[8];
-      load8(b, a.bqkv + n);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] += b[i];
-      store8_bf16(big + r * LDQKV + n, v);
-      store8_bf16(grow(a.g_qkv, QKVP, r) + n, v);
-    });
+  if (tid == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      hopper::mbar_init(bars + 8u * s, 1);
+      hopper::mbar_init(bars + 8u * (WG_STAGES + s), 4);
+    }
+    hopper::mbar_init_fence();
   }
   __syncthreads();
-
-  // attention forward, one head at a time -> o (bf16)
-  const float* mwin = a.mask ? a.mask + static_cast<long long>(win) * NT * NT : nullptr;
-  auto scores = [&](int hh) {
-    for (int tile = warp; tile < 16; tile += NWARPS) {
-      const int mt = tile >> 2, nt = tile & 3;
-      Acc s;
-      wmma::fill_fragment(s, 0.f);
-#pragma unroll
-      for (int k = 0; k < HDP; k += 16) {
-        FragA fa;
-        FragBt fb;
-        wmma::load_matrix_sync(fa, big + mt * 16 * LDQKV + hh * HDP + k, LDQKV);
-        wmma::load_matrix_sync(fb, big + nt * 16 * LDQKV + CP + hh * HDP + k, LDQKV);
-        wmma::mma_sync(s, fa, fb, s);
-      }
-      wmma::store_matrix_sync(ss + mt * 16 * LDS + nt * 16, s, LDS, wmma::mem_row_major);
+  if (warp == 4) {  // the producer: one thread's bulk copies
+    if (lane != 0) return;
+    for (int i = 0; i < nw; ++i) {
+      const int st = i % WG_STAGES, w = wbeg + i;
+      hopper::mbar_wait(bars + 8u * (WG_STAGES + st), ((i / WG_STAGES) & 1) ^ 1);
+      const uint32_t full = bars + 8u * st, at = ring + st * WG_STAGE;
+      hopper::mbar_arrive_expect_tx(full, 8192u * (1 + nn));
+      hopper::bulk_copy(at, g.dy + (static_cast<size_t>(w) * g.dy_tiles + mt) * TILE_ELEMS, 8192,
+                        full);
+      for (int t = 0; t < nn; ++t)
+        hopper::bulk_copy(at + (t + 1) * 8192,
+                          g.x + (static_cast<size_t>(w) * g.x_tiles + nt0 + t) * TILE_ELEMS,
+                          8192, full);
     }
-  };
-  // softmax(S + rpb + mask) in fp32: A kept in ss (fp32) and ps (bf16).
-  // Pad key columns get -inf (probability 0); pad query rows get no bias
-  // (finite; their cotangent is zero).  Column 0 is always a real key.
-  auto softmax = [&](int hh) {
-    const float* rp = a.rpb + static_cast<long long>(hh) * NT * NT;
-    for (int r = warp * 4 + (lane >> 3); r < NTP; r += NWARPS * 4) {
-      const int c0 = (lane & 7) * 8;
-      float v[8];
-      load8(v, ss + r * LDS + c0);
-      if constexpr (NT == NTP) {
-        float t[8];
-        load8(t, rp + r * NT + c0);
+    return;
+  }
+  float acc[3][32], accb[32];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) v[i] += t[i];
-        if (mwin) {
-          load8(t, mwin + r * NT + c0);
+  for (int t = 0; t < 3; ++t)
 #pragma unroll
-          for (int i = 0; i < 8; ++i) v[i] += t[i];
-        }
-      } else {
+    for (int e = 0; e < 32; ++e) acc[t][e] = 0.f;
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int col = c0 + i;
-          if (col >= NT) {
-            v[i] = -__int_as_float(0x7f800000);  // -inf
-          } else if (r < NT) {
-            v[i] += rp[r * NT + col];
-            if (mwin) v[i] += mwin[r * NT + col];
-          }
-        }
-      }
-      float m = v[0];
+  for (int e = 0; e < 32; ++e) accb[e] = 0.f;
+  if (with_bias) {
+    if (nn == 3)
+      wgrad_mainloop<3, true>(acc, accb, ring, ones, bars, nw, lane);
+    else if (nn == 2)
+      wgrad_mainloop<2, true>(acc, accb, ring, ones, bars, nw, lane);
+    else
+      wgrad_mainloop<1, true>(acc, accb, ring, ones, bars, nw, lane);
+  } else {
+    if (nn == 3)
+      wgrad_mainloop<3, false>(acc, accb, ring, ones, bars, nw, lane);
+    else if (nn == 2)
+      wgrad_mainloop<2, false>(acc, accb, ring, ones, bars, nw, lane);
+    else
+      wgrad_mainloop<1, false>(acc, accb, ring, ones, bars, nw, lane);
+  }
+  float* out = a.part + static_cast<long long>(split) * a.row_len;
+  const int q = lane & 3, row = 64 * mt + 16 * warp + (lane >> 2);
+  if (with_bias && q == 0) {  // column 0 of dY^T 1: the rows' sums
 #pragma unroll
-      for (int i = 1; i < 8; ++i) m = fmaxf(m, v[i]);
-#pragma unroll
-      for (int o = 4; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      float sum = 0.f;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        v[i] = expf(v[i] - m);
-        sum += v[i];
-      }
-#pragma unroll
-      for (int o = 4; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      const float inv = 1.f / sum;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] *= inv;
-      store8_f32(ss + r * LDS + c0, v);
-      store8_bf16(ps + r * LDP + c0, v);
-    }
-  };
-  for (int hh = 0; hh < a.nh; ++hh) {
-    scores(hh);
-    __syncthreads();
-    softmax(hh);
-    __syncthreads();
-    for (int tile = warp; tile < 8; tile += NWARPS) {
-      const int mt = tile >> 1, nt = tile & 1;
-      Acc o;
-      wmma::fill_fragment(o, 0.f);
-#pragma unroll
-      for (int k = 0; k < NTP; k += 16) {
-        FragA fa;
-        FragB fb;
-        wmma::load_matrix_sync(fa, ps + mt * 16 * LDP + k, LDP);
-        wmma::load_matrix_sync(fb, big + k * LDQKV + 2 * CP + hh * HDP + nt * 16, LDQKV);
-        wmma::mma_sync(o, fa, fb, o);
-      }
-      wmma::store_matrix_sync(stg, o, 16, wmma::mem_row_major);
-      __syncwarp();
-      float v[8];
-      load8(v, stg + (lane >> 1) * 16 + (lane & 1) * 8);
-      store8_bf16(os + (mt * 16 + (lane >> 1)) * LDO + hh * HDP + nt * 16 + (lane & 1) * 8, v);
-      __syncwarp();
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int m = row + 8 * h2;
+      if (m < g.bias_rows) out[a.stream_len + g.bias_off + m] = accb[2 * h2];
     }
   }
-  __syncthreads();
-  copy_rows<NTP, NTHREADS>(os, LDO, a.g_o + row0 * CP, CP, CP, tid);
-
-  // x1 = x + m1 * (o @ Wproj^T + bproj), fp32 in place
-  for (int strip = warp; strip < CP / 16; strip += NWARPS) {
-    const int n0 = strip * 16;
-    gemm_strip<CP>(acc, os, LDO, a.wproj, n0);
-    strip_epilogue(acc, stg, lane, n0, [&](int r, int n, float (&v)[8]) {
-      float b[8], x[8];
-      load8(b, a.bproj + n);
-      load8(x, rs + r * LDX + n);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) x[i] += m1 * (v[i] + b[i]);
-      store8_f32(rs + r * LDX + n, x);
-    });
-  }
-  __syncthreads();
-  // x1 += extra (unscaled), in LN2's (row, lane) mapping
-  if (a.extra) {
-    for (int t = warp; t < NT; t += NWARPS) {
-      const bf16* er = a.extra + token_offset(t);
-      for (int i = lane; i < c; i += 32) rs[t * LDX + i] += __bfloat162float(er[i]);
+  for (int t = 0; t < 3; ++t) {
+    if (t >= nn) break;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int m = row + 8 * ((e >> 1) & 1);
+      const int n = 64 * (nt0 + t) + 8 * (e >> 2) + 2 * q + (e & 1);
+      const long long off = stream_offset(a, g.kind, m, n);
+      if (off >= 0) out[off] = acc[t][e];
     }
-  }
-  layernorm_rows<NTP, NWARPS>(rs, LDX, ys, LDY, CP, a.g2, a.b2, c, a.eps, warp, lane, mu2,
-                              r2);
-  __syncthreads();
-  for (int i = tid; i < NTP * CP / 4; i += NTHREADS) {
-    const int r = i / (CP / 4), cv = (i % (CP / 4)) * 4;
-    *reinterpret_cast<float4*>(a.g_x1 + (row0 + r) * CP + cv) =
-        *reinterpret_cast<const float4*>(rs + r * LDX + cv);
-  }
-  copy_rows<NTP, NTHREADS>(ys, LDY, a.g_y2c + row0 * CP, CP, CP, tid);
-
-  // h1 = y2c @ Wfc1^T + bfc1 (fp32 to the workspace), a = bf16(gelu(h1))
-  for (int strip = warp; strip < HIDP / 16; strip += NWARPS) {
-    const int n0 = strip * 16;
-    gemm_strip<CP>(acc, ys, LDY, a.wfc1, n0);
-    strip_epilogue(acc, stg, lane, n0, [&](int r, int n, float (&v)[8]) {
-      float b[8];
-      load8(b, a.bfc1 + n);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] += b[i];
-      store8_f32(a.g_h1 + (row0 + r) * HIDP + n, v);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = gelu(v[i], a.gelu_tanh);
-      store8_bf16(grow(a.g_act, HIDP, r) + n, v);
-    });
-  }
-  __syncthreads();
-
-  // ================= backward =================
-  // ct -> rs (fp32, pad rows zero), dmlp = bf16(ct m2) -> ys
-  for (int t = warp; t < NTP; t += NWARPS) {
-    const bf16* cr = t < NT ? a.ct + token_offset(t) : nullptr;
-    for (int i = lane; i < CP; i += 32) {
-      const float v = (cr && i < c) ? __bfloat162float(cr[i]) : 0.f;
-      rs[t * LDX + i] = v;
-      ys[t * LDY + i] = __float2bfloat16(v * m2);
-    }
-  }
-  __syncthreads();
-  copy_rows<NTP, NTHREADS>(ys, LDY, a.g_dmlp + row0 * CP, CP, CP, tid);
-  column_sums<NTP, NTHREADS>(ys, LDY, CP, part + V_BFC2, tid);
-
-  // dh1 = bf16((dmlp @ Wfc2) * gelu'(h1)) -> big
-  for (int strip = warp; strip < HIDP / 16; strip += NWARPS) {
-    const int n0 = strip * 16;
-    gemm_strip_kn<CP>(acc, ys, LDY, a.wfc2, HIDP, n0);
-    strip_epilogue(acc, stg, lane, n0, [&](int r, int n, float (&v)[8]) {
-      float hv[8];
-      load8(hv, a.g_h1 + (row0 + r) * HIDP + n);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] *= gelu_grad(hv[i], a.gelu_tanh);
-      store8_bf16(big + r * LDH + n, v);
-      store8_bf16(grow(a.g_dh1, HIDP, r) + n, v);
-    });
-  }
-  __syncthreads();
-  column_sums<NTP, NTHREADS>(big, LDH, HIDP, part + V_BFC1, tid);
-
-  // dy2 = dh1 @ Wfc1 -> dys (fp32)
-  for (int strip = warp; strip < CP / 16; strip += NWARPS) {
-    const int n0 = strip * 16;
-    gemm_strip_kn<HIDP>(acc, big, LDH, a.wfc1, CP, n0);
-    strip_epilogue(acc, stg, lane, n0,
-                   [&](int r, int n, float (&v)[8]) { store8_f32(dys + r * LDX + n, v); });
-  }
-  __syncthreads();
-
-  // LN2 backward over the real rows (dy2 is zero on the pad rows): dg2,
-  // db2 partials; dx1 = ct + LN2^T(dy2) in rs
-  layernorm_backward_rows<NWARPS, NTHREADS>(
-      dys, rs, LDX, a.g2, mu2, r2, [&](int t, int i) { return a.g_x1[(row0 + t) * CP + i]; },
-      NT, c, part + V_G2, part + V_B2, tid, warp, lane);
-  // dextra = dx1 at the same pixels (each lane reads back what it wrote)
-  if (a.extra) {
-    for (int t = warp; t < NT; t += NWARPS) {
-      bf16* dr = a.dextra + token_offset(t);
-      for (int i = lane; i < c; i += 32) dr[i] = __float2bfloat16(rs[t * LDX + i]);
-    }
-  }
-  __syncthreads();
-
-  // dattn = bf16(dx1 m1) -> ys
-  for (int i = tid; i < NTP * CP / 8; i += NTHREADS) {
-    const int r = i / (CP / 8), cv = (i % (CP / 8)) * 8;
-    float v[8];
-    load8(v, rs + r * LDX + cv);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) v[k] *= m1;
-    store8_bf16(ys + r * LDY + cv, v);
-  }
-  __syncthreads();
-  copy_rows<NTP, NTHREADS>(ys, LDY, a.g_dattn + row0 * CP, CP, CP, tid);
-  column_sums<NTP, NTHREADS>(ys, LDY, CP, part + V_BPROJ, tid);
-  // qkv back from the workspace into big (dh1 is no longer needed)
-  copy_rows<NTP, NTHREADS>(a.g_qkv + row0 * QKVP, QKVP, big, LDQKV, QKVP, tid);
-  // do = bf16(dattn @ Wproj) -> os
-  for (int strip = warp; strip < CP / 16; strip += NWARPS) {
-    const int n0 = strip * 16;
-    gemm_strip_kn<CP>(acc, ys, LDY, a.wproj, CP, n0);
-    strip_epilogue(acc, stg, lane, n0,
-                   [&](int r, int n, float (&v)[8]) { store8_bf16(os + r * LDO + n, v); });
-  }
-  __syncthreads();
-
-  // attention backward, one head at a time; dq, dk, dv -> workspace
-  auto tile_to_dqkv = [&](Acc& t, int r0, int col) {
-    wmma::store_matrix_sync(stg, t, 16, wmma::mem_row_major);
-    __syncwarp();
-    float v[8];
-    load8(v, stg + (lane >> 1) * 16 + (lane & 1) * 8);
-    store8_bf16(grow(a.g_dqkv, QKVP, r0 + (lane >> 1)) + col + (lane & 1) * 8, v);
-    __syncwarp();
-  };
-  for (int hh = 0; hh < a.nh; ++hh) {
-    scores(hh);
-    __syncthreads();
-    softmax(hh);
-    __syncthreads();
-    for (int tile = warp; tile < 24; tile += NWARPS) {
-      Acc t;
-      wmma::fill_fragment(t, 0.f);
-      if (tile < 8) {  // dV = A^T do  (rows: keys)
-        const int mt = tile >> 1, nt = tile & 1;
-#pragma unroll
-        for (int k = 0; k < NTP; k += 16) {
-          FragAt fa;
-          FragB fb;
-          wmma::load_matrix_sync(fa, ps + k * LDP + mt * 16, LDP);
-          wmma::load_matrix_sync(fb, os + k * LDO + hh * HDP + nt * 16, LDO);
-          wmma::mma_sync(t, fa, fb, t);
-        }
-        tile_to_dqkv(t, mt * 16, 2 * CP + hh * HDP + nt * 16);
-      } else {  // dA = do V^T
-        const int mt = (tile - 8) >> 2, nt = (tile - 8) & 3;
-#pragma unroll
-        for (int k = 0; k < HDP; k += 16) {
-          FragA fa;
-          FragBt fb;
-          wmma::load_matrix_sync(fa, os + mt * 16 * LDO + hh * HDP + k, LDO);
-          wmma::load_matrix_sync(fb, big + nt * 16 * LDQKV + 2 * CP + hh * HDP + k, LDQKV);
-          wmma::mma_sync(t, fa, fb, t);
-        }
-        wmma::store_matrix_sync(das + mt * 16 * LDS + nt * 16, t, LDS, wmma::mem_row_major);
-      }
-    }
-    __syncthreads();
-    // dS = A (dA - rowsum(dA A)): fp32 partial for d rpb, bf16 into ps
-    float* dsp = part + VEC_LEN + static_cast<long long>(hh) * NT * NT;
-    for (int r = warp * 4 + (lane >> 3); r < NTP; r += NWARPS * 4) {
-      const int c0 = (lane & 7) * 8;
-      float p[8], d[8];
-      load8(p, ss + r * LDS + c0);
-      load8(d, das + r * LDS + c0);
-      float dot = 0.f;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) dot += d[i] * p[i];
-#pragma unroll
-      for (int o = 4; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) d[i] = p[i] * (d[i] - dot);
-      if constexpr (NT == NTP) {
-        store8_f32(dsp + r * NT + c0, d);
-      } else if (r < NT) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          if (c0 + i < NT) dsp[r * NT + c0 + i] = d[i];
-      }
-      store8_bf16(ps + r * LDP + c0, d);
-    }
-    __syncthreads();
-    for (int tile = warp; tile < 16; tile += NWARPS) {
-      const int mt = (tile & 7) >> 1, nt = tile & 1;
-      Acc t;
-      wmma::fill_fragment(t, 0.f);
-      if (tile < 8) {  // dQ = dS K
-#pragma unroll
-        for (int k = 0; k < NTP; k += 16) {
-          FragA fa;
-          FragB fb;
-          wmma::load_matrix_sync(fa, ps + mt * 16 * LDP + k, LDP);
-          wmma::load_matrix_sync(fb, big + k * LDQKV + CP + hh * HDP + nt * 16, LDQKV);
-          wmma::mma_sync(t, fa, fb, t);
-        }
-        tile_to_dqkv(t, mt * 16, hh * HDP + nt * 16);
-      } else {  // dK = dS^T Q
-#pragma unroll
-        for (int k = 0; k < NTP; k += 16) {
-          FragAt fa;
-          FragB fb;
-          wmma::load_matrix_sync(fa, ps + k * LDP + mt * 16, LDP);
-          wmma::load_matrix_sync(fb, big + k * LDQKV + hh * HDP + nt * 16, LDQKV);
-          wmma::mma_sync(t, fa, fb, t);
-        }
-        tile_to_dqkv(t, mt * 16, CP + hh * HDP + nt * 16);
-      }
-    }
-    __syncthreads();
-  }
-
-  // dqkv from the workspace into big; heads >= nh are zero (also written)
-  for (int i = tid; i < NTP * QKVP / 8; i += NTHREADS) {
-    const int r = i / (QKVP / 8), cv = (i % (QKVP / 8)) * 8;
-    bf16* g = grow(a.g_dqkv, QKVP, r) + cv;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if ((cv % CP) / HDP < a.nh) {
-      v = *reinterpret_cast<const uint4*>(g);
-    } else {
-      *reinterpret_cast<uint4*>(g) = v;
-    }
-    *reinterpret_cast<uint4*>(big + r * LDQKV + cv) = v;
-  }
-  __syncthreads();
-  column_sums<NTP, NTHREADS>(big, LDQKV, QKVP, part + V_BQKV, tid);
-
-  // dy = dqkv @ Wqkv -> dys (fp32)
-  for (int strip = warp; strip < CP / 16; strip += NWARPS) {
-    const int n0 = strip * 16;
-    gemm_strip_kn<QKVP>(acc, big, LDQKV, a.wqkv, CP, n0);
-    strip_epilogue(acc, stg, lane, n0,
-                   [&](int r, int n, float (&v)[8]) { store8_f32(dys + r * LDX + n, v); });
-  }
-  __syncthreads();
-
-  // LN1 backward over the real rows (x re-read at its shifted pixels);
-  // dx -> the same pixels
-  layernorm_backward_rows<NWARPS, NTHREADS>(
-      dys, rs, LDX, a.g1, mu1, r1,
-      [&](int t, int i) { return __bfloat162float(a.x[token_offset(t) + i]); }, NT, c,
-      part + V_G1, part + V_B1, tid, warp, lane);
-  __syncwarp();
-  for (int t = warp; t < NT; t += NWARPS) {
-    bf16* dr = a.dx + token_offset(t);
-    for (int i = lane; i < c; i += 32) dr[i] = __float2bfloat16(rs[t * LDX + i]);
   }
 }
 
-template <int WS>
-int launch_bwd_window(const BwdArgs& a, long long windows, cudaStream_t stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      swin_block_bwd_window<WS>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  swin_block_bwd_window<WS>
-      <<<static_cast<unsigned int>(windows), NTHREADS, SMEM_BYTES, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+// ------------------------------------------------------------------ K5c
+// out[j] = sum_r part[r][j] for three segments, rows summed in a fixed
+// order: 8 slices of rows in order, then the slices in order.
+struct RSeg {
+  const float* part;
+  long long rows, cols;
+  float* out;
+};
+
+constexpr int RED_SLICES = 8;
+
+__global__ void __launch_bounds__(32 * RED_SLICES) reduce_ordered_kernel(RSeg s0, RSeg s1,
+                                                                         RSeg s2) {
+  const RSeg s = blockIdx.y == 0 ? s0 : blockIdx.y == 1 ? s1 : s2;
+  __shared__ float red[RED_SLICES][33];
+  const int lane = threadIdx.x & 31, slice = threadIdx.x >> 5;
+  const long long col = static_cast<long long>(blockIdx.x) * 32 + lane;
+  float acc = 0.f;
+  if (col < s.cols) {
+    const long long r0 = s.rows * slice / RED_SLICES, r1 = s.rows * (slice + 1) / RED_SLICES;
+    for (long long r = r0; r < r1; ++r) acc += s.part[r * s.cols + col];
+  }
+  red[slice][lane] = acc;
+  __syncthreads();
+  if (slice == 0 && col < s.cols) {
+    float t = 0.f;
+#pragma unroll
+    for (int i = 0; i < RED_SLICES; ++i) t += red[i][lane];
+    s.out[col] = t;
+  }
 }
 
-}  // namespace
+}  // namespace swin_bwd
 
-extern "C" int sr_swin_block_bwd_bf16(
-    const void* ct, const void* x, const void* extra, void* dx, void* dextra, const void* g1,
-    const void* b1, const void* g2, const void* b2, const void* wqkv, const void* bqkv,
-    const void* wproj, const void* bproj, const void* wfc1, const void* bfc1, const void* wfc2,
-    const void* bfc2, const void* rpb, const void* mask, const void* scales, void* ws16,
-    void* ws32, void* part_win, void* part_w, void* vec, void* wgrad, int batch, int h, int w,
-    int c, int nh, int ws, int shift, int gelu_tanh, float eps, int splits, int rows,
-    void* stream) {
-  if (ws != 7 && ws != 8) return static_cast<int>(cudaErrorInvalidValue);
-  const long long windows = static_cast<long long>(batch) * (h / ws) * (w / ws);
+using namespace swin_bwd;
+
+// K5a, K5b and K5c on one stream.  ct, x, extra (or null), dx, dextra
+// [batch, h, w, c] bf16; tiles, biases, LN params, table and codes as
+// kernels/fused_block.py ``pack_block_tiles`` and ops/window.py
+// ``window_codes_tensor`` lay them out; scales [batch, 2] or null.
+// Workspaces (kernels/fused_block.py ``bwd_plan`` sizes them): ws the dW
+// operands, x1ws, pvec, prpb, pw (the splits' partials); outputs wgrad
+// (the weight stream's layout, fp32) with vec right after it (the bias
+// sums in pack_block_tiles' bias layout, then the LN sums) and rpb [nh,
+// 64, 64].  geo: batch, h, w, c, nh, hidden, ws, shift, shifted, cp,
+// hdp, stages, gelu_tanh, grid, splits (the plan; this entry checks it).
+extern "C" int sr_swin_block_bwd_bf16(const void* ct, const void* x, const void* extra, void* dx,
+                                      void* dextra, const void* tiles, const void* bqkv,
+                                      const void* bproj, const void* bfc1, const void* bfc2,
+                                      const void* g1, const void* b1, const void* g2,
+                                      const void* b2, const void* table, const void* codes,
+                                      const void* scales, void* ws, void* x1ws, void* pvec,
+                                      void* prpb, void* pw, void* vec, void* rpb, void* wgrad,
+                                      const int* geo, float eps, void* stream) {
+  Args a;
+  a.batch = geo[0];
+  a.h = geo[1];
+  a.w = geo[2];
+  a.c = geo[3];
+  a.nh = geo[4];
+  const int hidden = geo[5], wsz = geo[6];
+  a.shift = geo[7];
+  a.shifted = geo[8];
+  const int cp = geo[9], hdp = geo[10];
+  a.stages = geo[11];
+  a.gelu_tanh = geo[12];
+  const int grid = geo[13], splits = geo[14];
+  a.chunks = (hidden + HC - 1) / HC;
+  a.eps = eps;
+  const long long windows =
+      wsz > 0 ? static_cast<long long>(a.batch) * (a.h / wsz) * (a.w / wsz) : 0;
+  const long long pairs = (windows + NCONS - 1) / NCONS;
+  if ((wsz != 7 && wsz != 8) || a.c < 1 || a.c > cp || a.nh < 1 || a.nh > MAX_HEADS ||
+      a.c % a.nh || a.c / a.nh > hdp || a.nh * hdp > cp || hidden < 1 || hidden > 384 ||
+      a.h % wsz || a.w % wsz || a.shift < 0 || a.shift >= wsz || grid < 1 ||
+      (pairs > 0 && grid > pairs) || splits < 1 || (windows > 0 && splits > windows) ||
+      !aligned_to(tiles, 16) || !aligned_to(bqkv, 8) || !aligned_to(bproj, 8) ||
+      !aligned_to(bfc1, 8) || !aligned_to(bfc2, 8) || !aligned_to(ws, 16) ||
+      !aligned_to(x1ws, 16) || !aligned_to(pvec, 8) || !aligned_to(prpb, 8) ||
+      (a.c % 2 == 0 && !(aligned_to(x, 4) && aligned_to(ct, 4) && aligned_to(dx, 4) &&
+                         (!extra || (aligned_to(extra, 4) && aligned_to(dextra, 4))))))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (windows == 0) return 0;
-  const long long tokens = windows * NTP;  // workspace rows
-  const int nt = ws * ws;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-
-  BwdArgs a;
   a.ct = static_cast<const bf16*>(ct);
   a.x = static_cast<const bf16*>(x);
   a.extra = static_cast<const bf16*>(extra);
   a.dx = static_cast<bf16*>(dx);
   a.dextra = static_cast<bf16*>(dextra);
+  a.tiles = static_cast<const bf16*>(tiles);
+  a.bqkv = static_cast<const float*>(bqkv);
+  a.bproj = static_cast<const float*>(bproj);
+  a.bfc1 = static_cast<const float*>(bfc1);
+  a.bfc2 = static_cast<const float*>(bfc2);
   a.g1 = static_cast<const float*>(g1);
   a.b1 = static_cast<const float*>(b1);
   a.g2 = static_cast<const float*>(g2);
   a.b2 = static_cast<const float*>(b2);
-  a.wqkv = static_cast<const bf16*>(wqkv);
-  a.bqkv = static_cast<const float*>(bqkv);
-  a.wproj = static_cast<const bf16*>(wproj);
-  a.bproj = static_cast<const float*>(bproj);
-  a.wfc1 = static_cast<const bf16*>(wfc1);
-  a.bfc1 = static_cast<const float*>(bfc1);
-  a.wfc2 = static_cast<const bf16*>(wfc2);
-  a.bfc2 = static_cast<const float*>(bfc2);
-  a.rpb = static_cast<const float*>(rpb);
-  a.mask = static_cast<const float*>(mask);
+  a.table = static_cast<const float*>(table);
+  a.codes = static_cast<const int*>(codes);
   a.scales = static_cast<const float*>(scales);
-  // bf16 workspace segments, [tokens][cols] each, in the order of
-  // kernels/fused_block.py K5_BF16_COLS; fp32: x1, h1
-  bf16* p16 = static_cast<bf16*>(ws16);
-  bf16** segs16[] = {&a.g_yc, &a.g_qkv, &a.g_o, &a.g_y2c, &a.g_act,
-                     &a.g_dmlp, &a.g_dh1, &a.g_dattn, &a.g_dqkv};
-  const int cols16[] = {CP, QKVP, CP, CP, HIDP, CP, HIDP, CP, QKVP};
-  for (int i = 0; i < 9; ++i) {
-    *segs16[i] = p16;
-    p16 += tokens * cols16[i];
+  const int kc = (cp + 63) / 64, nhalf = cp / 96, q3 = 3 * hdp;
+  const int qt = (a.nh * q3 + 63) / 64;
+  const int tiles_of[N_OPS] = {kc, kc, kc, a.chunks, qt, kc, a.chunks, kc};
+  bf16* p = static_cast<bf16*>(ws);
+  for (int o = 0; o < N_OPS; ++o) {
+    a.op[o] = p;
+    a.op_tiles[o] = tiles_of[o];
+    p += windows * tiles_of[o] * TILE_ELEMS;
   }
-  a.g_x1 = static_cast<float*>(ws32);
-  a.g_h1 = a.g_x1 + tokens * CP;
-  a.part = static_cast<float*>(part_win);
-  a.vec_len = VEC_LEN + nh * nt * nt;
-  a.batch = batch;
-  a.h = h;
-  a.w = w;
-  a.c = c;
-  a.nh = nh;
-  a.shift = shift;
-  a.gelu_tanh = gelu_tanh;
-  a.eps = eps;
-  const int status = ws == 8 ? launch_bwd_window<8>(a, windows, st)
-                             : launch_bwd_window<7>(a, windows, st);
+  a.x1ws = static_cast<float*>(x1ws);
+  a.pvec = static_cast<float*>(pvec);
+  a.prpb = static_cast<float*>(prpb);
+  a.vl = 4 * cp;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int status = wsz == 7 ? launch_window_ws<7>(a, cp, hdp, grid, s)
+                        : launch_window_ws<8>(a, cp, hdp, grid, s);
   if (status != 0) return status;
 
-  const bf16* gs[] = {a.g_dqkv, a.g_dattn, a.g_dh1, a.g_dmlp};
-  const bf16* acts[] = {a.g_yc, a.g_o, a.g_y2c, a.g_act};
-  const int ms[] = {QKVP, CP, HIDP, CP};
-  const int ns[] = {CP, CP, CP, HIDP};
-  const int wstatus = weight_grads(gs, acts, ms, ns, 4, tokens, splits, rows,
-                                   static_cast<float*>(part_w), static_cast<float*>(wgrad), st);
-  if (wstatus != 0) return wstatus;
-  return reduce_rows(static_cast<const float*>(part_win), windows, a.vec_len,
-                     static_cast<float*>(vec), st);
+  WArgs w;
+  // (dY, X, kind): qkv (dqkv, yc), proj (dattn, o), fc1 (dh1, y2c), fc2 (dmlp, act);
+  // their biases in pack_block_tiles' bias layout: bqkv | bproj | bfc1 | bfc2
+  const int nq = a.nh * q3, hid = a.chunks * HC;
+  const int bias_offs[4] = {0, nq, nq + cp, nq + cp + hid};
+  const int bias_rows[4] = {nq, cp, hid, cp};
+  const long long bias_len = nq + 2LL * cp + hid;
+  const int dys[4] = {OP_DQKV, OP_DATTN, OP_DH1, OP_DMLP};
+  const int xs[4] = {OP_YC, OP_O, OP_Y2C, OP_ACT};
+  int units = 0;
+  for (int i = 0; i < 4; ++i) {
+    WGemm& g = w.g[i];
+    g.dy = a.op[dys[i]];
+    g.x = a.op[xs[i]];
+    g.dy_tiles = a.op_tiles[dys[i]];
+    g.x_tiles = a.op_tiles[xs[i]];
+    g.n_groups = (g.x_tiles + 2) / 3;
+    g.kind = i;
+    g.bias_off = bias_offs[i];
+    g.bias_rows = bias_rows[i];
+    w.unit0[i] = units;
+    units += g.dy_tiles * g.n_groups;
+  }
+  w.unit0[4] = units;
+  w.windows = static_cast<int>(windows);
+  w.splits = splits;
+  w.nh = a.nh;
+  w.hdp = hdp;
+  w.kc = kc;
+  w.nhalf = nhalf;
+  w.stream_len = static_cast<long long>(a.nh) * kc * q3 * 64 + nhalf * kc * 96 * 64 +
+                 static_cast<long long>(a.chunks) * (kc * 4096 + nhalf * 96 * 64);
+  w.row_len = w.stream_len + bias_len;
+  w.part = static_cast<float*>(pw);
+  static const cudaError_t wattr = cudaFuncSetAttribute(
+      wgrad_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+  if (wattr != cudaSuccess) return static_cast<int>(wattr);
+  wgrad_wg_kernel<<<units * splits, WG_THREADS, WG_SMEM, s>>>(w);
+  status = static_cast<int>(cudaGetLastError());
+  if (status != 0) return status;
+
+  // the weight stream's and the biases' gradients are contiguous in
+  // [wgrad | vec]; the LN sums follow the biases in vec
+  const RSeg segs[3] = {
+      {static_cast<const float*>(pw), splits, w.row_len, static_cast<float*>(wgrad)},
+      {static_cast<const float*>(pvec), static_cast<long long>(grid) * NCONS * 4, a.vl,
+       static_cast<float*>(vec) + bias_len},
+      {static_cast<const float*>(prpb), static_cast<long long>(grid) * NCONS,
+       static_cast<long long>(a.nh) * 4096, static_cast<float*>(rpb)}};
+  long long cols = 0;
+  for (const RSeg& sg : segs) cols = sg.cols > cols ? sg.cols : cols;
+  reduce_ordered_kernel<<<dim3(static_cast<unsigned>((cols + 31) / 32), 3), 32 * RED_SLICES, 0,
+                          s>>>(
+      segs[0], segs[1], segs[2]);
+  return static_cast<int>(cudaGetLastError());
 }

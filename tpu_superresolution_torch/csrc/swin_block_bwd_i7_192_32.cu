@@ -1,0 +1,5 @@
+// K5a (csrc/swin_block_bwd.cu) at ws 7, padded width 192, padded head dim 32.
+#include "swin_block_bwd.cuh"
+
+template int swin_bwd::launch_window<7, 192, 32>(const swin_bwd::Args&, int,
+                                                   cudaStream_t);

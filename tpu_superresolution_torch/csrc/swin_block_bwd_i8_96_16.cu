@@ -1,0 +1,5 @@
+// K5a (csrc/swin_block_bwd.cu) at ws 8, padded width 96, padded head dim 16.
+#include "swin_block_bwd.cuh"
+
+template int swin_bwd::launch_window<8, 96, 16>(const swin_bwd::Args&, int,
+                                                   cudaStream_t);

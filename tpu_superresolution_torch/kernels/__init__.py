@@ -23,13 +23,13 @@ HAT-SRx4 training (H16T: window 16, C 180, hidden 360).
 K1   fused_block.py:958 . fused_swin_block (_mega_forward)         S,T,H    CUDA csrc/swin_block.cu (ws 8, extra; wgmma, fused_block.block_plan), fused_block.fused_windows_block
      (the same function at any other window or width)             H16,W,   K2 + K7 + K1's tail, CUDA csrc/swin_tail.cu, fused_block.fused_block_tail (K1t)
                                                                   H16T
-K5   fused_block.py:1080 . _mega_backward                          T,HT     CUDA csrc/swin_block_bwd.cu (ws 8, extra), fused_block.SwinBlockFunction
+K5   fused_block.py:1080 . _mega_backward                          T,HT     CUDA csrc/swin_block_bwd.cu (ws 8, extra; wgmma on the forward's tiles, fused_block.bwd_plan), fused_block.SwinBlockFunction
      (at ws 16, the K7 route's block, counted as K5w16)            H16T     CUDA csrc/swin_block_bwd16.cu, fused_block.WindowBlockFunction
 K2   layernorm.py:54 . pallas_layernorm (layernorm_spatial)        all      CUDA csrc/layernorm.cu, layernorm.layernorm
 K3   cab_conv.py:307 . conv3x3_halo                                all      CUDA csrc/conv.cu, cab_conv.conv3x3
 K4   cab_conv.py:418 . conv_halo                                   all      CUDA csrc/conv.cu, cab_conv.conv_k
 K6   fused_block.py:1427 . fused_packed_windows_block (forward)    H,HT     CUDA csrc/swin_block.cu (ws 7, extra), fused_block.fused_windows_block
-K6b  fused_block.py:1604 . _packed_backward                        HT       CUDA csrc/swin_block_bwd.cu (ws 7, extra), fused_block.SwinBlockFunction
+K6b  fused_block.py:1604 . _packed_backward                        HT       CUDA csrc/swin_block_bwd.cu (ws 7, extra; K5's ws-7 instantiation), fused_block.SwinBlockFunction
 K13  fused_block.py:1532 . fused_spatial_windows_block             H        the K6 instantiation (it reads windows from the spatial map)
 K8   fused_ocab.py:311 . fused_ocab_core (_fwd_kernel)             HT       CUDA csrc/ocab.cu, fused_ocab.fused_ocab_core
      (at (ws, ows) (16, 24), counted as K8w16)                     H16T     CUDA csrc/ocab16.cu

@@ -46,7 +46,7 @@ _SIGNATURES = {
     "sr_layernorm_bf16": [_P, _P, _P, _P, ctypes.c_longlong, _I, ctypes.c_float, _P],
     "sr_conv_bf16": [_P, _P, _P, _P] + [_I] * 14 + [_P, _P],
     "sr_swin_block_bf16": [_P] * 15 + [_I] * 13 + [ctypes.c_float, _P],
-    "sr_swin_block_bwd_bf16": [_P] * 26 + [_I] * 8 + [ctypes.c_float, _I, _I, _P],
+    "sr_swin_block_bwd_bf16": [_P] * 25 + [ctypes.POINTER(_I), ctypes.c_float, _P],
     "sr_ocab_fwd_bf16": [_P] * 14 + [_I] * 6 + [ctypes.c_float, _P],
     "sr_ocab_bwd_bf16": [_P] * 24 + [_I] * 6 + [ctypes.c_float, _I, _I, _P],
     "sr_dat_rect_bf16": [_P] * 11 + [_I] * 9 + [ctypes.c_float, _P],

@@ -1,7 +1,7 @@
 """The whole Swin transformer block forward (CUDA,
 ``csrc/swin_block.cu``) for window size 8 (K1) and 7 (K6), and its
 backward (CUDA, ``csrc/swin_block_bwd.cu``) for window size 8 (K5) and
-7 (K6's backward), both with HAT's additive term `extra`.
+7 (K6b), both with HAT's additive term `extra`.
 
 The forward kernel computes, per window, with the cyclic shift in its
 address arithmetic:
@@ -40,8 +40,9 @@ and fc2).  Its launch plan comes from static shapes alone
 in the consumers' order, the biases, and the [nH, (2ws-1)^2] bias table
 that it reads through the token codes of ``ops.window.window_token_codes``
 (the bias and the shift mask, bit for bit, without the dense [nH, N, N]
-and [nW, N, N] reads).  ``pack_block_weights`` (the [out, in] layout
-padded to 192 / 32 / 384 with the gathered bias) stays the backwards'.
+and [nW, N, N] reads).  The backward reads the same stream (see below);
+``pack_block_weights`` (the [out, in] layout padded to 192 / 32 / 384
+with the gathered bias) is K5w16's alone.
 
 Which blocks take the kernel is decided by ``block_route`` from static
 shapes alone, the same on every call and device: ws 7 or 8 within those
@@ -63,15 +64,22 @@ memory at width 192 (``csrc/swin_block.cu``), so a 256-token window
 takes three kernels.  A single fused ws-16 block is queued in ROADMAP.
 
 The backward ports ``_bwd_kernel`` as ``_mega_backward`` (K5) and
-``_packed_backward`` (K6) call it: recompute the forward, chain the
+``_packed_backward`` (K6b) call it: recompute the forward, chain the
 cotangent, and return dx, the 13 parameter gradients and, when the
 forward had `extra`, its gradient (dx1, the cotangent of the attention
-residual).  Training on CUDA goes through ``SwinBlockFunction``: its
-forward is K1 / K6 and its backward K5 / K6's backward, with the
-gradients mapped from the kernels' packed layout back to the raw
-``[out, in]`` parameters here (the counterpart of
-``fused_block.py:1098-1105``).  Its ws-7 backward launches count as
-K6b.  A K7-route block at ws 16 within the block kernel's widths
+residual).  On Hopper it is three launches on ``bwd_plan``'s plan: a
+persistent wgmma kernel over window pairs that streams the forward's
+own ``pack_block_tiles`` tiles (read K-major for Y W^T, MN-major for
+dY W), takes the bias from the table and the token codes, and writes
+the dW operand pairs to a workspace of [64, 64] swizzled tiles; a wgmma
+GEMM over tokens for dW = dY^T X, split over the windows, in the weight
+stream's layout; the ordered sums of the partials.  The gradients come
+back in the forward's tile space and ``fold_block_grads`` (the
+transpose of ``_tile_indices``' gather) maps them to the raw ``[out,
+in]`` parameters (the counterpart of ``fused_block.py:1098-1105``).
+Training on CUDA goes through ``SwinBlockFunction``: its forward is K1 /
+K6 and its backward K5 / K6b, both on one ``pack_block_tiles`` pack a
+step.  Its ws-7 backward launches count as K6b.  A K7-route block at ws 16 within the block kernel's widths
 (``k5w16_ok``: upstream HAT-SRx4's HABs) trains through
 ``WindowBlockFunction``: forward the route's K2, gathers, K7 and K1t,
 backward K5 at ws 16 (``csrc/swin_block_bwd16.cu``, counted as K5w16,
@@ -83,8 +91,10 @@ or ``_packed_backward`` (ws 6, 12, ...): ROADMAP Queue 2.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
+import math
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
@@ -833,9 +843,9 @@ def _check_packed(packed: PackedSwinBlock, x: torch.Tensor, mask, scales, name: 
     dev = x.device
     ws = packed.window_size
     n = ws * ws
-    # the backwards' WMMA reads the bf16 weight tiles straight from global
-    # memory (32-byte aligned rows); biases are read as float4, LayerNorm params as
-    # scalars, rpb and mask as float4 rows at ws = 8 and as scalars at 7.
+    # K5w16's WMMA reads the bf16 weight tiles straight from global memory
+    # (32-byte aligned rows); biases are read as float4, LayerNorm params as
+    # scalars, rpb and mask as float4 rows.
     bf, f32 = torch.bfloat16, torch.float32
     table_align = 16 if n % 8 == 0 else 4
     for tname, t, shape, dtype, align in (
@@ -937,13 +947,9 @@ _VEC_OFFSETS = {"g1": 0, "b1": CP, "g2": 2 * CP, "b2": 3 * CP, "bqkv": 4 * CP,
                 "bproj": 7 * CP, "bfc1": 8 * CP, "bfc2": 8 * CP + HIDP}
 _VEC_SIZES = {"bqkv": 3 * CP, "bfc1": HIDP}
 K5_VEC = 9 * CP + HIDP
-# Weight-gradient GEMMs of K5b, [out, in] each, concatenated in this order.
+# Weight-gradient GEMMs of K5w16, [out, in] each, concatenated in this order.
 _WGRAD_SHAPES = (("wqkv", 3 * CP, CP), ("wproj", CP, CP), ("wfc1", HIDP, CP), ("wfc2", CP, HIDP))
 K5_WGRAD = sum(m * n for _, m, n in _WGRAD_SHAPES)
-# bf16 operand columns per token row in K5's workspace: yc, qkv, o, y2c,
-# act, dmlp, dh1, dattn, dqkv; then fp32 x1 (CP) and h1 (HIDP).
-K5_BF16_COLS = CP + 3 * CP + CP + CP + HIDP + CP + HIDP + CP + 3 * CP
-K5_F32_COLS = CP + HIDP
 
 
 def k5_splits(tokens: int) -> Tuple[int, int]:
@@ -970,56 +976,206 @@ def split_wgrad(wgrad: torch.Tensor, shapes) -> dict:
     return out
 
 
-def _launch_bwd(ct, x, packed: PackedSwinBlock, shift, mask, gelu_approx, scales, extra=None):
-    """Run the block backward for packed.window_size (ws 8: K5, ws 7:
-    K6's backward): the per-window kernel, the weight-gradient GEMMs and
-    the ordered reductions.  Returns (dx, packed-space fp32 gradients,
-    d extra or None) and counts the launch on that window's counter."""
-    _check_packed(packed, x, mask, scales, "fused_swin_block_backward", extra)
-    _lib.check_tensor(ct, "ct", torch.bfloat16, x.device, shape=tuple(x.shape), align=2)
-    b, h, wd, c = x.shape
-    nh, ws = packed.num_heads, packed.window_size
+# csrc/swin_block_bwd.cu (K5 / K6b): the per-window kernel's (K5a) consumer
+# warpgroups, ring stage, workspace tiles, and the weight-gradient GEMM's
+# (K5b) CTAs of 64 x <= 192 output tiles, two an SM
+BWD_STAGE_BYTES = 12288
+BWD_MAX_STAGES = 8
+BWD_STAT_BYTES = 1024
+BWD_TILE = 64 * 64    # a workspace tile: [64 tokens, 64] bf16, 128B-swizzled
+BWD_WG_NTILES = 3     # X tiles a K5b unit
+BWD_WG_PER_SM = 2     # K5b CTAs an SM
+# the dW operands of the workspace, in the kernel's order (X, then dY)
+BWD_OPERANDS = ("yc", "o", "y2c", "act", "dqkv", "dattn", "dh1", "dmlp")
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """How csrc/swin_block_bwd.cu runs a block's widths: the forward's
+    instantiation (`cp`, `hdp`, `kc`, `halves`, `chunks` as
+    ``block_plan``), K5a's ring `stages` and shared memory `smem` a CTA
+    (two windows: the A buffer, the R buffer, the head's q, k, v tiles
+    and the softmax statistics each; the bias table, the barriers),
+    `op_tiles` the [64, 64] workspace tiles a window of each of
+    ``BWD_OPERANDS``, `vec_len` the bias and LayerNorm sums' vector
+    (bqkv heads 3 hdp | bproj cp | bfc1 chunks 64 | bfc2 cp | g1 | b1 |
+    g2 | b2, cp each), `bias_len` its bias part (``pack_block_tiles``'
+    bias layout), `stream_len` the weight stream's elements (the weight
+    gradients' layout) and `units` K5b's output tiles."""
+
+    cp: int
+    hdp: int
+    kc: int
+    halves: int
+    chunks: int
+    stages: int
+    smem: int
+    op_tiles: Tuple[int, ...]
+    vec_len: int
+    bias_len: int
+    stream_len: int
+    units: int
+
+    @property
+    def window_bytes(self) -> int:
+        """Workspace bytes a window (64 token rows of every operand)."""
+        return sum(self.op_tiles) * BWD_TILE * 2
+
+
+@functools.lru_cache(maxsize=64)
+def bwd_plan(c: int, heads: int, hidden: int) -> BwdPlan:
+    """The backward kernels' plan from static shapes alone (the C entry
+    only checks it): the forward's padded widths (``block_plan``), then
+    two windows' buffers (A and R buffers of cp columns in 64-column
+    swizzled chunks, q, k, v tiles [64, hdp], 1 KB of statistics), the
+    bias table and the barriers, and as many 12 KB ring stages as fit,
+    at most 8.  Raises ValueError outside C <= 192, <= 6 heads of hd <=
+    32, hidden <= 384."""
+    fp = block_plan(c, heads, hidden)
+    cp, hdp, kc, halves, chunks = fp.cp, fp.hdp, fp.kc, fp.halves, fp.chunks
+    window = 2 * kc * 8192 + 3 * 64 * 2 * hdp + BWD_STAT_BYTES
+    fixed = 1024 + 2 * window + BLOCK_TABLE_BYTES + 2 * BWD_MAX_STAGES * 8
+    stages = min(BWD_MAX_STAGES, (BLOCK_SMEM - fixed) // BWD_STAGE_BYTES)
+    q3 = 3 * hdp
+    qt = -(-heads * q3 // 64)
+    op_tiles = (kc, kc, kc, chunks, qt, kc, chunks, kc)
+    bias_len = heads * q3 + 2 * cp + chunks * BLOCK_HC
+    stream_len = (heads * kc * q3 * 64 + halves * kc * 96 * 64
+                  + chunks * (kc * 64 * 64 + halves * 96 * 64))
+    groups = lambda n: -(-n // BWD_WG_NTILES)
+    units = qt * groups(kc) + kc * groups(kc) + chunks * groups(kc) + kc * groups(chunks)
+    return BwdPlan(cp=cp, hdp=hdp, kc=kc, halves=halves, chunks=chunks, stages=stages,
+                   smem=fixed + stages * BWD_STAGE_BYTES, op_tiles=op_tiles,
+                   vec_len=bias_len + 4 * cp, bias_len=bias_len, stream_len=stream_len,
+                   units=units)
+
+
+def bwd_grid(plan: BwdPlan, windows: int, sms: int) -> Tuple[int, int]:
+    """(K5a's CTAs, K5b's splits over the windows) for `windows` windows
+    on `sms` SMs: one CTA an SM at most, one window pair each at least;
+    about two K5b CTAs an SM."""
+    pairs = -(-windows // 2)
+    splits = max(1, min(windows, round(BWD_WG_PER_SM * sms / plan.units)))
+    return max(1, min(pairs, sms)), splits
+
+
+def bwd_bytes(plan: BwdPlan, windows: int, heads: int, grid: int, splits: int) -> dict:
+    """Bytes of each buffer the backward allocates (the workspace, x1's
+    scratch, the partials) at `windows` windows."""
+    return {"workspace": windows * plan.window_bytes,
+            "x1 scratch": grid * 2 * 64 * plan.cp * 4,
+            "LN sums partials": grid * 2 * 4 * 4 * plan.cp * 4,
+            "rpb partials": grid * 2 * heads * 64 * 64 * 4,
+            "weight partials": splits * (plan.stream_len + plan.bias_len) * 4}
+
+
+# the raw gradients ``fold_block_grads`` returns, in the order of its flat vector
+FOLD_FIELDS = ("wqkv", "wproj", "wfc1", "wfc2", "bqkv", "bproj", "bfc1", "bfc2",
+               "g1", "b1", "g2", "b2")
+
+
+@functools.lru_cache(maxsize=64)
+def _fold_indices(c: int, heads: int, hidden: int, device: torch.device):
+    """For each raw weight, bias and LN entry (FOLD_FIELDS' order, flat),
+    its position in the backward's [weight stream | sums' vector]
+    gradient (each real entry sits there exactly once: ``_tile_indices``
+    gathers the other way), and the factor it takes (q's pre-scale)."""
+    plan = bwd_plan(c, heads, hidden)
+    tile_idx, bias_idx, q_scale = _tile_indices(c, heads, hidden, torch.device("cpu"))
+    pos = []
+    for idx, n_src, base in ((tile_idx, 4 * c * c + 2 * hidden * c, 0),
+                             (bias_idx, 5 * c + hidden, plan.stream_len)):
+        real = idx < n_src
+        p = torch.empty(n_src, dtype=torch.long)
+        p[idx[real]] = torch.arange(idx.numel())[real] + base
+        pos.append(p)
+    ln = plan.stream_len + plan.bias_len + (
+        torch.arange(4)[:, None] * plan.cp + torch.arange(c)[None, :]).reshape(-1)
+    factor = torch.ones(4 * c * c + 2 * hidden * c + 5 * c + hidden + 4 * c)
+    factor[:3 * c * c] = q_scale.expand(3 * c, c).reshape(-1)
+    bq = 4 * c * c + 2 * hidden * c
+    factor[bq:bq + 3 * c] = q_scale[:, 0]
+    return torch.cat(pos + [ln]).to(device), factor.to(device)
+
+
+def fold_block_grads(gv: torch.Tensor, rpb: torch.Tensor, c: int, heads: int, hidden: int,
+                     ws: int) -> dict:
+    """The backward's gradients in the forward's tile space -> raw
+    [out, in] parameter gradients.  `gv` is [the weight stream's
+    gradient | the sums' vector] (``bwd_plan``'s stream_len + vec_len):
+    each raw weight's gradient is its entry of the stream's gradient (the
+    transpose of ``_tile_indices``' gather, pad entries dropped), the q
+    rows times the pre-scale; the biases likewise from the vector's bias
+    part, the LN params from its tail; one gather and one multiply.
+    d(rpb) [heads, N, N] from the [heads, 64, 64] token-padded one."""
+    idx, factor = _fold_indices(c, heads, hidden, gv.device)
+    flat = gv[idx].mul_(factor)
+    shapes = dict(wqkv=(3 * c, c), wproj=(c, c), wfc1=(hidden, c), wfc2=(c, hidden),
+                  bqkv=(3 * c,), bproj=(c,), bfc1=(hidden,), bfc2=(c,), g1=(c,), b1=(c,),
+                  g2=(c,), b2=(c,))
+    out, off = {}, 0
+    for k in FOLD_FIELDS:
+        n = math.prod(shapes[k])
+        out[k] = flat[off:off + n].reshape(shapes[k])
+        off += n
     n = ws * ws
+    out["rpb"] = rpb.reshape(heads, 64, 64)[:, :n, :n]
+    return out
+
+
+def _launch_bwd(ct, x, packed: PackedBlockTiles, shift, mask, gelu_approx, scales, extra=None):
+    """Run the block backward for packed.window_size (ws 8: K5, ws 7:
+    K6b) on the forward's weight stream: K5a (the per-window kernel),
+    K5b (the weight-gradient GEMM) and K5c (the ordered sums) on
+    ``bwd_plan``'s plan.  Returns (dx, raw-space fp32 gradients, d extra
+    or None) and counts the launch on that window's counter.  `mask`
+    (``shift_attn_mask``'s) says only whether the windows are masked:
+    the bias and the mask come from the table and the map's codes."""
+    name = "fused_swin_block_backward"
+    _check_tiles(packed, x, scales, name, extra)
+    _lib.check_tensor(ct, "ct", torch.bfloat16, x.device, shape=tuple(x.shape),
+                      align=4 if x.shape[3] % 2 == 0 else 2)
+    b, h, wd, c = x.shape
+    nh, ws, hidden = packed.num_heads, packed.window_size, packed.hidden
+    plan = bwd_plan(c, nh, hidden)
     windows = b * (h // ws) * (wd // ws)
-    tokens = windows * N_TOK  # workspace rows
-    splits, rows = k5_splits(tokens)
     dev = x.device
+    grid, splits = bwd_grid(plan, windows, _lib.sm_count(dev.index))
+    shifted = mask is not None and shift > 0
+    codes = window_codes_tensor(h, wd, ws, shift if shifted else 0, dev)
     dx = torch.empty_like(x)
     dextra = None if extra is None else torch.empty_like(x)
-    ws16 = torch.empty(tokens * K5_BF16_COLS, dtype=torch.bfloat16, device=dev)
-    ws32 = torch.empty(tokens * K5_F32_COLS, dtype=torch.float32, device=dev)
-    vec_len = K5_VEC + nh * n * n
-    part_win = torch.empty(windows * vec_len, dtype=torch.float32, device=dev)
-    part_w = torch.empty(splits * K5_WGRAD, dtype=torch.float32, device=dev)
-    vec = torch.empty(vec_len, dtype=torch.float32, device=dev)
-    wgrad = torch.empty(K5_WGRAD, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        status = _lib.library().sr_swin_block_bwd_bf16(
-            ct.data_ptr(), x.data_ptr(), _ptr(extra), dx.data_ptr(), _ptr(dextra),
-            packed.g1.data_ptr(), packed.b1.data_ptr(),
-            packed.g2.data_ptr(), packed.b2.data_ptr(),
-            packed.wqkv.data_ptr(), packed.bqkv.data_ptr(),
-            packed.wproj.data_ptr(), packed.bproj.data_ptr(),
-            packed.wfc1.data_ptr(), packed.bfc1.data_ptr(),
-            packed.wfc2.data_ptr(), packed.bfc2.data_ptr(),
-            packed.rpb.data_ptr(), _ptr(mask), _ptr(scales),
-            ws16.data_ptr(), ws32.data_ptr(), part_win.data_ptr(), part_w.data_ptr(),
-            vec.data_ptr(), wgrad.data_ptr(),
-            b, h, wd, c, nh, ws, shift, int(bool(gelu_approx)), LN_EPS, splits, rows,
-            _lib.stream_of(x),
-        )
+    sizes = bwd_bytes(plan, windows, nh, grid, splits)
+    wsp = torch.empty(sizes["workspace"] // 2, dtype=torch.bfloat16, device=dev)
+    # one fp32 allocation: x1's scratch, the three partials, then the outputs
+    # [the weight stream's gradient | the sums' vector] and d(rpb), 16-byte aligned
+    lens = [sizes[k] // 4 for k in ("x1 scratch", "LN sums partials", "rpb partials",
+                                    "weight partials")]
+    lens += [plan.stream_len + plan.vec_len, nh * 64 * 64]
+    lens = [-(-n // 4) * 4 for n in lens]
+    x1ws, pvec, prpb, pw, gv, rpb = torch.empty(sum(lens), dtype=torch.float32,
+                                                device=dev).split(lens)
+    wgrad, vec = gv[:plan.stream_len], gv[plan.stream_len:]
+    geo = (ctypes.c_int * 15)(b, h, wd, c, nh, hidden, ws, shift, int(shifted), plan.cp,
+                              plan.hdp, plan.stages, int(bool(gelu_approx)), grid, splits)
+    status = _lib.call(
+        x, _lib.library().sr_swin_block_bwd_bf16,
+        ct.data_ptr(), x.data_ptr(), _ptr(extra), dx.data_ptr(), _ptr(dextra),
+        packed.tiles.data_ptr(), packed.bqkv.data_ptr(), packed.bproj.data_ptr(),
+        packed.bfc1.data_ptr(), packed.bfc2.data_ptr(), packed.g1.data_ptr(),
+        packed.b1.data_ptr(), packed.g2.data_ptr(), packed.b2.data_ptr(),
+        packed.table.data_ptr(), codes.data_ptr(), _ptr(scales), wsp.data_ptr(),
+        x1ws.data_ptr(), pvec.data_ptr(), prpb.data_ptr(), pw.data_ptr(), vec.data_ptr(),
+        rpb.data_ptr(), wgrad.data_ptr(), geo, LN_EPS, _lib.stream_of(x))
     _lib.check_status(status, "sr_swin_block_bwd_bf16")
     BACKWARD_COUNTERS[ws].count += 1
-    g = split_wgrad(wgrad, _WGRAD_SHAPES)
-    g.update(split_vec(vec, _VEC_OFFSETS, _VEC_SIZES))
-    g["rpb"] = vec[K5_VEC:].reshape(nh, n, n)
-    return dx, g, dextra
+    return dx, fold_block_grads(gv, rpb, c, nh, hidden, ws), dextra
 
 
 def unpack_block_grads(g: dict, packed: PackedSwinBlock, scale: float) -> dict:
-    """Packed-layout gradients -> raw [out, in] parameter gradients:
-    drop the head-dim and channel padding and carry the q pre-scale
-    (``fused_block.py:1098-1105``)."""
+    """Packed-layout gradients of K5w16 -> raw [out, in] parameter
+    gradients: drop the head-dim and channel padding and carry the q
+    pre-scale (``fused_block.py:1098-1105``)."""
     c, nh, hidden = packed.dim, packed.num_heads, packed.hidden
     hd = c // nh
     # (g is this launch's fresh output: scaling it in place is safe)
@@ -1047,13 +1203,14 @@ def unpack_proj_grad(g: torch.Tensor, c: int, nh: int) -> torch.Tensor:
 def fused_swin_block_backward(ct: torch.Tensor, x: torch.Tensor, w: SwinBlockWeights, ws: int,
                               shift: int, mask: Optional[torch.Tensor], gelu_approx: bool,
                               branch_scales: Optional[torch.Tensor] = None,
-                              packed: Optional[PackedSwinBlock] = None,
+                              packed=None,
                               extra: Optional[torch.Tensor] = None) -> SwinBlockGrads:
     """The backward of one Swin block for the cotangent `ct` (K5 at ws 8,
-    K6's backward at ws 7, K5w16 at ws 16; d`extra` when the forward had
-    `extra`).  CPU tensors -> plain version; CUDA tensors -> the kernel
-    (bf16 ct, x and extra, fp32 branch scales), gradients in raw weight
-    space."""
+    K6b at ws 7, K5w16 at ws 16; d`extra` when the forward had `extra`).
+    CPU tensors -> plain version; CUDA tensors -> the kernel (bf16 ct, x
+    and extra, fp32 branch scales), gradients in raw weight space.
+    `packed`: the forward's ``pack_block_tiles(w)`` at ws 7 / 8,
+    ``pack_block_weights(w)`` at ws 16 (built here when None)."""
     if x.device.type == "cpu":
         return swin_block_bwd_plain(ct, x, w, ws, shift, mask, gelu_approx, branch_scales, extra)
     name = "fused_swin_block_backward"
@@ -1065,14 +1222,18 @@ def fused_swin_block_backward(ct: torch.Tensor, x: torch.Tensor, w: SwinBlockWei
         _check_block_input(x, w, ws, shift, name)
     if branch_scales is not None:
         branch_scales = branch_scales.float().contiguous()
-    if packed is None:
-        packed = pack_block_weights(w)
     if extra is not None:
         extra = extra.contiguous()
-    launch = _launch_bwd16 if ws == BWD16_WINDOW else _launch_bwd
-    dx, g, dextra = launch(ct.contiguous(), x, packed, shift, mask, gelu_approx, branch_scales,
-                           extra)
-    return SwinBlockGrads(dx=dx, extra=dextra, **unpack_block_grads(g, packed, w.scale))
+    if ws == BWD16_WINDOW:
+        packed = packed if packed is not None else pack_block_weights(w)
+        dx, g, dextra = _launch_bwd16(ct.contiguous(), x, packed, shift, mask, gelu_approx,
+                                      branch_scales, extra)
+        g = unpack_block_grads(g, packed, w.scale)
+    else:
+        packed = packed if packed is not None else pack_block_tiles(w)
+        dx, g, dextra = _launch_bwd(ct.contiguous(), x, packed, shift, mask, gelu_approx,
+                                    branch_scales, extra)
+    return SwinBlockGrads(dx=dx, extra=dextra, **g)
 
 
 def check_k5w16_args(shape: Sequence[int], w: SwinBlockWeights, shift: int, name: str) -> None:
@@ -1147,30 +1308,27 @@ def _launch_bwd16(ct, x, packed: PackedSwinBlock, shift, mask, gelu_approx, scal
 
 class SwinBlockFunction(torch.autograd.Function):
     """One Swin block on CUDA whose forward is K1 / K6 and whose backward
-    is K5 / K6's backward.  Inputs: x, the branch scales (or None),
-    `extra` (or None), then the 13 tensors of GRAD_FIELDS (raw weights
-    and the gathered bias); the weights are packed for the kernels on
-    every call (``pack_block_tiles`` for the forward,
-    ``pack_block_weights`` for the backward)."""
+    is K5 / K6b.  Inputs: x, the branch scales (or None), `extra` (or
+    None), then the 13 tensors of GRAD_FIELDS (raw weights and the
+    gathered bias, whose gradient the gather's autograd scatters to the
+    table); the weights are packed once a call (``pack_block_tiles``),
+    and the backward reads the forward's pack."""
 
     @staticmethod
     def forward(ctx, x, scales, extra, meta, *params):
         shift, mask, gelu_approx, num_heads, table = meta
-        raw = dict(zip(GRAD_FIELDS, params))
-        rpb = raw.pop("rpb")
-        w = SwinBlockWeights(table=table, num_heads=num_heads, **raw)
-        packed = pack_block_weights(w, rpb=rpb)
+        raw = dict(zip(GRAD_FIELDS[:-1], params))
+        packed = pack_block_tiles(SwinBlockWeights(table=table, num_heads=num_heads, **raw))
         ctx.save_for_backward(x, scales, extra)
-        ctx.block = (w.scale, packed, shift, mask, gelu_approx)
-        return _launch_block(x, pack_block_tiles(w), shift, mask, gelu_approx, scales, extra)
+        ctx.block = (packed, shift, mask, gelu_approx)
+        return _launch_block(x, packed, shift, mask, gelu_approx, scales, extra)
 
     @staticmethod
     def backward(ctx, ct):
         x, scales, extra = ctx.saved_tensors
-        scale, packed, shift, mask, gelu_approx = ctx.block
-        dx, g, dextra = _launch_bwd(ct.to(x.dtype).contiguous(), x, packed, shift, mask,
-                                    gelu_approx, scales, extra)
-        raw = unpack_block_grads(g, packed, scale)
+        packed, shift, mask, gelu_approx = ctx.block
+        dx, raw, dextra = _launch_bwd(ct.to(x.dtype).contiguous(), x, packed, shift, mask,
+                                      gelu_approx, scales, extra)
         return (dx, None, dextra, None) + tuple(raw[k] for k in GRAD_FIELDS)
 
 
