@@ -77,11 +77,15 @@ Phases (a failure in any raises, and the script exits non-zero):
             the shape is checked and timed, and a route check line says
             whether k15_route's kernel was the fastest; then the ws-16 training
             kernels at the HAT-SRx4 train step's shapes: K5w16 (the K7
-            route's block backward) at [8,64,64,180] shift 8 with `extra`
-            and branch scales, K8w16 and K8bw16 (the OCAB core and its
-            backward) on 128 windows of 256 queries x 576 keys, each
-            within 8 bf16 ulps (outputs, activation gradients) and 0.02
-            relative (parameter gradients);
+            route's block backward, on the forward's pack_block_tiles
+            stream) at [8,64,64,180] shift 8 (masked) and shift 0 with
+            `extra` and branch scales, timed alone and 20 calls back to
+            back, its bytes moved by design, each of its seven launches
+            timed (torch.profiler), two runs bit-identical; K8w16 and
+            K8bw16 (the OCAB core and its backward) on 128 windows of
+            256 queries x 576 keys, each within 8 bf16 ulps (outputs,
+            activation gradients) and 0.02 relative (parameter
+            gradients);
 4. serve    SwinIR-M x4 (seeded random weights, exported to a .pth) behind
             SRService + make_server on 127.0.0.1, three PNG requests;
             status, size, finite output, launch counts per model call,
@@ -150,7 +154,7 @@ Phases (a failure in any raises, and the script exits non-zero):
             ``cli.train.main(--model hat --window_size 16 --embed_dim 180
             --t_depths 6x6 --t_heads 6x6 --mlp_ratio 2 --device cuda)`` for
             one epoch of 2 steps + validation; launches per step (K5w16
-            36, K8w16 6, K8bw16 6, K15 0), ms per step for the kernels and
+            36, K7 36, K2 44, K8w16 6, K8bw16 6, K15 0), ms per step for the kernels and
             the plain bf16 path, peak memory, the step's autograd graph
             (no block or OCAB backward left to autograd of plain ops), a
             profiled step split by part, and the first step's gradients
@@ -173,7 +177,13 @@ Phases (a failure in any raises, and the script exits non-zero):
             path, a profiled step split by part, and the first step's
             loss, gradients and BatchNorm statistics against the plain
             fp32 path (with DAT's exception for gradients below bf16's
-            resolution, BF16_FLOOR).
+            resolution, BF16_FLOOR);
+13. k16-stream the stream kernel's masked split-P path (every masked K16
+            at hd 33-64): one shifted DAT spatial block at hd 30 with
+            K16 forced to the stream kernel beside the tiled kernel,
+            output and every gradient against the plain fp32 path; then
+            DAT's first-step gate at C 180 in 4 heads (hd 45), whose
+            masked K16 take the stream kernel.
 
 The second-to-last stdout line is a JSON object describing each kernel
 (launches summed over the serve, SwinIR ws-7, SwinIR-L, wide, hat, dat,
@@ -365,12 +375,12 @@ HAT_FAST_TRAIN_PER_STEP = dict(HAT_TRAIN_PER_STEP, K1=24, K5=24, K6=0, K6b=0)
 DAT_TRAIN_PER_STEP = dict(PER_CALL, K1=0, K2=110, K3=8, K4=1, K11=72, K16=36)
 # HAT-SRx4 training (hat_srx4_config(), batch 8 of 64^2 LR crops), per
 # train step: each HAB's CAB K12, LN1 K2, K7 and K1t forward and K5w16
-# backward, whose LN1 and qkv recompute are one K2 and one K7 launch
-# (36 each: K2 72, K7 72); each OCAB's LN1 K2 (6), K8w16 forward and
-# K8bw16 backward (6 each); K2 for patch_norm and norm; K3 for the 6 RHAG
-# convs, conv_after_body and conv_before_upsample; K4 for the composed
-# reconstruction.  No K15 (the OCABs take the fused route).
-HAT_SRX4_TRAIN_PER_STEP = dict(PER_CALL, K1=0, K1t=36, K2=80, K3=8, K4=1, K5w16=36, K7=72,
+# backward (36 each; K5w16 recomputes LN1 and qkv in its own launches);
+# each OCAB's LN1 K2 (6), K8w16 forward and K8bw16 backward (6 each); K2
+# for patch_norm and norm; K3 for the 6 RHAG convs, conv_after_body and
+# conv_before_upsample; K4 for the composed reconstruction.  No K15 (the
+# OCABs take the fused route).
+HAT_SRX4_TRAIN_PER_STEP = dict(PER_CALL, K1=0, K1t=36, K2=44, K3=8, K4=1, K5w16=36, K7=36,
                                K8w16=6, K8bw16=6, K12=36)
 # The ws-16 training kernels' activation gradients (dx, d extra; dq, dk,
 # dv, d sw) are held to this many bf16 ulps at each one's max |ref|, as
@@ -490,11 +500,12 @@ def phase_build():
             log(f"[build] {line.strip()}")
     # the wgmma kernels by name (csrc/conv.cu: K3/K4's flat and halo routes;
     # csrc/window_attn.cu and window_attn_stream.cu: K7's product and
-    # attention; csrc/cab_fused.cu: K12; csrc/swin_block.cu: K1 / K6), with
+    # attention; csrc/cab_fused.cu: K12; csrc/swin_block.cu: K1 / K6;
+    # csrc/swin_block_bwd*.cu: K5a, K5w16's attention kernels), with
     # their template arguments: registers, shared memory, spills
     kinds = ("conv_nhwc_wgmma_kernel", "conv_nhwc_halo_kernel", "window_product_kernel",
              "window_attn_stream_kernel", "cab_wgmma_kernel", "swin_block_wg_kernel",
-             "datb_tail_wg_kernel", "swin_block_bwd_kernel")
+             "datb_tail_wg_kernel", "swin_block_bwd_kernel", "attn16_kernel")
     name = None
     for line in out.splitlines():
         if "Function properties for" in line:
@@ -1046,24 +1057,93 @@ def phase_train_kernels(res):
     return res
 
 
+def _bwd16_bytes_log(shape, c, nh, hidden):
+    """K5w16's bytes moved per call by its design (csrc/swin_block_bwd16.cu):
+    activations in and out, then each buffer written once and read once
+    (the workspace by K5b, the head tiles and row statistics by the
+    attention kernels, dx1 by the tail, the partials by K5c)."""
+    import torch
+
+    from tpu_superresolution_torch.kernels import _lib
+    from tpu_superresolution_torch.kernels.fused_block import bwd16_bytes, bwd16_plan
+
+    windows = shape[0] * (shape[1] // 16) * (shape[2] // 16)
+    p = bwd16_plan(c, nh, hidden, windows, _lib.sm_count(torch.cuda.current_device()))
+    sizes = bwd16_bytes(p, nh)
+    acts = math.prod(shape) * 2 * 5  # x, ct, extra in; dx, d extra out
+    moved = acts + 2 * sum(sizes.values())
+    log(f"[kernels] K5w16 {list(shape)} bytes moved by the design: " + ", ".join(
+        f"{k} {v / 1e6:.1f} MB" for k, v in sizes.items())
+        + f"; activations {acts / 1e6:.1f} MB; in all {moved / 1e6:.1f} MB "
+        f"({moved / PEAK_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s); K5a grid {p.grid} over "
+        f"{p.units} 64-token units, attention {p.cph} CTAs a head over {p.att_units} (window, "
+        f"head) units in {p.rounds} rounds (the last on {p.tail_ctas} CTAs), shared memory "
+        f"{p.block.smem} / {p.att_fwd_smem} / {p.att_bwd_smem} B, K5b splits {p.splits} x "
+        f"{p.block.units} units")
+
+
+# K5w16's launches by kernel name (csrc/swin_block_bwd16.cu): K5a's ws-16
+# modes, the attention kernels, K5b, K5c
+K5W16_PARTS = (("front (LN1, qkv)", "swin_block_bwd_kernel<16", ", 1>("),
+               ("attention forward", "attn16_kernel", "false>("),
+               ("middle (proj .. do)", "swin_block_bwd_kernel<16", ", 2>("),
+               ("attention backward", "attn16_kernel", "true>("),
+               ("tail (dy, LN1, dx)", "swin_block_bwd_kernel<16", ", 3>("),
+               ("K5b dW", "wgrad_wg_kernel", ""),
+               ("K5c sums", "reduce_ordered_kernel", ""))
+
+
+def _k5w16_split(run, calls=3):
+    """Each of K5w16's launches timed by torch.profiler over `calls`
+    calls: device ms a call by part, and the rest of the call's device
+    time (the wrapper's allocations, the fold)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                run()
+            torch.cuda.synchronize()
+    except Exception as e:  # the split is a reading aid, not a check
+        log(f"[kernels] K5w16 profiler failed: {type(e).__name__}: {e}")
+        return
+    kernels = _device_kernels(prof)
+    us = lambda e: getattr(e, "device_time", 0.0) or getattr(e, "cuda_time", 0.0)
+    parts, seen = [], set()
+    for label, head, tail in K5W16_PARTS:
+        ev = [e for e in kernels if head in e.name and tail in e.name]
+        seen.update(id(e) for e in ev)
+        parts.append(f"{label} {sum(us(e) for e in ev) / calls / 1e3:.4f} ms "
+                     f"x{len(ev) // calls}")
+    rest = sum(us(e) for e in kernels if id(e) not in seen) / calls / 1e3
+    busy = sum(us(e) for e in kernels) / calls / 1e3
+    log(f"[kernels] K5w16 launches by part (profiler, {calls} calls): " + ", ".join(parts)
+        + f"; other device work {rest:.4f} ms; busy {busy:.4f} ms a call")
+
+
 def phase_w16_kernels(res):
     """The ws-16 training kernels at the HAT-SRx4 train step's shapes
     (``hat_srx4_config()``, batch 8 of 64^2 LR crops): K5w16, the K7
-    route's block backward, at [8,64,64,180] shift 8 with the mask,
-    `extra` and branch scales, on dx, d extra and the 13 parameter
-    gradients (its call includes the K2 and K7 launches that recompute
-    LN1 and qkv); K8w16 and K8bw16, the OCAB core and its backward, on
-    the step's 128 windows of 256 queries x 576 keys, C 180, hidden 360.
-    Each against its plain version in bf16 and fp32, within W16_ULPS bf16
-    ulps (outputs, activation gradients) and K5_REL_BOUND (parameter
-    gradients), with times and bounds, into `res`."""
+    route's block backward, at [8,64,64,180] shift 8 (with the mask) and
+    shift 0, `extra` and branch scales, on the forward's weight stream
+    (``pack_block_tiles``), on dx, d extra and the 13 parameter gradients,
+    each run twice for the same bits, timed alone and 20 calls back to
+    back, with its bytes moved by design and each launch's time; K8w16
+    and K8bw16, the OCAB core and its backward, on the step's 128 windows
+    of 256 queries x 576 keys, C 180, hidden 360.  Each against its plain
+    version in bf16 and fp32, within W16_ULPS bf16 ulps (outputs,
+    activation gradients) and K5_REL_BOUND (parameter gradients), with
+    times and bounds, into `res`."""
     import torch
 
     from tpu_superresolution_torch.kernels import fused_ocab
     from tpu_superresolution_torch.kernels.fused_block import (
         GRAD_FIELDS,
         fused_swin_block_backward,
-        pack_block_weights,
+        pack_block_tiles,
         swin_block_bwd_plain,
     )
     from tpu_superresolution_torch.ops.window import shift_mask_tensor
@@ -1072,26 +1152,34 @@ def phase_w16_kernels(res):
     gen = torch.Generator().manual_seed(SEED + 7)
     bf = torch.bfloat16
     scales = torch.tensor([[1.0 / 0.9, 0.0], [1.0 / 0.9, 1.0 / 0.9]] * 4, device=dev)
-    c, nh, hidden, ws, shift = 180, 6, 360, 16, 8
+    c, nh, hidden, ws = 180, 6, 360, 16
     shape = (8, 64, 64, c)
     wb = _random_block(gen, dev, c, nh, hidden, ws)
-    pk = pack_block_weights(wb)
+    pk = pack_block_tiles(wb)  # the stream WindowBlockFunction packs once a step
     x = torch.randn(*shape, generator=gen).to(dev, bf)
     ct = (0.1 * torch.randn(*shape, generator=gen)).to(dev, bf)
     ex = (0.05 * torch.randn(*shape, generator=gen)).to(dev, bf)
-    mask = shift_mask_tensor(shape[1], shape[2], ws, shift, dev)
-    run = lambda: fused_swin_block_backward(ct, x, wb, ws, shift, mask, True, scales, packed=pk,
-                                            extra=ex)
-    plain = lambda: swin_block_bwd_plain(ct, x, wb, ws, shift, mask, True, scales, ex)
-    got = run()
-    ref16 = plain()
-    ref32 = swin_block_bwd_plain(ct.float(), x.float(), wb, ws, shift, mask, True, scales,
-                                 ex.float())
-    torch.cuda.synchronize()
-    _compare_grads(res, "K5w16", f"{list(shape)} ws {ws} shift {shift} extra, branch scales",
-                   got, ref16, ref32, ("dx", "extra"), GRAD_FIELDS, cuda_ms(run), cuda_ms(plain),
-                   _swin_work(shape, c, hidden, backward=True, ws=ws, extra=True), ulps=W16_ULPS)
-    del got, ref16, ref32
+    for shift in (8, 0):
+        mask = shift_mask_tensor(shape[1], shape[2], ws, shift, dev) if shift else None
+        run = lambda: fused_swin_block_backward(ct, x, wb, ws, shift, mask, True, scales,
+                                                packed=pk, extra=ex)
+        plain = lambda: swin_block_bwd_plain(ct, x, wb, ws, shift, mask, True, scales, ex)
+        got, again = run(), run()
+        ref16 = plain()
+        ref32 = swin_block_bwd_plain(ct.float(), x.float(), wb, ws, shift, mask, True, scales,
+                                     ex.float())
+        torch.cuda.synchronize()
+        if shift:
+            _bwd16_bytes_log(shape, c, nh, hidden)
+        _compare_grads(res, "K5w16", f"{list(shape)} ws {ws} shift {shift} extra, branch scales "
+                       f"(b2b {queued_ms(run):.4f} ms)", got, ref16, ref32, ("dx", "extra"),
+                       GRAD_FIELDS, cuda_ms(run), cuda_ms(plain),
+                       _swin_work(shape, c, hidden, backward=True, ws=ws, extra=True),
+                       ulps=W16_ULPS)
+        _check_deterministic("K5w16", f"{list(shape)} ws {ws} shift {shift}", got, again,
+                             ("dx", "extra") + GRAD_FIELDS)
+        _k5w16_split(run)
+        del got, again, ref16, ref32
 
     windows, nq, nk = 128, 256, 576
     w = _random_ocab(gen, dev, c, nh, hidden)
@@ -3118,6 +3206,121 @@ def phase_dat_train(workdir, smi):
     return [launches, per_step_all]
 
 
+# The DAT first-step gate at a head dim past the tiled kernel's 32: C 180
+# in 4 heads (hd 45) at two residual groups of two blocks (group 1's
+# first block shifted, so its K16 calls are masked), where every K16
+# takes the stream kernel's masked split-P path (``k15_route``).
+DAT_HD45 = dict(embed_dim=180, depths=(2, 2), num_heads=(4, 4))
+
+
+def phase_k16_stream_check(smi):
+    """The stream kernel's masked split-P path (csrc/window_attn_stream.cu,
+    every masked K16 at hd 33-64), held two ways.  (1) One shifted DAT
+    spatial block at DATConfig()'s widths (C 180, 6 heads of 30, split
+    (8, 16)), train mode (the module chain, K16), a forward and backward
+    with K16's route forced to "stream" beside the same with the tiled
+    kernel, element by element, and both against the block's plain fp32
+    path: the output within ULP_BOUND bf16 ulps, every parameter's
+    gradient within TRAIN_COS_MIN in cosine wherever the tiled kernel's
+    is.  (2) DAT's first-step gate (``_first_step_gate``, with DAT's
+    BF16_FLOOR) at DAT_HD45, whose masked K16 run on the stream kernel.
+    Returns the gate's launches (a check: not counted on the main path)."""
+    import numpy as np
+    import torch
+
+    from tpu_superresolution_torch.core.config import DATConfig, build_model
+    from tpu_superresolution_torch.kernels import read_counters, reset_counters
+    from tpu_superresolution_torch.kernels import window_attention as wa
+    from tpu_superresolution_torch.models.dat import DATB
+
+    tag = "k16-stream"
+    torch.manual_seed(SEED)
+    block = DATB(180, 6, (8, 16), 2.0, True, rg_idx=1, b_idx=0).train()
+    assert block.spatial and block.shifted
+    gen = torch.Generator().manual_seed(SEED + 11)
+    x32 = torch.randn(2, 64, 64, 180, generator=gen)
+    g32 = torch.randn(2, 64, 64, 180, generator=gen)
+
+    def run(model, x, plain=False):
+        model.zero_grad(set_to_none=True)
+        x = x.clone().requires_grad_()
+        out = model(x, plain=plain)
+        (out.float() * g32.to(out.device)).sum().backward()
+        grads = {n: p.grad.detach().float().clone() for n, p in model.named_parameters()
+                 if p.grad is not None}
+        grads["x"] = x.grad.detach().float()
+        return out.detach().float(), grads
+
+    # (parameters stay fp32, as build_model keeps them; bf16 is x's compute dtype)
+    ref_out, ref_g = run(block.to("cuda"), x32.cuda(), plain=True)
+    xb = x32.to("cuda", torch.bfloat16)
+    orig, forced = wa.k15_route, []
+
+    def to_stream(nq, nk, hd, masked=False, split_p=False):
+        route = orig(nq, nk, hd, masked, split_p)
+        if route == "tiled":
+            forced.append((nq, nk, hd, masked))
+            return "stream"
+        return route
+
+    t_out, t_g = run(block, xb)
+    wa.k15_route = to_stream
+    try:
+        s_out, s_g = run(block, xb)
+    finally:
+        wa.k15_route = orig
+    torch.cuda.synchronize()
+    shapes = sorted(set(forced))
+    mag = float(ref_out.abs().max())
+    bound = ULP_BOUND["K16"] * bf16_ulp(mag)
+    e_st = float((s_out - t_out).abs().max())
+    e_s, e_t = float((s_out - ref_out).abs().max()), float((t_out - ref_out).abs().max())
+    log(f"[{tag}] DAT spatial block (C 180, 6 heads of 30, split (8, 16), shifted, train) "
+        f"with K16 forced to the stream kernel on {len(forced)} calls {shapes} vs the tiled "
+        f"kernel: output max |stream - tiled| {e_st:.3e}; vs plain fp32 stream {e_s:.3e}, tiled "
+        f"{e_t:.3e} (bound {bound:.3e} = {ULP_BOUND['K16']} bf16 ulp at max|ref| {mag:.3f}) ({smi})")
+    # tensors whose fp32 gradient is zero but for rounding (biases that a
+    # BatchNorm follows) carry no direction: left out, and counted
+    norms = {k: float(g.norm()) for k, g in ref_g.items()}
+    live = {k: g for k, g in ref_g.items() if norms[k] >= 1e-6 * max(norms.values())}
+    cos_s, cos_t = _cosines(s_g, live), _cosines(t_g, live)
+    rel = lambda g, k: float((g[k] - ref_g[k]).norm()) / norms[k]
+    apart = {k: float((s_g[k] - t_g[k]).norm()) / norms[k] for k in live}
+    worst = sorted(cos_s, key=lambda k: cos_s[k])[:3]
+    log(f"[{tag}] gradients of {len(live)} of {len(ref_g)} tensors (the rest zero in fp32 but "
+        f"for rounding): |stream - tiled| / |fp32| at most {max(apart.values()):.3e} (on "
+        f"{max(apart, key=apart.get)}); lowest cosine vs plain fp32, stream: "
+        + ", ".join(f"{k} {cos_s[k]:.5f} (tiled {cos_t[k]:.5f}; rel L2 stream {rel(s_g, k):.3e}, "
+                    f"tiled {rel(t_g, k):.3e})" for k in worst))
+    bad = [k for k in cos_s if cos_s[k] < TRAIN_COS_MIN <= cos_t[k]]
+    if not forced or e_s > bound or bad:
+        raise RuntimeError(f"{tag}: the stream kernel's masked split-P path disagrees: forced "
+                           f"{len(forced)}, output err {e_s:.3e} (bound {bound:.3e}), gradients "
+                           f"below the cosine bound where the tiled kernel's are not: {bad}")
+    del block
+
+    # (2) DAT's first-step gate at hd 45 (the masked K16 on the stream kernel)
+    cfg = DATConfig(**DAT_HD45)
+    hd = cfg.embed_dim // cfg.num_heads[0]
+    n = cfg.split_size[0] * cfg.split_size[1]
+    route = wa.k15_route(n, n, hd, True, wa.K16_SPLIT_P)
+    src = build_model(cfg)
+    src.reset_parameters(torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 12)
+    batch, patch = TRAIN_BATCH, TRAIN_LR_PATCH
+    lr = torch.from_numpy(rng.random((batch, patch, patch, 3), dtype=np.float32)).cuda()
+    hr = torch.from_numpy(rng.random((batch, 4 * patch, 4 * patch, 3), dtype=np.float32)).cuda()
+    reset_counters()
+    _first_step_gate(cfg, src, lr, hr, f"{tag} dat hd{hd}", smi, bf16_floor=True)
+    launches = read_counters()
+    log(f"[{tag}] DAT {DAT_HD45} (hd {hd}): masked K16 of {n} x {n} tokens takes the "
+        f"\"{route}\" kernel; first-step gate launches {launches}")
+    if route != "stream" or not launches.get("K16"):
+        raise RuntimeError(f"{tag}: the hd-{hd} gate did not run K16 on the stream kernel "
+                           f"(route {route}, launches {launches})")
+    return launches
+
+
 def _dat_train_split(state, lr, hr, step_ms, smi):
     """Where one DAT train step spends its device time, under
     torch.profiler: the forward, backward and optimizer as ranges, K16,
@@ -3263,8 +3466,8 @@ def _hat_train_split(state, lr, hr, step_ms, smi, tag="hat-train"):
                ("hat::hab", "forward HAB plain ops (shift and partition gathers)"))
     bwd_nodes = (("backward K6b / K5 (per-window wgmma kernel, dW GEMM, ordered sums, fold)",
                   "SwinBlockFunctionBackward"),
-                 ("backward K5w16 (K2 + K7 qkv recompute, per-window, weight grads, "
-                  "reductions)", "WindowBlockFunctionBackward"),
+                 ("backward K5w16 (K5a front / middle / tail, attention fwd / bwd, dW GEMM, "
+                  "sums, packing, fold)", "WindowBlockFunctionBackward"),
                  ("backward K8b / K8bw16 (per-window, weight grads, reductions)",
                   "OcabCoreFunctionBackward"),
                  ("backward K12 (autograd of the plain LN + CAB convs)",
@@ -3351,21 +3554,21 @@ def _device_kernels(prof):
 
 
 def _packing_cost(model, k5w16=False, tag="train"):
-    """What the block kernels' weight packing costs each train step: the
-    forward's ``pack_block_tiles`` for every block, which K5 / K6b read
-    too, and ``pack_block_weights`` only where K5w16 runs (`k5w16`):
-    device kernels and synchronised milliseconds for all blocks."""
+    """What the block kernels' weight packing costs each train step:
+    ``pack_block_tiles`` for every block, the forward's stream that K5 /
+    K6b read too, or where K5w16 runs (`k5w16`: HAT-SRx4's HABs, whose
+    forward is the K7 route) the stream that K5w16's backward packs once a
+    step: device kernels and synchronised milliseconds for all blocks."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from tpu_superresolution_torch.kernels.fused_block import pack_block_tiles, pack_block_weights
+    from tpu_superresolution_torch.kernels.fused_block import pack_block_tiles
 
     weights = [b.block_weights() for layer in model.layers
                for b in layer.residual_group.blocks]
-    packs = [("forward tiles (pack_block_tiles, read by K5 / K6b too)", pack_block_tiles)]
-    if k5w16:
-        packs = [("K5w16's layout (pack_block_weights)", pack_block_weights)]
-    for label, pack in packs:
+    label = ("K5w16's backward (pack_block_tiles)" if k5w16 else
+             "forward tiles (pack_block_tiles, read by K5 / K6b too)")
+    for pack in (pack_block_tiles,):
         run = lambda: [pack(w) for w in weights]
         run()
         torch.cuda.synchronize()
@@ -3456,6 +3659,7 @@ def main() -> int:
         srx4_train_launches = timed("hat_srx4-train", phase_hat_srx4_train, workdir, smi)
         dat_x4_launches = timed("dat_x4", phase_dat_x4, workdir, smi)
         dat_train_launches = timed("dat-train", phase_dat_train, workdir, smi)
+        timed("k16-stream", phase_k16_stream_check, smi)
 
     kernels = []
     for key, meta in KERNELS.items():

@@ -200,16 +200,6 @@ def test_block_with_extra_matches_jax_kernels(oracle, ws, shift):
     assert np.abs(without - want).max() > 100 * TOL
 
 
-def test_packed_block_weights_carry_the_window():
-    from tpu_superresolution_torch.kernels.fused_block import pack_block_weights
-
-    for ws in (7, 8):
-        w, _, _ = _block_weights(np.random.default_rng(ws), ws=ws)
-        packed = pack_block_weights(w)
-        assert packed.window_size == ws and w.window_size == ws
-        assert tuple(packed.rpb.shape) == (2, ws * ws, ws * ws)
-
-
 @pytest.mark.parametrize("impl", ["jnp", "fused"])
 def test_swinir_ws7_matches_jax(impl):
     """SwinIR with window_size=7 (a checkpoint the port used to refuse on

@@ -180,61 +180,6 @@ def test_window_tables_and_pixel_shuffle_match_jax():
         jw.window_partition(jw.cyclic_shift(jnp.asarray(x[..., :8]), 1), 2)))
 
 
-def _emulate_swin_block_kernel(x, p, shift, mask, gelu_approx):
-    """csrc/swin_block.cu's arithmetic in fp32 torch on the PACKED
-    operands (padded channels and heads, [out, in] weights, pre-scaled q),
-    so the host-side packing is checked where no card is."""
-    import torch.nn.functional as F
-
-    from tpu_superresolution_torch.kernels.fused_block import CP, HDP, MAX_HEADS
-    from tpu_superresolution_torch.kernels.layernorm import layernorm_plain
-    from tpu_superresolution_torch.ops.window import (
-        cyclic_shift,
-        cyclic_unshift,
-        window_partition,
-        window_reverse,
-    )
-
-    xs = cyclic_shift(x, shift).float()
-    b, h, w, c = xs.shape
-    win = window_partition(xs, 8)
-    bw = win.shape[0]
-    pad = lambda t: F.pad(t, (0, CP - c))
-    qkv = pad(layernorm_plain(win, p.g1, p.b1)) @ p.wqkv.float().t() + p.bqkv
-    q, k, v = qkv.reshape(bw, 64, 3, MAX_HEADS, HDP).unbind(2)
-    s = torch.einsum("wqhd,wkhd->whqk", q, k)[:, : p.num_heads] + p.rpb
-    if mask is not None:
-        s = (s.reshape(-1, mask.shape[0], p.num_heads, 64, 64) + mask[None, :, None]).reshape(s.shape)
-    o = torch.zeros(bw, 64, MAX_HEADS, HDP)
-    o[:, :, : p.num_heads] = torch.einsum("whqk,wkhd->wqhd", s.softmax(-1), v[:, :, : p.num_heads])
-    x1 = win + (o.reshape(bw, 64, CP) @ p.wproj.float().t() + p.bproj)[..., :c]
-    hid = F.gelu(pad(layernorm_plain(x1, p.g2, p.b2)) @ p.wfc1.float().t() + p.bfc1,
-                 approximate="tanh" if gelu_approx else "none")
-    out = x1 + (hid @ p.wfc2.float().t() + p.bfc2)[..., :c]
-    return cyclic_unshift(window_reverse(out, 8, h, w), shift)
-
-
-@pytest.mark.parametrize("shift", [0, 4])
-def test_packed_block_weights_reproduce_the_block(shift):
-    """pack_block_weights' layout, run through the kernel's arithmetic,
-    gives the plain block.  Weights are bf16-representable and hd = 16
-    (scale 1/4), so the bf16 packing is exact and fp32 parity holds."""
-    from tpu_superresolution_torch.kernels.fused_block import pack_block_weights, swin_block_plain
-    from tpu_superresolution_torch.ops.window import shift_mask_tensor
-
-    rng = np.random.default_rng(20 + shift)
-    p = _block_params(rng, c=32, nh=2, hidden=64)
-    for key in ("wqkv", "wproj", "wfc1", "wfc2"):
-        p[key] = torch.from_numpy(p[key]).bfloat16().float().numpy()
-    w = _port_weights(p)
-    assert w.scale == 0.25
-    x = torch.from_numpy(rng.standard_normal((2, 16, 24, 32)).astype(np.float32))
-    mask = shift_mask_tensor(16, 24, 8, shift, torch.device("cpu")) if shift else None
-    want = swin_block_plain(x, w, 8, shift, mask, True)
-    got = _emulate_swin_block_kernel(x, pack_block_weights(w), shift, mask, True)
-    assert (got - want).abs().max().item() <= TOL
-
-
 @pytest.mark.parametrize("scale,rhos,ring", [(2, [2], 2), (4, [2, 2], 12), (3, [3], 3)])
 def test_composed_reconstruction_matches_chain(scale, rhos, ring):
     """The composed conv + one pixel shuffle equals the reference chain

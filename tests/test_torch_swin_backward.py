@@ -214,6 +214,35 @@ def _stream_offsets(plan, heads, kind, rows, cols):
     return torch.where(hf < halves, off, -1)
 
 
+def wgrad_emulated(ops, plan, nh, splits):
+    """K5b and K5c in torch ops on the workspace `ops` ([units, 64, cols]
+    each of ``BWD_OPERANDS``): dW = dY^T X per split of the units into
+    the weight stream's layout, the bias sums dY^T 1 after it
+    (pack_block_tiles' bias layout), the splits summed.  Returns (that
+    vector, how many times K5b writes each entry of it)."""
+    q3, cp, hid = 3 * plan.hdp, plan.cp, plan.chunks * 64
+    units = ops["yc"].shape[0]
+    row_len = plan.stream_len + plan.bias_len
+    pw = torch.full((splits, row_len), float("nan"))
+    written = torch.zeros(row_len, dtype=torch.long)
+    nq = nh * q3
+    for kind, (dname, xname, boff, brows) in enumerate((
+            ("dqkv", "yc", 0, nq), ("dattn", "o", nq, cp), ("dh1", "y2c", nq + cp, hid),
+            ("dmlp", "act", nq + cp + hid, cp))):
+        dys, xs_ = ops[dname], ops[xname]
+        off = _stream_offsets(plan, nh, kind, dys.shape[2], xs_.shape[2])
+        real = off >= 0
+        written.index_add_(0, off[real], torch.ones_like(off[real]))
+        written[plan.stream_len + boff:plan.stream_len + boff + brows] += 1
+        for s in range(splits):
+            wb, we = units * s // splits, units * (s + 1) // splits
+            part = torch.einsum("wtm,wtn->mn", dys[wb:we], xs_[wb:we])
+            pw[s, off[real]] = part[real]
+            pw[s, plan.stream_len + boff:plan.stream_len + boff + brows] = \
+                dys[wb:we, :, :brows].sum((0, 1))
+    return pw.sum(0), written
+
+
 def block_bwd_emulated(ct, x, p, ws, shift, shifted, gelu_approx, scales=None, extra=None,
                        grid=3, splits=3):
     """csrc/swin_block_bwd.cu's schedule in fp32 torch ops on the
@@ -373,27 +402,7 @@ def block_bwd_emulated(ct, x, p, ws, shift, shifted, gelu_approx, scales=None, e
                     sums(dy2[:, :cp])], -1)
                 prpb[cta, cw] += drpb
 
-    # K5b: dW = dY^T X per split into the stream's layout, the bias sums
-    # dY^T 1 after it (pack_block_tiles' bias layout); K5c: the sums
-    row_len = plan.stream_len + plan.bias_len
-    pw = torch.full((splits, row_len), float("nan"))
-    written = torch.zeros(row_len, dtype=torch.long)
-    nq, hid = nh * q3, chunks * 64
-    for kind, (dname, xname, boff, brows) in enumerate((
-            ("dqkv", "yc", 0, nq), ("dattn", "o", nq, cp), ("dh1", "y2c", nq + cp, hid),
-            ("dmlp", "act", nq + cp + hid, cp))):
-        dys, xs_ = ops[dname], ops[xname]
-        off = _stream_offsets(plan, nh, kind, dys.shape[2], xs_.shape[2])
-        real = off >= 0
-        written.index_add_(0, off[real], torch.ones_like(off[real]))
-        written[plan.stream_len + boff:plan.stream_len + boff + brows] += 1
-        for s in range(splits):
-            wb, we = windows * s // splits, windows * (s + 1) // splits
-            part = torch.einsum("wtm,wtn->mn", dys[wb:we], xs_[wb:we])
-            pw[s, off[real]] = part[real]
-            pw[s, plan.stream_len + boff:plan.stream_len + boff + brows] = \
-                dys[wb:we, :, :brows].sum((0, 1))
-    gv = pw.sum(0)
+    gv, written = wgrad_emulated(ops, plan, nh, splits)
     gv = torch.cat([gv, pvec.reshape(-1, 4 * cp).sum(0)])
     rpb = prpb.reshape(-1, nh * 64 * 64).sum(0)
     grads = fold_block_grads(gv, rpb, c, nh, hidden, ws)

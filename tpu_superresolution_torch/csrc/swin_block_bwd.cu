@@ -291,14 +291,8 @@ __global__ void __launch_bounds__(WG_THREADS, 2) wgrad_wg_kernel(const WArgs a) 
 }
 
 // ------------------------------------------------------------------ K5c
-// out[j] = sum_r part[r][j] for three segments, rows summed in a fixed
-// order: 8 slices of rows in order, then the slices in order.
-struct RSeg {
-  const float* part;
-  long long rows, cols;
-  float* out;
-};
-
+// out[j] = sum_r part[r][j] for three segments (RSeg), rows summed in a
+// fixed order: 8 slices of rows in order, then the slices in order.
 constexpr int RED_SLICES = 8;
 
 __global__ void __launch_bounds__(32 * RED_SLICES) reduce_ordered_kernel(RSeg s0, RSeg s1,
@@ -320,6 +314,61 @@ __global__ void __launch_bounds__(32 * RED_SLICES) reduce_ordered_kernel(RSeg s0
     for (int i = 0; i < RED_SLICES; ++i) t += red[i][lane];
     s.out[col] = t;
   }
+}
+
+int launch_wgrad_reduce(const Args& a, long long units, int cp, int hdp, int splits, float* pw,
+                        float* wgrad, float* vec, const RSeg& ln, const RSeg& rpb,
+                        cudaStream_t s) {
+  const int kc = (cp + 63) / 64, nhalf = cp / 96, q3 = 3 * hdp;
+  WArgs w;
+  // (dY, X, kind): qkv (dqkv, yc), proj (dattn, o), fc1 (dh1, y2c), fc2 (dmlp, act);
+  // their biases in pack_block_tiles' bias layout: bqkv | bproj | bfc1 | bfc2
+  const int nq = a.nh * q3, hid = a.chunks * HC;
+  const int bias_offs[4] = {0, nq, nq + cp, nq + cp + hid};
+  const int bias_rows[4] = {nq, cp, hid, cp};
+  const long long bias_len = nq + 2LL * cp + hid;
+  const int dys[4] = {OP_DQKV, OP_DATTN, OP_DH1, OP_DMLP};
+  const int xs[4] = {OP_YC, OP_O, OP_Y2C, OP_ACT};
+  int n_units = 0;
+  for (int i = 0; i < 4; ++i) {
+    WGemm& g = w.g[i];
+    g.dy = a.op[dys[i]];
+    g.x = a.op[xs[i]];
+    g.dy_tiles = a.op_tiles[dys[i]];
+    g.x_tiles = a.op_tiles[xs[i]];
+    g.n_groups = (g.x_tiles + 2) / 3;
+    g.kind = i;
+    g.bias_off = bias_offs[i];
+    g.bias_rows = bias_rows[i];
+    w.unit0[i] = n_units;
+    n_units += g.dy_tiles * g.n_groups;
+  }
+  w.unit0[4] = n_units;
+  w.windows = static_cast<int>(units);
+  w.splits = splits;
+  w.nh = a.nh;
+  w.hdp = hdp;
+  w.kc = kc;
+  w.nhalf = nhalf;
+  w.stream_len = static_cast<long long>(a.nh) * kc * q3 * 64 + nhalf * kc * 96 * 64 +
+                 static_cast<long long>(a.chunks) * (kc * 4096 + nhalf * 96 * 64);
+  w.row_len = w.stream_len + bias_len;
+  w.part = pw;
+  static const cudaError_t wattr = cudaFuncSetAttribute(
+      wgrad_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+  if (wattr != cudaSuccess) return static_cast<int>(wattr);
+  wgrad_wg_kernel<<<n_units * splits, WG_THREADS, WG_SMEM, s>>>(w);
+  const int status = static_cast<int>(cudaGetLastError());
+  if (status != 0) return status;
+
+  // the weight stream's and the biases' gradients are contiguous in
+  // [wgrad | vec]; the LN sums follow the biases in vec
+  const RSeg segs[3] = {{pw, splits, w.row_len, wgrad}, ln, rpb};
+  long long cols = 0;
+  for (const RSeg& sg : segs) cols = sg.cols > cols ? sg.cols : cols;
+  reduce_ordered_kernel<<<dim3(static_cast<unsigned>((cols + 31) / 32), 3), 32 * RED_SLICES, 0,
+                          s>>>(segs[0], segs[1], segs[2]);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace swin_bwd
@@ -344,7 +393,7 @@ extern "C" int sr_swin_block_bwd_bf16(const void* ct, const void* x, const void*
                                       const void* scales, void* ws, void* x1ws, void* pvec,
                                       void* prpb, void* pw, void* vec, void* rpb, void* wgrad,
                                       const int* geo, float eps, void* stream) {
-  Args a;
+  Args a{};
   a.batch = geo[0];
   a.h = geo[1];
   a.w = geo[2];
@@ -390,7 +439,7 @@ extern "C" int sr_swin_block_bwd_bf16(const void* ct, const void* x, const void*
   a.table = static_cast<const float*>(table);
   a.codes = static_cast<const int*>(codes);
   a.scales = static_cast<const float*>(scales);
-  const int kc = (cp + 63) / 64, nhalf = cp / 96, q3 = 3 * hdp;
+  const int kc = (cp + 63) / 64, q3 = 3 * hdp;
   const int qt = (a.nh * q3 + 63) / 64;
   const int tiles_of[N_OPS] = {kc, kc, kc, a.chunks, qt, kc, a.chunks, kc};
   bf16* p = static_cast<bf16*>(ws);
@@ -408,59 +457,13 @@ extern "C" int sr_swin_block_bwd_bf16(const void* ct, const void* x, const void*
                         : launch_window_ws<8>(a, cp, hdp, grid, s);
   if (status != 0) return status;
 
-  WArgs w;
-  // (dY, X, kind): qkv (dqkv, yc), proj (dattn, o), fc1 (dh1, y2c), fc2 (dmlp, act);
-  // their biases in pack_block_tiles' bias layout: bqkv | bproj | bfc1 | bfc2
-  const int nq = a.nh * q3, hid = a.chunks * HC;
-  const int bias_offs[4] = {0, nq, nq + cp, nq + cp + hid};
-  const int bias_rows[4] = {nq, cp, hid, cp};
-  const long long bias_len = nq + 2LL * cp + hid;
-  const int dys[4] = {OP_DQKV, OP_DATTN, OP_DH1, OP_DMLP};
-  const int xs[4] = {OP_YC, OP_O, OP_Y2C, OP_ACT};
-  int units = 0;
-  for (int i = 0; i < 4; ++i) {
-    WGemm& g = w.g[i];
-    g.dy = a.op[dys[i]];
-    g.x = a.op[xs[i]];
-    g.dy_tiles = a.op_tiles[dys[i]];
-    g.x_tiles = a.op_tiles[xs[i]];
-    g.n_groups = (g.x_tiles + 2) / 3;
-    g.kind = i;
-    g.bias_off = bias_offs[i];
-    g.bias_rows = bias_rows[i];
-    w.unit0[i] = units;
-    units += g.dy_tiles * g.n_groups;
-  }
-  w.unit0[4] = units;
-  w.windows = static_cast<int>(windows);
-  w.splits = splits;
-  w.nh = a.nh;
-  w.hdp = hdp;
-  w.kc = kc;
-  w.nhalf = nhalf;
-  w.stream_len = static_cast<long long>(a.nh) * kc * q3 * 64 + nhalf * kc * 96 * 64 +
-                 static_cast<long long>(a.chunks) * (kc * 4096 + nhalf * 96 * 64);
-  w.row_len = w.stream_len + bias_len;
-  w.part = static_cast<float*>(pw);
-  static const cudaError_t wattr = cudaFuncSetAttribute(
-      wgrad_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
-  if (wattr != cudaSuccess) return static_cast<int>(wattr);
-  wgrad_wg_kernel<<<units * splits, WG_THREADS, WG_SMEM, s>>>(w);
-  status = static_cast<int>(cudaGetLastError());
-  if (status != 0) return status;
-
-  // the weight stream's and the biases' gradients are contiguous in
-  // [wgrad | vec]; the LN sums follow the biases in vec
-  const RSeg segs[3] = {
-      {static_cast<const float*>(pw), splits, w.row_len, static_cast<float*>(wgrad)},
+  const long long bias_len = a.nh * q3 + 2LL * cp + a.chunks * HC;
+  return launch_wgrad_reduce(
+      a, windows, cp, hdp, splits, static_cast<float*>(pw), static_cast<float*>(wgrad),
+      static_cast<float*>(vec),
       {static_cast<const float*>(pvec), static_cast<long long>(grid) * NCONS * 4, a.vl,
        static_cast<float*>(vec) + bias_len},
       {static_cast<const float*>(prpb), static_cast<long long>(grid) * NCONS,
-       static_cast<long long>(a.nh) * 4096, static_cast<float*>(rpb)}};
-  long long cols = 0;
-  for (const RSeg& sg : segs) cols = sg.cols > cols ? sg.cols : cols;
-  reduce_ordered_kernel<<<dim3(static_cast<unsigned>((cols + 31) / 32), 3), 32 * RED_SLICES, 0,
-                          s>>>(
-      segs[0], segs[1], segs[2]);
-  return static_cast<int>(cudaGetLastError());
+       static_cast<long long>(a.nh) * 4096, static_cast<float*>(rpb)},
+      s);
 }

@@ -2,7 +2,11 @@
 // describes the design) and what it shares with K5b: one template, whose
 // six instantiations (ws 7 / 8 x the forward's widths 96 / 16, 96 / 32,
 // 192 / 32) are compiled in files of their own, in parallel
-// (swin_block_bwd_i<ws>_<cp>_<hdp>.cu).
+// (swin_block_bwd_i<ws>_<cp>_<hdp>.cu).  At ws 16 (K5w16, csrc/
+// swin_block_bwd16.cu) the same template runs a window's four 64-token
+// tiles as its units, in three modes around the attention kernels: the
+// front (LN1, qkv), the middle (proj .. do, with O read back) and the
+// tail (dy, LN1's backward, dx); swin_block_bwd_i16_<cp>_<hdp>.cu.
 #pragma once
 
 #include "common.cuh"
@@ -21,6 +25,11 @@ constexpr int MAX_HEADS = 6;
 constexpr int TABLE_BYTES = MAX_HEADS * 225 * 4;  // [nh, (2ws-1)^2] fp32, ws <= 8
 constexpr int HC = 64;                        // MLP hidden columns a chunk
 constexpr int TILE_ELEMS = 64 * 64;           // a workspace tile: [64 tokens, 64]
+constexpr int W16_TOKENS = 256;               // a ws-16 window: four 64-token units
+
+// What a launch of K5a runs: a whole ws-7 / ws-8 window a unit, or at ws
+// 16 one of the three token-local parts of a 64-token tile.
+enum { MODE_WHOLE, MODE_FRONT, MODE_MID, MODE_TAIL };
 
 __host__ __device__ constexpr int round1024(int v) { return (v + 1023) / 1024 * 1024; }
 
@@ -69,13 +78,35 @@ struct Args {
   const float* scales;  // [batch, 2] or null
   bf16* op[N_OPS];     // workspace operands, [windows][op_tiles][64][64] swizzled
   int op_tiles[N_OPS];
-  float* x1ws;  // [grid][NCONS][64 CP]: x1, then dx1
+  float* x1ws;  // [grid][NCONS][64 CP]: x1, then dx1 (ws 16: [units][64 CP])
   float* pvec;  // [grid][NCONS][4][vl]: LayerNorm sums per warp
-  float* prpb;  // [grid][NCONS][nh][64][64]: d(rpb)
+  float* prpb;  // [grid][NCONS][nh][64][64]: d(rpb) (not at ws 16)
+  // ws 16 (swin_block_bwd16.cu): a window's heads as [256, HDP] tiles,
+  // rows swizzled as the head tiles in shared memory
+  bf16* qkvh;   // [windows][nh][3][256][HDP]: q (pre-scaled), k, v (the front)
+  bf16* doh;    // [windows][nh][256][HDP]: do (the middle)
+  float* drow;  // [windows][nh][256]: rowsum(do o) per head (the middle)
   int vl;       // the LN sums' vector: g1 | b1 | g2 | b2, CP each
   int batch, h, w, c, nh, chunks, shift, shifted, gelu_tanh, stages;
   float eps;
 };
+
+// One segment of K5c's ordered sums: out[j] = sum over the rows r of
+// part[r][j], [rows][cols] fp32.
+struct RSeg {
+  const float* part;
+  long long rows, cols;
+  float* out;
+};
+
+// K5b and K5c (csrc/swin_block_bwd.cu) on the workspace K5a left in
+// `a.op` over `units` 64-token units: the four dW products split over
+// the units into `pw`, then the ordered sums of pw -> [wgrad | vec's
+// bias part], and of the two segments `ln` (the LayerNorm sums' partials)
+// and `rpb` (the d(rpb) partials).
+int launch_wgrad_reduce(const Args& a, long long units, int cp, int hdp, int splits, float* pw,
+                        float* wgrad, float* vec, const RSeg& ln, const RSeg& rpb,
+                        cudaStream_t s);
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -335,10 +366,13 @@ __device__ __forceinline__ void tile_frag(uint32_t (&f)[4], uint32_t tile, int r
   f[3] = ld32(tile + hopper::swizzled_offset<RB>((r0 + 8) * RB + (c0 + 8) * 2));
 }
 
-template <int WS, int CP, int HDP>
+template <int WS, int CP, int HDP, int MODE = MODE_WHOLE>
 __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args a) {
   using L = Layout<CP, HDP>;
-  constexpr int NT = WS * WS;
+  // ws 16: a unit is one 64-token tile of a window (tile u of window u / 4)
+  constexpr bool TILED = MODE != MODE_WHOLE;
+  static_assert(TILED == (WS == 16), "ws 16 runs as its three modes, ws 7 / 8 whole");
+  constexpr int NT = TILED ? 64 : WS * WS;
   constexpr int T2 = (2 * WS - 1) * (2 * WS - 1);
   constexpr int REL0 = (WS - 1) * (2 * WS - 1) + WS - 1;  // relative index of pos_i == pos_j
   constexpr int NJ = CP / 8;                               // 8-column groups of a row
@@ -356,7 +390,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
   Ring rg{ring, bars, S, 0};
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  for (int i = tid; i < a.nh * T2; i += NTHREADS) table[i] = a.table[i];
+  if constexpr (!TILED)
+    for (int i = tid; i < a.nh * T2; i += NTHREADS) table[i] = a.table[i];
   if (tid == 0) {
     for (int s = 0; s < S; ++s) {
       hopper::mbar_init(rg.full(s), 1);
@@ -367,7 +402,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
   __syncthreads();
 
   const int nww = a.w / WS, per_img = (a.h / WS) * nww;
-  const int windows = a.batch * per_img;
+  const int windows = a.batch * per_img * (TILED ? 4 : 1);  // units
   const int pairs = (windows + NCONS - 1) / NCONS;
   if (warp >= 4 * NCONS) {
     // ------------------------------------------------------ weight feeder
@@ -388,18 +423,20 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
       for (int i = 0; i < a.nh * KC; ++i) push(base + i * L::QKV_TILE, L::QKV_TILE);
     };
     for (int pr = blockIdx.x; pr < pairs; pr += gridDim.x) {
-      qkv_all();                                                            // F1
-      for (int i = 0; i < NH * KC; ++i) push(proj0 + i * 12288, 12288);     // F2
-      for (int j = 0; j < a.chunks; ++j) {                                  // M
-        const char* ch = mlp0 + static_cast<size_t>(j) * L::CHUNK_BYTES;
-        for (int kc = 0; kc < KC; ++kc) push(ch + kc * 8192, 8192);
-        for (int hf = 0; hf < NH; ++hf) push(ch + KC * 8192 + hf * 12288, 12288);
-        for (int kc = 0; kc < KC; ++kc) push(ch + kc * 8192, 8192);
+      if constexpr (MODE == MODE_WHOLE || MODE == MODE_FRONT) qkv_all();    // F1
+      if constexpr (MODE == MODE_WHOLE || MODE == MODE_MID) {
+        for (int i = 0; i < NH * KC; ++i) push(proj0 + i * 12288, 12288);   // F2
+        for (int j = 0; j < a.chunks; ++j) {                                // M
+          const char* ch = mlp0 + static_cast<size_t>(j) * L::CHUNK_BYTES;
+          for (int kc = 0; kc < KC; ++kc) push(ch + kc * 8192, 8192);
+          for (int hf = 0; hf < NH; ++hf) push(ch + KC * 8192 + hf * 12288, 12288);
+          for (int kc = 0; kc < KC; ++kc) push(ch + kc * 8192, 8192);
+        }
+        for (int kc = 0; kc < KC; ++kc)                                     // P
+          for (int hf = 0; hf < NH; ++hf) push(proj0 + (hf * KC + kc) * 12288, 12288);
       }
-      for (int kc = 0; kc < KC; ++kc)                                       // P
-        for (int hf = 0; hf < NH; ++hf) push(proj0 + (hf * KC + kc) * 12288, 12288);
-      qkv_all();                                                            // A2
-      qkv_all();                                                            // D
+      if constexpr (MODE == MODE_WHOLE) qkv_all();                          // A2
+      if constexpr (MODE == MODE_WHOLE || MODE == MODE_TAIL) qkv_all();     // D
     }
     return;
   }
@@ -416,9 +453,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
   const float inv_c = 1.f / static_cast<float>(a.c);
   const float neg_inf = -__int_as_float(0x7f800000);
   const int slot = blockIdx.x * NCONS + cw;
-  float* x1ws = a.x1ws + static_cast<size_t>(slot) * 64 * CP;
   float* pv = a.pvec + (static_cast<size_t>(slot) * 4 + wi) * a.vl;
-  float* prpb = a.prpb + static_cast<size_t>(slot) * a.nh * 4096;
+  float* prpb = TILED ? nullptr : a.prpb + static_cast<size_t>(slot) * a.nh * 4096;
   // the LN sums' vector: g1 | b1 | g2 | b2, CP each (the bias sums are K5b's)
   enum { V_G1, V_B1, V_G2, V_B2 };
   auto pv_at = [&](int part) { return pv + part * CP; };
@@ -433,19 +469,22 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
   if (lane < 4)
     for (int col = 2 * lane; col < a.vl; col += 8)
       *reinterpret_cast<float2*>(pv + col) = make_float2(0.f, 0.f);
-  for (int hh = 0; hh < a.nh; ++hh)
+  if constexpr (!TILED)
+    for (int hh = 0; hh < a.nh; ++hh)
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int h2 = 0; h2 < 2; ++h2)
-        *reinterpret_cast<float2*>(prpb + hh * 4096 + (r0 + 8 * h2) * 64 + 8 * j + 2 * q) =
-            make_float2(0.f, 0.f);
+        for (int h2 = 0; h2 < 2; ++h2)
+          *reinterpret_cast<float2*>(prpb + hh * 4096 + (r0 + 8 * h2) * 64 + 8 * j + 2 * q) =
+              make_float2(0.f, 0.f);
 
+  // unit wv's token t: its window and the token's place in it
   auto token_off = [&](int wv, int t) {
-    const int bidx = wv / per_img, win = wv - bidx * per_img;
+    const int wn = TILED ? wv >> 2 : wv, tt = TILED ? (wv & 3) * 64 + t : t;
+    const int bidx = wn / per_img, win = wn - bidx * per_img;
     const int wy = win / nww, wx = win - wy * nww;
-    const int rr = (wy * WS + t / WS + a.shift) % a.h;
-    const int cc = (wx * WS + t % WS + a.shift) % a.w;
+    const int rr = (wy * WS + tt / WS + a.shift) % a.h;
+    const int cc = (wx * WS + tt % WS + a.shift) % a.w;
     return ((static_cast<long long>(bidx) * a.h + rr) * a.w + cc) * a.c;
   };
 
@@ -453,7 +492,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
     const int w0 = NCONS * pr + cw;
     const bool active = w0 < windows;  // an odd last window: the other one recomputes, stores nothing
     const int wv = active ? w0 : windows - 1;
-    const int bidx = wv / per_img, win = wv - bidx * per_img;
+    const int wn = TILED ? wv >> 2 : wv, sub = TILED ? wv & 3 : 0;  // window, its tile
+    const int bidx = wn / per_img, win = wn - bidx * per_img;
+    float* x1ws = a.x1ws + static_cast<size_t>(TILED ? wv : slot) * 64 * CP;
     const float m1 = a.scales ? a.scales[2 * bidx] : 1.f;
     const float m2 = a.scales ? a.scales[2 * bidx + 1] : 1.f;
     bool row_ok[2];
@@ -485,10 +526,11 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
 #pragma unroll
     for (int h2 = 0; h2 < 2; ++h2) c_out[h2] = active && row_ok[h2] ? a.c : 0;
     // the tokens' codes: the thread's rows; the columns' read where used
-    const int* codes = a.codes + (shifted ? win : 0) * NT;
-    int rcode[2];
+    const int* codes = TILED ? nullptr : a.codes + (shifted ? win : 0) * NT;
+    int rcode[2] = {0, 0};
+    if constexpr (!TILED)
 #pragma unroll
-    for (int h2 = 0; h2 < 2; ++h2) rcode[h2] = __ldg(codes + (row_ok[h2] ? r0 + 8 * h2 : 0));
+      for (int h2 = 0; h2 < 2; ++h2) rcode[h2] = __ldg(codes + (row_ok[h2] ? r0 + 8 * h2 : 0));
     // the score's term at row h2 and column slot e2 = 2 (e >> 2) + (e & 1)
     // (column 8 (e2 >> 1) + 2 q + (e2 & 1)): the table index, bit 16 where
     // the shift regions differ; `rows_are_keys` swaps the roles (the
@@ -504,7 +546,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
 
     // LN1 of the window's x -> the A buffer; the rows' statistics
     float mu1[2], rs1[2];
-    auto ln1 = [&]() {
+    auto ln1 = [&](bool store) {
       uint32_t xp[NJ][2];
       load_rows<NJ>(xp, xrow, row_ok, q, a.c, even);
       float s[2] = {0.f, 0.f}, sq[2] = {0.f, 0.f};
@@ -521,6 +563,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
         mu1[h2] = quad_sum(s[h2]) * inv_c;
         rs1[h2] = rsqrtf(fmaxf(quad_sum(sq[h2]) * inv_c - mu1[h2] * mu1[h2], 0.f) + a.eps);
       }
+      if (!store) return;
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int col = 8 * j + 2 * q;
@@ -617,11 +660,43 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
 
     wg_barrier(cw);  // the last pair's readers of every buffer are done
 
+    if constexpr (MODE == MODE_WHOLE || MODE == MODE_FRONT) {
     // ================================ F1: LN1, the attention forward
-    ln1();
+    ln1(true);
     hopper::fence_proxy_async();
     wg_barrier(cw);
     ws_bulk(OP_YC, abuf);
+    if constexpr (MODE == MODE_FRONT) {
+      // ws 16: the heads' q, k, v -> the window's [256, HDP] head tiles
+      // (the attention kernels' operands); O's columns past the heads zero
+      for (int hh = 0; hh < a.nh; ++hh) {
+        float acc[3 * HDP / 2];
+#pragma unroll
+        for (int e = 0; e < 3 * HDP / 2; ++e) acc[e] = 0.f;
+        float2 bqv[3 * HDP / 8];
+#pragma unroll
+        for (int j = 0; j < 3 * HDP / 8; ++j)
+          bqv[j] = __ldg(reinterpret_cast<const float2*>(a.bqkv + hh * Q3 + 8 * j + 2 * q));
+        gemm_a_smem<3 * HDP, CP>(acc, abuf, rg, lane);
+        char* hq = reinterpret_cast<char*>(
+            a.qkvh + (static_cast<size_t>(wn) * a.nh + hh) * 3 * W16_TOKENS * HDP);
+#pragma unroll
+        for (int j = 0; j < 3 * HDP / 8; ++j) {
+          const int part = (8 * j) / HDP, d = (8 * j) % HDP + 2 * q, row = 64 * sub + r0;
+          char* t = hq + part * W16_TOKENS * RB;
+          *reinterpret_cast<uint32_t*>(t + head_off(row, d)) =
+              pack_bf16(acc[4 * j] + bqv[j].x, acc[4 * j + 1] + bqv[j].y);
+          *reinterpret_cast<uint32_t*>(t + head_off(row + 8, d)) =
+              pack_bf16(acc[4 * j + 2] + bqv[j].x, acc[4 * j + 3] + bqv[j].y);
+        }
+      }
+      for (int col = a.nh * HDP + 2 * q; col < KC * 64; col += 8) {
+        ws_pair(OP_O, r0, col, 0u);
+        ws_pair(OP_O, r0 + 8, col, 0u);
+      }
+      if (ct == 0) hopper::bulk_wait_read();  // yc's copy: the next unit rewrites the A buffer
+      continue;
+    } else {
     for (int hh = 0; hh < a.nh; ++hh) {
       uint32_t qf[HDP / 16][4];
       head_qkv(hh, qf, false);
@@ -661,7 +736,17 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
     hopper::fence_proxy_async();
     wg_barrier(cw);
     ws_bulk(OP_O, rbuf);
+    }
+    } else if constexpr (MODE == MODE_MID) {
+      // ws 16: O (the attention kernel's, in the workspace) -> the R buffer
+      const uint4* src = reinterpret_cast<const uint4*>(ws_at(OP_O));
+      uint4* dst = reinterpret_cast<uint4*>(smem_raw + (rbuf - raw));
+      for (int i = ct; i < KC * 512; i += 128) dst[i] = src[i];
+      hopper::fence_proxy_async();
+      wg_barrier(cw);
+    }
 
+    if constexpr (MODE == MODE_WHOLE || MODE == MODE_MID) {
     // ================================ F2: x1, LN2; dmlp
     float mu2[2], rs2[2];
     {
@@ -892,6 +977,43 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
 #pragma unroll
       for (int e = 0; e < 32; ++e) dacc[e] = 0.f;
       gemm_mn<CP>(dacc, abuf, rg, lane);
+      if constexpr (MODE == MODE_MID) {
+        // ws 16: do -> the window's head tiles, and each head's row term
+        // rowsum(do o) (the bf16 do and the workspace's o)
+        constexpr int HPC = 64 / HDP;  // heads a 64-column chunk
+        float ds[HPC][2];
+#pragma unroll
+        for (int hc = 0; hc < HPC; ++hc) ds[hc][0] = ds[hc][1] = 0.f;
+        const bf16* ob = ws_at(OP_O);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 64 * kc + 8 * j + 2 * q;
+          const int hh = col / HDP, d = col % HDP;
+          const uint32_t lo = pack_bf16(dacc[4 * j], dacc[4 * j + 1]);
+          const uint32_t hi = pack_bf16(dacc[4 * j + 2], dacc[4 * j + 3]);
+          if (hh < a.nh) {
+            char* t = reinterpret_cast<char*>(
+                a.doh + (static_cast<size_t>(wn) * a.nh + hh) * W16_TOKENS * HDP);
+            *reinterpret_cast<uint32_t*>(t + head_off(64 * sub + r0, d)) = lo;
+            *reinterpret_cast<uint32_t*>(t + head_off(64 * sub + r0 + 8, d)) = hi;
+            const float2 o0 = unpack_bf16(*reinterpret_cast<const uint32_t*>(ob + ws_off(r0, col)));
+            const float2 o1 =
+                unpack_bf16(*reinterpret_cast<const uint32_t*>(ob + ws_off(r0 + 8, col)));
+            const float2 d0 = unpack_bf16(lo), d1 = unpack_bf16(hi);
+            ds[j / (HDP / 8)][0] += d0.x * o0.x + d0.y * o0.y;
+            ds[j / (HDP / 8)][1] += d1.x * o1.x + d1.y * o1.y;
+          }
+        }
+#pragma unroll
+        for (int hc = 0; hc < HPC; ++hc)
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const float v = quad_sum(ds[hc][h2]);
+            const int hh = 64 * kc / HDP + hc;
+            if (q == 0 && hh < a.nh)
+              a.drow[(static_cast<size_t>(wn) * a.nh + hh) * W16_TOKENS + 64 * sub + r0 + 8 * h2] = v;
+          }
+      } else {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int col = 64 * kc + 8 * j + 2 * q;
@@ -902,12 +1024,17 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
           st32(t + head_off(r0 + 8, d), pack_bf16(dacc[4 * j + 2], dacc[4 * j + 3]));
         }
       }
+      }
     }
     if (ct == 0) hopper::bulk_wait_read();  // dattn's copy
     wg_barrier(cw);  // every warp's do product has read dattn: the A buffer takes yc
+    if constexpr (MODE == MODE_MID) continue;
+    }
 
+    if constexpr (MODE == MODE_TAIL) ln1(false);  // ws 16: LN1's statistics for its backward
+    if constexpr (MODE == MODE_WHOLE) {
     // ================================ A2: the attention backward, a head at a time
-    ln1();
+    ln1(true);
     hopper::fence_proxy_async();
     wg_barrier(cw);
     for (int hh = 0; hh < a.nh; ++hh) {
@@ -1067,9 +1194,10 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
         store_part(2, dv);
       }
     }
+    }
 
     // ================================ D: dy = dqkv Wqkv, LN1 backward, dx
-    {
+    if constexpr (MODE == MODE_WHOLE || MODE == MODE_TAIL) {
       float dy[KC][32];
 #pragma unroll
       for (int kc = 0; kc < KC; ++kc)
@@ -1159,13 +1287,13 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
   if (ct == 0) hopper::bulk_wait();  // the workspace copies have landed
 }
 
-template <int WS, int CP, int HDP>
+template <int WS, int CP, int HDP, int MODE = MODE_WHOLE>
 int launch_window(const Args& a, int grid, cudaStream_t stream) {
   using L = Layout<CP, HDP>;
   const int smem = L::FIXED + a.stages * STAGE_BYTES;
   if (a.stages < 2 || a.stages > MAX_STAGES || smem > SMEM_LIMIT || a.nh * HDP > CP)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = swin_block_bwd_kernel<WS, CP, HDP>;
+  auto kernel = swin_block_bwd_kernel<WS, CP, HDP, MODE>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
   if (attr != cudaSuccess) return static_cast<int>(attr);

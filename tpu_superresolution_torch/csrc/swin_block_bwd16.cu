@@ -1,661 +1,599 @@
-// K5 at window 16 — the backward of one Swin transformer block of
-// 256-token windows (the K7 route's block: K2 + K7 + K1t), with the
-// gradient of HAT's additive term `extra`.
+// K5w16 — the backward of one Swin transformer block of 256-token windows
+// (window 16: the K7 route's block, upstream HAT-SRx4's HAB), with the
+// gradient of HAT's additive term `extra`, on Hopper's wgmma.
 //
 // Replaces: tpu_superresolution_tpu/ops/pallas/fused_block.py
 //           _mega_backward -> _bwd_kernel (pallas_call at :1080) at ws 16,
-//           where megakernel_tpu_ok(16, w) holds (upstream HAT-SRx4).
+//           where megakernel_tpu_ok (:210) holds (upstream HAT-SRx4).
 // Math: that of csrc/swin_block_bwd.cu (kernels/fused_block.py::
 //       swin_block_bwd_plain): recompute the forward, chain the cotangent
 //       through MLP, LN2, proj, attention, qkv and LN1, with bf16 GEMM
-//       operands, fp32 accumulation and the same casts.  One difference
-//       in arithmetic: the softmax backward's row term rowsum(dA * A) is
-//       taken as rowsum(dO * O) per head (equal in exact arithmetic, since
-//       O = A V and dA = dO V^T), so no second pass over the scores.
+//       operands, fp32 accumulation and the same casts; the bias and the
+//       shift mask from the [nh, 31^2] table and one code a token.  One
+//       difference in arithmetic: the softmax backward's row term
+//       rowsum(dA * A) is taken as rowsum(dO * O) per head (equal in exact
+//       arithmetic, since O = A V and dA = dO V^T).
 // Bound on the H100: at HAT-SRx4's train shape [8,64,64,180] (128
 //       windows, 6 heads of 30, hidden 360) ~64.8 GFLOP of bf16 products
 //       at the unpadded widths against ~59 MB in and out: compute-bound,
-//       ~0.066 ms at the 989 TFLOP/s peak.  This first version pads like
-//       K5 (C -> 192, hd -> 32, hidden -> 384) and runs one CTA a window.
-// Design: a window of 256 tokens does not fit K5's one-tile CTA, so
-//       the CTA walks it in four 64-row tiles.  Before it, two launches
-//       of other kernels recompute LN1 (K2) and qkv (K7's qkv launch)
-//       into a [tokens][576] bf16 workspace (kernels/fused_block.py).
-//       Then one 384-thread CTA per window runs four phases:
-//       0  per head, the keys and values of all 256 tokens in shared
-//          memory; per query tile the 64 x 256 fp32 scores (66 KB), an
-//          exact softmax, O = P V -> workspace;
-//       1  per tile: proj -> x1 (+ extra) -> LN2 -> fc1 -> GELU, then
-//          the chain back through the MLP and LN2 (dx1, d extra) to
-//          dattn and dO = dattn Wproj -> workspace;
-//       2  per head, per tile in order: scores and softmax again, dV +=
-//          P^T dO and dK += dS^T Q in fp32 shared-memory accumulators
-//          (256 x 32 each), dQ = dS K -> workspace, dS (fp32) -> the
-//          window's bias-gradient partial;
-//       3  per tile: dqkv -> dy = dqkv Wqkv -> LN1 backward, dx = dx1 +
-//          LN1^T(dy) at the shifted pixels.
-//       Bias and LayerNorm sums are written per (window, tile) and the
-//       weight gradients by csrc/wgrad.cuh's split-K products; ordered
-//       reductions make every gradient deterministic (no atomics).
-//       Shared memory: 224 KB (phase 0/2) over 172 KB (phase 1/3).
-#include "common.cuh"
-#include "swin_common.cuh"
-#include "wgrad.cuh"
+//       ~0.066 ms at the 989 TFLOP/s peak.  The design moves ~625 MB
+//       (workspaces written and read once; chip_smoke.py's "bytes moved"
+//       line), ~0.19 ms at 3.35 TB/s; its launches are latency-bound.
+// Design: everything but the attention is token-local, so the window's
+//       four 64-token tiles run through K5a (csrc/swin_block_bwd.cuh) as
+//       its units, on the forward's pack_block_tiles stream, and the
+//       attention runs as kernels of its own over (window, head) units.
+//       Seven launches, all deterministic (static schedules, ordered sums,
+//       no atomics):
+//   1 K5a front: LN1 -> yc (workspace); per head q, k, v -> the window's
+//       [256, hdp] head tiles, swizzled as in shared memory.
+//   2 attn16_kernel<hdp, false>: per (window, head), the head's q, k, v
+//       bulk-copied (48 KB at hd 32, two stages); each consumer warpgroup
+//       takes two 64-query tiles: S against the four 64-key blocks, the
+//       row max and sum online, then P = exp(s - max) / sum rounded once
+//       and O += P V -> the workspace's O; the row max and 1 / sum ->
+//       [windows, nh, 2, 256] fp32, written once.
+//   3 K5a middle: O read back, x1, LN2, the MLP forward and back, LN2's
+//       backward (dx1 fp32 to a per-tile scratch, dextra), dattn, do ->
+//       the window's head tiles and the row term D = rowsum(do o).
+//   4 attn16_kernel<hdp, true>: per (window, head), q, k, v, do, the row
+//       statistics and D (67 KB); a query-row pass (S, P from the stored
+//       statistics, dP = dO V^T, dS, dQ = dS K, d(rpb) += dS) and a
+//       key-row pass (S^T = K Q^T, P^T, dP^T, dK = dS^T Q, dV = P^T dO),
+//       so no sum crosses CTAs.  The grid keeps a fixed head a CTA (cph
+//       CTAs a head, each walking its windows in order), and each thread
+//       owns its entries of its CTA's [256, 256] fp32 d(rpb) partial
+//       (34.6 MB in all at the train shape, L2's; a block's entries are
+//       loaded before its products are issued).
+//   5 K5a tail: dy = dqkv Wqkv, LN1's backward, dx = dx1 + LN1^T(dy).
+//   6 K5b (csrc/swin_block_bwd.cu): dW = dY^T X over the 64-token units.
+//   7 K5c: the splits', the LayerNorm sums' and the d(rpb) partials summed
+//       in a fixed order.
+//       The weights' gradients come out in the forward stream's tile space;
+//       kernels/fused_block.py fold_block_grads maps them to raw space.
+#include "swin_block_bwd.cuh"
+
+namespace swin_bwd {
+
+// K5a's ws-16 instantiations, compiled in swin_block_bwd_i16_<cp>_<hdp>.cu
+#define K5W16_EXTERN(CP_, HDP_)                                                            \
+  extern template int launch_window<16, CP_, HDP_, MODE_FRONT>(const Args&, int, cudaStream_t); \
+  extern template int launch_window<16, CP_, HDP_, MODE_MID>(const Args&, int, cudaStream_t);   \
+  extern template int launch_window<16, CP_, HDP_, MODE_TAIL>(const Args&, int, cudaStream_t);
+K5W16_EXTERN(96, 16)
+K5W16_EXTERN(96, 32)
+K5W16_EXTERN(192, 32)
+#undef K5W16_EXTERN
+
+}  // namespace swin_bwd
 
 namespace {
 
-constexpr int WS = 16;
-constexpr int N = WS * WS;  // tokens of a window
-constexpr int T = 64;       // rows of a tile
-constexpr int TILES = N / T;
-constexpr int CP = 192;
-constexpr int HDP = 32;
-constexpr int QKVP = 3 * CP;
-constexpr int HIDP = 384;
-constexpr int MAX_HEADS = CP / HDP;
-constexpr int NWARPS = 12;
-constexpr int NTHREADS = NWARPS * 32;
+using namespace swin_bwd;
 
-constexpr int LDX = CP;          // fp32 rows
-constexpr int LDY = CP + 8;      // bf16
-constexpr int LDH = HIDP + 8;    // bf16 hidden
-constexpr int LDQKV = QKVP + 8;  // bf16 dqkv
-constexpr int LDHD = HDP + 8;    // bf16 head tiles
-constexpr int LDS = N + 4;       // fp32 scores
-constexpr int LDP = N + 8;       // bf16 probabilities
+constexpr int WS16 = 16;
+constexpr int NT16 = W16_TOKENS;                             // 256 tokens a window
+constexpr int T2_16 = (2 * WS16 - 1) * (2 * WS16 - 1);       // 961 table entries a head
+constexpr int REL0_16 = (WS16 - 1) * (2 * WS16 - 1) + WS16 - 1;
+constexpr int AT_CONS = 2;                                   // consumer warpgroups
+constexpr int AT_THREADS = 128 * (AT_CONS + 1);              // + the loader's warpgroup
+constexpr int AT_TABLE_BYTES = 4096;                         // one head's 961 fp32
+constexpr int AT_STAT_BYTES = 3 * NT16 * 4;                  // row max, 1 / sum, D
 
-// phases 0 and 2
-constexpr int OFF_K = 0;
-constexpr int OFF_V = OFF_K + N * LDHD * 2;
-constexpr int OFF_Q = OFF_V + N * LDHD * 2;
-constexpr int OFF_DO = OFF_Q + T * LDHD * 2;
-constexpr int OFF_S = OFF_DO + T * LDHD * 2;
-constexpr int OFF_P = OFF_S + T * LDS * 4;
-constexpr int OFF_DK = OFF_P + T * LDP * 2;
-constexpr int OFF_DV = OFF_DK + N * HDP * 4;
-constexpr int OFF_D = OFF_DV + N * HDP * 4;
-constexpr int END_A = OFF_D + T * 4;
-// phases 1 and 3 (over the same bytes)
-constexpr int OFF_R = 0;
-constexpr int OFF_Y = OFF_R + T * LDX * 4;
-constexpr int OFF_O = OFF_Y + T * LDY * 2;
-constexpr int OFF_BIG = OFF_O + T * LDY * 2;
-constexpr int OFF_STAT = OFF_BIG + T * LDQKV * 2;
-constexpr int END_B = OFF_STAT + 2 * T * 4;
-constexpr int OFF_STG = END_A > END_B ? END_A : END_B;
-constexpr int SMEM_BYTES = OFF_STG + NWARPS * 256 * 4;
-static_assert(SMEM_BYTES <= 232448, "over the 227 KB shared-memory limit");
-static_assert(T * LDX * 4 <= OFF_BIG - OFF_Y, "fp32 dy must fit the two bf16 buffers");
-static_assert(T * LDH <= T * LDQKV, "dh1 must fit the dqkv buffer");
-static_assert(OFF_V % 128 == 0 && OFF_Q % 128 == 0 && OFF_DO % 128 == 0 && OFF_S % 128 == 0 &&
-                  OFF_P % 128 == 0 && OFF_DK % 128 == 0 && OFF_DV % 128 == 0 &&
-                  OFF_D % 128 == 0 && OFF_Y % 128 == 0 && OFF_O % 128 == 0 &&
-                  OFF_BIG % 128 == 0 && OFF_STAT % 128 == 0 && OFF_STG % 128 == 0,
-              "shared buffers must stay 128-byte aligned");
-
-// Offsets in a (window, tile) partial-sum row, as csrc/swin_block_bwd.cu
-// (kernels/fused_block.py _VEC_OFFSETS).
-constexpr int V_G1 = 0, V_B1 = CP, V_G2 = 2 * CP, V_B2 = 3 * CP, V_BQKV = 4 * CP,
-              V_BPROJ = 7 * CP, V_BFC1 = 8 * CP, V_BFC2 = 8 * CP + HIDP, VEC_LEN = 9 * CP + HIDP;
-
-struct Bwd16Args {
-  const bf16* ct;
-  const bf16* x;
-  const bf16* extra;  // [batch, h, w, c] or null
-  bf16* dx;
-  bf16* dextra;       // written when extra is not null
-  const bf16* qkv;    // [tokens][QKVP], q pre-scaled, heads padded to HDP
-  const float* g1;
-  const float* b1;
-  const float* g2;
-  const float* b2;
-  const bf16* wqkv;   // [QKVP, CP]
-  const bf16* wproj;  // [CP, CP]
-  const float* bproj;
-  const bf16* wfc1;   // [HIDP, CP]
-  const float* bfc1;
-  const bf16* wfc2;   // [CP, HIDP]
-  const float* bfc2;
-  const float* rpb;   // [nh, N, N]
-  const float* mask;  // [nW, N, N] or null
-  const float* scales;
-  // bf16 workspace, [tokens][cols], tokens window-major
-  bf16* g_o;      // CP
-  bf16* g_y2c;    // CP
-  bf16* g_act;    // HIDP
-  bf16* g_dmlp;   // CP
-  bf16* g_dh1;    // HIDP
-  bf16* g_dattn;  // CP
-  bf16* g_do;     // CP
-  bf16* g_dqkv;   // QKVP
-  float* g_dx1;   // [tokens][CP]
-  float* g_x1;    // [windows * T][CP]: one tile's rows per CTA
-  float* g_h1;    // [windows * T][HIDP]
-  float* part;    // [windows * TILES][VEC_LEN]
-  float* dsp;     // [windows][nh][N][N]
-  int h, w, c, nh, shift, gelu_tanh;
-  float eps;
+// The attention kernels' shared memory (kernels/fused_block.py bwd16_plan
+// reckons the same): two stages of a unit's head tiles ([256, hdp] bf16
+// each: q, k, v, and for the backward do and the row statistics), the
+// head's bias table, four barriers.
+template <int HDP, bool BWD>
+struct AtLayout {
+  static constexpr int RB = 2 * HDP;
+  static constexpr int HT = NT16 * RB;
+  static constexpr int STAGE = (BWD ? 4 : 3) * HT + (BWD ? AT_STAT_BYTES : 0);
+  static constexpr int SMEM = 1024 + 2 * STAGE + AT_TABLE_BYTES + 4 * 8;
+  static_assert(STAGE % 1024 == 0, "stages keep the tiles' 1024-byte alignment");
 };
 
-__global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd16_window(const Bwd16Args a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem + OFF_K);
-  bf16* vs = reinterpret_cast<bf16*>(smem + OFF_V);
-  bf16* qs = reinterpret_cast<bf16*>(smem + OFF_Q);
-  bf16* dos = reinterpret_cast<bf16*>(smem + OFF_DO);
-  float* ss = reinterpret_cast<float*>(smem + OFF_S);
-  bf16* ps = reinterpret_cast<bf16*>(smem + OFF_P);
-  float* dka = reinterpret_cast<float*>(smem + OFF_DK);
-  float* dva = reinterpret_cast<float*>(smem + OFF_DV);
-  float* drow = reinterpret_cast<float*>(smem + OFF_D);
-  float* rs = reinterpret_cast<float*>(smem + OFF_R);
-  bf16* ys = reinterpret_cast<bf16*>(smem + OFF_Y);
-  bf16* os = reinterpret_cast<bf16*>(smem + OFF_O);
-  float* dys = reinterpret_cast<float*>(smem + OFF_Y);  // fp32 over ys + os
-  bf16* big = reinterpret_cast<bf16*>(smem + OFF_BIG);
-  float* mu = reinterpret_cast<float*>(smem + OFF_STAT);
-  float* rstd = mu + T;
+struct AttnArgs {
+  const bf16* qkvh;    // [windows][nh][3][256][HDP]
+  const bf16* doh;     // [windows][nh][256][HDP] (backward)
+  const float* drow;   // [windows][nh][256] (backward)
+  float* stat;         // [windows][nh][2][256]: row max, 1 / sum
+  bf16* o;             // the workspace's O: [units][o_tiles][64][64] (forward)
+  bf16* dqkv;          // the workspace's dqkv: [units][dqkv_tiles][64][64] (backward)
+  float* prpb;         // [cph][nh][256][256] (backward)
+  const float* table;  // [nh, 961]
+  const int* codes;    // [windows of an image, 256] where shifted, else [1, 256]
+  int windows, per_img, nh, cph, o_tiles, dqkv_tiles, shifted;
+};
 
+// Query code cq against key code ck: the table index, bit 16 where the
+// shift regions differ (the -100 of the shift mask).
+__device__ __forceinline__ int term16(int cq, int ck, bool shifted) {
+  const int idx = (cq & 0xffff) - (ck & 0xffff) + REL0_16;
+  return idx | ((shifted && (static_cast<unsigned>(cq ^ ck) >> 16) != 0) << 16);
+}
+
+// The score block's bias terms: element e of the accumulator holds (row
+// h2 = (e >> 1) & 1, column col0 + 8 (e >> 2) + 2 q + (e & 1)); `rows_q`
+// says whether the rows are the queries (else the keys).
+__device__ __forceinline__ void bias_terms(int (&bc)[32], float (&tv)[32], const float* tb,
+                                           const int* codes, const int (&rc)[2], int col0, int q,
+                                           bool rows_q, bool shifted) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int cc = __ldg(codes + col0 + 8 * (e >> 2) + 2 * q + (e & 1));
+    const int r = rc[(e >> 1) & 1];
+    bc[e] = rows_q ? term16(r, cc, shifted) : term16(cc, r, shifted);
+  }
+#pragma unroll
+  for (int e = 0; e < 32; ++e) tv[e] = tb[bc[e] & 0xffff];
+}
+
+// s + bias (+ the mask where the regions differ), as the plain version
+// adds them: (q k^T + rpb) + mask.
+__device__ __forceinline__ float biased(float s, float t, int bc) {
+  const float v = s + t;
+  return (bc & 0x10000) ? v + -100.f : v;
+}
+
+// acc = A (fragments of HDP / 16 k16 steps) x the 64 rows of a head tile
+// at `bt` read K-major: S = Q K^T, S^T = K Q^T, dP = dO V^T, dP^T = V dO^T.
+template <int HDP>
+__device__ __forceinline__ void rows_product(float (&acc)[32], const uint32_t (&af)[HDP / 16][4],
+                                             uint32_t bt) {
+#pragma unroll
+  for (int kk = 0; kk < HDP / 16; ++kk)
+    hopper::WgmmaRSK<64>::mma(acc, af[kk], hopper::desc_swizzled<2 * HDP>(bt) + 2 * kk, 1);
+}
+
+// acc += F (a 64 x 64 block as four k16 A fragments) x the 64 rows of a
+// head tile at `bt` read MN-major: O += P V, dQ += dS K, dK += dS^T Q,
+// dV += P^T dO.
+template <int HDP>
+__device__ __forceinline__ void block_product(float (&acc)[HDP / 2], const uint32_t (&f)[4][4],
+                                              uint32_t bt) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    hopper::WgmmaRS<HDP>::mma(acc, f[kk], hopper::desc_swizzled<2 * HDP>(bt + kk * 16 * 2 * HDP),
+                              1);
+}
+
+__device__ __forceinline__ void to_frags(uint32_t (&f)[4][4], const float (&v)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) f[kk][i] = pack_bf16(v[8 * kk + 2 * i], v[8 * kk + 2 * i + 1]);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&v)[N]) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) v[e] = 0.f;
+}
+
+// bf16 pairs of a [64, HDP] result (rows r0, r0 + 8) -> the workspace
+// operand `ws` of unit tiles, columns col0 + d.
+template <int HDP>
+__device__ __forceinline__ void store_head(bf16* ws, const float (&v)[HDP / 2], int r0, int col0,
+                                           int q) {
+#pragma unroll
+  for (int j = 0; j < HDP / 8; ++j) {
+    const int col = col0 + 8 * j + 2 * q;
+    *reinterpret_cast<uint32_t*>(ws + ws_off(r0, col)) = pack_bf16(v[4 * j], v[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(ws + ws_off(r0 + 8, col)) = pack_bf16(v[4 * j + 2], v[4 * j + 3]);
+  }
+}
+
+// The attention of K5w16: the forward's recompute of O (BWD false) or the
+// attention backward (BWD true), a (window, head) unit at a time.
+template <int HDP, bool BWD>
+__global__ void __launch_bounds__(AT_THREADS, 1) attn16_kernel(const AttnArgs a) {
+  using L = AtLayout<HDP, BWD>;
+  constexpr int RB = L::RB, Q3 = 3 * HDP;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t table_at = base + 2 * L::STAGE;
+  const uint32_t bars = table_at + AT_TABLE_BYTES;  // full[2], empty[2]
+  float* tb = reinterpret_cast<float*>(smem_raw + (table_at - raw));
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float* stg = reinterpret_cast<float*>(smem + OFF_STG) + warp * 256;
-  const int nww = a.w / WS, nwh = a.h / WS;
-  const int win = blockIdx.x % (nwh * nww);
-  const int bidx = blockIdx.x / (nwh * nww);
-  const int wy = win / nww, wx = win % nww;
-  const int c = a.c;
-  const float m1 = a.scales ? a.scales[2 * bidx] : 1.f;
-  const float m2 = a.scales ? a.scales[2 * bidx + 1] : 1.f;
-  const long long row0 = static_cast<long long>(blockIdx.x) * N;  // workspace rows
-  const long long srow0 = static_cast<long long>(blockIdx.x) * T;  // scratch rows
-  const float* mwin = a.mask ? a.mask + static_cast<long long>(win) * N * N : nullptr;
-
-  // element offset of the window's token t in x, extra, ct, dx, dextra
-  auto token_offset = [&](int t) -> long long {
-    const int r = (wy * WS + t / WS + a.shift) % a.h;
-    const int q = (wx * WS + t % WS + a.shift) % a.w;
-    return ((static_cast<long long>(bidx) * a.h + r) * a.w + q) * c;
-  };
-  auto part_of = [&](int t) { return a.part + (static_cast<long long>(blockIdx.x) * TILES + t) * VEC_LEN; };
-  // rows [r0, r0 + rows) of the 32 columns at `col` of a workspace with
-  // `ld` columns -> a [rows][LDHD] tile
-  auto load_cols = [&](bf16* dst, const bf16* src, int ld, int col, int r0, int rows) {
-    for (int i = tid; i < rows * 4; i += NTHREADS) {
-      const int r = i >> 2, cv = (i & 3) * 8;
-      *reinterpret_cast<uint4*>(dst + r * LDHD + cv) =
-          *reinterpret_cast<const uint4*>(src + (row0 + r0 + r) * ld + col + cv);
+  const int hh = blockIdx.x / a.cph, first = blockIdx.x - hh * a.cph;
+  for (int i = tid; i < T2_16; i += AT_THREADS) tb[i] = a.table[hh * T2_16 + i];
+  if (tid == 0) {
+    for (int s = 0; s < 2; ++s) {
+      hopper::mbar_init(bars + 8u * s, 1);
+      hopper::mbar_init(bars + 8u * (2 + s), 4 * AT_CONS);
     }
-  };
-  // S = Q K^T (64 x 256) -> ss
-  auto scores = [&]() {
-    for (int tile = warp; tile < 64; tile += NWARPS) {
-      const int mt = tile >> 4, nt = tile & 15;
-      Acc s;
-      wmma::fill_fragment(s, 0.f);
-#pragma unroll
-      for (int k = 0; k < HDP; k += 16) {
-        FragA fa;
-        FragBt fb;
-        wmma::load_matrix_sync(fa, qs + mt * 16 * LDHD + k, LDHD);
-        wmma::load_matrix_sync(fb, ks + nt * 16 * LDHD + k, LDHD);
-        wmma::mma_sync(s, fa, fb, s);
-      }
-      wmma::store_matrix_sync(ss + mt * 16 * LDS + nt * 16, s, LDS, wmma::mem_row_major);
-    }
-  };
-  // A = softmax(S + rpb + mask) of tile t, head hh: fp32 in ss, bf16 in
-  // ps; one warp a row, eight columns a lane (every key is real)
-  auto softmax = [&](int hh, int t) {
-    const float* rp = a.rpb + static_cast<long long>(hh) * N * N;
-    for (int r = warp; r < T; r += NWARPS) {
-      const int q = t * T + r, c0 = lane * 8;
-      float v[8], u[8];
-      load8(v, ss + r * LDS + c0);
-      load8(u, rp + q * N + c0);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] += u[i];
-      if (mwin) {
-        load8(u, mwin + q * N + c0);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) v[i] += u[i];
-      }
-      float m = v[0];
-#pragma unroll
-      for (int i = 1; i < 8; ++i) m = fmaxf(m, v[i]);
-      m = warp_max(m);
-      float sum = 0.f;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        v[i] = expf(v[i] - m);
-        sum += v[i];
-      }
-      const float inv = 1.f / warp_sum(sum);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] *= inv;
-      store8_f32(ss + r * LDS + c0, v);
-      store8_bf16(ps + r * LDP + c0, v);
-    }
-  };
-  // a 16x16 accumulator tile -> bf16 rows [r0, r0 + 16), columns [col,
-  // col + 16) of a workspace with `ld` columns
-  auto tile_out = [&](Acc& t, bf16* dst, int ld, long long r0, int col) {
-    wmma::store_matrix_sync(stg, t, 16, wmma::mem_row_major);
-    __syncwarp();
-    float v[8];
-    load8(v, stg + (lane >> 1) * 16 + (lane & 1) * 8);
-    store8_bf16(dst + (r0 + (lane >> 1)) * ld + col + (lane & 1) * 8, v);
-    __syncwarp();
-  };
-  Acc acc[4];
-
-  // ================= phase 0: attention forward -> O =================
-  for (int hh = 0; hh < MAX_HEADS; ++hh) {
-    if (hh >= a.nh) {  // the padded heads' columns of O are zero
-      for (int i = tid; i < N * 4; i += NTHREADS) {
-        const int r = i >> 2, cv = (i & 3) * 8;
-        *reinterpret_cast<uint4*>(a.g_o + (row0 + r) * CP + hh * HDP + cv) =
-            make_uint4(0u, 0u, 0u, 0u);
-      }
-      continue;
-    }
-    load_cols(ks, a.qkv, QKVP, CP + hh * HDP, 0, N);
-    load_cols(vs, a.qkv, QKVP, 2 * CP + hh * HDP, 0, N);
-    for (int t = 0; t < TILES; ++t) {
-      load_cols(qs, a.qkv, QKVP, hh * HDP, t * T, T);
-      __syncthreads();
-      scores();
-      __syncthreads();
-      softmax(hh, t);
-      __syncthreads();
-      for (int tile = warp; tile < 8; tile += NWARPS) {  // O = P V (64 x 32)
-        const int mt = tile >> 1, nt = tile & 1;
-        Acc o;
-        wmma::fill_fragment(o, 0.f);
-        for (int k = 0; k < N; k += 16) {
-          FragA fa;
-          FragB fb;
-          wmma::load_matrix_sync(fa, ps + mt * 16 * LDP + k, LDP);
-          wmma::load_matrix_sync(fb, vs + k * LDHD + nt * 16, LDHD);
-          wmma::mma_sync(o, fa, fb, o);
-        }
-        tile_out(o, a.g_o, CP, row0 + t * T + mt * 16, hh * HDP + nt * 16);
-      }
-      __syncthreads();
-    }
+    hopper::mbar_init_fence();
   }
+  __syncthreads();
 
-  // ================= phase 1: tail forward and backward per tile =================
-  for (int t = 0; t < TILES; ++t) {
-    float* part = part_of(t);
-    const long long tr0 = row0 + t * T;
-    for (int r = warp; r < T; r += NWARPS) {
-      const bf16* xr = a.x + token_offset(t * T + r);
-      for (int i = lane; i < CP; i += 32) rs[r * LDX + i] = i < c ? __bfloat162float(xr[i]) : 0.f;
-    }
-    copy_rows<T, NTHREADS>(a.g_o + tr0 * CP, CP, os, LDY, CP, tid);
-    __syncthreads();
-    // x1 = x + m1 * (o @ Wproj^T + bproj)
-    for (int strip = warp; strip < CP / 16; strip += NWARPS) {
-      const int n0 = strip * 16;
-      gemm_strip<CP>(acc, os, LDY, a.wproj, n0);
-      strip_epilogue(acc, stg, lane, n0, [&](int r, int n, float (&v)[8]) {
-        float b[8], x[8];
-        load8(b, a.bproj + n);
-        load8(x, rs + r * LDX + n);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) x[i] += m1 * (v[i] + b[i]);
-        store8_f32(rs + r * LDX + n, x);
-      });
-    }
-    __syncthreads();
-    if (a.extra) {  // + extra, in LN2's (row, lane) mapping
-      for (int r = warp; r < T; r += NWARPS) {
-        const bf16* er = a.extra + token_offset(t * T + r);
-        for (int i = lane; i < c; i += 32) rs[r * LDX + i] += __bfloat162float(er[i]);
+  if (warp >= 4 * AT_CONS) {
+    // ---------------------------------------------------------- the loader
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (tid != 128 * AT_CONS) return;
+    int i = 0;
+    for (int wv = first; wv < a.windows; wv += a.cph, ++i) {
+      const int st = i & 1;
+      hopper::mbar_wait(bars + 8u * (2 + st), ((i >> 1) & 1) ^ 1);
+      const uint32_t full = bars + 8u * st, at = base + st * L::STAGE;
+      const size_t unit = static_cast<size_t>(wv) * a.nh + hh;
+      hopper::mbar_arrive_expect_tx(full, L::STAGE);
+      hopper::bulk_copy(at, a.qkvh + unit * 3 * NT16 * HDP, 3 * L::HT, full);
+      if constexpr (BWD) {
+        hopper::bulk_copy(at + 3 * L::HT, a.doh + unit * NT16 * HDP, L::HT, full);
+        hopper::bulk_copy(at + 4 * L::HT, a.stat + unit * 2 * NT16, 2 * NT16 * 4, full);
+        hopper::bulk_copy(at + 4 * L::HT + 2 * NT16 * 4, a.drow + unit * NT16, NT16 * 4, full);
       }
     }
-    layernorm_rows<T, NWARPS>(rs, LDX, ys, LDY, CP, a.g2, a.b2, c, a.eps, warp, lane, mu, rstd);
-    __syncthreads();
-    for (int i = tid; i < T * CP / 4; i += NTHREADS) {
-      const int r = i / (CP / 4), cv = (i % (CP / 4)) * 4;
-      *reinterpret_cast<float4*>(a.g_x1 + (srow0 + r) * CP + cv) =
-          *reinterpret_cast<const float4*>(rs + r * LDX + cv);
-    }
-    copy_rows<T, NTHREADS>(ys, LDY, a.g_y2c + tr0 * CP, CP, CP, tid);
-    // h1 = y2c @ Wfc1^T + bfc1 (fp32 scratch), act = bf16(gelu(h1))
-    for (int strip = warp; strip < HIDP / 16; strip += NWARPS) {
-      const int n0 = strip * 16;
-      gemm_strip<CP>(acc, ys, LDY, a.wfc1, n0);
-      strip_epilogue(acc, stg, lane, n0, [&](int r, int n, float (&v)[8]) {
-        float b[8];
-        load8(b, a.bfc1 + n);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) v[i] += b[i];
-        store8_f32(a.g_h1 + (srow0 + r) * HIDP + n, v);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) v[i] = gelu(v[i], a.gelu_tanh);
-        store8_bf16(a.g_act + (tr0 + r) * HIDP + n, v);
-      });
-    }
-    __syncthreads();
-
-    // ct -> rs (fp32), dmlp = bf16(ct m2) -> ys
-    for (int r = warp; r < T; r += NWARPS) {
-      const bf16* cr = a.ct + token_offset(t * T + r);
-      for (int i = lane; i < CP; i += 32) {
-        const float v = i < c ? __bfloat162float(cr[i]) : 0.f;
-        rs[r * LDX + i] = v;
-        ys[r * LDY + i] = __float2bfloat16(v * m2);
-      }
-    }
-    __syncthreads();
-    copy_rows<T, NTHREADS>(ys, LDY, a.g_dmlp + tr0 * CP, CP, CP, tid);
-    column_sums<T, NTHREADS>(ys, LDY, CP, part + V_BFC2, tid);
-    // dh1 = bf16((dmlp @ Wfc2) * gelu'(h1)) -> big
-    for (int strip = warp; strip < HIDP / 16; strip += NWARPS) {
-      const int n0 = strip * 16;
-      gemm_strip_kn<CP>(acc, ys, LDY, a.wfc2, HIDP, n0);
-      strip_epilogue(acc, stg, lane, n0, [&](int r, int n, float (&v)[8]) {
-        float hv[8];
-        load8(hv, a.g_h1 + (srow0 + r) * HIDP + n);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) v[i] *= gelu_grad(hv[i], a.gelu_tanh);
-        store8_bf16(big + r * LDH + n, v);
-        store8_bf16(a.g_dh1 + (tr0 + r) * HIDP + n, v);
-      });
-    }
-    __syncthreads();
-    column_sums<T, NTHREADS>(big, LDH, HIDP, part + V_BFC1, tid);
-    // dy2 = dh1 @ Wfc1 -> dys (fp32 over ys and os)
-    for (int strip = warp; strip < CP / 16; strip += NWARPS) {
-      const int n0 = strip * 16;
-      gemm_strip_kn<HIDP>(acc, big, LDH, a.wfc1, CP, n0);
-      strip_epilogue(acc, stg, lane, n0,
-                     [&](int r, int n, float (&v)[8]) { store8_f32(dys + r * LDX + n, v); });
-    }
-    __syncthreads();
-    // dx1 = ct + LN2^T(dy2) in rs; dg2, db2; dextra = dx1; dx1 -> workspace
-    layernorm_backward_rows<NWARPS, NTHREADS>(
-        dys, rs, LDX, a.g2, mu, rstd, [&](int r, int i) { return a.g_x1[(srow0 + r) * CP + i]; },
-        T, c, part + V_G2, part + V_B2, tid, warp, lane);
-    for (int r = warp; r < T; r += NWARPS) {
-      if (a.extra) {
-        bf16* dr = a.dextra + token_offset(t * T + r);
-        for (int i = lane; i < c; i += 32) dr[i] = __float2bfloat16(rs[r * LDX + i]);
-      }
-      for (int i = lane; i < CP; i += 32) a.g_dx1[(tr0 + r) * CP + i] = rs[r * LDX + i];
-    }
-    __syncthreads();
-    // dattn = bf16(dx1 m1) -> ys
-    for (int i = tid; i < T * CP / 8; i += NTHREADS) {
-      const int r = i / (CP / 8), cv = (i % (CP / 8)) * 8;
-      float v[8];
-      load8(v, rs + r * LDX + cv);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) v[k] *= m1;
-      store8_bf16(ys + r * LDY + cv, v);
-    }
-    __syncthreads();
-    copy_rows<T, NTHREADS>(ys, LDY, a.g_dattn + tr0 * CP, CP, CP, tid);
-    column_sums<T, NTHREADS>(ys, LDY, CP, part + V_BPROJ, tid);
-    // dO = bf16(dattn @ Wproj) -> workspace
-    for (int strip = warp; strip < CP / 16; strip += NWARPS) {
-      const int n0 = strip * 16;
-      gemm_strip_kn<CP>(acc, ys, LDY, a.wproj, CP, n0);
-      strip_epilogue(acc, stg, lane, n0, [&](int r, int n, float (&v)[8]) {
-        store8_bf16(a.g_do + (tr0 + r) * CP + n, v);
-      });
-    }
-    __syncthreads();
+    return;
   }
-
-  // ================= phase 2: attention backward per head =================
-  for (int hh = 0; hh < a.nh; ++hh) {
-    load_cols(ks, a.qkv, QKVP, CP + hh * HDP, 0, N);
-    load_cols(vs, a.qkv, QKVP, 2 * CP + hh * HDP, 0, N);
-    for (int i = tid; i < 2 * N * HDP; i += NTHREADS) dka[i] = 0.f;  // dka, dva
-    float* dsh = a.dsp + (static_cast<long long>(blockIdx.x) * a.nh + hh) * N * N;
-    for (int t = 0; t < TILES; ++t) {
-      load_cols(qs, a.qkv, QKVP, hh * HDP, t * T, T);
-      load_cols(dos, a.g_do, CP, hh * HDP, t * T, T);
-      __syncthreads();
-      // D = rowsum(dO * O) of the head
-      for (int r = warp; r < T; r += NWARPS) {
-        const float o = __bfloat162float(a.g_o[(row0 + t * T + r) * CP + hh * HDP + lane]);
-        const float d = warp_sum(__bfloat162float(dos[r * LDHD + lane]) * o);
-        if (lane == 0) drow[r] = d;
-      }
-      scores();
-      __syncthreads();
-      softmax(hh, t);
-      __syncthreads();
-      // dV += P^T dO: 16 key tiles x 2 column tiles
-      for (int tile = warp; tile < 32; tile += NWARPS) {
-        const int mt = tile >> 1, nt = tile & 1;
-        Acc d;
-        float* dst = dva + mt * 16 * HDP + nt * 16;
-        wmma::load_matrix_sync(d, dst, HDP, wmma::mem_row_major);
+  // -------------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int cw = warp >> 2, wi = warp & 3, q = lane & 3;
+  const int r0 = 16 * wi + (lane >> 2);  // the thread's rows of a 64-row tile: r0, r0 + 8
+  const bool shifted = a.shifted != 0;
+  const float neg_inf = -__int_as_float(0x7f800000);
+  float* prpb = BWD ? a.prpb + (static_cast<size_t>(first) * a.nh + hh) * NT16 * NT16 : nullptr;
+  int i = 0;
+  for (int wv = first; wv < a.windows; wv += a.cph, ++i) {
+    const int st = i & 1;
+    const uint32_t qbuf = base + st * L::STAGE, kbuf = qbuf + L::HT, vbuf = kbuf + L::HT;
+    hopper::mbar_wait(bars + 8u * st, (i >> 1) & 1);
+    const int* codes = a.codes + (shifted ? wv % a.per_img : 0) * NT16;
+    const size_t unit = static_cast<size_t>(wv) * a.nh + hh;
+    if constexpr (!BWD) {
+      // ======== per query tile: the row max and sum, then O = P V
+#pragma unroll 1
+      for (int t2 = 0; t2 < 2; ++t2) {
+        const int qt = cw + 2 * t2, row0 = 64 * qt + r0;
+        uint32_t qf[HDP / 16][4];
 #pragma unroll
-        for (int k = 0; k < T; k += 16) {
-          FragAt fa;
-          FragB fb;
-          wmma::load_matrix_sync(fa, ps + k * LDP + mt * 16, LDP);
-          wmma::load_matrix_sync(fb, dos + k * LDHD + nt * 16, LDHD);
-          wmma::mma_sync(d, fa, fb, d);
-        }
-        wmma::store_matrix_sync(dst, d, HDP, wmma::mem_row_major);
-      }
-      __syncthreads();
-      // dS = A (dO V^T - D): fp32 to the bias-gradient partial, bf16 over P
-      for (int tile = warp; tile < 64; tile += NWARPS) {
-        const int mt = tile >> 4, nt = tile & 15;
-        Acc s;
-        wmma::fill_fragment(s, 0.f);
+        for (int kk = 0; kk < HDP / 16; ++kk) tile_frag<RB>(qf[kk], qbuf, row0, q, kk);
+        const int rc[2] = {__ldg(codes + row0), __ldg(codes + row0 + 8)};
+        float mx[2] = {neg_inf, neg_inf}, l[2] = {0.f, 0.f};
+        float sc[32], tv[32];
+        int bc[32];
+#pragma unroll 1
+        for (int kb = 0; kb < 4; ++kb) {
+          zero<32>(sc);
+          hopper::wgmma_fence();
+          rows_product<HDP>(sc, qf, kbuf + kb * 64 * RB);
+          hopper::wgmma_commit();
+          bias_terms(bc, tv, tb, codes, rc, 64 * kb, q, true, shifted);
+          hopper::wgmma_wait<0>();
+          hopper::fence_operands(sc);
+          float bm[2] = {neg_inf, neg_inf};
 #pragma unroll
-        for (int k = 0; k < HDP; k += 16) {
-          FragA fa;
-          FragBt fb;
-          wmma::load_matrix_sync(fa, dos + mt * 16 * LDHD + k, LDHD);
-          wmma::load_matrix_sync(fb, vs + nt * 16 * LDHD + k, LDHD);
-          wmma::mma_sync(s, fa, fb, s);
-        }
-        wmma::store_matrix_sync(stg, s, 16, wmma::mem_row_major);
-        __syncwarp();
-        const int rr = mt * 16 + (lane >> 1), cc = nt * 16 + (lane & 1) * 8;
-        float da[8], p[8];
-        load8(da, stg + (lane >> 1) * 16 + (lane & 1) * 8);
-        load8(p, ss + rr * LDS + cc);
-        const float dd = drow[rr];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) da[i] = p[i] * (da[i] - dd);
-        store8_f32(dsh + static_cast<long long>(t * T + rr) * N + cc, da);
-        store8_bf16(ps + rr * LDP + cc, da);
-        __syncwarp();
-      }
-      __syncthreads();
-      // dQ = dS K -> workspace; dK += dS^T Q
-      for (int tile = warp; tile < 40; tile += NWARPS) {
-        if (tile < 8) {
-          const int mt = tile >> 1, nt = tile & 1;
-          Acc d;
-          wmma::fill_fragment(d, 0.f);
-          for (int k = 0; k < N; k += 16) {
-            FragA fa;
-            FragB fb;
-            wmma::load_matrix_sync(fa, ps + mt * 16 * LDP + k, LDP);
-            wmma::load_matrix_sync(fb, ks + k * LDHD + nt * 16, LDHD);
-            wmma::mma_sync(d, fa, fb, d);
+          for (int e = 0; e < 32; ++e) {
+            sc[e] = biased(sc[e], tv[e], bc[e]);
+            bm[(e >> 1) & 1] = fmaxf(bm[(e >> 1) & 1], sc[e]);
           }
-          tile_out(d, a.g_dqkv, QKVP, row0 + t * T + mt * 16, hh * HDP + nt * 16);
-        } else {
-          const int mt = (tile - 8) >> 1, nt = tile & 1;
-          Acc d;
-          float* dst = dka + mt * 16 * HDP + nt * 16;
-          wmma::load_matrix_sync(d, dst, HDP, wmma::mem_row_major);
 #pragma unroll
-          for (int k = 0; k < T; k += 16) {
-            FragAt fa;
-            FragB fb;
-            wmma::load_matrix_sync(fa, ps + k * LDP + mt * 16, LDP);
-            wmma::load_matrix_sync(fb, qs + k * LDHD + nt * 16, LDHD);
-            wmma::mma_sync(d, fa, fb, d);
+          for (int h2 = 0; h2 < 2; ++h2) {
+            bm[h2] = fmaxf(bm[h2], __shfl_xor_sync(0xffffffffu, bm[h2], 1));
+            bm[h2] = fmaxf(bm[h2], __shfl_xor_sync(0xffffffffu, bm[h2], 2));
+            const float mn = fmaxf(mx[h2], bm[h2]);
+            l[h2] *= __expf(mx[h2] - mn);
+            mx[h2] = mn;
           }
-          wmma::store_matrix_sync(dst, d, HDP, wmma::mem_row_major);
+#pragma unroll
+          for (int e = 0; e < 32; ++e) l[(e >> 1) & 1] += __expf(sc[e] - mx[(e >> 1) & 1]);
+        }
+        const float inv[2] = {__fdividef(1.f, quad_sum(l[0])), __fdividef(1.f, quad_sum(l[1]))};
+        float o[HDP / 2];
+        zero<HDP / 2>(o);
+#pragma unroll 1
+        for (int kb = 0; kb < 4; ++kb) {
+          zero<32>(sc);
+          hopper::wgmma_fence();
+          rows_product<HDP>(sc, qf, kbuf + kb * 64 * RB);
+          hopper::wgmma_commit();
+          bias_terms(bc, tv, tb, codes, rc, 64 * kb, q, true, shifted);
+          hopper::wgmma_wait<0>();
+          hopper::fence_operands(sc);
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            const int h2 = (e >> 1) & 1;
+            sc[e] = __expf(biased(sc[e], tv[e], bc[e]) - mx[h2]);
+            sc[e] *= inv[h2];
+          }
+          uint32_t pf[4][4];
+          to_frags(pf, sc);
+          hopper::wgmma_fence();
+          block_product<HDP>(o, pf, vbuf + kb * 64 * RB);
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+        }
+        hopper::fence_operands(o);
+        store_head<HDP>(a.o + (static_cast<size_t>(wv) * 4 + qt) * a.o_tiles * TILE_ELEMS, o, r0,
+                        hh * HDP, q);
+        if (q == 0) {
+          for (int h2 = 0; h2 < 2; ++h2) {
+            a.stat[unit * 2 * NT16 + row0 + 8 * h2] = mx[h2];
+            a.stat[unit * 2 * NT16 + NT16 + row0 + 8 * h2] = inv[h2];
+          }
         }
       }
-      __syncthreads();
-    }
-    // dK, dV of the head -> workspace
-    for (int i = tid; i < N * HDP / 8; i += NTHREADS) {
-      const int r = i / (HDP / 8), cv = (i % (HDP / 8)) * 8;
-      float v[8];
-      load8(v, dka + r * HDP + cv);
-      store8_bf16(a.g_dqkv + (row0 + r) * QKVP + CP + hh * HDP + cv, v);
-      load8(v, dva + r * HDP + cv);
-      store8_bf16(a.g_dqkv + (row0 + r) * QKVP + 2 * CP + hh * HDP + cv, v);
-    }
-    __syncthreads();
-  }
-
-  // ================= phase 3: qkv and LN1 backward per tile =================
-  for (int t = 0; t < TILES; ++t) {
-    float* part = part_of(t);
-    const long long tr0 = row0 + t * T;
-    // dqkv -> big; the padded heads' columns are zero (also written)
-    for (int i = tid; i < T * QKVP / 8; i += NTHREADS) {
-      const int r = i / (QKVP / 8), cv = (i % (QKVP / 8)) * 8;
-      bf16* g = a.g_dqkv + (tr0 + r) * QKVP + cv;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if ((cv % CP) / HDP < a.nh) {
-        v = *reinterpret_cast<const uint4*>(g);
-      } else {
-        *reinterpret_cast<uint4*>(g) = v;
+    } else {
+      const uint32_t dob = vbuf + L::HT;
+      const float* sm = reinterpret_cast<const float*>(smem_raw + (dob + L::HT - raw));
+      // sm: [0, 256) the row max, [256, 512) 1 / sum, [512, 768) D
+      const bool init = i == 0;  // this CTA's first unit writes its d(rpb) partial
+      // ======== the query rows: S, P, dP = dO V^T, dS; d(rpb) += dS; dQ = dS K
+#pragma unroll 1
+      for (int t2 = 0; t2 < 2; ++t2) {
+        const int qt = cw + 2 * t2, row0 = 64 * qt + r0;
+        uint32_t qf[HDP / 16][4], dof[HDP / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < HDP / 16; ++kk) {
+          tile_frag<RB>(qf[kk], qbuf, row0, q, kk);
+          tile_frag<RB>(dof[kk], dob, row0, q, kk);
+        }
+        const int rc[2] = {__ldg(codes + row0), __ldg(codes + row0 + 8)};
+        float mr[2], ir[2], dr[2];
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          mr[h2] = sm[row0 + 8 * h2];
+          ir[h2] = sm[NT16 + row0 + 8 * h2];
+          dr[h2] = sm[2 * NT16 + row0 + 8 * h2];
+        }
+        float dq[HDP / 2];
+        zero<HDP / 2>(dq);
+#pragma unroll 1
+        for (int kb = 0; kb < 4; ++kb) {
+          // the thread's entries of the d(rpb) partial, loaded while the
+          // block's products run
+          float* pr = prpb + static_cast<size_t>(row0) * NT16 + 64 * kb + 2 * q;
+          float2 t[8][2];
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int h2 = 0; h2 < 2; ++h2)
+              t[j][h2] = init ? make_float2(0.f, 0.f)
+                              : *reinterpret_cast<const float2*>(pr + 8 * h2 * NT16 + 8 * j);
+          float sc[32], dp[32], tv[32];
+          int bc[32];
+          zero<32>(sc);
+          zero<32>(dp);
+          hopper::wgmma_fence();
+          rows_product<HDP>(sc, qf, kbuf + kb * 64 * RB);
+          rows_product<HDP>(dp, dof, vbuf + kb * 64 * RB);
+          hopper::wgmma_commit();
+          bias_terms(bc, tv, tb, codes, rc, 64 * kb, q, true, shifted);
+          hopper::wgmma_wait<0>();
+          hopper::fence_operands(sc);
+          hopper::fence_operands(dp);
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            const int h2 = (e >> 1) & 1;
+            const float p = __expf(biased(sc[e], tv[e], bc[e]) - mr[h2]) * ir[h2];
+            dp[e] = p * (dp[e] - dr[h2]);  // dS
+          }
+          uint32_t dsf[4][4];
+          to_frags(dsf, dp);
+          hopper::wgmma_fence();
+          block_product<HDP>(dq, dsf, kbuf + kb * 64 * RB);
+          hopper::wgmma_commit();
+          // d(rpb) += dS while dQ runs (the first unit's partial starts at 0)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int h2 = 0; h2 < 2; ++h2)
+              *reinterpret_cast<float2*>(pr + 8 * h2 * NT16 + 8 * j) =
+                  make_float2(t[j][h2].x + dp[4 * j + 2 * h2], t[j][h2].y + dp[4 * j + 2 * h2 + 1]);
+          hopper::wgmma_wait<0>();
+        }
+        hopper::fence_operands(dq);
+        store_head<HDP>(a.dqkv + (static_cast<size_t>(wv) * 4 + qt) * a.dqkv_tiles * TILE_ELEMS, dq,
+                        r0, hh * Q3, q);
       }
-      *reinterpret_cast<uint4*>(big + r * LDQKV + cv) = v;
-    }
-    for (int i = tid; i < T * CP / 4; i += NTHREADS) {
-      const int r = i / (CP / 4), cv = (i % (CP / 4)) * 4;
-      *reinterpret_cast<float4*>(rs + r * LDX + cv) =
-          *reinterpret_cast<const float4*>(a.g_dx1 + (tr0 + r) * CP + cv);
-    }
-    // LN1 statistics of the tile's x rows (layernorm_rows' arithmetic)
-    for (int r = warp; r < T; r += NWARPS) {
-      const bf16* xr = a.x + token_offset(t * T + r);
-      float s = 0.f, sq = 0.f;
-      for (int i = lane; i < c; i += 32) {
-        const float v = __bfloat162float(xr[i]);
-        s += v;
-        sq += v * v;
+      // ======== the key rows: S^T = K Q^T, P^T, dP^T = V dO^T, dS^T;
+      //          dK = dS^T Q, dV = P^T dO
+#pragma unroll 1
+      for (int t2 = 0; t2 < 2; ++t2) {
+        const int kt = cw + 2 * t2, row0 = 64 * kt + r0;
+        uint32_t kf[HDP / 16][4], vf[HDP / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < HDP / 16; ++kk) {
+          tile_frag<RB>(kf[kk], kbuf, row0, q, kk);
+          tile_frag<RB>(vf[kk], vbuf, row0, q, kk);
+        }
+        const int rc[2] = {__ldg(codes + row0), __ldg(codes + row0 + 8)};
+        float dk[HDP / 2], dv[HDP / 2];
+        zero<HDP / 2>(dk);
+        zero<HDP / 2>(dv);
+#pragma unroll 1
+        for (int qb = 0; qb < 4; ++qb) {
+          float sc[32], dp[32], tv[32];
+          int bc[32];
+          zero<32>(sc);
+          zero<32>(dp);
+          hopper::wgmma_fence();
+          rows_product<HDP>(sc, kf, qbuf + qb * 64 * RB);
+          rows_product<HDP>(dp, vf, dob + qb * 64 * RB);
+          hopper::wgmma_commit();
+          bias_terms(bc, tv, tb, codes, rc, 64 * qb, q, false, shifted);
+          hopper::wgmma_wait<0>();
+          hopper::fence_operands(sc);
+          hopper::fence_operands(dp);
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            const int col = 64 * qb + 8 * (e >> 2) + 2 * q + (e & 1);  // the query
+            const float p = __expf(biased(sc[e], tv[e], bc[e]) - sm[col]) * sm[NT16 + col];
+            sc[e] = p;
+            dp[e] = p * (dp[e] - sm[2 * NT16 + col]);
+          }
+          uint32_t pf[4][4], sf[4][4];
+          to_frags(pf, sc);
+          to_frags(sf, dp);
+          hopper::wgmma_fence();
+          block_product<HDP>(dk, sf, qbuf + qb * 64 * RB);
+          block_product<HDP>(dv, pf, dob + qb * 64 * RB);
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+        }
+        hopper::fence_operands(dk);
+        hopper::fence_operands(dv);
+        bf16* ws = a.dqkv + (static_cast<size_t>(wv) * 4 + kt) * a.dqkv_tiles * TILE_ELEMS;
+        store_head<HDP>(ws, dk, r0, hh * Q3 + HDP, q);
+        store_head<HDP>(ws, dv, r0, hh * Q3 + 2 * HDP, q);
       }
-      s = warp_sum(s);
-      sq = warp_sum(sq);
-      const float inv_c = 1.f / static_cast<float>(c);
-      const float m = s * inv_c;
-      if (lane == 0) {
-        mu[r] = m;
-        rstd[r] = rsqrtf(fmaxf(sq * inv_c - m * m, 0.f) + a.eps);
-      }
     }
-    __syncthreads();
-    column_sums<T, NTHREADS>(big, LDQKV, QKVP, part + V_BQKV, tid);
-    // dy = dqkv @ Wqkv -> dys (fp32)
-    for (int strip = warp; strip < CP / 16; strip += NWARPS) {
-      const int n0 = strip * 16;
-      gemm_strip_kn<QKVP>(acc, big, LDQKV, a.wqkv, CP, n0);
-      strip_epilogue(acc, stg, lane, n0,
-                     [&](int r, int n, float (&v)[8]) { store8_f32(dys + r * LDX + n, v); });
-    }
-    __syncthreads();
-    layernorm_backward_rows<NWARPS, NTHREADS>(
-        dys, rs, LDX, a.g1, mu, rstd,
-        [&](int r, int i) { return __bfloat162float(a.x[token_offset(t * T + r) + i]); }, T, c,
-        part + V_G1, part + V_B1, tid, warp, lane);
     __syncwarp();
-    for (int r = warp; r < T; r += NWARPS) {
-      bf16* dr = a.dx + token_offset(t * T + r);
-      for (int i = lane; i < c; i += 32) dr[i] = __float2bfloat16(rs[r * LDX + i]);
-    }
-    __syncthreads();
+    if (lane == 0) hopper::mbar_arrive(bars + 8u * (2 + st));  // the stage is free
   }
+}
+
+template <int HDP, bool BWD>
+int launch_attn(const AttnArgs& a, cudaStream_t s) {
+  using L = AtLayout<HDP, BWD>;
+  auto kernel = attn16_kernel<HDP, BWD>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kernel<<<a.nh * a.cph, AT_THREADS, L::SMEM, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int MODE>
+int launch_k5a(const Args& a, int cp, int hdp, int grid, cudaStream_t s) {
+  if (cp == 96 && hdp == 16) return launch_window<16, 96, 16, MODE>(a, grid, s);
+  if (cp == 96 && hdp == 32) return launch_window<16, 96, 32, MODE>(a, grid, s);
+  if (cp == 192 && hdp == 32) return launch_window<16, 192, 32, MODE>(a, grid, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-extern "C" int sr_swin_block_bwd16_bf16(
-    const void* ct, const void* x, const void* extra, void* dx, void* dextra, const void* yc,
-    const void* qkv, const void* g1, const void* b1, const void* g2, const void* b2,
-    const void* wqkv, const void* wproj, const void* bproj, const void* wfc1, const void* bfc1,
-    const void* wfc2, const void* bfc2, const void* rpb, const void* mask, const void* scales,
-    void* ws16, void* ws32, void* part_win, void* dsp, void* part_w, void* vec, void* drpb,
-    void* wgrad, int batch, int h, int w, int c, int nh, int shift, int gelu_tanh, float eps,
-    int splits, int rows, void* stream) {
-  if (h % WS || w % WS || c < 1 || c > CP || nh < 1 || nh > MAX_HEADS)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long windows = static_cast<long long>(batch) * (h / WS) * (w / WS);
-  if (windows == 0) return 0;
-  const long long tokens = windows * N;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+using namespace swin_bwd;
 
-  Bwd16Args a;
+// K5w16's seven launches on one stream.  ct, x, extra (or null), dx,
+// dextra [batch, h, w, c] bf16; tiles, biases, LN params, table [nh, 961]
+// and codes as kernels/fused_block.py ``pack_block_tiles`` and
+// ops/window.py ``window_codes_tensor`` lay them out; scales [batch, 2]
+// or null.  Workspaces (kernels/fused_block.py ``bwd16_plan`` /
+// ``bwd16_bytes`` size them): ws the dW operands of the 64-token units,
+// qkvh and doh the head tiles, x1ws the per-unit x1 / dx1 scratch, pvec
+// the middle's then the tail's LayerNorm partials, stat the row
+// statistics, drow the row term, prpb the d(rpb) partials, pw the splits'
+// partials; outputs wgrad (the weight stream's layout, fp32) with vec
+// right after it (the bias sums in pack_block_tiles' bias layout, then
+// the LN sums) and rpb [nh, 256, 256].  geo: batch, h, w, c, nh, hidden,
+// shift, shifted, cp, hdp, stages, gelu_tanh, grid (K5a's CTAs), splits
+// (K5b's), cph (the attention's CTAs a head) — the plan; this entry
+// checks it.
+extern "C" int sr_swin_block_bwd16_bf16(
+    const void* ct, const void* x, const void* extra, void* dx, void* dextra, const void* tiles,
+    const void* bqkv, const void* bproj, const void* bfc1, const void* bfc2, const void* g1,
+    const void* b1, const void* g2, const void* b2, const void* table, const void* codes,
+    const void* scales, void* ws, void* qkvh, void* doh, void* x1ws, void* pvec, void* stat,
+    void* drow, void* prpb, void* pw, void* vec, void* rpb, void* wgrad, const int* geo,
+    float eps, void* stream) {
+  Args a{};
+  a.batch = geo[0];
+  a.h = geo[1];
+  a.w = geo[2];
+  a.c = geo[3];
+  a.nh = geo[4];
+  const int hidden = geo[5];
+  a.shift = geo[6];
+  a.shifted = geo[7];
+  const int cp = geo[8], hdp = geo[9];
+  a.stages = geo[10];
+  a.gelu_tanh = geo[11];
+  const int grid = geo[12], splits = geo[13], cph = geo[14];
+  a.chunks = (hidden + HC - 1) / HC;
+  a.eps = eps;
+  const long long windows =
+      static_cast<long long>(a.batch) * (a.h / WS16) * (a.w / WS16);
+  const long long units = 4 * windows, pairs = units / NCONS;
+  const bool widths = (cp == 96 && (hdp == 16 || hdp == 32)) || (cp == 192 && hdp == 32);
+  if (!widths || a.c < 1 || a.c > cp || a.nh < 1 || a.nh > MAX_HEADS || a.c % a.nh ||
+      a.c / a.nh > hdp || a.nh * hdp > cp || hidden < 1 || hidden > 384 || a.h % WS16 ||
+      a.w % WS16 || a.shift < 0 || a.shift >= WS16 || grid < 1 || (pairs > 0 && grid > pairs) ||
+      splits < 1 || (units > 0 && splits > units) || cph < 1 || (windows > 0 && cph > windows) ||
+      !aligned_to(tiles, 16) || !aligned_to(bqkv, 8) || !aligned_to(bproj, 8) ||
+      !aligned_to(bfc1, 8) || !aligned_to(bfc2, 8) || !aligned_to(ws, 16) ||
+      !aligned_to(qkvh, 16) || !aligned_to(doh, 16) || !aligned_to(x1ws, 16) ||
+      !aligned_to(pvec, 8) || !aligned_to(stat, 16) || !aligned_to(drow, 16) ||
+      !aligned_to(prpb, 8) ||
+      (a.c % 2 == 0 && !(aligned_to(x, 4) && aligned_to(ct, 4) && aligned_to(dx, 4) &&
+                         (!extra || (aligned_to(extra, 4) && aligned_to(dextra, 4))))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (windows == 0) return 0;
   a.ct = static_cast<const bf16*>(ct);
   a.x = static_cast<const bf16*>(x);
   a.extra = static_cast<const bf16*>(extra);
   a.dx = static_cast<bf16*>(dx);
   a.dextra = static_cast<bf16*>(dextra);
-  a.qkv = static_cast<const bf16*>(qkv);
+  a.tiles = static_cast<const bf16*>(tiles);
+  a.bqkv = static_cast<const float*>(bqkv);
+  a.bproj = static_cast<const float*>(bproj);
+  a.bfc1 = static_cast<const float*>(bfc1);
+  a.bfc2 = static_cast<const float*>(bfc2);
   a.g1 = static_cast<const float*>(g1);
   a.b1 = static_cast<const float*>(b1);
   a.g2 = static_cast<const float*>(g2);
   a.b2 = static_cast<const float*>(b2);
-  a.wqkv = static_cast<const bf16*>(wqkv);
-  a.wproj = static_cast<const bf16*>(wproj);
-  a.bproj = static_cast<const float*>(bproj);
-  a.wfc1 = static_cast<const bf16*>(wfc1);
-  a.bfc1 = static_cast<const float*>(bfc1);
-  a.wfc2 = static_cast<const bf16*>(wfc2);
-  a.bfc2 = static_cast<const float*>(bfc2);
-  a.rpb = static_cast<const float*>(rpb);
-  a.mask = static_cast<const float*>(mask);
+  a.table = static_cast<const float*>(table);
+  a.codes = static_cast<const int*>(codes);
   a.scales = static_cast<const float*>(scales);
-  // bf16 workspace segments, [tokens][cols] each, in the order of
-  // kernels/fused_block.py K5W16_BF16_COLS; fp32: dx1, then the x1 and h1
-  // scratch rows
-  bf16* p16 = static_cast<bf16*>(ws16);
-  bf16** segs16[] = {&a.g_o, &a.g_y2c, &a.g_act, &a.g_dmlp, &a.g_dh1, &a.g_dattn, &a.g_do,
-                     &a.g_dqkv};
-  const int cols16[] = {CP, CP, HIDP, CP, HIDP, CP, CP, QKVP};
-  for (int i = 0; i < 8; ++i) {
-    *segs16[i] = p16;
-    p16 += tokens * cols16[i];
+  const int kc = (cp + 63) / 64, q3 = 3 * hdp;
+  const int qt = (a.nh * q3 + 63) / 64;
+  const int tiles_of[N_OPS] = {kc, kc, kc, a.chunks, qt, kc, a.chunks, kc};
+  bf16* p = static_cast<bf16*>(ws);
+  for (int o = 0; o < N_OPS; ++o) {
+    a.op[o] = p;
+    a.op_tiles[o] = tiles_of[o];
+    p += units * tiles_of[o] * TILE_ELEMS;
   }
-  a.g_dx1 = static_cast<float*>(ws32);
-  a.g_x1 = a.g_dx1 + tokens * CP;
-  a.g_h1 = a.g_x1 + windows * T * CP;
-  a.part = static_cast<float*>(part_win);
-  a.dsp = static_cast<float*>(dsp);
-  a.h = h;
-  a.w = w;
-  a.c = c;
-  a.nh = nh;
-  a.shift = shift;
-  a.gelu_tanh = gelu_tanh;
-  a.eps = eps;
-  cudaError_t err = cudaFuncSetAttribute(
-      swin_block_bwd16_window, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  swin_block_bwd16_window<<<static_cast<unsigned int>(windows), NTHREADS, SMEM_BYTES, st>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  a.qkvh = static_cast<bf16*>(qkvh);
+  a.doh = static_cast<bf16*>(doh);
+  a.drow = static_cast<float*>(drow);
+  a.x1ws = static_cast<float*>(x1ws);
+  a.vl = 4 * cp;
+  const long long ln_rows = static_cast<long long>(grid) * NCONS * 4;
+  float* pv_mid = static_cast<float*>(pvec);
+  float* pv_tail = pv_mid + ln_rows * a.vl;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
 
-  const bf16* gs[] = {a.g_dqkv, a.g_dattn, a.g_dh1, a.g_dmlp};
-  const bf16* acts[] = {static_cast<const bf16*>(yc), a.g_o, a.g_y2c, a.g_act};
-  const int ms[] = {QKVP, CP, HIDP, CP};
-  const int ns[] = {CP, CP, CP, HIDP};
-  int status = weight_grads(gs, acts, ms, ns, 4, tokens, splits, rows,
-                            static_cast<float*>(part_w), static_cast<float*>(wgrad), st);
+  AttnArgs t;
+  t.qkvh = a.qkvh;
+  t.doh = a.doh;
+  t.drow = a.drow;
+  t.stat = static_cast<float*>(stat);
+  t.o = a.op[OP_O];
+  t.dqkv = a.op[OP_DQKV];
+  t.prpb = static_cast<float*>(prpb);
+  t.table = a.table;
+  t.codes = a.codes;
+  t.windows = static_cast<int>(windows);
+  t.per_img = (a.h / WS16) * (a.w / WS16);
+  t.nh = a.nh;
+  t.cph = cph;
+  t.o_tiles = a.op_tiles[OP_O];
+  t.dqkv_tiles = a.op_tiles[OP_DQKV];
+  t.shifted = a.shifted;
+  const auto attn = [&](bool bwd) {
+    if (hdp == 16) return bwd ? launch_attn<16, true>(t, s) : launch_attn<16, false>(t, s);
+    return bwd ? launch_attn<32, true>(t, s) : launch_attn<32, false>(t, s);
+  };
+
+  a.pvec = pv_mid;  // (the front writes no LayerNorm sums)
+  int status = launch_k5a<MODE_FRONT>(a, cp, hdp, grid, s);
+  if (status == 0) status = attn(false);
+  if (status == 0) status = launch_k5a<MODE_MID>(a, cp, hdp, grid, s);
+  if (status == 0) status = attn(true);
+  a.pvec = pv_tail;
+  if (status == 0) status = launch_k5a<MODE_TAIL>(a, cp, hdp, grid, s);
   if (status != 0) return status;
-  status = reduce_rows(static_cast<const float*>(part_win), windows * TILES, VEC_LEN,
-                       static_cast<float*>(vec), st);
-  if (status != 0) return status;
-  return reduce_rows(static_cast<const float*>(dsp), windows,
-                     static_cast<long long>(nh) * N * N, static_cast<float*>(drpb), st);
+  const long long bias_len = a.nh * q3 + 2LL * cp + a.chunks * HC;
+  return launch_wgrad_reduce(
+      a, units, cp, hdp, splits, static_cast<float*>(pw), static_cast<float*>(wgrad),
+      static_cast<float*>(vec),
+      {pv_mid, 2 * ln_rows, a.vl, static_cast<float*>(vec) + bias_len},
+      {static_cast<const float*>(prpb), cph, static_cast<long long>(a.nh) * NT16 * NT16,
+       static_cast<float*>(rpb)},
+      s);
 }

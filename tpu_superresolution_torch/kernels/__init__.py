@@ -24,7 +24,7 @@ K1   fused_block.py:958 . fused_swin_block (_mega_forward)         S,T,H    CUDA
      (the same function at any other window or width)             H16,W,   K2 + K7 + K1's tail, CUDA csrc/swin_tail.cu, fused_block.fused_block_tail (K1t)
                                                                   H16T
 K5   fused_block.py:1080 . _mega_backward                          T,HT     CUDA csrc/swin_block_bwd.cu (ws 8, extra; wgmma on the forward's tiles, fused_block.bwd_plan), fused_block.SwinBlockFunction
-     (at ws 16, the K7 route's block, counted as K5w16)            H16T     CUDA csrc/swin_block_bwd16.cu, fused_block.WindowBlockFunction
+     (at ws 16, the K7 route's block, counted as K5w16)            H16T     CUDA csrc/swin_block_bwd16.cu (K5a's ws-16 modes + two attention kernels, fused_block.bwd16_plan), fused_block.WindowBlockFunction
 K2   layernorm.py:54 . pallas_layernorm (layernorm_spatial)        all      CUDA csrc/layernorm.cu, layernorm.layernorm
 K3   cab_conv.py:307 . conv3x3_halo                                all      CUDA csrc/conv.cu, cab_conv.conv3x3
 K4   cab_conv.py:418 . conv_halo                                   all      CUDA csrc/conv.cu, cab_conv.conv_k

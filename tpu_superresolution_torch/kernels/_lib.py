@@ -60,7 +60,7 @@ _SIGNATURES = {
     "sr_window_product_bf16": [_P] * 4 + [ctypes.c_longlong] + [_I] * 11 + [_P],
     "sr_window_attention_stream_bf16": ([_P] * 7 + [_I] * 10 + [ctypes.c_float] + [_I] * 8
                                         + [_P]),
-    "sr_swin_block_bwd16_bf16": [_P] * 29 + [_I] * 7 + [ctypes.c_float, _I, _I, _P],
+    "sr_swin_block_bwd16_bf16": [_P] * 29 + [ctypes.POINTER(_I), ctypes.c_float, _P],
     "sr_ocab16_fwd_bf16": [_P] * 14 + [_I] * 4 + [ctypes.c_float, _P],
     "sr_ocab16_bwd_bf16": [_P] * 26 + [_I] * 4 + [ctypes.c_float, _I, _I, _P],
 }

@@ -40,9 +40,8 @@ and fc2).  Its launch plan comes from static shapes alone
 in the consumers' order, the biases, and the [nH, (2ws-1)^2] bias table
 that it reads through the token codes of ``ops.window.window_token_codes``
 (the bias and the shift mask, bit for bit, without the dense [nH, N, N]
-and [nW, N, N] reads).  The backward reads the same stream (see below);
-``pack_block_weights`` (the [out, in] layout padded to 192 / 32 / 384
-with the gathered bias) is K5w16's alone.
+and [nW, N, N] reads).  The backward reads the same stream (see below),
+at ws 16 too.
 
 Which blocks take the kernel is decided by ``block_route`` from static
 shapes alone, the same on every call and device: ws 7 or 8 within those
@@ -82,8 +81,10 @@ K6 and its backward K5 / K6b, both on one ``pack_block_tiles`` pack a
 step.  Its ws-7 backward launches count as K6b.  A K7-route block at ws 16 within the block kernel's widths
 (``k5w16_ok``: upstream HAT-SRx4's HABs) trains through
 ``WindowBlockFunction``: forward the route's K2, gathers, K7 and K1t,
-backward K5 at ws 16 (``csrc/swin_block_bwd16.cu``, counted as K5w16,
-after a K2 launch and K7's product launch that recompute LN1 and qkv).  At
+backward K5 at ws 16 (``csrc/swin_block_bwd16.cu``, counted as K5w16: K5a
+runs the windows' 64-token tiles in three token-local launches around two
+attention kernels over (window, head) units, on one ``pack_block_tiles``
+pack a step, ``bwd16_plan``).  At
 the route's other windows the backward is still autograd of the
 kernels' plain versions, where the JAX package runs K5 (ws 24, 32, ...)
 or ``_packed_backward`` (ws 6, 12, ...): ROADMAP Queue 2.
@@ -101,8 +102,8 @@ import torch
 import torch.nn.functional as F
 
 from tpu_superresolution_torch.kernels import _lib
-from tpu_superresolution_torch.kernels.fused_attention import qkv_product, window_attention_plain
-from tpu_superresolution_torch.kernels.layernorm import layernorm, layernorm_plain
+from tpu_superresolution_torch.kernels.fused_attention import window_attention_plain
+from tpu_superresolution_torch.kernels.layernorm import layernorm_plain
 from tpu_superresolution_torch.ops.window import (
     cyclic_shift,
     cyclic_unshift,
@@ -209,34 +210,6 @@ class SwinBlockGrads:
     extra: Optional[torch.Tensor] = None
 
 
-@dataclasses.dataclass(frozen=True)
-class PackedSwinBlock:
-    """The backward kernels' operands: bf16 GEMM weights in the [out, in]
-    layout, zero-padded to the kernels' tile sizes (q rows pre-scaled by
-    hd^-0.5, head dims padded hd -> 32, channels C -> 192), fp32 biases
-    and LayerNorm params, and the gathered [nH, N, N] relative-position
-    bias of the window size (N = ws^2).  K5 and K6b take it at ws 8 and
-    7, K5w16 at ws 16 (the forward takes ``PackedBlockTiles``)."""
-
-    wqkv: torch.Tensor   # [3*CP, CP] bf16
-    bqkv: torch.Tensor   # [3*CP] fp32
-    wproj: torch.Tensor  # [CP, CP] bf16
-    bproj: torch.Tensor  # [CP] fp32
-    wfc1: torch.Tensor   # [HIDP, CP] bf16
-    bfc1: torch.Tensor   # [HIDP] fp32
-    wfc2: torch.Tensor   # [CP, HIDP] bf16
-    bfc2: torch.Tensor   # [CP] fp32
-    g1: torch.Tensor
-    b1: torch.Tensor
-    g2: torch.Tensor
-    b2: torch.Tensor
-    rpb: torch.Tensor    # [nH, ws^2, ws^2] fp32
-    dim: int
-    num_heads: int
-    hidden: int
-    window_size: int
-
-
 def _check_widths(w: SwinBlockWeights) -> None:
     c, nh, hidden = w.dim, w.num_heads, int(w.wfc1.shape[0])
     if c > CP or c % nh or c // nh > HDP or nh > MAX_HEADS or hidden > HIDP:
@@ -316,50 +289,6 @@ def check_differentiable(ws: int, extra: Optional[torch.Tensor], name: str) -> N
             f"{KERNEL_WINDOWS} (ws {BWD16_WINDOW} trains on the K7 route, through "
             f"WindowBlockFunction); run under torch.no_grad(), or on the CPU"
         )
-
-
-@torch.no_grad()
-def pack_block_weights(w: SwinBlockWeights, rpb: Optional[torch.Tensor] = None) -> PackedSwinBlock:
-    """Lay one block's weights out for the kernels (the counterpart of
-    the JAX package's ``_prep_weights``).  At inference the caller
-    builds it once per loaded weights; in training once per step.
-    `rpb`: the gathered bias, when the caller already has it."""
-    _check_widths(w)
-    c, nh = w.dim, w.num_heads
-    hd, hidden = c // nh, int(w.wfc1.shape[0])
-    bf = torch.bfloat16
-    ph, pd, pc = MAX_HEADS - nh, HDP - hd, CP - c
-
-    def scale_q(t):  # [3, ...] with the q rows pre-scaled
-        t = t.float()
-        return torch.cat([t[:1] * w.scale, t[1:]])
-
-    # [out, in] layouts (nn.Linear's), zero-padded with one F.pad each
-    # (training packs all 36 blocks on every step: few ops per tensor)
-    wqkv = F.pad(scale_q(w.wqkv.reshape(3, nh, hd, c)), (0, pc, 0, pd, 0, ph))
-    bqkv = F.pad(scale_q(w.bqkv.reshape(3, nh, hd)), (0, pd, 0, ph))
-    wproj = F.pad(w.wproj.reshape(c, nh, hd), (0, pd, 0, ph, 0, pc))
-    if rpb is None:
-        rpb = relative_position_bias(w.table, w.window_size)
-    return PackedSwinBlock(
-        wqkv=wqkv.reshape(3 * CP, CP).to(bf),
-        bqkv=bqkv.reshape(-1),
-        wproj=wproj.reshape(CP, CP).to(bf),
-        bproj=F.pad(w.bproj.float(), (0, pc)),
-        wfc1=F.pad(w.wfc1, (0, pc, 0, HIDP - hidden)).to(bf),
-        bfc1=F.pad(w.bfc1.float(), (0, HIDP - hidden)),
-        wfc2=F.pad(w.wfc2, (0, HIDP - hidden, 0, pc)).to(bf),
-        bfc2=F.pad(w.bfc2.float(), (0, pc)),
-        g1=w.g1.float().contiguous(),
-        b1=w.b1.float().contiguous(),
-        g2=w.g2.float().contiguous(),
-        b2=w.b2.float().contiguous(),
-        rpb=rpb.float().contiguous(),
-        dim=c,
-        num_heads=nh,
-        hidden=hidden,
-        window_size=w.window_size,
-    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -835,44 +764,6 @@ def _check_block_input(x: torch.Tensor, w: SwinBlockWeights, ws: int, shift: int
     _lib.check_tensor(x, "x", torch.bfloat16, x.device, ndim=4, align=2)
 
 
-def _check_packed(packed: PackedSwinBlock, x: torch.Tensor, mask, scales, name: str,
-                  extra: Optional[torch.Tensor] = None) -> None:
-    b, h, wd, c = x.shape
-    if packed.dim != c:
-        raise ValueError(f"{name}: weights for C={packed.dim}, x has C={c}")
-    dev = x.device
-    ws = packed.window_size
-    n = ws * ws
-    # K5w16's WMMA reads the bf16 weight tiles straight from global memory
-    # (32-byte aligned rows); biases are read as float4, LayerNorm params as
-    # scalars, rpb and mask as float4 rows.
-    bf, f32 = torch.bfloat16, torch.float32
-    table_align = 16 if n % 8 == 0 else 4
-    for tname, t, shape, dtype, align in (
-        ("wqkv", packed.wqkv, (3 * CP, CP), bf, 32),
-        ("bqkv", packed.bqkv, (3 * CP,), f32, 16),
-        ("wproj", packed.wproj, (CP, CP), bf, 32),
-        ("bproj", packed.bproj, (CP,), f32, 16),
-        ("wfc1", packed.wfc1, (HIDP, CP), bf, 32),
-        ("bfc1", packed.bfc1, (HIDP,), f32, 16),
-        ("wfc2", packed.wfc2, (CP, HIDP), bf, 32),
-        ("bfc2", packed.bfc2, (CP,), f32, 16),
-        ("g1", packed.g1, (c,), f32, 4),
-        ("b1", packed.b1, (c,), f32, 4),
-        ("g2", packed.g2, (c,), f32, 4),
-        ("b2", packed.b2, (c,), f32, 4),
-        ("rpb", packed.rpb, (packed.num_heads, n, n), f32, table_align),
-    ):
-        _lib.check_tensor(t, tname, dtype, dev, shape=shape, align=align)
-    if mask is not None:
-        n_windows = (h // ws) * (wd // ws)
-        _lib.check_tensor(mask, "mask", f32, dev, shape=(n_windows, n, n), align=table_align)
-    if scales is not None:
-        _lib.check_tensor(scales, "branch_scales", f32, dev, shape=(b, 2), align=4)
-    if extra is not None:
-        _lib.check_tensor(extra, "extra", bf, dev, shape=tuple(x.shape), align=2)
-
-
 def _check_tiles(packed: PackedBlockTiles, x: torch.Tensor, scales, name: str,
                  extra: Optional[torch.Tensor] = None) -> None:
     b, h, wd, c = x.shape
@@ -937,19 +828,10 @@ def _launch_block(x, packed: PackedBlockTiles, shift, mask, gelu_approx, scales,
     return y
 
 
-# K5's split-K reduction: at most this many row chunks per weight GEMM.
+# The split-K reduction of csrc/wgrad.cuh (K8b, K8bw16): at most this many
+# row chunks per weight GEMM.
 K5_MAX_SPLITS = 16
 K5_MIN_ROWS_PER_SPLIT = 512
-# Per-window partial sums written by K5a: LN g1, b1, g2, b2 (CP each),
-# then the bias sums bqkv (3CP), bproj (CP), bfc1 (HIDP), bfc2 (CP);
-# the per-head dS [nh, ws^2, ws^2] follows.
-_VEC_OFFSETS = {"g1": 0, "b1": CP, "g2": 2 * CP, "b2": 3 * CP, "bqkv": 4 * CP,
-                "bproj": 7 * CP, "bfc1": 8 * CP, "bfc2": 8 * CP + HIDP}
-_VEC_SIZES = {"bqkv": 3 * CP, "bfc1": HIDP}
-K5_VEC = 9 * CP + HIDP
-# Weight-gradient GEMMs of K5w16, [out, in] each, concatenated in this order.
-_WGRAD_SHAPES = (("wqkv", 3 * CP, CP), ("wproj", CP, CP), ("wfc1", HIDP, CP), ("wfc2", CP, HIDP))
-K5_WGRAD = sum(m * n for _, m, n in _WGRAD_SHAPES)
 
 
 def k5_splits(tokens: int) -> Tuple[int, int]:
@@ -1107,7 +989,8 @@ def fold_block_grads(gv: torch.Tensor, rpb: torch.Tensor, c: int, heads: int, hi
     transpose of ``_tile_indices``' gather, pad entries dropped), the q
     rows times the pre-scale; the biases likewise from the vector's bias
     part, the LN params from its tail; one gather and one multiply.
-    d(rpb) [heads, N, N] from the [heads, 64, 64] token-padded one."""
+    d(rpb) [heads, N, N] from the [heads, 64, 64] token-padded one (ws
+    7 / 8) or as it is (ws 16: [heads, 256, 256])."""
     idx, factor = _fold_indices(c, heads, hidden, gv.device)
     flat = gv[idx].mul_(factor)
     shapes = dict(wqkv=(3 * c, c), wproj=(c, c), wfc1=(hidden, c), wfc2=(c, hidden),
@@ -1119,7 +1002,7 @@ def fold_block_grads(gv: torch.Tensor, rpb: torch.Tensor, c: int, heads: int, hi
         out[k] = flat[off:off + n].reshape(shapes[k])
         off += n
     n = ws * ws
-    out["rpb"] = rpb.reshape(heads, 64, 64)[:, :n, :n]
+    out["rpb"] = rpb.reshape(heads, n, n) if n > N_TOK else rpb.reshape(heads, 64, 64)[:, :n, :n]
     return out
 
 
@@ -1172,31 +1055,9 @@ def _launch_bwd(ct, x, packed: PackedBlockTiles, shift, mask, gelu_approx, scale
     return dx, fold_block_grads(gv, rpb, c, nh, hidden, ws), dextra
 
 
-def unpack_block_grads(g: dict, packed: PackedSwinBlock, scale: float) -> dict:
-    """Packed-layout gradients of K5w16 -> raw [out, in] parameter
-    gradients: drop the head-dim and channel padding and carry the q
-    pre-scale (``fused_block.py:1098-1105``)."""
-    c, nh, hidden = packed.dim, packed.num_heads, packed.hidden
-    hd = c // nh
-    # (g is this launch's fresh output: scaling it in place is safe)
-    dwqkv = g["wqkv"].reshape(3, MAX_HEADS, HDP, CP)[:, :nh, :hd, :c].reshape(3, c, c)
-    dbqkv = g["bqkv"].reshape(3, MAX_HEADS, HDP)[:, :nh, :hd].reshape(3, c)
-    dwqkv[0] *= scale
-    dbqkv[0] *= scale
-    return dict(
-        g1=g["g1"][:c], b1=g["b1"][:c], g2=g["g2"][:c], b2=g["b2"][:c],
-        wqkv=dwqkv.reshape(3 * c, c), bqkv=dbqkv.reshape(3 * c),
-        wproj=unpack_proj_grad(g["wproj"], c, nh),
-        bproj=g["bproj"][:c],
-        wfc1=g["wfc1"][:hidden, :c], bfc1=g["bfc1"][:hidden],
-        wfc2=g["wfc2"][:c, :hidden], bfc2=g["bfc2"][:c],
-        rpb=g["rpb"],
-    )
-
-
 def unpack_proj_grad(g: torch.Tensor, c: int, nh: int) -> torch.Tensor:
     """[CP, CP] packed proj gradient (input columns head-padded) -> the
-    raw [c, c] one."""
+    raw [c, c] one (the OCAB backwards' layout)."""
     return g.reshape(CP, MAX_HEADS, HDP)[:c, :nh, :c // nh].reshape(c, c)
 
 
@@ -1209,8 +1070,8 @@ def fused_swin_block_backward(ct: torch.Tensor, x: torch.Tensor, w: SwinBlockWei
     K6b at ws 7, K5w16 at ws 16; d`extra` when the forward had `extra`).
     CPU tensors -> plain version; CUDA tensors -> the kernel (bf16 ct, x
     and extra, fp32 branch scales), gradients in raw weight space.
-    `packed`: the forward's ``pack_block_tiles(w)`` at ws 7 / 8,
-    ``pack_block_weights(w)`` at ws 16 (built here when None)."""
+    `packed`: the forward's ``pack_block_tiles(w)`` (built here when
+    None)."""
     if x.device.type == "cpu":
         return swin_block_bwd_plain(ct, x, w, ws, shift, mask, gelu_approx, branch_scales, extra)
     name = "fused_swin_block_backward"
@@ -1224,15 +1085,10 @@ def fused_swin_block_backward(ct: torch.Tensor, x: torch.Tensor, w: SwinBlockWei
         branch_scales = branch_scales.float().contiguous()
     if extra is not None:
         extra = extra.contiguous()
-    if ws == BWD16_WINDOW:
-        packed = packed if packed is not None else pack_block_weights(w)
-        dx, g, dextra = _launch_bwd16(ct.contiguous(), x, packed, shift, mask, gelu_approx,
-                                      branch_scales, extra)
-        g = unpack_block_grads(g, packed, w.scale)
-    else:
-        packed = packed if packed is not None else pack_block_tiles(w)
-        dx, g, dextra = _launch_bwd(ct.contiguous(), x, packed, shift, mask, gelu_approx,
-                                    branch_scales, extra)
+    packed = packed if packed is not None else pack_block_tiles(w)
+    launch = _launch_bwd16 if ws == BWD16_WINDOW else _launch_bwd
+    dx, g, dextra = launch(ct.contiguous(), x, packed, shift, mask, gelu_approx, branch_scales,
+                           extra)
     return SwinBlockGrads(dx=dx, extra=dextra, **g)
 
 
@@ -1249,61 +1105,127 @@ def check_k5w16_args(shape: Sequence[int], w: SwinBlockWeights, shift: int, name
     _check_widths(w)
 
 
-# K5w16's per-window sums come per (window, 64-row tile): 4 rows a window.
-K5W16_TILES = 4
-# bf16 operand columns per token of K5w16's workspace: o, y2c, act, dmlp,
-# dh1, dattn, do, dqkv (csrc/swin_block_bwd16.cu); fp32: dx1 (CP) per
-# token, then one tile's x1 (CP) and h1 (HIDP) rows per window.
-K5W16_BF16_COLS = 5 * CP + 2 * HIDP + 3 * CP
+# csrc/swin_block_bwd16.cu (K5w16): a window's tokens; the attention
+# kernels' bias table of one head, their row statistics a (window, head)
+# unit (row max, 1 / sum, rowsum(do o)), barriers
+BWD16_TOKENS = 256
+BWD16_TABLE_BYTES = 4096
+BWD16_STAT_BYTES = 3 * BWD16_TOKENS * 4
 
 
-def _launch_bwd16(ct, x, packed: PackedSwinBlock, shift, mask, gelu_approx, scales, extra=None):
-    """The block backward at ws 16: LN1 (K2) and qkv (K7's product launch)
-    recomputed into the workspace, then K5w16's per-window kernel, the
-    weight-gradient products and the ordered reductions.  Returns (dx,
-    packed-space fp32 gradients, d extra or None); counts one K5w16
-    launch."""
+@dataclasses.dataclass(frozen=True)
+class Bwd16Plan:
+    """How csrc/swin_block_bwd16.cu runs a ws-16 block backward over
+    `windows` windows: `block`, K5a's plan (``bwd_plan``), whose three
+    token-local launches take the windows' `units` 64-token tiles on
+    `grid` CTAs; K5b's `splits` over the units; the attention kernels'
+    `cph` CTAs a head, walking `att_units` (window, head) units in
+    `rounds` rounds, the last on `tail_ctas` CTAs; their shared memory a
+    CTA (`att_fwd_smem`, `att_bwd_smem`: two stages of the unit's [256,
+    hdp] head tiles, the backward's with do and the row statistics, one
+    head's bias table)."""
+
+    block: BwdPlan
+    windows: int
+    units: int
+    grid: int
+    splits: int
+    cph: int
+    att_units: int
+    rounds: int
+    tail_ctas: int
+    att_fwd_smem: int
+    att_bwd_smem: int
+
+
+@functools.lru_cache(maxsize=64)
+def bwd16_plan(c: int, heads: int, hidden: int, windows: int, sms: int) -> Bwd16Plan:
+    """K5w16's plan from static shapes alone (the C entry only checks
+    it).  Raises ValueError outside ``k5w16_ok``'s widths (C <= 192, <= 6
+    heads of hd <= 32, hidden <= 384)."""
+    if not k5w16_ok(BWD16_WINDOW, c, heads, hidden):
+        raise ValueError(f"K5w16 takes C <= {CP}, <= {MAX_HEADS} heads of hd <= {HDP}, hidden "
+                         f"<= {HIDP}; got C={c}, heads={heads}, hidden={hidden}")
+    plan = bwd_plan(c, heads, hidden)
+    units = 4 * windows
+    grid, splits = bwd_grid(plan, units, sms)
+    cph = max(1, min(windows, sms // heads))
+    rounds = -(-windows // cph)
+    tile = BWD16_TOKENS * 2 * plan.hdp
+    smem = lambda stage: 1024 + 2 * stage + BWD16_TABLE_BYTES + 4 * 8
+    return Bwd16Plan(block=plan, windows=windows, units=units, grid=grid, splits=splits, cph=cph,
+                     att_units=windows * heads, rounds=rounds,
+                     tail_ctas=heads * (windows - (rounds - 1) * cph),
+                     att_fwd_smem=smem(3 * tile), att_bwd_smem=smem(4 * tile + BWD16_STAT_BYTES))
+
+
+def bwd16_bytes(p: Bwd16Plan, heads: int) -> dict:
+    """Bytes of each buffer K5w16 allocates: the dW workspace of the
+    units, the head tiles (q, k, v, do), dx1's per-tile scratch, the row
+    statistics and row term, the LayerNorm sums' partials (the middle's
+    and the tail's), the per-CTA d(rpb) partials and K5b's splits'."""
+    plan, n = p.block, BWD16_TOKENS
+    return {"workspace": p.units * plan.window_bytes,
+            "head tiles": p.windows * heads * 4 * n * plan.hdp * 2,
+            "dx1 scratch": p.units * 64 * plan.cp * 4,
+            "row statistics": p.windows * heads * 3 * n * 4,
+            "LN sums partials": 2 * p.grid * 2 * 4 * 4 * plan.cp * 4,
+            "rpb partials": p.cph * heads * n * n * 4,
+            "weight partials": p.splits * (plan.stream_len + plan.bias_len) * 4}
+
+
+def _launch_bwd16(ct, x, packed: PackedBlockTiles, shift, mask, gelu_approx, scales, extra=None):
+    """The block backward at ws 16 on the forward's weight stream: K5a's
+    front, the attention forward, K5a's middle, the attention backward,
+    K5a's tail, K5b and K5c on ``bwd16_plan``'s plan.  Returns (dx,
+    raw-space fp32 gradients, d extra or None); counts one K5w16 launch.
+    `mask` (``shift_attn_mask``'s) says only whether the windows are
+    masked: the bias and the mask come from the table and the codes."""
+    name = "fused_swin_block_backward"
     ws = BWD16_WINDOW
-    _check_packed(packed, x, mask, scales, "fused_swin_block_backward", extra)
-    _lib.check_tensor(ct, "ct", torch.bfloat16, x.device, shape=tuple(x.shape), align=2)
+    if packed.window_size != ws:
+        raise ValueError(f"{name}: weights packed for ws={packed.window_size}, K5w16 runs ws={ws}")
+    _check_tiles(packed, x, scales, name, extra)
+    _lib.check_tensor(ct, "ct", torch.bfloat16, x.device, shape=tuple(x.shape),
+                      align=4 if x.shape[3] % 2 == 0 else 2)
     b, h, wd, c = x.shape
-    nh, n = packed.num_heads, ws * ws
+    nh, hidden = packed.num_heads, packed.hidden
     windows = b * (h // ws) * (wd // ws)
-    tokens = windows * n
-    splits, rows = k5_splits(tokens)
     dev = x.device
-    yc = F.pad(window_partition(cyclic_shift(layernorm(x, packed.g1, packed.b1, LN_EPS), shift),
-                                ws), (0, CP - c)).reshape(tokens, CP)
-    qkv = qkv_product(yc, packed.wqkv, packed.bqkv)
+    p = bwd16_plan(c, nh, hidden, windows, _lib.sm_count(dev.index))
+    plan, n = p.block, BWD16_TOKENS
+    shifted = mask is not None and shift > 0
+    codes = window_codes_tensor(h, wd, ws, shift if shifted else 0, dev)
     dx = torch.empty_like(x)
     dextra = None if extra is None else torch.empty_like(x)
-    ws16 = torch.empty(tokens * K5W16_BF16_COLS, dtype=torch.bfloat16, device=dev)
-    ws32 = torch.empty(tokens * CP + windows * 64 * (CP + HIDP), dtype=torch.float32, device=dev)
-    part_win = torch.empty(windows * K5W16_TILES * K5_VEC, dtype=torch.float32, device=dev)
-    dsp = torch.empty(windows * nh * n * n, dtype=torch.float32, device=dev)
-    part_w = torch.empty(splits * K5_WGRAD, dtype=torch.float32, device=dev)
-    vec = torch.empty(K5_VEC, dtype=torch.float32, device=dev)
-    drpb = torch.empty(nh, n, n, dtype=torch.float32, device=dev)
-    wgrad = torch.empty(K5_WGRAD, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        status = _lib.library().sr_swin_block_bwd16_bf16(
-            ct.data_ptr(), x.data_ptr(), _ptr(extra), dx.data_ptr(), _ptr(dextra),
-            yc.data_ptr(), qkv.data_ptr(),
-            packed.g1.data_ptr(), packed.b1.data_ptr(), packed.g2.data_ptr(), packed.b2.data_ptr(),
-            packed.wqkv.data_ptr(), packed.wproj.data_ptr(), packed.bproj.data_ptr(),
-            packed.wfc1.data_ptr(), packed.bfc1.data_ptr(), packed.wfc2.data_ptr(),
-            packed.bfc2.data_ptr(), packed.rpb.data_ptr(), _ptr(mask), _ptr(scales),
-            ws16.data_ptr(), ws32.data_ptr(), part_win.data_ptr(), dsp.data_ptr(),
-            part_w.data_ptr(), vec.data_ptr(), drpb.data_ptr(), wgrad.data_ptr(),
-            b, h, wd, c, nh, shift, int(bool(gelu_approx)), LN_EPS, splits, rows,
-            _lib.stream_of(x),
-        )
+    sizes = bwd16_bytes(p, nh)
+    up = lambda v, m: -(-v // m) * m  # 16-byte aligned pieces
+    lens = [up(v, 8) for v in (sizes["workspace"] // 2, windows * nh * 3 * n * plan.hdp,
+                               windows * nh * n * plan.hdp)]
+    wsp, qkvh, doh = torch.empty(sum(lens), dtype=torch.bfloat16, device=dev).split(lens)
+    lens = [up(v, 4) for v in (sizes["dx1 scratch"] // 4, sizes["LN sums partials"] // 4,
+                               windows * nh * 2 * n, windows * nh * n, sizes["rpb partials"] // 4,
+                               sizes["weight partials"] // 4, plan.stream_len + plan.vec_len,
+                               nh * n * n)]
+    x1ws, pvec, stat, drow, prpb, pw, gv, rpb = torch.empty(
+        sum(lens), dtype=torch.float32, device=dev).split(lens)
+    gv, rpb = gv[:plan.stream_len + plan.vec_len], rpb[:nh * n * n]
+    wgrad, vec = gv[:plan.stream_len], gv[plan.stream_len:]
+    geo = (ctypes.c_int * 15)(b, h, wd, c, nh, hidden, shift, int(shifted), plan.cp, plan.hdp,
+                              plan.stages, int(bool(gelu_approx)), p.grid, p.splits, p.cph)
+    status = _lib.call(
+        x, _lib.library().sr_swin_block_bwd16_bf16,
+        ct.data_ptr(), x.data_ptr(), _ptr(extra), dx.data_ptr(), _ptr(dextra),
+        packed.tiles.data_ptr(), packed.bqkv.data_ptr(), packed.bproj.data_ptr(),
+        packed.bfc1.data_ptr(), packed.bfc2.data_ptr(), packed.g1.data_ptr(),
+        packed.b1.data_ptr(), packed.g2.data_ptr(), packed.b2.data_ptr(),
+        packed.table.data_ptr(), codes.data_ptr(), _ptr(scales), wsp.data_ptr(),
+        qkvh.data_ptr(), doh.data_ptr(), x1ws.data_ptr(), pvec.data_ptr(), stat.data_ptr(),
+        drow.data_ptr(), prpb.data_ptr(), pw.data_ptr(), vec.data_ptr(), rpb.data_ptr(),
+        wgrad.data_ptr(), geo, LN_EPS, _lib.stream_of(x))
     _lib.check_status(status, "sr_swin_block_bwd16_bf16")
     launches_bwd_w16.count += 1
-    g = split_wgrad(wgrad, _WGRAD_SHAPES)
-    g.update(split_vec(vec, _VEC_OFFSETS, _VEC_SIZES))
-    g["rpb"] = drpb
-    return dx, g, dextra
+    return dx, fold_block_grads(gv, rpb, c, nh, hidden, ws), dextra
 
 
 class SwinBlockFunction(torch.autograd.Function):
@@ -1370,8 +1292,8 @@ class WindowBlockFunction(torch.autograd.Function):
     """A K7-route block at ws 16 on CUDA: forward `route(x, w, scales,
     extra)` (the route's K2, gathers, K7 and K1t, run with no graph),
     backward K5w16 (``_launch_bwd16``).  Inputs as
-    ``SwinBlockFunction``'s; the weights are packed for K5w16 in the
-    backward."""
+    ``SwinBlockFunction``'s; the backward packs the weights once
+    (``pack_block_tiles``: K5w16 reads the block kernel's stream)."""
 
     @staticmethod
     def forward(ctx, x, scales, extra, meta, *params):
@@ -1385,13 +1307,10 @@ class WindowBlockFunction(torch.autograd.Function):
     def backward(ctx, ct):
         x, scales, extra, *params = ctx.saved_tensors
         shift, mask, gelu_approx, num_heads, table = ctx.block
-        raw = dict(zip(GRAD_FIELDS, params))
-        rpb = raw.pop("rpb")
-        w = SwinBlockWeights(table=table, num_heads=num_heads, **raw)
-        packed = pack_block_weights(w, rpb=rpb)
-        dx, g, dextra = _launch_bwd16(ct.to(x.dtype).contiguous(), x, packed, shift, mask,
-                                      gelu_approx, scales, extra)
-        grads = unpack_block_grads(g, packed, w.scale)
+        raw = dict(zip(GRAD_FIELDS[:-1], params))
+        packed = pack_block_tiles(SwinBlockWeights(table=table, num_heads=num_heads, **raw))
+        dx, grads, dextra = _launch_bwd16(ct.to(x.dtype).contiguous(), x, packed, shift, mask,
+                                          gelu_approx, scales, extra)
         return (dx, None, dextra, None) + tuple(grads[k] for k in GRAD_FIELDS)
 
 
