@@ -39,10 +39,14 @@ Phases (a failure in any raises, and the script exits non-zero):
             (its backward, on dq, dk, dv, d sw and 9 gradients); then
             DAT's kernels at DATConfig()'s widths on the bench tile
             batch and on a [2,52,76,180] image (sides not multiples of
-            16): K9 unshifted and shifted, K14 and K10, and K10 at the
-            published DAT x4's SGFN half 360, each output in bf16 ulps
-            against the plain bf16 and fp32 versions, each K10 row
-            beside the module chain's composition of its tail; then K7
+            16): K9 at split (8, 16) and the published DAT x4's (8, 32),
+            unshifted and shifted, K14 (two runs bit-identical) and K10,
+            each K9 / K14 row alone, 20 calls back to back, its bytes
+            moved by design and, on the bench batch, each of its
+            launches timed by the profiler; K10 at the published DAT
+            x4's SGFN half 360, each output in bf16 ulps against the
+            plain bf16 and fp32 versions, each K10 row beside the module
+            chain's composition of its tail; then K7
             (window attention for any window, width and head dim: its
             product and stream attention kernels) at HAT-SRx4's
             [25,64,64,180] ws 16 unshifted and shift 8, at SwinIR-L's
@@ -164,10 +168,9 @@ Phases (a failure in any raises, and the script exits non-zero):
             behind SRService (which loads it at split (8, 16): K9 and K14
             fronts, K10 tails), the serve phase's checks; then the model
             at (8, 32) on the bench workload, whose spatial fronts take
-            the module chain and whose tails K10: launches per call
-            (K10 36, K14 18, K16 36, K11 18, K9 = 0), >= 50 dB against
-            the plain fp32 path, MPix/s kernels vs plain, a profiled
-            split;
+            K9 at N 256 and whose tails K10: launches per call (K9 18,
+            K14 18, K10 36, K2 2, K16 = K11 = 0), >= 50 dB against the
+            plain fp32 path, MPix/s kernels vs plain, a profiled split;
 12. dat-train DAT x4 training (DATConfig() at full width and depth, drop
             path 0.1, batch 8, --patch_size 64, L1, AdamW, clip 1.0,
             --ema_decay 0.999) through ``cli.train.main(--model dat
@@ -330,14 +333,13 @@ HAT_SRX4_PER_CALL = dict(PER_CALL, K1=0, K1t=36, K2=50, K3=8, K4=1, K7=36, K12=3
 # K9 per spatial block (18, 9 of them shifted), K14 per channel block
 # (18), K10 per block (36); K2 for before_RG and norm; K3 for the 6 group
 # convs, conv_after_body and conv_before_upsample; K4 for the composed
-# reconstruction.  One K9 call is 2 CUDA launches, one K14 call 3.
+# reconstruction.  One K9 call is 4 CUDA launches, one K14 call 3.
 DAT_PER_CALL = dict(PER_CALL, K1=0, K2=2, K3=8, K4=1, K9=18, K10=36, K14=18)
 # The published DAT x4 (DAT's test_DAT_x4.yml: split (8, 32), expansion 4;
-# SGFN half 360), per bench call: K9 refuses s0 * s1 = 256, so the spatial
-# fronts (18) take the module chain: K16 per rect branch (36), K11 per
-# spatial conv branch (18), K2 for before_RG, norm and the 18 chain fronts'
-# LN1 (2 + 18); K14 per channel front (18); K10 per block tail (36).
-DAT_X4_PER_CALL = dict(PER_CALL, K1=0, K2=20, K3=8, K4=1, K10=36, K11=18, K14=18, K16=36)
+# SGFN half 360), per bench call: K9 takes the spatial fronts at N 256
+# (18), K14 the channel fronts (18), K10 every block tail (36); K2 for
+# before_RG and norm; no module-chain front, so no K16 or K11.
+DAT_X4_PER_CALL = dict(PER_CALL, K1=0, K2=2, K3=8, K4=1, K9=18, K10=36, K14=18)
 # A published DAT x4 .pth served: the split is not in the weights, so the
 # checkpoint loads at (8, 16) with expansion 4 (infer_dat_config, as the
 # JAX package): K9 and K14 fronts, K10 tails.
@@ -501,17 +503,20 @@ def phase_build():
     # the wgmma kernels by name (csrc/conv.cu: K3/K4's flat and halo routes;
     # csrc/window_attn.cu and window_attn_stream.cu: K7's product and
     # attention; csrc/cab_fused.cu: K12; csrc/swin_block.cu: K1 / K6;
-    # csrc/swin_block_bwd*.cu: K5a, K5w16's attention kernels), with
-    # their template arguments: registers, shared memory, spills
+    # csrc/swin_block_bwd*.cu: K5a, K5w16's attention kernels;
+    # csrc/dat_common.cuh: K9 / K14's product and conv), with their
+    # template arguments: registers, shared memory, spills
     kinds = ("conv_nhwc_wgmma_kernel", "conv_nhwc_halo_kernel", "window_product_kernel",
              "window_attn_stream_kernel", "cab_wgmma_kernel", "swin_block_wg_kernel",
-             "datb_tail_wg_kernel", "swin_block_bwd_kernel", "attn16_kernel")
+             "datb_tail_wg_kernel", "swin_block_bwd_kernel", "attn16_kernel",
+             "front_product_kernel", "dat_conv_kernel")
     name = None
     for line in out.splitlines():
         if "Function properties for" in line:
             fn = line.split("Function properties for")[-1].strip()
-            name = next((f"{k} <{','.join(fn.split('ILi')[1].split('EEv')[0].split('ELi'))}>"
-                         for k in kinds if k in fn and "ILi" in fn), None)
+            args = lambda k: fn.split(k + "I")[1].split("EEv")[0].split("E")
+            name = next((f"{k} <{','.join(t[2:] for t in args(k) if t)}>"
+                         for k in kinds if k + "I" in fn), None)
         elif name and ("spill" in line or "Used" in line):
             log(f"[build] {name}: {line.strip()}")
             if "Used" in line:
@@ -1216,18 +1221,26 @@ def _random_dat_block(gen, device, c=180, nh=6, split=(8, 16), hidden=360):
 
     from tpu_superresolution_torch.kernels.fused_channel_attn import ChanAttnWeights
     from tpu_superresolution_torch.kernels.fused_datb_tail import TailWeights
-    from tpu_superresolution_torch.kernels.fused_rect_attn import RectAttnWeights
+    from tpu_superresolution_torch.kernels.fused_rect_attn import (
+        RectAttnWeights,
+        rect_bias_from_table,
+    )
 
     def r(*shape, scale=1.0, bf=False):
         t = torch.randn(*shape, generator=gen) * scale
         return (t.bfloat16().float() if bf else t).to(device)
 
-    n, half, m = split[0] * split[1], hidden // 2, c // 16
+    s0, s1 = split
+    half, m = hidden // 2, c // 16
     front = dict(g1=1 + r(c, scale=0.1), b1=r(c, scale=0.1),
                  wqkv=r(3 * c, c, scale=c ** -0.5, bf=True), bqkv=r(3 * c, scale=0.1),
                  wdw=r(3, 3, c, scale=1 / 3), bdw=r(c, scale=0.1), num_heads=nh)
-    rect = RectAttnWeights(bias0=r(nh // 2, n, n, scale=0.5), bias1=r(nh // 2, n, n, scale=0.5),
-                           split=split, **front)
+    # the branches' DynamicPosBias tables, and the dense biases gathered
+    # from them for the plain version
+    tables = [r((2 * s0 - 1) * (2 * s1 - 1), nh // 2, scale=0.5) for _ in range(2)]
+    rect = RectAttnWeights(bias0=rect_bias_from_table(tables[0], s0, s1),
+                           bias1=rect_bias_from_table(tables[1], s1, s0), split=split,
+                           table0=tables[0], table1=tables[1], **front)
     chan = ChanAttnWeights(temperature=1 + r(nh, 1, 1, scale=0.3), **front)
     tail = TailWeights(
         sp_w1=r(m, c, scale=c ** -0.5, bf=True), sp_b1=r(m, scale=0.1),
@@ -1289,14 +1302,73 @@ def _dat_work(key, shape, split=(8, 16), c=180, nh=6, hidden=360):
             4 * act + b * c * 4)
 
 
+# Each K9 / K14 launch, by its kernel's name under torch.profiler.
+K9_PARTS = (("front product (LN1, qkv)", "front_product_kernel<0", ""),
+            ("attention (both branches)", "window_attn_stream_kernel", ""),
+            ("conv branch", "dat_conv_kernel<false", ""))
+K14_PARTS = (("front product (LN1, qkv, gram)", "front_product_kernel<1", ""),
+             ("softmax", "chan_softmax_kernel", ""),
+             ("conv branch + v A^T", "dat_conv_kernel<true", ""))
+
+
+def _launch_split(key, label, run, parts, calls=3):
+    """Each launch of one kernel call timed by torch.profiler over
+    `calls` calls: device ms a call by part, and the rest of the call's
+    device time (the wrapper's allocations)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                run()
+            torch.cuda.synchronize()
+    except Exception as e:  # the split is a reading aid, not a check
+        log(f"[kernels] {key} profiler failed: {type(e).__name__}: {e}")
+        return
+    kernels = _device_kernels(prof)
+    us = lambda e: getattr(e, "device_time", 0.0) or getattr(e, "cuda_time", 0.0)
+    out, seen = [], set()
+    for name, head, tail in parts:
+        ev = [e for e in kernels if head in e.name and tail in e.name]
+        seen.update(id(e) for e in ev)
+        out.append(f"{name} {sum(us(e) for e in ev) / calls / 1e3:.4f} ms x{len(ev) // calls}")
+    rest = sum(us(e) for e in kernels if id(e) not in seen) / calls / 1e3
+    busy = sum(us(e) for e in kernels) / calls / 1e3
+    log(f"[kernels] {key} {label} launches (profiler, {calls} calls): " + ", ".join(out)
+        + f"; other device work {rest:.4f} ms; busy {busy:.4f} ms a call")
+
+
+def _front_design_bytes(key, shape, split=(8, 16), c=180, nh=6):
+    """Bytes one K9 or K14 call moves by design (each buffer written and
+    read once): K9 x, the two branches' q|k|v workspaces (heads padded
+    to 32 dims, on the padded map) written and read, v written and read,
+    attened_x and conv_x; K14 x, v written and read, the outputs, and the
+    128-token tiles' gram and norm partials written and read."""
+    b, h, w, _ = shape
+    act = b * h * w * c * 2
+    if key == "K9":
+        ms = max(split)
+        padded = b * (-(-h // ms) * ms) * (-(-w // ms) * ms)
+        return 5 * act + 2 * 2 * 3 * padded * (nh // 2) * 32 * 2
+    tiles = b * -(-(h * w) // 128)
+    return 5 * act + 2 * tiles * (6 * 32 * 32 + 2 * 192) * 4
+
+
 def phase_dat_kernels(res):
     """DAT's kernels at DATConfig()'s widths (C 180, 6 heads, split
     (8, 16), hidden 360) on the bench tile batch [25,64,64,180] and on a
     whole image whose sides are not multiples of 16 ([2,52,76,180]): K9
-    unshifted and shifted, K14, K10; then K10 at the published DAT x4's
-    SGFN half 360 on the bench batch.  Each output against the plain
-    version in bf16 and fp32, with times and bounds, into `res`; each K10
-    row also beside the module chain's composition of the same tail."""
+    at split (8, 16) and at the published DAT x4's (8, 32), unshifted and
+    shifted, K14 (two runs compared bit for bit), K10; then K10 at the
+    published DAT x4's SGFN half 360 on the bench batch.  Each output
+    against the plain version in bf16 and fp32, with times (alone and 20
+    calls back to back), bounds and bytes moved by design into `res`;
+    each K9 / K14 launch timed by the profiler on the bench batch; each
+    K10 row also beside the module chain's composition of the same
+    tail."""
     import torch
 
     from tpu_superresolution_torch.kernels import fused_channel_attn as fc
@@ -1306,27 +1378,44 @@ def phase_dat_kernels(res):
     gen = torch.Generator().manual_seed(SEED + 4)
     bf = torch.bfloat16
     rect, chan, tail = _random_dat_block(gen, dev)
-    prect, pchan = fr.pack_rect_weights(rect), fc.pack_chan_weights(chan)
+    rect32, _, _ = _random_dat_block(gen, dev, split=(8, 32))
+    rects = {(8, 16): (rect, fr.pack_rect_weights(rect)),
+             (8, 32): (rect32, fr.pack_rect_weights(rect32))}
+    pchan = fc.pack_chan_weights(chan)
     for shape in ((25, 64, 64, 180), (2, 52, 76, 180)):
         x = torch.randn(*shape, generator=gen).to(dev, bf)
-        for shifted in (False, True):
-            run = lambda: fr.rect_attention(x, rect, shifted, prect)
-            plain = lambda: fr.rect_attention_plain(x, rect, shifted)
-            outs = run()
-            refs16, refs32 = plain(), fr.rect_attention_plain(x.float(), rect, shifted)
-            torch.cuda.synchronize()
-            _compare_outputs(res, "K9", f"{list(shape)} {'shifted' if shifted else 'unshifted'}",
-                             outs, refs16, refs32, cuda_ms(run), cuda_ms(plain),
-                             _dat_work("K9", shape))
-            del outs, refs16, refs32
+        for split, (w, pk) in rects.items():
+            for shifted in (False, True):
+                run = lambda: fr.rect_attention(x, w, shifted, pk)
+                plain = lambda: fr.rect_attention_plain(x, w, shifted)
+                outs = run()
+                refs16, refs32 = plain(), fr.rect_attention_plain(x.float(), w, shifted)
+                torch.cuda.synchronize()
+                label = (f"{list(shape)} split {split} {'shifted' if shifted else 'unshifted'}")
+                nbytes = _front_design_bytes("K9", shape, split)
+                _compare_outputs(res, "K9", f"{label} (b2b {queued_ms(run):.4f} ms; "
+                                 f"{nbytes / 1e6:.1f} MB moved by design)", outs, refs16,
+                                 refs32, cuda_ms(run), cuda_ms(plain),
+                                 _dat_work("K9", shape, split))
+                del outs, refs16, refs32
+                if shape[0] == 25:
+                    _launch_split("K9", label, run, K9_PARTS)
         run = lambda: fc.channel_attention(x, chan, pchan)
         plain = lambda: fc.channel_attention_plain(x, chan)
-        outs = run()
+        outs, again = run(), run()
         refs16, refs32 = plain(), fc.channel_attention_plain(x.float(), chan)
         torch.cuda.synchronize()
-        _compare_outputs(res, "K14", f"{list(shape)}", outs, refs16, refs32, cuda_ms(run),
-                         cuda_ms(plain), _dat_work("K14", shape))
-        del outs, refs16, refs32
+        same = all(torch.equal(a, b) for a, b in zip(outs, again))
+        log(f"[kernels] K14 {list(shape)}: two runs bit-identical: {same}")
+        if not same:
+            raise RuntimeError(f"K14 {list(shape)}: two runs differ")
+        nbytes = _front_design_bytes("K14", shape)
+        _compare_outputs(res, "K14", f"{list(shape)} (b2b {queued_ms(run):.4f} ms; "
+                         f"{nbytes / 1e6:.1f} MB moved by design)", outs, refs16, refs32,
+                         cuda_ms(run), cuda_ms(plain), _dat_work("K14", shape))
+        del outs, again, refs16, refs32
+        if shape[0] == 25:
+            _launch_split("K14", f"{list(shape)}", run, K14_PARTS)
         _k10_row(res, gen, dev, x, tail)
     _, _, tail720 = _random_dat_block(gen, dev, hidden=720)
     _k10_row(res, gen, dev, torch.randn(25, 64, 64, 180, generator=gen).to(dev, bf), tail720)
@@ -2191,8 +2280,8 @@ def phase_dat(workdir, smi):
 def phase_dat_x4(workdir, smi):
     """The published DAT x4 (DAT's options/Test/test_DAT_x4.yml: split
     (8, 32), expansion 4; seeded random weights with perturbed BatchNorm
-    statistics): K9 refuses its spatial fronts, which take the module
-    chain (K16, K11); K10 takes every tail (SGFN half 360).  (1) Its .pth
+    statistics): K9 takes its spatial fronts at N 256, K14 its channel
+    fronts, K10 every tail (SGFN half 360).  (1) Its .pth
     behind SRService with --model dat: the weights carry no split, so it
     loads at (8, 16) with expansion 4 (K9 and K14 fronts, K10 tails;
     launches per call DAT_X4_SERVE_PER_CALL), the serve phase's requests
@@ -2226,7 +2315,7 @@ def phase_dat_x4(workdir, smi):
         models[label] = build_model(cfg, dtype=dtype, impl=impl, device="cuda")
         models[label].load_state_dict(src.state_dict())
     routes = models["kernels"].routes()[0][:2]
-    if routes != [("chain", "K10"), ("K14", "K10")]:
+    if routes != [("K9", "K10"), ("K14", "K10")]:
         raise RuntimeError(f"dat_x4 routes {routes}")
     x = torch.from_numpy(np.random.default_rng(SEED).random((1, 256, 256, 3), np.float32)).cuda()
     fwd = lambda label: tiled_forward(models[label], x, 4, 64, 8)
@@ -2264,8 +2353,9 @@ def phase_dat_x4(workdir, smi):
 
 def _dat_split(fwd, smi, tag="dat"):
     """Where one DAT bench forward spends its device time, under
-    torch.profiler: K9 (rect_attn_kernel + dwconv_gelu_kernel), K14
-    (chan_qkv / chan_softmax / chan_apply), K10, K16, K11, K2, K3/K4 by
+    torch.profiler: K9 (the front product in its K9 mode, the stream
+    attention, the conv), K14 (the front product in its K14 mode, the
+    softmax, the conv + apply), K10, K16, K11, K2, K3/K4 by
     kernel name, the rest (the module chain's GEMMs, BatchNorm, GELU,
     partitions and pads, channel gates, conv_first, pixel shuffle,
     tiling, casts) as plain ops, and the device's idle share of the wall
@@ -2288,10 +2378,13 @@ def _dat_split(fwd, smi, tag="dat"):
         log(f"[{tag}] profiler: no device events recorded")
         return
     us = lambda e: getattr(e, "device_time", 0.0) or getattr(e, "cuda_time", 0.0)
-    names = (("K9 rect_attn_kernel", ("rect_attn_kernel",)),
-             ("K9 dwconv_gelu_kernel", ("dwconv_gelu_kernel",)),
-             ("K14 chan_qkv_kernel", ("chan_qkv_kernel",)),
-             ("K14 chan_softmax + chan_apply", ("chan_softmax_kernel", "chan_apply_kernel")),
+    names = (("K9 front_product_kernel<0> (LN1, qkv)", ("front_product_kernel<0",)),
+             ("K9 window_attn_stream_kernel (both branches)", ("window_attn_stream_kernel",)),
+             ("K9 dat_conv_kernel<false> (conv branch)", ("dat_conv_kernel<false",)),
+             ("K14 front_product_kernel<1> (LN1, qkv, gram partials)",
+              ("front_product_kernel<1",)),
+             ("K14 chan_softmax_kernel", ("chan_softmax_kernel",)),
+             ("K14 dat_conv_kernel<true> (conv branch, v A^T)", ("dat_conv_kernel<true",)),
              ("K10 datb_tail_wg_kernel", ("datb_tail",)),
              ("K16 batched_attn_kernel", ("batched_attn_kernel",)),
              ("K11 dwconv3x3_rows_kernel / dwconv3x3_kernel", ("dwconv3x3_rows_kernel",

@@ -10,7 +10,10 @@
 //           :352) for the shapes kernels/window_attention.py::k15_route
 //           sends here (the heads of more than 32 dims the wgmma kernel
 //           does not take: masked units, K16 at hd 33-64, more than 256
-//           keys, heads past 64 dims).
+//           keys, heads past 64 dims);
+//           and, as K9's attention (csrc/dat_rect.cu), DAT's rect-window
+//           branches: tpu_superresolution_tpu/ops/pallas/fused_rect_attn.py
+//           fused_rect_attention (pallas_call at :433).
 // Math (per window w and head h):
 //         out[w, h] = softmax(scale q k^T + bias[h] + mask[w % nW]) v
 //       scores and softmax fp32 (in the log2 domain), P rounded to bf16
@@ -21,7 +24,9 @@
 //       resident in shared memory) and a code per token, [n_codes, N]
 //       int32: bits 0-15 the token's position y (2ws-1) + x, bits 16-31
 //       its shift region.  bias = table[pos_q - pos_k + (ws-1)(2ws-1) +
-//       ws-1] (ops/window.py::relative_position_index), mask = -100 where
+//       ws-1] (ops/window.py::relative_position_index; a ws x ws_w rect
+//       window, K9's: position y (2ws_w-1) + x, offset (ws-1)(2ws_w-1) +
+//       ws_w-1, table [(2ws-1)(2ws_w-1), nH]), mask = -100 where
 //       the regions differ (ops/window.py::shift_attn_mask): the same fp32
 //       values as the dense form, from arithmetic in place of ~1.3 GB of
 //       L2 reads a HAT-SRx4 call.
@@ -30,8 +35,9 @@
 //       K16), or K7's head-split qkv workspace [3, BW, nH, nb, N, hb]
 //       (csrc/window_attn.cu's epilogue writes each (part, window, head,
 //       block) run already swizzled), a run taken by one bulk copy
-//       ("bulk").  The output is [BW, nH, Nq, hd] (head-major) or K7's
-//       token-major [BW * N, nH * nb * hb] that its proj product reads.
+//       ("bulk").  The output is [BW, nH, Nq, hd] (head-major), K7's
+//       token-major [BW * N, nH * nb * hb] that its proj product reads, or
+//       (K9) each row at its pixel of the [B, H, W, C] map.
 //       Heads are padded to hb = 16, 32 or 64 dims, nb blocks of hb
 //       (hd 65-128: two 64-dim blocks, and so on).
 // Design: a persistent grid of nH x G CTAs (csrc/window_attn_wg.cu's
@@ -80,8 +86,13 @@ struct Args {
   const float* bias;    // dense [nh, nq, nk]; rel: table [tsize, nh]
   const float* mask;    // dense [n_mask, nq, nk] or null
   const int* codes;     // rel: [n_codes, nk]
-  bf16* out;            // [BW, nh, nq, hd] or token-major [BW * nq, nh * nb * hb]
+  bf16* out;            // [BW, nh, nq, hd], token-major [BW * nq, nh * nb * hb] or pixels
   int bw, nh, nq, nk, hd, nb, n_mask, n_codes, tsize, toff;
+  int wsh, wsw;          // rel: the window's rows and columns
+  // pixel output (K9): row t of window w to its pixel of the [B, h, w,
+  // ld] map, rolled back by (sh, sw) on the hp x wp padded map, columns
+  // col0 + head * hd; a pad token's row is not stored
+  int pix, pix_h, pix_w, pix_hp, pix_wp, pix_sh, pix_sw, pix_ld, pix_col0, pix_nwin, pix_nwx;
   int shifted;           // rel: the codes' region bits are read (else ignored)
   int per_head, stages, ncons;
   int qi, pi, ki;       // query tiles, passes, key chunks an item
@@ -519,7 +530,29 @@ __global__ void __launch_bounds__(NTHREADS, 1) window_attn_stream_kernel(const A
             consumer_barrier(cw);
             const int rows = min(QT, a.nq - qt * QT);
             const int c0 = pass * SC;  // the pass's first column
-            if (a.tokmajor) {
+            if (a.pix) {
+              const int img = w / a.pix_nwin, wrem = w - img * a.pix_nwin;
+              const int wy = wrem / a.pix_nwx, wx = wrem - wy * a.pix_nwx;
+              const bool pairs = (a.hd & 1) == 0;  // ld, col0 even: 4-byte pairs
+              const int per = pairs ? a.hd >> 1 : a.hd;
+              for (int e = ct; e < rows * per; e += 128) {
+                const int r = e / per, k = e - r * per;
+                const int t = qt * QT + r;
+                const int ty = t / a.wsw, tx = t - ty * a.wsw;
+                int yy = wy * a.wsh + ty + a.pix_sh, xx = wx * a.wsw + tx + a.pix_sw;
+                yy -= yy >= a.pix_hp ? a.pix_hp : 0;
+                xx -= xx >= a.pix_wp ? a.pix_wp : 0;
+                if (yy >= a.pix_h || xx >= a.pix_w) continue;
+                bf16* dst = a.out +
+                            ((static_cast<long long>(img) * a.pix_h + yy) * a.pix_w + xx) * a.pix_ld +
+                            a.pix_col0 + h * a.hd;
+                if (pairs)
+                  *reinterpret_cast<uint32_t*>(dst + 2 * k) =
+                      *reinterpret_cast<const uint32_t*>(sg + r * SC + 2 * k);
+                else
+                  dst[k] = sg[r * SC + k];
+              }
+            } else if (a.tokmajor) {
               // [BW * nq, nh * hdw]: each row's pass columns, 16-byte vectors
               const int vpr = min(SC, hdw - c0) / 8;
               bf16* dst = a.out + (static_cast<long long>(w) * a.nq + qt * QT) * a.nh * hdw +
@@ -583,15 +616,19 @@ int launch_mode(const Args& a, size_t smem, int grid, cudaStream_t s, bool rel, 
 // nb, nq, hb] (k and v unused); else q, k, v [bw, nh, n, hd].  rel: bias
 // is the table [tsize, nh], codes [n_codes, nk] (nq == nk; bulk only),
 // their region bits read only where `shifted` (the -100 mask of a shifted
-// block; an unshifted block's scores ignore them); else bias [nh, nq,
-// nk] and mask [n_mask, nq, nk] or null.  tokmajor:
-// out [bw * nq, nh * nb * hb], else [bw, nh, nq, hd].
+// block; an unshifted block's scores ignore them), the window ws x ws_w
+// (ws_w 0: square; table [(2ws-1)(2ws_w-1), nh], position y (2ws_w-1) +
+// x); else bias [nh, nq, nk] and mask [n_mask, nq, nk] or null.
+// tokmajor: out [bw * nq, nh * nb * hb], else [bw, nh, nq, hd]; pix (K9,
+// bulk, rel, one head block): {h, w, hp, wp, sh, sw, ld, col0}, the rows
+// to their pixels of out [B, h, w, ld] (see Args).
 extern "C" int sr_window_attention_stream_bf16(
     const void* q, const void* k, const void* v, const void* bias, const void* mask,
     const void* codes, void* out, int bw, int nh, int nq, int nk, int hd, int n_mask,
     int n_codes, int ws, int shifted, int split_p, float scale, int per_head, int hb, int ob, int ns,
-    int stages, int whole, int bulk, int tokmajor, void* stream) {
+    int stages, int whole, int bulk, int tokmajor, int ws_w, const int* pix, void* stream) {
   const bool rel = codes != nullptr;
+  if (ws_w == 0) ws_w = ws;
   if (nh < 1 || nq < 1 || nk < 1 || hd < 1 || per_head < 1 || (mask && n_mask < 1) ||
       (rel && (mask || !bulk || nq != nk || n_codes < 1 || ws < 1 || split_p)) ||
       (bulk && nq != nk) || stages < 1 || stages > MAX_STAGES)
@@ -622,8 +659,29 @@ extern "C" int sr_window_attention_stream_bf16(
   a.n_mask = n_mask;
   a.n_codes = n_codes;
   a.shifted = shifted != 0;
-  a.tsize = (2 * ws - 1) * (2 * ws - 1);
-  a.toff = (ws - 1) * (2 * ws - 1) + ws - 1;
+  a.tsize = (2 * ws - 1) * (2 * ws_w - 1);
+  a.toff = (ws - 1) * (2 * ws_w - 1) + ws_w - 1;
+  a.wsh = ws;
+  a.wsw = ws_w;
+  a.pix = pix != nullptr;
+  if (a.pix) {
+    if (!rel || tokmajor || nb != 1 || ws < 1 || ws_w < 1 || ws * ws_w != nq)
+      return static_cast<int>(cudaErrorInvalidValue);
+    a.pix_h = pix[0];
+    a.pix_w = pix[1];
+    a.pix_hp = pix[2];
+    a.pix_wp = pix[3];
+    a.pix_sh = pix[4];
+    a.pix_sw = pix[5];
+    a.pix_ld = pix[6];
+    a.pix_col0 = pix[7];
+    if (a.pix_hp % ws || a.pix_wp % ws_w || a.pix_h > a.pix_hp || a.pix_w > a.pix_wp ||
+        ((hd & 1) == 0 && ((a.pix_ld | a.pix_col0) & 1)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    a.pix_nwx = a.pix_wp / ws_w;
+    a.pix_nwin = (a.pix_hp / ws) * a.pix_nwx;
+    if (bw % a.pix_nwin) return static_cast<int>(cudaErrorInvalidValue);
+  }
   a.per_head = per_head < bw ? per_head : bw;
   a.stages = stages;
   a.ncons = NCONS;

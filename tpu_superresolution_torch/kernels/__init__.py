@@ -13,8 +13,8 @@ serving (H) and training (HT) (``hat``, ws 7; ``hat_fast``, ws 8), DAT
 x4 serving (D), HAT-SRx4 serving (H16: upstream's HAT, window 16, C 180),
 every other Swin block outside the block kernel's envelope (W: any
 other window, width, head count or head dim), DAT training (DT) and DAT's module
-chain at serving where K9, K14 or K10 refuse a block's shapes (DC: the
-published DAT x4's split (8, 32) fronts, among others), and
+chain at serving where K9, K14 or K10 refuse a block's shapes (DC: splits
+past N 256, C > 192, hd > 32, among others), and
 HAT-SRx4 training (H16T: window 16, C 180, hidden 360).
 
 ==== ========================================================== ======== ==================================================
@@ -35,8 +35,8 @@ K8   fused_ocab.py:311 . fused_ocab_core (_fwd_kernel)             HT       CUDA
      (at (ws, ows) (16, 24), counted as K8w16)                     H16T     CUDA csrc/ocab16.cu
 K8b  fused_ocab.py:354 . fused_ocab_core (_bwd_kernel)             HT       CUDA csrc/ocab.cu, fused_ocab.OcabCoreFunction
      (at (16, 24), counted as K8bw16)                              H16T     CUDA csrc/ocab16.cu
-K9   fused_rect_attn.py:433 . fused_rect_attention                 D        CUDA csrc/dat_rect.cu, fused_rect_attn.rect_attention
-K14  fused_channel_attn.py:209 . fused_channel_attention           D        CUDA csrc/dat_channel.cu, fused_channel_attn.channel_attention
+K9   fused_rect_attn.py:433 . fused_rect_attention                 D        CUDA csrc/dat_rect.cu (+ dat_common.cuh's product and conv, window_attn_stream.cu's attention), fused_rect_attn.rect_attention
+K14  fused_channel_attn.py:209 . fused_channel_attention           D        CUDA csrc/dat_channel.cu (+ dat_common.cuh's product and conv), fused_channel_attn.channel_attention
 K10  fused_datb_tail.py:374 . fused_datb_tail                      D,DC     CUDA csrc/dat_tail.cu (C <= 192, half <= 384; fused_datb_tail.tail_plan), fused_datb_tail.datb_tail
 K7   fused_attention.py:229 . fused_window_block_attention         H16,W,   CUDA csrc/window_attn.cu (the qkv and proj product) + csrc/window_attn_stream.cu
                                                                   H16T     (the attention), fused_attention.fused_window_attention
@@ -76,7 +76,7 @@ tail kernel (counted as K1t) completes the block.  A HAT CAB takes K12
 (two launches, LN's statistics and the fused kernel, counted once) or,
 past its widths, K2 + K3 + K3 (``cab_conv.cab_route``).  A DAT block at
 serving is K9 (spatial) or K14 (channel), then K10, where their limits
-take its shapes (``models.dat.dat_route``); a K9 call is two CUDA
+take its shapes (``models.dat.dat_route``); a K9 call is four CUDA
 launches, a K14 call three, a K10 call one, each counted once per
 wrapper call.  Otherwise, and in training, the block runs the module
 chain: K2 for its LayerNorms, K11 for its depthwise convs and K16 for its

@@ -49,8 +49,8 @@ _SIGNATURES = {
     "sr_swin_block_bwd_bf16": [_P] * 25 + [ctypes.POINTER(_I), ctypes.c_float, _P],
     "sr_ocab_fwd_bf16": [_P] * 14 + [_I] * 6 + [ctypes.c_float, _P],
     "sr_ocab_bwd_bf16": [_P] * 24 + [_I] * 6 + [ctypes.c_float, _I, _I, _P],
-    "sr_dat_rect_bf16": [_P] * 11 + [_I] * 9 + [ctypes.c_float, _P],
-    "sr_dat_channel_bf16": [_P] * 14 + [_I] * 6 + [ctypes.c_float, _P],
+    "sr_dat_rect_bf16": [_P] * 15 + [ctypes.POINTER(_I), ctypes.c_float, _P],
+    "sr_dat_channel_bf16": [_P] * 14 + [ctypes.POINTER(_I), ctypes.c_float, _P],
     "sr_dat_tail_bf16": [_P] * 8 + [ctypes.POINTER(_I), ctypes.c_float, _P],
     "sr_swin_tail_bf16": [_P] * 11 + [_I] * 8 + [ctypes.c_float, _I, _P],
     "sr_ln_cab_convs_bf16": [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P],
@@ -58,8 +58,8 @@ _SIGNATURES = {
     "sr_batched_window_attention_bf16": [_P] * 6 + [_I] * 7 + [ctypes.c_float, _P],
     "sr_window_attention_wg_bf16": [_P] * 5 + [_I] * 5 + [ctypes.c_float] + [_I] * 3 + [_P],
     "sr_window_product_bf16": [_P] * 4 + [ctypes.c_longlong] + [_I] * 11 + [_P],
-    "sr_window_attention_stream_bf16": ([_P] * 7 + [_I] * 10 + [ctypes.c_float] + [_I] * 8
-                                        + [_P]),
+    "sr_window_attention_stream_bf16": ([_P] * 7 + [_I] * 10 + [ctypes.c_float] + [_I] * 9
+                                        + [ctypes.POINTER(_I), _P]),
     "sr_swin_block_bwd16_bf16": [_P] * 29 + [ctypes.POINTER(_I), ctypes.c_float, _P],
     "sr_ocab16_fwd_bf16": [_P] * 14 + [_I] * 4 + [ctypes.c_float, _P],
     "sr_ocab16_bwd_bf16": [_P] * 26 + [_I] * 4 + [ctypes.c_float, _I, _I, _P],

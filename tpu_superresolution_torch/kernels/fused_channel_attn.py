@@ -1,4 +1,5 @@
-"""K14 — the front half of DAT's channel block (CUDA, ``csrc/dat_channel.cu``).
+"""K14 — the front half of DAT's channel block (CUDA, ``csrc/dat_channel.cu``
+with ``csrc/dat_common.cuh``).
 
 Port of ``tpu_superresolution_tpu/ops/pallas/fused_channel_attn.py::
 fused_channel_attention`` (its ``pallas_call`` at :209), which computes
@@ -12,29 +13,40 @@ dat_arch.py:441-509 up to the AIM gating:
     conv_x         = erf-GELU(dwconv3x3(v) with the inference BatchNorm folded)
 
 The contraction runs over all tokens of an image, so one call makes
-three CUDA launches: (1) per strip of 256 tokens, LN1 and the qkv
-product, v written out, and the strip's partial block-diagonal gram
-(six 32 x 32 head blocks) and squared norms; (2) per image and head, the
-partials summed in strip order (no atomics: the result does not depend
-on scheduling), the normalisation, temperature and softmax, A rounded
-to bf16 as the JAX kernel casts it; (3) per 64 tokens, out = v A^T
-(tensor cores) and the conv branch.  v is kept from phase 1 rather than recomputed: the conv
-branch needs it anyway, and re-reading it costs one [T, C] bf16 pass
-where recomputing costs LN1 and a [T, 192] x [192, 192] product.  The
-kernel takes C <= 192, at most 6 heads of hd <= 32 and any image size,
-and raises otherwise.
+three CUDA launches: (1) the product kernel K9 shares
+(``csrc/dat_common.cuh``, persistent wgmma over 128-token tiles of each
+image): LN1 and the qkv product, v written out, and each tile's partial
+block-diagonal gram (six 32 x 32 head blocks, mma.sync) and squared
+norms; (2) per image and head, the partials summed in tile order (no
+atomics: the result does not depend on scheduling), the normalisation,
+temperature and softmax, A rounded to bf16 as the JAX kernel casts it;
+(3) per 8 x 16-pixel tile, the conv branch and out = v A^T (mma.sync, A
+resident) from one staging of v.  v is kept from (1) rather than
+recomputed: the conv branch needs it anyway, and re-reading it costs
+one [T, C] bf16 pass where recomputing costs LN1 and a [T, 192] x
+[192, 192] product.  The kernel takes C <= 192, at most 6 heads of hd
+<= 32 and any image size, and raises otherwise.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from tpu_superresolution_torch.kernels import _lib
-from tpu_superresolution_torch.kernels.fused_rect_attn import dwconv_gelu_plain
+from tpu_superresolution_torch.kernels.fused_rect_attn import (
+    PRODUCT_BK,
+    PRODUCT_BM,
+    PRODUCT_BN,
+    PRODUCT_CHUNKS,
+    dwconv_gelu_plain,
+    pack_front_product,
+)
 from tpu_superresolution_torch.kernels.layernorm import layernorm_plain
 
 LN_EPS = 1e-5
@@ -42,7 +54,9 @@ LN_EPS = 1e-5
 CP = 192           # padded channels: 6 heads x 32
 HDP = 32           # padded head dim
 MAX_HEADS = CP // HDP
-STRIP = 256        # tokens per phase-1 block
+# The product kernel's N tiles, as (part, group of three head slots): q
+# and k of heads 0-2 (then the gram of those heads), of heads 3-5, then v.
+N_TILE_ORDER = ((0, 0), (1, 0), (0, 1), (1, 1), (2, 0), (2, 1))
 
 launches = _lib.LaunchCounter("K14 channel_attention")
 
@@ -116,11 +130,13 @@ def channel_attention_plain(x: torch.Tensor,
 
 @dataclasses.dataclass(frozen=True)
 class PackedChan:
-    """K14's operands: the [576, 192] bf16 qkv weight ([out, in]; parts
-    q, k, v of 6 heads x 32, zero-padded), its fp32 bias, the
-    temperature [nh], LN1 and the folded depthwise kernel [9, C]."""
+    """K14's operands: the product's weight tiles ``wp`` [6, 3, 96, 64]
+    bf16 (``fused_rect_attn.pack_front_product``; N tiles in
+    ``N_TILE_ORDER``, each three head slots x 32, zero-padded) and its
+    fp32 bias [576], the temperature [nh], LN1 and the folded depthwise
+    kernel [9, C]."""
 
-    wqkv: torch.Tensor
+    wp: torch.Tensor
     bqkv: torch.Tensor
     temperature: torch.Tensor
     g1: torch.Tensor
@@ -149,48 +165,67 @@ def check_chan_args(shape, w: ChanAttnWeights, name: str = "channel_attention") 
 
 
 @torch.no_grad()
-def pack_chan_weights(w: ChanAttnWeights) -> PackedChan:
-    """Lay a channel block's front out for K14 (once per loaded weights)."""
+def pack_chan_weights(w: ChanAttnWeights, dtype: torch.dtype = torch.bfloat16) -> PackedChan:
+    """Lay a channel block's front out for K14 (once per loaded weights;
+    the weight stream in `dtype`, fp32 for the CPU tests' emulation)."""
     check_chan_args((1, 1, 1, w.dim), w)
     c, nh = w.dim, w.num_heads
     hd = c // nh
     bq = torch.zeros(3 * c, device=w.wqkv.device) if w.bqkv is None else w.bqkv.float()
-    wq = F.pad(w.wqkv.float().reshape(3, nh, hd, c), (0, CP - c, 0, HDP - hd, 0, MAX_HEADS - nh))
+    # [3 parts, 6 head slots, 32, in] -> [3, 2 groups, 3 slots, 32, in]
+    wq = F.pad(w.wqkv.float().reshape(3, nh, hd, c), (0, 0, 0, HDP - hd, 0, MAX_HEADS - nh))
     bq = F.pad(bq.reshape(3, nh, hd), (0, HDP - hd, 0, MAX_HEADS - nh))
+    wq = wq.reshape(3, 2, PRODUCT_BN, c)
+    bq = bq.reshape(3, 2, PRODUCT_BN)
+    wp, bp = pack_front_product(torch.stack([wq[p, g] for p, g in N_TILE_ORDER]),
+                                torch.stack([bq[p, g] for p, g in N_TILE_ORDER]), dtype)
     return PackedChan(
-        wqkv=wq.reshape(3 * CP, CP).to(torch.bfloat16).contiguous(),
-        bqkv=bq.reshape(3 * CP).contiguous(),
-        temperature=w.temperature.float().reshape(nh).contiguous(),
+        wp=wp, bqkv=bp, temperature=w.temperature.float().reshape(nh).contiguous(),
         g1=w.g1.float().contiguous(), b1=w.b1.float().contiguous(),
         wdw=w.wdw.float().reshape(9, c).contiguous(), bdw=w.bdw.float().contiguous(),
         dim=c, num_heads=nh)
+
+
+def tiles_per_image(h: int, w: int) -> int:
+    """The product kernel's 128-token tiles of one image (the partials a
+    head's gram sums, in order)."""
+    return -(-(h * w) // PRODUCT_BM)
+
+
+@functools.lru_cache(maxsize=64)
+def chan_geometry(b: int, h: int, w: int, c: int, nh: int, vec: int, sms: int) -> ctypes.Array:
+    """The C entry's geometry array (``csrc/dat_channel.cu``)."""
+    tpi = tiles_per_image(h, w)
+    return (ctypes.c_int * 8)(b, h, w, c, nh, min(b * tpi, sms), tpi, vec)
 
 
 def _launch(x: torch.Tensor, pk: PackedChan):
     b, h, wd, c = x.shape
     dev = x.device
     bf, f32 = torch.bfloat16, torch.float32
-    _lib.check_tensor(x, "x", bf, dev, ndim=4, align=4)
+    vec = 4 if c % 4 == 0 and x.data_ptr() % 8 == 0 else 2
+    _lib.check_tensor(x, "x", bf, dev, ndim=4, align=2 * vec)
     for name, t, shape, dtype, align in (
-            ("wqkv", pk.wqkv, (3 * CP, CP), bf, 32), ("bqkv", pk.bqkv, (3 * CP,), f32, 16),
+            ("wp", pk.wp, (6, PRODUCT_CHUNKS, PRODUCT_BN, PRODUCT_BK), bf, 16),
+            ("bqkv", pk.bqkv, (6 * PRODUCT_BN,), f32, 4),
             ("temperature", pk.temperature, (pk.num_heads,), f32, 4),
             ("g1", pk.g1, (c,), f32, 4), ("b1", pk.b1, (c,), f32, 4),
             ("wdw", pk.wdw, (9, c), f32, 4), ("bdw", pk.bdw, (c,), f32, 4)):
         _lib.check_tensor(t, name, dtype, dev, shape=shape, align=align)
-    strips = max(1, -(-(h * wd) // STRIP))
+    tpi = tiles_per_image(h, wd)
     out = torch.empty_like(x)
     conv = torch.empty_like(x)
     v = torch.empty_like(x)
-    part_gram = torch.empty(b * strips * MAX_HEADS * HDP * HDP, dtype=f32, device=dev)
-    part_sq = torch.empty(b * strips * 2 * CP, dtype=f32, device=dev)
+    part_gram = torch.empty(b * tpi * MAX_HEADS * HDP * HDP, dtype=f32, device=dev)
+    part_sq = torch.empty(b * tpi * 2 * CP, dtype=f32, device=dev)
     attn = torch.empty(b * MAX_HEADS * HDP * HDP, dtype=f32, device=dev)
-    with torch.cuda.device(dev):
-        status = _lib.library().sr_dat_channel_bf16(
-            x.data_ptr(), out.data_ptr(), v.data_ptr(), conv.data_ptr(),
-            pk.g1.data_ptr(), pk.b1.data_ptr(), pk.wqkv.data_ptr(), pk.bqkv.data_ptr(),
-            pk.temperature.data_ptr(), pk.wdw.data_ptr(), pk.bdw.data_ptr(),
-            part_gram.data_ptr(), part_sq.data_ptr(), attn.data_ptr(),
-            b, h, wd, c, pk.num_heads, strips, LN_EPS, _lib.stream_of(x))
+    status = _lib.call(
+        x, _lib.library().sr_dat_channel_bf16, x.data_ptr(), out.data_ptr(), conv.data_ptr(),
+        v.data_ptr(), pk.g1.data_ptr(), pk.b1.data_ptr(), pk.wp.data_ptr(), pk.bqkv.data_ptr(),
+        pk.temperature.data_ptr(), pk.wdw.data_ptr(), pk.bdw.data_ptr(), part_gram.data_ptr(),
+        part_sq.data_ptr(), attn.data_ptr(),
+        chan_geometry(b, h, wd, c, pk.num_heads, vec, _lib.sm_count(dev.index)), LN_EPS,
+        _lib.stream_of(x))
     _lib.check_status(status, "sr_dat_channel_bf16")
     launches.count += 1
     return out, conv

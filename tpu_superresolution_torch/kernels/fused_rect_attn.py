@@ -1,4 +1,5 @@
-"""K9 — the front half of DAT's spatial block (CUDA, ``csrc/dat_rect.cu``).
+"""K9 — the front half of DAT's spatial block (CUDA, ``csrc/dat_rect.cu``
+with ``csrc/dat_common.cuh`` and ``csrc/window_attn_stream.cu``).
 
 Port of ``tpu_superresolution_tpu/ops/pallas/fused_rect_attn.py::
 fused_rect_attention`` (its ``pallas_call`` at :433), which computes
@@ -19,40 +20,58 @@ keys whose score is the bias alone, and the shift mask is built at the
 padded size.  The conv branch runs on the true-coordinate v with SAME
 zero padding.
 
-The kernel reads each window's tokens from the spatial map, with the
-shift and the zero padding in its address arithmetic, and writes the
-outputs at their true coordinates: the JAX package's pre-rolled inputs,
-roll-backs and shape gates have no counterpart, and every image size
-runs.  One call makes two CUDA launches: the attention kernel (one
-block per window and branch, which also writes its half of v) and the
-depthwise conv + GELU over v.  It takes C <= 192 (even), s0 * s1 = 128
-tokens per window and at most 3 heads per branch of hd <= 32, and
+One call is one C entry and four CUDA launches: (1) LN1 and the qkv
+product, a persistent wgmma kernel over 128-row tiles of the padded map
+(``csrc/dat_common.cuh``), which writes each branch's q, k and v
+head-split into a workspace in the branch's rolled, padded window order
+(``front_rows``), zeros at the pad tokens, and v at true coordinates;
+(2, 3) the stream attention (``csrc/window_attn_stream.cu``) once a
+branch, its bias the branch's DynamicPosBias table [(2hsp-1)(2wsp-1),
+nh/2] resident in shared memory with one int32 code a token
+(``rect_codes``: the position and the shift region, so the dense
+[nh/2, N, N] bias and the mask are never read), its outputs stored
+straight to their pixels; (4) the conv branch over 8 x 16-pixel tiles.
+The weights carry the two tables (``RectAttnWeights.table0/1``); their
+gather by ``relative_position_index`` is the dense bias the plain
+version adds.  It takes even C <= 192, at most 3 heads per branch of hd
+<= 32 and N = s0 * s1 <= 256, a multiple of 64, whose sides divide each
+other ((8, 16) and the published DAT x4's (8, 32)), any image size, and
 raises otherwise.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 from typing import Callable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from tpu_superresolution_torch.kernels import _lib
 from tpu_superresolution_torch.kernels.dwconv import depthwise3x3
 from tpu_superresolution_torch.kernels.layernorm import layernorm_plain
+from tpu_superresolution_torch.kernels.window_attention import stream_plan, wg_ctas_per_head
 from tpu_superresolution_torch.ops.window import (
     rect_mask_tensor,
+    rect_shift_region_ids,
     rect_window_partition,
     rect_window_reverse,
+    relative_position_index,
 )
 
 LN_EPS = 1e-5
-# Compile-time sizes of csrc/dat_rect.cu.
-CP = 192          # padded channels
+# Compile-time sizes of csrc/dat_common.cuh's product kernel.
+CP = 192          # padded channels (three 64-column chunks)
 HDP = 32          # padded head dim
 NHB_MAX = 3       # heads per branch
-N_TOK = 128       # tokens per window (s0 * s1)
+MAX_TOKENS = 256  # tokens per window (s0 * s1)
+PRODUCT_BM = 128  # rows a tile
+PRODUCT_BN = 96   # columns an N tile: three head slots of 32
+PRODUCT_BK = 64
+PRODUCT_CHUNKS = CP // PRODUCT_BK
 
 launches = _lib.LaunchCounter("K9 rect_attention")
 
@@ -64,7 +83,9 @@ class RectAttnWeights:
     [3, 3, C] and bias [C] with the inference BatchNorm folded in, the
     two branches' dynamic position biases [nh/2, N, N] (branch 0 for
     s0 x s1 windows, branch 1 for s1 x s0), the head count and the
-    split (s0, s1)."""
+    split (s0, s1); the kernel reads the biases as the DynamicPosBias
+    tables `table0` / `table1` [(2hsp-1)(2wsp-1), nh/2] whose gather
+    they are (``rect_bias_from_table``)."""
 
     g1: torch.Tensor
     b1: torch.Tensor
@@ -76,10 +97,21 @@ class RectAttnWeights:
     bias1: torch.Tensor
     num_heads: int
     split: Tuple[int, int]
+    table0: Optional[torch.Tensor] = None
+    table1: Optional[torch.Tensor] = None
 
     @property
     def dim(self) -> int:
         return int(self.wqkv.shape[1])
+
+
+def rect_bias_from_table(table: torch.Tensor, hsp: int, wsp: int) -> torch.Tensor:
+    """The dense bias [heads, N, N] fp32 of an hsp x wsp window: the table
+    [(2hsp-1)(2wsp-1), heads] gathered by ``relative_position_index``
+    (``models/dat.py::RectBranch.bias``)."""
+    n = hsp * wsp
+    idx = torch.from_numpy(relative_position_index(hsp, wsp).reshape(-1).astype(np.int64))
+    return table.float()[idx.to(table.device)].reshape(n, n, -1).permute(2, 0, 1).contiguous()
 
 
 def scaled_qkv(wqkv: torch.Tensor, bqkv: Optional[torch.Tensor], scale: float):
@@ -170,34 +202,19 @@ def rect_attention_plain(x: torch.Tensor, w: RectAttnWeights,
     return rect_front(x, w, shifted)
 
 
-@dataclasses.dataclass(frozen=True)
-class PackedRect:
-    """K9's operands: per branch the [288, 192] bf16 qkv weight ([out,
-    in]; parts q, k, v of 3 heads x 32, q pre-scaled, zero-padded) and
-    its fp32 bias, the two bias tables [2, nh/2, N, N], LN1, and the
-    folded depthwise kernel [9, C] and bias."""
-
-    wqkv: torch.Tensor
-    bqkv: torch.Tensor
-    bias: torch.Tensor
-    g1: torch.Tensor
-    b1: torch.Tensor
-    wdw: torch.Tensor
-    bdw: torch.Tensor
-    dim: int
-    num_heads: int
-    split: Tuple[int, int]
-
-
 def rect_ok(c: int, num_heads: int, split: Sequence[int]) -> bool:
     """Whether K9 takes a spatial block of C channels, `num_heads` heads
     and `split` (shapes only; every image size runs): even C <= 192, an
-    even head count with <= 3 heads per branch of hd <= 32, and s0 * s1 =
-    128 tokens a window."""
+    even head count with <= 3 heads per branch of hd <= 32, and N = s0 *
+    s1 <= 256 tokens a window, a multiple of 64, with max(s0, s1) a
+    multiple of min(s0, s1) (the JAX kernel's splits: (8, 8), (4, 16),
+    (8, 16), (8, 32))."""
     s0, s1 = split
     nhb = num_heads // 2
+    n = s0 * s1
     return not (c > CP or c % 2 or num_heads % 2 or not 0 < nhb <= NHB_MAX or (c // 2) % nhb
-                or (c // 2) // nhb > HDP or s0 * s1 != N_TOK)
+                or (c // 2) // nhb > HDP or not 0 < n <= MAX_TOKENS or n % 64
+                or max(s0, s1) % min(s0, s1))
 
 
 def check_rect_args(shape, w: RectAttnWeights, name: str = "rect_attention") -> None:
@@ -208,31 +225,158 @@ def check_rect_args(shape, w: RectAttnWeights, name: str = "rect_attention") -> 
     if not rect_ok(c, nh, w.split):
         raise ValueError(
             f"{name}: the kernel takes even C <= {CP}, an even head count with <= {NHB_MAX} "
-            f"heads per branch of hd <= {HDP} and s0 * s1 = {N_TOK}; got C={c}, heads={nh}, "
-            f"split={w.split}")
+            f"heads per branch of hd <= {HDP} and s0 * s1 <= {MAX_TOKENS}, a multiple of 64, "
+            f"with sides that divide each other; got C={c}, heads={nh}, split={w.split}")
+
+
+def pack_front_product(w6: torch.Tensor, b6: torch.Tensor,
+                       dtype: torch.dtype = torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The product kernel's weight stream (K9 and K14, ``csrc/
+    dat_common.cuh``): w6 [6, 96, C] fp32 (six N tiles of three 32-column
+    head slots, in the kernel's N-tile order) as [6, 3, 96, 64] in
+    `dtype` (the kernel's bf16, or fp32 for the CPU tests' emulation),
+    C zero-padded to 192 (the kernel's three 64-column chunks, whatever
+    C), each [96, 64] tile K-major and
+    128B-swizzled (16-byte chunk j of row n at j ^ (n % 8)); b6 [6, 96] as
+    the fp32 bias [576]."""
+    from tpu_superresolution_torch.kernels.cab_conv import _swizzle_rows
+
+    c = int(w6.shape[-1])
+    w = F.pad(w6.float(), (0, CP - c))
+    w = w.reshape(6, PRODUCT_BN, PRODUCT_CHUNKS, PRODUCT_BK).transpose(1, 2)
+    return (_swizzle_rows(w).to(dtype).contiguous(),
+            b6.float().reshape(6 * PRODUCT_BN).contiguous())
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedRect:
+    """K9's operands: the product's weight tiles ``wp`` [6, 3, 96, 64]
+    bf16 (``pack_front_product``; N tile (part, branch) = the branch's
+    q, k or v of 3 head slots x 32, q pre-scaled, zero-padded) and its
+    fp32 bias [576], the two branches' bias tables [2, (2s0-1)(2s1-1),
+    nh/2] fp32, LN1, and the folded depthwise kernel [9, C] and bias."""
+
+    wp: torch.Tensor
+    bqkv: torch.Tensor
+    tables: torch.Tensor
+    g1: torch.Tensor
+    b1: torch.Tensor
+    wdw: torch.Tensor
+    bdw: torch.Tensor
+    dim: int
+    num_heads: int
+    split: Tuple[int, int]
 
 
 @torch.no_grad()
-def pack_rect_weights(w: RectAttnWeights) -> PackedRect:
+def pack_rect_weights(w: RectAttnWeights, dtype: torch.dtype = torch.bfloat16) -> PackedRect:
     """Lay a spatial block's front out for K9 (the counterpart of the
-    JAX package's ``_prep_branch_weights``); built once per loaded
-    weights at inference."""
+    JAX package's ``_prep_branch_weights``; the weight stream in `dtype`,
+    fp32 for the CPU tests' emulation); built once per loaded weights at
+    inference.  The weights must carry the bias tables."""
     check_rect_args((1, 1, 1, w.dim), w)
     c, nhb = w.dim, w.num_heads // 2
     hd = c // 2 // nhb
+    s0, s1 = w.split
+    if w.table0 is None or w.table1 is None:
+        raise ValueError("rect_attention: K9 reads the branches' DynamicPosBias tables "
+                         "(RectAttnWeights.table0 / table1)")
+    tsize = (2 * s0 - 1) * (2 * s1 - 1)
+    for t in (w.table0, w.table1):
+        if tuple(t.shape) != (tsize, nhb):
+            raise ValueError(f"rect_attention: table {tuple(t.shape)} is not the "
+                             f"[(2s0-1)(2s1-1), nh/2] = [{tsize}, {nhb}] table of split {w.split}")
     wq, bq = scaled_qkv(w.wqkv, w.bqkv, hd ** -0.5)
     if bq is None:
         bq = torch.zeros(3 * c, device=wq.device)
-    # [3 parts, 2 branches, heads, hd, in] -> [2, 3 * 3 * 32, 192]
-    wq = F.pad(wq.reshape(3, 2, nhb, hd, c), (0, CP - c, 0, HDP - hd, 0, NHB_MAX - nhb))
+    # [3 parts, 2 branches, heads, hd, in] -> N tiles (part, branch) of 3 x 32
+    wq = F.pad(wq.reshape(3, 2, nhb, hd, c), (0, 0, 0, HDP - hd, 0, NHB_MAX - nhb))
     bq = F.pad(bq.reshape(3, 2, nhb, hd), (0, HDP - hd, 0, NHB_MAX - nhb))
+    wp, bp = pack_front_product(wq.reshape(6, PRODUCT_BN, c), bq.reshape(6, PRODUCT_BN), dtype)
     return PackedRect(
-        wqkv=wq.transpose(0, 1).reshape(2, 3 * NHB_MAX * HDP, CP).to(torch.bfloat16).contiguous(),
-        bqkv=bq.transpose(0, 1).reshape(2, 3 * NHB_MAX * HDP).contiguous(),
-        bias=torch.stack([w.bias0.float(), w.bias1.float()]).contiguous(),
+        wp=wp, bqkv=bp,
+        tables=torch.stack([w.table0.float(), w.table1.float()]).contiguous(),
         g1=w.g1.float().contiguous(), b1=w.b1.float().contiguous(),
         wdw=w.wdw.float().reshape(9, c).contiguous(), bdw=w.bdw.float().contiguous(),
         dim=c, num_heads=w.num_heads, split=tuple(w.split))
+
+
+def padded_size(h: int, w: int, split: Sequence[int]) -> Tuple[int, int]:
+    """(Hp, Wp): H and W rounded up to a multiple of max(s0, s1)."""
+    ms = max(split)
+    return -(-h // ms) * ms, -(-w // ms) * ms
+
+
+def branch_geometry(split: Sequence[int], shifted: bool):
+    """Per branch (hsp, wsp, sh, sw): branch 0's s0 x s1 windows, branch
+    1's s1 x s0, rolled by half a window where the block is shifted."""
+    s0, s1 = split
+    out = []
+    for hsp, wsp in ((s0, s1), (s1, s0)):
+        out.append((hsp, wsp, hsp // 2 if shifted else 0, wsp // 2 if shifted else 0))
+    return out
+
+
+def rect_codes(hp: int, wp: int, hsp: int, wsp: int, sh: int, sw: int) -> np.ndarray:
+    """One int32 code a token of the branch's windows on the padded Hp x
+    Wp map: bits 0-15 its position y (2wsp-1) + x in the window, so that
+    ``relative_position_index(hsp, wsp)``[i, j] = pos_i - pos_j + (hsp-1)
+    (2wsp-1) + wsp-1; bits 16-31, where the block is rolled (sh or sw),
+    its ``rect_shift_region_ids`` label on the padded map.  [1, N] when
+    not rolled, else [windows an image, N] (window w takes row w % nW)."""
+    yy, xx = np.divmod(np.arange(hsp * wsp), wsp)
+    pos = (yy * (2 * wsp - 1) + xx).astype(np.int32)[None]
+    if not (sh or sw):
+        return pos
+    return (pos | (rect_shift_region_ids(hp, wp, hsp, wsp, sh, sw) << 16)).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def rect_codes_tensor(hp: int, wp: int, hsp: int, wsp: int, sh: int, sw: int,
+                      device: torch.device) -> torch.Tensor:
+    """``rect_codes`` as an int32 tensor on `device`, built once."""
+    return torch.from_numpy(rect_codes(hp, wp, hsp, wsp, sh, sw)).to(device)
+
+
+def front_rows(b: int, h: int, w: int, split: Sequence[int], shifted: bool) -> np.ndarray:
+    """The product kernel's K9 row map (``csrc/dat_common.cuh::row_info``):
+    for each row of the tiles (image, pos) of the padded map, pos = y Wp +
+    x < Hp Wp (rows past the map are not stored), [B, Hp Wp, 5] int64:
+    (window, token) in branch 0's and branch 1's rolled, padded window
+    order (``rect_window_partition`` of the rolled map: window (img, wy,
+    wx), token (ty, tx)) and the pixel (img H + y) W + x, or -1 at a pad
+    token."""
+    hp, wp = padded_size(h, w, split)
+    y, x = np.divmod(np.arange(hp * wp), wp)
+    out = np.empty((b, hp * wp, 5), dtype=np.int64)
+    img = np.arange(b)[:, None]
+    for br, (hsp, wsp, sh, sw) in enumerate(branch_geometry(split, shifted)):
+        pr, pc = (y - sh) % hp, (x - sw) % wp
+        wy, wx = pr // hsp, pc // wsp
+        out[..., 2 * br] = (img * (hp // hsp) + wy) * (wp // wsp) + wx
+        out[..., 2 * br + 1] = (pr % hsp) * wsp + pc % wsp
+    real = (y < h) & (x < w)
+    out[..., 4] = np.where(real, (img * h + y) * w + x, -1)
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def rect_geometry(b: int, h: int, w: int, c: int, nhb: int, split: Tuple[int, int],
+                  roll: bool, vec: int, sms: int) -> ctypes.Array:
+    """The C entry's geometry array (``csrc/dat_rect.cu``): the shapes,
+    the product's grid (one CTA an SM, at most one a tile) and tiles an
+    image, and the stream attention's plan at N = s0 s1 tokens of hd
+    dims with the rect table (``window_attention.stream_plan``)."""
+    s0, s1 = split
+    hp, wp = padded_size(h, w, split)
+    n, hd = s0 * s1, c // 2 // nhb
+    tpi = -(-hp * wp // PRODUCT_BM)
+    plan = stream_plan(n, n, hd, s0, s1)
+    bw = b * hp * wp // n
+    n_codes = hp * wp // n if roll else 1
+    return (ctypes.c_int * 21)(
+        b, h, w, c, nhb, hd, s0, s1, int(roll), hp, wp, min(b * tpi, sms), tpi, vec, plan.hb, plan.ob, plan.ns, plan.stages, int(plan.whole),
+        wg_ctas_per_head(bw, nhb, sms), n_codes)
 
 
 def _launch(x: torch.Tensor, pk: PackedRect, shifted: bool):
@@ -240,25 +384,32 @@ def _launch(x: torch.Tensor, pk: PackedRect, shifted: bool):
     dev = x.device
     bf, f32 = torch.bfloat16, torch.float32
     nhb = pk.num_heads // 2
-    _lib.check_tensor(x, "x", bf, dev, ndim=4, align=4)
+    s0, s1 = pk.split
+    vec = 4 if c % 4 == 0 and x.data_ptr() % 8 == 0 else 2
+    _lib.check_tensor(x, "x", bf, dev, ndim=4, align=2 * vec)
+    tsize = (2 * s0 - 1) * (2 * s1 - 1)
     for name, t, shape, dtype, align in (
-            ("wqkv", pk.wqkv, (2, 3 * NHB_MAX * HDP, CP), bf, 32),
-            ("bqkv", pk.bqkv, (2, 3 * NHB_MAX * HDP), f32, 16),
-            ("bias", pk.bias, (2, nhb, N_TOK, N_TOK), f32, 16),
+            ("wp", pk.wp, (6, PRODUCT_CHUNKS, PRODUCT_BN, PRODUCT_BK), bf, 16),
+            ("bqkv", pk.bqkv, (6 * PRODUCT_BN,), f32, 4),
+            ("tables", pk.tables, (2, tsize, nhb), f32, 4),
             ("g1", pk.g1, (c,), f32, 4), ("b1", pk.b1, (c,), f32, 4),
             ("wdw", pk.wdw, (9, c), f32, 4), ("bdw", pk.bdw, (c,), f32, 4)):
         _lib.check_tensor(t, name, dtype, dev, shape=shape, align=align)
+    hp, wp = padded_size(h, wd, pk.split)
+    geo = branch_geometry(pk.split, shifted)
+    roll = shifted and any(sh or sw for _, _, sh, sw in geo)
+    codes = [rect_codes_tensor(hp, wp, hsp, wsp, sh, sw, dev) for hsp, wsp, sh, sw in geo]
+    geom = rect_geometry(b, h, wd, c, nhb, (s0, s1), roll, vec, _lib.sm_count(dev.index))
     out = torch.empty_like(x)
     conv = torch.empty_like(x)
     v = torch.empty_like(x)  # v at true coordinates, for the conv branch
-    s0, s1 = pk.split
-    with torch.cuda.device(dev):
-        status = _lib.library().sr_dat_rect_bf16(
-            x.data_ptr(), out.data_ptr(), v.data_ptr(), conv.data_ptr(),
-            pk.g1.data_ptr(), pk.b1.data_ptr(), pk.wqkv.data_ptr(), pk.bqkv.data_ptr(),
-            pk.bias.data_ptr(), pk.wdw.data_ptr(), pk.bdw.data_ptr(),
-            b, h, wd, c, nhb, c // 2 // nhb, s0, s1, int(bool(shifted)), LN_EPS,
-            _lib.stream_of(x))
+    ws = torch.empty(2, 3 * b * hp * wp * nhb * HDP, dtype=bf, device=dev)
+    status = _lib.call(
+        x, _lib.library().sr_dat_rect_bf16, x.data_ptr(), out.data_ptr(), conv.data_ptr(),
+        v.data_ptr(), ws[0].data_ptr(), ws[1].data_ptr(), pk.g1.data_ptr(), pk.b1.data_ptr(),
+        pk.wp.data_ptr(), pk.bqkv.data_ptr(), pk.tables.data_ptr(), codes[0].data_ptr(),
+        codes[1].data_ptr(), pk.wdw.data_ptr(), pk.bdw.data_ptr(), geom, LN_EPS,
+        _lib.stream_of(x))
     _lib.check_status(status, "sr_dat_rect_bf16")
     launches.count += 1
     return out, conv

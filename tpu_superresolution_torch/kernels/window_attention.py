@@ -206,15 +206,16 @@ def _a1024(n: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def stream_plan(nq: int, nk: int, hd: int, ws: int = 0) -> StreamPlan:
+def stream_plan(nq: int, nk: int, hd: int, ws: int = 0, ws_w: int = 0) -> StreamPlan:
     """The stream kernel's plan at a shape; `ws` > 0: the "rel" form (the
-    (2ws-1)^2-entry bias table resident, a token code array an item)."""
+    (2ws-1)(2ws_w-1)-entry bias table of a ws x ws_w window resident, ws_w
+    0 meaning ws; a token code array an item)."""
     hb = head_block(hd)
     nb = -(-hd // hb)
     ob = 2 if hb == 64 and nb > 1 else 1
     rb = 2 * hb
     nqt = -(-nq // STREAM_Q_TILE)
-    table = -(-(2 * ws - 1) ** 2 * 4 // 16) * 16 if ws else 0
+    table = -(-(2 * ws - 1) * (2 * (ws_w or ws) - 1) * 4 // 16) * 16 if ws else 0
     fixed = 1024 + 2048 + 2 * STREAM_Q_TILE * ob * hb * 2 + table + 16 * STREAM_MAX_STAGES
     # a whole unit: its keys in chunks of 64 (at most 64 keys) or 256 (or
     # 128 past 64 dims), each chunk's rows all allocated (S reads them)
@@ -275,8 +276,8 @@ def launch_stream(q, k, v, bias, mask, codes, out, bw, nh, nq, nk, hd, scale, sp
         None if codes is None else codes.data_ptr(), out.data_ptr(), bw, nh, nq, nk, hd,
         0 if mask is None else int(mask.shape[0]), 0 if codes is None else int(codes.shape[0]),
         ws, int(bool(shifted)), int(bool(split_p)), float(scale), wg_ctas_per_head(bw, nh, _lib.sm_count(dev.index)),
-        plan.hb, plan.ob, plan.ns, plan.stages, int(plan.whole), int(bulk), int(tokmajor),
-        _lib.stream_of(out))
+        plan.hb, plan.ob, plan.ns, plan.stages, int(plan.whole), int(bulk), int(tokmajor), ws,
+        None, _lib.stream_of(out))
     _lib.check_status(status, "sr_window_attention_stream_bf16")
 
 

@@ -48,6 +48,7 @@ for Image Super-Resolution", ICCV 2023).
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -78,6 +79,7 @@ from tpu_superresolution_torch.kernels.fused_rect_attn import (
     pack_rect_weights,
     rect_attention,
     rect_attention_plain,
+    rect_bias_from_table,
     rect_front,
     rect_ok,
 )
@@ -105,7 +107,6 @@ from tpu_superresolution_torch.models.blocks import (
 from tpu_superresolution_torch.ops.window import (
     rect_window_partition,
     rect_window_reverse,
-    relative_position_index,
     rpe_biases,
 )
 
@@ -179,20 +180,25 @@ class RectBranch(nn.Module):
         self.hsp, self.wsp = hsp, wsp
         self.pos = DynamicPosBias(dim // 4, num_heads)
         self._derived = DerivedCache()
+        self._derived_table = DerivedCache()
 
-    def bias(self) -> torch.Tensor:
-        """[heads, N, N] fp32 bias of the hsp x wsp window: built once per
-        loaded weights outside autograd, in the graph when a gradient is
-        wanted."""
+    def table(self) -> torch.Tensor:
+        """The DynamicPosBias output [(2hsp-1)(2wsp-1), heads] fp32, the
+        table K9 keeps resident (``bias`` is its gather): built once per
+        loaded weights."""
         def build():
             dev = self.pos.pos_proj.weight.device
-            table = self.pos(torch.from_numpy(rpe_biases(self.hsp, self.wsp)).to(dev))
-            idx = torch.from_numpy(
-                relative_position_index(self.hsp, self.wsp).reshape(-1)).to(dev)
-            n = self.hsp * self.wsp
-            return table.float()[idx.long()].reshape(n, n, -1).permute(2, 0, 1).contiguous()
+            return self.pos(torch.from_numpy(rpe_biases(self.hsp, self.wsp)).to(dev)).float()
 
-        return self._derived.get(list(self.pos.parameters()), None, build)
+        return self._derived_table.get(list(self.pos.parameters()), None, build)
+
+    def bias(self) -> torch.Tensor:
+        """[heads, N, N] fp32 bias of the hsp x wsp window, ``table``
+        gathered by ``relative_position_index``: built once per loaded
+        weights outside autograd, in the graph when a gradient is
+        wanted."""
+        return self._derived.get(list(self.pos.parameters()), None,
+                                 lambda: rect_bias_from_table(self.table(), self.hsp, self.wsp))
 
 
 def rect_branch_attention(q, k, v, bias, mask, hsp, wsp, heads, attend: Callable):
@@ -299,7 +305,8 @@ class SpatialAttention(_AIM):
             num_heads=self.num_heads, split=self.split)
 
     def front_weights(self, norm1: PLayerNorm) -> RectAttnWeights:
-        return self._weights(norm1, *self.folded_dwconv())
+        return dataclasses.replace(self._weights(norm1, *self.folded_dwconv()),
+                                   table0=self.attns[0].table(), table1=self.attns[1].table())
 
     def chain_front(self, x: torch.Tensor, norm1: PLayerNorm, shifted: bool,
                     plain: bool) -> Tuple[torch.Tensor, torch.Tensor]:
