@@ -57,7 +57,10 @@ Phases (a failure in any raises, and the script exits non-zero):
             attention residual through the window reverse and unshift,
             `extra`, LN2, the MLP and its residual) at HAT-SRx4's
             widths (ws 16, shift 8, extra) and SwinIR-L's (ws 8, shift
-            4, branch scales); and K12 (LN + the CAB's two convs) at
+            4, branch scales) on the wgmma kernel, each beside the WMMA
+            kernel on the same call, alone and back to back, two runs
+            bit-identical, and at C 264 / 576 on the WMMA kernel
+            (``fused_block.tail_route``); and K12 (LN + the CAB's two convs) at
             the HAT-SRx4, HAT, hat_fast and HAT-S shapes and at C 256 /
             Cmid 128 (y1 in two 64-channel chunks), also timed
             against K2 + cuDNN convs + GELU and against the port's K2 +
@@ -277,8 +280,10 @@ KERNELS = {
                 replaces="tpu_superresolution_tpu/ops/pallas/cab_conv.py:209"),
     # K1's function at the windows and widths the block kernel does not
     # take is K2 (LN1) + K7 + this tail kernel
+    # (csrc/swin_tail_wg.cu to C 256, the main paths'; the WMMA kernel
+    # csrc/swin_tail.cu past it: fused_block.tail_route)
     "K1t": dict(name="swin_block_tail", route="cuda",
-                source="tpu_superresolution_torch/csrc/swin_tail.cu",
+                source="tpu_superresolution_torch/csrc/swin_tail_wg.cu",
                 replaces="tpu_superresolution_tpu/ops/pallas/fused_block.py:958"),
     "K11": dict(name="dwconv3x3", route="cuda",
                 source="tpu_superresolution_torch/csrc/dwconv.cu",
@@ -303,6 +308,19 @@ KERNELS = {
                    source="tpu_superresolution_torch/csrc/ocab16.cu",
                    replaces="tpu_superresolution_tpu/ops/pallas/fused_ocab.py:354"),
 }
+# K1t's correctness-only shapes on the wgmma kernel (chip_smoke's
+# _tail_cases): [B, H, W, C], hidden, ws, shift, extra, branch scales,
+# tanh GELU.  C 44: cp.async of 8 bytes and a ragged last unit (24 rows);
+# C 45: element copies and stores (odd C, a last unit of 36 rows whose
+# bytes are no multiple of 16); C 46: cp.async of 4 bytes; C 256 at hidden
+# 200: x1 through the workspace, a part hidden chunk; C 64 and 120: the
+# one- and two-chunk widths, ws 16.
+K1T_ENVELOPE = (((1, 12, 18, 44), 88, 6, 3, True, True, False),
+                ((1, 10, 10, 45), 100, 5, 2, True, False, True),
+                ((2, 6, 6, 46), 92, 6, 3, False, True, False),
+                ((2, 16, 16, 256), 200, 8, 4, True, True, True),
+                ((1, 8, 8, 64), 64, 8, 4, False, False, True),
+                ((3, 16, 16, 120), 480, 16, 8, True, True, False))
 # Launches per SwinIR-M x4 model call on the serving path (--no-exact).
 PER_CALL = {"K1": 36, "K1t": 0, "K2": 2, "K3": 8, "K4": 1, "K5": 0, "K5w16": 0, "K6": 0,
             "K6b": 0, "K7": 0, "K8": 0, "K8b": 0, "K8w16": 0, "K8bw16": 0, "K9": 0, "K10": 0,
@@ -508,7 +526,7 @@ def phase_build():
     # template arguments: registers, shared memory, spills
     kinds = ("conv_nhwc_wgmma_kernel", "conv_nhwc_halo_kernel", "window_product_kernel",
              "window_attn_stream_kernel", "cab_wgmma_kernel", "swin_block_wg_kernel",
-             "datb_tail_wg_kernel", "swin_block_bwd_kernel", "attn16_kernel",
+             "datb_tail_wg_kernel", "swin_tail_wg_kernel", "swin_block_bwd_kernel", "attn16_kernel",
              "front_product_kernel", "dat_conv_kernel")
     name = None
     for line in out.splitlines():
@@ -1816,6 +1834,109 @@ def _k12_work(pixels, c, cm):
     return pixels * 2 * 2 * 9 * c * cm, pixels * c * 2 * 2 + 2 * 9 * c * cm * 2
 
 
+def _tail_cases(res, gen, dev):
+    """K1t at the main paths' shapes: the kernel ``tail_route`` names
+    (csrc/swin_tail_wg.cu to C 256, the WMMA csrc/swin_tail.cu past it),
+    each output within ULP_BOUND bf16 ulps of its plain bf16 and fp32
+    versions, alone and back to back, two runs bit-identical; on the
+    wgmma route the WMMA kernel on the same call as the A/B (wgmma, WMMA,
+    WMMA, wgmma), checked against the plain fp32 version too."""
+    import torch
+
+    from tpu_superresolution_torch.kernels import fused_block as fb
+
+    bf = torch.bfloat16
+    for shape, nh, hidden, ws, shift, with_extra, with_scales in (
+            ((25, 64, 64, 180), 6, 360, 16, 8, True, False),
+            ((25, 64, 64, 240), 8, 480, 8, 4, False, True),
+            # phase_wide's blocks (the WMMA route): SwinIR at C 264 and
+            # HAT's HAB at embed 264 (ws 7, the CAB as extra), and C 576
+            # (32 pixels a block)
+            ((4, 64, 64, 264), 6, 528, 8, 4, False, False),
+            ((4, 70, 70, 264), 6, 528, 7, 3, True, False),
+            ((4, 64, 64, 576), 8, 1152, 8, 4, False, False)):
+        b, c = shape[0], shape[-1]
+        w = _random_block(gen, dev, c=c, nh=nh, hidden=hidden, ws=ws)
+        route = fb.tail_route(c, hidden)
+        packs = {route: fb.pack_block_tail(w.g2, w.b2, w.wfc1, w.bfc1, w.wfc2, w.bfc2)}
+        if route == "wgmma":
+            packs["wmma"] = fb.pack_block_tail(w.g2, w.b2, w.wfc1, w.bfc1, w.wfc2, w.bfc2,
+                                               route="wmma")
+        x = torch.randn(*shape, generator=gen).to(dev, bf)
+        windows = b * (shape[1] // ws) * (shape[2] // ws)
+        attn = torch.randn(windows, ws * ws, c, generator=gen).to(dev, bf)
+        extra = (0.1 * torch.randn(*shape, generator=gen)).to(dev, bf) if with_extra else None
+        scales = (torch.tensor([[1.0, 0.0], [1.25, 1.25]]).repeat(b // 2 + 1, 1)[:b].to(dev)
+                  if with_scales else None)
+        runs = {r: (lambda pk=pk: fb.fused_block_tail(x, attn, w, ws, shift, False, scales,
+                                                      extra, packed=pk))
+                for r, pk in packs.items()}
+        run = runs[route]
+        plain = lambda: fb.swin_block_tail_plain(x, attn, w, ws, shift, False, scales, extra)
+        out = run()
+        twice = run()
+        ref16 = plain()
+        ref32 = fb.swin_block_tail_plain(x.float(), attn.float(), w, ws, shift, False, scales,
+                                         None if extra is None else extra.float())
+        torch.cuda.synchronize()
+        if not torch.equal(out, twice):
+            raise RuntimeError(f"K1t {list(shape)}: two runs differ")
+        alone, b2b = ({r: [] for r in runs} for _ in range(2))
+        for r in list(runs) + list(runs)[::-1]:
+            alone[r].append(cuda_ms(runs[r]))
+            b2b[r].append(queued_ms(runs[r]))
+        mean = lambda v: sum(v) / len(v)
+        ab = ""
+        if route == "wgmma":
+            old = runs["wmma"]()
+            torch.cuda.synchronize()
+            e_old = float((old.float() - ref32.float()).abs().max())
+            bound = ULP_BOUND["K1t"] * bf16_ulp(float(ref32.abs().max()))
+            if not e_old <= bound:
+                raise RuntimeError(f"K1t {list(shape)}: the WMMA kernel off by {e_old:.3e}")
+            ab = (f"; the WMMA kernel on the same call {mean(alone['wmma']):.4f} ms "
+                  f"({' / '.join(f'{t:.4f}' for t in alone['wmma'])}), b2b "
+                  f"{mean(b2b['wmma']):.4f}, max_abs_err {e_old:.3e}; wgmma / WMMA "
+                  f"{mean(alone['wgmma']) / mean(alone['wmma']):.3f}x alone, "
+                  f"{mean(b2b['wgmma']) / mean(b2b['wmma']):.3f}x b2b")
+            del old
+        _compare(res, "K1t", f"{list(shape)} hidden {hidden} ws {ws} shift {shift}"
+                 f"{', extra' if with_extra else ''}{', branch scales' if with_scales else ''}"
+                 f" (route {route}; "
+                 f"{' / '.join(f'{t:.4f}' for t in alone[route])} ms, b2b "
+                 f"{mean(b2b[route]):.4f}; two runs bit-identical{ab})",
+                 out, ref16, ref32, mean(alone[route]), cuda_ms(plain),
+                 _tail_work(math.prod(shape[:3]), c, hidden, with_extra))
+        del out, twice, ref16, ref32
+    # correctness only: the wgmma kernel's other paths (K1T_ENVELOPE)
+    for shape, hidden, ws, shift, with_extra, with_scales, tanh in K1T_ENVELOPE:
+        b, c = shape[0], shape[-1]
+        w = _random_block(gen, dev, c=c, nh=1, hidden=hidden, ws=ws)
+        x = torch.randn(*shape, generator=gen).to(dev, bf)
+        windows = b * (shape[1] // ws) * (shape[2] // ws)
+        attn = torch.randn(windows, ws * ws, c, generator=gen).to(dev, bf)
+        extra = (0.1 * torch.randn(*shape, generator=gen)).to(dev, bf) if with_extra else None
+        scales = (torch.tensor([[1.0, 0.0], [1.25, 1.25], [0.0, 1.25]])[:b].to(dev)
+                  if with_scales else None)
+        run = lambda: fb.fused_block_tail(x, attn, w, ws, shift, tanh, scales, extra)
+        out, twice = run(), run()
+        ref32 = fb.swin_block_tail_plain(x.float(), attn.float(), w, ws, shift, tanh, scales,
+                                         None if extra is None else extra.float())
+        torch.cuda.synchronize()
+        mag = float(ref32.abs().max())
+        bound = ULP_BOUND["K1t"] * bf16_ulp(mag)
+        err = float((out.float() - ref32).abs().max())
+        ok = math.isfinite(err) and err <= bound and torch.equal(out, twice)
+        log(f"[kernels] K1t envelope {list(shape)} hidden {hidden} ws {ws} shift {shift}"
+            f"{', extra' if with_extra else ''}{', branch scales' if with_scales else ''}"
+            f"{', tanh' if tanh else ''} (route {fb.tail_route(c, hidden)}): max_abs_err vs "
+            f"plain fp32 {err:.3e} (bound {bound:.3e}), two runs "
+            f"{'identical' if torch.equal(out, twice) else 'DIFFER'} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"K1t {list(shape)}: outside its bound or not deterministic")
+        del out, twice, ref32
+
+
 def phase_window_kernels(res):
     """K7 (the window attention for any window, width and head dim), K1t
     and K12 (HAT's fused LN + CAB convs) at the main paths' shapes, each
@@ -1923,36 +2044,7 @@ def phase_window_kernels(res):
                  cuda_ms(lambda: F.linear(x, wb, bb)))
         del out, ref16, ref32
 
-    for shape, nh, hidden, ws, shift, with_extra, with_scales in (
-            ((25, 64, 64, 180), 6, 360, 16, 8, True, False),
-            ((25, 64, 64, 240), 8, 480, 8, 4, False, True),
-            # phase_wide's blocks: SwinIR at C 264 and HAT's HAB at embed
-            # 264 (ws 7, the CAB as extra), and C 576 (32 pixels a block)
-            ((4, 64, 64, 264), 6, 528, 8, 4, False, False),
-            ((4, 70, 70, 264), 6, 528, 7, 3, True, False),
-            ((4, 64, 64, 576), 8, 1152, 8, 4, False, False)):
-        b, c = shape[0], shape[-1]
-        w = _random_block(gen, dev, c=c, nh=nh, hidden=hidden, ws=ws)
-        packed = fb.pack_block_tail(w.g2, w.b2, w.wfc1, w.bfc1, w.wfc2, w.bfc2)
-        x = torch.randn(*shape, generator=gen).to(dev, bf)
-        windows = b * (shape[1] // ws) * (shape[2] // ws)
-        attn = torch.randn(windows, ws * ws, c, generator=gen).to(dev, bf)
-        extra = (0.1 * torch.randn(*shape, generator=gen)).to(dev, bf) if with_extra else None
-        scales = (torch.tensor([[1.0, 0.0], [1.25, 1.25]]).repeat(b // 2 + 1, 1)[:b].to(dev)
-                  if with_scales else None)
-        run = lambda: fb.fused_block_tail(x, attn, w, ws, shift, False, scales, extra,
-                                          packed=packed)
-        plain = lambda: fb.swin_block_tail_plain(x, attn, w, ws, shift, False, scales, extra)
-        out = run()
-        ref16 = plain()
-        ref32 = fb.swin_block_tail_plain(x.float(), attn.float(), w, ws, shift, False, scales,
-                                         None if extra is None else extra.float())
-        torch.cuda.synchronize()
-        _compare(res, "K1t", f"{list(shape)} hidden {hidden} ws {ws} shift {shift}"
-                 f"{', extra' if with_extra else ''}{', branch scales' if with_scales else ''}",
-                 out, ref16, ref32, cuda_ms(run), cuda_ms(plain),
-                 _tail_work(math.prod(shape[:3]), c, hidden, with_extra))
-        del out, ref16, ref32
+    _tail_cases(res, gen, dev)
 
     for label, shape, cm in (("HAT-SRx4", (25, 64, 64, 180), 60),
                              ("HAT (ws 7, padded tiles)", (25, 70, 70, 96), 32),
@@ -2442,12 +2534,49 @@ def phase_swinir_ws7(smi):
     return counts
 
 
+def _k1t_route_ab(model, fn, tag, smi, iters=5):
+    """One end-to-end forward `fn` with the model's K1t on each kernel:
+    the Swin blocks' tail operands packed for the wgmma kernel
+    (``tail_route``'s choice) and for the WMMA kernel, each timed (CUDA
+    events, median of `iters` after a warm-up that packs) in the order
+    wgmma, WMMA, WMMA, wgmma; the route is restored afterwards."""
+    import functools
+
+    import torch
+
+    from tpu_superresolution_torch.models import swinir
+
+    caches = [m._packed for m in model.modules() if isinstance(m, swinir.SwinBlock)]
+    real = swinir.pack_block_tail
+
+    def use(route):
+        swinir.pack_block_tail = (real if route == "wgmma"
+                                  else functools.partial(real, route="wmma"))
+        for cache in caches:
+            cache._key = None  # repack on the next call
+
+    times = {"wgmma": [], "wmma": []}
+    try:
+        with torch.no_grad():
+            for route in ("wgmma", "wmma", "wmma", "wgmma"):
+                use(route)
+                times[route].append(cuda_ms(fn, iters=iters, warmup=1))
+    finally:
+        use("wgmma")
+    mean = {r: sum(v) / len(v) for r, v in times.items()}
+    log(f"[{tag}] K1t end to end, one call: the wgmma tail kernel {mean['wgmma']:.2f} ms "
+        f"({' / '.join(f'{t:.2f}' for t in times['wgmma'])}), the WMMA kernel "
+        f"{mean['wmma']:.2f} ms ({' / '.join(f'{t:.2f}' for t in times['wmma'])}): "
+        f"{mean['wmma'] - mean['wgmma']:.2f} ms less a call ({smi})")
+
+
 def phase_swinir_l(smi):
     """One forward at SwinIR-L's widths (the real-world x4 model: embed
     240, 8 heads, ws 8, depths 9x6, 3conv, nearest+conv; seeded random
     weights) on 4 tiles of 64^2 in bf16: every block takes the K7 route
-    (C 240 is past the block kernel's 192); its launches, and its output
-    against the plain fp32 path."""
+    (C 240 is past the block kernel's 192); its launches, its output
+    against the plain fp32 path, and its time on the bench batch (25
+    tiles) with K1t on each tail kernel."""
     import numpy as np
     import torch
 
@@ -2473,6 +2602,11 @@ def phase_swinir_l(smi):
         counts = read_counters()
         ms = cuda_ms(lambda: model(x), iters=5, warmup=1)
         psnr = _psnr_db(y, ref(x))
+    # the K1t A/B on the bench batch (25 tiles): at 4 tiles the host's
+    # launches hold the forward
+    xb = torch.from_numpy(np.random.default_rng(SEED + 1).random((25, 64, 64, 3),
+                                                                 np.float32)).cuda()
+    _k1t_route_ab(model, lambda: model(xb), "swinir-l", smi)
     log(f"[swinir-l] SwinIR-L widths (embed 240, 8 heads, ws 8, depths 9x6, 3conv, "
         f"nearest+conv), [4,64,64,3] bf16: launches {counts} (expected {SWINIR_L_PER_CALL}); "
         f"{ms:.2f} ms; PSNR vs plain fp32 {psnr:.2f} dB (bound >= {PSNR_MIN_DB} dB) ({smi})")
@@ -2587,11 +2721,12 @@ def phase_hat_srx4(workdir, smi):
     phase's three requests and checks (launches per call exactly
     HAT_SRX4_PER_CALL, the tiled output >= 50 dB against the plain fp32
     path), the bench workload in MPix/s for the kernels and the plain
-    path, and a profiled forward split by part.  Returns the launches of
-    the served requests."""
+    path, the bench forward with K1t on each tail kernel, and a profiled
+    forward split by part.  Returns the launches of the served requests."""
     service, launches = phase_serve(workdir, hat_srx4_config(), "hat", HAT_SRX4_PER_CALL,
                                     tag="hat_srx4")
     fwd = phase_bench(service, smi, name="HAT-SRx4", tag="hat_srx4")
+    _k1t_route_ab(service.model, fwd, "hat_srx4", smi)
     _hat_split(service.model, fwd, smi, tag="hat_srx4")
     return launches
 
@@ -2638,7 +2773,8 @@ def _hat_split(model, fwd, smi, tag="hat"):
     names = (("block kernel (swin_block_wg_kernel)", ("swin_block_wg_kernel",)),
              ("K7 window_product_kernel (qkv, proj)", ("window_product_kernel",)),
              ("K7 window_attn_stream_kernel", ("window_attn_stream_kernel",)),
-             ("K1t swin_tail_kernel", ("swin_tail_kernel",)),
+             ("K1t swin_tail_wg_kernel / swin_tail_kernel",
+              ("swin_tail_wg_kernel", "swin_tail_kernel")),
              ("K12 cab_wgmma_kernel", ("cab_wgmma_kernel",)),
              ("K15 window_attn_wg_kernel / batched_attn_kernel (OCAB attention)",
               ("window_attn_wg_kernel", "batched_attn_kernel")),
@@ -3551,7 +3687,8 @@ def _hat_train_split(state, lr, hr, step_ms, smi, tag="hat-train"):
                                                                        "ocab16_fwd_kernel")),
                  ("forward K7 (window_product_kernel, window_attn_stream_kernel)",
                   ("window_product_kernel", "window_attn_stream_kernel")),
-                 ("forward K1t swin_tail_kernel", ("swin_tail_kernel",)),
+                 ("forward K1t swin_tail_wg_kernel / swin_tail_kernel",
+                  ("swin_tail_wg_kernel", "swin_tail_kernel")),
                  ("forward K12 cab_wgmma_kernel", ("cab_wgmma_kernel",)),
                  ("forward K2-K4", ("layernorm_rows", "conv_nhwc")))
     by_span = (("hat::cab", "forward CAB SE gate (plain ops)"),

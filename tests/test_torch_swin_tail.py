@@ -132,15 +132,18 @@ def _tail_case(c, hidden, ws, shift, seed):
 
 
 @pytest.mark.parametrize("c,hidden,ws,shift", [(180, 360, 16, 8), (240, 720, 6, 3),
-                                               (24, 40, 8, 0), (264, 528, 8, 4)])
+                                               (24, 40, 8, 0), (264, 528, 8, 4),
+                                               (576, 1152, 8, 4), (270, 100, 6, 3)])
 def test_tail_packed_layout_and_addressing_compute_the_plain_function(c, hidden, ws, shift):
-    """The tail kernel's arithmetic, emulated in fp32 from its packed
-    operands: each pixel's attention row found by the kernel's address
-    formula (window and token of the pixel in the shifted map), LN2 in
-    the fast-variance form, the MLP hidden in chunks of 256 columns with
-    each chunk's fc2 partial product added into the residual (fc2's
-    bias with the first).  It gives the plain version's output: what
-    only the card runs is checked here."""
+    """The WMMA tail kernel's arithmetic (``csrc/swin_tail.cu``, route
+    "wmma": ``tail_route``'s past C 256, packed for it at any C),
+    emulated in fp32 from its packed operands: each pixel's attention
+    row found by the kernel's address formula (window and token of the
+    pixel in the shifted map), LN2 in the fast-variance form, the MLP
+    hidden in chunks of 128 columns with each chunk's fc2 partial
+    product added into the residual (fc2's bias with the first).  It
+    gives the plain version's output: what only the card runs is
+    checked here."""
     from tpu_superresolution_torch.kernels.fused_block import (
         LN_EPS,
         gelu,
@@ -149,7 +152,7 @@ def test_tail_packed_layout_and_addressing_compute_the_plain_function(c, hidden,
     )
 
     w, x, attn, extra, scales = _tail_case(c, hidden, ws, shift, c + ws)
-    pk = pack_block_tail(w.g2, w.b2, w.wfc1, w.bfc1, w.wfc2, w.bfc2)
+    pk = pack_block_tail(w.g2, w.b2, w.wfc1, w.bfc1, w.wfc2, w.bfc2, route="wmma")
     b, h, wd, _ = x.shape
     ck, hk = pk.wfc1.shape[1], pk.wfc1.shape[0]
     p = torch.arange(b * h * wd)
@@ -165,9 +168,9 @@ def test_tail_packed_layout_and_addressing_compute_the_plain_function(c, hidden,
     var = ((x1[:, :c] ** 2).mean(-1, keepdim=True) - mu * mu).clamp_min(0)
     y2 = torch.nn.functional.pad((x1[:, :c] - mu) * torch.rsqrt(var + LN_EPS) * pk.g2 + pk.b2,
                                  (0, ck - c))
-    for h0 in range(0, hk, 256):
-        hid = gelu(y2 @ pk.wfc1[h0:h0 + 256].float().t() + pk.bfc1[h0:h0 + 256], False)
-        part = hid @ pk.wfc2[:, h0:h0 + 256].float().t()
+    for h0 in range(0, hk, 128):
+        hid = gelu(y2 @ pk.wfc1[h0:h0 + 128].float().t() + pk.bfc1[h0:h0 + 128], False)
+        part = hid @ pk.wfc2[:, h0:h0 + 128].float().t()
         x1 = x1 + m2 * (part + (pk.bfc2 if h0 == 0 else 0))
     got = x1[:, :c].reshape(x.shape)
     # the packing rounds the MLP weights to bf16

@@ -189,6 +189,18 @@ __device__ __forceinline__ uint32_t swizzled_offset(uint32_t off) {
   return off ^ (((off >> 7) & (RB / 16 - 1)) << 4);
 }
 
+// Four 8x8 bf16 matrices from shared memory, one a register: lanes 8i ..
+// 8i + 7 give the row addresses (16 bytes each) of matrix i, and thread
+// t gets row t / 4, columns 2 (t % 4) + {0, 1} of each: with matrices
+// (rows 0-7 | 8-15) x (columns 0-7 | 8-15) of a 16 x 16 block in the
+// order (0, 0), (8, 0), (0, 8), (8, 8), WgmmaRS's A fragment of the block.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
 // ---------------------------------------------------------------- wgmma
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -563,6 +575,20 @@ template <> struct WgmmaRS<64> {
 // along N of 16 K values; the transpose bit clear), D as Wgmma's.
 template <int N>
 struct WgmmaRSK;
+
+template <> struct WgmmaRSK<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
 
 template <> struct WgmmaRSK<64> {
   static __device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4],

@@ -21,7 +21,7 @@ HAT-SRx4 training (H16T: window 16, C 180, hidden 360).
  #   JAX file:line of pallas_call . entry function                on path  port
 ==== ========================================================== ======== ==================================================
 K1   fused_block.py:958 . fused_swin_block (_mega_forward)         S,T,H    CUDA csrc/swin_block.cu (ws 8, extra; wgmma, fused_block.block_plan), fused_block.fused_windows_block
-     (the same function at any other window or width)             H16,W,   K2 + K7 + K1's tail, CUDA csrc/swin_tail.cu, fused_block.fused_block_tail (K1t)
+     (the same function at any other window or width)             H16,W,   K2 + K7 + K1's tail (K1t), CUDA csrc/swin_tail_wg.cu (wgmma, C <= 256) or csrc/swin_tail.cu (past it; fused_block.tail_route), fused_block.fused_block_tail
                                                                   H16T
 K5   fused_block.py:1080 . _mega_backward                          T,HT     CUDA csrc/swin_block_bwd.cu (ws 8, extra; wgmma on the forward's tiles, fused_block.bwd_plan), fused_block.SwinBlockFunction
      (at ws 16, the K7 route's block, counted as K5w16)            H16T     CUDA csrc/swin_block_bwd16.cu (K5a's ws-16 modes + two attention kernels, fused_block.bwd16_plan), fused_block.WindowBlockFunction

@@ -53,6 +53,7 @@ _SIGNATURES = {
     "sr_dat_channel_bf16": [_P] * 14 + [ctypes.POINTER(_I), ctypes.c_float, _P],
     "sr_dat_tail_bf16": [_P] * 8 + [ctypes.POINTER(_I), ctypes.c_float, _P],
     "sr_swin_tail_bf16": [_P] * 11 + [_I] * 8 + [ctypes.c_float, _I, _P],
+    "sr_swin_tail_wg_bf16": [_P] * 8 + [ctypes.POINTER(_I), ctypes.c_float, _P],
     "sr_ln_cab_convs_bf16": [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P],
     "sr_dwconv3x3_bf16": [_P] * 4 + [ctypes.POINTER(_I), _P],
     "sr_batched_window_attention_bf16": [_P] * 6 + [_I] * 7 + [ctypes.c_float, _P],

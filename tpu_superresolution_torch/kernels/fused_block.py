@@ -122,7 +122,7 @@ MAX_HEADS = CP // HDP
 LN_EPS = 1e-5
 N_TOK = 64   # token rows per window in the kernels (ws^2, padded)
 TAIL_ROWS = (64, 32, 16)  # csrc/swin_tail.cu: pixels a block, the most that fit C
-TAIL_SMEM = 232448
+TAIL_SMEM = 232448        # both tail kernels' shared memory
 
 launches = _lib.LaunchCounter("K1 swin_block ws8")
 launches_ws7 = _lib.LaunchCounter("K6 swin_block ws7")
@@ -519,9 +519,10 @@ def swin_block_plain(x: torch.Tensor, w: SwinBlockWeights, ws: int, shift: int,
 
 @dataclasses.dataclass(frozen=True)
 class PackedBlockTail:
-    """The tail kernel's operands: bf16 [out, in] MLP weights zero-padded
-    to multiples of 16 (CK = C, HK = hidden rounded up), fp32 biases
-    padded alike, fp32 LN2 params."""
+    """The WMMA tail kernel's operands (``csrc/swin_tail.cu``, route
+    "wmma"): bf16 [out, in] MLP weights zero-padded to multiples of 16
+    (CK = C, HK = hidden rounded up), fp32 biases padded alike, fp32 LN2
+    params."""
 
     wfc1: torch.Tensor  # [HK, CK] bf16
     bfc1: torch.Tensor  # [HK] fp32
@@ -531,6 +532,120 @@ class PackedBlockTail:
     b2: torch.Tensor
     dim: int
     hidden: int
+    route = "wmma"
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedTailWg:
+    """The wgmma tail kernel's operands (``csrc/swin_tail_wg.cu``, route
+    "wgmma"): `tiles`, the weight stream: per 64-column hidden chunk j,
+    fc1's rows 64 j .. 64 j + 63 as CP/64 [64, 64] K-major tiles (K chunk
+    outer), then fc2's [CP, 64] tile of hidden columns 64 j .., each tile
+    128B-swizzled (16-byte chunk i of row n at i ^ (n % 8)), zero past C
+    and the hidden width (the chunks an even number); `vec`, fp32 g2, b2,
+    bfc2 [CP] and bfc1 [chunks 64], zero-padded."""
+
+    tiles: torch.Tensor
+    vec: torch.Tensor
+    dim: int
+    hidden: int
+    route = "wgmma"
+
+
+TAIL_WG_MAX_C = 256   # csrc/swin_tail_wg.cu: its widths (CP 64 .. 256)
+TAIL_WG_STAGES = 8    # its ring's most stages
+TAIL_WG_ROWS = 64     # pixels a unit (the wgmma m64)
+
+
+def tail_route(c: int, hidden: int) -> str:
+    """The kernel of K1's tail at C channels and MLP hidden `hidden`:
+    "wgmma" (``csrc/swin_tail_wg.cu``) for C <= 256 at any hidden, else
+    "wmma" (``csrc/swin_tail.cu``, C up to 2272, ``tail_rows``).  Static
+    shapes only, the same on every call and device; a launch never
+    falls back from one to the other."""
+    if c < 1 or hidden < 1:
+        raise ValueError(f"tail_route: C={c}, hidden={hidden}")
+    return "wgmma" if c <= TAIL_WG_MAX_C else "wmma"
+
+
+def _pad64(v: int) -> int:
+    return -(-v // 64) * 64
+
+
+def _tail_wg_chunks(hidden: int) -> int:
+    """The wgmma tail kernel's 64-column hidden chunks: an even number
+    (its MLP runs them in pairs; a last odd chunk is zero)."""
+    return -(-hidden // 128) * 2
+
+
+def _tail_wg_rsb(c: int) -> int:
+    """Bytes between two staging rows of the wgmma tail kernel: the row's
+    ceil(C / 2) words rounded up to 8 k + 4 (16 (2 k + 1) bytes), so that
+    8 rows x 4 words of a warp's reads hit 32 banks."""
+    words = -(-c // 2)
+    return 4 * (words + (12 - words % 8) % 8)
+
+
+@dataclasses.dataclass(frozen=True)
+class TailWgPlan:
+    """How csrc/swin_tail_wg.cu runs one call: padded width `cp`, 64-column
+    hidden `chunks` (even), staging row stride `rsb` bytes, `units` of 64 rows
+    of the flat map over `grid` persistent CTAs, `stages` ring stages of
+    cp x 128 bytes, `smem` bytes of shared memory a CTA."""
+
+    cp: int
+    chunks: int
+    rsb: int
+    units: int
+    grid: int
+    stages: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=256)
+def tail_wg_plan(b: int, h: int, w: int, c: int, hidden: int, extra: bool,
+                 sms: int) -> TailWgPlan:
+    """The wgmma tail kernel's plan for x [B, H, W, C] (with or without
+    `extra`) on a card of `sms` SMs, from static shapes alone (its C
+    entry only checks it): the ring gets what shared memory leaves after
+    the LN2 / output buffer, two GELU chunks, the staging (x and extra at
+    rows of C rounded up to even, attn at `rsb` bytes a row), the row sums
+    and g2 / b2 / bfc2, at most 8 stages (C 180 with extra: 4; C 240
+    without: 3).  Raises ValueError outside the kernel's widths."""
+    if tail_route(c, hidden) != "wgmma":
+        raise ValueError(f"tail_wg_plan: C={c} is past the wgmma tail kernel's {TAIL_WG_MAX_C}")
+    cp, rsb = _pad64(c), _tail_wg_rsb(c)
+    stage = cp * 128
+    fixed = (1024 + stage + 2 * 8192 + (2 if extra else 1) * TAIL_WG_ROWS * 2 * (c + c % 2)
+             + TAIL_WG_ROWS * rsb + 2 * TAIL_WG_ROWS * 8 + 3 * cp * 4
+             + (2 * TAIL_WG_STAGES + 2) * 8)
+    stages = min(TAIL_WG_STAGES, (TAIL_SMEM - fixed) // stage)
+    units = -(-(b * h * w) // TAIL_WG_ROWS)
+    return TailWgPlan(cp=cp, chunks=_tail_wg_chunks(hidden), rsb=rsb, units=units,
+                      grid=max(1, min(units, sms)), stages=stages, smem=fixed + stages * stage)
+
+
+@functools.lru_cache(maxsize=64)
+def _tail_wg_indices(c: int, hidden: int, device: torch.device):
+    """For each element of ``PackedTailWg``'s `tiles` and `vec`, its index
+    in the flat sources [wfc1 | wfc2 | 0] and [g2 | b2 | bfc2 | bfc1 | 0]
+    (the trailing zero for the padding): packing is two gathers."""
+    from tpu_superresolution_torch.kernels.cab_conv import _swizzle_rows
+
+    cp, chunks = _pad64(c), _tail_wg_chunks(hidden)
+    hp, kc = chunks * 64, cp // 64
+    zero, vzero = 2 * hidden * c, 3 * c + hidden
+    pad = lambda t, p, z: F.pad(t, p, value=z)
+    w1 = pad(torch.arange(hidden * c).reshape(hidden, c), (0, cp - c, 0, hp - hidden), zero)
+    fc1 = w1.reshape(chunks, 64, kc, 64).transpose(1, 2)  # [chunks, kc, 64 rows, 64 K]
+    w2 = pad(torch.arange(hidden * c, 2 * hidden * c).reshape(c, hidden),
+             (0, hp - hidden, 0, cp - c), zero)
+    fc2 = w2.reshape(cp, chunks, 64).transpose(0, 1)  # [chunks, cp rows, 64 K]
+    tiles = torch.cat([_swizzle_rows(fc1).reshape(chunks, -1),
+                       _swizzle_rows(fc2).reshape(chunks, -1)], dim=1).reshape(-1)
+    vec = torch.cat([pad(torch.arange(i * c, (i + 1) * c), (0, cp - c), vzero) for i in range(3)]
+                    + [pad(torch.arange(3 * c, 3 * c + hidden), (0, hp - hidden), vzero)])
+    return tiles.to(device), vec.to(device)
 
 
 def _round16(v: int) -> int:
@@ -538,10 +653,10 @@ def _round16(v: int) -> int:
 
 
 def tail_rows(c: int) -> int:
-    """The tail kernel's pixels a block at C channels: the most of 64, 32
-    and 16 whose shared memory (x1 fp32 and LN2's output bf16 per row,
-    the 128-column hidden chunk, the warps' epilogue tiles) fits; C <=
-    528, 1104 and 2272.  Raises ValueError past that."""
+    """The WMMA tail kernel's pixels a block at C channels: the most of
+    64, 32 and 16 whose shared memory (x1 fp32 and LN2's output bf16 per
+    row, the 128-column hidden chunk, the warps' epilogue tiles) fits; C
+    <= 528, 1104 and 2272.  Raises ValueError past that."""
     ck = _round16(c)
     for t in TAIL_ROWS:
         if t * ck * 4 + t * (ck + 8) * 2 + t * 136 * 2 + t * 4 + 8 * 256 * 4 <= TAIL_SMEM:
@@ -551,24 +666,40 @@ def tail_rows(c: int) -> int:
 
 
 @torch.no_grad()
-def pack_block_tail(g2, b2, wfc1, bfc1, wfc2, bfc2) -> PackedBlockTail:
-    """Lay the raw LN2 and MLP weights out for the tail kernel: once per
-    loaded weights at inference, on every call in training."""
+def pack_block_tail(g2, b2, wfc1, bfc1, wfc2, bfc2, route: Optional[str] = None,
+                    dtype: torch.dtype = torch.bfloat16):
+    """Lay the raw LN2 and MLP weights out for the tail kernel of `route`
+    (default ``tail_route``'s): once per loaded weights at inference, on
+    every call in training.  "wgmma": ``PackedTailWg`` by two gathers from
+    cached indices, `dtype` the weights' (float32 keeps them unrounded:
+    the CPU tests' emulation of the kernel); "wmma": ``PackedBlockTail``."""
     hidden, c = int(wfc1.shape[0]), int(wfc1.shape[1])
+    route = route or tail_route(c, hidden)
+    f = lambda t: t.detach().float()
+    if route == "wgmma":
+        if c > TAIL_WG_MAX_C:
+            raise ValueError(f"pack_block_tail: C={c} is past the wgmma tail kernel")
+        tidx, vidx = _tail_wg_indices(c, hidden, wfc1.device)
+        zero = torch.zeros(1, device=wfc1.device)
+        src = torch.cat([f(wfc1).reshape(-1), f(wfc2).reshape(-1), zero])
+        vsrc = torch.cat([f(g2), f(b2), f(bfc2), f(bfc1), zero])
+        return PackedTailWg(tiles=src.to(dtype)[tidx], vec=vsrc[vidx], dim=c, hidden=hidden)
+    if route != "wmma":
+        raise ValueError(f"pack_block_tail: route {route!r} is neither 'wgmma' nor 'wmma'")
     tail_rows(c)
     ck, hk = _round16(c), _round16(hidden)
     bf = torch.bfloat16
     return PackedBlockTail(
-        wfc1=F.pad(wfc1.float(), (0, ck - c, 0, hk - hidden)).to(bf).contiguous(),
-        bfc1=F.pad(bfc1.float(), (0, hk - hidden)).contiguous(),
-        wfc2=F.pad(wfc2.float(), (0, hk - hidden, 0, ck - c)).to(bf).contiguous(),
-        bfc2=F.pad(bfc2.float(), (0, ck - c)).contiguous(),
-        g2=g2.float().contiguous(), b2=b2.float().contiguous(), dim=c, hidden=hidden)
+        wfc1=F.pad(f(wfc1), (0, ck - c, 0, hk - hidden)).to(bf).contiguous(),
+        bfc1=F.pad(f(bfc1), (0, hk - hidden)).contiguous(),
+        wfc2=F.pad(f(wfc2), (0, hk - hidden, 0, ck - c)).to(bf).contiguous(),
+        bfc2=F.pad(f(bfc2), (0, ck - c)).contiguous(),
+        g2=f(g2).contiguous(), b2=f(b2).contiguous(), dim=c, hidden=hidden)
 
 
-def _launch_tail(x, attn, packed: PackedBlockTail, ws, shift, gelu_approx, scales,
-                 extra) -> torch.Tensor:
-    """One launch of the tail kernel, counted as K1t."""
+def _check_tail_args(x, attn, packed, ws, shift, scales, extra):
+    """The shapes, dtypes and alignments both tail kernels take; returns
+    (b, h, w, c)."""
     name = "fused_block_tail"
     dev = x.device
     bf, f32 = torch.bfloat16, torch.float32
@@ -579,34 +710,80 @@ def _launch_tail(x, attn, packed: PackedBlockTail, ws, shift, gelu_approx, scale
     if ws < 1 or h % ws or wd % ws or not 0 <= shift < ws:
         raise ValueError(f"{name}: x {tuple(x.shape)} is not whole windows of {ws} with a "
                          f"shift in [0, {ws}) (shift {shift})")
-    ck, hk = _round16(c), _round16(packed.hidden)
     windows = b * (h // ws) * (wd // ws)
-    for tname, t, shape, dtype, align in (
-            ("attn", attn, (windows, ws * ws, c), bf, 2),
-            ("wfc1", packed.wfc1, (hk, ck), bf, 32), ("bfc1", packed.bfc1, (hk,), f32, 16),
-            ("wfc2", packed.wfc2, (ck, hk), bf, 32), ("bfc2", packed.bfc2, (ck,), f32, 16),
-            ("g2", packed.g2, (c,), f32, 4), ("b2", packed.b2, (c,), f32, 4)):
-        _lib.check_tensor(t, tname, dtype, dev, shape=shape, align=align)
+    _lib.check_tensor(attn, "attn", bf, dev, shape=(windows, ws * ws, c), align=2)
     if extra is not None:
         _lib.check_tensor(extra, "extra", bf, dev, shape=tuple(x.shape), align=2)
     if scales is not None:
         _lib.check_tensor(scales, "branch_scales", f32, dev, shape=(b, 2), align=4)
+    return b, h, wd, c
+
+
+def _launch_tail_wmma(x, attn, packed: PackedBlockTail, ws, shift, gelu_approx, scales,
+                      extra) -> torch.Tensor:
+    """One launch of the WMMA tail kernel (``csrc/swin_tail.cu``)."""
+    b, h, wd, c = _check_tail_args(x, attn, packed, ws, shift, scales, extra)
+    dev = x.device
+    bf, f32 = torch.bfloat16, torch.float32
+    ck, hk = _round16(c), _round16(packed.hidden)
+    for tname, t, shape, dtype, align in (
+            ("wfc1", packed.wfc1, (hk, ck), bf, 32), ("bfc1", packed.bfc1, (hk,), f32, 16),
+            ("wfc2", packed.wfc2, (ck, hk), bf, 32), ("bfc2", packed.bfc2, (ck,), f32, 16),
+            ("g2", packed.g2, (c,), f32, 4), ("b2", packed.b2, (c,), f32, 4)):
+        _lib.check_tensor(t, tname, dtype, dev, shape=shape, align=align)
     y = torch.empty_like(x)
-    with torch.cuda.device(dev):
-        status = _lib.library().sr_swin_tail_bf16(
-            x.data_ptr(), attn.data_ptr(), _ptr(extra), y.data_ptr(),
-            packed.g2.data_ptr(), packed.b2.data_ptr(), packed.wfc1.data_ptr(),
-            packed.bfc1.data_ptr(), packed.wfc2.data_ptr(), packed.bfc2.data_ptr(),
-            _ptr(scales), b, h, wd, c, packed.hidden, ws, shift, int(bool(gelu_approx)), LN_EPS,
-            tail_rows(c), _lib.stream_of(x))
+    status = _lib.call(x, _lib.library().sr_swin_tail_bf16,
+                       x.data_ptr(), attn.data_ptr(), _ptr(extra), y.data_ptr(),
+                       packed.g2.data_ptr(), packed.b2.data_ptr(), packed.wfc1.data_ptr(),
+                       packed.bfc1.data_ptr(), packed.wfc2.data_ptr(), packed.bfc2.data_ptr(),
+                       _ptr(scales), b, h, wd, c, packed.hidden, ws, shift,
+                       int(bool(gelu_approx)), LN_EPS, tail_rows(c), _lib.stream_of(x))
     _lib.check_status(status, "sr_swin_tail_bf16")
+    return y
+
+
+@functools.lru_cache(maxsize=256)
+def _tail_wg_geometry(b, h, w, c, hidden, extra, ws, shift, gelu_approx, sms):
+    p = tail_wg_plan(b, h, w, c, hidden, extra, sms)
+    return p, (ctypes.c_int * 14)(b, h, w, c, hidden, p.cp, p.chunks, ws, shift, p.units, p.grid,
+                                  p.stages, p.rsb, int(bool(gelu_approx)))
+
+
+def _launch_tail_wg(x, attn, packed: PackedTailWg, ws, shift, gelu_approx, scales,
+                    extra) -> torch.Tensor:
+    """One launch of the wgmma tail kernel (``csrc/swin_tail_wg.cu``) on
+    ``tail_wg_plan``'s plan."""
+    b, h, wd, c = _check_tail_args(x, attn, packed, ws, shift, scales, extra)
+    dev = x.device
+    plan, geo = _tail_wg_geometry(b, h, wd, c, packed.hidden, extra is not None, ws, shift,
+                                  bool(gelu_approx), _lib.sm_count(dev.index))
+    _lib.check_tensor(packed.tiles, "tiles", torch.bfloat16, dev,
+                      shape=(plan.chunks * 2 * plan.cp * 64,), align=16)
+    _lib.check_tensor(packed.vec, "vec", torch.float32, dev,
+                      shape=(3 * plan.cp + plan.chunks * 64,), align=16)
+    x1ws = (torch.empty(plan.grid * TAIL_WG_ROWS * plan.cp, dtype=torch.float32, device=dev)
+            if plan.cp == TAIL_WG_MAX_C else None)
+    y = torch.empty_like(x)
+    status = _lib.call(x, _lib.library().sr_swin_tail_wg_bf16,
+                       x.data_ptr(), attn.data_ptr(), _ptr(extra), y.data_ptr(),
+                       packed.tiles.data_ptr(), packed.vec.data_ptr(), _ptr(scales), _ptr(x1ws),
+                       geo, LN_EPS, _lib.stream_of(x))
+    _lib.check_status(status, "sr_swin_tail_wg_bf16")
+    return y
+
+
+def _launch_tail(x, attn, packed, ws, shift, gelu_approx, scales, extra) -> torch.Tensor:
+    """One launch of the tail kernel `packed` was laid out for, counted
+    as K1t."""
+    launch = _launch_tail_wg if packed.route == "wgmma" else _launch_tail_wmma
+    y = launch(x, attn, packed, ws, shift, gelu_approx, scales, extra)
     launches_tail.count += 1
     return y
 
 
 class BlockTailFunction(torch.autograd.Function):
-    """Forward K1's tail kernel (weights packed on every call), backward
-    autograd of its plain version."""
+    """Forward K1's tail kernel of ``tail_route`` (weights packed on every
+    call), backward autograd of its plain version."""
 
     @staticmethod
     def forward(ctx, x, attn, extra, scales, g2, b2, wfc1, bfc1, wfc2, bfc2, ws, shift,
@@ -626,12 +803,13 @@ def fused_block_tail(x: torch.Tensor, attn: torch.Tensor, w: SwinBlockWeights, w
                      shift: int, gelu_approx: bool,
                      branch_scales: Optional[torch.Tensor] = None,
                      extra: Optional[torch.Tensor] = None,
-                     packed: Optional[PackedBlockTail] = None) -> torch.Tensor:
+                     packed: Optional[PackedBlockTail | PackedTailWg] = None) -> torch.Tensor:
     """K1's tail on the K7 route (see ``swin_block_tail_plain``).  CPU
-    tensor -> plain version; CUDA tensor -> the kernel (bf16 x, attn and
-    extra, fp32 branch scales), through ``BlockTailFunction`` when a
-    gradient is wanted.  `packed` (inference only) skips the per-call
-    packing."""
+    tensor -> plain version; CUDA tensor -> the kernel ``tail_route``
+    names (bf16 x, attn and extra, fp32 branch scales), through
+    ``BlockTailFunction`` when a gradient is wanted.  `packed`
+    (``pack_block_tail``'s; inference only) skips the per-call packing,
+    and its route is the kernel launched."""
     params = (w.g2, w.b2, w.wfc1, w.bfc1, w.wfc2, w.bfc2)
     if x.device.type == "cpu":
         return _tail_plain(x, attn, extra, branch_scales, *params, ws, shift, gelu_approx)
