@@ -200,6 +200,7 @@ device the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import math
@@ -307,6 +308,12 @@ KERNELS = {
     "K8bw16": dict(name="ocab_bwd_ws16", route="cuda",
                    source="tpu_superresolution_torch/csrc/ocab16.cu",
                    replaces="tpu_superresolution_tpu/ops/pallas/fused_ocab.py:354"),
+    # K5 at window 8 past the block kernel's widths (SwinIR-L training):
+    # K5w16's launches at ws 8, K5a at padded width 256
+    # (csrc/swin_block_bwd_i8w_256_32.cu)
+    "K5r": dict(name="swin_block_bwd_ws8_wide", route="cuda",
+                source="tpu_superresolution_torch/csrc/swin_block_bwd16.cu",
+                replaces="tpu_superresolution_tpu/ops/pallas/fused_block.py:1080"),
 }
 # K1t's correctness-only shapes on the wgmma kernel (chip_smoke's
 # _tail_cases): [B, H, W, C], hidden, ws, shift, extra, branch scales,
@@ -321,8 +328,15 @@ K1T_ENVELOPE = (((1, 12, 18, 44), 88, 6, 3, True, True, False),
                 ((2, 16, 16, 256), 200, 8, 4, True, True, True),
                 ((1, 8, 8, 64), 64, 8, 4, False, False, True),
                 ((3, 16, 16, 120), 480, 16, 8, True, True, False))
+# K5r's correctness-only shapes at SwinIR-L's widths (phase_k5r_kernels):
+# [B, H, W, C], shift, extra.  25 and 9 windows: an odd last unit, whose
+# pair's idle consumer warpgroup recomputes it, and a last attention stage
+# of one window; 3 windows: fewer than a stage.
+K5R_ENVELOPE = (((1, 40, 40, 240), 4, False),
+                ((3, 8, 24, 240), 0, True),
+                ((1, 8, 24, 240), 4, True))
 # Launches per SwinIR-M x4 model call on the serving path (--no-exact).
-PER_CALL = {"K1": 36, "K1t": 0, "K2": 2, "K3": 8, "K4": 1, "K5": 0, "K5w16": 0, "K6": 0,
+PER_CALL = {"K1": 36, "K1t": 0, "K2": 2, "K3": 8, "K4": 1, "K5": 0, "K5r": 0, "K5w16": 0, "K6": 0,
             "K6b": 0, "K7": 0, "K8": 0, "K8b": 0, "K8w16": 0, "K8bw16": 0, "K9": 0, "K10": 0,
             "K11": 0, "K12": 0, "K14": 0, "K15": 0, "K16": 0}
 # Per HAT x4 model call (--no-exact): K6 per HAB (24); K12 per HAB's CAB
@@ -340,6 +354,10 @@ SWINIR_WS7_PER_CALL = dict(PER_CALL, K1=0, K6=36)
 # the two 3x3 convs of each 3conv (9 RSTBs and conv_after_body: 20),
 # conv_before_upsample, conv_up1, conv_up2 and conv_hr; no K4.
 SWINIR_L_PER_CALL = dict(PER_CALL, K1=0, K1t=54, K2=56, K3=24, K4=0, K7=54)
+# SwinIR-L fine-tuning (finetune CLI, batch 8 of 64^2 LR crops), per train
+# step: the forward's launches (SWINIR_L_PER_CALL) and each block's
+# backward K5r (54; it recomputes LN1 and qkv in its own launches).
+SWINIR_L_TRAIN_PER_STEP = dict(SWINIR_L_PER_CALL, K5r=54)
 # Per HAT-SRx4 model call (window 16, depths 6x6; --no-exact): every HAB
 # takes the K7 route (K7 and K1t 36 each) and its CAB K12 (36); K15 per
 # OCAB (6); K2 for patch_norm, norm, each HAB's LN1 (36) and each OCAB's
@@ -374,6 +392,9 @@ TRAIN_LR_PATCH = 64
 # both paths of the DAT (~1 s a step, host-bound; its plain path after
 # 1) and HAT-SRx4 phases, over DAT_TIMED_STEPS after 2.
 TRAIN_TIMED_STEPS = 6
+# SwinIR-L fine-tuning: rounds of one step with K5r and one with the
+# autograd backward, in turns
+SWINIR_L_AB_ROUNDS = 4
 DAT_TIMED_STEPS = 3
 TRAIN_PER_STEP = dict(PER_CALL, K5=36)
 # HAT x4 training (HATConfig(), batch 8 of 64^2 LR crops, reflect-padded
@@ -1080,49 +1101,58 @@ def phase_train_kernels(res):
     return res
 
 
-def _bwd16_bytes_log(shape, c, nh, hidden):
-    """K5w16's bytes moved per call by its design (csrc/swin_block_bwd16.cu):
-    activations in and out, then each buffer written once and read once
-    (the workspace by K5b, the head tiles and row statistics by the
-    attention kernels, dx1 by the tail, the partials by K5c)."""
+# the tiled block backward's counter by window (csrc/swin_block_bwd16.cu)
+TILED_KEYS = {16: "K5w16", 8: "K5r"}
+
+
+def _tiled_bytes_log(shape, c, nh, hidden, ws=16, extra=True):
+    """K5w16's / K5r's bytes moved per call by its design
+    (csrc/swin_block_bwd16.cu): activations in and out, then each buffer
+    written once and read once (the workspace by K5b, the head tiles and
+    row statistics by the attention kernels, dx1 by the tail, the
+    partials by K5c)."""
     import torch
 
     from tpu_superresolution_torch.kernels import _lib
-    from tpu_superresolution_torch.kernels.fused_block import bwd16_bytes, bwd16_plan
+    from tpu_superresolution_torch.kernels.fused_block import bwd16_plan, k5r_plan, tiled_bwd_bytes
 
-    windows = shape[0] * (shape[1] // 16) * (shape[2] // 16)
-    p = bwd16_plan(c, nh, hidden, windows, _lib.sm_count(torch.cuda.current_device()))
-    sizes = bwd16_bytes(p, nh)
-    acts = math.prod(shape) * 2 * 5  # x, ct, extra in; dx, d extra out
+    key = TILED_KEYS[ws]
+    windows = shape[0] * (shape[1] // ws) * (shape[2] // ws)
+    plan_of = bwd16_plan if ws == 16 else k5r_plan
+    p = plan_of(c, nh, hidden, windows, _lib.sm_count(torch.cuda.current_device()))
+    sizes = tiled_bwd_bytes(p, nh)
+    acts = math.prod(shape) * 2 * (5 if extra else 3)  # x, ct (, extra) in; dx (, d extra) out
     moved = acts + 2 * sum(sizes.values())
-    log(f"[kernels] K5w16 {list(shape)} bytes moved by the design: " + ", ".join(
+    log(f"[kernels] {key} {list(shape)} bytes moved by the design: " + ", ".join(
         f"{k} {v / 1e6:.1f} MB" for k, v in sizes.items())
         + f"; activations {acts / 1e6:.1f} MB; in all {moved / 1e6:.1f} MB "
         f"({moved / PEAK_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s); K5a grid {p.grid} over "
         f"{p.units} 64-token units, attention {p.cph} CTAs a head over {p.att_units} (window, "
-        f"head) units in {p.rounds} rounds (the last on {p.tail_ctas} CTAs), shared memory "
+        f"head) units, {p.wps} windows a stage, in {p.rounds} rounds (the last on "
+        f"{p.tail_ctas} CTAs), shared memory "
         f"{p.block.smem} / {p.att_fwd_smem} / {p.att_bwd_smem} B, K5b splits {p.splits} x "
         f"{p.block.units} units")
 
 
-# K5w16's launches by kernel name (csrc/swin_block_bwd16.cu): K5a's ws-16
-# modes, the attention kernels, K5b, K5c
-K5W16_PARTS = (("front (LN1, qkv)", "swin_block_bwd_kernel<16", ", 1>("),
-               ("attention forward", "attn16_kernel", "false>("),
-               ("middle (proj .. do)", "swin_block_bwd_kernel<16", ", 2>("),
-               ("attention backward", "attn16_kernel", "true>("),
-               ("tail (dy, LN1, dx)", "swin_block_bwd_kernel<16", ", 3>("),
-               ("K5b dW", "wgrad_wg_kernel", ""),
-               ("K5c sums", "reduce_ordered_kernel", ""))
+def _tiled_parts(ws):
+    """K5w16's (ws 16) / K5r's (ws 8) launches by kernel name
+    (csrc/swin_block_bwd16.cu): K5a's modes, the attention kernels, K5b,
+    K5c."""
+    k5a, att = f"swin_block_bwd_kernel<{ws},", f"attn16_kernel<{ws},"
+    return (("front (LN1, qkv)", k5a, ", 1>("), ("attention forward", att, "false>("),
+            ("middle (proj .. do)", k5a, ", 2>("), ("attention backward", att, "true>("),
+            ("tail (dy, LN1, dx)", k5a, ", 3>("), ("K5b dW", "wgrad_wg_kernel", ""),
+            ("K5c sums", "reduce_ordered_kernel", ""))
 
 
-def _k5w16_split(run, calls=3):
-    """Each of K5w16's launches timed by torch.profiler over `calls`
-    calls: device ms a call by part, and the rest of the call's device
-    time (the wrapper's allocations, the fold)."""
+def _tiled_split(run, calls=3, ws=16):
+    """Each of K5w16's (K5r's at ws 8) launches timed by torch.profiler
+    over `calls` calls: device ms a call by part, and the rest of the
+    call's device time (the wrapper's allocations, the fold)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    key = TILED_KEYS[ws]
     run()
     torch.cuda.synchronize()
     try:
@@ -1131,19 +1161,19 @@ def _k5w16_split(run, calls=3):
                 run()
             torch.cuda.synchronize()
     except Exception as e:  # the split is a reading aid, not a check
-        log(f"[kernels] K5w16 profiler failed: {type(e).__name__}: {e}")
+        log(f"[kernels] {key} profiler failed: {type(e).__name__}: {e}")
         return
     kernels = _device_kernels(prof)
     us = lambda e: getattr(e, "device_time", 0.0) or getattr(e, "cuda_time", 0.0)
     parts, seen = [], set()
-    for label, head, tail in K5W16_PARTS:
+    for label, head, tail in _tiled_parts(ws):
         ev = [e for e in kernels if head in e.name and tail in e.name]
         seen.update(id(e) for e in ev)
         parts.append(f"{label} {sum(us(e) for e in ev) / calls / 1e3:.4f} ms "
                      f"x{len(ev) // calls}")
     rest = sum(us(e) for e in kernels if id(e) not in seen) / calls / 1e3
     busy = sum(us(e) for e in kernels) / calls / 1e3
-    log(f"[kernels] K5w16 launches by part (profiler, {calls} calls): " + ", ".join(parts)
+    log(f"[kernels] {key} launches by part (profiler, {calls} calls): " + ", ".join(parts)
         + f"; other device work {rest:.4f} ms; busy {busy:.4f} ms a call")
 
 
@@ -1193,7 +1223,7 @@ def phase_w16_kernels(res):
                                      ex.float())
         torch.cuda.synchronize()
         if shift:
-            _bwd16_bytes_log(shape, c, nh, hidden)
+            _tiled_bytes_log(shape, c, nh, hidden)
         _compare_grads(res, "K5w16", f"{list(shape)} ws {ws} shift {shift} extra, branch scales "
                        f"(b2b {queued_ms(run):.4f} ms)", got, ref16, ref32, ("dx", "extra"),
                        GRAD_FIELDS, cuda_ms(run), cuda_ms(plain),
@@ -1201,7 +1231,7 @@ def phase_w16_kernels(res):
                        ulps=W16_ULPS)
         _check_deterministic("K5w16", f"{list(shape)} ws {ws} shift {shift}", got, again,
                              ("dx", "extra") + GRAD_FIELDS)
-        _k5w16_split(run)
+        _tiled_split(run)
         del got, again, ref16, ref32
 
     windows, nq, nk = 128, 256, 576
@@ -1228,6 +1258,93 @@ def phase_w16_kernels(res):
                    fused_ocab.GRAD_FIELDS + ("bias",), cuda_ms(runb), cuda_ms(plainb),
                    _ocab_work(windows, nq, nk, c, nh, hidden, backward=True), ulps=W16_ULPS)
     del out, got, ref16, ref32
+    return res
+
+
+def phase_k5r_kernels(res):
+    """K5r, the K7 route's block backward at ws 8 past the block kernel's
+    widths, at SwinIR-L's train shape (batch 8 of 64^2 LR crops: [8, 64,
+    64, 240], 512 windows, 8 heads of 30, hidden 480): shift 4 (with the
+    mask) without `extra`, as SwinIR-L's odd blocks run it, and shift 0
+    with `extra`, branch scales on both, on the forward's weight stream
+    (``pack_block_tiles``), on dx (d extra) and the 13 parameter
+    gradients; each run twice for the same bits, timed alone and 20
+    calls back to back, with its bytes moved by design and each launch's
+    time; then, for correctness only, K5R_ENVELOPE's odd window counts.
+    Against its plain version in bf16 and fp32, within K5_DX_ULPS bf16
+    ulps (activation gradients) and K5_REL_BOUND (parameter gradients),
+    with times and bounds, into `res`."""
+    import torch
+
+    from tpu_superresolution_torch.kernels.fused_block import (
+        GRAD_FIELDS,
+        fused_swin_block_backward,
+        pack_block_tiles,
+        swin_block_bwd_plain,
+    )
+    from tpu_superresolution_torch.ops.window import shift_mask_tensor
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 19)
+    bf = torch.bfloat16
+    scales = torch.tensor([[1.0 / 0.9, 0.0], [1.0 / 0.9, 1.0 / 0.9]] * 4, device=dev)
+    c, nh, hidden, ws = 240, 8, 480, 8
+    shape = (8, 64, 64, c)
+    wb = _random_block(gen, dev, c, nh, hidden, ws)
+    pk = pack_block_tiles(wb)  # the stream WindowBlockFunction packs once a step
+    x = torch.randn(*shape, generator=gen).to(dev, bf)
+    ct = (0.1 * torch.randn(*shape, generator=gen)).to(dev, bf)
+    ex = (0.05 * torch.randn(*shape, generator=gen)).to(dev, bf)
+    for shift, extra in ((4, None), (0, ex)):
+        mask = shift_mask_tensor(shape[1], shape[2], ws, shift, dev) if shift else None
+        run = lambda: fused_swin_block_backward(ct, x, wb, ws, shift, mask, True, scales,
+                                                packed=pk, extra=extra)
+        plain = lambda: swin_block_bwd_plain(ct, x, wb, ws, shift, mask, True, scales, extra)
+        got, again = run(), run()
+        ref16 = plain()
+        ref32 = swin_block_bwd_plain(ct.float(), x.float(), wb, ws, shift, mask, True, scales,
+                                     None if extra is None else extra.float())
+        torch.cuda.synchronize()
+        acts = ("dx",) if extra is None else ("dx", "extra")
+        _tiled_bytes_log(shape, c, nh, hidden, ws=ws, extra=extra is not None)
+        _compare_grads(res, "K5r", f"{list(shape)} ws {ws} shift {shift}"
+                       f"{'' if extra is None else ' extra'}, branch scales (b2b "
+                       f"{queued_ms(run):.4f} ms)", got, ref16, ref32, acts, GRAD_FIELDS,
+                       cuda_ms(run), cuda_ms(plain),
+                       _swin_work(shape, c, hidden, backward=True, ws=ws,
+                                  extra=extra is not None))
+        _check_deterministic("K5r", f"{list(shape)} ws {ws} shift {shift}", got, again,
+                             acts + GRAD_FIELDS)
+        _tiled_split(run, ws=ws)
+        del got, again, ref16, ref32
+    # correctness only: odd window counts (the last unit pair's idle twin)
+    # with a ragged last attention stage, both branches on in the last image
+    envelope = {}  # these rows' times stay out of the kernels line
+    for shape, shift, with_extra in K5R_ENVELOPE:
+        b = shape[0]
+        sc = torch.tensor([[1.0 / 0.9, 0.0]] * (b - 1) + [[1.0 / 0.9, 1.0 / 0.9]], device=dev)
+        x = torch.randn(*shape, generator=gen).to(dev, bf)
+        ct = (0.1 * torch.randn(*shape, generator=gen)).to(dev, bf)
+        extra = (0.05 * torch.randn(*shape, generator=gen)).to(dev, bf) if with_extra else None
+        mask = shift_mask_tensor(shape[1], shape[2], ws, shift, dev) if shift else None
+        run = lambda: fused_swin_block_backward(ct, x, wb, ws, shift, mask, True, sc,
+                                                packed=pk, extra=extra)
+        plain = lambda: swin_block_bwd_plain(ct, x, wb, ws, shift, mask, True, sc, extra)
+        got, again = run(), run()
+        ref16 = plain()
+        ref32 = swin_block_bwd_plain(ct.float(), x.float(), wb, ws, shift, mask, True, sc,
+                                     None if extra is None else extra.float())
+        torch.cuda.synchronize()
+        acts = ("dx",) if extra is None else ("dx", "extra")
+        windows = b * (shape[1] // ws) * (shape[2] // ws)
+        label = (f"envelope {list(shape)} ({windows} windows) ws {ws} shift {shift}"
+                 f"{'' if extra is None else ' extra'}, branch scales")
+        _compare_grads(envelope, "K5r", label, got, ref16, ref32, acts, GRAD_FIELDS,
+                       cuda_ms(run), cuda_ms(plain),
+                       _swin_work(shape, c, hidden, backward=True, ws=ws,
+                                  extra=extra is not None))
+        _check_deterministic("K5r", label, got, again, acts + GRAD_FIELDS)
+        del got, again, ref16, ref32
     return res
 
 
@@ -2570,6 +2687,17 @@ def _k1t_route_ab(model, fn, tag, smi, iters=5):
         f"{mean['wmma'] - mean['wgmma']:.2f} ms less a call ({smi})")
 
 
+def swinir_l_config():
+    """SwinIR-L, the published real-world x4 model (JingyunLiang/SwinIR
+    ``003_realSR_BSRGAN_DFOWMFC_s64w8_SwinIR-L_x4_GAN``): embed 240, depths
+    9x6, 8 heads, ws 8, mlp 2, 3conv, nearest+conv."""
+    from tpu_superresolution_torch.core.config import SwinIRConfig
+
+    return SwinIRConfig(scale=4, embed_dim=240, depths=(6,) * 9, num_heads=(8,) * 9,
+                        window_size=8, mlp_ratio=2.0, resi_connection="3conv",
+                        upsampler="nearest+conv", num_feat=64)
+
+
 def phase_swinir_l(smi):
     """One forward at SwinIR-L's widths (the real-world x4 model: embed
     240, 8 heads, ws 8, depths 9x6, 3conv, nearest+conv; seeded random
@@ -2580,12 +2708,10 @@ def phase_swinir_l(smi):
     import numpy as np
     import torch
 
-    from tpu_superresolution_torch.core.config import SwinIRConfig, build_model
+    from tpu_superresolution_torch.core.config import build_model
     from tpu_superresolution_torch.kernels import read_counters, reset_counters
 
-    cfg = SwinIRConfig(scale=4, embed_dim=240, depths=(6,) * 9, num_heads=(8,) * 9,
-                       window_size=8, mlp_ratio=2.0, resi_connection="3conv",
-                       upsampler="nearest+conv", num_feat=64)
+    cfg = swinir_l_config()
     src = build_model(cfg)
     src.reset_parameters(torch.Generator().manual_seed(SEED))
     model = build_model(cfg, dtype=torch.bfloat16, device="cuda")
@@ -3307,11 +3433,152 @@ def phase_hat_srx4_train(workdir, smi):
     return [launches, per_step_all]
 
 
-def _check_backward_nodes(model, lr, hr, cfg):
-    """The autograd graph of one HAT-SRx4 train-mode forward: each HAB's
-    block is one WindowBlockFunction (backward K5w16) and each OCAB core
-    one OcabCoreFunction (backward K8bw16); no K7, K1t or K15 autograd
-    function, whose backwards are autograd of plain ops, is in it."""
+@contextlib.contextmanager
+def _blocks_backward_as_autograd():
+    """SwinIR's K7-route blocks trained as before K5r: the route's
+    forward kernels (K2, K7, K1t) with their autograd functions, whose
+    backwards are autograd of their plain versions.  A measurement's
+    baseline only; the port has no such switch."""
+    from tpu_superresolution_torch.models import swinir
+
+    tiled = swinir.tiled_bwd_ok
+    swinir.tiled_bwd_ok = lambda *args, **kw: False
+    try:
+        yield
+    finally:
+        swinir.tiled_bwd_ok = tiled
+
+
+def phase_swinir_l_train(workdir, smi):
+    """SwinIR-L fine-tuning: the finetune CLI (``--device cuda``) on a
+    seeded SwinIR-L reference ``.pth`` written here (``swinir_l_config()``;
+    the CLI infers its architecture from the weights), batch 8 of 64^2 LR
+    crops, L1, AdamW, clip 1.0, drop path 0.1, one epoch of 2 steps plus
+    validation on a synthetic DeepRock tree; then per-step launches
+    (exactly SWINIR_L_TRAIN_PER_STEP: K5r x54), the autograd graph of a
+    step (every block's backward WindowBlockFunction's, i.e. K5r, none
+    left to autograd of plain ops), ms a step and peak device memory
+    with K5r and with the blocks' backward as autograd of K7's and K1t's
+    plain versions (the route before K5r), in turns on one model, a
+    profiled step split by part, and the first step's gradients against
+    the plain fp32 path.  Returns the launches of the CLI run and of the
+    counted step."""
+    import numpy as np
+    import torch
+
+    from tpu_superresolution_torch.cli.finetune import main as finetune_main
+    from tpu_superresolution_torch.core.config import build_model
+    from tpu_superresolution_torch.kernels import read_counters, reset_counters
+    from tpu_superresolution_torch.models.swinir import SwinBlock
+    from tpu_superresolution_torch.train.engine import make_train_step
+
+    batch, patch, scale = TRAIN_BATCH, TRAIN_LR_PATCH, 4
+    n_train, n_valid = 2 * batch, 2
+    data = f"{workdir}/deeprock_swinir_l"
+    _write_deeprock(data, n_train, n_valid, hr_size=320, scale=scale, seed=SEED + 10)
+    cfg = swinir_l_config()
+    src = build_model(cfg)
+    src.reset_parameters(torch.Generator().manual_seed(SEED))
+    weights = f"{workdir}/swinir_l_x4_random.pth"
+    torch.save({"params": src.state_dict()}, weights)
+
+    # 1. the entry point: one epoch of 2 steps + validation of 2 images
+    reset_counters()
+    t0 = time.perf_counter()
+    trainer, state = finetune_main([
+        "--data_root", data, "--scale", "X4", "--weights", weights, "--epochs", "1",
+        "--batch_size", str(batch), "--lr_patch", str(patch), "--workdir",
+        f"{workdir}/swinir_l_run", "--seed", str(SEED), "--device", "cuda"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_counters()
+    steps, val_calls = n_train // batch, 1
+    expect = {k: steps * SWINIR_L_TRAIN_PER_STEP[k] + val_calls * SWINIR_L_PER_CALL[k]
+              for k in SWINIR_L_TRAIN_PER_STEP}
+    mc = trainer.model_config
+    arch = lambda m: (m.embed_dim, m.depths, m.num_heads, m.window_size, m.mlp_ratio,
+                      m.resi_connection, m.upsampler)
+    log(f"[swinir_l-train] finetune CLI on a SwinIR-L .pth (inferred embed {mc.embed_dim}, "
+        f"depths {mc.depths}, heads {mc.num_heads}, ws {mc.window_size}, mlp {mc.mlp_ratio}, "
+        f"{mc.resi_connection}, {mc.upsampler}; drop_path_rate {mc.drop_path_rate}), batch "
+        f"{batch}, lr_patch {patch}: {steps} steps + validation in {cli_s:.1f} s (incl. the "
+        f"weight load and the first steps' set-up); train loss {trainer.history['train'][0]:.6f},"
+        f" val PSNR {trainer.best_val_psnr:.2f} dB; launches {launches} (expected {expect}) "
+        f"({smi})")
+    if arch(mc) != arch(cfg):
+        raise RuntimeError(f"finetune inferred {arch(mc)}, not SwinIR-L's {arch(cfg)}")
+    if state.step != steps or not math.isfinite(trainer.history["train"][0]):
+        raise RuntimeError(f"finetune: {state.step} steps, loss {trainer.history['train']}")
+    if launches != expect:
+        raise RuntimeError(f"SwinIR-L finetune launches {launches}, expected {expect}")
+    del trainer, state
+
+    # 2. one step's launches and graph; K5r against the autograd backward
+    # in turns on one model (times, peak memory); a split
+    rng = np.random.default_rng(SEED + 11)
+    lr = torch.from_numpy(rng.random((batch, patch, patch, 3), dtype=np.float32)).cuda()
+    hr = torch.from_numpy(
+        rng.random((batch, patch * scale, patch * scale, 3), dtype=np.float32)).cuda()
+    step = make_train_step("l1", "native_lr", scale, patch, False)
+    model = build_model(cfg, dtype=torch.bfloat16, device="cuda")
+    model.load_state_dict(src.state_dict())
+    st = _train_state(model, steps)
+    gen = torch.Generator().manual_seed(SEED)
+    modes = {"K5r": contextlib.nullcontext, "autograd": _blocks_backward_as_autograd}
+    per_step = {}
+    for label, mode in modes.items():
+        with mode():
+            step(st, lr, hr, gen)
+            torch.cuda.synchronize()
+            reset_counters()
+            step(st, lr, hr, gen)
+            torch.cuda.synchronize()
+            per_step[label] = read_counters()
+    want = {"K5r": SWINIR_L_TRAIN_PER_STEP, "autograd": dict(SWINIR_L_TRAIN_PER_STEP, K5r=0)}
+    log(f"[swinir_l-train] launches per step: {per_step} (expected {want})")
+    if per_step != want:
+        raise RuntimeError(f"SwinIR-L launches per train step {per_step}, expected {want}")
+    _check_backward_nodes(model, lr, hr, cfg, tag="swinir_l-train", ocabs=False)
+    times, peaks = {k: [] for k in modes}, dict.fromkeys(modes, 0)
+    for rnd in range(SWINIR_L_AB_ROUNDS):  # K5r, autograd, autograd, K5r, ...
+        for label in (list(modes) if rnd % 2 == 0 else list(modes)[::-1]):
+            with modes[label]():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                m = step(st, lr, hr, gen)
+                torch.cuda.synchronize()
+                times[label].append(time.perf_counter() - t0)
+                peaks[label] = max(peaks[label], torch.cuda.max_memory_allocated())
+    ms = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+    for label in modes:
+        dts = times[label]
+        log(f"[swinir_l-train] blocks' backward {label}: median {ms[label]:.2f} ms/step over "
+            f"{len(dts)} steps in turns (min {min(dts) * 1e3:.2f}, max {max(dts) * 1e3:.2f}), "
+            f"{batch / ms[label] * 1e3:.1f} images/s; peak memory "
+            f"{peaks[label] / 2 ** 30:.2f} GiB ({smi})")
+    log(f"[swinir_l-train] K5r {ms['K5r']:.2f} ms/step, autograd backward {ms['autograd']:.2f} "
+        f"ms/step ({ms['autograd'] / ms['K5r']:.2f}x); peak memory "
+        f"{peaks['K5r'] / 2 ** 30:.2f} vs {peaks['autograd'] / 2 ** 30:.2f} GiB; loss "
+        f"{float(m['loss']):.6f} ({smi})")
+    _hat_train_split(st, lr, hr, ms["K5r"], smi, tag="swinir_l-train",
+                     parts={SwinBlock: "swinir::block"},
+                     by_span=(("swinir::block",
+                               "forward block plain ops (shift and partition gathers)"),))
+    _packing_cost(model, k5w16=True, tag="swinir_l-train")
+    del model, st
+
+    # 3. the first step's gradients against the plain fp32 path
+    _first_step_gate(cfg, src, lr, hr, "swinir_l-train", smi)
+    return [launches, per_step["K5r"]]
+
+
+def _check_backward_nodes(model, lr, hr, cfg, tag="hat_srx4-train", ocabs=True):
+    """The autograd graph of one train-mode forward on the K7 route: each
+    block is one WindowBlockFunction (backward K5w16, or K5r at ws 8) and,
+    with `ocabs` (HAT-SRx4), each OCAB core one OcabCoreFunction
+    (backward K8bw16); no K7, K1t or K15 autograd function, whose
+    backwards are autograd of plain ops, is in it."""
     import torch
 
     model.train()
@@ -3325,13 +3592,15 @@ def _check_backward_nodes(model, lr, hr, cfg):
         counts[type(fn).__name__] = counts.get(type(fn).__name__, 0) + 1
         todo.extend(f for f, _ in fn.next_functions)
     blocks = sum(cfg.depths)
-    want = {"WindowBlockFunctionBackward": blocks, "OcabCoreFunctionBackward": len(cfg.depths)}
+    want = {"WindowBlockFunctionBackward": blocks}
+    if ocabs:
+        want["OcabCoreFunctionBackward"] = len(cfg.depths)
     plain = ("WindowAttentionFunctionBackward", "BlockTailFunctionBackward",
              "BatchedWindowAttentionFunctionBackward", "SwinBlockFunctionBackward")
     got = {k: counts.get(k, 0) for k in list(want) + list(plain)}
-    log(f"[hat_srx4-train] autograd graph of a step: {len(seen)} nodes; {got}")
+    log(f"[{tag}] autograd graph of a step: {len(seen)} nodes; {got}")
     if any(got[k] != v for k, v in want.items()) or any(got[k] for k in plain):
-        raise RuntimeError(f"HAT-SRx4 backward nodes {got}, expected {want} and none of {plain}")
+        raise RuntimeError(f"{tag} backward nodes {got}, expected {want} and none of {plain}")
     del loss
 
 
@@ -3622,7 +3891,7 @@ def _dat_train_split(state, lr, hr, step_ms, smi):
         f"{[(n[:60], c) for n, c in top]}")
 
 
-def _hat_train_split(state, lr, hr, step_ms, smi, tag="hat-train"):
+def _hat_train_split(state, lr, hr, step_ms, smi, tag="hat-train", parts=None, by_span=None):
     """Where one HAT train step spends its device time, under
     torch.profiler: the forward's kernels by name (the block kernel K6 /
     K1, K8, K12, K2-K4) and its plain ops by the module range that
@@ -3640,7 +3909,7 @@ def _hat_train_split(state, lr, hr, step_ms, smi, tag="hat-train"):
     from tpu_superresolution_torch.train.engine import apply_gradients
 
     model = state.model
-    parts = {HAB: "hat::hab", CAB: "hat::cab", OCAB: "hat::ocab"}
+    parts = parts or {HAB: "hat::hab", CAB: "hat::cab", OCAB: "hat::ocab"}
     handles = _range_hooks(model, parts)
     model.train()
     try:
@@ -3691,13 +3960,13 @@ def _hat_train_split(state, lr, hr, step_ms, smi, tag="hat-train"):
                   ("swin_tail_wg_kernel", "swin_tail_kernel")),
                  ("forward K12 cab_wgmma_kernel", ("cab_wgmma_kernel",)),
                  ("forward K2-K4", ("layernorm_rows", "conv_nhwc")))
-    by_span = (("hat::cab", "forward CAB SE gate (plain ops)"),
-               ("hat::ocab", "forward OCAB plain ops (qkv, proj, MLP, gathers)"),
-               ("hat::hab", "forward HAB plain ops (shift and partition gathers)"))
+    by_span = by_span or (("hat::cab", "forward CAB SE gate (plain ops)"),
+                          ("hat::ocab", "forward OCAB plain ops (qkv, proj, MLP, gathers)"),
+                          ("hat::hab", "forward HAB plain ops (shift and partition gathers)"))
     bwd_nodes = (("backward K6b / K5 (per-window wgmma kernel, dW GEMM, ordered sums, fold)",
                   "SwinBlockFunctionBackward"),
-                 ("backward K5w16 (K5a front / middle / tail, attention fwd / bwd, dW GEMM, "
-                  "sums, packing, fold)", "WindowBlockFunctionBackward"),
+                 ("backward K5w16 / K5r (K5a front / middle / tail, attention fwd / bwd, dW "
+                  "GEMM, sums, packing, fold)", "WindowBlockFunctionBackward"),
                  ("backward K8b / K8bw16 (per-window, weight grads, reductions)",
                   "OcabCoreFunctionBackward"),
                  ("backward K12 (autograd of the plain LN + CAB convs)",
@@ -3796,7 +4065,7 @@ def _packing_cost(model, k5w16=False, tag="train"):
 
     weights = [b.block_weights() for layer in model.layers
                for b in layer.residual_group.blocks]
-    label = ("K5w16's backward (pack_block_tiles)" if k5w16 else
+    label = ("the tiled backward's (K5w16 / K5r; pack_block_tiles)" if k5w16 else
              "forward tiles (pack_block_tiles, read by K5 / K6b too)")
     for pack in (pack_block_tiles,):
         run = lambda: [pack(w) for w in weights]
@@ -3869,9 +4138,9 @@ def main() -> int:
         return out
 
     timed("build", phase_build)
-    kres = timed("kernels", lambda: phase_w16_kernels(phase_rect_attention_kernels(
+    kres = timed("kernels", lambda: phase_k5r_kernels(phase_w16_kernels(phase_rect_attention_kernels(
         phase_dat_train_kernels(phase_window_kernels(phase_dat_kernels(
-            phase_train_kernels(phase_kernels())))))))
+            phase_train_kernels(phase_kernels()))))))))
     _lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_lib.BUILD_DIR) as workdir:
         service, launches = timed("serve", phase_serve, workdir, SwinIRConfig(scale=4),
@@ -3887,6 +4156,7 @@ def main() -> int:
         hat_train_launches = timed("hat-train", phase_hat_train, workdir, smi)
         srx4_launches = timed("hat_srx4", phase_hat_srx4, workdir, smi)
         srx4_train_launches = timed("hat_srx4-train", phase_hat_srx4_train, workdir, smi)
+        swinir_l_train_launches = timed("swinir_l-train", phase_swinir_l_train, workdir, smi)
         dat_x4_launches = timed("dat_x4", phase_dat_x4, workdir, smi)
         dat_train_launches = timed("dat-train", phase_dat_train, workdir, smi)
         timed("k16-stream", phase_k16_stream_check, smi)
@@ -3901,7 +4171,8 @@ def main() -> int:
                                                  wide_launches, hat_launches, dat_launches,
                                                  train_launches,
                                                  srx4_launches, dat_x4_launches]
-                         + hat_train_launches + dat_train_launches + srx4_train_launches),
+                         + hat_train_launches + dat_train_launches + srx4_train_launches
+                         + swinir_l_train_launches),
             max_abs_err=max(r["err"] for r in kres[key]),
             ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
             bound_by=first["bound_by"], library_ms=first["library_ms"],

@@ -77,7 +77,7 @@ def block_wg_emulated(x, p, ws, shift, shifted, gelu_approx, scales=None, extra=
     number of windows stored."""
     from tpu_superresolution_torch.ops.window import window_token_codes
 
-    plan = p.plan
+    plan = p.layout
     b, h, w, c = x.shape
     nt, nh, hdp, k = ws * ws, p.num_heads, plan.hdp, plan.kc * 64
     codes = torch.from_numpy(window_token_codes(h, w, ws, shift if shifted else 0)).long()
@@ -208,7 +208,7 @@ def test_block_tiles_unswizzle_to_the_weights(c, nh, hidden, ws):
 
     w, _, table = _block_weights(np.random.default_rng(c + ws), c=c, nh=nh, hidden=hidden, ws=ws)
     p = pack_block_tiles(w)
-    plan = p.plan
+    plan = p.layout
     hd, hdp, k = c // nh, plan.hdp, plan.kc * 64
     bf = lambda t: t.bfloat16().float()
     s = _Stream(p.tiles)

@@ -51,7 +51,7 @@ def test_cpu_forward_launches_no_kernel():
     with torch.no_grad():
         y = model(torch.rand(1, 16, 16, 3))
     assert y.shape == (1, 64, 64, 3)
-    none = {"K1": 0, "K1t": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K5w16": 0, "K6": 0,
+    none = {"K1": 0, "K1t": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K5r": 0, "K5w16": 0, "K6": 0,
             "K6b": 0, "K7": 0, "K8": 0, "K8b": 0, "K8w16": 0, "K8bw16": 0, "K9": 0, "K10": 0,
             "K11": 0, "K12": 0, "K14": 0, "K15": 0, "K16": 0}
     assert read_counters() == none

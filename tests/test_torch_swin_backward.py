@@ -163,16 +163,16 @@ def test_k5_plain_rounds_like_the_kernel_in_bf16():
 
 def _stream_tiles(plan, heads):
     """(offset, rows) of each tile of ``pack_block_tiles``' weight stream
-    by kind: qkv (head, K chunk), proj (N half, K chunk), fc1 (hidden
-    chunk, K chunk), fc2 (hidden chunk, N half)."""
-    q3, kc, halves = 3 * plan.hdp, plan.kc, plan.halves
+    by kind: qkv (head, K chunk), proj (N part, K chunk), fc1 (hidden
+    chunk, K chunk), fc2 (hidden chunk, N part); N parts of plan.pw rows."""
+    q3, kc, halves, pw = 3 * plan.hdp, plan.kc, plan.halves, plan.pw
     p0 = heads * kc * q3 * 64
-    p1 = p0 + halves * kc * 96 * 64
-    chunk = kc * 64 * 64 + halves * 96 * 64
+    p1 = p0 + halves * kc * pw * 64
+    chunk = kc * 64 * 64 + halves * pw * 64
     return dict(qkv=lambda h, k: ((h * kc + k) * q3 * 64, q3),
-                proj=lambda hf, k: (p0 + (hf * kc + k) * 96 * 64, 96),
+                proj=lambda hf, k: (p0 + (hf * kc + k) * pw * 64, pw),
                 fc1=lambda j, k: (p1 + j * chunk + k * 64 * 64, 64),
-                fc2=lambda j, hf: (p1 + j * chunk + kc * 64 * 64 + hf * 96 * 64, 96))
+                fc2=lambda j, hf: (p1 + j * chunk + kc * 64 * 64 + hf * pw * 64, pw))
 
 
 def _feeder_order(plan, heads):
@@ -194,11 +194,11 @@ def _stream_offsets(plan, heads, kind, rows, cols):
     """K5b's epilogue map (``stream_offset``): where dW's entry (m, n) of
     product `kind` (0 qkv, 1 proj, 2 fc1, 3 fc2) sits in the weight
     stream, -1 where the stream has no entry."""
-    q3, kc, halves = 3 * plan.hdp, plan.kc, plan.halves
+    q3, kc, halves, pw = 3 * plan.hdp, plan.kc, plan.halves, plan.pw
     m, n = torch.arange(rows)[:, None], torch.arange(cols)[None, :]
     p0 = heads * kc * q3 * 64
-    p1 = p0 + halves * kc * 96 * 64
-    chunk = kc * 64 * 64 + halves * 96 * 64
+    p1 = p0 + halves * kc * pw * 64
+    chunk = kc * 64 * 64 + halves * pw * 64
     swz = lambda r, k: ((((k >> 3) ^ r) & 7) << 3) | (k & 7)
     if kind == 0:
         h, r = m // q3, m % q3
@@ -206,11 +206,11 @@ def _stream_offsets(plan, heads, kind, rows, cols):
     if kind == 2:
         j, r = m // 64, m % 64
         return p1 + j * chunk + (n // 64) * 64 * 64 + r * 64 + swz(r, n % 64)
-    hf, r = m // 96, m % 96
+    hf, r = m // pw, m % pw
     if kind == 1:
-        off = p0 + (hf * kc + n // 64) * 96 * 64 + r * 64 + swz(r, n % 64)
+        off = p0 + (hf * kc + n // 64) * pw * 64 + r * 64 + swz(r, n % 64)
     else:
-        off = p1 + (n // 64) * chunk + kc * 64 * 64 + hf * 96 * 64 + r * 64 + swz(r, n % 64)
+        off = p1 + (n // 64) * chunk + kc * 64 * 64 + hf * pw * 64 + r * 64 + swz(r, n % 64)
     return torch.where(hf < halves, off, -1)
 
 
@@ -445,7 +445,7 @@ def test_bwd_plan_by_width(shape, want):
     assert fb.bwd_grid(plan, 800, 132)[0] == 132 and fb.bwd_grid(plan, 3, 132)[0] == 2
 
 
-@pytest.mark.parametrize("shape", [(198, 6, 396), (224, 7, 448), (192, 4, 384), (96, 6, 400)])
+@pytest.mark.parametrize("shape", [(198, 6, 396), (264, 8, 528), (192, 4, 384), (96, 6, 520)])
 def test_bwd_plan_raises_past_the_widths(shape):
     from tpu_superresolution_torch.kernels.fused_block import bwd_plan
 

@@ -176,7 +176,7 @@ def test_k5w16_route_by_shape(ws, c, nh, hidden, bias, ok):
     kernel's widths (C <= 192, <= 6 heads of hd <= 32, hidden <= 384,
     qkv bias), the same on every call; its shape check refuses the
     rest."""
-    from tpu_superresolution_torch.kernels.fused_block import check_k5w16_args, k5w16_ok
+    from tpu_superresolution_torch.kernels.fused_block import check_tiled_bwd_args, k5w16_ok
 
     assert k5w16_ok(ws, c, nh, hidden, bias) is ok
     assert k5w16_ok(ws, c, nh, hidden, bias) is ok
@@ -187,7 +187,7 @@ def test_k5w16_route_by_shape(ws, c, nh, hidden, bias, ok):
         if not bias:
             w = dataclasses.replace(w, bqkv=None)
         with pytest.raises(ValueError):
-            check_k5w16_args((1, 16, 16, c), w, 0, "test")
+            check_tiled_bwd_args((1, 16, 16, c), w, 16, 0, "test")
 
 
 # csrc/swin_block_bwd16.cu's schedule (K5w16 on the forward's weight
@@ -529,7 +529,7 @@ def test_bwd16_plan_from_static_shapes(shape, want):
     tile = 256 * 2 * p.block.hdp
     assert p.att_fwd_smem == 1024 + 2 * 3 * tile + 4096 + 32
     assert p.att_bwd_smem == 1024 + 2 * (4 * tile + 3 * 256 * 4) + 4096 + 32
-    sizes = fb.bwd16_bytes(p, heads)
+    sizes = fb.tiled_bwd_bytes(p, heads)
     assert sizes["rpb partials"] == p.cph * heads * 256 * 256 * 4
     assert sizes["workspace"] == p.units * p.block.window_bytes
 

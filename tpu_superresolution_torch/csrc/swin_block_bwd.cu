@@ -142,19 +142,20 @@ struct WArgs {
   WGemm g[4];
   int unit0[5];  // first unit of each product
   int windows, splits;
-  int nh, hdp, kc, nhalf;
+  int nh, hdp, kc, nhalf, pw;  // pw: rows of the proj's and fc2's N parts
   long long stream_len;  // elements of the weight stream
   long long row_len;     // a split's partial: the stream, then the bias vector
   float* part;           // [splits][row_len]
 };
 
-// Offset in the weight stream (pack_block_tiles' layout) of dW's entry
+// Offset in the weight stream (pack_block_tiles' layout, N parts of pw
+// rows: 96, or 128 at K5r's cp 256) of dW's entry
 // (row m, column n) of product `kind`, or -1 where the stream has none.
 __device__ __forceinline__ long long stream_offset(const WArgs& a, int kind, int m, int n) {
   const int q3 = 3 * a.hdp;
   const long long p0 = static_cast<long long>(a.nh) * a.kc * q3 * 64;
-  const long long p1 = p0 + static_cast<long long>(a.nhalf) * a.kc * 96 * 64;
-  const long long chunk = static_cast<long long>(a.kc) * 4096 + a.nhalf * 96 * 64;
+  const long long p1 = p0 + static_cast<long long>(a.nhalf) * a.kc * a.pw * 64;
+  const long long chunk = static_cast<long long>(a.kc) * 4096 + a.nhalf * a.pw * 64;
   auto swz = [](int r, int k) { return ((((k >> 3) ^ r) & 7) << 3) | (k & 7); };
   if (kind == 0) {  // rows h 3 hdp + r, columns kc 64 + k
     const int h = m / q3, r = m - h * q3;
@@ -165,11 +166,12 @@ __device__ __forceinline__ long long stream_offset(const WArgs& a, int kind, int
     const int j = m >> 6, r = m & 63;
     return p1 + j * chunk + (n >> 6) * 4096 + r * 64 + swz(r, n & 63);
   }
-  const int hf = m / 96, r = m - hf * 96;  // proj / fc2: out rows hf 96 + r
+  // proj / fc2: out rows hf pw + r (m < 256, so hf <= 2: no division)
+  const int hf = (m >= a.pw) + (m >= 2 * a.pw), r = m - hf * a.pw;
   if (hf >= a.nhalf) return -1;
-  if (kind == 1) return p0 + (static_cast<long long>(hf) * a.kc + (n >> 6)) * 96 * 64 + r * 64 +
+  if (kind == 1) return p0 + (static_cast<long long>(hf) * a.kc + (n >> 6)) * a.pw * 64 + r * 64 +
                         swz(r, n & 63);
-  return p1 + (n >> 6) * chunk + static_cast<long long>(a.kc) * 4096 + hf * 96 * 64 + r * 64 +
+  return p1 + (n >> 6) * chunk + static_cast<long long>(a.kc) * 4096 + hf * a.pw * 64 + r * 64 +
          swz(r, n & 63);
 }
 
@@ -319,7 +321,7 @@ __global__ void __launch_bounds__(32 * RED_SLICES) reduce_ordered_kernel(RSeg s0
 int launch_wgrad_reduce(const Args& a, long long units, int cp, int hdp, int splits, float* pw,
                         float* wgrad, float* vec, const RSeg& ln, const RSeg& rpb,
                         cudaStream_t s) {
-  const int kc = (cp + 63) / 64, nhalf = cp / 96, q3 = 3 * hdp;
+  const int pwid = part_width(cp), kc = (cp + 63) / 64, nhalf = cp / pwid, q3 = 3 * hdp;
   WArgs w;
   // (dY, X, kind): qkv (dqkv, yc), proj (dattn, o), fc1 (dh1, y2c), fc2 (dmlp, act);
   // their biases in pack_block_tiles' bias layout: bqkv | bproj | bfc1 | bfc2
@@ -350,8 +352,9 @@ int launch_wgrad_reduce(const Args& a, long long units, int cp, int hdp, int spl
   w.hdp = hdp;
   w.kc = kc;
   w.nhalf = nhalf;
-  w.stream_len = static_cast<long long>(a.nh) * kc * q3 * 64 + nhalf * kc * 96 * 64 +
-                 static_cast<long long>(a.chunks) * (kc * 4096 + nhalf * 96 * 64);
+  w.pw = pwid;
+  w.stream_len = static_cast<long long>(a.nh) * kc * q3 * 64 + nhalf * kc * pwid * 64 +
+                 static_cast<long long>(a.chunks) * (kc * 4096 + nhalf * pwid * 64);
   w.row_len = w.stream_len + bias_len;
   w.part = pw;
   static const cudaError_t wattr = cudaFuncSetAttribute(

@@ -6,7 +6,11 @@
 // swin_block_bwd16.cu) the same template runs a window's four 64-token
 // tiles as its units, in three modes around the attention kernels: the
 // front (LN1, qkv), the middle (proj .. do, with O read back) and the
-// tail (dy, LN1's backward, dx); swin_block_bwd_i16_<cp>_<hdp>.cu.
+// tail (dy, LN1's backward, dx); swin_block_bwd_i16_<cp>_<hdp>.cu.  K5r
+// runs the same three modes at ws 8, a window one unit, at padded width
+// 256 (the proj's and fc2's N parts of 128 rows; the wide accumulators
+// walked in 128-column halves, see SPLIT below);
+// swin_block_bwd_i8w_256_32.cu.
 #pragma once
 
 #include "common.cuh"
@@ -18,10 +22,10 @@ constexpr int NCONS = 2;                      // consumer warpgroups: a window e
 constexpr int NTHREADS = 128 * (NCONS + 1);   // + the weight feeder's warpgroup
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
-constexpr int STAGE_BYTES = 12288;            // a ring stage: one [<= 96, 64] tile
 constexpr int MAX_STAGES = 8;
 constexpr int SMEM_LIMIT = 232448;
-constexpr int MAX_HEADS = 6;
+constexpr int MAX_HEADS = 6;                  // the block kernel's widths (K5, K6b, K5w16)
+constexpr int K5R_MAX_HEADS = 8;              // K5r's (its tiled modes keep no table)
 constexpr int TABLE_BYTES = MAX_HEADS * 225 * 4;  // [nh, (2ws-1)^2] fp32, ws <= 8
 constexpr int HC = 64;                        // MLP hidden columns a chunk
 constexpr int TILE_ELEMS = 64 * 64;           // a workspace tile: [64 tokens, 64]
@@ -33,16 +37,23 @@ enum { MODE_WHOLE, MODE_FRONT, MODE_MID, MODE_TAIL };
 
 __host__ __device__ constexpr int round1024(int v) { return (v + 1023) / 1024 * 1024; }
 
+// Rows of an N part of the proj's and fc2's tiles in the weight stream
+// (kernels/fused_block.py block_plan's pw): 96 at the block kernel's
+// widths, 128 at K5r's 256.  A ring stage holds one [pw, 64] tile.
+__host__ __device__ constexpr int part_width(int cp) { return cp == 256 ? 128 : 96; }
+
 // The per-window shared memory of K5a (kernels/fused_block.py bwd_plan
 // reckons the same): the A buffer (yc, y2c, dattn, yc), the R buffer (O,
 // dmlp, the heads' do tiles), the head's q, k, v tiles and the softmax
 // row statistics (max, 1 / sum, rowsum(dA A)).
 template <int CP, int HDP>
 struct Layout {
-  static_assert(CP == 96 || CP == 192, "compiled widths");
+  static_assert(CP == 96 || CP == 192 || CP == 256, "compiled widths");
   static_assert(HDP == 16 || HDP == 32, "compiled head dims");
   static constexpr int KC = (CP + 63) / 64;  // 64-column K chunks of an A operand
-  static constexpr int NH = CP / 96;         // 96-row halves of the proj and fc2 tiles
+  static constexpr int PW = part_width(CP);  // rows of an N part of the proj and fc2 tiles
+  static constexpr int NH = CP / PW;         // N parts of the proj and fc2 tiles
+  static constexpr int STAGE = PW * 128;     // a ring stage: one [<= PW, 64] tile
   static constexpr int RB = 2 * HDP;         // bytes a row of a head's [64, hdp] tile
   static constexpr int A_BYTES = KC * 8192;
   static constexpr int R_BYTES = KC * 8192;  // >= the heads' do tiles: nh hdp <= CP
@@ -50,7 +61,7 @@ struct Layout {
   static constexpr int STAT_BYTES = 1024;
   static constexpr int WIN_BYTES = A_BYTES + R_BYTES + 3 * HT_BYTES + STAT_BYTES;
   static constexpr int QKV_TILE = 3 * HDP * 128;
-  static constexpr int CHUNK_BYTES = KC * 8192 + NH * 12288;  // fc1 then fc2 tiles of a chunk
+  static constexpr int CHUNK_BYTES = KC * 8192 + NH * STAGE;  // fc1 then fc2 tiles of a chunk
   static constexpr int FIXED = 1024 + NCONS * WIN_BYTES + TABLE_BYTES + 2 * MAX_STAGES * 8;
 };
 
@@ -78,14 +89,14 @@ struct Args {
   const float* scales;  // [batch, 2] or null
   bf16* op[N_OPS];     // workspace operands, [windows][op_tiles][64][64] swizzled
   int op_tiles[N_OPS];
-  float* x1ws;  // [grid][NCONS][64 CP]: x1, then dx1 (ws 16: [units][64 CP])
+  float* x1ws;  // [grid][NCONS][64 CP]: x1, then dx1 (tiled: [units + units % 2][64 CP])
   float* pvec;  // [grid][NCONS][4][vl]: LayerNorm sums per warp
-  float* prpb;  // [grid][NCONS][nh][64][64]: d(rpb) (not at ws 16)
-  // ws 16 (swin_block_bwd16.cu): a window's heads as [256, HDP] tiles,
-  // rows swizzled as the head tiles in shared memory
-  bf16* qkvh;   // [windows][nh][3][256][HDP]: q (pre-scaled), k, v (the front)
-  bf16* doh;    // [windows][nh][256][HDP]: do (the middle)
-  float* drow;  // [windows][nh][256]: rowsum(do o) per head (the middle)
+  float* prpb;  // [grid][NCONS][nh][64][64]: d(rpb) (not in the tiled modes)
+  // the tiled modes (swin_block_bwd16.cu): a window's heads as [ws^2,
+  // HDP] tiles, rows swizzled as the head tiles in shared memory
+  bf16* qkvh;   // [windows][nh][3][ws^2][HDP]: q (pre-scaled), k, v (the front)
+  bf16* doh;    // [windows][nh][ws^2][HDP]: do (the middle)
+  float* drow;  // [windows][nh][ws^2]: rowsum(do o) per head (the middle)
   int vl;       // the LN sums' vector: g1 | b1 | g2 | b2, CP each
   int batch, h, w, c, nh, chunks, shift, shifted, gelu_tanh, stages;
   float eps;
@@ -241,11 +252,12 @@ struct Wgmma64T {
 struct Ring {
   uint32_t stages_at, bars;
   int S, g;
+  uint32_t stage;  // bytes a stage
   __device__ __forceinline__ uint32_t full(int s) const { return bars + 8u * s; }
   __device__ __forceinline__ uint32_t empty(int s) const { return bars + 8u * (MAX_STAGES + s); }
   __device__ __forceinline__ uint32_t acquire() const {
     hopper::mbar_wait(full(g % S), (g / S) & 1);
-    return stages_at + (g % S) * STAGE_BYTES;
+    return stages_at + (g % S) * stage;
   }
   __device__ __forceinline__ void release(int tile, int lane) const {
     if (lane == 0) hopper::mbar_arrive(empty(tile % S));
@@ -277,18 +289,18 @@ __device__ __forceinline__ void gemm_a_smem(float (&acc)[N / 2], uint32_t a_at, 
 }
 
 // acc[64 x 64] (+)= A[64 x CP] (KC swizzled chunks at `a_at`) @ the next
-// NH ring tiles read MN-major ([96 rows of K, 64 of N] each: dY W, K the
+// NH ring tiles read MN-major ([PW rows of K, 64 of N] each: dY W, K the
 // tile's out rows).
 template <int CP>
 __device__ __forceinline__ void gemm_mn(float (&acc)[32], uint32_t a_at, Ring& rg, int lane) {
-  constexpr int NH = CP / 96;
+  constexpr int PW = part_width(CP), NH = CP / PW;
 #pragma unroll
   for (int hf = 0; hf < NH; ++hf) {
     const uint32_t tile = rg.acquire();
     hopper::wgmma_fence();
 #pragma unroll
-    for (int s = 0; s < 6; ++s) {
-      const int col = 96 * hf + 16 * s;
+    for (int s = 0; s < PW / 16; ++s) {
+      const int col = PW * hf + 16 * s;
       const uint64_t da = hopper::desc_sw128(a_at + (col >> 6) * 8192) + 2 * ((col & 63) >> 4);
       Wgmma64T<0, 1>::mma(acc, da, hopper::desc_sw128(tile + s * 2048), 1);
     }
@@ -369,25 +381,36 @@ __device__ __forceinline__ void tile_frag(uint32_t (&f)[4], uint32_t tile, int r
 template <int WS, int CP, int HDP, int MODE = MODE_WHOLE>
 __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args a) {
   using L = Layout<CP, HDP>;
-  // ws 16: a unit is one 64-token tile of a window (tile u of window u / 4)
+  // the tiled modes: a unit is one 64-token tile of a window (ws 16: tile
+  // u % 4 of window u / 4; ws 8: window u)
   constexpr bool TILED = MODE != MODE_WHOLE;
-  static_assert(TILED == (WS == 16), "ws 16 runs as its three modes, ws 7 / 8 whole");
+  static_assert(TILED ? (WS == 16 || WS == 8) : (WS == 7 || WS == 8),
+                "ws 16 (K5w16) and ws 8 (K5r) run as the three modes, ws 7 / 8 whole");
+  constexpr int WTOK = WS * WS;                 // a window's tokens
+  constexpr int TPW = TILED ? WTOK / 64 : 1;    // units a window
   constexpr int NT = TILED ? 64 : WS * WS;
   constexpr int T2 = (2 * WS - 1) * (2 * WS - 1);
   constexpr int REL0 = (WS - 1) * (2 * WS - 1) + WS - 1;  // relative index of pos_i == pos_j
   constexpr int NJ = CP / 8;                               // 8-column groups of a row
-  constexpr int KC = L::KC, NH = L::NH, RB = L::RB, Q3 = 3 * HDP;
+  constexpr int KC = L::KC, NH = L::NH, RB = L::RB, Q3 = 3 * HDP, PW = L::PW;
+  constexpr int GP = PW / 8;                               // 8-column groups of an N part
+  // SPLIT (K5r, cp 256): a [64, 256] fp32 accumulator is 128 registers a
+  // thread, so the proj's x1, dy2 and dy are walked in 128-column halves
+  // (dy2's and dy's first half parked in fp32 in a free buffer meanwhile)
+  constexpr bool SPLIT = CP == 256;
+  constexpr int KD = SPLIT ? KC / 2 : KC;  // dy2's and dy's K chunks a pass
+  static_assert(!SPLIT || TILED, "cp 256 runs the tiled modes only");
   static_assert(NT <= 64, "one m64 tile a window");
-  static_assert(NJ % 12 == 0, "the proj's N halves and the dmlp groups: 12 column groups");
+  static_assert(NJ % GP == 0, "the proj's N parts and the dmlp groups");
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = hopper::smem_addr(smem_raw);
   const uint32_t ring = (raw + 1023u) & ~1023u;
   const int S = a.stages;
-  const uint32_t wins = ring + S * STAGE_BYTES;
+  const uint32_t wins = ring + S * L::STAGE;
   const uint32_t table_at = wins + NCONS * L::WIN_BYTES;
   const uint32_t bars = table_at + TABLE_BYTES;
   float* table = reinterpret_cast<float*>(smem_raw + (table_at - raw));
-  Ring rg{ring, bars, S, 0};
+  Ring rg{ring, bars, S, 0, static_cast<uint32_t>(L::STAGE)};
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   if constexpr (!TILED)
@@ -402,7 +425,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
   __syncthreads();
 
   const int nww = a.w / WS, per_img = (a.h / WS) * nww;
-  const int windows = a.batch * per_img * (TILED ? 4 : 1);  // units
+  const int windows = a.batch * per_img * TPW;  // units
   const int pairs = (windows + NCONS - 1) / NCONS;
   if (warp >= 4 * NCONS) {
     // ------------------------------------------------------ weight feeder
@@ -410,33 +433,49 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
     if (tid != 128 * NCONS) return;
     const char* base = reinterpret_cast<const char*>(a.tiles);
     const char* proj0 = base + static_cast<size_t>(a.nh) * KC * L::QKV_TILE;
-    const char* mlp0 = proj0 + NH * KC * 12288;
+    const char* mlp0 = proj0 + NH * KC * L::STAGE;
     int g = 0;
     auto push = [&](const char* src, uint32_t bytes) {
       const int st = g % S;
       hopper::mbar_wait(rg.empty(st), ((g / S) & 1) ^ 1);
       hopper::mbar_arrive_expect_tx(rg.full(st), bytes);
-      hopper::bulk_copy(ring + st * STAGE_BYTES, src, bytes, rg.full(st));
+      hopper::bulk_copy(ring + st * L::STAGE, src, bytes, rg.full(st));
       ++g;
     };
     auto qkv_all = [&]() {
       for (int i = 0; i < a.nh * KC; ++i) push(base + i * L::QKV_TILE, L::QKV_TILE);
     };
+    // fc1's K chunks [k0, k1) of hidden chunk j (read MN-major: dy2)
+    auto fc1_k = [&](int j, int k0, int k1) {
+      const char* ch = mlp0 + static_cast<size_t>(j) * L::CHUNK_BYTES;
+      for (int kc = k0; kc < k1; ++kc) push(ch + kc * 8192, 8192);
+    };
     for (int pr = blockIdx.x; pr < pairs; pr += gridDim.x) {
       if constexpr (MODE == MODE_WHOLE || MODE == MODE_FRONT) qkv_all();    // F1
       if constexpr (MODE == MODE_WHOLE || MODE == MODE_MID) {
-        for (int i = 0; i < NH * KC; ++i) push(proj0 + i * 12288, 12288);   // F2
+        for (int i = 0; i < NH * KC; ++i) push(proj0 + i * L::STAGE, L::STAGE);  // F2
         for (int j = 0; j < a.chunks; ++j) {                                // M
           const char* ch = mlp0 + static_cast<size_t>(j) * L::CHUNK_BYTES;
           for (int kc = 0; kc < KC; ++kc) push(ch + kc * 8192, 8192);
-          for (int hf = 0; hf < NH; ++hf) push(ch + KC * 8192 + hf * 12288, 12288);
-          for (int kc = 0; kc < KC; ++kc) push(ch + kc * 8192, 8192);
+          for (int hf = 0; hf < NH; ++hf) push(ch + KC * 8192 + hf * L::STAGE, L::STAGE);
+          fc1_k(j, 0, KD);
         }
+        if constexpr (SPLIT)                                                // M, dy2's 2nd half
+          for (int j = 0; j < a.chunks; ++j) fc1_k(j, KD, KC);
         for (int kc = 0; kc < KC; ++kc)                                     // P
-          for (int hf = 0; hf < NH; ++hf) push(proj0 + (hf * KC + kc) * 12288, 12288);
+          for (int hf = 0; hf < NH; ++hf) push(proj0 + (hf * KC + kc) * L::STAGE, L::STAGE);
       }
       if constexpr (MODE == MODE_WHOLE) qkv_all();                          // A2
-      if constexpr (MODE == MODE_WHOLE || MODE == MODE_TAIL) qkv_all();     // D
+      if constexpr (MODE == MODE_WHOLE || MODE == MODE_TAIL) {              // D
+        if constexpr (SPLIT) {  // each half of dy: every head's K chunks of that half
+          for (int k0 = 0; k0 < KC; k0 += KD)
+            for (int hh = 0; hh < a.nh; ++hh)
+              for (int kc = k0; kc < k0 + KD; ++kc)
+                push(base + (hh * KC + kc) * L::QKV_TILE, L::QKV_TILE);
+        } else {
+          qkv_all();
+        }
+      }
     }
     return;
   }
@@ -480,7 +519,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
 
   // unit wv's token t: its window and the token's place in it
   auto token_off = [&](int wv, int t) {
-    const int wn = TILED ? wv >> 2 : wv, tt = TILED ? (wv & 3) * 64 + t : t;
+    const int wn = TILED ? wv / TPW : wv, tt = TILED ? (wv % TPW) * 64 + t : t;
     const int bidx = wn / per_img, win = wn - bidx * per_img;
     const int wy = win / nww, wx = win - wy * nww;
     const int rr = (wy * WS + tt / WS + a.shift) % a.h;
@@ -492,9 +531,12 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
     const int w0 = NCONS * pr + cw;
     const bool active = w0 < windows;  // an odd last window: the other one recomputes, stores nothing
     const int wv = active ? w0 : windows - 1;
-    const int wn = TILED ? wv >> 2 : wv, sub = TILED ? wv & 3 : 0;  // window, its tile
+    const int wn = TILED ? wv / TPW : wv, sub = TILED ? wv % TPW : 0;  // window, its tile
     const int bidx = wn / per_img, win = wn - bidx * per_img;
-    float* x1ws = a.x1ws + static_cast<size_t>(TILED ? wv : slot) * 64 * CP;
+    // x1 turns into dx1 in place, so the inactive twin of the tiled modes
+    // has a scratch slice of its own (the last, `windows`): on its active
+    // partner's it could read dx1 as x1
+    float* x1ws = a.x1ws + static_cast<size_t>(TILED ? (active ? wv : windows) : slot) * 64 * CP;
     const float m1 = a.scales ? a.scales[2 * bidx] : 1.f;
     const float m2 = a.scales ? a.scales[2 * bidx + 1] : 1.f;
     bool row_ok[2];
@@ -667,7 +709,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
     wg_barrier(cw);
     ws_bulk(OP_YC, abuf);
     if constexpr (MODE == MODE_FRONT) {
-      // ws 16: the heads' q, k, v -> the window's [256, HDP] head tiles
+      // the heads' q, k, v -> the window's [ws^2, HDP] head tiles
       // (the attention kernels' operands); O's columns past the heads zero
       for (int hh = 0; hh < a.nh; ++hh) {
         float acc[3 * HDP / 2];
@@ -679,11 +721,11 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
           bqv[j] = __ldg(reinterpret_cast<const float2*>(a.bqkv + hh * Q3 + 8 * j + 2 * q));
         gemm_a_smem<3 * HDP, CP>(acc, abuf, rg, lane);
         char* hq = reinterpret_cast<char*>(
-            a.qkvh + (static_cast<size_t>(wn) * a.nh + hh) * 3 * W16_TOKENS * HDP);
+            a.qkvh + (static_cast<size_t>(wn) * a.nh + hh) * 3 * WTOK * HDP);
 #pragma unroll
         for (int j = 0; j < 3 * HDP / 8; ++j) {
           const int part = (8 * j) / HDP, d = (8 * j) % HDP + 2 * q, row = 64 * sub + r0;
-          char* t = hq + part * W16_TOKENS * RB;
+          char* t = hq + part * WTOK * RB;
           *reinterpret_cast<uint32_t*>(t + head_off(row, d)) =
               pack_bf16(acc[4 * j] + bqv[j].x, acc[4 * j + 1] + bqv[j].y);
           *reinterpret_cast<uint32_t*>(t + head_off(row + 8, d)) =
@@ -738,7 +780,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
     ws_bulk(OP_O, rbuf);
     }
     } else if constexpr (MODE == MODE_MID) {
-      // ws 16: O (the attention kernel's, in the workspace) -> the R buffer
+      // O (the attention kernel's, in the workspace) -> the R buffer
       const uint4* src = reinterpret_cast<const uint4*>(ws_at(OP_O));
       uint4* dst = reinterpret_cast<uint4*>(smem_raw + (rbuf - raw));
       for (int i = ct; i < KC * 512; i += 128) dst[i] = src[i];
@@ -749,7 +791,69 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
     if constexpr (MODE == MODE_WHOLE || MODE == MODE_MID) {
     // ================================ F2: x1, LN2; dmlp
     float mu2[2], rs2[2];
-    {
+    if constexpr (SPLIT) {
+      // x1 a 128-column part at a time, straight to the scratch; LN2 from
+      // the scratch once both parts' sums are in
+      float s[2] = {0.f, 0.f}, sq[2] = {0.f, 0.f};
+#pragma unroll 1
+      for (int hf = 0; hf < NH; ++hf) {
+        uint32_t xr[GP][2], er[GP][2];  // the part's x and extra, in flight during its product
+#pragma unroll
+        for (int j = 0; j < GP; ++j)
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const int col = PW * hf + 8 * j + 2 * q;
+            xr[j][h2] = load_pair_u32(xrow[h2], row_ok[h2], col, a.c);
+            er[j][h2] = a.extra ? load_pair_u32(a.extra + roff[h2], row_ok[h2], col, a.c) : 0u;
+          }
+        float pacc[PW / 2];
+#pragma unroll
+        for (int e = 0; e < PW / 2; ++e) pacc[e] = 0.f;
+        gemm_a_smem<PW, CP>(pacc, rbuf, rg, lane);
+#pragma unroll
+        for (int j = 0; j < GP; ++j) {
+          const int jg = GP * hf + j, col = 8 * jg + 2 * q;
+          const float2 bb = __ldg(reinterpret_cast<const float2*>(a.bproj + col));
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const float2 xv = unpack_bf16(xr[j][h2]);
+            const float2 ev = unpack_bf16(er[j][h2]);
+            const float v0 = xv.x + m1 * (pacc[4 * j + 2 * h2] + bb.x) + ev.x;
+            const float v1 = xv.y + m1 * (pacc[4 * j + 2 * h2 + 1] + bb.y) + ev.y;
+            s[h2] += v0 + v1;  // zero past C
+            sq[h2] += v0 * v0 + v1 * v1;
+            reinterpret_cast<float2*>(x1ws)[(2 * jg + h2) * 128 + ct] = make_float2(v0, v1);
+          }
+        }
+      }
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        mu2[h2] = quad_sum(s[h2]) * inv_c;
+        rs2[h2] = rsqrtf(fmaxf(quad_sum(sq[h2]) * inv_c - mu2[h2] * mu2[h2], 0.f) + a.eps);
+      }
+      wg_barrier(cw);  // every warp's proj has read O: the R buffer takes dmlp
+#pragma unroll
+      for (int j0 = 0; j0 < NJ; j0 += 8) {
+        float2 x1v[8][2];  // every load before any store
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2)
+            x1v[j][h2] = reinterpret_cast<const float2*>(x1ws)[(2 * (j0 + j) + h2) * 128 + ct];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 8 * (j0 + j) + 2 * q;
+          const float2 g = load_vec2(a.g2, col, a.c), b = load_vec2(a.b2, col, a.c);
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const float2 v = x1v[j][h2];
+            st32(a_off(abuf, r0 + 8 * h2, col),
+                 pack_bf16(col < a.c ? (v.x - mu2[h2]) * rs2[h2] * g.x + b.x : 0.f,
+                           col + 1 < a.c ? (v.y - mu2[h2]) * rs2[h2] * g.y + b.y : 0.f));
+          }
+        }
+      }
+    } else {
       float pacc[NH][48];
       float s[2] = {0.f, 0.f}, sq[2] = {0.f, 0.f};
 #pragma unroll
@@ -809,15 +913,15 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
     }
     {  // dmlp = bf16(ct m2) -> the R buffer, the workspace
 #pragma unroll
-      for (int j0 = 0; j0 < NJ; j0 += 12) {
-        uint32_t cr[12][2];  // every load first
+      for (int j0 = 0; j0 < NJ; j0 += GP) {
+        uint32_t cr[GP][2];  // every load first
 #pragma unroll
-        for (int jj = 0; jj < 12; ++jj)
+        for (int jj = 0; jj < GP; ++jj)
 #pragma unroll
           for (int h2 = 0; h2 < 2; ++h2)
             cr[jj][h2] = load_pair_u32(a.ct + roff[h2], row_ok[h2], 8 * (j0 + jj) + 2 * q, a.c);
 #pragma unroll
-        for (int jj = 0; jj < 12; ++jj) {
+        for (int jj = 0; jj < GP; ++jj) {
           const int col = 8 * (j0 + jj) + 2 * q;
 #pragma unroll
           for (int h2 = 0; h2 < 2; ++h2) {
@@ -834,12 +938,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
     ws_bulk(OP_DMLP, rbuf);
 
     // ================================ M: the MLP, forward and back
-    float dy2[KC][32];
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc)
-#pragma unroll
-      for (int e = 0; e < 32; ++e) dy2[kc][e] = 0.f;
-    for (int jc = 0; jc < a.chunks; ++jc) {
+    // one hidden chunk: h1 (recompute), act and dh1 to the workspace, dh1
+    // as `f`, the A fragments of dy2 += dh1 Wfc1
+    auto mlp_chunk = [&](int jc, uint32_t (&f)[4][4]) {
       float hacc[32];
 #pragma unroll
       for (int e = 0; e < 32; ++e) hacc[e] = 0.f;
@@ -868,7 +969,6 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
       for (int e = 0; e < 32; ++e) dacc[e] = 0.f;
       gemm_mn<CP>(dacc, rbuf, rg, lane);
       // dh1 = bf16(dmlp Wfc2 * gelu'(h1)): A fragments, the workspace
-      uint32_t f[4][4];
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const uint32_t lo = pack_bf16(dacc[4 * j] * hacc[4 * j], dacc[4 * j + 1] * hacc[4 * j + 1]);
@@ -880,6 +980,20 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
         ws_pair(OP_DH1, r0, col, lo);
         ws_pair(OP_DH1, r0 + 8, col, hi);
       }
+    };
+    // LN2's backward is written twice: here for the block kernel's widths,
+    // in the else branch for cp 256 (one shared version raised the cp-192
+    // spills and K5's time).  A fix to one copy goes into the other, as
+    // for LN1's backward in D.
+    if constexpr (!SPLIT) {
+    float dy2[KC][32];
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dy2[kc][e] = 0.f;
+    for (int jc = 0; jc < a.chunks; ++jc) {
+      uint32_t f[4][4];
+      mlp_chunk(jc, f);
       rs_mn<4, KC>(dy2, f, rg, lane);
     }
 
@@ -966,6 +1080,142 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
         }
       }
     }
+    } else {
+    // K5r: dy2 in two halves of K chunks, the first on the
+    // chunks' pass, parked in fp32 in the R buffer (dmlp's, free once
+    // every product has read it), the second against dh1 read back from
+    // the workspace (this thread's own stores)
+    float dy2[KD][32];
+#pragma unroll
+    for (int k = 0; k < KD; ++k)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dy2[k][e] = 0.f;
+    for (int jc = 0; jc < a.chunks; ++jc) {
+      uint32_t f[4][4];
+      mlp_chunk(jc, f);
+      rs_mn<4, KD>(dy2, f, rg, lane);
+    }
+
+    // ================================ L2: LN2 backward -> dx1, dextra, dattn
+    float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+    // dy2's 64-column chunk kc (d): the LN2 sums (s1, s2, the g2 / b2
+    // column sums)
+    auto l2_sums = [&](int kc, const float (&d)[32]) {
+      float2 x1v[8][2];  // the tile's x1, every load before any store
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2)
+          x1v[j][h2] = 8 * kc + j < NJ
+                           ? reinterpret_cast<const float2*>(x1ws)[(2 * (8 * kc + j) + h2) * 128 + ct]
+                           : make_float2(0.f, 0.f);
+      float gn[32];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int jg = 8 * kc + j, col = 8 * jg + 2 * q;
+        const float2 g = load_vec2(a.g2, col, a.c);
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          float2 n = make_float2(0.f, 0.f);
+          if (jg < NJ) {
+            const float2 x1 = x1v[j][h2];
+            n.x = col < a.c ? (x1.x - mu2[h2]) * rs2[h2] : 0.f;
+            n.y = col + 1 < a.c ? (x1.y - mu2[h2]) * rs2[h2] : 0.f;
+          }
+          const float d0 = d[4 * j + 2 * h2], d1 = d[4 * j + 2 * h2 + 1];
+          s1[h2] += d0 * g.x + d1 * g.y;
+          s2[h2] += d0 * g.x * n.x + d1 * g.y * n.y;
+          gn[4 * j + 2 * h2] = d0 * n.x;
+          gn[4 * j + 2 * h2 + 1] = d1 * n.y;
+        }
+      }
+      if (8 * kc < NJ) {
+        colsum<8>(pv_at(V_G2) + 64 * kc, gn, lane, active, NJ - 8 * kc);
+        colsum<8>(pv_at(V_B2) + 64 * kc, d, lane, active, NJ - 8 * kc);
+      }
+    };
+    // chunk kc's dx1 over x1 in the scratch, dextra, dattn -> the A buffer
+    auto l2_out = [&](int kc, const float (&d)[32]) {
+      if (8 * kc >= NJ) return;
+      float2 x1v[8][2], ctv2[8][2];  // every load before any store
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int jg = 8 * kc + j;
+          x1v[j][h2] = jg < NJ ? reinterpret_cast<const float2*>(x1ws)[(2 * jg + h2) * 128 + ct]
+                               : make_float2(0.f, 0.f);
+          ctv2[j][h2] = load_pair(a.ct + roff[h2], row_ok[h2], 8 * jg + 2 * q, a.c);
+        }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int jg = 8 * kc + j, col = 8 * jg + 2 * q;
+        if (jg >= NJ) break;
+        const float2 g = load_vec2(a.g2, col, a.c);
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          float2* x1p = reinterpret_cast<float2*>(x1ws) + (2 * jg + h2) * 128 + ct;
+          const float2 x1 = x1v[j][h2];
+          const float2 ctv = ctv2[j][h2];
+          const float n0 = col < a.c ? (x1.x - mu2[h2]) * rs2[h2] : 0.f;
+          const float n1 = col + 1 < a.c ? (x1.y - mu2[h2]) * rs2[h2] : 0.f;
+          const float d0 = d[4 * j + 2 * h2], d1 = d[4 * j + 2 * h2 + 1];
+          float v0 = ctv.x + rs2[h2] * (d0 * g.x - s1[h2] - n0 * s2[h2]);
+          float v1 = ctv.y + rs2[h2] * (d1 * g.y - s1[h2] - n1 * s2[h2]);
+          if (col >= a.c) v0 = 0.f;
+          if (col + 1 >= a.c) v1 = 0.f;
+          *x1p = make_float2(v0, v1);  // dx1 over x1
+          if (a.extra) store_pair(a.dextra + roff[h2], col, c_out[h2], v0, v1);
+          const uint32_t u = pack_bf16(v0 * m1, v1 * m1);
+          st32(a_off(abuf, r0 + 8 * h2, col), u);
+        }
+      }
+    };
+#pragma unroll
+    for (int k = 0; k < KD; ++k) l2_sums(k, dy2[k]);
+    if (ct == 0) hopper::bulk_wait_read();  // y2c's and dmlp's copies
+    wg_barrier(cw);  // every warp's fc1 has read y2c: the A buffer takes dattn
+    {
+      float* park = reinterpret_cast<float*>(smem_raw + (rbuf - raw));  // [KD][32][128] fp32
+#pragma unroll
+      for (int k = 0; k < KD; ++k)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          park[(32 * k + e) * 128 + ct] = dy2[k][e];
+          dy2[k][e] = 0.f;
+        }
+      const bf16* dh1 = ws_at(OP_DH1);
+      for (int jc = 0; jc < a.chunks; ++jc) {
+        uint32_t f[4][4];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = HC * jc + 8 * j + 2 * q;
+          f[j / 2][2 * (j & 1)] = *reinterpret_cast<const uint32_t*>(dh1 + ws_off(r0, col));
+          f[j / 2][2 * (j & 1) + 1] = *reinterpret_cast<const uint32_t*>(dh1 + ws_off(r0 + 8, col));
+        }
+        rs_mn<4, KD>(dy2, f, rg, lane);
+      }
+#pragma unroll
+      for (int k = 0; k < KD; ++k) l2_sums(KD + k, dy2[k]);
+    }
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      s1[h2] = quad_sum(s1[h2]) * inv_c;
+      s2[h2] = quad_sum(s2[h2]) * inv_c;
+    }
+#pragma unroll
+    for (int k = 0; k < KD; ++k) l2_out(KD + k, dy2[k]);
+    {
+      const float* park = reinterpret_cast<const float*>(smem_raw + (rbuf - raw));
+#pragma unroll
+      for (int k = 0; k < KD; ++k) {
+        float d[32];
+#pragma unroll
+        for (int e = 0; e < 32; ++e) d[e] = park[(32 * k + e) * 128 + ct];
+        l2_out(k, d);
+      }
+    }
+    }
     hopper::fence_proxy_async();
     wg_barrier(cw);
     ws_bulk(OP_DATTN, abuf);
@@ -978,7 +1228,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
       for (int e = 0; e < 32; ++e) dacc[e] = 0.f;
       gemm_mn<CP>(dacc, abuf, rg, lane);
       if constexpr (MODE == MODE_MID) {
-        // ws 16: do -> the window's head tiles, and each head's row term
+        // do -> the window's head tiles, and each head's row term
         // rowsum(do o) (the bf16 do and the workspace's o)
         constexpr int HPC = 64 / HDP;  // heads a 64-column chunk
         float ds[HPC][2];
@@ -993,7 +1243,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
           const uint32_t hi = pack_bf16(dacc[4 * j + 2], dacc[4 * j + 3]);
           if (hh < a.nh) {
             char* t = reinterpret_cast<char*>(
-                a.doh + (static_cast<size_t>(wn) * a.nh + hh) * W16_TOKENS * HDP);
+                a.doh + (static_cast<size_t>(wn) * a.nh + hh) * WTOK * HDP);
             *reinterpret_cast<uint32_t*>(t + head_off(64 * sub + r0, d)) = lo;
             *reinterpret_cast<uint32_t*>(t + head_off(64 * sub + r0 + 8, d)) = hi;
             const float2 o0 = unpack_bf16(*reinterpret_cast<const uint32_t*>(ob + ws_off(r0, col)));
@@ -1011,7 +1261,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
             const float v = quad_sum(ds[hc][h2]);
             const int hh = 64 * kc / HDP + hc;
             if (q == 0 && hh < a.nh)
-              a.drow[(static_cast<size_t>(wn) * a.nh + hh) * W16_TOKENS + 64 * sub + r0 + 8 * h2] = v;
+              a.drow[(static_cast<size_t>(wn) * a.nh + hh) * WTOK + 64 * sub + r0 + 8 * h2] = v;
           }
       } else {
 #pragma unroll
@@ -1031,7 +1281,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
     if constexpr (MODE == MODE_MID) continue;
     }
 
-    if constexpr (MODE == MODE_TAIL) ln1(false);  // ws 16: LN1's statistics for its backward
+    if constexpr (MODE == MODE_TAIL) ln1(false);  // LN1's statistics for its backward
     if constexpr (MODE == MODE_WHOLE) {
     // ================================ A2: the attention backward, a head at a time
     ln1(true);
@@ -1197,7 +1447,121 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
     }
 
     // ================================ D: dy = dqkv Wqkv, LN1 backward, dx
-    if constexpr (MODE == MODE_WHOLE || MODE == MODE_TAIL) {
+    if constexpr ((MODE == MODE_WHOLE || MODE == MODE_TAIL) && SPLIT) {
+      // K5r: dy in two halves of K chunks, each over every head;
+      // the first parked in fp32 in the A buffer (free in this mode).
+      // LN1's backward here and in the branch below are two copies of one
+      // computation (see LN2's in M): a fix to one goes into the other.
+      float dy[KD][32];
+      auto dqkv_dy = [&]() {  // dy = sum over the heads of dqkv_h Wqkv_h, a pass's K chunks
+#pragma unroll
+        for (int k = 0; k < KD; ++k)
+#pragma unroll
+          for (int e = 0; e < 32; ++e) dy[k][e] = 0.f;
+        for (int hh = 0; hh < a.nh; ++hh) {
+          // the head's dqkv as A fragments: this thread's own workspace writes
+          uint32_t f[Q3 / 16][4];
+          const bf16* src = ws_at(OP_DQKV);
+#pragma unroll
+          for (int kk = 0; kk < Q3 / 16; ++kk) {
+            const int c0 = hh * Q3 + 16 * kk + 2 * q;
+            f[kk][0] = *reinterpret_cast<const uint32_t*>(src + ws_off(r0, c0));
+            f[kk][1] = *reinterpret_cast<const uint32_t*>(src + ws_off(r0 + 8, c0));
+            f[kk][2] = *reinterpret_cast<const uint32_t*>(src + ws_off(r0, c0 + 8));
+            f[kk][3] = *reinterpret_cast<const uint32_t*>(src + ws_off(r0 + 8, c0 + 8));
+          }
+          rs_mn<Q3 / 16, KD>(dy, f, rg, lane);
+        }
+      };
+      float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+      auto d_sums = [&](int kc, const float (&d)[32]) {  // chunk kc's LN1 sums
+        if (8 * kc >= NJ) return;
+        uint32_t xr[8][2];  // every load first
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2)
+            xr[j][h2] = load_pair_u32(xrow[h2], row_ok[h2], 64 * kc + 8 * j + 2 * q, a.c);
+        float gn[32];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 64 * kc + 8 * j + 2 * q;
+          const float2 g = load_vec2(a.g1, col, a.c);
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const float2 xv = unpack_bf16(xr[j][h2]);
+            const float n0 = col < a.c ? (xv.x - mu1[h2]) * rs1[h2] : 0.f;
+            const float n1 = col + 1 < a.c ? (xv.y - mu1[h2]) * rs1[h2] : 0.f;
+            const float d0 = d[4 * j + 2 * h2], d1 = d[4 * j + 2 * h2 + 1];
+            s1[h2] += d0 * g.x + d1 * g.y;
+            s2[h2] += d0 * g.x * n0 + d1 * g.y * n1;
+            gn[4 * j + 2 * h2] = d0 * n0;
+            gn[4 * j + 2 * h2 + 1] = d1 * n1;
+          }
+        }
+        colsum<8>(pv_at(V_G1) + 64 * kc, gn, lane, active, NJ - 8 * kc);
+        colsum<8>(pv_at(V_B1) + 64 * kc, d, lane, active, NJ - 8 * kc);
+      };
+      auto d_out = [&](int kc, const float (&d)[32]) {  // chunk kc's dx = dx1 + LN1^T(dy)
+        if (8 * kc >= NJ) return;
+        float2 xv2[8][2], dx1v[8][2];  // every load before any store
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const int jg = 8 * kc + j;
+            xv2[j][h2] = load_pair(xrow[h2], row_ok[h2], 8 * jg + 2 * q, a.c);
+            dx1v[j][h2] = jg < NJ ? reinterpret_cast<const float2*>(x1ws)[(2 * jg + h2) * 128 + ct]
+                                  : make_float2(0.f, 0.f);
+          }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int jg = 8 * kc + j, col = 8 * jg + 2 * q;
+          if (jg >= NJ) break;
+          const float2 g = load_vec2(a.g1, col, a.c);
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const float2 xv = xv2[j][h2];
+            const float2 dx1 = dx1v[j][h2];
+            const float n0 = (xv.x - mu1[h2]) * rs1[h2], n1 = (xv.y - mu1[h2]) * rs1[h2];
+            const float d0 = d[4 * j + 2 * h2], d1 = d[4 * j + 2 * h2 + 1];
+            const float v0 = dx1.x + rs1[h2] * (d0 * g.x - s1[h2] - n0 * s2[h2]);
+            const float v1 = dx1.y + rs1[h2] * (d1 * g.y - s1[h2] - n1 * s2[h2]);
+            store_pair(a.dx + roff[h2], col, c_out[h2], v0, v1);
+          }
+        }
+      };
+      dqkv_dy();
+#pragma unroll
+      for (int k = 0; k < KD; ++k) d_sums(k, dy[k]);
+      {
+        float* park = reinterpret_cast<float*>(smem_raw + (abuf - raw));  // [KD][32][128] fp32
+#pragma unroll
+        for (int k = 0; k < KD; ++k)
+#pragma unroll
+          for (int e = 0; e < 32; ++e) park[(32 * k + e) * 128 + ct] = dy[k][e];
+        dqkv_dy();
+#pragma unroll
+        for (int k = 0; k < KD; ++k) d_sums(KD + k, dy[k]);
+      }
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        s1[h2] = quad_sum(s1[h2]) * inv_c;
+        s2[h2] = quad_sum(s2[h2]) * inv_c;
+      }
+#pragma unroll
+      for (int k = 0; k < KD; ++k) d_out(KD + k, dy[k]);
+      {
+        const float* park = reinterpret_cast<const float*>(smem_raw + (abuf - raw));
+#pragma unroll
+        for (int k = 0; k < KD; ++k) {
+          float d[32];
+#pragma unroll
+          for (int e = 0; e < 32; ++e) d[e] = park[(32 * k + e) * 128 + ct];
+          d_out(k, d);
+        }
+      }
+    } else if constexpr (MODE == MODE_WHOLE || MODE == MODE_TAIL) {
       float dy[KC][32];
 #pragma unroll
       for (int kc = 0; kc < KC; ++kc)
@@ -1290,7 +1654,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
 template <int WS, int CP, int HDP, int MODE = MODE_WHOLE>
 int launch_window(const Args& a, int grid, cudaStream_t stream) {
   using L = Layout<CP, HDP>;
-  const int smem = L::FIXED + a.stages * STAGE_BYTES;
+  const int smem = L::FIXED + a.stages * L::STAGE;
   if (a.stages < 2 || a.stages > MAX_STAGES || smem > SMEM_LIMIT || a.nh * HDP > CP)
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = swin_block_bwd_kernel<WS, CP, HDP, MODE>;

@@ -14,17 +14,19 @@ x4 serving (D), HAT-SRx4 serving (H16: upstream's HAT, window 16, C 180),
 every other Swin block outside the block kernel's envelope (W: any
 other window, width, head count or head dim), DAT training (DT) and DAT's module
 chain at serving where K9, K14 or K10 refuse a block's shapes (DC: splits
-past N 256, C > 192, hd > 32, among others), and
-HAT-SRx4 training (H16T: window 16, C 180, hidden 360).
+past N 256, C > 192, hd > 32, among others),
+HAT-SRx4 training (H16T: window 16, C 180, hidden 360) and SwinIR-L
+fine-tuning (LT: ws 8, C 240, 8 heads, hidden 480).
 
 ==== ========================================================== ======== ==================================================
  #   JAX file:line of pallas_call . entry function                on path  port
 ==== ========================================================== ======== ==================================================
 K1   fused_block.py:958 . fused_swin_block (_mega_forward)         S,T,H    CUDA csrc/swin_block.cu (ws 8, extra; wgmma, fused_block.block_plan), fused_block.fused_windows_block
      (the same function at any other window or width)             H16,W,   K2 + K7 + K1's tail (K1t), CUDA csrc/swin_tail_wg.cu (wgmma, C <= 256) or csrc/swin_tail.cu (past it; fused_block.tail_route), fused_block.fused_block_tail
-                                                                  H16T
+                                                                  H16T,LT
 K5   fused_block.py:1080 . _mega_backward                          T,HT     CUDA csrc/swin_block_bwd.cu (ws 8, extra; wgmma on the forward's tiles, fused_block.bwd_plan), fused_block.SwinBlockFunction
      (at ws 16, the K7 route's block, counted as K5w16)            H16T     CUDA csrc/swin_block_bwd16.cu (K5a's ws-16 modes + two attention kernels, fused_block.bwd16_plan), fused_block.WindowBlockFunction
+     (at ws 8 past the block kernel's widths, counted as K5r)     LT       CUDA csrc/swin_block_bwd16.cu (K5a's ws-8 modes at cp 256, csrc/swin_block_bwd_i8w_256_32.cu; fused_block.k5r_plan), fused_block.WindowBlockFunction
 K2   layernorm.py:54 . pallas_layernorm (layernorm_spatial)        all      CUDA csrc/layernorm.cu, layernorm.layernorm
 K3   cab_conv.py:307 . conv3x3_halo                                all      CUDA csrc/conv.cu, cab_conv.conv3x3
 K4   cab_conv.py:418 . conv_halo                                   all      CUDA csrc/conv.cu, cab_conv.conv_k
@@ -39,7 +41,7 @@ K9   fused_rect_attn.py:433 . fused_rect_attention                 D        CUDA
 K14  fused_channel_attn.py:209 . fused_channel_attention           D        CUDA csrc/dat_channel.cu (+ dat_common.cuh's product and conv), fused_channel_attn.channel_attention
 K10  fused_datb_tail.py:374 . fused_datb_tail                      D,DC     CUDA csrc/dat_tail.cu (C <= 192, half <= 384; fused_datb_tail.tail_plan), fused_datb_tail.datb_tail
 K7   fused_attention.py:229 . fused_window_block_attention         H16,W,   CUDA csrc/window_attn.cu (the qkv and proj product) + csrc/window_attn_stream.cu
-                                                                  H16T     (the attention), fused_attention.fused_window_attention
+                                                                  H16T,LT  (the attention), fused_attention.fused_window_attention
 K12  cab_conv.py:209 . fused_ln_cab_convs                          H,HT,    CUDA csrc/cab_fused.cu (C <= 256, Cmid <= 128), cab_conv.fused_ln_cab_convs
                                                                   H16,H16T
 K11  cab_conv.py:506 . dwconv3x3_halo                              DT,DC    CUDA csrc/dwconv.cu ("rows" or "tiles", dwconv.dwconv_plan), dwconv.dwconv3x3
@@ -58,12 +60,16 @@ In training, K1-K4, K1t, K6, K7, K8, K12 and K15 run through
 K8b; K2-K4's, K7's and K12's backwards are torch autograd of their
 plain versions, as the JAX package leaves those backwards to XLA, and so
 are K1t's and K15's (the JAX package has no K15 backward: its HAT
-trains the OCAB through K8).  A K7-route block at ws 16 within the
-block kernel's widths trains through ``fused_block.WindowBlockFunction``
-instead, whose backward is K5 at ws 16 (K5w16; it recomputes LN1 with a
-K2 launch and qkv with K7's product launch, counted as K2 and K7).  At the
-K7 route's other windows the block backward is still autograd of the
-plain versions (ROADMAP Queue 2).
+trains the OCAB through K8).  A K7-route block that
+``fused_block.tiled_bwd_ok`` takes trains through
+``fused_block.WindowBlockFunction`` instead: at ws 16 within the block
+kernel's widths its backward is K5 at ws 16 (K5w16), at ws 8 past those
+widths (C <= 256, <= 8 heads of hd <= 32, hidden <= 512: SwinIR-L) K5r;
+both recompute LN1 and qkv in their own launches, and its forward is the
+route's K2, K7 and K1t, counted as such.  Elsewhere on the K7 route (ws
+24, 32, ...; ws 16 past the block kernel's widths; ws 8 past K5r's: C >
+256, hidden > 512) the block backward is still autograd of the plain
+versions (ROADMAP Queue 2).
 HAT's OCAB runs K15 as its attention at serving, and in training
 wherever K8 refuses its shapes (``fused_ocab.ocab_ok``: C > 192,
 hidden > 384, windows other than 7, 8 and 16); elsewhere in training it
@@ -108,6 +114,7 @@ COUNTERS = {
     "K3": cab_conv.launches_conv3x3,
     "K4": cab_conv.launches_conv_k,
     "K5": fused_block.launches_bwd,
+    "K5r": fused_block.launches_bwd_r,
     "K5w16": fused_block.launches_bwd_w16,
     "K6": fused_block.launches_ws7,
     "K6b": fused_block.launches_bwd_ws7,

@@ -78,16 +78,20 @@ transpose of ``_tile_indices``' gather) maps them to the raw ``[out,
 in]`` parameters (the counterpart of ``fused_block.py:1098-1105``).
 Training on CUDA goes through ``SwinBlockFunction``: its forward is K1 /
 K6 and its backward K5 / K6b, both on one ``pack_block_tiles`` pack a
-step.  Its ws-7 backward launches count as K6b.  A K7-route block at ws 16 within the block kernel's widths
-(``k5w16_ok``: upstream HAT-SRx4's HABs) trains through
+step.  Its ws-7 backward launches count as K6b.  A K7-route block that ``tiled_bwd_ok`` takes trains through
 ``WindowBlockFunction``: forward the route's K2, gathers, K7 and K1t,
-backward K5 at ws 16 (``csrc/swin_block_bwd16.cu``, counted as K5w16: K5a
-runs the windows' 64-token tiles in three token-local launches around two
-attention kernels over (window, head) units, on one ``pack_block_tiles``
-pack a step, ``bwd16_plan``).  At
-the route's other windows the backward is still autograd of the
-kernels' plain versions, where the JAX package runs K5 (ws 24, 32, ...)
-or ``_packed_backward`` (ws 6, 12, ...): ROADMAP Queue 2.
+backward ``csrc/swin_block_bwd16.cu``: at ws 16 within the block
+kernel's widths (``k5w16_ok``: upstream HAT-SRx4's HABs) counted as
+K5w16, K5a running the windows' 64-token tiles in three token-local
+launches around two attention kernels over (window, head) units
+(``bwd16_plan``); at ws 8 past those widths (``k5r_ok``: C <= 256, <= 8
+heads of hd <= 32, hidden <= 512, SwinIR-L) counted as K5r, the same
+launches with a window one unit and K5a at padded width 256
+(``k5r_plan``); both on one ``pack_block_tiles`` pack a step.  At the
+route's other shapes the backward is still autograd of the kernels'
+plain versions, where the JAX package runs K5 (ws 24, 32, ...; ws 8 /
+16 past those widths) or ``_packed_backward`` (ws 6, 12, ...): ROADMAP
+Queue 2.
 """
 
 from __future__ import annotations
@@ -130,7 +134,17 @@ launches_bwd = _lib.LaunchCounter("K5 swin_block_bwd")
 launches_bwd_ws7 = _lib.LaunchCounter("K6b swin_block_bwd ws7")
 launches_tail = _lib.LaunchCounter("K1t swin_block_tail")
 launches_bwd_w16 = _lib.LaunchCounter("K5w16 swin_block_bwd ws16")
+launches_bwd_r = _lib.LaunchCounter("K5r swin_block_bwd ws8 wide")
 BWD16_WINDOW = 16  # the window of csrc/swin_block_bwd16.cu
+# K5r (csrc/swin_block_bwd16.cu at ws 8): the K7 route's ws-8 blocks past
+# the block kernel's widths, on one instantiation: padded width 256, head
+# dim 32, the proj's and fc2's N parts of 128 rows
+K5R_WINDOW = 8
+K5R_CP = 256
+K5R_HEADS = 8
+K5R_HIDDEN = 512
+K5R_PW = 128
+BLOCK_PW = 96  # the block kernel's N parts (its "halves")
 # the counters of the forward and backward kernels for each window size
 FORWARD_COUNTERS = {8: launches, 7: launches_ws7}
 BACKWARD_COUNTERS = {8: launches_bwd, 7: launches_bwd_ws7}
@@ -210,9 +224,21 @@ class SwinBlockGrads:
     extra: Optional[torch.Tensor] = None
 
 
+def _block_widths(c: int, heads: int, hidden: int) -> bool:
+    """Whether C, the heads and the MLP hidden fit the block kernel."""
+    return (c % heads == 0 and c <= CP and c // heads <= HDP and heads <= MAX_HEADS
+            and hidden <= HIDP)
+
+
+def _k5r_widths(c: int, heads: int, hidden: int) -> bool:
+    """Whether C, the heads and the MLP hidden fit K5r's instantiation."""
+    return (c % heads == 0 and c <= K5R_CP and c // heads <= HDP and heads <= K5R_HEADS
+            and hidden <= K5R_HIDDEN)
+
+
 def _check_widths(w: SwinBlockWeights) -> None:
     c, nh, hidden = w.dim, w.num_heads, int(w.wfc1.shape[0])
-    if c > CP or c % nh or c // nh > HDP or nh > MAX_HEADS or hidden > HIDP:
+    if not _block_widths(c, nh, hidden):
         raise ValueError(
             f"swin_block kernel takes C <= {CP}, hd <= {HDP}, heads <= "
             f"{MAX_HEADS}, hidden <= {HIDP}; got C={c}, heads={nh}, hidden={hidden}"
@@ -242,8 +268,7 @@ def block_route(ws: int, c: int, heads: int, hidden: int, qkv_bias: bool = True)
     the heads do not divide C (the JAX block fails there too)."""
     if c % heads:
         raise ValueError(f"swin block: {heads} heads do not divide C={c}")
-    if (ws in KERNEL_WINDOWS and qkv_bias and c <= CP and c // heads <= HDP
-            and heads <= MAX_HEADS and hidden <= HIDP):
+    if ws in KERNEL_WINDOWS and qkv_bias and _block_widths(c, heads, hidden):
         return "block"
     tail_rows(c)  # raises past the tail kernel's widths
     return "window_attention"
@@ -253,8 +278,24 @@ def k5w16_ok(ws: int, c: int, heads: int, hidden: int, qkv_bias: bool = True) ->
     """Whether a "window_attention"-route block of window `ws` trains
     through K5 at ws 16 (``WindowBlockFunction``): ws 16 within the block
     kernel's widths.  Shapes only, as ``block_route``."""
-    return (ws == BWD16_WINDOW and qkv_bias and c <= CP and c % heads == 0
-            and c // heads <= HDP and heads <= MAX_HEADS and hidden <= HIDP)
+    return ws == BWD16_WINDOW and qkv_bias and _block_widths(c, heads, hidden)
+
+
+def k5r_ok(ws: int, c: int, heads: int, hidden: int, qkv_bias: bool = True) -> bool:
+    """Whether a "window_attention"-route block of window `ws` trains
+    through K5r (``WindowBlockFunction``): ws 8 past the block kernel's
+    widths (so ``block_route`` sends it to the K7 route) within K5r's: C
+    <= 256, <= 8 heads of hd <= 32, hidden <= 512 (SwinIR-L: C 240, 8
+    heads, hidden 480).  Shapes only, as ``block_route``."""
+    return (ws == K5R_WINDOW and qkv_bias and not _block_widths(c, heads, hidden)
+            and _k5r_widths(c, heads, hidden))
+
+
+def tiled_bwd_ok(ws: int, c: int, heads: int, hidden: int, qkv_bias: bool = True) -> bool:
+    """Whether a K7-route block trains through ``WindowBlockFunction``
+    (backward K5w16 or K5r, ``csrc/swin_block_bwd16.cu``); the rest of
+    the route trains through autograd of its kernels' plain versions."""
+    return k5w16_ok(ws, c, heads, hidden, qkv_bias) or k5r_ok(ws, c, heads, hidden, qkv_bias)
 
 
 def check_block_args(shape: Sequence[int], w: SwinBlockWeights, ws: int, shift: int,
@@ -292,6 +333,45 @@ def check_differentiable(ws: int, extra: Optional[torch.Tensor], name: str) -> N
 
 
 @dataclasses.dataclass(frozen=True)
+class StreamLayout:
+    """The layout of ``pack_block_tiles``' weight stream for a block's
+    widths: padded width `cp`, padded head dim `hdp`, `kc` 64-column K
+    chunks of an A operand, `halves` N parts of `pw` rows of the proj and
+    fc2, `chunks` 64-column hidden chunks.  The block kernel (K1 / K6),
+    K5a and K5b read it."""
+
+    cp: int
+    hdp: int
+    kc: int
+    halves: int
+    chunks: int
+    pw: int
+
+
+@functools.lru_cache(maxsize=64)
+def stream_layout(c: int, heads: int, hidden: int) -> StreamLayout:
+    """The stream's layout from static shapes alone.  Within the block
+    kernel's widths (C <= 192, <= 6 heads of hd <= 32, hidden <= 384) its
+    instantiation's: hd padded to 16 or 32, the width to 96 where C and
+    the heads' padded dims fit, else 192, N parts of 96 rows.  Past them,
+    within K5r's (C <= 256, <= 8 heads of hd <= 32, hidden <= 512), K5r's:
+    width 256, hd 32, N parts of 128 rows.  Raises ValueError past
+    both."""
+    chunks = -(-hidden // BLOCK_HC)
+    if _block_widths(c, heads, hidden):
+        hdp = 16 if c // heads <= 16 else 32
+        cp = 96 if c <= 96 and heads * hdp <= 96 else 192
+        return StreamLayout(cp=cp, hdp=hdp, kc=-(-cp // 64), halves=cp // BLOCK_PW,
+                            chunks=chunks, pw=BLOCK_PW)
+    if _k5r_widths(c, heads, hidden):
+        return StreamLayout(cp=K5R_CP, hdp=HDP, kc=K5R_CP // 64, halves=K5R_CP // K5R_PW,
+                            chunks=chunks, pw=K5R_PW)
+    raise ValueError(f"swin_block kernel takes C <= {CP}, hd <= {HDP}, heads <= {MAX_HEADS}, "
+                     f"hidden <= {HIDP} (K5r's backward C <= {K5R_CP}, heads <= {K5R_HEADS}, "
+                     f"hidden <= {K5R_HIDDEN}); got C={c}, heads={heads}, hidden={hidden}")
+
+
+@dataclasses.dataclass(frozen=True)
 class BlockPlan:
     """How csrc/swin_block.cu runs a block's widths: the instantiation
     (padded width `cp`, 96 or 192; padded head dim `hdp`, 16 or 32),
@@ -311,25 +391,24 @@ class BlockPlan:
 @functools.lru_cache(maxsize=64)
 def block_plan(c: int, heads: int, hidden: int) -> BlockPlan:
     """The forward kernel's plan from static shapes alone (its C entry
-    only checks it): hd padded to 16 or 32; the width padded to 96 where
-    C and the heads' padded dims fit, else 192; a window's buffers (the
-    A operand, R: the attention output beside x, then x1 in fp32; the
-    head's k and v) twice, the bias table and the barriers, then as many
-    12 KB stages as fit, at most 8.  Raises ValueError outside the
-    kernel's widths (C <= 192, <= 6 heads of hd <= 32, hidden <= 384)."""
-    if c % heads or c > CP or heads > MAX_HEADS or c // heads > HDP or hidden > HIDP:
+    only checks it): the stream's layout (``stream_layout``); a window's
+    buffers (the A operand, R: the attention output beside x, then x1 in
+    fp32; the head's k and v) twice, the bias table and the barriers,
+    then as many 12 KB stages as fit, at most 8.  Raises ValueError
+    outside the kernel's widths (C <= 192, <= 6 heads of hd <= 32,
+    hidden <= 384)."""
+    if not _block_widths(c, heads, hidden):
         raise ValueError(f"swin_block kernel takes C <= {CP}, hd <= {HDP}, heads <= "
                          f"{MAX_HEADS}, hidden <= {HIDP}; got C={c}, heads={heads}, "
                          f"hidden={hidden}")
-    hdp = 16 if c // heads <= 16 else 32
-    cp = 96 if c <= 96 and heads * hdp <= 96 else 192
-    kc = -(-cp // 64)
+    lay = stream_layout(c, heads, hidden)
+    cp, hdp, kc = lay.cp, lay.hdp, lay.kc
     a_bytes = kc * 8192
     r_bytes = -(-max(a_bytes + 128 * cp, 256 * cp) // 1024) * 1024
     fixed = (1024 + 2 * (a_bytes + r_bytes + 2 * 64 * 2 * hdp) + BLOCK_TABLE_BYTES
              + 2 * BLOCK_MAX_STAGES * 8)
     stages = min(BLOCK_MAX_STAGES, (BLOCK_SMEM - fixed) // BLOCK_STAGE_BYTES)
-    return BlockPlan(cp=cp, hdp=hdp, kc=kc, halves=cp // 96, chunks=-(-hidden // BLOCK_HC),
+    return BlockPlan(cp=cp, hdp=hdp, kc=kc, halves=lay.halves, chunks=lay.chunks,
                      stages=stages, smem=fixed + stages * BLOCK_STAGE_BYTES)
 
 
@@ -339,12 +418,13 @@ class PackedBlockTiles:
     weight stream of [N, 64] K-major tiles, each 128B-swizzled (16-byte
     chunk j of row n at j ^ (n % 8)), in the order the consumers take
     them: per head, its q, k, v rows (N 3 hdp, q pre-scaled) per
-    64-column K chunk; the proj per 96-column N half per K chunk (its
+    64-column K chunk; the proj per N part of `layout.pw` rows per K chunk (its
     input columns head-padded, h hdp + d); per 64-column hidden chunk,
-    fc1's K chunks then fc2's N halves; zero past the widths.  fp32
+    fc1's K chunks then fc2's N parts; zero past the widths.  fp32
     biases (`bqkv` [nH, 3, hdp], `bproj` and `bfc2` [cp], `bfc1` [chunks
     64]), fp32 LN params, and `table`, the relative-position table
-    transposed to [nH, (2ws-1)^2]."""
+    transposed to [nH, (2ws-1)^2]; `layout` the stream's
+    (``stream_layout``)."""
 
     tiles: torch.Tensor
     bqkv: torch.Tensor
@@ -360,7 +440,7 @@ class PackedBlockTiles:
     num_heads: int
     hidden: int
     window_size: int
-    plan: BlockPlan
+    layout: StreamLayout
 
 
 @functools.lru_cache(maxsize=64)
@@ -373,9 +453,9 @@ def _tile_indices(c: int, heads: int, hidden: int, device: torch.device):
     block on every step)."""
     from tpu_superresolution_torch.kernels.cab_conv import _swizzle_rows
 
-    plan = block_plan(c, heads, hidden)
-    hd, hdp, kc, halves, chunks = c // heads, plan.hdp, plan.kc, plan.halves, plan.chunks
-    k, n_out, hid = kc * 64, plan.cp, chunks * BLOCK_HC
+    lay = stream_layout(c, heads, hidden)
+    hd, hdp, kc, halves, chunks = c // heads, lay.hdp, lay.kc, lay.halves, lay.chunks
+    k, n_out, hid, pw = kc * 64, lay.cp, chunks * BLOCK_HC, lay.pw
     zero = 4 * c * c + 2 * hidden * c
     pad = lambda t, p, z=zero: F.pad(t, p, value=z)
     at = lambda n, start: torch.arange(start, start + n)
@@ -383,12 +463,12 @@ def _tile_indices(c: int, heads: int, hidden: int, device: torch.device):
     qkv = wq.reshape(heads, 3 * hdp, kc, 64).transpose(1, 2)  # [heads, kc, 3 hdp, 64]
     wp = pad(at(c * c, 3 * c * c).reshape(c, heads, hd), (0, hdp - hd)).reshape(c, heads * hdp)
     wp = pad(wp, (0, k - heads * hdp, 0, n_out - c))
-    proj = wp.reshape(halves, 96, kc, 64).transpose(1, 2)  # [halves, kc, 96, 64]
+    proj = wp.reshape(halves, pw, kc, 64).transpose(1, 2)  # [halves, kc, pw, 64]
     w1 = pad(at(hidden * c, 4 * c * c).reshape(hidden, c), (0, k - c, 0, hid - hidden))
     fc1 = w1.reshape(chunks, BLOCK_HC, kc, 64).transpose(1, 2)  # [chunks, kc, 64, 64]
     w2 = pad(at(c * hidden, 4 * c * c + hidden * c).reshape(c, hidden),
              (0, hid - hidden, 0, n_out - c))
-    fc2 = w2.reshape(halves, 96, chunks, 64).permute(2, 0, 1, 3)  # [chunks, halves, 96, 64]
+    fc2 = w2.reshape(halves, pw, chunks, 64).permute(2, 0, 1, 3)  # [chunks, halves, pw, 64]
     per_chunk = lambda t: _swizzle_rows(t).reshape(chunks, -1)
     tiles = torch.cat([_swizzle_rows(qkv).reshape(-1), _swizzle_rows(proj).reshape(-1),
                        torch.cat([per_chunk(fc1), per_chunk(fc2)], dim=1).reshape(-1)])
@@ -409,10 +489,12 @@ def pack_block_tiles(w: SwinBlockWeights, dtype: torch.dtype = torch.bfloat16
     weights at inference (``SwinBlock``'s cache), once per step in
     training (two gathers from the flat weights and biases).  `dtype`
     float32 keeps the weights unrounded (the CPU tests' emulation of the
-    kernel)."""
-    _check_widths(w)
+    kernel).  Takes the block kernel's widths and K5r's
+    (``stream_layout``)."""
+    if w.bqkv is None:
+        raise ValueError("swin_block kernels take qkv_bias=True only")
     c, nh, hidden = w.dim, w.num_heads, int(w.wfc1.shape[0])
-    plan = block_plan(c, nh, hidden)
+    lay = stream_layout(c, nh, hidden)
     dev = w.wqkv.device
     tile_idx, bias_idx, q_scale = _tile_indices(c, nh, hidden, dev)
     f = lambda t: t.detach().float()
@@ -421,13 +503,13 @@ def pack_block_tiles(w: SwinBlockWeights, dtype: torch.dtype = torch.bfloat16
                      f(w.wfc1).reshape(-1), f(w.wfc2).reshape(-1), zero])
     bsrc = torch.cat([f(w.bqkv) * q_scale[:, 0], f(w.bproj), f(w.bfc1), f(w.bfc2), zero])
     bias = bsrc[bias_idx]
-    n_q, n_out, hid = nh * 3 * plan.hdp, plan.cp, plan.chunks * BLOCK_HC
+    n_q, n_out, hid = nh * 3 * lay.hdp, lay.cp, lay.chunks * BLOCK_HC
     return PackedBlockTiles(
         tiles=src.to(dtype)[tile_idx], bqkv=bias[:n_q], bproj=bias[n_q:n_q + n_out],
         bfc1=bias[n_q + n_out:n_q + n_out + hid], bfc2=bias[n_q + n_out + hid:],
         g1=f(w.g1).contiguous(), b1=f(w.b1).contiguous(), g2=f(w.g2).contiguous(),
         b2=f(w.b2).contiguous(), table=f(w.table).t().contiguous(), dim=c, num_heads=nh,
-        hidden=hidden, window_size=w.window_size, plan=plan)
+        hidden=hidden, window_size=w.window_size, layout=lay)
 
 
 def gelu(x: torch.Tensor, approximate: bool) -> torch.Tensor:
@@ -948,9 +1030,9 @@ def _check_tiles(packed: PackedBlockTiles, x: torch.Tensor, scales, name: str,
     if packed.dim != c:
         raise ValueError(f"{name}: weights for C={packed.dim}, x has C={c}")
     dev = x.device
-    plan = packed.plan
-    n_tiles = (packed.num_heads * plan.kc * 3 * plan.hdp + plan.halves * plan.kc * 96
-               + plan.chunks * (plan.kc * BLOCK_HC + plan.halves * 96)) * 64
+    plan = packed.layout
+    n_tiles = (packed.num_heads * plan.kc * 3 * plan.hdp + plan.halves * plan.kc * plan.pw
+               + plan.chunks * (plan.kc * BLOCK_HC + plan.halves * plan.pw)) * 64
     bf, f32 = torch.bfloat16, torch.float32
     # the tiles go by bulk copies (16-byte aligned), the biases as float2
     for tname, t, shape, dtype, align in (
@@ -987,7 +1069,7 @@ def _launch_block(x, packed: PackedBlockTiles, shift, mask, gelu_approx, scales,
     whether the windows are masked."""
     _check_tiles(packed, x, scales, "fused_windows_block", extra)
     b, h, wd, c = x.shape
-    ws, plan = packed.window_size, packed.plan
+    ws, plan = packed.window_size, block_plan(c, packed.num_heads, packed.hidden)
     shifted = mask is not None and shift > 0
     codes = window_codes_tensor(h, wd, ws, shift if shifted else 0, x.device)
     y = torch.empty_like(x)
@@ -1039,7 +1121,6 @@ def split_wgrad(wgrad: torch.Tensor, shapes) -> dict:
 # csrc/swin_block_bwd.cu (K5 / K6b): the per-window kernel's (K5a) consumer
 # warpgroups, ring stage, workspace tiles, and the weight-gradient GEMM's
 # (K5b) CTAs of 64 x <= 192 output tiles, two an SM
-BWD_STAGE_BYTES = 12288
 BWD_MAX_STAGES = 8
 BWD_STAT_BYTES = 1024
 BWD_TILE = 64 * 64    # a workspace tile: [64 tokens, 64] bf16, 128B-swizzled
@@ -1052,8 +1133,9 @@ BWD_OPERANDS = ("yc", "o", "y2c", "act", "dqkv", "dattn", "dh1", "dmlp")
 @dataclasses.dataclass(frozen=True)
 class BwdPlan:
     """How csrc/swin_block_bwd.cu runs a block's widths: the forward's
-    instantiation (`cp`, `hdp`, `kc`, `halves`, `chunks` as
-    ``block_plan``), K5a's ring `stages` and shared memory `smem` a CTA
+    stream's layout (`cp`, `hdp`, `kc`, `halves`, `chunks`, `pw` as
+    ``stream_layout``), K5a's ring `stages` of `pw` x 128 bytes and shared
+    memory `smem` a CTA
     (two windows: the A buffer, the R buffer, the head's q, k, v tiles
     and the softmax statistics each; the bias table, the barriers),
     `op_tiles` the [64, 64] workspace tiles a window of each of
@@ -1075,6 +1157,7 @@ class BwdPlan:
     bias_len: int
     stream_len: int
     units: int
+    pw: int
 
     @property
     def window_bytes(self) -> int:
@@ -1085,29 +1168,31 @@ class BwdPlan:
 @functools.lru_cache(maxsize=64)
 def bwd_plan(c: int, heads: int, hidden: int) -> BwdPlan:
     """The backward kernels' plan from static shapes alone (the C entry
-    only checks it): the forward's padded widths (``block_plan``), then
+    only checks it): the stream's padded widths (``stream_layout``), then
     two windows' buffers (A and R buffers of cp columns in 64-column
     swizzled chunks, q, k, v tiles [64, hdp], 1 KB of statistics), the
-    bias table and the barriers, and as many 12 KB ring stages as fit,
-    at most 8.  Raises ValueError outside C <= 192, <= 6 heads of hd <=
-    32, hidden <= 384."""
-    fp = block_plan(c, heads, hidden)
-    cp, hdp, kc, halves, chunks = fp.cp, fp.hdp, fp.kc, fp.halves, fp.chunks
+    bias table and the barriers, and as many ring stages (a [pw, 64] tile
+    each: 12 KB, 16 KB at K5r's widths) as fit, at most 8.  Raises
+    ValueError past K5r's widths (C <= 256, <= 8 heads of hd <= 32,
+    hidden <= 512)."""
+    lay = stream_layout(c, heads, hidden)
+    cp, hdp, kc, halves, chunks, pw = lay.cp, lay.hdp, lay.kc, lay.halves, lay.chunks, lay.pw
     window = 2 * kc * 8192 + 3 * 64 * 2 * hdp + BWD_STAT_BYTES
     fixed = 1024 + 2 * window + BLOCK_TABLE_BYTES + 2 * BWD_MAX_STAGES * 8
-    stages = min(BWD_MAX_STAGES, (BLOCK_SMEM - fixed) // BWD_STAGE_BYTES)
+    stage = pw * 128
+    stages = min(BWD_MAX_STAGES, (BLOCK_SMEM - fixed) // stage)
     q3 = 3 * hdp
     qt = -(-heads * q3 // 64)
     op_tiles = (kc, kc, kc, chunks, qt, kc, chunks, kc)
     bias_len = heads * q3 + 2 * cp + chunks * BLOCK_HC
-    stream_len = (heads * kc * q3 * 64 + halves * kc * 96 * 64
-                  + chunks * (kc * 64 * 64 + halves * 96 * 64))
+    stream_len = (heads * kc * q3 * 64 + halves * kc * pw * 64
+                  + chunks * (kc * 64 * 64 + halves * pw * 64))
     groups = lambda n: -(-n // BWD_WG_NTILES)
     units = qt * groups(kc) + kc * groups(kc) + chunks * groups(kc) + kc * groups(chunks)
     return BwdPlan(cp=cp, hdp=hdp, kc=kc, halves=halves, chunks=chunks, stages=stages,
-                   smem=fixed + stages * BWD_STAGE_BYTES, op_tiles=op_tiles,
+                   smem=fixed + stages * stage, op_tiles=op_tiles,
                    vec_len=bias_len + 4 * cp, bias_len=bias_len, stream_len=stream_len,
-                   units=units)
+                   units=units, pw=pw)
 
 
 def bwd_grid(plan: BwdPlan, windows: int, sms: int) -> Tuple[int, int]:
@@ -1245,17 +1330,19 @@ def fused_swin_block_backward(ct: torch.Tensor, x: torch.Tensor, w: SwinBlockWei
                               packed=None,
                               extra: Optional[torch.Tensor] = None) -> SwinBlockGrads:
     """The backward of one Swin block for the cotangent `ct` (K5 at ws 8,
-    K6b at ws 7, K5w16 at ws 16; d`extra` when the forward had `extra`).
-    CPU tensors -> plain version; CUDA tensors -> the kernel (bf16 ct, x
-    and extra, fp32 branch scales), gradients in raw weight space.
-    `packed`: the forward's ``pack_block_tiles(w)`` (built here when
-    None)."""
+    K6b at ws 7, K5w16 at ws 16, K5r at ws 8 past the block kernel's
+    widths; d`extra` when the forward had `extra`).  CPU tensors -> plain
+    version; CUDA tensors -> the kernel (bf16 ct, x and extra, fp32
+    branch scales), gradients in raw weight space.  `packed`: the
+    forward's ``pack_block_tiles(w)`` (built here when None)."""
     if x.device.type == "cpu":
         return swin_block_bwd_plain(ct, x, w, ws, shift, mask, gelu_approx, branch_scales, extra)
     name = "fused_swin_block_backward"
-    if ws == BWD16_WINDOW:
+    tiled = ws == BWD16_WINDOW or k5r_ok(ws, w.dim, w.num_heads, int(w.wfc1.shape[0]),
+                                         w.bqkv is not None)
+    if tiled:
         _lib.require_cuda(x, name)
-        check_k5w16_args(tuple(x.shape), w, shift, name)
+        check_tiled_bwd_args(tuple(x.shape), w, ws, shift, name)
         _lib.check_tensor(x, "x", torch.bfloat16, x.device, ndim=4, align=2)
     else:
         _check_block_input(x, w, ws, shift, name)
@@ -1264,44 +1351,53 @@ def fused_swin_block_backward(ct: torch.Tensor, x: torch.Tensor, w: SwinBlockWei
     if extra is not None:
         extra = extra.contiguous()
     packed = packed if packed is not None else pack_block_tiles(w)
-    launch = _launch_bwd16 if ws == BWD16_WINDOW else _launch_bwd
+    launch = _launch_bwd_tiled if tiled else _launch_bwd
     dx, g, dextra = launch(ct.contiguous(), x, packed, shift, mask, gelu_approx, branch_scales,
                            extra)
     return SwinBlockGrads(dx=dx, extra=dextra, **g)
 
 
-def check_k5w16_args(shape: Sequence[int], w: SwinBlockWeights, shift: int, name: str) -> None:
-    """Raise unless an x of `shape` [B, H, W, C] with `shift` and the
-    weights `w` fit K5w16 (shapes only, so it runs on any device)."""
-    ws = BWD16_WINDOW
+def check_tiled_bwd_args(shape: Sequence[int], w: SwinBlockWeights, ws: int, shift: int,
+                         name: str) -> None:
+    """Raise unless an x of `shape` [B, H, W, C] with window `ws`,
+    `shift` and the weights `w` fit K5w16 (ws 16, ``k5w16_ok``) or K5r
+    (ws 8, ``k5r_ok``); shapes only, so it runs on any device."""
+    kernel = {BWD16_WINDOW: "K5w16", K5R_WINDOW: "K5r"}.get(ws)
+    if kernel is None:
+        raise ValueError(f"{name}: no tiled block backward at ws={ws}")
     if len(shape) != 4 or shape[1] % ws or shape[2] % ws or not 0 <= shift < ws:
-        raise ValueError(f"{name}: K5w16 takes x [B, H, W, C] of whole {ws} x {ws} windows and "
-                         f"a shift in [0, {ws}); got {tuple(shape)}, shift {shift}")
+        raise ValueError(f"{name}: {kernel} takes x [B, H, W, C] of whole {ws} x {ws} windows "
+                         f"and a shift in [0, {ws}); got {tuple(shape)}, shift {shift}")
     if w.window_size != ws or shape[3] != w.dim:
         raise ValueError(f"{name}: weights for C={w.dim}, ws={w.window_size}; x {tuple(shape)} "
                          f"at ws={ws}")
-    _check_widths(w)
+    ok = k5w16_ok if ws == BWD16_WINDOW else k5r_ok
+    if not ok(ws, w.dim, w.num_heads, int(w.wfc1.shape[0]), w.bqkv is not None):
+        raise ValueError(f"{name}: {kernel} does not take C={w.dim}, heads={w.num_heads}, "
+                         f"hidden={int(w.wfc1.shape[0])}, qkv_bias={w.bqkv is not None}")
 
 
-# csrc/swin_block_bwd16.cu (K5w16): a window's tokens; the attention
-# kernels' bias table of one head, their row statistics a (window, head)
-# unit (row max, 1 / sum, rowsum(do o)), barriers
-BWD16_TOKENS = 256
+# csrc/swin_block_bwd16.cu (K5w16, K5r): the attention kernels' bias table
+# of one head, and the windows of a stage: one 256-token window at ws 16,
+# four 64-token windows at ws 8 (a consumer warpgroup's query tiles
+# either way: two)
 BWD16_TABLE_BYTES = 4096
-BWD16_STAT_BYTES = 3 * BWD16_TOKENS * 4
+TILED_WINDOWS_A_STAGE = {16: 1, 8: 4}
+TILED_COUNTERS = {16: launches_bwd_w16, 8: launches_bwd_r}
 
 
 @dataclasses.dataclass(frozen=True)
-class Bwd16Plan:
-    """How csrc/swin_block_bwd16.cu runs a ws-16 block backward over
-    `windows` windows: `block`, K5a's plan (``bwd_plan``), whose three
-    token-local launches take the windows' `units` 64-token tiles on
-    `grid` CTAs; K5b's `splits` over the units; the attention kernels'
-    `cph` CTAs a head, walking `att_units` (window, head) units in
-    `rounds` rounds, the last on `tail_ctas` CTAs; their shared memory a
-    CTA (`att_fwd_smem`, `att_bwd_smem`: two stages of the unit's [256,
-    hdp] head tiles, the backward's with do and the row statistics, one
-    head's bias table)."""
+class TiledBwdPlan:
+    """How csrc/swin_block_bwd16.cu runs a tiled block backward (K5w16 at
+    ws 16, K5r at ws 8) over `windows` windows: `block`, K5a's plan
+    (``bwd_plan``), whose three token-local launches take the windows'
+    `units` 64-token tiles on `grid` CTAs; K5b's `splits` over the units;
+    the attention kernels' `cph` CTAs a head, walking `groups` stages of
+    `wps` windows (one at ws 16, four at ws 8; `att_units` (window, head)
+    units in all) in `rounds` rounds, the last on `tail_ctas` CTAs; their
+    shared memory a CTA (`att_fwd_smem`, `att_bwd_smem`: two stages of the
+    windows' [ws^2, hdp] head tiles, the backward's with do and the row
+    statistics, one head's bias table)."""
 
     block: BwdPlan
     windows: int
@@ -1314,55 +1410,87 @@ class Bwd16Plan:
     tail_ctas: int
     att_fwd_smem: int
     att_bwd_smem: int
+    ws: int
+    wps: int
+    groups: int
+
+
+def _tiled_plan(ws: int, c: int, heads: int, hidden: int, windows: int, sms: int) -> TiledBwdPlan:
+    plan = bwd_plan(c, heads, hidden)
+    n = ws * ws
+    wps = TILED_WINDOWS_A_STAGE[ws]
+    units = n // 64 * windows
+    grid, splits = bwd_grid(plan, units, sms)
+    groups = -(-windows // wps)
+    cph = max(1, min(groups, sms // heads))
+    rounds = -(-groups // cph)
+    tile = n * 2 * plan.hdp
+    smem = lambda stage: 1024 + 2 * stage + BWD16_TABLE_BYTES + 4 * 8
+    return TiledBwdPlan(block=plan, windows=windows, units=units, grid=grid, splits=splits, cph=cph,
+                     att_units=windows * heads, rounds=rounds,
+                     tail_ctas=heads * (groups - (rounds - 1) * cph),
+                     att_fwd_smem=smem(wps * 3 * tile),
+                     att_bwd_smem=smem(wps * (4 * tile + 3 * n * 4)), ws=ws, wps=wps,
+                     groups=groups)
 
 
 @functools.lru_cache(maxsize=64)
-def bwd16_plan(c: int, heads: int, hidden: int, windows: int, sms: int) -> Bwd16Plan:
+def bwd16_plan(c: int, heads: int, hidden: int, windows: int, sms: int) -> TiledBwdPlan:
     """K5w16's plan from static shapes alone (the C entry only checks
     it).  Raises ValueError outside ``k5w16_ok``'s widths (C <= 192, <= 6
     heads of hd <= 32, hidden <= 384)."""
     if not k5w16_ok(BWD16_WINDOW, c, heads, hidden):
         raise ValueError(f"K5w16 takes C <= {CP}, <= {MAX_HEADS} heads of hd <= {HDP}, hidden "
                          f"<= {HIDP}; got C={c}, heads={heads}, hidden={hidden}")
-    plan = bwd_plan(c, heads, hidden)
-    units = 4 * windows
-    grid, splits = bwd_grid(plan, units, sms)
-    cph = max(1, min(windows, sms // heads))
-    rounds = -(-windows // cph)
-    tile = BWD16_TOKENS * 2 * plan.hdp
-    smem = lambda stage: 1024 + 2 * stage + BWD16_TABLE_BYTES + 4 * 8
-    return Bwd16Plan(block=plan, windows=windows, units=units, grid=grid, splits=splits, cph=cph,
-                     att_units=windows * heads, rounds=rounds,
-                     tail_ctas=heads * (windows - (rounds - 1) * cph),
-                     att_fwd_smem=smem(3 * tile), att_bwd_smem=smem(4 * tile + BWD16_STAT_BYTES))
+    return _tiled_plan(BWD16_WINDOW, c, heads, hidden, windows, sms)
 
 
-def bwd16_bytes(p: Bwd16Plan, heads: int) -> dict:
-    """Bytes of each buffer K5w16 allocates: the dW workspace of the
-    units, the head tiles (q, k, v, do), dx1's per-tile scratch, the row
-    statistics and row term, the LayerNorm sums' partials (the middle's
-    and the tail's), the per-CTA d(rpb) partials and K5b's splits'."""
-    plan, n = p.block, BWD16_TOKENS
+@functools.lru_cache(maxsize=64)
+def k5r_plan(c: int, heads: int, hidden: int, windows: int, sms: int) -> TiledBwdPlan:
+    """K5r's plan from static shapes alone (the C entry only checks it):
+    K5a's ws-8 modes at cp 256 / hdp 32 over a unit a window, the
+    attention over stages of four windows.  Raises ValueError outside
+    ``k5r_ok``'s widths (past the block kernel's, C <= 256, <= 8 heads of
+    hd <= 32, hidden <= 512)."""
+    if not k5r_ok(K5R_WINDOW, c, heads, hidden):
+        raise ValueError(f"K5r takes ws-8 blocks past the block kernel's widths with C <= "
+                         f"{K5R_CP}, <= {K5R_HEADS} heads of hd <= {HDP}, hidden <= "
+                         f"{K5R_HIDDEN}; got C={c}, heads={heads}, hidden={hidden}")
+    return _tiled_plan(K5R_WINDOW, c, heads, hidden, windows, sms)
+
+
+def tiled_bwd_bytes(p: TiledBwdPlan, heads: int) -> dict:
+    """Bytes of each buffer K5w16 / K5r allocates: the dW workspace of
+    the units, the head tiles (q, k, v, do), x1's and dx1's per-tile
+    scratch (a slice more where the units are odd: the last pair's idle
+    twin recomputes into a slice of its own), the row statistics and row term, the LayerNorm sums' partials (the
+    middle's and the tail's), the d(rpb) partials (a CTA's [256, 256] a
+    head at ws 16, a consumer warpgroup's [64, 64] a head at ws 8) and
+    K5b's splits'."""
+    plan, n = p.block, p.ws * p.ws
+    rpb_rows = p.cph if n > N_TOK else 2 * p.cph
     return {"workspace": p.units * plan.window_bytes,
             "head tiles": p.windows * heads * 4 * n * plan.hdp * 2,
-            "dx1 scratch": p.units * 64 * plan.cp * 4,
+            "dx1 scratch": (p.units + p.units % 2) * 64 * plan.cp * 4,
             "row statistics": p.windows * heads * 3 * n * 4,
             "LN sums partials": 2 * p.grid * 2 * 4 * 4 * plan.cp * 4,
-            "rpb partials": p.cph * heads * n * n * 4,
+            "rpb partials": rpb_rows * heads * n * n * 4,
             "weight partials": p.splits * (plan.stream_len + plan.bias_len) * 4}
 
 
-def _launch_bwd16(ct, x, packed: PackedBlockTiles, shift, mask, gelu_approx, scales, extra=None):
-    """The block backward at ws 16 on the forward's weight stream: K5a's
-    front, the attention forward, K5a's middle, the attention backward,
-    K5a's tail, K5b and K5c on ``bwd16_plan``'s plan.  Returns (dx,
-    raw-space fp32 gradients, d extra or None); counts one K5w16 launch.
+def _launch_bwd_tiled(ct, x, packed: PackedBlockTiles, shift, mask, gelu_approx, scales,
+                      extra=None):
+    """The tiled block backward on the forward's weight stream (K5w16 at
+    ws 16, K5r at ws 8, by packed.window_size): K5a's front, the attention
+    forward, K5a's middle, the attention backward, K5a's tail, K5b and K5c
+    on ``bwd16_plan`` / ``k5r_plan``'s plan.  Returns (dx, raw-space fp32
+    gradients, d extra or None); counts one launch on its counter.
     `mask` (``shift_attn_mask``'s) says only whether the windows are
     masked: the bias and the mask come from the table and the codes."""
     name = "fused_swin_block_backward"
-    ws = BWD16_WINDOW
-    if packed.window_size != ws:
-        raise ValueError(f"{name}: weights packed for ws={packed.window_size}, K5w16 runs ws={ws}")
+    ws = packed.window_size
+    if ws not in TILED_COUNTERS:
+        raise ValueError(f"{name}: weights packed for ws={ws}, the tiled backward runs ws 8 / 16")
     _check_tiles(packed, x, scales, name, extra)
     _lib.check_tensor(ct, "ct", torch.bfloat16, x.device, shape=tuple(x.shape),
                       align=4 if x.shape[3] % 2 == 0 else 2)
@@ -1370,13 +1498,14 @@ def _launch_bwd16(ct, x, packed: PackedBlockTiles, shift, mask, gelu_approx, sca
     nh, hidden = packed.num_heads, packed.hidden
     windows = b * (h // ws) * (wd // ws)
     dev = x.device
-    p = bwd16_plan(c, nh, hidden, windows, _lib.sm_count(dev.index))
-    plan, n = p.block, BWD16_TOKENS
+    plan_of = bwd16_plan if ws == BWD16_WINDOW else k5r_plan
+    p = plan_of(c, nh, hidden, windows, _lib.sm_count(dev.index))
+    plan, n = p.block, ws * ws
     shifted = mask is not None and shift > 0
     codes = window_codes_tensor(h, wd, ws, shift if shifted else 0, dev)
     dx = torch.empty_like(x)
     dextra = None if extra is None else torch.empty_like(x)
-    sizes = bwd16_bytes(p, nh)
+    sizes = tiled_bwd_bytes(p, nh)
     up = lambda v, m: -(-v // m) * m  # 16-byte aligned pieces
     lens = [up(v, 8) for v in (sizes["workspace"] // 2, windows * nh * 3 * n * plan.hdp,
                                windows * nh * n * plan.hdp)]
@@ -1389,10 +1518,11 @@ def _launch_bwd16(ct, x, packed: PackedBlockTiles, shift, mask, gelu_approx, sca
         sum(lens), dtype=torch.float32, device=dev).split(lens)
     gv, rpb = gv[:plan.stream_len + plan.vec_len], rpb[:nh * n * n]
     wgrad, vec = gv[:plan.stream_len], gv[plan.stream_len:]
-    geo = (ctypes.c_int * 15)(b, h, wd, c, nh, hidden, shift, int(shifted), plan.cp, plan.hdp,
-                              plan.stages, int(bool(gelu_approx)), p.grid, p.splits, p.cph)
+    geo = (ctypes.c_int * 16)(b, h, wd, c, nh, hidden, ws, shift, int(shifted), plan.cp,
+                              plan.hdp, plan.stages, int(bool(gelu_approx)), p.grid, p.splits,
+                              p.cph)
     status = _lib.call(
-        x, _lib.library().sr_swin_block_bwd16_bf16,
+        x, _lib.library().sr_swin_block_bwd_tiled_bf16,
         ct.data_ptr(), x.data_ptr(), _ptr(extra), dx.data_ptr(), _ptr(dextra),
         packed.tiles.data_ptr(), packed.bqkv.data_ptr(), packed.bproj.data_ptr(),
         packed.bfc1.data_ptr(), packed.bfc2.data_ptr(), packed.g1.data_ptr(),
@@ -1401,8 +1531,8 @@ def _launch_bwd16(ct, x, packed: PackedBlockTiles, shift, mask, gelu_approx, sca
         qkvh.data_ptr(), doh.data_ptr(), x1ws.data_ptr(), pvec.data_ptr(), stat.data_ptr(),
         drow.data_ptr(), prpb.data_ptr(), pw.data_ptr(), vec.data_ptr(), rpb.data_ptr(),
         wgrad.data_ptr(), geo, LN_EPS, _lib.stream_of(x))
-    _lib.check_status(status, "sr_swin_block_bwd16_bf16")
-    launches_bwd_w16.count += 1
+    _lib.check_status(status, "sr_swin_block_bwd_tiled_bf16")
+    TILED_COUNTERS[ws].count += 1
     return dx, fold_block_grads(gv, rpb, c, nh, hidden, ws), dextra
 
 
@@ -1467,11 +1597,12 @@ def fused_windows_block(x: torch.Tensor, w: SwinBlockWeights, ws: int, shift: in
 
 
 class WindowBlockFunction(torch.autograd.Function):
-    """A K7-route block at ws 16 on CUDA: forward `route(x, w, scales,
-    extra)` (the route's K2, gathers, K7 and K1t, run with no graph),
-    backward K5w16 (``_launch_bwd16``).  Inputs as
-    ``SwinBlockFunction``'s; the backward packs the weights once
-    (``pack_block_tiles``: K5w16 reads the block kernel's stream)."""
+    """A K7-route block that ``tiled_bwd_ok`` takes, on CUDA: forward
+    `route(x, w, scales, extra)` (the route's K2, gathers, K7 and K1t, run
+    with no graph), backward K5w16 (ws 16) or K5r (ws 8)
+    (``_launch_bwd_tiled``).  Inputs as ``SwinBlockFunction``'s; the
+    backward packs the weights once (``pack_block_tiles``: both read the
+    block kernel's stream)."""
 
     @staticmethod
     def forward(ctx, x, scales, extra, meta, *params):
@@ -1487,28 +1618,28 @@ class WindowBlockFunction(torch.autograd.Function):
         shift, mask, gelu_approx, num_heads, table = ctx.block
         raw = dict(zip(GRAD_FIELDS[:-1], params))
         packed = pack_block_tiles(SwinBlockWeights(table=table, num_heads=num_heads, **raw))
-        dx, grads, dextra = _launch_bwd16(ct.to(x.dtype).contiguous(), x, packed, shift, mask,
-                                          gelu_approx, scales, extra)
+        dx, grads, dextra = _launch_bwd_tiled(ct.to(x.dtype).contiguous(), x, packed, shift,
+                                              mask, gelu_approx, scales, extra)
         return (dx, None, dextra, None) + tuple(grads[k] for k in GRAD_FIELDS)
 
 
-def window_block_k5w16(x: torch.Tensor, w: SwinBlockWeights, shift: int,
+def window_block_tiled(x: torch.Tensor, w: SwinBlockWeights, ws: int, shift: int,
                        mask: Optional[torch.Tensor], gelu_approx: bool,
                        branch_scales: Optional[torch.Tensor], extra: Optional[torch.Tensor],
                        route: Callable) -> torch.Tensor:
-    """A K7-route block at ws 16 in training on CUDA (bf16 x and extra):
-    ``route(x, w, branch_scales, extra)`` forward, K5w16 backward, with
-    the gathered bias's gradient scattered to the table by the gather's
-    autograd."""
-    name = "window_block_k5w16"
+    """A K7-route block that ``tiled_bwd_ok`` takes, in training on CUDA
+    (bf16 x and extra): ``route(x, w, branch_scales, extra)`` forward,
+    K5w16 (ws 16) or K5r (ws 8) backward, with the gathered bias's
+    gradient scattered to the table by the gather's autograd."""
+    name = "window_block_tiled"
     _lib.require_cuda(x, name)
-    check_k5w16_args(tuple(x.shape), w, shift, name)
+    check_tiled_bwd_args(tuple(x.shape), w, ws, shift, name)
     x = x.contiguous()
     if branch_scales is not None:
         branch_scales = branch_scales.float().contiguous()
     if extra is not None:
         extra = extra.contiguous()
     params = [getattr(w, k) for k in GRAD_FIELDS[:-1]]
-    rpb = relative_position_bias(w.table, BWD16_WINDOW)
+    rpb = relative_position_bias(w.table, ws)
     meta = (route, shift, mask, gelu_approx, w.num_heads, w.table)
     return WindowBlockFunction.apply(x, branch_scales, extra, meta, *params, rpb)

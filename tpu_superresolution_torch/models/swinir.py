@@ -25,8 +25,9 @@ network_swinir.py:618-851).
 - Training: ``model.train()`` draws per-sample stochastic-depth branch
   scales for every block (linear decay to ``drop_path_rate``) from the
   generator given to ``forward``; on CUDA each block's backward is K5
-  (K6b at ws 7, K5w16 on the K7 route at ws 16) and the derived weights (K1 packing, conv layouts, the composed
-  reconstruction) are rebuilt inside the graph on every step.
+  (K6b at ws 7; on the K7 route K5w16 at ws 16 and K5r at ws 8, e.g.
+  SwinIR-L's C 240) and the derived weights (K1 packing, conv layouts,
+  the composed reconstruction) are rebuilt inside the graph on every step.
 """
 
 from __future__ import annotations
@@ -50,11 +51,11 @@ from tpu_superresolution_torch.kernels.fused_block import (
     block_route,
     fused_block_tail,
     fused_windows_block,
-    k5w16_ok,
     pack_block_tail,
     pack_block_tiles,
     swin_block_plain,
-    window_block_k5w16,
+    tiled_bwd_ok,
+    window_block_tiled,
 )
 from tpu_superresolution_torch.kernels.layernorm import layernorm
 from tpu_superresolution_torch.models.blocks import (
@@ -170,10 +171,11 @@ class SwinBlock(nn.Module):
         plain version on the CPU.  At inference on CUDA the kernels'
         weights (with the relative-position table) are packed once per
         loaded weights, and K7 takes the bias and mask as the table and
-        the map's token codes.  In training on CUDA a block that ``k5w16_ok`` takes
-        (ws 16) runs that composition forward and K5w16 backward
-        (``fused_block.window_block_k5w16``); elsewhere the backward is
-        autograd of the wrappers."""
+        the map's token codes.  In training on CUDA a block that
+        ``tiled_bwd_ok`` takes (ws 16 within the block kernel's widths; ws 8
+        past them, to C 256, 8 heads, hidden 512) runs that composition
+        forward and K5w16 / K5r backward (``fused_block.window_block_tiled``);
+        elsewhere the backward is autograd of the wrappers."""
         pa = pt = codes = None
         if x.is_cuda:
             def pack():
@@ -197,10 +199,10 @@ class SwinBlock(nn.Module):
                 tail=functools.partial(fused_block_tail, packed=pt))
 
         if (x.is_cuda and torch.is_grad_enabled()
-                and k5w16_ok(ws, wts.dim, wts.num_heads, int(wts.wfc1.shape[0]),
-                             wts.bqkv is not None)):
-            return window_block_k5w16(x, wts, shift, mask, self.gelu_approximate, branch_scales,
-                                      extra, route)
+                and tiled_bwd_ok(ws, wts.dim, wts.num_heads, int(wts.wfc1.shape[0]),
+                                 wts.bqkv is not None)):
+            return window_block_tiled(x, wts, ws, shift, mask, self.gelu_approximate,
+                                      branch_scales, extra, route)
         return route(x, wts, branch_scales, extra)
 
 
