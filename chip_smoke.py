@@ -89,8 +89,10 @@ Phases (a failure in any raises, and the script exits non-zero):
             `extra` and branch scales, timed alone and 20 calls back to
             back, its bytes moved by design, each of its seven launches
             timed (torch.profiler), two runs bit-identical; K8w16 and
-            K8bw16 (the OCAB core and its backward) on 128 windows of
-            256 queries x 576 keys, each within 8 bf16 ulps (outputs,
+            K8bw16 (the OCAB core and its backward, timed with the
+            gather from the qkv map and its backward, as the OCAB runs
+            them) on 128 windows of 256 queries x 576 keys (K8w16 also
+            on the serving batch's 400), each within 8 bf16 ulps (outputs,
             activation gradients) and 0.02 relative (parameter
             gradients);
 4. serve    SwinIR-M x4 (seeded random weights, exported to a .pth) behind
@@ -207,6 +209,7 @@ import math
 import statistics
 import subprocess
 import sys
+import types
 import tempfile
 import threading
 import time
@@ -359,12 +362,12 @@ SWINIR_L_PER_CALL = dict(PER_CALL, K1=0, K1t=54, K2=56, K3=24, K4=0, K7=54)
 # backward K5r (54; it recomputes LN1 and qkv in its own launches).
 SWINIR_L_TRAIN_PER_STEP = dict(SWINIR_L_PER_CALL, K5r=54)
 # Per HAT-SRx4 model call (window 16, depths 6x6; --no-exact): every HAB
-# takes the K7 route (K7 and K1t 36 each) and its CAB K12 (36); K15 per
-# OCAB (6); K2 for patch_norm, norm, each HAB's LN1 (36) and each OCAB's
-# two norms (12); K3 for the 6 RHAG convs, conv_after_body and
-# conv_before_upsample; K4 for the composed reconstruction; no block
-# kernel.
-HAT_SRX4_PER_CALL = dict(PER_CALL, K1=0, K1t=36, K2=50, K3=8, K4=1, K7=36, K12=36, K15=6)
+# takes the K7 route (K7 and K1t 36 each) and its CAB K12 (36); each OCAB
+# the fused route, K8w16 (6; models.hat.OCAB.takes_fused); K2 for
+# patch_norm, norm, each HAB's LN1 (36) and each OCAB's LN1 (6); K3 for
+# the 6 RHAG convs, conv_after_body and conv_before_upsample; K4 for the
+# composed reconstruction; no block kernel, no K15.
+HAT_SRX4_PER_CALL = dict(PER_CALL, K1=0, K1t=36, K2=44, K3=8, K4=1, K7=36, K8w16=6, K12=36)
 # Per DAT x4 model call (DATConfig(): depths 6x6, split (8, 16); --no-exact):
 # K9 per spatial block (18, 9 of them shifted), K14 per channel block
 # (18), K10 per block (36); K2 for before_RG and norm; K3 for the 6 group
@@ -543,19 +546,21 @@ def phase_build():
     # csrc/window_attn.cu and window_attn_stream.cu: K7's product and
     # attention; csrc/cab_fused.cu: K12; csrc/swin_block.cu: K1 / K6;
     # csrc/swin_block_bwd*.cu: K5a, K5w16's attention kernels;
+    # csrc/ocab16.cu: K8w16 / K8bw16's attention and gathers;
     # csrc/dat_common.cuh: K9 / K14's product and conv), with their
     # template arguments: registers, shared memory, spills
     kinds = ("conv_nhwc_wgmma_kernel", "conv_nhwc_halo_kernel", "window_product_kernel",
              "window_attn_stream_kernel", "cab_wgmma_kernel", "swin_block_wg_kernel",
              "datb_tail_wg_kernel", "swin_tail_wg_kernel", "swin_block_bwd_kernel", "attn16_kernel",
+             "ocab_attn_kernel", "ocab_heads_kernel", "ocab_heads_bwd_kernel",
              "front_product_kernel", "dat_conv_kernel")
     name = None
     for line in out.splitlines():
         if "Function properties for" in line:
             fn = line.split("Function properties for")[-1].strip()
             args = lambda k: fn.split(k + "I")[1].split("EEv")[0].split("E")
-            name = next((f"{k} <{','.join(t[2:] for t in args(k) if t)}>"
-                         for k in kinds if k + "I" in fn), None)
+            name = next((f"{k} <{','.join(t[2:] for t in args(k) if t)}>" if k + "I" in fn
+                         else k for k in kinds if k in fn), None)
         elif name and ("spill" in line or "Used" in line):
             log(f"[build] {name}: {line.strip()}")
             if "Used" in line:
@@ -1002,23 +1007,62 @@ def _random_ocab(gen, device, c=96, nh=6, hidden=384):
         wfc2=r(c, hidden, scale=hidden ** -0.5, bf=True), bfc2=r(c, scale=0.1), num_heads=nh)
 
 
-def _ocab_work(windows, nq, nk, c, nh, hidden, backward=False):
+def _ocab_work(windows, nq, nk, c, nh, hidden, backward=False, qkv_map=False):
     """(FLOPs, bytes) of K8 (or its backward) at the unpadded widths: per
     window QK^T and AV over nq x nk, proj, fc1 and fc2; the backward
     recomputes all but fc2 and does two products per forward one.
     Bytes: q, sw, k, v read once, the output written (the backward: ct
-    read, dq, dk, dv, dsw written), in bf16; weights in bf16, bias in
-    fp32 (and their fp32 gradients)."""
+    read, dq, dk, dv, dsw written), in bf16; with `qkv_map` (the map
+    entry) the qkv map and x in their place, each token once (the
+    backward: ct, qkv and x read, d qkv and dx written); weights in bf16,
+    bias in fp32 (and their fp32 gradients)."""
     fwd = {"qk": 2 * nq * nk * c, "av": 2 * nq * nk * c, "proj": 2 * nq * c * c,
            "fc1": 2 * nq * c * hidden, "fc2": 2 * nq * c * hidden}
     per = sum(fwd.values())
     weights, bias = c * c + 2 * c * hidden, nh * nq * nk
-    acts = (2 * nq + 2 * nk) * c * 2
+    acts = (4 * nq if qkv_map else 2 * nq + 2 * nk) * c * 2
     if not backward:
         return windows * per, windows * (acts + nq * c * 2) + weights * 2 + bias * 4
     per = per - fwd["fc2"] + 2 * per
     return (windows * per, windows * (2 * acts + nq * c * 2) + weights * (2 + 4)
             + bias * (4 + 4))
+
+
+def _ocab_map_windows(qkv, x):
+    """The window-layout operands of the OCAB's maps at (16, 24): q and
+    sw [BW, 256, C], k and v [BW, 576, C] (the zero border)."""
+    from tpu_superresolution_torch.ops.window import overlap_windows, window_partition
+
+    q, k, v = qkv.chunk(3, -1)
+    return (window_partition(q, 16), overlap_windows(k, 16, 24), overlap_windows(v, 16, 24),
+            window_partition(x, 16))
+
+
+def _ocab_map_plain(qkv, x, w, bias, gelu_approx):
+    """The plain version of the map entry (``fused_ocab_core_map``): the
+    window gathers, the plain core, the window reverse."""
+    from tpu_superresolution_torch.kernels.fused_ocab import ocab_core_plain
+    from tpu_superresolution_torch.ops.window import window_reverse
+
+    b, h, wd, _ = x.shape
+    return window_reverse(ocab_core_plain(*_ocab_map_windows(qkv, x), w, bias, gelu_approx), 16,
+                          h, wd)
+
+
+def _ocab_map_bwd_plain(ct, q, k, v, sw, w, bias, gelu_approx, shape):
+    """The plain version of the map entry's backward: the plain core's
+    backward on the window-layout operands, then dq, dk, dv into the qkv
+    map `shape` through the gathers' autograd and dsw to the map."""
+    import torch
+
+    from tpu_superresolution_torch.kernels.fused_ocab import ocab_core_bwd_plain
+    from tpu_superresolution_torch.ops.window import window_reverse
+
+    r = ocab_core_bwd_plain(ct, q, k, v, sw, w, bias, gelu_approx)
+    leaf = torch.zeros(shape, dtype=q.dtype, device=q.device, requires_grad=True)
+    dqkv, = torch.autograd.grad(_ocab_map_windows(leaf, leaf[..., :1])[:3], leaf,
+                                [r.dq, r.dk, r.dv])
+    return r, dqkv, window_reverse(r.dsw, 16, shape[1], shape[2])
 
 
 def phase_train_kernels(res):
@@ -1185,8 +1229,13 @@ def phase_w16_kernels(res):
     (``pack_block_tiles``), on dx, d extra and the 13 parameter gradients,
     each run twice for the same bits, timed alone and 20 calls back to
     back, with its bytes moved by design and each launch's time; K8w16
-    and K8bw16, the OCAB core and its backward, on the step's 128 windows
-    of 256 queries x 576 keys, C 180, hidden 360.  Each against its plain
+    and K8bw16, the OCAB core and its backward, as the OCAB calls them
+    (the map entry with its gather from the qkv map; the backward with
+    the gather's backward), on the step's 128 windows of 256 queries x
+    576 keys, C 180, hidden 360, and K8w16 on the serving batch's 400
+    windows, each run twice for the same bits, beside its launches alone,
+    with its bytes moved by design and each launch's time; then
+    OCAB16_ENVELOPE, the gathers and the serving route.  Each against its plain
     version in bf16 and fp32, within W16_ULPS bf16 ulps (outputs,
     activation gradients) and K5_REL_BOUND (parameter gradients), with
     times and bounds, into `res`."""
@@ -1199,7 +1248,7 @@ def phase_w16_kernels(res):
         pack_block_tiles,
         swin_block_bwd_plain,
     )
-    from tpu_superresolution_torch.ops.window import shift_mask_tensor
+    from tpu_superresolution_torch.ops.window import shift_mask_tensor, window_partition
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 7)
@@ -1237,28 +1286,402 @@ def phase_w16_kernels(res):
     windows, nq, nk = 128, 256, 576
     w = _random_ocab(gen, dev, c, nh, hidden)
     rnd = lambda *shape, sc=1.0: (sc * torch.randn(*shape, generator=gen)).to(dev, bf)
-    q, k, v, sw = rnd(windows, nq, c, sc=0.25), rnd(windows, nk, c), rnd(windows, nk, c), \
-        rnd(windows, nq, c)
     bias = (0.5 * torch.randn(nh, nq, nk, generator=gen)).to(dev)
-    ct = rnd(windows, nq, c, sc=0.1)
-    f32 = [t.float() for t in (q, k, v, sw)]
-    label = f"{windows} windows, {nq} queries x {nk} keys, C {c}, hidden {hidden}"
-    run = lambda: fused_ocab.fused_ocab_core(q, k, v, sw, w, bias, True)
-    plain = lambda: fused_ocab.ocab_core_plain(q, k, v, sw, w, bias, True)
-    out = run()
-    _compare(res, "K8w16", label, out, plain(), fused_ocab.ocab_core_plain(*f32, w, bias, True),
-             cuda_ms(run), cuda_ms(plain), _ocab_work(windows, nq, nk, c, nh, hidden))
-    runb = lambda: fused_ocab.fused_ocab_core_backward(ct, q, k, v, sw, w, bias, True)
-    plainb = lambda: fused_ocab.ocab_core_bwd_plain(ct, q, k, v, sw, w, bias, True)
-    got = runb()
-    ref16 = plainb()
-    ref32 = fused_ocab.ocab_core_bwd_plain(ct.float(), *f32, w, bias, True)
-    torch.cuda.synchronize()
-    _compare_grads(res, "K8bw16", label, got, ref16, ref32, ("dq", "dk", "dv", "dsw"),
-                   fused_ocab.GRAD_FIELDS + ("bias",), cuda_ms(runb), cuda_ms(plainb),
-                   _ocab_work(windows, nq, nk, c, nh, hidden, backward=True), ulps=W16_ULPS)
-    del out, got, ref16, ref32
+    pk = fused_ocab.pack_ocab_tiles(w)
+    hdp = pk.layout.hdp
+    # the OCAB's main path, on the train step's maps ([8, 64, 64]: 128
+    # windows) and the serving batch's ([25, 64, 64]: 400 windows): the
+    # K8w16 call is the map entry (the gather from the qkv map, then
+    # K8w16's launches), the K8bw16 call what the autograd nodes run
+    # (K8bw16's launches on the forward's O and row statistics, then the
+    # gather's backward); each beside its launches alone on the gathered
+    # operands
+    for batch in (8, 25):
+        mshape = (batch, 64, 64)
+        windows = batch * 16
+        qkv, x = rnd(*mshape, 3 * c), rnd(*mshape, c)
+        qkv[..., :c] *= 0.25
+        qh, kh, vh = fused_ocab._launch_heads(qkv, nh, hdp)
+        q, k, v, sw = _ocab_map_windows(qkv, x)
+        f32 = [t.float() for t in (q, k, v, sw)]
+        label = (f"{windows} windows ({'train step' if batch == 8 else 'serving batch'}, "
+                 f"{list(mshape) + [c]} map), {nq} queries x {nk} keys, C {c}, hidden {hidden}")
+        run = lambda: fused_ocab.fused_ocab_core_map(qkv, x, w, bias, True, pk)
+        launches = lambda: fused_ocab._launch_fwd16(qh, kh, vh, x, pk, bias, True)[0]
+        plain = lambda: _ocab_map_plain(qkv, x, w, bias, True)
+        out, again, alone = run(), run(), launches()
+        torch.cuda.synchronize()
+        if not torch.equal(out, alone):
+            raise RuntimeError("K8w16: the map entry's output differs from its launches'")
+        _compare(res, "K8w16", f"{label}; the call with its gather (b2b {queued_ms(run):.4f} ms; "
+                 f"K8w16's launches alone {cuda_ms(launches):.4f} ms, b2b "
+                 f"{queued_ms(launches):.4f})", window_partition(out, 16),
+                 window_partition(plain(), 16),
+                 fused_ocab.ocab_core_plain(*f32, w, bias, True), cuda_ms(run), cuda_ms(plain),
+                 _ocab_work(windows, nq, nk, c, nh, hidden, qkv_map=True))
+        _check_deterministic("K8w16", label, types.SimpleNamespace(out=out),
+                             types.SimpleNamespace(out=again), ("out",))
+        _ocab16_bytes_log(windows, c, nh, hidden, backward=batch == 8)
+        if batch == 25:
+            _ocab16_split(run, None)
+            del out, again, alone, qkv, x, qh, kh, vh, q, k, v, sw, f32
+            break
+        ctm = rnd(*mshape, c, sc=0.1)
+        ct = window_partition(ctm, 16)
+        _, o, stat = fused_ocab._launch_fwd16(qh, kh, vh, x, pk, bias, True)
+        launchesb = lambda: fused_ocab._launch_bwd16(ctm, qh, kh, vh, x, pk, bias, True, o, stat)
+
+        def runb():
+            dq, dk, dv, dx, g = launchesb()
+            return fused_ocab._launch_heads_bwd(dq, dk, dv, qkv.shape, nh, hdp), dq, dk, dv, dx, g
+
+        def raw(r):
+            dqkv, dq, dk, dv, dx, g = r
+            if not torch.equal(dqkv, fused_ocab.map_heads_bwd_plain(dq, dk, dv, qkv.shape, nh,
+                                                                    hdp)):
+                raise RuntimeError("K8bw16: the gather's backward differs from its plain version")
+            return fused_ocab.OcabGrads(dq=fused_ocab.from_heads(dq, c),
+                                        dk=fused_ocab.from_heads(dk, c),
+                                        dv=fused_ocab.from_heads(dv, c),
+                                        dsw=window_partition(dx, 16), **g)
+
+        plainb = lambda: _ocab_map_bwd_plain(ct, q, k, v, sw, w, bias, True, qkv.shape)
+        got, again = raw(runb()), raw(runb())
+        ref16 = fused_ocab.ocab_core_bwd_plain(ct, q, k, v, sw, w, bias, True)
+        ref32 = fused_ocab.ocab_core_bwd_plain(ct.float(), *f32, w, bias, True)
+        torch.cuda.synchronize()
+        fields = fused_ocab.GRAD_FIELDS + ("bias",)
+        _compare_grads(res, "K8bw16", f"{label}; the call with the gather's backward (b2b "
+                       f"{queued_ms(runb):.4f} ms; K8bw16's launches alone "
+                       f"{cuda_ms(launchesb):.4f} ms, b2b {queued_ms(launchesb):.4f})", got,
+                       ref16, ref32, ("dq", "dk", "dv", "dsw"), fields, cuda_ms(runb),
+                       cuda_ms(plainb),
+                       _ocab_work(windows, nq, nk, c, nh, hidden, backward=True, qkv_map=True),
+                       ulps=W16_ULPS)
+        _check_deterministic("K8bw16", label, got, again, ("dq", "dk", "dv", "dsw") + fields)
+        _ocab16_split(run, runb)
+        log(f"[kernels] K8w16 {windows} windows host time a call (enqueue, median of 20): "
+            f"{_enqueue_ms(run):.4f} ms (its launches alone {_enqueue_ms(launches):.4f}); "
+            f"K8bw16 {_enqueue_ms(runb):.4f} ms")
+        del out, again, alone, got, ref16, ref32, o, stat, qkv, x, ctm, ct, qh, kh, vh, f32
+    _ocab16_envelope(res, gen, dev)
+    _ocab16_gather_check(gen, dev)
+    _ocab_serve_routes(gen, dev)
     return res
+
+
+def _ocab16_gather_check(gen, dev):
+    """K8w16's gather from the qkv map (``ocab_heads_kernel``) and its
+    backward (``ocab_heads_bwd_kernel``), launched inside the K8w16 and
+    K8bw16 calls of the OCAB's map entry, against their plain versions
+    (``map_heads_plain``, ``map_heads_bwd_plain``) on HAT-SRx4's qkv maps
+    (the bench batch and the train batch): the same values, and each
+    one's time beside its plain version's and its bytes' bound."""
+    import torch
+
+    from tpu_superresolution_torch.kernels import fused_ocab as fo
+
+    nh, hdp, c = 6, 32, 180
+    for shape in ((25, 64, 64, 3 * c), (8, 64, 64, 3 * c)):
+        qkv = torch.randn(*shape, generator=gen).to(dev, torch.bfloat16)
+        got, want = fo._launch_heads(qkv, nh, hdp), fo.map_heads_plain(qkv, nh, hdp)
+        grads = [torch.randn(t.shape, generator=gen).to(dev, torch.bfloat16) for t in got]
+        gb = fo._launch_heads_bwd(*grads, shape, nh, hdp)
+        wb = fo.map_heads_bwd_plain(*grads, shape, nh, hdp)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, want)) and torch.equal(gb, wb)
+        ops = sum(t.numel() for t in got) * 2
+        fwd_b, bwd_b = qkv.numel() * 2 + ops, ops + qkv.numel() * 2
+        t = [cuda_ms(f) for f in (lambda: fo._launch_heads(qkv, nh, hdp),
+                                  lambda: fo.map_heads_plain(qkv, nh, hdp),
+                                  lambda: fo._launch_heads_bwd(*grads, shape, nh, hdp),
+                                  lambda: fo.map_heads_bwd_plain(*grads, shape, nh, hdp))]
+        log(f"[kernels] K8w16's gather from the qkv map {list(shape)}: "
+            f"{'the same values as' if same else 'DIFFERS from'} its plain version, forward "
+            f"and backward; forward {t[0]:.4f} ms (plain {t[1]:.4f}; bound "
+            f"{fwd_b / PEAK_BYTES_PER_S * 1e3:.4f} ms by bytes, {fwd_b / 1e6:.1f} MB), backward "
+            f"{t[2]:.4f} ms (plain {t[3]:.4f}; bound {bwd_b / PEAK_BYTES_PER_S * 1e3:.4f} ms, "
+            f"{bwd_b / 1e6:.1f} MB)")
+        if not same:
+            raise RuntimeError(f"K8w16's gather {list(shape)} disagrees with its plain version")
+
+
+# K8w16 / K8bw16 past HAT-SRx4's widths (every instantiation: cp 192 / hdp
+# 32, cp 96 / hdp 32, cp 96 / hdp 16): (windows, C, heads, hidden, entry):
+# the window-layout entry and fused_ocab_core_backward (None), the
+# window-layout entry under autograd ("autograd"), or a map through
+# fused_ocab_core_map under autograd
+OCAB16_ENVELOPE = ((5, 144, 6, 288, None), (6, 64, 2, 128, (1, 32, 48)),
+                   (3, 96, 6, 192, "autograd"))
+
+
+def _ocab16_envelope(res, gen, dev):
+    """K8w16 and K8bw16 at the other widths ``ocab_ok`` takes (HAT-S's C
+    144, hd 16 and cp 96) and odd window counts, one case on a [1, 32,
+    48, C] map through ``fused_ocab_core_map`` (its q, k, v gradients
+    through the gather's backward kernel, against the plain ones through the
+    gathers' autograd), one through the window-layout entry's autograd
+    (``to_heads`` and ``Ocab16Function``), against the plain versions
+    within W16_ULPS / K5_REL_BOUND (untimed)."""
+    import torch
+
+    from tpu_superresolution_torch.kernels import fused_ocab as fo
+    from tpu_superresolution_torch.ops.window import overlap_windows, window_partition
+
+    bf = torch.bfloat16
+    rnd = lambda *s, sc=1.0: (sc * torch.randn(*s, generator=gen)).to(dev, bf)
+    for windows, c, nh, hidden, shape in OCAB16_ENVELOPE:
+        w = _random_ocab(gen, dev, c, nh, hidden)
+        bias = (0.5 * torch.randn(nh, 256, 576, generator=gen)).to(dev)
+        label = f"{windows} windows, C {c}, {nh} heads, hidden {hidden} (untimed)"
+        acts = ("dq", "dk", "dv", "dsw")
+        if shape is None:
+            q, k, v, sw = rnd(windows, 256, c, sc=0.25), rnd(windows, 576, c), \
+                rnd(windows, 576, c), rnd(windows, 256, c)
+            ct = rnd(windows, 256, c, sc=0.1)
+            out = fo.fused_ocab_core(q, k, v, sw, w, bias, False)
+            got = fo.fused_ocab_core_backward(ct, q, k, v, sw, w, bias, False)
+        elif shape == "autograd":
+            label = label.replace(" (", ", the window entry's autograd (")
+            q, k, v, sw = rnd(windows, 256, c, sc=0.25), rnd(windows, 576, c), \
+                rnd(windows, 576, c), rnd(windows, 256, c)
+            ct = rnd(windows, 256, c, sc=0.1)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v, sw, bias)]
+            params = [getattr(w, f).clone().requires_grad_() for f in fo.GRAD_FIELDS]
+            wl = fo.OcabWeights(num_heads=nh, **dict(zip(fo.GRAD_FIELDS, params)))
+            outg = fo.fused_ocab_core(*leaves[:4], wl, leaves[4], False)
+            outg.backward(ct)
+            out = outg.detach()
+            got = types.SimpleNamespace(
+                **{f: t.grad for f, t in zip(("dq", "dk", "dv", "dsw", "bias"), leaves)},
+                **{f: p.grad for f, p in zip(fo.GRAD_FIELDS, params)})
+        else:
+            label = label.replace(" (", f", a {list(shape) + [c]} map (")
+            qkv, x, ctm = rnd(*shape, 3 * c), rnd(*shape, c), rnd(*shape, c, sc=0.1)
+            qkv[..., :c] *= 0.25
+            leaves = [t.clone().requires_grad_() for t in (qkv, x, bias)]
+            params = [getattr(w, f).clone().requires_grad_() for f in fo.GRAD_FIELDS]
+            wl = fo.OcabWeights(num_heads=nh, **dict(zip(fo.GRAD_FIELDS, params)))
+            outm = fo.fused_ocab_core_map(leaves[0], leaves[1], wl, leaves[2], False)
+            outm.backward(ctm)
+            qq, kk, vv = qkv.chunk(3, -1)
+            q, k, v, sw = window_partition(qq, 16), overlap_windows(kk, 16, 24), \
+                overlap_windows(vv, 16, 24), window_partition(x, 16)
+            out, ct = window_partition(outm.detach(), 16), window_partition(ctm, 16)
+            # the plain fp32 dq, dk, dv into the map through the gathers' autograd
+            ref = fo.ocab_core_bwd_plain(ct.float(), *(t.float() for t in (q, k, v, sw)), w,
+                                         bias, False)
+            lq = torch.zeros(qkv.shape, device=dev, requires_grad=True)
+            qs, ks, vs = lq.chunk(3, -1)
+            torch.autograd.backward([window_partition(qs, 16), overlap_windows(ks, 16, 24),
+                                     overlap_windows(vs, 16, 24)], [ref.dq, ref.dk, ref.dv])
+            err = (leaves[0].grad.float() - lq.grad).abs().max().item()
+            bound = W16_ULPS * bf16_ulp(lq.grad.abs().max().item())
+            log(f"[kernels] K8bw16 {label} d qkv (the gather's backward): max_abs_err vs plain "
+                f"fp32 {err:.3e} (bound {bound:.3e}) {'ok' if err <= bound else 'FAIL'}")
+            if not err <= bound:
+                raise RuntimeError(f"K8bw16 {label}: d qkv disagrees with the plain version")
+            acts = ("dsw",)
+            got = types.SimpleNamespace(dsw=window_partition(leaves[1].grad, 16),
+                                        bias=leaves[2].grad,
+                                        **{f: p.grad for f, p in zip(fo.GRAD_FIELDS, params)})
+        args = (q, k, v, sw)
+        _compare({}, "K8w16", label, out, fo.ocab_core_plain(*args, w, bias, False),
+                 fo.ocab_core_plain(*(t.float() for t in args), w, bias, False), 0.0, 0.0,
+                 _ocab_work(windows, 256, 576, c, nh, hidden))
+        _compare_grads({}, "K8bw16", label, got, fo.ocab_core_bwd_plain(ct, *args, w, bias, False),
+                       fo.ocab_core_bwd_plain(ct.float(), *(t.float() for t in args), w, bias,
+                                              False), acts, fo.GRAD_FIELDS + ("bias",), 0.0, 0.0,
+                       _ocab_work(windows, 256, 576, c, nh, hidden, backward=True),
+                       ulps=W16_ULPS)
+
+
+def _ocab16_bytes_log(windows, c, nh, hidden, backward=True):
+    """K8w16's (and K8bw16's) bytes moved per call of the map entry by
+    the design (csrc/ocab16.cu): the gather reading the qkv map and
+    writing the head-major q, k, v, each attention kernel reading them,
+    x and the output (ct, dx), then each buffer of ``ocab16_bytes``
+    written once and read once, and the gather's backward reading dq,
+    dk, dv and writing d qkv (the backward's bias-gradient partials:
+    every unit but a CTA's first reads and writes its [256, 576] entries,
+    K5c reads them once)."""
+    import torch
+
+    from tpu_superresolution_torch.kernels import _lib
+    from tpu_superresolution_torch.kernels import fused_ocab as fo
+
+    p = fo.ocab16_plan(c, nh, hidden, windows, _lib.sm_count(torch.cuda.current_device()))
+    sizes = fo.ocab16_bytes(p, nh)
+    b, n = p.block, windows * nh
+    heads = n * (fo.W16_NQ + 2 * fo.W16_NK) * b.hdp * 2
+    tok = windows * fo.W16_NQ * c * 2
+    gather = 3 * tok + heads  # the qkv map read, the head-major operands written
+    fwd_keys = ("O", "row statistics", "x1 scratch")
+    fwd = (gather + heads + 2 * tok + 2 * sum(sizes[k] for k in fwd_keys)
+           + nh * fo.W16_NQ * fo.W16_NK * 4)
+    log(f"[kernels] K8w16 {windows} windows bytes moved by the design: the gather "
+        f"{gather / 1e6:.1f} MB (qkv map in, head-major q, k, v out), head-major q, k, v "
+        f"{heads / 1e6:.1f} MB, x and out {2 * tok / 1e6:.1f} MB, " + ", ".join(
+            f"{k} {sizes[k] / 1e6:.1f} MB" for k in fwd_keys)
+        + f" (each written and read once); in all {fwd / 1e6:.1f} MB "
+        f"({fwd / PEAK_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s); K5a grid {p.grid} over "
+        f"{p.units} 64-token units, attention {p.cph} CTAs a head over {n} (window, head) "
+        f"units in {p.rounds} rounds (the last on {p.tail_ctas} CTAs), shared memory "
+        f"{b.smem} / {p.att_fwd_smem} B")
+    if not backward:
+        return
+    part = sizes["bias-gradient partials"]
+    # each unit after a CTA's first reads and writes its partial; the
+    # first writes it; K5c reads it
+    moved_part = (n - nh * p.cph) * part // (nh * p.cph) * 2 + 2 * part
+    old = 2 * n * fo.W16_NQ * fo.W16_NK * 4  # the WMMA kernel's buffer, written and read once
+    bwd_keys = [k for k in sizes if k not in ("x1 scratch", "bias-gradient partials")]
+    moved = (2 * heads + gather + 3 * tok + 2 * sum(sizes[k] for k in bwd_keys) + moved_part
+             + nh * fo.W16_NQ * fo.W16_NK * 4 * 2)
+    log(f"[kernels] K8bw16 {windows} windows bytes moved by the design: head-major q, k, v "
+        f"in and dq, dk, dv out {2 * heads / 1e6:.1f} MB, the gather's backward "
+        f"{gather / 1e6:.1f} MB, ct, x, dx {3 * tok / 1e6:.1f} MB, "
+        + ", ".join(f"{k} {sizes[k] / 1e6:.1f} MB" for k in bwd_keys)
+        + f" (each written and read once); bias-gradient partials {part / 1e6:.1f} MB "
+        f"({p.cph} CTAs a head), moving {moved_part / 1e6:.1f} MB (read-modify-writes, first "
+        f"writes, K5c's read; the WMMA kernel's 453 MB buffer written and read once moved "
+        f"{old / 1e6:.1f} MB); in all {moved / 1e6:.1f} MB "
+        f"({moved / PEAK_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s); K5b splits {p.splits} x "
+        f"{b.units} units, attention shared memory {p.att_bwd_smem} B")
+
+
+def _enqueue_ms(fn, calls: int = 20) -> float:
+    """Median host time for fn() to return, the device drained before
+    each call: the wrapper's own cost a call (launches enqueued, not
+    run)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def _ocab16_split(run, runb, calls=3):
+    """K8w16's and K8bw16's launches timed by torch.profiler over `calls`
+    calls each (csrc/ocab16.cu): device ms a call by launch, and the rest
+    of a call's device time (packing, the fold)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    us = lambda e: getattr(e, "device_time", 0.0) or getattr(e, "cuda_time", 0.0)
+    for key, fn, parts in (
+            ("K8w16", run, (("the gather", "ocab_heads_kernel", ""),
+                            ("attention forward", "ocab_attn_kernel", "false>("),
+                            ("K5a OCAB tail", "swin_block_bwd_kernel<16,", ", 4>("))),
+            ("K8bw16", runb, (("K5a middle", "swin_block_bwd_kernel<16,", ", 2>("),
+                              ("attention backward", "ocab_attn_kernel", "true>("),
+                              ("K5b dW", "wgrad_wg_kernel", ""),
+                              ("K5c sums", "reduce_ordered_kernel", ""),
+                              ("the gather's backward", "ocab_heads_bwd_kernel", "")))):
+        if fn is None:
+            continue
+        fn()
+        torch.cuda.synchronize()
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+        except Exception as e:  # the split is a reading aid, not a check
+            log(f"[kernels] {key} profiler failed: {type(e).__name__}: {e}")
+            return
+        kernels = _device_kernels(prof)
+        out, seen = [], set()
+        for label, head, tail in parts:
+            ev = [e for e in kernels if head in e.name and tail in e.name]
+            seen.update(id(e) for e in ev)
+            out.append(f"{label} {sum(us(e) for e in ev) / max(len(ev), 1) / 1e3:.4f} ms "
+                       f"({len(ev)} launches seen in {calls} calls)")
+        rest = sum(us(e) for e in kernels if id(e) not in seen) / calls / 1e3
+        busy = sum(us(e) for e in kernels) / calls / 1e3
+        log(f"[kernels] {key} launches by part (profiler, {calls} calls): " + ", ".join(out)
+            + f"; other device work {rest:.4f} ms; busy {busy:.4f} ms a call")
+
+
+def _ocab_serve_routes(gen, dev):
+    """The serving route at ws 16, measured: an eval-mode OCAB of
+    HAT-SRx4's widths (C 180, 6 heads, mlp 2) on the bench call's batch
+    ([25, 64, 64, 180], 400 windows), its forward on the fused route
+    (LN1, qkv, the gather to the head-major operands, K8w16) and on the module path
+    (LN1, qkv, the gathers, K15, the proj, LN2, the MLP) timed in turns
+    (module, fused, fused, module) in this call; then the work after the
+    qkv product alone on each (K8w16 with its gather from the qkv map
+    against the gathers, K15, the window reverse, the proj, LN2, the MLP
+    and the residuals).  Both
+    outputs against the plain fp32 forward.  The route the model serves
+    on is ``models.hat.OCAB.takes_fused``'s."""
+    import torch
+
+    from tpu_superresolution_torch.kernels import fused_ocab as fo
+    from tpu_superresolution_torch.models.hat import OCAB
+    from tpu_superresolution_torch.ops.window import (
+        overlap_windows,
+        window_partition,
+        window_reverse,
+    )
+
+    c, nh, ws = 180, 6, 16
+    ocab = OCAB(c, ws, 0.5, nh, True, 2.0, False)
+    with torch.no_grad():
+        for p in ocab.parameters():
+            p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+        ocab.norm1.weight.add_(1.0)
+        ocab.norm2.weight.add_(1.0)
+    ocab = ocab.to(dev).eval()
+    x = torch.randn(25, 64, 64, c, generator=gen).to(dev, torch.bfloat16)
+    with torch.no_grad():
+        ref = ocab._module(x.float(), True)
+        outs, times = {}, {"module": [], "fused": []}
+        for route in ("module", "fused", "fused", "module"):
+            fn = (lambda: ocab._fused(x, False)) if route == "fused" else \
+                (lambda: ocab._module(x, False))
+            outs[route] = fn()
+            times[route].append(cuda_ms(fn))
+        # the work after the qkv product on each route
+        qf, qm = ocab.qkv_map(x, False, True), ocab.qkv_map(x, False, False)
+        # the map entry (one gather to the head-major operands, x and the
+        # output in map layout) against the window-layout entry: the same bits
+        q, k, v = qf.chunk(3, -1)
+        ws_, ows_ = ocab.window_size, ocab.overlap_win_size
+        windowed = window_reverse(fo.fused_ocab_core(
+            window_partition(q, ws_), overlap_windows(k, ws_, ows_), overlap_windows(v, ws_, ows_),
+            window_partition(x, ws_), fo.OcabWeights(
+                wproj=ocab.proj.weight, bproj=ocab.proj.bias, g2=ocab.norm2.weight,
+                b2=ocab.norm2.bias, wfc1=ocab.mlp.fc1.weight, bfc1=ocab.mlp.fc1.bias,
+                wfc2=ocab.mlp.fc2.weight, bfc2=ocab.mlp.fc2.bias, num_heads=nh),
+            ocab.bias_oca(), False), ws_, 64, 64)
+        same = torch.equal(ocab.fused_core(x, qf, False), windowed)
+        log(f"[kernels] OCAB fused route: the map entry (fused_ocab_core_map) and the "
+            f"window-layout entry {'bit-identical' if same else 'DIFFER'}")
+        if not same:
+            raise RuntimeError("fused_ocab_core_map differs from fused_ocab_core")
+        core_fused = cuda_ms(lambda: ocab.fused_core(x, qf, False))
+        core_module = cuda_ms(lambda: ocab.module_core(x, qm, False))
+    for route, out in outs.items():
+        err = float((out.float() - ref).abs().max())
+        log(f"[kernels] OCAB serving route {route}: max_abs_err vs the plain fp32 forward "
+            f"{err:.3e} (max|ref| {float(ref.abs().max()):.3f})")
+        if not math.isfinite(err) or err > 0.1 * float(ref.abs().max()):
+            raise RuntimeError(f"OCAB {route} route disagrees with the plain forward: {err}")
+    tf, tm = statistics.mean(times["fused"]), statistics.mean(times["module"])
+    log(f"[kernels] OCAB serving route at [25, 64, 64, 180] (400 windows): forward fused "
+        f"{times['fused'][0]:.4f} / {times['fused'][1]:.4f} ms, module path "
+        f"{times['module'][0]:.4f} / {times['module'][1]:.4f} ms (in turns); after the qkv "
+        f"product: the gather and K8w16 {core_fused:.4f} ms, the gathers, K15, proj, LN2, MLP, "
+        f"residuals {core_module:.4f} ms; {'fused' if tf < tm else 'module path'} faster by "
+        f"{abs(tm - tf):.4f} ms; serving takes "
+        f"{'the fused route' if ocab.eval().takes_fused() else 'the module path'}")
 
 
 def phase_k5r_kernels(res):
@@ -2904,6 +3327,8 @@ def _hat_split(model, fwd, smi, tag="hat"):
              ("K12 cab_wgmma_kernel", ("cab_wgmma_kernel",)),
              ("K15 window_attn_wg_kernel / batched_attn_kernel (OCAB attention)",
               ("window_attn_wg_kernel", "batched_attn_kernel")),
+             ("K8w16 ocab_heads_kernel + ocab_attn_kernel + K5a's OCAB tail (OCAB core)",
+              ("ocab_heads_kernel", "ocab_attn_kernel", "swin_block_bwd_kernel")),
              ("K2 layernorm", ("layernorm_rows",)), ("K3/K4 conv_nhwc", ("conv_nhwc",)))
     by_span = (("hat::cab", "CAB SE gate (plain ops)"),
                ("hat::ocab", "OCAB plain ops (qkv, proj, MLP, gathers)"),
@@ -3331,7 +3756,8 @@ def phase_hat_srx4_train(workdir, smi):
     (exactly HAT_SRX4_TRAIN_PER_STEP), ms per step for the kernels and the
     plain bf16 path, the peak device memory, the autograd graph of a step
     (every HAB's backward WindowBlockFunction's, i.e. K5w16, every OCAB's
-    OcabCoreFunction's, i.e. K8bw16, and none left to autograd of plain
+    Ocab16Function's, i.e. K8bw16, after it the gather's OcabHeadsFunction,
+    and none left to autograd of plain
     ops), a profiled step split by part, and the first step's gradients
     against the plain fp32 path.  Returns the launches of the CLI run and
     of the counted step."""
@@ -3576,8 +4002,8 @@ def phase_swinir_l_train(workdir, smi):
 def _check_backward_nodes(model, lr, hr, cfg, tag="hat_srx4-train", ocabs=True):
     """The autograd graph of one train-mode forward on the K7 route: each
     block is one WindowBlockFunction (backward K5w16, or K5r at ws 8) and,
-    with `ocabs` (HAT-SRx4), each OCAB core one OcabCoreFunction
-    (backward K8bw16); no K7, K1t or K15 autograd function, whose
+    with `ocabs` (HAT-SRx4), each OCAB core one Ocab16Function (backward
+    K8bw16) after one OcabHeadsFunction (the gather's backward); no K7, K1t or K15 autograd function, whose
     backwards are autograd of plain ops, is in it."""
     import torch
 
@@ -3594,7 +4020,8 @@ def _check_backward_nodes(model, lr, hr, cfg, tag="hat_srx4-train", ocabs=True):
     blocks = sum(cfg.depths)
     want = {"WindowBlockFunctionBackward": blocks}
     if ocabs:
-        want["OcabCoreFunctionBackward"] = len(cfg.depths)
+        want["Ocab16FunctionBackward"] = len(cfg.depths)
+        want["OcabHeadsFunctionBackward"] = len(cfg.depths)
     plain = ("WindowAttentionFunctionBackward", "BlockTailFunctionBackward",
              "BatchedWindowAttentionFunctionBackward", "SwinBlockFunctionBackward")
     got = {k: counts.get(k, 0) for k in list(want) + list(plain)}
@@ -3952,8 +4379,10 @@ def _hat_train_split(state, lr, hr, step_ms, smi, tag="hat-train", parts=None, b
              and getattr(e, "is_user_annotation", False) and e.name in parts.values()]
     us = lambda e: getattr(e, "device_time", 0.0) or getattr(e, "cuda_time", 0.0)
     fwd_names = (("forward K6 / K1 (swin_block_wg_kernel)", ("swin_block_wg_kernel",)),
-                 ("forward K8 (ocab_fwd_kernel / ocab16_fwd_kernel)", ("ocab_fwd_kernel",
-                                                                       "ocab16_fwd_kernel")),
+                 ("forward K8 / K8w16 (ocab_fwd_kernel; ocab_heads_kernel, ocab_attn_kernel, "
+                  "K5a's OCAB tail)",
+                  ("ocab_fwd_kernel", "ocab_heads_kernel", "ocab_attn_kernel", "swin_block_bwd_kernel<16, 192, 32, 4>",
+                   "swin_block_bwd_kernel<16, 96, 16, 4>", "swin_block_bwd_kernel<16, 96, 32, 4>")),
                  ("forward K7 (window_product_kernel, window_attn_stream_kernel)",
                   ("window_product_kernel", "window_attn_stream_kernel")),
                  ("forward K1t swin_tail_wg_kernel / swin_tail_kernel",
@@ -3967,8 +4396,12 @@ def _hat_train_split(state, lr, hr, step_ms, smi, tag="hat-train", parts=None, b
                   "SwinBlockFunctionBackward"),
                  ("backward K5w16 / K5r (K5a front / middle / tail, attention fwd / bwd, dW "
                   "GEMM, sums, packing, fold)", "WindowBlockFunctionBackward"),
-                 ("backward K8b / K8bw16 (per-window, weight grads, reductions)",
+                 ("backward K8b (per-window, weight grads, reductions)",
                   "OcabCoreFunctionBackward"),
+                 ("backward K8bw16 (K5a middle, attention bwd, dW GEMM, sums, fold)",
+                  "Ocab16FunctionBackward"),
+                 ("backward K8bw16's gather (ocab_heads_bwd_kernel)",
+                  "OcabHeadsFunctionBackward"),
                  ("backward K12 (autograd of the plain LN + CAB convs)",
                   "CabConvsFunctionBackward"),
                  ("backward K2-K4 (autograd of the plain versions)", "LayerNormFunctionBackward"),

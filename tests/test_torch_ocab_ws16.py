@@ -3,10 +3,11 @@ training, in the PyTorch port against the JAX package, fp32 on the CPU:
 the plain forward and backward (what the wrappers run on CPU tensors,
 and what ``csrc/ocab16.cu`` is held to on the card) against
 ``fused_ocab_core`` in interpret mode (its Pallas forward and
-backward); the CUDA backward's order of work written out in plain ops
-(query tiles of 64 rows, keys streamed in 64-row tiles, P rebuilt from
-each row's log-sum-exp, D = rowsum(dO * O)) against the whole-window
-gradient; and the OCAB's training route at ws 16.  Bounds: forward 3e-5
+backward); the attention backward tiled in plain ops (query tiles of 64
+rows, keys in 64-row tiles, P rebuilt from each row's statistics, D =
+rowsum(dO * O)) against the whole-window gradient (the Hopper kernels'
+own schedule: tests/test_torch_ocab_ws16_wg.py); and the OCAB's routes
+at ws 16.  Bounds: forward 3e-5
 max abs; gradients atol 2e-4 / rtol 1e-3 (the JAX package's own
 kernel-vs-vjp bound, as for K5)."""
 
@@ -82,8 +83,8 @@ def test_ocab_ws16_plain_backward_matches_jax_kernel():
 
 
 def _tiled_attention_backward(q, k, v, bias, do, tile=64):
-    """The attention part of K8b at ws 16 in csrc/ocab16.cu's order, on
-    [BW, nH, N, hd] fp32 tensors: O and each row's log-sum-exp per query
+    """The attention part of K8b at ws 16 tiled, on [BW, nH, N, hd] fp32
+    tensors: O and each row's log-sum-exp per query
     tile; then per key tile, over the query tiles in order, P =
     exp(S + bias - lse), dV += P^T dO, dS = P (dO V^T - D) with D =
     rowsum(dO * O), dQ += dS K, dK += dS^T Q; the bias gradient summed
@@ -109,7 +110,7 @@ def _tiled_attention_backward(q, k, v, bias, do, tile=64):
 
 
 def test_ocab_ws16_tile_order_equals_the_whole_window_gradient():
-    """The CUDA backward's tiling (4 query tiles x 9 key tiles, dK / dV
+    """A tiled attention backward (4 query tiles x 9 key tiles, dK / dV
     summed over the query tiles in order, P from the row log-sum-exp,
     the flash row term) gives the whole-window gradient of
     softmax(q k^T + bias) v."""
@@ -128,8 +129,9 @@ def test_ocab_ws16_tile_order_equals_the_whole_window_gradient():
 
 def test_ocab_at_window_16_trains_through_the_fused_route(monkeypatch):
     """An OCAB of window 16 within K8's widths takes the fused route in
-    training (K8's plain version here, K8w16 / K8bw16 on the card) and
-    K15's module path at inference; the wrapper's check takes (16, 24)."""
+    training (K8's plain version here, K8w16 / K8bw16 on the card) and at
+    inference too (K8w16 serves it, ``OCAB.takes_fused``); the
+    wrapper's check takes (16, 24)."""
     from tpu_superresolution_torch.kernels import fused_ocab
     from tpu_superresolution_torch.kernels import window_attention as kw
     from tpu_superresolution_torch.kernels.fused_ocab import check_ocab_args, ocab_ok
@@ -148,6 +150,6 @@ def test_ocab_at_window_16_trains_through_the_fused_route(monkeypatch):
     assert calls == ["k8"]
     with torch.no_grad():
         ocab.eval()(x)
-    assert calls == ["k8", "k15"]
+    assert calls == ["k8", "k8"]
     _, w, bias, nh = _case(0, ws=WS, c=C, nh=NH, hidden=HIDDEN, bw=1)
     check_ocab_args((4, 256, C), (4, 576, C), (4, 256, C), _port_weights(w, nh), bias.shape)

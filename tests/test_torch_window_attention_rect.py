@@ -132,8 +132,9 @@ _OCAB_CASES = [(impl, ws) for ws in (7, 8, 16) for impl in ("pallas", "jnp")]
 
 @pytest.mark.parametrize("impl,ws", _OCAB_CASES, ids=[f"{i}-ws{w}" for i, w in _OCAB_CASES])
 def test_ocab_eval_matches_jax(impl, ws, monkeypatch):
-    """The port's OCAB at inference (K2 LN1, qkv, partition and overlap
-    gather, K15, proj, K2 LN2, MLP) against the JAX OCAB's module path,
+    """The port's OCAB at inference (at ws 7 and 8 K2 LN1, qkv, partition
+    and overlap gather, K15, proj, K2 LN2, MLP; at ws 16 the fused route,
+    K8w16's plain core on the CPU) against the JAX OCAB's module path,
     whose attention is the JAX K15 in interpret mode ("pallas") or jnp
     einsums ("jnp"), on maps of 2 x 3, 2 x 3 and 2 x 1 windows with
     zero-padded overlap windows at the border."""
@@ -144,7 +145,7 @@ def test_ocab_eval_matches_jax(impl, ws, monkeypatch):
     calls = _spy(monkeypatch)
     with torch.no_grad():
         got = tm.eval()(torch.from_numpy(x))
-    assert calls == ["k15"]
+    assert calls == ["k8" if ws == 16 else "k15"]
     assert np.abs(got.numpy() - np.asarray(want)).max() <= TOL
 
 
@@ -156,8 +157,8 @@ _ROUTE_CASES = [
     (16, 24, 2, 2.0, True, "k8"),    # upstream HAT-SRx4's window
     (7, 240, 8, 2.0, True, "k15"),   # C > 192 (8 heads)
     (7, 120, 6, 4.0, True, "k15"),   # hidden 480 > 384
-    (7, 24, 2, 2.0, False, "k15"),   # inference: always the module path
-    (16, 24, 2, 2.0, False, "k15"),
+    (7, 24, 2, 2.0, False, "k15"),   # inference: the module path at ws 7 and 8,
+    (16, 24, 2, 2.0, False, "k8"),   # the fused route at ws 16 (K8w16 serves it)
 ]
 
 
@@ -167,16 +168,18 @@ _ROUTE_CASES = [
 def test_ocab_route_by_shape(ws, c, nh, mlp, training, route, monkeypatch):
     """The OCAB takes K8's fused route in training exactly where
     fused_ocab.ocab_ok holds (ws 7 / ows 10, ws 8 / ows 12 or ws 16 / ows 24, C <= 192,
-    hd <= 32, <= 6 heads, hidden <= 384), and K15's module path
-    everywhere else and at inference; the route is decided from shapes,
-    the same on the CPU as on CUDA."""
+    hd <= 32, <= 6 heads, hidden <= 384), at inference where it holds at
+    ws 16 (models.hat.OCAB.takes_fused), and K15's module path
+    everywhere else; the route is decided from shapes, the same on the
+    CPU as on CUDA."""
     from tpu_superresolution_torch.kernels.fused_ocab import ocab_ok
     from tpu_superresolution_torch.models.hat import OCAB
 
     ocab = OCAB(c, ws, 0.5, nh, True, mlp, True).train(training)
     ows = ws + ws // 2
     assert ocab.takes_k8() == ocab_ok(ws, ows, c, nh, int(c * mlp))
-    assert (route == "k8") == (training and ocab.takes_k8())
+    assert (route == "k8") == ocab.takes_fused() == (
+        ocab.takes_k8() and (training or ws == 16))
     calls = _spy(monkeypatch)
     y = ocab(torch.rand(1, 2 * ws, ws, c, generator=torch.Generator().manual_seed(0)))
     assert calls == [route]

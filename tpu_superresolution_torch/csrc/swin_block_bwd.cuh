@@ -10,7 +10,11 @@
 // runs the same three modes at ws 8, a window one unit, at padded width
 // 256 (the proj's and fc2's N parts of 128 rows; the wide accumulators
 // walked in 128-column halves, see SPLIT below);
-// swin_block_bwd_i8w_256_32.cu.
+// swin_block_bwd_i8w_256_32.cu.  HAT's OCAB core at ws 16 (K8w16 /
+// K8bw16, csrc/ocab16.cu) runs the middle as its backward's token-local
+// part (the residual x its sw, d extra its dsw) and a fourth mode as its
+// forward's tail (O read back, x1, LN2, the MLP, the residual: the
+// output); swin_block_bwd_i16o_<cp>_<hdp>.cu.
 #pragma once
 
 #include "common.cuh"
@@ -32,8 +36,9 @@ constexpr int TILE_ELEMS = 64 * 64;           // a workspace tile: [64 tokens, 6
 constexpr int W16_TOKENS = 256;               // a ws-16 window: four 64-token units
 
 // What a launch of K5a runs: a whole ws-7 / ws-8 window a unit, or at ws
-// 16 one of the three token-local parts of a 64-token tile.
-enum { MODE_WHOLE, MODE_FRONT, MODE_MID, MODE_TAIL };
+// 16 one of the three token-local parts of a 64-token tile, or the OCAB
+// forward's tail over one (MODE_OFWD).
+enum { MODE_WHOLE, MODE_FRONT, MODE_MID, MODE_TAIL, MODE_OFWD };
 
 __host__ __device__ constexpr int round1024(int v) { return (v + 1023) / 1024 * 1024; }
 
@@ -74,7 +79,8 @@ struct Args {
   const bf16* x;
   const bf16* extra;  // [batch, h, w, c] or null
   bf16* dx;
-  bf16* dextra;       // written when extra is not null
+  bf16* dextra;       // dx1 where not null (the caller passes it with extra)
+  bf16* out;          // MODE_OFWD's output, [batch, h, w, c]
   const bf16* tiles;  // the forward's weight stream (pack_block_tiles)
   const float* bqkv;  // [nh, 3, HDP], q pre-scaled
   const float* bproj;  // [CP]
@@ -89,7 +95,8 @@ struct Args {
   const float* scales;  // [batch, 2] or null
   bf16* op[N_OPS];     // workspace operands, [windows][op_tiles][64][64] swizzled
   int op_tiles[N_OPS];
-  float* x1ws;  // [grid][NCONS][64 CP]: x1, then dx1 (tiled: [units + units % 2][64 CP])
+  float* x1ws;  // [grid][NCONS][64 CP]: x1, then dx1 (tiled: [units + units % 2][64 CP];
+                // MODE_OFWD: [grid][NCONS][64 CP], x1 only)
   float* pvec;  // [grid][NCONS][4][vl]: LayerNorm sums per warp
   float* prpb;  // [grid][NCONS][nh][64][64]: d(rpb) (not in the tiled modes)
   // the tiled modes (swin_block_bwd16.cu): a window's heads as [ws^2,
@@ -378,6 +385,78 @@ __device__ __forceinline__ void tile_frag(uint32_t (&f)[4], uint32_t tile, int r
   f[3] = ld32(tile + hopper::swizzled_offset<RB>((r0 + 8) * RB + (c0 + 8) * 2));
 }
 
+// acc = A (fragments of HDP / 16 k16 steps) x the 64 rows of a head tile
+// at `bt` read K-major: S = Q K^T, S^T = K Q^T, dP = dO V^T, dP^T = V dO^T.
+template <int HDP>
+__device__ __forceinline__ void rows_product(float (&acc)[32], const uint32_t (&af)[HDP / 16][4],
+                                             uint32_t bt) {
+#pragma unroll
+  for (int kk = 0; kk < HDP / 16; ++kk)
+    hopper::WgmmaRSK<64>::mma(acc, af[kk], hopper::desc_swizzled<2 * HDP>(bt) + 2 * kk, 1);
+}
+
+// acc += F (a 64 x 64 block as four k16 A fragments) x the 64 rows of a
+// head tile at `bt` read MN-major: O += P V, dQ += dS K, dK += dS^T Q,
+// dV += P^T dO.
+template <int HDP>
+__device__ __forceinline__ void block_product(float (&acc)[HDP / 2], const uint32_t (&f)[4][4],
+                                              uint32_t bt) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    hopper::WgmmaRS<HDP>::mma(acc, f[kk], hopper::desc_swizzled<2 * HDP>(bt + kk * 16 * 2 * HDP),
+                              1);
+}
+
+__device__ __forceinline__ void to_frags(uint32_t (&f)[4][4], const float (&v)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) f[kk][i] = pack_bf16(v[8 * kk + 2 * i], v[8 * kk + 2 * i + 1]);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&v)[N]) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) v[e] = 0.f;
+}
+
+// bf16 pairs of a [64, HDP] result (rows r0, r0 + 8) -> the workspace
+// operand `ws` of unit tiles, columns col0 + d.
+template <int HDP>
+__device__ __forceinline__ void store_head(bf16* ws, const float (&v)[HDP / 2], int r0, int col0,
+                                           int q) {
+#pragma unroll
+  for (int j = 0; j < HDP / 8; ++j) {
+    const int col = col0 + 8 * j + 2 * q;
+    *reinterpret_cast<uint32_t*>(ws + ws_off(r0, col)) = pack_bf16(v[4 * j], v[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(ws + ws_off(r0 + 8, col)) = pack_bf16(v[4 * j + 2], v[4 * j + 3]);
+  }
+}
+
+// acc[hf] (+)= F @ the next NP ring tiles read K-major, F the A fragments
+// of one 64-column hidden chunk, each tile an N part [96 rows of N, 64 of
+// K] (the OCAB forward's fc2: out += act Wfc2^T).
+template <int NP>
+__device__ __forceinline__ void rs_k96(float (&acc)[NP][48], const uint32_t (&f)[4][4], Ring& rg,
+                                       int lane) {
+#pragma unroll
+  for (int hf = 0; hf < NP; ++hf) {
+    const uint32_t tile = rg.acquire();
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::WgmmaRSK<96>::mma(acc[hf], f[kk], hopper::desc_sw128(tile) + 2 * kk, 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();
+    if (hf > 0) rg.release(rg.g - 1, lane);
+    ++rg.g;
+  }
+  hopper::wgmma_wait<0>();
+  rg.release(rg.g - 1, lane);
+#pragma unroll
+  for (int hf = 0; hf < NP; ++hf) hopper::fence_operands(acc[hf]);
+}
+
 template <int WS, int CP, int HDP, int MODE = MODE_WHOLE>
 __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args a) {
   using L = Layout<CP, HDP>;
@@ -400,6 +479,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
   constexpr bool SPLIT = CP == 256;
   constexpr int KD = SPLIT ? KC / 2 : KC;  // dy2's and dy's K chunks a pass
   static_assert(!SPLIT || TILED, "cp 256 runs the tiled modes only");
+  static_assert(MODE != MODE_OFWD || (WS == 16 && !SPLIT), "the OCAB forward's tail: ws 16, cp <= 192");
   static_assert(NT <= 64, "one m64 tile a window");
   static_assert(NJ % GP == 0, "the proj's N parts and the dmlp groups");
   extern __shared__ uint8_t smem_raw[];
@@ -466,6 +546,14 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
           for (int hf = 0; hf < NH; ++hf) push(proj0 + (hf * KC + kc) * L::STAGE, L::STAGE);
       }
       if constexpr (MODE == MODE_WHOLE) qkv_all();                          // A2
+      if constexpr (MODE == MODE_OFWD) {  // F2, then per hidden chunk fc1 (h1) and fc2 (out)
+        for (int i = 0; i < NH * KC; ++i) push(proj0 + i * L::STAGE, L::STAGE);
+        for (int j = 0; j < a.chunks; ++j) {
+          const char* ch = mlp0 + static_cast<size_t>(j) * L::CHUNK_BYTES;
+          for (int kc = 0; kc < KC; ++kc) push(ch + kc * 8192, 8192);
+          for (int hf = 0; hf < NH; ++hf) push(ch + KC * 8192 + hf * L::STAGE, L::STAGE);
+        }
+      }
       if constexpr (MODE == MODE_WHOLE || MODE == MODE_TAIL) {              // D
         if constexpr (SPLIT) {  // each half of dy: every head's K chunks of that half
           for (int k0 = 0; k0 < KC; k0 += KD)
@@ -504,8 +592,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
     return hopper::swizzled_offset<RB>(row * RB + d * 2);
   };
 
-  // this thread's entries of its partials start at zero
-  if (lane < 4)
+  // this thread's entries of its partials start at zero (the OCAB
+  // forward's tail writes none)
+  if (MODE != MODE_OFWD && lane < 4)
     for (int col = 2 * lane; col < a.vl; col += 8)
       *reinterpret_cast<float2*>(pv + col) = make_float2(0.f, 0.f);
   if constexpr (!TILED)
@@ -536,7 +625,10 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
     // x1 turns into dx1 in place, so the inactive twin of the tiled modes
     // has a scratch slice of its own (the last, `windows`): on its active
     // partner's it could read dx1 as x1
-    float* x1ws = a.x1ws + static_cast<size_t>(TILED ? (active ? wv : windows) : slot) * 64 * CP;
+    // (the OCAB forward's tail reads x1 back in the same pass: a slice a slot)
+    float* x1ws =
+        a.x1ws + static_cast<size_t>(TILED && MODE != MODE_OFWD ? (active ? wv : windows) : slot) *
+                     64 * CP;
     const float m1 = a.scales ? a.scales[2 * bidx] : 1.f;
     const float m2 = a.scales ? a.scales[2 * bidx + 1] : 1.f;
     bool row_ok[2];
@@ -779,7 +871,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
     wg_barrier(cw);
     ws_bulk(OP_O, rbuf);
     }
-    } else if constexpr (MODE == MODE_MID) {
+    } else if constexpr (MODE == MODE_MID || MODE == MODE_OFWD) {
       // O (the attention kernel's, in the workspace) -> the R buffer
       const uint4* src = reinterpret_cast<const uint4*>(ws_at(OP_O));
       uint4* dst = reinterpret_cast<uint4*>(smem_raw + (rbuf - raw));
@@ -788,7 +880,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
       wg_barrier(cw);
     }
 
-    if constexpr (MODE == MODE_WHOLE || MODE == MODE_MID) {
+    if constexpr (MODE == MODE_WHOLE || MODE == MODE_MID || MODE == MODE_OFWD) {
     // ================================ F2: x1, LN2; dmlp
     float mu2[2], rs2[2];
     if constexpr (SPLIT) {
@@ -911,6 +1003,49 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
           }
         }
     }
+    if constexpr (MODE == MODE_OFWD) {
+      // ============================== the OCAB forward's MLP: out = x1 +
+      // fc2(gelu(fc1(y2c))), fc2 summed over every chunk in fp32 before
+      // its bias and the residual, one rounding at the store
+      hopper::fence_proxy_async();
+      wg_barrier(cw);  // y2c whole in the A buffer
+      float oacc[NH][48];
+#pragma unroll
+      for (int hf = 0; hf < NH; ++hf) zero<48>(oacc[hf]);
+      for (int jc = 0; jc < a.chunks; ++jc) {
+        float hacc[32];
+        zero<32>(hacc);
+        gemm_a_smem<HC, CP>(hacc, abuf, rg, lane);
+        uint32_t f[4][4];  // bf16(gelu(h1)) as the A fragments of fc2
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 bb = __ldg(reinterpret_cast<const float2*>(a.bfc1 + HC * jc + 8 * j + 2 * q));
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const float u0 = hacc[4 * j + 2 * h2] + bb.x, u1 = hacc[4 * j + 2 * h2 + 1] + bb.y;
+            const float g0 = a.gelu_tanh ? gelu_and_grad<true>(u0).x : gelu_and_grad<false>(u0).x;
+            const float g1 = a.gelu_tanh ? gelu_and_grad<true>(u1).x : gelu_and_grad<false>(u1).x;
+            f[j / 2][2 * (j & 1) + h2] = pack_bf16(g0, g1);
+          }
+        }
+        rs_k96<NH>(oacc, f, rg, lane);
+      }
+#pragma unroll
+      for (int hf = 0; hf < NH; ++hf)
+#pragma unroll
+        for (int j = 0; j < 12; ++j) {
+          const int jg = 12 * hf + j, col = 8 * jg + 2 * q;
+          const float2 bb = __ldg(reinterpret_cast<const float2*>(a.bfc2 + col));
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const float2 x1 = reinterpret_cast<const float2*>(x1ws)[(2 * jg + h2) * 128 + ct];
+            store_pair(a.out + roff[h2], col, c_out[h2],
+                       (x1.x + oacc[hf][4 * j + 2 * h2]) + bb.x,
+                       (x1.y + oacc[hf][4 * j + 2 * h2 + 1]) + bb.y);
+          }
+        }
+      continue;
+    } else {
     {  // dmlp = bf16(ct m2) -> the R buffer, the workspace
 #pragma unroll
       for (int j0 = 0; j0 < NJ; j0 += GP) {
@@ -1073,7 +1208,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
             if (col >= a.c) v0 = 0.f;
             if (col + 1 >= a.c) v1 = 0.f;
             *x1p = make_float2(v0, v1);  // dx1 over x1
-            if (a.extra) store_pair(a.dextra + roff[h2], col, c_out[h2], v0, v1);
+            if (a.dextra) store_pair(a.dextra + roff[h2], col, c_out[h2], v0, v1);
             const uint32_t u = pack_bf16(v0 * m1, v1 * m1);
             st32(a_off(abuf, r0 + 8 * h2, col), u);
           }
@@ -1165,7 +1300,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
           if (col >= a.c) v0 = 0.f;
           if (col + 1 >= a.c) v1 = 0.f;
           *x1p = make_float2(v0, v1);  // dx1 over x1
-          if (a.extra) store_pair(a.dextra + roff[h2], col, c_out[h2], v0, v1);
+          if (a.dextra) store_pair(a.dextra + roff[h2], col, c_out[h2], v0, v1);
           const uint32_t u = pack_bf16(v0 * m1, v1 * m1);
           st32(a_off(abuf, r0 + 8 * h2, col), u);
         }
@@ -1279,6 +1414,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
     if (ct == 0) hopper::bulk_wait_read();  // dattn's copy
     wg_barrier(cw);  // every warp's do product has read dattn: the A buffer takes yc
     if constexpr (MODE == MODE_MID) continue;
+    }
     }
 
     if constexpr (MODE == MODE_TAIL) ln1(false);  // LN1's statistics for its backward

@@ -163,53 +163,8 @@ __device__ __forceinline__ float biased(float s, float t, int bc) {
   return (bc & 0x10000) ? v + -100.f : v;
 }
 
-// acc = A (fragments of HDP / 16 k16 steps) x the 64 rows of a head tile
-// at `bt` read K-major: S = Q K^T, S^T = K Q^T, dP = dO V^T, dP^T = V dO^T.
-template <int HDP>
-__device__ __forceinline__ void rows_product(float (&acc)[32], const uint32_t (&af)[HDP / 16][4],
-                                             uint32_t bt) {
-#pragma unroll
-  for (int kk = 0; kk < HDP / 16; ++kk)
-    hopper::WgmmaRSK<64>::mma(acc, af[kk], hopper::desc_swizzled<2 * HDP>(bt) + 2 * kk, 1);
-}
-
-// acc += F (a 64 x 64 block as four k16 A fragments) x the 64 rows of a
-// head tile at `bt` read MN-major: O += P V, dQ += dS K, dK += dS^T Q,
-// dV += P^T dO.
-template <int HDP>
-__device__ __forceinline__ void block_product(float (&acc)[HDP / 2], const uint32_t (&f)[4][4],
-                                              uint32_t bt) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    hopper::WgmmaRS<HDP>::mma(acc, f[kk], hopper::desc_swizzled<2 * HDP>(bt + kk * 16 * 2 * HDP),
-                              1);
-}
-
-__device__ __forceinline__ void to_frags(uint32_t (&f)[4][4], const float (&v)[32]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) f[kk][i] = pack_bf16(v[8 * kk + 2 * i], v[8 * kk + 2 * i + 1]);
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&v)[N]) {
-#pragma unroll
-  for (int e = 0; e < N; ++e) v[e] = 0.f;
-}
-
-// bf16 pairs of a [64, HDP] result (rows r0, r0 + 8) -> the workspace
-// operand `ws` of unit tiles, columns col0 + d.
-template <int HDP>
-__device__ __forceinline__ void store_head(bf16* ws, const float (&v)[HDP / 2], int r0, int col0,
-                                           int q) {
-#pragma unroll
-  for (int j = 0; j < HDP / 8; ++j) {
-    const int col = col0 + 8 * j + 2 * q;
-    *reinterpret_cast<uint32_t*>(ws + ws_off(r0, col)) = pack_bf16(v[4 * j], v[4 * j + 1]);
-    *reinterpret_cast<uint32_t*>(ws + ws_off(r0 + 8, col)) = pack_bf16(v[4 * j + 2], v[4 * j + 3]);
-  }
-}
+// (rows_product, block_product, to_frags, zero and store_head: csrc/
+// swin_block_bwd.cuh, shared with the OCAB core's attention, csrc/ocab16.cu)
 
 // The attention of K5w16 / K5r: the forward's recompute of O (BWD false)
 // or the attention backward (BWD true), a stage of WPS windows of the

@@ -34,9 +34,9 @@ K6   fused_block.py:1427 . fused_packed_windows_block (forward)    H,HT     CUDA
 K6b  fused_block.py:1604 . _packed_backward                        HT       CUDA csrc/swin_block_bwd.cu (ws 7, extra; K5's ws-7 instantiation), fused_block.SwinBlockFunction
 K13  fused_block.py:1532 . fused_spatial_windows_block             H        the K6 instantiation (it reads windows from the spatial map)
 K8   fused_ocab.py:311 . fused_ocab_core (_fwd_kernel)             HT       CUDA csrc/ocab.cu, fused_ocab.fused_ocab_core
-     (at (ws, ows) (16, 24), counted as K8w16)                     H16T     CUDA csrc/ocab16.cu
+     (at (ws, ows) (16, 24), counted as K8w16)                     H16,H16T CUDA csrc/ocab16.cu (wgmma: the gather from the qkv map, the attention over (window, head) units + K5a's OCAB tail; fused_ocab.ocab16_plan), fused_ocab.Ocab16Function (+ OcabHeadsFunction)
 K8b  fused_ocab.py:354 . fused_ocab_core (_bwd_kernel)             HT       CUDA csrc/ocab.cu, fused_ocab.OcabCoreFunction
-     (at (16, 24), counted as K8bw16)                              H16T     CUDA csrc/ocab16.cu
+     (at (16, 24), counted as K8bw16)                              H16T     CUDA csrc/ocab16.cu (K5a's middle, the attention backward, the gather's backward, K5b, K5c), fused_ocab.Ocab16Function (+ OcabHeadsFunction)
 K9   fused_rect_attn.py:433 . fused_rect_attention                 D        CUDA csrc/dat_rect.cu (+ dat_common.cuh's product and conv, window_attn_stream.cu's attention), fused_rect_attn.rect_attention
 K14  fused_channel_attn.py:209 . fused_channel_attention           D        CUDA csrc/dat_channel.cu (+ dat_common.cuh's product and conv), fused_channel_attn.channel_attention
 K10  fused_datb_tail.py:374 . fused_datb_tail                      D,DC     CUDA csrc/dat_tail.cu (C <= 192, half <= 384; fused_datb_tail.tail_plan), fused_datb_tail.datb_tail
@@ -45,7 +45,7 @@ K7   fused_attention.py:229 . fused_window_block_attention         H16,W,   CUDA
 K12  cab_conv.py:209 . fused_ln_cab_convs                          H,HT,    CUDA csrc/cab_fused.cu (C <= 256, Cmid <= 128), cab_conv.fused_ln_cab_convs
                                                                   H16,H16T
 K11  cab_conv.py:506 . dwconv3x3_halo                              DT,DC    CUDA csrc/dwconv.cu ("rows" or "tiles", dwconv.dwconv_plan), dwconv.dwconv3x3
-K15  window_attention.py:193 . fused_window_attention              H,H16    CUDA csrc/window_attn_wg.cu, csrc/batched_attn.cu or csrc/window_attn_stream.cu
+K15  window_attention.py:193 . fused_window_attention              H        CUDA csrc/window_attn_wg.cu, csrc/batched_attn.cu or csrc/window_attn_stream.cu
                                                                            (window_attention.k15_route), window_attention.fused_window_attention
 K16  window_attention.py:352 . batched_window_attention            DT,DC    CUDA csrc/batched_attn.cu (the tiled core) or csrc/window_attn_stream.cu
                                                                            (window_attention.k15_route), window_attention.batched_window_attention
@@ -70,10 +70,11 @@ route's K2, K7 and K1t, counted as such.  Elsewhere on the K7 route (ws
 24, 32, ...; ws 16 past the block kernel's widths; ws 8 past K5r's: C >
 256, hidden > 512) the block backward is still autograd of the plain
 versions (ROADMAP Queue 2).
-HAT's OCAB runs K15 as its attention at serving, and in training
-wherever K8 refuses its shapes (``fused_ocab.ocab_ok``: C > 192,
-hidden > 384, windows other than 7, 8 and 16); elsewhere in training it
-takes K8 / K8b (K8w16 / K8bw16 at ws 16).  A Swin
+HAT's OCAB runs K15 as its attention at serving at ws 7 and 8, and
+wherever K8 refuses its shapes (``fused_ocab.ocab_ok``: C > 192, hidden
+> 384, windows other than 7, 8 and 16); elsewhere in training it takes
+K8 / K8b (K8w16 / K8bw16 at ws 16), and at ws 16 it serves on K8w16 too
+(``models.hat.OCAB.takes_fused``, the card's choice).  A Swin
 block takes the block kernel or the K7 route by its static shapes
 (``fused_block.block_route``); a K7 call is three CUDA launches (the qkv
 product into a head-split workspace, the attention, the proj product),

@@ -62,8 +62,10 @@ _SIGNATURES = {
     "sr_window_attention_stream_bf16": ([_P] * 7 + [_I] * 10 + [ctypes.c_float] + [_I] * 9
                                         + [ctypes.POINTER(_I), _P]),
     "sr_swin_block_bwd_tiled_bf16": [_P] * 29 + [ctypes.POINTER(_I), ctypes.c_float, _P],
-    "sr_ocab16_fwd_bf16": [_P] * 14 + [_I] * 4 + [ctypes.c_float, _P],
-    "sr_ocab16_bwd_bf16": [_P] * 26 + [_I] * 4 + [ctypes.c_float, _I, _I, _P],
+    "sr_ocab16_fwd_bf16": [_P] * 15 + [ctypes.POINTER(_I), ctypes.c_float, _P],
+    "sr_ocab16_bwd_bf16": [_P] * 27 + [ctypes.POINTER(_I), ctypes.c_float, _P],
+    "sr_ocab16_heads_bf16": [_P] * 4 + [_I] * 6 + [_P],
+    "sr_ocab16_heads_bwd_bf16": [_P] * 4 + [_I] * 6 + [_P],
 }
 
 

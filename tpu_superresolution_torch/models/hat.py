@@ -16,15 +16,16 @@ modules/hat_arch.py:710-994).
   at any other window (upstream HAT-SRx4's ws 16) or width, the K7
   route (``SwinBlock._window_attention_route``: K2, K7 and K1's tail
   kernel, which adds `extra`).
-- OCAB (hat_arch.py:353-439): at inference the JAX package's module
-  path, K2 LN1, the qkv product, the window partition and overlap
-  gather, K15 (the rectangular window attention, ws^2 queries against
-  ows^2 keys), the proj, K2 LN2 and the MLP; in training the JAX
-  package's fused route (``OCAB._fused``: K2 LN1, the qkv product with q
-  pre-scaled, the gather as plain ops, then K8, the fused attention ->
-  proj -> LN2 -> MLP core) where K8 takes the shapes
-  (``fused_ocab.ocab_ok``: HAT's ws 7 and hat_fast's ws 8 at their
-  widths), else the module path (upstream HAT-SRx4's ws 16, C > 192).
+- OCAB (hat_arch.py:353-439): the JAX package's fused route
+  (``OCAB._fused``: K2 LN1, the qkv product with q pre-scaled, the
+  gather as plain ops, then K8, the fused attention -> proj -> LN2 ->
+  MLP core) where K8 takes the shapes (``fused_ocab.ocab_ok``: ws 7, 8
+  and 16 at C <= 192, hidden <= 384) in training, and at upstream HAT's
+  ws 16 at inference too (K8w16: ``OCAB.takes_fused``, chosen on the
+  card); else the module path: K2 LN1, the qkv product, the window
+  partition and overlap gather, K15 (the rectangular window attention,
+  ws^2 queries against ows^2 keys), the proj, K2 LN2 and the MLP (HAT's
+  ws 7 and hat_fast's ws 8 at inference, C > 192 everywhere).
 - RHAG convs, ``conv_after_body`` and ``conv_before_upsample`` are K3,
   the composed reconstruction K4; ``conv_first``, the mean shift, the
   reflect pad and the exact-mode chain are plain torch.
@@ -36,7 +37,8 @@ modules/hat_arch.py:710-994).
   has none.  On CUDA each HAB's backward is K6b (ws 7), K5 (ws 8) or
   K5w16 (ws 16, the K7 route's block: ``fused_block.WindowBlockFunction``),
   with the gradient of `extra`, and each OCAB core's K8b (K8bw16 at ws
-  16); K12's backward is autograd of its plain version, as are K7's,
+  16, on K8w16's saved O and row statistics); K12's backward is
+  autograd of its plain version, as are K7's,
   K1t's and K15's where a block or OCAB outside those shapes runs them
   in training.
 """
@@ -62,7 +64,15 @@ from tpu_superresolution_torch.kernels.cab_conv import (
     pack_cab,
     pack_conv_weight,
 )
-from tpu_superresolution_torch.kernels.fused_ocab import OcabWeights, fused_ocab_core, ocab_ok
+from tpu_superresolution_torch.kernels.fused_ocab import (
+    GRAD_FIELDS,
+    W16,
+    OcabWeights,
+    fused_ocab_core,
+    fused_ocab_core_map,
+    ocab_ok,
+    pack_ocab_tiles,
+)
 from tpu_superresolution_torch.kernels.window_attention import (
     fused_window_attention,
     fused_window_attention_plain,
@@ -187,8 +197,8 @@ class HAB(SwinBlock):
 class OCAB(nn.Module):
     """Overlapping cross-attention block (hat_arch.py:353-439): q from
     the ws windows, k and v from the enclosing ows windows, then proj,
-    residual, LN and MLP — the module path with K15 as its attention,
-    or in training, where K8 takes the shapes, the fused route."""
+    residual, LN and MLP — the fused route where ``takes_fused`` (K8 /
+    K8w16), else the module path with K15 as its attention."""
 
     def __init__(self, dim: int, window_size: int, overlap_ratio: float, num_heads: int,
                  qkv_bias: bool, mlp_ratio: float, gelu_approximate: bool):
@@ -204,58 +214,96 @@ class OCAB(nn.Module):
         self.norm2 = PLayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
         self._bias = DerivedCache()
+        self._pack = DerivedCache()
 
     def takes_k8(self) -> bool:
         """Whether training runs the fused route (K8 takes the shapes)."""
         return ocab_ok(self.window_size, self.overlap_win_size, self.proj.in_features,
                        self.num_heads, self.mlp.fc1.out_features)
 
+    def takes_fused(self) -> bool:
+        """Whether this call runs the fused route: in training wherever
+        K8 takes the shapes, at inference where it takes them at ws 16
+        (K8w16; ``ocab_ok`` holds ws 16 to ows 24), as the JAX package's
+        INFERENCE_FUSED.  Chosen on the card: at HAT-SRx4's bench batch
+        the OCAB's forward is faster fused than on the module path
+        (PERF.md, PR 20); ws 7 and 8 keep the module path."""
+        return self.takes_k8() and (self.training or self.window_size == 16)
+
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
-        if self.training and self.takes_k8():
+        if self.takes_fused():
             return self._fused(x, plain)
+        return self._module(x, plain)
+
+    def bias_oca(self) -> torch.Tensor:
+        """The gathered bias [nH, ws^2, ows^2] (cached outside autograd)."""
+        table, ws, ows = self.relative_position_bias_table, self.window_size, self.overlap_win_size
+        return self._bias.get([table], (ws, ows, table.device),
+                              lambda: relative_position_bias_oca(table, ws, ows))
+
+    def qkv_map(self, x: torch.Tensor, plain: bool, prescale: bool) -> torch.Tensor:
+        """K2 LN1 and the qkv product: [B, H, W, 3C]; with `prescale` the q
+        rows pre-scaled by hd^-0.5 (the fused route's weights, the JAX
+        package's ``_prep_weights``)."""
+        c, dt = x.shape[-1], x.dtype
+        wq, bq = self.qkv.weight, self.qkv.bias
+        if prescale:
+            qscale = torch.ones(3 * c, device=x.device)
+            qscale[:c] = (c // self.num_heads) ** -0.5
+            wq, bq = wq * qscale[:, None], None if bq is None else bq * qscale
+        return F.linear(self.norm1(x, plain), wq.to(dt), None if bq is None else bq.to(dt))
+
+    def _module(self, x: torch.Tensor, plain: bool) -> torch.Tensor:
+        """The module path: K2 LN1, the qkv product, the window partition
+        and overlap gather, K15, the proj, K2 LN2 and the MLP."""
+        return self.module_core(x, self.qkv_map(x, plain, False), plain)
+
+    def module_core(self, x, qkv, plain: bool) -> torch.Tensor:
+        """The module path after the qkv product."""
         b, h, w, c = x.shape
         ws, ows, nh = self.window_size, self.overlap_win_size, self.num_heads
         hd, dt = c // nh, x.dtype
-        bq = None if self.qkv.bias is None else self.qkv.bias.to(dt)
-        qkv = F.linear(self.norm1(x, plain), self.qkv.weight.to(dt), bq)
         q, k, v = qkv.chunk(3, dim=-1)
         # [B*nW, nH, N, hd]: ws^2 query rows, ows^2 key and value rows
         qw = window_partition(q, ws).reshape(-1, ws * ws, nh, hd).transpose(1, 2)
         kw = overlap_windows(k, ws, ows).reshape(-1, ows * ows, nh, hd).transpose(1, 2)
         vw = overlap_windows(v, ws, ows).reshape(-1, ows * ows, nh, hd).transpose(1, 2)
-        table = self.relative_position_bias_table
-        bias = self._bias.get([table], (ws, ows, x.device),
-                              lambda: relative_position_bias_oca(table, ws, ows))
         attend = fused_window_attention_plain if plain else fused_window_attention
-        out = attend(qw, kw, vw, bias, None, hd ** -0.5).transpose(1, 2).reshape(-1, ws * ws, c)
-        out = window_reverse(out, ws, h, w)
+        out = attend(qw, kw, vw, self.bias_oca(), None, hd ** -0.5)
+        out = window_reverse(out.transpose(1, 2).reshape(-1, ws * ws, c), ws, h, w)
         x = F.linear(out, self.proj.weight.to(dt), self.proj.bias.to(dt)) + x
         return x + self.mlp(self.norm2(x, plain), self.gelu_approximate)
 
     def _fused(self, x: torch.Tensor, plain: bool) -> torch.Tensor:
-        """The JAX package's training route (``OCAB._fused``): K2 LN1, the
-        qkv product with the q rows pre-scaled by hd^-0.5 (its
-        ``_prep_weights``), the window partition and overlap gather as
-        plain ops (their autograd scatters dq, dk, dv back), then the
-        attention -> proj -> LN2 -> MLP core as K8 (``fused_ocab_core``;
-        its plain version with `plain` or on the CPU)."""
+        """The JAX package's fused route (``OCAB._fused``): K2 LN1, the
+        qkv product with the q rows pre-scaled, the window partition and
+        overlap gather as plain ops (their autograd scatters dq, dk, dv
+        back), then the attention -> proj -> LN2 -> MLP core as K8
+        (``fused_ocab_core``; its plain version with `plain` or on the
+        CPU).  At ws 16 on CUDA K8w16 takes the maps themselves
+        (``fused_ocab_core_map``: one gather from the qkv map to its
+        head-major operands, the residual and output in map layout)."""
+        return self.fused_core(x, self.qkv_map(x, plain, True), plain)
+
+    def fused_core(self, x, qkv, plain: bool) -> torch.Tensor:
+        """The fused route after the qkv product (q pre-scaled)."""
         b, h, w, c = x.shape
-        ws, ows, nh = self.window_size, self.overlap_win_size, self.num_heads
-        dt = x.dtype
-        qscale = torch.ones(3 * c, device=x.device)
-        qscale[:c] = (c // nh) ** -0.5
-        wq = self.qkv.weight * qscale[:, None]
-        bq = None if self.qkv.bias is None else (self.qkv.bias * qscale).to(dt)
-        q, k, v = F.linear(self.norm1(x, plain), wq.to(dt), bq).chunk(3, dim=-1)
+        ws, ows = self.window_size, self.overlap_win_size
         weights = OcabWeights(
             wproj=self.proj.weight, bproj=self.proj.bias, g2=self.norm2.weight,
             b2=self.norm2.bias, wfc1=self.mlp.fc1.weight, bfc1=self.mlp.fc1.bias,
-            wfc2=self.mlp.fc2.weight, bfc2=self.mlp.fc2.bias, num_heads=nh)
+            wfc2=self.mlp.fc2.weight, bfc2=self.mlp.fc2.bias, num_heads=self.num_heads)
+        if (ws, ows) == W16 and x.is_cuda and not plain:
+            params = [getattr(weights, f) for f in GRAD_FIELDS]
+            # K8w16's weight stream, cached outside autograd
+            packed = self._pack.get(params, x.device, lambda: pack_ocab_tiles(weights),
+                                    lambda: None)
+            return fused_ocab_core_map(qkv, x, weights, self.bias_oca(), self.gelu_approximate,
+                                       packed)
+        q, k, v = qkv.chunk(3, dim=-1)
         out = fused_ocab_core(
             window_partition(q, ws), overlap_windows(k, ws, ows), overlap_windows(v, ws, ows),
-            window_partition(x, ws), weights,
-            relative_position_bias_oca(self.relative_position_bias_table, ws, ows),
-            self.gelu_approximate, plain)
+            window_partition(x, ws), weights, self.bias_oca(), self.gelu_approximate, plain)
         return window_reverse(out, ws, h, w)
 
 
