@@ -263,7 +263,7 @@ KERNELS = {
                source="tpu_superresolution_torch/csrc/ocab.cu",
                replaces="tpu_superresolution_tpu/ops/pallas/fused_ocab.py:311"),
     "K8b": dict(name="ocab_bwd", route="cuda",
-                source="tpu_superresolution_torch/csrc/ocab.cu",
+                source="tpu_superresolution_torch/csrc/ocab_bwd.cu",
                 replaces="tpu_superresolution_tpu/ops/pallas/fused_ocab.py:354"),
     "K9": dict(name="dat_rect_attention", route="cuda",
                source="tpu_superresolution_torch/csrc/dat_rect.cu",
@@ -324,13 +324,15 @@ KERNELS = {
 # C 45: element copies and stores (odd C, a last unit of 36 rows whose
 # bytes are no multiple of 16); C 46: cp.async of 4 bytes; C 256 at hidden
 # 200: x1 through the workspace, a part hidden chunk; C 64 and 120: the
-# one- and two-chunk widths, ws 16.
+# one- and two-chunk widths, ws 16.  C 2304 (mlp 1): the WMMA kernel past
+# C 2272, x1 and LN2's output in its global scratch (fused_block.tail_spills).
 K1T_ENVELOPE = (((1, 12, 18, 44), 88, 6, 3, True, True, False),
                 ((1, 10, 10, 45), 100, 5, 2, True, False, True),
                 ((2, 6, 6, 46), 92, 6, 3, False, True, False),
                 ((2, 16, 16, 256), 200, 8, 4, True, True, True),
                 ((1, 8, 8, 64), 64, 8, 4, False, False, True),
-                ((3, 16, 16, 120), 480, 16, 8, True, True, False))
+                ((3, 16, 16, 120), 480, 16, 8, True, True, False),
+                ((1, 16, 16, 2304), 2304, 8, 4, True, True, False))
 # K5r's correctness-only shapes at SwinIR-L's widths (phase_k5r_kernels):
 # [B, H, W, C], shift, extra.  25 and 9 windows: an odd last unit, whose
 # pair's idle consumer warpgroup recomputes it, and a last attention stage
@@ -546,13 +548,15 @@ def phase_build():
     # csrc/window_attn.cu and window_attn_stream.cu: K7's product and
     # attention; csrc/cab_fused.cu: K12; csrc/swin_block.cu: K1 / K6;
     # csrc/swin_block_bwd*.cu: K5a, K5w16's attention kernels;
-    # csrc/ocab16.cu: K8w16 / K8bw16's attention and gathers;
+    # csrc/ocab16.cu: K8w16 / K8bw16's attention and gathers; csrc/ocab_bwd.cu:
+    # K8b's attention; csrc/layernorm.cu: K2;
     # csrc/dat_common.cuh: K9 / K14's product and conv), with their
     # template arguments: registers, shared memory, spills
     kinds = ("conv_nhwc_wgmma_kernel", "conv_nhwc_halo_kernel", "window_product_kernel",
              "window_attn_stream_kernel", "cab_wgmma_kernel", "swin_block_wg_kernel",
              "datb_tail_wg_kernel", "swin_tail_wg_kernel", "swin_block_bwd_kernel", "attn16_kernel",
              "ocab_attn_kernel", "ocab_heads_kernel", "ocab_heads_bwd_kernel",
+             "ocab_win_attn_kernel", "layernorm_bands_kernel",
              "front_product_kernel", "dat_conv_kernel")
     name = None
     for line in out.splitlines():
@@ -759,7 +763,6 @@ def _against_k7_route(key, label, run, route, x):
 
 def phase_kernels():
     import torch
-    import torch.nn.functional as F
 
     from tpu_superresolution_torch.kernels.fused_block import (
         GRAD_FIELDS,
@@ -769,7 +772,6 @@ def phase_kernels():
         swin_block_bwd_plain,
         swin_block_plain,
     )
-    from tpu_superresolution_torch.kernels.layernorm import layernorm, layernorm_plain
     from tpu_superresolution_torch.ops.window import shift_mask_tensor
 
     dev = torch.device("cuda")
@@ -860,19 +862,7 @@ def phase_kernels():
                        _swin_work(shape, backward=True))
         del got, ref16, ref32
 
-    # K2: layernorm on the bench trunk (25 tiles of 64^2), the train batch
-    # and HAT's trunk (25 tiles of 70^2, C 96)
-    for rows, c in ((25 * 64 * 64, 180), (8 * 64 * 64, 180), (25 * 70 * 70, 96)):
-        x = torch.randn(rows, c, generator=gen).to(dev, bf)
-        g = (1 + 0.1 * torch.randn(c, generator=gen)).to(dev)
-        b = (0.1 * torch.randn(c, generator=gen)).to(dev)
-        g16, b16 = g.to(bf), b.to(bf)
-        out = layernorm(x, g, b)
-        _compare(res, "K2", f"[{rows}, {c}]", out, layernorm_plain(x, g, b),
-                 layernorm_plain(x.float(), g, b),
-                 cuda_ms(lambda: layernorm(x, g, b)), cuda_ms(lambda: layernorm_plain(x, g, b)),
-                 (8 * x.numel(), 2 * x.numel() * 2 + 2 * c * 4),
-                 cuda_ms(lambda: F.layer_norm(x, (c,), g16, b16, 1e-5)))
+    _layernorm_cases(res, gen, dev)
 
     # K3: 3x3 convs 180->180 and 180->64 on bench tiles, a whole image and
     # the train batch, HAT's 96->96 on its tiles, a [1,52,76,180] image
@@ -884,6 +874,43 @@ def phase_kernels():
     # batch with the packing in every call (as under autograd).
     _conv_cases(res, gen, dev, CONV_CASES)
     return res
+
+
+# K2's rows: the bench trunk (25 tiles of 64^2, C 180), the train batch
+# (8 x 64^2), HAT's trunk (25 tiles of 70^2, C 96) and SwinIR-L's (C 240)
+LN_CASES = ((25 * 64 * 64, 180), (8 * 64 * 64, 180), (25 * 70 * 70, 96), (25 * 64 * 64, 240))
+
+
+def _layernorm_cases(res, gen, dev):
+    """K2 at LN_CASES against its plain version: one call from an idle
+    device (cuda_ms, which counts the wrapper's host work before the
+    launch), 20 calls back to back (queued_ms: the device time where the
+    host keeps up), the wrapper's host time a call (_enqueue_ms), the
+    kernel's device time by the profiler and F.layer_norm's times."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_superresolution_torch.kernels.layernorm import layernorm, layernorm_plain
+
+    bf = torch.bfloat16
+    for rows, c in LN_CASES:
+        x = torch.randn(rows, c, generator=gen).to(dev, bf)
+        g = (1 + 0.1 * torch.randn(c, generator=gen)).to(dev)
+        b = (0.1 * torch.randn(c, generator=gen)).to(dev)
+        g16, b16 = g.to(bf), b.to(bf)
+        run = lambda: layernorm(x, g, b)
+        lib = lambda: F.layer_norm(x, (c,), g16, b16, 1e-5)
+        out = run()
+        t_lib = cuda_ms(lib)
+        _compare(res, "K2", f"[{rows}, {c}] (b2b {queued_ms(run):.4f} ms, host "
+                 f"{_enqueue_ms(run):.4f} ms a call; F.layer_norm b2b {queued_ms(lib):.4f} ms)",
+                 out, layernorm_plain(x, g, b), layernorm_plain(x.float(), g, b), cuda_ms(run),
+                 cuda_ms(lambda: layernorm_plain(x, g, b)),
+                 (8 * x.numel(), 2 * x.numel() * 2 + 2 * c * 4), t_lib)
+        # the kernel's device time alone (b2b reads the host's rate where
+        # the wrapper takes longer than the kernel)
+        _launch_split("K2", f"[{rows}, {c}]", run, (("the kernel", "layernorm_", ""),), calls=10)
+        del x, out
 
 
 # K3/K4 cases: (key, input shape, Cout (or "x2"/"x3": the composed
@@ -1071,11 +1098,13 @@ def phase_train_kernels(res):
     at [8,70,70,96] shift 0 and 3 with `extra` and branch scales; K5 with
     d`extra` at hat_fast's [8,64,64,96]; K8 and K8b, the OCAB core and
     its backward, on HAT's 800 windows (49 queries x 100 keys) and
-    hat_fast's 512 (64 x 144).  Each against its plain version in bf16
-    and fp32, with times and bounds, into `res`."""
+    hat_fast's 512 (64 x 144), K8b with two runs bit-identical, its
+    launches by part, its bytes by design and the host time of its
+    packing and fold, then K8B_ENVELOPE.  Each
+    against its plain version in bf16 and fp32, with times and bounds,
+    into `res`."""
     import torch
 
-    from tpu_superresolution_torch.kernels import fused_ocab
     from tpu_superresolution_torch.kernels.fused_block import (
         GRAD_FIELDS,
         fused_swin_block_backward,
@@ -1116,6 +1145,21 @@ def phase_train_kernels(res):
                                                  extra=True))
         del got, ref16, ref32
 
+    _ocab_cases(res, gen, dev, c, nh, hidden)
+    _ocab_bwd_envelope(gen, dev)
+    return res
+
+
+def _ocab_cases(res, gen, dev, c, nh, hidden):
+    """K8 and K8b on HAT's 800 windows (49 queries x 100 keys) and
+    hat_fast's 512 (64 x 144) against their plain versions, K8b with two
+    runs bit-identical, its launches by part, its bytes by design and its
+    host time, into `res`."""
+    import torch
+
+    from tpu_superresolution_torch.kernels import _lib, fused_ocab
+
+    bf = torch.bfloat16
     for ws, ows, windows in ((7, 10, 800), (8, 12, 512)):
         w = _random_ocab(gen, dev, c, nh, hidden)
         nq, nk = ws * ws, ows * ows
@@ -1135,14 +1179,105 @@ def phase_train_kernels(res):
         runb = lambda: fused_ocab.fused_ocab_core_backward(ct, q, k, v, sw, w, bias, True)
         plainb = lambda: fused_ocab.ocab_core_bwd_plain(ct, q, k, v, sw, w, bias, True)
         got = runb()
+        fields = ("dq", "dk", "dv", "dsw") + fused_ocab.GRAD_FIELDS + ("bias",)
+        _check_deterministic("K8b", label, got, runb(), fields)
         ref16 = plainb()
         ref32 = fused_ocab.ocab_core_bwd_plain(ct.float(), *f32, w, bias, True)
         torch.cuda.synchronize()
-        _compare_grads(res, "K8b", label, got, ref16, ref32, ("dq", "dk", "dv", "dsw"),
-                       fused_ocab.GRAD_FIELDS + ("bias",), cuda_ms(runb), cuda_ms(plainb),
+        _ocab_bwd_bytes_log(windows, ws, ows, c, nh, hidden)
+        _launch_split("K8b", label, runb, _k8b_parts(ws))
+        p = fused_ocab.ocab_bwd_plan(ws, ows, c, nh, hidden, windows,
+                                     _lib.sm_count(torch.cuda.current_device()))
+        gv = torch.zeros(p.block.stream_len + p.block.vec_len, device=dev)
+        log(f"[kernels] K8b {label} host time a call (enqueue, median of 20) of the weight "
+            f"packing (pack_ocab_tiles) {_enqueue_ms(lambda: fused_ocab.pack_ocab_tiles(w)):.4f}"
+            f" ms and of the fold "
+            f"{_enqueue_ms(lambda: fused_ocab._fold_grads(gv, c, nh, hidden)):.4f} ms")
+        _compare_grads(res, "K8b", f"{label} (b2b {queued_ms(runb):.4f} ms, host "
+                       f"{_enqueue_ms(runb):.4f} ms a call)", got, ref16, ref32,
+                       ("dq", "dk", "dv", "dsw"), fused_ocab.GRAD_FIELDS + ("bias",),
+                       cuda_ms(runb), cuda_ms(plainb),
                        _ocab_work(windows, nq, nk, c, nh, hidden, backward=True))
         del out, got, ref16, ref32
-    return res
+
+
+def _k8b_parts(ws):
+    """K8b's launches by name (csrc/ocab_bwd.cu) for _launch_split: (part,
+    name head, name tail); the rest of a call's device time is the
+    packing, the workspace's zeroing and the fold."""
+    return (("gather to head-major", "ocab_win_heads_kernel", ""),
+            ("attention forward", "ocab_win_attn_kernel", "false>("),
+            ("K5a middle", f"swin_block_bwd_kernel<{ws},", ", 2>("),
+            ("attention backward", "ocab_win_attn_kernel", "true>("),
+            ("K5b dW", "wgrad_wg_kernel", ""), ("K5c sums", "reduce_ordered_kernel", ""))
+
+
+# K8b's correctness-only shapes past HAT's widths, one a compiled (ws,
+# width, head dim) the main path does not run: (ws, ows, windows, C,
+# heads, hidden); odd window counts leave a CTA's last stage one window
+K8B_ENVELOPE = ((7, 10, 37, 64, 2, 128), (7, 10, 45, 180, 6, 360), (8, 12, 25, 64, 2, 200),
+                (8, 12, 13, 144, 6, 288))
+
+
+def _ocab_bwd_envelope(gen, dev):
+    """K8b at K8B_ENVELOPE's widths against its plain version (fp32), two
+    runs bit-identical."""
+    import torch
+
+    from tpu_superresolution_torch.kernels import fused_ocab
+
+    bf = torch.bfloat16
+    for ws, ows, windows, c, nh, hidden in K8B_ENVELOPE:
+        w = _random_ocab(gen, dev, c, nh, hidden)
+        nq, nk = ws * ws, ows * ows
+        rnd = lambda *shape, sc=1.0: (sc * torch.randn(*shape, generator=gen)).to(dev, bf)
+        q, k, v, sw = rnd(windows, nq, c, sc=(c // nh) ** -0.5), rnd(windows, nk, c), \
+            rnd(windows, nk, c), rnd(windows, nq, c)
+        bias = (0.5 * torch.randn(nh, nq, nk, generator=gen)).to(dev)
+        ct = rnd(windows, nq, c, sc=0.1)
+        label = f"envelope {windows} windows ({ws}, {ows}), C {c}, {nh} heads, hidden {hidden}"
+        run = lambda: fused_ocab.fused_ocab_core_backward(ct, q, k, v, sw, w, bias, False)
+        got = run()
+        _check_deterministic("K8b", label, got, run(), ("dq", "dk", "dv", "dsw")
+                             + fused_ocab.GRAD_FIELDS + ("bias",))
+        args = (q, k, v, sw)
+        _compare_grads({}, "K8b", label, got,
+                       fused_ocab.ocab_core_bwd_plain(ct, *args, w, bias, False),
+                       fused_ocab.ocab_core_bwd_plain(ct.float(), *(t.float() for t in args), w,
+                                                      bias, False),
+                       ("dq", "dk", "dv", "dsw"), fused_ocab.GRAD_FIELDS + ("bias",), 0.0, 0.0,
+                       _ocab_work(windows, nq, nk, c, nh, hidden, backward=True))
+        del got
+
+
+def _ocab_bwd_bytes_log(windows, ws, ows, c, nh, hidden):
+    """K8b's bytes moved per call by the design (csrc/ocab_bwd.cu): q, k, v
+    read in the window layout by the gather, each workspace of
+    ``ocab_bwd_bytes`` written once and read once (the head-major q, k, v
+    read once more: both attention kernels read them), dq, dk, dv written
+    in the window layout, ct, sw and dsw, the bias read by both attention
+    kernels."""
+    import torch
+
+    from tpu_superresolution_torch.kernels import _lib
+    from tpu_superresolution_torch.kernels import fused_ocab as fo
+
+    p = fo.ocab_bwd_plan(ws, ows, c, nh, hidden, windows,
+                         _lib.sm_count(torch.cuda.current_device()))
+    sizes = fo.ocab_bwd_bytes(p, nh)
+    b, nq, nk = p.block, ws * ws, ows * ows
+    heads = sizes["head-major q, k, v"]
+    win = windows * (nq + 2 * nk) * c * 2  # q, k, v (or dq, dk, dv) in the window layout
+    tok = windows * nq * c * 2
+    moved = 2 * win + heads + 3 * tok + 2 * sum(sizes.values()) + 2 * nh * nq * nk * 4
+    log(f"[kernels] K8b {windows} windows ({ws}, {ows}) bytes moved by the design: q, k, v "
+        f"in and dq, dk, dv out {2 * win / 1e6:.1f} MB, head-major q, k, v's second read "
+        f"{heads / 1e6:.1f} MB, ct, sw, dsw {3 * tok / 1e6:.1f} MB, "
+        + ", ".join(f"{k} {v / 1e6:.2f} MB" for k, v in sizes.items())
+        + f" (each written and read once); in all {moved / 1e6:.1f} MB "
+        f"({moved / PEAK_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s); K5a grid {p.grid} over "
+        f"{windows} units, K5b splits {p.splits}, attention {p.cph} CTAs a head, shared memory "
+        f"{b.smem} / {p.att_fwd_smem} / {p.att_bwd_smem} B")
 
 
 # the tiled block backward's counter by window (csrc/swin_block_bwd16.cu)
@@ -2448,7 +2583,8 @@ def _tail_cases(res, gen, dev):
                  out, ref16, ref32, mean(alone[route]), cuda_ms(plain),
                  _tail_work(math.prod(shape[:3]), c, hidden, with_extra))
         del out, twice, ref16, ref32
-    # correctness only: the wgmma kernel's other paths (K1T_ENVELOPE)
+    # correctness only: the wgmma kernel's other paths and the WMMA
+    # kernel's scratch (K1T_ENVELOPE)
     for shape, hidden, ws, shift, with_extra, with_scales, tanh in K1T_ENVELOPE:
         b, c = shape[0], shape[-1]
         w = _random_block(gen, dev, c=c, nh=1, hidden=hidden, ws=ws)
@@ -3021,7 +3157,7 @@ def _dat_split(fwd, smi, tag="dat"):
              ("K16 batched_attn_kernel", ("batched_attn_kernel",)),
              ("K11 dwconv3x3_rows_kernel / dwconv3x3_kernel", ("dwconv3x3_rows_kernel",
                                                                  "dwconv3x3_kernel")),
-             ("K2 layernorm", ("layernorm_rows",)),
+             ("K2 layernorm", ("layernorm_bands", "layernorm_wide")),
              ("K3/K4 conv_nhwc", ("conv_nhwc",)))
     other = ("plain ops (module-chain GEMMs, BatchNorm, GELU, partitions, channel gates, "
              "conv_first, pixel shuffle, tiling, casts)")
@@ -3329,7 +3465,8 @@ def _hat_split(model, fwd, smi, tag="hat"):
               ("window_attn_wg_kernel", "batched_attn_kernel")),
              ("K8w16 ocab_heads_kernel + ocab_attn_kernel + K5a's OCAB tail (OCAB core)",
               ("ocab_heads_kernel", "ocab_attn_kernel", "swin_block_bwd_kernel")),
-             ("K2 layernorm", ("layernorm_rows",)), ("K3/K4 conv_nhwc", ("conv_nhwc",)))
+             ("K2 layernorm", ("layernorm_bands", "layernorm_wide")),
+             ("K3/K4 conv_nhwc", ("conv_nhwc",)))
     by_span = (("hat::cab", "CAB SE gate (plain ops)"),
                ("hat::ocab", "OCAB plain ops (qkv, proj, MLP, gathers)"),
                ("hat::hab", "HAB plain ops (K7 route: the shift and partition gathers)"))
@@ -4290,7 +4427,7 @@ def _dat_train_split(state, lr, hr, step_ms, smi):
     names = (("K16 forward (batched_attn_kernel)", ("batched_attn_kernel",)),
              ("K11 forward (dwconv3x3_rows_kernel / dwconv3x3_kernel)",
               ("dwconv3x3_rows_kernel", "dwconv3x3_kernel")),
-             ("K2-K4 forwards", ("layernorm_rows", "conv_nhwc")))
+             ("K2-K4 forwards", ("layernorm_bands", "layernorm_wide", "conv_nhwc")))
     by_span = (("step::forward", "other forward ops (GEMMs, BatchNorm, GELU, partitions, pads)"),
                ("step::backward", "backward (autograd; K16's, K11's, K2-K4's plain versions)"),
                ("step::optimizer", "optimizer (norm, clip, AdamW, EMA)"))
@@ -4388,7 +4525,7 @@ def _hat_train_split(state, lr, hr, step_ms, smi, tag="hat-train", parts=None, b
                  ("forward K1t swin_tail_wg_kernel / swin_tail_kernel",
                   ("swin_tail_wg_kernel", "swin_tail_kernel")),
                  ("forward K12 cab_wgmma_kernel", ("cab_wgmma_kernel",)),
-                 ("forward K2-K4", ("layernorm_rows", "conv_nhwc")))
+                 ("forward K2-K4", ("layernorm_bands", "layernorm_wide", "conv_nhwc")))
     by_span = by_span or (("hat::cab", "forward CAB SE gate (plain ops)"),
                           ("hat::ocab", "forward OCAB plain ops (qkv, proj, MLP, gathers)"),
                           ("hat::hab", "forward HAB plain ops (shift and partition gathers)"))
@@ -4396,7 +4533,7 @@ def _hat_train_split(state, lr, hr, step_ms, smi, tag="hat-train", parts=None, b
                   "SwinBlockFunctionBackward"),
                  ("backward K5w16 / K5r (K5a front / middle / tail, attention fwd / bwd, dW "
                   "GEMM, sums, packing, fold)", "WindowBlockFunctionBackward"),
-                 ("backward K8b (per-window, weight grads, reductions)",
+                 ("backward K8b (attention fwd / bwd, K5a middle, dW GEMM, sums, layout, fold)",
                   "OcabCoreFunctionBackward"),
                  ("backward K8bw16 (K5a middle, attention bwd, dW GEMM, sums, fold)",
                   "Ocab16FunctionBackward"),

@@ -14,7 +14,9 @@
 // K8bw16, csrc/ocab16.cu) runs the middle as its backward's token-local
 // part (the residual x its sw, d extra its dsw) and a fourth mode as its
 // forward's tail (O read back, x1, LN2, the MLP, the residual: the
-// output); swin_block_bwd_i16o_<cp>_<hdp>.cu.
+// output); swin_block_bwd_i16o_<cp>_<hdp>.cu.  At ws 7 and 8 (K8b,
+// csrc/ocab_bwd.cu) the middle runs a window a unit (ws 7: 49 real rows
+// of 64); swin_block_bwd_i7o_ / _i8o_<cp>_<hdp>.cu.
 #pragma once
 
 #include "common.cuh"
@@ -102,8 +104,9 @@ struct Args {
   // the tiled modes (swin_block_bwd16.cu): a window's heads as [ws^2,
   // HDP] tiles, rows swizzled as the head tiles in shared memory
   bf16* qkvh;   // [windows][nh][3][ws^2][HDP]: q (pre-scaled), k, v (the front)
-  bf16* doh;    // [windows][nh][ws^2][HDP]: do (the middle)
-  float* drow;  // [windows][nh][ws^2]: rowsum(do o) per head (the middle)
+  bf16* doh;    // [windows][nh][ws^2][HDP]: do (the middle; at ws 7 64 rows, the
+                //   pad rows' zero)
+  float* drow;  // [windows][nh][ws^2]: rowsum(do o) per head (the middle; ws 7: 64)
   int vl;       // the LN sums' vector: g1 | b1 | g2 | b2, CP each
   int batch, h, w, c, nh, chunks, shift, shifted, gelu_tanh, stages;
   float eps;
@@ -461,13 +464,17 @@ template <int WS, int CP, int HDP, int MODE = MODE_WHOLE>
 __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args a) {
   using L = Layout<CP, HDP>;
   // the tiled modes: a unit is one 64-token tile of a window (ws 16: tile
-  // u % 4 of window u / 4; ws 8: window u)
+  // u % 4 of window u / 4; ws 8: window u; ws 7, the OCAB's middle:
+  // window u, its 49 tokens in a 64-row tile)
   constexpr bool TILED = MODE != MODE_WHOLE;
-  static_assert(TILED ? (WS == 16 || WS == 8) : (WS == 7 || WS == 8),
-                "ws 16 (K5w16) and ws 8 (K5r) run as the three modes, ws 7 / 8 whole");
+  static_assert(TILED ? (WS == 16 || WS == 8 || (WS == 7 && MODE == MODE_MID))
+                      : (WS == 7 || WS == 8),
+                "ws 16 (K5w16), ws 8 (K5r, K8b) and ws 7 (K8b's middle) run as the tiled "
+                "modes, ws 7 / 8 whole");
   constexpr int WTOK = WS * WS;                 // a window's tokens
-  constexpr int TPW = TILED ? WTOK / 64 : 1;    // units a window
-  constexpr int NT = TILED ? 64 : WS * WS;
+  constexpr int TPW = TILED ? (WTOK + 63) / 64 : 1;  // units a window
+  constexpr int NT = TILED ? (WTOK < 64 ? WTOK : 64) : WS * WS;  // a unit's real rows
+  constexpr int HROWS = TILED ? TPW * 64 : WTOK;  // rows of the head tiles doh / drow
   constexpr int T2 = (2 * WS - 1) * (2 * WS - 1);
   constexpr int REL0 = (WS - 1) * (2 * WS - 1) + WS - 1;  // relative index of pos_i == pos_j
   constexpr int NJ = CP / 8;                               // 8-column groups of a row
@@ -1378,7 +1385,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
           const uint32_t hi = pack_bf16(dacc[4 * j + 2], dacc[4 * j + 3]);
           if (hh < a.nh) {
             char* t = reinterpret_cast<char*>(
-                a.doh + (static_cast<size_t>(wn) * a.nh + hh) * WTOK * HDP);
+                a.doh + (static_cast<size_t>(wn) * a.nh + hh) * HROWS * HDP);
             *reinterpret_cast<uint32_t*>(t + head_off(64 * sub + r0, d)) = lo;
             *reinterpret_cast<uint32_t*>(t + head_off(64 * sub + r0 + 8, d)) = hi;
             const float2 o0 = unpack_bf16(*reinterpret_cast<const uint32_t*>(ob + ws_off(r0, col)));
@@ -1396,7 +1403,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
             const float v = quad_sum(ds[hc][h2]);
             const int hh = 64 * kc / HDP + hc;
             if (q == 0 && hh < a.nh)
-              a.drow[(static_cast<size_t>(wn) * a.nh + hh) * WTOK + 64 * sub + r0 + 8 * h2] = v;
+              a.drow[(static_cast<size_t>(wn) * a.nh + hh) * HROWS + 64 * sub + r0 + 8 * h2] = v;
           }
       } else {
 #pragma unroll

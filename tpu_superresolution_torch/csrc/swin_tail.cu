@@ -10,7 +10,7 @@
 //           (csrc/swin_block.cu, ws 7 / 8, C <= 192) does not take.  With
 //           K2 (LN1) and K7 (qkv, attention, proj) before it, it computes
 //           K1's function at ws 16 (upstream HAT-SRx4) and any other window.
-// Math (per pixel p of x [B, H, W, C], C up to 2272, any MLP hidden):
+// Math (per pixel p of x [B, H, W, C], any C, any MLP hidden):
 //         x1  = x + m1 * attn[win(p), tok(p)] + extra
 //         out = x1 + m2 * fc2(gelu(fc1(LN2(x1))))
 //       where attn [B*nW, N = ws*ws, C] is K7's output on the windows of
@@ -36,7 +36,12 @@
 //       is sized by C: ~98 KB at C 180, so two blocks share an SM and
 //       hide each other's L2 latency (~124 KB at C 256, ~218 KB at C
 //       512: one; past 528 channels fewer rows a block keep it within
-//       the 227 KB).
+//       the 227 KB).  Past C 2272 not even 16 rows fit: then x1 and LN2's
+//       output live in a global scratch slice a CTA (16 rows, [16][CK]
+//       fp32 and [16][CK + 8] bf16, read and written through L2, the
+//       same addressing and arithmetic), and a persistent grid of two
+//       CTAs an SM walks the blocks, so the scratch stays the grid's size
+//       (kernels/fused_block.py tail_rows, tail_spills).
 // Bound on the H100: HAT-SRx4's bench batch ([25,64,64,180], hidden 360)
 //       needs 4*C*hidden = 259,200 FLOP a pixel, 26.5 GFLOP = 0.027 ms at
 //       the bf16 peak, against x, attn, extra in and out (147 MB, 0.044
@@ -60,16 +65,21 @@ constexpr int SMEM_LIMIT = 232448;
 // Shared-memory layout for CK padded channels (a multiple of 16, so
 // every buffer starts 128-byte aligned) and T rows: x1 fp32 [T][CK], LN2
 // output bf16 [T][CK + 8], the hidden chunk bf16 [T][LDH], m2 per row,
-// and a 1 KB epilogue tile per warp.
+// and a 1 KB epilogue tile per warp.  `spill`: x1 and LN2's output in the
+// global scratch instead (scratch_bytes a CTA, a multiple of 256).
 struct Layout {
   int off_y, off_h, off_m2, off_stg, bytes;
-  __host__ __device__ constexpr Layout(int ck, int t)
-      : off_y(t * ck * 4),
-        off_h(off_y + t * (ck + 8) * 2),
+  __host__ __device__ constexpr Layout(int ck, int t, bool spill = false)
+      : off_y(spill ? 0 : t * ck * 4),
+        off_h(spill ? 0 : off_y + t * (ck + 8) * 2),
         off_m2(off_h + t * LDH * 2),
         off_stg(off_m2 + t * 4),
         bytes(off_stg + NWARPS * 256 * 4) {}
 };
+
+__host__ __device__ constexpr long long scratch_bytes(int ck, int t) {
+  return static_cast<long long>(t) * ck * 4 + static_cast<long long>(t) * (ck + 8) * 2;
+}
 
 struct TailArgs {
   const bf16* x;      // [B, H, W, C]
@@ -83,6 +93,7 @@ struct TailArgs {
   const bf16* wfc2;   // [CK, HK]
   const float* bfc2;  // [CK]
   const float* scales;  // [B, 2] or null
+  unsigned char* scratch;  // null, or x1 and LN2's output: [gridDim.x][scratch_bytes]
   long long rows;       // B*H*W
   int h, w, c, ck, hk, ws, shift, gelu_tanh;
   int pairs;  // C even and x, attn, extra, y 4-byte aligned: bf16x2 loads and stores
@@ -93,18 +104,23 @@ template <int T>
 __global__ void __launch_bounds__(NTHREADS, 2) swin_tail_kernel(const TailArgs a) {
   constexpr int MT = T / 16;
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout lay(a.ck, T);
+  const bool spill = a.scratch != nullptr;
+  const Layout lay(a.ck, T, spill);
   const int ldx = a.ck, ldy = a.ck + 8;
-  float* xs = reinterpret_cast<float*>(smem);
-  bf16* ys = reinterpret_cast<bf16*>(smem + lay.off_y);
+  unsigned char* xbase = spill ? a.scratch + blockIdx.x * scratch_bytes(a.ck, T) : smem;
+  float* xs = reinterpret_cast<float*>(xbase);
+  bf16* ys = reinterpret_cast<bf16*>(spill ? xbase + static_cast<long long>(T) * a.ck * 4
+                                           : smem + lay.off_y);
   bf16* hs = reinterpret_cast<bf16*>(smem + lay.off_h);
   float* m2s = reinterpret_cast<float*>(smem + lay.off_m2);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   float* stg = reinterpret_cast<float*>(smem + lay.off_stg) + warp * 256;
 
-  const long long r0 = static_cast<long long>(blockIdx.x) * T;
   const int hw = a.h * a.w, n = a.ws * a.ws;
   const int nww = a.w / a.ws, nwh = a.h / a.ws;
+  const long long blocks = (a.rows + T - 1) / T;
+  for (long long blk = blockIdx.x; blk < blocks; blk += gridDim.x) {
+  const long long r0 = blk * T;
 
   // ---- x1 = x + m1 * attn + extra -> fp32 shared (columns c..ck zero;
   // rows past the map zero, never stored) ----
@@ -212,36 +228,43 @@ __global__ void __launch_bounds__(NTHREADS, 2) swin_tail_kernel(const TailArgs a
       for (int k = lane; k < a.c; k += 32) yr[k] = __float2bfloat16(xr[k]);
     }
   }
+  __syncthreads();  // the next block's rows take the buffers
+  }
 }
 
 template <int T>
-int launch(const TailArgs& a, cudaStream_t stream) {
-  const int smem_bytes = Layout(a.ck, T).bytes;
+int launch(const TailArgs& a, int grid, cudaStream_t stream) {
+  const int smem_bytes = Layout(a.ck, T, a.scratch != nullptr).bytes;
   const cudaError_t err = cudaFuncSetAttribute(
       swin_tail_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  swin_tail_kernel<T><<<static_cast<unsigned int>((a.rows + T - 1) / T), NTHREADS, smem_bytes,
-                        stream>>>(a);
+  swin_tail_kernel<T><<<grid, NTHREADS, smem_bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // rows: 64, 32 or 16 pixels a block (kernels/fused_block.py::tail_rows,
-// the most whose shared memory fits C).
+// the most whose shared memory fits C).  scratch: null, or (16 rows a
+// block, past C 2272: tail_spills) [grid][scratch_bytes(ck, 16)] bytes,
+// 256-byte aligned, for `grid` CTAs walking the blocks; without it the
+// grid is a CTA a block and `grid` is not read.
 extern "C" int sr_swin_tail_bf16(const void* x, const void* attn, const void* extra, void* y,
                                  const void* g2, const void* b2, const void* wfc1,
                                  const void* bfc1, const void* wfc2, const void* bfc2,
-                                 const void* scales, int batch, int h, int w, int c, int hidden,
-                                 int ws, int shift, int gelu_tanh, float eps, int rows_a_block,
-                                 void* stream) {
+                                 const void* scales, void* scratch, int batch, int h, int w,
+                                 int c, int hidden, int ws, int shift, int gelu_tanh, float eps,
+                                 int rows_a_block, int grid, void* stream) {
   const int ck = (c + 15) / 16 * 16;
+  const bool spill = scratch != nullptr;
   if (c < 1 || hidden < 1 || ws < 1 || h % ws || w % ws || shift < 0 || shift >= ws ||
       (rows_a_block != 64 && rows_a_block != 32 && rows_a_block != 16) ||
-      Layout(ck, rows_a_block).bytes > SMEM_LIMIT)
+      Layout(ck, rows_a_block, spill).bytes > SMEM_LIMIT ||
+      (spill && (rows_a_block != 16 || grid < 1 || !aligned_to(scratch, 256))))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long rows = static_cast<long long>(batch) * h * w;
   if (rows == 0) return 0;
+  const long long blocks = (rows + rows_a_block - 1) / rows_a_block;
   TailArgs a;
   a.x = static_cast<const bf16*>(x);
   a.attn = static_cast<const bf16*>(attn);
@@ -254,6 +277,7 @@ extern "C" int sr_swin_tail_bf16(const void* x, const void* attn, const void* ex
   a.wfc2 = static_cast<const bf16*>(wfc2);
   a.bfc2 = static_cast<const float*>(bfc2);
   a.scales = static_cast<const float*>(scales);
+  a.scratch = static_cast<unsigned char*>(scratch);
   a.rows = rows;
   a.h = h;
   a.w = w;
@@ -267,7 +291,8 @@ extern "C" int sr_swin_tail_bf16(const void* x, const void* attn, const void* ex
             (!extra || aligned_to(extra, 4));
   a.eps = eps;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows_a_block == 64) return launch<64>(a, s);
-  if (rows_a_block == 32) return launch<32>(a, s);
-  return launch<16>(a, s);
+  const int g = static_cast<int>(spill && grid < blocks ? grid : blocks);
+  if (rows_a_block == 64) return launch<64>(a, g, s);
+  if (rows_a_block == 32) return launch<32>(a, g, s);
+  return launch<16>(a, g, s);
 }

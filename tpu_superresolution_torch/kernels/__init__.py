@@ -22,12 +22,12 @@ fine-tuning (LT: ws 8, C 240, 8 heads, hidden 480).
  #   JAX file:line of pallas_call . entry function                on path  port
 ==== ========================================================== ======== ==================================================
 K1   fused_block.py:958 . fused_swin_block (_mega_forward)         S,T,H    CUDA csrc/swin_block.cu (ws 8, extra; wgmma, fused_block.block_plan), fused_block.fused_windows_block
-     (the same function at any other window or width)             H16,W,   K2 + K7 + K1's tail (K1t), CUDA csrc/swin_tail_wg.cu (wgmma, C <= 256) or csrc/swin_tail.cu (past it; fused_block.tail_route), fused_block.fused_block_tail
+     (the same function at any other window or width)             H16,W,   K2 + K7 + K1's tail (K1t), CUDA csrc/swin_tail_wg.cu (wgmma, C <= 256) or csrc/swin_tail.cu (past it, any C; fused_block.tail_route), fused_block.fused_block_tail
                                                                   H16T,LT
 K5   fused_block.py:1080 . _mega_backward                          T,HT     CUDA csrc/swin_block_bwd.cu (ws 8, extra; wgmma on the forward's tiles, fused_block.bwd_plan), fused_block.SwinBlockFunction
      (at ws 16, the K7 route's block, counted as K5w16)            H16T     CUDA csrc/swin_block_bwd16.cu (K5a's ws-16 modes + two attention kernels, fused_block.bwd16_plan), fused_block.WindowBlockFunction
      (at ws 8 past the block kernel's widths, counted as K5r)     LT       CUDA csrc/swin_block_bwd16.cu (K5a's ws-8 modes at cp 256, csrc/swin_block_bwd_i8w_256_32.cu; fused_block.k5r_plan), fused_block.WindowBlockFunction
-K2   layernorm.py:54 . pallas_layernorm (layernorm_spatial)        all      CUDA csrc/layernorm.cu, layernorm.layernorm
+K2   layernorm.py:54 . pallas_layernorm (layernorm_spatial)        all      CUDA csrc/layernorm.cu (bands of rows, a lane group a row; layernorm.layernorm_plan), layernorm.layernorm
 K3   cab_conv.py:307 . conv3x3_halo                                all      CUDA csrc/conv.cu, cab_conv.conv3x3
 K4   cab_conv.py:418 . conv_halo                                   all      CUDA csrc/conv.cu, cab_conv.conv_k
 K6   fused_block.py:1427 . fused_packed_windows_block (forward)    H,HT     CUDA csrc/swin_block.cu (ws 7, extra), fused_block.fused_windows_block
@@ -35,7 +35,7 @@ K6b  fused_block.py:1604 . _packed_backward                        HT       CUDA
 K13  fused_block.py:1532 . fused_spatial_windows_block             H        the K6 instantiation (it reads windows from the spatial map)
 K8   fused_ocab.py:311 . fused_ocab_core (_fwd_kernel)             HT       CUDA csrc/ocab.cu, fused_ocab.fused_ocab_core
      (at (ws, ows) (16, 24), counted as K8w16)                     H16,H16T CUDA csrc/ocab16.cu (wgmma: the gather from the qkv map, the attention over (window, head) units + K5a's OCAB tail; fused_ocab.ocab16_plan), fused_ocab.Ocab16Function (+ OcabHeadsFunction)
-K8b  fused_ocab.py:354 . fused_ocab_core (_bwd_kernel)             HT       CUDA csrc/ocab.cu, fused_ocab.OcabCoreFunction
+K8b  fused_ocab.py:354 . fused_ocab_core (_bwd_kernel)             HT       CUDA csrc/ocab_bwd.cu (wgmma: the attention over (window, head) units + K5a's middle, K5b, K5c; fused_ocab.ocab_bwd_plan), fused_ocab.OcabCoreFunction
      (at (16, 24), counted as K8bw16)                              H16T     CUDA csrc/ocab16.cu (K5a's middle, the attention backward, the gather's backward, K5b, K5c), fused_ocab.Ocab16Function (+ OcabHeadsFunction)
 K9   fused_rect_attn.py:433 . fused_rect_attention                 D        CUDA csrc/dat_rect.cu (+ dat_common.cuh's product and conv, window_attn_stream.cu's attention), fused_rect_attn.rect_attention
 K14  fused_channel_attn.py:209 . fused_channel_attention           D        CUDA csrc/dat_channel.cu (+ dat_common.cuh's product and conv), fused_channel_attn.channel_attention

@@ -43,16 +43,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # name: argtypes (pointers and the stream last as c_void_p)
-    "sr_layernorm_bf16": [_P, _P, _P, _P, ctypes.c_longlong, _I, ctypes.c_float, _P],
+    "sr_layernorm_bf16": [_P, _P, _P, _P, ctypes.c_longlong] + [_I] * 4 + [ctypes.c_float, _P],
     "sr_conv_bf16": [_P, _P, _P, _P] + [_I] * 14 + [_P, _P],
     "sr_swin_block_bf16": [_P] * 15 + [_I] * 13 + [ctypes.c_float, _P],
     "sr_swin_block_bwd_bf16": [_P] * 25 + [ctypes.POINTER(_I), ctypes.c_float, _P],
     "sr_ocab_fwd_bf16": [_P] * 14 + [_I] * 6 + [ctypes.c_float, _P],
-    "sr_ocab_bwd_bf16": [_P] * 24 + [_I] * 6 + [ctypes.c_float, _I, _I, _P],
+    "sr_ocab_bwd_bf16": [_P] * 30 + [ctypes.POINTER(_I), ctypes.c_float, _P],
     "sr_dat_rect_bf16": [_P] * 15 + [ctypes.POINTER(_I), ctypes.c_float, _P],
     "sr_dat_channel_bf16": [_P] * 14 + [ctypes.POINTER(_I), ctypes.c_float, _P],
     "sr_dat_tail_bf16": [_P] * 8 + [ctypes.POINTER(_I), ctypes.c_float, _P],
-    "sr_swin_tail_bf16": [_P] * 11 + [_I] * 8 + [ctypes.c_float, _I, _P],
+    "sr_swin_tail_bf16": [_P] * 12 + [_I] * 8 + [ctypes.c_float, _I, _I, _P],
     "sr_swin_tail_wg_bf16": [_P] * 8 + [ctypes.POINTER(_I), ctypes.c_float, _P],
     "sr_ln_cab_convs_bf16": [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P],
     "sr_dwconv3x3_bf16": [_P] * 4 + [ctypes.POINTER(_I), _P],

@@ -126,6 +126,7 @@ MAX_HEADS = CP // HDP
 LN_EPS = 1e-5
 N_TOK = 64   # token rows per window in the kernels (ws^2, padded)
 TAIL_ROWS = (64, 32, 16)  # csrc/swin_tail.cu: pixels a block, the most that fit C
+TAIL_SPILL_CTAS = 2       # its CTAs an SM past C 2272 (tail_spills)
 TAIL_SMEM = 232448        # both tail kernels' shared memory
 
 launches = _lib.LaunchCounter("K1 swin_block ws8")
@@ -270,7 +271,6 @@ def block_route(ws: int, c: int, heads: int, hidden: int, qkv_bias: bool = True)
         raise ValueError(f"swin block: {heads} heads do not divide C={c}")
     if ws in KERNEL_WINDOWS and qkv_bias and _block_widths(c, heads, hidden):
         return "block"
-    tail_rows(c)  # raises past the tail kernel's widths
     return "window_attention"
 
 
@@ -642,7 +642,7 @@ TAIL_WG_ROWS = 64     # pixels a unit (the wgmma m64)
 def tail_route(c: int, hidden: int) -> str:
     """The kernel of K1's tail at C channels and MLP hidden `hidden`:
     "wgmma" (``csrc/swin_tail_wg.cu``) for C <= 256 at any hidden, else
-    "wmma" (``csrc/swin_tail.cu``, C up to 2272, ``tail_rows``).  Static
+    "wmma" (``csrc/swin_tail.cu``, any C: ``tail_rows``, ``tail_spills``).  Static
     shapes only, the same on every call and device; a launch never
     falls back from one to the other."""
     if c < 1 or hidden < 1:
@@ -734,17 +734,34 @@ def _round16(v: int) -> int:
     return -(-v // 16) * 16
 
 
+def _tail_smem(c: int, t: int) -> int:
+    """The WMMA tail kernel's shared memory at T = t pixels a block: x1
+    fp32 and LN2's output bf16 per row, the 128-column hidden chunk, the
+    rows' m2 and the warps' epilogue tiles."""
+    ck = _round16(c)
+    return t * ck * 4 + t * (ck + 8) * 2 + t * 136 * 2 + t * 4 + 8 * 256 * 4
+
+
 def tail_rows(c: int) -> int:
     """The WMMA tail kernel's pixels a block at C channels: the most of
-    64, 32 and 16 whose shared memory (x1 fp32 and LN2's output bf16 per
-    row, the 128-column hidden chunk, the warps' epilogue tiles) fits; C
-    <= 528, 1104 and 2272.  Raises ValueError past that."""
-    ck = _round16(c)
-    for t in TAIL_ROWS:
-        if t * ck * 4 + t * (ck + 8) * 2 + t * 136 * 2 + t * 4 + 8 * 256 * 4 <= TAIL_SMEM:
-            return t
-    raise ValueError(f"fused_block_tail: C={c} leaves no room for 16 rows in the tail "
-                     f"kernel's shared memory (C <= 2272)")
+    64, 32 and 16 whose shared memory fits (C <= 528, 1104 and 2272), and
+    16 past that, where x1 and LN2's output go to a global scratch
+    (``tail_spills``): any C."""
+    return next((t for t in TAIL_ROWS if _tail_smem(c, t) <= TAIL_SMEM), TAIL_ROWS[-1])
+
+
+def tail_spills(c: int) -> bool:
+    """Whether the WMMA tail kernel keeps x1 and LN2's output in a global
+    scratch slice a CTA (C past 2272: 16 rows do not fit its shared
+    memory), on a persistent grid of TAIL_SPILL_CTAS CTAs an SM."""
+    return _tail_smem(c, TAIL_ROWS[-1]) > TAIL_SMEM
+
+
+def tail_scratch_bytes(c: int) -> int:
+    """A spilling CTA's scratch: [16][CK] fp32 x1 and [16][CK + 8] bf16
+    LN2 output (csrc/swin_tail.cu scratch_bytes)."""
+    ck, t = _round16(c), TAIL_ROWS[-1]
+    return t * ck * 4 + t * (ck + 8) * 2
 
 
 @torch.no_grad()
@@ -768,7 +785,6 @@ def pack_block_tail(g2, b2, wfc1, bfc1, wfc2, bfc2, route: Optional[str] = None,
         return PackedTailWg(tiles=src.to(dtype)[tidx], vec=vsrc[vidx], dim=c, hidden=hidden)
     if route != "wmma":
         raise ValueError(f"pack_block_tail: route {route!r} is neither 'wgmma' nor 'wmma'")
-    tail_rows(c)
     ck, hk = _round16(c), _round16(hidden)
     bf = torch.bfloat16
     return PackedBlockTail(
@@ -814,12 +830,17 @@ def _launch_tail_wmma(x, attn, packed: PackedBlockTail, ws, shift, gelu_approx, 
             ("g2", packed.g2, (c,), f32, 4), ("b2", packed.b2, (c,), f32, 4)):
         _lib.check_tensor(t, tname, dtype, dev, shape=shape, align=align)
     y = torch.empty_like(x)
+    rows, grid, scratch = tail_rows(c), 0, None
+    if tail_spills(c):
+        grid = max(1, min(-(-(b * h * wd) // rows), TAIL_SPILL_CTAS * _lib.sm_count(dev.index)))
+        scratch = torch.empty(grid * tail_scratch_bytes(c), dtype=torch.uint8, device=dev)
+        _lib.check_tensor(scratch, "scratch", torch.uint8, dev, align=256)
     status = _lib.call(x, _lib.library().sr_swin_tail_bf16,
                        x.data_ptr(), attn.data_ptr(), _ptr(extra), y.data_ptr(),
                        packed.g2.data_ptr(), packed.b2.data_ptr(), packed.wfc1.data_ptr(),
                        packed.bfc1.data_ptr(), packed.wfc2.data_ptr(), packed.bfc2.data_ptr(),
-                       _ptr(scales), b, h, wd, c, packed.hidden, ws, shift,
-                       int(bool(gelu_approx)), LN_EPS, tail_rows(c), _lib.stream_of(x))
+                       _ptr(scales), _ptr(scratch), b, h, wd, c, packed.hidden, ws, shift,
+                       int(bool(gelu_approx)), LN_EPS, rows, grid, _lib.stream_of(x))
     _lib.check_status(status, "sr_swin_tail_bf16")
     return y
 
@@ -1088,36 +1109,6 @@ def _launch_block(x, packed: PackedBlockTiles, shift, mask, gelu_approx, scales,
     return y
 
 
-# The split-K reduction of csrc/wgrad.cuh (K8b, K8bw16): at most this many
-# row chunks per weight GEMM.
-K5_MAX_SPLITS = 16
-K5_MIN_ROWS_PER_SPLIT = 512
-
-
-def k5_splits(tokens: int) -> Tuple[int, int]:
-    """(number of row chunks, rows per chunk) of the split-K weight
-    gradient reduction over `tokens` workspace rows (a multiple of 64)."""
-    splits = max(1, min(K5_MAX_SPLITS, tokens // K5_MIN_ROWS_PER_SPLIT))
-    rows = -(-tokens // splits)
-    rows = -(-rows // 64) * 64
-    return -(-tokens // rows), rows
-
-
-def split_vec(vec: torch.Tensor, offsets: dict, sizes: dict) -> dict:
-    """The named slices of a reduced per-window partial-sum vector (the
-    LayerNorm and bias gradients; CP long unless `sizes` says)."""
-    return {name: vec[o:o + sizes.get(name, CP)] for name, o in offsets.items()}
-
-
-def split_wgrad(wgrad: torch.Tensor, shapes) -> dict:
-    """The [out, in] weight gradients concatenated in `shapes` order."""
-    out, off = {}, 0
-    for name, m, n in shapes:
-        out[name] = wgrad[off:off + m * n].reshape(m, n)
-        off += m * n
-    return out
-
-
 # csrc/swin_block_bwd.cu (K5 / K6b): the per-window kernel's (K5a) consumer
 # warpgroups, ring stage, workspace tiles, and the weight-gradient GEMM's
 # (K5b) CTAs of 64 x <= 192 output tiles, two an SM
@@ -1316,12 +1307,6 @@ def _launch_bwd(ct, x, packed: PackedBlockTiles, shift, mask, gelu_approx, scale
     _lib.check_status(status, "sr_swin_block_bwd_bf16")
     BACKWARD_COUNTERS[ws].count += 1
     return dx, fold_block_grads(gv, rpb, c, nh, hidden, ws), dextra
-
-
-def unpack_proj_grad(g: torch.Tensor, c: int, nh: int) -> torch.Tensor:
-    """[CP, CP] packed proj gradient (input columns head-padded) -> the
-    raw [c, c] one (the OCAB backwards' layout)."""
-    return g.reshape(CP, MAX_HEADS, HDP)[:c, :nh, :c // nh].reshape(c, c)
 
 
 def fused_swin_block_backward(ct: torch.Tensor, x: torch.Tensor, w: SwinBlockWeights, ws: int,

@@ -21,13 +21,23 @@ kernel pads in shared memory.
 
 On a CPU tensor the wrapper runs ``ocab_core_plain``, differentiable by
 autograd; on a CUDA tensor it launches K8 (through ``OcabCoreFunction``
-when a gradient is wanted, whose backward is K8's backward kernel, K8b)
-or raises.  The kernels take (ws, ows) = (7, 10) or (8, 12) (one CTA a
-window, ``csrc/ocab.cu``) and (16, 24), upstream HAT's OCAB, at C <=
-192, heads of hd <= 32 (at most 6) and an MLP hidden <= 384
-(``ocab_ok``); HAT's OCAB trains through them where they do, and through
-its module path with K15 (``window_attention.fused_window_attention``)
-elsewhere.
+when a gradient is wanted, whose backward is K8's backward, K8b) or
+raises.  The kernels take (ws, ows) = (7, 10) or (8, 12) (K8 one CTA a
+window, ``csrc/ocab.cu``; K8b ``csrc/ocab_bwd.cu``) and (16, 24),
+upstream HAT's OCAB, at C <= 192, heads of hd <= 32 (at most 6) and an
+MLP hidden <= 384 (``ocab_ok``); HAT's OCAB trains through them where
+they do, and through its module path with K15
+(``window_attention.fused_window_attention``) elsewhere.
+
+K8b runs K8bw16's split on Hopper's wgmma at ws 7 and 8: q, k, v go
+head-major (a gather kernel into ``to_heads``' layout), the forward's
+attention is recomputed (O and each row's max and 1 / sum) over
+(window, head) units, K5a's middle runs over units of one window (at ws
+7 its 49 tokens in 64 rows), then the attention backward over (window,
+head) units, two windows a stage, with each CTA's bias-gradient partial
+summed in shared memory, K5b and K5c, on ``pack_ocab_tiles``' weight
+stream (``ocab_bwd_plan`` plans the launches, ``ocab_bwd_bytes`` sizes
+their workspaces, carved from one buffer).
 
 At (16, 24) the core runs on Hopper's wgmma as K8w16 / K8bw16
 (``csrc/ocab16.cu``, each wrapper call counted once): q, k and v go
@@ -68,7 +78,6 @@ from tpu_superresolution_torch.kernels.fused_block import (
     HIDP,
     LN_EPS,
     MAX_HEADS,
-    N_TOK,
     BwdPlan,
     StreamLayout,
     _fold_indices,
@@ -79,11 +88,7 @@ from tpu_superresolution_torch.kernels.fused_block import (
     bwd_plan,
     gelu,
     gelu_grad,
-    k5_splits,
-    split_vec,
-    split_wgrad,
     stream_layout,
-    unpack_proj_grad,
 )
 
 # (ws, ows) pairs the kernels are instantiated for at overlap ratio 0.5:
@@ -297,14 +302,11 @@ def pack_ocab_weights(w: OcabWeights) -> PackedOcab:
     )
 
 
-def _check_launch(q, k, v, sw, packed: PackedOcab, bias, name, ct=None) -> None:
+def _check_launch(q, k, v, sw, packed: PackedOcab, bias, name) -> None:
     dev, bf, f32 = sw.device, torch.bfloat16, torch.float32
     bw, nq, c = q.shape
     nk = k.shape[1]
-    acts = [("q", q, nq), ("k", k, nk), ("v", v, nk), ("sw", sw, nq)]
-    if ct is not None:
-        acts.append(("ct", ct, nq))
-    for tname, t, rows in acts:
+    for tname, t, rows in (("q", q, nq), ("k", k, nk), ("v", v, nk), ("sw", sw, nq)):
         _lib.check_tensor(t, f"{name}: {tname}", bf, dev, shape=(bw, rows, c), align=2)
     for tname, t, shape, dtype, align in (
         ("wproj", packed.wproj, (CP, CP), bf, 32), ("bproj", packed.bproj, (CP,), f32, 16),
@@ -335,67 +337,6 @@ def _launch_fwd(q, k, v, sw, packed: PackedOcab, bias, gelu_approx) -> torch.Ten
     _lib.check_status(status, "sr_ocab_fwd_bf16")
     launches.count += 1
     return out
-
-
-# Per-window partial sums written by K8b's per-window kernel: LN g2, b2,
-# the bias sums bproj (CP each), bfc1 (HIDP), bfc2 (CP); the per-head dS
-# [nh, ws^2, ows^2] follows.
-_VEC_OFFSETS = {"g2": 0, "b2": CP, "bproj": 2 * CP, "bfc1": 3 * CP, "bfc2": 3 * CP + HIDP}
-_VEC_SIZES = {"bfc1": HIDP}
-K8_VEC = 4 * CP + HIDP
-# Weight-gradient products of K8b, [out, in] each, in this order.
-_WGRAD_SHAPES = (("wproj", CP, CP), ("wfc1", HIDP, CP), ("wfc2", CP, HIDP))
-K8_WGRAD = sum(m * n for _, m, n in _WGRAD_SHAPES)
-# bf16 operand columns per query row of the workspace: o, y2c, act, dmlp,
-# dh1, dattn; then fp32 x1 (CP) and h1 (HIDP).
-K8_BF16_COLS = CP + CP + HIDP + CP + HIDP + CP
-K8_F32_COLS = CP + HIDP
-
-
-def _launch_bwd(ct, q, k, v, sw, packed: PackedOcab, bias, gelu_approx):
-    """K8b (ws 7, 8): the per-window backward, the weight-gradient
-    products and the ordered reductions.  Returns (dq, dk, dv, dsw,
-    packed-space fp32 gradients with the bias gradient under "bias")."""
-    _check_launch(q, k, v, sw, packed, bias, "fused_ocab_core backward", ct)
-    bw, nq, c = q.shape
-    nk, nh = k.shape[1], packed.num_heads
-    ws, ows = math.isqrt(nq), math.isqrt(nk)
-    dev = sw.device
-    f32 = torch.float32
-    tokens = bw * N_TOK  # workspace rows
-    splits, rows = k5_splits(tokens)
-    dq, dk, dv, dsw = (torch.empty_like(t) for t in (q, k, v, sw))
-    part_w = torch.empty(splits * K8_WGRAD, dtype=f32, device=dev)
-    wgrad = torch.empty(K8_WGRAD, dtype=f32, device=dev)
-    ws16 = torch.empty(tokens * K8_BF16_COLS, dtype=torch.bfloat16, device=dev)
-    ws32 = torch.empty(tokens * K8_F32_COLS, dtype=f32, device=dev)
-    vec_len = K8_VEC + nh * nq * nk
-    part_win = torch.empty(bw * vec_len, dtype=f32, device=dev)
-    vec = torch.empty(vec_len, dtype=f32, device=dev)
-    status = _lib.call(
-        sw, _lib.library().sr_ocab_bwd_bf16,
-        ct.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), sw.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dsw.data_ptr(),
-        *_weight_ptrs(packed, bias), ws16.data_ptr(), ws32.data_ptr(), part_win.data_ptr(),
-        part_w.data_ptr(), vec.data_ptr(), wgrad.data_ptr(), bw, c, nh, ws, ows,
-        int(bool(gelu_approx)), LN_EPS, splits, rows, _lib.stream_of(sw))
-    _lib.check_status(status, "sr_ocab_bwd_bf16")
-    launches_bwd.count += 1
-    g = split_wgrad(wgrad, _WGRAD_SHAPES)
-    g.update(split_vec(vec, _VEC_OFFSETS, _VEC_SIZES))
-    g["bias"] = vec[K8_VEC:].reshape(nh, nq, nk)
-    return dq, dk, dv, dsw, g
-
-
-def unpack_ocab_grads(g: dict, packed: PackedOcab) -> dict:
-    """Packed-layout gradients -> raw-space ones (drop the padding)."""
-    c, nh, hidden = packed.dim, packed.num_heads, packed.hidden
-    return dict(
-        wproj=unpack_proj_grad(g["wproj"], c, nh), bproj=g["bproj"][:c],
-        g2=g["g2"][:c], b2=g["b2"][:c],
-        wfc1=g["wfc1"][:hidden, :c], bfc1=g["bfc1"][:hidden],
-        wfc2=g["wfc2"][:c, :hidden], bfc2=g["bfc2"][:c], bias=g["bias"],
-    )
 
 
 # ----------------------------------------------------------------- ws 16
@@ -777,6 +718,155 @@ def _fold16_index(c: int, nh: int, hidden: int, device: torch.device):
             tuple(shapes[k] for k in _FOLD16))
 
 
+# ------------------------------------------------------------ K8b, ws 7 / 8
+# csrc/ocab_bwd.cu: the attention kernels' consumer warpgroups (a window
+# each in a stage) and a unit's query rows
+OW_CONS = 2
+OW_ROWS = 64
+
+
+def _ow_part_ld(nk: int) -> int:
+    """A consumer's bias-gradient partial's row stride (csrc/ocab_bwd.cu
+    part_ld): nk rounded to 8, plus 8 unless that is 8 or 24 mod 32."""
+    ld = -(-nk // 8) * 8
+    return ld if ld % 32 in (8, 24) else ld + 8
+
+
+def ocab_win_smem(ws: int, ows: int, hdp: int, backward: bool) -> int:
+    """The window attention kernel's shared memory (csrc/ocab_bwd.cu
+    OwLayout): two stages of two windows' tiles (q [64, hdp], k and v
+    [nk rounded to 64, hdp]; for the backward dO [64, hdp] and 1 KB of row
+    statistics), the backward's two [64, part_ld] fp32 partials, four
+    barriers."""
+    nkp, rb = -(-ows * ows // 64) * 64, 2 * hdp
+    win = OW_ROWS * rb + 2 * nkp * rb + ((OW_ROWS * rb + 1024) if backward else 0)
+    part = OW_CONS * OW_ROWS * _ow_part_ld(ows * ows) * 4 if backward else 0
+    return 1024 + 2 * OW_CONS * win + part + 4 * 8
+
+
+@dataclasses.dataclass(frozen=True)
+class OcabBwdPlan:
+    """How csrc/ocab_bwd.cu runs K8b on `windows` windows of (ws, ows):
+    `block`, K5a's plan (``fused_block.bwd_plan``) for its middle over the
+    windows (a unit each) on `grid` CTAs; K5b's `splits`; the attention
+    kernels' `cph` CTAs a head, CTA f of a head walking windows f, f +
+    cph, ... two a stage, with `att_fwd_smem` / `att_bwd_smem` bytes of
+    shared memory."""
+
+    block: BwdPlan
+    ws: int
+    ows: int
+    windows: int
+    grid: int
+    splits: int
+    cph: int
+    att_fwd_smem: int
+    att_bwd_smem: int
+
+
+@functools.lru_cache(maxsize=64)
+def ocab_bwd_plan(ws: int, ows: int, c: int, heads: int, hidden: int, windows: int,
+                  sms: int) -> OcabBwdPlan:
+    """K8b's plan from static shapes alone (the C entry only checks it).
+    Raises ValueError outside ``ocab_ok`` at (7, 10) and (8, 12)."""
+    if (ws, ows) == W16 or not ocab_ok(ws, ows, c, heads, hidden):
+        raise ValueError(f"K8b takes (ws, ows) (7, 10) or (8, 12), C <= {CP}, <= {MAX_HEADS} "
+                         f"heads of hd <= {HDP}, hidden <= {HIDP}; got ({ws}, {ows}), C={c}, "
+                         f"heads={heads}, hidden={hidden}")
+    plan = bwd_plan(c, heads, hidden)
+    grid, splits = bwd_grid(plan, windows, sms)
+    return OcabBwdPlan(block=plan, ws=ws, ows=ows, windows=windows, grid=grid, splits=splits,
+                       cph=max(1, min(windows, sms // heads)),
+                       att_fwd_smem=ocab_win_smem(ws, ows, plan.hdp, False),
+                       att_bwd_smem=ocab_win_smem(ws, ows, plan.hdp, True))
+
+
+def ocab_bwd_bytes(p: OcabBwdPlan, heads: int) -> dict:
+    """Bytes of each workspace K8b uses, in ``_launch_bwd``'s order: the
+    head-major q, k, v, the recomputed forward's O (K5a's workspace
+    operand) and row statistics, the dW workspace (y2c, act, dattn, dh1,
+    dmlp), dO tiles, row term, dx1 scratch, LN2 sums' partials, the CTAs'
+    bias-gradient partials ([nq, nk] fp32 a CTA and head) and K5b's
+    splits'."""
+    b, n = p.block, p.windows * heads
+    return {"head-major q, k, v": n * (p.ws ** 2 + 2 * p.ows ** 2) * b.hdp * 2,
+            "O": p.windows * b.kc * BWD_TILE * 2,
+            "row statistics": n * 2 * OW_ROWS * 4,
+            "workspace": p.windows * (3 * b.kc + 2 * b.chunks) * BWD_TILE * 2,
+            "dO tiles": n * OW_ROWS * b.hdp * 2,
+            "row term": n * OW_ROWS * 4,
+            "dx1 scratch": (p.windows + p.windows % 2) * 64 * b.cp * 4,
+            "LN sums partials": p.grid * 2 * 4 * 4 * b.cp * 4,
+            "bias-gradient partials": p.cph * heads * p.ws ** 2 * p.ows ** 2 * 4,
+            "weight partials": p.splits * (b.stream_len + b.bias_len) * 4}
+
+
+def _fold_grads(gv: torch.Tensor, c: int, nh: int, hidden: int) -> dict:
+    """The raw-space gradients of _FOLD16 from a [weight stream | sums]
+    gradient vector (K8b's and K8bw16's)."""
+    idx, shapes = _fold16_index(c, nh, hidden, gv.device)
+    g, off = {}, 0
+    flat = gv[idx]
+    for k, shape in zip(_FOLD16, shapes):
+        n = math.prod(shape)
+        g[k] = flat[off:off + n].reshape(shape)
+        off += n
+    return g
+
+
+def _launch_bwd(ct, q, k, v, sw, w: OcabWeights, bias, gelu_approx):
+    """K8b (csrc/ocab_bwd.cu) at ws 7 and 8 on window-layout operands: the
+    six launches on ``ocab_bwd_plan``'s plan (the first takes q, k, v
+    head-major), its workspaces carved from one buffer, dq, dk, dv
+    stored in the window layout.  Returns (dq, dk, dv, dsw, raw-space
+    fp32 gradients of _FOLD16 with the bias gradient under "bias");
+    counts one launch."""
+    bw, nq, c = q.shape
+    nk, nh, dev = k.shape[1], w.num_heads, sw.device
+    pk = pack_ocab_tiles(w)
+    p = ocab_bwd_plan(math.isqrt(nq), math.isqrt(nk), c, nh, w.hidden, bw,
+                      _lib.sm_count(dev.index))
+    b = p.block
+    lay, bf, f32 = pk.layout, torch.bfloat16, torch.float32
+    for tname, t, shape, dtype, align in (
+        ("q", q, (bw, nq, c), bf, 2), ("k", k, (bw, nk, c), bf, 2), ("v", v, (bw, nk, c), bf, 2),
+        ("ct", ct, (bw, nq, c), bf, 2), ("sw", sw, (bw, nq, c), bf, 2),
+        ("tiles", pk.tiles, None, bf, 16), ("bproj", pk.bproj, (lay.cp,), f32, 8),
+        ("bfc1", pk.bfc1, (lay.chunks * 64,), f32, 8), ("bfc2", pk.bfc2, (lay.cp,), f32, 8),
+        ("g2", pk.g2, (c,), f32, 4), ("b2", pk.b2, (c,), f32, 4),
+        ("bias", bias, (nh, nq, nk), f32, 8),
+    ):
+        _lib.check_tensor(t, f"fused_ocab_core backward: {tname}", dtype, dev, shape=shape,
+                          align=align)
+    sizes = ocab_bwd_bytes(p, nh)
+    at, total = {}, 0  # each workspace's offset in one buffer, 256-byte aligned
+    for key, n in sizes.items():
+        at[key], total = total, total + -(-n // 256) * 256
+    buf = torch.empty(total, dtype=torch.uint8, device=dev)
+    if nh * b.hdp < b.kc * 64:  # O's columns past the heads' are read as zero (the proj's K)
+        buf[at["O"]:at["O"] + sizes["O"]].zero_()
+    base = buf.data_ptr()
+    # the head-major q, k, v one after another in their workspace
+    heads = (base, base + bw * nh * nq * b.hdp * 2, base + bw * nh * (nq + nk) * b.hdp * 2)
+    dq, dk, dv, dsw = (torch.empty_like(t) for t in (q, k, v, sw))
+    gv = torch.empty(b.stream_len + b.vec_len, dtype=f32, device=dev)
+    dbias = torch.empty(nh, nq, nk, dtype=f32, device=dev)
+    geo = (ctypes.c_int * 13)(bw, p.ws, p.ows, c, nh, w.hidden, b.cp, b.hdp, b.stages,
+                              int(bool(gelu_approx)), p.grid, p.splits, p.cph)
+    status = _lib.call(
+        sw, _lib.library().sr_ocab_bwd_bf16,
+        ct.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), sw.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dsw.data_ptr(), pk.tiles.data_ptr(),
+        pk.bproj.data_ptr(), pk.bfc1.data_ptr(), pk.bfc2.data_ptr(), pk.g2.data_ptr(),
+        pk.b2.data_ptr(), bias.data_ptr(), *heads, *(base + at[key] for key in list(sizes)[1:]),
+        gv.data_ptr(), dbias.data_ptr(), geo, LN_EPS, _lib.stream_of(sw))
+    _lib.check_status(status, "sr_ocab_bwd_bf16")
+    launches_bwd.count += 1
+    g = _fold_grads(gv, c, nh, w.hidden)
+    g["bias"] = dbias
+    return dq, dk, dv, dsw, g
+
+
 def _launch_bwd16(ct, qh, kh, vh, sw, pk: PackedOcab16, bias, gelu_approx, o, stat):
     """K8bw16 (csrc/ocab16.cu) on the forward's O and row statistics: K5a's
     middle, the attention backward, K5b, K5c, on ``ocab16_plan``'s plan.
@@ -807,13 +897,7 @@ def _launch_bwd16(ct, qh, kh, vh, sw, pk: PackedOcab16, bias, gelu_approx, o, st
         _lib.stream_of(sw))
     _lib.check_status(status, "sr_ocab16_bwd_bf16")
     launches_bwd_w16.count += 1
-    idx, shapes = _fold16_index(c, nh, pk.hidden, dev)
-    g, off = {}, 0
-    flat = gv[idx]
-    for k, shape in zip(_FOLD16, shapes):
-        n = math.prod(shape)
-        g[k] = flat[off:off + n].reshape(shape)
-        off += n
+    g = _fold_grads(gv, c, nh, pk.hidden)
     g["bias"] = dbias
     return dq, dk, dv, dsw, g
 
@@ -880,32 +964,31 @@ def fused_ocab_core_backward(ct: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
         c = w.dim
         return OcabGrads(dq=from_heads(dq, c), dk=from_heads(dk, c), dv=from_heads(dv, c),
                          dsw=dsw, **g)
-    packed = pack_ocab_weights(w)
-    dq, dk, dv, dsw, g = _launch_bwd(ct, q, k, v, sw, packed, bias, gelu_approx)
-    return OcabGrads(dq=dq, dk=dk, dv=dv, dsw=dsw, **unpack_ocab_grads(g, packed))
+    dq, dk, dv, dsw, g = _launch_bwd(ct, q, k, v, sw, w, bias, gelu_approx)
+    return OcabGrads(dq=dq, dk=dk, dv=dv, dsw=dsw, **g)
 
 
 class OcabCoreFunction(torch.autograd.Function):
     """K8 on CUDA at ws 7 and 8: forward K8, backward K8b.  Inputs: q, k,
     v, sw, the gathered bias, (num_heads, gelu_approx), then the weights
-    of GRAD_FIELDS; the weights are packed for the kernels on every call."""
+    of GRAD_FIELDS; the weights are packed for each kernel on every call
+    (K8's ``pack_ocab_weights``, K8b's ``pack_ocab_tiles``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, sw, bias, meta, *params):
         num_heads, gelu_approx = meta
-        packed = pack_ocab_weights(OcabWeights(num_heads=num_heads,
-                                               **dict(zip(GRAD_FIELDS, params))))
-        ctx.save_for_backward(q, k, v, sw, bias)
-        ctx.packed, ctx.gelu_approx = packed, gelu_approx
-        return _launch_fwd(q, k, v, sw, packed, bias, gelu_approx)
+        w = OcabWeights(num_heads=num_heads, **dict(zip(GRAD_FIELDS, params)))
+        ctx.save_for_backward(q, k, v, sw, bias, *params)
+        ctx.num_heads, ctx.gelu_approx = num_heads, gelu_approx
+        return _launch_fwd(q, k, v, sw, pack_ocab_weights(w), bias, gelu_approx)
 
     @staticmethod
     def backward(ctx, ct):
-        q, k, v, sw, bias = ctx.saved_tensors
-        dq, dk, dv, dsw, g = _launch_bwd(ct.to(sw.dtype).contiguous(), q, k, v, sw, ctx.packed,
-                                         bias, ctx.gelu_approx)
-        raw = unpack_ocab_grads(g, ctx.packed)
-        return (dq, dk, dv, dsw, raw["bias"], None) + tuple(raw[k] for k in GRAD_FIELDS)
+        q, k, v, sw, bias, *params = ctx.saved_tensors
+        w = OcabWeights(num_heads=ctx.num_heads, **dict(zip(GRAD_FIELDS, params)))
+        dq, dk, dv, dsw, g = _launch_bwd(ct.to(sw.dtype).contiguous(), q, k, v, sw, w, bias,
+                                         ctx.gelu_approx)
+        return (dq, dk, dv, dsw, g["bias"], None) + tuple(g[k] for k in GRAD_FIELDS)
 
 
 def fused_ocab_core_map(qkv: torch.Tensor, x: torch.Tensor, w: OcabWeights, bias: torch.Tensor,
