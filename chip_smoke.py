@@ -35,8 +35,11 @@ Phases (a failure in any raises, and the script exits non-zero):
             training kernels at the HAT train step's shapes: K6b (the
             ws-7 block backward) and K5 with d`extra`, on dx, d extra
             and the 13 parameter gradients (as K5's rows: b2b, bytes,
-            two runs bit-identical), K8 (the OCAB core) and K8b
-            (its backward, on dq, dk, dv, d sw and 9 gradients); then
+            two runs bit-identical), K8 (the OCAB core: its three
+            launches, each timed by the profiler) and K8b (its backward
+            on K8's kept tensors, four launches, on dq, dk, dv, d sw and
+            9 gradients), each with two runs bit-identical, then both at
+            K8B_ENVELOPE's widths; then
             DAT's kernels at DATConfig()'s widths on the bench tile
             batch and on a [2,52,76,180] image (sides not multiples of
             16): K9 at split (8, 16) and the published DAT x4's (8, 32),
@@ -72,7 +75,8 @@ Phases (a failure in any raises, and the script exits non-zero):
             timed beside SDPA, and K11 (depthwise 3x3) at [8,64,64,180]
             and [25,64,64,360], timed beside cuDNN's grouped conv (both
             K11 kernels, "rows" and "tiles", timed and held equal bit
-            for bit); K16 also at branches of hd 44 and 64; then
+            for bit); K16 also at branches of hd 44 and 64, each row
+            with two runs bit-identical; then
             K15 (window attention, Nq queries against Nk keys: the wgmma,
             tiled or stream kernel, by shape) at HAT's OCAB on the
             bench batch ([2500,6,49,16] against 100 keys), hat_fast's
@@ -186,12 +190,13 @@ Phases (a failure in any raises, and the script exits non-zero):
             loss, gradients and BatchNorm statistics against the plain
             fp32 path (with DAT's exception for gradients below bf16's
             resolution, BF16_FLOOR);
-13. k16-stream the stream kernel's masked split-P path (every masked K16
-            at hd 33-64): one shifted DAT spatial block at hd 30 with
-            K16 forced to the stream kernel beside the tiled kernel,
-            output and every gradient against the plain fp32 path; then
-            DAT's first-step gate at C 180 in 4 heads (hd 45), whose
-            masked K16 take the stream kernel.
+13. k16-stream the stream kernel's masked split-P path (K16 at windows
+            the square kernel does not take): one shifted DAT spatial
+            block at hd 30 with K16 forced to the stream kernel beside
+            the square kernel, output and every gradient against the
+            plain fp32 path; then DAT's first-step gate at C 180 in 4
+            heads (hd 45), whose K16 take the square kernel with heads
+            padded to 64 dims.
 
 The second-to-last stdout line is a JSON object describing each kernel
 (launches summed over the serve, SwinIR ws-7, SwinIR-L, wide, hat, dat,
@@ -260,7 +265,7 @@ KERNELS = {
                 source="tpu_superresolution_torch/csrc/swin_block_bwd.cu",
                 replaces="tpu_superresolution_tpu/ops/pallas/fused_block.py:1604"),
     "K8": dict(name="ocab", route="cuda",
-               source="tpu_superresolution_torch/csrc/ocab.cu",
+               source="tpu_superresolution_torch/csrc/ocab_bwd.cu",
                replaces="tpu_superresolution_tpu/ops/pallas/fused_ocab.py:311"),
     "K8b": dict(name="ocab_bwd", route="cuda",
                 source="tpu_superresolution_torch/csrc/ocab_bwd.cu",
@@ -293,11 +298,11 @@ KERNELS = {
                 source="tpu_superresolution_torch/csrc/dwconv.cu",
                 replaces="tpu_superresolution_tpu/ops/pallas/cab_conv.py:506"),
     "K16": dict(name="batched_window_attention", route="cuda",
-                source="tpu_superresolution_torch/csrc/batched_attn.cu",
+                source="tpu_superresolution_torch/csrc/batched_attn_wg.cu",
                 replaces="tpu_superresolution_tpu/ops/pallas/window_attention.py:352"),
-    # HAT's OCAB: the wgmma kernel (window_attention.k15_route; K16's
-    # tiled kernel in csrc/batched_attn.cu and K7's stream kernel take the
-    # other shapes)
+    # HAT's OCAB: the wgmma kernel (window_attention.k15_route; the tiled
+    # kernel in csrc/batched_attn.cu and K7's stream kernel take the other
+    # shapes)
     "K15": dict(name="fused_window_attention", route="cuda",
                 source="tpu_superresolution_torch/csrc/window_attn_wg.cu",
                 replaces="tpu_superresolution_tpu/ops/pallas/window_attention.py:193"),
@@ -549,14 +554,14 @@ def phase_build():
     # attention; csrc/cab_fused.cu: K12; csrc/swin_block.cu: K1 / K6;
     # csrc/swin_block_bwd*.cu: K5a, K5w16's attention kernels;
     # csrc/ocab16.cu: K8w16 / K8bw16's attention and gathers; csrc/ocab_bwd.cu:
-    # K8b's attention; csrc/layernorm.cu: K2;
+    # K8 / K8b's attention; csrc/batched_attn_wg.cu: K16; csrc/layernorm.cu: K2;
     # csrc/dat_common.cuh: K9 / K14's product and conv), with their
     # template arguments: registers, shared memory, spills
     kinds = ("conv_nhwc_wgmma_kernel", "conv_nhwc_halo_kernel", "window_product_kernel",
              "window_attn_stream_kernel", "cab_wgmma_kernel", "swin_block_wg_kernel",
              "datb_tail_wg_kernel", "swin_tail_wg_kernel", "swin_block_bwd_kernel", "attn16_kernel",
              "ocab_attn_kernel", "ocab_heads_kernel", "ocab_heads_bwd_kernel",
-             "ocab_win_attn_kernel", "layernorm_bands_kernel",
+             "ocab_win_attn_kernel", "batched_attn_wg_kernel", "layernorm_bands_kernel",
              "front_product_kernel", "dat_conv_kernel")
     name = None
     for line in out.splitlines():
@@ -1098,11 +1103,11 @@ def phase_train_kernels(res):
     at [8,70,70,96] shift 0 and 3 with `extra` and branch scales; K5 with
     d`extra` at hat_fast's [8,64,64,96]; K8 and K8b, the OCAB core and
     its backward, on HAT's 800 windows (49 queries x 100 keys) and
-    hat_fast's 512 (64 x 144), K8b with two runs bit-identical, its
-    launches by part, its bytes by design and the host time of its
-    packing and fold, then K8B_ENVELOPE.  Each
-    against its plain version in bf16 and fp32, with times and bounds,
-    into `res`."""
+    hat_fast's 512 (64 x 144) (``_ocab_cases``), then K8B_ENVELOPE; then
+    HAT's and hat_fast's OCAB at the serving batch on the fused route
+    (K8) against the module path (``_ocab_serve_routes``).  Each against
+    its plain version in bf16 and fp32, with times and bounds, into
+    `res`."""
     import torch
 
     from tpu_superresolution_torch.kernels.fused_block import (
@@ -1147,14 +1152,19 @@ def phase_train_kernels(res):
 
     _ocab_cases(res, gen, dev, c, nh, hidden)
     _ocab_bwd_envelope(gen, dev)
+    # HAT's and hat_fast's OCABs at serving (the module path serves them)
+    _ocab_serve_routes(gen, dev, c, nh, 7, hidden / c, (25, 70, 70))
+    _ocab_serve_routes(gen, dev, c, nh, 8, hidden / c, (25, 64, 64))
     return res
 
 
 def _ocab_cases(res, gen, dev, c, nh, hidden):
     """K8 and K8b on HAT's 800 windows (49 queries x 100 keys) and
-    hat_fast's 512 (64 x 144) against their plain versions, K8b with two
-    runs bit-identical, its launches by part, its bytes by design and its
-    host time, into `res`."""
+    hat_fast's 512 (64 x 144) against their plain versions: K8 (its three
+    launches on one ``pack_ocab_tiles`` pack) and K8b (its four launches
+    on K8's kept head-major q, k, v, O and row statistics), each with two
+    runs bit-identical, back-to-back times, its launches by part, its
+    bytes by design and its host time, into `res`."""
     import torch
 
     from tpu_superresolution_torch.kernels import _lib, fused_ocab
@@ -1171,16 +1181,33 @@ def _ocab_cases(res, gen, dev, c, nh, hidden):
         ct = rnd(windows, nq, c, sc=0.1)
         f32 = [t.float() for t in (q, k, v, sw)]
         label = f"{windows} windows, {nq} queries x {nk} keys, C {c}"
-        run = lambda: fused_ocab.fused_ocab_core(q, k, v, sw, w, bias, True)
+        # K8 as a training call runs it: one pack, the three launches
+        pk = fused_ocab.pack_ocab_tiles(w)
+        fwd = lambda: fused_ocab._launch_fwd(q, k, v, sw, pk, bias, True)
+        run = lambda: fwd()[0]
         plain = lambda: fused_ocab.ocab_core_plain(q, k, v, sw, w, bias, True)
-        out = run()
-        _compare(res, "K8", label, out, plain(), fused_ocab.ocab_core_plain(*f32, w, bias, True),
-                 cuda_ms(run), cuda_ms(plain), _ocab_work(windows, nq, nk, c, nh, hidden))
-        runb = lambda: fused_ocab.fused_ocab_core_backward(ct, q, k, v, sw, w, bias, True)
+        out, kept = fwd()
+        if not torch.equal(out, run()):
+            raise RuntimeError(f"K8 {label}: two runs differ")
+        log(f"[kernels] K8 {label}: two runs bit-identical")
+        _ocab_fwd_bytes_log(windows, ws, ows, c, nh, hidden)
+        _launch_split("K8", label, run, _k8_parts(ws))
+        full = lambda: fused_ocab.fused_ocab_core(q, k, v, sw, w, bias, True)
+        _compare(res, "K8", f"{label} (b2b {queued_ms(run):.4f} ms; with the packing "
+                 f"{cuda_ms(full):.4f}, b2b {queued_ms(full):.4f}; host {_enqueue_ms(full):.4f} "
+                 f"ms a call, of it the packing "
+                 f"{_enqueue_ms(lambda: fused_ocab.pack_ocab_tiles(w)):.4f})",
+                 out, plain(), fused_ocab.ocab_core_plain(*f32, w, bias, True), cuda_ms(run),
+                 cuda_ms(plain), _ocab_work(windows, nq, nk, c, nh, hidden))
+        # K8b on the kept tensors: the four launches a training backward runs
+        runb = lambda: _ocab_grads(fused_ocab._launch_bwd(ct, sw, nk, pk, bias, True, kept))
         plainb = lambda: fused_ocab.ocab_core_bwd_plain(ct, q, k, v, sw, w, bias, True)
         got = runb()
         fields = ("dq", "dk", "dv", "dsw") + fused_ocab.GRAD_FIELDS + ("bias",)
         _check_deterministic("K8b", label, got, runb(), fields)
+        standalone = fused_ocab.fused_ocab_core_backward(ct, q, k, v, sw, w, bias, True)
+        _check_deterministic("K8b", f"{label} (the standalone entry, its own forward, against "
+                             f"the kept tensors')", got, standalone, fields)
         ref16 = plainb()
         ref32 = fused_ocab.ocab_core_bwd_plain(ct.float(), *f32, w, bias, True)
         torch.cuda.synchronize()
@@ -1189,39 +1216,52 @@ def _ocab_cases(res, gen, dev, c, nh, hidden):
         p = fused_ocab.ocab_bwd_plan(ws, ows, c, nh, hidden, windows,
                                      _lib.sm_count(torch.cuda.current_device()))
         gv = torch.zeros(p.block.stream_len + p.block.vec_len, device=dev)
-        log(f"[kernels] K8b {label} host time a call (enqueue, median of 20) of the weight "
-            f"packing (pack_ocab_tiles) {_enqueue_ms(lambda: fused_ocab.pack_ocab_tiles(w)):.4f}"
-            f" ms and of the fold "
+        log(f"[kernels] K8b {label} host time a call (enqueue, median of 20) of the fold "
             f"{_enqueue_ms(lambda: fused_ocab._fold_grads(gv, c, nh, hidden)):.4f} ms")
         _compare_grads(res, "K8b", f"{label} (b2b {queued_ms(runb):.4f} ms, host "
                        f"{_enqueue_ms(runb):.4f} ms a call)", got, ref16, ref32,
                        ("dq", "dk", "dv", "dsw"), fused_ocab.GRAD_FIELDS + ("bias",),
                        cuda_ms(runb), cuda_ms(plainb),
                        _ocab_work(windows, nq, nk, c, nh, hidden, backward=True))
-        del out, got, ref16, ref32
+        del out, kept, got, standalone, ref16, ref32
+
+
+def _ocab_grads(r):
+    """K8b's ``_launch_bwd`` result (dq, dk, dv, dsw, gradients) as
+    ``OcabGrads``."""
+    from tpu_superresolution_torch.kernels.fused_ocab import OcabGrads
+
+    dq, dk, dv, dsw, g = r
+    return OcabGrads(dq=dq, dk=dk, dv=dv, dsw=dsw, **g)
+
+
+def _k8_parts(ws):
+    """K8's launches by name (csrc/ocab_bwd.cu) for _launch_split: (part,
+    name head, name tail); the rest of a call's device time is O's
+    zeroing (at C 96 none)."""
+    return (("gather to head-major", "ocab_win_heads_kernel", ""),
+            ("attention", "ocab_win_attn_kernel", "false>("),
+            ("K5a OCAB tail", f"swin_block_bwd_kernel<{ws},", ", 4>("))
 
 
 def _k8b_parts(ws):
     """K8b's launches by name (csrc/ocab_bwd.cu) for _launch_split: (part,
-    name head, name tail); the rest of a call's device time is the
-    packing, the workspace's zeroing and the fold."""
-    return (("gather to head-major", "ocab_win_heads_kernel", ""),
-            ("attention forward", "ocab_win_attn_kernel", "false>("),
-            ("K5a middle", f"swin_block_bwd_kernel<{ws},", ", 2>("),
+    name head, name tail)."""
+    return (("K5a middle", f"swin_block_bwd_kernel<{ws},", ", 2>("),
             ("attention backward", "ocab_win_attn_kernel", "true>("),
             ("K5b dW", "wgrad_wg_kernel", ""), ("K5c sums", "reduce_ordered_kernel", ""))
 
 
-# K8b's correctness-only shapes past HAT's widths, one a compiled (ws,
-# width, head dim) the main path does not run: (ws, ows, windows, C,
+# K8's and K8b's correctness-only shapes past HAT's widths, one a compiled
+# (ws, width, head dim) the main path does not run: (ws, ows, windows, C,
 # heads, hidden); odd window counts leave a CTA's last stage one window
 K8B_ENVELOPE = ((7, 10, 37, 64, 2, 128), (7, 10, 45, 180, 6, 360), (8, 12, 25, 64, 2, 200),
                 (8, 12, 13, 144, 6, 288))
 
 
 def _ocab_bwd_envelope(gen, dev):
-    """K8b at K8B_ENVELOPE's widths against its plain version (fp32), two
-    runs bit-identical."""
+    """K8 and K8b at K8B_ENVELOPE's widths against their plain versions
+    (fp32), each with two runs bit-identical."""
     import torch
 
     from tpu_superresolution_torch.kernels import fused_ocab
@@ -1235,28 +1275,65 @@ def _ocab_bwd_envelope(gen, dev):
             rnd(windows, nk, c), rnd(windows, nq, c)
         bias = (0.5 * torch.randn(nh, nq, nk, generator=gen)).to(dev)
         ct = rnd(windows, nq, c, sc=0.1)
+        args = (q, k, v, sw)
         label = f"envelope {windows} windows ({ws}, {ows}), C {c}, {nh} heads, hidden {hidden}"
+        fwd = lambda: fused_ocab.fused_ocab_core(q, k, v, sw, w, bias, False)
+        out = fwd()
+        if not torch.equal(out, fwd()):
+            raise RuntimeError(f"K8 {label}: two runs differ")
+        _compare({}, "K8", label + " (two runs bit-identical)", out,
+                 fused_ocab.ocab_core_plain(*args, w, bias, False),
+                 fused_ocab.ocab_core_plain(*(t.float() for t in args), w, bias, False), 0.0, 0.0,
+                 _ocab_work(windows, nq, nk, c, nh, hidden))
         run = lambda: fused_ocab.fused_ocab_core_backward(ct, q, k, v, sw, w, bias, False)
         got = run()
         _check_deterministic("K8b", label, got, run(), ("dq", "dk", "dv", "dsw")
                              + fused_ocab.GRAD_FIELDS + ("bias",))
-        args = (q, k, v, sw)
         _compare_grads({}, "K8b", label, got,
                        fused_ocab.ocab_core_bwd_plain(ct, *args, w, bias, False),
                        fused_ocab.ocab_core_bwd_plain(ct.float(), *(t.float() for t in args), w,
                                                       bias, False),
                        ("dq", "dk", "dv", "dsw"), fused_ocab.GRAD_FIELDS + ("bias",), 0.0, 0.0,
                        _ocab_work(windows, nq, nk, c, nh, hidden, backward=True))
-        del got
+        del out, got
+
+
+def _ocab_fwd_bytes_log(windows, ws, ows, c, nh, hidden):
+    """K8's bytes moved per call by the design (csrc/ocab_bwd.cu): q, k, v
+    read in the window layout by the gather, the head-major q, k, v
+    written and read, O written and read, the row statistics and x1's
+    scratch written (x1's read back once), sw read and the output written,
+    the bias read by the attention kernel and the weight stream by every
+    K5a CTA (from L2)."""
+    import torch
+
+    from tpu_superresolution_torch.kernels import _lib
+    from tpu_superresolution_torch.kernels import fused_ocab as fo
+
+    p = fo.ocab_bwd_plan(ws, ows, c, nh, hidden, windows,
+                         _lib.sm_count(torch.cuda.current_device()))
+    sizes = fo.ocab_fwd_bytes(p, nh)
+    nq, nk = ws * ws, ows * ows
+    win = windows * (nq + 2 * nk) * c * 2
+    tok = windows * nq * c * 2
+    moved = (win + 2 * (sizes["head-major q, k, v"] + sizes["O"] + sizes["x1 scratch"])
+             + sizes["row statistics"] + 2 * tok + nh * nq * nk * 4)
+    log(f"[kernels] K8 {windows} windows ({ws}, {ows}) bytes moved by the design: q, k, v in "
+        f"{win / 1e6:.1f} MB, sw in and out {2 * tok / 1e6:.1f} MB, "
+        + ", ".join(f"{k} {v / 1e6:.2f} MB" for k, v in sizes.items())
+        + f" (each written once, all but the statistics read once); in all {moved / 1e6:.1f} "
+        f"MB ({moved / PEAK_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s); K5a grid {p.grid} over "
+        f"{windows} units, attention {p.cph} CTAs a head, shared memory {p.block.smem} / "
+        f"{p.att_fwd_smem} B")
 
 
 def _ocab_bwd_bytes_log(windows, ws, ows, c, nh, hidden):
-    """K8b's bytes moved per call by the design (csrc/ocab_bwd.cu): q, k, v
-    read in the window layout by the gather, each workspace of
-    ``ocab_bwd_bytes`` written once and read once (the head-major q, k, v
-    read once more: both attention kernels read them), dq, dk, dv written
-    in the window layout, ct, sw and dsw, the bias read by both attention
-    kernels."""
+    """K8b's bytes moved per call by the design (csrc/ocab_bwd.cu): K8's
+    kept head-major q, k, v, O and row statistics read (q, k, v and the
+    statistics by the attention kernel, O by K5a's middle), each
+    workspace of ``ocab_bwd_bytes`` written once and read once, dq, dk, dv
+    written in the window layout, ct, sw and dsw, the bias read by the
+    attention kernel."""
     import torch
 
     from tpu_superresolution_torch.kernels import _lib
@@ -1265,19 +1342,21 @@ def _ocab_bwd_bytes_log(windows, ws, ows, c, nh, hidden):
     p = fo.ocab_bwd_plan(ws, ows, c, nh, hidden, windows,
                          _lib.sm_count(torch.cuda.current_device()))
     sizes = fo.ocab_bwd_bytes(p, nh)
+    kept = fo.ocab_fwd_bytes(p, nh)
+    kept.pop("x1 scratch")
     b, nq, nk = p.block, ws * ws, ows * ows
-    heads = sizes["head-major q, k, v"]
-    win = windows * (nq + 2 * nk) * c * 2  # q, k, v (or dq, dk, dv) in the window layout
+    win = windows * (nq + 2 * nk) * c * 2  # dq, dk, dv in the window layout
     tok = windows * nq * c * 2
-    moved = 2 * win + heads + 3 * tok + 2 * sum(sizes.values()) + 2 * nh * nq * nk * 4
-    log(f"[kernels] K8b {windows} windows ({ws}, {ows}) bytes moved by the design: q, k, v "
-        f"in and dq, dk, dv out {2 * win / 1e6:.1f} MB, head-major q, k, v's second read "
-        f"{heads / 1e6:.1f} MB, ct, sw, dsw {3 * tok / 1e6:.1f} MB, "
+    moved = win + sum(kept.values()) + 3 * tok + 2 * sum(sizes.values()) + nh * nq * nk * 4
+    log(f"[kernels] K8b {windows} windows ({ws}, {ows}) bytes moved by the design: dq, dk, dv "
+        f"out {win / 1e6:.1f} MB, K8's kept "
+        + ", ".join(f"{k} {v / 1e6:.2f} MB" for k, v in kept.items())
+        + f" read once, ct, sw, dsw {3 * tok / 1e6:.1f} MB, "
         + ", ".join(f"{k} {v / 1e6:.2f} MB" for k, v in sizes.items())
         + f" (each written and read once); in all {moved / 1e6:.1f} MB "
         f"({moved / PEAK_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s); K5a grid {p.grid} over "
         f"{windows} units, K5b splits {p.splits}, attention {p.cph} CTAs a head, shared memory "
-        f"{b.smem} / {p.att_fwd_smem} / {p.att_bwd_smem} B")
+        f"{b.smem} / {p.att_bwd_smem} B")
 
 
 # the tiled block backward's counter by window (csrc/swin_block_bwd16.cu)
@@ -1744,18 +1823,18 @@ def _ocab16_split(run, runb, calls=3):
             + f"; other device work {rest:.4f} ms; busy {busy:.4f} ms a call")
 
 
-def _ocab_serve_routes(gen, dev):
-    """The serving route at ws 16, measured: an eval-mode OCAB of
-    HAT-SRx4's widths (C 180, 6 heads, mlp 2) on the bench call's batch
-    ([25, 64, 64, 180], 400 windows), its forward on the fused route
-    (LN1, qkv, the gather to the head-major operands, K8w16) and on the module path
-    (LN1, qkv, the gathers, K15, the proj, LN2, the MLP) timed in turns
-    (module, fused, fused, module) in this call; then the work after the
-    qkv product alone on each (K8w16 with its gather from the qkv map
-    against the gathers, K15, the window reverse, the proj, LN2, the MLP
-    and the residuals).  Both
-    outputs against the plain fp32 forward.  The route the model serves
-    on is ``models.hat.OCAB.takes_fused``'s."""
+def _ocab_serve_routes(gen, dev, c=180, nh=6, ws=16, mlp=2.0, maps=(25, 64, 64)):
+    """An OCAB's serving route, measured: an eval-mode OCAB (by default
+    HAT-SRx4's widths, C 180, 6 heads, mlp 2, on the bench call's batch
+    [25, 64, 64, 180], 400 windows; also HAT's and hat_fast's at ws 7 and
+    8) on `maps`, its forward on the fused route (LN1, qkv, K8w16 with
+    its gather to the head-major operands at ws 16; K8, packing its
+    weights, at ws 7 and 8) and on the module path (LN1, qkv, the
+    gathers, K15, the proj, LN2, the MLP) timed in turns (module, fused,
+    fused, module) in this call; then the work after the qkv product
+    alone on each.  At ws 16 the map entry against the window-layout
+    entry, bit for bit.  Both outputs against the plain fp32 forward.
+    The route the model serves on is ``models.hat.OCAB.takes_fused``'s."""
     import torch
 
     from tpu_superresolution_torch.kernels import fused_ocab as fo
@@ -1766,15 +1845,15 @@ def _ocab_serve_routes(gen, dev):
         window_reverse,
     )
 
-    c, nh, ws = 180, 6, 16
-    ocab = OCAB(c, ws, 0.5, nh, True, 2.0, False)
+    ocab = OCAB(c, ws, 0.5, nh, True, mlp, False)
     with torch.no_grad():
         for p in ocab.parameters():
             p.copy_(0.1 * torch.randn(p.shape, generator=gen))
         ocab.norm1.weight.add_(1.0)
         ocab.norm2.weight.add_(1.0)
     ocab = ocab.to(dev).eval()
-    x = torch.randn(25, 64, 64, c, generator=gen).to(dev, torch.bfloat16)
+    x = torch.randn(*maps, c, generator=gen).to(dev, torch.bfloat16)
+    windows = maps[0] * (maps[1] // ws) * (maps[2] // ws)
     with torch.no_grad():
         ref = ocab._module(x.float(), True)
         outs, times = {}, {"module": [], "fused": []}
@@ -1785,35 +1864,38 @@ def _ocab_serve_routes(gen, dev):
             times[route].append(cuda_ms(fn))
         # the work after the qkv product on each route
         qf, qm = ocab.qkv_map(x, False, True), ocab.qkv_map(x, False, False)
-        # the map entry (one gather to the head-major operands, x and the
-        # output in map layout) against the window-layout entry: the same bits
-        q, k, v = qf.chunk(3, -1)
-        ws_, ows_ = ocab.window_size, ocab.overlap_win_size
-        windowed = window_reverse(fo.fused_ocab_core(
-            window_partition(q, ws_), overlap_windows(k, ws_, ows_), overlap_windows(v, ws_, ows_),
-            window_partition(x, ws_), fo.OcabWeights(
-                wproj=ocab.proj.weight, bproj=ocab.proj.bias, g2=ocab.norm2.weight,
-                b2=ocab.norm2.bias, wfc1=ocab.mlp.fc1.weight, bfc1=ocab.mlp.fc1.bias,
-                wfc2=ocab.mlp.fc2.weight, bfc2=ocab.mlp.fc2.bias, num_heads=nh),
-            ocab.bias_oca(), False), ws_, 64, 64)
-        same = torch.equal(ocab.fused_core(x, qf, False), windowed)
-        log(f"[kernels] OCAB fused route: the map entry (fused_ocab_core_map) and the "
-            f"window-layout entry {'bit-identical' if same else 'DIFFER'}")
-        if not same:
-            raise RuntimeError("fused_ocab_core_map differs from fused_ocab_core")
+        if ws == 16:
+            # the map entry (one gather to the head-major operands, x and the
+            # output in map layout) against the window-layout entry: the same bits
+            q, k, v = qf.chunk(3, -1)
+            ws_, ows_ = ocab.window_size, ocab.overlap_win_size
+            windowed = window_reverse(fo.fused_ocab_core(
+                window_partition(q, ws_), overlap_windows(k, ws_, ows_),
+                overlap_windows(v, ws_, ows_), window_partition(x, ws_), fo.OcabWeights(
+                    wproj=ocab.proj.weight, bproj=ocab.proj.bias, g2=ocab.norm2.weight,
+                    b2=ocab.norm2.bias, wfc1=ocab.mlp.fc1.weight, bfc1=ocab.mlp.fc1.bias,
+                    wfc2=ocab.mlp.fc2.weight, bfc2=ocab.mlp.fc2.bias, num_heads=nh),
+                ocab.bias_oca(), False), ws_, maps[1], maps[2])
+            same = torch.equal(ocab.fused_core(x, qf, False), windowed)
+            log(f"[kernels] OCAB fused route: the map entry (fused_ocab_core_map) and the "
+                f"window-layout entry {'bit-identical' if same else 'DIFFER'}")
+            if not same:
+                raise RuntimeError("fused_ocab_core_map differs from fused_ocab_core")
         core_fused = cuda_ms(lambda: ocab.fused_core(x, qf, False))
         core_module = cuda_ms(lambda: ocab.module_core(x, qm, False))
     for route, out in outs.items():
         err = float((out.float() - ref).abs().max())
-        log(f"[kernels] OCAB serving route {route}: max_abs_err vs the plain fp32 forward "
+        log(f"[kernels] OCAB ws {ws} serving route {route}: max_abs_err vs the plain fp32 forward "
             f"{err:.3e} (max|ref| {float(ref.abs().max()):.3f})")
         if not math.isfinite(err) or err > 0.1 * float(ref.abs().max()):
-            raise RuntimeError(f"OCAB {route} route disagrees with the plain forward: {err}")
+            raise RuntimeError(f"OCAB ws {ws} {route} route disagrees with the plain forward: "
+                               f"{err}")
     tf, tm = statistics.mean(times["fused"]), statistics.mean(times["module"])
-    log(f"[kernels] OCAB serving route at [25, 64, 64, 180] (400 windows): forward fused "
-        f"{times['fused'][0]:.4f} / {times['fused'][1]:.4f} ms, module path "
+    log(f"[kernels] OCAB serving route at ws {ws}, {list(maps) + [c]} ({windows} windows): "
+        f"forward fused {times['fused'][0]:.4f} / {times['fused'][1]:.4f} ms, module path "
         f"{times['module'][0]:.4f} / {times['module'][1]:.4f} ms (in turns); after the qkv "
-        f"product: the gather and K8w16 {core_fused:.4f} ms, the gathers, K15, proj, LN2, MLP, "
+        f"product: {'the gather and K8w16' if ws == 16 else 'the packing and K8'} "
+        f"{core_fused:.4f} ms, the gathers, K15, proj, LN2, MLP, "
         f"residuals {core_module:.4f} ms; {'fused' if tf < tm else 'module path'} faster by "
         f"{abs(tm - tf):.4f} ms; serving takes "
         f"{'the fused route' if ocab.eval().takes_fused() else 'the module path'}")
@@ -2332,10 +2414,13 @@ _ROUTE_ROWS = []
 def _attention_forms(key, label, q, k, v, bias, mask, scale, split_p, ref32):
     """Every kernel that takes the shape of a K15 / K16 call, each checked
     against the plain fp32 version (within ULP_BOUND[key] bf16 ulps) and
-    timed alone and back to back: the tiled kernel at hd <= 32 (P in two
-    bf16 parts and rounded once), the wgmma kernel where ``wg_plan``
-    places a unit, and the stream kernel (every shape), the last two with
-    the wrapper's form of P.  Returns the forms' log strings."""
+    timed alone and back to back, with the share of its outputs whose
+    bf16 rounding differs from the fp32 version's: the tiled kernel at hd
+    <= 32 (P in two bf16 parts and rounded once), the wgmma kernel where
+    ``wg_plan`` places a unit, the square kernel where ``sq_plan`` takes
+    the window (P in three parts), and the stream kernel (every shape),
+    the wgmma and stream kernels with the wrapper's form of P.  Returns
+    the forms' log strings."""
     from tpu_superresolution_torch.kernels import window_attention as kw
 
     bw, nh, nq, hd = q.shape
@@ -2348,20 +2433,26 @@ def _attention_forms(key, label, q, k, v, bias, mask, scale, split_p, ref32):
         routes += [("tiled", True), ("tiled", False)]
     if hd <= kw.WG_MAX_HD and kw.wg_plan(nq, nk, hd, masked, bool(split_p)) is not None:
         routes.append(("wgmma", split_p))
+    if nq == nk and kw.sq_plan(nq, hd) is not None:
+        routes.append(("square", True))
     routes.append(("stream", split_p))
     forms, b2b = [], {}
     for other, split in routes:
         form = lambda other=other, split=split: kw._launch(q, k, v, bias, mask, scale, counter,
                                                            split, route=other)
-        err = float((form().float() - ref32.float()).abs().max())
+        got = form()
+        err = float((got.float() - ref32.float()).abs().max())
         if not err <= bound:
             raise RuntimeError(f"{key} {label}: the {other} kernel with "
                                f"{'split' if split else 'bf16'} P is {err:.3e} off the plain "
                                f"fp32 version (bound {bound:.3e})")
+        # the share of outputs off the fp32 version's own bf16 rounding
+        off = float((got != ref32.to(got.dtype)).float().mean())
         name = f"{other} {'split' if split else 'bf16'} P"
         b2b[name] = queued_ms(form)
         forms.append(f"{name} {cuda_ms(form):.4f} ms (b2b {b2b[name]:.4f}; max_abs_err vs "
-                     f"plain fp32 {err:.3e}, bound {bound:.3e})")
+                     f"plain fp32 {err:.3e}, bound {bound:.3e}; {off:.2e} of the outputs "
+                     f"rounded otherwise than the fp32 version)")
     wrapper = f"{kw.k15_route(nq, nk, hd, masked, split_p)} {'split' if split_p else 'bf16'} P"
     _ROUTE_ROWS.append((key, label, wrapper, b2b))
     return forms
@@ -2393,8 +2484,9 @@ def phase_dat_train_kernels(res):
     [800, 3, 128, 30] (DATConfig(): windows 8 x 16 of a 64^2 map, 3 heads
     a branch of hd 30), each with and without the shift mask, at the
     published DAT x4's N 256 ([400, 3, 256, 30], windows 8 x 32) and at
-    branches of hd 44 and 64 (C 176 and 256 in 4 heads: the stream
-    kernel), every kernel that takes a row timed (``_attention_forms``); K11
+    branches of hd 44 and 64 (C 176 and 256 in 4 heads; heads padded to
+    64 dims), each with two runs bit-identical, every kernel that takes a
+    row timed (``_attention_forms``), SDPA beside it; K11
     (depthwise 3x3) at the train step's conv branch [8, 64, 64, 180] and
     the published x4's sg_conv [25, 64, 64, 360].  Each output in bf16
     ulps against the plain bf16 and fp32 versions; kernel, plain and
@@ -2423,13 +2515,16 @@ def phase_dat_train_kernels(res):
             run = lambda: kw.batched_window_attention(q, k, v, bias, mask)
             plain = lambda: kw.batched_window_attention_plain(q, k, v, bias, mask)
             out = run()
+            if not torch.equal(out, run()):
+                raise RuntimeError(f"K16 [{bw},{nh},{n},{hd}] masked={masked}: two runs differ")
             ref16, ref32 = plain(), kw.batched_window_attention_plain(q.float(), k.float(),
                                                                       v.float(), bias, mask)
             am = _sdpa_mask(bias, mask, bw)
             lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am, scale=1.0)
             torch.cuda.synchronize()
             _compare(res, "K16", f"[{bw},{nh},{n},{hd}] {'masked' if masked else 'unmasked'} "
-                     f"({kw.k15_route(n, n, hd, masked, kw.K16_SPLIT_P)} route)",
+                     f"({kw.k15_route(n, n, hd, masked, kw.K16_SPLIT_P)} route; two runs "
+                     f"bit-identical; b2b {queued_ms(run):.4f} ms, SDPA b2b {queued_ms(lib):.4f})",
                      out, ref16, ref32, cuda_ms(run), cuda_ms(plain),
                      _attn_work(bw, nh, n, n, hd, n_mask), cuda_ms(lib))
             label = f"[{bw},{nh},{n},{hd}] {'masked' if masked else 'unmasked'}"
@@ -3154,7 +3249,7 @@ def _dat_split(fwd, smi, tag="dat"):
              ("K14 chan_softmax_kernel", ("chan_softmax_kernel",)),
              ("K14 dat_conv_kernel<true> (conv branch, v A^T)", ("dat_conv_kernel<true",)),
              ("K10 datb_tail_wg_kernel", ("datb_tail",)),
-             ("K16 batched_attn_kernel", ("batched_attn_kernel",)),
+             ("K16 batched_attn_wg_kernel", ("batched_attn_wg_kernel",)),
              ("K11 dwconv3x3_rows_kernel / dwconv3x3_kernel", ("dwconv3x3_rows_kernel",
                                                                  "dwconv3x3_kernel")),
              ("K2 layernorm", ("layernorm_bands", "layernorm_wide")),
@@ -4263,15 +4358,24 @@ def phase_dat_train(workdir, smi):
             raise RuntimeError(f"the plain path launched kernels: {per_step}")
         del model, st
 
-    # 3. the first step's loss, gradients and BatchNorm statistics
+    # 3. the first step's loss, gradients and BatchNorm statistics, with
+    # every K16 of the step (masked and not) on the square kernel
+    from tpu_superresolution_torch.kernels import window_attention as wa
+
+    n, hd = cfg.split_size[0] * cfg.split_size[1], cfg.embed_dim // 2 // (cfg.num_heads[0] // 2)
+    routes = {m: wa.k15_route(n, n, hd, m, wa.K16_SPLIT_P) for m in (False, True)}
+    log(f"[dat-train] K16 at [{batch * 32},{cfg.num_heads[0] // 2},{n},{hd}] takes the "
+        f"\"{routes[False]}\" kernel unmasked and the \"{routes[True]}\" kernel masked")
+    if set(routes.values()) != {"square"}:
+        raise RuntimeError(f"dat-train: K16 is not on the square kernel: {routes}")
     _first_step_gate(cfg, src, lr, hr, "dat-train", smi, bf16_floor=True)
     return [launches, per_step_all]
 
 
-# The DAT first-step gate at a head dim past the tiled kernel's 32: C 180
-# in 4 heads (hd 45) at two residual groups of two blocks (group 1's
-# first block shifted, so its K16 calls are masked), where every K16
-# takes the stream kernel's masked split-P path (``k15_route``).
+# The DAT first-step gate at a head dim past 32: C 180 in 4 heads (hd 45)
+# at two residual groups of two blocks (group 1's first block shifted, so
+# its K16 calls are masked), where every K16 takes the square kernel with
+# heads padded to 64 dims, odd hd's element loads (``k15_route``).
 DAT_HD45 = dict(embed_dim=180, depths=(2, 2), num_heads=(4, 4))
 
 
@@ -4280,12 +4384,13 @@ def phase_k16_stream_check(smi):
     every masked K16 at hd 33-64), held two ways.  (1) One shifted DAT
     spatial block at DATConfig()'s widths (C 180, 6 heads of 30, split
     (8, 16)), train mode (the module chain, K16), a forward and backward
-    with K16's route forced to "stream" beside the same with the tiled
-    kernel, element by element, and both against the block's plain fp32
-    path: the output within ULP_BOUND bf16 ulps, every parameter's
-    gradient within TRAIN_COS_MIN in cosine wherever the tiled kernel's
-    is.  (2) DAT's first-step gate (``_first_step_gate``, with DAT's
-    BF16_FLOOR) at DAT_HD45, whose masked K16 run on the stream kernel.
+    with K16's route forced to "stream" beside the same with the square
+    kernel (K16's route there), element by element, and both against the
+    block's plain fp32 path: the output within ULP_BOUND bf16 ulps, every
+    parameter's gradient within TRAIN_COS_MIN in cosine wherever the
+    square kernel's is.  (2) DAT's first-step gate (``_first_step_gate``,
+    with DAT's BF16_FLOOR) at DAT_HD45, whose K16 run on the square kernel
+    at HDP 64.
     Returns the gate's launches (a check: not counted on the main path)."""
     import numpy as np
     import torch
@@ -4320,7 +4425,7 @@ def phase_k16_stream_check(smi):
 
     def to_stream(nq, nk, hd, masked=False, split_p=False):
         route = orig(nq, nk, hd, masked, split_p)
-        if route == "tiled":
+        if route == "square":
             forced.append((nq, nk, hd, masked))
             return "stream"
         return route
@@ -4338,8 +4443,8 @@ def phase_k16_stream_check(smi):
     e_st = float((s_out - t_out).abs().max())
     e_s, e_t = float((s_out - ref_out).abs().max()), float((t_out - ref_out).abs().max())
     log(f"[{tag}] DAT spatial block (C 180, 6 heads of 30, split (8, 16), shifted, train) "
-        f"with K16 forced to the stream kernel on {len(forced)} calls {shapes} vs the tiled "
-        f"kernel: output max |stream - tiled| {e_st:.3e}; vs plain fp32 stream {e_s:.3e}, tiled "
+        f"with K16 forced to the stream kernel on {len(forced)} calls {shapes} vs the square "
+        f"kernel: output max |stream - square| {e_st:.3e}; vs plain fp32 stream {e_s:.3e}, square "
         f"{e_t:.3e} (bound {bound:.3e} = {ULP_BOUND['K16']} bf16 ulp at max|ref| {mag:.3f}) ({smi})")
     # tensors whose fp32 gradient is zero but for rounding (biases that a
     # BatchNorm follows) carry no direction: left out, and counted
@@ -4350,18 +4455,18 @@ def phase_k16_stream_check(smi):
     apart = {k: float((s_g[k] - t_g[k]).norm()) / norms[k] for k in live}
     worst = sorted(cos_s, key=lambda k: cos_s[k])[:3]
     log(f"[{tag}] gradients of {len(live)} of {len(ref_g)} tensors (the rest zero in fp32 but "
-        f"for rounding): |stream - tiled| / |fp32| at most {max(apart.values()):.3e} (on "
+        f"for rounding): |stream - square| / |fp32| at most {max(apart.values()):.3e} (on "
         f"{max(apart, key=apart.get)}); lowest cosine vs plain fp32, stream: "
-        + ", ".join(f"{k} {cos_s[k]:.5f} (tiled {cos_t[k]:.5f}; rel L2 stream {rel(s_g, k):.3e}, "
-                    f"tiled {rel(t_g, k):.3e})" for k in worst))
+        + ", ".join(f"{k} {cos_s[k]:.5f} (square {cos_t[k]:.5f}; rel L2 stream "
+                    f"{rel(s_g, k):.3e}, square {rel(t_g, k):.3e})" for k in worst))
     bad = [k for k in cos_s if cos_s[k] < TRAIN_COS_MIN <= cos_t[k]]
     if not forced or e_s > bound or bad:
         raise RuntimeError(f"{tag}: the stream kernel's masked split-P path disagrees: forced "
                            f"{len(forced)}, output err {e_s:.3e} (bound {bound:.3e}), gradients "
-                           f"below the cosine bound where the tiled kernel's are not: {bad}")
+                           f"below the cosine bound where the square kernel's are not: {bad}")
     del block
 
-    # (2) DAT's first-step gate at hd 45 (the masked K16 on the stream kernel)
+    # (2) DAT's first-step gate at hd 45 (K16 on the square kernel at HDP 64)
     cfg = DATConfig(**DAT_HD45)
     hd = cfg.embed_dim // cfg.num_heads[0]
     n = cfg.split_size[0] * cfg.split_size[1]
@@ -4377,10 +4482,83 @@ def phase_k16_stream_check(smi):
     launches = read_counters()
     log(f"[{tag}] DAT {DAT_HD45} (hd {hd}): masked K16 of {n} x {n} tokens takes the "
         f"\"{route}\" kernel; first-step gate launches {launches}")
-    if route != "stream" or not launches.get("K16"):
-        raise RuntimeError(f"{tag}: the hd-{hd} gate did not run K16 on the stream kernel "
+    if route != "square" or not launches.get("K16"):
+        raise RuntimeError(f"{tag}: the hd-{hd} gate did not run K16 on the square kernel "
                            f"(route {route}, launches {launches})")
     return launches
+
+
+def phase_dat_gate_noise(smi):
+    """How far DAT's first-step gate (``_first_step_gate`` with
+    BF16_FLOOR) can tell K16 kernels apart: the DAT x4 train step's first
+    gradients (DATConfig(), the dat-train phase's weights and batch) with
+    K16 on its route, forced to the tiled kernel, replaced by its plain
+    version rounded to bf16 (exact), and by that rounding with 1-ulp
+    mis-roundings (the other neighbour of the fp32 value) at random
+    places at the rates of the square and tiled kernels (2e-4, 2e-3),
+    three draws each; for each, the parameters the gate fails.  A reading
+    aid, not a check: not run by main()."""
+    import numpy as np
+    import torch
+
+    from tpu_superresolution_torch.core.config import DATConfig, build_model
+    from tpu_superresolution_torch.kernels import window_attention as wa
+
+    cfg = DATConfig()
+    src = build_model(cfg)
+    src.reset_parameters(torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 5)
+    batch, patch, scale = TRAIN_BATCH, TRAIN_LR_PATCH, 4
+    lr = torch.from_numpy(rng.random((batch, patch, patch, 3), dtype=np.float32)).cuda()
+    hr = torch.from_numpy(
+        rng.random((batch, patch * scale, patch * scale, 3), dtype=np.float32)).cuda()
+
+    def grads(dtype, impl):
+        model = build_model(cfg, dtype=dtype, impl=impl, device="cuda")
+        model.load_state_dict(src.state_dict())
+        return _first_step_grads(model, lr, hr)[1]
+
+    g_r, g_p = grads(torch.float32, "plain"), grads(torch.bfloat16, "plain")
+    err = lambda g, k: float((g[k] - g_r[k]).norm()) / max(float(g_r[k].norm()), 1e-30)
+    amax = lambda g, k: float(g[k].abs().max())
+    launch, route = wa._launch, wa.k15_route
+
+    def rounded(frac, seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+
+        def k16(q, k, v, bias, mask, scale_, counter, split_p, route=None):
+            ref = wa.fused_window_attention_plain(q.float(), k.float(), v.float(), bias, mask,
+                                                  scale_)
+            near = ref.to(torch.bfloat16)
+            r = near.float()
+            ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(1e-30))) - 7)
+            other = (r + torch.sign(ref - r) * ulp).to(torch.bfloat16)
+            pick = torch.rand(ref.shape, generator=gen, device=ref.device) < frac
+            return torch.where(pick & (ref != r), other, near)
+        return k16
+
+    def forced(name):
+        return lambda nq, nk, hd, masked=False, split_p=False: (
+            name if route(nq, nk, hd, masked, split_p) == "square" else
+            route(nq, nk, hd, masked, split_p))
+
+    variants = [("route (square)", None, None), ("tiled", None, forced("tiled")),
+                ("plain, exact rounding", rounded(0.0, 0), None)]
+    variants += [(f"plain, mis-rounded at {frac:g}, draw {seed}", rounded(frac, seed), None)
+                 for frac in (2e-4, 2e-3) for seed in (1, 2, 3)]
+    for label, k16, k15_route in variants:
+        wa._launch, wa.k15_route = k16 or launch, k15_route or route
+        try:
+            g_k = grads(torch.bfloat16, "auto")
+        finally:
+            wa._launch, wa.k15_route = launch, route
+        cos = _cosines(g_k, g_r)
+        fail = sorted((k for k in cos if cos[k] < TRAIN_COS_MIN
+                       and max(amax(g_k, k), amax(g_r, k)) >= ADAMW_EPS
+                       and err(g_k, k) > 2 * err(g_p, k)), key=cos.get)
+        log(f"[dat-gate-noise] K16 {label}: the gate fails {len(fail)} parameters"
+            + "".join(f"; {k} cosine {cos[k]:.4f} (rel L2 {err(g_k, k):.3e}, plain bf16 "
+                      f"{err(g_p, k):.3e})" for k in fail[:4]) + f" ({smi})")
 
 
 def _dat_train_split(state, lr, hr, step_ms, smi):
@@ -4424,7 +4602,7 @@ def _dat_train_split(state, lr, hr, step_ms, smi):
     spans = [(e.time_range.start, e.time_range.end, e.name) for e in events
              if e.device_type == torch.autograd.DeviceType.CPU and e.name in steps]
     us = lambda e: getattr(e, "device_time", 0.0) or getattr(e, "cuda_time", 0.0)
-    names = (("K16 forward (batched_attn_kernel)", ("batched_attn_kernel",)),
+    names = (("K16 forward (batched_attn_wg_kernel)", ("batched_attn_wg_kernel",)),
              ("K11 forward (dwconv3x3_rows_kernel / dwconv3x3_kernel)",
               ("dwconv3x3_rows_kernel", "dwconv3x3_kernel")),
              ("K2-K4 forwards", ("layernorm_bands", "layernorm_wide", "conv_nhwc")))
@@ -4516,10 +4694,12 @@ def _hat_train_split(state, lr, hr, step_ms, smi, tag="hat-train", parts=None, b
              and getattr(e, "is_user_annotation", False) and e.name in parts.values()]
     us = lambda e: getattr(e, "device_time", 0.0) or getattr(e, "cuda_time", 0.0)
     fwd_names = (("forward K6 / K1 (swin_block_wg_kernel)", ("swin_block_wg_kernel",)),
-                 ("forward K8 / K8w16 (ocab_fwd_kernel; ocab_heads_kernel, ocab_attn_kernel, "
-                  "K5a's OCAB tail)",
-                  ("ocab_fwd_kernel", "ocab_heads_kernel", "ocab_attn_kernel", "swin_block_bwd_kernel<16, 192, 32, 4>",
-                   "swin_block_bwd_kernel<16, 96, 16, 4>", "swin_block_bwd_kernel<16, 96, 32, 4>")),
+                 ("forward K8 / K8w16 (ocab_win_heads_kernel, ocab_win_attn_kernel; "
+                  "ocab_heads_kernel, ocab_attn_kernel; K5a's OCAB tail)",
+                  ("ocab_win_heads_kernel", "ocab_win_attn_kernel", "ocab_heads_kernel",
+                   "ocab_attn_kernel")
+                  + tuple(f"swin_block_bwd_kernel<{ws}, {cp}, {hdp}, 4>" for ws in (7, 8, 16)
+                          for cp, hdp in ((96, 16), (96, 32), (192, 32)))),
                  ("forward K7 (window_product_kernel, window_attn_stream_kernel)",
                   ("window_product_kernel", "window_attn_stream_kernel")),
                  ("forward K1t swin_tail_wg_kernel / swin_tail_kernel",
@@ -4533,7 +4713,7 @@ def _hat_train_split(state, lr, hr, step_ms, smi, tag="hat-train", parts=None, b
                   "SwinBlockFunctionBackward"),
                  ("backward K5w16 / K5r (K5a front / middle / tail, attention fwd / bwd, dW "
                   "GEMM, sums, packing, fold)", "WindowBlockFunctionBackward"),
-                 ("backward K8b (attention fwd / bwd, K5a middle, dW GEMM, sums, layout, fold)",
+                 ("backward K8b (K5a middle, attention bwd, dW GEMM, sums, fold)",
                   "OcabCoreFunctionBackward"),
                  ("backward K8bw16 (K5a middle, attention bwd, dW GEMM, sums, fold)",
                   "Ocab16FunctionBackward"),

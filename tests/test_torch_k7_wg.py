@@ -309,9 +309,8 @@ def test_routes_from_static_shapes(shape, route):
     ws, c, heads, hidden = shape
     assert block_route(*shape) == block_route(*shape) == route
     hd, n = c // heads, ws * ws
-    # masked: the tiled kernel at hd <= 32, else the stream kernel
-    want = "tiled" if hd <= 32 else "stream"
-    assert k15_route(n, n, hd, True) == want
+    # masked, P rounded once (K15): the stream kernel at every head dim
+    assert k15_route(n, n, hd, True) == "stream"
 
 
 # ------------------------------------------------------------ packing

@@ -309,6 +309,7 @@ def test_launch_plan_from_static_shapes(ws, c, nh, hidden, windows, sms):
         OCAB16_SMEM,
         ocab_bwd_bytes,
         ocab_bwd_plan,
+        ocab_fwd_bytes,
     )
 
     ows = ws + ws // 2
@@ -316,7 +317,7 @@ def test_launch_plan_from_static_shapes(ws, c, nh, hidden, windows, sms):
     assert p.cph == max(1, min(windows, sms // nh)) and p.cph * nh <= max(sms, nh)
     assert 1 <= p.grid <= min(sms, -(-windows // 2)) and 1 <= p.splits <= windows
     assert max(p.block.smem, p.att_fwd_smem, p.att_bwd_smem) <= OCAB16_SMEM
-    sizes = ocab_bwd_bytes(p, nh)
+    sizes = {**ocab_fwd_bytes(p, nh), **ocab_bwd_bytes(p, nh)}  # O: K8's, kept for K8b
     assert sizes["bias-gradient partials"] == p.cph * nh * ws * ws * ows * ows * 4
     assert sizes["O"] == windows * p.block.kc * 64 * 64 * 2
     assert sizes["dO tiles"] == windows * nh * 64 * p.block.hdp * 2

@@ -330,11 +330,11 @@ _K15_ROUTES = [
     (49, 100, 16, False, False, "wgmma"),   # HAT's OCAB
     (64, 144, 16, False, False, "wgmma"),   # hat_fast's
     (256, 576, 30, False, False, "tiled"),  # HAT-SRx4's
-    (64, 64, 30, True, False, "tiled"),     # masked square windows
-    (128, 128, 30, True, True, "tiled"),    # K16: DAT's windows
+    (64, 64, 30, True, False, "stream"),    # masked square windows
+    (128, 128, 30, True, True, "square"),   # K16: DAT's windows
     (49, 100, 44, False, False, "wgmma"),   # past the tiled kernel's hd 32
     (256, 576, 44, False, False, "stream"),  # past the wgmma kernel's 256 keys
-    (128, 128, 44, True, True, "stream"),
+    (128, 128, 44, True, True, "square"),   # K16 past hd 32: heads padded to 64
     (64, 64, 64, True, False, "stream"),
 ]
 

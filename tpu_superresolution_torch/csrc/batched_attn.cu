@@ -1,8 +1,9 @@
 // K15 and K16 — window attention on pre-split q, k, v, square or
 // rectangular: the "tiled" route of kernels/window_attention.py::
-// k15_route (the heads of <= 32 dims the wgmma kernel,
-// csrc/window_attn_wg.cu, does not take: K16's DAT windows, masked
-// windows, HAT-SRx4's 256 queries x 576 keys).
+// k15_route (the heads of <= 32 dims the wgmma and square kernels,
+// csrc/window_attn_wg.cu and csrc/batched_attn_wg.cu, do not take, but
+// K15's masked ones: K16 at windows of other than 128 or 256 tokens,
+// HAT-SRx4's 256 queries x 576 keys).
 //
 // Replaces: tpu_superresolution_tpu/ops/pallas/window_attention.py
 //           fused_window_attention (pallas_call at :193; K15: Nq != Nk

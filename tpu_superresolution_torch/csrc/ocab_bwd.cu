@@ -1,11 +1,12 @@
-// K8b — the backward of HAT's fused OCAB core at windows 7 and 8 ((ws,
-// ows) = (7, 10): 49 queries of a window against the 100 keys of its
-// overlap window; (8, 12): 64 against 144), on Hopper's wgmma.
+// K8 and K8b — HAT's fused OCAB core at windows 7 and 8 ((ws, ows) = (7,
+// 10): 49 queries of a window against the 100 keys of its overlap window;
+// (8, 12): 64 against 144), forward and backward, on Hopper's wgmma.
 //
 // Replaces: tpu_superresolution_tpu/ops/pallas/fused_ocab.py
-//           fused_ocab_core: _bwd_kernel (pallas_call at :354).
-// Math: that of kernels/fused_ocab.py ocab_core_bwd_plain, for the
-//       cotangent ct of
+//           fused_ocab_core: _fwd_kernel (pallas_call at :311) and
+//           _bwd_kernel (pallas_call at :354).
+// Math: that of kernels/fused_ocab.py ocab_core_plain and
+//       ocab_core_bwd_plain (the latter for the cotangent ct) of
 //         A_h  = softmax(q_h k_h^T + bias[h])     (q pre-scaled, fp32)
 //         x1   = sw + proj(concat_h bf16(bf16(A_h) v_h))   (fp32)
 //         out  = x1 + fc2(bf16(gelu(fc1(bf16(LN2(x1))))))
@@ -17,35 +18,45 @@
 //       alone) and are not masked; only the keys this kernel adds to fill
 //       its 64-key blocks are.
 // Bound on the H100: at HAT's train step (800 windows, C 96, 6 heads of
-//       16, hidden 384) ~21 GFLOP against ~100 MB: memory, ~0.03 ms.
-// Design: K8bw16's split at windows 7 and 8, on K5's and K8bw16's
-//       machinery.  Everything but the attention is token-local and runs
-//       as K5a (csrc/swin_block_bwd.cuh) in its middle mode over units of
-//       one window (64 rows; at ws 7 the 49 tokens and 15 pad rows, whose
-//       operands are zero), the window layout [windows, ws^2, C] read as
-//       a [windows, ws, ws, C] map, on ``pack_ocab_tiles``' weight stream.
-//       The attention runs as a kernel of its own over (window, head)
-//       units, a fixed head a CTA: q, k, v head-major [windows, nh, N,
-//       hdp] bf16, each row swizzled as the tiles sit in shared memory
-//       (kernels/fused_ocab.py ``to_heads``), so a unit's operands are
-//       bulk copies of its real rows into tiles of 64 query rows and
-//       128 / 192 key rows whose pad rows are zeroed once and never
-//       written.  Deterministic: static schedules, ordered sums, no
-//       atomics.  Six launches:
+//       16, hidden 384) the forward ~8 GFLOP against ~54 MB, the backward
+//       ~21 GFLOP against ~100 MB: memory, ~0.016 and ~0.03 ms.
+// Design: K8w16 / K8bw16's split at windows 7 and 8, on K5's and K8bw16's
+//       machinery, on one weight pack (``pack_ocab_tiles``' stream, made
+//       once a training call).  Everything but the attention is
+//       token-local and runs as K5a (csrc/swin_block_bwd.cuh) over units
+//       of one window (64 rows; at ws 7 the 49 tokens and 15 pad rows,
+//       whose operands are zero), the window layout [windows, ws^2, C]
+//       read as a [windows, ws, ws, C] map.  The attention runs as a
+//       kernel of its own over (window, head) units, a fixed head a CTA:
+//       q, k, v head-major [windows, nh, N, hdp] bf16, each row swizzled
+//       as the tiles sit in shared memory (kernels/fused_ocab.py
+//       ``to_heads``), so a unit's operands are bulk copies of its real
+//       rows into tiles of 64 query rows and 128 / 192 key rows whose pad
+//       rows are zeroed once and never written.  The forward keeps the
+//       head-major q, k, v, O and the row statistics for the backward
+//       (kernels/fused_ocab.py ``OcabCoreFunction``), so the backward
+//       neither gathers nor recomputes the attention.  Deterministic:
+//       static schedules, ordered sums, no atomics.
+//   The forward (K8), three launches:
 //     0 ocab_win_heads_kernel: q, k, v from the window layout to the
 //       head-major operands (``to_heads``' layout), a 16-byte store a
 //       thread in output order, 16-byte loads where hd and C allow.
-//     1 ocab_win_attn_kernel<ws, ows, hdp, false>: the forward's
-//       attention recomputed (K8, csrc/ocab.cu, keeps none of it): per
-//       unit the row max and sum over the key blocks (the gathered bias
-//       read from L2, -inf on the pad keys), then P = exp(s - max) / sum
-//       rounded once and O = P V -> K5a's workspace tile (the pad rows
-//       zero); the row max and 1 / sum -> [windows, nh, 2, 64] (the pad
-//       rows 0 and 0, so every P on them is 0).
-//     2 K5a MODE_MID on that O: x1, LN2, the MLP forward and back, LN2's
-//       backward: dsw = dx1, the dW operands, dO -> head tiles [windows,
-//       nh, 64, hdp] and D = rowsum(dO O) [windows, nh, 64].
-//     3 ocab_win_attn_kernel<ws, ows, hdp, true>: per unit a query-row
+//     1 ocab_win_attn_kernel<ws, ows, hdp, false>: per unit the row max
+//       and sum over the key blocks (the gathered bias read from L2, -inf
+//       on the pad keys), then P = exp(s - max) / sum rounded once and O
+//       = P V -> K5a's workspace tile (the pad rows zero); the row max and
+//       1 / sum -> [windows, nh, 2, 64] (the pad rows 0 and 0, so every P
+//       on them is 0).
+//     2 K5a MODE_OFWD on that O: x1 = sw + O Wproj^T + b (fp32, a slot's
+//       scratch), LN2, per 64-column hidden chunk fc1, GELU and fc2
+//       summed in fp32, then fc2's bias and the residual: the output,
+//       rounded once (the pad rows not stored).
+//   The backward (K8b), four launches on the forward's q, k, v, O and
+//       row statistics:
+//     0 K5a MODE_MID: x1, LN2, the MLP forward and back, LN2's backward:
+//       dsw = dx1, the dW operands, dO -> head tiles [windows, nh, 64,
+//       hdp] and D = rowsum(dO O) [windows, nh, 64].
+//     1 ocab_win_attn_kernel<ws, ows, hdp, true>: per unit a query-row
 //       pass (S, P from the row statistics, dP = dO V^T, dS = P (dP - D),
 //       dQ = dS K; the bias gradient += dS) and a key-row pass (S^T, P^T,
 //       dP^T, dK = dS^T Q, dV = P^T dO), so no sum crosses CTAs; dQ, dK
@@ -57,25 +68,27 @@
 //       the end the two are added (consumer 0's, then 1's) and written
 //       once: [cph][nh][nq][nk], 4.9 MB at 132 CTAs of (8, 12), where
 //       K8bw16's read-modify-writes of [256, 576] partials move 906 MB.
-//     4 K5b (csrc/swin_block_bwd.cu): dW = dY^T X over the units for the
+//     2 K5b (csrc/swin_block_bwd.cu): dW = dY^T X over the units for the
 //       proj, fc1 and fc2, and the bias sums.
-//     5 K5c: the splits', the LayerNorm sums' and the CTAs' bias-gradient
+//     3 K5c: the splits', the LayerNorm sums' and the CTAs' bias-gradient
 //       partials summed in a fixed order.
 #include "swin_block_bwd.cuh"
 
 namespace swin_bwd {
 
-// K5a's middle at ws 7 and 8, compiled in swin_block_bwd_i7o_ /
+// K5a's forward tail and middle at ws 7 and 8, compiled in
+// swin_block_bwd_i7of_ / _i8of_<cp>_<hdp>.cu and swin_block_bwd_i7o_ /
 // _i8o_<cp>_<hdp>.cu
-#define OCAB_MID_EXTERN(WS_, CP_, HDP_) \
+#define OCAB_K5A_EXTERN(WS_, CP_, HDP_)                                                         \
+  extern template int launch_window<WS_, CP_, HDP_, MODE_OFWD>(const Args&, int, cudaStream_t); \
   extern template int launch_window<WS_, CP_, HDP_, MODE_MID>(const Args&, int, cudaStream_t);
-OCAB_MID_EXTERN(7, 96, 16)
-OCAB_MID_EXTERN(7, 96, 32)
-OCAB_MID_EXTERN(7, 192, 32)
-OCAB_MID_EXTERN(8, 96, 16)
-OCAB_MID_EXTERN(8, 96, 32)
-OCAB_MID_EXTERN(8, 192, 32)
-#undef OCAB_MID_EXTERN
+OCAB_K5A_EXTERN(7, 96, 16)
+OCAB_K5A_EXTERN(7, 96, 32)
+OCAB_K5A_EXTERN(7, 192, 32)
+OCAB_K5A_EXTERN(8, 96, 16)
+OCAB_K5A_EXTERN(8, 96, 32)
+OCAB_K5A_EXTERN(8, 192, 32)
+#undef OCAB_K5A_EXTERN
 
 }  // namespace swin_bwd
 
@@ -553,11 +566,11 @@ int launch_attn_at(const OwArgs& a, int ws, int hdp, cudaStream_t s) {
   return hdp == 16 ? launch_attn<8, 12, 16, BWD>(a, s) : launch_attn<8, 12, 32, BWD>(a, s);
 }
 
-template <int WS>
-int launch_mid(const Args& a, int cp, int hdp, int grid, cudaStream_t s) {
-  if (cp == 96 && hdp == 16) return launch_window<WS, 96, 16, MODE_MID>(a, grid, s);
-  if (cp == 96 && hdp == 32) return launch_window<WS, 96, 32, MODE_MID>(a, grid, s);
-  if (cp == 192 && hdp == 32) return launch_window<WS, 192, 32, MODE_MID>(a, grid, s);
+template <int WS, int MODE>
+int launch_k5a(const Args& a, int cp, int hdp, int grid, cudaStream_t s) {
+  if (cp == 96 && hdp == 16) return launch_window<WS, 96, 16, MODE>(a, grid, s);
+  if (cp == 96 && hdp == 32) return launch_window<WS, 96, 32, MODE>(a, grid, s);
+  if (cp == 192 && hdp == 32) return launch_window<WS, 192, 32, MODE>(a, grid, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -581,36 +594,127 @@ bool geo_ok(const Geo& g) {
          (g.windows == 0 || g.cph <= g.windows);
 }
 
+// K5a's arguments for the OCAB at ws 7 / 8: the window layout as a
+// [windows, ws, ws, c] map (shift 0) of sw, the weight stream and its
+// biases, O as the workspace's first operand; the rest set by the caller.
+Args k5a_args(const Geo& g, const void* sw, const void* tiles, const void* bproj,
+              const void* bfc1, const void* bfc2, const void* g2, const void* b2, const void* o,
+              float eps) {
+  Args a{};
+  a.batch = g.windows;
+  a.h = a.w = g.ws;
+  a.c = g.c;
+  a.nh = g.nh;
+  a.chunks = (g.hidden + HC - 1) / HC;
+  a.gelu_tanh = g.gelu_tanh;
+  a.stages = g.stages;
+  a.eps = eps;
+  a.vl = 4 * g.cp;
+  a.x = static_cast<const bf16*>(sw);
+  a.tiles = static_cast<const bf16*>(tiles);
+  a.bproj = static_cast<const float*>(bproj);
+  a.bfc1 = static_cast<const float*>(bfc1);
+  a.bfc2 = static_cast<const float*>(bfc2);
+  a.g2 = static_cast<const float*>(g2);
+  a.b2 = static_cast<const float*>(b2);
+  a.op[OP_O] = const_cast<bf16*>(static_cast<const bf16*>(o));
+  a.op_tiles[OP_O] = (g.cp + 63) / 64;
+  return a;
+}
+
+// The attention kernels' arguments on the head-major q, k, v.
+OwArgs attn_args(const Geo& g, const void* qh, const void* kh, const void* vh,
+                 const void* bias, const void* o, const void* stat) {
+  OwArgs t{};
+  t.q = static_cast<const bf16*>(qh);
+  t.k = static_cast<const bf16*>(kh);
+  t.v = static_cast<const bf16*>(vh);
+  t.bias = static_cast<const float*>(bias);
+  t.o = const_cast<bf16*>(static_cast<const bf16*>(o));
+  t.stat = const_cast<float*>(static_cast<const float*>(stat));
+  t.windows = g.windows;
+  t.nh = g.nh;
+  t.cph = g.cph;
+  t.o_tiles = (g.cp + 63) / 64;
+  t.c = g.c;
+  return t;
+}
+
 }  // namespace
 
-// K8b's six launches on one stream.  ct, sw, dsw, q, dq [windows, ws^2,
-// c] and k, v, dk, dv [windows, ows^2, c] bf16 in the window layout;
-// tiles and the fp32 biases and LN2 parameters as ``pack_ocab_tiles``
-// lays them out; bias [nh, ws^2, ows^2] fp32.  Workspaces
-// (kernels/fused_ocab.py ``ocab_bwd_bytes`` sizes them): qh [windows, nh,
+// K8's three launches on one stream.  q, sw, out [windows, ws^2, c] and
+// k, v [windows, ows^2, c] bf16 in the window layout; tiles and the fp32
+// biases and LN2 parameters as ``pack_ocab_tiles`` lays them out; bias
+// [nh, ws^2, ows^2] fp32.  Outputs besides out, which the backward reads
+// (kernels/fused_ocab.py ``ocab_fwd_bytes`` sizes them): qh [windows, nh,
 // ws^2, hdp], kh, vh [windows, nh, ows^2, hdp] (the head-major operands,
 // ``to_heads``' layout), o (K5a's workspace operand O,
-// [windows][cp / 64][64][64], zero past the heads' columns) and stat
-// [windows, nh, 2, 64] (the recomputed forward's), ws the dW operands of
-// the units (y2c, act, dattn, dh1, dmlp: cp / 64, chunks, cp / 64,
-// chunks, cp / 64 tiles a unit), doh [windows, nh, 64, hdp] and drow
-// [windows, nh, 64] (the middle's dO and D), x1ws [windows + windows %
-// 2][64 cp], pvec the middle's LN2 sums [grid][2][4][4 cp], prpb
-// [cph][nh][ws^2][ows^2], pw K5b's splits'; outputs gv ([the weight
-// stream's gradient | the bias sums in the stream's bias layout | the LN
-// sums g1 b1 g2 b2, cp each], fp32) and dbias [nh, ws^2, ows^2].
-extern "C" int sr_ocab_bwd_bf16(const void* ct, const void* q, const void* k, const void* v,
-                                const void* sw, void* dq, void* dk, void* dv, void* dsw,
-                                const void* tiles, const void* bproj, const void* bfc1,
-                                const void* bfc2, const void* g2, const void* b2,
-                                const void* bias, void* qh, void* kh, void* vh, void* o,
-                                void* stat, void* ws, void* doh, void* drow, void* x1ws,
-                                void* pvec, void* prpb, void* pw, void* gv, void* dbias,
-                                const int* geo, float eps, void* stream) {
+// [windows][cp / 64][64][64], zero past the heads' columns: the caller
+// zeroes those) and stat [windows, nh, 2, 64]; x1ws [grid][2][64 cp] fp32
+// scratch.  geo: the plan (this entry checks it).
+extern "C" int sr_ocab_fwd_bf16(const void* q, const void* k, const void* v, const void* sw,
+                                void* out, const void* tiles, const void* bproj,
+                                const void* bfc1, const void* bfc2, const void* g2,
+                                const void* b2, const void* bias, void* qh, void* kh, void* vh,
+                                void* o, void* stat, void* x1ws, const int* geo, float eps,
+                                void* stream) {
   const Geo g{geo[0], geo[1], geo[2], geo[3], geo[4], geo[5], geo[6],
               geo[7], geo[8], geo[9], geo[10], geo[11], geo[12]};
   if (!geo_ok(g) || !aligned_to(q, 2) || !aligned_to(k, 2) || !aligned_to(v, 2) ||
       !aligned_to(qh, 16) || !aligned_to(kh, 16) || !aligned_to(vh, 16) ||
+      !aligned_to(tiles, 16) || !aligned_to(bproj, 8) || !aligned_to(bfc1, 8) ||
+      !aligned_to(bfc2, 8) || !aligned_to(bias, 8) || !aligned_to(o, 16) ||
+      !aligned_to(stat, 16) || !aligned_to(x1ws, 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (g.windows == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  WinHeadsArgs h{};
+  h.src[0] = static_cast<const bf16*>(q);
+  h.src[1] = static_cast<const bf16*>(k);
+  h.src[2] = static_cast<const bf16*>(v);
+  h.dst[0] = static_cast<bf16*>(qh);
+  h.dst[1] = static_cast<bf16*>(kh);
+  h.dst[2] = static_cast<bf16*>(vh);
+  h.n[0] = g.ws * g.ws;
+  h.n[1] = h.n[2] = g.ows * g.ows;
+  h.windows = g.windows;
+  h.c = g.c;
+  h.nh = g.nh;
+  h.hdp = g.hdp;
+  int status = launch_win_heads(h, s);
+  if (status != 0) return status;
+  status = launch_attn_at<false>(attn_args(g, qh, kh, vh, bias, o, stat), g.ws, g.hdp, s);
+  if (status != 0) return status;
+  Args a = k5a_args(g, sw, tiles, bproj, bfc1, bfc2, g2, b2, o, eps);
+  a.out = static_cast<bf16*>(out);
+  a.x1ws = static_cast<float*>(x1ws);
+  return g.ws == 7 ? launch_k5a<7, MODE_OFWD>(a, g.cp, g.hdp, g.grid, s)
+                   : launch_k5a<8, MODE_OFWD>(a, g.cp, g.hdp, g.grid, s);
+}
+
+// K8b's four launches on one stream.  ct, sw, dsw, dq [windows, ws^2, c]
+// and dk, dv [windows, ows^2, c] bf16 in the window layout; tiles, the
+// fp32 biases, LN2 parameters and bias as the forward's; qh, kh, vh, o and
+// stat the forward's outputs.  Workspaces (kernels/fused_ocab.py
+// ``ocab_bwd_bytes`` sizes them): ws the dW operands of the units (y2c,
+// act, dattn, dh1, dmlp: cp / 64, chunks, cp / 64, chunks, cp / 64 tiles a
+// unit), doh [windows, nh, 64, hdp] and drow [windows, nh, 64] (the
+// middle's dO and D), x1ws [windows + windows % 2][64 cp], pvec the
+// middle's LN2 sums [grid][2][4][4 cp], prpb [cph][nh][ws^2][ows^2], pw
+// K5b's splits'; outputs gv ([the weight stream's gradient | the bias sums
+// in the stream's bias layout | the LN sums g1 b1 g2 b2, cp each], fp32)
+// and dbias [nh, ws^2, ows^2].
+extern "C" int sr_ocab_bwd_bf16(const void* ct, const void* sw, void* dq, void* dk, void* dv,
+                                void* dsw, const void* tiles, const void* bproj,
+                                const void* bfc1, const void* bfc2, const void* g2,
+                                const void* b2, const void* bias, const void* qh,
+                                const void* kh, const void* vh, const void* o,
+                                const void* stat, void* ws, void* doh, void* drow, void* x1ws,
+                                void* pvec, void* prpb, void* pw, void* gv, void* dbias,
+                                const int* geo, float eps, void* stream) {
+  const Geo g{geo[0], geo[1], geo[2], geo[3], geo[4], geo[5], geo[6],
+              geo[7], geo[8], geo[9], geo[10], geo[11], geo[12]};
+  if (!geo_ok(g) || !aligned_to(qh, 16) || !aligned_to(kh, 16) || !aligned_to(vh, 16) ||
       !aligned_to(dq, 4) || !aligned_to(dk, 4) || !aligned_to(dv, 4) || !aligned_to(tiles, 16) ||
       !aligned_to(bproj, 8) || !aligned_to(bfc1, 8) || !aligned_to(bfc2, 8) ||
       !aligned_to(bias, 8) || !aligned_to(o, 16) || !aligned_to(stat, 16) ||
@@ -623,63 +727,14 @@ extern "C" int sr_ocab_bwd_bf16(const void* ct, const void* q, const void* k, co
   const int kc = (g.cp + 63) / 64;
   const int nq = g.ws * g.ws, nk = g.ows * g.ows;
 
-  WinHeadsArgs h{};
-  h.src[0] = static_cast<const bf16*>(q);
-  h.src[1] = static_cast<const bf16*>(k);
-  h.src[2] = static_cast<const bf16*>(v);
-  h.dst[0] = static_cast<bf16*>(qh);
-  h.dst[1] = static_cast<bf16*>(kh);
-  h.dst[2] = static_cast<bf16*>(vh);
-  h.n[0] = nq;
-  h.n[1] = h.n[2] = nk;
-  h.windows = g.windows;
-  h.c = g.c;
-  h.nh = g.nh;
-  h.hdp = g.hdp;
-  int status = launch_win_heads(h, s);
-  if (status != 0) return status;
-
-  OwArgs t{};
-  t.q = h.dst[0];
-  t.k = h.dst[1];
-  t.v = h.dst[2];
-  t.bias = static_cast<const float*>(bias);
-  t.o = static_cast<bf16*>(o);
-  t.stat = static_cast<float*>(stat);
-  t.windows = g.windows;
-  t.nh = g.nh;
-  t.cph = g.cph;
-  t.o_tiles = kc;
-  t.c = g.c;
-  status = launch_attn_at<false>(t, g.ws, g.hdp, s);
-  if (status != 0) return status;
-
-  // K5a's middle: the window layout as a [windows, ws, ws, c] map, shift 0
-  Args a{};
-  a.batch = g.windows;
-  a.h = a.w = g.ws;
-  a.c = g.c;
-  a.nh = g.nh;
-  a.chunks = (g.hidden + HC - 1) / HC;
-  a.gelu_tanh = g.gelu_tanh;
-  a.stages = g.stages;
-  a.eps = eps;
-  a.vl = 4 * g.cp;
-  a.x = static_cast<const bf16*>(sw);
+  // K5a's middle
+  Args a = k5a_args(g, sw, tiles, bproj, bfc1, bfc2, g2, b2, o, eps);
   a.ct = static_cast<const bf16*>(ct);
-  a.tiles = static_cast<const bf16*>(tiles);
-  a.bproj = static_cast<const float*>(bproj);
-  a.bfc1 = static_cast<const float*>(bfc1);
-  a.bfc2 = static_cast<const float*>(bfc2);
-  a.g2 = static_cast<const float*>(g2);
-  a.b2 = static_cast<const float*>(b2);
   a.dextra = static_cast<bf16*>(dsw);  // dx1 = dsw
   a.doh = static_cast<bf16*>(doh);
   a.drow = static_cast<float*>(drow);
   a.x1ws = static_cast<float*>(x1ws);
   a.pvec = static_cast<float*>(pvec);
-  a.op[OP_O] = static_cast<bf16*>(o);
-  a.op_tiles[OP_O] = kc;
   const int ops[] = {OP_Y2C, OP_ACT, OP_DATTN, OP_DH1, OP_DMLP};
   const int tiles_of[] = {kc, a.chunks, kc, a.chunks, kc};
   bf16* p = static_cast<bf16*>(ws);
@@ -688,10 +743,11 @@ extern "C" int sr_ocab_bwd_bf16(const void* ct, const void* q, const void* k, co
     a.op_tiles[ops[i]] = tiles_of[i];
     p += static_cast<size_t>(g.windows) * tiles_of[i] * TILE_ELEMS;
   }
-  status = g.ws == 7 ? launch_mid<7>(a, g.cp, g.hdp, g.grid, s)
-                     : launch_mid<8>(a, g.cp, g.hdp, g.grid, s);
+  int status = g.ws == 7 ? launch_k5a<7, MODE_MID>(a, g.cp, g.hdp, g.grid, s)
+                         : launch_k5a<8, MODE_MID>(a, g.cp, g.hdp, g.grid, s);
   if (status != 0) return status;
 
+  OwArgs t = attn_args(g, qh, kh, vh, bias, o, stat);
   t.doh = a.doh;
   t.drow = a.drow;
   t.dq = static_cast<bf16*>(dq);

@@ -14,9 +14,10 @@
 // K8bw16, csrc/ocab16.cu) runs the middle as its backward's token-local
 // part (the residual x its sw, d extra its dsw) and a fourth mode as its
 // forward's tail (O read back, x1, LN2, the MLP, the residual: the
-// output); swin_block_bwd_i16o_<cp>_<hdp>.cu.  At ws 7 and 8 (K8b,
-// csrc/ocab_bwd.cu) the middle runs a window a unit (ws 7: 49 real rows
-// of 64); swin_block_bwd_i7o_ / _i8o_<cp>_<hdp>.cu.
+// output); swin_block_bwd_i16o_<cp>_<hdp>.cu.  At ws 7 and 8 (K8 and K8b,
+// csrc/ocab_bwd.cu) the forward's tail and the middle run a window a unit
+// (ws 7: 49 real rows of 64); swin_block_bwd_i7of_ / _i8of_<cp>_<hdp>.cu
+// (the tail) and swin_block_bwd_i7o_ / _i8o_<cp>_<hdp>.cu (the middle).
 #pragma once
 
 #include "common.cuh"
@@ -467,10 +468,10 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
   // u % 4 of window u / 4; ws 8: window u; ws 7, the OCAB's middle:
   // window u, its 49 tokens in a 64-row tile)
   constexpr bool TILED = MODE != MODE_WHOLE;
-  static_assert(TILED ? (WS == 16 || WS == 8 || (WS == 7 && MODE == MODE_MID))
+  static_assert(TILED ? (WS == 16 || WS == 8 || (WS == 7 && (MODE == MODE_MID || MODE == MODE_OFWD)))
                       : (WS == 7 || WS == 8),
-                "ws 16 (K5w16), ws 8 (K5r, K8b) and ws 7 (K8b's middle) run as the tiled "
-                "modes, ws 7 / 8 whole");
+                "ws 16 (K5w16), ws 8 (K5r, K8, K8b) and ws 7 (K8's tail, K8b's middle) run as "
+                "the tiled modes, ws 7 / 8 whole");
   constexpr int WTOK = WS * WS;                 // a window's tokens
   constexpr int TPW = TILED ? (WTOK + 63) / 64 : 1;  // units a window
   constexpr int NT = TILED ? (WTOK < 64 ? WTOK : 64) : WS * WS;  // a unit's real rows
@@ -486,7 +487,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) swin_block_bwd_kernel(const Args 
   constexpr bool SPLIT = CP == 256;
   constexpr int KD = SPLIT ? KC / 2 : KC;  // dy2's and dy's K chunks a pass
   static_assert(!SPLIT || TILED, "cp 256 runs the tiled modes only");
-  static_assert(MODE != MODE_OFWD || (WS == 16 && !SPLIT), "the OCAB forward's tail: ws 16, cp <= 192");
+  static_assert(MODE != MODE_OFWD || !SPLIT, "the OCAB forward's tail: cp <= 192");
   static_assert(NT <= 64, "one m64 tile a window");
   static_assert(NJ % GP == 0, "the proj's N parts and the dmlp groups");
   extern __shared__ uint8_t smem_raw[];

@@ -1,6 +1,5 @@
-// WMMA helpers shared by K1's WMMA tail (csrc/swin_tail.cu), the tiled
-// attention core (csrc/window_attn_core.cuh) and the OCAB forward at ws
-// 7 / 8 (K8, csrc/ocab.cu): 16x16x16 bf16 fragments with fp32
+// WMMA helpers shared by K1's WMMA tail (csrc/swin_tail.cu) and the tiled
+// attention core (csrc/window_attn_core.cuh): 16x16x16 bf16 fragments with fp32
 // accumulation, 64-row strip GEMMs against weights read straight from
 // global memory, and the staged epilogue that hands each lane eight
 // consecutive accumulator columns.
@@ -19,30 +18,10 @@ typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBt;
 
-// acc[mt] = A[64 x K_DIM] (shared, row-major) @ W[n0:n0+16, 0:K_DIM]^T
-// (W global, [out, in] row-major with leading dimension K_DIM), for the
-// window's four 16-row tiles.  Read as a column-major B fragment, each
+// acc[mt] = A[MT 16 rows x k_dim] (shared, row-major) @ W[n0:n0+16,
+// 0:k_dim]^T (W global, [out, in] row-major with leading dimension ldw),
+// over acc's MT 16-row tiles.  Read as a column-major B fragment, each
 // thread's k-pairs of W are contiguous 4-byte words.
-template <int K_DIM>
-__device__ __forceinline__ void gemm_strip(Acc (&acc)[4], const bf16* a, int lda,
-                                           const bf16* w, int n0) {
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) wmma::fill_fragment(acc[mt], 0.f);
-  const bf16* wrow = w + static_cast<long long>(n0) * K_DIM;
-  for (int k = 0; k < K_DIM; k += 16) {
-    FragBt fb;
-    wmma::load_matrix_sync(fb, wrow + k, K_DIM);
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-      FragA fa;
-      wmma::load_matrix_sync(fa, a + mt * 16 * lda + k, lda);
-      wmma::mma_sync(acc[mt], fa, fb, acc[mt]);
-    }
-  }
-}
-
-// gemm_strip with a run-time depth k_dim and W's leading dimension ldw,
-// over acc's MT 16-row tiles.
 template <int MT>
 __device__ __forceinline__ void gemm_strip_rt(Acc (&acc)[MT], const bf16* a, int lda,
                                               const bf16* w, int ldw, int n0, int k_dim) {

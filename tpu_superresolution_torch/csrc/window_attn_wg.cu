@@ -44,10 +44,10 @@
 //       rows are one contiguous run), else by coalesced stores.
 //       The kernel takes only unmasked units of at most 256 keys with P
 //       rounded once whose table fits beside two stages (HAT's OCABs at
-//       every head dim to 64): there it is the fastest of the three
-//       kernels; with a mask, split P or more keys the stream kernel or
-//       the tiled one is faster (chip_smoke.py's route check), and
-//       k15_route sends those shapes there.
+//       every head dim to 64): there it is the fastest of the kernels;
+//       with a mask, split P or more keys the square, stream or tiled
+//       kernel is faster (chip_smoke.py's route check), and k15_route
+//       sends those shapes there.
 // Bound on the H100 (4 Nk hd FLOP a query row; q, k, v, out in bf16, the
 //       bias once): memory-bound.  HAT's OCAB at the bench batch
 //       ([2500, 6, 49, 16] against 100 keys): 143 MB, 0.0427 ms; hat_fast
@@ -56,10 +56,11 @@
 //       SFU at 16 a clock an SM).
 #include <cstdint>
 
-#include "common.cuh"
-#include "hopper.cuh"
+#include "window_attn_wg.cuh"
 
 namespace {
+
+using namespace wg_attn;
 
 constexpr int QT = 64;             // query rows a tile (wgmma's M)
 constexpr int NCONS = 2;           // consumer warpgroups
@@ -87,64 +88,6 @@ struct Args {
   float scale_log2;    // scale * log2(e)
   uint32_t q_bytes, kv_bytes, stage_bytes, staging_bytes, bias_bytes;
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void consumer_barrier(int cw) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(cw + 1) : "memory");  // one warpgroup
-}
-
-// Rows [0, rows) of a contiguous [rows][hd] bf16 run into the swizzled
-// [rows][HDP] part at shared address `dst`, by the producer warpgroup's
-// thread t.
-template <int RB, int CPR>
-__device__ __forceinline__ void copy16(uint32_t dst, const bf16* src, int rows, int t) {
-  const int total = rows * CPR;  // 16-byte pieces, CPR a row
-  for (int i = t; i < total; i += 128) {
-    const int r = i / CPR, c = i - r * CPR;
-    hopper::cp_async<16>(dst + hopper::swizzled_offset<RB>(r * RB + c * 16), src + i * 8, 16);
-  }
-}
-
-template <int HDP>
-__device__ __forceinline__ void load_part(uint32_t dst, const bf16* src, int rows, int hd,
-                                          int vec, int t) {
-  constexpr int RB = HDP * 2;
-  if (vec == 8) {
-    switch (hd >> 3) {
-      case 1: copy16<RB, 1>(dst, src, rows, t); break;
-      case 2: copy16<RB, 2>(dst, src, rows, t); break;
-      case 3: copy16<RB, 3>(dst, src, rows, t); break;
-      case 4: copy16<RB, 4>(dst, src, rows, t); break;
-      case 5: copy16<RB, 5>(dst, src, rows, t); break;
-      case 6: copy16<RB, 6>(dst, src, rows, t); break;
-      case 7: copy16<RB, 7>(dst, src, rows, t); break;
-      default: copy16<RB, 8>(dst, src, rows, t); break;
-    }
-  } else if (vec == 2) {
-    const int cpr = hd >> 1;
-    for (int r = t; r < rows; r += 128) {
-      const bf16* s = src + static_cast<long long>(r) * hd;
-      for (int c = 0; c < cpr; ++c)
-        hopper::cp_async<4>(dst + hopper::swizzled_offset<RB>(r * RB + c * 4), s + 2 * c, 4);
-    }
-  } else {
-    for (int r = t; r < rows; r += 128) {
-      const unsigned short* s =
-          reinterpret_cast<const unsigned short*>(src) + static_cast<long long>(r) * hd;
-      for (int c = 0; c < hd; ++c) {
-        const unsigned short e = __ldg(s + c);
-        asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(
-                         dst + hopper::swizzled_offset<RB>(r * RB + c * 2)),
-                     "h"(e)
-                     : "memory");
-      }
-    }
-  }
-}
 
 // HDP: padded head dim.  NS: 16-key slices a unit (Nk <= 16 NS); the
 // bias in shared memory as a padded table pre-multiplied by log2 e (-inf

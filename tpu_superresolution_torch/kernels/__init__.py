@@ -33,9 +33,9 @@ K4   cab_conv.py:418 . conv_halo                                   all      CUDA
 K6   fused_block.py:1427 . fused_packed_windows_block (forward)    H,HT     CUDA csrc/swin_block.cu (ws 7, extra), fused_block.fused_windows_block
 K6b  fused_block.py:1604 . _packed_backward                        HT       CUDA csrc/swin_block_bwd.cu (ws 7, extra; K5's ws-7 instantiation), fused_block.SwinBlockFunction
 K13  fused_block.py:1532 . fused_spatial_windows_block             H        the K6 instantiation (it reads windows from the spatial map)
-K8   fused_ocab.py:311 . fused_ocab_core (_fwd_kernel)             HT       CUDA csrc/ocab.cu, fused_ocab.fused_ocab_core
+K8   fused_ocab.py:311 . fused_ocab_core (_fwd_kernel)             HT       CUDA csrc/ocab_bwd.cu (wgmma: the gather to head-major q, k, v, the attention over (window, head) units + K5a's OCAB tail; fused_ocab.ocab_bwd_plan), fused_ocab.OcabCoreFunction
      (at (ws, ows) (16, 24), counted as K8w16)                     H16,H16T CUDA csrc/ocab16.cu (wgmma: the gather from the qkv map, the attention over (window, head) units + K5a's OCAB tail; fused_ocab.ocab16_plan), fused_ocab.Ocab16Function (+ OcabHeadsFunction)
-K8b  fused_ocab.py:354 . fused_ocab_core (_bwd_kernel)             HT       CUDA csrc/ocab_bwd.cu (wgmma: the attention over (window, head) units + K5a's middle, K5b, K5c; fused_ocab.ocab_bwd_plan), fused_ocab.OcabCoreFunction
+K8b  fused_ocab.py:354 . fused_ocab_core (_bwd_kernel)             HT       CUDA csrc/ocab_bwd.cu (on K8's kept q, k, v, O and row statistics: K5a's middle, the attention backward, K5b, K5c), fused_ocab.OcabCoreFunction
      (at (16, 24), counted as K8bw16)                              H16T     CUDA csrc/ocab16.cu (K5a's middle, the attention backward, the gather's backward, K5b, K5c), fused_ocab.Ocab16Function (+ OcabHeadsFunction)
 K9   fused_rect_attn.py:433 . fused_rect_attention                 D        CUDA csrc/dat_rect.cu (+ dat_common.cuh's product and conv, window_attn_stream.cu's attention), fused_rect_attn.rect_attention
 K14  fused_channel_attn.py:209 . fused_channel_attention           D        CUDA csrc/dat_channel.cu (+ dat_common.cuh's product and conv), fused_channel_attn.channel_attention
@@ -47,7 +47,7 @@ K12  cab_conv.py:209 . fused_ln_cab_convs                          H,HT,    CUDA
 K11  cab_conv.py:506 . dwconv3x3_halo                              DT,DC    CUDA csrc/dwconv.cu ("rows" or "tiles", dwconv.dwconv_plan), dwconv.dwconv3x3
 K15  window_attention.py:193 . fused_window_attention              H        CUDA csrc/window_attn_wg.cu, csrc/batched_attn.cu or csrc/window_attn_stream.cu
                                                                            (window_attention.k15_route), window_attention.fused_window_attention
-K16  window_attention.py:352 . batched_window_attention            DT,DC    CUDA csrc/batched_attn.cu (the tiled core) or csrc/window_attn_stream.cu
+K16  window_attention.py:352 . batched_window_attention            DT,DC    CUDA csrc/batched_attn_wg.cu (wgmma, N 128 / 256), csrc/batched_attn.cu or csrc/window_attn_stream.cu
                                                                            (window_attention.k15_route), window_attention.batched_window_attention
 ==== ========================================================== ======== ==================================================
 

@@ -47,8 +47,8 @@ _SIGNATURES = {
     "sr_conv_bf16": [_P, _P, _P, _P] + [_I] * 14 + [_P, _P],
     "sr_swin_block_bf16": [_P] * 15 + [_I] * 13 + [ctypes.c_float, _P],
     "sr_swin_block_bwd_bf16": [_P] * 25 + [ctypes.POINTER(_I), ctypes.c_float, _P],
-    "sr_ocab_fwd_bf16": [_P] * 14 + [_I] * 6 + [ctypes.c_float, _P],
-    "sr_ocab_bwd_bf16": [_P] * 30 + [ctypes.POINTER(_I), ctypes.c_float, _P],
+    "sr_ocab_fwd_bf16": [_P] * 18 + [ctypes.POINTER(_I), ctypes.c_float, _P],
+    "sr_ocab_bwd_bf16": [_P] * 27 + [ctypes.POINTER(_I), ctypes.c_float, _P],
     "sr_dat_rect_bf16": [_P] * 15 + [ctypes.POINTER(_I), ctypes.c_float, _P],
     "sr_dat_channel_bf16": [_P] * 14 + [ctypes.POINTER(_I), ctypes.c_float, _P],
     "sr_dat_tail_bf16": [_P] * 8 + [ctypes.POINTER(_I), ctypes.c_float, _P],
@@ -57,6 +57,8 @@ _SIGNATURES = {
     "sr_ln_cab_convs_bf16": [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P],
     "sr_dwconv3x3_bf16": [_P] * 4 + [ctypes.POINTER(_I), _P],
     "sr_batched_window_attention_bf16": [_P] * 6 + [_I] * 7 + [ctypes.c_float, _P],
+    "sr_batched_window_attention_wg_bf16": [_P] * 6 + [_I] * 5 + [ctypes.c_float] + [_I] * 2
+                                           + [_P],
     "sr_window_attention_wg_bf16": [_P] * 5 + [_I] * 5 + [ctypes.c_float] + [_I] * 3 + [_P],
     "sr_window_product_bf16": [_P] * 4 + [ctypes.c_longlong] + [_I] * 11 + [_P],
     "sr_window_attention_stream_bf16": ([_P] * 7 + [_I] * 10 + [ctypes.c_float] + [_I] * 9

@@ -1,5 +1,5 @@
 """K8 — HAT's fused OCAB core, forward and backward (CUDA,
-``csrc/ocab.cu``; at window 16 ``csrc/ocab16.cu``).
+``csrc/ocab_bwd.cu``; at window 16 ``csrc/ocab16.cu``).
 
 Port of ``tpu_superresolution_tpu/ops/pallas/fused_ocab.py``
 (``fused_ocab_core``: ``_fwd_kernel`` and ``_bwd_kernel``), which the
@@ -22,22 +22,23 @@ kernel pads in shared memory.
 On a CPU tensor the wrapper runs ``ocab_core_plain``, differentiable by
 autograd; on a CUDA tensor it launches K8 (through ``OcabCoreFunction``
 when a gradient is wanted, whose backward is K8's backward, K8b) or
-raises.  The kernels take (ws, ows) = (7, 10) or (8, 12) (K8 one CTA a
-window, ``csrc/ocab.cu``; K8b ``csrc/ocab_bwd.cu``) and (16, 24),
-upstream HAT's OCAB, at C <= 192, heads of hd <= 32 (at most 6) and an
-MLP hidden <= 384 (``ocab_ok``); HAT's OCAB trains through them where
-they do, and through its module path with K15
-(``window_attention.fused_window_attention``) elsewhere.
+raises.  The kernels take (ws, ows) = (7, 10) or (8, 12)
+(``csrc/ocab_bwd.cu``) and (16, 24), upstream HAT's OCAB, at C <= 192,
+heads of hd <= 32 (at most 6) and an MLP hidden <= 384 (``ocab_ok``);
+HAT's OCAB trains through them where they do, and through its module
+path with K15 (``window_attention.fused_window_attention``) elsewhere.
 
-K8b runs K8bw16's split on Hopper's wgmma at ws 7 and 8: q, k, v go
-head-major (a gather kernel into ``to_heads``' layout), the forward's
-attention is recomputed (O and each row's max and 1 / sum) over
-(window, head) units, K5a's middle runs over units of one window (at ws
-7 its 49 tokens in 64 rows), then the attention backward over (window,
-head) units, two windows a stage, with each CTA's bias-gradient partial
-summed in shared memory, K5b and K5c, on ``pack_ocab_tiles``' weight
-stream (``ocab_bwd_plan`` plans the launches, ``ocab_bwd_bytes`` sizes
-their workspaces, carved from one buffer).
+At ws 7 and 8 K8 and K8b run K8w16 / K8bw16's split on Hopper's wgmma,
+on one weight pack (``pack_ocab_tiles``' stream, once a call): the
+forward gathers q, k, v head-major (a gather kernel into ``to_heads``'
+layout), runs the attention over (window, head) units (O and each row's
+max and 1 / sum) and K5a's OCAB tail over units of one window (at ws 7
+its 49 tokens in 64 rows), and keeps the head-major operands, O and the
+row statistics (``OcabKept``) for the backward: K5a's middle, the
+attention backward over (window, head) units, two windows a stage, with
+each CTA's bias-gradient partial summed in shared memory, K5b and K5c
+(``ocab_bwd_plan`` plans the launches, ``ocab_fwd_bytes`` /
+``ocab_bwd_bytes`` size their buffers, each carved from one).
 
 At (16, 24) the core runs on Hopper's wgmma as K8w16 / K8bw16
 (``csrc/ocab16.cu``, each wrapper call counted once): q, k and v go
@@ -92,8 +93,8 @@ from tpu_superresolution_torch.kernels.fused_block import (
 )
 
 # (ws, ows) pairs the kernels are instantiated for at overlap ratio 0.5:
-# HAT's ws 7 and hat_fast's ws 8 (csrc/ocab.cu), upstream HAT-SRx4's ws
-# 16 (csrc/ocab16.cu).
+# HAT's ws 7 and hat_fast's ws 8 (csrc/ocab_bwd.cu), upstream HAT-SRx4's
+# ws 16 (csrc/ocab16.cu).
 KERNEL_WINDOWS = ((7, 10), (8, 12), (16, 24))
 W16 = (16, 24)
 
@@ -149,25 +150,6 @@ class OcabGrads:
     wfc2: torch.Tensor
     bfc2: torch.Tensor
     bias: torch.Tensor
-
-
-@dataclasses.dataclass(frozen=True)
-class PackedOcab:
-    """The kernels' weight operands: bf16 [out, in] GEMM weights
-    zero-padded to the kernel's widths (proj input columns head-padded
-    hd -> 32), fp32 biases and LayerNorm parameters."""
-
-    wproj: torch.Tensor  # [CP, CP] bf16
-    bproj: torch.Tensor  # [CP] fp32
-    g2: torch.Tensor
-    b2: torch.Tensor
-    wfc1: torch.Tensor   # [HIDP, CP] bf16
-    bfc1: torch.Tensor   # [HIDP] fp32
-    wfc2: torch.Tensor   # [CP, HIDP] bf16
-    bfc2: torch.Tensor   # [CP] fp32
-    dim: int
-    num_heads: int
-    hidden: int
 
 
 def _heads(t: torch.Tensor, nh: int) -> torch.Tensor:
@@ -281,62 +263,6 @@ def check_ocab_args(q_shape, k_shape, sw_shape, w: OcabWeights, bias_shape,
     if tuple(bias_shape) != (nh, q_shape[1], k_shape[1]):
         raise ValueError(f"{name}: bias {tuple(bias_shape)}, expected "
                          f"{(nh, q_shape[1], k_shape[1])}")
-
-
-@torch.no_grad()
-def pack_ocab_weights(w: OcabWeights) -> PackedOcab:
-    """Lay the OCAB weights out for the kernels (once per call in
-    training)."""
-    c, nh, hidden = w.dim, w.num_heads, w.hidden
-    hd, pc, bf = c // nh, CP - c, torch.bfloat16
-    wproj = F.pad(w.wproj.reshape(c, nh, hd), (0, HDP - hd, 0, MAX_HEADS - nh, 0, pc))
-    return PackedOcab(
-        wproj=wproj.reshape(CP, CP).to(bf),
-        bproj=F.pad(w.bproj.float(), (0, pc)),
-        g2=w.g2.float().contiguous(), b2=w.b2.float().contiguous(),
-        wfc1=F.pad(w.wfc1, (0, pc, 0, HIDP - hidden)).to(bf),
-        bfc1=F.pad(w.bfc1.float(), (0, HIDP - hidden)),
-        wfc2=F.pad(w.wfc2, (0, HIDP - hidden, 0, pc)).to(bf),
-        bfc2=F.pad(w.bfc2.float(), (0, pc)),
-        dim=c, num_heads=nh, hidden=hidden,
-    )
-
-
-def _check_launch(q, k, v, sw, packed: PackedOcab, bias, name) -> None:
-    dev, bf, f32 = sw.device, torch.bfloat16, torch.float32
-    bw, nq, c = q.shape
-    nk = k.shape[1]
-    for tname, t, rows in (("q", q, nq), ("k", k, nk), ("v", v, nk), ("sw", sw, nq)):
-        _lib.check_tensor(t, f"{name}: {tname}", bf, dev, shape=(bw, rows, c), align=2)
-    for tname, t, shape, dtype, align in (
-        ("wproj", packed.wproj, (CP, CP), bf, 32), ("bproj", packed.bproj, (CP,), f32, 16),
-        ("g2", packed.g2, (c,), f32, 4), ("b2", packed.b2, (c,), f32, 4),
-        ("wfc1", packed.wfc1, (HIDP, CP), bf, 32), ("bfc1", packed.bfc1, (HIDP,), f32, 16),
-        ("wfc2", packed.wfc2, (CP, HIDP), bf, 32), ("bfc2", packed.bfc2, (CP,), f32, 16),
-        ("bias", bias, (packed.num_heads, nq, nk), f32, 4),
-    ):
-        _lib.check_tensor(t, f"{name}: {tname}", dtype, dev, shape=shape, align=align)
-
-
-def _weight_ptrs(packed: PackedOcab, bias):
-    return (packed.wproj.data_ptr(), packed.bproj.data_ptr(), packed.g2.data_ptr(),
-            packed.b2.data_ptr(), packed.wfc1.data_ptr(), packed.bfc1.data_ptr(),
-            packed.wfc2.data_ptr(), packed.bfc2.data_ptr(), bias.data_ptr())
-
-
-def _launch_fwd(q, k, v, sw, packed: PackedOcab, bias, gelu_approx) -> torch.Tensor:
-    """K8 (csrc/ocab.cu) at ws 7 and 8."""
-    _check_launch(q, k, v, sw, packed, bias, "fused_ocab_core")
-    bw, nq, c = q.shape
-    ws, ows = math.isqrt(nq), math.isqrt(k.shape[1])
-    out = torch.empty_like(sw)
-    status = _lib.call(sw, _lib.library().sr_ocab_fwd_bf16,
-                       q.data_ptr(), k.data_ptr(), v.data_ptr(), sw.data_ptr(), out.data_ptr(),
-                       *_weight_ptrs(packed, bias), bw, c, packed.num_heads, ws, ows,
-                       int(bool(gelu_approx)), LN_EPS, _lib.stream_of(sw))
-    _lib.check_status(status, "sr_ocab_fwd_bf16")
-    launches.count += 1
-    return out
 
 
 # ----------------------------------------------------------------- ws 16
@@ -746,9 +672,10 @@ def ocab_win_smem(ws: int, ows: int, hdp: int, backward: bool) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class OcabBwdPlan:
-    """How csrc/ocab_bwd.cu runs K8b on `windows` windows of (ws, ows):
-    `block`, K5a's plan (``fused_block.bwd_plan``) for its middle over the
-    windows (a unit each) on `grid` CTAs; K5b's `splits`; the attention
+    """How csrc/ocab_bwd.cu runs K8 and K8b on `windows` windows of (ws,
+    ows): `block`, K5a's plan (``fused_block.bwd_plan``) for the forward's
+    tail and the backward's middle over the windows (a unit each) on
+    `grid` CTAs; K5b's `splits`; the attention
     kernels' `cph` CTAs a head, CTA f of a head walking windows f, f +
     cph, ... two a stage, with `att_fwd_smem` / `att_bwd_smem` bytes of
     shared memory."""
@@ -767,8 +694,9 @@ class OcabBwdPlan:
 @functools.lru_cache(maxsize=64)
 def ocab_bwd_plan(ws: int, ows: int, c: int, heads: int, hidden: int, windows: int,
                   sms: int) -> OcabBwdPlan:
-    """K8b's plan from static shapes alone (the C entry only checks it).
-    Raises ValueError outside ``ocab_ok`` at (7, 10) and (8, 12)."""
+    """K8's and K8b's plan from static shapes alone (the C entries only
+    check it).  Raises ValueError outside ``ocab_ok`` at (7, 10) and (8,
+    12)."""
     if (ws, ows) == W16 or not ocab_ok(ws, ows, c, heads, hidden):
         raise ValueError(f"K8b takes (ws, ows) (7, 10) or (8, 12), C <= {CP}, <= {MAX_HEADS} "
                          f"heads of hd <= {HDP}, hidden <= {HIDP}; got ({ws}, {ows}), C={c}, "
@@ -781,24 +709,50 @@ def ocab_bwd_plan(ws: int, ows: int, c: int, heads: int, hidden: int, windows: i
                        att_bwd_smem=ocab_win_smem(ws, ows, plan.hdp, True))
 
 
-def ocab_bwd_bytes(p: OcabBwdPlan, heads: int) -> dict:
-    """Bytes of each workspace K8b uses, in ``_launch_bwd``'s order: the
-    head-major q, k, v, the recomputed forward's O (K5a's workspace
-    operand) and row statistics, the dW workspace (y2c, act, dattn, dh1,
-    dmlp), dO tiles, row term, dx1 scratch, LN2 sums' partials, the CTAs'
-    bias-gradient partials ([nq, nk] fp32 a CTA and head) and K5b's
-    splits'."""
+def ocab_fwd_bytes(p: OcabBwdPlan, heads: int) -> dict:
+    """Bytes of each buffer K8 writes at ws 7 / 8, in ``_launch_fwd``'s
+    order: the head-major q, k, v, O (K5a's workspace operand) and the
+    row statistics, which the backward reads, then the tail's x1 scratch
+    (a slot's: [grid][2][64 cp] fp32)."""
     b, n = p.block, p.windows * heads
     return {"head-major q, k, v": n * (p.ws ** 2 + 2 * p.ows ** 2) * b.hdp * 2,
             "O": p.windows * b.kc * BWD_TILE * 2,
             "row statistics": n * 2 * OW_ROWS * 4,
-            "workspace": p.windows * (3 * b.kc + 2 * b.chunks) * BWD_TILE * 2,
+            "x1 scratch": p.grid * 2 * 64 * b.cp * 4}
+
+
+def ocab_bwd_bytes(p: OcabBwdPlan, heads: int) -> dict:
+    """Bytes of each workspace K8b uses, in ``_launch_bwd``'s order: the
+    dW workspace (y2c, act, dattn, dh1, dmlp), dO tiles, row term, dx1
+    scratch, LN2 sums' partials, the CTAs' bias-gradient partials ([nq,
+    nk] fp32 a CTA and head) and K5b's splits'."""
+    b, n = p.block, p.windows * heads
+    return {"workspace": p.windows * (3 * b.kc + 2 * b.chunks) * BWD_TILE * 2,
             "dO tiles": n * OW_ROWS * b.hdp * 2,
             "row term": n * OW_ROWS * 4,
             "dx1 scratch": (p.windows + p.windows % 2) * 64 * b.cp * 4,
             "LN sums partials": p.grid * 2 * 4 * 4 * b.cp * 4,
             "bias-gradient partials": p.cph * heads * p.ws ** 2 * p.ows ** 2 * 4,
             "weight partials": p.splits * (b.stream_len + b.bias_len) * 4}
+
+
+def _carve(sizes: dict, dev: torch.device):
+    """One uint8 buffer for `sizes`' buffers, each 256-byte aligned, and
+    each one's address."""
+    at, total = {}, 0
+    for key, n in sizes.items():
+        at[key], total = total, total + -(-n // 256) * 256
+    buf = torch.empty(total, dtype=torch.uint8, device=dev)
+    return buf, {key: buf.data_ptr() + off for key, off in at.items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class OcabKept:
+    """What K8 at ws 7 / 8 keeps for K8b, in one buffer: the addresses of
+    the head-major q, k and v, O and the row statistics."""
+
+    buf: torch.Tensor
+    ptrs: tuple
 
 
 def _fold_grads(gv: torch.Tensor, c: int, nh: int, hidden: int) -> dict:
@@ -814,55 +768,98 @@ def _fold_grads(gv: torch.Tensor, c: int, nh: int, hidden: int) -> dict:
     return g
 
 
-def _launch_bwd(ct, q, k, v, sw, w: OcabWeights, bias, gelu_approx):
-    """K8b (csrc/ocab_bwd.cu) at ws 7 and 8 on window-layout operands: the
-    six launches on ``ocab_bwd_plan``'s plan (the first takes q, k, v
-    head-major), its workspaces carved from one buffer, dq, dk, dv
-    stored in the window layout.  Returns (dq, dk, dv, dsw, raw-space
-    fp32 gradients of _FOLD16 with the bias gradient under "bias");
-    counts one launch."""
-    bw, nq, c = q.shape
-    nk, nh, dev = k.shape[1], w.num_heads, sw.device
-    pk = pack_ocab_tiles(w)
-    p = ocab_bwd_plan(math.isqrt(nq), math.isqrt(nk), c, nh, w.hidden, bw,
-                      _lib.sm_count(dev.index))
+def _ocab_plan(sw: torch.Tensor, nk: int, pk: PackedOcab16) -> OcabBwdPlan:
+    bw, nq, c = sw.shape
+    return ocab_bwd_plan(math.isqrt(nq), math.isqrt(nk), c, pk.num_heads, pk.hidden, bw,
+                         _lib.sm_count(sw.device.index))
+
+
+def _geo(p: OcabBwdPlan, pk: PackedOcab16, gelu_approx: bool):
     b = p.block
-    lay, bf, f32 = pk.layout, torch.bfloat16, torch.float32
+    return (ctypes.c_int * 13)(p.windows, p.ws, p.ows, pk.dim, pk.num_heads, pk.hidden, b.cp,
+                               b.hdp, b.stages, int(bool(gelu_approx)), p.grid, p.splits, p.cph)
+
+
+def _check_launch(sw, pk: PackedOcab16, bias, nk: int, name: str, acts) -> None:
+    """Raise unless the window-layout activations `acts` ((name, tensor,
+    rows)), the weight pack and the bias fit K8 / K8b."""
+    dev, bf, f32 = sw.device, torch.bfloat16, torch.float32
+    bw, nq, c = sw.shape
+    lay = pk.layout
+    for tname, t, rows in acts:
+        _lib.check_tensor(t, f"{name}: {tname}", bf, dev, shape=(bw, rows, c), align=2)
     for tname, t, shape, dtype, align in (
-        ("q", q, (bw, nq, c), bf, 2), ("k", k, (bw, nk, c), bf, 2), ("v", v, (bw, nk, c), bf, 2),
-        ("ct", ct, (bw, nq, c), bf, 2), ("sw", sw, (bw, nq, c), bf, 2),
         ("tiles", pk.tiles, None, bf, 16), ("bproj", pk.bproj, (lay.cp,), f32, 8),
         ("bfc1", pk.bfc1, (lay.chunks * 64,), f32, 8), ("bfc2", pk.bfc2, (lay.cp,), f32, 8),
         ("g2", pk.g2, (c,), f32, 4), ("b2", pk.b2, (c,), f32, 4),
-        ("bias", bias, (nh, nq, nk), f32, 8),
+        ("bias", bias, (pk.num_heads, nq, nk), f32, 8),
     ):
-        _lib.check_tensor(t, f"fused_ocab_core backward: {tname}", dtype, dev, shape=shape,
-                          align=align)
-    sizes = ocab_bwd_bytes(p, nh)
-    at, total = {}, 0  # each workspace's offset in one buffer, 256-byte aligned
-    for key, n in sizes.items():
-        at[key], total = total, total + -(-n // 256) * 256
-    buf = torch.empty(total, dtype=torch.uint8, device=dev)
-    if nh * b.hdp < b.kc * 64:  # O's columns past the heads' are read as zero (the proj's K)
-        buf[at["O"]:at["O"] + sizes["O"]].zero_()
-    base = buf.data_ptr()
-    # the head-major q, k, v one after another in their workspace
-    heads = (base, base + bw * nh * nq * b.hdp * 2, base + bw * nh * (nq + nk) * b.hdp * 2)
-    dq, dk, dv, dsw = (torch.empty_like(t) for t in (q, k, v, sw))
-    gv = torch.empty(b.stream_len + b.vec_len, dtype=f32, device=dev)
-    dbias = torch.empty(nh, nq, nk, dtype=f32, device=dev)
-    geo = (ctypes.c_int * 13)(bw, p.ws, p.ows, c, nh, w.hidden, b.cp, b.hdp, b.stages,
-                              int(bool(gelu_approx)), p.grid, p.splits, p.cph)
+        _lib.check_tensor(t, f"{name}: {tname}", dtype, dev, shape=shape, align=align)
+
+
+def _weight_ptrs(pk: PackedOcab16, bias):
+    return (pk.tiles.data_ptr(), pk.bproj.data_ptr(), pk.bfc1.data_ptr(), pk.bfc2.data_ptr(),
+            pk.g2.data_ptr(), pk.b2.data_ptr(), bias.data_ptr())
+
+
+def _launch_fwd(q, k, v, sw, pk: PackedOcab16, bias, gelu_approx):
+    """K8 (csrc/ocab_bwd.cu) at ws 7 and 8 on window-layout operands: the
+    gather to head-major q, k, v, the attention (O and the row
+    statistics) and K5a's OCAB tail, on ``ocab_bwd_plan``'s plan.  Returns
+    (out, ``OcabKept`` for K8b); counts one launch."""
+    nk = k.shape[1]
+    _check_launch(sw, pk, bias, nk, "fused_ocab_core",
+                  (("q", q, q.shape[1]), ("k", k, nk), ("v", v, nk), ("sw", sw, sw.shape[1])))
+    p = _ocab_plan(sw, nk, pk)
+    b, dev = p.block, sw.device
+    sizes = ocab_fwd_bytes(p, pk.num_heads)
+    x1 = sizes.pop("x1 scratch")
+    buf, at = _carve(sizes, dev)
+    if pk.num_heads * b.hdp < b.kc * 64:  # O's columns past the heads' are read as zero
+        off = at["O"] - buf.data_ptr()
+        buf[off:off + sizes["O"]].zero_()
+    # the head-major q, k, v one after another in their buffer
+    unit = sw.shape[0] * pk.num_heads * b.hdp * 2
+    heads = at["head-major q, k, v"]
+    kept = OcabKept(buf, (heads, heads + unit * q.shape[1], heads + unit * (q.shape[1] + nk),
+                          at["O"], at["row statistics"]))
+    x1ws = torch.empty(x1 // 4, dtype=torch.float32, device=dev)
+    out = torch.empty_like(sw)
     status = _lib.call(
-        sw, _lib.library().sr_ocab_bwd_bf16,
-        ct.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), sw.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dsw.data_ptr(), pk.tiles.data_ptr(),
-        pk.bproj.data_ptr(), pk.bfc1.data_ptr(), pk.bfc2.data_ptr(), pk.g2.data_ptr(),
-        pk.b2.data_ptr(), bias.data_ptr(), *heads, *(base + at[key] for key in list(sizes)[1:]),
-        gv.data_ptr(), dbias.data_ptr(), geo, LN_EPS, _lib.stream_of(sw))
+        sw, _lib.library().sr_ocab_fwd_bf16, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        sw.data_ptr(), out.data_ptr(), *_weight_ptrs(pk, bias), *kept.ptrs, x1ws.data_ptr(),
+        _geo(p, pk, gelu_approx), LN_EPS, _lib.stream_of(sw))
+    _lib.check_status(status, "sr_ocab_fwd_bf16")
+    launches.count += 1
+    return out, kept
+
+
+def _launch_bwd(ct, sw, nk: int, pk: PackedOcab16, bias, gelu_approx, kept: OcabKept):
+    """K8b (csrc/ocab_bwd.cu) at ws 7 and 8 on K8's kept head-major q, k,
+    v, O and row statistics (`nk` keys a window): K5a's middle, the
+    attention backward, K5b and K5c on ``ocab_bwd_plan``'s plan, the
+    workspaces carved from one buffer, dq, dk, dv stored in the window
+    layout.  Returns (dq, dk, dv, dsw, raw-space fp32 gradients of
+    _FOLD16 with the bias gradient under "bias"); counts one launch."""
+    bw, nq, c = sw.shape
+    nh, dev = pk.num_heads, sw.device
+    _check_launch(sw, pk, bias, nk, "fused_ocab_core backward", (("ct", ct, nq), ("sw", sw, nq)))
+    p = _ocab_plan(sw, nk, pk)
+    b = p.block
+    work, at = _carve(ocab_bwd_bytes(p, nh), dev)
+    dq, dsw = torch.empty_like(sw), torch.empty_like(sw)
+    dk, dv = (torch.empty(bw, nk, c, dtype=sw.dtype, device=dev) for _ in range(2))
+    gv = torch.empty(b.stream_len + b.vec_len, dtype=torch.float32, device=dev)
+    dbias = torch.empty(nh, nq, nk, dtype=torch.float32, device=dev)
+    status = _lib.call(
+        sw, _lib.library().sr_ocab_bwd_bf16, ct.data_ptr(), sw.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), dsw.data_ptr(), *_weight_ptrs(pk, bias),
+        *kept.ptrs, *at.values(), gv.data_ptr(), dbias.data_ptr(),
+        _geo(p, pk, gelu_approx), LN_EPS, _lib.stream_of(sw))
     _lib.check_status(status, "sr_ocab_bwd_bf16")
+    del work  # (freed in stream order, after the launches)
     launches_bwd.count += 1
-    g = _fold_grads(gv, c, nh, w.hidden)
+    g = _fold_grads(gv, c, nh, pk.hidden)
     g["bias"] = dbias
     return dq, dk, dv, dsw, g
 
@@ -964,30 +961,33 @@ def fused_ocab_core_backward(ct: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
         c = w.dim
         return OcabGrads(dq=from_heads(dq, c), dk=from_heads(dk, c), dv=from_heads(dv, c),
                          dsw=dsw, **g)
-    dq, dk, dv, dsw, g = _launch_bwd(ct, q, k, v, sw, w, bias, gelu_approx)
+    pk = pack_ocab_tiles(w)
+    _, kept = _launch_fwd(q, k, v, sw, pk, bias, gelu_approx)
+    dq, dk, dv, dsw, g = _launch_bwd(ct, sw, k.shape[1], pk, bias, gelu_approx, kept)
     return OcabGrads(dq=dq, dk=dk, dv=dv, dsw=dsw, **g)
 
 
 class OcabCoreFunction(torch.autograd.Function):
-    """K8 on CUDA at ws 7 and 8: forward K8, backward K8b.  Inputs: q, k,
-    v, sw, the gathered bias, (num_heads, gelu_approx), then the weights
-    of GRAD_FIELDS; the weights are packed for each kernel on every call
-    (K8's ``pack_ocab_weights``, K8b's ``pack_ocab_tiles``)."""
+    """K8 on CUDA at ws 7 and 8: forward K8, backward K8b on the
+    forward's kept head-major q, k, v, O and row statistics.  Inputs: q,
+    k, v, sw, the gathered bias, (num_heads, gelu_approx), then the
+    weights of GRAD_FIELDS; the weights are packed once a call
+    (``pack_ocab_tiles``), for both."""
 
     @staticmethod
     def forward(ctx, q, k, v, sw, bias, meta, *params):
         num_heads, gelu_approx = meta
-        w = OcabWeights(num_heads=num_heads, **dict(zip(GRAD_FIELDS, params)))
-        ctx.save_for_backward(q, k, v, sw, bias, *params)
-        ctx.num_heads, ctx.gelu_approx = num_heads, gelu_approx
-        return _launch_fwd(q, k, v, sw, pack_ocab_weights(w), bias, gelu_approx)
+        pk = pack_ocab_tiles(OcabWeights(num_heads=num_heads, **dict(zip(GRAD_FIELDS, params))))
+        out, kept = _launch_fwd(q, k, v, sw, pk, bias, gelu_approx)
+        ctx.save_for_backward(sw, bias, kept.buf)
+        ctx.pk, ctx.ptrs, ctx.nk, ctx.gelu_approx = pk, kept.ptrs, k.shape[1], gelu_approx
+        return out
 
     @staticmethod
     def backward(ctx, ct):
-        q, k, v, sw, bias, *params = ctx.saved_tensors
-        w = OcabWeights(num_heads=ctx.num_heads, **dict(zip(GRAD_FIELDS, params)))
-        dq, dk, dv, dsw, g = _launch_bwd(ct.to(sw.dtype).contiguous(), q, k, v, sw, w, bias,
-                                         ctx.gelu_approx)
+        sw, bias, buf = ctx.saved_tensors
+        dq, dk, dv, dsw, g = _launch_bwd(ct.to(sw.dtype).contiguous(), sw, ctx.nk, ctx.pk, bias,
+                                         ctx.gelu_approx, OcabKept(buf, ctx.ptrs))
         return (dq, dk, dv, dsw, g["bias"], None) + tuple(g[k] for k in GRAD_FIELDS)
 
 
@@ -1047,4 +1047,4 @@ def fused_ocab_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sw: torch
         return _launch_fwd16(qh, kh, vh, sw, pack_ocab_tiles(w), bias, gelu_approx)[0]
     if grad:
         return OcabCoreFunction.apply(q, k, v, sw, bias, (w.num_heads, gelu_approx), *params)
-    return _launch_fwd(q, k, v, sw, pack_ocab_weights(w), bias, gelu_approx)
+    return _launch_fwd(q, k, v, sw, pack_ocab_tiles(w), bias, gelu_approx)[0]

@@ -1,6 +1,7 @@
-"""K15 and K16 — window attention on pre-split q, k, v (CUDA,
-``csrc/batched_attn.cu``, whose attention core ``csrc/window_attn_core.cuh``
-they share with K7).
+"""K15 and K16 — window attention on pre-split q, k, v (CUDA: K16's
+``csrc/batched_attn_wg.cu``, K15's ``csrc/window_attn_wg.cu``, and the
+tiled ``csrc/batched_attn.cu`` and stream ``csrc/window_attn_stream.cu``
+kernels for the other shapes).
 
 Ports of ``tpu_superresolution_tpu/ops/pallas/window_attention.py``:
 ``fused_window_attention`` (K15, its ``pallas_call`` at :193) and
@@ -20,9 +21,10 @@ their shift mask is additive -100 and the pad tokens of a padded map are
 real keys.  K15 is the general case; HAT's OCAB runs it with the ws^2
 queries of each window against the ows^2 keys of the overlapping window
 around it (the zero rows of the gather at the border are real keys).
-Three CUDA kernels compute both, chosen by ``k15_route`` from static
+Four CUDA kernels compute both, chosen by ``k15_route`` from static
 shapes alone (the same answer on every call and device); chip_smoke.py's
-route check times all three at every K15 / K16 row:
+route check times every kernel that takes a shape at every K15 / K16
+row:
 
 - "wgmma" (``csrc/window_attn_wg.cu``): a persistent grid whose CTAs
   walk (window, head) units head-major with their head's fp32 bias
@@ -33,23 +35,32 @@ route check times all three at every K15 / K16 row:
   registers); unmasked units of at most 256 keys with P rounded once,
   hd <= 64 (heads padded to 16, 32 or 64 dims): HAT's and hat_fast's
   OCABs at every head dim;
+- "square" (``csrc/batched_attn_wg.cu``): K16 at DAT's windows of N 128
+  or 256 tokens (hd <= 64; at N 256 hd <= 32), masked or not, P in three
+  bf16 parts: a persistent grid over (head, mask plane, 128-query row
+  block) keys, each CTA walking the key's windows with bias[h] +
+  mask[m] summed once into a resident fp32 table, a
+  producer warpgroup filling an mbarrier ring with a unit's 128 query
+  and N key and value rows, and two consumer warpgroups, a 64-row query
+  tile each, on wgmma (keys in groups of 128 or 64 with an online
+  softmax); ``sq_plan`` decides its launch;
 - "tiled" (``csrc/batched_attn.cu``, the first design): one 256-thread
   block per (window, head, 64-query tile) on K7's wmma core, keys
   streamed in 64-row tiles; hd <= 32.  It keeps the other shapes of hd
-  <= 32: the fastest at K16's unmasked DAT windows, the published DAT
-  x4's N 256 and HAT-SRx4's 256 x 576; at masked units of at most 128
-  queries the stream kernel is ~1.2x faster, but in K16's form (split
-  P) its other rounding moved a DAT training gradient past chip_smoke's
-  first-step gate, so K16 keeps this kernel's numerics there;
+  <= 32 the wgmma and square kernels do not take but K15's masked ones:
+  HAT-SRx4's 256 x 576 and K16 at windows of other than 128 or 256
+  tokens;
 - "stream" (``csrc/window_attn_stream.cu``, K7's attention kernel): the
   same persistent, head-major wgmma design with the dense bias and mask
   read from device memory, whose ring items are whole units or a 64-row
   query tile and a key chunk (an online softmax across chunks), heads
   padded to 16, 32 or 64 dims or, past 64, in 64-dim blocks with P V in
-  passes of up to 128 columns; every shape of more than 32 dims the
-  wgmma kernel does not take (masked units, K16's split P, units of more
-  than 256 keys, heads past 64 dims), where it is the fastest of the
-  kernels that take the shape.  ``stream_plan`` decides its launch.
+  passes of up to 128 columns; K15's masked units and every shape of
+  more than 32 dims the wgmma and square kernels do not take (masked
+  units, K16 at windows of other sizes or at N 256, units of more than
+  256 keys, heads past 64 dims), where it is the fastest of the kernels
+  that take the shape.
+  ``stream_plan`` decides its launch.
 
 Each wrapper counts its own launches, whichever kernel runs.  The
 gradient is torch autograd of the plain version, as the JAX custom_vjp
@@ -77,10 +88,11 @@ WG_SLICES = (4, 7, 8, 9, 12, 16)
 WG_MAX_KEYS = 16 * WG_SLICES[-1]  # keys a unit, its row of S in registers
 WG_MAX_STAGES = 4
 WG_SMEM_LIMIT = 232448
-# Whether P enters P V as two bf16 parts (~16 significant bits) or
-# rounded to bf16 once: K16 feeds DAT's training, whose smallest
-# gradients moved with bf16 P; K15 (the OCAB's attention, as the JAX
-# module path rounds it) takes the faster form, within the same bound
+# Whether P enters P V split into bf16 parts (two, ~16 significant bits,
+# on the tiled and stream kernels; three, fp32's 24, on the square
+# kernel) or rounded to bf16 once: K16 feeds DAT's training, whose
+# smallest gradients moved with bf16 P; K15 (the OCAB's attention, as the
+# JAX module path rounds it) takes the faster form, within the same bound
 # (chip_smoke.py's kernels phase times both; PERF.md).
 K16_SPLIT_P = True
 K15_SPLIT_P = False
@@ -166,6 +178,54 @@ def wg_ctas_per_head(bw: int, nh: int, sms: int) -> int:
     return max(1, min(bw, sms // nh))
 
 
+# csrc/batched_attn_wg.cu: the windows it takes (N tokens, 16-key slices
+# N / 16), query rows a unit (two consumers' 64-row tiles) and ring stages
+# at most
+SQ_WINDOWS = (128, 256)
+SQ_ROWS = 128
+SQ_MAX_STAGES = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class SqPlan:
+    """How csrc/batched_attn_wg.cu runs K16 at one shape, decided here and
+    only checked by the C entry: the window's `ns` 16-key slices, its
+    `row_blocks` blocks of 128 query rows (a CTA's key is a head, a mask
+    plane and a row block), the ring's `stages` (a (window, head, row
+    block) unit each: 128 q rows, N k and v rows) beside the resident
+    [128, N + 8] fp32 table of bias + mask, and the shared memory."""
+
+    ns: int
+    row_blocks: int
+    stages: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=64)
+def sq_plan(n: int, hd: int) -> Optional[SqPlan]:
+    """The square kernel's plan for windows of `n` tokens in heads of `hd`
+    dims, or None where it does not take them: N other than 128 or 256,
+    more than 64 dims, or fewer than two stages beside the table (N 256
+    at hd past 32)."""
+    if n not in SQ_WINDOWS or not 1 <= hd <= WG_MAX_HD:
+        return None
+    hdp = wg_head_pad(hd)
+    fixed = 1024 + 2 * WG_Q_TILE * hdp * 2 + 16 * SQ_MAX_STAGES  # + staging tiles, barriers
+    table = SQ_ROWS * (n + 8) * 4
+    stage = (SQ_ROWS + 2 * n) * hdp * 2
+    stages = min(SQ_MAX_STAGES, (WG_SMEM_LIMIT - fixed - table) // stage)
+    if stages < 2:
+        return None
+    return SqPlan(n // 16, n // SQ_ROWS, stages, fixed + table + stages * stage)
+
+
+def sq_ctas_per_key(bw: int, keys: int, n_mask: int, sms: int) -> int:
+    """The square kernel's CTAs a key (head, mask plane, row block): one
+    wave over the keys (floor, at least one), at most the windows of a
+    mask plane.  CTA (key, g) takes the plane's windows g, g + G, ..."""
+    return max(1, min(max(1, bw // n_mask), sms // keys))
+
+
 # csrc/window_attn_stream.cu: query rows a tile, ring stages at most
 STREAM_Q_TILE = 64
 STREAM_MAX_STAGES = 4
@@ -242,18 +302,22 @@ def stream_plan(nq: int, nk: int, hd: int, ws: int = 0, ws_w: int = 0) -> Stream
 def k15_route(nq: int, nk: int, hd: int, masked: bool = False, split_p: bool = False) -> str:
     """The kernel for an attention of `nq` queries against `nk` keys in
     heads of `hd` dims, with or without a mask, with P rounded once (K15)
-    or in two parts (K16): "wgmma" where ``wg_plan`` takes the shape
+    or split into parts (K16): "wgmma" where ``wg_plan`` takes the shape
     (unmasked, P rounded once, at most 256 keys: HAT's and hat_fast's
-    OCABs); "tiled" for the other shapes of hd <= 32 (K16's DAT windows,
-    HAT-SRx4's 256 x 576); "stream" for the rest (masked units, K16 at hd
-    33-64, more keys, heads past 64 dims).  Shapes only; raises
-    ValueError only for empty shapes."""
+    OCABs); "square" for split P on square windows ``sq_plan``
+    takes (K16's DAT windows of 128 and 256 tokens); "tiled" for the
+    other shapes of hd <= 32 but K15's masked ones (HAT-SRx4's 256 x 576,
+    K16 at other windows); "stream" for the rest (K15's masked units,
+    masked units past hd 32, more keys, heads past 64 dims).  Shapes only;
+    raises ValueError only for empty shapes."""
     if nq < 1 or nk < 1 or hd < 1:
         raise ValueError(f"window attention: at least one query, key and head dim; got "
                          f"Nq={nq}, Nk={nk}, hd={hd}")
     if wg_plan(nq, nk, hd, masked, split_p) is not None:
         return "wgmma"
-    if hd <= TILED_MAX_HD:
+    if split_p and nq == nk and sq_plan(nq, hd) is not None:
+        return "square"
+    if hd <= TILED_MAX_HD and (split_p or not masked):
         return "tiled"
     return "stream"
 
@@ -303,7 +367,21 @@ def _launch(q, k, v, bias, mask, scale, counter, split_p,
         launch_stream(q, k, v, bias, mask, None, out, bw, nh, nq, nk, hd, scale, split_p)
         counter.count += 1
         return out
-    if route == "wgmma":
+    if route == "square":
+        name = "sr_batched_window_attention_wg_bf16"
+        plan = sq_plan(nq, hd) if nq == nk and split_p else None
+        if plan is None:
+            raise ValueError(f"window attention: the square kernel takes split P on square "
+                             f"windows of {SQ_WINDOWS} tokens at hd <= {WG_MAX_HD}; got Nq={nq}, "
+                             f"Nk={nk}, hd={hd}{'' if split_p else ' with P rounded once'}")
+        keys = nh * max(1, n_mask) * plan.row_blocks
+        status = _lib.call(q, _lib.library().sr_batched_window_attention_wg_bf16, q.data_ptr(),
+                           k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                           None if mask is None else mask.data_ptr(), out.data_ptr(), bw, nh,
+                           nq, hd, n_mask, float(scale),
+                           sq_ctas_per_key(bw, keys, max(1, n_mask), _lib.sm_count(dev.index)),
+                           plan.stages, _lib.stream_of(q))
+    elif route == "wgmma":
         name = "sr_window_attention_wg_bf16"
         plan = wg_plan(nq, nk, hd, mask is not None, bool(split_p))
         if plan is None:
