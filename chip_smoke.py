@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SwinIR-M x4 serving and fine-tuning paths,
-its HAT x4 serving and training paths, its DAT x4 serving and training
-paths (the published DAT x4's widths among them) and its HAT-SRx4
-(upstream HAT, window 16) serving and training paths once on one NVIDIA
-H100 and check them.  Run from the repository root:
+"""Drive the PyTorch port's SwinIR-M x4 serving, evaluation and
+fine-tuning paths, its HAT x4 serving and training paths, its DAT x4
+serving and training paths (the published DAT x4's widths among them)
+and its HAT-SRx4 (upstream HAT, window 16) serving and training paths
+once on one NVIDIA H100 and check them.  Run from the repository root:
 
     python3 chip_smoke.py
 
@@ -108,7 +108,18 @@ Phases (a failure in any raises, and the script exits non-zero):
             25 tiles in one batch, 10 timed iterations) in MPix/s, for the
             kernels and for the plain path, and K3/K4's device time in one
             profiled forward (likewise in the HAT, DAT and HAT-SRx4
-            bench phases); then SwinIR-M x4 at window 7
+            bench phases); then the evaluate CLI
+            (``cli.evaluate.main(--device cuda --no-exact)``) on SwinIR-M
+            x4 over a synthetic test split of 8 images of 1024^2 at the
+            bench tiles (batch 2, two PNG triplets) and with
+            --self_ensemble over its first 4 (batch 1, one triplet):
+            the report, the PNGs, launches per model call as the serve
+            phase's (x8 under the ensemble), dataset-mean PSNR within
+            0.05 dB and SSIM within 1e-3 of the same Evaluator.run of the
+            plain fp32 model on the card, every image's SR >= 50 dB
+            against the plain fp32 SR, the steady MPix/s and compile_s;
+            the bicubic baseline on the card against the CPU's (1e-3
+            dB); then SwinIR-M x4 at window 7
             (its blocks run K6): launches and PSNR vs the plain fp32 path;
             and one SwinIR-L-width forward (embed 240, 8 heads, ws 8,
             depths 9x6, 3conv, nearest+conv; 4 tiles of 64^2), whose
@@ -188,8 +199,11 @@ Phases (a failure in any raises, and the script exits non-zero):
             per step and images/s for the kernels and the plain bf16
             path, a profiled step split by part, and the first step's
             loss, gradients and BatchNorm statistics against the plain
-            fp32 path (with DAT's exception for gradients below bf16's
-            resolution, BF16_FLOOR);
+            fp32 path from weights whose attention is of trained size
+            (with DAT's exception for gradients below bf16's
+            resolution, BF16_FLOOR, calibrated on the plain bf16 path's
+            spread under K16 mis-roundings), and the gate's controls:
+            fresh mis-rounded K16s pass, five wrong K16s fail;
 13. k16-stream the stream kernel's masked split-P path (K16 at windows
             the square kernel does not take): one shifted DAT spatial
             block at hd 30 with K16 forced to the stream kernel beside
@@ -199,8 +213,9 @@ Phases (a failure in any raises, and the script exits non-zero):
             padded to 64 dims.
 
 The second-to-last stdout line is a JSON object describing each kernel
-(launches summed over the serve, SwinIR ws-7, SwinIR-L, wide, hat, dat,
-train, hat-train, hat_srx4, hat_srx4-train, dat_x4 and dat-train phases); the last is
+(launches summed over the serve, evaluate, SwinIR ws-7, SwinIR-L, wide,
+hat, dat, train, hat-train, hat_srx4, hat_srx4-train, swinir_l-train,
+dat_x4 and dat-train phases); the last is
 {"ok": true, "device": {...}}.  There is no CPU path: with no CUDA
 device the script exits non-zero and prints no result.
 """
@@ -211,6 +226,7 @@ import contextlib
 import io
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -460,7 +476,37 @@ ADAMW_EPS = 1e-8
 # PERF.md), and at that noise floor two bf16 paths that differ in a few
 # roundings disagree as much.
 # DAT's gate therefore also passes a parameter whose kernel gradient is
-# no farther from fp32 than twice the plain bf16 path's.
+# no farther from fp32 (relative L2) than GATE_MARGIN times the plain bf16
+# path's spread there: the largest error among the plain bf16 path and
+# runs of it with K16's output mis-rounded (1 ulp, the other bf16
+# neighbour) at GATE_CAL_FRAC of the elements, one run a seed of
+# GATE_CAL_SEEDS.  Those runs stand for correct K16s: the square and tiled
+# kernels round 1.9e-4 and 2.0e-3 of their outputs otherwise than the
+# plain version (PERF.md §6).  One sample of that noise (the plain path
+# alone, twice its error) failed 6 of 6 such draws (PERF.md); the
+# controls of the dat-train phase hold the calibrated gate to passing
+# fresh draws and failing wrong K16s.
+# With 8 runs at the seeded weights the worst parameter of 6 fresh draws
+# lay 1.09-1.87 times the spread, the square kernel's 1.01, the shift
+# mask applied to the wrong windows 9.46 times, heads stored out of
+# order 244.8 times (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+GATE_CAL_SEEDS = tuple(range(101, 113))
+GATE_CAL_FRAC = 2e-3
+GATE_MARGIN = 3.0
+# The DAT gate runs from weights whose attention is of a trained model's
+# size (``_dat_trained_size``).  At the reference initialisation the rect
+# bias tables have std 0.031 (|bias| <= 0.11) and the scores q k^T std
+# 0.071, so the softmax is near uniform and a K16 that drops a head's
+# bias or applies the scale twice moves the gradients no more than
+# bf16's rounding does (PERF.md).  DynamicPosBias's last layer times
+# DAT_GATE_BIAS_GAIN and q's and k's rows of every spatial qkv times
+# DAT_GATE_QK_GAIN give bias tables of std ~2 and scores of std ~2 (the
+# dat-train phase logs both sizes before and after).  At a bias gain of
+# 32 head 0's bias dropped read 3.66 times the spread, a correct K16 up
+# to 2.06; at 64, 10.19 and 2.90 with 8 calibration runs, 9.07 and 1.68
+# with 12 (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+DAT_GATE_BIAS_GAIN = 64.0
+DAT_GATE_QK_GAIN = 5.0
 
 
 def log(msg: str) -> None:
@@ -3034,6 +3080,154 @@ def phase_bench(service, smi, name="SwinIR-M x4", tag="bench"):
     return fwd
 
 
+# The evaluate phase: a DeepRockSR-layout test split of EVAL_IMAGES HR
+# images of EVAL_HR^2 (LR 256^2 at x4), the bench workload's tiles, two
+# PNG triplets; the x8 self-ensemble over the first EVAL_TTA_IMAGES of
+# them, one a batch, one PNG triplet (its plain fp32 reference took 29.8
+# s at 8 images, 64 model calls, on an NVIDIA H100 80GB HBM3 at 700 W).
+# The PNGs fall in each run's first batch, which the steady window
+# (``Evaluator.run``'s mpix_per_s) leaves out: 3 steady batches each.
+EVAL_IMAGES, EVAL_TTA_IMAGES, EVAL_HR = 8, 4, 1024
+EVAL_TILE, EVAL_OVERLAP, EVAL_TILE_BATCH, EVAL_BATCH = 64, 8, 25, 2
+# Dataset means, kernels (bf16) against the plain fp32 path on the card
+# (the ROADMAP's PSNR-delta bound), and the GPU baseline against the CPU's.
+EVAL_PSNR_DB, EVAL_SSIM, EVAL_BASELINE_DB = 0.05, 1e-3, 1e-3
+
+
+def _recording_evaluator(model, ecfg):
+    """An Evaluator on the card that keeps each batch's SR on the host."""
+    from tpu_superresolution_torch.evaluate import Evaluator
+
+    ev = Evaluator(model, 4, "native_lr", ecfg, log=lambda m: None, device="cuda")
+    ev.outs, forward_fn = [], ev.forward_fn
+
+    def recording():
+        fwd = forward_fn()
+
+        def run(lr):
+            out = fwd(lr)
+            ev.outs.append(out.cpu())
+            return out
+        return run
+    ev.forward_fn = recording
+    return ev
+
+
+def phase_evaluate(workdir, smi):
+    """SwinIR-M x4 evaluation through ``cli.evaluate.main(--device cuda)``
+    (seeded random weights exported to a .pth, --no-exact: the serving
+    semantics, fused reconstruction) at the bench workload's tiles over
+    a synthetic test split of EVAL_IMAGES images of EVAL_HR^2 (two PNG
+    triplets) and with --self_ensemble over its first EVAL_TTA_IMAGES
+    (one): exit, the report's keys, the PNG triplets,
+    launches per model call as the serve phase counts (x8 under the
+    ensemble), dataset-mean PSNR / SSIM against the same Evaluator.run
+    of the plain fp32 model on the card, every image's SR >= PSNR_MIN_DB
+    against the plain fp32 SR; and the bicubic baseline on the card
+    against the same on the CPU.  Returns the CLI runs' launches."""
+    import torch
+
+    from tpu_superresolution_torch.cli.evaluate import main as evaluate_main
+    from tpu_superresolution_torch.cli.upscale import load_any_checkpoint
+    from tpu_superresolution_torch.core.config import EvalConfig, SwinIRConfig, build_model
+    from tpu_superresolution_torch.data.index import PairedIndex
+    from tpu_superresolution_torch.data.loader import Loader
+    from tpu_superresolution_torch.evaluate import bicubic_baseline, tile_grid
+    from tpu_superresolution_torch.kernels import read_counters, reset_counters
+
+    tag = "evaluate"
+    data, data_tta = f"{workdir}/deeprock_eval", f"{workdir}/deeprock_eval_tta"
+    for root, n in ((data, EVAL_IMAGES), (data_tta, EVAL_TTA_IMAGES)):  # the same first images
+        _write_deeprock(root, 0, 0, hr_size=EVAL_HR, scale=4, seed=SEED + 20, n_test=n)
+    src = build_model(SwinIRConfig(scale=4))
+    src.reset_parameters(torch.Generator().manual_seed(SEED))
+    ckpt = f"{workdir}/swinir_x4_eval.pth"
+    torch.save({"params": src.state_dict()}, ckpt)
+    del src
+    mcfg, kernels_model = load_any_checkpoint(ckpt, "swinir", 4, False, torch.device("cuda"))
+    plain = build_model(mcfg, dtype=torch.float32, impl="plain", device="cuda")
+    plain.load_state_dict(kernels_model.state_dict())
+    tiles = len(tile_grid(EVAL_HR // 4, EVAL_TILE, EVAL_OVERLAP)) ** 2
+    def loader(root, batch):
+        return Loader(PairedIndex(root, "test", "X4"), batch, grayscale=False, channels=3,
+                      num_threads=4)
+
+    launches_total = {k: 0 for k in PER_CALL}
+    for label, root, n, batch, saves, extra in (
+            ("plain", data, EVAL_IMAGES, EVAL_BATCH, 2, []),
+            ("x8 self-ensemble", data_tta, EVAL_TTA_IMAGES, 1, 1,
+             ["--self_ensemble", "--no_baseline"])):
+        ens = "--self_ensemble" in extra
+        out_dir = f"{workdir}/eval_{label.replace(' ', '_')}"
+        argv = ["--scale", "X4", "--data_root", root, "--model", "swinir", "--ckpt", ckpt,
+                "--no-exact", "--device", "cuda", "--tile", str(EVAL_TILE), "--tile_overlap",
+                str(EVAL_OVERLAP), "--tile_batch", str(EVAL_TILE_BATCH), "--batch_size",
+                str(batch), "--save_n", str(saves), "--save_dir", out_dir, "--workers", "4",
+                "--report_json", f"{out_dir}.json"] + extra
+        reset_counters()
+        res = evaluate_main(argv)
+        torch.cuda.synchronize()
+        launches = read_counters()
+        report = json.loads(open(f"{out_dir}.json").read())
+        pngs = sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []
+        n_calls = n // batch * math.ceil(batch * tiles / EVAL_TILE_BATCH) * (8 if ens else 1)
+        expect = {k: per * n_calls for k, per in PER_CALL.items()}
+        log(f"[{tag}] evaluate CLI, SwinIR-M x4, {label}, {n} images {EVAL_HR}^2, tile "
+            f"{EVAL_TILE}/{EVAL_OVERLAP}, {EVAL_TILE_BATCH} tiles a call, batch {batch}: "
+            f"PSNR {res['psnr']:.4f} dB, SSIM {res['ssim']:.6f}, wall {res['wall_s']:.3f} s, "
+            f"compile_s {res['compile_s']:.3f} s, steady {res['mpix_per_s']:.3f} MPix/s; model "
+            f"calls {n_calls}; launches {launches} ({smi})")
+        want_keys = {"psnr", "ssim", "n", "wall_s", "compile_s", "mpix_per_s"}
+        want_pngs = [f"idx_{i:06d}_{k}.png" for i in range(saves) for k in ("hr", "lr", "sr")]
+        if set(report) != want_keys or report["n"] != n or pngs != want_pngs:
+            raise RuntimeError(f"{tag} {label}: report {report}, PNGs {pngs}")
+        if launches != expect:
+            raise RuntimeError(f"{tag} {label}: launches {launches}, expected {expect}")
+        for k in PER_CALL:
+            launches_total[k] += launches[k]
+
+        # the same evaluation of the kernels (SR kept) and of the plain fp32 path
+        ecfg = EvalConfig(batch_size=batch, tile_size=EVAL_TILE, tile_overlap=EVAL_OVERLAP,
+                          max_tile_batch=EVAL_TILE_BATCH, self_ensemble=ens)
+        runs = {}
+        for name, model in (("kernels", kernels_model), ("plain fp32", plain)):
+            ev = _recording_evaluator(model, ecfg)
+            t0 = time.perf_counter()
+            runs[name] = (ev.run(loader(root, batch)), torch.cat(ev.outs))
+            log(f"[{tag}] {label}: Evaluator.run of the {name} path in "
+                f"{time.perf_counter() - t0:.2f} s: PSNR {runs[name][0]['psnr']:.4f} dB, SSIM "
+                f"{runs[name][0]['ssim']:.6f}")
+        ref = runs["plain fp32"][0]
+        per_image = [_psnr_db(a, b) for a, b in zip(runs["kernels"][1], runs["plain fp32"][1])]
+        d_psnr, d_ssim = abs(res["psnr"] - ref["psnr"]), abs(res["ssim"] - ref["ssim"])
+        log(f"[{tag}] {label}: CLI vs plain fp32 dataset means: PSNR {d_psnr:.4f} dB (bound "
+            f"{EVAL_PSNR_DB}), SSIM {d_ssim:.2e} (bound {EVAL_SSIM}); each image's SR vs plain "
+            f"fp32: PSNR {', '.join(f'{p:.2f}' for p in per_image)} dB (bound >= "
+            f"{PSNR_MIN_DB})")
+        if (d_psnr > EVAL_PSNR_DB or d_ssim > EVAL_SSIM or len(per_image) != n
+                or min(per_image) < PSNR_MIN_DB):
+            raise RuntimeError(f"{tag} {label}: the kernels' evaluation disagrees with the "
+                               "plain fp32 path")
+    del plain, kernels_model
+
+    # the bicubic baseline on the card against the same on the CPU
+    base = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        base[device] = bicubic_baseline(loader(data, EVAL_BATCH), 4, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        base[device]["s"] = time.perf_counter() - t0
+    d = abs(base["cuda"]["psnr"] - base["cpu"]["psnr"])
+    log(f"[{tag}] bicubic baseline, {EVAL_IMAGES} images: GPU PSNR {base['cuda']['psnr']:.6f} dB "
+        f"SSIM {base['cuda']['ssim']:.6f} in {base['cuda']['s']:.3f} s (decode included); CPU "
+        f"{base['cpu']['psnr']:.6f} dB SSIM {base['cpu']['ssim']:.6f} in {base['cpu']['s']:.3f} s; "
+        f"|GPU - CPU| {d:.2e} dB (bound {EVAL_BASELINE_DB}) ({smi})")
+    if d > EVAL_BASELINE_DB or base["cuda"]["n"] != EVAL_IMAGES:
+        raise RuntimeError(f"{tag}: the GPU baseline disagrees with the CPU's")
+    return launches_total
+
+
 def _conv_share(fwd, name, tag, smi):
     """K3/K4's device time in one profiled bench forward (kernels named
     conv_nhwc_*), beside the forward's busy device time."""
@@ -3582,16 +3776,19 @@ def _hat_split(model, fwd, smi, tag="hat"):
         log(f"[{tag}]   {t:8.3f} ms  {t / wall:6.1%}  {g}")
 
 
-def _write_deeprock(root, n_train, n_valid, hr_size, scale, seed):
+def _write_deeprock(root, n_train, n_valid, hr_size, scale, seed, n_test=0):
     """A synthetic DeepRockSR-2D-layout set: smooth grayscale HR images
-    (bicubic-upsampled noise) and their bicubic LR, named <stem>x<s>."""
+    (bicubic-upsampled noise) and their bicubic LR, named <stem>x<s>
+    (a split of no images is not written)."""
     from pathlib import Path
 
     import numpy as np
     from PIL import Image
 
     rng = np.random.default_rng(seed)
-    for split, n in (("train", n_train), ("valid", n_valid)):
+    for split, n in (("train", n_train), ("valid", n_valid), ("test", n_test)):
+        if not n:
+            continue
         hr_dir = Path(root) / "shuffled2D" / f"shuffled2D_{split}_HR"
         lr_dir = Path(root) / "shuffled2D" / f"shuffled2D_{split}_LR_default_X{scale}"
         hr_dir.mkdir(parents=True)
@@ -3743,7 +3940,102 @@ def phase_train(workdir, smi):
     return launches, times
 
 
-def _first_step_gate(cfg, src, lr, hr, tag, smi, bf16_floor=False):
+def _misrounded_bf16(ref, frac, gen):
+    """fp32 `ref` rounded to bf16, with a share `frac` of its elements
+    (picked by `gen`) rounded to the other bf16 neighbour: 1-ulp
+    mis-roundings at random places, as a correct kernel that rounds
+    otherwise than the plain version gives."""
+    import torch
+
+    near = ref.to(torch.bfloat16)
+    r = near.float()
+    ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(1e-30))) - 7)
+    other = (r + torch.sign(ref - r) * ulp).to(torch.bfloat16)
+    pick = torch.rand(ref.shape, generator=gen, device=ref.device) < frac
+    return torch.where(pick & (ref != r), other, near)
+
+
+def _k16_misrounded(frac, seed):
+    """A stand-in for K16's launch (``window_attention._launch``): its
+    plain version, rounded to bf16 with mis-roundings at `frac`."""
+    import torch
+
+    from tpu_superresolution_torch.kernels import window_attention as wa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def k16(q, k, v, bias, mask, scale, counter, split_p, route=None):
+        ref = wa.fused_window_attention_plain(q.float(), k.float(), v.float(), bias, mask, scale)
+        return _misrounded_bf16(ref, frac, gen)
+    return k16
+
+
+K16_FAULTS = ("mask windows", "head order", "row offset", "softmax scale", "head bias")
+
+
+def _k16_wrong(kind):
+    """K16's launch with a fault a kernel could have: "mask windows"
+    gives window w the shift mask of window w + 1 (the mask applied to
+    the wrong windows), "head order" stores each head's output in the
+    next head's place, "row offset" each query row's output in the next
+    row's, "softmax scale" applies the 1 / sqrt(hd) scale a second time
+    (DAT's q comes scaled), "head bias" drops head 0's rect bias."""
+    from tpu_superresolution_torch.kernels import window_attention as wa
+
+    launch = wa._launch
+
+    def k16(q, k, v, bias, mask, scale, counter, split_p, route=None):
+        if kind == "head bias":
+            bias = bias.clone()
+            bias[0] = 0.0
+        elif kind == "mask windows" and mask is not None:
+            mask = mask.roll(-1, 0).contiguous()
+        elif kind == "softmax scale":
+            scale = scale * q.shape[-1] ** -0.5
+        out = launch(q, k, v, bias, mask, scale, counter, split_p, route)
+        if kind in ("head order", "row offset"):
+            out = out.roll(1, 1 if kind == "head order" else 2).contiguous()
+        return out
+    return k16
+
+
+@contextlib.contextmanager
+def _k16_replaced(k16=None, plain_k16=None):
+    """K16's launch replaced by `k16` on the kernels path, and the plain
+    path's K16 (``models.dat.batched_window_attention_plain``) by
+    `plain_k16`, for the duration."""
+    from tpu_superresolution_torch.kernels import window_attention as wa
+    from tpu_superresolution_torch.models import dat as dm
+
+    launch, plain = wa._launch, dm.batched_window_attention_plain
+    wa._launch, dm.batched_window_attention_plain = k16 or launch, plain_k16 or plain
+    try:
+        yield
+    finally:
+        wa._launch, dm.batched_window_attention_plain = launch, plain
+
+
+def _plain_k16_misrounded(frac, seed):
+    """The plain path's K16 with its output mis-rounded as
+    ``_k16_misrounded`` does (forward only: the backward stays autograd
+    of the plain version, as under the kernel)."""
+    import torch
+
+    from tpu_superresolution_torch.kernels import window_attention as wa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def plain_k16(q, k, v, bias, mask=None, scale=1.0):
+        out = wa.fused_window_attention_plain(q, k, v, bias, mask, scale)
+        with torch.no_grad():
+            ref = wa.fused_window_attention_plain(q.float(), k.float(), v.float(), bias, mask,
+                                                  scale)
+            mis = _misrounded_bf16(ref, frac, gen)
+        return out + (mis - out).detach()
+    return plain_k16
+
+
+def _first_step_gate(cfg, src, lr, hr, tag, smi, bf16_floor=False, controls=()):
     """The first train step's gradients, kernels (bf16) against the plain
     fp32 path from the same weights, batch and stochastic-depth masks:
     loss, grad norm and every parameter's gradient cosine within the
@@ -3753,74 +4045,126 @@ def _first_step_gate(cfg, src, lr, hr, tag, smi, bf16_floor=False):
     gradients are below ADAMW_EPS element by element (see there).  With
     `bf16_floor` (DAT, see BF16_FLOOR) a parameter below the cosine bound
     passes if those gradients are below ADAMW_EPS, or if the kernels'
-    gradient is no farther from fp32 than twice the plain bf16 path's
-    (relative L2): the kernels add no more error than bf16 rounding
-    already does.  Each exception is logged by name.  Returns {name:
+    gradient is no farther from fp32 (relative L2) than GATE_MARGIN times
+    the plain bf16 path's spread: the largest such error among the plain
+    bf16 path and GATE_CAL_SEEDS runs of it with K16's output mis-rounded
+    at GATE_CAL_FRAC.  Each exception is logged by name.  `controls`
+    (label, K16 launch, expected verdict or None) then run the kernels
+    path with K16 replaced, each held to the same gate; a control whose
+    verdict is not the expected one fails the check.  Returns {name:
     cosine}."""
     import torch
 
     from tpu_superresolution_torch.core.config import build_model
     from tpu_superresolution_torch.train.engine import global_norm
 
-    runs = {}
-    for label, dtype, impl in (("kernels", torch.bfloat16, "auto"),
-                               ("plain fp32", torch.float32, "plain"),
-                               ("plain bf16", torch.bfloat16, "plain")):
+    def first_step(dtype, impl):
         model = build_model(cfg, dtype=dtype, impl=impl, device="cuda")
         model.load_state_dict(src.state_dict())
-        runs[label] = _first_step_grads(model, lr, hr)
+        out = _first_step_grads(model, lr, hr)
         del model
-    (loss_k, g_k, s_k), (loss_r, g_r, s_r), _ = runs.values()
-    g_p = runs["plain bf16"][1]
-    gn_k, gn_r = float(global_norm(list(g_k.values()))), float(global_norm(list(g_r.values())))
-    cos, cos_plain = _cosines(g_k, g_r), _cosines(g_p, g_r)
+        return out
+
+    t0 = time.perf_counter()
+    loss_k, g_k, s_k = first_step(torch.bfloat16, "auto")
+    loss_r, g_r, s_r = first_step(torch.float32, "plain")
+    g_p = first_step(torch.bfloat16, "plain")[1]
+    t_base = time.perf_counter() - t0
+    gn_r = float(global_norm(list(g_r.values())))
+    cos_plain = _cosines(g_p, g_r)
     amax = lambda g, k: float(g[k].abs().max())
     err = lambda g, k: float((g[k] - g_r[k]).norm()) / max(float(g_r[k].norm()), 1e-30)
-    tiny = lambda k: max(amax(g_k, k), amax(g_r, k)) < ADAMW_EPS
-    below = [k for k in cos if cos[k] < TRAIN_COS_MIN]
+    ceiling, spread = {}, {}
     if bf16_floor:
-        limited = {k: (cos[k], cos_plain.get(k, math.nan), amax(g_k, k), amax(g_r, k))
-                   for k in below if tiny(k) or err(g_k, k) <= 2 * err(g_p, k)}
-    else:
-        limited = {k: (cos[k], cos_plain[k], amax(g_k, k), amax(g_r, k))
-                   for k in below if cos_plain.get(k, 1.0) < TRAIN_COS_MIN}
-    gated = {k: v for k, v in cos.items() if k not in limited}
+        t0 = time.perf_counter()
+        spread = {k: err(g_p, k) for k in g_r}
+        for seed in GATE_CAL_SEEDS:
+            with _k16_replaced(plain_k16=_plain_k16_misrounded(GATE_CAL_FRAC, seed)):
+                g_c = first_step(torch.bfloat16, "plain")[1]
+            spread = {k: max(v, err(g_c, k)) for k, v in spread.items()}
+        ceiling = {k: GATE_MARGIN * v for k, v in spread.items()}
+        log(f"[{tag}] gate calibration: the plain bf16 path and {len(GATE_CAL_SEEDS)} runs of "
+            f"it with K16 mis-rounded at {GATE_CAL_FRAC:g} (seeds {list(GATE_CAL_SEEDS)}) in "
+            f"{time.perf_counter() - t0:.1f} s (the three base runs {t_base:.1f} s); each "
+            f"parameter's ceiling = {GATE_MARGIN} x its largest relative L2 error vs fp32")
+
+    def verdict(loss_x, g_x):
+        cos = _cosines(g_x, g_r)
+        tiny = lambda k: max(amax(g_x, k), amax(g_r, k)) < ADAMW_EPS
+        below = [k for k in cos if cos[k] < TRAIN_COS_MIN]
+        if bf16_floor:
+            limited = [k for k in below if tiny(k) or err(g_x, k) <= ceiling[k]]
+        else:
+            limited = [k for k in below if cos_plain.get(k, 1.0) < TRAIN_COS_MIN]
+        gated = {k: v for k, v in cos.items() if k not in limited}
+        gn_x = float(global_norm(list(g_x.values())))
+        rel_loss, rel_gn = abs(loss_x - loss_r) / abs(loss_r), abs(gn_x - gn_r) / gn_r
+        # how far past the calibrated spread the worst parameter below the bound lies
+        ratio = max((err(g_x, k) / max(spread[k], 1e-30) for k in below if not tiny(k)),
+                    default=0.0) if bf16_floor else math.nan
+        ok = (rel_loss <= TRAIN_LOSS_RTOL and rel_gn <= TRAIN_GNORM_RTOL
+              and min(gated.values()) >= TRAIN_COS_MIN
+              and (bf16_floor or all(tiny(k) for k in limited)))
+        return dict(ok=ok, cos=cos, limited=limited, gated=gated, gn=gn_x, rel_loss=rel_loss,
+                    rel_gn=rel_gn, ratio=ratio)
+
+    v = verdict(loss_k, g_k)
+    cos, gated, ok = v["cos"], v["gated"], v["ok"]
     worst = sorted(gated.items(), key=lambda kv: kv[1])[:3]
-    rel_loss = abs(loss_k - loss_r) / abs(loss_r)
-    rel_gn = abs(gn_k - gn_r) / gn_r
-    ok = (rel_loss <= TRAIN_LOSS_RTOL and rel_gn <= TRAIN_GNORM_RTOL
-          and min(gated.values()) >= TRAIN_COS_MIN
-          and (bf16_floor or all(tiny(k) for k in limited)))
     log(f"[{tag}] first step vs plain fp32 path: loss {loss_k:.6f} vs {loss_r:.6f} (rel "
-        f"{rel_loss:.2e}, bound {TRAIN_LOSS_RTOL}); grad norm {gn_k:.5f} vs {gn_r:.5f} (rel "
-        f"{rel_gn:.2e}, bound {TRAIN_GNORM_RTOL}); gradient cosine over {len(gated)} of "
-        f"{len(g_r)} parameters, lowest {worst} (bound >= {TRAIN_COS_MIN}); plain bf16 vs "
-        f"fp32 lowest {sorted(cos_plain.items(), key=lambda kv: kv[1])[:3]} "
-        f"{'ok' if ok else 'FAIL'} ({smi})")
-    below = sorted((k for k, v in gated.items() if v < TRAIN_COS_MIN), key=gated.get)
+        f"{v['rel_loss']:.2e}, bound {TRAIN_LOSS_RTOL}); grad norm {v['gn']:.5f} vs {gn_r:.5f} "
+        f"(rel {v['rel_gn']:.2e}, bound {TRAIN_GNORM_RTOL}); gradient cosine over {len(gated)} "
+        f"of {len(g_r)} parameters, lowest {worst} (bound >= {TRAIN_COS_MIN}); plain bf16 vs "
+        f"fp32 lowest {sorted(cos_plain.items(), key=lambda kv: kv[1])[:3]}"
+        + (f"; worst error below the bound {v['ratio']:.3f} x the spread (bound {GATE_MARGIN})"
+           if bf16_floor else "") + f" {'ok' if ok else 'FAIL'} ({smi})")
+    below = sorted((k for k, c in gated.items() if c < TRAIN_COS_MIN), key=gated.get)
     if below:
         cos_kp = _cosines(g_k, g_p)
         log(f"[{tag}] {len(below)} parameters below the cosine bound")
         for k in below[:12]:
+            why = f", ceiling {ceiling[k]:.3e}" if bf16_floor else ""
             log(f"[{tag}]   {k}: cosine kernels {cos[k]:.4f}, plain bf16 "
                 f"{cos_plain.get(k, math.nan):.4f}, kernels vs plain bf16 "
                 f"{cos_kp.get(k, math.nan):.4f}; fp32 max |g| {amax(g_r, k):.3e}, norm "
-                f"{float(g_r[k].norm()):.3e}")
+                f"{float(g_r[k].norm()):.3e}; relative L2 error {err(g_k, k):.3e}{why}")
     zero = sorted(set(g_r) - set(cos))
     if zero:
         log(f"[{tag}] {len(zero)} parameters with an exactly zero gradient in both paths, left "
             f"out of the cosine gate: {zero}")
-    for k, (ck, cp, mk, mr) in sorted(limited.items()):
-        why = (f"relative L2 error kernels {err(g_k, k):.3e}, plain bf16 {err(g_p, k):.3e} "
-               f"(bound: twice plain bf16's, or max |g| < AdamW eps {ADAMW_EPS})" if bf16_floor
-               else f"bound max |g| < AdamW eps {ADAMW_EPS}")
-        log(f"[{tag}] bf16-limited: {k}: cosine kernels {ck:.4f}, plain bf16 {cp:.4f}; max |g| "
-            f"kernels {mk:.3e}, fp32 {mr:.3e}; {why}; fp32 norm {float(g_r[k].norm()):.3e} "
-            f"of global {gn_r:.3e}")
+    for k in sorted(v["limited"]):
+        why = (f"relative L2 error kernels {err(g_k, k):.3e}, ceiling {ceiling[k]:.3e} "
+               f"(plain bf16 {err(g_p, k):.3e}; or max |g| < AdamW eps {ADAMW_EPS})"
+               if bf16_floor else f"bound max |g| < AdamW eps {ADAMW_EPS}")
+        log(f"[{tag}] bf16-limited: {k}: cosine kernels {cos[k]:.4f}, plain bf16 "
+            f"{cos_plain.get(k, math.nan):.4f}; max |g| kernels {amax(g_k, k):.3e}, fp32 "
+            f"{amax(g_r, k):.3e}; {why}; fp32 norm {float(g_r[k].norm()):.3e} of global "
+            f"{gn_r:.3e}")
     if not ok:
         raise RuntimeError(f"{tag}: train step gradients disagree with the plain fp32 path")
     if s_r:
         _compare_batch_stats(s_k, s_r, tag, smi)
+
+    t0, wrong = time.perf_counter(), []
+    for label, k16, want in controls:
+        with _k16_replaced(k16=k16):
+            loss_c, g_c, _ = first_step(torch.bfloat16, "auto")
+        c = verdict(loss_c, g_c)
+        fail = sorted((k for k, x in c["gated"].items() if x < TRAIN_COS_MIN), key=c["cos"].get)
+        log(f"[{tag}] control, K16 {label}: loss rel {c['rel_loss']:.2e}, grad norm rel "
+            f"{c['rel_gn']:.2e}, worst error below the bound {c['ratio']:.3f} x the spread, "
+            f"{len(fail)} parameters fail"
+            + "".join(f"; {k} cosine {c['cos'][k]:.4f} (rel L2 {err(g_c, k):.3e}, ceiling "
+                      f"{ceiling.get(k, math.nan):.3e})" for k in fail[:4])
+            + f": gate {'passes' if c['ok'] else 'fails'}"
+            + ("" if want is None else f" (expected: {'passes' if want else 'fails'})")
+            + f" ({smi})")
+        if want is not None and c["ok"] != want:
+            wrong.append(f"the gate {'fails' if want else 'passes'} K16 {label}")
+    if controls:
+        log(f"[{tag}] {len(controls)} controls in {time.perf_counter() - t0:.1f} s")
+    if wrong:
+        raise RuntimeError(f"{tag}: {'; '.join(wrong)}")
     return cos
 
 
@@ -4359,7 +4703,8 @@ def phase_dat_train(workdir, smi):
         del model, st
 
     # 3. the first step's loss, gradients and BatchNorm statistics, with
-    # every K16 of the step (masked and not) on the square kernel
+    # every K16 of the step (masked and not) on the square kernel, from
+    # the weights with their attention scaled to trained size
     from tpu_superresolution_torch.kernels import window_attention as wa
 
     n, hd = cfg.split_size[0] * cfg.split_size[1], cfg.embed_dim // 2 // (cfg.num_heads[0] // 2)
@@ -4368,8 +4713,73 @@ def phase_dat_train(workdir, smi):
         f"\"{routes[False]}\" kernel unmasked and the \"{routes[True]}\" kernel masked")
     if set(routes.values()) != {"square"}:
         raise RuntimeError(f"dat-train: K16 is not on the square kernel: {routes}")
-    _first_step_gate(cfg, src, lr, hr, "dat-train", smi, bf16_floor=True)
+    _dat_attention_sizes(cfg, src, lr, "dat-train seeded weights", smi)
+    _dat_attention_sizes(cfg, _dat_trained_size(src), lr, "dat-train gate weights", smi)
+    _first_step_gate(cfg, src, lr, hr, "dat-train", smi, bf16_floor=True,
+                     controls=_dat_gate_controls())
     return [launches, per_step_all]
+
+
+def _dat_gate_controls():
+    """The dat-train gate's controls: fresh mis-rounded draws (seeds the
+    calibration does not use) must pass, five wrong K16s must fail."""
+    controls = [(f"plain, mis-rounded at {GATE_CAL_FRAC:g}, fresh seed {seed}",
+                 _k16_misrounded(GATE_CAL_FRAC, seed), True) for seed in (201, 202)]
+    return controls + [(kind, _k16_wrong(kind), False) for kind in K16_FAULTS]
+
+
+def _dat_attention_sizes(cfg, src, lr, tag, smi):
+    """Log the std and largest magnitude of `src`'s rect bias tables and
+    of the scores q k^T (scale included) over every K16 call of one
+    train-mode forward of the plain fp32 path on `lr`."""
+    import torch
+
+    from tpu_superresolution_torch.core.config import build_model
+    from tpu_superresolution_torch.kernels import window_attention as wa
+    from tpu_superresolution_torch.models.dat import RectBranch
+
+    model = build_model(cfg, dtype=torch.float32, impl="plain", device="cuda")
+    model.load_state_dict(src.state_dict())
+    model.train()
+    scores = []
+
+    def plain_k16(q, k, v, bias, mask=None, scale=1.0):
+        s = (q.float() @ k.float().transpose(-1, -2)) * scale
+        scores.append(torch.stack([s.std(), s.abs().max()]))
+        return wa.fused_window_attention_plain(q, k, v, bias, mask, scale)
+
+    with torch.no_grad(), _k16_replaced(plain_k16=plain_k16):
+        tables = torch.cat([m.table().flatten() for m in model.modules()
+                            if isinstance(m, RectBranch)])
+        model(lr, generator=torch.Generator().manual_seed(SEED))
+    sc = torch.stack(scores).cpu()
+    log(f"[{tag}] rect bias tables std {float(tables.std()):.4f}, max |bias| "
+        f"{float(tables.abs().max()):.4f}; scores q k^T std {float(sc[:, 0].min()):.4f}-"
+        f"{float(sc[:, 0].max()):.4f}, max |s| {float(sc[:, 1].max()):.3f} over {len(sc)} K16 "
+        f"calls ({smi})")
+    del model
+
+
+def _dat_trained_size(model):
+    """`model` (a DAT) with its attention scaled to a trained model's
+    size, in place: every DynamicPosBias's last layer times
+    DAT_GATE_BIAS_GAIN, q's and k's rows of every spatial qkv times
+    DAT_GATE_QK_GAIN (see there)."""
+    import torch
+
+    from tpu_superresolution_torch.models.dat import RectBranch, SpatialAttention
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, RectBranch):
+                for t in (m.pos.pos3[2].weight, m.pos.pos3[2].bias):
+                    t.mul_(DAT_GATE_BIAS_GAIN)
+            elif isinstance(m, SpatialAttention):
+                c = m.qkv.weight.shape[1]
+                m.qkv.weight[:2 * c].mul_(DAT_GATE_QK_GAIN)
+                if m.qkv.bias is not None:
+                    m.qkv.bias[:2 * c].mul_(DAT_GATE_QK_GAIN)
+    return model
 
 
 # The DAT first-step gate at a head dim past 32: C 180 in 4 heads (hd 45)
@@ -4490,14 +4900,14 @@ def phase_k16_stream_check(smi):
 
 def phase_dat_gate_noise(smi):
     """How far DAT's first-step gate (``_first_step_gate`` with
-    BF16_FLOOR) can tell K16 kernels apart: the DAT x4 train step's first
-    gradients (DATConfig(), the dat-train phase's weights and batch) with
-    K16 on its route, forced to the tiled kernel, replaced by its plain
-    version rounded to bf16 (exact), and by that rounding with 1-ulp
-    mis-roundings (the other neighbour of the fp32 value) at random
-    places at the rates of the square and tiled kernels (2e-4, 2e-3),
-    three draws each; for each, the parameters the gate fails.  A reading
-    aid, not a check: not run by main()."""
+    BF16_FLOOR, calibrated) tells K16 kernels apart: the DAT x4 train
+    step's first gradients (DATConfig(), the dat-train phase's gate weights
+    and batch) with K16 on its route, forced to the tiled kernel,
+    replaced by its plain version rounded to bf16 (exact), by that
+    rounding with 1-ulp mis-roundings at random places at the rates of
+    the square and tiled kernels (2e-4, 2e-3; three fresh draws each),
+    and by each wrong K16 of ``_k16_wrong``; the gate's verdict on each.
+    A reading aid, not a check: not run by main()."""
     import numpy as np
     import torch
 
@@ -4512,53 +4922,18 @@ def phase_dat_gate_noise(smi):
     lr = torch.from_numpy(rng.random((batch, patch, patch, 3), dtype=np.float32)).cuda()
     hr = torch.from_numpy(
         rng.random((batch, patch * scale, patch * scale, 3), dtype=np.float32)).cuda()
+    launch = wa._launch
 
-    def grads(dtype, impl):
-        model = build_model(cfg, dtype=dtype, impl=impl, device="cuda")
-        model.load_state_dict(src.state_dict())
-        return _first_step_grads(model, lr, hr)[1]
+    def tiled(q, k, v, bias, mask, scale_, counter, split_p, route=None):
+        return launch(q, k, v, bias, mask, scale_, counter, split_p, "tiled")
 
-    g_r, g_p = grads(torch.float32, "plain"), grads(torch.bfloat16, "plain")
-    err = lambda g, k: float((g[k] - g_r[k]).norm()) / max(float(g_r[k].norm()), 1e-30)
-    amax = lambda g, k: float(g[k].abs().max())
-    launch, route = wa._launch, wa.k15_route
-
-    def rounded(frac, seed):
-        gen = torch.Generator(device="cuda").manual_seed(seed)
-
-        def k16(q, k, v, bias, mask, scale_, counter, split_p, route=None):
-            ref = wa.fused_window_attention_plain(q.float(), k.float(), v.float(), bias, mask,
-                                                  scale_)
-            near = ref.to(torch.bfloat16)
-            r = near.float()
-            ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(1e-30))) - 7)
-            other = (r + torch.sign(ref - r) * ulp).to(torch.bfloat16)
-            pick = torch.rand(ref.shape, generator=gen, device=ref.device) < frac
-            return torch.where(pick & (ref != r), other, near)
-        return k16
-
-    def forced(name):
-        return lambda nq, nk, hd, masked=False, split_p=False: (
-            name if route(nq, nk, hd, masked, split_p) == "square" else
-            route(nq, nk, hd, masked, split_p))
-
-    variants = [("route (square)", None, None), ("tiled", None, forced("tiled")),
-                ("plain, exact rounding", rounded(0.0, 0), None)]
-    variants += [(f"plain, mis-rounded at {frac:g}, draw {seed}", rounded(frac, seed), None)
+    variants = [("route (square)", launch), ("tiled", tiled),
+                ("plain, exact rounding", _k16_misrounded(0.0, 0))]
+    variants += [(f"plain, mis-rounded at {frac:g}, draw {seed}", _k16_misrounded(frac, seed))
                  for frac in (2e-4, 2e-3) for seed in (1, 2, 3)]
-    for label, k16, k15_route in variants:
-        wa._launch, wa.k15_route = k16 or launch, k15_route or route
-        try:
-            g_k = grads(torch.bfloat16, "auto")
-        finally:
-            wa._launch, wa.k15_route = launch, route
-        cos = _cosines(g_k, g_r)
-        fail = sorted((k for k in cos if cos[k] < TRAIN_COS_MIN
-                       and max(amax(g_k, k), amax(g_r, k)) >= ADAMW_EPS
-                       and err(g_k, k) > 2 * err(g_p, k)), key=cos.get)
-        log(f"[dat-gate-noise] K16 {label}: the gate fails {len(fail)} parameters"
-            + "".join(f"; {k} cosine {cos[k]:.4f} (rel L2 {err(g_k, k):.3e}, plain bf16 "
-                      f"{err(g_p, k):.3e})" for k in fail[:4]) + f" ({smi})")
+    variants += [(kind, _k16_wrong(kind)) for kind in K16_FAULTS]
+    _first_step_gate(cfg, _dat_trained_size(src), lr, hr, "dat-gate-noise", smi, bf16_floor=True,
+                     controls=[(label, k16, None) for label, k16 in variants])
 
 
 def _dat_train_split(state, lr, hr, step_ms, smi):
@@ -4897,6 +5272,7 @@ def main() -> int:
                                   "swinir", PER_CALL)
         timed("bench", phase_bench, service, smi)
         del service
+        eval_launches = timed("evaluate", phase_evaluate, workdir, smi)
         ws7_launches = timed("swinir-ws7", phase_swinir_ws7, smi)
         swinir_l_launches = timed("swinir-l", phase_swinir_l, smi)
         wide_launches = timed("wide", phase_wide, smi)
@@ -4917,7 +5293,8 @@ def main() -> int:
         kernels.append(dict(
             name=meta["name"], route=meta["route"], source=meta["source"],
             replaces=meta["replaces"],
-            launches=sum(d.get(key, 0) for d in [launches, ws7_launches, swinir_l_launches,
+            launches=sum(d.get(key, 0) for d in [launches, eval_launches, ws7_launches,
+                                                 swinir_l_launches,
                                                  wide_launches, hat_launches, dat_launches,
                                                  train_launches,
                                                  srx4_launches, dat_x4_launches]

@@ -22,7 +22,7 @@ assert not bad, bad
 for name in ("cli.train", "kernels.fused_ocab", "models.hat", "train.engine", "models.dat",
              "kernels.fused_rect_attn", "kernels.fused_channel_attn", "kernels.fused_datb_tail",
              "kernels.fused_attention", "kernels.cab_conv", "kernels.dwconv",
-             "kernels.window_attention"):
+             "kernels.window_attention", "ops.resize", "evaluate.baseline", "cli.evaluate"):
     assert "tpu_superresolution_torch." + name in names, name
 """
 

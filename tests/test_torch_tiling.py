@@ -104,8 +104,25 @@ def test_self_ensemble_matches_jax_forwards(swinir_pair):
     assert np.abs(got.numpy() - acc / 8.0).max() <= TOL
 
 
-def test_forward_fn_rejects_pre_upscale(swinir_pair):
+def test_forward_fn_rejects_pre_upscale():
+    """The pre_upscale convention, once refused, is now served: LR is
+    bicubic-upscaled to the HR size, then tiled at scale 1 (and under the
+    x8 ensemble rotated before the upscale), as the JAX package does."""
+    from tpu_superresolution_tpu.core.config import EvalConfig as JaxEvalConfig
+    from tpu_superresolution_tpu.evaluate.runner import Evaluator as JaxEvaluator
+    from tpu_superresolution_torch.core.config import EvalConfig
     from tpu_superresolution_torch.evaluate.runner import Evaluator
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Evaluator(swinir_pair[3], 4).forward_fn()
+    class _Jax:
+        def apply(self, variables, x, train=False):
+            return jnp.sin(3.0 * x) + 0.5 * x
+
+    x = np.random.default_rng(2).random((2, 12, 10, 3), dtype=np.float32)
+    for kw in (dict(), dict(tile_size=16, tile_overlap=4, max_tile_batch=3),
+               dict(tile_size=16, tile_overlap=4, self_ensemble=True)):
+        want = np.asarray(JaxEvaluator(_Jax(), {}, 4, "pre_upscale",
+                                       JaxEvalConfig(**kw)).forward_fn()(jnp.asarray(x)))
+        got = Evaluator(lambda t: torch.sin(3.0 * t) + 0.5 * t, 4,
+                        eval_config=EvalConfig(**kw)).forward_fn()(torch.from_numpy(x)).numpy()
+        assert got.shape == want.shape == (2, 48, 40, 3)
+        assert np.abs(got - want).max() <= TOL, kw

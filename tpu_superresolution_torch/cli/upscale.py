@@ -41,6 +41,14 @@ def auto_tile(h: int, w: int) -> int:
     return AUTO_TILE if max(h, w) > AUTO_TILE_MIN_EDGE else 0
 
 
+def exact_config(mcfg):
+    """`mcfg` with the reference-exact semantics: no fused reconstruction,
+    erf GELU (fields a family does not have are left alone)."""
+    fields = {f.name for f in dataclasses.fields(mcfg)}
+    return dataclasses.replace(mcfg, **{k: False for k in ("fused_reconstruct",
+                                                           "gelu_approximate") if k in fields})
+
+
 def load_any_checkpoint(ckpt: str, model_name: str, scale_int: int, exact=None,
                         device: Optional[torch.device] = None,
                         dtype: Optional[torch.dtype] = None):
@@ -71,10 +79,7 @@ def load_any_checkpoint(ckpt: str, model_name: str, scale_int: int, exact=None,
     sd = strip_reference_buffers(load_torch_checkpoint(ckpt))
     mcfg = CONFIG_INFERENCE[model_name](sd, scale_int)
     if exact is None or exact:
-        fields = {f.name for f in dataclasses.fields(mcfg)}
-        mcfg = dataclasses.replace(mcfg, **{k: False for k in ("fused_reconstruct",
-                                                               "gelu_approximate")
-                                            if k in fields})
+        mcfg = exact_config(mcfg)
     model = build_model(mcfg, dtype=dtype or serving_dtype(device))
     model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, strict=True)
     return mcfg, model.to(device).eval()

@@ -1,13 +1,15 @@
-"""Paired train-batch transforms on the device (port of the native-LR
-part of ``tpu_superresolution_tpu/data/transforms.py``; reference
-finetune_swinir.py:96-121): a scale-aware random crop and per-image
-flips, applied identically to the LR / HR pair of each image.
+"""Paired batch transforms on the device (port of the native-LR part
+of ``tpu_superresolution_tpu/data/transforms.py`` and its bicubic
+pre-upscale; reference finetune_swinir.py:96-121, sr_transforms.py:
+55-63): a scale-aware random crop and per-image flips, applied
+identically to the LR / HR pair of each image, and the pre-upscale of
+an LR batch to the HR size.
 
 Randomness comes from an explicit ``torch.Generator`` on the host: the
 offsets and coin flips are drawn there, the pixels never leave the
 device.  It gives other numbers than ``jax.random`` for the same seed,
 so the tests hand both packages the same offsets.  The pre-upscale
-convention (bicubic), blur and normalization are still to port.
+convention's train crops, blur and normalization are still to port.
 """
 
 from __future__ import annotations
@@ -15,6 +17,14 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple
 
 import torch
+
+from tpu_superresolution_torch.ops.resize import resize_bicubic
+
+
+def pre_upscale_batch(lr: torch.Tensor, scale: int) -> torch.Tensor:
+    """Bicubic, antialiased upscale of LR [B, h, w, C] to [B, h*s, w*s, C]
+    (PairUpscaleLRtoHR, sr_transforms.py:55-63)."""
+    return resize_bicubic(lr, lr.shape[1] * scale, lr.shape[2] * scale)
 
 
 def crop_native_at(lr: torch.Tensor, hr: torch.Tensor, tops: Sequence[int],

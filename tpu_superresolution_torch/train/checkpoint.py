@@ -73,11 +73,17 @@ def model_config_from_checkpoint(path: str) -> Optional[ModelConfig]:
 
 
 def load_weights_only(path: str) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
-    """Fine-tune start: (params state dict, extra), optimizer fresh.
+    """Fine-tune start: (params state dict, extra), optimizer fresh
+    (``checked_params``)."""
+    ckpt = read_checkpoint(path)
+    return checked_params(ckpt, path), ckpt.get("extra", {})
+
+
+def checked_params(ckpt: Dict[str, Any], path: str) -> Dict[str, torch.Tensor]:
+    """The params state dict of `ckpt`, the dictionary read from `path`.
     When the checkpoint names its model config, every parameter's name
     and shape is checked against that model first, so a wrong checkpoint
     fails here with the name of the first mismatch."""
-    ckpt = read_checkpoint(path)
     params = ckpt["params"]
     if ckpt.get("config") is not None:
         cfg = config_from_dict(ckpt["config"])
@@ -91,4 +97,12 @@ def load_weights_only(path: str) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any
             if got[k] != shape:
                 raise ValueError(f"checkpoint param {k} has shape {got[k]}, model config "
                                  f"'{cfg.name}' expects {shape} (at {path})")
-    return params, ckpt.get("extra", {})
+    return params
+
+
+def load_ema_params(path: str) -> Optional[Dict[str, torch.Tensor]]:
+    """The saved EMA ({parameter name: tensor}) or None when the run kept
+    none.  It covers parameters only: buffers (DAT's BatchNorm running
+    statistics) come from "params", as the live statistics serve the
+    EMA weights in training."""
+    return read_checkpoint(path).get("ema")
