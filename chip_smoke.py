@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SwinIR-M x4 serving, evaluation and
 fine-tuning paths, its HAT x4 serving and training paths, its DAT x4
-serving and training paths (the published DAT x4's widths among them)
-and its HAT-SRx4 (upstream HAT, window 16) serving and training paths
-once on one NVIDIA H100 and check them.  Run from the repository root:
+serving and training paths (the published DAT x4's widths among them),
+its HAT-SRx4 (upstream HAT, window 16) serving and training paths, and
+its CNN families (MS_ResUNet, the train CLI's default, and UNet2D) with
+the data path's native decoder, decoded-image cache, blur,
+normalization and MRCCM preparation once on one NVIDIA H100 and check
+them.  Run from the repository root:
 
     python3 chip_smoke.py
 
@@ -210,12 +213,35 @@ Phases (a failure in any raises, and the script exits non-zero):
             the square kernel, output and every gradient against the
             plain fp32 path; then DAT's first-step gate at C 180 in 4
             heads (hd 45), whose K16 take the square kernel with heads
-            padded to 64 dims.
+            padded to 64 dims;
+14. cnn-data  what the machine has for the native PNG decoder (g++,
+            libpng's header, h5py) and whether it builds; MRCCM
+            preparation through ``cli.prepare_mrccm.main(--force_4x)`` on
+            classic .mat volumes (LR 24 x 70^2 resized to 64^2, HR 24 x
+            256^2): split counts, layout, 16-bit slices; one batch through
+            the loader's decoder (native where it builds) against PIL;
+15. cnn-train MS_ResUNet x4 at full width through ``cli.train.main`` with
+            no --model (the JAX CLI's default: batch 8 of 100^2 HR
+            patches, pre-upscale on the card) with --do_blur --normalize
+            --cache_decoded for 2 epochs: the native decoder's calls per
+            epoch's training loop (the second from the cache), no kernel
+            launch (cuDNN convs); the step's median ms and images/s; the
+            first step, bf16 against the plain fp32 path (loss, the
+            gradients, the BatchNorm batch statistics); then UNet2D
+            (--residual, --patch_size 128) for one epoch on the MRCCM set;
+16. cnn-evaluate ``cli.evaluate.main`` with no --model on MS_ResUNet's
+            checkpoint (the bicubic baseline on): dataset PSNR within 0.05
+            dB of the plain fp32 model's on the card, MPix/s; then
+            ``cli.upscale.main(--model unet2d)`` on an MRCCM test slice;
+17. swinir-data SwinIR-M x4 through ``cli.train.main(--model swinir
+            --do_blur --normalize --cache_decoded)``: 2 steps +
+            validation, launches = 2 x TRAIN_PER_STEP + PER_CALL (K1-K5
+            under the new data path).
 
 The second-to-last stdout line is a JSON object describing each kernel
 (launches summed over the serve, evaluate, SwinIR ws-7, SwinIR-L, wide,
 hat, dat, train, hat-train, hat_srx4, hat_srx4-train, swinir_l-train,
-dat_x4 and dat-train phases); the last is
+dat_x4, dat-train and swinir-data phases); the last is
 {"ok": true, "device": {...}}.  There is no CPU path: with no CUDA
 device the script exits non-zero and prints no result.
 """
@@ -5245,6 +5271,489 @@ def _profile_step(step, state, lr, hr, gen, tag="train"):
         log(f"[{tag}]   {t:8.3f} ms  x{n:<4d} {name[:90]}")
 
 
+# The CNN families (MS_ResUNet, UNet2D) and the data features that go
+# with them.  MS_ResUNet x4 at the train CLI's defaults: batch 8 of 100^2
+# HR patches (LR 25^2, bicubic-upscaled on the card), 2 epochs of 2
+# steps (the second from the decoded-image cache); UNet2D (base 64, depth
+# 4, residual) on the MRCCM set at --patch_size 128.  The CNNs run cuDNN
+# convs and launch no hand-written kernel.
+CNN_TRAIN_IMAGES, CNN_VALID_IMAGES, CNN_HR = 16, 2, 200
+CNN_TIMED_STEPS = 6
+# MS_ResUNet's evaluation: images of 1024^2, as the evaluate phase's, at
+# batch 4, enough of them that the steady window (every batch after the
+# first) lasts over CNN_EVAL_WINDOW_S seconds.
+CNN_EVAL_IMAGES, CNN_EVAL_HR, CNN_EVAL_BATCH, CNN_EVAL_WINDOW_S = 32, 1024, 4, 1.0
+# MRCCM volumes (classic .mat): LR 24 x 70 x 70 (--force_4x resizes each
+# slice to 64^2), HR 24 x 256 x 256; split 20 / 2 / 2 by i % 10.
+MRCCM_SLICES, MRCCM_LR, MRCCM_HR = 24, 70, 256
+# MS_ResUNet's first step, bf16 vs the plain fp32 path (TF32 off) from
+# the same weights and batch (the CNNs run no hand-written kernel: this
+# holds the bf16 path itself): the loss within TRAIN_LOSS_RTOL and the
+# whole gradient's norm within TRAIN_GNORM_RTOL (gross bounds: no planted
+# fault reaches them); the whole gradient's cosine >= CNN_COS_ALL; the
+# output's L2 error within CNN_OUT_REL of its spread about its mean;
+# each BatchNorm's batch statistics within CNN_OWN_STATS (of the
+# buffer's largest entry) of float64 statistics of the same layer's
+# input.  The last three lie between the sound runs' largest reading and
+# a planted fault's (CNN_FAULTS), read on an H100 from this step's
+# weights, sound on the batch and three mirrorings of it, each fault on
+# the batch: 1 - cosine 1.74e-4 - 1.91e-4 sound, 1.36e-3 with the
+# transposed convs flipped; output 3.233e-2 - 3.283e-2 sound, 5.796e-2
+# with the crop on the wrong side; statistics 9.8e-7 - 1.6e-6 sound,
+# 3.28e-2 from bf16 sums.  Per-parameter cosines and the statistics
+# against the fp32 run's do not separate these faults from bf16 noise,
+# which the deep BatchNorms, a few pixels a channel, amplify.
+CNN_COS_ALL, CNN_OUT_REL, CNN_OWN_STATS = 0.9995, 4.4e-2, 1e-4
+# A CNN's dataset PSNR on the card against the plain fp32 model's
+# (BASELINE.json): 0.05 dB, as the evaluate phase's.
+CNN_PSNR_DB = 0.05
+
+
+def _native_report(tag):
+    """What the card's machine has for the native decoder and MRCCM's
+    v7.3 branch, and whether the decoder builds; returns its reason or
+    None."""
+    import importlib.util
+    import shutil
+
+    from tpu_superresolution_torch.data import native_decode
+
+    why = native_decode.unavailable_reason()
+    log(f"[{tag}] g++ {shutil.which('g++')}, /usr/include/png.h "
+        f"{os.path.exists('/usr/include/png.h')}, h5py "
+        f"{'present' if importlib.util.find_spec('h5py') else 'absent'}; native decoder: "
+        f"{native_decode.loaded_path() if why is None else f'unavailable ({why})'}")
+    return why
+
+
+def phase_cnn_data(workdir, smi):
+    """MRCCM preparation through ``cli.prepare_mrccm.main(--force_4x)`` on
+    classic .mat volumes (split counts, layout, 16-bit slices), then one
+    batch of it decoded by the loader (the native decoder where it runs)
+    against PIL.  Returns the dataset's root."""
+    import numpy as np
+    from scipy.io import savemat
+
+    from tpu_superresolution_torch.cli.prepare_mrccm import main as prepare_main
+    from tpu_superresolution_torch.data.decode import load_pair_batch
+    from tpu_superresolution_torch.data.index import PairedIndex
+    from tpu_superresolution_torch.data.loader import Loader
+
+    tag = "cnn-data"
+    why = _native_report(tag)
+    rng = np.random.default_rng(SEED + 30)
+    yy, xx = np.mgrid[0:MRCCM_HR, 0:MRCCM_HR] / MRCCM_HR
+    hr = np.stack([np.sin(6 * yy + k) * np.cos(5 * xx - k) + 0.1 * rng.standard_normal(yy.shape)
+                   for k in range(MRCCM_SLICES)]) * 900.0 + 1200.0
+    lr = hr[:, 3::3, 3::3][:, :MRCCM_LR, :MRCCM_LR]  # 70^2: --force_4x resizes it to 64^2
+    savemat(f"{workdir}/mrccm_lr.mat", {"vol": lr})
+    savemat(f"{workdir}/mrccm_hr.mat", {"vol": hr})
+    root = f"{workdir}/mrccm"
+    t0 = time.perf_counter()
+    counts = prepare_main(["--lr_mat", f"{workdir}/mrccm_lr.mat", "--hr",
+                           f"ROCK={workdir}/mrccm_hr.mat", "--out_root", root, "--scale", "X4",
+                           "--force_4x"])
+    secs = time.perf_counter() - t0
+    idx = PairedIndex(root, "train", "X4")
+    from PIL import Image
+
+    with Image.open(idx[0][0]) as a, Image.open(idx[0][1]) as b:
+        sizes = (a.size, b.size)
+    depths = tuple(open(p, "rb").read(25)[24] for p in idx[0])  # IHDR bit depth
+    log(f"[{tag}] prepare_mrccm --force_4x: {counts} in {secs:.2f} s; slice pair "
+        f"{sizes}, PNG bit depths {depths}")
+    want = {"train": 20, "valid": 2, "test": 2}
+    if counts != want or sizes != ((64, 64), (256, 256)) or depths != (16, 16):
+        raise RuntimeError(f"{tag}: counts {counts} (want {want}), sizes {sizes}, bit depths "
+                           f"{depths}")
+
+    loader = Loader(idx, 8, num_threads=4, use_native="auto" if why else "always")
+    got = next(iter(loader))
+    pil = load_pair_batch([idx[i] for i in range(8)])
+    err = max(float(np.abs(a - b).max()) for a, b in zip(got, pil))
+    log(f"[{tag}] first batch by the {loader.decoder} decoder vs PIL: max |diff| {err:.2e} "
+        f"(bound 1e-6)")
+    if err > 1e-6:
+        raise RuntimeError(f"{tag}: decoded batch differs from PIL by {err}")
+    return root
+
+
+@contextlib.contextmanager
+def _bn_stats_in_bf16():
+    """Fault: BatchNorm's train-mode mean and E[x^2] taken and subtracted
+    in x's dtype (bf16 sums) instead of fp32."""
+    import torch
+
+    from tpu_superresolution_torch.models.blocks import BatchNorm
+
+    sound = BatchNorm.forward
+
+    def forward(self, x):
+        if not self.training:
+            return sound(self, x)
+        axes = tuple(range(x.dim() - 1))
+        mean = x.mean(axes)
+        var = (x.square().mean(axes) - mean.square()).clamp_min(0.0).float()
+        mean = mean.float()
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
+        scale = torch.rsqrt(var + self.eps) * self.weight.float()
+        return ((x.float() - mean) * scale + self.bias.float()).to(x.dtype)
+
+    BatchNorm.forward = forward
+    try:
+        yield
+    finally:
+        BatchNorm.forward = sound
+
+
+@contextlib.contextmanager
+def _crop_on_the_wrong_side():
+    """Fault: MS_ResUNet's centre crop after each transposed conv takes
+    its odd row and column off the top and left instead of the bottom
+    and right."""
+    from tpu_superresolution_torch.models import msresunet
+
+    sound = msresunet.crop_like
+
+    def crop_like(x, ref):
+        h, w = x.shape[2], x.shape[3]
+        dh, dw = h - ref.shape[2], w - ref.shape[3]
+        return x[:, :, dh - dh // 2 : h - dh // 2, dw - dw // 2 : w - dw // 2]
+
+    msresunet.crop_like = crop_like
+    try:
+        yield
+    finally:
+        msresunet.crop_like = sound
+
+
+@contextlib.contextmanager
+def _conv_transpose_flipped():
+    """Fault: MS_ResUNet's transposed convs with their kernels flipped in
+    space (flax's ConvTranspose convention where torch's is meant)."""
+    import torch.nn.functional as F
+
+    from tpu_superresolution_torch.models import msresunet
+    from tpu_superresolution_torch.models.cnn import _weight
+
+    sound = msresunet.conv_transpose
+
+    def conv_transpose(m, x):
+        bias = None if m.bias is None else m.bias.to(x.dtype)
+        return F.conv_transpose2d(x, _weight(m, x.dtype).flip(2, 3), bias, m.stride, m.padding)
+
+    msresunet.conv_transpose = conv_transpose
+    try:
+        yield
+    finally:
+        msresunet.conv_transpose = sound
+
+
+# Faults planted in the bf16 run of MS_ResUNet's first step: the gate
+# must fail each.
+CNN_FAULTS = (("BatchNorm statistics from bf16 sums", _bn_stats_in_bf16),
+              ("crop on the wrong side", _crop_on_the_wrong_side),
+              ("transposed conv kernels flipped", _conv_transpose_flipped))
+
+
+def _cnn_step_readings(model, lr, hr):
+    """Loss, {name: grad}, the output and the worst relative gap between a
+    BatchNorm's batch statistics and float64 statistics of its own input,
+    of one train-mode forward / backward."""
+    import torch
+
+    from tpu_superresolution_torch.models.blocks import BatchNorm
+
+    own = {}
+
+    def record(bn, inputs, _):
+        x = inputs[0].detach().double()
+        axes = tuple(range(x.dim() - 1))
+        mean = x.mean(axes)
+        own[bn] = (mean, (x - mean).square().mean(axes))
+
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    hooks = [bn.register_forward_hook(record) for bn in bns]
+    for bn in bns:
+        bn.momentum = 1.0  # the running buffers then hold the batch statistics
+    model.train()
+    model.zero_grad(set_to_none=True)
+    out = model(lr).float()
+    loss = (out - hr).abs().mean()
+    loss.backward()
+    for h in hooks:
+        h.remove()
+    grads = {n: p.grad.detach().float().clone() for n, p in model.named_parameters()}
+    gap = max(float((buf.double() - want).abs().max() / want.abs().max().clamp_min(1e-30))
+              for bn, (mean, var) in own.items()
+              for buf, want in ((bn.running_mean, mean), (bn.running_var, var)))
+    return float(loss.detach()), grads, out.detach(), gap
+
+
+def _cnn_first_step(cfg, state_dict, lr, hr, fault=contextlib.nullcontext):
+    """The first train-mode step of `cfg` from `state_dict` on (lr, hr):
+    bf16 (the train CLI's dtype on the card; run under `fault`) against
+    the plain fp32 path.  Returns (the readings' line, the bounds
+    broken)."""
+    import torch
+
+    from tpu_superresolution_torch.core.config import build_model
+
+    runs = {}
+    for label, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        model = build_model(cfg, dtype=dtype, device="cuda")
+        model.load_state_dict(state_dict)
+        with fault() if label == "bf16" else contextlib.nullcontext():
+            runs[label] = _cnn_step_readings(model, lr, hr)
+        del model
+    (l16, g16, o16, gap), (l32, g32, o32, gap32) = runs["bf16"], runs["fp32"]
+    flat16 = torch.cat([g.flatten() for g in g16.values()])
+    flat32 = torch.cat([g32[n].flatten() for n in g16])
+    cos_all = float((flat16 * flat32).sum() / (flat16.norm() * flat32.norm()))
+    d_norm = abs(float(flat16.norm()) / float(flat32.norm()) - 1.0)
+    d_out = float((o16 - o32).norm() / (o32 - o32.mean()).norm())
+    d_loss = abs(l16 / l32 - 1.0)
+    line = (f"loss {l16:.6f} / {l32:.6f} (rel {d_loss:.2e}, bound {TRAIN_LOSS_RTOL}); whole "
+            f"gradient cosine {cos_all:.6f} (bound {CNN_COS_ALL}), norm rel {d_norm:.2e} (bound "
+            f"{TRAIN_GNORM_RTOL}); output error {d_out:.3e} of its spread (bound "
+            f"{CNN_OUT_REL}); BatchNorm statistics vs float64 of their input {gap:.2e} (bound "
+            f"{CNN_OWN_STATS}; the fp32 run's {gap32:.2e})")
+    broken = [name for name, bad in (("loss", d_loss > TRAIN_LOSS_RTOL),
+                                     ("cosine", cos_all < CNN_COS_ALL),
+                                     ("norm", d_norm > TRAIN_GNORM_RTOL),
+                                     ("output", d_out > CNN_OUT_REL),
+                                     ("statistics", gap > CNN_OWN_STATS)) if bad]
+    return line, broken
+
+
+def _cnn_gate(tag, cfg, state_dict, lr, hr, smi):
+    """MS_ResUNet's first step, bf16 against the plain fp32 path, to the
+    CNN_* bounds on the batch and three mirrorings of it; then on the
+    batch with each of CNN_FAULTS planted in the bf16 run, which must
+    break at least one bound."""
+    draws = (("batch", lr, hr), ("flipped", lr.flip(1), hr.flip(1)),
+             ("mirrored", lr.flip(2), hr.flip(2)),
+             ("transposed", lr.transpose(1, 2), hr.transpose(1, 2)))
+    for label, a, b in draws:
+        line, broken = _cnn_first_step(cfg, state_dict, a, b)
+        log(f"[{tag}] first step ({label}), bf16 vs plain fp32 (TF32 off): {line} ({smi})")
+        if broken:
+            raise RuntimeError(f"{tag}: the bf16 first step ({label}) disagrees with the plain "
+                               f"fp32 path ({', '.join(broken)})")
+    for name, fault in CNN_FAULTS:
+        line, broken = _cnn_first_step(cfg, state_dict, lr, hr, fault)
+        log(f"[{tag}] control, {name}: {line}; bounds broken: {broken or 'none'}")
+        if not broken:
+            raise RuntimeError(f"{tag}: the first-step gate passed a planted fault ({name})")
+
+
+def phase_cnn_train(workdir, mrccm, smi):
+    """MS_ResUNet x4 through ``cli.train.main`` with no --model
+    (--do_blur --normalize --cache_decoded, 2 epochs, the CLI's default
+    --patch_size 100 and --batch_size 8): the native decoder's calls in
+    each epoch's training loop (epoch 2 from the cache), no kernel
+    launch; the step's median time and images/s on a fixed batch; the
+    first step against the plain fp32 path, and the same with planted
+    faults.  Then UNet2D (--residual, --patch_size 128) for one epoch on
+    the MRCCM set.  Returns MS_ResUNet's and UNet2D's best
+    checkpoints."""
+    import numpy as np
+    import torch
+
+    from tpu_superresolution_torch.cli.train import main as train_main
+    from tpu_superresolution_torch.data import native_decode
+    from tpu_superresolution_torch.kernels import read_counters, reset_counters
+    from tpu_superresolution_torch.train.engine import make_train_step
+
+    tag = "cnn-train"
+    data = f"{workdir}/deeprock_cnn"
+    _write_deeprock(data, CNN_TRAIN_IMAGES, CNN_VALID_IMAGES, hr_size=CNN_HR, scale=4,
+                    seed=SEED + 31)
+    reset_counters()
+    native_decode.decodes.reset()
+    t0 = time.perf_counter()
+    trainer, state = train_main(["--data_root", data, "--scale", "X4", "--device", "cuda",
+                                 "--do_blur", "--normalize", "--cache_decoded", "--epochs", "2",
+                                 "--workdir", f"{workdir}/run_msresunet", "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_counters()
+    per_epoch = trainer.history["native_decodes"]
+    dcfg = trainer.data_config
+    log(f"[{tag}] train CLI with no --model: {trainer.model_config.name}, convention "
+        f"{dcfg.convention}, patch {dcfg.patch_size}, batch {trainer.train_config.batch_size}, "
+        f"blur {dcfg.do_blur}, normalized by ({dcfg.norm_mean:.6f}, {dcfg.norm_std:.6f}): "
+        f"{state.step} steps + 2 validations in {cli_s:.1f} s; train loss "
+        f"{trainer.history['train']}, val PSNR {trainer.best_val_psnr:.2f} dB (normalized "
+        f"space); native decode calls in each epoch's training loop {per_epoch}, "
+        f"{native_decode.decodes.count} in all (stats pass and validation included); kernel "
+        f"launches {sum(launches.values())} ({smi})")
+    if (trainer.model_config.name != "ms_resunet" or state.step != 4
+            or not all(math.isfinite(v) for v in trainer.history["train"])):
+        raise RuntimeError(f"{tag}: {trainer.model_config.name}, {state.step} steps, loss "
+                           f"{trainer.history['train']}")
+    if native_decode.available():
+        if not (per_epoch[0] > 0 and per_epoch[1] == 0):
+            raise RuntimeError(f"{tag}: native decodes per epoch {per_epoch}; want epoch 1 > 0 "
+                               "and epoch 2 = 0 (the decoded-image cache)")
+    else:
+        log(f"[{tag}] native decoder unavailable here: the loader decoded with PIL")
+    if any(launches.values()):
+        raise RuntimeError(f"{tag}: the CNN path launched port kernels {launches}")
+    ckpt = f"{workdir}/run_msresunet/best_X4.pth"
+    norm = (dcfg.norm_mean, dcfg.norm_std)
+
+    # the step on a fixed batch: median time, images/s
+    rng = np.random.default_rng(SEED)
+    lr = torch.from_numpy(rng.random((8, 25, 25, 1), dtype=np.float32)).cuda()
+    hr = torch.from_numpy(rng.random((8, 100, 100, 1), dtype=np.float32)).cuda()
+    step = make_train_step("mse", "pre_upscale", 4, 100, True, True, norm)
+    gen = torch.Generator().manual_seed(SEED)
+    for _ in range(3):
+        step(state, lr, hr, gen)
+    torch.cuda.synchronize()
+    dts = []
+    for _ in range(CNN_TIMED_STEPS):
+        t0 = time.perf_counter()
+        m = step(state, lr, hr, gen)
+        torch.cuda.synchronize()
+        dts.append(time.perf_counter() - t0)
+    ms = statistics.median(dts) * 1e3
+    log(f"[{tag}] MS_ResUNet x4 train step (bf16, batch 8, 100^2, upscale + flips + blur + "
+        f"normalize on the card): median {ms:.2f} ms over {CNN_TIMED_STEPS} steps after 3 "
+        f"warm-up (min {min(dts) * 1e3:.2f}, max {max(dts) * 1e3:.2f}), {8 / ms * 1e3:.1f} "
+        f"images/s; loss {float(m['loss']):.6f} ({smi})")
+    _profile_step(step, state, lr, hr, gen, tag)
+
+    # the first step, bf16 against the plain fp32 path, on an augmented batch
+    from tpu_superresolution_torch.data.transforms import make_train_batch_preupscale, normalize
+
+    a_lr, a_hr = make_train_batch_preupscale(lr, hr, 4, 100, True,
+                                             torch.Generator().manual_seed(SEED + 1), True)
+    sd = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    _cnn_gate(tag, trainer.model_config, sd, normalize(a_lr, *norm), normalize(a_hr, *norm),
+              smi)
+    del state, trainer
+
+    # UNet2D (residual) on the MRCCM set
+    t0 = time.perf_counter()
+    u_trainer, u_state = train_main(["--data_root", mrccm, "--scale", "X4", "--device", "cuda",
+                                     "--model", "unet2d", "--residual", "--patch_size", "128",
+                                     "--epochs", "1", "--workdir", f"{workdir}/run_unet2d",
+                                     "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    ucfg = u_trainer.model_config
+    log(f"[{tag}] train CLI --model unet2d --residual (base {ucfg.base_channels}, depth "
+        f"{ucfg.depth}) on MRCCM, patch 128: {u_state.step} steps + validation in "
+        f"{time.perf_counter() - t0:.1f} s; train loss {u_trainer.history['train'][0]:.6f}, val "
+        f"PSNR {u_trainer.best_val_psnr:.2f} dB ({smi})")
+    if u_state.step != 3 or not math.isfinite(u_trainer.history["train"][0]):
+        raise RuntimeError(f"{tag}: unet2d {u_state.step} steps, {u_trainer.history}")
+    return ckpt, f"{workdir}/run_unet2d/best_X4.pth"
+
+
+def phase_cnn_evaluate(workdir, ckpt, unet_ckpt, mrccm, smi):
+    """``cli.evaluate.main`` with no --model on the MS_ResUNet checkpoint
+    (bicubic baseline on, CNN_EVAL_IMAGES test images of CNN_EVAL_HR^2 at
+    batch CNN_EVAL_BATCH): its dataset PSNR against the same
+    Evaluator.run of the plain fp32 model on the card, the steady MPix/s
+    over a window of at least CNN_EVAL_WINDOW_S; then
+    ``cli.upscale.main(--model unet2d)`` on one MRCCM test slice."""
+    import torch
+    from PIL import Image
+
+    from tpu_superresolution_torch.cli.evaluate import main as evaluate_main
+    from tpu_superresolution_torch.cli.upscale import load_port_checkpoint
+    from tpu_superresolution_torch.cli.upscale import main as upscale_main
+    from tpu_superresolution_torch.core.config import EvalConfig
+    from tpu_superresolution_torch.data.index import PairedIndex
+    from tpu_superresolution_torch.data.loader import Loader
+    from tpu_superresolution_torch.evaluate import Evaluator
+    from tpu_superresolution_torch.train.checkpoint import read_checkpoint
+
+    tag = "cnn-evaluate"
+    n, hr_size, batch = CNN_EVAL_IMAGES, CNN_EVAL_HR, CNN_EVAL_BATCH
+    data = f"{workdir}/deeprock_cnn_eval"
+    t0 = time.perf_counter()
+    _write_deeprock(data, 0, 0, hr_size=hr_size, scale=4, seed=SEED + 33, n_test=n)
+    log(f"[{tag}] wrote {n} test pairs of {hr_size}^2 in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    res = evaluate_main(["--data_root", data, "--scale", "X4", "--ckpt", ckpt, "--device", "cuda",
+                         "--batch_size", str(batch), "--save_n", "1", "--save_dir",
+                         f"{workdir}/cnn_preds", "--workers", "4"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    window_s = (n - batch) * hr_size ** 2 / 1e6 / res["mpix_per_s"]
+    _, plain = load_port_checkpoint(ckpt, read_checkpoint(ckpt), None, None,
+                                    torch.device("cuda"), torch.float32)
+    t0 = time.perf_counter()
+    ref = Evaluator(plain, 4, "pre_upscale", EvalConfig(batch_size=batch), log=lambda m: None,
+                    device="cuda").run(Loader(PairedIndex(data, "test", "X4"), batch,
+                                              num_threads=4))
+    plain_s = time.perf_counter() - t0
+    d = abs(res["psnr"] - ref["psnr"])
+    log(f"[{tag}] evaluate CLI with no --model, MS_ResUNet x4, {res['n']} images {hr_size}^2, "
+        f"batch {batch}, bicubic baseline on: PSNR {res['psnr']:.4f} dB, SSIM "
+        f"{res['ssim']:.6f}, steady {res['mpix_per_s']:.3f} MPix/s over {window_s:.3f} s "
+        f"({n // batch - 1} batches; bound >= {CNN_EVAL_WINDOW_S} s), wall {res['wall_s']:.3f} "
+        f"s, compile_s {res['compile_s']:.3f} s, the CLI {cli_s:.1f} s; plain fp32 "
+        f"{ref['psnr']:.4f} dB in {plain_s:.1f} s; |diff| {d:.4f} dB (bound {CNN_PSNR_DB}) "
+        f"({smi})")
+    if res["n"] != n or not math.isfinite(res["psnr"]) or d > CNN_PSNR_DB:
+        raise RuntimeError(f"{tag}: MS_ResUNet evaluation {res} vs plain fp32 {ref['psnr']}")
+    if window_s < CNN_EVAL_WINDOW_S:
+        raise RuntimeError(f"{tag}: the steady window lasted {window_s:.3f} s, under "
+                           f"{CNN_EVAL_WINDOW_S} s: raise CNN_EVAL_IMAGES")
+    del plain
+
+    lr_png = str(PairedIndex(mrccm, "test", "X4")[0][0])
+    out = f"{workdir}/mrccm_sr.png"
+    t0 = time.perf_counter()
+    upscale_main(["--image", lr_png, "--ckpt", unet_ckpt, "--model", "unet2d", "--scale", "X4",
+                  "--out", out, "--device", "cuda"])
+    with Image.open(out) as im:
+        size = im.size
+    log(f"[{tag}] upscale --model unet2d on MRCCM slice {os.path.basename(lr_png)}: {size} in "
+        f"{time.perf_counter() - t0:.2f} s (load and first call included) ({smi})")
+    if size != (4 * 64, 4 * 64):
+        raise RuntimeError(f"{tag}: upscaled size {size}")
+
+
+def phase_swinir_data(workdir, smi):
+    """SwinIR-M x4 through ``cli.train.main(--model swinir --do_blur
+    --normalize --cache_decoded)``: 2 steps + validation; launches equal
+    steps x TRAIN_PER_STEP + validation x PER_CALL (K1-K5 under the new
+    data path).  Returns the launches."""
+    import torch
+
+    from tpu_superresolution_torch.cli.train import main as train_main
+    from tpu_superresolution_torch.kernels import read_counters, reset_counters
+
+    tag = "swinir-data"
+    batch, patch = TRAIN_BATCH, TRAIN_LR_PATCH
+    data = f"{workdir}/deeprock_swinir_data"
+    _write_deeprock(data, 2 * batch, 2, hr_size=320, scale=4, seed=SEED + 32)
+    reset_counters()
+    t0 = time.perf_counter()
+    trainer, state = train_main(["--model", "swinir", "--do_blur", "--normalize",
+                                 "--cache_decoded", "--data_root", data, "--scale", "X4",
+                                 "--device", "cuda", "--epochs", "1", "--batch_size", str(batch),
+                                 "--patch_size", str(patch), "--loss", "l1", "--workdir",
+                                 f"{workdir}/run_swinir_data", "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    launches = read_counters()
+    expect = {k: 2 * TRAIN_PER_STEP[k] + PER_CALL.get(k, 0) for k in TRAIN_PER_STEP}
+    log(f"[{tag}] train CLI --model swinir --do_blur --normalize --cache_decoded, batch {batch}, "
+        f"lr_patch {patch}: {state.step} steps + validation in {time.perf_counter() - t0:.1f} s; "
+        f"train loss {trainer.history['train'][0]:.6f}; launches {launches} (expected {expect}) "
+        f"({smi})")
+    if state.step != 2 or not math.isfinite(trainer.history["train"][0]) or launches != expect:
+        raise RuntimeError(f"{tag}: {state.step} steps, launches {launches}, expected {expect}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -5286,6 +5795,10 @@ def main() -> int:
         dat_x4_launches = timed("dat_x4", phase_dat_x4, workdir, smi)
         dat_train_launches = timed("dat-train", phase_dat_train, workdir, smi)
         timed("k16-stream", phase_k16_stream_check, smi)
+        mrccm = timed("cnn-data", phase_cnn_data, workdir, smi)
+        msres_ckpt, unet_ckpt = timed("cnn-train", phase_cnn_train, workdir, mrccm, smi)
+        timed("cnn-evaluate", phase_cnn_evaluate, workdir, msres_ckpt, unet_ckpt, mrccm, smi)
+        swinir_data_launches = timed("swinir-data", phase_swinir_data, workdir, smi)
 
     kernels = []
     for key, meta in KERNELS.items():
@@ -5297,7 +5810,8 @@ def main() -> int:
                                                  swinir_l_launches,
                                                  wide_launches, hat_launches, dat_launches,
                                                  train_launches,
-                                                 srx4_launches, dat_x4_launches]
+                                                 srx4_launches, dat_x4_launches,
+                                                 swinir_data_launches]
                          + hat_train_launches + dat_train_launches + srx4_train_launches
                          + swinir_l_train_launches),
             max_abs_err=max(r["err"] for r in kres[key]),

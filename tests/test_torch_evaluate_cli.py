@@ -2,8 +2,9 @@
 the JAX package's evaluate CLI on the same file (<= 1e-3 dB, with
 --report_json and the PNG triplets), a fine-tune checkpoint with an EMA
 (auto EMA, --no-ema), and what it refuses: --ema on a reference .pth or
-on a checkpoint without an EMA, --dp, the CNN families, Orbax
-directories, and the GPU where there is none."""
+on a checkpoint without an EMA, --dp, a UNet2D reference .pth (UNet2D
+has no reference format), Orbax directories, and the GPU where there is
+none."""
 
 import json
 
@@ -136,7 +137,7 @@ def test_finetune_checkpoint_auto_ema_and_no_ema(data, finetuned, capsys):
     ("ema_on_reference", "--ema applies to the port's own checkpoints"),
     ("ema_missing", "no EMA in"),
     ("dp", "Queue 1 item 5"),
-    ("cnn", "Queue 1 item 2"),
+    ("cnn", "no reference checkpoint format"),
     ("orbax", "item 1c.*tpu_superresolution_tpu.cli.export_torch"),
 ])
 def test_refusals(data, ref_pth, tmp_path, case, match):
@@ -153,7 +154,7 @@ def test_refusals(data, ref_pth, tmp_path, case, match):
     else:
         argv = {"ema_on_reference": ["--model", "swinir", "--ckpt", ref_pth, "--ema"],
                 "dp": ["--model", "swinir", "--ckpt", ref_pth, "--tile", "12", "--dp", "2"],
-                "cnn": ["--model", "ms_resunet", "--ckpt", ref_pth],
+                "cnn": ["--model", "unet2d", "--ckpt", ref_pth],
                 "orbax": ["--model", "swinir", "--ckpt", str(tmp_path)]}[case]
     with pytest.raises(SystemExit, match=match):
         main(argv + common)

@@ -168,7 +168,7 @@ def test_exact_flag_selects_reference_semantics(ckpt):
 def test_other_models_and_formats_are_refused(ckpt, tmp_path):
     from tpu_superresolution_torch.cli.upscale import load_for_inference
 
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="not an MS_ResUNet checkpoint"):  # ported too
         load_for_inference(ckpt, "ms_resunet", "X2", None, torch.device("cpu"))
     with pytest.raises(ValueError, match="not a HAT checkpoint"):  # HAT is ported
         load_for_inference(ckpt, "hat", "X2", None, torch.device("cpu"))
@@ -185,7 +185,7 @@ def test_upscale_cli_writes_png(ckpt, tmp_path):
     src = tmp_path / "in.png"
     Image.fromarray((np.random.default_rng(2).random((18, 22, 3)) * 255).astype(np.uint8)).save(src)
     out = tmp_path / "out.png"
-    assert main(["--image", str(src), "--ckpt", ckpt, "--scale", "X2",
+    assert main(["--image", str(src), "--ckpt", ckpt, "--model", "swinir", "--scale", "X2",
                  "--out", str(out), "--no-exact", "--tile", "16", "--tile_overlap", "4",
                  "--device", "cpu"]) == [str(out)]
     with Image.open(out) as im:

@@ -1,7 +1,8 @@
 """The port's ``train`` entry point on the CPU: ``--model hat`` for one
 epoch on a synthetic DeepRockSR-layout set (checkpoints, run report,
 finite loss; at window 16 as well), its checkpoint resumed by
-``--resume`` and loaded by ``upscale``; the flags and families not ported yet exit with a message;
+``--resume`` and loaded by ``upscale``; the flags not ported yet, and the
+transformer overrides given to a CNN family, exit with a message;
 without a GPU and without ``--device cpu`` it raises."""
 
 import json
@@ -97,17 +98,16 @@ def test_train_cli_trains_hat_at_window_16(trained, tmp_path):
 
 @pytest.mark.parametrize("model", ["ms_resunet", "unet2d"])
 def test_train_cli_refuses_the_cnn_families(trained, tmp_path, model):
+    """The CNN families train (tests/test_torch_cnn_cli.py); they refuse
+    the transformer overrides, here TINY's HAT sizes."""
     from tpu_superresolution_torch.cli.train import main
 
-    with pytest.raises(SystemExit, match="Queue 1 item 2"):
-        main(["--data_root", str(trained[0]), "--scale", "X4", "--model", model,
-              "--workdir", str(tmp_path), "--device", "cpu"])
+    with pytest.raises(SystemExit, match="transformer-only"):
+        main(["--data_root", str(trained[0]), "--scale", "X4", "--workdir", str(tmp_path),
+              "--device", "cpu"] + TINY + ["--model", model])
 
 
-@pytest.mark.parametrize("flags,match", [(["--do_blur"], "do_blur"),
-                                         (["--normalize"], "normalize"),
-                                         (["--cache_decoded"], "cache_decoded"),
-                                         (["--trace", "t.json"], "trace"),
+@pytest.mark.parametrize("flags,match", [(["--trace", "t.json"], "item 1c"),
                                          (["--dp", "2"], "multi-GPU")])
 def test_train_cli_refuses_flags_not_ported(trained, tmp_path, flags, match):
     from tpu_superresolution_torch.cli.train import main

@@ -118,7 +118,7 @@ def test_index_and_loader_give_the_jax_batches(tmp_path):
     assert idx.pairs == jidx.pairs and len(idx) == 7
     kw = dict(batch_size=3, shuffle=True, drop_last=True, grayscale=False, channels=3, seed=4,
               num_threads=2, host_crop_hr=16, host_crop_scale=4)
-    ours, theirs = Loader(idx, **kw), JaxLoader(jidx, use_native="never", **kw)
+    ours, theirs = Loader(idx, use_native="never", **kw), JaxLoader(jidx, use_native="never", **kw)
     assert len(ours) == len(theirs) == 2
     for _ in range(2):  # two epochs: the shuffle and crops follow the epoch
         for (a_lr, a_hr), (b_lr, b_hr) in zip(ours, theirs, strict=True):

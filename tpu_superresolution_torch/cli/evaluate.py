@@ -16,8 +16,11 @@ The checkpoint is a reference ``.pt/.pth`` (the architecture inferred
 from the tensor shapes, ``--model`` naming the family) or one written by
 ``cli/finetune.py`` / ``cli/train.py``, told apart by its "config"
 entry (not by the suffix): such a file evaluates with the config it was
-trained with, and with its EMA when it kept one.  Orbax directories, the
-CNN families and multi-GPU sharding are still to port (ROADMAP.md).
+trained with, and with its EMA when it kept one.  The CNN families
+(``ms_resunet``, the default ``--model``, and ``unet2d``, which has no
+reference format) are evaluated on bicubic-pre-upscaled LR, without the
+training's normalization, as the JAX CLI does.  Orbax directories and
+multi-GPU sharding are still to port (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -27,51 +30,13 @@ import json
 import time
 from pathlib import Path
 
-import torch
-
 from tpu_superresolution_torch.cli.common import (
     add_device_flag,
     report_device,
     resolve_device,
     resolve_workers,
 )
-from tpu_superresolution_torch.cli.train import CNN_FAMILIES
-from tpu_superresolution_torch.cli.upscale import exact_config, load_any_checkpoint
-
-
-def load_port_checkpoint(path: str, saved, exact, ema, device: torch.device):
-    """A checkpoint of ``train/checkpoint.py`` (`saved`, the dictionary
-    read from `path`) into the port: its embedded config (``exact``
-    forces the reference-exact semantics) and its parameters, or its EMA
-    parameters with the saved buffers.  `ema` None is auto: the EMA when
-    the run recorded an ``ema_decay``, since its best checkpoints were
-    chosen by validating the EMA weights.  Returns (model_config,
-    model)."""
-    from tpu_superresolution_torch.core.config import build_model, config_from_dict
-    from tpu_superresolution_torch.core.dtypes import serving_dtype
-    from tpu_superresolution_torch.train.checkpoint import checked_params
-
-    mcfg = config_from_dict(saved["config"])
-    if exact:
-        mcfg = exact_config(mcfg)
-    state = dict(checked_params(saved, path))
-    extra = saved.get("extra", {})
-    use_ema = ema
-    if use_ema is None:
-        use_ema = bool(extra.get("ema_decay"))
-        if use_ema:
-            print(f"[ckpt] the checkpoint records ema_decay={extra['ema_decay']}: evaluating "
-                  "the EMA weights (--no-ema for the raw parameters)")
-    if use_ema:
-        if saved.get("ema") is None:
-            raise SystemExit(f"--ema: no EMA in {path} (train with --ema_decay to keep one)")
-        state.update(saved["ema"])  # parameters only; buffers stay the saved ones
-        print("[ckpt] using EMA weights")
-    model = build_model(mcfg, dtype=serving_dtype(device))
-    model.load_state_dict(state, strict=True)
-    print(f"[ckpt] {path}: model={mcfg.name} epoch={extra.get('epoch')} "
-          f"(exact={bool(exact)})")
-    return mcfg, model.to(device).eval()
+from tpu_superresolution_torch.cli.upscale import load_any_checkpoint
 
 
 def build_argparser():
@@ -139,28 +104,15 @@ def main(argv=None):
     from tpu_superresolution_torch.core.config import EvalConfig
     from tpu_superresolution_torch.evaluate.baseline import bicubic_baseline
     from tpu_superresolution_torch.evaluate.runner import Evaluator
-    from tpu_superresolution_torch.train.checkpoint import read_checkpoint
 
     device = resolve_device(args.device)
     report_device(device)
     scale_int = int(args.scale[1:])
 
-    saved = read_checkpoint(args.ckpt)
-    if isinstance(saved, dict) and saved.get("config") is not None:
-        mcfg, model = load_port_checkpoint(args.ckpt, saved, args.exact, args.ema, device)
-    else:
-        # a reference checkpoint (e.g. the published best_X4.pth; reference
-        # evaluate.py:41-63 loads these): one weight set, inferred shapes
-        if args.ema:
-            raise SystemExit("--ema applies to the port's own checkpoints only; reference "
-                             ".pt/.pth files carry a single weight set")
-        if args.model in CNN_FAMILIES:
-            raise SystemExit(f"--model {args.model}: the CNN families (ms_resunet, unet2d) are "
-                             "still to port (ROADMAP.md Queue 1 item 2); evaluate swinir, hat "
-                             "or dat checkpoints")
-        exact = True if args.exact is None else args.exact
-        mcfg, model = load_any_checkpoint(args.ckpt, args.model, scale_int, exact, device)
-        print(f"[ckpt] {args.ckpt}: reference checkpoint, model={mcfg.name} (exact={exact})")
+    # the port's own checkpoint (its config) or a reference one (e.g. the
+    # published best_X4.pth; reference evaluate.py:41-63 loads these)
+    mcfg, model = load_any_checkpoint(args.ckpt, args.model, scale_int, args.exact, device,
+                                      ema=args.ema)
 
     convention = "native_lr" if mcfg.upsamples_internally else "pre_upscale"
     channels = mcfg.in_channels

@@ -4,7 +4,8 @@ serve super-resolution over HTTP (stdlib only):
 
     python -m tpu_superresolution_torch.cli.serve \\
         --ckpt model.pth --model swinir --scale X4 --no-exact --port 8008
-    (``--model hat`` / ``--model dat`` for a HAT / DAT checkpoint)
+    (``--model hat`` / ``dat`` / ``ms_resunet`` for a reference checkpoint of
+    that family; a checkpoint of the port's train CLI carries its config)
 
     curl -X POST --data-binary @photo.png \\
         http://localhost:8008/upscale > photo_sr.png
@@ -152,9 +153,11 @@ def make_server(service: SRService, host: str, port: int):
 def build_argparser():
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--ckpt", type=str, required=True, help="reference torch .pt/.pth")
-    ap.add_argument("--model", type=str, default="swinir", choices=MODEL_CHOICES,
-                    help="architecture of the checkpoint (swinir, hat and dat are ported)")
+    ap.add_argument("--ckpt", type=str, required=True,
+                    help="a reference .pt/.pth or a checkpoint of the port's train / finetune "
+                         "CLI")
+    ap.add_argument("--model", type=str, default="ms_resunet", choices=MODEL_CHOICES,
+                    help="family of a reference checkpoint (the port's own carry their config)")
     ap.add_argument("--scale", type=str, choices=["X2", "X4"], required=True)
     ap.add_argument("--host", type=str, default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8008)

@@ -1,16 +1,19 @@
-"""Single-image super-resolution with a reference torch ``.pt/.pth``
-SwinIR, HAT or DAT checkpoint (port of
-``tpu_superresolution_tpu/cli/upscale.py``):
+"""Single-image super-resolution with a checkpoint of any family (port
+of ``tpu_superresolution_tpu/cli/upscale.py``):
 
     python -m tpu_superresolution_torch.cli.upscale \\
         --ckpt model.pth --model swinir --scale X4 --image photo.png
 
-decode -> (auto-)tiled forward -> PNG.  It runs on the GPU, in
-bf16 through the port's kernels, and raises when there is none; with
-``--device cpu`` it runs on the CPU in fp32 through their plain
-versions.  The checkpoint is a reference ``.pth`` or one written by
-``cli/finetune.py``.  Orbax checkpoints, the other model families and
-multi-GPU sharding are still to port (ROADMAP.md).
+decode -> [bicubic pre-upscale for the CNN families] -> (auto-)tiled
+forward -> PNG.  It runs on the GPU, in bf16 (through the port's kernels
+for the transformers, cuDNN for the CNNs), and raises when there is
+none; with ``--device cpu`` it runs on the CPU in fp32.  The checkpoint
+is a reference ``.pt/.pth`` (``--model`` names its family:
+``ms_resunet``, the default, ``swinir``, ``hat`` or ``dat``; UNet2D has
+no reference format) or one written by ``cli/train.py`` /
+``cli/finetune.py``, which carries its config (``--model`` is then
+ignored).  Orbax checkpoints and multi-GPU sharding are still to port
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -32,7 +35,6 @@ AUTO_TILE = 192
 AUTO_OVERLAP = 16
 AUTO_TILE_BATCH = 8
 
-PORTED_MODELS = ("swinir", "hat", "dat")
 MODEL_CHOICES = ("ms_resunet", "unet2d", "swinir", "hat", "dat")
 
 
@@ -49,39 +51,88 @@ def exact_config(mcfg):
                                                            "gelu_approximate") if k in fields})
 
 
+def load_port_checkpoint(path: str, saved, exact, ema, device: torch.device,
+                         dtype: Optional[torch.dtype] = None):
+    """A checkpoint of ``train/checkpoint.py`` (`saved`, the dictionary
+    read from `path`) into the port: its embedded config (``exact``
+    forces the reference-exact semantics) and its parameters, or its EMA
+    parameters with the saved buffers.  `ema` None is auto: the EMA when
+    the run recorded an ``ema_decay``, since its best checkpoints were
+    chosen by validating the EMA weights.  Returns (model_config,
+    model)."""
+    from tpu_superresolution_torch.core.config import build_model, config_from_dict
+    from tpu_superresolution_torch.core.dtypes import serving_dtype
+    from tpu_superresolution_torch.train.checkpoint import checked_params
+
+    mcfg = config_from_dict(saved["config"])
+    if exact:
+        mcfg = exact_config(mcfg)
+    state = dict(checked_params(saved, path))
+    extra = saved.get("extra", {})
+    use_ema = ema
+    if use_ema is None:
+        use_ema = bool(extra.get("ema_decay"))
+        if use_ema:
+            print(f"[ckpt] the checkpoint records ema_decay={extra['ema_decay']}: using the "
+                  "EMA weights (--no-ema for the raw parameters)")
+    if use_ema:
+        if saved.get("ema") is None:
+            raise SystemExit(f"--ema: no EMA in {path} (train with --ema_decay to keep one)")
+        state.update(saved["ema"])  # parameters only; buffers stay the saved ones
+        print("[ckpt] using EMA weights")
+    model = build_model(mcfg, dtype=dtype or serving_dtype(device))
+    model.load_state_dict(state, strict=True)
+    print(f"[ckpt] {path}: model={mcfg.name} epoch={extra.get('epoch')} "
+          f"(exact={bool(exact)})")
+    return mcfg, model.to(device).eval()
+
+
 def load_any_checkpoint(ckpt: str, model_name: str, scale_int: int, exact=None,
                         device: Optional[torch.device] = None,
-                        dtype: Optional[torch.dtype] = None):
-    """Load a reference torch .pt/.pth SwinIR, HAT or DAT checkpoint
-    (architecture inferred from tensor shapes) into the port.  Returns
-    (model_config, model).  `exact=None` means exact for torch
-    checkpoints: no fused reconstruction, erf GELU (DAT's GELUs are
-    always erf)."""
+                        dtype: Optional[torch.dtype] = None, ema=None):
+    """Load a ``.pt/.pth`` checkpoint into the port.  Returns
+    (model_config, model).
+
+    A checkpoint of the port's train / finetune CLI carries its config
+    and loads by ``load_port_checkpoint`` (`ema` None: its EMA when the
+    run kept one; `exact` None keeps the semantics it was trained with).
+    A reference checkpoint of family `model_name` gets its architecture
+    inferred from the tensor shapes; `exact=None` means exact for those:
+    no fused reconstruction, erf GELU (DAT's GELUs are always erf).  It
+    carries one weight set, so a true `ema` is refused."""
     from tpu_superresolution_torch.core.config import build_model
     from tpu_superresolution_torch.core.dtypes import serving_dtype
     from tpu_superresolution_torch.interop import (
         CONFIG_INFERENCE,
-        load_torch_checkpoint,
+        extract_state_dict,
         strip_reference_buffers,
     )
+    from tpu_superresolution_torch.train.checkpoint import read_checkpoint
 
-    if model_name not in PORTED_MODELS:
-        raise SystemExit(
-            f"--model {model_name}: only {', '.join(PORTED_MODELS)} are ported to PyTorch "
-            "so far; the other families are queued in ROADMAP.md"
-        )
     if not ckpt.endswith((".pt", ".pth")):
         raise SystemExit(
-            f"{ckpt}: the PyTorch port loads reference .pt/.pth checkpoints only; "
-            "Orbax checkpoints are still to port (ROADMAP.md)"
+            f"{ckpt}: the PyTorch port loads .pt/.pth checkpoints only; Orbax checkpoints "
+            "are still to port (ROADMAP.md Queue 1 item 1c)"
         )
     device = resolve_device(device)
-    sd = strip_reference_buffers(load_torch_checkpoint(ckpt))
+    saved = read_checkpoint(ckpt)
+    if isinstance(saved, dict) and saved.get("config") is not None:
+        return load_port_checkpoint(ckpt, saved, exact, ema, device, dtype)
+    if ema:
+        raise SystemExit("--ema applies to the port's own checkpoints only; reference "
+                         ".pt/.pth files carry a single weight set")
+    if model_name not in CONFIG_INFERENCE:
+        raise SystemExit(
+            f"--model {model_name}: no reference checkpoint format exists for this family "
+            f"({ckpt} carries no config); load a checkpoint of the port's train CLI")
+    sd = strip_reference_buffers(extract_state_dict(saved))
     mcfg = CONFIG_INFERENCE[model_name](sd, scale_int)
     if exact is None or exact:
         mcfg = exact_config(mcfg)
     model = build_model(mcfg, dtype=dtype or serving_dtype(device))
     model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, strict=True)
+    print(f"[ckpt] {ckpt}: reference checkpoint, model={mcfg.name} "
+          f"(exact={exact is None or bool(exact)})")
     return mcfg, model.to(device).eval()
 
 
@@ -94,6 +145,8 @@ def load_for_inference(ckpt: str, model_name: str, scale_arg, exact,
         raise SystemExit("--scale is required for torch .pt/.pth checkpoints")
     scale_int = int(scale_arg[1:])
     mcfg, model = load_any_checkpoint(ckpt, model_name, scale_int, exact, device, dtype)
+    if mcfg.scale != scale_int:
+        raise SystemExit(f"checkpoint is X{mcfg.scale} but --scale {scale_arg} was given")
     convention = "native_lr" if mcfg.upsamples_internally else "pre_upscale"
     return mcfg, model, mcfg.scale, convention, mcfg.in_channels
 
@@ -131,9 +184,11 @@ def build_argparser():
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--image", type=str, nargs="+", required=True, help="input image file(s)")
-    ap.add_argument("--ckpt", type=str, required=True, help="reference torch .pt/.pth")
-    ap.add_argument("--model", type=str, default="swinir", choices=MODEL_CHOICES,
-                    help="architecture of the checkpoint (swinir, hat and dat are ported)")
+    ap.add_argument("--ckpt", type=str, required=True,
+                    help="a reference .pt/.pth or a checkpoint of the port's train / finetune "
+                         "CLI")
+    ap.add_argument("--model", type=str, default="ms_resunet", choices=MODEL_CHOICES,
+                    help="family of a reference checkpoint (the port's own carry their config)")
     ap.add_argument("--scale", type=str, choices=["X2", "X4"], required=True)
     ap.add_argument("--out", type=str, default=None,
                     help="output file (single input) or directory (default: next to "

@@ -3,8 +3,10 @@ from .config import (
     DataConfig,
     EvalConfig,
     ModelConfig,
+    MSResUNetConfig,
     SwinIRConfig,
     TrainConfig,
+    UNet2DConfig,
     build_model,
     config_from_dict,
     model_registry,
@@ -17,8 +19,10 @@ __all__ = [
     "DataConfig",
     "EvalConfig",
     "ModelConfig",
+    "MSResUNetConfig",
     "SwinIRConfig",
     "TrainConfig",
+    "UNet2DConfig",
     "build_model",
     "config_from_dict",
     "model_registry",

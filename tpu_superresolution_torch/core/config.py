@@ -3,9 +3,10 @@
 
 The dataclasses keep the JAX package's field names and defaults, so a
 ``to_dict()`` from either package rebuilds through the other's
-``config_from_dict``.  ``swinir``, ``hat``, ``hat_fast`` and ``dat``
-are registered in the port so far; the other families are listed in
-ROADMAP.md.
+``config_from_dict``.  All five families are registered: the CNNs
+``ms_resunet`` and ``unet2d`` (restoration nets on pre-upscaled input)
+and the transformers ``swinir``, ``hat`` (with the ``hat_fast`` preset)
+and ``dat``.
 """
 
 from __future__ import annotations
@@ -33,6 +34,40 @@ class ModelConfig:
     def upsamples_internally(self) -> bool:
         """True if forward maps [B,H,W,C] -> [B,H*s,W*s,C]."""
         return False
+
+
+@dataclass(frozen=True)
+class MSResUNetConfig(ModelConfig):
+    """RefineNet-style restoration CNN (reference modules/ms_resunet.py).
+
+    `layers` = bottleneck counts per encoder stage; the published best is
+    [3,4,3,3] (reference ms_resunet.py:263, results.ipynb cell 40).  It
+    maps [B,H,W,1] -> [B,H,W,1]: the SR factor is the data pipeline's
+    bicubic pre-upscale (``upsamples_internally`` False).
+    """
+
+    name: str = "ms_resunet"
+    layers: Tuple[int, ...] = (3, 4, 3, 3)
+    stem_channels: int = 32
+    stage_planes: Tuple[int, ...] = (32, 64, 128, 256)
+    refine_channels: int = 128
+    use_batchnorm: bool = True
+
+
+@dataclass(frozen=True)
+class UNet2DConfig(ModelConfig):
+    """Simple U-Net family (capabilities of the reference's missing
+    unet2d.py, documented in notebooks/to_present/cnn.ipynb cells 31-34:
+    UNetConfig(in_channels, out_channels, base_channels, depth, bilinear,
+    norm, dropout)); a restoration net on pre-upscaled input."""
+
+    name: str = "unet2d"
+    base_channels: int = 64
+    depth: int = 4
+    bilinear: bool = True
+    norm: str = "batch"  # "batch" | "none"
+    dropout: float = 0.0
+    residual: bool = False  # results.ipynb cell 13: residual-head variant
 
 
 @dataclass(frozen=True)
@@ -158,9 +193,9 @@ class DATConfig(ModelConfig):
 @dataclass(frozen=True)
 class DataConfig:
     """Paired LR/HR dataset config (the JAX package's DataConfig;
-    reference modules/sr_datasets.py:31-73).  The port trains the
-    native-LR convention only so far (the transformer families, SwinIR
-    and HAT); pre-upscale, blur and normalization are still to port."""
+    reference modules/sr_datasets.py:31-73): the pre-upscale convention
+    of the CNN families or the native-LR one of the transformers, the
+    paired blur, and the (mean, std) normalization of both members."""
 
     data_root: str = ""
     dataset: str = "shuffled2D"
@@ -253,8 +288,7 @@ def build_model(config: ModelConfig, dtype=None, impl: str = "auto", device=None
     _ensure_registered()
     if config.name not in model_registry:
         raise KeyError(
-            f"Unknown model '{config.name}'. Registered: {sorted(model_registry)} "
-            "(the other families are still to port, see ROADMAP.md)"
+            f"Unknown model '{config.name}'. Registered: {sorted(model_registry)}"
         )
     _, build_fn = model_registry[config.name]
     model = build_fn(config, dtype=dtype, impl=impl)

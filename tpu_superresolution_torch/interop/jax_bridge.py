@@ -1,13 +1,18 @@
-"""The weight bridge: the JAX package's SwinIR, HAT and DAT variables (a
-nested dict of numpy arrays: ``variables["params"]``, and for DAT also
+"""The weight bridge: the JAX package's variables of every family (a
+nested dict of numpy arrays: ``variables["params"]``, and for the
+families with BatchNorm, DAT, MS_ResUNet and UNet2D, also
 ``variables["batch_stats"]``) -> the port's state dicts.
 
 The same mappings as the JAX package's
 ``interop/torch_export.py::export_swinir`` / ``export_hat`` /
-``export_dat``, written here so the port needs nothing of the JAX
-package:
+``export_dat`` / ``export_msresunet``, written here so the port needs
+nothing of the JAX package; UNet2D, which has no exporter, maps its
+module names '_' -> '.':
 
 - conv kernel [kh, kw, I, O] -> ``nn.Conv2d`` weight [O, I, kh, kw]
+- MS_ResUNet's torch-convention transposed-conv kernel [k, k, O, I] ->
+  ``nn.ConvTranspose2d`` weight [I, O, k, k]; flax's ``ConvTranspose``
+  kernel [k, k, I, O] (UNet2D) -> the same, spatially flipped
 - dense kernel [I, O]        -> ``nn.Linear`` weight [O, I]
 - LayerNorm scale / bias     -> weight / bias
 - BatchNorm scale / bias and batch_stats mean / var -> weight / bias,
@@ -175,9 +180,7 @@ def hat_state_dict_from_jax(variables: Mapping) -> Dict[str, np.ndarray]:
 def _dat_bridge(variables: Mapping) -> _Bridge:
     """The DAT mapping run over `variables`: its state dict in ``.out``,
     each BatchNorm's JAX path in ``.bn_paths``."""
-    if not isinstance(variables, Mapping) or "batch_stats" not in variables:
-        raise ValueError("dat_state_dict_from_jax needs the variables' 'batch_stats' "
-                         "(BatchNorm running statistics) beside 'params'")
+    _need_stats(variables, "dat_state_dict_from_jax")
     e = _Bridge(variables)
     p = e.p
     e.conv("conv_first", "conv_first")
@@ -235,15 +238,9 @@ def dat_state_dict_from_jax(variables: Mapping) -> Dict[str, np.ndarray]:
     return _dat_bridge(variables).out
 
 
-def dat_batch_stats_from_state_dict(state_dict: Mapping, variables: Mapping) -> Dict:
-    """The port's BatchNorm running statistics (``<name>.running_mean`` /
-    ``.running_var`` of a DAT state dict) as a JAX ``batch_stats`` tree
-    (nested dicts of numpy arrays, leaves ``mean`` / ``var``) of the
-    shape `variables` has: the inverse of the statistics part of
-    ``dat_state_dict_from_jax``, for comparing the two after a train
-    step."""
+def _stats_tree(bridge: _Bridge, state_dict: Mapping) -> Dict:
     tree: Dict = {}
-    for tname, path in _dat_bridge(variables).bn_paths.items():
+    for tname, path in bridge.bn_paths.items():
         node = tree
         for p in path:
             node = node.setdefault(p, {})
@@ -251,3 +248,113 @@ def dat_batch_stats_from_state_dict(state_dict: Mapping, variables: Mapping) -> 
             t = state_dict[f"{tname}.{suffix}"]
             node[leaf] = np.asarray(t.detach().cpu() if hasattr(t, "detach") else t)
     return tree
+
+
+def dat_batch_stats_from_state_dict(state_dict: Mapping, variables: Mapping) -> Dict:
+    """The port's BatchNorm running statistics (``<name>.running_mean`` /
+    ``.running_var`` of a DAT state dict) as a JAX ``batch_stats`` tree
+    (nested dicts of numpy arrays, leaves ``mean`` / ``var``) of the
+    shape `variables` has: the inverse of the statistics part of
+    ``dat_state_dict_from_jax``, for comparing the two after a train
+    step."""
+    return _stats_tree(_dat_bridge(variables), state_dict)
+
+
+def _need_stats(variables: Mapping, what: str) -> None:
+    if not isinstance(variables, Mapping) or "batch_stats" not in variables:
+        raise ValueError(f"{what} needs the variables' 'batch_stats' (BatchNorm running "
+                         "statistics) beside 'params'")
+
+
+def _msresunet_bridge(variables: Mapping) -> _Bridge:
+    _need_stats(variables, "msresunet_state_dict_from_jax")
+    e = _Bridge(variables)
+    p = e.p
+    e.conv("conv1", "conv1")
+    e.bn("bn1", "bn1")
+    for s in (1, 2, 3, 4):
+        b = 0
+        while p.has(f"layer{s}_{b}"):
+            jm, tm = f"layer{s}_{b}", f"layer{s}.{b}"
+            for idx in (1, 2, 3):
+                e.conv(f"{tm}.conv{idx}", jm, f"conv{idx}")
+                e.bn(f"{tm}.bn{idx}", jm, f"bn{idx}")
+            if p.has(jm, "downsample_conv"):
+                e.conv(f"{tm}.downsample.0", jm, "downsample_conv")
+                e.bn(f"{tm}.downsample.1", jm, "downsample_bn")
+            b += 1
+    rcu = {1: "_conv", 2: "_conv_relu_varout_dimred"}
+    for k in (1, 2, 3, 4):
+        ref = f"refine{k}"
+        e.conv(f"p_ims1d2_outl{k}_dimred", ref, "dimred")
+        for sub, thead in (("adapt", f"adapt_stage{k}_b"), ("mflow", f"mflow_conv_g{k}_b")):
+            i = 1
+            while p.has(ref, sub, f"b{i}s1"):
+                for j in (1, 2):
+                    e.conv(f"{thead}.0.{i}{rcu[j]}", ref, sub, f"b{i}s{j}")
+                i += 1
+        if p.has(ref, "adapt_dimred"):
+            e.conv(f"adapt_stage{k}_b2_joint_varout_dimred", ref, "adapt_dimred")
+        i = 1
+        while p.has(ref, "pool", f"conv{i}"):
+            e.conv(f"mflow_conv_g{k}_pool.0.{i}_outvar_dimred", ref, "pool", f"conv{i}")
+            i += 1
+        if p.has(ref, "out_dimred"):
+            e.conv(f"mflow_conv_g{k}_b3_joint_varout_dimred", ref, "out_dimred")
+    for k in (2, 3, 4):  # ConvTranspose2dTorch: [k, k, O, I] -> [I, O, k, k]
+        e.out[f"upCT{k}.weight"] = np.transpose(p.get(f"upCT{k}", "kernel"), (3, 2, 0, 1))
+        e.out[f"upCT{k}.bias"] = p.get(f"upCT{k}", "bias")
+    for name in ("clf_conv1", "clf_conv2"):
+        e.conv(name, name)
+    return e
+
+
+def msresunet_state_dict_from_jax(variables: Mapping) -> Dict[str, np.ndarray]:
+    """JAX MS_ResUNet variables ({"params", "batch_stats"}) -> the
+    reference ms_resunet.py state dict (the mapping of the JAX package's
+    ``export_msresunet``: its refine{k} submodules -> the reference's
+    setattr-generated decoder names)."""
+    return _msresunet_bridge(variables).out
+
+
+def _unet2d_bridge(variables: Mapping) -> _Bridge:
+    e = _Bridge(variables)
+    p = e.p
+
+    def double(t, *path):
+        for c in ("c1", "c2"):
+            e.conv(f"{t}.{c}.conv", *path, c, "conv")
+            if p.has(*path, c, "bn"):
+                e.bn(f"{t}.{c}.bn", *path, c, "bn")
+
+    double("inc", "inc")
+    depth = 0
+    while p.has(f"down{depth + 1}"):
+        depth += 1
+        double(f"down{depth}", f"down{depth}")
+    for k in range(1, depth + 1):
+        if p.has(f"up{k}_reduce"):
+            e.conv(f"up{k}.reduce", f"up{k}_reduce")
+        else:  # flax ConvTranspose [k, k, I, O], taps in the other order
+            kern = p.get(f"up{k}_ct", "kernel")[::-1, ::-1]
+            e.out[f"up{k}.ct.weight"] = np.ascontiguousarray(np.transpose(kern, (2, 3, 0, 1)))
+            e.out[f"up{k}.ct.bias"] = p.get(f"up{k}_ct", "bias")
+        double(f"up{k}", f"up{k}")
+    e.conv("outc", "outc")
+    if e.bn_paths:
+        _need_stats(variables, "unet2d_state_dict_from_jax")
+    return e
+
+
+def unet2d_state_dict_from_jax(variables: Mapping) -> Dict[str, np.ndarray]:
+    """JAX UNet2D variables (with "batch_stats" when it has BatchNorm) ->
+    the port's UNet2D state dict (module names '_' -> '.', ``upK_reduce``
+    / ``upK_ct`` under ``upK``)."""
+    return _unet2d_bridge(variables).out
+
+
+def batch_stats_from_state_dict(model_name: str, state_dict: Mapping, variables: Mapping) -> Dict:
+    """``dat_batch_stats_from_state_dict`` for any family with
+    BatchNorm ("dat", "ms_resunet", "unet2d")."""
+    bridges = {"dat": _dat_bridge, "ms_resunet": _msresunet_bridge, "unet2d": _unet2d_bridge}
+    return _stats_tree(bridges[model_name](variables), state_dict)

@@ -1,6 +1,6 @@
 """Reference torch checkpoints -> the port (port of the
 ``extract_state_dict`` / ``infer_swinir_config`` / ``infer_hat_config``
-/ ``infer_dat_config`` parts of
+/ ``infer_dat_config`` / ``infer_msresunet_config`` parts of
 ``tpu_superresolution_tpu/interop/torch_convert.py``).
 
 The port's modules use the reference key names, so loading needs no key
@@ -8,8 +8,9 @@ conversion: unwrap the checkpoint, drop the buffers the reference
 stores but the port computes from shapes (SwinIR's
 ``relative_position_index`` and ``attn_mask``, HAT's
 ``relative_position_index_SA`` / ``_OCA``, DAT's ``rpe_biases``,
-``relative_position_index`` and ``attn_mask_0`` / ``_1``), and
-``load_state_dict(strict=True)``.
+``relative_position_index`` and ``attn_mask_0`` / ``_1``; MS_ResUNet's
+vestigial ``up_ps*`` keys of the commented-out PixelShuffle variant),
+and ``load_state_dict(strict=True)``.
 """
 
 from __future__ import annotations
@@ -19,7 +20,12 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from tpu_superresolution_torch.core.config import DATConfig, HATConfig, SwinIRConfig
+from tpu_superresolution_torch.core.config import (
+    DATConfig,
+    HATConfig,
+    MSResUNetConfig,
+    SwinIRConfig,
+)
 
 _WRAPPER_KEYS = ("params_ema", "params", "state_dict", "model_state_dict", "model", "net", "generator")
 
@@ -27,6 +33,8 @@ _WRAPPER_KEYS = ("params_ema", "params", "state_dict", "model_state_dict", "mode
 REFERENCE_BUFFER_SUFFIXES = (".relative_position_index", ".attn_mask",
                              "relative_position_index_SA", "relative_position_index_OCA",
                              ".rpe_biases", ".attn_mask_0", ".attn_mask_1")
+# Keys of reference MS_ResUNet checkpoints that no module has.
+REFERENCE_VESTIGIAL_PREFIXES = ("up_ps",)
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, np.ndarray]:
@@ -55,8 +63,10 @@ def extract_state_dict(ckpt: Any) -> Dict[str, np.ndarray]:
 
 
 def strip_reference_buffers(sd: Mapping[str, Any]) -> Dict[str, Any]:
-    """Drop the reference's shape-derived buffers before a strict load."""
-    return {k: v for k, v in sd.items() if not k.endswith(REFERENCE_BUFFER_SUFFIXES)}
+    """Drop the reference's shape-derived buffers (and vestigial keys)
+    before a strict load."""
+    return {k: v for k, v in sd.items() if not k.endswith(REFERENCE_BUFFER_SUFFIXES)
+            and not k.startswith(REFERENCE_VESTIGIAL_PREFIXES)}
 
 
 def _depths_heads_swin(sd, prefix="layers.{i}.residual_group.blocks.{j}"):
@@ -222,6 +232,29 @@ def infer_dat_config(sd: Mapping[str, np.ndarray], scale: int) -> DATConfig:
     )
 
 
-# --model name -> config inference of the ported families
-CONFIG_INFERENCE = {"swinir": infer_swinir_config, "hat": infer_hat_config,
-                    "dat": infer_dat_config}
+def infer_msresunet_config(sd: Mapping[str, np.ndarray], scale: int) -> MSResUNetConfig:
+    """An MSResUNetConfig from a reference ms_resunet.py state dict: the
+    bottlenecks of each encoder stage are counted; the stem width is
+    checked against the published geometry, and a mismatch named."""
+    if "conv1.weight" not in sd or "clf_conv2.weight" not in sd:
+        raise ValueError("not an MS_ResUNet checkpoint: missing conv1/clf_conv2 — wrong --model?")
+    layers = []
+    for s in (1, 2, 3, 4):
+        b = 0
+        while f"layer{s}.{b}.conv1.weight" in sd:
+            b += 1
+        layers.append(b)
+    if 0 in layers:
+        raise ValueError(f"MS_ResUNet: empty encoder stage (counts {layers})")
+    cfg = MSResUNetConfig(scale=scale, layers=tuple(layers))
+    stem = int(sd["conv1.weight"].shape[0])
+    if stem != cfg.stem_channels:
+        raise ValueError(f"MS_ResUNet: conv1 out={stem}, expected {cfg.stem_channels} "
+                         "(non-default width; pass a config explicitly)")
+    return cfg
+
+
+# --model name -> config inference from a reference checkpoint (UNet2D
+# has no reference checkpoint format)
+CONFIG_INFERENCE = {"ms_resunet": infer_msresunet_config, "swinir": infer_swinir_config,
+                    "hat": infer_hat_config, "dat": infer_dat_config}

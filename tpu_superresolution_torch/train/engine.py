@@ -1,18 +1,25 @@
 """The training engine (port of ``tpu_superresolution_tpu/train/engine.py``
 for one device): optimizer, train and eval steps, and ``Trainer.fit``.
 
-- The train step of the native-LR transformer families (SwinIR, HAT,
-  hat_fast, DAT): paired augmentation on the device -> forward (bf16
-  compute on CUDA with fp32 parameters and no loss scaling; fp32 on the
-  CPU) -> fp32 loss -> backward -> clip by global norm -> AdamW with the
-  schedule -> EMA -> metrics.  On CUDA the forward runs the kernels
-  (``kernels/``): each Swin block or HAB is K1 (ws 8) or K6 (ws 7) with
-  its backward K5 or K6b, each HAT OCAB core K8 with backward K8b, each
-  DAT block its module chain (K2, K11, K16; BatchNorm on batch
-  statistics, its running statistics updated in place); the K2-K4, K11
-  and K16 backwards are torch autograd of their plain versions, as the
-  JAX package leaves those backwards to XLA or to a vjp of its
-  reference.
+- The train step: paired augmentation on the device, in the model's
+  convention (pre-upscale for the CNN families MS_ResUNet and UNet2D:
+  upscale -> crop -> flips -> blur; native-LR for the transformers
+  SwinIR, HAT, hat_fast and DAT: crop -> flips -> blur), then the
+  dataset normalization of both members -> forward (bf16 compute on
+  CUDA with fp32 parameters and no loss scaling; fp32 on the CPU) ->
+  fp32 loss -> backward -> clip by global norm -> AdamW with the
+  schedule -> EMA -> metrics.  On CUDA the transformers' forwards run
+  the kernels (``kernels/``): each Swin block or HAB is K1 (ws 8) or K6
+  (ws 7) with its backward K5 or K6b, each HAT OCAB core K8 with
+  backward K8b, each DAT block its module chain (K2, K11, K16); the
+  K2-K4, K11 and K16 backwards are torch autograd of their plain
+  versions, as the JAX package leaves those backwards to XLA or to a
+  vjp of its reference.  The CNNs are cuDNN convs (the JAX package
+  leaves them to XLA).  BatchNorm (DAT, the CNNs) normalizes with the
+  batch statistics in train mode and updates its running statistics in
+  place, on flax's rules, in fp32.
+- Loss and metrics are in the normalized space when the data is
+  normalized, as in the JAX package.
 - The host reads one scalar per epoch (the mean train loss), not one per
   step: each step's metrics stay on the device until the epoch ends.
 - Clipping is ``optax.clip_by_global_norm``'s: g * max / norm when norm
@@ -34,14 +41,20 @@ import math
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
 from tpu_superresolution_torch.core.config import DataConfig, ModelConfig, TrainConfig
-from tpu_superresolution_torch.data.transforms import make_train_batch_native
+from tpu_superresolution_torch.data import native_decode
+from tpu_superresolution_torch.data.transforms import (
+    make_train_batch_native,
+    make_train_batch_preupscale,
+    normalize,
+    pre_upscale_batch,
+)
 from tpu_superresolution_torch.ops.metrics import batch_psnr, ssim
 from tpu_superresolution_torch.train.freeze import apply_freeze
 from tpu_superresolution_torch.train.losses import get_loss
@@ -138,25 +151,46 @@ def _to_device(a, device) -> torch.Tensor:
     return t.to(device, non_blocking=True)
 
 
+def make_aug(convention: str, scale: int, patch: Optional[int], do_flips: bool,
+             do_blur: bool = False, norm: Optional[Tuple[float, float]] = None):
+    """aug(lr, hr, generator) -> (lr, hr): the train batch's augmentation
+    on the device in the JAX package's order (``engine.make_aug``).
+    `patch` None takes the batch as given (already cropped): pre-upscale
+    then only upscales, native-LR does nothing; `norm` is (mean, std)."""
+    if convention not in ("pre_upscale", "native_lr"):
+        raise ValueError(f"convention must be 'pre_upscale' or 'native_lr', got {convention!r}")
+
+    def aug(lr, hr, generator):
+        if convention == "pre_upscale":
+            if patch is not None:
+                lr, hr = make_train_batch_preupscale(lr, hr, scale, patch, do_flips, generator,
+                                                     do_blur)
+            else:
+                lr = pre_upscale_batch(lr, scale)
+        elif patch is not None:
+            lr, hr = make_train_batch_native(lr, hr, scale, patch, do_flips, generator, do_blur)
+        if norm is not None:
+            lr, hr = normalize(lr, *norm), normalize(hr, *norm)
+        return lr, hr
+
+    return aug
+
+
 def make_train_step(loss_name: str, convention: str, scale: int, patch: Optional[int],
-                    do_flips: bool):
+                    do_flips: bool, do_blur: bool = False,
+                    norm: Optional[Tuple[float, float]] = None):
     """step(state, lr_raw, hr_raw, generator) -> metrics (device tensors).
 
-    `generator` draws the crop offsets, flips and stochastic-depth masks.
-    `patch` None trains on the batch as given (already cropped)."""
-    if convention != "native_lr":
-        raise NotImplementedError(
-            f"convention {convention!r}: the port trains the native-LR transformer families "
-            "(SwinIR, HAT, DAT) only so far; pre_upscale waits for the CNN families (ROADMAP.md "
-            "Queue 1 item 2)")
+    `generator` draws the crop offsets, flips, the blur and the
+    stochastic-depth masks.  `patch` None trains on the batch as given
+    (already cropped)."""
     loss_fn = get_loss(loss_name)
+    aug = make_aug(convention, scale, patch, do_flips, do_blur, norm)
 
     def step(state: TrainState, lr_raw, hr_raw, generator: Optional[torch.Generator] = None):
         model = state.model
         device = next(model.parameters()).device
-        lr, hr = _to_device(lr_raw, device), _to_device(hr_raw, device)
-        if patch is not None:
-            lr, hr = make_train_batch_native(lr, hr, scale, patch, do_flips, generator)
+        lr, hr = aug(_to_device(lr_raw, device), _to_device(hr_raw, device), generator)
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
         out = model(lr, generator=generator).float()
@@ -175,20 +209,28 @@ def make_train_step(loss_name: str, convention: str, scale: int, patch: Optional
     return step
 
 
-def make_eval_step(loss_name: str, convention: str):
+def make_eval_step(loss_name: str, convention: str, scale: Optional[int] = None,
+                   norm: Optional[Tuple[float, float]] = None):
     """step(model, lr_raw, hr_raw) -> loss, psnr_sum, ssim_sum, n
-    (device tensors): the whole image, inputs scrubbed of NaN / Inf
-    (reference train.py:157-158), eval mode, no gradient."""
-    if convention != "native_lr":
-        raise NotImplementedError(f"convention {convention!r}: native_lr only so far")
+    (device tensors): the whole image (pre-upscaled by `scale` in that
+    convention), inputs scrubbed of NaN / Inf (reference train.py:
+    157-158), normalized by `norm`, eval mode, no gradient."""
+    if convention not in ("pre_upscale", "native_lr"):
+        raise ValueError(f"convention must be 'pre_upscale' or 'native_lr', got {convention!r}")
+    if convention == "pre_upscale" and not scale:
+        raise ValueError("the pre_upscale convention needs the scale")
     loss_fn = get_loss(loss_name)
 
     @torch.no_grad()
     def step(model: nn.Module, lr_raw, hr_raw):
         device = next(model.parameters()).device
-        scrub = lambda t: torch.nan_to_num(_to_device(t, device).float(), nan=0.0, posinf=0.0,
-                                           neginf=0.0)
-        lr, hr = scrub(lr_raw), scrub(hr_raw)
+        lr = _to_device(lr_raw, device).float()
+        if convention == "pre_upscale":
+            lr = pre_upscale_batch(lr, scale)
+        scrub = lambda t: torch.nan_to_num(t, nan=0.0, posinf=0.0, neginf=0.0)
+        lr, hr = scrub(lr), scrub(_to_device(hr_raw, device).float())
+        if norm is not None:
+            lr, hr = normalize(lr, *norm), normalize(hr, *norm)
         model.eval()
         out = model(lr).float()
         n = lr.shape[0]
@@ -206,7 +248,10 @@ def make_eval_step(loss_name: str, convention: str):
 class Trainer:
     """Epochs, validation every `val_every` epochs (always the last), the
     dual bests by val loss and by val PSNR (finetune_swinir.py:344-371),
-    early stopping, the run report and the loss curve (train.py:403-419)."""
+    early stopping, the run report and the loss curve (train.py:403-419).
+    ``history["native_decodes"]`` counts each epoch's native-decoder
+    batch calls during its training loop (0 once the decoded-image cache
+    serves the epoch)."""
 
     model_config: ModelConfig
     data_config: DataConfig
@@ -214,7 +259,8 @@ class Trainer:
     workdir: str = "."
     log: Callable[[str], None] = print
 
-    history: Dict[str, list] = field(default_factory=lambda: {"train": [], "val": []})
+    history: Dict[str, list] = field(
+        default_factory=lambda: {"train": [], "val": [], "native_decodes": []})
     best_val_loss: float = math.inf
     best_val_psnr: float = -math.inf
     _no_improve: int = 0
@@ -229,14 +275,13 @@ class Trainer:
             raise NotImplementedError(
                 f"dp_shards={tcfg.dp_shards}: data parallelism waits for the multi-GPU slice "
                 "(ROADMAP.md)")
-        if dcfg.do_blur or dcfg.normalizes:
-            raise NotImplementedError("blur / normalization augmentation is still to port")
         if generator is None:
             generator = torch.Generator().manual_seed(tcfg.seed)
         patch = dcfg.patch_size if dcfg.convention == "pre_upscale" else dcfg.lr_patch
+        norm = (dcfg.norm_mean, dcfg.norm_std) if dcfg.normalizes else None
         train_step = make_train_step(tcfg.loss, dcfg.convention, dcfg.scale_int, patch,
-                                     dcfg.do_flips)
-        eval_step = make_eval_step(tcfg.loss, dcfg.convention)
+                                     dcfg.do_flips, dcfg.do_blur, norm)
+        eval_step = make_eval_step(tcfg.loss, dcfg.convention, dcfg.scale_int, norm)
         eval_model = state.model
         if state.ema is not None:
             eval_model = _model_copy(state.model)
@@ -246,6 +291,7 @@ class Trainer:
             t_ep = time.time()
             losses = []
             data_t = step_t = 0.0
+            decodes0 = native_decode.decodes.count
             end = time.time()
             for lr_np, hr_np in train_loader:
                 data_t += time.time() - end
@@ -257,6 +303,7 @@ class Trainer:
                     self.log(f"[{dcfg.scale}][time] batch {k}: data {data_t / k:.3f}s/b "
                              f"step {step_t / k:.3f}s/b")
                 end = time.time()
+            self.history["native_decodes"].append(native_decode.decodes.count - decodes0)
             n_steps = max(1, len(losses))
             tr_loss = float(torch.stack(losses).mean()) if losses else 0.0
             if not math.isfinite(tr_loss):
