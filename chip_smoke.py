@@ -236,12 +236,37 @@ Phases (a failure in any raises, and the script exits non-zero):
 17. swinir-data SwinIR-M x4 through ``cli.train.main(--model swinir
             --do_blur --normalize --cache_decoded)``: 2 steps +
             validation, launches = 2 x TRAIN_PER_STEP + PER_CALL (K1-K5
-            under the new data path).
+            under the new data path);
+18. trace   a one-epoch SwinIR-M x4 fine-tune with ``--trace``: the
+            timeline's spans ``epoch 1`` / ``val 1``, its counters
+            ``train_loss`` / ``val_psnr``, launches;
+19. remat   ``use_remat``: one SwinIR-M x4, one HAT-SRx4 x4 and one
+            DAT x4 train step with and without it (and without it again,
+            the run-to-run floor): loss, every gradient and DAT's
+            BatchNorm statistics equal, the launches (the block kernels'
+            routes not recomputed, DAT's module chain recomputed), then
+            each setting's step peak memory and median step time (the
+            two settings' steps interleaved);
+20. compare ``cli.compare.main``: DAT x4 against SwinIR-M x4 on whole
+            500^2 / 125^2 images from the port's checkpoints: panels,
+            PSNR / SSIM, each side's SR against its plain fp32 forward;
+21. mat-eval ``cli.mat_eval.main`` on classic .mat volumes (a
+            single-channel SwinIR-M x4, tile 64 / 8): its [baseline] and
+            [result] lines against the plain fp32 path;
+22. export  ``interop.export`` of SwinIR-M x4 at [25,64,64,3] bf16 with
+            K1-K4 as custom ops: the loaded program bit-identical to the
+            eager kernel path, its launches exactly one bench call's;
+            a DAT x4 refused on CUDA with its kernels named;
+23. ablate  ``utils.ablate``: K2 against F.layer_norm at [102400, 180],
+            interleaved rounds, min / median / spread.
+The evaluate phase also prints ``Evaluator.run``'s mfu beside MPix/s,
+with the counted and the analytic FLOPs.
 
 The second-to-last stdout line is a JSON object describing each kernel
 (launches summed over the serve, evaluate, SwinIR ws-7, SwinIR-L, wide,
 hat, dat, train, hat-train, hat_srx4, hat_srx4-train, swinir_l-train,
-dat_x4, dat-train and swinir-data phases); the last is
+dat_x4, dat-train, swinir-data, trace, remat, compare, mat-eval and
+export phases); the last is
 {"ok": true, "device": {...}}.  There is no CPU path: with no CUDA
 device the script exits non-zero and prints no result.
 """
@@ -1480,29 +1505,25 @@ def _tiled_split(run, calls=3, ws=16):
     over `calls` calls: device ms a call by part, and the rest of the
     call's device time (the wrapper's allocations, the fold)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_superresolution_torch.utils.profiling import device_split, kernel_ms
 
     key = TILED_KEYS[ws]
     run()
     torch.cuda.synchronize()
     try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                run()
-            torch.cuda.synchronize()
+        kernels = device_split(lambda: [run() for _ in range(calls)]).kernels
     except Exception as e:  # the split is a reading aid, not a check
         log(f"[kernels] {key} profiler failed: {type(e).__name__}: {e}")
         return
-    kernels = _device_kernels(prof)
-    us = lambda e: getattr(e, "device_time", 0.0) or getattr(e, "cuda_time", 0.0)
     parts, seen = [], set()
     for label, head, tail in _tiled_parts(ws):
         ev = [e for e in kernels if head in e.name and tail in e.name]
         seen.update(id(e) for e in ev)
-        parts.append(f"{label} {sum(us(e) for e in ev) / calls / 1e3:.4f} ms "
+        parts.append(f"{label} {sum(kernel_ms(e) for e in ev) / calls:.4f} ms "
                      f"x{len(ev) // calls}")
-    rest = sum(us(e) for e in kernels if id(e) not in seen) / calls / 1e3
-    busy = sum(us(e) for e in kernels) / calls / 1e3
+    rest = sum(kernel_ms(e) for e in kernels if id(e) not in seen) / calls
+    busy = sum(kernel_ms(e) for e in kernels) / calls
     log(f"[kernels] {key} launches by part (profiler, {calls} calls): " + ", ".join(parts)
         + f"; other device work {rest:.4f} ms; busy {busy:.4f} ms a call")
 
@@ -1858,9 +1879,9 @@ def _ocab16_split(run, runb, calls=3):
     calls each (csrc/ocab16.cu): device ms a call by launch, and the rest
     of a call's device time (packing, the fold)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    us = lambda e: getattr(e, "device_time", 0.0) or getattr(e, "cuda_time", 0.0)
+    from tpu_superresolution_torch.utils.profiling import device_split, kernel_ms
+
     for key, fn, parts in (
             ("K8w16", run, (("the gather", "ocab_heads_kernel", ""),
                             ("attention forward", "ocab_attn_kernel", "false>("),
@@ -1875,22 +1896,18 @@ def _ocab16_split(run, runb, calls=3):
         fn()
         torch.cuda.synchronize()
         try:
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(calls):
-                    fn()
-                torch.cuda.synchronize()
+            kernels = device_split(lambda: [fn() for _ in range(calls)]).kernels
         except Exception as e:  # the split is a reading aid, not a check
             log(f"[kernels] {key} profiler failed: {type(e).__name__}: {e}")
             return
-        kernels = _device_kernels(prof)
         out, seen = [], set()
         for label, head, tail in parts:
             ev = [e for e in kernels if head in e.name and tail in e.name]
             seen.update(id(e) for e in ev)
-            out.append(f"{label} {sum(us(e) for e in ev) / max(len(ev), 1) / 1e3:.4f} ms "
+            out.append(f"{label} {sum(kernel_ms(e) for e in ev) / max(len(ev), 1):.4f} ms "
                        f"({len(ev)} launches seen in {calls} calls)")
-        rest = sum(us(e) for e in kernels if id(e) not in seen) / calls / 1e3
-        busy = sum(us(e) for e in kernels) / calls / 1e3
+        rest = sum(kernel_ms(e) for e in kernels if id(e) not in seen) / calls
+        busy = sum(kernel_ms(e) for e in kernels) / calls
         log(f"[kernels] {key} launches by part (profiler, {calls} calls): " + ", ".join(out)
             + f"; other device work {rest:.4f} ms; busy {busy:.4f} ms a call")
 
@@ -2163,27 +2180,23 @@ def _launch_split(key, label, run, parts, calls=3):
     `calls` calls: device ms a call by part, and the rest of the call's
     device time (the wrapper's allocations)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_superresolution_torch.utils.profiling import device_split, kernel_ms
 
     run()
     torch.cuda.synchronize()
     try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                run()
-            torch.cuda.synchronize()
+        kernels = device_split(lambda: [run() for _ in range(calls)]).kernels
     except Exception as e:  # the split is a reading aid, not a check
         log(f"[kernels] {key} profiler failed: {type(e).__name__}: {e}")
         return
-    kernels = _device_kernels(prof)
-    us = lambda e: getattr(e, "device_time", 0.0) or getattr(e, "cuda_time", 0.0)
     out, seen = [], set()
     for name, head, tail in parts:
         ev = [e for e in kernels if head in e.name and tail in e.name]
         seen.update(id(e) for e in ev)
-        out.append(f"{name} {sum(us(e) for e in ev) / calls / 1e3:.4f} ms x{len(ev) // calls}")
-    rest = sum(us(e) for e in kernels if id(e) not in seen) / calls / 1e3
-    busy = sum(us(e) for e in kernels) / calls / 1e3
+        out.append(f"{name} {sum(kernel_ms(e) for e in ev) / calls:.4f} ms x{len(ev) // calls}")
+    rest = sum(kernel_ms(e) for e in kernels if id(e) not in seen) / calls
+    busy = sum(kernel_ms(e) for e in kernels) / calls
     log(f"[kernels] {key} {label} launches (profiler, {calls} calls): " + ", ".join(out)
         + f"; other device work {rest:.4f} ms; busy {busy:.4f} ms a call")
 
@@ -3160,6 +3173,7 @@ def phase_evaluate(workdir, smi):
     from tpu_superresolution_torch.data.loader import Loader
     from tpu_superresolution_torch.evaluate import bicubic_baseline, tile_grid
     from tpu_superresolution_torch.kernels import read_counters, reset_counters
+    from tpu_superresolution_torch.utils.flops import PEAK_BF16_FLOPS, model_flops
 
     tag = "evaluate"
     data, data_tta = f"{workdir}/deeprock_eval", f"{workdir}/deeprock_eval_tta"
@@ -3203,7 +3217,15 @@ def phase_evaluate(workdir, smi):
             f"PSNR {res['psnr']:.4f} dB, SSIM {res['ssim']:.6f}, wall {res['wall_s']:.3f} s, "
             f"compile_s {res['compile_s']:.3f} s, steady {res['mpix_per_s']:.3f} MPix/s; model "
             f"calls {n_calls}; launches {launches} ({smi})")
-        want_keys = {"psnr", "ssim", "n", "wall_s", "compile_s", "mpix_per_s"}
+        want_keys = {"psnr", "ssim", "n", "wall_s", "compile_s", "mpix_per_s", "flops", "mfu"}
+        steady_calls = (n // batch - 1) * math.ceil(batch * tiles / EVAL_TILE_BATCH) * (
+            8 if ens else 1)
+        analytic = model_flops(mcfg, EVAL_TILE, EVAL_TILE) * EVAL_TILE_BATCH * steady_calls
+        log(f"[{tag}] {label}: mfu {res.get('mfu', float('nan')):.4%} of {PEAK_BF16_FLOPS:.4g} "
+            f"FLOP/s (dense bf16) beside {res['mpix_per_s']:.3f} MPix/s steady; the steady "
+            f"window's FLOPs counted (torch_flops of the pipeline) {res.get('flops', 0):.6g}, "
+            f"analytic (model_flops x {EVAL_TILE_BATCH} tiles x {steady_calls} calls) "
+            f"{analytic:.6g} (counted / analytic {res.get('flops', 0) / analytic:.4f}) ({smi})")
         want_pngs = [f"idx_{i:06d}_{k}.png" for i in range(saves) for k in ("hr", "lr", "sr")]
         if set(report) != want_keys or report["n"] != n or pngs != want_pngs:
             raise RuntimeError(f"{tag} {label}: report {report}, PNGs {pngs}")
@@ -3257,23 +3279,18 @@ def phase_evaluate(workdir, smi):
 def _conv_share(fwd, name, tag, smi):
     """K3/K4's device time in one profiled bench forward (kernels named
     conv_nhwc_*), beside the forward's busy device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from tpu_superresolution_torch.utils.profiling import device_split, kernel_ms
 
     try:
-        with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fwd()
-            torch.cuda.synchronize()
+        kernels = device_split(lambda: _no_grad(fwd)).kernels
     except Exception as e:  # the profile is a reading aid, not a check
         log(f"[{tag}] profiler failed: {type(e).__name__}: {e}")
         return
-    kernels = _device_kernels(prof)
-    us = lambda e: getattr(e, "device_time", 0.0) or getattr(e, "cuda_time", 0.0)
     conv = [e for e in kernels if "conv_nhwc" in e.name]
-    busy, conv_us = sum(us(e) for e in kernels), sum(us(e) for e in conv)
+    busy, conv_ms = sum(kernel_ms(e) for e in kernels), sum(kernel_ms(e) for e in conv)
     if busy:
-        log(f"[{tag}] {name} profiled forward: K3/K4 x{len(conv)} {conv_us / 1e3:.3f} ms of "
-            f"{busy / 1e3:.3f} ms busy ({conv_us / busy:.1%}) ({smi})")
+        log(f"[{tag}] {name} profiled forward: K3/K4 x{len(conv)} {conv_ms:.3f} ms of "
+            f"{busy:.3f} ms busy ({conv_ms / busy:.1%}) ({smi})")
 
 
 def _psnr_db(a, b) -> float:
@@ -3443,24 +3460,17 @@ def _dat_split(fwd, smi, tag="dat"):
     partitions and pads, channel gates, conv_first, pixel shuffle,
     tiling, casts) as plain ops, and the device's idle share of the wall
     time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from tpu_superresolution_torch.utils.profiling import device_split
 
     try:
-        with torch.no_grad(), profile(
-                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fwd()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
+        split = device_split(lambda: _no_grad(fwd), host=True)
     except Exception as e:  # the profile is a reading aid, not a check
         log(f"[{tag}] profiler failed: {type(e).__name__}: {e}")
         return
-    kernels = _device_kernels(prof)
+    kernels, wall = split.kernels, split.wall_ms
     if not kernels:
         log(f"[{tag}] profiler: no device events recorded")
         return
-    us = lambda e: getattr(e, "device_time", 0.0) or getattr(e, "cuda_time", 0.0)
     names = (("K9 front_product_kernel<0> (LN1, qkv)", ("front_product_kernel<0",)),
              ("K9 window_attn_stream_kernel (both branches)", ("window_attn_stream_kernel",)),
              ("K9 dat_conv_kernel<false> (conv branch)", ("dat_conv_kernel<false",)),
@@ -3476,10 +3486,7 @@ def _dat_split(fwd, smi, tag="dat"):
              ("K3/K4 conv_nhwc", ("conv_nhwc",)))
     other = ("plain ops (module-chain GEMMs, BatchNorm, GELU, partitions, channel gates, "
              "conv_first, pixel shuffle, tiling, casts)")
-    groups = dict.fromkeys([g for g, _ in names] + [other], 0.0)
-    for e in kernels:
-        g = next((g for g, keys in names if any(k in e.name for k in keys)), other)
-        groups[g] += us(e) / 1e3
+    groups = split.group(names, other)
     busy = sum(groups.values())
     idle = max(wall - busy, 0.0)
     log(f"[{tag}] profiled forward: {wall:.2f} ms wall (profiler on), {len(kernels)} device "
@@ -3740,36 +3747,25 @@ def _hat_split(model, fwd, smi, tag="hat"):
     partition and overlap gathers; the HABs' plain ops on the K7 route:
     the shift and partition gathers; the rest), and the device's idle
     share of the wall time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     from tpu_superresolution_torch.models.hat import CAB, HAB, OCAB
+    from tpu_superresolution_torch.utils.profiling import device_split
 
     parts = {HAB: "hat::hab", CAB: "hat::cab", OCAB: "hat::ocab"}
     handles = _range_hooks(model, parts)
     try:
-        with torch.no_grad(), profile(
-                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fwd()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        events = prof.events()
+        split = device_split(lambda: _no_grad(fwd), host=True)
     except Exception as e:  # the profile is a reading aid, not a check
         log(f"[{tag}] profiler failed: {type(e).__name__}: {e}")
         return
     finally:
         for h in handles:
             h.remove()
-    kernels = _device_kernels(prof)
+    kernels, wall = split.kernels, split.wall_ms
     if not kernels:
         log(f"[{tag}] profiler: no device events recorded")
         return
     # the device-side spans of the module ranges
-    spans = [(e.time_range.start, e.time_range.end, e.name) for e in events
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and getattr(e, "is_user_annotation", False) and e.name in parts.values()]
-    us = lambda e: getattr(e, "device_time", 0.0) or getattr(e, "cuda_time", 0.0)
+    spans = split.ranges(list(parts.values()))
     names = (("block kernel (swin_block_wg_kernel)", ("swin_block_wg_kernel",)),
              ("K7 window_product_kernel (qkv, proj)", ("window_product_kernel",)),
              ("K7 window_attn_stream_kernel", ("window_attn_stream_kernel",)),
@@ -3786,13 +3782,7 @@ def _hat_split(model, fwd, smi, tag="hat"):
                ("hat::ocab", "OCAB plain ops (qkv, proj, MLP, gathers)"),
                ("hat::hab", "HAB plain ops (K7 route: the shift and partition gathers)"))
     other = "other (conv_first, mean shift, tiling, casts)"
-    groups = dict.fromkeys([g for g, _ in names] + [g for _, g in by_span] + [other], 0.0)
-    for e in kernels:
-        n, t = e.name, e.time_range.start
-        inside = {name for a, b, name in spans if a <= t <= b}
-        g = next((g for g, keys in names if any(k in n for k in keys)), None)
-        g = g or next((g for span, g in by_span if span in inside), other)
-        groups[g] += us(e) / 1e3
+    groups = split.group(names, other, spans, by_span)
     busy = sum(groups.values())
     idle = max(wall - busy, 0.0)
     log(f"[{tag}] profiled forward: {wall:.2f} ms wall (profiler on), {len(kernels)} device "
@@ -4969,40 +4959,21 @@ def _dat_train_split(state, lr, hr, step_ms, smi):
     ran in (the forward's plain ops: the GEMMs, BatchNorm, GELU, the
     partitions and pads; the backward: autograd of everything, K16's
     and K11's plain versions included), and the device's idle share."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    from tpu_superresolution_torch.train.engine import apply_gradients
+    from tpu_superresolution_torch.utils.profiling import device_split
 
     model = state.model
     model.train()
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            state.optimizer.zero_grad(set_to_none=True)
-            with record_function("step::forward"):
-                loss = (model(lr, generator=torch.Generator().manual_seed(SEED)).float()
-                        - hr).abs().mean()
-                torch.cuda.synchronize()
-            with record_function("step::backward"):
-                loss.backward()
-                torch.cuda.synchronize()
-            with record_function("step::optimizer"):
-                apply_gradients(state)
-                torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        events = prof.events()
+        split = device_split(lambda: _phased_step(state, lr, hr), host=True)
     except Exception as e:  # the profile is a reading aid, not a check
         log(f"[dat-train] profiler failed: {type(e).__name__}: {e}")
         return
-    kernels = sorted(_device_kernels(prof), key=lambda e: e.time_range.start)
+    kernels, wall = split.kernels, split.wall_ms
     if not kernels:
         log("[dat-train] profiler: no device events recorded")
         return
     steps = ("step::forward", "step::backward", "step::optimizer")
-    spans = [(e.time_range.start, e.time_range.end, e.name) for e in events
-             if e.device_type == torch.autograd.DeviceType.CPU and e.name in steps]
-    us = lambda e: getattr(e, "device_time", 0.0) or getattr(e, "cuda_time", 0.0)
+    spans = split.ranges(steps, on_device=False)
     names = (("K16 forward (batched_attn_wg_kernel)", ("batched_attn_wg_kernel",)),
              ("K11 forward (dwconv3x3_rows_kernel / dwconv3x3_kernel)",
               ("dwconv3x3_rows_kernel", "dwconv3x3_kernel")),
@@ -5010,13 +4981,7 @@ def _dat_train_split(state, lr, hr, step_ms, smi):
     by_span = (("step::forward", "other forward ops (GEMMs, BatchNorm, GELU, partitions, pads)"),
                ("step::backward", "backward (autograd; K16's, K11's, K2-K4's plain versions)"),
                ("step::optimizer", "optimizer (norm, clip, AdamW, EMA)"))
-    groups = dict.fromkeys([g for g, _ in names] + [g for _, g in by_span] + ["other"], 0.0)
-    for e in kernels:
-        n, t = e.name, e.time_range.start
-        inside = {name for a, b, name in spans if a <= t <= b}
-        g = next((g for g, keys in names if any(k in n for k in keys)), None)
-        g = g or next((g for span, g in by_span if span in inside), "other")
-        groups[g] += us(e) / 1e3
+    groups = split.group(names, "other", spans, by_span)
     busy = sum(groups.values())
     idle = max(wall - busy, 0.0)
     log(f"[dat-train] profiled step: {wall:.2f} ms wall (profiler on, a synchronise after "
@@ -5026,9 +4991,7 @@ def _dat_train_split(state, lr, hr, step_ms, smi):
         f"({smi})")
     for g, t in groups.items():
         log(f"[dat-train]   {t:8.3f} ms  {t / wall:6.1%}  {g}")
-    counts = {}
-    for e in kernels:
-        counts[e.name] = counts.get(e.name, 0) + 1
+    counts = {name: n for name, (n, _) in split.by_name().items()}
     top = sorted(counts.items(), key=lambda kv: -kv[1])[:10]
     log(f"[dat-train] most launched device kernels: "
         f"{[(n[:60], c) for n, c in top]}")
@@ -5046,40 +5009,23 @@ def _hat_train_split(state, lr, hr, step_ms, smi, tag="hat-train", parts=None, b
     casts); the optimizer; and the device's idle share of the wall
     time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
 
     from tpu_superresolution_torch.models.hat import CAB, HAB, OCAB
-    from tpu_superresolution_torch.train.engine import apply_gradients
+    from tpu_superresolution_torch.utils.profiling import device_split, kernel_ms
 
     model = state.model
     parts = parts or {HAB: "hat::hab", CAB: "hat::cab", OCAB: "hat::ocab"}
     handles = _range_hooks(model, parts)
     model.train()
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            state.optimizer.zero_grad(set_to_none=True)
-            # each phase ends in a synchronise, so a device kernel starts
-            # inside the host-side span of the phase that launched it
-            with record_function("step::forward"):
-                loss = (model(lr, generator=torch.Generator().manual_seed(SEED)).float()
-                        - hr).abs().mean()
-                torch.cuda.synchronize()
-            with record_function("step::backward"):
-                loss.backward()
-                torch.cuda.synchronize()
-            with record_function("step::optimizer"):
-                apply_gradients(state)
-                torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        events = prof.events()
+        split = device_split(lambda: _phased_step(state, lr, hr), host=True)
     except Exception as e:  # the profile is a reading aid, not a check
         log(f"[{tag}] profiler failed: {type(e).__name__}: {e}")
         return
     finally:
         for h in handles:
             h.remove()
-    kernels = _device_kernels(prof)
+    kernels, wall, events = split.kernels, split.wall_ms, split.events
     if not kernels:
         log(f"[{tag}] profiler: no device events recorded")
         return
@@ -5090,10 +5036,7 @@ def _hat_train_split(state, lr, hr, step_ms, smi, tag="hat-train", parts=None, b
     host = {e.name: e.time_range for e in events
             if e.device_type == cpu and e.name.startswith("step::")}
     fwd_end, opt_start = host["step::forward"].end, host["step::optimizer"].start
-    spans = [(e.time_range.start, e.time_range.end, e.name) for e in events
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and getattr(e, "is_user_annotation", False) and e.name in parts.values()]
-    us = lambda e: getattr(e, "device_time", 0.0) or getattr(e, "cuda_time", 0.0)
+    spans = split.ranges(list(parts.values()))
     fwd_names = (("forward K6 / K1 (swin_block_wg_kernel)", ("swin_block_wg_kernel",)),
                  ("forward K8 / K8w16 (ocab_win_heads_kernel, ocab_win_attn_kernel; "
                   "ocab_heads_kernel, ocab_attn_kernel; K5a's OCAB tail)",
@@ -5136,11 +5079,11 @@ def _hat_train_split(state, lr, hr, step_ms, smi, tag="hat-train", parts=None, b
             g = next((g for g, keys in fwd_names if any(k in n for k in keys)), None)
             g = g or next((g for span, g in by_span if span in inside), "forward other ops")
         elif t < opt_start:
-            bwd_total += us(e) / 1e3
+            bwd_total += kernel_ms(e)
             continue
         else:
             g = "optimizer (norm, clip, AdamW)"
-        groups[g] += us(e) / 1e3
+        groups[g] += kernel_ms(e)
     # the backward's kernels by the autograd node that launched them (the
     # plain versions' own autograd nodes nest inside a kernel's backward)
     prefix = "autograd::engine::evaluate_function: "
@@ -5194,13 +5137,35 @@ def _range_hooks(model, parts):
     return handles
 
 
-def _device_kernels(prof):
-    """The profile's kernels on the card (not the user-annotation ranges
-    that the profiler also places on the device timeline)."""
+def _no_grad(fn):
     import torch
 
-    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
+    with torch.no_grad():
+        return fn()
+
+
+def _phased_step(state, lr, hr):
+    """One L1 train step in three profiler ranges (step::forward,
+    step::backward, step::optimizer), each ending in a synchronise, so a
+    device kernel starts inside the host-side span of the phase that
+    launched it."""
+    import torch
+    from torch.profiler import record_function
+
+    from tpu_superresolution_torch.train.engine import apply_gradients
+
+    model = state.model
+    state.optimizer.zero_grad(set_to_none=True)
+    with record_function("step::forward"):
+        loss = (model(lr, generator=torch.Generator().manual_seed(SEED)).float()
+                - hr).abs().mean()
+        torch.cuda.synchronize()
+    with record_function("step::backward"):
+        loss.backward()
+        torch.cuda.synchronize()
+    with record_function("step::optimizer"):
+        apply_gradients(state)
+        torch.cuda.synchronize()
 
 
 def _packing_cost(model, k5w16=False, tag="train"):
@@ -5210,9 +5175,9 @@ def _packing_cost(model, k5w16=False, tag="train"):
     forward is the K7 route) the stream that K5w16's backward packs once a
     step: device kernels and synchronised milliseconds for all blocks."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from tpu_superresolution_torch.kernels.fused_block import pack_block_tiles
+    from tpu_superresolution_torch.utils.profiling import device_split
 
     weights = [b.block_weights() for layer in model.layers
                for b in layer.residual_group.blocks]
@@ -5222,10 +5187,7 @@ def _packing_cost(model, k5w16=False, tag="train"):
         run = lambda: [pack(w) for w in weights]
         run()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-        n = len(_device_kernels(prof))
+        n = len(device_split(run).kernels)
         t0 = time.perf_counter()
         for _ in range(5):
             run()
@@ -5240,28 +5202,19 @@ def _profile_step(step, state, lr, hr, gen, tag="train"):
     """torch.profiler over one train step, device activity only (no host
     events to process): device time by kernel name and the step's CUDA
     kernel count (the weight packing's small ops included)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from tpu_superresolution_torch.utils.profiling import device_split
 
     try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            step(state, lr, hr, gen)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        kernels = _device_kernels(prof)
+        split = device_split(lambda: step(state, lr, hr, gen))
     except Exception as e:  # the profile is a reading aid, not a check
         log(f"[{tag}] profiler failed: {type(e).__name__}: {e}")
         return
+    kernels, wall = split.kernels, split.wall_ms
     if not kernels:
         log(f"[{tag}] profiler: no device events recorded")
         return
-    us = lambda e: getattr(e, "device_time", 0.0) or getattr(e, "cuda_time", 0.0)
-    busy = sum(us(e) for e in kernels) / 1e3
-    by_name = {}
-    for e in kernels:
-        n, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, t + us(e) / 1e3)
+    busy = split.busy_ms
+    by_name = split.by_name()
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     small = sum(n for n, t in by_name.values() if t / max(n, 1) < 0.01)
     log(f"[{tag}] profiled step: {wall:.2f} ms wall (profiler on), {len(kernels)} device "
@@ -5754,6 +5707,513 @@ def phase_swinir_data(workdir, smi):
     return launches
 
 
+# Tracing, recomputation, the comparison / .mat / export CLIs and the
+# A/B harness.  The remat leg trains SwinIR-M x4, HAT-SRx4 x4 and DAT x4
+# at the train phases' batch (8 of 64^2 LR crops); compare runs DAT x4
+# against SwinIR-M x4 on whole DeepRockSR-2D-sized test images (500^2
+# HR, 125^2 LR); export holds the loaded program to the eager kernel
+# path at the bench tile batch.
+REMAT_TIMED_STEPS = 4
+COMPARE_IMAGES, COMPARE_HR = 3, 500
+MAT_SLICES, MAT_HR = 8, 256
+ABLATE_ROWS, ABLATE_C, ABLATE_INNER, ABLATE_ROUNDS = 25 * 64 * 64, 180, 200, 7
+
+
+def _seeded_swinir_m(in_channels=3):
+    import torch
+
+    from tpu_superresolution_torch.core.config import SwinIRConfig, build_model
+
+    cfg = SwinIRConfig(scale=4, in_channels=in_channels, out_channels=in_channels)
+    src = build_model(cfg)
+    src.reset_parameters(torch.Generator().manual_seed(SEED))
+    return cfg, src
+
+
+def _save_port_checkpoint(path, cfg, model):
+    """`model`'s weights as a checkpoint of the port's train CLI
+    (``train/checkpoint.py``'s layout, with no optimizer state)."""
+    import torch
+
+    torch.save({"params": model.state_dict(), "ema": None, "optimizer": {}, "step": 0,
+                "config": cfg.to_dict(), "extra": {"epoch": 0, "ema_decay": 0.0}}, path)
+    return path
+
+
+def phase_trace(workdir, smi):
+    """A one-epoch SwinIR-M x4 fine-tune through the finetune CLI with
+    ``--trace``: the trace's spans ``epoch 1`` and ``val 1``, its counters
+    ``train_loss`` and ``val_psnr``, every span's dur >= 0, the launches
+    (steps x TRAIN_PER_STEP + one validation call).  Returns them."""
+    import torch
+
+    from tpu_superresolution_torch.cli.finetune import main as finetune_main
+    from tpu_superresolution_torch.kernels import read_counters, reset_counters
+
+    tag = "trace"
+    batch, patch = TRAIN_BATCH, TRAIN_LR_PATCH
+    n_train, n_valid = 2 * batch, 2
+    data = f"{workdir}/deeprock_trace"
+    _write_deeprock(data, n_train, n_valid, hr_size=320, scale=4, seed=SEED + 40)
+    _, src = _seeded_swinir_m()
+    weights = f"{workdir}/swinir_trace.pth"
+    torch.save({"params": src.state_dict()}, weights)
+    trace = f"{workdir}/timeline.json"
+    reset_counters()
+    t0 = time.perf_counter()
+    finetune_main(["--data_root", data, "--scale", "X4", "--weights", weights, "--epochs", "1",
+                   "--batch_size", str(batch), "--lr_patch", str(patch), "--workdir",
+                   f"{workdir}/trace_run", "--seed", str(SEED), "--device", "cuda",
+                   "--trace", trace])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counters()
+    expect = {k: n_train // batch * TRAIN_PER_STEP[k] + PER_CALL.get(k, 0)
+              for k in TRAIN_PER_STEP}
+    doc = json.loads(open(trace).read())
+    evs = doc["traceEvents"]
+    spans = {e["name"]: e for e in evs if e["ph"] == "X"}
+    counters = {k: e["args"][k] for e in evs if e["ph"] == "C" for k in e["args"]}
+    tracks = {e["tid"]: e["args"]["name"] for e in evs if e["ph"] == "M"}
+    log(f"[{tag}] finetune CLI --trace, SwinIR-M x4, batch {batch}, lr_patch {patch}, "
+        f"{n_train // batch} steps + validation in {secs:.1f} s: span 'epoch 1' "
+        f"{spans.get('epoch 1', {}).get('dur', float('nan')) / 1e3:.1f} ms on track "
+        f"{tracks.get(spans.get('epoch 1', {}).get('tid'))}, span 'val 1' "
+        f"{spans.get('val 1', {}).get('dur', float('nan')) / 1e3:.1f} ms, counters {counters}; "
+        f"{len(evs)} events, displayTimeUnit {doc.get('displayTimeUnit')}; launches {launches} "
+        f"({smi})")
+    if (set(spans) != {"epoch 1", "val 1"} or set(counters) != {"train_loss", "val_psnr"}
+            or any(e["dur"] < 0 for e in spans.values())
+            or tracks.get(spans["epoch 1"]["tid"]) != "train"
+            or tracks.get(spans["val 1"]["tid"]) != "val"
+            or not all(math.isfinite(v) for v in counters.values())):
+        raise RuntimeError(f"{tag}: spans {sorted(spans)}, counters {counters}, tracks {tracks}")
+    if launches != expect:
+        raise RuntimeError(f"{tag}: launches {launches}, expected {expect}")
+    return launches
+
+
+def _remat_run(cfg, src, lr, hr, remat):
+    """One train-mode forward / backward (L1, the stochastic-depth masks
+    from a generator of seed SEED) of `cfg` with ``use_remat`` = `remat`
+    from `src`'s weights, bf16 on the kernels: (loss, {name: grad},
+    {name: BatchNorm running statistic}, launches, peak bytes of the
+    step, (count, bytes) of the tensors the forward saved for the
+    backward outside a recomputed region, a tensor saved twice counted
+    twice)."""
+    import dataclasses
+
+    import torch
+
+    from tpu_superresolution_torch.core.config import build_model
+    from tpu_superresolution_torch.kernels import read_counters, reset_counters
+
+    model = build_model(dataclasses.replace(cfg, use_remat=remat), dtype=torch.bfloat16,
+                        device="cuda")
+    model.load_state_dict(src.state_dict())
+    model.train()
+    kept = [0, 0]
+
+    def pack(t):
+        kept[0] += 1
+        kept[1] += t.numel() * t.element_size()
+        return t
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counters()
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = model(lr, generator=torch.Generator().manual_seed(SEED)).float()
+        loss = (out - hr).abs().mean()
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated() - base
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    stats = {n: b.detach().clone() for n, b in model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))}
+    del model, out
+    return loss.detach(), grads, stats, launches, peak, tuple(kept)
+
+
+def _remat_steps(cfg, src, lr, hr, steps):
+    """Full train steps (``make_train_step``: forward, backward, clip,
+    AdamW) of `cfg` without and with ``use_remat``: each setting's
+    ``max_memory_allocated`` over a step after a warm-up step, one model
+    alive at a time (the peak reset between them), then the median ms of
+    `steps` steps of each, interleaved (without, with, without, ...) on
+    the two models held together, so that the host's drift falls on both.
+    Returns ((ms, peak bytes) without, (ms, peak bytes) with)."""
+    import dataclasses
+
+    import torch
+
+    from tpu_superresolution_torch.core.config import build_model
+    from tpu_superresolution_torch.train.engine import make_train_step
+
+    step = make_train_step("l1", "native_lr", 4, TRAIN_LR_PATCH, False)
+
+    def fresh(remat):
+        model = build_model(dataclasses.replace(cfg, use_remat=remat), dtype=torch.bfloat16,
+                            device="cuda")
+        model.load_state_dict(src.state_dict())
+        st, gen = _train_state(model, steps + 2), torch.Generator().manual_seed(SEED)
+        step(st, lr, hr, gen)
+        torch.cuda.synchronize()
+        return st, gen
+
+    peaks = []
+    for remat in (False, True):
+        st, gen = fresh(remat)
+        torch.cuda.reset_peak_memory_stats()
+        step(st, lr, hr, gen)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated())
+        del st
+    runs = [fresh(remat) for remat in (False, True)]
+    dts = ([], [])
+    for _ in range(steps):
+        for (st, gen), dt in zip(runs, dts):
+            t0 = time.perf_counter()
+            step(st, lr, hr, gen)
+            torch.cuda.synchronize()
+            dt.append(time.perf_counter() - t0)
+    del runs
+    return tuple((statistics.median(dt) * 1e3, peak) for dt, peak in zip(dts, peaks))
+
+
+def phase_remat(smi):
+    """``use_remat`` on the card: one train step (batch 8 of 64^2 LR
+    crops, drop path on) of SwinIR-M x4 (the block kernel: K1 / K5),
+    HAT-SRx4 x4 (the K7 route: K7 and K1t forward, K5w16 backward, K12
+    CABs) and DAT x4 (the module chain) from the same weights, batch and
+    generator, without recomputation, with it, and without it again (the
+    run-to-run floor).  The loss and every gradient with it must equal
+    those without it: bit for bit where two runs without it agree bit for
+    bit, else within 4x their difference (a backward whose sums run in a
+    nondeterministic order); DAT's BatchNorm running statistics
+    likewise.  SwinIR-M's and HAT-SRx4's blocks train on block kernels'
+    autograd functions, which keep only the blocks' inputs and recompute
+    the rest in their backward kernels, so ``use_remat`` leaves them
+    alone (``SwinBlock.trains_on_block_kernel``): every launch count and
+    the tensors saved for the backward (count and bytes) must be the same
+    with it.  DAT's module chain is recomputed (K16 and K11 twice
+    forward): fewer bytes must be saved, and its step peaks must be
+    lower.  Each setting's step peak memory and median step time over
+    REMAT_TIMED_STEPS, the two settings' steps interleaved
+    (``_remat_steps``), are printed.  Returns the launches of the
+    runs."""
+    import numpy as np
+    import torch
+
+    from tpu_superresolution_torch.core.config import DATConfig, build_model
+
+    tag = "remat"
+    batch, patch, scale = TRAIN_BATCH, TRAIN_LR_PATCH, 4
+    rng = np.random.default_rng(SEED + 41)
+    lr = torch.from_numpy(rng.random((batch, patch, patch, 3), dtype=np.float32)).cuda()
+    hr = torch.from_numpy(
+        rng.random((batch, patch * scale, patch * scale, 3), dtype=np.float32)).cuda()
+    legs = [("SwinIR-M x4", *_seeded_swinir_m())]
+    for name, cfg in (("HAT-SRx4 x4", hat_srx4_config()), ("DAT x4", DATConfig())):
+        src = build_model(cfg)
+        src.reset_parameters(torch.Generator().manual_seed(SEED))
+        legs.append((name, cfg, src))
+    total = {}
+    for name, cfg, src in legs:
+        chain = name.startswith("DAT")
+        a = _remat_run(cfg, src, lr, hr, False)
+        b = _remat_run(cfg, src, lr, hr, True)
+        a2 = _remat_run(cfg, src, lr, hr, False)
+        worst, floor_bad = 0.0, []
+        for field, (da, db, da2) in (("grad", (a[1], b[1], a2[1])),
+                                     ("stat", (a[2], b[2], a2[2]))):
+            for k in da:
+                d_ab = float((da[k].float() - db[k].float()).abs().max())
+                d_aa = float((da[k].float() - da2[k].float()).abs().max())
+                worst = max(worst, d_ab)
+                if d_ab > 4 * d_aa:
+                    floor_bad.append((field, k, d_ab, d_aa))
+        loss_same = bool(torch.equal(a[0], b[0]))
+        n_bitwise = sum(torch.equal(a[1][k], b[1][k]) for k in a[1])
+        n_floor = sum(torch.equal(a[1][k], a2[1][k]) for k in a[1])
+        log(f"[{tag}] {name} one train step, batch {batch}, LR {patch}^2: loss "
+            f"{float(a[0]):.6f} without recomputation, {float(b[0]):.6f} with "
+            f"({'bit-identical' if loss_same else 'differs'}); gradients bit-identical "
+            f"{n_bitwise} of {len(a[1])} (two runs without it: {n_floor} of {len(a[1])}), "
+            f"worst max |diff| {worst:.3e}; BatchNorm statistics bit-identical "
+            f"{sum(torch.equal(a[2][k], b[2][k]) for k in a[2])} of {len(a[2])}; launches "
+            f"without {{{', '.join(f'{k}: {v}' for k, v in a[3].items() if v)}}}, with "
+            f"{{{', '.join(f'{k}: {v}' for k, v in b[3].items() if v)}}}; saved for the "
+            f"backward {a[5][0]} tensors of {a[5][1] / 2**20:.1f} MiB without, {b[5][0]} of "
+            f"{b[5][1] / 2**20:.1f} MiB with; step peak {a[4] / 2**20:.1f} MiB without, "
+            f"{b[4] / 2**20:.1f} MiB with ({smi})")
+        if not loss_same or floor_bad:
+            raise RuntimeError(f"{tag} {name}: loss {float(a[0])} vs {float(b[0])}; past the "
+                               f"run-to-run floor: {floor_bad[:5]}")
+        if chain and not (b[3]["K16"] == 2 * a[3]["K16"] and b[3]["K11"] == 2 * a[3]["K11"]
+                          and b[5][1] < a[5][1]):
+            raise RuntimeError(f"{tag} {name}: the module chain was not recomputed: {b[3]}, "
+                               f"saved {b[5]} vs {a[5]}")
+        if not chain and (a[3] != b[3] or a[5] != b[5]):
+            raise RuntimeError(f"{tag} {name}: the run changed: launches {a[3]} vs {b[3]}, "
+                               f"saved {a[5]} vs {b[5]}")
+        (ms_a, peak_a), (ms_b, peak_b) = _remat_steps(cfg, src, lr, hr, REMAT_TIMED_STEPS)
+        log(f"[{tag}] {name} train steps (forward, backward, clip, AdamW), median of "
+            f"{REMAT_TIMED_STEPS} each, interleaved: {ms_a:.2f} ms without recomputation, "
+            f"{ms_b:.2f} ms with ({ms_b / ms_a:.3f}x); max_memory_allocated "
+            f"{peak_a / 2**20:.1f} MiB without, {peak_b / 2**20:.1f} MiB with "
+            f"({peak_b / peak_a:.3f}x) ({smi})")
+        if chain and not (peak_b < peak_a and b[4] < a[4]):
+            raise RuntimeError(f"{tag} {name}: the remat peak is not lower: steps {peak_b} vs "
+                               f"{peak_a}, one step {b[4]} vs {a[4]}")
+        for d in (a[3], b[3], a2[3]):
+            for k, v in d.items():
+                total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_compare(workdir, smi):
+    """``cli.compare.main`` on the card, DAT x4 (DATConfig()) against
+    SwinIR-M x4 from seeded weights saved as the port's checkpoints, on a
+    synthetic test split of COMPARE_IMAGES DeepRockSR-2D-sized images
+    (500^2 HR, 125^2 LR: whole-image forwards, SwinIR padding to 128 and
+    DAT to its split's multiple): the panel files and sizes, the PSNR /
+    SSIM, and each side's SR against its ``impl="plain"`` fp32 forward
+    (>= PSNR_MIN_DB).  Returns the launches."""
+    import torch
+
+    from tpu_superresolution_torch.cli.compare import main as compare_main
+    from tpu_superresolution_torch.core.config import DATConfig, build_model
+    from tpu_superresolution_torch.data.decode import decode_image
+    from tpu_superresolution_torch.data.index import PairedIndex
+    from tpu_superresolution_torch.kernels import read_counters, reset_counters
+
+    tag = "compare"
+    data = f"{workdir}/deeprock_compare"
+    _write_deeprock(data, 0, 0, hr_size=COMPARE_HR, scale=4, seed=SEED + 42,
+                    n_test=COMPARE_IMAGES)
+    cfg_s, src_s = _seeded_swinir_m()
+    cfg_d = DATConfig()
+    src_d = build_model(cfg_d)
+    src_d.reset_parameters(torch.Generator().manual_seed(SEED))
+    ck_s = _save_port_checkpoint(f"{workdir}/swinir_m_x4.pth", cfg_s, src_s)
+    ck_d = _save_port_checkpoint(f"{workdir}/dat_x4.pth", cfg_d, src_d)
+    out_dir = f"{workdir}/report"
+    reset_counters()
+    t0 = time.perf_counter()
+    stats = compare_main(["--data_root", data, "--scale", "X4", "--ckpt_a", ck_d, "--ckpt_b",
+                          ck_s, "--indices", ",".join(map(str, range(COMPARE_IMAGES))),
+                          "--out_dir", out_dir, "--device", "cuda"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counters()
+    from PIL import Image
+
+    pngs = sorted(os.listdir(out_dir))
+    sizes = set()
+    for n in pngs:
+        with Image.open(f"{out_dir}/{n}") as im:
+            sizes.add(im.size)
+    want_size = (5 * COMPARE_HR + 4 * 8, COMPARE_HR + 16)
+    log(f"[{tag}] compare CLI, DAT x4 vs SwinIR-M x4, {COMPARE_IMAGES} images of "
+        f"{COMPARE_HR}^2 HR / {COMPARE_HR // 4}^2 LR, whole image, in {secs:.1f} s (first "
+        f"calls included): panels {pngs} of {sorted(sizes)}; "
+        + "; ".join(f"{k}: PSNR {statistics.mean(v['psnr']):.4f} dB SSIM "
+                    f"{statistics.mean(v['ssim']):.6f}" for k, v in stats.items())
+        + f"; launches {launches} ({smi})")
+    idx = PairedIndex(data, "test", "X4")
+    want_pngs = sorted(f"dat_vs_swinir_x4_{os.path.splitext(os.path.basename(h))[0]}.png"
+                       for _, h in idx.pairs)
+    if pngs != want_pngs or sizes != {want_size} or sorted(stats) != ["dat", "swinir"]:
+        raise RuntimeError(f"{tag}: panels {pngs} (want {want_pngs}), sizes {sizes}, "
+                           f"labels {sorted(stats)}")
+    if not (launches["K1"] and launches["K9"] and launches["K14"] and launches["K10"]):
+        raise RuntimeError(f"{tag}: the kernels did not serve both models: {launches}")
+    for label, cfg, src in (("dat", cfg_d, src_d), ("swinir", cfg_s, src_s)):
+        plain = build_model(cfg, dtype=torch.float32, impl="plain", device="cuda")
+        plain.load_state_dict(src.state_dict())
+        psnrs = []
+        with torch.no_grad():
+            for i, (lr_path, _) in enumerate(idx.pairs[:COMPARE_IMAGES]):
+                lr = torch.from_numpy(decode_image(lr_path, grayscale=False, channels=3))[None]
+                ref = plain(lr.cuda()).float().cpu()[0]
+                psnrs.append(_psnr_db(torch.from_numpy(stats[label]["sr"][i]), ref))
+        del plain
+        log(f"[{tag}] {label}: each image's SR vs the plain fp32 forward: PSNR "
+            f"{', '.join(f'{p:.2f}' for p in psnrs)} dB (bound >= {PSNR_MIN_DB})")
+        if min(psnrs) < PSNR_MIN_DB:
+            raise RuntimeError(f"{tag} {label}: SR disagrees with the plain fp32 path")
+    return launches
+
+
+def phase_mat_eval(workdir, smi):
+    """``cli.mat_eval.main`` on the card on classic .mat volumes
+    (``scipy.io.savemat``; MAT_SLICES slices of MAT_HR^2, LR the 4x
+    subsample) with a single-channel SwinIR-M x4 (the volumes are
+    grayscale) saved as the port's checkpoint, ``--tile 64 --tile_overlap
+    8``: its [baseline] and [result] lines, and the result against
+    Evaluator.run of the plain fp32 model (within EVAL_PSNR_DB /
+    EVAL_SSIM).  Returns the launches."""
+    import numpy as np
+    import torch
+    from scipy.io import savemat
+
+    from tpu_superresolution_torch.cli.mat_eval import _batches
+    from tpu_superresolution_torch.cli.mat_eval import main as mat_eval_main
+    from tpu_superresolution_torch.core.config import EvalConfig, build_model
+    from tpu_superresolution_torch.data.mrccm import mat_volume_pairs
+    from tpu_superresolution_torch.evaluate.runner import Evaluator
+    from tpu_superresolution_torch.kernels import read_counters, reset_counters
+
+    tag = "mat-eval"
+    rng = np.random.default_rng(SEED + 43)
+    yy, xx = np.mgrid[0:MAT_HR, 0:MAT_HR] / MAT_HR
+    hr = np.stack([np.sin(7 * yy + k) * np.cos(4 * xx - k) + 0.1 * rng.standard_normal(yy.shape)
+                   for k in range(MAT_SLICES)]) * 800.0 + 1500.0
+    savemat(f"{workdir}/mat_hr.mat", {"vol": hr})
+    savemat(f"{workdir}/mat_lr.mat", {"vol": hr[:, ::4, ::4].copy()})
+    cfg, src = _seeded_swinir_m(in_channels=1)
+    ckpt = _save_port_checkpoint(f"{workdir}/swinir_m_x4_gray.pth", cfg, src)
+    argv = ["--hr_mat", f"{workdir}/mat_hr.mat", "--lr_mat", f"{workdir}/mat_lr.mat", "--ckpt",
+            ckpt, "--batch_size", "4", "--scale", "X4", "--tile", "64", "--tile_overlap", "8",
+            "--device", "cuda"]
+    buf = io.StringIO()
+    reset_counters()
+    with contextlib.redirect_stdout(buf):
+        res = mat_eval_main(argv)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith(("[baseline]",
+                                                                           "[result]"))]
+    lr, hrv = mat_volume_pairs(f"{workdir}/mat_lr.mat", f"{workdir}/mat_hr.mat")
+    plain = build_model(cfg, dtype=torch.float32, impl="plain", device="cuda")
+    plain.load_state_dict(src.state_dict())
+    ref = Evaluator(plain, 4, "native_lr", EvalConfig(batch_size=4, tile_size=64,
+                                                      tile_overlap=8), log=lambda m: None,
+                    device="cuda").run(_batches(lr, hrv, 4))
+    del plain
+    d_psnr, d_ssim = abs(res["psnr"] - ref["psnr"]), abs(res["ssim"] - ref["ssim"])
+    log(f"[{tag}] mat_eval CLI, SwinIR-M x4 (1 channel), {MAT_SLICES} slices {MAT_HR}^2, tile "
+        f"64/8: {' | '.join(lines)}; mpix_per_s {res['mpix_per_s']:.3f}; vs the plain fp32 "
+        f"path: PSNR {d_psnr:.4f} dB (bound {EVAL_PSNR_DB}), SSIM {d_ssim:.2e} (bound "
+        f"{EVAL_SSIM}); launches {launches} ({smi})")
+    if (len(lines) != 2 or res["n"] != MAT_SLICES or d_psnr > EVAL_PSNR_DB
+            or d_ssim > EVAL_SSIM or not launches["K1"]):
+        raise RuntimeError(f"{tag}: lines {lines}, result {res}, plain {ref}, launches "
+                           f"{launches}")
+    return launches
+
+
+def phase_export(smi):
+    """``interop.export`` on the card: SwinIR-M x4 (serving semantics,
+    bf16) exported at the bench tile batch [25, 64, 64, 3] with K1-K4 as
+    the tpu_sr:: custom ops; ``export_parity`` (the loaded program
+    against the eager kernel path: 0 max abs), then the loaded program
+    on a seeded input: bit-identical to the eager kernel path, its
+    launches exactly PER_CALL, within PSNR_MIN_DB of the plain fp32
+    path; a DAT x4 on CUDA must be refused with its kernels named.
+    Returns the loaded program's launches."""
+    import dataclasses
+
+    import torch
+
+    from tpu_superresolution_torch.core.config import DATConfig, build_model
+    from tpu_superresolution_torch.interop.export import export_model, export_parity, load_exported
+    from tpu_superresolution_torch.kernels import read_counters, reset_counters
+
+    tag = "export"
+    cfg, src = _seeded_swinir_m()
+    cfg = dataclasses.replace(cfg, fused_reconstruct=True)
+    model = build_model(cfg, dtype=torch.bfloat16, device="cuda")
+    model.load_state_dict(src.state_dict())
+    shape = (25, 64, 64, 3)
+    t0 = time.perf_counter()
+    max_abs, mean_abs = export_parity(model, shape, torch.bfloat16, seed=SEED)
+    t_parity = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blob = export_model(model, shape, dtype=torch.bfloat16)
+    t_export = time.perf_counter() - t0
+    fn = load_exported(blob)
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(SEED + 44)).to("cuda",
+                                                                               torch.bfloat16)
+    with torch.no_grad():
+        eager = model(x)
+        fn(x)  # warm
+        torch.cuda.synchronize()
+        reset_counters()
+        got = fn(x)
+        torch.cuda.synchronize()
+        launches = read_counters()
+    plain = build_model(cfg, dtype=torch.float32, impl="plain", device="cuda")
+    plain.load_state_dict(src.state_dict())
+    with torch.no_grad():
+        ref = plain(x.float())
+    del plain
+    psnr = _psnr_db(got, ref)
+    same = bool(torch.equal(got, eager))
+    prog_ms = cuda_ms(lambda: fn(x))
+    eager_ms = cuda_ms(lambda: model(x))
+    expect = {k: PER_CALL.get(k, 0) for k in launches}
+    log(f"[{tag}] SwinIR-M x4 {list(shape)} bf16: export_parity max |diff| {max_abs:.3e}, mean "
+        f"{mean_abs:.3e} ({t_parity:.1f} s); export {len(blob) / 2**20:.1f} MiB in "
+        f"{t_export:.1f} s; the loaded program vs the eager kernel path "
+        f"{'bit-identical' if same else 'differs'}, vs plain fp32 PSNR {psnr:.2f} dB (bound >= "
+        f"{PSNR_MIN_DB}); its launches {launches}; a call {prog_ms:.3f} ms, eager "
+        f"{eager_ms:.3f} ms ({smi})")
+    if max_abs != 0.0 or not same or launches != expect or psnr < PSNR_MIN_DB:
+        raise RuntimeError(f"{tag}: parity {max_abs}, same {same}, launches {launches} "
+                           f"(expected {expect}), PSNR {psnr}")
+    dat = build_model(DATConfig(), dtype=torch.bfloat16, device="cuda")
+    try:
+        export_model(dat, (1, 64, 64, 3), dtype=torch.bfloat16)
+    except NotImplementedError as e:
+        msg = str(e)
+    else:
+        raise RuntimeError(f"{tag}: a DAT x4 exported on CUDA")
+    log(f"[{tag}] DAT x4 on CUDA refused: {msg}")
+    if not all(k in msg for k in ("K9", "K10", "K14", "ROADMAP")):
+        raise RuntimeError(f"{tag}: the refusal does not name the kernels: {msg}")
+    del dat, model
+    return launches
+
+
+def phase_ablate(smi):
+    """``utils.ablate`` on the card: K2 against F.layer_norm at
+    [ABLATE_ROWS, ABLATE_C] bf16 (PERF.md's K2 row), interleaved,
+    ABLATE_INNER calls a round (several ms: past the host's dispatch
+    spread), ABLATE_ROUNDS rounds: min, median and spread of each, the
+    outputs held to each other first."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_superresolution_torch.kernels.layernorm import layernorm
+    from tpu_superresolution_torch.utils.ablate import ablate, report
+
+    tag = "ablate"
+    gen = torch.Generator().manual_seed(SEED + 45)
+    bf = torch.bfloat16
+    x = torch.randn(ABLATE_ROWS, ABLATE_C, generator=gen).to("cuda", bf)
+    g = (1 + 0.1 * torch.randn(ABLATE_C, generator=gen)).cuda()
+    b = (0.1 * torch.randn(ABLATE_C, generator=gen)).cuda()
+    k2 = lambda: layernorm(x, g, b)
+    lib = lambda: F.layer_norm(x, (ABLATE_C,), g.to(bf), b.to(bf), 1e-5)
+    err = float((k2().float() - lib().float()).abs().max())
+    res = ablate({"K2 layernorm": k2, "F.layer_norm": lib}, inner=ABLATE_INNER,
+                 rounds=ABLATE_ROUNDS)
+    for line in report(res).splitlines():
+        log(f"[{tag}] {line}  ({smi})")
+    r = res["K2 layernorm"]
+    log(f"[{tag}] K2 [{ABLATE_ROWS}, {ABLATE_C}] bf16, {ABLATE_INNER} calls a round x "
+        f"{ABLATE_ROUNDS} rounds (CUDA events): min {r.min_s * 1e3:.4f} ms, median "
+        f"{r.median_s * 1e3:.4f} ms, spread {r.spread:.1%}; F.layer_norm min "
+        f"{res['F.layer_norm'].min_s * 1e3:.4f} ms; round {r.min_s * ABLATE_INNER * 1e3:.2f} ms; "
+        f"|K2 - F.layer_norm| {err:.3e} ({smi})")
+    if not (math.isfinite(r.min_s) and r.min_s > 0 and err < 0.1):
+        raise RuntimeError(f"{tag}: {res}, err {err}")
+
+
 def main() -> int:
     import torch
 
@@ -5799,6 +6259,12 @@ def main() -> int:
         msres_ckpt, unet_ckpt = timed("cnn-train", phase_cnn_train, workdir, mrccm, smi)
         timed("cnn-evaluate", phase_cnn_evaluate, workdir, msres_ckpt, unet_ckpt, mrccm, smi)
         swinir_data_launches = timed("swinir-data", phase_swinir_data, workdir, smi)
+        trace_launches = timed("trace", phase_trace, workdir, smi)
+        remat_launches = timed("remat", phase_remat, smi)
+        compare_launches = timed("compare", phase_compare, workdir, smi)
+        mat_launches = timed("mat-eval", phase_mat_eval, workdir, smi)
+        export_launches = timed("export", phase_export, smi)
+        timed("ablate", phase_ablate, smi)
 
     kernels = []
     for key, meta in KERNELS.items():
@@ -5811,7 +6277,9 @@ def main() -> int:
                                                  wide_launches, hat_launches, dat_launches,
                                                  train_launches,
                                                  srx4_launches, dat_x4_launches,
-                                                 swinir_data_launches]
+                                                 swinir_data_launches, trace_launches,
+                                                 remat_launches, compare_launches,
+                                                 mat_launches, export_launches]
                          + hat_train_launches + dat_train_launches + srx4_train_launches
                          + swinir_l_train_launches),
             max_abs_err=max(r["err"] for r in kres[key]),

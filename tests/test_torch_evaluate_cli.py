@@ -138,7 +138,7 @@ def test_finetune_checkpoint_auto_ema_and_no_ema(data, finetuned, capsys):
     ("ema_missing", "no EMA in"),
     ("dp", "Queue 1 item 5"),
     ("cnn", "no reference checkpoint format"),
-    ("orbax", "item 1c.*tpu_superresolution_tpu.cli.export_torch"),
+    ("orbax", "does not read.*tpu_superresolution_tpu.cli.export_torch"),
 ])
 def test_refusals(data, ref_pth, tmp_path, case, match):
     from tpu_superresolution_torch.cli.evaluate import main

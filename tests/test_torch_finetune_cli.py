@@ -124,7 +124,5 @@ def test_finetune_refuses_what_is_not_ported(finetuned, tmp_path):
             "--device", "cpu"] + TINY
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         main(base + ["--dp", "2"])
-    with pytest.raises(SystemExit, match="Orbax"):
+    with pytest.raises(SystemExit, match="Orbax.*tpu_superresolution_tpu.cli.export_torch"):
         main(base + ["--weights", str(tmp_path / "orbax_dir")])
-    with pytest.raises(SystemExit, match="trace"):
-        main(base + ["--trace", str(tmp_path / "t.json")])

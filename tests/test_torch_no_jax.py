@@ -22,7 +22,10 @@ assert not bad, bad
 for name in ("cli.train", "kernels.fused_ocab", "models.hat", "train.engine", "models.dat",
              "kernels.fused_rect_attn", "kernels.fused_channel_attn", "kernels.fused_datb_tail",
              "kernels.fused_attention", "kernels.cab_conv", "kernels.dwconv",
-             "kernels.window_attention", "ops.resize", "evaluate.baseline", "cli.evaluate"):
+             "kernels.window_attention", "ops.resize", "evaluate.baseline", "cli.evaluate",
+             "utils.trace", "utils.logging", "utils.flops", "utils.ablate", "utils.profiling",
+             "cli.compare", "cli.mat_eval", "cli.export_torch", "interop.export",
+             "kernels.custom_ops"):
     assert "tpu_superresolution_torch." + name in names, name
 """
 

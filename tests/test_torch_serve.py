@@ -174,7 +174,7 @@ def test_other_models_and_formats_are_refused(ckpt, tmp_path):
         load_for_inference(ckpt, "hat", "X2", None, torch.device("cpu"))
     with pytest.raises(ValueError, match="not a DAT checkpoint"):  # DAT is ported
         load_for_inference(ckpt, "dat", "X2", None, torch.device("cpu"))
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
+    with pytest.raises(SystemExit, match="tpu_superresolution_tpu.cli.export_torch"):
         load_for_inference(str(tmp_path / "orbax_dir"), "swinir", "X2", None,
                            torch.device("cpu"))
 

@@ -107,8 +107,7 @@ def test_train_cli_refuses_the_cnn_families(trained, tmp_path, model):
               "--device", "cpu"] + TINY + ["--model", model])
 
 
-@pytest.mark.parametrize("flags,match", [(["--trace", "t.json"], "item 1c"),
-                                         (["--dp", "2"], "multi-GPU")])
+@pytest.mark.parametrize("flags,match", [(["--dp", "2"], "multi-GPU")])
 def test_train_cli_refuses_flags_not_ported(trained, tmp_path, flags, match):
     from tpu_superresolution_torch.cli.train import main
 

@@ -95,8 +95,8 @@ def main(argv=None):
                          "(ROADMAP.md Queue 1 item 5)")
     if Path(args.ckpt).is_dir():
         raise SystemExit(
-            f"{args.ckpt}: an Orbax checkpoint directory, which the port does not read "
-            "(ROADMAP.md Queue 1 item 1c); write it as a reference .pt with "
+            f"{args.ckpt}: an Orbax checkpoint directory, which the port does not read; "
+            "write it as a reference .pt with "
             "`python -m tpu_superresolution_tpu.cli.export_torch` and evaluate that")
 
     from tpu_superresolution_torch.data.index import PairedIndex

@@ -21,8 +21,10 @@ scaling, fp32 loss and metrics.  The JAX CLI builds its model in fp32,
 but on the TPU its matmuls run at bf16 MXU precision anyway.  With
 ``--device cpu`` everything is fp32 through the kernels' plain versions.
 
-Not ported yet: Orbax checkpoints, ``--trace`` and ``--dp`` > 1 (the
-multi-GPU slice).
+``--trace PATH`` writes a chrome-trace timeline of the epochs
+(``utils/trace.py``).  Orbax checkpoints are read after
+``python -m tpu_superresolution_tpu.cli.export_torch`` writes them as a
+reference ``.pt``.  Not ported yet: ``--dp`` > 1 (the multi-GPU slice).
 """
 
 from __future__ import annotations
@@ -72,7 +74,7 @@ def build_argparser():
     ap.add_argument("--grad_clip", type=float, default=1.0)
     ap.add_argument("--workdir", type=str, default=".")
     ap.add_argument("--trace", type=str, default=None,
-                    help="chrome-trace timeline (not ported yet: refused)")
+                    help="write a chrome-trace (Perfetto) timeline of the epochs here")
     ap.add_argument("--dp", type=int, default=0,
                     help="data-parallel shards (0 = one device; more waits for the "
                          "multi-GPU slice)")
@@ -129,8 +131,6 @@ def model_config_from_args(args, scale_int: int, log=print) -> SwinIRConfig:
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    if args.trace:
-        raise SystemExit("--trace: the chrome-trace timeline is not ported yet")
     generator = seed_everything(args.seed)
     device = resolve_device(args.device)
     report_device(device)
@@ -150,8 +150,9 @@ def main(argv=None):
     model = build_model(mcfg, dtype=dtype)
     if args.weights:
         if not args.weights.endswith((".pth", ".pt")):
-            raise SystemExit(f"{args.weights}: the port loads .pth/.pt weights; Orbax "
-                             "checkpoints are still to port (ROADMAP.md)")
+            raise SystemExit(f"{args.weights}: the port loads .pth/.pt weights; write an Orbax "
+                             "checkpoint as a reference .pt with `python -m "
+                             "tpu_superresolution_tpu.cli.export_torch --ckpt DIR --out m.pt`")
         from tpu_superresolution_torch.interop import load_torch_checkpoint, strip_reference_buffers
 
         sd = strip_reference_buffers(load_torch_checkpoint(args.weights))
@@ -178,7 +179,7 @@ def main(argv=None):
               f"trainable={sum(p.requires_grad for p in params)}/{len(params)}")
 
     t_all = time.time()
-    trainer = Trainer(mcfg, dcfg, tcfg, workdir=args.workdir)
+    trainer = Trainer(mcfg, dcfg, tcfg, workdir=args.workdir, trace_path=args.trace)
     trainer.fit(state, train_loader, valid_loader, generator)
     print(f"[time] total: {time.time() - t_all:.1f}s")
     print(f"[done] best_val_loss={trainer.best_val_loss:.6f}, "

@@ -38,8 +38,9 @@ kernels for the transformers, cuDNN for the CNNs; BatchNorm in fp32), no
 loss scaling, fp32 loss and metrics; with ``--device cpu`` everything is
 fp32 (the kernels' plain versions).
 
-Refused: ``--trace`` (ROADMAP.md Queue 1 item 1c) and ``--dp`` > 1 (the
-multi-GPU slice, item 5).
+``--trace PATH`` writes a chrome-trace timeline of the epochs (train and
+val spans, loss and PSNR counters; ``utils/trace.py``).  Refused:
+``--dp`` > 1 (the multi-GPU slice, ROADMAP.md Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -118,8 +119,7 @@ def build_argparser():
     ap.add_argument("--ft_lr", type=float, default=None)
     ap.add_argument("--workdir", type=str, default=".")
     ap.add_argument("--trace", type=str, default=None,
-                    help="the chrome-trace timeline: not ported yet (ROADMAP.md Queue 1 item "
-                         "1c), refused")
+                    help="write a chrome-trace (Perfetto) timeline of the epochs here")
     ap.add_argument("--dp", type=int, default=0,
                     help="data-parallel shards (0 = one device; more waits for the "
                          "multi-GPU slice)")
@@ -184,9 +184,6 @@ def model_config_from_args(args):
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    if args.trace:
-        raise SystemExit("--trace (the chrome-trace timeline) is not ported yet (ROADMAP.md "
-                         "Queue 1 item 1c)")
     if args.dp not in (0, 1):
         raise SystemExit(f"--dp {args.dp}: data parallelism waits for the multi-GPU slice "
                          "(ROADMAP.md Queue 1 item 5)")
@@ -254,7 +251,7 @@ def main(argv=None):
         load_checkpoint(args.resume, state)
         print(f"[ckpt] restored optimizer state (step {state.step})")
 
-    trainer = Trainer(mcfg, dcfg, tcfg, workdir=args.workdir)
+    trainer = Trainer(mcfg, dcfg, tcfg, workdir=args.workdir, trace_path=args.trace)
     trainer.fit(state, train_loader, valid_loader, generator)
     print(f"[ALL][time] total train time={time.time() - t_all:.1f}s")
     return trainer, state

@@ -111,8 +111,9 @@ def load_any_checkpoint(ckpt: str, model_name: str, scale_int: int, exact=None,
 
     if not ckpt.endswith((".pt", ".pth")):
         raise SystemExit(
-            f"{ckpt}: the PyTorch port loads .pt/.pth checkpoints only; Orbax checkpoints "
-            "are still to port (ROADMAP.md Queue 1 item 1c)"
+            f"{ckpt}: the PyTorch port loads .pt/.pth checkpoints only; write an Orbax "
+            "checkpoint as a reference .pt with `python -m "
+            "tpu_superresolution_tpu.cli.export_torch --ckpt DIR --out m.pt` and load that"
         )
     device = resolve_device(device)
     saved = read_checkpoint(ckpt)

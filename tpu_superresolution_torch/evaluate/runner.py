@@ -8,12 +8,13 @@ from HR (:181-184), PSNR and SSIM in fp32, per-sample PNG dumps by the
 first-N / every-Nth-from-start / explicit-index rules (:63-70, 199-225)
 as ``idx_{i:06d}_{lr,hr,sr}.png``, the wall time and MPix/s.  Also the
 tiled whole-image forward and the x8 geometric self-ensemble
-(``EvalConfig.self_ensemble``).  The JAX package's MFU line is left out
-(it reports one only on a TPU).
+(``EvalConfig.self_ensemble``).  On a GPU, the MFU of the steady window
+against the card's dense bf16 peak (``utils/flops.py``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -133,7 +134,12 @@ class Evaluator:
         over its own time (0 when every batch was a first at its shape;
         the JAX package's counts every batch's pixels over the wall time
         less ``compile_s``).  The metrics stay on the device and are read
-        back once a batch."""
+        back once a batch.  On a GPU also ``flops``, the steady window's
+        FLOPs (``utils.flops.torch_flops`` of the whole forward pipeline,
+        once a batch shape, after the loop), and ``mfu``, those FLOPs over
+        the steady window's time against ``PEAK_BF16_FLOPS``: a lower
+        bound on the model's own utilisation, since the window holds the
+        metrics, the host copies and the PNG dumps too."""
         ecfg = self.eval_config
         device = resolve_device(self.device)
         sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
@@ -146,6 +152,7 @@ class Evaluator:
         t0 = time.perf_counter()
         compile_t = first_t = 0.0  # the first calls; the first batches' iterations
         shapes = set()
+        steady_shapes: Dict[tuple, int] = {}
         idx = 0
         for lr_np, hr_np in loader:
             ti = time.perf_counter()
@@ -207,6 +214,7 @@ class Evaluator:
                 first_t += time.perf_counter() - ti
             else:
                 steady_pixels += int(np.prod(out.shape[:3]))
+                steady_shapes[lr_np.shape] = steady_shapes.get(lr_np.shape, 0) + 1
 
         wall = time.perf_counter() - t0
         steady = max(wall - first_t, 1e-9)
@@ -218,9 +226,30 @@ class Evaluator:
             "compile_s": compile_t,
             "mpix_per_s": steady_pixels / 1e6 / steady,
         }
+        if device.type == "cuda" and steady_shapes:
+            self._add_mfu(results, steady_shapes, steady)
         self.log(
             f"[done] n={results['n']} PSNR {results['psnr']:.2f} dB | "
             f"SSIM {results['ssim']:.4f} | {wall:.1f}s "
-            f"({results['mpix_per_s']:.1f} MPix/s steady)"
+            f"({results['mpix_per_s']:.1f} MPix/s steady"
+            + (f", MFU {results['mfu']:.2%}" if "mfu" in results else "") + ")"
         )
         return results
+
+    def _add_mfu(self, results: Dict[str, float], steady_shapes: Dict[tuple, int],
+                 steady: float) -> None:
+        """``flops`` and ``mfu`` into `results`; where the count fails, one
+        line that says why, and neither key."""
+        from tpu_superresolution_torch.utils.flops import mfu, torch_flops
+
+        def pipeline(model, x):
+            return dataclasses.replace(self, model=model).forward_fn()(x)
+
+        try:
+            flops = sum(torch_flops(self.model, shape, pipeline) * count
+                        for shape, count in steady_shapes.items())
+        except Exception as e:
+            self.log(f"[mfu] not reported: the FLOP count failed ({type(e).__name__}: {e})")
+            return
+        results["flops"] = flops
+        results["mfu"] = mfu(flops, steady)

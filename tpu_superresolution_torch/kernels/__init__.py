@@ -89,6 +89,11 @@ wrapper call.  Otherwise, and in training, the block runs the module
 chain: K2 for its LayerNorms, K11 for its depthwise convs and K16 for its
 rect-window attention; K11's and K16's backwards are torch autograd of
 their plain versions.
+
+For ``torch.export``, K1-K4 (the main path's kernels) are also
+``torch.library`` custom ops (``custom_ops.py``, registered when this
+package is imported), which their wrappers call only while an export
+traces.
 """
 
 from __future__ import annotations
@@ -97,6 +102,7 @@ from typing import Dict
 
 from tpu_superresolution_torch.kernels import (
     cab_conv,
+    custom_ops,  # noqa: F401  (registers the tpu_sr:: ops)
     dwconv,
     fused_attention,
     fused_block,

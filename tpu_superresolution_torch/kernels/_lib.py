@@ -230,6 +230,12 @@ def check_tensor(
         raise ValueError(f"{name}: data pointer not {align}-byte aligned")
 
 
+def exporting() -> bool:
+    """Whether ``torch.export`` is tracing: the wrappers of the kernels
+    with a custom op (``custom_ops``) then call it instead of launching."""
+    return torch.compiler.is_exporting()
+
+
 def require_cuda(x: torch.Tensor, name: str) -> None:
     """Kernel wrappers take CPU tensors (plain version) or CUDA tensors
     (the kernel); anything else is an error."""
@@ -248,3 +254,4 @@ def plain_vjp(fn, inputs, needs, grad_out):
         wanted = [t for t, n in zip(leaves, needs) if n]
         grads = iter(torch.autograd.grad(fn(*leaves), wanted, grad_out) if wanted else ())
     return tuple(next(grads) if n else None for n in needs)
+

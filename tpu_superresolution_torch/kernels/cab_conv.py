@@ -385,6 +385,8 @@ def conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
         return conv_plain(x, kernel, bias, ((1, 1), (1, 1)), gelu)
     if tuple(kernel.shape[:2]) != (3, 3):
         raise ValueError(f"conv3x3: kernel {tuple(kernel.shape)} is not 3x3")
+    if _lib.exporting():
+        return torch.ops.tpu_sr.conv3x3_halo(x, kernel, bias, packed and packed.wp, gelu)
     return _conv(x, kernel, bias, ((1, 1), (1, 1)), "conv3x3", packed, gelu)
 
 
@@ -395,6 +397,10 @@ def conv_k(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     -> plain version; CUDA tensor -> the kernel; `packed` as conv3x3's."""
     if x.device.type == "cpu":
         return conv_plain(x, kernel, bias, pad)
+    if _lib.exporting():
+        (pt, pb), (pl, pr) = pad
+        return torch.ops.tpu_sr.conv_halo(x, kernel, bias, packed and packed.wp,
+                                          [pt, pb, pl, pr])
     return _conv(x, kernel, bias, pad, "conv_k", packed)
 
 

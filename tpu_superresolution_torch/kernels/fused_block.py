@@ -1564,6 +1564,8 @@ def fused_windows_block(x: torch.Tensor, w: SwinBlockWeights, ws: int, shift: in
     codes."""
     if x.device.type == "cpu":
         return swin_block_plain(x, w, ws, shift, mask, gelu_approx, branch_scales, extra)
+    if _lib.exporting():
+        return _export_block(x, w, ws, shift, mask, gelu_approx, extra, packed, branch_scales)
     _check_block_input(x, w, ws, shift, "fused_windows_block")
     if branch_scales is not None:
         branch_scales = branch_scales.float().contiguous()
@@ -1579,6 +1581,21 @@ def fused_windows_block(x: torch.Tensor, w: SwinBlockWeights, ws: int, shift: in
     if packed is None:
         packed = pack_block_tiles(w)
     return _launch_block(x, packed, shift, mask, gelu_approx, branch_scales, extra)
+
+
+def _export_block(x, w: SwinBlockWeights, ws, shift, mask, gelu_approx, extra, packed,
+                  branch_scales) -> torch.Tensor:
+    """K1 as the ``tpu_sr::swin_block`` custom op, while ``torch.export``
+    traces an inference forward (``kernels/custom_ops.py``)."""
+    from tpu_superresolution_torch.kernels import custom_ops
+
+    if ws != 8 or extra is not None or branch_scales is not None:
+        raise NotImplementedError(
+            f"fused_windows_block: only K1's inference call (ws 8, no extra, no branch scales) "
+            f"has a custom op for torch.export; ws {ws} is "
+            f"{'K6' if ws == 7 else 'K1'}{' with extra' if extra is not None else ''}")
+    packed = packed if packed is not None else pack_block_tiles(w)
+    return custom_ops.swin_block(x, packed, shift, mask is not None and shift > 0, gelu_approx)
 
 
 class WindowBlockFunction(torch.autograd.Function):

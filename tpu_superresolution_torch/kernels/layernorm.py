@@ -103,6 +103,8 @@ def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     ``LayerNormFunction`` when a gradient is wanted."""
     if x.device.type == "cpu":
         return layernorm_plain(x, weight, bias, eps)
+    if _lib.exporting():
+        return torch.ops.tpu_sr.layernorm(x, weight, bias, eps)
     _lib.require_cuda(x, "layernorm")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, weight, bias)):
         return LayerNormFunction.apply(x, weight, bias, eps)

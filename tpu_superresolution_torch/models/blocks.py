@@ -11,7 +11,9 @@ CPU), True calls the plain version on any device.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
@@ -42,7 +44,13 @@ class DerivedCache:
     parameter's storage pointer and version counter (``load_state_dict``,
     ``.to()`` and an optimizer step change one of them).  When a gradient
     is wanted it is rebuilt on every call, inside the graph, by
-    `build_grad` (default `build`), and never cached."""
+    `build_grad` (default `build`), and never cached.  On the meta device
+    (``utils.flops.torch_flops``) `build_grad` builds it, cached as
+    outside autograd.  While ``torch.export`` traces (its parameters are
+    fake tensors, with no data or storage), the bundle an eager call built
+    for the same `tag` is returned as it is and becomes a constant of the
+    exported program; without one, `build_grad` traces the derivation
+    into the program."""
 
     def __init__(self):
         self._key = None
@@ -50,13 +58,65 @@ class DerivedCache:
 
     def get(self, params: Sequence[torch.Tensor], tag, build: Callable,
             build_grad: Optional[Callable] = None):
+        if torch.compiler.is_exporting():
+            if self._key is not None and self._key[0] == tag:
+                return self._value
+            return (build_grad or build)()
         if torch.is_grad_enabled() and any(p.requires_grad for p in params):
             return (build_grad or build)()
         key = (tag,) + tuple((p.data_ptr(), p._version) for p in params)
         if key != self._key:
-            self._value = build()
+            meta = any(p.is_meta for p in params)
+            self._value = (build_grad or build)() if meta else build()
             self._key = key
         return self._value
+
+
+class _Recompute(threading.local):
+    depth = 0
+
+
+_RECOMPUTE = _Recompute()
+
+
+def recomputing() -> bool:
+    """Whether this thread runs a block again inside the backward pass
+    (``remat_block``'s recomputation)."""
+    return _RECOMPUTE.depth > 0
+
+
+@contextlib.contextmanager
+def recompute_scope():
+    """The scope in which ``recomputing()`` holds."""
+    _RECOMPUTE.depth += 1
+    try:
+        yield
+    finally:
+        _RECOMPUTE.depth -= 1
+
+
+def remat_block(block: nn.Module, *args) -> torch.Tensor:
+    """``block(*args)`` with its activations recomputed in the backward
+    pass instead of kept (the JAX models' ``nn.remat`` of a block class,
+    ``use_remat``): ``torch.utils.checkpoint`` non-reentrant.  The
+    recomputation runs in ``recomputing()``'s scope, where ``BatchNorm``
+    leaves its running statistics alone, as flax's remat discards the
+    recomputation's state updates (one momentum step a training step,
+    and no second bump of the buffers' version counters, which the
+    kernels' folded weights key on).
+
+    The models do not wrap a block that trains through a block kernel's
+    autograd function (``SwinBlock.trains_on_block_kernel``): that
+    function keeps only the block's inputs and its backward kernel
+    recomputes the rest, so the block already is its own recomputation.
+
+    Nothing random is drawn inside a block: the stochastic-depth scales
+    come in as a tensor drawn before, so the default generators' state
+    need not be kept (``preserve_rng_state=False``)."""
+    from torch.utils.checkpoint import checkpoint
+
+    return checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(), recompute_scope()))
 
 
 def drop_path_scales(rates: Sequence[float], batch: int,
@@ -191,10 +251,11 @@ class BatchNorm(nn.BatchNorm2d):
             axes = tuple(range(xf.dim() - 1))
             mean = xf.mean(axes)
             var = (xf.square().mean(axes) - mean.square()).clamp_min(0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
-                self.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
+            if not recomputing():  # one update a step under remat_block
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+                    self.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
         else:
             mean, var = self.running_mean.float(), self.running_var.float()
         scale = torch.rsqrt(var + self.eps) * self.weight.float()

@@ -102,6 +102,7 @@ from tpu_superresolution_torch.models.blocks import (
     ThreeConv,
     conv_nhwc,
     reference_init,
+    remat_block,
     upsample_and_last,
 )
 from tpu_superresolution_torch.ops.window import (
@@ -457,7 +458,11 @@ class DATB(nn.Module):
 
 class ResidualGroup(nn.Module):
     """depth x DATB -> conv -> + input (dat_arch.py:568-652): keys
-    ``blocks.j`` and ``conv``."""
+    ``blocks.j`` and ``conv``.  With ``use_remat``, each block's
+    activations are recomputed in the backward pass in training
+    (``blocks.remat_block``; the JAX model's ``nn.remat(DATB)``), its
+    BatchNorms updating their running statistics once a step; the conv
+    stays outside."""
 
     def __init__(self, cfg: DATConfig, rg_idx: int):
         super().__init__()
@@ -466,12 +471,15 @@ class ResidualGroup(nn.Module):
             DATB(c, cfg.num_heads[rg_idx], cfg.split_size, cfg.expansion_factor, cfg.qkv_bias,
                  rg_idx, j) for j in range(cfg.depths[rg_idx]))
         self.conv = Conv3x3(c, c) if cfg.resi_connection == "1conv" else ThreeConv(c)
+        self.use_remat = cfg.use_remat
 
     def forward(self, x: torch.Tensor, plain: bool = False,
                 branch_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
         res = x
+        remat = self.use_remat and self.training and torch.is_grad_enabled()
         for j, blk in enumerate(self.blocks):
-            x = blk(x, plain, None if branch_scales is None else branch_scales[j])
+            scales = None if branch_scales is None else branch_scales[j]
+            x = remat_block(blk, x, plain, scales) if remat else blk(x, plain, scales)
         return self.conv(x, plain) + res
 
 

@@ -90,6 +90,7 @@ from tpu_superresolution_torch.models.blocks import (
     conv_nhwc,
     hwio,
     reference_init,
+    remat_block,
     upsample_and_last,
 )
 from tpu_superresolution_torch.models.swinir import PatchEmbed, SwinBlock
@@ -185,6 +186,15 @@ class HAB(SwinBlock):
                          gelu_approximate)
         self.conv_block = CAB(dim, compress_ratio, squeeze_factor)
         self.conv_scale = conv_scale
+
+    def trains_on_block_kernel(self, h: int, w: int) -> bool:
+        """``SwinBlock.trains_on_block_kernel``, and the CAB on K12, whose
+        autograd function (``CabConvsFunction``) keeps only its input: the
+        HAB then keeps its input, the CAB's output (the SE gate's input)
+        and the CAB term (the block function's `extra`)."""
+        conv1 = self.conv_block.cab[0]
+        return (cab_route(conv1.in_channels, conv1.out_channels) == "K12"
+                and super().trains_on_block_kernel(h, w))
 
     def forward(self, x: torch.Tensor, plain: bool = False,
                 branch_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -318,7 +328,12 @@ class AttenBlocks(nn.Module):
 
 class RHAG(nn.Module):
     """Residual hybrid attention group (hat_arch.py:538-620): depth x HAB
-    (shift 0, ws//2 alternating) -> OCAB -> conv (K3) -> + input."""
+    (shift 0, ws//2 alternating) -> OCAB -> conv (K3) -> + input.  With
+    ``use_remat``, each HAB's activations are recomputed in the backward
+    pass in training (``blocks.remat_block``; the JAX model's
+    ``nn.remat(HAB)``), except where its kernels' autograd functions
+    already do (``HAB.trains_on_block_kernel``); the OCAB and the conv
+    stay outside."""
 
     def __init__(self, cfg: HATConfig, depth: int, num_heads: int):
         super().__init__()
@@ -331,13 +346,20 @@ class RHAG(nn.Module):
                  cfg.gelu_approximate),
         )
         self.conv = Conv3x3(c, c) if cfg.resi_connection == "1conv" else None
+        self.use_remat = cfg.use_remat
 
     def forward(self, x: torch.Tensor, plain: bool = False,
                 branch_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
         """`branch_scales` [depth, B, 2] or None (no stochastic depth)."""
         res = x
+        remat = self.use_remat and self.training and torch.is_grad_enabled()
         for j, blk in enumerate(self.residual_group.blocks):
-            x = blk(x, plain, None if branch_scales is None else branch_scales[j])
+            scales = None if branch_scales is None else branch_scales[j]
+            if remat and not (x.is_cuda and not plain
+                              and blk.trains_on_block_kernel(x.shape[1], x.shape[2])):
+                x = remat_block(blk, x, plain, scales)
+            else:
+                x = blk(x, plain, scales)
         x = self.residual_group.overlap_attn(x, plain)
         if self.conv is not None:
             x = self.conv(x, plain)

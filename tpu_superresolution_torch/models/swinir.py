@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -72,6 +72,7 @@ from tpu_superresolution_torch.models.blocks import (
     check_image_size,
     conv_nhwc,
     reference_init,
+    remat_block,
     upsample_and_last,
 )
 from tpu_superresolution_torch.ops.window import (
@@ -121,6 +122,28 @@ class SwinBlock(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
         self._packed = DerivedCache()
 
+    def _window(self, h: int, w: int) -> Tuple[int, int]:
+        """(window, shift) on an h x w map.  Reference rule
+        (network_swinir.py:193-196): no partition/shift when the (padded)
+        map is not larger than a window."""
+        if min(h, w) <= self.window_size:
+            return min(h, w), 0
+        return self.window_size, self.shift_size
+
+    def trains_on_block_kernel(self, h: int, w: int) -> bool:
+        """Whether a training call on CUDA on an h x w map runs the block
+        through a block kernel's autograd function: ``SwinBlockFunction``
+        (the "block" route, backward K5 / K6b) or ``WindowBlockFunction``
+        (a K7-route block that ``tiled_bwd_ok`` takes, backward K5w16 /
+        K5r).  Either keeps only the block's inputs, and its backward
+        kernel recomputes the rest, so ``use_remat`` leaves such a block
+        to it (``blocks.remat_block``).  Shapes only."""
+        ws, _ = self._window(h, w)
+        a = self.attn
+        shape = (ws, a.qkv.in_features, a.num_heads, self.mlp.fc1.out_features,
+                 a.qkv.bias is not None)
+        return block_route(*shape) == "block" or tiled_bwd_ok(*shape)
+
     def block_weights(self) -> SwinBlockWeights:
         a, m = self.attn, self.mlp
         return SwinBlockWeights(
@@ -139,11 +162,7 @@ class SwinBlock(nn.Module):
         `extra` [B, H, W, C]: a term added unscaled to the attention
         residual (HAT's CAB branch)."""
         _, h, w, _ = x.shape
-        ws, shift = self.window_size, self.shift_size
-        # Reference rule (network_swinir.py:193-196): no partition/shift
-        # when the (padded) map is not larger than a window.
-        if min(h, w) <= ws:
-            ws, shift = min(h, w), 0
+        ws, shift = self._window(h, w)
         wts = self.block_weights()
         mask = shift_mask_tensor(h, w, ws, shift, x.device) if shift else None
         if plain:
@@ -213,12 +232,18 @@ class BasicLayer(nn.Module):
 
 
 class RSTB(nn.Module):
-    """depth x SwinBlock -> conv -> + input (network_swinir.py:419-482)."""
+    """depth x SwinBlock -> conv -> + input (network_swinir.py:419-482).
+    With `use_remat`, each block's activations are recomputed in the
+    backward pass in training (``blocks.remat_block``; the JAX model's
+    ``nn.remat(SwinBlock)``), except where a block kernel's autograd
+    function already does (``SwinBlock.trains_on_block_kernel``); the
+    conv stays outside."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
                  mlp_ratio: float, qkv_bias: bool, resi_connection: str,
-                 gelu_approximate: bool):
+                 gelu_approximate: bool, use_remat: bool = False):
         super().__init__()
+        self.use_remat = use_remat
         self.residual_group = BasicLayer(
             SwinBlock(dim, num_heads, window_size, 0 if j % 2 == 0 else window_size // 2,
                       mlp_ratio, qkv_bias, gelu_approximate)
@@ -230,8 +255,14 @@ class RSTB(nn.Module):
                 branch_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
         """`branch_scales` [depth, B, 2] or None (no stochastic depth)."""
         res = x
+        remat = self.use_remat and self.training and torch.is_grad_enabled()
         for j, blk in enumerate(self.residual_group.blocks):
-            x = blk(x, plain, None if branch_scales is None else branch_scales[j])
+            scales = None if branch_scales is None else branch_scales[j]
+            if remat and not (x.is_cuda and not plain
+                              and blk.trains_on_block_kernel(x.shape[1], x.shape[2])):
+                x = remat_block(blk, x, plain, scales)
+            else:
+                x = blk(x, plain, scales)
         return self.conv(x, plain) + res
 
 
@@ -265,7 +296,7 @@ class SwinIR(StochasticDepth, nn.Module):
             self.absolute_pos_embed = nn.Parameter(torch.zeros(1, cfg.img_size ** 2, c))
         self.layers = nn.ModuleList(
             RSTB(c, d, cfg.num_heads[i], cfg.window_size, cfg.mlp_ratio, cfg.qkv_bias,
-                 cfg.resi_connection, cfg.gelu_approximate)
+                 cfg.resi_connection, cfg.gelu_approximate, cfg.use_remat)
             for i, d in enumerate(cfg.depths)
         )
         self.norm = PLayerNorm(c)

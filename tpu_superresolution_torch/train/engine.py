@@ -251,13 +251,20 @@ class Trainer:
     early stopping, the run report and the loss curve (train.py:403-419).
     ``history["native_decodes"]`` counts each epoch's native-decoder
     batch calls during its training loop (0 once the decoded-image cache
-    serves the epoch)."""
+    serves the epoch).  With `trace_path`, a chrome-trace timeline
+    (``utils.trace.TraceRecorder``) is written there at the end: each
+    epoch's span ``epoch {n}`` on the "train" track and ``val {n}`` on
+    the "val" track, and the ``train_loss`` and ``val_psnr`` counters,
+    the JAX package's events.  A span closes once the host has read the
+    value it reports (the epoch's mean loss, the validation sums), as
+    the fit loop already does, so the trace adds no synchronisation."""
 
     model_config: ModelConfig
     data_config: DataConfig
     train_config: TrainConfig
     workdir: str = "."
     log: Callable[[str], None] = print
+    trace_path: Optional[str] = None
 
     history: Dict[str, list] = field(
         default_factory=lambda: {"train": [], "val": [], "native_decodes": []})
@@ -286,8 +293,15 @@ class Trainer:
         if state.ema is not None:
             eval_model = _model_copy(state.model)
 
+        rec = None
+        if self.trace_path:
+            from tpu_superresolution_torch.utils.trace import TraceRecorder
+
+            rec = TraceRecorder()
+
         t_start = time.time()
         for epoch in range(1, tcfg.epochs + 1):
+            ep_t0 = rec.elapsed_s if rec else 0.0
             t_ep = time.time()
             losses = []
             data_t = step_t = 0.0
@@ -309,6 +323,10 @@ class Trainer:
             if not math.isfinite(tr_loss):
                 raise RuntimeError("Model produced NaN/Inf loss — lower max_lr / check init")
             t_tr = time.time() - t_ep
+            if rec:
+                rec.complete(f"epoch {epoch}", ep_t0, t_tr, track="train", loss=tr_loss,
+                             data_s_per_batch=data_t / n_steps, step_s_per_batch=step_t / n_steps)
+                rec.counter("train_loss", tr_loss)
             self.history["train"].append(tr_loss)
 
             if not (tcfg.val_every <= 1 or epoch % tcfg.val_every == 0 or epoch == tcfg.epochs):
@@ -331,6 +349,10 @@ class Trainer:
             val_psnr = agg["psnr_sum"] / max(1.0, agg["n"])
             val_ssim = agg["ssim_sum"] / max(1.0, agg["n"])
             t_val = time.time() - t_val0
+            if rec:
+                rec.complete(f"val {epoch}", rec.elapsed_s - t_val, t_val, track="val",
+                             loss=val_loss, psnr=val_psnr, ssim=val_ssim)
+                rec.counter("val_psnr", val_psnr)
             self.history["val"].append(val_loss)
             self.log(f"[{dcfg.scale}] epoch {epoch}: train_loss {tr_loss:.7f}, "
                      f"val_loss {val_loss:.7f} | val_PSNR {val_psnr:.2f} dB, "
@@ -361,6 +383,9 @@ class Trainer:
 
         self.save_loss_curve(f"{self.workdir}/loss_curve_{dcfg.scale}.png")
         self.save_run_report(f"{self.workdir}/run_{dcfg.scale}.json")
+        if rec:
+            rec.save(self.trace_path)
+            self.log(f"[trace] saved chrome-trace timeline to {self.trace_path}")
         return state
 
     def save_run_report(self, path: str) -> None:
