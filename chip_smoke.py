@@ -257,7 +257,19 @@ Phases (a failure in any raises, and the script exits non-zero):
             K1-K4 as custom ops: the loaded program bit-identical to the
             eager kernel path, its launches exactly one bench call's;
             a DAT x4 refused on CUDA with its kernels named;
-23. ablate  ``utils.ablate``: K2 against F.layer_norm at [102400, 180],
+23. dp      ``parallel/`` on SwinIR-M x4 at full width (drop path 0):
+            at world 1 over NCCL one ``make_dp_train_step`` step (batch 8
+            of 64^2 LR crops) against ``make_train_step`` from the same
+            weights (loss 1%, grad norm 5%, update cosine >= 0.98, the
+            same launches), both steps' medians interleaved, and
+            ``sharded_tiled_forward`` on the bench image bit-identical to
+            ``tiled_forward``; at world 2, two processes of this script
+            (``--dp-child``) on the one card over gloo on CUDA tensors,
+            the sharded forward against world 1's and the dp step on the
+            same global batch against world 1's, with their times; DAT
+            x4 at world 1: the kernel-route forward after a dp step
+            against plain fp32 from the stepped state (>= 50 dB);
+24. ablate  ``utils.ablate``: K2 against F.layer_norm at [102400, 180],
             interleaved rounds, min / median / spread.
 The evaluate phase also prints ``Evaluator.run``'s mfu beside MPix/s,
 with the counted and the analytic FLOPs.
@@ -265,8 +277,8 @@ with the counted and the analytic FLOPs.
 The second-to-last stdout line is a JSON object describing each kernel
 (launches summed over the serve, evaluate, SwinIR ws-7, SwinIR-L, wide,
 hat, dat, train, hat-train, hat_srx4, hat_srx4-train, swinir_l-train,
-dat_x4, dat-train, swinir-data, trace, remat, compare, mat-eval and
-export phases); the last is
+dat_x4, dat-train, swinir-data, trace, remat, compare, mat-eval, export
+and dp phases, the dp phase's child processes' among them); the last is
 {"ok": true, "device": {...}}.  There is no CPU path: with no CUDA
 device the script exits non-zero and prints no result.
 """
@@ -6214,6 +6226,379 @@ def phase_ablate(smi):
         raise RuntimeError(f"{tag}: {res}, err {err}")
 
 
+# The dp phase: SwinIR-M x4 (drop path 0) through the data-parallel step
+# and the sharded tiled forward at world 1 (NCCL, this process) and world
+# 2 (two processes on the one card over gloo: NCCL refuses two ranks on
+# one device), then a DAT x4 leg at world 1.  Batch DP_BATCH of 64^2 LR
+# crops (patch None, no flips); DP_TIMED_STEPS steps a path, interleaved.
+DP_BATCH = TRAIN_BATCH
+DP_TIMED_STEPS = 10
+DP_DAT_BATCH = 2
+DP_CHILD_TIMEOUT_S = 300
+
+
+def _dp_swinir():
+    """SwinIR-M x4 at drop path 0 (seeded weights): (config, a train and a
+    serving model on the card, the phase's global batch, the bench
+    image)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tpu_superresolution_torch.core.config import build_model
+
+    cfg, src = _seeded_swinir_m()
+    cfg = dataclasses.replace(cfg, drop_path_rate=0.0)
+    rng = np.random.default_rng(SEED + 26)
+    lr = rng.random((DP_BATCH, TRAIN_LR_PATCH, TRAIN_LR_PATCH, 3), np.float32)
+    hr = rng.random((DP_BATCH, TRAIN_LR_PATCH * 4, TRAIN_LR_PATCH * 4, 3), np.float32)
+    x = np.random.default_rng(SEED).random((1, 256, 256, 3), np.float32)  # the bench image
+    models = {}
+    for mode in ("train", "serve"):
+        models[mode] = build_model(cfg, dtype=torch.bfloat16, device="cuda")
+        models[mode].load_state_dict(src.state_dict())
+    return cfg, models, lr, hr, torch.from_numpy(x).cuda()
+
+
+def _flat_params(state):
+    import torch
+
+    return torch.cat([p.detach().reshape(-1).float() for p in state.params])
+
+
+def _flat_grads(state):
+    import torch
+
+    return torch.cat([p.grad.detach().reshape(-1).float() for p in state.params])
+
+
+def _cos(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a * b).sum()) / max(float(a.norm()) * float(b.norm()), 1e-30)
+
+
+def _dp_gate(tag, got, ref, smi):
+    """The first-step gate: loss, grad norm and the cosine of AdamW's
+    first update from the same weights, `got` against `ref`."""
+    d_loss = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    d_gn = abs(got["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"])
+    cos_u = _cos(got["update"], ref["update"])
+    cos_g = _cos(got["grad"], ref["grad"])
+    log(f"[dp] {tag}: loss {got['loss']:.6f} vs {ref['loss']:.6f} (rel {d_loss:.3e}, bound "
+        f"{TRAIN_LOSS_RTOL}), grad norm {got['grad_norm']:.6f} vs {ref['grad_norm']:.6f} (rel "
+        f"{d_gn:.3e}, bound {TRAIN_GNORM_RTOL}), update cosine {cos_u:.6f} (bound >= "
+        f"{TRAIN_COS_MIN}), clipped-gradient cosine {cos_g:.6f} ({smi})")
+    if d_loss > TRAIN_LOSS_RTOL or d_gn > TRAIN_GNORM_RTOL or cos_u < TRAIN_COS_MIN:
+        raise RuntimeError(f"dp {tag}: the first-step gate failed")
+
+
+def _dp_step_result(state, before, m):
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "update": (_flat_params(state) - before).cpu(), "grad": _flat_grads(state).cpu()}
+
+
+def _timed(fn, n):
+    """(median, all) wall ms of `n` calls of fn(), each synchronised."""
+    import torch
+
+    dts = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        dts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(dts), dts
+
+
+def _dp_child(rank, world, init_method, out_dir):
+    """One rank of the dp phase's world 2 on the one card (gloo on CUDA
+    tensors): the sharded tiled forward of the bench image, one dp step
+    on its half of the global batch (kept for the gate), then timings.
+    Each rank writes its launches, rank 0 also its results, to
+    `out_dir`."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tpu_superresolution_torch.evaluate.tiling import sharded_tiled_forward
+    from tpu_superresolution_torch.kernels import read_counters, reset_counters
+    from tpu_superresolution_torch.parallel import (
+        init_multihost,
+        make_dp_train_step,
+        make_mesh,
+        shard_batch,
+    )
+    from tpu_superresolution_torch.parallel.mesh import all_reduce_sum_
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    init_multihost("cuda:0", init_method, world_size=world, rank=rank, backend="gloo")
+    mesh = make_mesh(world, "cuda:0")
+    _, models, lr, hr, x = _dp_swinir()
+    res = {}
+    serve = models["serve"].eval()
+    fwd = lambda: sharded_tiled_forward(serve, x, 4, 64, 8, mesh)
+    with torch.no_grad():
+        reset_counters()
+        out = fwd()
+        torch.cuda.synchronize()
+        res["fwd_launches"] = read_counters()
+        res["sr"] = out.float().cpu()
+        res["fwd_ms"], res["fwd_all"] = _timed(fwd, 5)
+    state = _train_state(models["train"], 1)
+    step = make_dp_train_step("l1", "native_lr", 4, None, False, mesh)
+    shards = shard_batch((lr, hr, np.ones((DP_BATCH,), np.float32)), mesh)
+    gen = torch.Generator().manual_seed(SEED)
+    before = _flat_params(state)
+    reset_counters()
+    m = step(state, *shards, gen)
+    torch.cuda.synchronize()
+    res["step_launches"] = read_counters()
+    res.update(_dp_step_result(state, before, m))
+    res["step_ms"], res["step_all"] = _timed(lambda: step(state, *shards, gen), DP_TIMED_STEPS)
+    flat = torch.ones(sum(p.numel() for p in state.params) + 2, device="cuda")
+    res["allreduce_ms"], _ = _timed(lambda: all_reduce_sum_(flat, mesh), 3)
+    res["grad_elements"] = flat.numel() - 2
+    if rank:
+        res = {k: res[k] for k in ("fwd_launches", "step_launches")}
+    torch.save(res, f"{out_dir}/rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _dp_world2(workdir):
+    """Run the two ranks of world 2 (this script with --dp-child) and
+    return what each wrote; both are killed on a failure or after
+    DP_CHILD_TIMEOUT_S."""
+    import torch
+
+    out_dir = tempfile.mkdtemp(dir=workdir)
+    init = f"file://{out_dir}/store"
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-child", str(r),
+                               "2", init, out_dir]) for r in range(2)]
+    try:
+        deadline = time.monotonic() + DP_CHILD_TIMEOUT_S
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=60)
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        raise RuntimeError(f"dp: the world 2 ranks exited {codes}")
+    return [torch.load(f"{out_dir}/rank{r}.pt", weights_only=False) for r in range(2)]
+
+
+def phase_dp(workdir, smi):
+    """``parallel/`` on the card, SwinIR-M x4 at full width (drop path 0):
+    (1) world 1 over NCCL in this process: one ``make_dp_train_step``
+    step (batch 8 of 64^2 LR crops, patch None, no flips) against
+    ``make_train_step`` from the same weights and batch (loss 1%, grad
+    norm 5%, update cosine >= 0.98) with the same launches; the two
+    steps' medians, interleaved; ``sharded_tiled_forward`` of the bench
+    image (256^2 LR, tile 64 / 8) bit-identical to ``tiled_forward``;
+    (2) world 2 on the one card, two processes over gloo on CUDA
+    tensors: the sharded forward against world 1's (bit-identical, else
+    >= 50 dB), the dp step on the same global batch against world 1's
+    dp step under the same gate, the step's median and a lone all-reduce
+    of the gradients' size; (3) DAT x4 at world 1: a no-grad forward on
+    the kernel route (K9 / K14 / K10; its folded BatchNorm built before
+    the step), one dp step at batch 2, the same forward again against
+    ``impl="plain"`` fp32 from the stepped state (>= 50 dB).  Returns
+    the dp paths' launches (the children's among them)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tpu_superresolution_torch.core.config import DATConfig, build_model
+    from tpu_superresolution_torch.evaluate.tiling import sharded_tiled_forward, tiled_forward
+    from tpu_superresolution_torch.kernels import read_counters, reset_counters
+    from tpu_superresolution_torch.parallel import (
+        init_multihost,
+        make_dp_train_step,
+        make_mesh,
+        shard_batch,
+    )
+    from tpu_superresolution_torch.parallel.data_parallel import batch_norm_stats
+    from tpu_superresolution_torch.train.engine import make_train_step
+
+    tag = "dp"
+    t_phase = time.perf_counter()
+    launches = []
+    store = tempfile.mkdtemp(dir=workdir)
+    init_multihost("cuda:0", f"file://{store}/store", world_size=1, rank=0, backend="nccl")
+    mesh = make_mesh(1, "cuda:0")
+    log(f"[{tag}] world 1: backend {mesh.backend}, device {mesh.device}")
+
+    # 1. world 1: the dp step against the single-device step
+    cfg, models, lr, hr, x = _dp_swinir()
+    src_sd = {k: v.clone() for k, v in models["train"].state_dict().items()}
+    w = np.ones((DP_BATCH,), np.float32)
+    dp_step = make_dp_train_step("l1", "native_lr", 4, None, False, mesh)
+    one_step = make_train_step("l1", "native_lr", 4, None, False)
+    states, first, counts = {}, {}, {}
+    for label in ("single", "dp"):
+        model = build_model(cfg, dtype=torch.bfloat16, device="cuda")
+        model.load_state_dict(src_sd)
+        states[label] = st = _train_state(model, 1)
+        gen = torch.Generator().manual_seed(SEED)
+        before = _flat_params(st)
+        reset_counters()
+        if label == "dp":
+            m = dp_step(st, *shard_batch((lr, hr, w), mesh), gen)
+        else:
+            m = one_step(st, lr, hr, gen)
+        torch.cuda.synchronize()
+        counts[label] = read_counters()
+        first[label] = _dp_step_result(st, before, m)
+    launches.append(counts["dp"])
+    log(f"[{tag}] world 1 step launches: dp {counts['dp']}, single {counts['single']}")
+    if counts["dp"] != counts["single"] or counts["dp"] != TRAIN_PER_STEP:
+        raise RuntimeError(f"{tag}: dp step launches {counts['dp']}, single {counts['single']}, "
+                           f"expected {TRAIN_PER_STEP}")
+    _dp_gate("world 1 dp step vs the single-device step", first["dp"], first["single"], smi)
+    gens = {k: torch.Generator().manual_seed(SEED + 1) for k in states}
+    runs = {"single": lambda: one_step(states["single"], lr, hr, gens["single"]),
+            "dp": lambda: dp_step(states["dp"], *shard_batch((lr, hr, w), mesh), gens["dp"])}
+    times = {k: [] for k in runs}
+    for _ in range(2):  # warm-up
+        for k in runs:
+            runs[k]()
+    for _ in range(DP_TIMED_STEPS):
+        for k in runs:
+            times[k].append(_timed(runs[k], 1)[0])
+    med = {k: statistics.median(v) for k, v in times.items()}
+    log(f"[{tag}] world 1 step, batch {DP_BATCH} of {TRAIN_LR_PATCH}^2, interleaved, median of "
+        f"{DP_TIMED_STEPS}: dp {med['dp']:.2f} ms ({', '.join(f'{t:.2f}' for t in times['dp'])}), "
+        f"single {med['single']:.2f} ms ({', '.join(f'{t:.2f}' for t in times['single'])}), "
+        f"ratio {med['dp'] / med['single']:.4f} ({smi})")
+    del states, runs
+
+    serve = models["serve"].eval()
+    with torch.no_grad():
+        ref = tiled_forward(serve, x, 4, 64, 8)
+        reset_counters()
+        out1 = sharded_tiled_forward(serve, x, 4, 64, 8, mesh)
+        torch.cuda.synchronize()
+        fwd_counts = read_counters()
+        launches.append(fwd_counts)
+        t_tiled, _ = _timed(lambda: tiled_forward(serve, x, 4, 64, 8), 5)
+        t_sharded, _ = _timed(lambda: sharded_tiled_forward(serve, x, 4, 64, 8, mesh), 5)
+    same = torch.equal(out1, ref)
+    log(f"[{tag}] world 1 sharded tiled forward, 256^2 LR, tile 64/8: launches {fwd_counts} "
+        f"(expected {PER_CALL}); bit-identical to tiled_forward: {same}; median of 5: sharded "
+        f"{t_sharded:.2f} ms, tiled {t_tiled:.2f} ms ({smi})")
+    if not same or fwd_counts != PER_CALL or tuple(out1.shape) != (1, 1024, 1024, 3):
+        raise RuntimeError(f"{tag}: world 1 sharded forward differs from tiled_forward")
+    del models
+
+    # 2. world 2 on the one card: two processes over gloo on CUDA tensors
+    t0 = time.perf_counter()
+    ranks = _dp_world2(workdir)
+    child = ranks[0]
+    log(f"[{tag}] world 2 (two processes on one card, backend gloo on CUDA tensors) in "
+        f"{time.perf_counter() - t0:.1f} s, each rank's launches: forward "
+        f"{[r['fwd_launches'] for r in ranks]}, step {[r['step_launches'] for r in ranks]}")
+    for r, res in enumerate(ranks):
+        for name, want in (("fwd_launches", PER_CALL), ("step_launches", TRAIN_PER_STEP)):
+            if res[name] != want:
+                raise RuntimeError(f"{tag}: world 2 rank {r} {name} {res[name]}, expected {want}")
+        launches += [res["fwd_launches"], res["step_launches"]]
+    sr1 = out1.float().cpu()
+    same2 = torch.equal(child["sr"], sr1)
+    psnr2 = float("inf") if same2 else _psnr_db(child["sr"], sr1)
+    log(f"[{tag}] world 2 sharded forward (13 tiles a rank, one zero pad) vs world 1: "
+        f"bit-identical {same2}, PSNR {psnr2:.2f} dB (bound >= {PSNR_MIN_DB} where not "
+        f"identical); median of 5 on rank 0: {child['fwd_ms']:.2f} ms "
+        f"({', '.join(f'{t:.2f}' for t in child['fwd_all'])}) ({smi})")
+    if not same2 and psnr2 < PSNR_MIN_DB:
+        raise RuntimeError(f"{tag}: the world 2 sharded forward disagrees with world 1's")
+    _dp_gate("world 2 dp step vs world 1 dp step", child, first["dp"], smi)
+    log(f"[{tag}] world 2 step on the one card, batch {DP_BATCH} (4 a rank), median of "
+        f"{DP_TIMED_STEPS} on rank 0: {child['step_ms']:.2f} ms "
+        f"({', '.join(f'{t:.2f}' for t in child['step_all'])}); a lone gloo all-reduce of "
+        f"{child['grad_elements']:,} fp32 CUDA elements (staged through the host): "
+        f"{child['allreduce_ms']:.2f} ms ({smi})")
+
+    # 3. DAT x4 at world 1: the folded BatchNorm after a dp step
+    dcfg = DATConfig()
+    dsrc = build_model(dcfg)
+    dsrc.reset_parameters(torch.Generator().manual_seed(SEED))
+    _perturb_dat(dsrc, torch.Generator().manual_seed(SEED + 5))
+    dat = build_model(dcfg, dtype=torch.bfloat16, device="cuda")
+    dat.load_state_dict(dsrc.state_dict())
+    dx = torch.from_numpy(
+        np.random.default_rng(SEED + 7).random((1, 64, 64, 3), np.float32)).cuda()
+
+    def forward(model_or_sd, dtype=torch.bfloat16, impl="auto"):
+        """The no-grad eval forward of `dx` by a model, or by a new one
+        loaded with a state dict."""
+        model = model_or_sd
+        if isinstance(model_or_sd, dict):
+            model = build_model(dcfg, dtype=dtype, impl=impl, device="cuda")
+            model.load_state_dict(model_or_sd)
+        with torch.no_grad():
+            return model.eval()(dx)
+
+    dat.eval()
+    routes = sorted({r for g in dat.routes() for r in g})
+    if routes != [("K14", "K10"), ("K9", "K10")]:
+        raise RuntimeError(f"{tag}: DAT eval routes {routes}")
+    y0 = forward(dat)  # builds the folded weights that the step must invalidate
+    ref0 = forward(dat.state_dict(), torch.float32, "plain")
+    st = _train_state(dat, 1)
+    stats = batch_norm_stats(dat)
+    v0 = [s._version for s in stats]
+    s0 = torch.cat([s.detach().reshape(-1) for s in stats]).clone()
+    rng = np.random.default_rng(SEED + 8)
+    dlr = rng.random((DP_DAT_BATCH, TRAIN_LR_PATCH, TRAIN_LR_PATCH, 3), np.float32)
+    dhr = rng.random((DP_DAT_BATCH, TRAIN_LR_PATCH * 4, TRAIN_LR_PATCH * 4, 3), np.float32)
+    dstep = make_dp_train_step("l1", "native_lr", 4, None, False, mesh)
+    reset_counters()
+    dm = dstep(st, *shard_batch((dlr, dhr, np.ones((DP_DAT_BATCH,), np.float32)), mesh),
+               torch.Generator().manual_seed(SEED))
+    torch.cuda.synchronize()
+    dat_step_counts = read_counters()
+    bumps = [s._version - v for s, v in zip(stats, v0)]
+    s1 = torch.cat([s.detach().reshape(-1) for s in stats])
+    reset_counters()
+    y1 = forward(dat)
+    torch.cuda.synchronize()
+    dat_fwd_counts = read_counters()
+    launches += [dat_step_counts, dat_fwd_counts]
+    sd = dat.state_dict()
+    fresh = forward(sd)
+    ref16, ref32 = forward(sd, torch.bfloat16, "plain"), forward(sd, torch.float32, "plain")
+    stale = not torch.equal(y1, fresh)
+    log(f"[{tag}] DAT x4 world 1: dp step at batch {DP_DAT_BATCH}, loss "
+        f"{float(dm['loss']):.6f}, launches {dat_step_counts}; the {len(stats)} BatchNorm "
+        f"statistics moved by max |d| {float((s1 - s0).abs().max()):.4e} (max |stat| "
+        f"{float(s1.abs().max()):.4e}), their version counters by {min(bumps)}-{max(bumps)}; "
+        f"the cached kernel-route forward after the step: launches {dat_fwd_counts}, "
+        f"bit-identical to a new model's from the stepped state: {not stale}; PSNR vs plain "
+        f"fp32 of the stepped state {_psnr_db(y1, ref32):.2f} dB (bound >= {PSNR_MIN_DB}), "
+        f"plain bf16 vs plain fp32 {_psnr_db(ref16, ref32):.2f} dB, before the step kernels vs "
+        f"plain fp32 {_psnr_db(y0, ref0):.2f} dB, the model's change (plain fp32 before vs "
+        f"after) {_psnr_db(ref32, ref0):.2f} dB, the kernels' change {_psnr_db(y1, y0):.2f} dB "
+        f"({smi})")
+    if dat_step_counts != DAT_TRAIN_PER_STEP or dat_fwd_counts != DAT_PER_CALL:
+        raise RuntimeError(f"{tag}: DAT launches {dat_step_counts} / {dat_fwd_counts}")
+    if (stale or _psnr_db(y1, ref32) < PSNR_MIN_DB or not math.isfinite(float(dm["loss"]))
+            or min(bumps) < 1):
+        raise RuntimeError(f"{tag}: the DAT kernel route after a dp step is stale or wrong")
+    dist.destroy_process_group()
+    log(f"[{tag}] phase {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return {k: sum(d.get(k, 0) for d in launches) for k in PER_CALL}
+
+
+
 def main() -> int:
     import torch
 
@@ -6264,6 +6649,7 @@ def main() -> int:
         compare_launches = timed("compare", phase_compare, workdir, smi)
         mat_launches = timed("mat-eval", phase_mat_eval, workdir, smi)
         export_launches = timed("export", phase_export, smi)
+        dp_launches = timed("dp", phase_dp, workdir, smi)
         timed("ablate", phase_ablate, smi)
 
     kernels = []
@@ -6279,7 +6665,7 @@ def main() -> int:
                                                  srx4_launches, dat_x4_launches,
                                                  swinir_data_launches, trace_launches,
                                                  remat_launches, compare_launches,
-                                                 mat_launches, export_launches]
+                                                 mat_launches, export_launches, dp_launches]
                          + hat_train_launches + dat_train_launches + srx4_train_launches
                          + swinir_l_train_launches),
             max_abs_err=max(r["err"] for r in kres[key]),
@@ -6293,4 +6679,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-child"]:  # a rank of phase_dp's world 2
+        _dp_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+        sys.exit(0)
     sys.exit(main())

@@ -2,9 +2,10 @@
 the JAX package's evaluate CLI on the same file (<= 1e-3 dB, with
 --report_json and the PNG triplets), a fine-tune checkpoint with an EMA
 (auto EMA, --no-ema), and what it refuses: --ema on a reference .pth or
-on a checkpoint without an EMA, --dp, a UNet2D reference .pth (UNet2D
-has no reference format), Orbax directories, and the GPU where there is
-none."""
+on a checkpoint without an EMA, --dp outside a torchrun launch of as
+many ranks (tests/test_torch_dp_cli.py runs the launch), a UNet2D
+reference .pth (UNet2D has no reference format), Orbax directories, and
+the GPU where there is none."""
 
 import json
 
@@ -136,7 +137,7 @@ def test_finetune_checkpoint_auto_ema_and_no_ema(data, finetuned, capsys):
 @pytest.mark.parametrize("case,match", [
     ("ema_on_reference", "--ema applies to the port's own checkpoints"),
     ("ema_missing", "no EMA in"),
-    ("dp", "Queue 1 item 5"),
+    pytest.param("dp", "torchrun --nproc_per_node 2", id="dp-Queue 1 item 5"),
     ("cnn", "no reference checkpoint format"),
     ("orbax", "does not read.*tpu_superresolution_tpu.cli.export_torch"),
 ])

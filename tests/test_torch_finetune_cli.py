@@ -122,7 +122,7 @@ def test_finetune_refuses_what_is_not_ported(finetuned, tmp_path):
     root = str(finetuned[0])
     base = ["--data_root", root, "--scale", "X4", "--epochs", "1", "--workdir", str(tmp_path),
             "--device", "cpu"] + TINY
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        main(base + ["--dp", "2"])
+    with pytest.raises(SystemExit, match="torchrun --nproc_per_node 2"):
+        main(base + ["--dp", "2"])  # outside a launch of two ranks
     with pytest.raises(SystemExit, match="Orbax.*tpu_superresolution_tpu.cli.export_torch"):
         main(base + ["--weights", str(tmp_path / "orbax_dir")])

@@ -107,8 +107,11 @@ def test_train_cli_refuses_the_cnn_families(trained, tmp_path, model):
               "--device", "cpu"] + TINY + ["--model", model])
 
 
-@pytest.mark.parametrize("flags,match", [(["--dp", "2"], "multi-GPU")])
+@pytest.mark.parametrize("flags,match", [
+    pytest.param(["--dp", "2"], "torchrun --nproc_per_node 2", id="flags0-multi-GPU")])
 def test_train_cli_refuses_flags_not_ported(trained, tmp_path, flags, match):
+    """--dp 2 outside a torchrun launch of two ranks exits, naming the
+    launch (the dp path itself: tests/test_torch_dp_cli.py)."""
     from tpu_superresolution_torch.cli.train import main
 
     with pytest.raises(SystemExit, match=match):

@@ -1,12 +1,12 @@
 """Plumbing shared by the port's entry points (port of
 ``tpu_superresolution_tpu/cli/common.py``): the device flag and report
-(the policy is ``core/device.py``'s), seeding and the loader's worker
-count."""
+(the policy is ``core/device.py``'s), the ``--dp`` flag's process group,
+seeding and the loader's worker count."""
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,3 +40,30 @@ def resolve_workers(workers: Optional[int]) -> int:
     if workers is not None:
         return workers
     return min(8, max(2, (os.cpu_count() or 4) // 2))
+
+
+def init_data_parallel(dp: int, device: Optional[str]) -> Tuple[int, torch.device]:
+    """(dp, device) for a CLI's ``--dp``: 0 or 1 is one device
+    (``resolve_device``), -1 every rank of the launch, N > 1 a process
+    group of N ranks, one a device, which ``torchrun --nproc_per_node N``
+    starts: each rank takes ``cuda:LOCAL_RANK``, or the CPU with
+    ``--device cpu`` (gloo).  Any other launch raises SystemExit; it
+    never runs on one device instead."""
+    from tpu_superresolution_torch.parallel.mesh import (
+        init_multihost,
+        launched_world_size,
+        local_device,
+    )
+
+    world = launched_world_size()
+    if dp == -1:
+        dp = world
+    if dp <= 1:
+        return 0, resolve_device(device)
+    if world != dp:
+        raise SystemExit(f"--dp {dp}: data parallelism runs one process a device; launch "
+                         f"{dp} of them with `torchrun --nproc_per_node {dp} -m <this CLI> ... "
+                         f"--dp {dp}` (this launch has {world})")
+    dev = local_device(device)
+    init_multihost(dev)
+    return dp, dev

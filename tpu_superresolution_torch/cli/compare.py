@@ -98,7 +98,8 @@ def main(argv=None):
     sides = []
     for tag, ckpt, mname, name in (("a", args.ckpt_a, args.model_a, args.name_a),
                                    ("b", args.ckpt_b, args.model_b, args.name_b)):
-        mcfg, model = load_any_checkpoint(ckpt, mname, scale_int, device=device)
+        # a port checkpoint's raw parameters, as the JAX CLI (not its EMA)
+        mcfg, model = load_any_checkpoint(ckpt, mname, scale_int, device=device, ema=False)
         label = name or mcfg.name
         sides.append((label, mcfg, model))
         print(f"[ckpt] {tag}: {ckpt} -> {mcfg.name} ({label})")

@@ -19,8 +19,14 @@ entry (not by the suffix): such a file evaluates with the config it was
 trained with, and with its EMA when it kept one.  The CNN families
 (``ms_resunet``, the default ``--model``, and ``unet2d``, which has no
 reference format) are evaluated on bicubic-pre-upscaled LR, without the
-training's normalization, as the JAX CLI does.  Orbax directories and
-multi-GPU sharding are still to port (ROADMAP.md).
+training's normalization, as the JAX CLI does.  Orbax directories are
+read after ``tpu_superresolution_tpu.cli.export_torch`` writes them as a
+reference ``.pt``.
+
+``--dp N`` (with ``--tile``) splits each image's tile batch across N
+GPUs, one process a GPU started by ``torchrun --nproc_per_node N``
+(``evaluate/tiling.py::sharded_tiled_forward``); every rank evaluates the
+whole test split and rank 0 alone writes the PNGs and the report.
 """
 
 from __future__ import annotations
@@ -32,8 +38,8 @@ from pathlib import Path
 
 from tpu_superresolution_torch.cli.common import (
     add_device_flag,
+    init_data_parallel,
     report_device,
-    resolve_device,
     resolve_workers,
 )
 from tpu_superresolution_torch.cli.upscale import load_any_checkpoint
@@ -83,16 +89,18 @@ def build_argparser():
                     help="write the result dict (psnr / ssim / mpix_per_s ...) as JSON to "
                          "this path")
     ap.add_argument("--dp", type=int, default=0,
-                    help="shard the tile batch across N devices: not ported yet")
+                    help="shard the tile batch across N devices, one process a device under "
+                         "torchrun (requires --tile; -1 = every rank)")
     add_device_flag(ap)
     return ap
 
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    if args.dp not in (0, 1):
-        raise SystemExit(f"--dp {args.dp}: sharded inference waits for the multi-GPU slice "
-                         "(ROADMAP.md Queue 1 item 5)")
+    from tpu_superresolution_torch.parallel.mesh import is_writer, launched_world_size
+
+    if not args.tile and (args.dp > 1 or (args.dp == -1 and launched_world_size() > 1)):
+        raise SystemExit("--dp requires --tile (sharded tiled inference)")
     if Path(args.ckpt).is_dir():
         raise SystemExit(
             f"{args.ckpt}: an Orbax checkpoint directory, which the port does not read; "
@@ -105,7 +113,7 @@ def main(argv=None):
     from tpu_superresolution_torch.evaluate.baseline import bicubic_baseline
     from tpu_superresolution_torch.evaluate.runner import Evaluator
 
-    device = resolve_device(args.device)
+    dp, device = init_data_parallel(args.dp, args.device)
     report_device(device)
     scale_int = int(args.scale[1:])
 
@@ -140,12 +148,18 @@ def main(argv=None):
         rescale_png=args.rescale_png,
         self_ensemble=args.self_ensemble,
     )
-    ev = Evaluator(model, scale_int, convention, ecfg, device=device)
+    mesh = None
+    if dp:
+        from tpu_superresolution_torch.parallel import make_mesh
+
+        mesh = make_mesh(dp, device)
+        print(f"[dp] sharded tiled inference over {dp} devices")
+    ev = Evaluator(model, scale_int, convention, ecfg, device=device, mesh=mesh)
     saving = args.save_n or args.save_every or save_indices
     results = ev.run(loader, save_dir=args.save_dir if saving else None)
     print(f"[result] PSNR {results['psnr']:.2f} dB | SSIM {results['ssim']:.4f} | "
           f"{results['mpix_per_s']:.1f} MPix/s")
-    if args.report_json:
+    if args.report_json and is_writer():
         out = {}
         for k, v in results.items():
             try:

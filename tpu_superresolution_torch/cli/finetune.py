@@ -24,7 +24,9 @@ but on the TPU its matmuls run at bf16 MXU precision anyway.  With
 ``--trace PATH`` writes a chrome-trace timeline of the epochs
 (``utils/trace.py``).  Orbax checkpoints are read after
 ``python -m tpu_superresolution_tpu.cli.export_torch`` writes them as a
-reference ``.pt``.  Not ported yet: ``--dp`` > 1 (the multi-GPU slice).
+reference ``.pt``.  ``--dp N`` shards each batch across N GPUs, one
+process a GPU started by ``torchrun --nproc_per_node N`` (``parallel/``,
+as ``cli/train.py``); outside such a launch it exits.
 """
 
 from __future__ import annotations
@@ -37,8 +39,8 @@ import torch
 
 from tpu_superresolution_torch.cli.common import (
     add_device_flag,
+    init_data_parallel,
     report_device,
-    resolve_device,
     resolve_workers,
     seed_everything,
 )
@@ -76,8 +78,8 @@ def build_argparser():
     ap.add_argument("--trace", type=str, default=None,
                     help="write a chrome-trace (Perfetto) timeline of the epochs here")
     ap.add_argument("--dp", type=int, default=0,
-                    help="data-parallel shards (0 = one device; more waits for the "
-                         "multi-GPU slice)")
+                    help="data-parallel shards, one process a device under torchrun "
+                         "(0 = one device, -1 = every rank)")
     ap.add_argument("--early_stop_patience", type=int, default=None,
                     help="stop after N epochs without val-loss improvement")
     ap.add_argument("--ema_decay", type=float, default=0.0,
@@ -131,8 +133,8 @@ def model_config_from_args(args, scale_int: int, log=print) -> SwinIRConfig:
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
+    dp, device = init_data_parallel(args.dp, args.device)
     generator = seed_everything(args.seed)
-    device = resolve_device(args.device)
     report_device(device)
     scale_int = 2 if args.scale.upper() == "X2" else 4
 
@@ -144,7 +146,7 @@ def main(argv=None):
         weight_decay=args.weight_decay, scheduler=args.scheduler.lower(), min_lr=args.min_lr,
         grad_clip_norm=args.grad_clip, seed=args.seed, freeze_regex=args.freeze_regex,
         finetune=True, early_stop_patience=args.early_stop_patience,
-        val_every=args.val_every, ema_decay=args.ema_decay or None, dp_shards=args.dp,
+        val_every=args.val_every, ema_decay=args.ema_decay or None, dp_shards=dp,
     )
     dtype = COMPUTE_DTYPE if device.type == "cuda" and tcfg.bf16_compute else torch.float32
     model = build_model(mcfg, dtype=dtype)

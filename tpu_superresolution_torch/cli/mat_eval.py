@@ -12,8 +12,8 @@ SSIM and the bicubic floor.  It runs on the GPU (bf16 through the
 port's kernels; raises without one) unless ``--device cpu``.  The JAX
 CLI reads Orbax checkpoints; this one reads ``.pt/.pth`` through
 ``cli.upscale.load_any_checkpoint``: a checkpoint of the port's train /
-finetune CLI carries its config (its EMA by default when it kept one,
-``--no-ema`` for the raw parameters), a reference one is of the family
+finetune CLI carries its config (its raw parameters, as the JAX CLI
+loads; ``--ema`` for the EMA it kept), a reference one is of the family
 ``--model`` names (default ``ms_resunet``, the JAX CLI's fallback
 config).
 """
@@ -36,8 +36,9 @@ def build_argparser():
     ap.add_argument("--model", type=str, default="ms_resunet",
                     choices=["ms_resunet", "unet2d", "swinir", "hat", "dat"],
                     help="family of a reference .pt/.pth (the port's own carry their config)")
-    ap.add_argument("--ema", action=argparse.BooleanOptionalAction, default=None,
-                    help="evaluate a port checkpoint's EMA weights (default: when it kept one)")
+    ap.add_argument("--ema", action=argparse.BooleanOptionalAction, default=False,
+                    help="evaluate a port checkpoint's EMA weights (default: its raw "
+                         "parameters)")
     ap.add_argument("--batch_size", type=int, default=4)
     ap.add_argument("--limit_pairs", type=int, default=None)
     ap.add_argument("--scale", type=str, default="X4")

@@ -39,8 +39,17 @@ loss scaling, fp32 loss and metrics; with ``--device cpu`` everything is
 fp32 (the kernels' plain versions).
 
 ``--trace PATH`` writes a chrome-trace timeline of the epochs (train and
-val spans, loss and PSNR counters; ``utils/trace.py``).  Refused:
-``--dp`` > 1 (the multi-GPU slice, ROADMAP.md Queue 1 item 5).
+val spans, loss and PSNR counters; ``utils/trace.py``).
+
+``--dp N`` shards each batch across N GPUs, one process a GPU
+(``parallel/``; -1 = every rank of the launch):
+
+    torchrun --nproc_per_node 4 -m tpu_superresolution_torch.cli.train \
+        --data_root /path/DeepRockSR-2D --scale X4 --model swinir --dp 4
+
+Every rank reads the same batches and trains on its rows; rank 0 alone
+logs and writes the checkpoints, the report and the curve.  ``--dp`` > 1
+outside such a launch exits.
 """
 
 from __future__ import annotations
@@ -53,8 +62,8 @@ import torch
 
 from tpu_superresolution_torch.cli.common import (
     add_device_flag,
+    init_data_parallel,
     report_device,
-    resolve_device,
     resolve_workers,
     seed_everything,
 )
@@ -121,8 +130,8 @@ def build_argparser():
     ap.add_argument("--trace", type=str, default=None,
                     help="write a chrome-trace (Perfetto) timeline of the epochs here")
     ap.add_argument("--dp", type=int, default=0,
-                    help="data-parallel shards (0 = one device; more waits for the "
-                         "multi-GPU slice)")
+                    help="data-parallel shards, one process a device under torchrun "
+                         "(0 = one device, -1 = every rank)")
     ap.add_argument("--base_channels", type=int, default=64, help="unet2d width")
     ap.add_argument("--embed_dim", type=int, default=None)
     ap.add_argument("--t_depths", type=str, default=None, help="comma list, e.g. 6,6,6,6")
@@ -184,11 +193,8 @@ def model_config_from_args(args):
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    if args.dp not in (0, 1):
-        raise SystemExit(f"--dp {args.dp}: data parallelism waits for the multi-GPU slice "
-                         "(ROADMAP.md Queue 1 item 5)")
+    dp, device = init_data_parallel(args.dp, args.device)
     generator = seed_everything(args.seed)
-    device = resolve_device(args.device)
     report_device(device)
     t_all = time.time()
 
@@ -216,7 +222,7 @@ def main(argv=None):
         weight_decay=args.weight_decay, scheduler=args.scheduler.lower(), seed=args.seed,
         freeze_regex=args.freeze_regex, finetune=args.finetune, ft_lr=args.ft_lr,
         early_stop_patience=args.early_stop_patience, time_log_every=args.time_log_every,
-        val_every=args.val_every, ema_decay=args.ema_decay or None, dp_shards=args.dp,
+        val_every=args.val_every, ema_decay=args.ema_decay or None, dp_shards=dp,
     )
 
     idx_tr = PairedIndex(args.data_root, "train", args.scale)

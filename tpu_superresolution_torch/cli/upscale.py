@@ -12,8 +12,12 @@ is a reference ``.pt/.pth`` (``--model`` names its family:
 ``ms_resunet``, the default, ``swinir``, ``hat`` or ``dat``; UNet2D has
 no reference format) or one written by ``cli/train.py`` /
 ``cli/finetune.py``, which carries its config (``--model`` is then
-ignored).  Orbax checkpoints and multi-GPU sharding are still to port
-(ROADMAP.md).
+ignored), and whose raw parameters it loads (never its EMA, as the JAX
+CLI).  Orbax checkpoints are read after
+``tpu_superresolution_tpu.cli.export_torch`` writes them as a reference
+``.pt``.  ``--dp N`` splits each image's tile batch across N GPUs, one
+process a GPU started by ``torchrun --nproc_per_node N`` (tiling, auto
+or ``--tile``, is required); rank 0 alone writes the PNGs.
 """
 
 from __future__ import annotations
@@ -26,7 +30,12 @@ from typing import Optional
 
 import torch
 
-from tpu_superresolution_torch.cli.common import add_device_flag, report_device, resolve_device
+from tpu_superresolution_torch.cli.common import (
+    add_device_flag,
+    init_data_parallel,
+    report_device,
+    resolve_device,
+)
 
 # Auto-tiling threshold on the LONG edge: whole-image forward at or
 # below it, tiled above it.
@@ -56,10 +65,10 @@ def load_port_checkpoint(path: str, saved, exact, ema, device: torch.device,
     """A checkpoint of ``train/checkpoint.py`` (`saved`, the dictionary
     read from `path`) into the port: its embedded config (``exact``
     forces the reference-exact semantics) and its parameters, or its EMA
-    parameters with the saved buffers.  `ema` None is auto: the EMA when
-    the run recorded an ``ema_decay``, since its best checkpoints were
-    chosen by validating the EMA weights.  Returns (model_config,
-    model)."""
+    parameters with the saved buffers.  `ema` None is auto (the evaluate
+    CLI's default): the EMA when the run recorded an ``ema_decay``, since
+    its best checkpoints were chosen by validating the EMA weights.
+    Returns (model_config, model)."""
     from tpu_superresolution_torch.core.config import build_model, config_from_dict
     from tpu_superresolution_torch.core.dtypes import serving_dtype
     from tpu_superresolution_torch.train.checkpoint import checked_params
@@ -74,7 +83,7 @@ def load_port_checkpoint(path: str, saved, exact, ema, device: torch.device,
         use_ema = bool(extra.get("ema_decay"))
         if use_ema:
             print(f"[ckpt] the checkpoint records ema_decay={extra['ema_decay']}: using the "
-                  "EMA weights (--no-ema for the raw parameters)")
+                  "EMA weights its best checkpoints were chosen by")
     if use_ema:
         if saved.get("ema") is None:
             raise SystemExit(f"--ema: no EMA in {path} (train with --ema_decay to keep one)")
@@ -141,11 +150,14 @@ def load_for_inference(ckpt: str, model_name: str, scale_arg, exact,
                        device: Optional[torch.device] = None,
                        dtype: Optional[torch.dtype] = None):
     """Shared upscale/serve loading: returns (mcfg, model, scale,
-    convention, channels).  `scale_arg` is the CLI's 'X2'/'X4'/None."""
+    convention, channels).  `scale_arg` is the CLI's 'X2'/'X4'/None.  A
+    port checkpoint loads its raw parameters, not its EMA (the JAX
+    ``load_any_checkpoint``'s ``restored["params"]``)."""
     if scale_arg is None:
         raise SystemExit("--scale is required for torch .pt/.pth checkpoints")
     scale_int = int(scale_arg[1:])
-    mcfg, model = load_any_checkpoint(ckpt, model_name, scale_int, exact, device, dtype)
+    mcfg, model = load_any_checkpoint(ckpt, model_name, scale_int, exact, device, dtype,
+                                      ema=False)
     if mcfg.scale != scale_int:
         raise SystemExit(f"checkpoint is X{mcfg.scale} but --scale {scale_arg} was given")
     convention = "native_lr" if mcfg.upsamples_internally else "pre_upscale"
@@ -155,17 +167,21 @@ def load_for_inference(ckpt: str, model_name: str, scale_arg, exact,
 class ForwardCache:
     """Per-(tile, overlap) whole-image forwards sharing one loaded model
     (used by this CLI and cli/serve.py), FIFO-bounded so client-chosen
-    tiling configs cannot grow it without bound."""
+    tiling configs cannot grow it without bound.  With a data-parallel
+    `mesh` the tile batch is split across its ranks."""
 
-    def __init__(self, model, scale, convention, tile_batch, max_entries=8):
+    def __init__(self, model, scale, convention, tile_batch, max_entries=8, mesh=None):
         self.model, self.scale, self.convention = model, scale, convention
-        self.tile_batch, self.max_entries = tile_batch, max_entries
+        self.tile_batch, self.max_entries, self.mesh = tile_batch, max_entries, mesh
         self._cache = {}
 
     def get(self, tile, overlap):
         from tpu_superresolution_torch.core.config import EvalConfig
         from tpu_superresolution_torch.evaluate.runner import Evaluator
 
+        if not tile and self.mesh is not None:
+            raise SystemExit("--dp requires tiling (the image is below the auto-tile "
+                             "threshold; pass --tile N)")
         key = (tile, overlap)
         if key not in self._cache:
             if len(self._cache) >= self.max_entries:
@@ -176,8 +192,8 @@ class ForwardCache:
                 tile_overlap=overlap,
                 max_tile_batch=self.tile_batch or None,
             )
-            self._cache[key] = Evaluator(self.model, self.scale, self.convention,
-                                         ecfg).forward_fn()
+            self._cache[key] = Evaluator(self.model, self.scale, self.convention, ecfg,
+                                         mesh=self.mesh).forward_fn()
         return self._cache[key]
 
 
@@ -207,6 +223,9 @@ def build_argparser():
                          "serving path (fused reconstruction, tanh GELU)")
     ap.add_argument("--rescale_png", action="store_true",
                     help="min-max rescale the output instead of clamping")
+    ap.add_argument("--dp", type=int, default=0,
+                    help="shard the tile batch across N devices, one process a device under "
+                         "torchrun (requires tiling, auto or explicit; -1 = every rank)")
     add_device_flag(ap)
     return ap
 
@@ -216,20 +235,29 @@ def main(argv=None):
 
     from tpu_superresolution_torch.data.decode import decode_image
     from tpu_superresolution_torch.evaluate.runner import save_tensor_as_png
+    from tpu_superresolution_torch.parallel.mesh import is_writer
 
-    device = resolve_device(args.device)
+    dp, device = init_data_parallel(args.dp, args.device)
     report_device(device)
     mcfg, model, scale, convention, channels = load_for_inference(
         args.ckpt, args.model, args.scale, args.exact, device
     )
     print(f"[ckpt] {args.ckpt}: model={mcfg.name} scale=X{scale}")
 
+    mesh = None
+    if dp:
+        from tpu_superresolution_torch.parallel import make_mesh
+
+        mesh = make_mesh(dp, device)
+        print(f"[dp] sharded tiled inference over {dp} devices")
+    writer = is_writer()  # rank 0 alone writes the PNGs
     multi = len(args.image) > 1
     out_dir = None
     if args.out is not None and (multi or Path(args.out).is_dir()):
         out_dir = Path(args.out)
-        out_dir.mkdir(parents=True, exist_ok=True)
-    fwd_cache = ForwardCache(model, scale, convention, args.tile_batch)
+        if writer:
+            out_dir.mkdir(parents=True, exist_ok=True)
+    fwd_cache = ForwardCache(model, scale, convention, args.tile_batch, mesh=mesh)
 
     outs, used_names = [], set()
     for path in args.image:
@@ -252,7 +280,8 @@ def main(argv=None):
             out_path = Path(args.out)
         else:
             out_path = p.with_name(f"{p.stem}_sr{scale}x.png")
-        save_tensor_as_png(sr, out_path, per_image_rescale=args.rescale_png)
+        if writer:
+            save_tensor_as_png(sr, out_path, per_image_rescale=args.rescale_png)
         mode = f"tile {tile}/{args.tile_overlap}" if tile else "whole image"
         print(f"[sr] {p} [{h}x{w}] -> {out_path} [{h * scale}x{w * scale}] "
               f"({mode}, {dt:.1f}s incl. kernel build)")

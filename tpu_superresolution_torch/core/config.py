@@ -243,8 +243,8 @@ class TrainConfig:
     val_every: int = 1
     ema_decay: Optional[float] = None
     bf16_compute: bool = True
-    # data-parallel shards: 0/1 = one device; more waits for the
-    # multi-GPU slice
+    # data-parallel shards: 0/1 = one device; N > 1 = a process group
+    # of N ranks (parallel/), -1 = every rank
     dp_shards: int = 0
 
 

@@ -9,7 +9,10 @@ first-N / every-Nth-from-start / explicit-index rules (:63-70, 199-225)
 as ``idx_{i:06d}_{lr,hr,sr}.png``, the wall time and MPix/s.  Also the
 tiled whole-image forward and the x8 geometric self-ensemble
 (``EvalConfig.self_ensemble``).  On a GPU, the MFU of the steady window
-against the card's dense bf16 peak (``utils/flops.py``).
+against the card's dense bf16 peak (``utils/flops.py``).  With a
+data-parallel `mesh` (``parallel.make_mesh``) every rank evaluates the
+same batches with the tile batch split across the ranks
+(``sharded_tiled_forward``); rank 0 alone writes the PNGs.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import torch.nn as nn
 from tpu_superresolution_torch.core.config import EvalConfig
 from tpu_superresolution_torch.core.device import resolve_device
 from tpu_superresolution_torch.data.transforms import pre_upscale_batch
-from tpu_superresolution_torch.evaluate.tiling import tiled_forward
+from tpu_superresolution_torch.evaluate.tiling import sharded_tiled_forward, tiled_forward
 from tpu_superresolution_torch.ops.metrics import batch_psnr, ssim
 from tpu_superresolution_torch.ops.resize import resize_bilinear
 
@@ -91,18 +94,26 @@ class Evaluator:
     log: Callable[[str], None] = print
     # where ``run`` puts the batches: None is the GPU (an error without one)
     device: Union[None, str, torch.device] = None
+    mesh: object = None  # parallel.Mesh: shard each image's tile batch across its ranks
 
     def forward_fn(self) -> Callable[[torch.Tensor], torch.Tensor]:
         """[B, H, W, C] -> [B, H*s, W*s, C] fp32 (the pre-upscale, tiling
         and the x8 self-ensemble per the eval config), under
-        ``torch.no_grad``."""
+        ``torch.no_grad``.  With a mesh the tiles are sharded, and an
+        untiled config raises (sharding splits the tile batch)."""
         ecfg = self.eval_config
         s = self.scale if self.convention == "native_lr" else 1
+        if self.mesh is not None and not ecfg.tile_size:
+            raise ValueError("sharded inference needs tiling: set EvalConfig.tile_size")
 
         def pipeline(lr: torch.Tensor) -> torch.Tensor:
             if self.convention == "pre_upscale":
                 lr = pre_upscale_batch(lr, self.scale)
-            if ecfg.tile_size:
+            if self.mesh is not None:
+                out = sharded_tiled_forward(self.model, lr, s, ecfg.tile_size,
+                                            ecfg.tile_overlap, self.mesh,
+                                            max_tile_batch=ecfg.max_tile_batch)
+            elif ecfg.tile_size:
                 out = tiled_forward(self.model, lr, s, ecfg.tile_size, ecfg.tile_overlap,
                                     max_tile_batch=ecfg.max_tile_batch)
             else:
@@ -134,8 +145,8 @@ class Evaluator:
         over its own time (0 when every batch was a first at its shape;
         the JAX package's counts every batch's pixels over the wall time
         less ``compile_s``).  The metrics stay on the device and are read
-        back once a batch.  On a GPU also ``flops``, the steady window's
-        FLOPs (``utils.flops.torch_flops`` of the whole forward pipeline,
+        back once a batch.  On a GPU without a mesh also ``flops``, the
+        steady window's FLOPs (``utils.flops.torch_flops`` of the whole forward pipeline,
         once a batch shape, after the loop), and ``mfu``, those FLOPs over
         the steady window's time against ``PEAK_BF16_FLOPS``: a lower
         bound on the model's own utilisation, since the window holds the
@@ -144,6 +155,10 @@ class Evaluator:
         device = resolve_device(self.device)
         sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
         fwd = self.forward_fn()
+        if self.mesh is not None:
+            from tpu_superresolution_torch.parallel.mesh import is_writer
+
+            save_dir = save_dir if is_writer() else None
         if save_dir:
             Path(save_dir).mkdir(parents=True, exist_ok=True)
 
@@ -226,7 +241,7 @@ class Evaluator:
             "compile_s": compile_t,
             "mpix_per_s": steady_pixels / 1e6 / steady,
         }
-        if device.type == "cuda" and steady_shapes:
+        if device.type == "cuda" and steady_shapes and self.mesh is None:
             self._add_mfu(results, steady_shapes, steady)
         self.log(
             f"[done] n={results['n']} PSNR {results['psnr']:.2f} dB | "

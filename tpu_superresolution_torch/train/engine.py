@@ -1,5 +1,5 @@
-"""The training engine (port of ``tpu_superresolution_tpu/train/engine.py``
-for one device): optimizer, train and eval steps, and ``Trainer.fit``.
+"""The training engine (port of ``tpu_superresolution_tpu/train/engine.py``):
+optimizer, train and eval steps, and ``Trainer.fit``.
 
 - The train step: paired augmentation on the device, in the model's
   convention (pre-upscale for the CNN families MS_ResUNet and UNet2D:
@@ -29,8 +29,10 @@ for one device): optimizer, train and eval steps, and ``Trainer.fit``.
   reported grad norm covers the trainable ones (the JAX package reports
   the norm over all of them; the updates are the same).
 
-The JAX package runs `dp_shards > 1` through shard_map; here that waits
-for the multi-GPU slice and raises.
+With `dp_shards` > 1 (-1: every rank) ``Trainer.fit`` runs the
+data-parallel steps of ``parallel/`` over a process group of that many
+ranks (``torchrun``, one rank a device), as the JAX package runs its
+shard_map steps over a device mesh.
 """
 
 from __future__ import annotations
@@ -133,6 +135,12 @@ def apply_gradients(state: TrainState) -> torch.Tensor:
     for group in state.optimizer.param_groups:
         group["lr"] = lr
     state.optimizer.step()
+    # the fused AdamW (CUDA) writes the parameters without moving their
+    # version counters, which DerivedCache keys the kernels' packed
+    # weights on: move them, or a no-grad forward after the step (the
+    # validation) would run the weights packed before it
+    for p in params:
+        torch.autograd.graph.increment_version(p)
     state.step += 1
     if state.ema is not None:
         live = dict(state.model.named_parameters())
@@ -278,23 +286,72 @@ class Trainer:
 
         tcfg, dcfg = self.train_config, self.data_config
         os.makedirs(self.workdir, exist_ok=True)
-        if tcfg.dp_shards not in (0, 1):
-            raise NotImplementedError(
-                f"dp_shards={tcfg.dp_shards}: data parallelism waits for the multi-GPU slice "
-                "(ROADMAP.md)")
         if generator is None:
             generator = torch.Generator().manual_seed(tcfg.seed)
         patch = dcfg.patch_size if dcfg.convention == "pre_upscale" else dcfg.lr_patch
         norm = (dcfg.norm_mean, dcfg.norm_std) if dcfg.normalizes else None
-        train_step = make_train_step(tcfg.loss, dcfg.convention, dcfg.scale_int, patch,
-                                     dcfg.do_flips, dcfg.do_blur, norm)
         eval_step = make_eval_step(tcfg.loss, dcfg.convention, dcfg.scale_int, norm)
+
+        # Data parallelism: dp_shards > 1 runs the data-parallel steps
+        # over a mesh of that many ranks (-1: every rank); each rank
+        # takes its rows of the same global batch.
+        dp = tcfg.dp_shards
+        if dp == -1:
+            from tpu_superresolution_torch.parallel.mesh import launched_world_size
+
+            dp = launched_world_size()
+        dp = dp if dp and dp > 1 else 0
+        mesh = None
+        writer = True
+        if dp:
+            from tpu_superresolution_torch.parallel import (
+                make_dp_eval_step,
+                make_dp_train_step,
+                make_mesh,
+                replicate,
+                shard_batch,
+            )
+            from tpu_superresolution_torch.parallel.mesh import is_writer
+
+            mesh = make_mesh(dp, next(state.model.parameters()).device)
+            writer = is_writer()
+            replicate(state, mesh)
+            dp_train = make_dp_train_step(tcfg.loss, dcfg.convention, dcfg.scale_int, patch,
+                                          dcfg.do_flips, mesh, dcfg.do_blur, norm)
+            dp_eval = make_dp_eval_step(tcfg.loss, dcfg.convention, dcfg.scale_int, mesh, norm)
+            single_eval = eval_step
+
+            def train_step(st, lr_np, hr_np, gen):
+                # a ragged batch is padded to a multiple of dp by wrapping
+                # real samples, the pads weighted 0: no sample is dropped
+                n = lr_np.shape[0]
+                w = np.ones((n + (-n) % dp,), np.float32)
+                if len(w) > n:
+                    idx = np.arange(len(w)) % n
+                    lr_np, hr_np = np.asarray(lr_np)[idx], np.asarray(hr_np)[idx]
+                    w[n:] = 0.0
+                return dp_train(st, *shard_batch((lr_np, hr_np, w), mesh), gen)
+
+            def eval_step(model, lr_np, hr_np):
+                # a ragged val batch runs whole on every rank, no collective
+                if lr_np.shape[0] % dp:
+                    return single_eval(model, lr_np, hr_np)
+                return dp_eval(model, *shard_batch((lr_np, hr_np), mesh))
+        else:
+            train_step = make_train_step(tcfg.loss, dcfg.convention, dcfg.scale_int, patch,
+                                         dcfg.do_flips, dcfg.do_blur, norm)
+        # rank 0 alone logs and writes checkpoints, the report, the loss
+        # curve and the trace; the others wait at the barrier at the end
+        log = self.log if writer else (lambda msg: None)
+        if dp:
+            log(f"[dp] data-parallel over {dp} devices ({mesh.backend}: one all-reduce of "
+                "the gradients a step)")
         eval_model = state.model
         if state.ema is not None:
             eval_model = _model_copy(state.model)
 
         rec = None
-        if self.trace_path:
+        if self.trace_path and writer:
             from tpu_superresolution_torch.utils.trace import TraceRecorder
 
             rec = TraceRecorder()
@@ -314,8 +371,8 @@ class Trainer:
                 step_t += time.time() - t0
                 if tcfg.time_log_every and len(losses) % tcfg.time_log_every == 0:
                     k = len(losses)
-                    self.log(f"[{dcfg.scale}][time] batch {k}: data {data_t / k:.3f}s/b "
-                             f"step {step_t / k:.3f}s/b")
+                    log(f"[{dcfg.scale}][time] batch {k}: data {data_t / k:.3f}s/b "
+                        f"step {step_t / k:.3f}s/b")
                 end = time.time()
             self.history["native_decodes"].append(native_decode.decodes.count - decodes0)
             n_steps = max(1, len(losses))
@@ -331,9 +388,9 @@ class Trainer:
 
             if not (tcfg.val_every <= 1 or epoch % tcfg.val_every == 0 or epoch == tcfg.epochs):
                 self.history["val"].append(None)
-                self.log(f"[{dcfg.scale}] epoch {epoch}: train_loss {tr_loss:.7f} | "
-                         f"(data {data_t / n_steps:.3f}/batch {step_t / n_steps:.3f}) | "
-                         f"time: train {t_tr:.1f}s (val skipped)")
+                log(f"[{dcfg.scale}] epoch {epoch}: train_loss {tr_loss:.7f} | "
+                    f"(data {data_t / n_steps:.3f}/batch {step_t / n_steps:.3f}) | "
+                    f"time: train {t_tr:.1f}s (val skipped)")
                 continue
             t_val0 = time.time()
             if state.ema is not None:
@@ -354,38 +411,43 @@ class Trainer:
                              loss=val_loss, psnr=val_psnr, ssim=val_ssim)
                 rec.counter("val_psnr", val_psnr)
             self.history["val"].append(val_loss)
-            self.log(f"[{dcfg.scale}] epoch {epoch}: train_loss {tr_loss:.7f}, "
-                     f"val_loss {val_loss:.7f} | val_PSNR {val_psnr:.2f} dB, "
-                     f"val_SSIM {val_ssim:.4f} | (data {data_t / n_steps:.3f}/batch "
-                     f"{step_t / n_steps:.3f}) | time: train {t_tr:.1f}s, val {t_val:.1f}s")
+            log(f"[{dcfg.scale}] epoch {epoch}: train_loss {tr_loss:.7f}, "
+                f"val_loss {val_loss:.7f} | val_PSNR {val_psnr:.2f} dB, "
+                f"val_SSIM {val_ssim:.4f} | (data {data_t / n_steps:.3f}/batch "
+                f"{step_t / n_steps:.3f}) | time: train {t_tr:.1f}s, val {t_val:.1f}s")
             elapsed = time.time() - t_start
-            self.log(f"[{dcfg.scale}][time] elapsed={elapsed:.0f}s "
-                     f"ETA~{elapsed / epoch * (tcfg.epochs - epoch):.0f}s")
+            log(f"[{dcfg.scale}][time] elapsed={elapsed:.0f}s "
+                f"ETA~{elapsed / epoch * (tcfg.epochs - epoch):.0f}s")
 
             improved = val_loss < self.best_val_loss
             if improved:
                 self.best_val_loss = val_loss
+            if improved and writer:
                 save_checkpoint(f"{self.workdir}/best_{dcfg.scale}.pth", state, self.model_config,
                                 extra={"epoch": epoch, "best_val_loss": val_loss,
                                        "val_psnr": val_psnr})
-                self.log(f"[ckpt] saved best_{dcfg.scale} (val_loss {val_loss:.7f})")
+                log(f"[ckpt] saved best_{dcfg.scale} (val_loss {val_loss:.7f})")
             if val_psnr > self.best_val_psnr:
                 self.best_val_psnr = val_psnr
-                save_checkpoint(f"{self.workdir}/bestpsnr_{dcfg.scale}.pth", state,
-                                self.model_config,
-                                extra={"epoch": epoch, "best_val_psnr": val_psnr,
-                                       "val_loss": val_loss})
+                if writer:
+                    save_checkpoint(f"{self.workdir}/bestpsnr_{dcfg.scale}.pth", state,
+                                    self.model_config,
+                                    extra={"epoch": epoch, "best_val_psnr": val_psnr,
+                                           "val_loss": val_loss})
             self._no_improve = 0 if improved else self._no_improve + 1
             if tcfg.early_stop_patience and self._no_improve >= tcfg.early_stop_patience:
-                self.log(f"[early_stop] no val-loss improvement for {self._no_improve} epochs "
-                         f"(patience {tcfg.early_stop_patience}) — stopping at epoch {epoch}")
+                log(f"[early_stop] no val-loss improvement for {self._no_improve} epochs "
+                    f"(patience {tcfg.early_stop_patience}) — stopping at epoch {epoch}")
                 break
 
-        self.save_loss_curve(f"{self.workdir}/loss_curve_{dcfg.scale}.png")
-        self.save_run_report(f"{self.workdir}/run_{dcfg.scale}.json")
+        if writer:
+            self.save_loss_curve(f"{self.workdir}/loss_curve_{dcfg.scale}.png")
+            self.save_run_report(f"{self.workdir}/run_{dcfg.scale}.json")
         if rec:
             rec.save(self.trace_path)
-            self.log(f"[trace] saved chrome-trace timeline to {self.trace_path}")
+            log(f"[trace] saved chrome-trace timeline to {self.trace_path}")
+        if mesh is not None:
+            torch.distributed.barrier(group=mesh.group)
         return state
 
     def save_run_report(self, path: str) -> None:
