@@ -254,9 +254,17 @@ Phases (a failure in any raises, and the script exits non-zero):
             single-channel SwinIR-M x4, tile 64 / 8): its [baseline] and
             [result] lines against the plain fp32 path;
 22. export  ``interop.export`` of SwinIR-M x4 at [25,64,64,3] bf16 with
-            K1-K4 as custom ops: the loaded program bit-identical to the
-            eager kernel path, its launches exactly one bench call's;
-            a DAT x4 refused on CUDA with its kernels named;
+            K1-K4 as custom ops, then of HAT x4, hat_fast, HAT-SRx4, DAT
+            x4, the published DAT x4, a DAT x4 at C 240 (the module
+            chain: K11, K16), SwinIR at ws 7 and SwinIR-L at the same
+            tiles and MS_ResUNet x4 and UNet2D on them pre-upscaled
+            [25,256,256,1], every inference kernel as its tpu_sr:: op:
+            each loaded program bit-identical to the eager kernel path,
+            its launches and eager's exactly the family's per-call
+            table, within PSNR_MIN_DB of plain fp32; the export's
+            seconds and size, a call's ms loaded against eager with
+            each one's device busy time; the host cost of a launch
+            through its custom op against the direct launch;
 23. dp      ``parallel/`` on SwinIR-M x4 at full width (drop path 0):
             at world 1 over NCCL one ``make_dp_train_step`` step (batch 8
             of 64^2 LR crops) against ``make_train_step`` from the same
@@ -6118,24 +6126,209 @@ def phase_mat_eval(workdir, smi):
     return launches
 
 
+# DAT x4 at C 240 (DATConfig() otherwise, its depth cut to 6 groups of 2
+# blocks: the odd groups' first block shifted): past rect_ok's, chan_ok's
+# and tail_ok's C <= 192, so every block runs the module chain at
+# inference: per block K2 for LN1, LN2 and the gate's norm (36) and K11
+# for the conv branch and the gate's conv (24), per spatial block K16 for
+# each rect branch (12); K2 for before_RG and norm; K3 for the 6 group
+# convs, conv_after_body and conv_before_upsample; K4 for the composed
+# reconstruction.
+DAT_CHAIN_DEPTHS = (2,) * 6
+DAT_CHAIN_PER_CALL = dict(PER_CALL, K1=0, K2=38, K3=8, K4=1, K11=24, K16=12)
+# The CNN families (pre-upscaled input; no hand-written kernel on their
+# path): no launch.
+CNN_PER_CALL = {k: 0 for k in PER_CALL}
+
+
+def _export_families():
+    """(label, config, input shape, per-call launches) of each family the
+    export phase takes beside SwinIR-M x4: the SR models at the bench tile
+    batch [25, 64, 64, 3], the CNNs on the same tiles pre-upscaled x4."""
+    import dataclasses
+
+    from tpu_superresolution_torch.core.config import (
+        DATConfig,
+        HATConfig,
+        HATFastConfig,
+        MSResUNetConfig,
+        SwinIRConfig,
+        UNet2DConfig,
+    )
+
+    tiles, pre = (25, 64, 64, 3), (25, 256, 256, 1)
+    return [
+        ("HAT x4 (ws 7)", HATConfig(), tiles, HAT_PER_CALL),
+        ("hat_fast (ws 8)", HATFastConfig(), tiles, HAT_FAST_PER_CALL),
+        ("HAT-SRx4 (ws 16)", hat_srx4_config(), tiles, HAT_SRX4_PER_CALL),
+        ("DAT x4", DATConfig(), tiles, DAT_PER_CALL),
+        ("DAT x4 published (8, 32)", DATConfig(split_size=(8, 32), expansion_factor=4.0), tiles,
+         DAT_X4_PER_CALL),
+        ("DAT x4 C 240 (module chain, depths 6x2)",
+         DATConfig(embed_dim=240, depths=DAT_CHAIN_DEPTHS), tiles, DAT_CHAIN_PER_CALL),
+        ("SwinIR-M x4 ws 7", dataclasses.replace(SwinIRConfig(scale=4), window_size=7), tiles,
+         SWINIR_WS7_PER_CALL),
+        ("SwinIR-L x4", swinir_l_config(), tiles, SWINIR_L_PER_CALL),
+        ("MS_ResUNet x4", MSResUNetConfig(), pre, CNN_PER_CALL),
+        ("UNet2D", UNet2DConfig(), pre, CNN_PER_CALL),
+    ]
+
+
+def _dispatched_ops(fn):
+    """The aten ops one call of fn() dispatches (``TorchDispatchMode``):
+    {"aten": all of them, "aten.<name>": each}; the kernels' direct
+    launches are no aten op."""
+    import collections
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = str(func.overloadpacket)
+            if name.startswith("aten."):
+                self.seen["aten"] += 1
+                self.seen[name] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as count:
+        fn()
+    return count.seen
+
+
+def _export_family(label, cfg, shape, per_call, smi, tag="export"):
+    """One family through ``interop.export`` on the card (seeded random
+    weights, DAT's BatchNorm statistics perturbed, bf16): export and load
+    the program, then on a seeded input the loaded program bit-identical
+    to the eager kernel path, the launches of a call of each exactly
+    `per_call`, the output within PSNR_MIN_DB of the plain fp32 path;
+    the export's seconds and size, a call's ms loaded against eager and
+    the device busy time of one profiled call of each.  Returns the
+    loaded program's launches."""
+    import numpy as np
+    import torch
+
+    from tpu_superresolution_torch.core.config import build_model
+    from tpu_superresolution_torch.interop.export import export_model, load_exported
+    from tpu_superresolution_torch.kernels import read_counters, reset_counters
+    from tpu_superresolution_torch.utils.profiling import device_split
+
+    t_leg = time.perf_counter()
+    src = build_model(cfg)
+    src.reset_parameters(torch.Generator().manual_seed(SEED))
+    if cfg.name == "dat":
+        _perturb_dat(src, torch.Generator().manual_seed(SEED + 5))
+    model = build_model(cfg, dtype=torch.bfloat16, device="cuda")
+    model.load_state_dict(src.state_dict())
+    t0 = time.perf_counter()
+    blob = export_model(model, shape, dtype=torch.bfloat16)
+    t_export = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fn = load_exported(blob)
+    t_load = time.perf_counter() - t0
+    x = torch.from_numpy(np.random.default_rng(SEED + 45).random(shape, np.float32)).to(
+        "cuda", torch.bfloat16)
+    counts = {}
+    with torch.no_grad():
+        fn(x)  # warm: the program's own first call
+        for name, run in (("eager", model), ("program", fn)):
+            torch.cuda.synchronize()
+            reset_counters()
+            out = run(x)
+            torch.cuda.synchronize()
+            counts[name] = read_counters()
+            if name == "eager":
+                eager = out
+        got = out
+        prog_ms = cuda_ms(lambda: fn(x), iters=5, warmup=1)
+        eager_ms = cuda_ms(lambda: model(x), iters=5, warmup=1)
+        busy = {name: device_split(run).busy_ms
+                for name, run in (("program", lambda: fn(x)), ("eager", lambda: model(x)))}
+        ops = {name: _dispatched_ops(run) for name, run in (("program", lambda: fn(x)),
+                                                             ("eager", lambda: model(x)))}
+    del model
+    plain = build_model(cfg, dtype=torch.float32, impl="plain", device="cuda")
+    plain.load_state_dict(src.state_dict())
+    with torch.no_grad():
+        ref = plain(x.float())
+    del plain
+    torch.cuda.empty_cache()
+    psnr = _psnr_db(got, ref)
+    same = bool(torch.equal(got, eager))
+    finite = bool(torch.isfinite(got.float()).all())
+    expect = {k: per_call.get(k, 0) for k in counts["program"]}
+    nonzero = lambda d: {k: n for k, n in d.items() if n}
+    log(f"[{tag}] {label} {list(shape)} bf16: export {len(blob) / 2**20:.1f} MiB in "
+        f"{t_export:.1f} s, load {t_load:.1f} s; the loaded program vs the eager kernel path "
+        f"{'bit-identical' if same else 'differs'}, vs plain fp32 PSNR {psnr:.2f} dB (bound >= "
+        f"{PSNR_MIN_DB}); launches a call: program {nonzero(counts['program'])}, eager "
+        f"{nonzero(counts['eager'])}; a call {prog_ms:.3f} ms loaded, {eager_ms:.3f} ms eager (median of "
+        f"5), the device busy {busy['program']:.3f} / {busy['eager']:.3f} ms of one profiled "
+        f"call; aten ops a call {ops['program']['aten']} loaded (of them "
+        f"{ops['program']['aten._assert_tensor_metadata']} aten._assert_tensor_metadata), "
+        f"{ops['eager']['aten']} eager; the leg {time.perf_counter() - t_leg:.1f} s ({smi})")
+    if (not same or not finite or counts["program"] != expect or counts["eager"] != expect
+            or psnr < PSNR_MIN_DB):
+        raise RuntimeError(f"{tag}: {label}: same {same}, finite {finite}, launches "
+                           f"{counts} (expected {expect}), PSNR {psnr}")
+    return counts["program"]
+
+
+def _op_dispatch_us(smi, tag="export", calls=200, rounds=3):
+    """The host cost of a launch through its custom op against the
+    wrapper's direct launch: K2 on a [64, 180] bf16 tensor (device time
+    ~µs, so the host's time is what is read), `calls` back to back a
+    round, the two interleaved over `rounds`; µs a call, the best round
+    of each."""
+    import torch
+
+    from tpu_superresolution_torch.kernels import layernorm
+
+    x = torch.rand(64, 180, device="cuda").bfloat16()
+    g, b = torch.ones(180, device="cuda"), torch.zeros(180, device="cuda")
+    runs = {"op": lambda: torch.ops.tpu_sr.layernorm(x, g, b, layernorm.EPS),
+            "direct": lambda: layernorm._launch(x, g, b, layernorm.EPS)}
+    if not torch.equal(runs["op"](), runs["direct"]()):
+        raise RuntimeError(f"{tag}: the K2 op differs from its direct launch")
+    best = {k: float("inf") for k in runs}
+    for _ in range(rounds):
+        for k, run in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                run()
+            torch.cuda.synchronize()
+            best[k] = min(best[k], (time.perf_counter() - t0) / calls * 1e6)
+    log(f"[{tag}] host cost of a K2 launch at [64, 180] ({calls} calls back to back, best of "
+        f"{rounds} interleaved rounds): through tpu_sr::layernorm {best['op']:.1f} us, direct "
+        f"{best['direct']:.1f} us ({smi})")
+
+
 def phase_export(smi):
-    """``interop.export`` on the card: SwinIR-M x4 (serving semantics,
+    """``interop.export`` on the card.  SwinIR-M x4 (serving semantics,
     bf16) exported at the bench tile batch [25, 64, 64, 3] with K1-K4 as
     the tpu_sr:: custom ops; ``export_parity`` (the loaded program
     against the eager kernel path: 0 max abs), then the loaded program
     on a seeded input: bit-identical to the eager kernel path, its
     launches exactly PER_CALL, within PSNR_MIN_DB of the plain fp32
-    path; a DAT x4 on CUDA must be refused with its kernels named.
-    Returns the loaded program's launches."""
+    path.  Then each family of ``_export_families`` (HAT x4, hat_fast,
+    HAT-SRx4, DAT x4, the published DAT x4, a DAT on the module chain,
+    SwinIR at ws 7, SwinIR-L, MS_ResUNet, UNet2D) through
+    ``_export_family``'s checks.  Returns the loaded programs' launches,
+    summed."""
     import dataclasses
 
     import torch
 
-    from tpu_superresolution_torch.core.config import DATConfig, build_model
+    from tpu_superresolution_torch.core.config import build_model
     from tpu_superresolution_torch.interop.export import export_model, export_parity, load_exported
     from tpu_superresolution_torch.kernels import read_counters, reset_counters
 
     tag = "export"
+    t_phase = time.perf_counter()
     cfg, src = _seeded_swinir_m()
     cfg = dataclasses.replace(cfg, fused_reconstruct=True)
     model = build_model(cfg, dtype=torch.bfloat16, device="cuda")
@@ -6177,18 +6370,13 @@ def phase_export(smi):
     if max_abs != 0.0 or not same or launches != expect or psnr < PSNR_MIN_DB:
         raise RuntimeError(f"{tag}: parity {max_abs}, same {same}, launches {launches} "
                            f"(expected {expect}), PSNR {psnr}")
-    dat = build_model(DATConfig(), dtype=torch.bfloat16, device="cuda")
-    try:
-        export_model(dat, (1, 64, 64, 3), dtype=torch.bfloat16)
-    except NotImplementedError as e:
-        msg = str(e)
-    else:
-        raise RuntimeError(f"{tag}: a DAT x4 exported on CUDA")
-    log(f"[{tag}] DAT x4 on CUDA refused: {msg}")
-    if not all(k in msg for k in ("K9", "K10", "K14", "ROADMAP")):
-        raise RuntimeError(f"{tag}: the refusal does not name the kernels: {msg}")
-    del dat, model
-    return launches
+    del model, fn
+    _op_dispatch_us(smi, tag)
+    all_launches = [launches]
+    for label, fcfg, fshape, per_call in _export_families():
+        all_launches.append(_export_family(label, fcfg, fshape, per_call, smi, tag))
+    log(f"[{tag}] phase {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return {k: sum(d.get(k, 0) for d in all_launches) for k in PER_CALL}
 
 
 def phase_ablate(smi):

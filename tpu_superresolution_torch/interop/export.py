@@ -12,10 +12,13 @@ package still has to be importable: it registers the kernels' ops).
 
 - On the CPU the plain path exports (the wrappers' plain versions).
 - On CUDA the program runs the port's kernels as the ``tpu_sr::`` custom
-  ops of ``kernels/custom_ops.py``: K1, K2, K3 and K4, the kernels of
-  SwinIR serving.  A model whose forward launches any other kernel is
-  refused with its name, since no custom op stands for it yet; its plain
-  path is not exported instead.
+  ops of ``kernels/custom_ops.py``: every kernel an inference forward
+  launches (``EXPORTABLE``), so that every family exports (SwinIR at any
+  window and width, HAT, ``hat_fast``, HAT-SRx4, DAT on its kernel
+  fronts or its module chain, and the CNNs, which launch none).  A
+  forward that launches any other kernel (a training-only one: the eval
+  forward never does) is refused with its name; its plain path is never
+  exported instead.
 
 Before tracing, one eager forward at the input shape fills the caches
 the forward reads: the weights' packed layouts and composed convs
@@ -24,7 +27,10 @@ constants, so that the loaded program launches what the eager path
 launches, on the same operands, and the shape-keyed index tables and
 masks, which a cache miss inside the trace would otherwise fill with the
 trace's fake tensors.  On CUDA it also builds the kernels and counts the
-launches.
+launches.  The trace runs without gradients, as the warm-up does, so
+that it takes the warm-up's path (with gradients, a block that trains on
+a backward kernel would take its autograd function and read tables the
+warm-up never built).
 """
 
 from __future__ import annotations
@@ -42,7 +48,8 @@ from tpu_superresolution_torch.kernels.custom_ops import EXPORTABLE
 
 def _warm_up(model: torch.nn.Module, x: torch.Tensor) -> None:
     """The eager forward at x's shape (the module docstring says why);
-    on CUDA, raises when it launched a kernel with no custom op."""
+    on CUDA, raises when it launched a kernel with no custom op (the
+    guard for anything outside ``EXPORTABLE``)."""
     reset_counters()
     with torch.no_grad():
         model(x)
@@ -54,9 +61,8 @@ def _warm_up(model: torch.nn.Module, x: torch.Tensor) -> None:
     if other:
         raise NotImplementedError(
             f"export on CUDA: this model's forward launches {sorted(other)}, which have no "
-            f"torch.library custom op yet (only {list(EXPORTABLE)}, SwinIR serving's kernels); "
-            "ROADMAP.md Queue 1 item 5b (custom ops for the kernels off the main path) will "
-            "register them")
+            f"torch.library custom op (the ops stand for the inference kernels "
+            f"{list(EXPORTABLE)}; export an eval-mode model)")
 
 
 def export_model(model: torch.nn.Module, input_shape: Sequence[int],
@@ -67,7 +73,8 @@ def export_model(model: torch.nn.Module, input_shape: Sequence[int],
     model = model.eval()
     x = torch.zeros(tuple(input_shape), dtype=dtype, device=next(model.parameters()).device)
     _warm_up(model, x)
-    program = torch.export.export(model, (x,), strict=False)
+    with torch.no_grad():
+        program = torch.export.export(model, (x,), strict=False)
     buf = io.BytesIO()
     torch.export.save(program, buf)
     blob = buf.getvalue()

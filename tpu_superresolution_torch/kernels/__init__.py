@@ -90,10 +90,12 @@ chain: K2 for its LayerNorms, K11 for its depthwise convs and K16 for its
 rect-window attention; K11's and K16's backwards are torch autograd of
 their plain versions.
 
-For ``torch.export``, K1-K4 (the main path's kernels) are also
-``torch.library`` custom ops (``custom_ops.py``, registered when this
-package is imported), which their wrappers call only while an export
-traces.
+For ``torch.export``, every kernel an inference forward launches (K1,
+K1t, K2, K3, K4, K6, K7, K8w16, K9, K10, K11, K12, K14, K15, K16;
+``custom_ops.EXPORTABLE``) is also a ``torch.library`` custom op
+(``custom_ops.py``, registered when this package is imported), which its
+wrapper calls only while an export traces; the training-only kernels
+(K5, K5r, K5w16, K6b, K8, K8b, K8bw16) have none.
 """
 
 from __future__ import annotations

@@ -573,6 +573,12 @@ def fused_ln_cab_convs(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, k1: to
     per-call packing."""
     if x.device.type == "cpu":
         return fused_ln_cab_convs_plain(x, g, b, k1, c1, k2, c2)
+    if _lib.exporting():
+        from tpu_superresolution_torch.kernels import custom_ops
+
+        check_cab_limits(int(k1.shape[2]), int(k1.shape[3]))
+        return custom_ops.ln_cab_convs(x.contiguous(),
+                                       packed or pack_cab(g, b, k1, c1, k2, c2))
     _lib.require_cuda(x, "fused_ln_cab_convs")
     check_cab_limits(int(k1.shape[2]), int(k1.shape[3]))
     x = x.contiguous()

@@ -184,11 +184,13 @@ def dwconv3x3(x: torch.Tensor, k: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     through ``DWConv3x3Function`` when a gradient is wanted."""
     if x.device.type == "cpu":
         return dwconv3x3_plain(x, k, b)
-    _lib.require_cuda(x, "dwconv3x3")
     c = x.shape[-1]
     if x.dim() != 4 or k.shape != (3, 3, c) or b.shape != (c,):
         raise ValueError(f"dwconv3x3: x {tuple(x.shape)}, kernel {tuple(k.shape)}, bias "
                          f"{tuple(b.shape)} are not [B, H, W, C], [3, 3, C], [C]")
+    if _lib.exporting():
+        return torch.ops.tpu_sr.dwconv3x3(x.contiguous(), k, b)
+    _lib.require_cuda(x, "dwconv3x3")
     if not x.is_contiguous():
         x = x.contiguous()
     if torch.is_grad_enabled() and (x.requires_grad or k.requires_grad or b.requires_grad):

@@ -355,6 +355,13 @@ def fused_window_attention(xw: torch.Tensor, wqkv: torch.Tensor, bqkv: Optional[
     if xw.device.type == "cpu":
         rpb = packed.dense_bias() if rpb is None else rpb
         return window_attention_plain(xw, wqkv, bqkv, wproj, bproj, rpb, mask, scale)
+    if _lib.exporting():
+        from tpu_superresolution_torch.kernels import custom_ops
+
+        if packed is None:
+            packed = pack_window_attention(wqkv, bqkv, wproj, bproj, rpb)
+        return custom_ops.window_block_attention(
+            xw.contiguous(), packed, None if mask is None else mask.float().contiguous(), codes)
     _lib.require_cuda(xw, "fused_window_attention")
     return _kernel_window_attention(xw, wqkv, bqkv, wproj, bproj, rpb, mask, packed, codes,
                                     scale)

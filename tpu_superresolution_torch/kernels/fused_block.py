@@ -916,6 +916,8 @@ def fused_block_tail(x: torch.Tensor, attn: torch.Tensor, w: SwinBlockWeights, w
     params = (w.g2, w.b2, w.wfc1, w.bfc1, w.wfc2, w.bfc2)
     if x.device.type == "cpu":
         return _tail_plain(x, attn, extra, branch_scales, *params, ws, shift, gelu_approx)
+    if _lib.exporting():
+        return _export_tail(x, attn, w, ws, shift, gelu_approx, branch_scales, extra, packed)
     _lib.require_cuda(x, "fused_block_tail")
     x, attn = x.contiguous(), attn.contiguous()
     if extra is not None:
@@ -930,6 +932,22 @@ def fused_block_tail(x: torch.Tensor, attn: torch.Tensor, w: SwinBlockWeights, w
         packed = pack_block_tail(*params)
     return _launch_tail(x, attn, packed, ws, shift, gelu_approx, branch_scales, extra)
 
+
+
+def _export_tail(x, attn, w: SwinBlockWeights, ws, shift, gelu_approx, branch_scales, extra,
+                 packed) -> torch.Tensor:
+    """K1t as the ``tpu_sr::swin_block_tail`` custom op, while
+    ``torch.export`` traces an inference forward (``kernels/custom_ops.py``)."""
+    from tpu_superresolution_torch.kernels import custom_ops
+
+    if branch_scales is not None:
+        raise NotImplementedError("fused_block_tail: branch scales (stochastic depth, training "
+                                  "only) have no custom op for torch.export")
+    if packed is None:
+        packed = pack_block_tail(w.g2, w.b2, w.wfc1, w.bfc1, w.wfc2, w.bfc2)
+    return custom_ops.swin_block_tail(x.contiguous(), attn.contiguous(),
+                                      None if extra is None else extra.contiguous(), packed, ws,
+                                      shift, gelu_approx)
 
 
 def _ln_stats(x32: torch.Tensor):
@@ -1585,17 +1603,17 @@ def fused_windows_block(x: torch.Tensor, w: SwinBlockWeights, ws: int, shift: in
 
 def _export_block(x, w: SwinBlockWeights, ws, shift, mask, gelu_approx, extra, packed,
                   branch_scales) -> torch.Tensor:
-    """K1 as the ``tpu_sr::swin_block`` custom op, while ``torch.export``
-    traces an inference forward (``kernels/custom_ops.py``)."""
+    """K1 / K6 as the ``tpu_sr::swin_block`` custom op, while
+    ``torch.export`` traces an inference forward (``kernels/custom_ops.py``)."""
     from tpu_superresolution_torch.kernels import custom_ops
 
-    if ws != 8 or extra is not None or branch_scales is not None:
-        raise NotImplementedError(
-            f"fused_windows_block: only K1's inference call (ws 8, no extra, no branch scales) "
-            f"has a custom op for torch.export; ws {ws} is "
-            f"{'K6' if ws == 7 else 'K1'}{' with extra' if extra is not None else ''}")
+    if branch_scales is not None:
+        raise NotImplementedError("fused_windows_block: branch scales (stochastic depth, "
+                                  "training only) have no custom op for torch.export")
+    check_block_args(tuple(x.shape), w, ws, shift, "fused_windows_block")
     packed = packed if packed is not None else pack_block_tiles(w)
-    return custom_ops.swin_block(x, packed, shift, mask is not None and shift > 0, gelu_approx)
+    return custom_ops.swin_block(x, packed, shift, mask is not None and shift > 0, gelu_approx,
+                                 None if extra is None else extra.contiguous())
 
 
 class WindowBlockFunction(torch.autograd.Function):

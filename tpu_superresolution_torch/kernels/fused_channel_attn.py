@@ -240,6 +240,11 @@ def channel_attention(x: torch.Tensor, w: ChanAttnWeights,
     only."""
     if x.device.type == "cpu":
         return channel_attention_plain(x, w)
+    if _lib.exporting():
+        from tpu_superresolution_torch.kernels import custom_ops
+
+        check_chan_args(tuple(x.shape), w)
+        return custom_ops.channel_attention(x.contiguous(), packed or pack_chan_weights(w))
     _lib.require_cuda(x, "channel_attention")
     check_chan_args(tuple(x.shape), w)
     return _launch(x.contiguous(), packed or pack_chan_weights(w))

@@ -336,6 +336,12 @@ def datb_tail(x: torch.Tensor, u: torch.Tensor, w_px: torch.Tensor, gate: torch.
     Inference only."""
     if x.device.type == "cpu":
         return datb_tail_plain(x, u, w_px, gate, w)
+    if _lib.exporting():
+        from tpu_superresolution_torch.kernels import custom_ops
+
+        check_tail_args(tuple(x.shape), w)
+        return custom_ops.datb_tail(x.contiguous(), u.contiguous(), w_px.contiguous(),
+                                    gate.float().contiguous(), packed or pack_tail_weights(w))
     _lib.require_cuda(x, "datb_tail")
     check_tail_args(tuple(x.shape), w)
     return _launch(x.contiguous(), u.contiguous(), w_px.contiguous(),

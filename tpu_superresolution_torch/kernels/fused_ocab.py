@@ -1002,7 +1002,6 @@ def fused_ocab_core_map(qkv: torch.Tensor, x: torch.Tensor, w: OcabWeights, bias
     gradient is wanted, the gather as ``OcabHeadsFunction`` and the core
     as ``Ocab16Function`` (backward K8bw16, then the gather's backward),
     else on `packed` where given."""
-    _lib.require_cuda(x, "fused_ocab_core_map")
     b, h, wd, c = x.shape
     check_ocab_args((b, W16_NQ, c), (b, W16_NK, c), (b, W16_NQ, c), w, bias.shape,
                     "fused_ocab_core_map")
@@ -1010,6 +1009,11 @@ def fused_ocab_core_map(qkv: torch.Tensor, x: torch.Tensor, w: OcabWeights, bias
         raise ValueError(f"fused_ocab_core_map: qkv {tuple(qkv.shape)}, x {tuple(x.shape)}: "
                          f"expected qkv [B, H, W, 3C] over x's map, H and W multiples of 16")
     qkv, x, bias = qkv.contiguous(), x.contiguous(), bias.float().contiguous()
+    if _lib.exporting():
+        from tpu_superresolution_torch.kernels import custom_ops
+
+        return custom_ops.ocab16(qkv, x, packed or pack_ocab_tiles(w), bias, gelu_approx)
+    _lib.require_cuda(x, "fused_ocab_core_map")
     params = [getattr(w, f) for f in GRAD_FIELDS]
     if torch.is_grad_enabled() and any(t.requires_grad for t in [qkv, x, bias] + params):
         hdp = stream_layout(w.dim, w.num_heads, w.hidden).hdp

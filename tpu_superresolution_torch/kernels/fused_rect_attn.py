@@ -423,6 +423,11 @@ def rect_attention(x: torch.Tensor, w: RectAttnWeights, shifted: bool,
     Inference only."""
     if x.device.type == "cpu":
         return rect_attention_plain(x, w, shifted)
+    if _lib.exporting():
+        from tpu_superresolution_torch.kernels import custom_ops
+
+        check_rect_args(tuple(x.shape), w)
+        return custom_ops.rect_attention(x.contiguous(), packed or pack_rect_weights(w), shifted)
     _lib.require_cuda(x, "rect_attention")
     check_rect_args(tuple(x.shape), w)
     return _launch(x.contiguous(), packed or pack_rect_weights(w), shifted)

@@ -427,20 +427,26 @@ class BatchedWindowAttentionFunction(torch.autograd.Function):
 def _attention(q, k, v, bias, mask, scale, counter, split_p, name) -> torch.Tensor:
     if q.device.type == "cpu":
         return fused_window_attention_plain(q, k, v, bias, mask, scale)
-    _lib.require_cuda(q, name)
+    if not _lib.exporting():
+        _lib.require_cuda(q, name)
     return _kernel_attention(q, k, v, bias, mask, scale, counter, split_p, name)
 
 
 def _kernel_attention(q, k, v, bias, mask, scale, counter, split_p, name) -> torch.Tensor:
     """The CUDA tensors' path: check the shapes against the routes'
     limits, then launch (through the autograd function when a gradient
-    is wanted)."""
+    is wanted), or while ``torch.export`` traces call the
+    ``tpu_sr::window_attention`` op (``custom_ops.py``)."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)} are not [B*nW, nH, "
                          f"N, hd]")
     k15_route(q.shape[2], k.shape[2], q.shape[3], mask is not None, split_p)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     mask = None if mask is None else mask.float().contiguous()
+    if _lib.exporting():
+        return torch.ops.tpu_sr.window_attention(q, k, v, bias.float().contiguous(), mask,
+                                                 float(scale), split_p,
+                                                 "K15" if counter is launches_rect else "K16")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
         return BatchedWindowAttentionFunction.apply(q, k, v, bias, mask, scale, counter,
                                                     split_p)

@@ -303,7 +303,7 @@ class OCAB(nn.Module):
             wproj=self.proj.weight, bproj=self.proj.bias, g2=self.norm2.weight,
             b2=self.norm2.bias, wfc1=self.mlp.fc1.weight, bfc1=self.mlp.fc1.bias,
             wfc2=self.mlp.fc2.weight, bfc2=self.mlp.fc2.bias, num_heads=self.num_heads)
-        if (ws, ows) == W16 and x.is_cuda and not plain:
+        if (ws, ows) == W16 and x.device.type != "cpu" and not plain:
             params = [getattr(weights, f) for f in GRAD_FIELDS]
             # K8w16's weight stream, cached outside autograd
             packed = self._pack.get(params, x.device, lambda: pack_ocab_tiles(weights),
