@@ -101,7 +101,15 @@ Phases (a failure in any raises, and the script exits non-zero):
             them) on 128 windows of 256 queries x 576 keys (K8w16 also
             on the serving batch's 400), each within 8 bf16 ulps (outputs,
             activation gradients) and 0.02 relative (parameter
-            gradients);
+            gradients); then K5r at SwinIR-L's [8,64,64,240]; then the
+            training kernels at any MLP hidden (``phase_mlp4_kernels``):
+            K5w16 at [8,64,64,180] with hidden 720 (the JAX train CLI's
+            HAT at window 16: mlp 4), shift 8 and 0, `extra`, branch
+            scales; K5r at [8,64,64,240] with hidden 960 (SwinIR-L at mlp
+            4); K8w16 / K8bw16 on 128 windows, K8 / K8b on 800 windows of
+            (7, 10) and 512 of (8, 12), at C 180 and hidden 720; the
+            OCAB's serving route at ws 16 and mlp 4; each within its
+            existing bound, timed, with its bound;
 4. serve    SwinIR-M x4 (seeded random weights, exported to a .pth) behind
             SRService + make_server on 127.0.0.1, three PNG requests;
             status, size, finite output, launch counts per model call,
@@ -186,6 +194,19 @@ Phases (a failure in any raises, and the script exits non-zero):
             (no block or OCAB backward left to autograd of plain ops), a
             profiled step split by part, and the first step's gradients
             against the plain fp32 path;
+10c. hat_mlp4-train the same through the train CLI with the JAX train
+            CLI's flags alone (no --mlp_ratio: HATConfig's mlp 4, hidden
+            720; ``hat_mlp4_config()``): launches per step exactly
+            HAT_SRX4_TRAIN_PER_STEP (the same routes, a wider MLP), ms per
+            step and peak memory for the kernels and the plain bf16 path,
+            the step's graph (every HAB's backward K5w16's, every OCAB's
+            K8bw16's), the first step's gradients against plain fp32;
+10d. hat_mlp4-serve its checkpoint through ``cli.upscale.main`` (one
+            whole-image call, its OCABs on K8w16: launches exactly
+            HAT_SRX4_PER_CALL; the PNG equal to the same forward's, that
+            forward >= 50 dB from plain fp32) and ``interop.export`` at
+            [8,64,64,3] (the loaded program bit-identical to eager, the
+            same launches);
 11. dat_x4  the published DAT x4 (split (8, 32), expansion 4; seeded
             random weights, perturbed BatchNorm statistics): its .pth
             behind SRService (which loads it at split (8, 16): K9 and K14
@@ -284,7 +305,8 @@ with the counted and the analytic FLOPs.
 
 The second-to-last stdout line is a JSON object describing each kernel
 (launches summed over the serve, evaluate, SwinIR ws-7, SwinIR-L, wide,
-hat, dat, train, hat-train, hat_srx4, hat_srx4-train, swinir_l-train,
+hat, dat, train, hat-train, hat_srx4, hat_srx4-train, hat_mlp4-train,
+hat_mlp4-serve, swinir_l-train,
 dat_x4, dat-train, swinir-data, trace, remat, compare, mat-eval, export
 and dp phases, the dp phase's child processes' among them); the last is
 {"ok": true, "device": {...}}.  There is no CPU path: with no CUDA
@@ -1297,7 +1319,7 @@ def _ocab_cases(res, gen, dev, c, nh, hidden):
         bias = (0.5 * torch.randn(nh, nq, nk, generator=gen)).to(dev)
         ct = rnd(windows, nq, c, sc=0.1)
         f32 = [t.float() for t in (q, k, v, sw)]
-        label = f"{windows} windows, {nq} queries x {nk} keys, C {c}"
+        label = f"{windows} windows, {nq} queries x {nk} keys, C {c}, hidden {hidden}"
         # K8 as a training call runs it: one pack, the three launches
         pk = fused_ocab.pack_ocab_tiles(w)
         fwd = lambda: fused_ocab._launch_fwd(q, k, v, sw, pk, bias, True)
@@ -1550,38 +1572,45 @@ def _tiled_split(run, calls=3, ws=16):
 
 def phase_w16_kernels(res):
     """The ws-16 training kernels at the HAT-SRx4 train step's shapes
-    (``hat_srx4_config()``, batch 8 of 64^2 LR crops): K5w16, the K7
-    route's block backward, at [8,64,64,180] shift 8 (with the mask) and
-    shift 0, `extra` and branch scales, on the forward's weight stream
-    (``pack_block_tiles``), on dx, d extra and the 13 parameter gradients,
-    each run twice for the same bits, timed alone and 20 calls back to
-    back, with its bytes moved by design and each launch's time; K8w16
-    and K8bw16, the OCAB core and its backward, as the OCAB calls them
-    (the map entry with its gather from the qkv map; the backward with
-    the gather's backward), on the step's 128 windows of 256 queries x
-    576 keys, C 180, hidden 360, and K8w16 on the serving batch's 400
-    windows, each run twice for the same bits, beside its launches alone,
-    with its bytes moved by design and each launch's time; then
-    OCAB16_ENVELOPE, the gathers and the serving route.  Each against its plain
-    version in bf16 and fp32, within W16_ULPS bf16 ulps (outputs,
-    activation gradients) and K5_REL_BOUND (parameter gradients), with
-    times and bounds, into `res`."""
+    (``hat_srx4_config()``, batch 8 of 64^2 LR crops): K5w16 at hidden
+    360 (``_k5w16_rows``); K8w16 and K8bw16 on the step's 128 windows and
+    K8w16 on the serving batch's 400 (``_k8w16_rows``); then
+    OCAB16_ENVELOPE, the gathers and the serving route, into `res`."""
     import torch
 
-    from tpu_superresolution_torch.kernels import fused_ocab
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 7)
+    _k5w16_rows(res, gen, dev, 360)
+    _k8w16_rows(res, gen, dev, 360, (8, 25))
+    _ocab16_envelope(res, gen, dev)
+    _ocab16_gather_check(gen, dev)
+    _ocab_serve_routes(gen, dev)
+    return res
+
+
+def _k5w16_rows(res, gen, dev, hidden, split=True):
+    """K5w16, the K7 route's block backward, at the HAT-SRx4 train step's
+    [8,64,64,180], 6 heads, MLP `hidden`: shift 8 (with the mask) and
+    shift 0, `extra` and branch scales, on the forward's weight stream
+    (``pack_block_tiles``), on dx, d extra and the 13 parameter
+    gradients, each run twice for the same bits, timed alone and 20
+    calls back to back, with its bytes moved by design and (with `split`)
+    each launch's time; against its plain version in bf16 and fp32,
+    within W16_ULPS bf16 ulps (dx, d extra) and K5_REL_BOUND (parameter
+    gradients), with times and bounds, into `res`."""
+    import torch
+
     from tpu_superresolution_torch.kernels.fused_block import (
         GRAD_FIELDS,
         fused_swin_block_backward,
         pack_block_tiles,
         swin_block_bwd_plain,
     )
-    from tpu_superresolution_torch.ops.window import shift_mask_tensor, window_partition
+    from tpu_superresolution_torch.ops.window import shift_mask_tensor
 
-    dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(SEED + 7)
     bf = torch.bfloat16
     scales = torch.tensor([[1.0 / 0.9, 0.0], [1.0 / 0.9, 1.0 / 0.9]] * 4, device=dev)
-    c, nh, hidden, ws = 180, 6, 360, 16
+    c, nh, ws = 180, 6, 16
     shape = (8, 64, 64, c)
     wb = _random_block(gen, dev, c, nh, hidden, ws)
     pk = pack_block_tiles(wb)  # the stream WindowBlockFunction packs once a step
@@ -1600,30 +1629,47 @@ def phase_w16_kernels(res):
         torch.cuda.synchronize()
         if shift:
             _tiled_bytes_log(shape, c, nh, hidden)
-        _compare_grads(res, "K5w16", f"{list(shape)} ws {ws} shift {shift} extra, branch scales "
-                       f"(b2b {queued_ms(run):.4f} ms)", got, ref16, ref32, ("dx", "extra"),
-                       GRAD_FIELDS, cuda_ms(run), cuda_ms(plain),
+        _compare_grads(res, "K5w16", f"{list(shape)} hidden {hidden} ws {ws} shift {shift} extra, "
+                       f"branch scales (b2b {queued_ms(run):.4f} ms)", got, ref16, ref32,
+                       ("dx", "extra"), GRAD_FIELDS, cuda_ms(run), cuda_ms(plain),
                        _swin_work(shape, c, hidden, backward=True, ws=ws, extra=True),
                        ulps=W16_ULPS)
-        _check_deterministic("K5w16", f"{list(shape)} ws {ws} shift {shift}", got, again,
-                             ("dx", "extra") + GRAD_FIELDS)
-        _tiled_split(run)
+        _check_deterministic("K5w16", f"{list(shape)} hidden {hidden} ws {ws} shift {shift}", got,
+                             again, ("dx", "extra") + GRAD_FIELDS)
+        if split:
+            _tiled_split(run)
         del got, again, ref16, ref32
 
-    windows, nq, nk = 128, 256, 576
+
+def _k8w16_rows(res, gen, dev, hidden, batches):
+    """K8w16 and K8bw16, the OCAB core and its backward, as the OCAB
+    calls them (the map entry with its gather from the qkv map; the
+    backward with the gather's backward), at C 180, 6 heads, MLP
+    `hidden`, 256 queries x 576 keys a window, on [batch, 64, 64] maps
+    for each of `batches` (8: the train step's 128 windows, forward and
+    backward; 25: the serving batch's 400, the forward alone), each run
+    twice for the same bits, beside its launches alone, with its bytes
+    moved by design and each launch's time; against its plain version in
+    bf16 and fp32, within W16_ULPS bf16 ulps (outputs, activation
+    gradients) and K5_REL_BOUND (parameter gradients), into `res`."""
+    import torch
+
+    from tpu_superresolution_torch.kernels import fused_ocab
+    from tpu_superresolution_torch.ops.window import window_partition
+
+    bf = torch.bfloat16
+    c, nh, nq, nk = 180, 6, 256, 576
     w = _random_ocab(gen, dev, c, nh, hidden)
     rnd = lambda *shape, sc=1.0: (sc * torch.randn(*shape, generator=gen)).to(dev, bf)
     bias = (0.5 * torch.randn(nh, nq, nk, generator=gen)).to(dev)
     pk = fused_ocab.pack_ocab_tiles(w)
     hdp = pk.layout.hdp
-    # the OCAB's main path, on the train step's maps ([8, 64, 64]: 128
-    # windows) and the serving batch's ([25, 64, 64]: 400 windows): the
-    # K8w16 call is the map entry (the gather from the qkv map, then
-    # K8w16's launches), the K8bw16 call what the autograd nodes run
-    # (K8bw16's launches on the forward's O and row statistics, then the
-    # gather's backward); each beside its launches alone on the gathered
-    # operands
-    for batch in (8, 25):
+    # the OCAB's main path: the K8w16 call is the map entry (the gather from
+    # the qkv map, then K8w16's launches), the K8bw16 call what the autograd
+    # nodes run (K8bw16's launches on the forward's O and row statistics,
+    # then the gather's backward); each beside its launches alone on the
+    # gathered operands
+    for batch in batches:
         mshape = (batch, 64, 64)
         windows = batch * 16
         qkv, x = rnd(*mshape, 3 * c), rnd(*mshape, c)
@@ -1649,10 +1695,10 @@ def phase_w16_kernels(res):
         _check_deterministic("K8w16", label, types.SimpleNamespace(out=out),
                              types.SimpleNamespace(out=again), ("out",))
         _ocab16_bytes_log(windows, c, nh, hidden, backward=batch == 8)
-        if batch == 25:
+        if batch != 8:
             _ocab16_split(run, None)
             del out, again, alone, qkv, x, qh, kh, vh, q, k, v, sw, f32
-            break
+            continue
         ctm = rnd(*mshape, c, sc=0.1)
         ct = window_partition(ctm, 16)
         _, o, stat = fused_ocab._launch_fwd16(qh, kh, vh, x, pk, bias, True)
@@ -1687,14 +1733,10 @@ def phase_w16_kernels(res):
                        ulps=W16_ULPS)
         _check_deterministic("K8bw16", label, got, again, ("dq", "dk", "dv", "dsw") + fields)
         _ocab16_split(run, runb)
-        log(f"[kernels] K8w16 {windows} windows host time a call (enqueue, median of 20): "
-            f"{_enqueue_ms(run):.4f} ms (its launches alone {_enqueue_ms(launches):.4f}); "
-            f"K8bw16 {_enqueue_ms(runb):.4f} ms")
+        log(f"[kernels] K8w16 {windows} windows hidden {hidden} host time a call (enqueue, "
+            f"median of 20): {_enqueue_ms(run):.4f} ms (its launches alone "
+            f"{_enqueue_ms(launches):.4f}); K8bw16 {_enqueue_ms(runb):.4f} ms")
         del out, again, alone, got, ref16, ref32, o, stat, qkv, x, ctm, ct, qh, kh, vh, f32
-    _ocab16_envelope(res, gen, dev)
-    _ocab16_gather_check(gen, dev)
-    _ocab_serve_routes(gen, dev)
-    return res
 
 
 def _ocab16_gather_check(gen, dev):
@@ -2015,20 +2057,13 @@ def phase_k5r_kernels(res):
     widths, at SwinIR-L's train shape (batch 8 of 64^2 LR crops: [8, 64,
     64, 240], 512 windows, 8 heads of 30, hidden 480): shift 4 (with the
     mask) without `extra`, as SwinIR-L's odd blocks run it, and shift 0
-    with `extra`, branch scales on both, on the forward's weight stream
-    (``pack_block_tiles``), on dx (d extra) and the 13 parameter
-    gradients; each run twice for the same bits, timed alone and 20
-    calls back to back, with its bytes moved by design and each launch's
-    time; then, for correctness only, K5R_ENVELOPE's odd window counts.
-    Against its plain version in bf16 and fp32, within K5_DX_ULPS bf16
-    ulps (activation gradients) and K5_REL_BOUND (parameter gradients),
-    with times and bounds, into `res`."""
+    with `extra` (``_k5r_rows``); then, for correctness only,
+    K5R_ENVELOPE's odd window counts, into `res`."""
     import torch
 
     from tpu_superresolution_torch.kernels.fused_block import (
         GRAD_FIELDS,
         fused_swin_block_backward,
-        pack_block_tiles,
         swin_block_bwd_plain,
     )
     from tpu_superresolution_torch.ops.window import shift_mask_tensor
@@ -2036,36 +2071,8 @@ def phase_k5r_kernels(res):
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 19)
     bf = torch.bfloat16
-    scales = torch.tensor([[1.0 / 0.9, 0.0], [1.0 / 0.9, 1.0 / 0.9]] * 4, device=dev)
-    c, nh, hidden, ws = 240, 8, 480, 8
-    shape = (8, 64, 64, c)
-    wb = _random_block(gen, dev, c, nh, hidden, ws)
-    pk = pack_block_tiles(wb)  # the stream WindowBlockFunction packs once a step
-    x = torch.randn(*shape, generator=gen).to(dev, bf)
-    ct = (0.1 * torch.randn(*shape, generator=gen)).to(dev, bf)
-    ex = (0.05 * torch.randn(*shape, generator=gen)).to(dev, bf)
-    for shift, extra in ((4, None), (0, ex)):
-        mask = shift_mask_tensor(shape[1], shape[2], ws, shift, dev) if shift else None
-        run = lambda: fused_swin_block_backward(ct, x, wb, ws, shift, mask, True, scales,
-                                                packed=pk, extra=extra)
-        plain = lambda: swin_block_bwd_plain(ct, x, wb, ws, shift, mask, True, scales, extra)
-        got, again = run(), run()
-        ref16 = plain()
-        ref32 = swin_block_bwd_plain(ct.float(), x.float(), wb, ws, shift, mask, True, scales,
-                                     None if extra is None else extra.float())
-        torch.cuda.synchronize()
-        acts = ("dx",) if extra is None else ("dx", "extra")
-        _tiled_bytes_log(shape, c, nh, hidden, ws=ws, extra=extra is not None)
-        _compare_grads(res, "K5r", f"{list(shape)} ws {ws} shift {shift}"
-                       f"{'' if extra is None else ' extra'}, branch scales (b2b "
-                       f"{queued_ms(run):.4f} ms)", got, ref16, ref32, acts, GRAD_FIELDS,
-                       cuda_ms(run), cuda_ms(plain),
-                       _swin_work(shape, c, hidden, backward=True, ws=ws,
-                                  extra=extra is not None))
-        _check_deterministic("K5r", f"{list(shape)} ws {ws} shift {shift}", got, again,
-                             acts + GRAD_FIELDS)
-        _tiled_split(run, ws=ws)
-        del got, again, ref16, ref32
+    c, hidden, ws = 240, 480, 8
+    wb, pk = _k5r_rows(res, gen, dev, hidden, ((4, False), (0, True)))
     # correctness only: odd window counts (the last unit pair's idle twin)
     # with a ragged last attention stage, both branches on in the last image
     envelope = {}  # these rows' times stay out of the kernels line
@@ -2094,6 +2101,90 @@ def phase_k5r_kernels(res):
                                   extra=extra is not None))
         _check_deterministic("K5r", label, got, again, acts + GRAD_FIELDS)
         del got, again, ref16, ref32
+    return res
+
+
+def _k5r_rows(res, gen, dev, hidden, runs):
+    """K5r at SwinIR-L's train shape [8, 64, 64, 240], 8 heads of 30, MLP
+    `hidden`, for each (shift, with `extra`) of `runs`, branch scales on,
+    on the forward's weight stream (``pack_block_tiles``), on dx (d extra)
+    and the 13 parameter gradients; each run twice for the same bits,
+    timed alone and 20 calls back to back, with its bytes moved by design
+    and each launch's time; against its plain version in bf16 and fp32,
+    within K5_DX_ULPS bf16 ulps (activation gradients) and K5_REL_BOUND
+    (parameter gradients), with times and bounds, into `res`.  Returns
+    the block's weights and their pack."""
+    import torch
+
+    from tpu_superresolution_torch.kernels.fused_block import (
+        GRAD_FIELDS,
+        fused_swin_block_backward,
+        pack_block_tiles,
+        swin_block_bwd_plain,
+    )
+    from tpu_superresolution_torch.ops.window import shift_mask_tensor
+
+    bf = torch.bfloat16
+    scales = torch.tensor([[1.0 / 0.9, 0.0], [1.0 / 0.9, 1.0 / 0.9]] * 4, device=dev)
+    c, nh, ws = 240, 8, 8
+    shape = (8, 64, 64, c)
+    wb = _random_block(gen, dev, c, nh, hidden, ws)
+    pk = pack_block_tiles(wb)  # the stream WindowBlockFunction packs once a step
+    x = torch.randn(*shape, generator=gen).to(dev, bf)
+    ct = (0.1 * torch.randn(*shape, generator=gen)).to(dev, bf)
+    ex = (0.05 * torch.randn(*shape, generator=gen)).to(dev, bf)
+    for shift, with_extra in runs:
+        extra = ex if with_extra else None
+        mask = shift_mask_tensor(shape[1], shape[2], ws, shift, dev) if shift else None
+        run = lambda: fused_swin_block_backward(ct, x, wb, ws, shift, mask, True, scales,
+                                                packed=pk, extra=extra)
+        plain = lambda: swin_block_bwd_plain(ct, x, wb, ws, shift, mask, True, scales, extra)
+        got, again = run(), run()
+        ref16 = plain()
+        ref32 = swin_block_bwd_plain(ct.float(), x.float(), wb, ws, shift, mask, True, scales,
+                                     None if extra is None else extra.float())
+        torch.cuda.synchronize()
+        acts = ("dx",) if extra is None else ("dx", "extra")
+        _tiled_bytes_log(shape, c, nh, hidden, ws=ws, extra=extra is not None)
+        _compare_grads(res, "K5r", f"{list(shape)} hidden {hidden} ws {ws} shift {shift}"
+                       f"{'' if extra is None else ' extra'}, branch scales (b2b "
+                       f"{queued_ms(run):.4f} ms)", got, ref16, ref32, acts, GRAD_FIELDS,
+                       cuda_ms(run), cuda_ms(plain),
+                       _swin_work(shape, c, hidden, backward=True, ws=ws,
+                                  extra=extra is not None))
+        _check_deterministic("K5r", f"{list(shape)} hidden {hidden} ws {ws} shift {shift}", got,
+                             again, acts + GRAD_FIELDS)
+        _tiled_split(run, ws=ws)
+        del got, again, ref16, ref32
+    return wb, pk
+
+
+# The JAX train CLI's HAT at window 16 (no --mlp_ratio: HATConfig's mlp 4)
+# and SwinIR-L at mlp 4: the MLP hidden of each
+MLP4_HIDDEN = 720
+SWINIR_L_MLP4_HIDDEN = 960
+
+
+def phase_mlp4_kernels(res):
+    """The training kernels at any MLP hidden, at the shapes of the JAX
+    train CLI's HAT at window 16 (mlp 4: C 180, 6 heads, hidden 720) and
+    of SwinIR-L at mlp 4 (C 240, 8 heads, hidden 960): K5w16 at
+    [8,64,64,180] shift 8 and shift 0, `extra` and branch scales
+    (``_k5w16_rows``); K5r at [8,64,64,240] shift 4 (``_k5r_rows``);
+    K8w16 / K8bw16 on the train step's 128 windows (``_k8w16_rows``); K8
+    / K8b on 800 windows of (7, 10) and 512 of (8, 12) at C 180
+    (``_ocab_cases``); then the OCAB's serving route at ws 16 and mlp 4,
+    each against its plain version with times and bounds, appended to
+    `res` (each kernel's first row stays its main path's)."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 28)
+    _k5w16_rows(res, gen, dev, MLP4_HIDDEN)
+    _k5r_rows(res, gen, dev, SWINIR_L_MLP4_HIDDEN, ((4, False),))
+    _k8w16_rows(res, gen, dev, MLP4_HIDDEN, (8,))
+    _ocab_cases(res, gen, dev, 180, 6, MLP4_HIDDEN)
+    _ocab_serve_routes(gen, dev, mlp=MLP4_HIDDEN / 180)
     return res
 
 
@@ -4359,20 +4450,31 @@ def phase_hat_train(workdir, smi):
     return [launches, per_step_all, fast]
 
 
-def phase_hat_srx4_train(workdir, smi):
+def hat_mlp4_config():
+    """The HAT the JAX train CLI builds with HAT-SRx4's flags and no
+    --mlp_ratio (it has none: ``tpu_superresolution_tpu/cli/train.py``):
+    ``hat_srx4_config()`` at HATConfig's mlp 4, an MLP hidden of 720."""
+    import dataclasses
+
+    return dataclasses.replace(hat_srx4_config(), mlp_ratio=4.0)
+
+
+def phase_hat_srx4_train(workdir, smi, mlp4=False):
     """HAT-SRx4 training: the train CLI (``--model hat --window_size 16
     --embed_dim 180 --t_depths 6,6,6,6,6,6 --t_heads 6,6,6,6,6,6
-    --mlp_ratio 2``, which builds ``hat_srx4_config()``; batch 8,
-    --patch_size 64, L1, AdamW, clip 1.0) for one epoch of 2 steps plus
+    --mlp_ratio 2``, which builds ``hat_srx4_config()``; with `mlp4` the
+    JAX train CLI's flags alone, which build ``hat_mlp4_config()``; batch
+    8, --patch_size 64, L1, AdamW, clip 1.0) for one epoch of 2 steps plus
     validation on a synthetic DeepRock tree; then per-step launches
-    (exactly HAT_SRX4_TRAIN_PER_STEP), ms per step for the kernels and the
-    plain bf16 path, the peak device memory, the autograd graph of a step
-    (every HAB's backward WindowBlockFunction's, i.e. K5w16, every OCAB's
-    Ocab16Function's, i.e. K8bw16, after it the gather's OcabHeadsFunction,
-    and none left to autograd of plain
-    ops), a profiled step split by part, and the first step's gradients
-    against the plain fp32 path.  Returns the launches of the CLI run and
-    of the counted step."""
+    (exactly HAT_SRX4_TRAIN_PER_STEP, at mlp 4 too: the same routes, a
+    wider MLP), ms per step for the kernels and the plain bf16 path, the
+    peak device memory, the autograd graph of a step (every HAB's backward
+    WindowBlockFunction's, i.e. K5w16, every OCAB's Ocab16Function's,
+    i.e. K8bw16, after it the gather's OcabHeadsFunction, and none left
+    to autograd of plain ops), (at mlp 2) a profiled step split by part
+    and the blocks' packing cost, and the first step's gradients against
+    the plain fp32 path.  Returns the launches of the CLI run and of the
+    counted step, and the CLI's best checkpoint."""
     import numpy as np
     import torch
 
@@ -4383,27 +4485,30 @@ def phase_hat_srx4_train(workdir, smi):
 
     batch, patch, scale = TRAIN_BATCH, TRAIN_LR_PATCH, 4
     n_train, n_valid = 2 * batch, 2
-    data = f"{workdir}/deeprock_hat_srx4"
+    tag = "hat_mlp4-train" if mlp4 else "hat_srx4-train"
+    data = f"{workdir}/deeprock_{'hat_mlp4' if mlp4 else 'hat_srx4'}"
+    run_dir = f"{workdir}/{'hat_mlp4' if mlp4 else 'hat_srx4'}_run"
     _write_deeprock(data, n_train, n_valid, hr_size=320, scale=scale, seed=SEED + 8)
-    cfg = hat_srx4_config()
+    cfg = hat_mlp4_config() if mlp4 else hat_srx4_config()
 
     # 1. the entry point: one epoch of 2 steps + validation of 2 images
     reset_counters()
     t0 = time.perf_counter()
     trainer, state = train_main([
         "--data_root", data, "--scale", "X4", "--model", "hat", "--window_size", "16",
-        "--embed_dim", "180", "--t_depths", "6,6,6,6,6,6", "--t_heads", "6,6,6,6,6,6",
-        "--mlp_ratio", "2", "--epochs", "1", "--batch_size", str(batch), "--patch_size",
-        str(patch), "--loss", "l1", "--workdir", f"{workdir}/hat_srx4_run", "--seed", str(SEED),
-        "--device", "cuda"])
+        "--embed_dim", "180", "--t_depths", "6,6,6,6,6,6", "--t_heads", "6,6,6,6,6,6"]
+        + ([] if mlp4 else ["--mlp_ratio", "2"]) + [
+        "--epochs", "1", "--batch_size", str(batch), "--patch_size", str(patch), "--loss", "l1",
+        "--workdir", run_dir, "--seed", str(SEED), "--device", "cuda"])
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     launches = read_counters()
     steps, val_calls = n_train // batch, 1
     expect = {k: steps * HAT_SRX4_TRAIN_PER_STEP[k] + val_calls * HAT_SRX4_PER_CALL[k]
               for k in HAT_SRX4_TRAIN_PER_STEP}
-    log(f"[hat_srx4-train] train CLI, HAT-SRx4 (window 16, embed 180, depths 6x6, mlp 2, "
-        f"drop_path_rate {trainer.model_config.drop_path_rate}), batch {batch}, patch {patch}: "
+    log(f"[{tag}] train CLI, HAT (window 16, embed 180, depths 6x6, mlp "
+        f"{trainer.model_config.mlp_ratio:g}{'' if mlp4 else ', HAT-SRx4'}, drop_path_rate "
+        f"{trainer.model_config.drop_path_rate}), batch {batch}, patch {patch}: "
         f"{steps} steps + validation in {cli_s:.1f} s (incl. the first steps' set-up); train "
         f"loss {trainer.history['train'][0]:.6f}, val PSNR {trainer.best_val_psnr:.2f} dB; "
         f"launches {launches} (expected {expect}) ({smi})")
@@ -4412,7 +4517,7 @@ def phase_hat_srx4_train(workdir, smi):
     if state.step != steps or not math.isfinite(trainer.history["train"][0]):
         raise RuntimeError(f"train CLI: {state.step} steps, loss {trainer.history['train']}")
     if launches != expect:
-        raise RuntimeError(f"HAT-SRx4 train CLI launches {launches}, expected {expect}")
+        raise RuntimeError(f"{tag}: train CLI launches {launches}, expected {expect}")
     del trainer, state
 
     # 2. one step's launches, the step's graph, step times (kernels vs
@@ -4445,30 +4550,110 @@ def phase_hat_srx4_train(workdir, smi):
             dts.append(time.perf_counter() - t0)
         ms = statistics.median(dts) * 1e3
         times[label] = ms
-        log(f"[hat_srx4-train] {label} bf16 path: launches per step {per_step}; median "
+        log(f"[{tag}] {label} bf16 path: launches per step {per_step}; median "
             f"{ms:.2f} ms/step over {DAT_TIMED_STEPS} steps after 2 warm-up (min "
             f"{min(dts) * 1e3:.2f}, max {max(dts) * 1e3:.2f}), {batch / ms * 1e3:.1f} "
             f"images/s; loss {float(m['loss']):.6f}; peak memory "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB ({smi})")
         if label == "kernels":
             if per_step != HAT_SRX4_TRAIN_PER_STEP:
-                raise RuntimeError(f"HAT-SRx4 launches per train step {per_step}, expected "
+                raise RuntimeError(f"{tag}: launches per train step {per_step}, expected "
                                    f"{HAT_SRX4_TRAIN_PER_STEP}")
             per_step_all = per_step
-            _check_backward_nodes(model, lr, hr, cfg)
-            _hat_train_split(st, lr, hr, ms, smi, tag="hat_srx4-train")
-            _packing_cost(model, k5w16=True, tag="hat_srx4-train")
+            _check_backward_nodes(model, lr, hr, cfg, tag=tag)
+            if not mlp4:
+                _hat_train_split(st, lr, hr, ms, smi, tag=tag)
+                _packing_cost(model, k5w16=True, tag=tag)
         else:
             if any(per_step.values()):
                 raise RuntimeError(f"the plain path launched kernels: {per_step}")
-            _profile_step(step, st, lr, hr, gen, tag="hat_srx4-train plain bf16")
+            if not mlp4:
+                _profile_step(step, st, lr, hr, gen, tag=f"{tag} plain bf16")
         del model, st
-    log(f"[hat_srx4-train] kernels {times['kernels']:.2f} ms/step, plain bf16 "
+    log(f"[{tag}] kernels {times['kernels']:.2f} ms/step, plain bf16 "
         f"{times['plain']:.2f} ms/step ({times['plain'] / times['kernels']:.2f}x) ({smi})")
 
     # 3. the first step's gradients against the plain fp32 path
-    _first_step_gate(cfg, src, lr, hr, "hat_srx4-train", smi)
-    return [launches, per_step_all]
+    _first_step_gate(cfg, src, lr, hr, tag, smi)
+    return [launches, per_step_all], f"{run_dir}/best_X4.pth"
+
+
+# the serving leg's export batch: 8 of the bench's 64^2 tiles
+MLP4_SERVE_SHAPE = (8, 64, 64, 3)
+
+
+def phase_hat_mlp4_serve(workdir, ckpt, smi):
+    """The JAX train CLI's HAT (``hat_mlp4_config()``: window 16, mlp 4)
+    served from the train leg's checkpoint `ckpt`: ``cli.upscale.main`` on
+    a validation LR image of the leg's DeepRock tree (80^2, whole: one
+    model call, its OCABs on K8w16 as ``models.hat.OCAB.takes_fused``
+    chooses at ws 16): launches exactly HAT_SRX4_PER_CALL; the PNG equal
+    to the one the same forward writes (the checkpoint as the CLI loads
+    it, ``Evaluator``'s whole-image forward), and that forward within
+    PSNR_MIN_DB of the plain fp32 path from the checkpoint's weights;
+    then the model through ``interop.export`` at MLP4_SERVE_SHAPE
+    (``_export_family`` on those weights): the loaded program
+    bit-identical to eager, both with HAT_SRX4_PER_CALL's launches, within
+    PSNR_MIN_DB of plain fp32.  Returns the launches of the CLI's call and
+    of the loaded program's."""
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from tpu_superresolution_torch.cli.upscale import load_for_inference
+    from tpu_superresolution_torch.cli.upscale import main as upscale_main
+    from tpu_superresolution_torch.core.config import EvalConfig, build_model
+    from tpu_superresolution_torch.data.decode import decode_image
+    from tpu_superresolution_torch.data.index import PairedIndex
+    from tpu_superresolution_torch.evaluate.runner import Evaluator, save_tensor_as_png
+    from tpu_superresolution_torch.kernels import read_counters, reset_counters
+    from tpu_superresolution_torch.train.checkpoint import checked_params, read_checkpoint
+
+    tag = "hat_mlp4-serve"
+    lr_png = str(PairedIndex(f"{workdir}/deeprock_hat_mlp4", "valid", "X4")[0][0])
+    out = f"{workdir}/hat_mlp4_sr.png"
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    upscale_main(["--image", lr_png, "--ckpt", ckpt, "--model", "hat", "--scale", "X4",
+                  "--out", out, "--device", "cuda"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_counters()
+    mcfg, model, scale, convention, channels = load_for_inference(ckpt, "hat", "X4", None,
+                                                                   torch.device("cuda"))
+    if mcfg != hat_mlp4_config():
+        raise RuntimeError(f"{tag}: the checkpoint holds {mcfg}, not hat_mlp4_config()")
+    x = torch.from_numpy(decode_image(Path(lr_png), grayscale=False, channels=channels))[None]
+    ecfg = EvalConfig(batch_size=1)
+    sr = Evaluator(model, scale, convention, ecfg).forward_fn()(x.cuda())
+    ref_png = f"{workdir}/hat_mlp4_sr_same_forward.png"
+    save_tensor_as_png(sr[0].cpu().numpy(), ref_png)
+    with Image.open(out) as a, Image.open(ref_png) as b:
+        same_png, size = np.array_equal(np.asarray(a), np.asarray(b)), a.size
+    state = checked_params(read_checkpoint(ckpt), ckpt)
+    plain = build_model(mcfg, dtype=torch.float32, impl="plain", device="cuda")
+    plain.load_state_dict(state)
+    ref = Evaluator(plain.eval(), scale, convention, ecfg).forward_fn()(x.cuda())
+    del plain, model
+    psnr = _psnr_db(sr, ref)
+    expect = {k: HAT_SRX4_PER_CALL.get(k, 0) for k in launches}
+    log(f"[{tag}] upscale CLI on {os.path.basename(lr_png)} ({x.shape[1]}^2 LR, the whole "
+        f"image) from the train leg's best_X4.pth ({mcfg.name}, window {mcfg.window_size}, "
+        f"embed {mcfg.embed_dim}, mlp {mcfg.mlp_ratio:g}): {size} in {cli_s:.2f} s (load and "
+        f"first call included); launches {launches} (expected {expect}); its PNG "
+        f"{'equal to' if same_png else 'DIFFERS from'} the same forward's; that forward vs "
+        f"plain fp32 PSNR {psnr:.2f} dB (bound >= {PSNR_MIN_DB}) ({smi})")
+    if (launches != expect or not same_png or size != (4 * x.shape[2], 4 * x.shape[1])
+            or psnr < PSNR_MIN_DB):
+        raise RuntimeError(f"{tag}: launches {launches}, PNG equal {same_png}, size {size}, "
+                           f"PSNR {psnr}")
+    program = _export_family("HAT ws 16 mlp 4 (the JAX train CLI's), from the train leg's "
+                             "checkpoint", mcfg, MLP4_SERVE_SHAPE, HAT_SRX4_PER_CALL, smi, tag,
+                             state=state)
+    return {k: launches.get(k, 0) + program.get(k, 0) for k in PER_CALL}
 
 
 @contextlib.contextmanager
@@ -6199,9 +6384,9 @@ def _dispatched_ops(fn):
     return count.seen
 
 
-def _export_family(label, cfg, shape, per_call, smi, tag="export"):
+def _export_family(label, cfg, shape, per_call, smi, tag="export", state=None):
     """One family through ``interop.export`` on the card (seeded random
-    weights, DAT's BatchNorm statistics perturbed, bf16): export and load
+    weights, DAT's BatchNorm statistics perturbed; or `state`'s; bf16): export and load
     the program, then on a seeded input the loaded program bit-identical
     to the eager kernel path, the launches of a call of each exactly
     `per_call`, the output within PSNR_MIN_DB of the plain fp32 path;
@@ -6218,9 +6403,12 @@ def _export_family(label, cfg, shape, per_call, smi, tag="export"):
 
     t_leg = time.perf_counter()
     src = build_model(cfg)
-    src.reset_parameters(torch.Generator().manual_seed(SEED))
-    if cfg.name == "dat":
-        _perturb_dat(src, torch.Generator().manual_seed(SEED + 5))
+    if state is not None:
+        src.load_state_dict(state)
+    else:
+        src.reset_parameters(torch.Generator().manual_seed(SEED))
+        if cfg.name == "dat":
+            _perturb_dat(src, torch.Generator().manual_seed(SEED + 5))
     model = build_model(cfg, dtype=torch.bfloat16, device="cuda")
     model.load_state_dict(src.state_dict())
     t0 = time.perf_counter()
@@ -6808,6 +6996,7 @@ def main() -> int:
     kres = timed("kernels", lambda: phase_k5r_kernels(phase_w16_kernels(phase_rect_attention_kernels(
         phase_dat_train_kernels(phase_window_kernels(phase_dat_kernels(
             phase_train_kernels(phase_kernels()))))))))
+    kres = timed("mlp4-kernels", phase_mlp4_kernels, kres)
     _lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_lib.BUILD_DIR) as workdir:
         service, launches = timed("serve", phase_serve, workdir, SwinIRConfig(scale=4),
@@ -6823,7 +7012,11 @@ def main() -> int:
         train_launches, _ = timed("train", phase_train, workdir, smi)
         hat_train_launches = timed("hat-train", phase_hat_train, workdir, smi)
         srx4_launches = timed("hat_srx4", phase_hat_srx4, workdir, smi)
-        srx4_train_launches = timed("hat_srx4-train", phase_hat_srx4_train, workdir, smi)
+        srx4_train_launches, _ = timed("hat_srx4-train", phase_hat_srx4_train, workdir, smi)
+        mlp4_train_launches, mlp4_ckpt = timed("hat_mlp4-train", phase_hat_srx4_train, workdir,
+                                               smi, True)
+        mlp4_serve_launches = timed("hat_mlp4-serve", phase_hat_mlp4_serve, workdir, mlp4_ckpt,
+                                    smi)
         swinir_l_train_launches = timed("swinir_l-train", phase_swinir_l_train, workdir, smi)
         dat_x4_launches = timed("dat_x4", phase_dat_x4, workdir, smi)
         dat_train_launches = timed("dat-train", phase_dat_train, workdir, smi)
@@ -6853,9 +7046,10 @@ def main() -> int:
                                                  srx4_launches, dat_x4_launches,
                                                  swinir_data_launches, trace_launches,
                                                  remat_launches, compare_launches,
-                                                 mat_launches, export_launches, dp_launches]
+                                                 mat_launches, export_launches, dp_launches,
+                                                 mlp4_serve_launches]
                          + hat_train_launches + dat_train_launches + srx4_train_launches
-                         + swinir_l_train_launches),
+                         + mlp4_train_launches + swinir_l_train_launches),
             max_abs_err=max(r["err"] for r in kres[key]),
             ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
             bound_by=first["bound_by"], library_ms=first["library_ms"],

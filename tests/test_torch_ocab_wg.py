@@ -300,7 +300,8 @@ def test_gather_kernel_addressing_gives_to_heads(n, c, nh, hdp):
 
 @pytest.mark.parametrize("ws,c,nh,hidden,windows,sms", [
     (7, 96, 6, 384, 800, 132), (8, 96, 6, 384, 512, 132), (7, 180, 6, 360, 45, 132),
-    (8, 64, 2, 200, 25, 132), (7, 24, 2, 112, 8, 6), (8, 96, 6, 384, 1, 132)])
+    (8, 64, 2, 200, 25, 132), (7, 24, 2, 112, 8, 6), (8, 96, 6, 384, 1, 132),
+    (7, 180, 6, 720, 800, 132), (8, 180, 6, 720, 512, 132)])
 def test_launch_plan_from_static_shapes(ws, c, nh, hidden, windows, sms):
     """CTAs a head, K5a's grid, K5b's splits, every kernel's shared memory
     within a CTA's 232,448 bytes and the bias-gradient partials a
@@ -327,7 +328,7 @@ def test_launch_plan_from_static_shapes(ws, c, nh, hidden, windows, sms):
 
 
 @pytest.mark.parametrize("ws,ows,c,nh,hidden", [(16, 24, 96, 6, 384), (7, 10, 200, 4, 384),
-                                                (8, 12, 96, 6, 400), (6, 9, 96, 6, 384)])
+                                                (8, 12, 192, 3, 400), (6, 9, 96, 6, 384)])
 def test_launch_plan_raises_outside_k8b(ws, ows, c, nh, hidden):
     from tpu_superresolution_torch.kernels.fused_ocab import ocab_bwd_plan
 

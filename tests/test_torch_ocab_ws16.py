@@ -138,7 +138,8 @@ def test_ocab_at_window_16_trains_through_the_fused_route(monkeypatch):
     from tpu_superresolution_torch.models.hat import OCAB
 
     assert ocab_ok(WS, OWS, 180, 6, 360) and ocab_ok(WS, OWS, C, NH, HIDDEN)
-    assert not ocab_ok(WS, OWS, 180, 6, 720) and not ocab_ok(12, 18, C, NH, HIDDEN)
+    assert ocab_ok(WS, OWS, 180, 6, 720) and not ocab_ok(WS, OWS, 264, 6, 528)
+    assert not ocab_ok(12, 18, C, NH, HIDDEN)
     ocab = OCAB(C, WS, 0.5, NH, True, 2.0, True)
     calls = []
     real_k8, real_k15 = fused_ocab.ocab_core_plain, kw.fused_window_attention_plain

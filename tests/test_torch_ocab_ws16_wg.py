@@ -379,7 +379,7 @@ def test_map_heads_equals_partition_overlap_and_to_heads(b, h, w, c, nh, hdp):
 
 @pytest.mark.parametrize("c,nh,hidden,windows,sms", [
     (180, 6, 360, 128, 132), (180, 6, 360, 400, 132), (144, 6, 288, 128, 132),
-    (32, 2, 96, 5, 6), (96, 6, 192, 1, 132)])
+    (32, 2, 96, 5, 6), (96, 6, 192, 1, 132), (180, 6, 720, 128, 132)])
 def test_launch_plan_from_static_shapes(c, nh, hidden, windows, sms):
     """CTAs a head, rounds, the bias-gradient partials' bytes and every
     kernel's shared memory within a CTA's 232,448 bytes."""
@@ -399,18 +399,19 @@ def test_launch_plan_from_static_shapes(c, nh, hidden, windows, sms):
 
 
 @pytest.mark.parametrize("ws,c,hidden,fused", [
-    (16, 32, 64, True), (16, 180, 360, True), (16, 180, 720, False), (7, 32, 64, False),
-    (8, 32, 64, False)])
+    (16, 32, 64, True), (16, 180, 360, True), (16, 180, 720, True), (16, 264, 528, False),
+    (7, 32, 64, False), (8, 32, 64, False)])
 def test_serving_route_by_shape(ws, c, hidden, fused):
     """Eval-mode OCABs take the fused route at (16, 24) within ``ocab_ok``
-    (the card's choice, ``OCAB.takes_fused``) and the module path
-    elsewhere; training takes it wherever ``ocab_ok`` holds."""
+    (the card's choice, ``OCAB.takes_fused``; any hidden) and the module
+    path elsewhere (C 264 in 6 heads: hd 44); training takes it wherever
+    ``ocab_ok`` holds."""
     from tpu_superresolution_torch.models.hat import OCAB
 
     ocab = OCAB(c, ws, 0.5, 2 if c == 32 else 6, True, hidden / c, True)
     assert (ocab.window_size, ocab.overlap_win_size) == (ws, ws + ws // 2)
     assert ocab.eval().takes_fused() == fused
-    assert ocab.train().takes_fused() == ocab.takes_k8() == (hidden <= 384)
+    assert ocab.train().takes_fused() == ocab.takes_k8() == (c <= 192)
 
 
 @pytest.mark.parametrize("gelu_approx", [True, False], ids=["tanh", "erf"])

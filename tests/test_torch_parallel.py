@@ -27,6 +27,8 @@ against the port's own single-device steps, with the same weights
     ``tiled_forward`` and the JAX ``sharded_tiled_forward`` within 3e-5.
 """
 
+import time
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -72,13 +74,26 @@ def setup(tmp_path_factory):
     return root, s, {"unet": unet, "bn": bn, "swinir": (scfg, svars, swinir)}
 
 
+# Each world's own limit (``run_ranks``), and the order the background
+# thread runs them in: a world's fixture waits for the worlds queued
+# before it too, each of which may run to its own limit first.
+WORLD_TIMEOUT_S = 240
+WORLD_ORDER = (2, 4, 3)
+
+
 def _world(root, world):
     from tpu_superresolution_torch.parallel.launch import run_ranks
 
     out = root / f"world{world}"
     out.mkdir()
-    run_ranks("tests.util_torch_dp_worker", world,
-              ["--setup", str(root / "setup.pt"), "--out", str(out)], timeout_s=240)
+    t0 = time.monotonic()
+    try:
+        run_ranks("tests.util_torch_dp_worker", world,
+                  ["--setup", str(root / "setup.pt"), "--out", str(out)],
+                  timeout_s=WORLD_TIMEOUT_S)
+    except RuntimeError as e:
+        raise RuntimeError(f"world {world} failed after {time.monotonic() - t0:.1f} s: "
+                           f"{e}") from e
     return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(world)]
 
 
@@ -86,28 +101,46 @@ def _world(root, world):
 def worlds(setup):
     """The three worlds, one after another in a background thread (at
     most four rank processes at a time), while the tests compute the JAX
-    references."""
+    references; each with the deadline of its place in the queue."""
     from concurrent.futures import ThreadPoolExecutor
 
     pool = ThreadPoolExecutor(max_workers=1)
-    futures = {w: pool.submit(_world, setup[0], w) for w in (2, 4, 3)}
-    yield futures
+    t0 = time.monotonic()
+    queued = {w: (pool.submit(_world, setup[0], w),
+                  t0 + (i + 1) * (WORLD_TIMEOUT_S + 30))
+              for i, w in enumerate(WORLD_ORDER)}
+    yield queued
     pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _ranks(worlds, world):
+    """The world's ranks' results, waiting until its deadline: the
+    submission plus its own and its predecessors' limits (a world that
+    raised re-raises here)."""
+    from concurrent.futures import TimeoutError as FutureTimeout
+
+    future, deadline = worlds[world]
+    try:
+        return future.result(timeout=max(1.0, deadline - time.monotonic()))
+    except FutureTimeout:
+        running = [w for w in WORLD_ORDER if worlds[w][0].running()]
+        raise RuntimeError(f"world {world} not done by its deadline ({WORLD_ORDER.index(world) + 1}"
+                           f" x {WORLD_TIMEOUT_S + 30} s after submission); running: {running}")
 
 
 @pytest.fixture(scope="module")
 def world2(worlds):
-    return worlds[2].result(timeout=300)
+    return _ranks(worlds, 2)
 
 
 @pytest.fixture(scope="module")
 def world3(worlds):
-    return worlds[3].result(timeout=300)
+    return _ranks(worlds, 3)
 
 
 @pytest.fixture(scope="module")
 def world4(worlds):
-    return worlds[4].result(timeout=300)
+    return _ranks(worlds, 4)
 
 
 # ------------------------------------------------------------ references

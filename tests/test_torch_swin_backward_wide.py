@@ -178,7 +178,7 @@ def block_bwd_k5r_emulated(ct, x, p, shift, shifted, gelu_approx, scales=None, e
 
     b, h, w, c = x.shape
     nh, hidden, n = p.num_heads, p.hidden, WS * WS
-    plan = bwd_plan(c, nh, hidden)
+    plan = bwd_plan(c, nh, hidden, k5r=True)
     cp, hdp, kc, halves, chunks, pw = (plan.cp, plan.hdp, plan.kc, plan.halves, plan.chunks,
                                        plan.pw)
     assert (cp, pw) == (256, 128)
@@ -442,6 +442,8 @@ _K5R_PLANS = [
     ((240, 8, 480, 6, 132), (3, 4, 2, 2, 1, 16)),
     ((240, 8, 480, 25, 132), (13, 4, 7, 7, 1, 56)),  # odd: the last pair's idle twin
     ((192, 8, 384, 100, 132), (50, 5, 16, 25, 2, 72)),
+    ((240, 8, 960, 512, 132), (132, 3, 16, 128, 8, 128)),  # SwinIR-L at mlp 4: 15 chunks
+    ((180, 6, 720, 512, 132), (132, 4, 22, 128, 6, 108)),  # block C / heads, hidden 720
 ]
 
 
@@ -460,7 +462,7 @@ def test_k5r_plan_from_static_shapes(shape, want):
     p = fb.k5r_plan(c, heads, hidden, windows, sms)
     assert (p.grid, p.splits, p.cph, p.groups, p.rounds, p.tail_ctas) == want
     blk = p.block
-    assert blk == fb.bwd_plan(c, heads, hidden)
+    assert blk == fb.bwd_plan(c, heads, hidden, k5r=True)
     assert (blk.cp, blk.hdp, blk.kc, blk.pw, blk.halves) == (256, 32, 4, 128, 2)
     assert blk.stages == 4 and blk.chunks == -(-hidden // 64)
     assert (p.ws, p.wps, p.units, p.att_units) == (8, 4, windows, windows * heads)
@@ -477,8 +479,8 @@ def test_k5r_plan_from_static_shapes(shape, want):
     assert sizes["dx1 scratch"] == (windows + windows % 2) * 64 * 256 * 4
 
 
-@pytest.mark.parametrize("shape", [(180, 6, 360), (264, 8, 528), (240, 8, 960), (256, 4, 512)],
-                         ids=["block-widths", "C264", "hidden960", "hd64"])
+@pytest.mark.parametrize("shape", [(180, 6, 360), (264, 8, 528), (240, 16, 960), (256, 4, 512)],
+                         ids=["block-widths", "C264", "heads16", "hd64"])
 def test_k5r_plan_raises_outside_k5r(shape):
     from tpu_superresolution_torch.kernels.fused_block import k5r_plan
 
@@ -487,25 +489,33 @@ def test_k5r_plan_raises_outside_k5r(shape):
 
 
 _LAYOUTS = [
-    # (C, heads, hidden) -> (cp, hdp, kc, halves, chunks, pw), None where it raises
+    # (C, heads, hidden[, k5r]) -> (cp, hdp, kc, halves, chunks, pw), None where it raises
     ((180, 6, 360), (192, 32, 3, 2, 6, 96)),
     ((48, 3, 100), (96, 16, 2, 1, 2, 96)),
     ((240, 8, 480), (256, 32, 4, 2, 8, 128)),
     ((224, 7, 448), (256, 32, 4, 2, 7, 128)),
-    ((96, 6, 400), (256, 32, 4, 2, 7, 128)),
+    ((96, 6, 400), (96, 16, 2, 1, 7, 96)),
     ((264, 8, 528), None),
-    ((96, 6, 520), None),
+    ((96, 6, 520), (96, 16, 2, 1, 9, 96)),
     ((256, 4, 512), None),
+    ((180, 6, 720), (192, 32, 3, 2, 12, 96)),
+    ((240, 8, 960), (256, 32, 4, 2, 15, 128)),
+    ((96, 6, 400, True), (256, 32, 4, 2, 7, 128)),
+    ((180, 6, 720, True), (256, 32, 4, 2, 12, 128)),
+    ((264, 6, 528, True), None),
 ]
 
 
 @pytest.mark.parametrize("shape,want", _LAYOUTS,
                          ids=["-".join(map(str, s)) for s, _ in _LAYOUTS])
 def test_stream_layout_by_width(shape, want):
-    """stream_layout: the block kernel's instantiation within its widths
-    (the same as block_plan's), K5r's cp-256 layout past them within
-    K5r's, ValueError past both; block_plan itself raises past the block
-    kernel's widths, so no forward plan exists for K5r's layout."""
+    """stream_layout: the padded width, head dim and N parts from C and
+    the heads alone, the hidden chunks from the hidden (any hidden): the
+    block kernel's instantiation within its C and heads (the same as
+    block_plan's where the hidden fits the forward kernel), K5r's cp-256
+    layout past them, or for K5r (`k5r`), within K5r's; ValueError past
+    both; block_plan itself raises past the block kernel's widths (C,
+    heads or a hidden past 384), so no forward plan exists there."""
     from tpu_superresolution_torch.kernels import fused_block as fb
 
     if want is None:
@@ -515,11 +525,12 @@ def test_stream_layout_by_width(shape, want):
     lay = fb.stream_layout(*shape)
     assert (lay.cp, lay.hdp, lay.kc, lay.halves, lay.chunks, lay.pw) == want
     assert fb.stream_layout(*shape) is lay
-    if lay.pw == fb.K5R_PW:
+    c, heads, hidden = shape[:3]
+    if lay.pw == fb.K5R_PW or hidden > fb.HIDP:
         with pytest.raises(ValueError, match="hidden <= 384; got"):
-            fb.block_plan(*shape)
+            fb.block_plan(c, heads, hidden)
     else:
-        fp = fb.block_plan(*shape)
+        fp = fb.block_plan(c, heads, hidden)
         assert (fp.cp, fp.hdp, fp.kc, fp.halves, fp.chunks) == want[:5]
 
 
@@ -591,7 +602,9 @@ _ROUTE_CASES = [
     (8, 256, 8, 512, True, True),     # the envelope's corner
     (8, 96, 6, 400, True, True),      # hidden past 384
     (8, 264, 8, 528, True, False),    # C > 256
-    (8, 240, 8, 960, True, False),    # hidden 960 (mlp 4)
+    (8, 240, 8, 960, True, True),     # hidden 960 (SwinIR-L at mlp 4): any hidden
+    (8, 144, 6, 576, True, True),     # the block kernel's C and heads, hidden 576 (mlp 4)
+    (8, 240, 16, 960, True, False),   # 16 heads > 8
     (8, 256, 4, 512, True, False),    # hd 64
     (8, 240, 8, 480, False, False),   # no qkv bias
     (7, 240, 8, 480, True, False),    # ws 7
@@ -606,7 +619,7 @@ _ROUTE_CASES = [
                               for w, c, h, d, b, _ in _ROUTE_CASES])
 def test_k5r_route_by_shape(ws, c, nh, hidden, bias, ok):
     """k5r_ok takes a ws-8 block that block_route sends to the K7 route
-    within K5r's widths (C <= 256, <= 8 heads of hd <= 32, hidden <= 512,
+    within K5r's widths (C <= 256, <= 8 heads of hd <= 32, any hidden,
     qkv bias), the same on every call; a block within the block kernel's
     widths stays on the block route (K5); the tiled backward's shape
     check refuses the rest at ws 8."""

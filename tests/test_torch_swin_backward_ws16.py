@@ -159,7 +159,8 @@ _ROUTE_CASES = [
     (16, 180, 6, 360, True, True),    # upstream HAT-SRx4
     (16, 32, 2, 64, True, True),
     (16, 30, 2, 120, True, True),     # hd 15
-    (16, 180, 6, 720, True, False),   # hidden 720 > 384 (mlp 4)
+    (16, 180, 6, 720, True, True),    # hidden 720 (mlp 4): any hidden
+    (16, 192, 3, 768, True, False),   # hd 64 > 32
     (16, 240, 8, 480, True, False),   # C > 192
     (16, 180, 6, 360, False, False),  # no qkv bias
     (8, 180, 6, 360, True, False),    # the block kernel's window (K5)
@@ -173,9 +174,9 @@ _ROUTE_CASES = [
                               for w, c, h, d, b, _ in _ROUTE_CASES])
 def test_k5w16_route_by_shape(ws, c, nh, hidden, bias, ok):
     """k5w16_ok takes a K7-route block at ws 16 within the block
-    kernel's widths (C <= 192, <= 6 heads of hd <= 32, hidden <= 384,
-    qkv bias), the same on every call; its shape check refuses the
-    rest."""
+    kernel's C and heads (C <= 192, <= 6 heads of hd <= 32) at any
+    hidden, with a qkv bias, the same on every call; its shape check
+    refuses the rest."""
     from tpu_superresolution_torch.kernels.fused_block import check_tiled_bwd_args, k5w16_ok
 
     assert k5w16_ok(ws, c, nh, hidden, bias) is ok
@@ -505,6 +506,7 @@ _BWD16_PLANS = [
     ((180, 6, 360, 128, 132), (192, 32, 132, 11, 22, 6, 108)),   # HAT-SRx4's train step
     ((32, 2, 64, 8, 132), (96, 16, 16, 32, 8, 1, 16)),
     ((96, 6, 384, 200, 132), (96, 16, 132, 16, 22, 10, 12)),
+    ((180, 6, 720, 128, 132), (192, 32, 132, 7, 22, 6, 108)),   # mlp 4: 12 hidden chunks
 ]
 
 
@@ -534,8 +536,8 @@ def test_bwd16_plan_from_static_shapes(shape, want):
     assert sizes["workspace"] == p.units * p.block.window_bytes
 
 
-@pytest.mark.parametrize("shape", [(180, 6, 720), (240, 8, 480), (200, 4, 360)],
-                         ids=["hidden720", "C240", "hd50"])
+@pytest.mark.parametrize("shape", [(192, 3, 768), (240, 8, 480), (200, 4, 360)],
+                         ids=["hd64", "C240", "hd50"])
 def test_bwd16_plan_raises_outside_k5w16(shape):
     from tpu_superresolution_torch.kernels.fused_block import bwd16_plan
 

@@ -130,9 +130,10 @@ def test_train_cli_raises_without_a_gpu(trained, monkeypatch, tmp_path):
 
 def test_train_cli_mlp_ratio_builds_hat_srx4():
     """``--mlp_ratio`` resizes the MLP: upstream HAT-SRx4's flags give its
-    config (window 16, embed 180, depths and heads 6x6, mlp 2), whose
-    blocks and OCABs the ws-16 training kernels take; a family without
-    the field refuses it."""
+    config (window 16, embed 180, depths and heads 6x6, mlp 2); without
+    it the JAX CLI's mlp 4 (hidden 720).  The ws-16 training kernels take
+    the blocks and OCABs of both; a family without the field refuses
+    it."""
     from tpu_superresolution_torch.cli.train import build_argparser, model_config_from_args
     from tpu_superresolution_torch.kernels.fused_block import k5w16_ok
     from tpu_superresolution_torch.kernels.fused_ocab import ocab_ok
@@ -145,7 +146,8 @@ def test_train_cli_mlp_ratio_builds_hat_srx4():
     hidden = int(cfg.embed_dim * cfg.mlp_ratio)
     assert k5w16_ok(cfg.window_size, cfg.embed_dim, 6, hidden)
     assert ocab_ok(16, 24, cfg.embed_dim, 6, hidden)
-    assert not k5w16_ok(16, 180, 6, int(180 * default.mlp_ratio))
+    assert k5w16_ok(16, 180, 6, int(180 * default.mlp_ratio))
+    assert ocab_ok(16, 24, 180, 6, int(180 * default.mlp_ratio))
     with pytest.raises(SystemExit, match="mlp_ratio"):
         model_config_from_args(build_argparser().parse_args(
             ["--data_root", "d", "--scale", "X4", "--model", "dat", "--mlp_ratio", "2"]))

@@ -156,7 +156,8 @@ _ROUTE_CASES = [
     (7, 96, 6, 4.0, True, "k8"),     # HATConfig(): hidden 384, K8's largest
     (16, 24, 2, 2.0, True, "k8"),    # upstream HAT-SRx4's window
     (7, 240, 8, 2.0, True, "k15"),   # C > 192 (8 heads)
-    (7, 120, 6, 4.0, True, "k15"),   # hidden 480 > 384
+    (7, 120, 6, 4.0, True, "k8"),    # hidden 480: any hidden
+    (7, 132, 2, 2.0, True, "k15"),   # hd 66 > 32
     (7, 24, 2, 2.0, False, "k15"),   # inference: the module path at ws 7 and 8,
     (16, 24, 2, 2.0, False, "k8"),   # the fused route at ws 16 (K8w16 serves it)
 ]
@@ -168,7 +169,7 @@ _ROUTE_CASES = [
 def test_ocab_route_by_shape(ws, c, nh, mlp, training, route, monkeypatch):
     """The OCAB takes K8's fused route in training exactly where
     fused_ocab.ocab_ok holds (ws 7 / ows 10, ws 8 / ows 12 or ws 16 / ows 24, C <= 192,
-    hd <= 32, <= 6 heads, hidden <= 384), at inference where it holds at
+    hd <= 32, <= 6 heads, any hidden), at inference where it holds at
     ws 16 (models.hat.OCAB.takes_fused), and K15's module path
     everywhere else; the route is decided from shapes, the same on the
     CPU as on CUDA."""

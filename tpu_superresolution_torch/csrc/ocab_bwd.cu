@@ -588,7 +588,7 @@ bool geo_ok(const Geo& g) {
   const long long pairs = (static_cast<long long>(g.windows) + NCONS - 1) / NCONS;
   return widths && window && g.windows >= 0 && g.c >= 1 && g.c <= g.cp && g.nh >= 1 &&
          g.nh <= MAX_HEADS && g.c % g.nh == 0 && g.c / g.nh <= g.hdp && g.nh * g.hdp <= g.cp &&
-         g.hidden >= 1 && g.hidden <= 384 && g.stages >= 2 && g.stages <= MAX_STAGES &&
+         g.hidden >= 1 && g.stages >= 2 && g.stages <= MAX_STAGES &&
          g.grid >= 1 && (pairs == 0 || g.grid <= pairs) && g.splits >= 1 &&
          (g.windows == 0 || g.splits <= g.windows) && g.cph >= 1 &&
          (g.windows == 0 || g.cph <= g.windows);

@@ -1,9 +1,11 @@
 // K5w16 and K5r — the backward of one Swin transformer block on the K7
 // route, with the gradient of HAT's additive term `extra`, on Hopper's
-// wgmma: K5w16 at window 16 (256-token windows, upstream HAT-SRx4's HAB,
-// the block kernel's widths), K5r at window 8 past the block kernel's
-// widths (SwinIR-L: C 240, 8 heads, hidden 480; to C 256, 8 heads of hd
-// <= 32, hidden 512, one instantiation at padded width 256).
+// wgmma, at any MLP hidden (K5a walks it in 64-column chunks): K5w16 at
+// window 16 (256-token windows, the block kernel's C and heads: upstream
+// HAT-SRx4's HAB at hidden 360, the JAX train CLI's HAT at hidden 720),
+// K5r at window 8 past the block kernel's widths (SwinIR-L: C 240, 8
+// heads, hidden 480 or 960; to C 256, 8 heads of hd <= 32, one
+// instantiation at padded width 256).
 //
 // Replaces: tpu_superresolution_tpu/ops/pallas/fused_block.py
 //           _mega_backward -> _bwd_kernel (pallas_call at :1080) at ws 16
@@ -25,6 +27,10 @@
 //       line), ~0.19 ms at 3.35 TB/s; its launches are latency-bound.
 //       K5r at SwinIR-L's [8,64,64,240] (512 windows, 8 heads of 30,
 //       hidden 480): ~89.1 GFLOP against ~47 MB, ~0.090 ms at the peak.
+//       The MLP's share is 10 C hidden a token (fc1 recomputed, two
+//       products back for each of fc1 and fc2), so hidden 720 at C 180 takes
+//       K5w16 to ~86.1 GFLOP (~0.087 ms), hidden 960 at C 240 K5r to
+//       ~126.8 GFLOP (~0.128 ms).
 // Design: everything but the attention is token-local, so the window's
 //       four 64-token tiles run through K5a (csrc/swin_block_bwd.cuh) as
 //       its units, on the forward's pack_block_tiles stream, and the
@@ -514,9 +520,10 @@ using namespace swin_bwd;
 // the LN sums) and rpb [nh, ws^2, ws^2].  geo: batch, h, w, c, nh,
 // hidden, ws, shift, shifted, cp, hdp, stages, gelu_tanh, grid (K5a's
 // CTAs), splits (K5b's), cph (the attention's CTAs a head) — the plan;
-// this entry checks it.  ws 16 takes the block kernel's widths (cp / hdp
-// 96 / 16, 96 / 32, 192 / 32; <= 6 heads, hidden <= 384), ws 8 cp 256,
-// hdp 32 (<= 8 heads, hidden <= 512).
+// this entry checks it.  ws 16 takes the block kernel's C and heads (cp /
+// hdp 96 / 16, 96 / 32, 192 / 32; <= 6 heads), ws 8 cp 256, hdp 32 (<= 8
+// heads); both any hidden (the chunk loops and every buffer sized by it
+// are counted from a.chunks).
 extern "C" int sr_swin_block_bwd_tiled_bf16(
     const void* ct, const void* x, const void* extra, void* dx, void* dextra, const void* tiles,
     const void* bqkv, const void* bproj, const void* bfc1, const void* bfc2, const void* g1,
@@ -542,14 +549,14 @@ extern "C" int sr_swin_block_bwd_tiled_bf16(
   const bool w16 = wsz == 16;
   const bool widths = w16 ? (cp == 96 && (hdp == 16 || hdp == 32)) || (cp == 192 && hdp == 32)
                           : wsz == 8 && cp == 256 && hdp == 32;
-  const int max_heads = w16 ? MAX_HEADS : K5R_MAX_HEADS, max_hidden = w16 ? 384 : 512;
+  const int max_heads = w16 ? MAX_HEADS : K5R_MAX_HEADS;
   const long long windows =
       widths ? static_cast<long long>(a.batch) * (a.h / wsz) * (a.w / wsz) : 0;
   const int nt = wsz * wsz, wps = w16 ? 1 : 4;
   const long long units = nt / 64 * windows, pairs = (units + NCONS - 1) / NCONS;
   const long long groups = (windows + wps - 1) / wps;
   if (!widths || a.c < 1 || a.c > cp || a.nh < 1 || a.nh > max_heads || a.c % a.nh ||
-      a.c / a.nh > hdp || a.nh * hdp > cp || hidden < 1 || hidden > max_hidden ||
+      a.c / a.nh > hdp || a.nh * hdp > cp || hidden < 1 ||
       a.h % wsz || a.w % wsz || a.shift < 0 || a.shift >= wsz || grid < 1 ||
       (pairs > 0 && grid > pairs) || splits < 1 || (units > 0 && splits > units) || cph < 1 ||
       (groups > 0 && cph > groups) || !aligned_to(tiles, 16) || !aligned_to(bqkv, 8) ||

@@ -62,17 +62,19 @@ plain versions, as the JAX package leaves those backwards to XLA, and so
 are K1t's and K15's (the JAX package has no K15 backward: its HAT
 trains the OCAB through K8).  A K7-route block that
 ``fused_block.tiled_bwd_ok`` takes trains through
-``fused_block.WindowBlockFunction`` instead: at ws 16 within the block
-kernel's widths its backward is K5 at ws 16 (K5w16), at ws 8 past those
-widths (C <= 256, <= 8 heads of hd <= 32, hidden <= 512: SwinIR-L) K5r;
-both recompute LN1 and qkv in their own launches, and its forward is the
-route's K2, K7 and K1t, counted as such.  Elsewhere on the K7 route (ws
-24, 32, ...; ws 16 past the block kernel's widths; ws 8 past K5r's: C >
-256, hidden > 512) the block backward is still autograd of the plain
-versions (ROADMAP Queue 2).
+``fused_block.WindowBlockFunction`` instead, at any MLP hidden: at ws 16
+within the block kernel's C and heads (C <= 192, <= 6 heads of hd <= 32)
+its backward is K5 at ws 16 (K5w16), at ws 8 past the block kernel's
+widths (C <= 256, <= 8 heads of hd <= 32: SwinIR-L) K5r; both recompute
+LN1 and qkv in their own launches, and its forward is the route's K2, K7
+and K1t, counted as such.  Elsewhere on the K7 route (ws 24, 32, ...; ws
+16 past C 192 or 6 heads; ws 8 past C 256 or 8 heads; hd > 32; no qkv
+bias) the block backward is still autograd of the plain versions
+(ROADMAP Queue 2).
 HAT's OCAB runs K15 as its attention at serving at ws 7 and 8, and
-wherever K8 refuses its shapes (``fused_ocab.ocab_ok``: C > 192, hidden
-> 384, windows other than 7, 8 and 16); elsewhere in training it takes
+wherever K8 refuses its shapes (``fused_ocab.ocab_ok``: C > 192, more
+than 6 heads, hd > 32, windows other than 7, 8 and 16; any hidden);
+elsewhere in training it takes
 K8 / K8b (K8w16 / K8bw16 at ws 16), and at ws 16 it serves on K8w16 too
 (``models.hat.OCAB.takes_fused``, the card's choice).  A Swin
 block takes the block kernel or the K7 route by its static shapes

@@ -78,20 +78,25 @@ transpose of ``_tile_indices``' gather) maps them to the raw ``[out,
 in]`` parameters (the counterpart of ``fused_block.py:1098-1105``).
 Training on CUDA goes through ``SwinBlockFunction``: its forward is K1 /
 K6 and its backward K5 / K6b, both on one ``pack_block_tiles`` pack a
-step.  Its ws-7 backward launches count as K6b.  A K7-route block that ``tiled_bwd_ok`` takes trains through
-``WindowBlockFunction``: forward the route's K2, gathers, K7 and K1t,
-backward ``csrc/swin_block_bwd16.cu``: at ws 16 within the block
-kernel's widths (``k5w16_ok``: upstream HAT-SRx4's HABs) counted as
-K5w16, K5a running the windows' 64-token tiles in three token-local
-launches around two attention kernels over (window, head) units
-(``bwd16_plan``); at ws 8 past those widths (``k5r_ok``: C <= 256, <= 8
-heads of hd <= 32, hidden <= 512, SwinIR-L) counted as K5r, the same
-launches with a window one unit and K5a at padded width 256
-(``k5r_plan``); both on one ``pack_block_tiles`` pack a step.  At the
-route's other shapes the backward is still autograd of the kernels'
-plain versions, where the JAX package runs K5 (ws 24, 32, ...; ws 8 /
-16 past those widths) or ``_packed_backward`` (ws 6, 12, ...): ROADMAP
-Queue 2.
+step.  Its ws-7 backward launches count as K6b.  A K7-route block that
+``tiled_bwd_ok`` takes trains through ``WindowBlockFunction``: forward
+the route's K2, gathers, K7 and K1t, backward
+``csrc/swin_block_bwd16.cu``, at any MLP hidden (K5a walks the MLP in
+64-column chunks): at ws 16 within the block kernel's C and
+heads (``k5w16_ok``: C <= 192, <= 6 heads of hd <= 32; upstream
+HAT-SRx4's HABs at mlp 2, the JAX train CLI's HAT at window 16 and mlp
+4) counted as K5w16, K5a running the windows' 64-token tiles in three
+token-local launches around two attention kernels over (window, head)
+units (``bwd16_plan``); at ws 8 past the block kernel's widths
+(``k5r_ok``: C <= 256, <= 8 heads of hd <= 32; SwinIR-L at mlp 2 or 4)
+counted as K5r, the same launches with a window one unit and K5a at
+padded width 256 (``k5r_plan``); both on one ``pack_block_tiles`` pack
+a step.  At the route's other shapes the backward is still autograd of
+the kernels' plain versions, where the JAX package runs K5 (ws 24, 32,
+...; ws 16 past C 192 or 6 heads; hd > 32) or ``_packed_backward`` (ws
+6, 12, ...; ws 7 past the block kernel's widths): ROADMAP Queue 2.
+Without a qkv bias the JAX package's backward is ``jax.vjp`` of its
+reference block, whose counterpart is that autograd.
 """
 
 from __future__ import annotations
@@ -121,7 +126,7 @@ from tpu_superresolution_torch.ops.window import (
 KERNEL_WINDOWS = (7, 8)  # window sizes of the forward and backward kernels
 CP = 192     # padded channels
 HDP = 32     # padded head dim
-HIDP = 384   # padded MLP hidden
+HIDP = 384   # the block kernel's MLP hidden at most (K1 / K6, K5 / K6b)
 MAX_HEADS = CP // HDP
 LN_EPS = 1e-5
 N_TOK = 64   # token rows per window in the kernels (ws^2, padded)
@@ -143,7 +148,6 @@ BWD16_WINDOW = 16  # the window of csrc/swin_block_bwd16.cu
 K5R_WINDOW = 8
 K5R_CP = 256
 K5R_HEADS = 8
-K5R_HIDDEN = 512
 K5R_PW = 128
 BLOCK_PW = 96  # the block kernel's N parts (its "halves")
 # the counters of the forward and backward kernels for each window size
@@ -225,16 +229,24 @@ class SwinBlockGrads:
     extra: Optional[torch.Tensor] = None
 
 
+def _stream_widths(c: int, heads: int) -> bool:
+    """Whether C and the heads fit the block kernel's instantiations (C
+    <= 192, <= 6 heads of hd <= 32), at any MLP hidden: K5a walks the
+    MLP in 64-column chunks, so its layout (``stream_layout``) takes any
+    hidden, and K5w16 and the OCAB kernels take it."""
+    return c % heads == 0 and c <= CP and c // heads <= HDP and heads <= MAX_HEADS
+
+
 def _block_widths(c: int, heads: int, hidden: int) -> bool:
-    """Whether C, the heads and the MLP hidden fit the block kernel."""
-    return (c % heads == 0 and c <= CP and c // heads <= HDP and heads <= MAX_HEADS
-            and hidden <= HIDP)
+    """Whether C, the heads and the MLP hidden fit the block kernel
+    (K1 / K6 forward, K5 / K6b backward: hidden <= 384)."""
+    return _stream_widths(c, heads) and hidden <= HIDP
 
 
-def _k5r_widths(c: int, heads: int, hidden: int) -> bool:
-    """Whether C, the heads and the MLP hidden fit K5r's instantiation."""
-    return (c % heads == 0 and c <= K5R_CP and c // heads <= HDP and heads <= K5R_HEADS
-            and hidden <= K5R_HIDDEN)
+def _k5r_widths(c: int, heads: int) -> bool:
+    """Whether C and the heads fit K5r's instantiation (C <= 256, <= 8
+    heads of hd <= 32), at any MLP hidden."""
+    return c % heads == 0 and c <= K5R_CP and c // heads <= HDP and heads <= K5R_HEADS
 
 
 def _check_widths(w: SwinBlockWeights) -> None:
@@ -274,28 +286,34 @@ def block_route(ws: int, c: int, heads: int, hidden: int, qkv_bias: bool = True)
     return "window_attention"
 
 
+def tiled_bwd_ok(ws: int, c: int, heads: int, hidden: int, qkv_bias: bool = True) -> bool:
+    """Whether a K7-route block trains through ``WindowBlockFunction``
+    (backward ``csrc/swin_block_bwd16.cu``), at any MLP hidden: at ws 16
+    within the block kernel's C and heads (C <= 192, <= 6 heads of hd <=
+    32: K5w16; upstream HAT-SRx4's HABs, and the JAX train CLI's HAT at
+    window 16 and mlp 4, hidden 720); at ws 8 past the block kernel's
+    widths (``block_route`` sends it to the K7 route) within K5r's C and
+    heads (C <= 256, <= 8 heads of hd <= 32: SwinIR-L, at mlp 2 or 4).
+    A qkv bias is required: without one the JAX package's backward is
+    ``jax.vjp`` of its reference block, and the port's autograd of the
+    plain versions is its counterpart.  The rest of the route trains
+    through autograd of its kernels' plain versions.  Shapes only, as
+    ``block_route``."""
+    if not qkv_bias:
+        return False
+    if ws == BWD16_WINDOW:
+        return _stream_widths(c, heads)
+    return ws == K5R_WINDOW and not _block_widths(c, heads, hidden) and _k5r_widths(c, heads)
+
+
 def k5w16_ok(ws: int, c: int, heads: int, hidden: int, qkv_bias: bool = True) -> bool:
-    """Whether a "window_attention"-route block of window `ws` trains
-    through K5 at ws 16 (``WindowBlockFunction``): ws 16 within the block
-    kernel's widths.  Shapes only, as ``block_route``."""
-    return ws == BWD16_WINDOW and qkv_bias and _block_widths(c, heads, hidden)
+    """``tiled_bwd_ok`` at ws 16: the block trains through K5w16."""
+    return ws == BWD16_WINDOW and tiled_bwd_ok(ws, c, heads, hidden, qkv_bias)
 
 
 def k5r_ok(ws: int, c: int, heads: int, hidden: int, qkv_bias: bool = True) -> bool:
-    """Whether a "window_attention"-route block of window `ws` trains
-    through K5r (``WindowBlockFunction``): ws 8 past the block kernel's
-    widths (so ``block_route`` sends it to the K7 route) within K5r's: C
-    <= 256, <= 8 heads of hd <= 32, hidden <= 512 (SwinIR-L: C 240, 8
-    heads, hidden 480).  Shapes only, as ``block_route``."""
-    return (ws == K5R_WINDOW and qkv_bias and not _block_widths(c, heads, hidden)
-            and _k5r_widths(c, heads, hidden))
-
-
-def tiled_bwd_ok(ws: int, c: int, heads: int, hidden: int, qkv_bias: bool = True) -> bool:
-    """Whether a K7-route block trains through ``WindowBlockFunction``
-    (backward K5w16 or K5r, ``csrc/swin_block_bwd16.cu``); the rest of
-    the route trains through autograd of its kernels' plain versions."""
-    return k5w16_ok(ws, c, heads, hidden, qkv_bias) or k5r_ok(ws, c, heads, hidden, qkv_bias)
+    """``tiled_bwd_ok`` at ws 8: the block trains through K5r."""
+    return ws == K5R_WINDOW and tiled_bwd_ok(ws, c, heads, hidden, qkv_bias)
 
 
 def check_block_args(shape: Sequence[int], w: SwinBlockWeights, ws: int, shift: int,
@@ -349,26 +367,32 @@ class StreamLayout:
 
 
 @functools.lru_cache(maxsize=64)
-def stream_layout(c: int, heads: int, hidden: int) -> StreamLayout:
-    """The stream's layout from static shapes alone.  Within the block
-    kernel's widths (C <= 192, <= 6 heads of hd <= 32, hidden <= 384) its
-    instantiation's: hd padded to 16 or 32, the width to 96 where C and
-    the heads' padded dims fit, else 192, N parts of 96 rows.  Past them,
-    within K5r's (C <= 256, <= 8 heads of hd <= 32, hidden <= 512), K5r's:
-    width 256, hd 32, N parts of 128 rows.  Raises ValueError past
-    both."""
+def stream_layout(c: int, heads: int, hidden: int, k5r: bool = False) -> StreamLayout:
+    """The stream's layout from static shapes alone: the padded width,
+    head dim and N parts from C and the heads, the 64-column hidden
+    chunks from the hidden (any hidden).  Within the block kernel's C
+    and heads (C <= 192, <= 6 heads of hd <= 32) its instantiation's: hd
+    padded to 16 or 32, the width to 96 where C and the heads' padded
+    dims fit, else 192, N parts of 96 rows (the block kernel, K5 / K6b,
+    K5w16 and the OCAB kernels read it).  Past them, or for K5r (`k5r`:
+    a ws-8 block ``k5r_ok`` takes, whose C and heads may fit the block
+    kernel's while its hidden does not), within K5r's (C <= 256, <= 8
+    heads of hd <= 32): width 256, hd 32, N parts of 128 rows.  Raises
+    ValueError past both."""
+    if hidden < 1:
+        raise ValueError(f"swin_block kernels: hidden={hidden}")
     chunks = -(-hidden // BLOCK_HC)
-    if _block_widths(c, heads, hidden):
+    if not k5r and _stream_widths(c, heads):
         hdp = 16 if c // heads <= 16 else 32
         cp = 96 if c <= 96 and heads * hdp <= 96 else 192
         return StreamLayout(cp=cp, hdp=hdp, kc=-(-cp // 64), halves=cp // BLOCK_PW,
                             chunks=chunks, pw=BLOCK_PW)
-    if _k5r_widths(c, heads, hidden):
+    if _k5r_widths(c, heads):
         return StreamLayout(cp=K5R_CP, hdp=HDP, kc=K5R_CP // 64, halves=K5R_CP // K5R_PW,
                             chunks=chunks, pw=K5R_PW)
-    raise ValueError(f"swin_block kernel takes C <= {CP}, hd <= {HDP}, heads <= {MAX_HEADS}, "
-                     f"hidden <= {HIDP} (K5r's backward C <= {K5R_CP}, heads <= {K5R_HEADS}, "
-                     f"hidden <= {K5R_HIDDEN}); got C={c}, heads={heads}, hidden={hidden}")
+    raise ValueError(f"swin_block kernel takes C <= {CP}, hd <= {HDP}, heads <= {MAX_HEADS} "
+                     f"(K5r's backward C <= {K5R_CP}, heads <= {K5R_HEADS}); got C={c}, "
+                     f"heads={heads}, hidden={hidden}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -444,7 +468,7 @@ class PackedBlockTiles:
 
 
 @functools.lru_cache(maxsize=64)
-def _tile_indices(c: int, heads: int, hidden: int, device: torch.device):
+def _tile_indices(c: int, heads: int, hidden: int, device: torch.device, k5r: bool = False):
     """For each element of ``pack_block_tiles``' weight stream and of its
     bias vector, the index in the flat sources it gathers from: weights
     [wqkv (q rows pre-scaled) | wproj | wfc1 | wfc2 | 0], biases [bqkv
@@ -453,7 +477,7 @@ def _tile_indices(c: int, heads: int, hidden: int, device: torch.device):
     block on every step)."""
     from tpu_superresolution_torch.kernels.cab_conv import _swizzle_rows
 
-    lay = stream_layout(c, heads, hidden)
+    lay = stream_layout(c, heads, hidden, k5r)
     hd, hdp, kc, halves, chunks = c // heads, lay.hdp, lay.kc, lay.halves, lay.chunks
     k, n_out, hid, pw = kc * 64, lay.cp, chunks * BLOCK_HC, lay.pw
     zero = 4 * c * c + 2 * hidden * c
@@ -489,14 +513,16 @@ def pack_block_tiles(w: SwinBlockWeights, dtype: torch.dtype = torch.bfloat16
     weights at inference (``SwinBlock``'s cache), once per step in
     training (two gathers from the flat weights and biases).  `dtype`
     float32 keeps the weights unrounded (the CPU tests' emulation of the
-    kernel).  Takes the block kernel's widths and K5r's
-    (``stream_layout``)."""
+    kernel).  Takes the block kernel's C and heads at any hidden, and
+    K5r's (``stream_layout``; K5r's layout for a block ``k5r_ok``
+    takes)."""
     if w.bqkv is None:
         raise ValueError("swin_block kernels take qkv_bias=True only")
     c, nh, hidden = w.dim, w.num_heads, int(w.wfc1.shape[0])
-    lay = stream_layout(c, nh, hidden)
+    k5r = k5r_ok(w.window_size, c, nh, hidden)
+    lay = stream_layout(c, nh, hidden, k5r)
     dev = w.wqkv.device
-    tile_idx, bias_idx, q_scale = _tile_indices(c, nh, hidden, dev)
+    tile_idx, bias_idx, q_scale = _tile_indices(c, nh, hidden, dev, k5r)
     f = lambda t: t.detach().float()
     zero = torch.zeros(1, device=dev)
     src = torch.cat([(f(w.wqkv) * q_scale).reshape(-1), f(w.wproj).reshape(-1),
@@ -1175,16 +1201,18 @@ class BwdPlan:
 
 
 @functools.lru_cache(maxsize=64)
-def bwd_plan(c: int, heads: int, hidden: int) -> BwdPlan:
+def bwd_plan(c: int, heads: int, hidden: int, k5r: bool = False) -> BwdPlan:
     """The backward kernels' plan from static shapes alone (the C entry
     only checks it): the stream's padded widths (``stream_layout``), then
     two windows' buffers (A and R buffers of cp columns in 64-column
     swizzled chunks, q, k, v tiles [64, hdp], 1 KB of statistics), the
     bias table and the barriers, and as many ring stages (a [pw, 64] tile
-    each: 12 KB, 16 KB at K5r's widths) as fit, at most 8.  Raises
-    ValueError past K5r's widths (C <= 256, <= 8 heads of hd <= 32,
-    hidden <= 512)."""
-    lay = stream_layout(c, heads, hidden)
+    each: 12 KB, 16 KB at K5r's widths) as fit, at most 8.  The hidden
+    sizes only what is counted in chunks (the workspace's act and dh1
+    tiles, bfc1, the weight stream, K5b's units), none of a CTA's shared
+    memory.  `k5r`: K5r's layout (``stream_layout``).  Raises ValueError
+    past K5r's C and heads (C <= 256, <= 8 heads of hd <= 32)."""
+    lay = stream_layout(c, heads, hidden, k5r)
     cp, hdp, kc, halves, chunks, pw = lay.cp, lay.hdp, lay.kc, lay.halves, lay.chunks, lay.pw
     window = 2 * kc * 8192 + 3 * 64 * 2 * hdp + BWD_STAT_BYTES
     fixed = 1024 + 2 * window + BLOCK_TABLE_BYTES + 2 * BWD_MAX_STAGES * 8
@@ -1229,13 +1257,13 @@ FOLD_FIELDS = ("wqkv", "wproj", "wfc1", "wfc2", "bqkv", "bproj", "bfc1", "bfc2",
 
 
 @functools.lru_cache(maxsize=64)
-def _fold_indices(c: int, heads: int, hidden: int, device: torch.device):
+def _fold_indices(c: int, heads: int, hidden: int, device: torch.device, k5r: bool = False):
     """For each raw weight, bias and LN entry (FOLD_FIELDS' order, flat),
     its position in the backward's [weight stream | sums' vector]
     gradient (each real entry sits there exactly once: ``_tile_indices``
     gathers the other way), and the factor it takes (q's pre-scale)."""
-    plan = bwd_plan(c, heads, hidden)
-    tile_idx, bias_idx, q_scale = _tile_indices(c, heads, hidden, torch.device("cpu"))
+    plan = bwd_plan(c, heads, hidden, k5r)
+    tile_idx, bias_idx, q_scale = _tile_indices(c, heads, hidden, torch.device("cpu"), k5r)
     pos = []
     for idx, n_src, base in ((tile_idx, 4 * c * c + 2 * hidden * c, 0),
                              (bias_idx, 5 * c + hidden, plan.stream_len)):
@@ -1263,7 +1291,7 @@ def fold_block_grads(gv: torch.Tensor, rpb: torch.Tensor, c: int, heads: int, hi
     part, the LN params from its tail; one gather and one multiply.
     d(rpb) [heads, N, N] from the [heads, 64, 64] token-padded one (ws
     7 / 8) or as it is (ws 16: [heads, 256, 256])."""
-    idx, factor = _fold_indices(c, heads, hidden, gv.device)
+    idx, factor = _fold_indices(c, heads, hidden, gv.device, k5r_ok(ws, c, heads, hidden))
     flat = gv[idx].mul_(factor)
     shapes = dict(wqkv=(3 * c, c), wproj=(c, c), wfc1=(hidden, c), wfc2=(c, hidden),
                   bqkv=(3 * c,), bproj=(c,), bfc1=(hidden,), bfc2=(c,), g1=(c,), b1=(c,),
@@ -1419,7 +1447,7 @@ class TiledBwdPlan:
 
 
 def _tiled_plan(ws: int, c: int, heads: int, hidden: int, windows: int, sms: int) -> TiledBwdPlan:
-    plan = bwd_plan(c, heads, hidden)
+    plan = bwd_plan(c, heads, hidden, ws == K5R_WINDOW)
     n = ws * ws
     wps = TILED_WINDOWS_A_STAGE[ws]
     units = n // 64 * windows
@@ -1441,10 +1469,10 @@ def _tiled_plan(ws: int, c: int, heads: int, hidden: int, windows: int, sms: int
 def bwd16_plan(c: int, heads: int, hidden: int, windows: int, sms: int) -> TiledBwdPlan:
     """K5w16's plan from static shapes alone (the C entry only checks
     it).  Raises ValueError outside ``k5w16_ok``'s widths (C <= 192, <= 6
-    heads of hd <= 32, hidden <= 384)."""
+    heads of hd <= 32, any hidden)."""
     if not k5w16_ok(BWD16_WINDOW, c, heads, hidden):
-        raise ValueError(f"K5w16 takes C <= {CP}, <= {MAX_HEADS} heads of hd <= {HDP}, hidden "
-                         f"<= {HIDP}; got C={c}, heads={heads}, hidden={hidden}")
+        raise ValueError(f"K5w16 takes C <= {CP}, <= {MAX_HEADS} heads of hd <= {HDP}; got "
+                         f"C={c}, heads={heads}, hidden={hidden}")
     return _tiled_plan(BWD16_WINDOW, c, heads, hidden, windows, sms)
 
 
@@ -1454,11 +1482,11 @@ def k5r_plan(c: int, heads: int, hidden: int, windows: int, sms: int) -> TiledBw
     K5a's ws-8 modes at cp 256 / hdp 32 over a unit a window, the
     attention over stages of four windows.  Raises ValueError outside
     ``k5r_ok``'s widths (past the block kernel's, C <= 256, <= 8 heads of
-    hd <= 32, hidden <= 512)."""
+    hd <= 32, any hidden)."""
     if not k5r_ok(K5R_WINDOW, c, heads, hidden):
         raise ValueError(f"K5r takes ws-8 blocks past the block kernel's widths with C <= "
-                         f"{K5R_CP}, <= {K5R_HEADS} heads of hd <= {HDP}, hidden <= "
-                         f"{K5R_HIDDEN}; got C={c}, heads={heads}, hidden={hidden}")
+                         f"{K5R_CP}, <= {K5R_HEADS} heads of hd <= {HDP}; got C={c}, "
+                         f"heads={heads}, hidden={hidden}")
     return _tiled_plan(K5R_WINDOW, c, heads, hidden, windows, sms)
 
 

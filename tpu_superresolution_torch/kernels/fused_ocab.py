@@ -24,9 +24,10 @@ autograd; on a CUDA tensor it launches K8 (through ``OcabCoreFunction``
 when a gradient is wanted, whose backward is K8's backward, K8b) or
 raises.  The kernels take (ws, ows) = (7, 10) or (8, 12)
 (``csrc/ocab_bwd.cu``) and (16, 24), upstream HAT's OCAB, at C <= 192,
-heads of hd <= 32 (at most 6) and an MLP hidden <= 384 (``ocab_ok``);
-HAT's OCAB trains through them where they do, and through its module
-path with K15 (``window_attention.fused_window_attention``) elsewhere.
+heads of hd <= 32 (at most 6) and any MLP hidden (``ocab_ok``: K5a
+walks the MLP in 64-column chunks); HAT's OCAB trains through them
+where they do, and through its module path with K15
+(``window_attention.fused_window_attention``) elsewhere.
 
 At ws 7 and 8 K8 and K8b run K8w16 / K8bw16's split on Hopper's wgmma,
 on one weight pack (``pack_ocab_tiles``' stream, once a call): the
@@ -76,7 +77,6 @@ from tpu_superresolution_torch.kernels.fused_block import (
     BWD_TILE,
     CP,
     HDP,
-    HIDP,
     LN_EPS,
     MAX_HEADS,
     BwdPlan,
@@ -236,9 +236,11 @@ def ocab_core_bwd_plain(ct: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: t
 def ocab_ok(ws: int, ows: int, c: int, nh: int, hidden: int) -> bool:
     """Whether K8 and K8b take an OCAB of window `ws`, overlap window
     `ows`, C channels, `nh` heads and MLP hidden `hidden` (static shapes
-    only, so the route is the same on every device)."""
+    only, so the route is the same on every device): the three (ws, ows)
+    of ``KERNEL_WINDOWS``, C <= 192, <= 6 heads of hd <= 32, any hidden
+    >= 1 (the stream's chunk count; ``fused_block.stream_layout``)."""
     return ((ws, ows) in KERNEL_WINDOWS and c <= CP and c % nh == 0 and c // nh <= HDP
-            and nh <= MAX_HEADS and hidden <= HIDP)
+            and nh <= MAX_HEADS and hidden >= 1)
 
 
 def check_ocab_args(q_shape, k_shape, sw_shape, w: OcabWeights, bias_shape,
@@ -258,8 +260,7 @@ def check_ocab_args(q_shape, k_shape, sw_shape, w: OcabWeights, bias_shape,
         raise ValueError(f"{name}: weights for C={c}; q {tuple(q_shape)}, k {tuple(k_shape)}")
     if not ocab_ok(ws, ows, c, nh, hidden):
         raise ValueError(f"{name}: the kernel takes C <= {CP}, hd <= {HDP}, heads <= "
-                         f"{MAX_HEADS}, hidden <= {HIDP}; got C={c}, heads={nh}, "
-                         f"hidden={hidden}")
+                         f"{MAX_HEADS}; got C={c}, heads={nh}, hidden={hidden}")
     if tuple(bias_shape) != (nh, q_shape[1], k_shape[1]):
         raise ValueError(f"{name}: bias {tuple(bias_shape)}, expected "
                          f"{(nh, q_shape[1], k_shape[1])}")
@@ -511,8 +512,8 @@ def ocab16_plan(c: int, heads: int, hidden: int, windows: int, sms: int) -> Ocab
     """K8w16's / K8bw16's plan from static shapes alone (the C entries
     only check it).  Raises ValueError outside ``ocab_ok``'s widths."""
     if not ocab_ok(*W16, c, heads, hidden):
-        raise ValueError(f"K8w16 takes C <= {CP}, <= {MAX_HEADS} heads of hd <= {HDP}, hidden "
-                         f"<= {HIDP}; got C={c}, heads={heads}, hidden={hidden}")
+        raise ValueError(f"K8w16 takes C <= {CP}, <= {MAX_HEADS} heads of hd <= {HDP}; got "
+                         f"C={c}, heads={heads}, hidden={hidden}")
     plan = bwd_plan(c, heads, hidden)
     units = windows * W16_NQ // 64
     grid, splits = bwd_grid(plan, units, sms)
@@ -699,8 +700,8 @@ def ocab_bwd_plan(ws: int, ows: int, c: int, heads: int, hidden: int, windows: i
     12)."""
     if (ws, ows) == W16 or not ocab_ok(ws, ows, c, heads, hidden):
         raise ValueError(f"K8b takes (ws, ows) (7, 10) or (8, 12), C <= {CP}, <= {MAX_HEADS} "
-                         f"heads of hd <= {HDP}, hidden <= {HIDP}; got ({ws}, {ows}), C={c}, "
-                         f"heads={heads}, hidden={hidden}")
+                         f"heads of hd <= {HDP}; got ({ws}, {ows}), C={c}, heads={heads}, "
+                         f"hidden={hidden}")
     plan = bwd_plan(c, heads, hidden)
     grid, splits = bwd_grid(plan, windows, sms)
     return OcabBwdPlan(block=plan, ws=ws, ows=ows, windows=windows, grid=grid, splits=splits,

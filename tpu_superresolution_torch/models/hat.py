@@ -20,8 +20,8 @@ modules/hat_arch.py:710-994).
   (``OCAB._fused``: K2 LN1, the qkv product with q pre-scaled, the
   gather as plain ops, then K8, the fused attention -> proj -> LN2 ->
   MLP core) where K8 takes the shapes (``fused_ocab.ocab_ok``: ws 7, 8
-  and 16 at C <= 192, hidden <= 384) in training, and at upstream HAT's
-  ws 16 at inference too (K8w16: ``OCAB.takes_fused``, chosen on the
+  and 16 at C <= 192, <= 6 heads of hd <= 32, any MLP hidden) in
+  training, and at ws 16 (upstream HAT-SRx4, or mlp 4) at inference too (K8w16: ``OCAB.takes_fused``, chosen on the
   card); else the module path: K2 LN1, the qkv product, the window
   partition and overlap gather, K15 (the rectangular window attention,
   ws^2 queries against ows^2 keys), the proj, K2 LN2 and the MLP (HAT's

@@ -191,8 +191,8 @@ class SwinBlock(nn.Module):
         weights (with the relative-position table) are packed once per
         loaded weights, and K7 takes the bias and mask as the table and
         the map's token codes.  In training on CUDA a block that
-        ``tiled_bwd_ok`` takes (ws 16 within the block kernel's widths; ws 8
-        past them, to C 256, 8 heads, hidden 512) runs that composition
+        ``tiled_bwd_ok`` takes (any hidden: ws 16 within the block kernel's
+        C and heads; ws 8 past its widths, to C 256, 8 heads) runs that composition
         forward and K5w16 / K5r backward (``fused_block.window_block_tiled``);
         elsewhere the backward is autograd of the wrappers."""
         pa = pt = codes = None
